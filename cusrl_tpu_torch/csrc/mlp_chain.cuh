@@ -1,0 +1,159 @@
+// Shared definitions of the fused Linear+activation chain kernels for Hopper
+// (sm_90a): the parameter block passed from Python through ctypes, the tile
+// constants, the activations, and the block-level bf16 tensor-core GEMM.
+//
+// Numerics follow the TPU kernels in cusrl_tpu/nn/kernels/fused_mlp.py:
+// bf16 operands, fp32 accumulation, fp32 bias, round to bf16, activation in
+// fp32 on that bf16 value, round to bf16 again.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stddef.h>
+
+#define MLP_MAX_LAYERS 8
+#define MLP_MAX_WIDTH 512
+
+// Mirrored field by field by ctypes in cusrl_tpu_torch/nn/kernels/fused_mlp.py
+// (_Chain / _Params): every pointer is a void*, every scalar an int.
+struct MlpChain {
+  void* x;                       // [N, dims[0]] fp32 or bf16 (x_is_bf16)
+  void* w[MLP_MAX_LAYERS];       // [dims[l+1], dims[l]] fp32 ([out, in] layout)
+  void* b[MLP_MAX_LAYERS];       // [dims[l+1]] fp32
+  void* h[MLP_MAX_LAYERS];       // [N, dims[l+1]] bf16: layer l output (l = L-1: the chain output)
+  void* g;                       // bwd: [N, dims[L]] bf16 cotangent of the chain output
+  void* d[MLP_MAX_LAYERS];       // bwd scratch: [N, dims[l+1]] bf16(d_l)
+  void* dbp[MLP_MAX_LAYERS];     // bwd scratch: [row_tiles, dims[l+1]] fp32 per-tile db partials
+  void* dw[MLP_MAX_LAYERS];      // bwd out: [dims[l+1], dims[l]] fp32
+  void* db[MLP_MAX_LAYERS];      // bwd out: [dims[l+1]] fp32
+  void* dx;                      // bwd out: [N, dims[0]] fp32 (unused with skip_input_grad)
+};
+
+struct MlpParams {
+  MlpChain chain[2];
+  int dims[MLP_MAX_LAYERS + 1];
+  int num_layers;
+  int num_rows;
+  int activation;       // 0 identity, 1 elu, 2 relu, 3 tanh
+  int trailing;         // activation after the last layer
+  int save_hiddens;     // fwd: write h_1..h_{L-1} (the chain output is always written)
+  int x_is_bf16;
+  int skip_input_grad;  // bwd: no dX for layer 0
+};
+
+namespace mlp {
+
+using bf16 = __nv_bfloat16;
+namespace wmma = nvcuda::wmma;
+
+constexpr int BM = 64;                    // rows per block (row tile)
+constexpr int NC = 128;                   // output columns per GEMM chunk
+constexpr int KS = 64;                    // reduction depth staged per step
+constexpr int THREADS = 256;              // 8 warps: 4 (16-row) x 2 (64-col)
+constexpr int HLD = MLP_MAX_WIDTH + 8;    // bf16 activation tile leading dim
+constexpr int WLD_COL = KS + 8;           // staged W slice [NC][KS] (fwd)
+constexpr int WLD_ROW = NC + 8;           // staged W slice [KS][NC] (bwd data)
+constexpr int SLD = NC + 4;               // fp32 accumulator staging leading dim
+
+constexpr size_t ACT_BYTES = size_t(BM) * HLD * sizeof(bf16);
+constexpr size_t WS_BYTES =
+    (size_t(NC) * WLD_COL > size_t(KS) * WLD_ROW ? size_t(NC) * WLD_COL : size_t(KS) * WLD_ROW) * sizeof(bf16);
+constexpr size_t STG_BYTES = size_t(BM) * SLD * sizeof(float);
+// Two activation tiles (ping-pong), one staged weight slice, one fp32 staging tile.
+constexpr size_t SMEM_BYTES = 2 * ACT_BYTES + WS_BYTES + STG_BYTES;
+static_assert(ACT_BYTES % 128 == 0 && WS_BYTES % 128 == 0, "smem regions must stay 128-byte aligned");
+static_assert(SMEM_BYTES <= 232448, "exceeds the 227 KB a block may use");
+
+__device__ __forceinline__ float bf16_round(float v) { return __bfloat162float(__float2bfloat16(v)); }
+
+// Activation on the bf16-rounded pre-activation, in fp32 (fused_mlp.py:_act_kernel).
+__device__ __forceinline__ float act_fwd(int activation, float z) {
+  switch (activation) {
+    case 1: return z > 0.f ? z : expf(fminf(z, 0.f)) - 1.f;
+    case 2: return fmaxf(z, 0.f);
+    case 3: return tanhf(z);
+    default: return z;
+  }
+}
+
+// Derivative from the saved POST-activation h (fused_mlp.py:_dact_from_h).
+__device__ __forceinline__ float act_grad_from_h(int activation, float h) {
+  switch (activation) {
+    case 1: return fminf(h + 1.f, 1.f);
+    case 2: return h > 0.f ? 1.f : 0.f;
+    case 3: return 1.f - h * h;
+    default: return 1.f;
+  }
+}
+
+// One NC-column chunk of C[BM, n_total] = A[BM, K] * B[K, n_total], columns
+// [n0, n0 + NC), into the fp32 staging tile `stg` ([BM][SLD]).
+//   A: bf16 in shared memory, row-major, leading dim HLD.
+//   B comes from the fp32 weight W ([out, in] row-major, row length w_ld):
+//     W_IS_NK = true : B(k, n) = W[n][k]  (forward: y = h W^T)
+//     W_IS_NK = false: B(k, n) = W[k][n]  (backward data: d_in = d_out W)
+//   Each KS-deep slice of B is converted to bf16 into `ws` and consumed by
+//   16x16x16 bf16 WMMA products with fp32 accumulators.
+// K and n_total must be multiples of 16.  Ends with a block barrier, after
+// which `stg` holds the chunk for every thread.
+template <bool W_IS_NK>
+__device__ void gemm_chunk(const bf16* A, int K, const float* __restrict__ W, int w_ld, int n0, int n_total,
+                           bf16* ws, float* stg) {
+  const int warp = threadIdx.x / 32;
+  const int wr = warp & 3;   // 16-row fragment row
+  const int wc = warp >> 2;  // 64-column half
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
+#pragma unroll
+  for (int f = 0; f < 4; ++f) wmma::fill_fragment(acc[f], 0.f);
+
+  for (int k0 = 0; k0 < K; k0 += KS) {
+    __syncthreads();  // previous readers of ws / stg are done
+    if (W_IS_NK) {
+      for (int i = threadIdx.x; i < NC * KS; i += THREADS) {
+        const int n = i / KS, k = i % KS;
+        const int gn = n0 + n, gk = k0 + k;
+        const float v = (gn < n_total && gk < K) ? W[size_t(gn) * w_ld + gk] : 0.f;
+        ws[n * WLD_COL + k] = __float2bfloat16(v);
+      }
+    } else {
+      for (int i = threadIdx.x; i < KS * NC; i += THREADS) {
+        const int k = i / NC, n = i % NC;
+        const int gn = n0 + n, gk = k0 + k;
+        const float v = (gn < n_total && gk < K) ? W[size_t(gk) * w_ld + gn] : 0.f;
+        ws[k * WLD_ROW + n] = __float2bfloat16(v);
+      }
+    }
+    __syncthreads();
+    const int kmax = min(KS, K - k0);
+    for (int kk = 0; kk < kmax; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      wmma::load_matrix_sync(a, A + wr * 16 * HLD + k0 + kk, HLD);
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int nl = wc * 64 + f * 16;
+        if (n0 + nl < n_total) {  // warp-uniform
+          if (W_IS_NK) {
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
+            wmma::load_matrix_sync(b, ws + nl * WLD_COL + kk, WLD_COL);
+            wmma::mma_sync(acc[f], a, b, acc[f]);
+          } else {
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+            wmma::load_matrix_sync(b, ws + kk * WLD_ROW + nl, WLD_ROW);
+            wmma::mma_sync(acc[f], a, b, acc[f]);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int f = 0; f < 4; ++f) {
+    const int nl = wc * 64 + f * 16;
+    if (n0 + nl < n_total) wmma::store_matrix_sync(stg + wr * 16 * SLD + nl, acc[f], SLD, wmma::mem_row_major);
+  }
+  __syncthreads();
+}
+
+}  // namespace mlp
+
+extern "C" const char* mlp_chain_error_string(int code);

@@ -1,0 +1,91 @@
+// mlp_chain_fwd: the whole Linear+activation chain per 64-row tile, for one
+// chain (K1f) or two same-shape chains selected by blockIdx.y (K2f).
+//
+// Replaces the Pallas kernels cusrl_tpu/nn/kernels/fused_mlp.py:_fwd_kernel
+// (via _run_fwd, fused_mlp) and _pair_fwd_kernel (via _pair_run_fwd,
+// fused_mlp_pair).
+//
+// What bounds it on the H100: at the main-path widths 48->512->256->128 the
+// chain does 2 * 188,416 FLOP per row against ~96 bytes of x in and 256 bytes
+// of output out (plus 1,792 bytes of saved hiddens per row on the grad path),
+// so by the roofline it is compute bound (~1,000 FLOP/byte without saved
+// hiddens).  Design:
+//   * the activation tile (64 rows x up to 512 bf16) stays in shared memory
+//     through the whole chain (ping-pong between two tiles), so hidden
+//     activations never touch device memory unless the backward needs them;
+//   * one chain's bf16 weights (368 KB) exceed the 227 KB a block may use, so
+//     each layer's fp32 weights stream from L2 in 128x64 slices, converted to
+//     bf16 as they are staged;
+//   * products are 16x16x16 bf16 WMMA tensor-core operations with fp32
+//     accumulators; the epilogue (bias, bf16 rounding, activation) runs on an
+//     fp32 staging tile in shared memory.
+// Not yet done (later work): wgmma/TMA, keeping bf16 weights resident across
+// tiles (persistent blocks), double-buffered weight staging.
+#include "mlp_chain.cuh"
+
+namespace mlp {
+
+__global__ void __launch_bounds__(THREADS) mlp_chain_fwd_kernel(const MlpParams p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* act[2] = {reinterpret_cast<bf16*>(smem), reinterpret_cast<bf16*>(smem + ACT_BYTES)};
+  bf16* ws = reinterpret_cast<bf16*>(smem + 2 * ACT_BYTES);
+  float* stg = reinterpret_cast<float*>(smem + 2 * ACT_BYTES + WS_BYTES);
+
+  const MlpChain& c = p.chain[blockIdx.y];
+  const int row0 = blockIdx.x * BM;
+  const int n_rows = p.num_rows;
+  const int num_layers = p.num_layers;
+
+  // x tile -> bf16 activation tile (rows past the end are zero).
+  const int in0 = p.dims[0];
+  for (int i = threadIdx.x; i < BM * in0; i += THREADS) {
+    const int r = i / in0, k = i % in0;
+    const int gr = row0 + r;
+    float v = 0.f;
+    if (gr < n_rows) {
+      v = p.x_is_bf16 ? __bfloat162float(reinterpret_cast<const bf16*>(c.x)[size_t(gr) * in0 + k])
+                      : reinterpret_cast<const float*>(c.x)[size_t(gr) * in0 + k];
+    }
+    act[0][r * HLD + k] = __float2bfloat16(v);
+  }
+
+  int cur = 0;
+  for (int l = 0; l < num_layers; ++l) {
+    const int K = p.dims[l], n_out = p.dims[l + 1];
+    const bool apply_act = (l < num_layers - 1) || p.trailing;
+    const bool write_global = (l == num_layers - 1) || p.save_hiddens;
+    const float* W = reinterpret_cast<const float*>(c.w[l]);
+    const float* bias = reinterpret_cast<const float*>(c.b[l]);
+    bf16* out = reinterpret_cast<bf16*>(c.h[l]);
+    for (int n0 = 0; n0 < n_out; n0 += NC) {
+      gemm_chunk<true>(act[cur], K, W, K, n0, n_out, ws, stg);
+      const int ncols = min(NC, n_out - n0);
+      for (int i = threadIdx.x; i < BM * ncols; i += THREADS) {
+        const int r = i / ncols, j = i % ncols;
+        const float zb = bf16_round(stg[r * SLD + j] + bias[n0 + j]);
+        const bf16 hb = __float2bfloat16(apply_act ? act_fwd(p.activation, zb) : zb);
+        act[cur ^ 1][r * HLD + n0 + j] = hb;
+        const int gr = row0 + r;
+        if (write_global && gr < n_rows) out[size_t(gr) * n_out + n0 + j] = hb;
+      }
+    }
+    cur ^= 1;
+  }
+}
+
+}  // namespace mlp
+
+extern "C" const char* mlp_chain_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Launches the forward for `num_chains` (1 or 2) chains on `stream`; returns
+// cudaGetLastError() after the launch (0 on success).
+extern "C" int mlp_chain_fwd(const MlpParams* p, int num_chains, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(mlp::mlp_chain_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(mlp::SMEM_BYTES));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((p->num_rows + mlp::BM - 1) / mlp::BM, num_chains);
+  mlp::mlp_chain_fwd_kernel<<<grid, mlp::THREADS, mlp::SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(*p);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,36 @@
+"""On-policy batch preparation (counterpart of
+``cusrl_tpu/hook/on_policy/common.py``): re-evaluates the policy on the batch
+(or takes ``curr_action_dist`` from ``JointPolicyValueEvaluation``) and writes
+the log-probabilities, entropy and probability ratios the losses read."""
+
+from __future__ import annotations
+
+import torch
+
+from cusrl_tpu_torch.template.hook import Hook
+
+__all__ = ["OnPolicyPreparation"]
+
+
+class OnPolicyPreparation(Hook):
+    training_only = True
+    batch_keys = ("observation", "action", "action_logp", "action_dist")
+
+    def objective(self, agent, metadata, batch):
+        actor = agent.actor
+        if "curr_action_dist" in batch:
+            action_dist = batch["curr_action_dist"]
+            aux = batch.get("actor_intermediate", {})
+        else:
+            action_dist, _, aux = actor(batch["observation"])
+        action_logp = actor.compute_logp(action_dist, batch["action"])
+        entropy = actor.compute_entropy(action_dist)
+        logp_ratio = action_logp - batch["action_logp"]
+        batch["curr_action_dist"] = action_dist
+        batch["actor_intermediate"] = aux
+        batch["curr_action_logp"] = action_logp
+        batch["curr_entropy"] = entropy
+        batch["action_logp_ratio"] = logp_ratio
+        batch["action_prob_ratio"] = torch.exp(logp_ratio)
+        metrics = {"ratio": logp_ratio.detach().abs().mean(), "entropy": entropy.detach().mean()}
+        return None, metrics

@@ -1,0 +1,5 @@
+"""Optimizer factory presets (counterpart of ``cusrl_tpu/preset/optimizer.py``)."""
+
+from cusrl_tpu_torch.template.optimizer import AdamFactory
+
+__all__ = ["AdamFactory"]

@@ -1,0 +1,155 @@
+"""PPO presets (counterpart of ``cusrl_tpu/preset/ppo.py``:
+``ppo_hook_suite`` and ``PpoAgentFactory``).
+
+The hook order is the JAX suite's.  Options whose hooks are not ported yet
+(observation normalization, the KL-adaptive learning rate, the fused PPO
+update, recurrent backbones) raise ``NotImplementedError`` instead of being
+dropped.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+from cusrl_tpu_torch.hook.control.initialization import ModuleInitialization
+from cusrl_tpu_torch.hook.on_policy.advantage import AdvantageNormalization
+from cusrl_tpu_torch.hook.on_policy.common import OnPolicyPreparation
+from cusrl_tpu_torch.hook.on_policy.gae import GeneralizedAdvantageEstimation
+from cusrl_tpu_torch.hook.on_policy.gradient_clipping import GradientClipping
+from cusrl_tpu_torch.hook.on_policy.joint_eval import JointPolicyValueEvaluation
+from cusrl_tpu_torch.hook.on_policy.ppo import EntropyLoss, PpoSurrogateLoss
+from cusrl_tpu_torch.hook.on_policy.stats import OnPolicyStatistics
+from cusrl_tpu_torch.hook.on_policy.value import ValueComputation, ValueLoss
+from cusrl_tpu_torch.nn.module.actor import ActorFactory
+from cusrl_tpu_torch.nn.module.critic import ValueFactory
+from cusrl_tpu_torch.nn.module.distribution import NormalDistFactory
+from cusrl_tpu_torch.nn.module.mlp import MlpFactory
+from cusrl_tpu_torch.preset.optimizer import AdamFactory
+from cusrl_tpu_torch.sampler.mini_batch_sampler import AutoMiniBatchSampler
+from cusrl_tpu_torch.template.actor_critic import ActorCriticFactory
+from cusrl_tpu_torch.template.agent import AgentFactory
+from cusrl_tpu_torch.template.environment import EnvironmentSpec
+from cusrl_tpu_torch.template.hook import Hook
+
+__all__ = ["PpoAgentFactory", "ppo_hook_suite"]
+
+
+def ppo_hook_suite(
+    orthogonal_init: bool = True,
+    normalize_observation: bool = False,
+    sparse_value_bootstrap: bool = False,
+    gae_gamma: float = 0.99,
+    gae_lamda: float = 0.95,
+    gae_lamda_value: float | None = None,
+    normalize_advantage: bool = True,
+    value_loss_weight: float = 0.5,
+    value_loss_clip: float | None = None,
+    surrogate_clip_ratio: float = 0.2,
+    surrogate_loss_weight: float = 1.0,
+    entropy_loss_weight: float = 0.01,
+    max_grad_norm: float | None = 1.0,
+    grad_clip_groups: dict[str, float] | None = None,
+    desired_kl_divergence: float | None = None,
+    fuse_actor_critic_evaluation: bool = False,
+    fused_ppo_update: bool = False,
+    recurrent_backbones: bool = False,
+) -> list[Hook]:
+    if normalize_observation:
+        raise NotImplementedError("normalize_observation (ObservationNormalization) is not ported yet")
+    if desired_kl_divergence is not None:
+        raise NotImplementedError("desired_kl_divergence (AdaptiveLRSchedule) is not ported yet")
+    if fused_ppo_update:
+        raise NotImplementedError("fused_ppo_update (FusedPpoUpdate, kernel K9) is not ported yet")
+    if recurrent_backbones:
+        raise NotImplementedError("recurrent backbones are not ported yet")
+    hooks: list[Hook | None] = [
+        ModuleInitialization(init_actor=orthogonal_init, init_critic=orthogonal_init),
+        ValueComputation(sparse_bootstrap=sparse_value_bootstrap),
+        GeneralizedAdvantageEstimation(gamma=gae_gamma, lamda=gae_lamda, lamda_value=gae_lamda_value),
+        AdvantageNormalization() if normalize_advantage else None,
+        JointPolicyValueEvaluation() if fuse_actor_critic_evaluation else None,
+        ValueLoss(weight=value_loss_weight, loss_clip=value_loss_clip),
+        OnPolicyPreparation(),
+        PpoSurrogateLoss(clip_ratio=surrogate_clip_ratio, weight=surrogate_loss_weight),
+        EntropyLoss(weight=entropy_loss_weight),
+        GradientClipping(max_grad_norm, grad_clip_groups),
+        OnPolicyStatistics(),
+    ]
+    return [hook for hook in hooks if hook is not None]
+
+
+@dataclasses.dataclass(kw_only=True)
+class PpoAgentFactory(AgentFactory):
+    """Flat-kwarg PPO config lowering to ``ActorCriticFactory``; the defaults
+    are the JAX factory's."""
+
+    num_steps_per_update: int = 24
+    actor_hidden_dims: Sequence[int] = (256, 128)
+    critic_hidden_dims: Sequence[int] = (256, 128)
+    activation_fn: str = "relu"
+    action_space_type: str = "continuous"
+    lr: float = 2e-4
+    sampler_epochs: int = 5
+    sampler_mini_batches: int = 4
+    orthogonal_init: bool = True
+    init_distribution_std: float | None = None
+    normalize_observation: bool = False
+    sparse_value_bootstrap: bool = False
+    gae_gamma: float = 0.99
+    gae_lamda: float = 0.95
+    gae_lamda_value: float | None = None
+    normalize_advantage: bool = True
+    value_loss_weight: float = 0.5
+    value_loss_clip: float | None = None
+    surrogate_clip_ratio: float = 0.2
+    surrogate_loss_weight: float = 1.0
+    entropy_loss_weight: float = 0.01
+    max_grad_norm: float | None = 1.0
+    grad_clip_groups: dict[str, float] = dataclasses.field(default_factory=dict)
+    desired_kl_divergence: float | None = None
+    fuse_actor_critic_evaluation: bool = False
+    fused_ppo_update: bool = False
+
+    def _backbone_factory(self, hidden_dims) -> MlpFactory:
+        return MlpFactory(hidden_dims=tuple(hidden_dims), activation=self.activation_fn, ends_with_activation=True)
+
+    def _hooks(self) -> list[Hook]:
+        return ppo_hook_suite(
+            orthogonal_init=self.orthogonal_init,
+            normalize_observation=self.normalize_observation,
+            sparse_value_bootstrap=self.sparse_value_bootstrap,
+            gae_gamma=self.gae_gamma,
+            gae_lamda=self.gae_lamda,
+            gae_lamda_value=self.gae_lamda_value,
+            normalize_advantage=self.normalize_advantage,
+            value_loss_weight=self.value_loss_weight,
+            value_loss_clip=self.value_loss_clip,
+            surrogate_clip_ratio=self.surrogate_clip_ratio,
+            surrogate_loss_weight=self.surrogate_loss_weight,
+            entropy_loss_weight=self.entropy_loss_weight,
+            max_grad_norm=self.max_grad_norm,
+            grad_clip_groups=self.grad_clip_groups,
+            desired_kl_divergence=self.desired_kl_divergence,
+            fuse_actor_critic_evaluation=self.fuse_actor_critic_evaluation,
+            fused_ppo_update=self.fused_ppo_update,
+        )
+
+    def to_underlying(self) -> ActorCriticFactory:
+        if self.action_space_type != "continuous":
+            raise NotImplementedError(f"action space '{self.action_space_type}' is not ported yet")
+        return ActorCriticFactory(
+            num_steps_per_update=self.num_steps_per_update,
+            actor_factory=ActorFactory(
+                backbone_factory=self._backbone_factory(self.actor_hidden_dims),
+                distribution_factory=NormalDistFactory(init_std=self.init_distribution_std),
+            ),
+            critic_factory=ValueFactory(backbone_factory=self._backbone_factory(self.critic_hidden_dims)),
+            optimizer_factory=AdamFactory(lr=self.lr),
+            sampler=AutoMiniBatchSampler(num_epochs=self.sampler_epochs, num_mini_batches=self.sampler_mini_batches),
+            hooks=self._hooks(),
+            name=self.name,
+        )
+
+    def __call__(self, environment_spec: EnvironmentSpec, *, device=None, seed: int = 0):
+        return self.to_underlying()(environment_spec, device=device, seed=seed)

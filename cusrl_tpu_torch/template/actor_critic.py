@@ -1,0 +1,198 @@
+"""Actor-critic agent (counterpart of ``cusrl_tpu/template/actor_critic.py``:
+act, step and update).
+
+The actor and critic live in one ``nn.ModuleDict`` so their parameter paths
+(``actor.backbone.layers.0.weight``, ...) are the JAX package's dotted paths.
+``update_body`` runs ``pre_update``, then epochs x minibatches of
+objective -> backward -> ``pre_optim`` -> optimizer step, then
+``post_update``; the objective runs once per minibatch.  Step metrics are
+averaged over all minibatches, as in the JAX update.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Iterable
+
+import torch
+from torch import nn
+
+from cusrl_tpu_torch.nn.module.actor import Actor, ActorFactory
+from cusrl_tpu_torch.nn.module.critic import Value, ValueFactory
+from cusrl_tpu_torch.template.agent import Agent, AgentFactory
+from cusrl_tpu_torch.template.environment import EnvironmentSpec
+from cusrl_tpu_torch.template.hook import Hook, HookComposite, find_hook
+from cusrl_tpu_torch.template.optimizer import OptimizerFactory, build_optimizer
+from cusrl_tpu_torch.utils.nest import map_nested, stack_nested
+
+__all__ = ["ActorCritic", "ActorCriticFactory"]
+
+
+class ActorCritic(Agent):
+    def __init__(
+        self,
+        environment_spec: EnvironmentSpec,
+        actor_factory: ActorFactory,
+        critic_factory: ValueFactory,
+        optimizer_factory: OptimizerFactory,
+        sampler,
+        hooks: Iterable[Hook],
+        num_steps_per_update: int,
+        device: str | torch.device | None = None,
+        seed: int = 0,
+        name: str = "Agent",
+    ):
+        super().__init__(environment_spec, num_steps_per_update, device=device, seed=seed, name=name)
+        self.value_dim = environment_spec.reward_dim
+        self.sampler = sampler
+        actor = actor_factory(self.observation_dim, self.action_dim, self.init_generator)
+        critic = critic_factory(self.state_dim, self.value_dim, self.init_generator)
+        self.model = nn.ModuleDict({"actor": actor, "critic": critic})
+        self.hooks = list(hooks)
+        names = [h.hook_name for h in self.hooks]
+        if len(names) != len(set(names)):
+            raise RuntimeError(f"Duplicate hook names: {sorted({n for n in names if names.count(n) > 1})}")
+        for hook in self.hooks:
+            hook.init(self)
+        self.model.to(self.device)
+        self.optimizer = build_optimizer(optimizer_factory, self.model.named_parameters())
+        self._composite = HookComposite(self.hooks)
+        self.transition: dict[str, Any] = {}
+        self.buffer: list[dict] = []
+
+    @property
+    def actor(self) -> Actor:
+        return self.model["actor"]
+
+    @property
+    def critic(self) -> Value:
+        return self.model["critic"]
+
+    def get_hook(self, hook_name: str) -> Hook:
+        return find_hook(self.hooks, hook_name)
+
+    # -- rollout ---------------------------------------------------------------
+
+    @torch.no_grad()
+    def act_body(self, observation: torch.Tensor, noise: torch.Tensor | None = None) -> dict:
+        """pre_act -> actor explore -> post_act; returns the transition."""
+        transition: dict[str, Any] = {"observation": observation}
+        self._composite.pre_act(self, transition)
+        dist_params, (action, logp), _, _ = self.actor.explore(transition["observation"], self.generator, noise=noise)
+        transition.update(action_dist=dist_params, action=action, action_logp=logp)
+        self._composite.post_act(self, transition)
+        return transition
+
+    @torch.no_grad()
+    def step_body(self, transition: dict) -> dict:
+        transition["done"] = transition["terminated"] | transition["truncated"]
+        self._composite.post_step(self, transition)
+        return transition
+
+    def act(self, observation, noise: torch.Tensor | None = None) -> torch.Tensor:
+        self.transition = self.act_body(torch.as_tensor(observation, device=self.device), noise)
+        return self.transition["action"]
+
+    def step(self, next_observation, reward, terminated, truncated, **info) -> bool:
+        """Records the transition; returns whether an update is due."""
+        terminated = torch.as_tensor(terminated, device=self.device)
+        truncated = torch.as_tensor(truncated, device=self.device)
+        if terminated.dtype != torch.bool or truncated.dtype != torch.bool:
+            raise TypeError("'terminated' and 'truncated' must have dtype bool")
+        transition = dict(self.transition)
+        transition.update(
+            next_observation=torch.as_tensor(next_observation, device=self.device),
+            reward=torch.as_tensor(reward, device=self.device),
+            terminated=terminated,
+            truncated=truncated,
+            **info,
+        )
+        self.buffer.append(self.step_body(transition))
+        self.step_index += 1
+        return self.step_index >= self.num_steps_per_update
+
+    def update(self) -> dict[str, float]:
+        rollout = stack_nested(self.buffer, torch.stack)
+        self.buffer = []
+        self.step_index = 0
+        return {key: float(value) for key, value in self.update_body(rollout).items()}
+
+    # -- update ----------------------------------------------------------------
+
+    def _batch_keys(self) -> set[str]:
+        keys: set[str] = set()
+        for hook in self._composite._active():
+            keys.update(getattr(hook, "batch_keys", ()))
+        return keys
+
+    def _train_step(self, metadata: dict, batch: dict) -> dict:
+        objectives, metrics = self._composite.objective(self, metadata, batch)
+        step_metrics = {key: value.detach() for key, value in objectives.items()}
+        step_metrics.update(metrics)
+        if objectives:
+            loss = sum(value.float() for value in objectives.values())
+            self.optimizer.zero_grad()
+            loss.backward()
+            step_metrics.update(self._composite.pre_optim(self))
+            self.optimizer.step()
+        return step_metrics
+
+    def update_body(self, rollout: dict, epoch_perms=None) -> dict[str, torch.Tensor]:
+        """One whole update on a ``[T, N, ...]`` rollout; returns metrics as
+        0-d tensors.  ``epoch_perms`` injects the sampler's permutations."""
+        check = getattr(self.sampler, "check_rollout", None)
+        if check is not None:
+            check(rollout)
+        rollout = dict(rollout)
+        with torch.no_grad():
+            metrics = self._composite.pre_update(self, rollout)
+        capacity, parallelism = rollout["action"].shape[:2]
+        plan = self.sampler.make_epoch_plan(capacity, parallelism, self.generator, self.device, epoch_perms)
+        flat = {
+            key: map_nested(lambda x: x.reshape(capacity * parallelism, *x.shape[2:]), rollout[key])
+            for key in self._batch_keys()
+            if key in rollout
+        }
+        sums: dict[str, torch.Tensor] = {}
+        steps = 0
+        for epoch in range(self.sampler.num_epochs):
+            for mini_batch in range(plan.num_mini_batches):
+                batch = self.sampler.gather(flat, plan, epoch, mini_batch)
+                metadata = {
+                    "total_epochs": self.sampler.num_epochs,
+                    "total_mini_batches": plan.num_mini_batches,
+                    "epoch_index": epoch,
+                    "mini_batch_index": mini_batch,
+                    "temporal": False,
+                }
+                for key, value in self._train_step(metadata, batch).items():
+                    sums[key] = sums[key] + value if key in sums else value
+                steps += 1
+        metrics.update({key: value / steps for key, value in sums.items()})
+        with torch.no_grad():
+            metrics.update(self._composite.post_update(self, rollout))
+        self.iteration += 1
+        return metrics
+
+
+@dataclasses.dataclass(kw_only=True)
+class ActorCriticFactory(AgentFactory):
+    actor_factory: ActorFactory
+    critic_factory: ValueFactory
+    optimizer_factory: Any
+    sampler: Any
+    hooks: list[Hook] = dataclasses.field(default_factory=list)
+
+    def __call__(self, environment_spec: EnvironmentSpec, *, device=None, seed: int = 0) -> ActorCritic:
+        return ActorCritic(
+            environment_spec=environment_spec,
+            actor_factory=self.actor_factory,
+            critic_factory=self.critic_factory,
+            optimizer_factory=self.optimizer_factory,
+            sampler=self.sampler,
+            hooks=self.hooks,
+            num_steps_per_update=self.num_steps_per_update,
+            device=device,
+            seed=seed,
+            name=self.name,
+        )

@@ -1,0 +1,130 @@
+"""Hook system (counterpart of ``cusrl_tpu/template/hook.py``).
+
+A hook is a plain object with lifecycle callbacks.  PyTorch runs eagerly, so
+callbacks read the agent and update the payload dicts in place instead of
+returning new pytrees; the order of the lifecycle is the JAX package's:
+
+  host side, once:  ``init(agent)``
+  every env step:   ``pre_act`` -> actor explore -> ``post_act`` -> env step
+                    -> ``post_step``
+  every update:     ``pre_update``; then per minibatch ``objective`` (losses
+                    summed, one backward) -> ``pre_optim`` (gradients on the
+                    parameters) -> optimizer step; finally ``post_update``.
+
+``HookComposite`` folds each callback over the active hooks in list order.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import TYPE_CHECKING, Any, Iterable
+
+if TYPE_CHECKING:
+    from cusrl_tpu_torch.template.actor_critic import ActorCritic
+
+__all__ = ["Hook", "HookComposite", "camel_to_snake"]
+
+
+def camel_to_snake(name: str) -> str:
+    return re.sub(r"(?<!^)(?=[A-Z])", "_", name).lower()
+
+
+class Hook:
+    """Base hook.  Subclasses keep their configuration as attributes and
+    override callbacks."""
+
+    training_only: bool = False
+
+    def __init__(self, *, name: str | None = None, active: bool = True):
+        self.name = name
+        self.active = active
+
+    @property
+    def hook_name(self) -> str:
+        return self.name or camel_to_snake(type(self).__name__)
+
+    def init(self, agent: "ActorCritic") -> None:
+        """Builds what the hook needs from the agent (host side, once)."""
+
+    def pre_act(self, agent: "ActorCritic", transition: dict) -> None:
+        pass
+
+    def post_act(self, agent: "ActorCritic", transition: dict) -> None:
+        pass
+
+    def post_step(self, agent: "ActorCritic", transition: dict) -> None:
+        pass
+
+    def pre_update(self, agent: "ActorCritic", rollout: dict) -> dict[str, Any]:
+        """``rollout`` holds ``[T, N, ...]`` tensors; returns metrics."""
+        return {}
+
+    def objective(self, agent: "ActorCritic", metadata: dict, batch: dict):
+        """Returns ``(objectives: dict[str, scalar tensor] | None, metrics)``."""
+        return None, {}
+
+    def pre_optim(self, agent: "ActorCritic") -> dict[str, Any]:
+        """Gradient-space callback (gradients are on the parameters); returns metrics."""
+        return {}
+
+    def post_update(self, agent: "ActorCritic", rollout: dict) -> dict[str, Any]:
+        return {}
+
+
+class HookComposite:
+    """Folds callbacks over the active hooks in order."""
+
+    def __init__(self, hooks: Iterable[Hook]):
+        self.hooks = list(hooks)
+
+    def _active(self) -> list[Hook]:
+        return [h for h in self.hooks if h.active]
+
+    def pre_act(self, agent, transition: dict) -> None:
+        for hook in self._active():
+            hook.pre_act(agent, transition)
+
+    def post_act(self, agent, transition: dict) -> None:
+        for hook in self._active():
+            hook.post_act(agent, transition)
+
+    def post_step(self, agent, transition: dict) -> None:
+        for hook in self._active():
+            hook.post_step(agent, transition)
+
+    def pre_update(self, agent, rollout: dict) -> dict:
+        metrics: dict = {}
+        for hook in self._active():
+            metrics.update(hook.pre_update(agent, rollout))
+        return metrics
+
+    def objective(self, agent, metadata: dict, batch: dict):
+        objectives: dict = {}
+        metrics: dict = {}
+        for hook in self._active():
+            obj, m = hook.objective(agent, metadata, batch)
+            for key in obj or {}:
+                if key in objectives:
+                    raise RuntimeError(f"Duplicate objective '{key}'")
+            objectives.update(obj or {})
+            metrics.update(m)
+        return objectives, metrics
+
+    def pre_optim(self, agent) -> dict:
+        metrics: dict = {}
+        for hook in self._active():
+            metrics.update(hook.pre_optim(agent))
+        return metrics
+
+    def post_update(self, agent, rollout: dict) -> dict:
+        metrics: dict = {}
+        for hook in self._active():
+            metrics.update(hook.post_update(agent, rollout))
+        return metrics
+
+
+def find_hook(hooks: Iterable[Hook], name: str) -> Hook:
+    for hook in hooks:
+        if hook.hook_name == name:
+            return hook
+    raise KeyError(f"No hook named '{name}'")

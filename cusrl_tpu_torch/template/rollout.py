@@ -1,0 +1,81 @@
+"""Device-resident rollout driver (counterpart of
+``cusrl_tpu/template/rollout.py``'s ``ScanRolloutDriver``).
+
+The JAX driver fuses the rollout and the update into one ``lax.scan``
+program.  Here the rollout is a Python loop over device tensors:
+``pre_act -> actor.explore -> post_act -> env.step -> post_step`` per step,
+plus the same per-step transition fields and episode aggregates; the
+transitions stack into the ``[T, N, ...]`` rollout the update consumes.  There
+is no packing: the agent's state is always readable.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cusrl_tpu_torch.template.environment import TensorEnvironment
+from cusrl_tpu_torch.utils.nest import stack_nested
+
+__all__ = ["RolloutDriver"]
+
+
+class RolloutDriver:
+    def __init__(self, agent, environment: TensorEnvironment):
+        if environment.num_instances != agent.parallelism:
+            raise ValueError("environment and agent disagree on the number of instances")
+        self.agent = agent
+        self.environment = environment
+        self._env_state = None
+
+    def _ensure_initialized(self) -> None:
+        if self._env_state is not None:
+            return
+        agent, env = self.agent, self.environment
+        self._env_state = env.init_fn(agent.generator)
+        self._observation, self._obs_state = env.observe_fn(self._env_state)
+        self._cum_reward = torch.zeros(env.num_instances, device=agent.device)
+        self._cum_length = torch.zeros(env.num_instances, dtype=torch.int32, device=agent.device)
+
+    @torch.no_grad()
+    def collect(self, num_steps: int):
+        """One rollout; returns ``(rollout of [T, N, ...] tensors, aggregates
+        [3] = (finished episodes, their return sum, their length sum))``."""
+        self._ensure_initialized()
+        agent, env = self.agent, self.environment
+        transitions = []
+        episodes = torch.zeros((), device=agent.device)
+        return_sum = torch.zeros((), device=agent.device)
+        length_sum = torch.zeros((), device=agent.device)
+        for _ in range(num_steps):
+            transition = agent.act_body(self._observation)
+            if self._obs_state is not None:
+                transition["state"] = self._obs_state
+            self._env_state, reward, terminated, truncated, info = env.step_fn(
+                self._env_state, transition["action"], agent.generator
+            )
+            next_observation, next_obs_state = env.observe_fn(self._env_state)
+            transition["next_observation"] = next_observation
+            if next_obs_state is not None:
+                transition["next_state"] = next_obs_state
+            transition.update(reward=reward, terminated=terminated, truncated=truncated, **(info or {}))
+            transition = agent.step_body(transition)
+
+            done = transition["done"].reshape(-1)
+            self._cum_reward += reward.sum(-1)
+            self._cum_length += 1
+            episodes += done.sum()
+            return_sum += torch.where(done, self._cum_reward, 0.0).sum()
+            length_sum += torch.where(done, self._cum_length.float(), 0.0).sum()
+            self._cum_reward = torch.where(done, 0.0, self._cum_reward)
+            self._cum_length = torch.where(done, 0, self._cum_length).to(torch.int32)
+
+            transitions.append(transition)
+            self._observation, self._obs_state = next_observation, next_obs_state
+        return stack_nested(transitions, torch.stack), torch.stack([episodes, return_sum, length_sum])
+
+    def collect_and_update(self, num_steps: int):
+        """One training iteration (rollout + update); returns ``(aggregates
+        [3], metrics dict of 0-d tensors)``, all on the device."""
+        rollout, aggregates = self.collect(num_steps)
+        metrics = self.agent.update_body(rollout)
+        return aggregates, metrics

@@ -1,0 +1,182 @@
+"""The port's fused-MLP kernels (plain versions on the CPU) against the JAX
+package's Pallas kernels in interpret mode.
+
+Inputs and weights are made with numpy from a seed and fed to both.  JAX's
+kernels take ``[in, out]`` weights and ``[1, out]`` biases; the port's take
+``[out, in]`` and ``[out]``.  Tolerances are those of tests/test_fused_mlp.py:
+2e-2 on the bf16 forward (one bf16 ulp at |h| ~ 2 is 1.6e-2; the two sides
+accumulate in a different order, which can flip a rounding), atol 3e-3 /
+rtol 3e-2 on gradients (bf16 cotangents rounded at each layer).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cusrl_tpu.nn.kernels import fused_mlp as jfm
+from cusrl_tpu_torch.nn.kernels import fused_mlp as tfm
+
+DIMS = (48, 64, 32)
+ROWS = 100  # ragged against block_rows=32
+FWD_TOL = dict(atol=2e-2, rtol=2e-2)
+GRAD_TOL = dict(atol=3e-3, rtol=3e-2)
+
+
+def _make(seed, dims=DIMS, rows=ROWS):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, dims[0])).astype(np.float32)
+    ws = [(rng.standard_normal((dims[i + 1], dims[i])) / np.sqrt(dims[i])).astype(np.float32) for i in range(len(dims) - 1)]
+    bs = [(rng.standard_normal(dims[i + 1]) * 0.1).astype(np.float32) for i in range(len(dims) - 1)]
+    tgt = rng.standard_normal((rows, dims[-1])).astype(np.float32)
+    return x, ws, bs, tgt
+
+
+def _jax_params(ws, bs):
+    return tuple(jnp.asarray(w.T) for w in ws), tuple(jnp.asarray(b[None, :]) for b in bs)
+
+
+def _torch_params(ws, bs):
+    return [torch.tensor(w, requires_grad=True) for w in ws], [torch.tensor(b, requires_grad=True) for b in bs]
+
+
+def _f32(a):
+    return np.asarray(a.detach().float() if isinstance(a, torch.Tensor) else jnp.asarray(a, jnp.float32))
+
+
+@pytest.mark.parametrize("activation", ["elu", "relu", "tanh", "identity"])
+@pytest.mark.parametrize("trailing", [True, False])
+def test_forward_matches_pallas(activation, trailing):
+    x, ws, bs, _ = _make(0)
+    expected = jfm.fused_mlp(jnp.asarray(x), *_jax_params(ws, bs), activation, trailing,
+                             use_pallas=True, block_rows=32, interpret=True)
+    with torch.no_grad():
+        got = tfm.fused_mlp(torch.from_numpy(x), *_torch_params(ws, bs), activation, trailing)
+    assert got.dtype == torch.bfloat16 and got.shape == (ROWS, DIMS[-1])
+    np.testing.assert_allclose(_f32(got), _f32(expected), **FWD_TOL)
+
+
+def test_saved_hiddens_match_pallas():
+    x, ws, bs, _ = _make(1)
+    jw, jb = _jax_params(ws, bs)
+    _, hiddens = jfm._run_fwd(jnp.asarray(x), jw, jb, "elu", True, 32, True, save_hiddens=True)
+    _, port_hiddens = tfm.mlp_chain_fwd_plain(torch.from_numpy(x), [torch.from_numpy(w) for w in ws],
+                                              [torch.from_numpy(b) for b in bs], "elu", True, True)
+    assert len(port_hiddens) == len(hiddens) == len(DIMS) - 2
+    for got, expected in zip(port_hiddens, hiddens):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(_f32(got), _f32(expected)[:ROWS], **FWD_TOL)
+
+
+@pytest.mark.parametrize("activation", ["elu", "relu", "tanh"])
+def test_gradients_match_pallas(activation):
+    x, ws, bs, tgt = _make(2)
+
+    def jax_loss(params, x_):
+        out = jfm.fused_mlp(x_, *params, activation, True, use_pallas=True, block_rows=32, interpret=True)
+        return jnp.mean(jnp.square(out.astype(jnp.float32) - tgt))
+
+    (g_params, g_x) = jax.grad(jax_loss, argnums=(0, 1))(_jax_params(ws, bs), jnp.asarray(x))
+
+    tw, tb = _torch_params(ws, bs)
+    tx = torch.tensor(x, requires_grad=True)
+    out = tfm.fused_mlp(tx, tw, tb, activation, True)
+    torch.mean((out.float() - torch.from_numpy(tgt)).square()).backward()
+
+    for w, gw in zip(tw, g_params[0]):
+        np.testing.assert_allclose(_f32(w.grad), np.asarray(gw).T, **GRAD_TOL)
+    for b, gb in zip(tb, g_params[1]):
+        np.testing.assert_allclose(_f32(b.grad), np.asarray(gb)[0], **GRAD_TOL)
+    np.testing.assert_allclose(_f32(tx.grad), np.asarray(g_x), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("skip_input_grad", [False, True])
+def test_pair_matches_pallas(skip_input_grad):
+    xa, wsa, bsa, tgt = _make(3)
+    xc, wsc, bsc, _ = _make(4)
+
+    def jax_loss(params, xa_, xc_):
+        (wa, ba), (wc, bc) = params
+        a, c = jfm.fused_mlp_pair(xa_, xc_, wa, ba, wc, bc, "elu", True, use_pallas=True, block_rows=32,
+                                  interpret=True, skip_input_grad=skip_input_grad)
+        loss = jnp.mean(jnp.square(a.astype(jnp.float32) - tgt)) + jnp.mean(jnp.square(c.astype(jnp.float32) + tgt))
+        return loss, (a, c)
+
+    params = (_jax_params(wsa, bsa), _jax_params(wsc, bsc))
+    grads, (ja, jc) = jax.grad(jax_loss, argnums=(0, 1, 2), has_aux=True)(params, jnp.asarray(xa), jnp.asarray(xc))
+
+    twa, tba = _torch_params(wsa, bsa)
+    twc, tbc = _torch_params(wsc, bsc)
+    txa, txc = torch.tensor(xa, requires_grad=True), torch.tensor(xc, requires_grad=True)
+    a, c = tfm.fused_mlp_pair(txa, txc, twa, tba, twc, tbc, "elu", True, skip_input_grad=skip_input_grad)
+    tt = torch.from_numpy(tgt)
+    (torch.mean((a.float() - tt).square()) + torch.mean((c.float() + tt).square())).backward()
+
+    np.testing.assert_allclose(_f32(a), _f32(ja), **FWD_TOL)
+    np.testing.assert_allclose(_f32(c), _f32(jc), **FWD_TOL)
+    for (tw, tb), (gw, gb) in zip(((twa, tba), (twc, tbc)), grads[0]):
+        for w, g in zip(tw, gw):
+            np.testing.assert_allclose(_f32(w.grad), np.asarray(g).T, **GRAD_TOL)
+        for b, g in zip(tb, gb):
+            np.testing.assert_allclose(_f32(b.grad), np.asarray(g)[0], **GRAD_TOL)
+    if skip_input_grad:
+        assert txa.grad is None and txc.grad is None
+        assert not np.any(np.asarray(grads[1])) and not np.any(np.asarray(grads[2]))
+    else:
+        np.testing.assert_allclose(_f32(txa.grad), np.asarray(grads[1]), **GRAD_TOL)
+        np.testing.assert_allclose(_f32(txc.grad), np.asarray(grads[2]), **GRAD_TOL)
+
+
+def test_backward_plain_matches_pallas_bwd_with_injected_cotangent():
+    """mlp_chain_bwd_plain against _run_bwd on the same saved activations and
+    the same bf16 cotangent, with and without layer 0's dX."""
+    x, ws, bs, _ = _make(5)
+    g = np.random.default_rng(6).standard_normal((ROWS, DIMS[-1])).astype(np.float32)
+    jw, jb = _jax_params(ws, bs)
+    jx, jg = jnp.asarray(x), jnp.asarray(g).astype(jnp.bfloat16)
+    out, hiddens = jfm._run_fwd(jx, jw, jb, "tanh", True, 32, True, save_hiddens=True)
+    dx, dws, dbs = jfm._run_bwd(jx, jg, jw, hiddens, out, "tanh", True, 32, True)
+
+    tx = torch.from_numpy(x)
+    tw = [torch.from_numpy(w) for w in ws]
+    tout, th = tfm.mlp_chain_fwd_plain(tx, tw, [torch.from_numpy(b) for b in bs], "tanh", True, True)
+    tg = torch.from_numpy(g).to(torch.bfloat16)
+    for skip in (False, True):
+        pdx, pdws, pdbs = tfm.mlp_chain_bwd_plain(tx, tg, tw, [*th, tout], "tanh", True, skip)
+        for a, b in zip(pdws, dws):
+            np.testing.assert_allclose(_f32(a), np.asarray(b).T, **GRAD_TOL)
+        for a, b in zip(pdbs, dbs):
+            np.testing.assert_allclose(_f32(a), np.asarray(b)[0], **GRAD_TOL)
+        if skip:
+            assert pdx is None
+        else:
+            np.testing.assert_allclose(_f32(pdx), np.asarray(dx), **GRAD_TOL)
+
+
+def test_plain_versions_count_no_launches():
+    x, ws, bs, _ = _make(7)
+    tfm.reset_launch_counts()
+    tw, tb = _torch_params(ws, bs)
+    out = tfm.fused_mlp(torch.from_numpy(x), tw, tb)
+    out.float().sum().backward()
+    tfm.fused_mlp_pair(torch.from_numpy(x), torch.from_numpy(x), tw, tb, tw, tb)
+    assert tfm.LAUNCHES == {"K1f": 0, "K1b": 0, "K2f": 0, "K2b": 0}
+
+
+def test_supported_activations_and_widths():
+    assert all(tfm.supports_fused_mlp(a, 3) for a in ("elu", "relu", "tanh", "identity"))
+    assert not tfm.supports_fused_mlp("gelu", 3)
+    assert not tfm.supports_fused_mlp("elu", tfm.MAX_LAYERS + 1)
+    x = torch.zeros(8, 48)
+    tfm._validate([x], [[torch.zeros(512, 48), torch.zeros(128, 512)]], [[torch.zeros(512), torch.zeros(128)]])
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tfm._validate([x], [[torch.zeros(100, 48)]], [[torch.zeros(100)]])
+    with pytest.raises(ValueError, match="up to 512"):
+        tfm._validate([x], [[torch.zeros(1024, 48)]], [[torch.zeros(1024)]])
+
+
+def test_wrapper_refuses_devices_other_than_cpu_and_cuda():
+    x = torch.zeros(8, 16, device="meta")
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        tfm.fused_mlp(x, [torch.zeros(16, 16, device="meta")], [torch.zeros(16, device="meta")])
