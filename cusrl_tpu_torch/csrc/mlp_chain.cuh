@@ -1,6 +1,7 @@
 // Shared definitions of the fused Linear+activation chain kernels for Hopper
-// (sm_90a): the parameter block passed from Python through ctypes, the tile
-// constants, the activations, and the block-level bf16 tensor-core GEMM.
+// (sm_90a): the parameter block passed from Python through ctypes (chains,
+// their fp32 heads and the PPO loss), the tile constants, the activations, and
+// the block-level bf16 tensor-core GEMM.
 //
 // Numerics follow the TPU kernels in cusrl_tpu/nn/kernels/fused_mlp.py:
 // bf16 operands, fp32 accumulation, fp32 bias, round to bf16, activation in
@@ -30,16 +31,54 @@ struct MlpChain {
   void* dx;                      // bwd out: [N, dims[0]] fp32 (unused with skip_input_grad)
 };
 
+// An fp32 head on a chain's output h_L (K8f, K8b, K9s): out = f32(h_L) W^T + b,
+// computed with fp32 FMAs (the TPU kernels' fp32 island, LinearFp32).
+struct MlpHead {
+  void* w;     // [dim, dims[L]] fp32 ([out, in])
+  void* b;     // [dim] fp32
+  void* out;   // fwd: [N, dim] fp32
+  void* g;     // bwd, head_mode 1: [N, dim] fp32 cotangent of out
+  void* gl;    // bwd, head_mode 1: [N, dims[L]] fp32 extra cotangent of h_L, or null
+  void* part;  // bwd scratch: [row_tiles, stride] fp32 per-tile partials (see mlp_chain_bwd.cu)
+  void* dw;    // bwd out: [dim, dims[L]] fp32
+  void* db;    // bwd out: [dim] fp32
+  int dim;     // 0: no head on this chain
+  int stride;  // floats per row of `part`
+};
+
+// The PPO + value loss of K9s (cusrl_tpu/nn/kernels/fused_ppo_step.py:_loss_tail)
+// on the heads' outputs: chain 0's head is the Normal mean, chain 1's the value.
+struct MlpLoss {
+  void* action;     // [N, A] fp32
+  void* old_logp;   // [N] fp32
+  void* advantage;  // [N] fp32
+  void* old_value;  // [N, Dv] fp32, read only with use_old_value
+  void* returns;    // [N, Dv] fp32
+  void* std;        // [A] fp32
+  void* dstd;       // out: [A] fp32
+  void* sums;       // out: [4] fp32: sum min(t1, t2), sum of value-loss terms, sum |dlt|, sum vhat
+  float clip_ratio;
+  float w_surr;
+  float w_value;
+  float loss_clip;
+  float inv_n;      // 1 / real rows
+  float inv_nv;     // 1 / (real rows * Dv)
+  int use_old_value;
+};
+
 struct MlpParams {
   MlpChain chain[2];
+  MlpHead head[2];
+  MlpLoss loss;
   int dims[MLP_MAX_LAYERS + 1];
   int num_layers;
   int num_rows;
   int activation;       // 0 identity, 1 elu, 2 relu, 3 tanh
   int trailing;         // activation after the last layer
-  int save_hiddens;     // fwd: write h_1..h_{L-1} (the chain output is always written)
+  int save_hiddens;     // fwd: write h_1..h_{L-1} (the chain output is written where h[L-1] is set)
   int x_is_bf16;
   int skip_input_grad;  // bwd: no dX for layer 0
+  int head_mode;        // 0: no heads; 1: heads (K8f writes out, K8b reads g); 2: heads + loss (K9s)
 };
 
 namespace mlp {
@@ -56,6 +95,10 @@ constexpr int WLD_COL = KS + 8;           // staged W slice [NC][KS] (fwd)
 constexpr int WLD_ROW = NC + 8;           // staged W slice [KS][NC] (bwd data)
 constexpr int SLD = NC + 4;               // fp32 accumulator staging leading dim
 
+constexpr int MAX_HEAD_DIM = 64;          // head tile [BM][dim] fp32 fits the weight-slice region
+constexpr int LOSS_COL = 64;              // stg columns past the widest head: per-row loss terms
+constexpr float LOG_SQRT_2PI = 0.9189385332046727f;
+
 constexpr size_t ACT_BYTES = size_t(BM) * HLD * sizeof(bf16);
 constexpr size_t WS_BYTES =
     (size_t(NC) * WLD_COL > size_t(KS) * WLD_ROW ? size_t(NC) * WLD_COL : size_t(KS) * WLD_ROW) * sizeof(bf16);
@@ -64,6 +107,8 @@ constexpr size_t STG_BYTES = size_t(BM) * SLD * sizeof(float);
 constexpr size_t SMEM_BYTES = 2 * ACT_BYTES + WS_BYTES + STG_BYTES;
 static_assert(ACT_BYTES % 128 == 0 && WS_BYTES % 128 == 0, "smem regions must stay 128-byte aligned");
 static_assert(SMEM_BYTES <= 232448, "exceeds the 227 KB a block may use");
+static_assert(size_t(BM) * MAX_HEAD_DIM * sizeof(float) <= WS_BYTES, "head tile must fit the weight-slice region");
+static_assert(LOSS_COL + 4 + MAX_HEAD_DIM <= SLD, "per-row loss terms must fit the staging tile");
 
 __device__ __forceinline__ float bf16_round(float v) { return __bfloat162float(__float2bfloat16(v)); }
 
@@ -85,6 +130,15 @@ __device__ __forceinline__ float act_grad_from_h(int activation, float h) {
     case 3: return 1.f - h * h;
     default: return 1.f;
   }
+}
+
+// One output of an fp32 head: f32(lat_row) . w_row + bias, fp32 FMAs in
+// column order (lat_row: one bf16 row of the latent tile; w_row: one row of
+// the head's [out, in] weight).
+__device__ __forceinline__ float head_dot(const bf16* lat_row, const float* __restrict__ w_row, int n, float bias) {
+  float s = 0.f;
+  for (int k = 0; k < n; ++k) s = fmaf(__bfloat162float(lat_row[k]), w_row[k], s);
+  return s + bias;
 }
 
 // One NC-column chunk of C[BM, n_total] = A[BM, K] * B[K, n_total], columns

@@ -1,9 +1,25 @@
 // mlp_chain_bwd: gradient of the Linear+activation chain from the saved
 // post-activations, for one chain (K1b) or two chains selected by blockIdx.y
-// (K2b).
+// (K2b); with fp32 heads on the two chains' outputs (K8b); or with the heads
+// and the PPO + value loss computed from the saved activations (K9s).
 //
 // Replaces the Pallas kernels cusrl_tpu/nn/kernels/fused_mlp.py:_bwd_kernel
-// (via _run_bwd) and _pair_bwd_kernel (via _pair_run_bwd).  Numerics as
+// (via _run_bwd), _pair_bwd_kernel (via _pair_run_bwd) and
+// _pair_heads_bwd_kernel (via _pair_heads_run_bwd), and
+// cusrl_tpu/nn/kernels/fused_ppo_step.py:_loss_bwd_kernel (via _run_loss_bwd,
+// the split mode of fused_ppo_step).
+//
+// K8b and K9s add a prologue to phase 1 (head_prologue): per 64-row tile the
+// latent is staged in shared memory; K9s first runs the heads' forward, the
+// Normal logp, ratio, clipped surrogate and (clipped) value loss, and their
+// analytic per-row gradients (loss_rows), where K8b reads the heads'
+// cotangents.  The heads' backward is fp32 (dW_head partials = f32(latent)^T
+// g_head; d = g_head W_head (+ gl)); d stays fp32 through the activation
+// derivative and joins the chain backward below.  The chains of one PPO
+// update are independent until the loss sums: the surrogate needs only the
+// actor's mean, the value loss only the critic's value, so blockIdx.y still
+// selects one chain and its half of the loss.  K9s always skips layer 0's dX
+// (the inputs are rollout data).  Numerics of the chains as
 // there: d stays fp32 and is multiplied by the activation derivative taken
 // from the saved h (elu' = min(h + 1, 1)); d_bf = bf16(d) feeds both
 // dW += h_in^T d_bf and d <- d_bf W^T (fp32 accumulation); db sums the fp32 d;
@@ -23,10 +39,20 @@
 // The price is bytes: D_l is written once and read again by the dW blocks
 // (2 * 2 * sum(out_l) bytes per row, 3,584 B/row/chain at 512-256-128), and
 // each dW block reads its 64 columns of D_l and h_l for every row.
+// The heads (K8b, K9s) use the same two phases: each phase-1 block writes its
+// tile's partial dW_head, db_head (and, for K9s, dstd and the four loss sums)
+// as one row of a [row_tiles, stride] fp32 array; extra phase-2 blocks sum
+// each column over the tiles in tile order.  At 24,576 rows (384 tiles) with
+// A = 12, Dv = 1 and a 128-wide latent that is 384 * (1,562 + 131) * 4 B =
+// 2.6 MB written and read once (K8b: 384 * (1,548 + 129) * 4 B), against
+// ~100 MB the kernel must move anyway.
 //
 // What bounds it on the H100: ~4 * 188,416 FLOP per row per chain (dX products
 // and dW products) against ~2.2 KB per row per chain read (saved hiddens, x,
 // the cotangent) plus the D_l round trip: compute bound by the roofline.
+// K8b and K9s add 2 * 2 * (A + Dv) * 128 FLOP per row for the heads (and, for
+// K9s, a few dozen per action for the loss), so at the main-path shape they
+// are bound as K2b is: ~34.6 GFLOP, 0.035 ms at 24,576 rows.
 // Not yet done (later work): wgmma/TMA, splitting phase 2's row loop over more
 // blocks (it launches only as many blocks as there are 64x64 dW tiles).
 #include "mlp_chain.cuh"
@@ -69,6 +95,167 @@ __device__ void finish_d_chunk(const MlpParams& p, const MlpChain& c, int l, int
   }
 }
 
+// K9s: the heads' forward and the PPO + value loss of one row tile, with the
+// analytic per-row gradient of loss_core = w_surr * surrogate + w_value *
+// value_loss (fused_ppo_step.py:_loss_tail, :196-266).  `lat` holds the
+// tile's latent (bf16, pad rows 0).  Writes the head cotangent into `gh`
+// ([BM][dim] fp32, 0 on pad rows) and the tile's loss sums, in row order, into
+// `part` past the head's dW and db partials:
+//   chain 0: [sum min(t1, t2), sum |dlt|, dstd partial (A)]
+//   chain 1: [sum of value-loss terms, sum vhat]
+// Conventions kept from the TPU kernel: dlt is 0 on pad rows before the exp;
+// pick_t1 = t1 <= t2; the clip passes the gradient for lo <= r <= hi;
+// pick_u = u2 >= w2; w_inside = |delta| <= loss_clip; inv_n counts real rows.
+__device__ void loss_rows(const MlpParams& p, const MlpHead& hd, int chain, int row0, const bf16* lat, float* gh,
+                          float* stg, float* part) {
+  const MlpLoss& ls = p.loss;
+  const int latent = p.dims[p.num_layers], dim = hd.dim;
+  const float* W = reinterpret_cast<const float*>(hd.w);
+  const float* bias = reinterpret_cast<const float*>(hd.b);
+  for (int i = threadIdx.x; i < BM * dim; i += THREADS) {
+    const int r = i / dim, o = i % dim;
+    stg[r * SLD + o] = head_dot(lat + r * HLD, W + size_t(o) * latent, latent, bias[o]);
+  }
+  __syncthreads();
+  if (chain == 0) {
+    const float* action = reinterpret_cast<const float*>(ls.action);
+    const float* old_logp = reinterpret_cast<const float*>(ls.old_logp);
+    const float* advantage = reinterpret_cast<const float*>(ls.advantage);
+    const float* std = reinterpret_cast<const float*>(ls.std);
+    const float lo = 1.f - ls.clip_ratio, hi = 1.f + ls.clip_ratio;
+    const float g_row = -ls.w_surr * ls.inv_n;
+    for (int r = threadIdx.x; r < BM; r += THREADS) {
+      const int gr = row0 + r;
+      const bool valid = gr < p.num_rows;
+      float logp = 0.f;
+      for (int o = 0; o < dim; ++o) {
+        const float a = valid ? action[size_t(gr) * dim + o] : 0.f;
+        const float z = (a - stg[r * SLD + o]) / std[o];
+        logp += -0.5f * z * z - logf(std[o]) - LOG_SQRT_2PI;
+      }
+      const float dlt = valid ? logp - old_logp[gr] : 0.f;
+      const float ratio = expf(dlt);
+      const float adv = valid ? advantage[gr] : 0.f;
+      const float clipped = fminf(fmaxf(ratio, lo), hi);
+      const float t1 = adv * ratio, t2 = adv * clipped;
+      const bool inside = ratio >= lo && ratio <= hi;
+      const float dsurr_dr = t1 <= t2 ? adv : (inside ? adv : 0.f);
+      const float dlogp = (g_row * dsurr_dr) * ratio;
+      for (int o = 0; o < dim; ++o) {
+        const float a = valid ? action[size_t(gr) * dim + o] : 0.f;
+        const float z = (a - stg[r * SLD + o]) / std[o];
+        gh[r * dim + o] = dlogp * (z / std[o]);
+        stg[r * SLD + LOSS_COL + 4 + o] = dlogp * ((z * z - 1.f) / std[o]);
+      }
+      stg[r * SLD + LOSS_COL] = fminf(t1, t2);
+      stg[r * SLD + LOSS_COL + 1] = fabsf(dlt);
+    }
+  } else {
+    const float* returns = reinterpret_cast<const float*>(ls.returns);
+    const float* old_value = reinterpret_cast<const float*>(ls.old_value);
+    const float coef = ls.w_value * ls.inv_nv;
+    for (int r = threadIdx.x; r < BM; r += THREADS) {
+      const int gr = row0 + r;
+      const bool valid = gr < p.num_rows;
+      float loss_sum = 0.f, vhat_sum = 0.f;
+      for (int o = 0; o < dim; ++o) {
+        const float vhat = stg[r * SLD + o];
+        const float ret = valid ? returns[size_t(gr) * dim + o] : 0.f;
+        const float u = vhat - ret;
+        float term, dv;
+        if (ls.use_old_value) {
+          const float ov = valid ? old_value[size_t(gr) * dim + o] : 0.f;
+          const float delta = vhat - ov;
+          const float w = ov + fminf(fmaxf(delta, -ls.loss_clip), ls.loss_clip) - ret;
+          const float u2 = u * u, w2 = w * w;
+          term = fmaxf(u2, w2);
+          dv = coef * (u2 >= w2 ? 2.f * u : (fabsf(delta) <= ls.loss_clip ? 2.f * w : 0.f));
+        } else {
+          term = u * u;
+          dv = coef * (2.f * u);
+        }
+        gh[r * dim + o] = valid ? dv : 0.f;
+        if (valid) {
+          loss_sum += term;
+          vhat_sum += vhat;
+        }
+      }
+      stg[r * SLD + LOSS_COL] = loss_sum;
+      stg[r * SLD + LOSS_COL + 1] = vhat_sum;
+    }
+  }
+  __syncthreads();
+  const int base = dim * latent + dim;
+  const int extra = chain == 0 ? 2 + dim : 2;
+  for (int q = threadIdx.x; q < extra; q += THREADS) {
+    const int col = q < 2 ? LOSS_COL + q : LOSS_COL + 4 + (q - 2);
+    float s = 0.f;
+    for (int r = 0; r < BM; ++r) s += stg[r * SLD + col];
+    part[base + q] = s;
+  }
+}
+
+// K8b / K9s prologue of one row tile: the head backward in fp32, then the
+// chain's top-layer d.  Per tile it writes the head's dW and db partials
+// (sums over the tile's rows, in row order) to `part`; d = gh W (+ gl) stays
+// fp32 through the activation derivative taken from the saved latent, and
+// only bf16(d) feeds the products (fused_mlp.py:930-952).
+__device__ void head_prologue(const MlpParams& p, const MlpChain& c, int chain, int row0, bf16* lat, float* gh,
+                              float* stg, bf16* dtop) {
+  const MlpHead& hd = p.head[chain];
+  const int num_layers = p.num_layers, latent = p.dims[num_layers], dim = hd.dim;
+  const bf16* saved = reinterpret_cast<const bf16*>(c.h[num_layers - 1]);
+  float* part = reinterpret_cast<float*>(hd.part) + size_t(blockIdx.x) * hd.stride;
+  for (int i = threadIdx.x; i < BM * latent; i += THREADS) {
+    const int r = i / latent, k = i % latent;
+    const int gr = row0 + r;
+    lat[r * HLD + k] = gr < p.num_rows ? saved[size_t(gr) * latent + k] : __float2bfloat16(0.f);
+  }
+  if (p.head_mode == 2) {
+    __syncthreads();
+    loss_rows(p, hd, chain, row0, lat, gh, stg, part);
+  } else {
+    const float* g = reinterpret_cast<const float*>(hd.g);
+    for (int i = threadIdx.x; i < BM * dim; i += THREADS) {
+      const int r = i / dim, o = i % dim;
+      const int gr = row0 + r;
+      gh[r * dim + o] = gr < p.num_rows ? g[size_t(gr) * dim + o] : 0.f;
+    }
+  }
+  __syncthreads();
+  // Per-tile partials of the head's dW = f32(latent)^T gh and db = sum gh.
+  for (int q = threadIdx.x; q < dim * latent; q += THREADS) {
+    const int o = q / latent, k = q % latent;
+    float s = 0.f;
+    for (int r = 0; r < BM; ++r) s = fmaf(__bfloat162float(lat[r * HLD + k]), gh[r * dim + o], s);
+    part[q] = s;
+  }
+  for (int o = threadIdx.x; o < dim; o += THREADS) {
+    float s = 0.f;
+    for (int r = 0; r < BM; ++r) s += gh[r * dim + o];
+    part[dim * latent + o] = s;
+  }
+  // Top-layer d = gh W (+ gl), fp32, per NC-column chunk of the latent.
+  const float* W = reinterpret_cast<const float*>(hd.w);
+  const float* gl = reinterpret_cast<const float*>(hd.gl);
+  for (int n0 = 0; n0 < latent; n0 += NC) {
+    const int ncols = min(NC, latent - n0);
+    __syncthreads();  // previous readers of stg are done
+    for (int i = threadIdx.x; i < BM * ncols; i += THREADS) {
+      const int r = i / ncols, j = i % ncols;
+      const int gr = row0 + r;
+      float d = 0.f;
+      if (gr < p.num_rows) {
+        for (int o = 0; o < dim; ++o) d = fmaf(gh[r * dim + o], W[size_t(o) * latent + n0 + j], d);
+        if (gl != nullptr) d += gl[size_t(gr) * latent + n0 + j];
+      }
+      stg[r * SLD + j] = d;
+    }
+    __syncthreads();
+    finish_d_chunk(p, c, num_layers - 1, n0, ncols, row0, stg, dtop);
+  }
+}
+
 __global__ void __launch_bounds__(THREADS) mlp_chain_bwd_rows_kernel(const MlpParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* dbuf[2] = {reinterpret_cast<bf16*>(smem), reinterpret_cast<bf16*>(smem + ACT_BYTES)};
@@ -79,8 +266,12 @@ __global__ void __launch_bounds__(THREADS) mlp_chain_bwd_rows_kernel(const MlpPa
   const int row0 = blockIdx.x * BM;
   const int num_layers = p.num_layers;
 
-  // Cotangent of the chain output (bf16, upcast per tile) -> d of layer L-1.
-  {
+  if (p.head_mode != 0) {
+    // Heads: the latent tile goes to dbuf[1] and the head cotangent to the
+    // weight-slice region, both free until the first layer's product.
+    head_prologue(p, c, blockIdx.y, row0, dbuf[1], reinterpret_cast<float*>(ws), stg, dbuf[0]);
+  } else {
+    // Cotangent of the chain output (bf16, upcast per tile) -> d of layer L-1.
     const int n_out = p.dims[num_layers];
     const bf16* g = reinterpret_cast<const bf16*>(c.g);
     for (int n0 = 0; n0 < n_out; n0 += NC) {
@@ -119,20 +310,42 @@ __global__ void __launch_bounds__(THREADS) mlp_chain_bwd_rows_kernel(const MlpPa
   }
 }
 
+// Phase 2 of the heads: each thread sums one column of the chain's per-tile
+// partials over all row tiles, in tile order, and stores it as the head's dW
+// or db, a loss sum (chain 0: surrogate and |dlt| into sums[0] and sums[2];
+// chain 1: value loss and vhat into sums[1] and sums[3]) or dstd.
+__device__ void head_sums(const MlpParams& p, int chain, int block, int row_tiles) {
+  const MlpHead& hd = p.head[chain];
+  const int q = block * THREADS + threadIdx.x;
+  if (p.head_mode == 0 || q >= hd.stride) return;
+  const int wsize = hd.dim * p.dims[p.num_layers], base = wsize + hd.dim;
+  const float* part = reinterpret_cast<const float*>(hd.part);
+  float s = 0.f;
+  for (int tile = 0; tile < row_tiles; ++tile) s += part[size_t(tile) * hd.stride + q];
+  if (q < wsize) reinterpret_cast<float*>(hd.dw)[q] = s;
+  else if (q < base) reinterpret_cast<float*>(hd.db)[q - wsize] = s;
+  else if (q < base + 2) reinterpret_cast<float*>(p.loss.sums)[(q - base) * 2 + chain] = s;
+  else reinterpret_cast<float*>(p.loss.dstd)[q - base - 2] = s;
+}
+
 __global__ void __launch_bounds__(THREADS) mlp_chain_bwd_dw_kernel(const MlpParams p, int row_tiles) {
   __shared__ __align__(128) bf16 ds[TW * DLD];   // D_l rows x 64 output columns
   __shared__ __align__(128) bf16 hs[TW * DLD];   // h_l rows x 64 input columns
   __shared__ __align__(128) float out[TW * DSLD];
 
   const MlpChain& c = p.chain[blockIdx.y];
-  // Locate this block's (layer, o-tile, k-tile).
+  // Locate this block's (layer, o-tile, k-tile); blocks past the dW tiles sum
+  // the heads' partials.
   int t = blockIdx.x, l = 0;
   for (; l < p.num_layers; ++l) {
     const int tiles = ((p.dims[l + 1] + TW - 1) / TW) * ((p.dims[l] + TW - 1) / TW);
     if (t < tiles) break;
     t -= tiles;
   }
-  if (l >= p.num_layers) return;  // uniform over the block
+  if (l >= p.num_layers) {  // uniform over the block
+    head_sums(p, blockIdx.y, t, row_tiles);
+    return;
+  }
   const int n_out = p.dims[l + 1], n_in = p.dims[l];
   const int k_tiles = (n_in + TW - 1) / TW;
   const int o0 = (t / k_tiles) * TW, k0 = (t % k_tiles) * TW;
@@ -222,6 +435,9 @@ extern "C" int mlp_chain_bwd(const MlpParams* p, int num_chains, void* stream) {
   int dw_tiles = 0;
   for (int l = 0; l < p->num_layers; ++l)
     dw_tiles += ((p->dims[l + 1] + mlp::TW - 1) / mlp::TW) * ((p->dims[l] + mlp::TW - 1) / mlp::TW);
-  mlp::mlp_chain_bwd_dw_kernel<<<dim3(dw_tiles, num_chains), mlp::THREADS, 0, s>>>(*p, row_tiles);
+  int head_blocks = 0;
+  for (int c = 0; c < num_chains && p->head_mode != 0; ++c)
+    head_blocks = max(head_blocks, (p->head[c].stride + mlp::THREADS - 1) / mlp::THREADS);
+  mlp::mlp_chain_bwd_dw_kernel<<<dim3(dw_tiles + head_blocks, num_chains), mlp::THREADS, 0, s>>>(*p, row_tiles);
   return static_cast<int>(cudaGetLastError());
 }

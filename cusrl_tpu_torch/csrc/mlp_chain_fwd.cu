@@ -1,9 +1,20 @@
 // mlp_chain_fwd: the whole Linear+activation chain per 64-row tile, for one
-// chain (K1f) or two same-shape chains selected by blockIdx.y (K2f).
+// chain (K1f) or two same-shape chains selected by blockIdx.y (K2f), or two
+// chains each followed by an fp32 head (K8f: the Normal mean on the actor, the
+// value on the critic).
 //
 // Replaces the Pallas kernels cusrl_tpu/nn/kernels/fused_mlp.py:_fwd_kernel
-// (via _run_fwd, fused_mlp) and _pair_fwd_kernel (via _pair_run_fwd,
-// fused_mlp_pair).
+// (via _run_fwd, fused_mlp), _pair_fwd_kernel (via _pair_run_fwd,
+// fused_mlp_pair) and _pair_heads_fwd_kernel (via _pair_heads_run_fwd,
+// fused_mlp_pair_heads).
+//
+// K8f: after the last layer the latent tile is still in shared memory, so the
+// heads read it there (fp32 FMAs on the fp32 head weights, never rounded to
+// bf16: the TPU kernel's fp32 island).  Without `save` only the heads'
+// [N, A] and [N, Dv] fp32 outputs leave the block; with it the latents and
+// hiddens are written as K2f writes them.  The heads add 2 * (A + Dv) * 128
+// FLOP per row to the chains' 2 * 2 * 188,416 at the main-path shape, so
+// K8f is bound as K2f is.
 //
 // What bounds it on the H100: at the main-path widths 48->512->256->128 the
 // chain does 2 * 188,416 FLOP per row against ~96 bytes of x in and 256 bytes
@@ -53,10 +64,10 @@ __global__ void __launch_bounds__(THREADS) mlp_chain_fwd_kernel(const MlpParams 
   for (int l = 0; l < num_layers; ++l) {
     const int K = p.dims[l], n_out = p.dims[l + 1];
     const bool apply_act = (l < num_layers - 1) || p.trailing;
-    const bool write_global = (l == num_layers - 1) || p.save_hiddens;
+    bf16* out = reinterpret_cast<bf16*>(c.h[l]);
+    const bool write_global = out != nullptr && ((l == num_layers - 1) || p.save_hiddens);
     const float* W = reinterpret_cast<const float*>(c.w[l]);
     const float* bias = reinterpret_cast<const float*>(c.b[l]);
-    bf16* out = reinterpret_cast<bf16*>(c.h[l]);
     for (int n0 = 0; n0 < n_out; n0 += NC) {
       gemm_chunk<true>(act[cur], K, W, K, n0, n_out, ws, stg);
       const int ncols = min(NC, n_out - n0);
@@ -70,6 +81,21 @@ __global__ void __launch_bounds__(THREADS) mlp_chain_fwd_kernel(const MlpParams 
       }
     }
     cur ^= 1;
+  }
+
+  // K8f epilogue: the fp32 head on the latent tile, still in shared memory.
+  const MlpHead& hd = p.head[blockIdx.y];
+  if (p.head_mode == 1 && hd.dim > 0) {
+    __syncthreads();  // the last layer's epilogue wrote act[cur]
+    const int latent = p.dims[num_layers], dim = hd.dim;
+    const float* W = reinterpret_cast<const float*>(hd.w);
+    const float* bias = reinterpret_cast<const float*>(hd.b);
+    float* out = reinterpret_cast<float*>(hd.out);
+    for (int i = threadIdx.x; i < BM * dim; i += THREADS) {
+      const int r = i / dim, o = i % dim;
+      const int gr = row0 + r;
+      if (gr < n_rows) out[size_t(gr) * dim + o] = head_dot(act[cur] + r * HLD, W + size_t(o) * latent, latent, bias[o]);
+    }
   }
 }
 

@@ -27,7 +27,9 @@ def compute_next_value(value, bootstrap, terminated, truncated, termination_valu
     termination override."""
     next_value = torch.cat([value[1:], bootstrap[-1:]], dim=0)
     next_value = torch.where(truncated, bootstrap, next_value)
-    return torch.where(terminated, torch.as_tensor(termination_value, dtype=next_value.dtype), next_value)
+    # A Python scalar, not a host tensor: the latter is copied to the device
+    # and waits for it.
+    return torch.where(terminated, float(termination_value), next_value)
 
 
 class ValueComputation(Hook):

@@ -1,16 +1,25 @@
 """Fused MLP chain kernels on Hopper (counterpart of
-``cusrl_tpu/nn/kernels/fused_mlp.py``: ``fused_mlp`` and ``fused_mlp_pair``).
+``cusrl_tpu/nn/kernels/fused_mlp.py``: ``fused_mlp``, ``fused_mlp_pair`` and
+``fused_mlp_pair_heads``).
 
 Two hand-written CUDA kernels (``csrc/mlp_chain_fwd.cu``,
 ``csrc/mlp_chain_bwd.cu``) run one Linear+activation chain, or two same-shape
-chains (actor and critic) in one launch:
+chains (actor and critic) in one launch, optionally with fp32 heads on the
+chain outputs:
 
-====  =====================  ==============================================
-K1f   ``mlp_chain_fwd`` x1   replaces ``_fwd_kernel`` (``_run_fwd``)
-K1b   ``mlp_chain_bwd`` x1   replaces ``_bwd_kernel`` (``_run_bwd``)
-K2f   ``mlp_chain_fwd`` x2   replaces ``_pair_fwd_kernel`` (``_pair_run_fwd``)
-K2b   ``mlp_chain_bwd`` x2   replaces ``_pair_bwd_kernel`` (``_pair_run_bwd``)
-====  =====================  ==============================================
+====  ==========================  ==============================================
+K1f   ``mlp_chain_fwd`` x1        replaces ``_fwd_kernel`` (``_run_fwd``)
+K1b   ``mlp_chain_bwd`` x1        replaces ``_bwd_kernel`` (``_run_bwd``)
+K2f   ``mlp_chain_fwd`` x2        replaces ``_pair_fwd_kernel`` (``_pair_run_fwd``)
+K2b   ``mlp_chain_bwd`` x2        replaces ``_pair_bwd_kernel`` (``_pair_run_bwd``)
+K8f   ``mlp_chain_fwd`` x2+heads  replaces ``_pair_heads_fwd_kernel`` (``_pair_heads_run_fwd``)
+K8b   ``mlp_chain_bwd`` x2+heads  replaces ``_pair_heads_bwd_kernel`` (``_pair_heads_run_bwd``)
+====  ==========================  ==============================================
+
+``mlp_chain_bwd`` with the PPO loss (K9s) is launched from
+``fused_ppo_step.py``; its count lives in ``LAUNCHES`` here too.  The heads
+are fp32 islands: ``f32(latent) W^T + b`` with fp32 weights, and their
+backward keeps the latent's cotangent in fp32 until the activation derivative.
 
 What bounds them on the H100 and what the design does about it is written at
 the top of each CUDA source.  Beside each kernel this module keeps its plain
@@ -40,8 +49,11 @@ __all__ = [
     "LAUNCHES",
     "fused_mlp",
     "fused_mlp_pair",
+    "fused_mlp_pair_heads",
+    "head_bwd_plain",
     "mlp_chain_bwd_plain",
     "mlp_chain_fwd_plain",
+    "pair_heads_fwd_plain",
     "reset_launch_counts",
     "supports_fused_mlp",
 ]
@@ -53,7 +65,9 @@ MAX_WIDTH = 512  # MLP_MAX_WIDTH
 WIDTH_MULTIPLE = 16  # the kernels' 16x16x16 WMMA tiles
 ROW_TILE = 64  # mlp::BM
 
-LAUNCHES: dict[str, int] = {"K1f": 0, "K1b": 0, "K2f": 0, "K2b": 0}
+MAX_HEAD_DIM = 64  # mlp::MAX_HEAD_DIM
+
+LAUNCHES: dict[str, int] = {"K1f": 0, "K1b": 0, "K2f": 0, "K2b": 0, "K8f": 0, "K8b": 0, "K9s": 0}
 
 
 def reset_launch_counts() -> None:
@@ -109,9 +123,30 @@ def mlp_chain_fwd_plain(x, weights, biases, activation: str, trailing: bool, sav
     return h, hiddens
 
 
+def pair_heads_fwd_plain(x, weights, biases, head_weight, head_bias, activation: str, trailing: bool, save: bool):
+    """One chain of K8f: the chain, then its fp32 head on the bf16 latent
+    (``LinearFp32``).  Returns ``(head out [N, dim] fp32, latent bf16 or
+    None, [h_1..h_{L-1}] if save)``."""
+    latent, hiddens = mlp_chain_fwd_plain(x, weights, biases, activation, trailing, save)
+    out = latent.float() @ head_weight.T + head_bias
+    return out, (latent if save else None), hiddens
+
+
+def head_bwd_plain(latent, g, head_weight, gl=None):
+    """fp32 head backward of K8b: ``(d latent fp32, dW_head [dim, latent],
+    db_head)`` with ``d = g W (+ gl)``."""
+    g = g.float()
+    d = g @ head_weight
+    if gl is not None:
+        d = d + gl.float()
+    return d, g.T @ latent.float(), g.sum(0)
+
+
 def mlp_chain_bwd_plain(x, g, weights, hs, activation: str, trailing: bool, skip_input_grad: bool):
     """Gradient chain from the saved activations ``hs = [h_1..h_L]`` (``h_L``
-    is the chain output).  Returns ``(dx fp32 or None, dws [out, in] fp32, dbs fp32)``."""
+    is the chain output); ``g`` is the output cotangent (bf16 from a loss
+    outside, fp32 from a head).  Returns ``(dx fp32 or None, dws [out, in]
+    fp32, dbs fp32)``."""
     num_layers = len(weights)
     d = g.float()
     dws: list = [None] * num_layers
@@ -153,11 +188,52 @@ class _Chain(ctypes.Structure):
     ]
 
 
+class _Head(ctypes.Structure):
+    """Mirror of ``MlpHead`` in csrc/mlp_chain.cuh."""
+
+    _fields_ = [
+        ("w", ctypes.c_void_p),
+        ("b", ctypes.c_void_p),
+        ("out", ctypes.c_void_p),
+        ("g", ctypes.c_void_p),
+        ("gl", ctypes.c_void_p),
+        ("part", ctypes.c_void_p),
+        ("dw", ctypes.c_void_p),
+        ("db", ctypes.c_void_p),
+        ("dim", ctypes.c_int),
+        ("stride", ctypes.c_int),
+    ]
+
+
+class _Loss(ctypes.Structure):
+    """Mirror of ``MlpLoss`` in csrc/mlp_chain.cuh."""
+
+    _fields_ = [
+        ("action", ctypes.c_void_p),
+        ("old_logp", ctypes.c_void_p),
+        ("advantage", ctypes.c_void_p),
+        ("old_value", ctypes.c_void_p),
+        ("returns", ctypes.c_void_p),
+        ("std", ctypes.c_void_p),
+        ("dstd", ctypes.c_void_p),
+        ("sums", ctypes.c_void_p),
+        ("clip_ratio", ctypes.c_float),
+        ("w_surr", ctypes.c_float),
+        ("w_value", ctypes.c_float),
+        ("loss_clip", ctypes.c_float),
+        ("inv_n", ctypes.c_float),
+        ("inv_nv", ctypes.c_float),
+        ("use_old_value", ctypes.c_int),
+    ]
+
+
 class _Params(ctypes.Structure):
     """Mirror of ``MlpParams`` in csrc/mlp_chain.cuh."""
 
     _fields_ = [
         ("chain", _Chain * 2),
+        ("head", _Head * 2),
+        ("loss", _Loss),
         ("dims", ctypes.c_int * (MAX_LAYERS + 1)),
         ("num_layers", ctypes.c_int),
         ("num_rows", ctypes.c_int),
@@ -166,6 +242,7 @@ class _Params(ctypes.Structure):
         ("save_hiddens", ctypes.c_int),
         ("x_is_bf16", ctypes.c_int),
         ("skip_input_grad", ctypes.c_int),
+        ("head_mode", ctypes.c_int),
     ]
 
 
@@ -230,17 +307,39 @@ def _check(lib, code: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: {lib.mlp_chain_error_string(code).decode()} (cudaError {code})")
 
 
-def _launch_fwd(xs, wss, bss, activation, trailing, save_hiddens, counter):
+def _validate_heads(heads, latent: int, device) -> None:
+    """Each head is ``(w [dim, latent] fp32, b [dim] fp32 or None, ...)``."""
+    for w, b, *_ in heads:
+        dim = w.shape[0]
+        if w.dim() != 2 or w.shape[1] != latent or w.dtype != torch.float32 or not 0 < dim <= MAX_HEAD_DIM:
+            raise ValueError(f"head weight must be fp32 [dim <= {MAX_HEAD_DIM}, {latent}]; got {w.dtype} "
+                             f"{tuple(w.shape)}")
+        if b is not None and (b.shape != (dim,) or b.dtype != torch.float32):
+            raise ValueError(f"head bias must be fp32 [{dim}]")
+        if any(t is not None and t.device != device for t in (w, b)):
+            raise ValueError("all tensors must lie on one CUDA device")
+
+
+def _launch_fwd(xs, wss, bss, activation, trailing, save_hiddens, counter, heads=None):
+    """K1f/K2f; with ``heads`` (one ``(w [dim, latent], b [dim])`` per chain)
+    K8f, which also returns the heads' fp32 outputs and writes the chain
+    outputs only with ``save_hiddens``.  Returns ``(outs, hiddens, head_outs)``
+    per chain (``outs`` None where not written)."""
     dims = _validate(xs, wss, bss)
     num_layers, n = len(dims) - 1, xs[0].shape[0]
+    device = xs[0].device
+    if heads is not None:
+        _validate_heads(heads, dims[-1], device)
+    write_out = heads is None or save_hiddens
+    written = list(range(num_layers)) if save_hiddens else ([num_layers - 1] if write_out else [])
     xs = [x.contiguous() for x in xs]
     wss = [[w.detach().contiguous() for w in ws] for ws in wss]
     bss = [[b.detach().contiguous() for b in bs] for bs in bss]
-    hss = [
-        [torch.empty(n, dims[l + 1], dtype=_BF16, device=xs[0].device)
-         for l in range(num_layers) if save_hiddens or l == num_layers - 1]
-        for _ in xs
-    ]
+    hss = [[torch.empty(n, dims[l + 1], dtype=_BF16, device=device) for l in written] for _ in xs]
+    head_outs = None
+    if heads is not None:
+        heads = [(w.detach().contiguous(), b.detach().contiguous()) for w, b in heads]
+        head_outs = [torch.empty(n, w.shape[0], device=device) for w, _ in heads]
     if n > 0:
         p = _params(dims, n, activation, trailing)
         p.save_hiddens = int(save_hiddens)
@@ -251,29 +350,50 @@ def _launch_fwd(xs, wss, bss, activation, trailing, save_hiddens, counter):
             for l in range(num_layers):
                 chain.w[l] = ws[l].data_ptr()
                 chain.b[l] = bs[l].data_ptr()
-            # h[l] for the layers whose output is written (all when saving, else the last).
-            written = range(num_layers) if save_hiddens else [num_layers - 1]
             for l, h in zip(written, hs):
                 chain.h[l] = h.data_ptr()
+            if heads is not None:
+                head = p.head[i]
+                head.w, head.b = heads[i][0].data_ptr(), heads[i][1].data_ptr()
+                head.out, head.dim = head_outs[i].data_ptr(), heads[i][0].shape[0]
+        p.head_mode = int(heads is not None)
         lib = _library("mlp_chain_fwd")
-        stream = torch.cuda.current_stream(xs[0].device).cuda_stream
+        stream = torch.cuda.current_stream(device).cuda_stream
         code = lib.mlp_chain_fwd(ctypes.byref(p), len(xs), stream)
         LAUNCHES[counter] += 1
         _check(lib, code, "mlp_chain_fwd")
-    return [hs[-1] for hs in hss], [hs[:-1] for hs in hss]
+    outs = [hs[-1] if write_out else None for hs in hss]
+    hiddens = [hs[:-1] if save_hiddens else [] for hs in hss]
+    return outs, hiddens, head_outs
 
 
-def _launch_bwd(xs, gs, wss, hss, activation, trailing, skip_input_grad, counter):
+def _launch_bwd(xs, gs, wss, hss, activation, trailing, skip_input_grad, counter, heads=None, loss=None):
+    """K1b/K2b from bf16 cotangents ``gs`` of the chain outputs.  With
+    ``heads`` (one ``(w [dim, latent], b, g [N, dim] fp32, gl [N, latent] or
+    None)`` per chain) K8b: the chains' cotangents come from the heads', and
+    each chain's result also carries the head's ``(dw, db)``.  With ``loss``
+    (``_LossArgs``) K9s: the heads' cotangents come from the PPO loss; the
+    loss's ``dstd`` and ``sums`` are filled in.  Returns
+    ``[(dx or None, dws, dbs, head_grads or None)]`` per chain."""
     dims = _validate(xs, wss)
     num_layers, n = len(dims) - 1, xs[0].shape[0]
     device = xs[0].device
     xs = [x.contiguous() for x in xs]
-    gs = [g.to(_BF16).contiguous() for g in gs]
     wss = [[w.detach().contiguous() for w in ws] for ws in wss]
     hss = [[h.contiguous() for h in hs] for hs in hss]
-    for g, hs in zip(gs, hss):
-        if g.shape != (n, dims[-1]) or g.device != device:
-            raise ValueError(f"cotangent must be [N, {dims[-1]}] on {device}; got {tuple(g.shape)} on {g.device}")
+    if heads is None:
+        gs = [g.to(_BF16).contiguous() for g in gs]
+        for g in gs:
+            if g.shape != (n, dims[-1]) or g.device != device:
+                raise ValueError(f"cotangent must be [N, {dims[-1]}] on {device}; got {tuple(g.shape)} on {g.device}")
+    else:
+        _validate_heads(heads, dims[-1], device)
+        heads = [tuple(None if t is None else t.detach().float().contiguous() for t in head) for head in heads]
+        for w, _, g, gl in heads:
+            if (loss is None and (g is None or g.shape != (n, w.shape[0]))) or (
+                    gl is not None and gl.shape != (n, dims[-1])):
+                raise ValueError("head cotangents must be fp32 [N, dim] (and [N, latent] for the latent)")
+    for hs in hss:
         if len(hs) != num_layers or any(
             h.dtype != _BF16 or h.shape != (n, dims[l + 1]) or h.device != device for l, h in enumerate(hs)
         ):
@@ -284,7 +404,8 @@ def _launch_bwd(xs, gs, wss, hss, activation, trailing, skip_input_grad, counter
     p = _params(dims, n, activation, trailing)
     p.x_is_bf16 = int(xs[0].dtype == _BF16)
     p.skip_input_grad = int(skip_input_grad)
-    for i, (x, g, ws, hs) in enumerate(zip(xs, gs, wss, hss)):
+    p.head_mode = 0 if heads is None else (2 if loss is not None else 1)
+    for i, (x, ws, hs) in enumerate(zip(xs, wss, hss)):
         dws = [torch.empty(dims[l + 1], dims[l], device=device) for l in range(num_layers)]
         dbs = [torch.empty(dims[l + 1], device=device) for l in range(num_layers)]
         dx = None if skip_input_grad else torch.empty(n, dims[0], device=device)
@@ -293,8 +414,9 @@ def _launch_bwd(xs, gs, wss, hss, activation, trailing, skip_input_grad, counter
         scratch.append((ds, dbp))
         chain = p.chain[i]
         chain.x = x.data_ptr()
-        chain.g = g.data_ptr()
         chain.dx = None if dx is None else dx.data_ptr()
+        if heads is None:
+            chain.g = gs[i].data_ptr()
         for l in range(num_layers):
             chain.w[l] = ws[l].data_ptr()
             chain.h[l] = hs[l].data_ptr()
@@ -302,9 +424,30 @@ def _launch_bwd(xs, gs, wss, hss, activation, trailing, skip_input_grad, counter
             chain.dbp[l] = dbp[l].data_ptr()
             chain.dw[l] = dws[l].data_ptr()
             chain.db[l] = dbs[l].data_ptr()
-        results.append((dx, dws, dbs))
+        head_grads = None
+        if heads is not None:
+            w, b, g, gl = heads[i]
+            dim = w.shape[0]
+            stride = dim * dims[-1] + dim + (0 if loss is None else 2 + (dim if i == 0 else 0))
+            part = torch.empty(max(row_tiles, 1), stride, device=device)
+            head_grads = (torch.empty(dim, dims[-1], device=device), torch.empty(dim, device=device))
+            scratch.append((part, w, b, g, gl))
+            head = p.head[i]
+            head.w, head.b = w.data_ptr(), None if b is None else b.data_ptr()
+            head.g, head.gl = None if g is None else g.data_ptr(), None if gl is None else gl.data_ptr()
+            head.part, head.dim, head.stride = part.data_ptr(), dim, stride
+            head.dw, head.db = head_grads[0].data_ptr(), head_grads[1].data_ptr()
+        results.append((dx, dws, dbs, head_grads))
+    if loss is not None:
+        loss.fill(p.loss, n, heads[1][0].shape[0])
     if n == 0:
-        return [(dx, [dw.zero_() for dw in dws], [db.zero_() for db in dbs]) for dx, dws, dbs in results]
+        for _, dws, dbs, head_grads in results:
+            for t in (*dws, *dbs, *(head_grads or ())):
+                t.zero_()
+        if loss is not None:
+            loss.dstd.zero_()
+            loss.sums.zero_()
+        return results
     lib = _library("mlp_chain_bwd")
     stream = torch.cuda.current_stream(device).cuda_stream
     code = lib.mlp_chain_bwd(ctypes.byref(p), len(xs), stream)
@@ -318,28 +461,55 @@ def _launch_bwd(xs, gs, wss, hss, activation, trailing, skip_input_grad, counter
 # ---------------------------------------------------------------------------
 
 
+def _on_cuda(device) -> bool:
+    """True for CUDA tensors (launch the kernel), False for CPU tensors (the
+    plain version); raises on any other device."""
+    if device.type not in ("cuda", "cpu"):
+        raise RuntimeError(f"fused MLP kernels run on CUDA tensors; got {device}")
+    return device.type == "cuda"
+
+
 def _chain_fwd(xs, wss, bss, activation, trailing, save_hiddens, counter):
     """Forward of 1 or 2 chains; returns (outs, hiddens) per chain."""
-    device = xs[0].device
-    if device.type == "cuda":
-        return _launch_fwd(xs, wss, bss, activation, trailing, save_hiddens, counter)
-    if device.type != "cpu":
-        raise RuntimeError(f"fused MLP kernels run on CUDA tensors; got {device}")
+    if _on_cuda(xs[0].device):
+        return _launch_fwd(xs, wss, bss, activation, trailing, save_hiddens, counter)[:2]
     results = [mlp_chain_fwd_plain(x, ws, bs, activation, trailing, save_hiddens) for x, ws, bs in zip(xs, wss, bss)]
     return [r[0] for r in results], [r[1] for r in results]
 
 
 def _chain_bwd(xs, gs, wss, hss, activation, trailing, skip_input_grad, counter):
     """Backward of 1 or 2 chains; returns [(dx or None, dws, dbs)] per chain."""
-    device = xs[0].device
-    if device.type == "cuda":
-        return _launch_bwd(xs, gs, wss, hss, activation, trailing, skip_input_grad, counter)
-    if device.type != "cpu":
-        raise RuntimeError(f"fused MLP kernels run on CUDA tensors; got {device}")
+    if _on_cuda(xs[0].device):
+        results = _launch_bwd(xs, gs, wss, hss, activation, trailing, skip_input_grad, counter)
+        return [r[:3] for r in results]
     return [
         mlp_chain_bwd_plain(x, g, ws, hs, activation, trailing, skip_input_grad)
         for x, g, ws, hs in zip(xs, gs, wss, hss)
     ]
+
+
+def _heads_fwd(xs, wss, bss, heads, activation, trailing, save):
+    """K8f or its plain version: ``(means/values per chain, outs, hiddens)``;
+    ``outs`` and ``hiddens`` only with ``save``."""
+    if _on_cuda(xs[0].device):
+        outs, hiddens, head_outs = _launch_fwd(xs, wss, bss, activation, trailing, save, "K8f", heads=heads)
+        return head_outs, outs, hiddens
+    results = [pair_heads_fwd_plain(x, ws, bs, w, b, activation, trailing, save)
+               for x, ws, bs, (w, b) in zip(xs, wss, bss, heads)]
+    return [r[0] for r in results], [r[1] for r in results], [r[2] for r in results]
+
+
+def _heads_bwd(xs, heads, wss, hss, activation, trailing, skip_input_grad):
+    """K8b or its plain version; ``heads`` as ``_launch_bwd`` takes them.
+    Returns ``[(dx or None, dws, dbs, (dw_head, db_head))]`` per chain."""
+    if _on_cuda(xs[0].device):
+        return _launch_bwd(xs, None, wss, hss, activation, trailing, skip_input_grad, "K8b", heads=heads)
+    results = []
+    for x, (w, _, g, gl), ws, hs in zip(xs, heads, wss, hss):
+        d, dw_head, db_head = head_bwd_plain(hs[-1], g, w, gl)
+        dx, dws, dbs = mlp_chain_bwd_plain(x, d, ws, hs, activation, trailing, skip_input_grad)
+        results.append((dx, dws, dbs, (dw_head, db_head)))
+    return results
 
 
 class _FusedMlp(torch.autograd.Function):
@@ -440,3 +610,77 @@ def fused_mlp_pair(
     outs, _ = _chain_fwd([xa, xc], [tuple(weights_a), tuple(weights_c)], [tuple(biases_a), tuple(biases_c)],
                          activation, trailing, False, "K2f")
     return outs[0], outs[1]
+
+
+class _FusedMlpPairHeads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xa, xc, activation, trailing, num_layers, expose_latent, skip_input_grad, *params):
+        nl = num_layers
+        wa, ba, wc, bc = params[:nl], params[nl : 2 * nl], params[2 * nl : 3 * nl], params[3 * nl : 4 * nl]
+        wm, bm, wv, bv = params[4 * nl :]
+        (mean, value), (la, lc), (ha, hc) = _heads_fwd(
+            [xa, xc], [wa, wc], [ba, bc], [(wm, bm), (wv, bv)], activation, trailing, True
+        )
+        ctx.save_for_backward(xa, xc, *wa, *wc, wm, wv, *ha, la, *hc, lc)
+        ctx.meta = (activation, trailing, nl, expose_latent, skip_input_grad)
+        return (mean, value, la) if expose_latent else (mean, value)
+
+    @staticmethod
+    def backward(ctx, gm, gv, gl=None):
+        activation, trailing, nl, expose_latent, skip_input_grad = ctx.meta
+        saved = ctx.saved_tensors
+        xa, xc = saved[:2]
+        wa, wc = saved[2 : 2 + nl], saved[2 + nl : 2 + 2 * nl]
+        wm, wv = saved[2 + 2 * nl : 4 + 2 * nl]
+        ha, hc = saved[4 + 2 * nl : 4 + 3 * nl], saved[4 + 3 * nl :]
+        gm = torch.zeros(ha[-1].shape[0], wm.shape[0], device=wm.device) if gm is None else gm
+        gv = torch.zeros(hc[-1].shape[0], wv.shape[0], device=wv.device) if gv is None else gv
+        skip = skip_input_grad or not (ctx.needs_input_grad[0] or ctx.needs_input_grad[1])
+        (dxa, dwa, dba, (dwm, dbm)), (dxc, dwc, dbc, (dwv, dbv)) = _heads_bwd(
+            [xa, xc], [(wm, None, gm, gl if expose_latent else None), (wv, None, gv, None)],
+            [wa, wc], [ha, hc], activation, trailing, skip,
+        )
+        dxa = None if dxa is None else dxa.to(xa.dtype)
+        dxc = None if dxc is None else dxc.to(xc.dtype)
+        return (dxa, dxc, None, None, None, None, None, *dwa, *dba, *dwc, *dbc, dwm, dbm, dwv, dbv)
+
+
+def fused_mlp_pair_heads(
+    xa: torch.Tensor,
+    xc: torch.Tensor,
+    weights_a: Sequence[torch.Tensor],
+    biases_a: Sequence[torch.Tensor],
+    weights_c: Sequence[torch.Tensor],
+    biases_c: Sequence[torch.Tensor],
+    mean_weight: torch.Tensor,
+    mean_bias: torch.Tensor,
+    value_weight: torch.Tensor,
+    value_bias: torch.Tensor,
+    activation: str = "elu",
+    trailing: bool = True,
+    *,
+    expose_latent: bool = False,
+    skip_input_grad: bool = True,
+):
+    """Both chains and the fp32 heads in one launch (K8f; backward K8b).
+
+    Returns ``(mean [N, A] fp32, value [N, Dv] fp32)``, and with
+    ``expose_latent=True`` also the actor latent (bf16), whose cotangent flows
+    back through K8b.  Head weights are ``[out, in]`` (``head.weight``),
+    biases ``[out]``.  A call that needs no gradient writes only the heads'
+    outputs (and the latent with ``expose_latent``)."""
+    activation = activation.lower()
+    if len(weights_a) != len(weights_c):
+        raise ValueError("the two chains must have the same depth")
+    if not supports_fused_mlp(activation, len(weights_a), trailing):
+        raise ValueError(f"fused_mlp_pair_heads does not take activation '{activation}' with {len(weights_a)} layers")
+    xc = xc.to(xa.dtype)
+    params = (*weights_a, *biases_a, *weights_c, *biases_c, mean_weight, mean_bias, value_weight, value_bias)
+    if _needs_grad(xa, xc, *params):
+        return _FusedMlpPairHeads.apply(xa, xc, activation, trailing, len(weights_a), bool(expose_latent),
+                                        bool(skip_input_grad), *params)
+    (mean, value), (la, _), _ = _heads_fwd(
+        [xa, xc], [tuple(weights_a), tuple(weights_c)], [tuple(biases_a), tuple(biases_c)],
+        [(mean_weight, mean_bias), (value_weight, value_bias)], activation, trailing, bool(expose_latent),
+    )
+    return (mean, value, la) if expose_latent else (mean, value)

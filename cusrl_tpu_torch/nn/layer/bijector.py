@@ -27,8 +27,9 @@ def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """``jnp.clip`` with its gradient: min/max of tensors split the gradient
     evenly on ties, so a value sitting exactly on a bound (an std parameter
     initialised at the upper bound) gets half of it, as in JAX.
-    ``torch.clamp`` would pass all of it."""
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+    ``torch.clamp`` would pass all of it.  The bounds are filled on the
+    tensor's device (no host-to-device copy, which would wait on the device)."""
+    return torch.minimum(torch.maximum(x, torch.full_like(x, lo)), torch.full_like(x, hi))
 
 
 @dataclasses.dataclass(frozen=True)

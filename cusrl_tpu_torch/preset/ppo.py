@@ -1,10 +1,9 @@
 """PPO presets (counterpart of ``cusrl_tpu/preset/ppo.py``:
 ``ppo_hook_suite`` and ``PpoAgentFactory``).
 
-The hook order is the JAX suite's.  Options whose hooks are not ported yet
-(observation normalization, the KL-adaptive learning rate, the fused PPO
-update, recurrent backbones) raise ``NotImplementedError`` instead of being
-dropped.
+The hook order is the JAX suite's (``preset/ppo.py:61-111``).  Recurrent
+backbones, whose hooks are not ported yet, raise ``NotImplementedError``
+instead of being dropped.
 """
 
 from __future__ import annotations
@@ -13,11 +12,14 @@ import dataclasses
 from typing import Sequence
 
 from cusrl_tpu_torch.hook.control.initialization import ModuleInitialization
+from cusrl_tpu_torch.hook.mdp.observation import ObservationNormalization
 from cusrl_tpu_torch.hook.on_policy.advantage import AdvantageNormalization
 from cusrl_tpu_torch.hook.on_policy.common import OnPolicyPreparation
+from cusrl_tpu_torch.hook.on_policy.fused_update import FusedPpoUpdate
 from cusrl_tpu_torch.hook.on_policy.gae import GeneralizedAdvantageEstimation
 from cusrl_tpu_torch.hook.on_policy.gradient_clipping import GradientClipping
 from cusrl_tpu_torch.hook.on_policy.joint_eval import JointPolicyValueEvaluation
+from cusrl_tpu_torch.hook.on_policy.lr_schedule import AdaptiveLRSchedule
 from cusrl_tpu_torch.hook.on_policy.ppo import EntropyLoss, PpoSurrogateLoss
 from cusrl_tpu_torch.hook.on_policy.stats import OnPolicyStatistics
 from cusrl_tpu_torch.hook.on_policy.value import ValueComputation, ValueLoss
@@ -38,6 +40,8 @@ __all__ = ["PpoAgentFactory", "ppo_hook_suite"]
 def ppo_hook_suite(
     orthogonal_init: bool = True,
     normalize_observation: bool = False,
+    defer_normalization_updates: bool = False,
+    store_original_observations: bool = True,
     sparse_value_bootstrap: bool = False,
     gae_gamma: float = 0.99,
     gae_lamda: float = 0.95,
@@ -51,30 +55,53 @@ def ppo_hook_suite(
     max_grad_norm: float | None = 1.0,
     grad_clip_groups: dict[str, float] | None = None,
     desired_kl_divergence: float | None = None,
+    max_kl_divergence: float | None = None,
     fuse_actor_critic_evaluation: bool = False,
     fused_ppo_update: bool = False,
     recurrent_backbones: bool = False,
 ) -> list[Hook]:
-    if normalize_observation:
-        raise NotImplementedError("normalize_observation (ObservationNormalization) is not ported yet")
-    if desired_kl_divergence is not None:
-        raise NotImplementedError("desired_kl_divergence (AdaptiveLRSchedule) is not ported yet")
-    if fused_ppo_update:
-        raise NotImplementedError("fused_ppo_update (FusedPpoUpdate, kernel K9) is not ported yet")
     if recurrent_backbones:
         raise NotImplementedError("recurrent backbones are not ported yet")
+    if fused_ppo_update:
+        # One fused step (K2f + K9s) computes surrogate + value loss and their
+        # gradients; entropy stays outside.  Replaces the five-hook span below.
+        objective_span: list[Hook | None] = [
+            FusedPpoUpdate(
+                clip_ratio=surrogate_clip_ratio,
+                weight=surrogate_loss_weight,
+                value_loss_weight=value_loss_weight,
+                entropy_loss_weight=entropy_loss_weight,
+                value_loss_clip=value_loss_clip,
+            )
+        ]
+    else:
+        objective_span = [
+            JointPolicyValueEvaluation() if fuse_actor_critic_evaluation else None,
+            ValueLoss(weight=value_loss_weight, loss_clip=value_loss_clip),
+            OnPolicyPreparation(),
+            PpoSurrogateLoss(clip_ratio=surrogate_clip_ratio, weight=surrogate_loss_weight),
+            EntropyLoss(weight=entropy_loss_weight),
+        ]
     hooks: list[Hook | None] = [
         ModuleInitialization(init_actor=orthogonal_init, init_critic=orthogonal_init),
+        (
+            ObservationNormalization(
+                defer_updates=defer_normalization_updates, store_originals=store_original_observations
+            )
+            if normalize_observation
+            else None
+        ),
         ValueComputation(sparse_bootstrap=sparse_value_bootstrap),
         GeneralizedAdvantageEstimation(gamma=gae_gamma, lamda=gae_lamda, lamda_value=gae_lamda_value),
         AdvantageNormalization() if normalize_advantage else None,
-        JointPolicyValueEvaluation() if fuse_actor_critic_evaluation else None,
-        ValueLoss(weight=value_loss_weight, loss_clip=value_loss_clip),
-        OnPolicyPreparation(),
-        PpoSurrogateLoss(clip_ratio=surrogate_clip_ratio, weight=surrogate_loss_weight),
-        EntropyLoss(weight=entropy_loss_weight),
+        *objective_span,
         GradientClipping(max_grad_norm, grad_clip_groups),
         OnPolicyStatistics(),
+        (
+            AdaptiveLRSchedule(desired_kl_divergence, max_kl_divergence=max_kl_divergence)
+            if desired_kl_divergence is not None
+            else None
+        ),
     ]
     return [hook for hook in hooks if hook is not None]
 
@@ -95,6 +122,8 @@ class PpoAgentFactory(AgentFactory):
     orthogonal_init: bool = True
     init_distribution_std: float | None = None
     normalize_observation: bool = False
+    defer_normalization_updates: bool = False
+    store_original_observations: bool = True
     sparse_value_bootstrap: bool = False
     gae_gamma: float = 0.99
     gae_lamda: float = 0.95
@@ -108,6 +137,7 @@ class PpoAgentFactory(AgentFactory):
     max_grad_norm: float | None = 1.0
     grad_clip_groups: dict[str, float] = dataclasses.field(default_factory=dict)
     desired_kl_divergence: float | None = None
+    max_kl_divergence: float | None = None
     fuse_actor_critic_evaluation: bool = False
     fused_ppo_update: bool = False
 
@@ -118,6 +148,8 @@ class PpoAgentFactory(AgentFactory):
         return ppo_hook_suite(
             orthogonal_init=self.orthogonal_init,
             normalize_observation=self.normalize_observation,
+            defer_normalization_updates=self.defer_normalization_updates,
+            store_original_observations=self.store_original_observations,
             sparse_value_bootstrap=self.sparse_value_bootstrap,
             gae_gamma=self.gae_gamma,
             gae_lamda=self.gae_lamda,
@@ -131,6 +163,7 @@ class PpoAgentFactory(AgentFactory):
             max_grad_norm=self.max_grad_norm,
             grad_clip_groups=self.grad_clip_groups,
             desired_kl_divergence=self.desired_kl_divergence,
+            max_kl_divergence=self.max_kl_divergence,
             fuse_actor_critic_evaluation=self.fuse_actor_critic_evaluation,
             fused_ppo_update=self.fused_ppo_update,
         )

@@ -59,6 +59,9 @@ class ActorCritic(Agent):
         self._composite = HookComposite(self.hooks)
         self.transition: dict[str, Any] = {}
         self.buffer: list[dict] = []
+        for hook in self.hooks:
+            hook.post_init(self)
+        self.apply_schedules(0)
 
     @property
     def actor(self) -> Actor:
@@ -71,12 +74,56 @@ class ActorCritic(Agent):
     def get_hook(self, hook_name: str) -> Hook:
         return find_hook(self.hooks, hook_name)
 
+    def apply_schedules(self, iteration: int) -> None:
+        """Host-side hook schedules (at construction and after each update)."""
+        for hook in self._composite._active():
+            hook.apply_schedule(iteration, self)
+
+    # -- update snapshots (taken only when a hook's post_update reads one) ----
+
+    @torch.no_grad()
+    def take_snapshot(self) -> dict:
+        """Device copies of the parameters, the optimizer state and every
+        hook's state tensors."""
+        optimizer = self.optimizer.optimizer
+        return {
+            "params": {path: p.detach().clone() for path, p in self.model.named_parameters()},
+            "optimizer": {path: {k: v.clone() for k, v in optimizer.state.get(p, {}).items()}
+                          for path, p in self.model.named_parameters()},
+            "hooks": [{k: v.clone() for k, v in hook.state_tensors().items()} for hook in self.hooks],
+        }
+
+    @torch.no_grad()
+    def restore_snapshot(self, snapshot: dict, where: torch.Tensor, keep: Hook | None = None) -> None:
+        """Where the 0-d bool ``where`` holds, puts the snapshot back into the
+        parameters, the optimizer state and the state of every hook but
+        ``keep``; a device select, no host branch.  Optimizer state created
+        after the snapshot (the first update) goes back to zeros."""
+        optimizer = self.optimizer.optimizer
+        for path, p in self.model.named_parameters():
+            p.copy_(torch.where(where, snapshot["params"][path], p))
+            old_state = snapshot["optimizer"][path]
+            for key, value in optimizer.state.get(p, {}).items():
+                if isinstance(value, torch.Tensor):
+                    old = old_state.get(key)
+                    value.copy_(torch.where(where.to(value.device), torch.zeros_like(value) if old is None else old,
+                                            value))
+        for hook, old_state in zip(self.hooks, snapshot["hooks"]):
+            if hook is keep:
+                continue
+            for key, value in hook.state_tensors().items():
+                value.copy_(torch.where(where, old_state[key], value))
+
     # -- rollout ---------------------------------------------------------------
 
     @torch.no_grad()
-    def act_body(self, observation: torch.Tensor, noise: torch.Tensor | None = None) -> dict:
-        """pre_act -> actor explore -> post_act; returns the transition."""
+    def act_body(self, observation: torch.Tensor, noise: torch.Tensor | None = None,
+                 state: torch.Tensor | None = None) -> dict:
+        """pre_act -> actor explore -> post_act; returns the transition
+        (with the environment's ``state`` where it has one)."""
         transition: dict[str, Any] = {"observation": observation}
+        if state is not None:
+            transition["state"] = state
         self._composite.pre_act(self, transition)
         dist_params, (action, logp), _, _ = self.actor.explore(transition["observation"], self.generator, noise=noise)
         transition.update(action_dist=dist_params, action=action, action_logp=logp)
@@ -144,6 +191,8 @@ class ActorCritic(Agent):
         if check is not None:
             check(rollout)
         rollout = dict(rollout)
+        active = self._composite._active()
+        snapshot = self.take_snapshot() if any(h.needs_snapshot for h in active) else None
         with torch.no_grad():
             metrics = self._composite.pre_update(self, rollout)
         capacity, parallelism = rollout["action"].shape[:2]
@@ -170,7 +219,7 @@ class ActorCritic(Agent):
                 steps += 1
         metrics.update({key: value / steps for key, value in sums.items()})
         with torch.no_grad():
-            metrics.update(self._composite.post_update(self, rollout))
+            metrics.update(self._composite.post_update(self, rollout, snapshot))
         self.iteration += 1
         return metrics
 

@@ -9,6 +9,7 @@ import torch
 
 from cusrl_tpu_torch.template.environment import EnvironmentSpec
 from cusrl_tpu_torch.utils.config import resolve_device
+from cusrl_tpu_torch.utils.metrics import Metrics
 
 __all__ = ["Agent", "AgentFactory"]
 
@@ -32,11 +33,15 @@ class Agent:
         self.parallelism = environment_spec.num_instances
         self.iteration = 0
         self.step_index = 0
+        self.metrics = Metrics()
         # Explicit generators in place of jax.random keys: parameters are
         # initialised on the host (the same weights on every device), sampling
         # (actions, permutations, commands) draws on the agent's device.
         self.init_generator = torch.Generator().manual_seed(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
+
+    def record(self, metrics_dict: dict | None = None, /, **kwargs) -> None:
+        self.metrics.record(metrics_dict, **kwargs)
 
 
 @dataclasses.dataclass(kw_only=True)

@@ -22,13 +22,23 @@ __all__ = ["EnvironmentSpec", "TensorEnvironment"]
 
 @dataclasses.dataclass
 class EnvironmentSpec:
-    """The subset of the JAX spec's fields this slice reads."""
+    """The subset of the JAX spec's fields the port reads (the mirror
+    functions and ``observation_is_subset_of_state`` are not ported yet)."""
 
     observation_dim: int
     action_dim: int
     num_instances: int = 1
     state_dim: int | None = None
     reward_dim: int = 1
+    final_state_is_missing: bool = False
+    observation_normalization_excluded_indices: tuple[int, ...] | None = None
+    state_normalization_excluded_indices: tuple[int, ...] | None = None
+    observation_stat_groups: tuple[tuple[int, ...], ...] = ()
+    state_stat_groups: tuple[tuple[int, ...], ...] = ()
+
+    @property
+    def has_state(self) -> bool:
+        return self.state_dim is not None
 
 
 class TensorEnvironment:

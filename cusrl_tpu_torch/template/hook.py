@@ -4,12 +4,21 @@ A hook is a plain object with lifecycle callbacks.  PyTorch runs eagerly, so
 callbacks read the agent and update the payload dicts in place instead of
 returning new pytrees; the order of the lifecycle is the JAX package's:
 
-  host side, once:  ``init(agent)``
+  host side, once:  ``init(agent)`` per hook, then (once the optimizer
+                    exists) ``post_init(agent)`` per hook
   every env step:   ``pre_act`` -> actor explore -> ``post_act`` -> env step
                     -> ``post_step``
   every update:     ``pre_update``; then per minibatch ``objective`` (losses
                     summed, one backward) -> ``pre_optim`` (gradients on the
                     parameters) -> optimizer step; finally ``post_update``.
+  after an update:  ``apply_schedule(iteration, agent)`` (host side).
+
+A hook's device state (running statistics, an adaptive scale) lives in
+tensors that it updates in place and lists in ``state_tensors()``, keyed by
+the JAX hook's field path.  ``post_update`` receives the pre-update
+``snapshot`` (parameters, optimizer state and every hook's state tensors)
+when some active hook sets ``needs_snapshot``; otherwise it gets None and no
+snapshot is taken.
 
 ``HookComposite`` folds each callback over the active hooks in list order.
 """
@@ -34,6 +43,11 @@ class Hook:
     override callbacks."""
 
     training_only: bool = False
+    # post_update reads the pre-update snapshot (taken only when some hook asks).
+    needs_snapshot: bool = False
+    # Fields of the JAX hook's state that are configuration here (skipped by
+    # load_jax_state).
+    jax_config_fields: tuple[str, ...] = ()
 
     def __init__(self, *, name: str | None = None, active: bool = True):
         self.name = name
@@ -45,6 +59,16 @@ class Hook:
 
     def init(self, agent: "ActorCritic") -> None:
         """Builds what the hook needs from the agent (host side, once)."""
+
+    def post_init(self, agent: "ActorCritic") -> None:
+        """After every hook's ``init`` and the optimizer's construction."""
+
+    def apply_schedule(self, iteration: int, agent: "ActorCritic | None" = None) -> None:
+        """Host-side schedule, applied at construction and after each update."""
+
+    def state_tensors(self) -> dict[str, Any]:
+        """The hook's device state, updated in place, by JAX field path."""
+        return {}
 
     def pre_act(self, agent: "ActorCritic", transition: dict) -> None:
         pass
@@ -67,7 +91,8 @@ class Hook:
         """Gradient-space callback (gradients are on the parameters); returns metrics."""
         return {}
 
-    def post_update(self, agent: "ActorCritic", rollout: dict) -> dict[str, Any]:
+    def post_update(self, agent: "ActorCritic", rollout: dict, snapshot=None) -> dict[str, Any]:
+        """After the optimization epochs; ``snapshot`` as the module says."""
         return {}
 
 
@@ -116,10 +141,10 @@ class HookComposite:
             metrics.update(hook.pre_optim(agent))
         return metrics
 
-    def post_update(self, agent, rollout: dict) -> dict:
+    def post_update(self, agent, rollout: dict, snapshot=None) -> dict:
         metrics: dict = {}
         for hook in self._active():
-            metrics.update(hook.post_update(agent, rollout))
+            metrics.update(hook.post_update(agent, rollout, snapshot))
         return metrics
 
 

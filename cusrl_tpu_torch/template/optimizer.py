@@ -39,13 +39,35 @@ class Optimizer:
         self.optimizer = optimizer
         self.group_names = group_names
         self.labels = labels  # parameter path -> group name
+        self.base_learning_rates = {name: float(g["lr"]) for name, g in zip(group_names, optimizer.param_groups)}
+
+    def group(self, name: str) -> dict:
+        return self.optimizer.param_groups[self.group_names.index(name)]
 
     @property
     def learning_rates(self) -> dict[str, float]:
-        return {name: group["lr"] for name, group in zip(self.group_names, self.optimizer.param_groups)}
+        """Host values (reading a device learning rate waits for the device)."""
+        return {name: float(group["lr"]) for name, group in zip(self.group_names, self.optimizer.param_groups)}
 
-    def set_learning_rate(self, group: str, lr: float) -> None:
-        self.optimizer.param_groups[self.group_names.index(group)]["lr"] = lr
+    def set_learning_rate(self, group: str, lr) -> None:
+        """``lr``: a float, or a 0-d tensor once the rates live on the device."""
+        g = self.group(group)
+        if isinstance(g["lr"], torch.Tensor):
+            g["lr"].copy_(lr) if isinstance(lr, torch.Tensor) else g["lr"].fill_(lr)
+        else:
+            g["lr"] = float(lr)
+
+    def use_device_learning_rates(self) -> None:
+        """Keeps each group's learning rate in a 0-d fp32 tensor on its
+        parameters' device, so an on-device schedule can rewrite it without a
+        host sync.  On CUDA the update then runs ``capturable`` (every Adam
+        scalar on the device); the arithmetic is ``optax.scale_by_adam`` with
+        ``-lr`` as before.  Call before the first step."""
+        for group in self.optimizer.param_groups:
+            device = group["params"][0].device
+            if not isinstance(group["lr"], torch.Tensor):
+                group["lr"] = torch.full((), float(group["lr"]), device=device)
+            group["capturable"] = device.type == "cuda"
 
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)

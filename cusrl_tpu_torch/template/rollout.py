@@ -47,9 +47,7 @@ class RolloutDriver:
         return_sum = torch.zeros((), device=agent.device)
         length_sum = torch.zeros((), device=agent.device)
         for _ in range(num_steps):
-            transition = agent.act_body(self._observation)
-            if self._obs_state is not None:
-                transition["state"] = self._obs_state
+            transition = agent.act_body(self._observation, state=self._obs_state)
             self._env_state, reward, terminated, truncated, info = env.step_fn(
                 self._env_state, transition["action"], agent.generator
             )
@@ -79,3 +77,26 @@ class RolloutDriver:
         rollout, aggregates = self.collect(num_steps)
         metrics = self.agent.update_body(rollout)
         return aggregates, metrics
+
+    def collect_and_update_many(self, num_steps: int, num_iters: int):
+        """``num_iters`` training iterations; returns ``(aggregates [K, 3],
+        metric values [K, M], metric keys)``, all values on the device, for
+        one transfer by the caller.  ``update_body`` advances
+        ``agent.iteration``; the hook schedules are applied after each
+        iteration, as the JAX driver's per-iteration branch does
+        (``rollout.py:250-260``).  The JAX driver's single-dispatch scan over
+        iterations has no counterpart: CUDA launches are already queued
+        asynchronously, so the host runs ahead of the device until the
+        caller's transfer."""
+        aggregates, stacked, keys = [], [], None
+        for _ in range(num_iters):
+            aggs, metrics = self.collect_and_update(num_steps)
+            if keys is None:
+                keys = tuple(sorted(metrics))
+            elif tuple(sorted(metrics)) != keys:
+                raise RuntimeError("metric keys changed between iterations")
+            aggregates.append(aggs)
+            stacked.append(torch.stack([torch.as_tensor(metrics[k], device=self.agent.device).float().reshape(())
+                                        for k in keys]))
+            self.agent.apply_schedules(self.agent.iteration)
+        return torch.stack(aggregates), torch.stack(stacked), keys

@@ -1,0 +1,60 @@
+"""Velocity-locomotion experiments (counterpart of the ``ppo`` entries of
+``cusrl_tpu/zoo/locomotion.py``; their kwargs are the JAX entries' letter for
+letter).  The recurrent, transformer and AMP entries wait for their slices.
+"""
+
+from cusrl_tpu_torch.environment.locomotion import VelocityLocomotionEnv
+from cusrl_tpu_torch.preset.ppo import PpoAgentFactory
+from cusrl_tpu_torch.zoo.registry import register_experiment
+
+register_experiment(
+    environment_name="Velocity-Flat",
+    algorithm_name="ppo",
+    agent_meta_factory=PpoAgentFactory,
+    agent_meta_factory_kwargs=dict(
+        num_steps_per_update=24,
+        actor_hidden_dims=(128, 128, 128),
+        critic_hidden_dims=(128, 128, 128),
+        activation_fn="elu",
+        lr=1e-3,
+        sampler_epochs=5,
+        sampler_mini_batches=4,
+        normalize_observation=True,
+        desired_kl_divergence=0.015,
+        entropy_loss_weight=0.005,
+        fuse_actor_critic_evaluation=True,
+    ),
+    training_env_factory=VelocityLocomotionEnv,
+    training_env_factory_kwargs={"num_instances": 4096},
+    benchmarking_env_factory=VelocityLocomotionEnv,
+    benchmarking_env_factory_kwargs={"num_instances": 64},
+    num_iterations=300,
+    checkpoint_interval=50,
+    iterations_per_dispatch=10,
+)
+
+register_experiment(
+    environment_name="Velocity-Rough",
+    algorithm_name="ppo",
+    agent_meta_factory=PpoAgentFactory,
+    agent_meta_factory_kwargs=dict(
+        num_steps_per_update=24,
+        actor_hidden_dims=(512, 256, 128),
+        critic_hidden_dims=(512, 256, 128),
+        activation_fn="elu",
+        lr=1e-3,
+        sampler_epochs=5,
+        sampler_mini_batches=4,
+        normalize_observation=True,
+        desired_kl_divergence=0.01,
+        entropy_loss_weight=0.005,
+        fuse_actor_critic_evaluation=True,
+    ),
+    training_env_factory=VelocityLocomotionEnv,
+    training_env_factory_kwargs={"num_instances": 4096},
+    benchmarking_env_factory=VelocityLocomotionEnv,
+    benchmarking_env_factory_kwargs={"num_instances": 64},
+    num_iterations=1500,
+    checkpoint_interval=200,
+    iterations_per_dispatch=10,
+)

@@ -52,7 +52,7 @@ def test_forward_matches_plain(cuda, rows, activation):
     ws, bs = _params(gen, cuda)
     x = torch.tanh(torch.randn(rows, WIDTHS[0], generator=gen)).to(cuda)
     for trailing in (True, False):
-        (out,), (hid,) = fm._launch_fwd([x], [ws], [bs], activation, trailing, True, "K1f")
+        (out,), (hid,), _ = fm._launch_fwd([x], [ws], [bs], activation, trailing, True, "K1f")
         ref, ref_hid = fm.mlp_chain_fwd_plain(x, ws, bs, activation, trailing, True)
         _close(out, ref, grad=False)
         for h, r in zip(hid, ref_hid):
@@ -67,11 +67,11 @@ def test_backward_matches_plain(cuda, rows, chains):
     wss, bss = [p[0] for p in params], [p[1] for p in params]
     xs = [torch.tanh(torch.randn(rows, WIDTHS[0], generator=gen)).to(cuda) for _ in range(chains)]
     gs = [(torch.randn(rows, WIDTHS[-1], generator=gen) * 0.01).to(cuda, torch.bfloat16) for _ in range(chains)]
-    outs, hids = fm._launch_fwd(xs, wss, bss, "elu", True, True, "K2f")
+    outs, hids, _ = fm._launch_fwd(xs, wss, bss, "elu", True, True, "K2f")
     hss = [[*h, o] for h, o in zip(hids, outs)]
     for skip in (False, True):
         got = fm._launch_bwd(xs, gs, wss, hss, "elu", True, skip, "K2b")
-        for c, (dx, dws, dbs) in enumerate(got):
+        for c, (dx, dws, dbs, _) in enumerate(got):
             rdx, rdws, rdbs = fm.mlp_chain_bwd_plain(xs[c], gs[c], wss[c], hss[c], "elu", True, skip)
             for a, b in zip([*dws, *dbs], [*rdws, *rdbs]):
                 _close(a, b, grad=True)
@@ -154,10 +154,141 @@ def test_autograd_wrappers_launch_and_count(cuda):
     with torch.no_grad():
         fm.fused_mlp(x, ws, bs)
     torch.cuda.synchronize()
-    assert fm.LAUNCHES == {"K1f": 2, "K1b": 1, "K2f": 1, "K2b": 1}
+    assert fm.LAUNCHES == {"K1f": 2, "K1b": 1, "K2f": 1, "K2b": 1, "K8f": 0, "K8b": 0, "K9s": 0}
 
 
 def test_unsupported_width_raises_on_cuda(cuda):
     x = torch.zeros(64, 40, device=cuda)
     with pytest.raises(ValueError, match="multiples of 16"):
         fm.fused_mlp(x, [torch.zeros(64, 40, device=cuda)], [torch.zeros(64, device=cuda)])
+
+
+# -- K8f/K8b (pair + heads) and K9s (PPO loss backward) ------------------------
+
+A_DIM = 12
+
+
+def _heads(gen, device, value_dim=1):
+    return [((torch.randn(d, WIDTHS[-1], generator=gen) * 0.2).to(device), (torch.randn(d, generator=gen) * 0.1).to(device))
+            for d in (A_DIM, value_dim)]
+
+
+@pytest.mark.parametrize("rows", [24576, 1000])
+@pytest.mark.parametrize("value_dim", [1, 3])
+def test_pair_heads_launchers_match_plain(cuda, rows, value_dim):
+    gen = torch.Generator().manual_seed(rows + value_dim)
+    (wa, ba), (wc, bc) = _params(gen, cuda), _params(gen, cuda)
+    heads = _heads(gen, cuda, value_dim)
+    xs = [torch.tanh(torch.randn(rows, WIDTHS[0], generator=gen)).to(cuda) for _ in range(2)]
+    for save in (False, True):
+        outs, hids, head_outs = fm._launch_fwd(xs, [wa, wc], [ba, bc], "elu", True, save, "K8f", heads=heads)
+        for c, (x, ws, bs, (w, b)) in enumerate(zip(xs, [wa, wc], [ba, bc], heads)):
+            ref, ref_lat, ref_hid = fm.pair_heads_fwd_plain(x, ws, bs, w, b, "elu", True, save)
+            _close(head_outs[c], ref, grad=False)
+            assert (outs[c] is None) != save
+            if save:
+                _close(outs[c], ref_lat, grad=False)
+                for h, r in zip(hids[c], ref_hid):
+                    _close(h, r, grad=False)
+    outs, hids, _ = fm._launch_fwd(xs, [wa, wc], [ba, bc], "elu", True, True, "K8f", heads=heads)
+    hss = [[*h, o] for h, o in zip(hids, outs)]
+    gm = (torch.randn(rows, A_DIM, generator=gen) * 0.01).to(cuda)
+    gv = (torch.randn(rows, value_dim, generator=gen) * 0.01).to(cuda)
+    gl = (torch.randn(rows, WIDTHS[-1], generator=gen) * 0.01).to(cuda)
+    for expose, skip in ((False, True), (True, True), (True, False)):
+        spec = [(heads[0][0], None, gm, gl if expose else None), (heads[1][0], None, gv, None)]
+        got = fm._launch_bwd(xs, None, [wa, wc], hss, "elu", True, skip, "K8b", heads=spec)
+        for c, (dx, dws, dbs, (dwh, dbh)) in enumerate(got):
+            w, _, g, g_lat = spec[c]
+            d, rdwh, rdbh = fm.head_bwd_plain(hss[c][-1], g, w, g_lat)
+            rdx, rdws, rdbs = fm.mlp_chain_bwd_plain(xs[c], d, [wa, wc][c], hss[c], "elu", True, skip)
+            for a, b in zip([*dws, *dbs, dwh, dbh], [*rdws, *rdbs, rdwh, rdbh]):
+                _close(a, b, grad=True)
+            assert (dx is None) == skip
+            if not skip:
+                _close(dx, rdx, grad=True)
+
+
+@pytest.mark.parametrize("rows", [24576, 1000])
+@pytest.mark.parametrize("loss_clip", [None, 0.2])
+def test_loss_bwd_matches_plain(cuda, rows, loss_clip):
+    from cusrl_tpu_torch.nn.kernels import fused_ppo_step as fp
+
+    gen = torch.Generator().manual_seed(rows + 3)
+    (wa, ba), (wc, bc) = _params(gen, cuda), _params(gen, cuda)
+    (wm, bm), (wv, bv) = _heads(gen, cuda)
+    xs = [torch.tanh(torch.randn(rows, WIDTHS[0], generator=gen)).to(cuda) for _ in range(2)]
+    outs, hids, _ = fm._launch_fwd(xs, [wa, wc], [ba, bc], "elu", True, True, "K2f")
+    hss = [[*h, o] for h, o in zip(hids, outs)]
+    std = torch.exp(torch.randn(A_DIM, generator=gen) * 0.2).to(cuda)
+    with torch.no_grad():
+        mean = hss[0][-1].float() @ wm.T + bm
+    action = mean + std * torch.randn(rows, A_DIM, generator=gen).to(cuda)
+    old_logp = (-0.5 * ((action - mean) / std).square() - torch.log(std) - 0.9189385332046727).sum(-1)
+    old_logp = old_logp + (torch.randn(rows, generator=gen) * 0.2).to(cuda)
+    adv = torch.randn(rows, generator=gen).to(cuda)
+    ret = torch.randn(rows, 1, generator=gen).to(cuda)
+    old_value = torch.randn(rows, 1, generator=gen).to(cuda)
+    args = (xs, hss, [wa, wc], wm, bm, wv, bv, std, action, old_logp, adv, old_value, ret, 0.2, 1.0, 0.5,
+            loss_clip, "elu", True)
+    got, sums = fp._loss_bwd(*args)
+    want, ref_sums = fp.ppo_loss_bwd_plain(*args)
+    flat = lambda g: [*g[0], *g[1], *g[2], *g[3], *g[4:]]
+    # A row at a clip bound may take the other branch on one side: 3e-2 of
+    # the largest value, the JAX package's own rtol for this kernel.
+    for a, b in zip(flat(got), flat(want)):
+        a, b = a.float(), b.float()
+        assert torch.isfinite(a).all() and (a - b).abs().max() <= 3e-2 * b.abs().max()
+    assert torch.isfinite(sums).all()
+    assert ((sums - ref_sums).abs() <= 1e-4 * ref_sums.abs().clamp(min=1.0)).all(), (sums, ref_sums)
+
+
+def test_head_wrappers_match_plain_under_autograd(cuda):
+    from cusrl_tpu_torch.nn.kernels import fused_ppo_step as fp
+
+    gen = torch.Generator().manual_seed(5)
+    rows = 1000
+    (wa, ba), (wc, bc) = _leaf_params(gen, cuda), _leaf_params(gen, cuda)
+    (wm, bm), (wv, bv) = [(w.requires_grad_(), b.requires_grad_()) for w, b in _heads(gen, cuda)]
+    xa, xc = (torch.tanh(torch.randn(rows, WIDTHS[0], generator=gen)).to(cuda) for _ in range(2))
+    params = [*wa, *ba, *wc, *bc, wm, bm, wv, bv]
+
+    def grads_of(fn):
+        for p in params:
+            p.grad = None
+        fn().backward()
+        return [p.grad.clone() for p in params]
+
+    gm = (torch.randn(rows, A_DIM, generator=gen) * 0.01).to(cuda)
+    kernel = grads_of(lambda: (fm.fused_mlp_pair_heads(xa, xc, wa, ba, wc, bc, wm, bm, wv, bv)[0] * gm).sum())
+    cpu_params = [p.detach().cpu().requires_grad_() for p in params]
+    nl = len(wa)
+    cw = [cpu_params[:nl], cpu_params[nl:2 * nl], cpu_params[2 * nl:3 * nl], cpu_params[3 * nl:4 * nl]]
+    out = fm.fused_mlp_pair_heads(xa.cpu(), xc.cpu(), *cw, *cpu_params[4 * nl:])[0]
+    (out * gm.cpu()).sum().backward()
+    for a, p in zip(kernel, cpu_params):
+        _close(a.cpu(), p.grad, grad=True)
+
+    std = torch.exp(torch.randn(A_DIM, generator=gen) * 0.2).to(cuda).requires_grad_()
+    with torch.no_grad():
+        mean = fm.fused_mlp_pair_heads(xa, xc, wa, ba, wc, bc, wm, bm, wv, bv)[0]
+    action = mean + std.detach() * torch.randn(rows, A_DIM, generator=gen).to(cuda)
+    old_logp = (-0.5 * ((action - mean) / std.detach()).square() - torch.log(std.detach())).sum(-1) - 11.027
+    old_logp = old_logp + (torch.randn(rows, generator=gen) * 0.2).to(cuda)
+    rows_data = (action, old_logp, torch.randn(rows, 1, generator=gen).to(cuda), None,
+                 torch.randn(rows, 1, generator=gen).to(cuda))
+    loss, metrics = fp.fused_ppo_step(xa, xc, wa, ba, wc, bc, wm, bm, wv, bv, std, *rows_data, 0.2, 1.0, 0.5)
+    for p in (*params, std):
+        p.grad = None
+    loss.backward()
+    cpu_std = std.detach().cpu().requires_grad_()
+    for p in cpu_params:
+        p.grad = None
+    c_loss, c_metrics = fp.fused_ppo_step(xa.cpu(), xc.cpu(), *cw, *cpu_params[4 * nl:], cpu_std,
+                                          *(None if t is None else t.cpu() for t in rows_data), 0.2, 1.0, 0.5)
+    c_loss.backward()
+    assert abs(loss.item() - c_loss.item()) <= 1e-3 * max(1.0, abs(c_loss.item()))
+    for m, c in zip(metrics, c_metrics):
+        assert abs(m.item() - c.item()) <= 2e-3 * max(1.0, abs(c.item()))
+    for a, p in zip([*params, std], [*cpu_params, cpu_std]):  # 3e-2: as in test_loss_bwd_matches_plain
+        assert (a.grad.cpu() - p.grad).abs().max() <= 3e-2 * p.grad.abs().max()

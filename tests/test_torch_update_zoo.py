@@ -1,0 +1,172 @@
+"""One whole PPO update of the zoo's Velocity-Rough configuration, port
+against JAX package, at small widths, for the three update paths:
+
+A: the zoo's hooks (observation normalization, joint evaluation, adaptive LR);
+B: A with ``JointPolicyValueEvaluation(fuse_heads=True)`` (K8);
+C: A with ``fused_ppo_update=True`` (K9, split mode).
+
+The port takes the JAX agent's weights and hook state through
+``load_jax_state``; both update on the same injected rollout (made with numpy
+from a seed, actions sampled from the JAX actor) and the same epoch
+permutations, taken from the JAX sampler's plan.  On the CPU the JAX package
+runs its XLA references.  In bf16 the port is forced onto its kernel paths
+(``Mlp._can_fuse`` without "on CUDA"), so the plain versions of K2/K8/K9 run;
+in fp32 the kernels do not apply (they are bf16) and both sides run their
+plain chains (for C the bf16 reference).  Tolerances as
+tests/test_torch_update.py: fp32 to summation order (metrics rtol 1e-5,
+parameters 2e-6), bf16 to one rounding carried through 20 Adam steps
+(metrics rtol 1e-3 / atol 1e-4, parameters 3e-3).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cusrl_tpu.environment.locomotion import VelocityLocomotionEnv as JaxEnv
+from cusrl_tpu.hook.on_policy.joint_eval import JointPolicyValueEvaluation as JaxJointEval
+from cusrl_tpu.nn.base import tree_paths
+from cusrl_tpu.utils import misc as jax_misc
+from cusrl_tpu.utils.config import CONFIG as JAX_CONFIG
+from cusrl_tpu.zoo.registry import get_experiment as jax_get_experiment
+from cusrl_tpu_torch.environment.locomotion import VelocityLocomotionEnv
+from cusrl_tpu_torch.hook.on_policy.joint_eval import JointPolicyValueEvaluation
+from cusrl_tpu_torch.nn.module.mlp import Mlp
+from cusrl_tpu_torch.nn.kernels.fused_mlp import LAUNCHES, reset_launch_counts
+from cusrl_tpu_torch.utils.config import CONFIG
+from cusrl_tpu_torch.utils.interop import load_jax_state
+from cusrl_tpu_torch.zoo.registry import get_experiment
+
+T, N, OBS, ACT = 8, 64, 16, 4  # 512 rows: 4 minibatches of one 128-row tile each
+SMALL = dict(num_steps_per_update=T, actor_hidden_dims=(32, 16), critic_hidden_dims=(32, 16))
+# (metrics, parameters, hook state).  The schedule's accumulator holds
+# log(KL): its error is the KL's relative error, and the KL is a small
+# difference of nearly equal terms (measured 1.5e-5 in fp32, 7.5e-4 in bf16).
+FP32_TOL = (dict(rtol=1e-5, atol=5e-6), dict(rtol=0, atol=2e-6), dict(rtol=1e-4, atol=1e-4))
+BF16_TOL = (dict(rtol=1e-3, atol=1e-4), dict(rtol=0, atol=3e-3), dict(rtol=1e-3, atol=2e-3))
+
+
+def _factories(path, **overrides):
+    kwargs = {**SMALL, **overrides, **({"fused_ppo_update": True} if path == "C" else {})}
+    jf, tf = jax_get_experiment("Velocity-Rough", "ppo").make_agent_factory(), get_experiment(
+        "Velocity-Rough", "ppo").make_agent_factory()
+    for f in (jf, tf):
+        for k, v in kwargs.items():
+            setattr(f, k, v)
+    if path != "B":
+        return jf, tf
+    jf, tf = jf.to_underlying(), tf.to_underlying()
+    jf.hooks = [JaxJointEval(fuse_heads=True) if isinstance(h, JaxJointEval) else h for h in jf.hooks]
+    tf.hooks = [JointPolicyValueEvaluation(fuse_heads=True) if isinstance(h, JointPolicyValueEvaluation) else h
+                for h in tf.hooks]
+    return jf, tf
+
+
+def _rollout(jax_agent, seed):
+    rng = np.random.default_rng(seed)
+    obs = np.tanh(rng.standard_normal((T, N, OBS))).astype(np.float32)
+    next_obs = np.concatenate([obs[1:], np.tanh(rng.standard_normal((1, N, OBS)))], 0).astype(np.float32)
+    dist, _, _ = jax_agent.state.actor(jnp.asarray(obs))
+    action = dist["mean"] + dist["std"] * rng.standard_normal((T, N, ACT)).astype(np.float32)
+    terminated = rng.random((T, N, 1)) < 0.05
+    truncated = rng.random((T, N, 1)) < 0.05
+    return {
+        "observation": obs,
+        "next_observation": next_obs,
+        "action": np.asarray(action),
+        "action_logp": np.asarray(jax_agent.state.actor.compute_logp(dist, action)),
+        "action_dist": {"mean": np.asarray(dist["mean"]), "std": np.asarray(dist["std"])},
+        "reward": rng.standard_normal((T, N, 1)).astype(np.float32),
+        "terminated": terminated,
+        "truncated": truncated,
+        "done": terminated | truncated,
+    }
+
+
+def _hook_state(jax_agent, rng):
+    """Non-trivial hook state on the JAX side (it is carried to the port)."""
+    for index, hook in enumerate(jax_agent.state.hooks):
+        if hook.hook_name == "observation_normalization":
+            acc = None if hook.obs_acc is None else tuple(
+                jnp.asarray(v) for v in (rng.standard_normal(OBS) * 30, rng.random(OBS) * 200 + 100, 60.0))
+            rms = hook.observation_rms.replace(mean=jnp.asarray(rng.standard_normal(OBS), jnp.float32),
+                                               var=jnp.asarray(rng.random(OBS) + 0.5, jnp.float32),
+                                               count=jnp.asarray(300.0, jnp.float32))
+            jax_agent.update_hook(hook.hook_name, hook.replace(observation_rms=rms, obs_acc=acc))
+        elif hook.hook_name == "adaptive_l_r_schedule":
+            jax_agent.update_hook(hook.hook_name, hook.replace(
+                lr_scale=jnp.asarray(0.7, jnp.float32), accumulated_log_error=jnp.asarray(0.4, jnp.float32),
+                error_count=jnp.asarray(2.0, jnp.float32)))
+
+
+def _run_both(path, compute_dtype, monkeypatch, **overrides):
+    monkeypatch.setattr(JAX_CONFIG, "seed", 0)
+    monkeypatch.setattr(jax_misc, "_KEY_COUNTER", [0])
+    monkeypatch.setattr(JAX_CONFIG, "compute_dtype", compute_dtype)
+    monkeypatch.setattr(CONFIG, "compute_dtype", compute_dtype)
+    # The kernels' path on the CPU: the JAX rule without "on CUDA" (and
+    # without the row minimum, so the 128-row minibatches take it too).
+    monkeypatch.setattr(Mlp, "_can_fuse", lambda self, x: x.dim() >= 2 and all(
+        l.compute_dtype == "bfloat16" and l.bias is not None for l in self.layers))
+    jf, tf = _factories(path, **overrides)
+    jax_agent = jf(JaxEnv(num_instances=N, observation_dim=OBS, action_dim=ACT).spec)
+    agent = tf(VelocityLocomotionEnv(num_instances=N, observation_dim=OBS, action_dim=ACT, device="cpu").spec,
+               device="cpu")
+    _hook_state(jax_agent, np.random.default_rng(3))
+    load_jax_state(agent, jax_agent.state_dict()["agent_state"])
+
+    rollout = _rollout(jax_agent, seed=11)
+    key = jax.random.key(5)
+    jax_rollout = jax.tree.map(jnp.asarray, rollout)
+    _, perms, _ = jax_agent.sampler.make_epoch_plan(key, T, N, jax_rollout)
+    new_state, jax_metrics = jax.jit(jax_agent.update_body)(jax_agent.state, jax_rollout, key)
+    reset_launch_counts()
+    metrics = agent.update_body(jax.tree.map(lambda a: torch.from_numpy(np.array(a)), rollout),
+                                epoch_perms=np.array(perms))
+    new = {p: np.asarray(v) for p, v in tree_paths(new_state) if p.startswith(("actor.", "critic.", "hooks."))}
+    return jax_metrics, metrics, new, agent
+
+
+def _compare(jax_metrics, metrics, new, agent, tol):
+    metric_tol, param_tol, state_tol = tol
+    assert set(metrics) == set(jax_metrics)
+    for key, value in jax_metrics.items():
+        np.testing.assert_allclose(float(metrics[key]), float(value), err_msg=key, **metric_tol)
+    params = dict(agent.model.named_parameters())
+    assert set(params) == {p for p in new if not p.startswith("hooks.")}
+    for path, param in params.items():
+        np.testing.assert_allclose(param.detach().numpy(), new[path], err_msg=path, **param_tol)
+    for index, hook in enumerate(agent.hooks):
+        for name, tensor in hook.state_tensors().items():
+            np.testing.assert_allclose(tensor.float().numpy(), new[f"hooks.{index}.{name}"].astype(np.float32),
+                                       err_msg=f"{hook.hook_name}.{name}", **state_tol)
+
+
+@pytest.mark.parametrize("path", ["A", "B", "C"])
+@pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
+def test_zoo_update_matches_jax(path, compute_dtype, monkeypatch):
+    """In fp32 the fused step (C) still runs bf16 chains on both sides (the
+    JAX ``ppo_step_reference`` is bf16 whatever the compute dtype), so C is
+    held to the bf16 tolerances."""
+    result = _run_both(path, compute_dtype, monkeypatch)
+    _compare(*result, FP32_TOL if compute_dtype is None and path != "C" else BF16_TOL)
+    if compute_dtype is not None:  # the plain versions ran, and counted no launch
+        assert not any(LAUNCHES.values())
+
+
+def test_deferred_normalization_and_rejected_update_match_jax(monkeypatch):
+    """bench.py's normalization settings (deferred statistics folded in
+    pre_update, no originals) and a ``max_kl_divergence`` that rejects the
+    update: parameters, optimizer moments and the other hooks' state go back
+    to their pre-update values, while the adapted ``lr_scale`` is kept."""
+    jax_metrics, metrics, new, agent = _run_both(
+        "A", "bfloat16", monkeypatch, defer_normalization_updates=True, store_original_observations=False,
+        max_kl_divergence=1e-9,
+    )
+    assert float(metrics["update_rejected"]) == 1.0 == float(jax_metrics["update_rejected"])
+    _compare(jax_metrics, metrics, new, agent, BF16_TOL)
+    optimizer = agent.optimizer.optimizer
+    for p in agent.model.parameters():
+        assert not optimizer.state[p]["exp_avg"].any() and not optimizer.state[p]["exp_avg_sq"].any()
+    assert float(agent.get_hook("adaptive_l_r_schedule").lr_scale) != 0.7
