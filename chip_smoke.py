@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Proof that the PyTorch/CUDA port (``cusrl_tpu_torch``) runs its main path
+"""Proof that the PyTorch/CUDA port (``cusrl_tpu_torch``) runs its main paths
 on one NVIDIA GPU (built for an H100, ``sm_90a``).
 
 Run from the root of a checkout:  ``python3 chip_smoke.py``
@@ -12,36 +12,42 @@ without printing a result:
    per source, all at once) and print the build seconds and ptxas usage;
 3. ``[kernels]``: hold each kernel (K1f, K1b, K2f, K2b; K8f with and without
    saved activations, K8b with and without the latent's cotangent, K9s with
-   and without the value-loss clip) against its plain PyTorch version on the
-   card at the main-path shapes and at a ragged row count, and time the
-   kernel, the plain version and a PyTorch yardstick (bf16 ``F.linear``
-   chains, fp32 heads and, for K9s, the loss, under autograd for the
-   backwards; the port never calls it) with CUDA events;
+   and without the value-loss clip; K3f primal and saving probabilities, K3b
+   and K6 at the transformer's shapes and a ragged one with ALiBi and rows
+   that see no key; K1f/K1b with gelu at the FFN's widths) against its plain
+   PyTorch version on the card, and time the kernel, the plain version and a
+   PyTorch yardstick the port never calls (bf16 ``F.linear`` chains, fp32
+   heads and, for K9s, the loss; a masked ``scaled_dot_product_attention``
+   for the attention kernels; autograd for the backwards) with CUDA events;
 4. ``[wrappers]``: hold the wrappers the port calls (``fused_mlp``,
-   ``fused_mlp_pair``, ``fused_mlp_pair_heads``, ``fused_ppo_step`` and their
-   autograd Functions) against the plain versions at main-path shapes:
-   outputs, losses and every ``.grad`` after ``backward``;
+   ``fused_mlp_pair``, ``fused_mlp_pair_heads``, ``fused_ppo_step``,
+   ``lane_window_attention`` and their autograd Functions) against the plain
+   versions: outputs, losses and every ``.grad`` after ``backward``;
 5. ``[update-check]``: one whole update on the card against the same update
    through the port's plain CPU path, at full width on a small rollout, for
-   the slice-1 configuration and the zoo's paths A, B and C;
+   the slice-1 configuration, the zoo's paths A, B and C, and path T;
 6. ``[train]``: the slice-1 loop (Velocity-Rough widths without observation
    normalization and the adaptive learning rate) for a few iterations;
-7. ``[train-zoo]``: paths A (the zoo's uncut Velocity-Rough ``ppo``: 4,096
-   environments, ``iterations_per_dispatch=10``, observation normalization,
-   KL-adaptive learning rate, joint evaluation on K2), B (A with the heads in
-   the kernel: K8) and C (A with the fused PPO update: K2f + K9s), each built
-   through ``get_experiment(...).to_training_factory()`` and driven through
-   the Trainer for a warm-up chunk and a timed chunk of 10 iterations, with
-   the launch counters set to 0 just before the timed chunk and read just
-   after (27/20/20 K1f/K2f/K2b per iteration on A, 27/20/20 K1f/K8f/K8b on
-   B, 27/20/20 K1f/K2f/K9s on C), one host transfer per chunk and no other
-   synchronizing call; a profile of one iteration of each path;
+7. ``[train-zoo]``: path T (the zoo's uncut Velocity-Flat
+   ``transformer_ppo``: embed 128, 4 heads, window 16, gelu FFN 512, ELU head
+   128, 1,024 environments, K3f/K3b/K6 and K1 with gelu) and paths A (the
+   zoo's uncut Velocity-Rough ``ppo``: 4,096 environments, joint evaluation
+   on K2), B (A with the heads in the kernel: K8) and C (A with the fused
+   PPO update: K2f + K9s), each built through
+   ``get_experiment(...).to_training_factory()`` with
+   ``iterations_per_dispatch=10``, observation normalization and the
+   KL-adaptive learning rate, and driven through the Trainer for a warm-up
+   chunk and a timed chunk of 10 iterations, with the launch counters set to
+   0 just before the timed chunk and read just after (``EXPECTED_ZOO_LAUNCHES``
+   per iteration), one host transfer per chunk and no other synchronizing
+   call; a profile of one iteration of each path;
 8. the ``nvidia-smi`` line, the ``kernels`` JSON line (each ported kernel's
    launches from the path that runs it; the kernels still to port under
    ``not_ported``), and the final ``{"ok": true, ...}`` line.
 
-Depth is not cut: the model is 3 hidden layers.  Weights are random, from
-seed 0.  There is no CPU fallback: without CUDA the script exits 2.
+Depth is not cut: the MLP paths have 3 hidden layers, path T its one encoder
+layer and one head layer.  Weights are random, from seed 0.  There is no CPU
+fallback: without CUDA the script exits 2.
 """
 
 from __future__ import annotations
@@ -83,6 +89,9 @@ REPLACES = {
     "K8f": "cusrl_tpu/nn/kernels/fused_mlp.py:960",
     "K8b": "cusrl_tpu/nn/kernels/fused_mlp.py:1009",
     "K9s": "cusrl_tpu/nn/kernels/fused_ppo_step.py:417",
+    "K3f": "cusrl_tpu/nn/kernels/lane_attention.py:204",
+    "K3b": "cusrl_tpu/nn/kernels/lane_attention.py:247",
+    "K6": "cusrl_tpu/nn/kernels/lane_attention.py:385",
 }
 SOURCES = {
     "K1f": "cusrl_tpu_torch/csrc/mlp_chain_fwd.cu",
@@ -92,11 +101,12 @@ SOURCES = {
     "K8f": "cusrl_tpu_torch/csrc/mlp_chain_fwd.cu",
     "K8b": "cusrl_tpu_torch/csrc/mlp_chain_bwd.cu",
     "K9s": "cusrl_tpu_torch/csrc/mlp_chain_bwd.cu",
+    "K3f": "cusrl_tpu_torch/csrc/lane_attention.cu",
+    "K3b": "cusrl_tpu_torch/csrc/lane_attention.cu",
+    "K6": "cusrl_tpu_torch/csrc/lane_attention.cu",
 }
 NOT_PORTED = {
     "K9m": "cusrl_tpu/nn/kernels/fused_ppo_step.py:289",
-    "K3": "cusrl_tpu/nn/kernels/lane_attention.py:204",
-    "K6": "cusrl_tpu/nn/kernels/lane_attention.py:385",
     "K7": "cusrl_tpu/nn/kernels/banded_attention.py:202",
     "K4": "cusrl_tpu/nn/kernels/fused_block.py:193",
     "K5": "cusrl_tpu/nn/kernels/fused_block.py:696",
@@ -719,6 +729,275 @@ def check_wrappers(device) -> dict:
     return {k: max(v) for k, v in errs.items()}
 
 
+# -- Path T: the zoo's Velocity-Flat transformer_ppo entry ---------------------
+
+T_ENVS, T_HEADS, T_HEAD_DIM, T_WINDOW, T_EMBED, T_FF = 1024, 4, 32, 16, 128, 512
+T_MB_ENVS = T_ENVS // MINIBATCHES  # 256 environments x 24 steps per minibatch
+FFN_WIDTHS = (T_EMBED, T_FF, T_EMBED)
+PEAK_FP32_FLOPS = 67e12  # CUDA-core fp32 (the attention kernels do no tensor-core work)
+# Attention outputs and gradients are fp32 sums over at most W+1 terms of the
+# same bf16 inputs on both sides: only the summation order and the exp differ.
+ATT_RTOL, ATT_ATOL = 1e-4, 1e-5
+
+
+def _lane_inputs(gen, device, n, t_len=STEPS, window=T_WINDOW, invalid=False):
+    """q/k/v bf16 in the JAX layout, segments with dones, a half-valid cache;
+    with ``invalid`` a third of the environments see no valid key at all."""
+    import torch
+
+    s_len = window + t_len
+    shape_q, shape_k = (n, T_HEADS, t_len, T_HEAD_DIM), (n, T_HEADS, s_len, T_HEAD_DIM)
+    q = torch.randn(shape_q, generator=gen).to(device, torch.bfloat16)
+    k, v = (torch.randn(shape_k, generator=gen).to(device, torch.bfloat16) for _ in range(2))
+    done = torch.rand(n, t_len, generator=gen) < 0.05
+    q_seg = torch.cumsum(torch.cat([torch.zeros(n, 1, dtype=torch.int32), done[:, :-1].int()], 1), 1,
+                         dtype=torch.int32)
+    k_seg = torch.cat([torch.zeros(n, window, dtype=torch.int32), q_seg], 1)
+    k_valid = torch.cat([(torch.rand(n, window, generator=gen) < 0.5).int(), torch.ones(n, t_len, dtype=torch.int32)],
+                        1)
+    if invalid:
+        k_valid[: n // 3] = 0
+    return [t.to(device) for t in (q, k, v, q_seg, k_seg, k_valid)]
+
+
+def _band_valid(q_seg, k_seg, k_valid, window: int, first: int):
+    """``[N, T, W+1-first]`` bool: key ``t+j`` (j >= first) valid for query t."""
+    b = window + 1
+    mask = (k_seg.unfold(1, b, 1) == q_seg[:, :, None]) & (k_valid.unfold(1, b, 1) > 0)
+    return mask[..., first:]
+
+
+def _dense_mask(q_seg, k_seg, k_valid, window: int, first: int):
+    """The same visibility as a dense ``[N, 1, T, S]`` mask (the yardstick's)."""
+    import torch
+
+    n, t_len = q_seg.shape
+    s_len = k_seg.shape[1]
+    t = torch.arange(t_len, device=q_seg.device)[:, None]
+    s = torch.arange(s_len, device=q_seg.device)[None, :]
+    band = (s >= t + first) & (s <= t + window)
+    return (band[None] & (k_seg[:, None, :] == q_seg[:, :, None]) & (k_valid[:, None, :] > 0))[:, None]
+
+
+def _lane_work(kind: str, q, k, masks, window: int, save: bool = False):
+    """(FLOP, bytes) of K3f / K3b / K6 on these inputs: each input read once,
+    each output written once; FLOP from the (query, key) pairs this data
+    makes valid (two per multiply-add: QK and PV forward, four products
+    backward)."""
+    q_seg, k_seg, k_valid = masks
+    heads, dim = q.shape[1], q.shape[-1]
+    mask_bytes = 4 * (q_seg.numel() + k_seg.numel() + k_valid.numel())
+    if kind == "K6":
+        pairs = int(_band_valid(q_seg, k_seg, k_valid, window, 1).sum()) * heads + q_seg.numel() * heads
+        nbytes = 2 * (3 * q.numel() + 2 * k.numel()) + mask_bytes + 4 * q.numel()
+        return 4 * dim * pairs, nbytes
+    pairs = int(_band_valid(q_seg, k_seg, k_valid, window, 0).sum()) * heads
+    probs = q.shape[0] * heads * q.shape[2] * (window + 1)
+    if kind == "K3f":
+        nbytes = 2 * (q.numel() + 2 * k.numel()) + mask_bytes + 4 * q.numel() + (4 * probs if save else 0)
+        return 4 * dim * pairs, nbytes
+    nbytes = 2 * (q.numel() + 2 * k.numel()) + 4 * probs + 4 * q.numel() + 4 * (q.numel() + 2 * k.numel())
+    return 8 * dim * pairs, nbytes
+
+
+def check_lane_kernels(device) -> dict:
+    """K3f (primal and saving the probabilities), K3b and K6 against their
+    plain versions at the path's shapes (the update's 256 environments, the
+    value and KL passes' 1,024) and a ragged one (130 environments, T = 5,
+    W = 4, ALiBi, a third of the rows with no valid key), then timed with
+    the plain version and a masked ``scaled_dot_product_attention`` (for K3b
+    its autograd) as the yardstick the port never calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from cusrl_tpu_torch.nn.kernels import lane_attention as la
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    errs = {"K3f": [], "K3b": [], "K6": []}
+
+    def check(name, got, want):
+        torch.cuda.synchronize()
+        got, want = got.float(), want.float()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: non-finite kernel output")
+        err = (got - want).abs().max().item()
+        ok = bool(torch.allclose(got, want, rtol=ATT_RTOL, atol=ATT_ATOL))
+        limit = ATT_ATOL + ATT_RTOL * want.abs().max().item()
+        print(f"    {name:28s} max_abs_err={err:.3e} (limit {limit:.3e}) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"{name}: kernel disagrees with its plain version (max_abs_err {err:.3e})")
+        return err
+
+    print("[kernels] K3f/K3b/K6 lane attention")
+    cases = ((T_MB_ENVS, STEPS, T_WINDOW, None), (T_ENVS, STEPS, T_WINDOW, None), (130, 5, 4, (0.5, 0.25, 0.125, 0.0625)))
+    for n, t_len, window, slopes in cases:
+        q, k, v, *masks = _lane_inputs(gen, device, n, t_len, window, invalid=slopes is not None)
+        tag = f"N={n} T={t_len} W={window}{' alibi' if slopes else ''}"
+        ref, ref_probs = la.lane_fwd_plain(q, k, v, *masks, window, slopes, True)
+        for save in (False, True):
+            out, probs = la._launch_fwd(q, k, v, *masks, window, slopes, save)
+            errs["K3f"].append(check(f"K3f out save={int(save)} {tag}", out, ref))
+            if save:
+                errs["K3f"].append(check(f"K3f probs {tag}", probs, ref_probs))
+            if slopes is not None and out[: n // 3].any():
+                raise AssertionError("K3f: a row without a valid key is not exactly 0")
+        g = torch.randn(q.shape, generator=gen).to(device)
+        for name, a, b in zip(("dq", "dk", "dv"), la._launch_bwd(q, k, v, ref_probs, g, *masks, window),
+                              la.lane_bwd_plain(q, k, v, ref_probs, g, window)):
+            errs["K3b"].append(check(f"K3b {name} {tag}", a, b))
+        k_self, v_self = (torch.randn(q.shape, generator=gen).to(device, torch.bfloat16) for _ in range(2))
+        errs["K6"].append(check(f"K6 out {tag}", la._launch_next(q, k_self, v_self, k, v, *masks, window, slopes),
+                                la.next_token_plain(q, k_self, v_self, k, v, *masks, window, slopes)))
+
+    print("[wrappers] lane_window_attention (autograd) against autograd of the plain version, N=256")
+    q, k, v, *masks = _lane_inputs(gen, device, T_MB_ENVS)
+    g = torch.randn(q.shape, generator=gen).to(device)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(la.LAUNCHES)
+    out = la.lane_window_attention(*leaves, *masks, window=T_WINDOW)
+    out.backward(g)
+    launched = {key: la.LAUNCHES[key] - before[key] for key in before}
+    if launched != {"K3f": 1, "K3b": 1, "K6": 0}:
+        raise AssertionError(f"lane_window_attention with grad launched {launched}")
+    plain = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    ref, _ = la.lane_fwd_plain(*plain, *masks, T_WINDOW, None)
+    ref.backward(g)
+    errs["K3f"].append(check("wrapper out", out, ref))
+    for name, a, b in zip(("q", "k", "v"), leaves, plain):
+        if a.grad.dtype != torch.bfloat16:
+            raise AssertionError("the lane wrapper's input gradient is not in the input's dtype")
+        # The wrapper's gradients are cast to bf16: one rounding of the fp32 value.
+        err = (a.grad.float() - b.grad.float()).abs().max().item()
+        limit = 2 ** -8 * b.grad.float().abs().max().item()
+        print(f"    {name + '.grad (bf16)':28s} max_abs_err={err:.3e} (limit {limit:.3e}) "
+              f"{'ok' if err <= limit else 'MISMATCH'}")
+        if err > limit:
+            raise AssertionError(f"lane wrapper {name}.grad disagrees with autograd of the plain version")
+
+    results = {}
+    for key, n in (("K3f", T_MB_ENVS), ("K3f primal", T_ENVS), ("K3b", T_MB_ENVS), ("K6", T_ENVS)):
+        q, k, v, *masks = _lane_inputs(gen, device, n)
+        dense = _dense_mask(*masks, T_WINDOW, 1 if key == "K6" else 0)
+        if key.startswith("K3f"):
+            save = key == "K3f"
+            k_ms = _time_ms(lambda: la._launch_fwd(q, k, v, *masks, T_WINDOW, None, save))
+            p_ms = _time_ms(lambda: la.lane_fwd_plain(q, k, v, *masks, T_WINDOW, None, save))
+            with torch.no_grad():
+                l_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=dense))
+            flops, nbytes = _lane_work("K3f", q, k, masks, T_WINDOW, save)
+        elif key == "K3b":
+            _, probs = la.lane_fwd_plain(q, k, v, *masks, T_WINDOW, None, True)
+            g = torch.randn(q.shape, generator=gen).to(device)
+            k_ms = _time_ms(lambda: la._launch_bwd(q, k, v, probs, g, *masks, T_WINDOW))
+            p_ms = _time_ms(lambda: la.lane_bwd_plain(q, k, v, probs, g, T_WINDOW))
+            lq, lk, lv = (t.clone().requires_grad_() for t in (q, k, v))
+            lib_out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=dense)
+            gb = g.to(torch.bfloat16)
+            l_ms = _time_ms(lambda: torch.autograd.grad(lib_out, (lq, lk, lv), gb, retain_graph=True))
+            flops, nbytes = _lane_work("K3b", q, k, masks, T_WINDOW)
+        else:
+            k_self, v_self = (torch.randn(q.shape, generator=gen).to(device, torch.bfloat16) for _ in range(2))
+            k_ms = _time_ms(lambda: la._launch_next(q, k_self, v_self, k, v, *masks, T_WINDOW, None))
+            p_ms = _time_ms(lambda: la.next_token_plain(q, k_self, v_self, k, v, *masks, T_WINDOW, None))
+            # One SDPA over [cache ++ sequence ++ self] keys: the band [t+1, W+t] and key S+t.
+            eye = torch.eye(STEPS, dtype=torch.bool, device=device)[None, None].expand(n, 1, STEPS, STEPS)
+            kk, vv, mm = torch.cat([k, k_self], 2), torch.cat([v, v_self], 2), torch.cat([dense, eye], 3)
+            with torch.no_grad():
+                l_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, kk, vv, attn_mask=mm))
+            flops, nbytes = _lane_work("K6", q, k, masks, T_WINDOW)
+        t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+        bound, by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+        print(f"    {key} N={n}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
+              f"bound_ms={bound:.4f} ({by}; {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP fp32)")
+        results[key] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by, library_ms=l_ms,
+                            shape=f"N={n} H={T_HEADS} T={STEPS} W={T_WINDOW} D={T_HEAD_DIM}, bf16 in, fp32 out")
+    primal = results.pop("K3f primal")
+    results["K3f"].update(primal_ms=primal["ms"], primal_bound_ms=primal["bound_ms"],
+                          primal_plain_ms=primal["plain_ms"], primal_library_ms=primal["library_ms"])
+    results["K3f"]["shape"] += ", saves probabilities (the update); primal at N=1024 (value and KL passes)"
+    for key in results:
+        results[key]["max_abs_err"] = max(errs[key])
+    return results
+
+
+def check_gelu_kernels(device) -> dict:
+    """K1f/K1b with gelu at the FFN's widths (128-512-128): forward saving the
+    bf16 pre-activations and backward with dX, against the plain versions at
+    the rollout step's 1,024 rows, the minibatch's 6,144 and a ragged 1,000;
+    timed at 6,144 with a bf16 ``F.linear`` + ``F.gelu`` chain (autograd for
+    the backward) as the yardstick.  Returns extra fields for K1f and K1b."""
+    import torch
+    import torch.nn.functional as F
+
+    from cusrl_tpu_torch.nn.kernels import fused_mlp as fm
+
+    gen = torch.Generator().manual_seed(SEED + 8)
+    ws = [(torch.randn(b, a, generator=gen) / math.sqrt(a)).to(device) for a, b in zip(FFN_WIDTHS, FFN_WIDTHS[1:])]
+    bs = [(torch.randn(b, generator=gen) * 0.1).to(device) for b in FFN_WIDTHS[1:]]
+    errs = {"K1f": [], "K1b": []}
+    print("[kernels] K1f/K1b with gelu, FFN 128-512-128")
+    rows_mb = T_MB_ENVS * STEPS
+    for rows in (T_ENVS, rows_mb, RAGGED_ROWS):
+        x = torch.randn(rows, T_EMBED, generator=gen).to(device, torch.bfloat16)
+        g = (torch.randn(rows, T_EMBED, generator=gen) * 0.01).to(device, torch.bfloat16)
+        (out,), (hid,), _ = fm._launch_fwd([x], [ws], [bs], "gelu", False, True, "K1f")
+        ref, ref_hid = fm.mlp_chain_fwd_plain(x, ws, bs, "gelu", False, True)
+        torch.cuda.synchronize()
+        errs["K1f"].append(_check(f"gelu out rows={rows}", out, ref, rel=False))
+        errs["K1f"].append(_check(f"gelu z rows={rows}", hid[0], ref_hid[0], rel=False))
+        ((dx, dws, dbs, _),) = fm._launch_bwd([x], [g], [ws], [[*ref_hid, ref]], "gelu", False, False, "K1b")
+        rdx, rdws, rdbs = fm.mlp_chain_bwd_plain(x, g, ws, [*ref_hid, ref], "gelu", False, False)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dx", "dW0", "dW1", "db0", "db1"), (dx, *dws, *dbs), (rdx, *rdws, *rdbs)):
+            errs["K1b"].append(_check(f"gelu {name} rows={rows}", a, b, rel=True))
+
+    w16 = [w.to(torch.bfloat16).requires_grad_() for w in ws]
+    b16 = [b.to(torch.bfloat16).requires_grad_() for b in bs]
+
+    def library(x_):
+        return F.linear(F.gelu(F.linear(x_, w16[0], b16[0]), approximate="tanh"), w16[1], b16[1])
+
+    def work(rows, backward, save):
+        macs = sum(a * b for a, b in zip(FFN_WIDTHS, FFN_WIDTHS[1:]))
+        params = macs + sum(FFN_WIDTHS[1:])
+        if not backward:
+            return 2 * rows * macs, rows * T_EMBED * 2 * 2 + params * 4 + (rows * T_FF * 2 if save else 0)
+        return 4 * rows * macs, rows * (T_EMBED * 2 * 3 + T_FF * 2 + T_EMBED * 2) + macs * 4 + params * 4
+
+    fields = {}
+    for rows in (rows_mb, T_ENVS):
+        x = torch.randn(rows, T_EMBED, generator=gen).to(device, torch.bfloat16)
+        g = (torch.randn(rows, T_EMBED, generator=gen) * 0.01).to(device, torch.bfloat16)
+        save = rows == rows_mb
+        f_ms = _time_ms(lambda: fm._launch_fwd([x], [ws], [bs], "gelu", False, save, "K1f"))
+        fp_ms = _time_ms(lambda: fm.mlp_chain_fwd_plain(x, ws, bs, "gelu", False, save))
+        with torch.no_grad():
+            fl_ms = _time_ms(lambda: library(x))
+        f_bound, f_by = _bound_ms(*work(rows, False, save))
+        print(f"    K1f gelu rows={rows}: kernel_ms={f_ms:.4f} plain_ms={fp_ms:.4f} library_ms={fl_ms:.4f} "
+              f"bound_ms={f_bound:.4f} ({f_by})")
+        tag = "gelu" if save else "gelu_step"
+        fields.setdefault("K1f", {}).update({f"{tag}_ms": f_ms, f"{tag}_plain_ms": fp_ms, f"{tag}_library_ms": fl_ms,
+                                             f"{tag}_bound_ms": f_bound})
+        if not save:
+            continue
+        out, hid = fm.mlp_chain_fwd_plain(x, ws, bs, "gelu", False, True)
+        b_ms = _time_ms(lambda: fm._launch_bwd([x], [g], [ws], [[*hid, out]], "gelu", False, False, "K1b"))
+        bp_ms = _time_ms(lambda: fm.mlp_chain_bwd_plain(x, g, ws, [*hid, out], "gelu", False, False))
+        with torch.enable_grad():
+            lx = x.clone().requires_grad_()
+            lib_out = library(lx)
+            bl_ms = _time_ms(lambda: torch.autograd.grad(lib_out, [lx, *w16, *b16], g, retain_graph=True))
+        b_bound, b_by = _bound_ms(*work(rows, True, True))
+        print(f"    K1b gelu rows={rows}: kernel_ms={b_ms:.4f} plain_ms={bp_ms:.4f} library_ms={bl_ms:.4f} "
+              f"bound_ms={b_bound:.4f} ({b_by})")
+        fields["K1b"] = {"gelu_ms": b_ms, "gelu_plain_ms": bp_ms, "gelu_library_ms": bl_ms, "gelu_bound_ms": b_bound}
+    for key in fields:
+        fields[key]["gelu_max_abs_err"] = max(errs[key])
+        fields[key]["gelu_shape"] = f"{rows_mb} x 128-512-128 gelu (the FFN's minibatch; step at {T_ENVS} rows)"
+    return fields
+
+
 def _slice_factory(**overrides):
     from cusrl_tpu_torch.preset.ppo import PpoAgentFactory
 
@@ -738,13 +1017,36 @@ def _slice_factory(**overrides):
 
 
 PATHS = ("A", "B", "C")
-PATH_NAMES = {"A": "zoo Velocity-Rough ppo", "B": "A + fuse_heads (K8)", "C": "A + fused_ppo_update (K9)"}
+PATH_NAMES = {"A": "zoo Velocity-Rough ppo", "B": "A + fuse_heads (K8)", "C": "A + fused_ppo_update (K9)",
+              "T": "zoo Velocity-Flat transformer_ppo"}
 MB = EPOCHS * MINIBATCHES
+_NONE = {"K1f": 0, "K1b": 0, "K2f": 0, "K2b": 0, "K8f": 0, "K8b": 0, "K9s": 0, "K3f": 0, "K3b": 0, "K6": 0}
 EXPECTED_ZOO_LAUNCHES = {  # per training iteration
-    "A": {"K1f": STEPS + 3, "K1b": 0, "K2f": MB, "K2b": MB, "K8f": 0, "K8b": 0, "K9s": 0},
-    "B": {"K1f": STEPS + 3, "K1b": 0, "K2f": 0, "K2b": 0, "K8f": MB, "K8b": MB, "K9s": 0},
-    "C": {"K1f": STEPS + 3, "K1b": 0, "K2f": MB, "K2b": 0, "K8f": 0, "K8b": 0, "K9s": MB},
+    "A": {**_NONE, "K1f": STEPS + 3, "K2f": MB, "K2b": MB},
+    "B": {**_NONE, "K1f": STEPS + 3, "K8f": MB, "K8b": MB},
+    "C": {**_NONE, "K1f": STEPS + 3, "K2f": MB, "K9s": MB},
+    # Path T: the actor's FFN (K1 gelu) and MLP head (K1 elu) per rollout
+    # step; the value pass (sequence: K3f, FFN, head) and its next-token pass
+    # (K6, FFN, head); per minibatch the actor and the critic in sequence
+    # mode (K3f, FFN, head each) and their backward (K3b, FFN, head each);
+    # the KL pass after the update (K3f, FFN, head).
+    "T": {**_NONE, "K1f": 2 * STEPS + 4 + 4 * MB + 2, "K1b": 4 * MB, "K3f": 1 + 2 * MB + 1, "K3b": 2 * MB, "K6": 1},
 }
+
+
+def _launch_counts() -> dict:
+    from cusrl_tpu_torch.nn.kernels import fused_mlp as fm
+    from cusrl_tpu_torch.nn.kernels import lane_attention as la
+
+    return {**fm.LAUNCHES, **la.LAUNCHES}
+
+
+def _reset_launch_counts() -> None:
+    from cusrl_tpu_torch.nn.kernels import fused_mlp as fm
+    from cusrl_tpu_torch.nn.kernels import lane_attention as la
+
+    fm.reset_launch_counts()
+    la.reset_launch_counts()
 
 
 def _with_path(agent_factory, path: str):
@@ -778,6 +1080,8 @@ def check_update_against_cpu(path: str) -> None:
     from cusrl_tpu_torch.zoo.registry import get_experiment
 
     steps, envs = 8, 256
+    if path == "T":
+        return check_transformer_update_against_cpu(steps, envs)
     if path == "slice 1":
         factory, expected = _slice_factory(num_steps_per_update=steps), {"K1f": 3, "K2f": MB, "K2b": MB}
     else:
@@ -825,6 +1129,79 @@ def check_update_against_cpu(path: str) -> None:
             raise AssertionError(f"update metric '{key}' disagrees between the card and the CPU path")
 
 
+# KL, the importance-weighted advantage, the ratio's deviation and the
+# surrogate are small differences of nearly equal terms; on path T the card's
+# FFN computes gelu in fp32 on the bf16 pre-activation (K1) and the CPU path
+# op by op in bf16 (as the JAX modules do), a rounding apart on ~40 % of the
+# FFN's outputs, which 20 Adam steps carry into those differences.
+T_DIFFERENCE_METRICS = ("kl_divergence", "importance_weighted_advantage", "ratio", "surrogate_loss")
+
+
+def check_transformer_update_against_cpu(steps: int, envs: int, devices=("cpu", "cuda")) -> None:
+    """One whole update of the transformer entry (full widths: embed 128, 4
+    heads, window 16, FFN 512, head 128) on 8 steps x 256 environments, on
+    the card (K3f/K3b/K6 and K1 with gelu) and through the plain CPU path,
+    same weights, rollout (dones mid-rollout), memories and permutations.
+    Limits as the other paths' (rtol 2e-2, atol 2e-3), rtol 5e-2 for the
+    difference metrics above."""
+    import torch
+
+    from cusrl_tpu_torch.environment.locomotion import VelocityLocomotionEnv
+    from cusrl_tpu_torch.zoo.registry import get_experiment
+
+    factory = get_experiment("Velocity-Flat", "transformer_ppo").make_agent_factory()
+    factory.num_steps_per_update = steps
+    gen = torch.Generator().manual_seed(SEED + 9)
+    obs = torch.tanh(torch.randn(steps + 1, envs, WIDTHS[0], generator=gen))
+    terminated = torch.rand(steps, envs, 1, generator=gen) < 0.05
+    truncated = torch.rand(steps, envs, 1, generator=gen) < 0.05
+    done = terminated | truncated
+    perms = torch.stack([torch.randperm(envs, generator=torch.Generator().manual_seed(e)) for e in range(EPOCHS)])
+    metrics = {}
+    state = None
+    launched = {}
+    for device in devices:
+        env = VelocityLocomotionEnv(num_instances=envs, device=device)
+        agent = factory(env.spec, device=device, seed=SEED)
+        if state is None:
+            state = {k: v.detach().clone() for k, v in agent.model.state_dict().items()}
+        else:
+            agent.model.load_state_dict(state)
+        memories = agent.rollout_memory_entries()  # the rollout-initial memories, as a rollout stores them
+        with torch.no_grad():
+            dist, _, _ = agent.actor(obs[:-1].to(device), memories["actor_memory"], sequential=True,
+                                     done=done.to(device))
+        noise = torch.randn(steps, envs, 12, generator=torch.Generator().manual_seed(SEED + 2)).to(device)
+        action = dist["mean"] + dist["std"] * noise
+        rollout = {
+            "observation": obs[:-1].to(device),
+            "next_observation": obs[1:].to(device),
+            "action": action,
+            "action_logp": agent.actor.compute_logp(dist, action),
+            "action_dist": dist,
+            "reward": torch.ones(steps, envs, 1, device=device),
+            "terminated": terminated.to(device),
+            "truncated": truncated.to(device),
+            "done": done.to(device),
+            **{k: {n: {f: t[None] for f, t in leaf.items()} for n, leaf in v.items()} for k, v in memories.items()},
+        }
+        _reset_launch_counts()
+        metrics[device] = {k: float(v) for k, v in agent.update_body(rollout, epoch_perms=perms).items()}
+        launched = {k: v for k, v in _launch_counts().items() if v}
+    expected = {"K1f": 4 + 4 * MB + 2, "K1b": 4 * MB, "K3f": 2 + 2 * MB, "K3b": 2 * MB, "K6": 1}
+    print(f"[update-check] T: cuda launches {launched}")
+    cpu, card = (metrics[d] for d in devices)
+    for key, ref in sorted(cpu.items()):
+        got = card[key]
+        rtol = 5e-2 if key in T_DIFFERENCE_METRICS else 2e-2
+        ok = math.isfinite(got) and abs(got - ref) <= 2e-3 + rtol * abs(ref)
+        print(f"    {key:32s} cuda={got:.6f} cpu={ref:.6f} {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"update metric '{key}' disagrees between the card and the CPU path")
+    if launched != expected:
+        raise AssertionError(f"small update did not run through the kernels: {launched}, expected {expected}")
+
+
 def train(kind: str) -> None:
     """The slice-1 configuration's loop (no observation normalization, fixed
     learning rate) through ``RolloutDriver.collect_and_update``."""
@@ -869,7 +1246,9 @@ def train_zoo(kind: str, path: str) -> tuple[dict, float]:
     """Path A, B or C built through the port's zoo,
     ``get_experiment("Velocity-Rough", "ppo").to_training_factory()``, on the
     card: 4,096 environments, ``iterations_per_dispatch=10``, observation
-    normalization and the KL-adaptive learning rate.  One warm-up chunk, then
+    normalization and the KL-adaptive learning rate; or path T,
+    ``get_experiment("Velocity-Flat", "transformer_ppo")``: 1,024
+    environments, the same chunking, normalization and schedule.  One warm-up chunk, then
     one timed chunk through ``Trainer.rollout_and_update`` with the launch
     counters set to 0 just before and read just after, PyTorch's sync debug
     mode on (no synchronizing call but the chunk's one host transfer) and
@@ -878,15 +1257,17 @@ def train_zoo(kind: str, path: str) -> tuple[dict, float]:
 
     import torch
 
-    from cusrl_tpu_torch.nn.kernels import fused_mlp as fm
     from cusrl_tpu_torch.zoo.registry import get_experiment
 
-    factory = get_experiment("Velocity-Rough", "ppo").to_training_factory()
-    factory.agent = _with_path(factory.agent, path)
+    if path == "T":
+        factory, envs = get_experiment("Velocity-Flat", "transformer_ppo").to_training_factory(), T_ENVS
+    else:
+        factory, envs = get_experiment("Velocity-Rough", "ppo").to_training_factory(), NUM_ENVS
+        factory.agent = _with_path(factory.agent, path)
     chunk = factory.iterations_per_dispatch
     factory.num_iterations = 2 * chunk
     trainer = factory(verbose=False, seed=SEED)  # device defaults to the card
-    if trainer.environment.num_instances != NUM_ENVS or chunk != 10 or trainer.agent.device.type != "cuda":
+    if trainer.environment.num_instances != envs or chunk != 10 or trainer.agent.device.type != "cuda":
         raise AssertionError("the zoo entry is not the uncut configuration on the card")
     start = time.perf_counter()
     for _ in range(chunk):
@@ -895,7 +1276,7 @@ def train_zoo(kind: str, path: str) -> tuple[dict, float]:
     print(f"[train-zoo] {path} ({PATH_NAMES[path]}): warm-up chunk of {chunk} iterations "
           f"{time.perf_counter() - start:.3f} s")
 
-    fm.reset_launch_counts()
+    _reset_launch_counts()
     transfers = trainer.host_transfers
     torch.cuda.set_sync_debug_mode("warn")
     start = time.perf_counter()
@@ -904,7 +1285,7 @@ def train_zoo(kind: str, path: str) -> tuple[dict, float]:
         rows = [trainer.rollout_and_update() for _ in range(chunk)]
     elapsed = time.perf_counter() - start
     torch.cuda.set_sync_debug_mode("default")
-    launches = dict(fm.LAUNCHES)
+    launches = _launch_counts()
     syncs = [f"{w.filename}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
     others = [site for site in syncs if "template/trainer.py:" not in site]
     expected = {k: v * chunk for k, v in EXPECTED_ZOO_LAUNCHES[path].items()}
@@ -919,7 +1300,7 @@ def train_zoo(kind: str, path: str) -> tuple[dict, float]:
         if not all(math.isfinite(v) for v in row.values()):
             raise AssertionError(f"non-finite metrics at iteration {i}: {row}")
     print("    last iteration: " + " ".join(f"{k}={v:.5g}" for k, v in sorted(rows[-1].items())))
-    steps_per_s = chunk * STEPS * NUM_ENVS / elapsed
+    steps_per_s = chunk * STEPS * envs / elapsed
     print(f"[train-zoo] {path}: {steps_per_s:.1f} env-steps/s ({elapsed / chunk * 1e3:.2f} ms per iteration) on {kind}")
     profile_iteration(trainer.driver, path)
     return launches, steps_per_s
@@ -985,24 +1366,30 @@ def main() -> int:
     device = torch.device("cuda", 0)
     results = check_kernels(device)
     results.update(check_head_kernels(device))
+    results.update(check_lane_kernels(device))
+    for key, fields in check_gelu_kernels(device).items():
+        results[key].update(fields)
+        results[key]["max_abs_err"] = max(results[key]["max_abs_err"], fields["gelu_max_abs_err"])
     for key, err in (*check_wrappers(device).items(), *check_head_wrappers(device).items()):
         results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
-    for path in ("slice 1", *PATHS):
+    for path in ("slice 1", *PATHS, "T"):
         check_update_against_cpu(path)
     train(kind)
     path_launches = {}
-    for path in PATHS:
+    for path in ("T", *PATHS):
         path_launches[path], _ = train_zoo(kind, path)
 
     kernels = []
-    for key in ("K1f", "K1b", "K2f", "K2b", "K8f", "K8b", "K9s"):
+    for key in ("K1f", "K1b", "K2f", "K2b", "K8f", "K8b", "K9s", "K3f", "K3b", "K6"):
         r = results[key]
-        path = {"K8f": "B", "K8b": "B", "K9s": "C"}.get(key, "A")
+        path = {"K8f": "B", "K8b": "B", "K9s": "C", "K1b": "T", "K3f": "T", "K3b": "T", "K6": "T"}.get(key, "A")
         kernels.append({
             "name": key, "route": "cuda", "source": SOURCES[key], "replaces": REPLACES[key],
             "launches": path_launches[path][key], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"], "path": f"{path}: {PATH_NAMES[path]}",
+            "launches_by_path": {p_: path_launches[p_][key] for p_ in path_launches if path_launches[p_][key]},
+            **{k: v for k, v in r.items() if k.startswith(("gelu", "primal"))},
             "status": "ported and checked",
         })
     not_ported = []

@@ -1,0 +1,375 @@
+// Windowed, segment- and validity-masked attention for the short per-env
+// attention problems of RL training on Hopper (sm_90a): K3f (forward, with
+// or without the saved probabilities), K3b (backward from them) and K6 (the
+// counterfactual-append "next token" forward).
+//
+// Replaces the Pallas kernels cusrl_tpu/nn/kernels/lane_attention.py:
+//   K3f  _fwd_kernel       (via _lane_pallas_fwd, lane_window_attention)
+//   K3b  _bwd_kernel       (via _lane_pallas_bwd, the custom VJP of the above)
+//   K6   _next_fwd_kernel  (via lane_next_token_attention)
+//
+// Semantics (the band form of the TPU kernels): query t of an (env, head)
+// problem sees the W+1 combined keys s = t + j, j = 0..W (key t+j is W-j
+// steps in the past; j = W is the query's own token), where key s is valid
+// iff k_seg[s] == q_seg[t] and k_valid[s] > 0.  Scores are fp32,
+// q.k * D^-1/2 minus the ALiBi slope times the distance; masked keys drop
+// out of the softmax; a query with no valid key gets exactly 0 (denominator
+// 0 -> inverse 0).  K6's query t sees the band j = 1..W (ALiBi distance
+// W+1-j) plus its own key k_self[t] at distance 0, always valid.
+//
+// The TPU kernels lay environments in the 128 vector lanes ([H, D, T, N])
+// so that the tiny per-env products become dense elementwise slabs.  On
+// Hopper the natural unit is one thread per (env, head, query): q (D floats)
+// and the D output accumulators live in registers, the loop over the W+1
+// band keys runs in fp32, and the problem's W+T key and value rows are
+// staged once, coalesced, in shared memory (rows padded by two elements so
+// that neighbouring queries read different banks).  A block holds
+// floor(128 / T) problems (5 at T = 24: 120 threads).  The max, the
+// denominator and the weighted sum are three passes over the band that
+// recompute each score from the staged keys (17 x 32 FMAs each at the
+// transformer entry's shapes), so no score array is kept.
+//
+// What bounds them on the H100: bytes.  At the entry's update shape
+// (256 envs x 4 heads, T = 24, W = 16, D = 32, bf16 in, fp32 out) K3f reads
+// q, k, v (6.8 MB) and writes out (3.1 MB) and the probabilities (1.7 MB),
+// about 3.5 us at 3.35 TB/s; the work is 2 x 2 x 17 x 32 FLOP per query (the
+// scores and the weighted sum), far below the card's FLOP rate.  The design reads every input byte once per block and writes every
+// output once; nothing is re-read from device memory.
+//
+// K3b: dk and dv sum over the up to W+1 queries that see each key.  One
+// block owns whole (env, head) problems, so no sum crosses blocks and no
+// atomic is needed: phase A (one thread per query) forms
+// dw_j = g . v_{t+j}, ds_j = (dw_j - sum_j dw_j w_j) w_j / sqrt(D) and
+// dq_t = sum_j ds_j k_{t+j}, with g, w and ds staged in shared memory;
+// phase B (one thread per key row s) sums dv_s = sum_j w[s-j][j] g[s-j]
+// and dk_s = sum_j ds[s-j][j] q[s-j] in the TPU kernel's order (j
+// ascending).  The result is deterministic.
+//
+// Not yet done (later work): warp-cooperative dot products, vector loads,
+// keeping a window of rows in registers, fusing RoPE and the head split.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+#define LANE_MAX_HEADS 32
+
+// Mirrored field by field by ctypes in
+// cusrl_tpu_torch/nn/kernels/lane_attention.py (_LaneParams).
+struct LaneParams {
+  const void* q;         // [N, H, T, D] bf16 or fp32 (is_bf16)
+  const void* k;         // [N, H, S, D], S = W + T (K3f, K3b, K6)
+  const void* v;         // [N, H, S, D]
+  const void* k_self;    // K6: [N, H, T, D]
+  const void* v_self;    // K6: [N, H, T, D]
+  const int* q_seg;      // [N, T]
+  const int* k_seg;      // [N, S]
+  const int* k_valid;    // [N, S]
+  const float* g;        // K3b: [N, H, T, D] fp32 cotangent of out
+  float* out;            // K3f, K6: [N, H, T, D] fp32
+  float* probs;          // K3f: [N, H, T, W+1] fp32 or null (primal); K3b reads it
+  float* dq;             // K3b: [N, H, T, D] fp32
+  float* dk;             // K3b: [N, H, S, D] fp32
+  float* dv;             // K3b: [N, H, S, D] fp32
+  int n;
+  int heads;
+  int t_len;
+  int window;
+  int dim;
+  int is_bf16;
+  int use_alibi;
+  float scale;           // D^-1/2
+  float slopes[LANE_MAX_HEADS];
+};
+
+namespace lane {
+
+using bf16 = __nv_bfloat16;
+
+constexpr float NEG = -1e30f;
+constexpr int TARGET_THREADS = 128;
+constexpr size_t MAX_SMEM = 232448;  // the 227 KB a block may use
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+
+// Copies the W+T rows of `src` ([problems, S, D]) for the block's problems
+// into `dst` ([pb][S][D + 2]); rows of problems past the end stay unset.
+template <typename T, int D>
+__device__ void stage_rows(T* dst, const T* __restrict__ src, int first, int pb, int problems, int rows) {
+  constexpr int LD = D + 2;
+  for (int i = threadIdx.x; i < pb * rows * D; i += blockDim.x) {
+    const int b = i / (rows * D), rem = i % (rows * D), r = rem / D, d = rem % D;
+    if (first + b < problems) dst[(b * rows + r) * LD + d] = src[(size_t(first + b) * rows + r) * D + d];
+  }
+}
+
+template <typename T, int D>
+__device__ __forceinline__ float dot_row(const float* q, const T* row) {
+  float acc = 0.f;
+#pragma unroll
+  for (int d = 0; d < D; ++d) acc = fmaf(q[d], to_f(row[d]), acc);
+  return acc;
+}
+
+// K3f.  Block: `pb` problems x T queries.  probs == null: the primal variant.
+template <typename T, int D>
+__global__ void lane_fwd_kernel(const LaneParams p, int pb) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int LD = D + 2;
+  const int tl = p.t_len, W = p.window, S = W + tl;
+  const int problems = p.n * p.heads, first = blockIdx.x * pb;
+  T* ks = reinterpret_cast<T*>(smem);
+  T* vs = ks + size_t(pb) * S * LD;
+  stage_rows<T, D>(ks, static_cast<const T*>(p.k), first, pb, problems, S);
+  stage_rows<T, D>(vs, static_cast<const T*>(p.v), first, pb, problems, S);
+  __syncthreads();
+
+  const int b = threadIdx.x / tl, t = threadIdx.x % tl, pr = first + b;
+  if (b >= pb || pr >= problems) return;
+  const int n = pr / p.heads, h = pr % p.heads;
+  float q[D];
+  const T* qrow = static_cast<const T*>(p.q) + (size_t(pr) * tl + t) * D;
+#pragma unroll
+  for (int d = 0; d < D; ++d) q[d] = to_f(qrow[d]);
+  const int qs = p.q_seg[size_t(n) * tl + t];
+  const int* kseg = p.k_seg + size_t(n) * S;
+  const int* kval = p.k_valid + size_t(n) * S;
+  const float slope = p.use_alibi ? p.slopes[h] : 0.f;
+  const T* kp = ks + size_t(b) * S * LD;
+  const T* vp = vs + size_t(b) * S * LD;
+
+  auto valid = [&](int j) { return kseg[t + j] == qs && kval[t + j] > 0; };
+  auto score = [&](int j) {
+    float s = dot_row<T, D>(q, kp + (t + j) * LD) * p.scale;
+    if (p.use_alibi) s -= slope * float(W - j);
+    return s;
+  };
+  float m = NEG;
+  for (int j = 0; j <= W; ++j)
+    if (valid(j)) m = fmaxf(m, score(j));
+  float denom = 0.f;
+  for (int j = 0; j <= W; ++j)
+    if (valid(j)) denom += expf(score(j) - m);
+  const float inv = denom > 0.f ? 1.f / denom : 0.f;
+  float acc[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) acc[d] = 0.f;
+  float* prow = p.probs == nullptr ? nullptr : p.probs + (size_t(pr) * tl + t) * (W + 1);
+  for (int j = 0; j <= W; ++j) {
+    const float w = valid(j) ? expf(score(j) - m) * inv : 0.f;
+    if (prow != nullptr) prow[j] = w;
+    const T* vrow = vp + (t + j) * LD;
+#pragma unroll
+    for (int d = 0; d < D; ++d) acc[d] = fmaf(w, to_f(vrow[d]), acc[d]);
+  }
+  float* orow = p.out + (size_t(pr) * tl + t) * D;
+#pragma unroll
+  for (int d = 0; d < D; ++d) orow[d] = acc[d];
+}
+
+// K6: the band j = 1..W plus the query's own key at distance 0.
+template <typename T, int D>
+__global__ void lane_next_kernel(const LaneParams p, int pb) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int LD = D + 2;
+  const int tl = p.t_len, W = p.window, S = W + tl;
+  const int problems = p.n * p.heads, first = blockIdx.x * pb;
+  T* ks = reinterpret_cast<T*>(smem);
+  T* vs = ks + size_t(pb) * S * LD;
+  stage_rows<T, D>(ks, static_cast<const T*>(p.k), first, pb, problems, S);
+  stage_rows<T, D>(vs, static_cast<const T*>(p.v), first, pb, problems, S);
+  __syncthreads();
+
+  const int b = threadIdx.x / tl, t = threadIdx.x % tl, pr = first + b;
+  if (b >= pb || pr >= problems) return;
+  const int n = pr / p.heads, h = pr % p.heads;
+  const size_t row = (size_t(pr) * tl + t) * D;
+  float q[D];
+  const T* qrow = static_cast<const T*>(p.q) + row;
+#pragma unroll
+  for (int d = 0; d < D; ++d) q[d] = to_f(qrow[d]);
+  const int qs = p.q_seg[size_t(n) * tl + t];
+  const int* kseg = p.k_seg + size_t(n) * S;
+  const int* kval = p.k_valid + size_t(n) * S;
+  const float slope = p.use_alibi ? p.slopes[h] : 0.f;
+  const T* kp = ks + size_t(b) * S * LD;
+  const T* vp = vs + size_t(b) * S * LD;
+
+  auto valid = [&](int j) { return kseg[t + j] == qs && kval[t + j] > 0; };
+  auto score = [&](int j) {
+    float s = dot_row<T, D>(q, kp + (t + j) * LD) * p.scale;
+    if (p.use_alibi) s -= slope * float(W + 1 - j);
+    return s;
+  };
+  const float self_score = dot_row<T, D>(q, static_cast<const T*>(p.k_self) + row) * p.scale;
+  float m = self_score;
+  for (int j = 1; j <= W; ++j)
+    if (valid(j)) m = fmaxf(m, score(j));
+  float denom = expf(self_score - m);
+  for (int j = 1; j <= W; ++j)
+    if (valid(j)) denom += expf(score(j) - m);
+  const float inv = denom > 0.f ? 1.f / denom : 0.f;
+  const float w_self = expf(self_score - m) * inv;
+  float acc[D];
+  const T* vself = static_cast<const T*>(p.v_self) + row;
+#pragma unroll
+  for (int d = 0; d < D; ++d) acc[d] = w_self * to_f(vself[d]);
+  for (int j = 1; j <= W; ++j) {
+    const float w = valid(j) ? expf(score(j) - m) * inv : 0.f;
+    const T* vrow = vp + (t + j) * LD;
+#pragma unroll
+    for (int d = 0; d < D; ++d) acc[d] = fmaf(w, to_f(vrow[d]), acc[d]);
+  }
+  float* orow = p.out + row;
+#pragma unroll
+  for (int d = 0; d < D; ++d) orow[d] = acc[d];
+}
+
+// K3b.  Block: `pb` whole problems; phase A per query, phase B per key row.
+template <typename T, int D>
+__global__ void lane_bwd_kernel(const LaneParams p, int pb) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int LD = D + 2, GLD = D + 1;
+  const int tl = p.t_len, W = p.window, B = W + 1, S = W + tl;
+  const int problems = p.n * p.heads, first = blockIdx.x * pb;
+  float* gs = reinterpret_cast<float*>(smem);        // [pb][T][D + 1]
+  float* ws = gs + size_t(pb) * tl * GLD;             // [pb][T][B] probabilities
+  float* dss = ws + size_t(pb) * tl * B;              // [pb][T][B] dw, then ds
+  T* ks = reinterpret_cast<T*>(dss + size_t(pb) * tl * B);  // [pb][S][LD]
+  T* vs = ks + size_t(pb) * S * LD;
+  T* qs = vs + size_t(pb) * S * LD;                   // [pb][T][LD]
+  stage_rows<T, D>(ks, static_cast<const T*>(p.k), first, pb, problems, S);
+  stage_rows<T, D>(vs, static_cast<const T*>(p.v), first, pb, problems, S);
+  stage_rows<T, D>(qs, static_cast<const T*>(p.q), first, pb, problems, tl);
+  for (int i = threadIdx.x; i < pb * tl * D; i += blockDim.x) {
+    const int b = i / (tl * D), rem = i % (tl * D), t = rem / D, d = rem % D;
+    if (first + b < problems) gs[(b * tl + t) * GLD + d] = p.g[(size_t(first + b) * tl + t) * D + d];
+  }
+  for (int i = threadIdx.x; i < pb * tl * B; i += blockDim.x) {
+    const int b = i / (tl * B);
+    if (first + b < problems) ws[i] = p.probs[size_t(first) * tl * B + i];
+  }
+  __syncthreads();
+
+  // Phase A: one thread per query.
+  {
+    const int b = threadIdx.x / tl, t = threadIdx.x % tl, pr = first + b;
+    if (b < pb && pr < problems) {
+      const float* g = gs + (b * tl + t) * GLD;
+      const float* w = ws + (b * tl + t) * B;
+      float* ds = dss + (b * tl + t) * B;
+      const T* kp = ks + size_t(b) * S * LD;
+      const T* vp = vs + size_t(b) * S * LD;
+      float rho = 0.f;
+      for (int j = 0; j < B; ++j) {
+        const T* vrow = vp + (t + j) * LD;
+        float dw = 0.f;
+#pragma unroll
+        for (int d = 0; d < D; ++d) dw = fmaf(g[d], to_f(vrow[d]), dw);
+        ds[j] = dw;
+        rho = fmaf(dw, w[j], rho);
+      }
+      float acc[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) acc[d] = 0.f;
+      for (int j = 0; j < B; ++j) {
+        const float dsj = (ds[j] - rho) * w[j] * p.scale;
+        ds[j] = dsj;
+        const T* krow = kp + (t + j) * LD;
+#pragma unroll
+        for (int d = 0; d < D; ++d) acc[d] = fmaf(dsj, to_f(krow[d]), acc[d]);
+      }
+      float* dq = p.dq + (size_t(pr) * tl + t) * D;
+#pragma unroll
+      for (int d = 0; d < D; ++d) dq[d] = acc[d];
+    }
+  }
+  __syncthreads();
+
+  // Phase B: one thread per key row s; the queries t = s - j that see it.
+  for (int item = threadIdx.x; item < pb * S; item += blockDim.x) {
+    const int b = item / S, s = item % S, pr = first + b;
+    if (pr >= problems) continue;
+    float ak[D], av[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) ak[d] = av[d] = 0.f;
+    for (int j = 0; j < B; ++j) {
+      const int t = s - j;
+      if (t < 0 || t >= tl) continue;
+      const float w = ws[(b * tl + t) * B + j];
+      const float ds = dss[(b * tl + t) * B + j];
+      const float* g = gs + (b * tl + t) * GLD;
+      const T* qrow = qs + (b * tl + t) * LD;
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        av[d] = fmaf(w, g[d], av[d]);
+        ak[d] = fmaf(ds, to_f(qrow[d]), ak[d]);
+      }
+    }
+    float* dk = p.dk + (size_t(pr) * S + s) * D;
+    float* dv = p.dv + (size_t(pr) * S + s) * D;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      dk[d] = ak[d];
+      dv[d] = av[d];
+    }
+  }
+}
+
+// Problems per block (threads = pb * T <= 128; T itself is at most 128) and
+// the dynamic shared memory that takes; pb shrinks until it fits.
+template <typename T, int D>
+size_t smem_bytes(const LaneParams& p, int pb, bool backward) {
+  const size_t S = p.window + p.t_len, LD = D + 2;
+  size_t bytes = 2 * S * LD * sizeof(T);
+  if (backward) bytes += p.t_len * LD * sizeof(T) + p.t_len * (D + 1) * sizeof(float)
+                         + 2 * size_t(p.t_len) * (p.window + 1) * sizeof(float);
+  return bytes * pb;
+}
+
+template <typename T, int D>
+cudaError_t launch(const LaneParams& p, int kind, cudaStream_t stream) {
+  if (p.t_len <= 0 || p.t_len > TARGET_THREADS) return cudaErrorInvalidValue;
+  const bool backward = kind == 1;
+  int pb = TARGET_THREADS / p.t_len;
+  while (pb > 1 && smem_bytes<T, D>(p, pb, backward) > MAX_SMEM) --pb;
+  const size_t smem = smem_bytes<T, D>(p, pb, backward);
+  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
+  const int problems = p.n * p.heads;
+  const dim3 grid((problems + pb - 1) / pb), block(pb * p.t_len);
+  void (*kernel)(const LaneParams, int) =
+      kind == 0 ? lane_fwd_kernel<T, D> : (kind == 1 ? lane_bwd_kernel<T, D> : lane_next_kernel<T, D>);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, block, smem, stream>>>(p, pb);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_dim(const LaneParams& p, int kind, cudaStream_t stream) {
+  switch (p.dim) {
+    case 8: return launch<T, 8>(p, kind, stream);
+    case 16: return launch<T, 16>(p, kind, stream);
+    case 32: return launch<T, 32>(p, kind, stream);
+    case 64: return launch<T, 64>(p, kind, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int run(const LaneParams* p, int kind, void* stream) {
+  if (p->n <= 0 || p->heads <= 0 || p->heads > LANE_MAX_HEADS) return int(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return int(p->is_bf16 ? dispatch_dim<bf16>(*p, kind, s) : dispatch_dim<float>(*p, kind, s));
+}
+
+}  // namespace lane
+
+extern "C" const char* lane_attention_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Each launcher enqueues one kernel on `stream` and returns
+// cudaGetLastError() after the launch (0 on success).
+extern "C" int lane_attention_fwd(const LaneParams* p, void* stream) { return lane::run(p, 0, stream); }
+extern "C" int lane_attention_bwd(const LaneParams* p, void* stream) { return lane::run(p, 1, stream); }
+extern "C" int lane_attention_next(const LaneParams* p, void* stream) { return lane::run(p, 2, stream); }

@@ -22,7 +22,7 @@ struct MlpChain {
   void* x;                       // [N, dims[0]] fp32 or bf16 (x_is_bf16)
   void* w[MLP_MAX_LAYERS];       // [dims[l+1], dims[l]] fp32 ([out, in] layout)
   void* b[MLP_MAX_LAYERS];       // [dims[l+1]] fp32
-  void* h[MLP_MAX_LAYERS];       // [N, dims[l+1]] bf16: layer l output (l = L-1: the chain output)
+  void* h[MLP_MAX_LAYERS];       // [N, dims[l+1]] bf16: layer l output, for gelu its pre-activation (l = L-1: the chain output)
   void* g;                       // bwd: [N, dims[L]] bf16 cotangent of the chain output
   void* d[MLP_MAX_LAYERS];       // bwd scratch: [N, dims[l+1]] bf16(d_l)
   void* dbp[MLP_MAX_LAYERS];     // bwd scratch: [row_tiles, dims[l+1]] fp32 per-tile db partials
@@ -73,7 +73,7 @@ struct MlpParams {
   int dims[MLP_MAX_LAYERS + 1];
   int num_layers;
   int num_rows;
-  int activation;       // 0 identity, 1 elu, 2 relu, 3 tanh
+  int activation;       // 0 identity, 1 elu, 2 relu, 3 tanh, 4 gelu (tanh form)
   int trailing;         // activation after the last layer
   int save_hiddens;     // fwd: write h_1..h_{L-1} (the chain output is written where h[L-1] is set)
   int x_is_bf16;
@@ -112,24 +112,47 @@ static_assert(LOSS_COL + 4 + MAX_HEAD_DIM <= SLD, "per-row loss terms must fit t
 
 __device__ __forceinline__ float bf16_round(float v) { return __bfloat162float(__float2bfloat16(v)); }
 
+constexpr int ACT_GELU = 4;               // saves pre-activations (see act_grad_from_saved)
+constexpr float GELU_C = 0.7978845608028654f;  // sqrt(2/pi), the tanh form of jax.nn.gelu
+
 // Activation on the bf16-rounded pre-activation, in fp32 (fused_mlp.py:_act_kernel).
 __device__ __forceinline__ float act_fwd(int activation, float z) {
   switch (activation) {
     case 1: return z > 0.f ? z : expf(fminf(z, 0.f)) - 1.f;
     case 2: return fmaxf(z, 0.f);
     case 3: return tanhf(z);
+    case ACT_GELU: return 0.5f * z * (1.f + tanhf(GELU_C * (z + 0.044715f * z * z * z)));
     default: return z;
   }
 }
 
-// Derivative from the saved POST-activation h (fused_mlp.py:_dact_from_h).
-__device__ __forceinline__ float act_grad_from_h(int activation, float h) {
+// What the forward saves for the backward of an activated layer: the
+// post-activation h, or for gelu (whose derivative is not a function of its
+// output) the bf16 pre-activation z (fused_mlp.py:206-209).
+__device__ __forceinline__ bf16 saved_value(int activation, bf16 zb, bf16 hb) {
+  return activation == ACT_GELU ? zb : hb;
+}
+
+// Derivative from the saved value: from the POST-activation h
+// (fused_mlp.py:_dact_from_h), or for gelu from z (_dact_from_z).
+__device__ __forceinline__ float act_grad_from_saved(int activation, float s) {
   switch (activation) {
-    case 1: return fminf(h + 1.f, 1.f);
-    case 2: return h > 0.f ? 1.f : 0.f;
-    case 3: return 1.f - h * h;
+    case 1: return fminf(s + 1.f, 1.f);
+    case 2: return s > 0.f ? 1.f : 0.f;
+    case 3: return 1.f - s * s;
+    case ACT_GELU: {
+      const float t = tanhf(GELU_C * (s + 0.044715f * s * s * s));
+      const float du = GELU_C * (1.f + 3.f * 0.044715f * s * s);
+      return 0.5f * (1.f + t) + 0.5f * s * (1.f - t * t) * du;
+    }
     default: return 1.f;
   }
+}
+
+// The layer input a weight gradient needs, from the saved value of the layer
+// below: h itself, or bf16(gelu(z)) recomputed as the forward rounded it.
+__device__ __forceinline__ bf16 layer_input_from_saved(int activation, bf16 s) {
+  return activation == ACT_GELU ? __float2bfloat16(act_fwd(ACT_GELU, __bfloat162float(s))) : s;
 }
 
 // One output of an fp32 head: f32(lat_row) . w_row + bias, fp32 FMAs in

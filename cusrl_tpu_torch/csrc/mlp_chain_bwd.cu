@@ -24,7 +24,10 @@
 // from the saved h (elu' = min(h + 1, 1)); d_bf = bf16(d) feeds both
 // dW += h_in^T d_bf and d <- d_bf W^T (fp32 accumulation); db sums the fp32 d;
 // skip_input_grad drops layer 0's dX product.  dW is written in the [out, in]
-// layout of the port's parameters.
+// layout of the port's parameters.  gelu saves pre-activations: the derivative
+// comes from z (act_grad_from_saved), and phase 2 recomputes h = bf16(gelu(z))
+// as it stages a layer's input (layer_input_from_saved), as the TPU kernel
+// does (fused_mlp.py:236-237).
 //
 // Summing dW/db over row tiles.  The TPU grid runs in order and accumulates in
 // VMEM; blocks on the card run in parallel.  This kernel is deterministic and
@@ -79,7 +82,7 @@ __device__ void finish_d_chunk(const MlpParams& p, const MlpChain& c, int l, int
     float d = 0.f;
     if (gr < p.num_rows) {
       d = stg[r * SLD + j];
-      if (has_act) d *= act_grad_from_h(p.activation, __bfloat162float(saved[size_t(gr) * n_out + n0 + j]));
+      if (has_act) d *= act_grad_from_saved(p.activation, __bfloat162float(saved[size_t(gr) * n_out + n0 + j]));
     }
     stg[r * SLD + j] = d;
     const bf16 db = __float2bfloat16(d);
@@ -371,7 +374,7 @@ __global__ void __launch_bounds__(THREADS) mlp_chain_bwd_dw_kernel(const MlpPara
         if (o0 + j < n_out) dv = D[size_t(gr) * n_out + o0 + j];
         if (k0 + j < n_in) {
           const size_t idx = size_t(gr) * n_in + k0 + j;
-          if (!in_is_x) hv = reinterpret_cast<const bf16*>(hin)[idx];
+          if (!in_is_x) hv = layer_input_from_saved(p.activation, reinterpret_cast<const bf16*>(hin)[idx]);
           else if (x_bf16) hv = reinterpret_cast<const bf16*>(hin)[idx];
           else hv = __float2bfloat16(reinterpret_cast<const float*>(hin)[idx]);
         }

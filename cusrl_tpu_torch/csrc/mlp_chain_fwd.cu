@@ -30,6 +30,11 @@
 //   * products are 16x16x16 bf16 WMMA tensor-core operations with fp32
 //     accumulators; the epilogue (bias, bf16 rounding, activation) runs on an
 //     fp32 staging tile in shared memory.
+// gelu (the transformer FFN, 128->512->128): the epilogue computes the tanh
+// form in fp32 on the bf16 pre-activation, as the other activations, and
+// with save_hiddens writes that bf16 pre-activation instead of the output
+// (its derivative is not a function of the output); the FFN's 1,024-row step
+// and 6,144- and 24,576-row passes are compute bound as the rest.
 // Not yet done (later work): wgmma/TMA, keeping bf16 weights resident across
 // tiles (persistent blocks), double-buffered weight staging.
 #include "mlp_chain.cuh"
@@ -77,7 +82,8 @@ __global__ void __launch_bounds__(THREADS) mlp_chain_fwd_kernel(const MlpParams 
         const bf16 hb = __float2bfloat16(apply_act ? act_fwd(p.activation, zb) : zb);
         act[cur ^ 1][r * HLD + n0 + j] = hb;
         const int gr = row0 + r;
-        if (write_global && gr < n_rows) out[size_t(gr) * n_out + n0 + j] = hb;
+        if (write_global && gr < n_rows)
+          out[size_t(gr) * n_out + n0 + j] = apply_act ? saved_value(p.activation, __float2bfloat16(zb), hb) : hb;
       }
     }
     cur ^= 1;

@@ -33,10 +33,16 @@ class ModuleInitialization(Hook):
         self.init_critic = init_critic
 
     @torch.no_grad()
-    def _reinit(self, module: torch.nn.Module, generator: torch.Generator, gain_overrides: dict[str, float]) -> None:
+    def _reinit(self, module: torch.nn.Module, generator: torch.Generator,
+                gain_overrides: dict[str, float]) -> list[str]:
+        """Re-initializes every ``Linear`` below ``module`` (the transformer's
+        input, attention, feed-forward and gate projections included);
+        returns their paths."""
+        paths = []
         for path, layer in module.named_modules():
             if not isinstance(layer, Linear):
                 continue
+            paths.append(path)
             gain = self.scale
             for prefix, g in gain_overrides.items():
                 if path == prefix or path.startswith(prefix + "."):
@@ -44,6 +50,7 @@ class ModuleInitialization(Hook):
             torch.nn.init.orthogonal_(layer.weight, gain=gain, generator=generator)
             if self.zero_bias and layer.bias is not None:
                 layer.bias.zero_()
+        return paths
 
     def init(self, agent) -> None:
         if self.init_actor:

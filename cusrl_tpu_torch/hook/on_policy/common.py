@@ -1,20 +1,24 @@
 """On-policy batch preparation (counterpart of
 ``cusrl_tpu/hook/on_policy/common.py``): re-evaluates the policy on the batch
 (or takes ``curr_action_dist`` from ``JointPolicyValueEvaluation``) and writes
-the log-probabilities, entropy and probability ratios the losses read."""
+the log-probabilities, entropy and probability ratios the losses read.  On a
+temporal minibatch (whole environments over the rollout) the actor runs in
+sequence mode from the stored rollout-initial memory, with done-driven
+resets."""
 
 from __future__ import annotations
 
 import torch
 
 from cusrl_tpu_torch.template.hook import Hook
+from cusrl_tpu_torch.utils.nest import map_nested
 
 __all__ = ["OnPolicyPreparation"]
 
 
 class OnPolicyPreparation(Hook):
     training_only = True
-    batch_keys = ("observation", "action", "action_logp", "action_dist")
+    batch_keys = ("observation", "action", "action_logp", "action_dist", "actor_memory", "done")
 
     def objective(self, agent, metadata, batch):
         actor = agent.actor
@@ -22,7 +26,11 @@ class OnPolicyPreparation(Hook):
             action_dist = batch["curr_action_dist"]
             aux = batch.get("actor_intermediate", {})
         else:
-            action_dist, _, aux = actor(batch["observation"])
+            temporal = metadata.get("temporal", False)
+            memory = batch.get("actor_memory")
+            if temporal and memory is not None:
+                memory = map_nested(lambda m: m[0], memory)
+            action_dist, _, aux = actor(batch["observation"], memory, sequential=temporal, done=batch.get("done"))
         action_logp = actor.compute_logp(action_dist, batch["action"])
         entropy = actor.compute_entropy(action_dist)
         logp_ratio = action_logp - batch["action_logp"]

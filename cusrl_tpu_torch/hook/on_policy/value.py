@@ -1,23 +1,40 @@
 """Value computation and value loss hooks (counterpart of
 ``cusrl_tpu/hook/on_policy/value.py``).
 
-Only the feedforward ``deferred=True`` branch of ``ValueComputation`` is
-ported: no critic pass runs during the rollout; ``pre_update`` evaluates the
-critic over the whole ``[T*N]`` rollout twice (observations, then next
-observations for the bootstrap).  ``next_value[t] = value[t + 1]``, the
-bootstrap value where the step truncated and at the last step, and
-``termination_value`` where it terminated: termination overrides the
-truncation bootstrap, as in the JAX package (``value.py:223-229``).  The
-environments of this slice always return the final state of a truncated
-episode, so the JAX branch for environments that do not is not ported yet.
+No critic pass runs during the rollout.  ``deferred`` is chosen as in the
+JAX hook (``value.py:58-98``): a feedforward critic takes ``True``, a
+recurrent one that supports the counterfactual-append contract takes
+``"sequential"``.  (The port has no sampler that needs per-step memory, which
+the JAX hook also checks for.)
+
+* ``deferred=True``: ``pre_update`` evaluates the critic over the whole
+  ``[T*N]`` rollout twice (observations, then next observations for the
+  bootstrap).
+* ``deferred="sequential"``: one sequence-mode pass over the rollout from the
+  hook's memory as of the rollout's start (the values, the final memory and
+  the attention context), then one counterfactual "next token" pass for the
+  bootstrap values (``value.py:143-167``).  The last step's done is zeroed for
+  the pass, so the final memory is the pre-reset state the last-row
+  bootstrap needs; the hook's memory then resets where the last step ended
+  an episode.  The per-step recurrent path (``deferred=False``) is not ported
+  yet.
+
+``next_value[t] = value[t + 1]``, the bootstrap value where the step
+truncated and at the last step, and ``termination_value`` where it
+terminated: termination overrides the truncation bootstrap
+(``value.py:223-229``).  Environments whose final state is missing
+(``final_state_is_missing``) bootstrap truncated steps with their own value,
+on the sequential path only; the feedforward path assumes the final state is
+there, as the environments of the port provide it.
 """
 
 from __future__ import annotations
 
 import torch
 
+from cusrl_tpu_torch.nn.base import reset_memory
 from cusrl_tpu_torch.template.hook import Hook
-from cusrl_tpu_torch.utils.nest import get_first
+from cusrl_tpu_torch.utils.nest import flatten_nested, get_first, map_nested
 
 __all__ = ["ValueComputation", "ValueLoss", "compute_next_value"]
 
@@ -33,40 +50,83 @@ def compute_next_value(value, bootstrap, terminated, truncated, termination_valu
 
 
 class ValueComputation(Hook):
-    def __init__(self, termination_value: float = 0.0, sparse_bootstrap: bool = False, **kwargs):
+    # The JAX hook's termination value is a state field there.
+    jax_config_fields = ("termination_value",)
+
+    def __init__(self, termination_value: float = 0.0, sparse_bootstrap: bool = False,
+                 deferred: bool | str | None = None, **kwargs):
         super().__init__(**kwargs)
         if sparse_bootstrap:
             raise NotImplementedError("sparse_bootstrap is not ported yet")
         self.termination_value = termination_value
+        self.deferred = deferred
+        self.memory = None
+        self.bootstrap_truncated_states = True
 
     def init(self, agent) -> None:
-        if agent.critic.is_recurrent:
-            raise NotImplementedError("recurrent critics (per-step and deferred='sequential') are not ported yet")
+        critic = agent.critic
+        if self.deferred is None:
+            if not critic.is_recurrent:
+                self.deferred = True
+            else:
+                self.deferred = "sequential" if critic.supports_next_token_eval else False
+        if self.deferred is False:
+            raise NotImplementedError("the per-step critic path (deferred=False) is not ported yet")
+        if not critic.is_recurrent:
+            self.deferred = True  # the sequential path of a feedforward critic is the batched one
+            return
+        if self.deferred is True:
+            raise ValueError("deferred=True ValueComputation requires a feedforward critic "
+                             "(recurrent critics use deferred='sequential')")
+        if not critic.supports_next_token_eval:
+            raise ValueError("deferred='sequential' requires a critic supporting next-token evaluation")
+        self.bootstrap_truncated_states = not agent.environment_spec.final_state_is_missing
+        # Hooks initialize before the model moves to the agent's device.
+        self.memory = map_nested(lambda t: t.to(agent.device), critic.init_memory(agent.parallelism))
+
+    def state_tensors(self) -> dict[str, torch.Tensor]:
+        return {} if self.memory is None else flatten_nested(self.memory, "memory")
+
+    def rollout_memory_entries(self) -> dict:
+        return {} if self.memory is None else {"critic_memory": self.memory}
 
     def pre_update(self, agent, rollout: dict) -> dict:
         critic = agent.critic
         observation = get_first(rollout, "state", "observation")
         next_state = get_first(rollout, "next_state", "next_observation")
-        t, n = observation.shape[:2]
+        terminated, truncated = rollout["terminated"], rollout["truncated"]
+        if self.deferred == "sequential":
+            done = rollout["done"]
+            done_seq = torch.cat([done[:-1], torch.zeros_like(done[-1:])], 0)
+            value, final_memory, ctx = critic.sequential_with_ctx(observation, self.memory, done_seq)
+            if self.bootstrap_truncated_states:
+                bootstrap = critic.eval_next_token(next_state, ctx)
+            else:  # truncated steps bootstrap with their own value; the last row steps once more
+                last_value, _, _ = critic(next_state[-1], final_memory)
+                bootstrap = torch.cat([value[:-1], last_value[None]], 0)
+                bootstrap = torch.where(truncated, value, bootstrap)
+            self.memory = reset_memory(final_memory, done[-1])
+        else:
+            t, n = observation.shape[:2]
 
-        def eval_batched(states):
-            value, _, _ = critic(states.reshape(t * n, *states.shape[2:]))
-            return value.reshape(t, n, -1)
+            def eval_batched(states):
+                value, _, _ = critic(states.reshape(t * n, *states.shape[2:]))
+                return value.reshape(t, n, -1)
 
-        value = eval_batched(observation)
-        bootstrap = eval_batched(next_state)
+            value = eval_batched(observation)
+            bootstrap = eval_batched(next_state)
         rollout["value"] = value
-        rollout["next_value"] = compute_next_value(
-            value, bootstrap, rollout["terminated"], rollout["truncated"], self.termination_value
-        )
+        rollout["next_value"] = compute_next_value(value, bootstrap, terminated, truncated, self.termination_value)
         return {}
 
 
 class ValueLoss(Hook):
-    """MSE or PPO-clipped value regression toward the computed returns."""
+    """MSE or PPO-clipped value regression toward the computed returns; on a
+    temporal minibatch the critic runs in sequence mode from the stored
+    rollout-initial memory."""
 
     training_only = True
-    batch_keys = ("value", "return", "observation", "state")
+    batch_keys = ("value", "return", "observation", "state", "critic_memory", "done")
 
     def __init__(self, weight: float = 0.5, loss_clip: float | None = None, **kwargs):
         super().__init__(**kwargs)
@@ -81,7 +141,12 @@ class ValueLoss(Hook):
         if "curr_value" in batch:  # precomputed by JointPolicyValueEvaluation
             curr_value = batch["curr_value"]
         else:
-            curr_value, _, _ = agent.critic(get_first(batch, "state", "observation"))
+            temporal = metadata.get("temporal", False)
+            memory = batch.get("critic_memory")
+            if temporal and memory is not None:
+                memory = map_nested(lambda m: m[0], memory)
+            curr_value, _, _ = agent.critic(get_first(batch, "state", "observation"), memory, sequential=temporal,
+                                            done=batch.get("done"))
             batch["curr_value"] = curr_value
         value, returns = batch["value"], batch["return"]
         if self.loss_clip is None:

@@ -27,7 +27,10 @@ PyTorch version, which repeats the kernel's arithmetic step by step (including
 the explicit backward formulas): bf16 operands, fp32 accumulation, fp32 bias,
 round to bf16, activation in fp32 on the bf16 value, round to bf16 again; the
 backward keeps ``d`` in fp32, multiplies it by the activation derivative taken
-from the saved post-activation, and feeds ``bf16(d)`` to both products.
+from the saved post-activation, and feeds ``bf16(d)`` to both products.  gelu
+(the tanh form) saves the hidden layers' pre-activations instead: its
+derivative comes from them in fp32, and ``h = bf16(gelu(z))`` is recomputed
+where a weight gradient needs it.
 
 Dispatch is by the device of the input: a CPU tensor takes the plain version,
 a CUDA tensor launches the kernel or raises.  ``LAUNCHES`` counts kernel
@@ -59,7 +62,13 @@ __all__ = [
 ]
 
 _BF16 = torch.bfloat16
-_ACTIVATION_CODES = {"identity": 0, "none": 0, "elu": 1, "relu": 2, "tanh": 3}
+_ACTIVATION_CODES = {"identity": 0, "none": 0, "elu": 1, "relu": 2, "tanh": 3, "gelu": 4}
+# Activations whose derivative is not a function of the output: the grad
+# call saves the bf16 PRE-activations of the hidden layers instead, and the
+# backward recomputes the activation from them (fused_mlp.py:44-50 of the JAX
+# package).  Such a chain ends without an activation.
+_PREACT_ACTIVATIONS = ("gelu",)
+_GELU_C = 0.7978845608028654  # sqrt(2/pi): the tanh form of jax.nn.gelu
 MAX_LAYERS = 8  # MLP_MAX_LAYERS in csrc/mlp_chain.cuh
 MAX_WIDTH = 512  # MLP_MAX_WIDTH
 WIDTH_MULTIPLE = 16  # the kernels' 16x16x16 WMMA tiles
@@ -76,11 +85,14 @@ def reset_launch_counts() -> None:
 
 
 def supports_fused_mlp(activation: str, num_layers: int, trailing: bool = False) -> bool:
-    """Exactly what the CUDA kernels take: elu, relu, tanh and identity, 1 to
-    ``MAX_LAYERS`` layers.  (gelu, which the TPU kernels also take, waits for
-    the transformer slice.)"""
-    del trailing
-    return isinstance(activation, str) and activation.lower() in _ACTIVATION_CODES and 1 <= num_layers <= MAX_LAYERS
+    """Exactly what the CUDA kernels take: elu, relu, tanh, gelu (tanh form)
+    and identity, 1 to ``MAX_LAYERS`` layers; a gelu chain ends without an
+    activation (the JAX rule: its output slot holds the primal)."""
+    if not isinstance(activation, str) or activation.lower() not in _ACTIVATION_CODES:
+        return False
+    if activation.lower() in _PREACT_ACTIVATIONS and trailing:
+        return False
+    return 1 <= num_layers <= MAX_LAYERS
 
 
 # ---------------------------------------------------------------------------
@@ -96,11 +108,19 @@ def _act_plain(activation: str, z: torch.Tensor) -> torch.Tensor:
         return torch.clamp(z, min=0.0)
     if activation == "tanh":
         return torch.tanh(z)
+    if activation == "gelu":
+        return 0.5 * z * (1.0 + torch.tanh(_GELU_C * (z + 0.044715 * z * z * z)))
     return z
 
 
 def _dact_plain(activation: str, h: torch.Tensor) -> torch.Tensor:
-    """Derivative from the saved post-activation (``_dact_from_h``)."""
+    """Derivative from the saved post-activation (``_dact_from_h``), or for
+    gelu from the saved pre-activation (``_dact_from_z``)."""
+    if activation == "gelu":
+        u = _GELU_C * (h + 0.044715 * h * h * h)
+        t = torch.tanh(u)
+        du = _GELU_C * (1.0 + 3.0 * 0.044715 * h * h)
+        return 0.5 * (1.0 + t) + 0.5 * h * (1.0 - t * t) * du
     if activation == "elu":
         return torch.clamp(h + 1.0, max=1.0)
     if activation == "relu":
@@ -111,7 +131,8 @@ def _dact_plain(activation: str, h: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_chain_fwd_plain(x, weights, biases, activation: str, trailing: bool, save_hiddens: bool):
-    """Returns ``(out [N, out_last] bf16, [h_1..h_{L-1}] bf16 if save_hiddens)``."""
+    """Returns ``(out [N, out_last] bf16, [h_1..h_{L-1}] bf16 if save_hiddens)``;
+    for gelu the saved ``h_l`` are the pre-activations."""
     num_layers = len(weights)
     h = x.to(_BF16)
     hiddens = []
@@ -119,7 +140,7 @@ def mlp_chain_fwd_plain(x, weights, biases, activation: str, trailing: bool, sav
         z = (h.float() @ w.to(_BF16).float().T + b.float()).to(_BF16)
         h = _act_plain(activation, z.float()).to(_BF16) if (layer < num_layers - 1 or trailing) else z
         if save_hiddens and layer < num_layers - 1:
-            hiddens.append(h)
+            hiddens.append(z if activation in _PREACT_ACTIVATIONS else h)
     return h, hiddens
 
 
@@ -144,7 +165,8 @@ def head_bwd_plain(latent, g, head_weight, gl=None):
 
 def mlp_chain_bwd_plain(x, g, weights, hs, activation: str, trailing: bool, skip_input_grad: bool):
     """Gradient chain from the saved activations ``hs = [h_1..h_L]`` (``h_L``
-    is the chain output); ``g`` is the output cotangent (bf16 from a loss
+    is the chain output; for gelu ``h_1..h_{L-1}`` are pre-activations); ``g``
+    is the output cotangent (bf16 from a loss
     outside, fp32 from a head).  Returns ``(dx fp32 or None, dws [out, in]
     fp32, dbs fp32)``."""
     num_layers = len(weights)
@@ -155,7 +177,10 @@ def mlp_chain_bwd_plain(x, g, weights, hs, activation: str, trailing: bool, skip
         if layer < num_layers - 1 or trailing:
             d = d * _dact_plain(activation, hs[layer].float())
         d_bf = d.to(_BF16).float()
-        h_in = (x if layer == 0 else hs[layer - 1]).to(_BF16).float()
+        if layer > 0 and activation in _PREACT_ACTIVATIONS:  # h = act(z), as the forward rounded it
+            h_in = _act_plain(activation, hs[layer - 1].float()).to(_BF16).float()
+        else:
+            h_in = (x if layer == 0 else hs[layer - 1]).to(_BF16).float()
         dws[layer] = d_bf.T @ h_in
         dbs[layer] = d.sum(0)
         if layer == 0 and skip_input_grad:

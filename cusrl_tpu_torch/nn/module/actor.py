@@ -1,6 +1,6 @@
 """Actor module: backbone + distribution head (counterpart of
 ``cusrl_tpu/nn/module/actor.py``).  ``aux`` always carries
-``"backbone.output"``."""
+``"backbone.output"``; a recurrent backbone's memory passes through."""
 
 from __future__ import annotations
 
@@ -24,8 +24,12 @@ class Actor(nn.Module):
     def is_recurrent(self) -> bool:
         return self.backbone.is_recurrent
 
+    def init_memory(self, batch_size: int):
+        return self.backbone.init_memory(batch_size) if self.backbone.is_recurrent else None
+
     def forward(self, observation: torch.Tensor, memory=None, **kwargs):
-        """Returns ``(dist_params, new_memory, aux)``."""
+        """Returns ``(dist_params, new_memory, aux)``; ``sequential`` and
+        ``done`` pass to the backbone."""
         latent, new_memory, backbone_aux = self.backbone(observation, memory, **kwargs)
         dist_params = self.distribution(latent)
         aux = {f"backbone.{k}": v for k, v in backbone_aux.items()}

@@ -23,13 +23,30 @@ class Value(nn.Module):
     def is_recurrent(self) -> bool:
         return self.backbone.is_recurrent
 
+    def init_memory(self, batch_size: int):
+        return self.backbone.init_memory(batch_size) if self.backbone.is_recurrent else None
+
     def forward(self, state: torch.Tensor, memory=None, **kwargs):
-        """Returns ``(value, new_memory, aux)`` with the value in fp32."""
+        """Returns ``(value, new_memory, aux)`` with the value in fp32;
+        ``sequential`` and ``done`` pass to the backbone."""
         latent, new_memory, backbone_aux = self.backbone(state, memory, **kwargs)
         value = self.head(latent.float())
         aux = {f"backbone.{k}": v for k, v in backbone_aux.items()}
         aux["backbone.output"] = latent
         return value, new_memory, aux
+
+    # -- counterfactual-append evaluation (nn/base.py contract) ----------------
+
+    @property
+    def supports_next_token_eval(self) -> bool:
+        return self.backbone.supports_next_token_eval
+
+    def sequential_with_ctx(self, state, memory, done):
+        latent, new_memory, ctx = self.backbone.sequential_with_ctx(state, memory, done)
+        return self.head(latent.float()), new_memory, ctx
+
+    def eval_next_token(self, y, ctx):
+        return self.head(self.backbone.eval_next_token(y, ctx).float())
 
 
 @dataclasses.dataclass

@@ -1,6 +1,8 @@
 """MLP backbone (counterpart of ``cusrl_tpu/nn/module/mlp.py``).
 
-``forward`` keeps the ``(output, memory, aux)`` contract of the JAX modules.
+``forward`` keeps the ``(output, memory, aux)`` contract of the JAX modules
+(``sequential`` and ``done`` are accepted and change nothing: a feedforward
+module maps ``[T, N, C]`` row by row).
 On CUDA tensors with enough rows the whole chain runs as one fused kernel
 (``nn/kernels/fused_mlp.py``); elsewhere it runs layer by layer with the same
 numerics.
@@ -14,14 +16,14 @@ from typing import Callable
 import torch
 from torch import nn
 
+from cusrl_tpu_torch.nn.base import BackboneContract
 from cusrl_tpu_torch.nn.kernels.fused_mlp import fused_mlp, supports_fused_mlp
 from cusrl_tpu_torch.nn.layer.linear import Linear, get_activation
 
 __all__ = ["Mlp", "MlpFactory"]
 
 
-class Mlp(nn.Module):
-    is_recurrent = False
+class Mlp(BackboneContract, nn.Module):
 
     def __init__(
         self,

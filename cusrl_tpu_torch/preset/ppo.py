@@ -1,9 +1,10 @@
 """PPO presets (counterpart of ``cusrl_tpu/preset/ppo.py``:
-``ppo_hook_suite`` and ``PpoAgentFactory``).
+``ppo_hook_suite``, ``PpoAgentFactory`` and ``TransformerPpoAgentFactory``).
 
-The hook order is the JAX suite's (``preset/ppo.py:61-111``).  Recurrent
-backbones, whose hooks are not ported yet, raise ``NotImplementedError``
-instead of being dropped.
+The hook order is the JAX suite's (``preset/ppo.py:61-111``).  With recurrent
+backbones the joint evaluation (``JointSequentialEvaluation``, on the K5
+kernels) and the fused PPO update are not ported yet and raise
+``NotImplementedError`` instead of being dropped.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from cusrl_tpu_torch.template.agent import AgentFactory
 from cusrl_tpu_torch.template.environment import EnvironmentSpec
 from cusrl_tpu_torch.template.hook import Hook
 
-__all__ = ["PpoAgentFactory", "ppo_hook_suite"]
+__all__ = ["PpoAgentFactory", "TransformerPpoAgentFactory", "ppo_hook_suite"]
 
 
 def ppo_hook_suite(
@@ -60,8 +61,11 @@ def ppo_hook_suite(
     fused_ppo_update: bool = False,
     recurrent_backbones: bool = False,
 ) -> list[Hook]:
-    if recurrent_backbones:
-        raise NotImplementedError("recurrent backbones are not ported yet")
+    if recurrent_backbones and fused_ppo_update:
+        raise NotImplementedError("the fused PPO update of recurrent backbones is not ported yet")
+    if recurrent_backbones and fuse_actor_critic_evaluation and not fused_ppo_update:
+        raise NotImplementedError("joint evaluation of recurrent backbones (JointSequentialEvaluation, on the "
+                                  "fused-block pair kernels K5) is not ported yet")
     if fused_ppo_update:
         # One fused step (K2f + K9s) computes surrogate + value loss and their
         # gradients; entropy stays outside.  Replaces the five-hook span below.
@@ -166,7 +170,12 @@ class PpoAgentFactory(AgentFactory):
             max_kl_divergence=self.max_kl_divergence,
             fuse_actor_critic_evaluation=self.fuse_actor_critic_evaluation,
             fused_ppo_update=self.fused_ppo_update,
+            recurrent_backbones=self._recurrent_backbones,
         )
+
+    # Subclasses with recurrent backbones flip this (the hook suite's joint
+    # evaluation and fused update differ for them).
+    _recurrent_backbones = False
 
     def to_underlying(self) -> ActorCriticFactory:
         if self.action_space_type != "continuous":
@@ -186,3 +195,47 @@ class PpoAgentFactory(AgentFactory):
 
     def __call__(self, environment_spec: EnvironmentSpec, *, device=None, seed: int = 0):
         return self.to_underlying()(environment_spec, device=device, seed=seed)
+
+
+@dataclasses.dataclass(kw_only=True)
+class TransformerPpoAgentFactory(PpoAgentFactory):
+    """PPO with causal windowed-attention backbones: one or more
+    ``CausalTransformerEncoderLayer``s (ring KV cache, done-driven segment
+    resets, the lane kernels in sequence mode) followed by an optional MLP
+    head stack.  Temporal sampling engages through the memory entries of the
+    rollout."""
+
+    _recurrent_backbones = True
+
+    embed_dim: int = 128
+    num_heads: int = 4
+    attention_window: int = 16
+    num_attention_layers: int = 1
+    use_alibi: bool = False
+    use_rope: bool = True
+    attention_norm_mode: str = "pre"
+    attention_gate: str | None = "residual"
+    mlp_hidden_dims: Sequence[int] = (256,)
+
+    def _backbone_factory(self, hidden_dims):
+        from cusrl_tpu_torch.nn.module.causal_attn import CausalTransformerEncoderLayerFactory
+        from cusrl_tpu_torch.nn.module.sequential import SequentialFactory
+
+        factories = tuple(
+            CausalTransformerEncoderLayerFactory(
+                embed_dim=self.embed_dim,
+                num_heads=self.num_heads,
+                window=self.attention_window,
+                use_alibi=self.use_alibi,
+                use_rope=self.use_rope,
+                norm_mode=self.attention_norm_mode,
+                gate=self.attention_gate,
+            )
+            for _ in range(self.num_attention_layers)
+        )
+        if self.mlp_hidden_dims:
+            factories = factories + (
+                MlpFactory(hidden_dims=tuple(self.mlp_hidden_dims), activation=self.activation_fn,
+                           ends_with_activation=True),
+            )
+        return factories[0] if len(factories) == 1 else SequentialFactory(factories=factories)

@@ -6,7 +6,9 @@ The actor and critic live in one ``nn.ModuleDict`` so their parameter paths
 ``update_body`` runs ``pre_update``, then epochs x minibatches of
 objective -> backward -> ``pre_optim`` -> optimizer step, then
 ``post_update``; the objective runs once per minibatch.  Step metrics are
-averaged over all minibatches, as in the JAX update.
+averaged over all minibatches, as in the JAX update.  A recurrent actor's
+memory (``actor_memory``) is carried by the agent: it advances in
+``act_body`` and resets where an episode ends in ``step_body``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Any, Iterable
 import torch
 from torch import nn
 
+from cusrl_tpu_torch.nn.base import reset_memory, storable_memory
 from cusrl_tpu_torch.nn.module.actor import Actor, ActorFactory
 from cusrl_tpu_torch.nn.module.critic import Value, ValueFactory
 from cusrl_tpu_torch.template.agent import Agent, AgentFactory
@@ -55,10 +58,14 @@ class ActorCritic(Agent):
         for hook in self.hooks:
             hook.init(self)
         self.model.to(self.device)
+        # A recurrent actor's memory, carried from step to step and from
+        # rollout to rollout (None for a feedforward actor).
+        self.actor_memory = self.actor.init_memory(self.parallelism)
         self.optimizer = build_optimizer(optimizer_factory, self.model.named_parameters())
         self._composite = HookComposite(self.hooks)
         self.transition: dict[str, Any] = {}
         self.buffer: list[dict] = []
+        self._initial_memories: dict[str, Any] = {}  # the buffered rollout's, for update()
         for hook in self.hooks:
             hook.post_init(self)
         self.apply_schedules(0)
@@ -116,16 +123,30 @@ class ActorCritic(Agent):
 
     # -- rollout ---------------------------------------------------------------
 
+    def rollout_memory_entries(self) -> dict:
+        """The memories a rollout records, as of its first step: the actor's
+        (``actor_memory``) and each active hook's
+        (``Hook.rollout_memory_entries``), with rank-0 leaves broadcast to
+        ``[N]``.  Sequence-mode passes replay the rollout from them; the
+        per-step snapshots are never stored (``rollout.py:46-71,114-121``)."""
+        entries = {} if self.actor_memory is None else {"actor_memory": self.actor_memory}
+        for hook in self._composite._active():
+            entries.update({k: v for k, v in hook.rollout_memory_entries().items() if v is not None})
+        return {key: storable_memory(value, self.parallelism) for key, value in entries.items()}
+
     @torch.no_grad()
     def act_body(self, observation: torch.Tensor, noise: torch.Tensor | None = None,
                  state: torch.Tensor | None = None) -> dict:
         """pre_act -> actor explore -> post_act; returns the transition
-        (with the environment's ``state`` where it has one)."""
+        (with the environment's ``state`` where it has one).  A recurrent
+        actor's memory advances here and resets in ``step_body``."""
         transition: dict[str, Any] = {"observation": observation}
         if state is not None:
             transition["state"] = state
         self._composite.pre_act(self, transition)
-        dist_params, (action, logp), _, _ = self.actor.explore(transition["observation"], self.generator, noise=noise)
+        dist_params, (action, logp), self.actor_memory, _ = self.actor.explore(
+            transition["observation"], self.generator, self.actor_memory, noise=noise
+        )
         transition.update(action_dist=dist_params, action=action, action_logp=logp)
         self._composite.post_act(self, transition)
         return transition
@@ -134,9 +155,12 @@ class ActorCritic(Agent):
     def step_body(self, transition: dict) -> dict:
         transition["done"] = transition["terminated"] | transition["truncated"]
         self._composite.post_step(self, transition)
+        self.actor_memory = reset_memory(self.actor_memory, transition["done"])
         return transition
 
     def act(self, observation, noise: torch.Tensor | None = None) -> torch.Tensor:
+        if self.step_index == 0:
+            self._initial_memories = self.rollout_memory_entries()
         self.transition = self.act_body(torch.as_tensor(observation, device=self.device), noise)
         return self.transition["action"]
 
@@ -160,6 +184,7 @@ class ActorCritic(Agent):
 
     def update(self) -> dict[str, float]:
         rollout = stack_nested(self.buffer, torch.stack)
+        rollout.update({k: map_nested(lambda x: x[None], v) for k, v in self._initial_memories.items()})
         self.buffer = []
         self.step_index = 0
         return {key: float(value) for key, value in self.update_body(rollout).items()}
@@ -185,34 +210,31 @@ class ActorCritic(Agent):
         return step_metrics
 
     def update_body(self, rollout: dict, epoch_perms=None) -> dict[str, torch.Tensor]:
-        """One whole update on a ``[T, N, ...]`` rollout; returns metrics as
-        0-d tensors.  ``epoch_perms`` injects the sampler's permutations."""
-        check = getattr(self.sampler, "check_rollout", None)
-        if check is not None:
-            check(rollout)
+        """One whole update on a ``[T, N, ...]`` rollout (memories as
+        ``[1, N, ...]``); returns metrics as 0-d tensors.  ``epoch_perms``
+        injects the sampler's permutations.  With memory in the rollout the
+        sampler is temporal: minibatches are whole environments, and the
+        hooks see ``metadata["temporal"]``."""
         rollout = dict(rollout)
+        sampler = self.sampler.resolve(rollout)
         active = self._composite._active()
         snapshot = self.take_snapshot() if any(h.needs_snapshot for h in active) else None
         with torch.no_grad():
             metrics = self._composite.pre_update(self, rollout)
         capacity, parallelism = rollout["action"].shape[:2]
-        plan = self.sampler.make_epoch_plan(capacity, parallelism, self.generator, self.device, epoch_perms)
-        flat = {
-            key: map_nested(lambda x: x.reshape(capacity * parallelism, *x.shape[2:]), rollout[key])
-            for key in self._batch_keys()
-            if key in rollout
-        }
+        plan = sampler.make_epoch_plan(capacity, parallelism, self.generator, self.device, epoch_perms)
+        source = sampler.source({key: rollout[key] for key in self._batch_keys() if key in rollout})
         sums: dict[str, torch.Tensor] = {}
         steps = 0
-        for epoch in range(self.sampler.num_epochs):
+        for epoch in range(sampler.num_epochs):
             for mini_batch in range(plan.num_mini_batches):
-                batch = self.sampler.gather(flat, plan, epoch, mini_batch)
+                batch = sampler.gather(source, plan, epoch, mini_batch)
                 metadata = {
-                    "total_epochs": self.sampler.num_epochs,
+                    "total_epochs": sampler.num_epochs,
                     "total_mini_batches": plan.num_mini_batches,
                     "epoch_index": epoch,
                     "mini_batch_index": mini_batch,
-                    "temporal": False,
+                    "temporal": sampler.temporal,
                 }
                 for key, value in self._train_step(metadata, batch).items():
                     sums[key] = sums[key] + value if key in sums else value

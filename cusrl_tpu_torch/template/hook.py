@@ -70,6 +70,11 @@ class Hook:
         """The hook's device state, updated in place, by JAX field path."""
         return {}
 
+    def rollout_memory_entries(self) -> dict[str, Any]:
+        """Memories the rollout records as of its first step (``[1, N, ...]``
+        in the rollout), by rollout key."""
+        return {}
+
     def pre_act(self, agent: "ActorCritic", transition: dict) -> None:
         pass
 

@@ -6,7 +6,12 @@ program.  Here the rollout is a Python loop over device tensors:
 ``pre_act -> actor.explore -> post_act -> env.step -> post_step`` per step,
 plus the same per-step transition fields and episode aggregates; the
 transitions stack into the ``[T, N, ...]`` rollout the update consumes.  There
-is no packing: the agent's state is always readable.
+is no packing: the agent's state is always readable.  Memories (a recurrent
+actor's, a recurrent critic's) are recorded once, as of the rollout's first
+step, as ``[1, N, ...]`` entries: sequence-mode passes replay the rollout from
+them, and the per-step ring snapshots (about 214 MB per network at the
+transformer entry's shapes) are never stored.  The actor's memory stays on
+the agent from rollout to rollout.
 """
 
 from __future__ import annotations
@@ -14,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from cusrl_tpu_torch.template.environment import TensorEnvironment
-from cusrl_tpu_torch.utils.nest import stack_nested
+from cusrl_tpu_torch.utils.nest import map_nested, stack_nested
 
 __all__ = ["RolloutDriver"]
 
@@ -42,6 +47,7 @@ class RolloutDriver:
         [3] = (finished episodes, their return sum, their length sum))``."""
         self._ensure_initialized()
         agent, env = self.agent, self.environment
+        initial_memories = agent.rollout_memory_entries()
         transitions = []
         episodes = torch.zeros((), device=agent.device)
         return_sum = torch.zeros((), device=agent.device)
@@ -69,7 +75,9 @@ class RolloutDriver:
 
             transitions.append(transition)
             self._observation, self._obs_state = next_observation, next_obs_state
-        return stack_nested(transitions, torch.stack), torch.stack([episodes, return_sum, length_sum])
+        rollout = stack_nested(transitions, torch.stack)
+        rollout.update({key: map_nested(lambda x: x[None], value) for key, value in initial_memories.items()})
+        return rollout, torch.stack([episodes, return_sum, length_sum])
 
     def collect_and_update(self, num_steps: int):
         """One training iteration (rollout + update); returns ``(aggregates

@@ -11,7 +11,10 @@ scale and error accumulators) each of those tensors is loaded, and a missing
 or extra path raises, as for parameters (fields the hook lists in
 ``jax_config_fields`` are configuration and skipped).  Other entries
 (configuration of the other hooks, optimizer state, the iteration) are
-ignored.
+ignored.  A recurrent critic's ``ValueComputation.memory`` (its ring, mask
+and cursor) is such hook state.  ``actor_memory``, the JAX agent's
+``state_dict()["actor_memory"]``, loads into the agent's carried actor
+memory when given.
 """
 
 from __future__ import annotations
@@ -21,30 +24,44 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from cusrl_tpu_torch.utils.nest import flatten_nested
+
 __all__ = ["load_jax_state"]
 
 _PARAMETER_PREFIXES = ("actor.", "critic.")
 
 
 def _copy(path: str, target: torch.Tensor, value) -> None:
-    value = torch.tensor(np.asarray(value), dtype=target.dtype)
+    value = np.asarray(value)
+    if value.dtype.name == "bfloat16":  # a bf16 ring; numpy's bfloat16 does not convert to torch
+        value = value.astype(np.float32)
+    value = torch.tensor(value, dtype=target.dtype)
     if tuple(value.shape) != tuple(target.shape):
         raise ValueError(f"shape mismatch for '{path}': given {tuple(value.shape)}, port {tuple(target.shape)}")
     target.copy_(value.to(target.device))
 
 
-@torch.no_grad()
-def load_jax_state(agent, agent_state: Mapping[str, np.ndarray]) -> None:
-    """Copies every actor and critic parameter and every stateful hook's
-    state; raises on a missing or extra path or a shape mismatch."""
-    params = dict(agent.model.named_parameters())
-    given = {path: value for path, value in agent_state.items() if path.startswith(_PARAMETER_PREFIXES)}
-    missing = sorted(set(params) - set(given))
-    extra = sorted(set(given) - set(params))
+def _load_tree(what: str, targets: dict, given: dict) -> None:
+    missing = sorted(set(targets) - set(given))
+    extra = sorted(set(given) - set(targets))
     if missing or extra:
-        raise KeyError(f"parameter paths differ: missing {missing}, extra {extra}")
-    for path, param in params.items():
-        _copy(path, param, given[path])
+        raise KeyError(f"{what} differs: missing {missing}, extra {extra}")
+    for path, tensor in targets.items():
+        _copy(path, tensor, given[path])
+
+
+@torch.no_grad()
+def load_jax_state(agent, agent_state: Mapping[str, np.ndarray], actor_memory=None) -> None:
+    """Copies every actor and critic parameter and every stateful hook's
+    state (and ``actor_memory`` when given); raises on a missing or extra
+    path or a shape mismatch."""
+    params = dict(agent.model.named_parameters())
+    _load_tree("parameter paths", params,
+               {path: value for path, value in agent_state.items() if path.startswith(_PARAMETER_PREFIXES)})
+    if actor_memory is not None:
+        if agent.actor_memory is None:
+            raise ValueError("actor_memory given for an actor without memory")
+        _load_tree("actor memory", flatten_nested(agent.actor_memory), flatten_nested(actor_memory))
 
     for index, hook in enumerate(agent.hooks):
         tensors = hook.state_tensors()
@@ -55,9 +72,4 @@ def load_jax_state(agent, agent_state: Mapping[str, np.ndarray]) -> None:
             path[len(prefix):]: value for path, value in agent_state.items()
             if path.startswith(prefix) and path[len(prefix):] not in hook.jax_config_fields
         }
-        missing = sorted(set(tensors) - set(given))
-        extra = sorted(set(given) - set(tensors))
-        if missing or extra:
-            raise KeyError(f"state of hook {index} ('{hook.hook_name}') differs: missing {missing}, extra {extra}")
-        for name, tensor in tensors.items():
-            _copy(prefix + name, tensor, given[name])
+        _load_tree(f"state of hook {index} ('{hook.hook_name}')", tensors, given)

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Mapping
 
-__all__ = ["get_first", "map_nested", "stack_nested"]
+__all__ = ["flatten_nested", "get_first", "map_nested", "stack_nested"]
 
 _MISSING = object()
 
@@ -15,6 +15,17 @@ def map_nested(fn: Callable, data: Any) -> Any:
     if isinstance(data, Mapping):
         return {key: map_nested(fn, value) for key, value in data.items()}
     return fn(data)
+
+
+def flatten_nested(data: Any, prefix: str = "") -> dict:
+    """Nested dict -> ``{dotted path: leaf}`` (a non-dict ``data`` is the
+    leaf at ``prefix``)."""
+    if not isinstance(data, Mapping):
+        return {prefix: data}
+    out = {}
+    for key, value in data.items():
+        out.update(flatten_nested(value, f"{prefix}.{key}" if prefix else str(key)))
+    return out
 
 
 def stack_nested(items: list, stack: Callable) -> Any:

@@ -154,6 +154,60 @@ def test_backward_plain_matches_pallas_bwd_with_injected_cotangent():
             np.testing.assert_allclose(_f32(pdx), np.asarray(dx), **GRAD_TOL)
 
 
+FFN_DIMS = (32, 64, 32)  # the transformer FFN's shape, narrowed: up, gelu, down
+
+
+def test_gelu_chain_matches_pallas():
+    """The FFN chain (gelu between two layers, none after): output, saved
+    pre-activations, and the gradients of the inputs and the parameters."""
+    x, ws, bs, tgt = _make(8, dims=FFN_DIMS)
+    jw, jb = _jax_params(ws, bs)
+    expected = jfm.fused_mlp(jnp.asarray(x), jw, jb, "gelu", False, use_pallas=True, block_rows=32,
+                             interpret=True)
+    _, j_saved = jfm._run_fwd(jnp.asarray(x), jw, jb, "gelu", False, 32, True, save_hiddens=True)
+    t_out, t_saved = tfm.mlp_chain_fwd_plain(torch.from_numpy(x), [torch.from_numpy(w) for w in ws],
+                                             [torch.from_numpy(b) for b in bs], "gelu", False, True)
+    np.testing.assert_allclose(_f32(t_out), _f32(expected), **FWD_TOL)
+    assert len(t_saved) == len(j_saved) == 1
+    np.testing.assert_allclose(_f32(t_saved[0]), _f32(j_saved[0])[:ROWS], **FWD_TOL)
+
+    def jax_loss(params, x_):
+        out = jfm.fused_mlp(x_, *params, "gelu", False, use_pallas=True, block_rows=32, interpret=True)
+        return jnp.mean(jnp.square(out.astype(jnp.float32) - tgt))
+
+    g_params, g_x = jax.grad(jax_loss, argnums=(0, 1))((jw, jb), jnp.asarray(x))
+    tw, tb = _torch_params(ws, bs)
+    tx = torch.tensor(x, requires_grad=True)
+    out = tfm.fused_mlp(tx, tw, tb, "gelu", False)
+    torch.mean((out.float() - torch.from_numpy(tgt)).square()).backward()
+    for w, gw in zip(tw, g_params[0]):
+        np.testing.assert_allclose(_f32(w.grad), np.asarray(gw).T, **GRAD_TOL)
+    for b, gb in zip(tb, g_params[1]):
+        np.testing.assert_allclose(_f32(b.grad), np.asarray(gb)[0], **GRAD_TOL)
+    np.testing.assert_allclose(_f32(tx.grad), np.asarray(g_x), **GRAD_TOL)
+
+
+def test_gelu_backward_plain_matches_pallas_bwd():
+    """mlp_chain_bwd_plain from the saved pre-activations against _run_bwd
+    on the same bf16 cotangent: gelu' from z, h = bf16(gelu(z)) recomputed
+    for the second layer's dW."""
+    x, ws, bs, _ = _make(9, dims=FFN_DIMS)
+    g = np.random.default_rng(10).standard_normal((ROWS, FFN_DIMS[-1])).astype(np.float32)
+    jw, jb = _jax_params(ws, bs)
+    jx, jg = jnp.asarray(x), jnp.asarray(g).astype(jnp.bfloat16)
+    out, saved = jfm._run_fwd(jx, jw, jb, "gelu", False, 32, True, save_hiddens=True)
+    dx, dws, dbs = jfm._run_bwd(jx, jg, jw, saved, out, "gelu", False, 32, True)
+    tx, tw = torch.from_numpy(x), [torch.from_numpy(w) for w in ws]
+    tout, tsaved = tfm.mlp_chain_fwd_plain(tx, tw, [torch.from_numpy(b) for b in bs], "gelu", False, True)
+    pdx, pdws, pdbs = tfm.mlp_chain_bwd_plain(tx, torch.from_numpy(g).to(torch.bfloat16), tw, [*tsaved, tout],
+                                              "gelu", False, False)
+    for a, b in zip(pdws, dws):
+        np.testing.assert_allclose(_f32(a), np.asarray(b).T, **GRAD_TOL)
+    for a, b in zip(pdbs, dbs):
+        np.testing.assert_allclose(_f32(a), np.asarray(b)[0], **GRAD_TOL)
+    np.testing.assert_allclose(_f32(pdx), np.asarray(dx), **GRAD_TOL)
+
+
 def test_plain_versions_count_no_launches():
     x, ws, bs, _ = _make(7)
     tfm.reset_launch_counts()
@@ -165,8 +219,9 @@ def test_plain_versions_count_no_launches():
 
 
 def test_supported_activations_and_widths():
-    assert all(tfm.supports_fused_mlp(a, 3) for a in ("elu", "relu", "tanh", "identity"))
-    assert not tfm.supports_fused_mlp("gelu", 3)
+    assert all(tfm.supports_fused_mlp(a, 3) for a in ("elu", "relu", "tanh", "gelu", "identity"))
+    assert not tfm.supports_fused_mlp("gelu", 3, trailing=True)  # its output slot holds the primal
+    assert not tfm.supports_fused_mlp("swish", 3)
     assert not tfm.supports_fused_mlp("elu", tfm.MAX_LAYERS + 1)
     x = torch.zeros(8, 48)
     tfm._validate([x], [[torch.zeros(512, 48), torch.zeros(128, 512)]], [[torch.zeros(512), torch.zeros(128)]])

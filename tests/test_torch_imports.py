@@ -26,7 +26,8 @@ def _port_files():
 
 def test_port_has_modules():
     names = {p.relative_to(ROOT / "cusrl_tpu_torch").as_posix() for p in _port_files()}
-    assert {"nn/kernels/fused_mlp.py", "template/actor_critic.py", "nn/layer/linear.py"} <= names
+    assert {"nn/kernels/fused_mlp.py", "template/actor_critic.py", "nn/layer/linear.py", "nn/kernels/lane_attention.py",
+            "nn/module/causal_attn.py", "nn/layer/mha.py", "nn/base.py"} <= names
 
 
 @pytest.mark.parametrize("target", ["cusrl_tpu_torch", "chip_smoke.py"])

@@ -292,3 +292,99 @@ def test_head_wrappers_match_plain_under_autograd(cuda):
         assert abs(m.item() - c.item()) <= 2e-3 * max(1.0, abs(c.item()))
     for a, p in zip([*params, std], [*cpu_params, cpu_std]):  # 3e-2: as in test_loss_bwd_matches_plain
         assert (a.grad.cpu() - p.grad).abs().max() <= 3e-2 * p.grad.abs().max()
+
+
+# -- K1 with gelu (the transformer FFN) ---------------------------------------
+
+FFN_WIDTHS = (128, 512, 128)
+
+
+@pytest.mark.parametrize("rows", [1024, 6144, 1000])
+def test_gelu_chain_matches_plain(cuda, rows):
+    """K1f saving gelu's pre-activations and K1b recomputing gelu' from them,
+    at the FFN's widths (1,024-row rollout step, 6,144-row minibatch)."""
+    gen = torch.Generator().manual_seed(rows + 11)
+    ws, bs = _params(gen, cuda, FFN_WIDTHS)
+    x = torch.randn(rows, FFN_WIDTHS[0], generator=gen).to(cuda, torch.bfloat16)
+    g = (torch.randn(rows, FFN_WIDTHS[-1], generator=gen) * 0.01).to(cuda, torch.bfloat16)
+    (out,), (hid,), _ = fm._launch_fwd([x], [ws], [bs], "gelu", False, True, "K1f")
+    ref, ref_hid = fm.mlp_chain_fwd_plain(x, ws, bs, "gelu", False, True)
+    _close(out, ref, grad=False)
+    _close(hid[0], ref_hid[0], grad=False)  # the bf16 pre-activation z
+    ((dx, dws, dbs, _),) = fm._launch_bwd([x], [g], [ws], [[*hid, out]], "gelu", False, False, "K1b")
+    rdx, rdws, rdbs = fm.mlp_chain_bwd_plain(x, g, ws, [*ref_hid, ref], "gelu", False, False)
+    for a, b in zip([dx, *dws, *dbs], [rdx, *rdws, *rdbs]):
+        _close(a, b, grad=True)
+
+
+# -- K3f/K3b (lane window attention) and K6 (next-token attention) ------------
+
+
+def _lane_inputs(gen, device, n, heads=4, t_len=24, window=16, dim=32, invalid=False):
+    s_len = window + t_len
+    q = torch.randn(n, heads, t_len, dim, generator=gen).to(device, torch.bfloat16)
+    k = torch.randn(n, heads, s_len, dim, generator=gen).to(device, torch.bfloat16)
+    v = torch.randn(n, heads, s_len, dim, generator=gen).to(device, torch.bfloat16)
+    done = torch.rand(n, t_len, generator=gen) < 0.1
+    q_seg = torch.cumsum(torch.cat([torch.zeros(n, 1, dtype=torch.int32), done[:, :-1].int()], 1), 1,
+                         dtype=torch.int32)
+    k_seg = torch.cat([torch.zeros(n, window, dtype=torch.int32), q_seg], 1)
+    k_valid = torch.cat([(torch.rand(n, window, generator=gen) < 0.5).int(), torch.ones(n, t_len, dtype=torch.int32)],
+                        1)
+    if invalid:  # rows that see no valid key at all
+        k_valid[: n // 3] = 0
+    return [t.to(device) for t in (q, k, v, q_seg, k_seg, k_valid)]
+
+
+# Attention outputs and gradients are fp32 sums over at most W+1 terms of
+# bf16 inputs: the kernel and the plain version differ only in the order.
+ATT_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,t_len,window,slopes", [(256, 24, 16, None), (1024, 24, 16, None),
+                                                   (130, 5, 4, (0.5, 0.25, 0.125, 0.0625))])
+def test_lane_kernels_match_plain(cuda, n, t_len, window, slopes):
+    from cusrl_tpu_torch.nn.kernels import lane_attention as la
+
+    gen = torch.Generator().manual_seed(n + t_len)
+    q, k, v, *masks = _lane_inputs(gen, cuda, n, t_len=t_len, window=window, invalid=slopes is not None)
+    for save in (False, True):
+        out, probs = la._launch_fwd(q, k, v, *masks, window, slopes, save)
+        ref, ref_probs = la.lane_fwd_plain(q, k, v, *masks, window, slopes, save)
+        torch.testing.assert_close(out, ref, **ATT_TOL)
+        assert (probs is None) != save
+        if save:
+            torch.testing.assert_close(probs, ref_probs, **ATT_TOL)
+    g = torch.randn(q.shape, generator=gen).to(cuda)
+    got = la._launch_bwd(q, k, v, ref_probs, g, *masks, window)
+    for a, b in zip(got, la.lane_bwd_plain(q, k, v, ref_probs, g, window)):
+        torch.testing.assert_close(a, b, **ATT_TOL)
+    k_self, v_self = (torch.randn(q.shape, generator=gen).to(cuda, torch.bfloat16) for _ in range(2))
+    out = la._launch_next(q, k_self, v_self, k, v, *masks, window, slopes)
+    torch.testing.assert_close(out, la.next_token_plain(q, k_self, v_self, k, v, *masks, window, slopes), **ATT_TOL)
+    if slopes is not None:
+        assert not out.isnan().any() and not la._launch_fwd(q, k, v, *masks, window, slopes, False)[0][: n // 3].any()
+
+
+def test_lane_autograd_wrapper_matches_plain_and_counts(cuda):
+    from cusrl_tpu_torch.nn.kernels import lane_attention as la
+
+    gen = torch.Generator().manual_seed(3)
+    q, k, v, *masks = _lane_inputs(gen, cuda, 256)
+    g = torch.randn(q.shape, generator=gen).to(cuda)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    la.reset_launch_counts()
+    out = la.lane_window_attention(*leaves, *masks, window=16)
+    out.backward(g)
+    with torch.no_grad():
+        primal = la.lane_window_attention(q, k, v, *masks, window=16)
+    torch.cuda.synchronize()
+    assert la.LAUNCHES == {"K3f": 2, "K3b": 1, "K6": 0}
+    cpu = [t.detach().cpu().requires_grad_() for t in (q, k, v)]
+    ref = la.lane_window_attention(*cpu, *(m.cpu() for m in masks), window=16)
+    ref.backward(g.cpu())
+    torch.testing.assert_close(out.cpu(), ref, **ATT_TOL)
+    torch.testing.assert_close(primal, out.detach(), rtol=0, atol=0)
+    for a, b in zip(leaves, cpu):
+        assert a.grad.dtype == torch.bfloat16
+        torch.testing.assert_close(a.grad.float().cpu(), b.grad.float(), rtol=1e-2, atol=1e-2)

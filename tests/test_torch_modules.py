@@ -211,13 +211,14 @@ def test_gradient_clipping_matches_jax():
 
 @pytest.mark.parametrize("option", [
     dict(normalize_observation=True, sparse_value_bootstrap=True),
-    dict(desired_kl_divergence=0.01, recurrent_backbones=True),
+    dict(desired_kl_divergence=0.01, recurrent_backbones=True, fuse_actor_critic_evaluation=True),
     dict(fused_ppo_update=True, recurrent_backbones=True),
-    dict(recurrent_backbones=True),
+    dict(recurrent_backbones=True, fuse_actor_critic_evaluation=True),
 ])
 def test_hook_suite_refuses_options_not_ported(option):
-    """Options still waiting (recurrent backbones, the sparse bootstrap)
-    raise, also beside the options ported since."""
+    """Options still waiting (the joint evaluation and the fused update of
+    recurrent backbones, the sparse bootstrap) raise, also beside the options
+    ported since."""
     with pytest.raises(NotImplementedError):
         ppo_hook_suite(**option)
 
