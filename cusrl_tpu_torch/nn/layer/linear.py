@@ -10,7 +10,6 @@ accumulate arithmetic), the fp32 bias is added and the result is cast to bf16.
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Callable
 
@@ -21,62 +20,11 @@ from torch import nn
 __all__ = ["ACTIVATIONS", "Linear", "get_activation"]
 
 
-@functools.lru_cache(maxsize=None)
-def _constant(value: float, dtype: torch.dtype) -> float:
-    """``value`` rounded to ``dtype``, as a Python float: a tensor op with it
-    then rounds as the op with a constant of that dtype, without a
-    host-to-device copy."""
-    return torch.tensor(value, dtype=dtype).item()
-
-
-class _GeluTanh(torch.autograd.Function):
-    """``jax.nn.gelu``'s default (tanh) form and its gradient, op by op in
-    the input's dtype with the constants rounded to that dtype, in the order
-    XLA evaluates ``jax.nn.gelu`` and its VJP: on bf16 inputs it rounds where
-    the JAX modules round (``F.gelu`` rounds once, and autograd of the same
-    ops orders the backward differently)."""
-
-    @staticmethod
-    def _tanh_term(x):
-        c1, c2 = _constant(0.044715, x.dtype), _constant(math.sqrt(2.0 / math.pi), x.dtype)
-        return torch.tanh(c2 * (x + c1 * (x * x * x)))
-
-    @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
-        return x * (0.5 * (1.0 + _GeluTanh._tanh_term(x)))
-
-    @staticmethod
-    def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        c1, c2 = _constant(0.044715, x.dtype), _constant(math.sqrt(2.0 / math.pi), x.dtype)
-        t = _GeluTanh._tanh_term(x)
-        p = 0.5 * (x * g) * (1.0 - t)
-        s = c2 * (p + p * t)
-        return (g * (0.5 * (1.0 + t)) + s) + (c1 * s) * (3.0 * (x * x))
-
-
-class _Elu(torch.autograd.Function):
-    """``jax.nn.elu`` and its VJP as XLA evaluates them in the input's dtype:
-    the derivative below 0 is ``expm1(x) + 1`` with both steps rounded, where
-    ``F.elu``'s backward takes ``exp(x)`` rounded once."""
-
-    @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
-        return torch.where(x > 0, x, torch.expm1(torch.clamp(x, max=0)))
-
-    @staticmethod
-    def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        return torch.where(x > 0, g, g * (torch.expm1(torch.clamp(x, max=0)) + 1.0))
-
-
 ACTIVATIONS: dict[str, Callable] = {
     "relu": F.relu,
     "tanh": torch.tanh,
-    "elu": _Elu.apply,
-    "gelu": _GeluTanh.apply,
+    "elu": F.elu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),  # jax.nn.gelu's default form
     "silu": F.silu,
     "swish": F.silu,
     "sigmoid": torch.sigmoid,
