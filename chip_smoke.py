@@ -14,25 +14,40 @@ without printing a result:
    saved activations, K8b with and without the latent's cotangent, K9s with
    and without the value-loss clip; K3f primal and saving probabilities, K3b
    and K6 at the transformer's shapes and a ragged one with ALiBi and rows
-   that see no key; K1f/K1b with gelu at the FFN's widths) against its plain
-   PyTorch version on the card, and time the kernel, the plain version and a
-   PyTorch yardstick the port never calls (bf16 ``F.linear`` chains, fp32
-   heads and, for K9s, the loss; a masked ``scaled_dot_product_attention``
-   for the attention kernels; autograd for the backwards) with CUDA events;
+   that see no key; the fused block's pre and post ops, forward and
+   backward, single (K4) and paired (K5), at the minibatch's 6,144 rows,
+   the primal post at 24,576 and a ragged 1,000 (pre with dX, post with
+   ELU); K1f/K1b with gelu at the FFN's widths) against its plain PyTorch
+   version on the card, and time the kernel, the plain version and a PyTorch
+   yardstick the port never calls (bf16 ``F.linear`` chains, fp32 heads
+   and, for K9s, the loss; a masked ``scaled_dot_product_attention`` for the
+   attention kernels; bf16 ``F.linear`` + ``F.layer_norm`` chains for the
+   fused block; autograd for the backwards) with CUDA events;
 4. ``[wrappers]``: hold the wrappers the port calls (``fused_mlp``,
    ``fused_mlp_pair``, ``fused_mlp_pair_heads``, ``fused_ppo_step``,
-   ``lane_window_attention``, ``lane_next_token_attention`` and their
-   autograd Functions) against the plain versions at the shapes their paths
-   give them (for path T ``fused_mlp`` with the gelu FFN and the ELU head):
-   outputs, losses and every ``.grad`` after ``backward``, one launch per call;
+   ``lane_window_attention``, ``lane_next_token_attention``,
+   ``fused_block_pre``/``post`` and their pair variants, and their autograd
+   Functions) against the plain versions at the shapes their paths give
+   them (for path T ``fused_mlp`` with the gelu FFN and the ELU head; for TJ
+   ``fused_mlp_pair`` with input gradients): outputs, losses and every
+   ``.grad`` after ``backward``, one launch per call, the residual's
+   cotangent reaching the pre op in fp32, an activation the fused block
+   does not take raising on the card; and the fused step route against
+   the modular step at 1,024 environments;
 5. ``[update-check]``: one whole update on the card against the same update
    through the port's plain CPU path, at full width on a small rollout, for
-   the slice-1 configuration, the zoo's paths A, B and C, and path T;
+   the slice-1 configuration, the zoo's paths A, B and C, path T (modular
+   route) and paths TF and TJ (the fused-block route; on the CPU under
+   ``CUSRL_TPU_FUSED_TRANSFORMER=force``);
 6. ``[train]``: the slice-1 loop (Velocity-Rough widths without observation
    normalization and the adaptive learning rate) for a few iterations;
-7. ``[train-zoo]``: path T (the zoo's uncut Velocity-Flat
+7. ``[train-zoo]``: paths T, TF and TJ (the zoo's uncut Velocity-Flat
    ``transformer_ppo``: embed 128, 4 heads, window 16, gelu FFN 512, ELU head
-   128, 1,024 environments, K3f/K3b/K6 and K1 with gelu) and paths A (the
+   128, 1,024 environments; T on the modular route with
+   ``CUSRL_TPU_FUSED_TRANSFORMER=0``: K3f/K3b/K6 and K1 with gelu; TF on its
+   default fused-block route: K4, K3, K6, K1; TJ as TF with
+   ``fuse_actor_critic_evaluation=True``: K5 and K2 in the minibatches) and
+   paths A (the
    zoo's uncut Velocity-Rough ``ppo``: 4,096 environments, joint evaluation
    on K2), B (A with the heads in the kernel: K8) and C (A with the fused
    PPO update: K2f + K9s), each built through
@@ -42,20 +57,22 @@ without printing a result:
    chunk and a timed chunk of 10 iterations, with the launch counters set to
    0 just before the timed chunk and read just after (``EXPECTED_ZOO_LAUNCHES``
    per iteration), one host transfer per chunk and no other synchronizing
-   call; a profile of one iteration of each path;
+   call; and a profile of one iteration of each path;
 8. the ``nvidia-smi`` line, the ``kernels`` JSON line (each ported kernel's
    launches from the path that runs it; the kernels still to port under
    ``not_ported``), and the final ``{"ok": true, ...}`` line.
 
-Depth is not cut: the MLP paths have 3 hidden layers, path T its one encoder
-layer and one head layer.  Weights are random, from seed 0.  There is no CPU
+Depth is not cut: the MLP paths have 3 hidden layers, paths T, TF and TJ
+their one encoder layer and one head layer.  Weights are random, from seed 0.  There is no CPU
 fallback: without CUDA the script exits 2.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -110,9 +127,23 @@ SOURCES = {
 NOT_PORTED = {
     "K9m": "cusrl_tpu/nn/kernels/fused_ppo_step.py:289",
     "K7": "cusrl_tpu/nn/kernels/banded_attention.py:202",
-    "K4": "cusrl_tpu/nn/kernels/fused_block.py:193",
-    "K5": "cusrl_tpu/nn/kernels/fused_block.py:696",
 }
+ROUTE = "CUSRL_TPU_FUSED_TRANSFORMER"
+
+
+@contextlib.contextmanager
+def _fused_route(mode):
+    """Sets the encoder layer's route (``CUSRL_TPU_FUSED_TRANSFORMER``; None:
+    unset, the default) for the block and restores it after."""
+    old = os.environ.pop(ROUTE, None)
+    if mode is not None:
+        os.environ[ROUTE] = mode
+    try:
+        yield
+    finally:
+        os.environ.pop(ROUTE, None)
+        if old is not None:
+            os.environ[ROUTE] = old
 
 
 def _time_ms(fn, repeats: int = 10, warmup: int = 3) -> float:
@@ -1051,6 +1082,370 @@ def check_gelu_kernels(device) -> dict:
     return fields
 
 
+# -- Paths TF and TJ: the transformer entry on its fused-block route ----------
+
+T_IN = 48  # Velocity-Flat observations
+BLOCK_ROWS = T_MB_ENVS * STEPS  # 6,144 rows per minibatch pass
+PRIMAL_ROWS = T_ENVS * STEPS  # 24,576 rows in the value, next-token and KL passes
+BLOCK_REPLACES = {
+    "K4pre_f": "cusrl_tpu/nn/kernels/fused_block.py:193",
+    "K4pre_b": "cusrl_tpu/nn/kernels/fused_block.py:218",
+    "K4post_f": "cusrl_tpu/nn/kernels/fused_block.py:359",
+    "K4post_b": "cusrl_tpu/nn/kernels/fused_block.py:390",
+    "K5pre_f": "cusrl_tpu/nn/kernels/fused_block.py:696",
+    "K5pre_b": "cusrl_tpu/nn/kernels/fused_block.py:720",
+    "K5post_f": "cusrl_tpu/nn/kernels/fused_block.py:883",
+    "K5post_b": "cusrl_tpu/nn/kernels/fused_block.py:910",
+}
+
+
+def _block_params(gen, device):
+    """Random (pre, post) parameters of one encoder layer at the zoo's widths,
+    in the order ``fused_block_pre`` / ``fused_block_post`` take them."""
+    import torch
+
+    def w(out, inp):
+        return (torch.randn(out, inp, generator=gen) / math.sqrt(inp)).to(device)
+
+    def v(n, base=0.0):
+        return (base + torch.randn(n, generator=gen) * 0.1).to(device)
+
+    e, f = T_EMBED, T_FF
+    return ((w(e, T_IN), v(e), v(e, 1.0), v(e), w(e, e), w(e, e), w(e, e), v(e), v(e), v(e)),
+            (w(e, e), v(e), v(e, 1.0), v(e), w(f, e), v(f), w(e, f), v(e)))
+
+
+def _block_work(op: str, rows: int, chains: int, save: bool = True):
+    """(FLOP, bytes) of one pre or post op, forward or backward (the pre
+    backward with skip_input_grad, as the path runs it), on these shapes:
+    each input read once, each output written once (h travels as fp32, the
+    rest of the activations as bf16)."""
+    e, f, i = T_EMBED, T_FF, T_IN
+    if op.startswith("pre"):
+        params = i * e + 3 * e * e + 6 * e
+        if op == "pre_f":
+            flops = 2 * rows * (i * e + 3 * e * e)
+            nbytes = rows * i * 4 + params * 4 + rows * e * 4 + rows * 3 * e * 2
+        else:
+            flops = 2 * rows * (6 * e * e + e * i)
+            nbytes = (rows * (i * 4 + e * 4 + e * 4 + 3 * e * 2) + (i * e + 3 * e * e + 2 * e) * 4  # x, h, gh, gqkv, W
+                      + params * 4)  # gradients
+    else:
+        params = e * e + 2 * e * f + 5 * e + f
+        if op == "post_f":
+            flops = 2 * rows * (e * e + 2 * e * f)
+            nbytes = rows * e * 8 + params * 4 + rows * e * 2 + ((rows * e * 2 + rows * f * 2) if save else 0)
+        else:
+            flops = 2 * rows * (2 * e * e + 4 * e * f)
+            nbytes = (rows * (e * 4 + e * 2 + e * 2 + f * 2) + (e * e + 2 * e * f + 2 * e) * 4  # attn, g, r1, s, W
+                      + rows * e * 8 + params * 4)  # dattn, dh, gradients
+    return chains * flops, chains * nbytes
+
+
+def _library_block(op, x, h, pre16, post16):
+    """The yardstick the port never calls: bf16 ``F.linear`` +
+    ``F.layer_norm`` + ``F.linear`` for pre, and the post chain in the same
+    ops (gelu FFN)."""
+    import torch
+    import torch.nn.functional as F
+
+    if op == "pre":
+        w_in, b_in, g1, bb1, w_qkv, b_qkv = pre16
+        hh = F.linear(x, w_in, b_in)
+        return hh, F.linear(F.layer_norm(hh, (T_EMBED,), g1, bb1, eps=1e-6), w_qkv, b_qkv)
+    w_o, b_o, g2, bb2, w_up, b_up, w_down, b_down = post16
+    r1 = h + F.linear(x, w_o, b_o)
+    y2 = F.layer_norm(r1, (T_EMBED,), g2, bb2, eps=1e-6)
+    return (r1 + F.linear(F.gelu(F.linear(y2, w_up, b_up), approximate="tanh"), w_down, b_down),)
+
+
+def check_block_kernels(device) -> dict:
+    """K4 (one layer) and K5 (the actor+critic pair) pre and post, forward
+    and backward, against their plain versions (forward and hand-written
+    backward) at the path's shapes (6,144 rows per minibatch pass, the primal
+    post at 24,576; K5 at 2 x 6,144) and a ragged one (1,000 rows: pre with
+    dX, post with ELU); timed with the plain version and the library
+    yardstick (autograd over a retained graph for the backwards)."""
+    import torch
+
+    from cusrl_tpu_torch.nn.kernels import fused_block as fb
+
+    gen = torch.Generator().manual_seed(SEED + 9)
+    layers = [_block_params(gen, device) for _ in range(2)]
+    errs = {key: [] for key in BLOCK_REPLACES}
+    results = {}
+
+    def obs(rows):
+        return torch.tanh(torch.randn(rows, T_IN, generator=gen)).to(device)
+
+    def attn_in(rows):
+        return torch.randn(rows, T_EMBED, generator=gen).to(device)
+
+    def residual(rows):
+        return torch.randn(rows, T_EMBED, generator=gen).to(device, torch.bfloat16).float()
+
+    def cot(rows, width, dtype=torch.bfloat16):
+        return (torch.randn(rows, width, generator=gen) * 0.01).to(device, dtype)
+
+    def bwd_plain_pre(x, h, gh, gqkv, ps, skip):
+        return fb.pre_bwd_plain(x, h, gh, gqkv, ps[0], *ps[4:7], ps[2], ps[3], skip)
+
+    def post_w(ps):
+        return (ps[0], ps[4], ps[6], ps[2], ps[3])
+
+    for k, chains in (("K4", 1), ("K5", 2)):
+        pres, posts = [l[0] for l in layers[:chains]], [l[1] for l in layers[:chains]]
+        print(f"[kernels] {k} fused block, {chains} chain{'s' if chains > 1 else ''}")
+        cases = ((BLOCK_ROWS, True, "gelu"), (RAGGED_ROWS, False, "elu"))
+        for rows, skip, act in cases:
+            xs = [obs(rows) for _ in range(chains)]
+            hs, qkvs = fb._launch_pre_fwd(xs, pres, f"{k}pre_f")
+            refs = [fb.pre_fwd_plain(x, *ps) for x, ps in zip(xs, pres)]
+            torch.cuda.synchronize()
+            for c, (h, qkv, (rh, rqkv)) in enumerate(zip(hs, qkvs, refs)):
+                errs[f"{k}pre_f"].append(_check(f"pre h[{c}] rows={rows}", h, rh, rel=False))
+                errs[f"{k}pre_f"].append(_check(f"pre qkv[{c}] rows={rows}", qkv, rqkv, rel=False))
+            ghs = [cot(rows, T_EMBED, torch.float32) for _ in range(chains)]
+            gqkvs = [cot(rows, 3 * T_EMBED) for _ in range(chains)]
+            got = fb._launch_pre_bwd(xs, [r[0] for r in refs], ghs, gqkvs, pres, skip, f"{k}pre_b")
+            names = ("dx", "dW_in", "db_in", "dg1", "dbb1", "dW_q", "dW_k", "dW_v", "db_q", "db_k", "db_v")
+            for c, result in enumerate(got):
+                want = bwd_plain_pre(xs[c], refs[c][0], ghs[c], gqkvs[c], pres[c], skip)
+                torch.cuda.synchronize()
+                if (result[0] is None) != skip:
+                    raise AssertionError("pre backward: dx present against skip_input_grad")
+                for name, a, b in zip(names, result, want):
+                    if b is not None:
+                        errs[f"{k}pre_b"].append(_check(f"pre {name}[{c}] rows={rows}", a, b, rel=True))
+            attns, hs_in = [attn_in(rows) for _ in range(chains)], [residual(rows) for _ in range(chains)]
+            prefs = [fb.post_fwd_plain(a, h, *ps, act, True) for a, h, ps in zip(attns, hs_in, posts)]
+            for save in (True, False):
+                outs, r1s, saveds = fb._launch_post_fwd(attns, hs_in, posts, act, save, f"{k}post_f")
+                torch.cuda.synchronize()
+                for c, (out, r1, saved) in enumerate(zip(outs, r1s, saveds)):
+                    tag = f"[{c}] save={int(save)} {act} rows={rows}"
+                    errs[f"{k}post_f"].append(_check(f"post out{tag}", out, prefs[c][0], rel=False))
+                    if save:
+                        errs[f"{k}post_f"].append(_check(f"post r1{tag}", r1, prefs[c][1], rel=False))
+                        errs[f"{k}post_f"].append(_check(f"post saved{tag}", saved, prefs[c][2], rel=False))
+                    elif r1 is not None or saved is not None:
+                        raise AssertionError("the primal post op wrote saved tensors")
+            gs = [cot(rows, T_EMBED) for _ in range(chains)]
+            got = fb._launch_post_bwd(attns, gs, [r[1] for r in prefs], [r[2] for r in prefs],
+                                      [post_w(ps) for ps in posts], act, f"{k}post_b")
+            names = ("dattn", "dh", "dW_o", "db_o", "dg2", "dbb2", "dW_up", "db_up", "dW_down", "db_down")
+            for c, result in enumerate(got):
+                want = fb.post_bwd_plain(attns[c], gs[c], prefs[c][1], prefs[c][2], *post_w(posts[c]), act)
+                torch.cuda.synchronize()
+                for name, a, b in zip(names, result, want):
+                    errs[f"{k}post_b"].append(_check(f"post {name}[{c}] {act} rows={rows}", a, b, rel=True))
+
+        # Timing at the path's shapes (gelu, skip_input_grad): kernel, plain, library.
+        rows = BLOCK_ROWS
+        xs = [obs(rows) for _ in range(chains)]
+        attns, hs_in = [attn_in(rows) for _ in range(chains)], [residual(rows) for _ in range(chains)]
+        refs = [fb.pre_fwd_plain(x, *ps) for x, ps in zip(xs, pres)]
+        prefs = [fb.post_fwd_plain(a, h, *ps, "gelu", True) for a, h, ps in zip(attns, hs_in, posts)]
+        ghs = [cot(rows, T_EMBED, torch.float32) for _ in range(chains)]
+        gqkvs = [cot(rows, 3 * T_EMBED) for _ in range(chains)]
+        gs = [cot(rows, T_EMBED) for _ in range(chains)]
+        pre16 = [(ps[0], ps[1], ps[2], ps[3], torch.cat(ps[4:7]), torch.cat(ps[7:10])) for ps in pres]
+        pre16 = [[t.to(torch.bfloat16).requires_grad_() for t in ps] for ps in pre16]
+        post16 = [[t.to(torch.bfloat16).requires_grad_() for t in ps] for ps in posts]
+        x16 = [x.to(torch.bfloat16) for x in xs]
+        a16 = [a.to(torch.bfloat16).requires_grad_() for a in attns]
+        h16 = [h.to(torch.bfloat16).requires_grad_() for h in hs_in]
+        timed = {
+            "pre_f": (lambda: fb._launch_pre_fwd(xs, pres, f"{k}pre_f"),
+                      lambda: [fb.pre_fwd_plain(x, *ps) for x, ps in zip(xs, pres)]),
+            "pre_b": (lambda: fb._launch_pre_bwd(xs, [r[0] for r in refs], ghs, gqkvs, pres, True, f"{k}pre_b"),
+                      lambda: [bwd_plain_pre(x, r[0], gh, gq, ps, True)
+                               for x, r, gh, gq, ps in zip(xs, refs, ghs, gqkvs, pres)]),
+            "post_f": (lambda: fb._launch_post_fwd(attns, hs_in, posts, "gelu", True, f"{k}post_f"),
+                       lambda: [fb.post_fwd_plain(a, h, *ps, "gelu", True) for a, h, ps in zip(attns, hs_in, posts)]),
+            "post_b": (lambda: fb._launch_post_bwd(attns, gs, [r[1] for r in prefs], [r[2] for r in prefs],
+                                                   [post_w(ps) for ps in posts], "gelu", f"{k}post_b"),
+                       lambda: [fb.post_bwd_plain(a, g, r[1], r[2], *post_w(ps), "gelu")
+                                for a, g, r, ps in zip(attns, gs, prefs, posts)]),
+        }
+        with torch.no_grad():
+            lib_f = {"pre_f": lambda: [_library_block("pre", x, None, p, None) for x, p in zip(x16, pre16)],
+                     "post_f": lambda: [_library_block("post", a, h, None, p) for a, h, p in zip(a16, h16, post16)]}
+            lib_ms = {op: _time_ms(fn) for op, fn in lib_f.items()}
+        with torch.enable_grad():
+            pre_out = [_library_block("pre", x, None, p, None) for x, p in zip(x16, pre16)]
+            pre_in = [t for p in pre16 for t in p]
+            pre_g = [g for gh, gq in zip(ghs, gqkvs) for g in (gh.to(torch.bfloat16), gq)]
+            lib_ms["pre_b"] = _time_ms(lambda: torch.autograd.grad([t for o in pre_out for t in o], pre_in, pre_g,
+                                                                   retain_graph=True))
+            post_out = [_library_block("post", a, h, None, p)[0] for a, h, p in zip(a16, h16, post16)]
+            post_in = [*a16, *h16, *(t for p in post16 for t in p)]
+            lib_ms["post_b"] = _time_ms(lambda: torch.autograd.grad(post_out, post_in, gs, retain_graph=True))
+        for op, (kernel_fn, plain_fn) in timed.items():
+            key = f"{k}{op}"
+            k_ms, p_ms = _time_ms(kernel_fn), _time_ms(plain_fn)
+            bound, by = _bound_ms(*_block_work(op, rows, chains))
+            print(f"    {key} rows={rows}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={lib_ms[op]:.4f} "
+                  f"bound_ms={bound:.4f} ({by})")
+            results[key] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms[op], bound_ms=bound, bound_by=by,
+                                shape=f"{chains} x {rows} rows, 48 -> 128 (3 x 128), FFN 512 gelu"
+                                + (", skip_input_grad" if op == "pre_b" else "")
+                                + (", saves r1 and z1" if op == "post_f" else ""))
+        if k == "K4":  # the primal post of the value, next-token and KL passes
+            a, h = attn_in(PRIMAL_ROWS), residual(PRIMAL_ROWS)
+            ref = fb.post_fwd_plain(a, h, *posts[0], "gelu", False)[0]
+            out = fb._launch_post_fwd([a], [h], posts[:1], "gelu", False, "K4post_f")[0][0]
+            torch.cuda.synchronize()
+            errs["K4post_f"].append(_check(f"post out primal rows={PRIMAL_ROWS}", out, ref, rel=False))
+            k_ms = _time_ms(lambda: fb._launch_post_fwd([a], [h], posts[:1], "gelu", False, "K4post_f"))
+            p_ms = _time_ms(lambda: fb.post_fwd_plain(a, h, *posts[0], "gelu", False))
+            with torch.no_grad():
+                l_ms = _time_ms(lambda: _library_block("post", a.to(torch.bfloat16), h.to(torch.bfloat16), None,
+                                                       post16[0]))
+            bound, _ = _bound_ms(*_block_work("post_f", PRIMAL_ROWS, 1, save=False))
+            print(f"    K4post_f primal rows={PRIMAL_ROWS}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                  f"library_ms={l_ms:.4f} bound_ms={bound:.4f}")
+            results["K4post_f"].update(primal_ms=k_ms, primal_plain_ms=p_ms, primal_library_ms=l_ms,
+                                       primal_bound_ms=bound)
+    for key in results:
+        results[key]["max_abs_err"] = max(errs[key])
+    return results
+
+
+def check_block_wrappers(device) -> dict:
+    """The wrappers the fused route calls, under autograd at the path's
+    shapes, against the same calls on the CPU (their plain versions): K4's
+    and K5's pre -> post with every ``.grad`` and the residual's cotangent
+    reaching the pre op in fp32, and the post wrappers raising for an
+    unsupported activation; ``fused_mlp_pair`` with input gradients (the
+    joint evaluation's tails, 6,144 x 128 -> 128 ELU); and the fused step
+    route against the modular step for a few rollout steps at 1,024
+    environments.  Returns the largest error per kernel."""
+    import torch
+
+    from cusrl_tpu_torch.nn.kernels import fused_block as fb
+    from cusrl_tpu_torch.nn.kernels import fused_mlp as fm
+
+    gen = torch.Generator().manual_seed(SEED + 10)
+    rows = BLOCK_ROWS
+    errs = {key: [] for key in BLOCK_REPLACES}
+    errs.update(K2f=[], K2b=[])
+    for k, chains in (("K4", 1), ("K5", 2)):
+        print(f"[wrappers] {k}: fused_block{'_pair' if chains > 1 else ''}_pre -> post, autograd, rows={rows}")
+        params = [t for _ in range(chains) for ps in _block_params(gen, "cpu") for t in ps]
+        xs = [torch.tanh(torch.randn(rows, T_IN, generator=gen)) for _ in range(chains)]
+        noise = [torch.randn(rows, T_EMBED, generator=gen) for _ in range(chains)]
+        gouts = [(torch.randn(rows, T_EMBED, generator=gen) * 0.01).to(torch.bfloat16) for _ in range(chains)]
+
+        def run(device_):
+            ps = [p.detach().to(device_, copy=True).requires_grad_() for p in params]
+            pre = [ps[18 * c:18 * c + 10] for c in range(chains)]
+            post = [ps[18 * c + 10:18 * c + 18] for c in range(chains)]
+            x = [t.to(device_) for t in xs]
+            before = dict(fb.LAUNCHES)
+            if chains == 2:
+                ha, hc, qa, qc = fb.fused_block_pair_pre(*x, pre[0], pre[1])
+                hs, qkvs = [ha, hc], [qa, qc]
+            else:
+                h, qkv = fb.fused_block_pre(x[0], *pre[0])
+                hs, qkvs = [h], [qkv]
+            seen = []
+            for h in hs:
+                h.register_hook(seen.append)
+            attns = [q[:, :T_EMBED].float() * n.to(device_) for q, n in zip(qkvs, noise)]
+            outs = (list(fb.fused_block_pair_post(*attns, *hs, post[0], post[1])) if chains == 2
+                    else [fb.fused_block_post(attns[0], hs[0], *post[0])])
+            torch.autograd.backward(outs, [g.to(device_) for g in gouts])
+            torch.cuda.synchronize()
+            launched = {n: v - before[n] for n, v in fb.LAUNCHES.items() if v != before[n]}
+            return outs, ps, seen, launched
+
+        (outs, ps, seen, launched), (ref_outs, ref_ps, ref_seen, _) = run(device), run("cpu")
+        if launched != {f"{k}pre_f": 1, f"{k}pre_b": 1, f"{k}post_f": 1, f"{k}post_b": 1}:
+            raise AssertionError(f"{k} wrappers launched {launched}")
+        if not all(g.dtype == torch.float32 for g in (*seen, *ref_seen)) or len(seen) != chains:
+            raise AssertionError("the residual's cotangent did not reach the pre op in fp32")
+        if all(torch.equal(g, g.to(torch.bfloat16).float()) for g in seen):
+            raise AssertionError("the residual's cotangent holds only bf16 values: it was rounded")
+        print(f"    residual cotangent reaches the pre op as {seen[0].dtype} (not bf16-representable)")
+        for c, (a, b) in enumerate(zip(outs, ref_outs)):
+            errs[f"{k}post_f"].append(_check(f"out[{c}]", a.cpu(), b, rel=False))
+        for i, (a, b) in enumerate(zip(ps, ref_ps)):
+            key = f"{k}pre_b" if i % 18 < 10 else f"{k}post_b"
+            errs[key].append(_check(f"param{i}.grad", a.grad.cpu(), b.grad, rel=True))
+
+    # An activation the kernels do not take raises on the card (the CPU takes the reference).
+    post = [p.to(device) for p in _block_params(gen, "cpu")[1]]
+    attn = torch.randn(64, T_EMBED, generator=gen).to(device)
+    for call in (lambda: fb.fused_block_post(attn, attn, *post, "silu"),
+                 lambda: fb.fused_block_pair_post(attn, attn, attn, attn, post, post, "silu")):
+        try:
+            call()
+        except NotImplementedError:
+            continue
+        raise AssertionError("the fused block's post wrapper took an unsupported activation on the card")
+    print("[wrappers] an unsupported activation (silu) raises on the card, single and pair")
+
+    print(f"[wrappers] fused_mlp_pair with input gradients, rows={rows}, 128 -> 128 ELU (the joint evaluation's tails)")
+    tails = [[(torch.randn(T_EMBED, T_EMBED, generator=gen) / math.sqrt(T_EMBED)),
+              torch.randn(T_EMBED, generator=gen) * 0.1] for _ in range(2)]
+    lat = [torch.randn(rows, T_EMBED, generator=gen).to(torch.bfloat16) for _ in range(2)]
+    gl = [(torch.randn(rows, T_EMBED, generator=gen) * 0.01).to(torch.bfloat16) for _ in range(2)]
+
+    def tail_run(device_):
+        leaves = [[t.to(device_).requires_grad_() for t in tail] for tail in tails]
+        x = [t.to(device_).requires_grad_() for t in lat]
+        before = dict(fm.LAUNCHES)
+        outs = fm.fused_mlp_pair(*x, leaves[0][:1], leaves[0][1:], leaves[1][:1], leaves[1][1:], "elu", True,
+                                 skip_input_grad=False)
+        torch.autograd.backward(list(outs), [g.to(device_) for g in gl])
+        launched = {n: v - before[n] for n, v in fm.LAUNCHES.items() if v != before[n]}
+        return outs, x, leaves, launched
+
+    (outs, x, leaves, launched), (ref_outs, ref_x, ref_leaves, _) = tail_run(device), tail_run("cpu")
+    if launched != {"K2f": 1, "K2b": 1}:
+        raise AssertionError(f"fused_mlp_pair with input gradients launched {launched}")
+    for c in range(2):
+        errs["K2f"].append(_check(f"tail out[{c}]", outs[c].cpu(), ref_outs[c], rel=False))
+        if x[c].grad is None or x[c].grad.dtype != torch.bfloat16:
+            raise AssertionError("fused_mlp_pair returned no bf16 input gradient")
+        errs["K2b"].append(_check(f"tail x.grad[{c}]", x[c].grad.cpu(), ref_x[c].grad, rel=True))
+        for i, (a, b) in enumerate(zip(leaves[c], ref_leaves[c])):
+            errs["K2b"].append(_check(f"tail param{i}.grad[{c}]", a.grad.cpu(), b.grad, rel=True))
+
+    print(f"[wrappers] the fused step route against the modular step, {T_ENVS} environments, 4 steps")
+    from cusrl_tpu_torch.nn.module.causal_attn import CausalTransformerEncoderLayerFactory
+
+    torch.manual_seed(SEED + 11)
+    layer = CausalTransformerEncoderLayerFactory(embed_dim=T_EMBED, num_heads=T_HEADS, window=T_WINDOW,
+                                                 ff_dim=T_FF)(T_IN, None).to(device)
+    steps = [torch.tanh(torch.randn(T_ENVS, T_IN, generator=gen)).to(device) for _ in range(4)]
+    outputs = {}
+    for mode in ("0", "force"):
+        fb.reset_launch_counts()
+        memory, outs = layer.init_memory(T_ENVS), []
+        with _fused_route(mode), torch.no_grad():
+            for x in steps:
+                out, memory, _ = layer(x, memory)
+                outs.append(out)
+        torch.cuda.synchronize()
+        outputs[mode] = (outs, memory, dict(fb.LAUNCHES))
+    (ref_outs, ref_mem, _), (outs, mem, launched) = outputs["0"], outputs["force"]
+    if {n: v for n, v in launched.items() if v} != {"K4pre_f": 4, "K4post_f": 4}:
+        raise AssertionError(f"the fused step route launched {launched}")
+    # The JAX package's fused-against-modular step tolerance (tests/test_fused_block.py:225-255).
+    for i, (a, b) in enumerate(zip(outs, ref_outs)):
+        if not torch.allclose(a.float(), b.float(), rtol=5e-2, atol=5e-2):
+            raise AssertionError(f"fused step {i} disagrees with the modular step")
+        errs["K4post_f"].append((a.float() - b.float()).abs().max().item())
+    for key in ("k_cache", "v_cache", "cache_mask", "cursor"):
+        if not torch.allclose(mem[key].float(), ref_mem[key].float(), rtol=3e-2, atol=3e-2):
+            raise AssertionError(f"fused step ring {key} disagrees with the modular step")
+    print(f"    outputs max_abs_err={max(errs['K4post_f'][-4:]):.3e} (limit 5e-2 + 5e-2 rel), ring ok, "
+          f"launches {launched['K4pre_f']}/{launched['K4post_f']} pre/post")
+    return {k: max(v) for k, v in errs.items() if v}
+
+
 def _slice_factory(**overrides):
     from cusrl_tpu_torch.preset.ppo import PpoAgentFactory
 
@@ -1071,9 +1466,23 @@ def _slice_factory(**overrides):
 
 PATHS = ("A", "B", "C")
 PATH_NAMES = {"A": "zoo Velocity-Rough ppo", "B": "A + fuse_heads (K8)", "C": "A + fused_ppo_update (K9)",
-              "T": "zoo Velocity-Flat transformer_ppo"}
+              "T": "zoo Velocity-Flat transformer_ppo, modular route", "TF": "zoo Velocity-Flat transformer_ppo",
+              "TJ": "TF + fuse_actor_critic_evaluation (K5)"}
+# The route each transformer path runs: T the modular one, TF and TJ the default.
+PATH_ROUTES = {"T": "0", "TF": None, "TJ": None}
 MB = EPOCHS * MINIBATCHES
-_NONE = {"K1f": 0, "K1b": 0, "K2f": 0, "K2b": 0, "K8f": 0, "K8b": 0, "K9s": 0, "K3f": 0, "K3b": 0, "K6": 0}
+_NONE = {"K1f": 0, "K1b": 0, "K2f": 0, "K2b": 0, "K8f": 0, "K8b": 0, "K9s": 0, "K3f": 0, "K3b": 0, "K6": 0,
+         **{key: 0 for key in BLOCK_REPLACES}}
+# One update of TF: per minibatch the actor and the critic each run K4 pre
+# and post forward and backward, K3f/K3b and the head's K1f/K1b; the value
+# pass and its next-token pass (K6) and the KL pass run K4's forwards (post
+# primal) and the head's K1f.  TJ runs each minibatch's two layers as one
+# K5 pass (two K3f/K3b) and the MLP tails as one K2 pair with input
+# gradients.
+_TF_UPDATE = {"K1f": 3 + 2 * MB, "K1b": 2 * MB, "K3f": 2 + 2 * MB, "K3b": 2 * MB, "K6": 1,
+              "K4pre_f": 3 + 2 * MB, "K4post_f": 3 + 2 * MB, "K4pre_b": 2 * MB, "K4post_b": 2 * MB}
+_TJ_UPDATE = {"K1f": 3, "K2f": MB, "K2b": MB, "K3f": 2 + 2 * MB, "K3b": 2 * MB, "K6": 1, "K4pre_f": 3,
+              "K4post_f": 3, "K5pre_f": MB, "K5pre_b": MB, "K5post_f": MB, "K5post_b": MB}
 EXPECTED_ZOO_LAUNCHES = {  # per training iteration
     "A": {**_NONE, "K1f": STEPS + 3, "K2f": MB, "K2b": MB},
     "B": {**_NONE, "K1f": STEPS + 3, "K8f": MB, "K8b": MB},
@@ -1084,22 +1493,29 @@ EXPECTED_ZOO_LAUNCHES = {  # per training iteration
     # mode (K3f, FFN, head each) and their backward (K3b, FFN, head each);
     # the KL pass after the update (K3f, FFN, head).
     "T": {**_NONE, "K1f": 2 * STEPS + 4 + 4 * MB + 2, "K1b": 4 * MB, "K3f": 1 + 2 * MB + 1, "K3b": 2 * MB, "K6": 1},
+    # TF and TJ: the rollout's step (the fused step route is off by default)
+    # runs the FFN and the head through K1f.
+    "TF": {**_NONE, **_TF_UPDATE, "K1f": 2 * STEPS + _TF_UPDATE["K1f"]},
+    "TJ": {**_NONE, **_TJ_UPDATE, "K1f": 2 * STEPS + _TJ_UPDATE["K1f"]},
 }
 
 
 def _launch_counts() -> dict:
+    from cusrl_tpu_torch.nn.kernels import fused_block as fb
     from cusrl_tpu_torch.nn.kernels import fused_mlp as fm
     from cusrl_tpu_torch.nn.kernels import lane_attention as la
 
-    return {**fm.LAUNCHES, **la.LAUNCHES}
+    return {**fm.LAUNCHES, **la.LAUNCHES, **fb.LAUNCHES}
 
 
 def _reset_launch_counts() -> None:
+    from cusrl_tpu_torch.nn.kernels import fused_block as fb
     from cusrl_tpu_torch.nn.kernels import fused_mlp as fm
     from cusrl_tpu_torch.nn.kernels import lane_attention as la
 
     fm.reset_launch_counts()
     la.reset_launch_counts()
+    fb.reset_launch_counts()
 
 
 def _with_path(agent_factory, path: str):
@@ -1122,26 +1538,35 @@ def check_update_against_cpu(path: str) -> None:
     environments: every backbone call is large enough for the kernels), on
     the card and through the plain CPU path, same weights, rollout (dones
     mid-rollout), rollout-initial memories and permutations, for the slice-1
-    configuration, the zoo's paths A, B and C and path T.  Metrics agree
+    configuration, the zoo's paths A, B and C, path T (the modular route on
+    both sides) and paths TF and TJ (the card's default route against the
+    CPU under ``force``: the fused block's plain versions).  Metrics agree
     within bf16 rounding carried through 20 Adam steps (rtol 2e-2, atol
     2e-3): KL and the importance-weighted advantage are small differences of
     nearly equal terms, and the CPU side's matmuls block differently on each
-    host."""
+    host.  TF and TJ update at lr 1e-4: at the zoo's 1e-3 one update moves
+    the fresh policy to KL 0.19, and its metrics amplify rounding (on the
+    CPU the fused and the modular route, the same arithmetic rounded in
+    another order, read the importance-weighted advantage 3.0 % apart at
+    1e-3 and 0.33 % at 1e-4)."""
     import torch
 
-    from cusrl_tpu_torch.environment.locomotion import VelocityLocomotionEnv
-    from cusrl_tpu_torch.utils.nest import map_nested
     from cusrl_tpu_torch.zoo.registry import get_experiment
 
     steps, envs = 8, 256
     if path == "slice 1":
         factory, expected = _slice_factory(num_steps_per_update=steps), {"K1f": 3, "K2f": MB, "K2b": MB}
-    elif path == "T":
+    elif path in PATH_ROUTES:
         factory = get_experiment("Velocity-Flat", "transformer_ppo").make_agent_factory()
         factory.num_steps_per_update = steps
-        # The value pass (K3f, FFN, head) and its next-token pass (K6, FFN,
-        # head); per minibatch actor and critic forward and backward; the KL pass.
-        expected = {"K1f": 4 + 4 * MB + 2, "K1b": 4 * MB, "K3f": 2 + 2 * MB, "K3b": 2 * MB, "K6": 1}
+        factory.fuse_actor_critic_evaluation = path == "TJ"
+        if path != "T":
+            factory.lr = 1e-4
+        # T: the value pass (K3f, FFN, head) and its next-token pass (K6,
+        # FFN, head); per minibatch actor and critic forward and backward;
+        # the KL pass.  TF and TJ: one training iteration's update.
+        expected = {"T": {"K1f": 4 + 4 * MB + 2, "K1b": 4 * MB, "K3f": 2 + 2 * MB, "K3b": 2 * MB, "K6": 1},
+                    "TF": _TF_UPDATE, "TJ": _TJ_UPDATE}[path]
     else:
         zoo = get_experiment("Velocity-Rough", "ppo").make_agent_factory()
         zoo.num_steps_per_update = steps
@@ -1153,36 +1578,14 @@ def check_update_against_cpu(path: str) -> None:
     truncated = torch.rand(steps, envs, 1, generator=gen) < 0.05
     done = terminated | truncated
     # The flat sampler permutes 128-row tiles; the temporal one environments.
-    units = envs if path == "T" else steps * envs // 128
+    units = envs if path in PATH_ROUTES else steps * envs // 128
     perms = torch.stack([torch.randperm(units, generator=torch.Generator().manual_seed(e)) for e in range(EPOCHS)])
     metrics, state = {}, None
-    for device in ("cpu", "cuda"):
-        env = VelocityLocomotionEnv(num_instances=envs, device=device)
-        agent = factory(env.spec, device=device, seed=SEED)
-        if state is None:
-            state = {k: v.detach().clone() for k, v in agent.model.state_dict().items()}
-        else:
-            agent.model.load_state_dict(state)
-        memories = agent.rollout_memory_entries()  # empty for the MLP paths
-        with torch.no_grad():
-            dist, _, _ = agent.actor(obs[:-1].to(device), memories.get("actor_memory"), sequential=True,
-                                     done=done.to(device))
-        noise = torch.randn(steps, envs, 12, generator=torch.Generator().manual_seed(SEED + 2)).to(device)
-        action = dist["mean"] + dist["std"] * noise
-        rollout = {
-            "observation": obs[:-1].to(device),
-            "next_observation": obs[1:].to(device),
-            "action": action,
-            "action_logp": agent.actor.compute_logp(dist, action),
-            "action_dist": dist,
-            "reward": torch.ones(steps, envs, 1, device=device),
-            "terminated": terminated.to(device),
-            "truncated": truncated.to(device),
-            "done": done.to(device),
-            **map_nested(lambda t: t[None], memories),  # a rollout stores them as [1, N, ...]
-        }
-        _reset_launch_counts()
-        metrics[device] = {k: float(v) for k, v in agent.update_body(rollout, epoch_perms=perms).items()}
+    fused = path in PATH_ROUTES and PATH_ROUTES[path] is None
+    for device, route in (("cpu", "force" if fused else PATH_ROUTES.get(path)), ("cuda", PATH_ROUTES.get(path))):
+        with _fused_route(route):
+            metrics[device], initial = _small_update(factory, device, state, obs, terminated, truncated, done, perms)
+        state = state or initial
     launched = {k: v for k, v in _launch_counts().items() if v}
     print(f"[update-check] {path}: cuda launches {launched}")
     if launched != expected:
@@ -1193,6 +1596,43 @@ def check_update_against_cpu(path: str) -> None:
         print(f"    {key:32s} cuda={got:.6f} cpu={ref:.6f} {'ok' if ok else 'MISMATCH'}")
         if not ok:
             raise AssertionError(f"update metric '{key}' disagrees between the card and the CPU path")
+
+
+def _small_update(factory, device, state, obs, terminated, truncated, done, perms):
+    """One update of ``check_update_against_cpu`` on ``device``, from
+    ``state`` when given: ``(metrics, the agent's initial weights)``; the
+    launch counters are set to 0 just before the update."""
+    import torch
+
+    from cusrl_tpu_torch.environment.locomotion import VelocityLocomotionEnv
+    from cusrl_tpu_torch.utils.nest import map_nested
+
+    steps, envs = done.shape[:2]
+    env = VelocityLocomotionEnv(num_instances=envs, device=device)
+    agent = factory(env.spec, device=device, seed=SEED)
+    initial = {k: v.detach().clone() for k, v in agent.model.state_dict().items()}
+    if state is not None:
+        agent.model.load_state_dict(state)
+    memories = agent.rollout_memory_entries()  # empty for the MLP paths
+    with torch.no_grad():
+        dist, _, _ = agent.actor(obs[:-1].to(device), memories.get("actor_memory"), sequential=True,
+                                 done=done.to(device))
+    noise = torch.randn(steps, envs, 12, generator=torch.Generator().manual_seed(SEED + 2)).to(device)
+    action = dist["mean"] + dist["std"] * noise
+    rollout = {
+        "observation": obs[:-1].to(device),
+        "next_observation": obs[1:].to(device),
+        "action": action,
+        "action_logp": agent.actor.compute_logp(dist, action),
+        "action_dist": dist,
+        "reward": torch.ones(steps, envs, 1, device=device),
+        "terminated": terminated.to(device),
+        "truncated": truncated.to(device),
+        "done": done.to(device),
+        **map_nested(lambda t: t[None], memories),  # a rollout stores them as [1, N, ...]
+    }
+    _reset_launch_counts()
+    return {k: float(v) for k, v in agent.update_body(rollout, epoch_perms=perms).items()}, initial
 
 
 def train(kind: str) -> None:
@@ -1235,30 +1675,39 @@ def train(kind: str) -> None:
           f"on {kind}")
 
 
-def train_zoo(kind: str, path: str) -> tuple[dict, float]:
+def train_zoo(kind: str, path: str):
     """Path A, B or C built through the port's zoo,
     ``get_experiment("Velocity-Rough", "ppo").to_training_factory()``, on the
     card: 4,096 environments, ``iterations_per_dispatch=10``, observation
-    normalization and the KL-adaptive learning rate; or path T,
+    normalization and the KL-adaptive learning rate; or path T, TF or TJ,
     ``get_experiment("Velocity-Flat", "transformer_ppo")``: 1,024
-    environments, the same chunking, normalization and schedule.  One warm-up chunk, then
+    environments, the same chunking, normalization and schedule, on the
+    modular route (T, ``CUSRL_TPU_FUSED_TRANSFORMER=0``), the default route
+    (TF) or the default route with ``fuse_actor_critic_evaluation=True``
+    set on the agent factory (TJ).  One warm-up chunk, then
     one timed chunk through ``Trainer.rollout_and_update`` with the launch
     counters set to 0 just before and read just after, PyTorch's sync debug
     mode on (no synchronizing call but the chunk's one host transfer) and
     every metric finite.  Returns the launches and env-steps/s."""
-    import warnings
-
-    import torch
-
     from cusrl_tpu_torch.zoo.registry import get_experiment
 
-    if path == "T":
+    if path in PATH_ROUTES:
         factory, envs = get_experiment("Velocity-Flat", "transformer_ppo").to_training_factory(), T_ENVS
+        factory.agent.fuse_actor_critic_evaluation = path == "TJ"
     else:
         factory, envs = get_experiment("Velocity-Rough", "ppo").to_training_factory(), NUM_ENVS
         factory.agent = _with_path(factory.agent, path)
     chunk = factory.iterations_per_dispatch
     factory.num_iterations = 2 * chunk
+    with _fused_route(PATH_ROUTES.get(path)):
+        return _train_chunks(kind, path, factory, envs, chunk)
+
+
+def _train_chunks(kind: str, path: str, factory, envs: int, chunk: int):
+    import warnings
+
+    import torch
+
     trainer = factory(verbose=False, seed=SEED)  # device defaults to the card
     if trainer.environment.num_instances != envs or chunk != 10 or trainer.agent.device.type != "cuda":
         raise AssertionError("the zoo entry is not the uncut configuration on the card")
@@ -1360,6 +1809,7 @@ def main() -> int:
     results = check_kernels(device)
     results.update(check_head_kernels(device))
     results.update(check_lane_kernels(device))
+    results.update(check_block_kernels(device))
     gelu = check_gelu_kernels(device)
     # K1b's ELU timing at the MLP's widths is off every path: kept under its own name.
     results["K1b"] = {f"offpath_elu_{k}": v for k, v in results["K1b"].items()}
@@ -1369,19 +1819,24 @@ def main() -> int:
         results[key]["max_abs_err"] = max(results[key]["max_abs_err"], fields["gelu_max_abs_err"])
     for key, err in (*check_wrappers(device).items(), *check_head_wrappers(device).items()):
         results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
-    for path in ("slice 1", *PATHS, "T"):
+    for key, err in check_block_wrappers(device).items():
+        results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
+    for path in ("slice 1", *PATHS, *PATH_ROUTES):
         check_update_against_cpu(path)
     train(kind)
     path_launches = {}
-    for path in ("T", *PATHS):
+    for path in (*PATH_ROUTES, *PATHS):
         path_launches[path], _ = train_zoo(kind, path)
 
     kernels = []
-    for key in ("K1f", "K1b", "K2f", "K2b", "K8f", "K8b", "K9s", "K3f", "K3b", "K6"):
+    main_path = {"K8f": "B", "K8b": "B", "K9s": "C", "K1b": "T", "K3f": "TF", "K3b": "TF", "K6": "TF",
+                 **{key: ("TF" if key.startswith("K4") else "TJ") for key in BLOCK_REPLACES}}
+    for key in ("K1f", "K1b", "K2f", "K2b", "K8f", "K8b", "K9s", "K3f", "K3b", "K6", *BLOCK_REPLACES):
         r = results[key]
-        path = {"K8f": "B", "K8b": "B", "K9s": "C", "K1b": "T", "K3f": "T", "K3b": "T", "K6": "T"}.get(key, "A")
+        path = main_path.get(key, "A")
         kernels.append({
-            "name": key, "route": "cuda", "source": SOURCES[key], "replaces": REPLACES[key],
+            "name": key, "route": "cuda", "source": SOURCES.get(key, "cusrl_tpu_torch/csrc/fused_block.cu"),
+            "replaces": {**REPLACES, **BLOCK_REPLACES}[key],
             "launches": path_launches[path][key], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"], "path": f"{path}: {PATH_NAMES[path]}",

@@ -1,0 +1,575 @@
+"""Fused transformer-block kernels on Hopper (counterpart of
+``cusrl_tpu/nn/kernels/fused_block.py``: ``fused_block_pre``,
+``fused_block_post``, ``fused_block_pair_pre``, ``fused_block_pair_post`` and
+``supports_fused_block``).
+
+One hand-written CUDA source (``csrc/fused_block.cu``) runs every matmul and
+LayerNorm of one pre-norm ``CausalTransformerEncoderLayer`` with residual
+gates as two programs around its attention, for one layer (K4) or the actor's
+and the critic's layers in one launch (K5):
+
+- pre forward (``fused_block_pre_fwd``): ``h = input_proj(x)``,
+  ``qkv = LN1(h) [W_q; W_k; W_v]^T + b``; replaces ``_pre_fwd_kernel`` and
+  ``_pair_pre_fwd_kernel``;
+- pre backward (``fused_block_pre_bwd``): replaces ``_pre_bwd_kernel`` and
+  ``_pair_pre_bwd_kernel``;
+- post forward (``fused_block_post_fwd``, saving or primal):
+  ``r1 = h + attn W_o^T + b``, ``out = r1 + FFN(LN2(r1))``; replaces
+  ``_post_fwd_kernel`` and ``_pair_post_fwd_kernel``;
+- post backward (``fused_block_post_bwd``): replaces ``_post_bwd_kernel``
+  and ``_pair_post_bwd_kernel``.
+
+What bounds them on the H100 and what the design does about it is written at
+the top of the CUDA source.  Beside the kernels this module keeps their plain
+PyTorch versions, which repeat the kernels' arithmetic step by step, the
+backwards as explicit formulas (mirrors of the TPU kernels' ``_pre_bwd_kernel``
+and ``_post_bwd_kernel``, not autograd of the forward): bf16 operands, fp32
+accumulation and bias, LayerNorm in fp32 with the population variance and eps
+1e-6, residual adds of two bf16 values rounded to bf16, the FFN activation in
+fp32 on the bf16 pre-activation.
+
+The residual ``h`` leaves the pre op as an fp32 tensor holding the bf16
+values.  The post backward returns its cotangent in fp32 (the TPU kernel's
+``dh``), and PyTorch's autograd would round a gradient to a bf16 input's
+dtype; carried as fp32, it reaches the pre backward unrounded, as the Pallas
+route hands it over (``tests/test_torch_fused_block.py`` shows the difference).
+
+Dispatch is by the device of the input: a CPU tensor takes the plain version,
+a CUDA tensor launches the kernel or raises (an activation the kernels do not
+take raises there too; on the CPU it takes the reference).  ``LAUNCHES``
+counts launches per op (``K4pre_f`` ... ``K5post_b``); the plain versions
+count nothing.
+Layouts are the port's parameters: weights ``[out, in]`` fp32, biases and
+LayerNorm parameters ``[dim]`` fp32; q, k and v keep their three matrices.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from cusrl_tpu_torch.nn.kernels.fused_mlp import _ACTIVATION_CODES, _PREACT_ACTIVATIONS, _act_plain, _dact_plain
+
+__all__ = [
+    "LAUNCHES",
+    "fused_block_pair_post",
+    "fused_block_pair_pre",
+    "fused_block_post",
+    "fused_block_pre",
+    "post_bwd_plain",
+    "post_fwd_plain",
+    "post_reference",
+    "pre_bwd_plain",
+    "pre_fwd_plain",
+    "reset_launch_counts",
+    "supports_fused_block",
+]
+
+_BF16 = torch.bfloat16
+_SUPPORTED = ("elu", "relu", "tanh", "gelu", "identity", "none")
+LN_EPS = 1e-6
+MAX_EMBED = 128  # FB_MAX_EMBED in csrc/fused_block.cu
+MAX_WIDTH = 512  # MLP_MAX_WIDTH: the input and FFN widths
+WIDTH_MULTIPLE = 16  # the kernels' 16x16x16 WMMA tiles
+ROW_TILE = 64  # mlp::BM
+
+LAUNCHES: dict[str, int] = {f"K{k}{op}_{d}": 0 for k in (4, 5) for op in ("pre", "post") for d in ("f", "b")}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def supports_fused_block(activation) -> bool:
+    return isinstance(activation, str) and activation.lower() in _SUPPORTED
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (CPU path and the kernels' oracle on the card)
+# ---------------------------------------------------------------------------
+
+
+def _linear_plain(a, w, b):
+    """bf16(bf16(a) bf16(W)^T + b) with fp32 accumulation and bias."""
+    return (a.to(_BF16).float() @ w.to(_BF16).float().T + b).to(_BF16)
+
+
+def _ln_plain(x32, g, b):
+    """``(y fp32, xhat, inv)``: LayerNorm with the population variance."""
+    mean = x32.mean(-1, keepdim=True)
+    xc = x32 - mean
+    inv = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + LN_EPS)
+    xhat = xc * inv
+    return xhat * g + b, xhat, inv
+
+
+def _ln_bwd_plain(dy, xhat, inv, g):
+    """LayerNorm input cotangent (``_ln_bwd``)."""
+    dxhat = dy * g
+    return inv * (dxhat - dxhat.mean(-1, keepdim=True) - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+
+
+def pre_fwd_plain(x, w_in, b_in, g1, bb1, w_q, w_k, w_v, b_q, b_k, b_v):
+    """``(h [N, E] fp32 holding bf16 values, qkv [N, 3E] bf16)``."""
+    h = _linear_plain(x, w_in, b_in)
+    y = _ln_plain(h.float(), g1, bb1)[0].to(_BF16)
+    return h.float(), _linear_plain(y, torch.cat([w_q, w_k, w_v]), torch.cat([b_q, b_k, b_v]))
+
+
+def pre_bwd_plain(x, h, gh, gqkv, w_in, w_q, w_k, w_v, g1, bb1, skip_input_grad: bool):
+    """``_pre_bwd_kernel``: ``(dx fp32 or None, dw_in, db_in, dg1, dbb1, dw_q,
+    dw_k, dw_v, db_q, db_k, db_v)``; ``gh`` (fp32) may be None."""
+    embed = w_in.shape[0]
+    y, xhat, inv = _ln_plain(h.float(), g1, bb1)
+    dqkv = gqkv.float()
+    dqkv_bf = dqkv.to(_BF16).float()
+    dw_qkv = dqkv_bf.T @ y.to(_BF16).float()  # [3E, E]
+    dy = dqkv_bf @ torch.cat([w_q, w_k, w_v]).to(_BF16).float()
+    dh = _ln_bwd_plain(dy, xhat, inv, g1)
+    if gh is not None:
+        dh = dh + gh.float()
+    dh_bf = dh.to(_BF16).float()
+    dx = None if skip_input_grad else dh_bf @ w_in.to(_BF16).float()
+    return (dx, dh_bf.T @ x.to(_BF16).float(), dh.sum(0), (dy * xhat).sum(0), dy.sum(0),
+            *dw_qkv.split(embed), *dqkv.sum(0).split(embed))
+
+
+def post_fwd_plain(attn, h, w_o, b_o, g2, bb2, w_up, b_up, w_down, b_down, activation: str, save: bool):
+    """``(out [N, E] bf16, r1 bf16, saved bf16)``, the last two None without
+    ``save``; ``saved`` is the pre-activation for gelu, else the hidden."""
+    r1 = (h.float() + _linear_plain(attn, w_o, b_o).float()).to(_BF16)
+    y2 = _ln_plain(r1.float(), g2, bb2)[0].to(_BF16)
+    z1 = _linear_plain(y2, w_up, b_up)
+    hid = _act_plain(activation, z1.float()).to(_BF16)
+    out = (r1.float() + _linear_plain(hid, w_down, b_down).float()).to(_BF16)
+    if not save:
+        return out, None, None
+    return out, r1, (z1 if activation in _PREACT_ACTIVATIONS else hid)
+
+
+def post_bwd_plain(attn, g, r1, saved, w_o, w_up, w_down, g2, bb2, activation: str):
+    """``_post_bwd_kernel``: ``(dattn fp32, dh fp32, dw_o, db_o, dg2, dbb2,
+    dw_up, db_up, dw_down, db_down)``."""
+    gf = g.float()
+    g_bf = gf.to(_BF16).float()
+    s = saved.float()
+    hid = _act_plain(activation, s).to(_BF16).float() if activation in _PREACT_ACTIVATIONS else s
+    dz1 = (g_bf @ w_down.to(_BF16).float()) * _dact_plain(activation, s)
+    dz1_bf = dz1.to(_BF16).float()
+    y2, xhat2, inv2 = _ln_plain(r1.float(), g2, bb2)
+    dy2 = dz1_bf @ w_up.to(_BF16).float()
+    dr1 = gf + _ln_bwd_plain(dy2, xhat2, inv2, g2)
+    dr1_bf = dr1.to(_BF16).float()
+    return (dr1_bf @ w_o.to(_BF16).float(), dr1, dr1_bf.T @ attn.to(_BF16).float(), dr1.sum(0),
+            (dy2 * xhat2).sum(0), dy2.sum(0), dz1_bf.T @ y2.to(_BF16).float(), dz1.sum(0), g_bf.T @ hid, gf.sum(0))
+
+
+def post_reference(attn, h, w_o, b_o, g2, bb2, w_up, b_up, w_down, b_down, activation):
+    """The post block for an activation the kernels do not take
+    (``_post_reference``), differentiable by autograd; CPU tensors only (the
+    wrappers raise for such an activation on CUDA tensors)."""
+    from cusrl_tpu_torch.nn.layer.linear import get_activation
+
+    r1 = (h.float() + _linear_plain(attn, w_o, b_o).float()).to(_BF16)
+    y2 = _ln_plain(r1.float(), g2, bb2)[0].to(_BF16)
+    hid = get_activation(activation)(_linear_plain(y2, w_up, b_up))
+    return (r1.float() + _linear_plain(hid, w_down, b_down).float()).to(_BF16)
+
+
+# ---------------------------------------------------------------------------
+# CUDA launchers
+# ---------------------------------------------------------------------------
+
+_P4 = ctypes.c_void_p * 4
+
+
+class _Chain(ctypes.Structure):
+    """Mirror of ``FbChain`` in csrc/fused_block.cu."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in ("x", "h", "g", "gh", "r1", "s")] + [
+        ("w", _P4), ("b", _P4)] + [(name, ctypes.c_void_p) for name in (
+            "ln_g", "ln_b", "out0", "out1", "out2", "sa", "sb", "sc", "part", "dw", "sums")]
+
+
+class _Params(ctypes.Structure):
+    """Mirror of ``FbParams`` in csrc/fused_block.cu."""
+
+    _fields_ = [("chain", _Chain * 2)] + [(name, ctypes.c_int) for name in (
+        "num_rows", "in_dim", "embed", "ff", "activation", "x_is_bf16")]
+
+
+_ENTRIES = ("fused_block_pre_fwd", "fused_block_pre_bwd", "fused_block_post_fwd", "fused_block_post_bwd")
+
+
+def _library() -> ctypes.CDLL:
+    from cusrl_tpu_torch.nn.kernels.build import load_library
+
+    lib = load_library("fused_block")
+    if lib.fused_block_error_string.restype is not ctypes.c_char_p:
+        for name in _ENTRIES:
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.fused_block_error_string.argtypes = [ctypes.c_int]
+        lib.fused_block_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(entry: str, counter: str, p: _Params, chains: int, device) -> None:
+    lib = _library()
+    code = getattr(lib, entry)(ctypes.byref(p), chains, torch.cuda.current_stream(device).cuda_stream)
+    LAUNCHES[counter] += 1
+    if code != 0:
+        raise RuntimeError(f"{entry} launch failed: {lib.fused_block_error_string(code).decode()} (cudaError {code})")
+
+
+def _validate(rows, widths: dict, tensors, device) -> None:
+    """Checks what the kernels take: widths that are multiples of 16 (the
+    embedding up to MAX_EMBED, the others up to MAX_WIDTH), fp32 parameters,
+    every tensor on one device."""
+    for name, width in widths.items():
+        limit = MAX_EMBED if name == "embed" else MAX_WIDTH
+        if width % WIDTH_MULTIPLE or not 0 < width <= limit:
+            raise ValueError(f"fused block kernels take {name} widths that are multiples of {WIDTH_MULTIPLE} up "
+                             f"to {limit}; got {width}")
+    if rows >= 2**31:
+        raise ValueError("row count exceeds the kernels' int range")
+    for t in tensors:
+        if t is not None and t.device != device:
+            raise ValueError("all tensors must lie on one CUDA device")
+
+
+def _check_params(params, shapes) -> list[torch.Tensor]:
+    for t, shape in zip(params, shapes):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"parameters must be fp32 of shapes {shapes}; got {t.dtype} {tuple(t.shape)}")
+    return [t.detach().contiguous() for t in params]
+
+
+def _pre_shapes(in_dim: int, embed: int):
+    e = (embed,)
+    return ((embed, in_dim), e, e, e, (embed, embed), (embed, embed), (embed, embed), e, e, e)
+
+
+def _post_shapes(embed: int, ff: int):
+    e = (embed,)
+    return ((embed, embed), e, e, e, (ff, embed), (ff,), (embed, ff), e)
+
+
+def _launch_pre_fwd(xs, pss, counter):
+    """``(hs, qkvs)`` per chain."""
+    n, in_dim = xs[0].shape
+    embed, device = pss[0][0].shape[0], xs[0].device
+    _validate(n, {"input": in_dim, "embed": embed}, [*xs, *(t for ps in pss for t in ps)], device)
+    if any(x.dtype not in (torch.float32, _BF16) or x.dtype != xs[0].dtype or x.shape != xs[0].shape for x in xs):
+        raise TypeError("inputs must share one shape and one dtype, fp32 or bf16")
+    p = _Params(num_rows=n, in_dim=in_dim, embed=embed, x_is_bf16=int(xs[0].dtype == _BF16))
+    keep, hs, qkvs = [], [], []
+    for i, (x, ps) in enumerate(zip(xs, pss)):
+        x = x.contiguous()
+        w_in, b_in, g1, bb1, w_q, w_k, w_v, b_q, b_k, b_v = _check_params(ps, _pre_shapes(in_dim, embed))
+        h = torch.empty(n, embed, device=device)
+        qkv = torch.empty(n, 3 * embed, dtype=_BF16, device=device)
+        chain = p.chain[i]
+        chain.x, chain.ln_g, chain.ln_b = x.data_ptr(), g1.data_ptr(), bb1.data_ptr()
+        for j, (w, b) in enumerate(((w_in, b_in), (w_q, b_q), (w_k, b_k), (w_v, b_v))):
+            chain.w[j], chain.b[j] = w.data_ptr(), b.data_ptr()
+        chain.out0, chain.out1 = h.data_ptr(), qkv.data_ptr()
+        keep += [x, w_in, b_in, g1, bb1, w_q, w_k, w_v, b_q, b_k, b_v]
+        hs.append(h)
+        qkvs.append(qkv)
+    if n:
+        _launch("fused_block_pre_fwd", counter, p, len(xs), device)
+    return hs, qkvs
+
+
+def _launch_pre_bwd(xs, hs, ghs, gqkvs, pss, skip_input_grad, counter):
+    """Per chain ``(dx or None, dw_in, db_in, dg1, dbb1, dw_q, dw_k, dw_v,
+    db_q, db_k, db_v)``."""
+    n, in_dim = xs[0].shape
+    embed, device = pss[0][0].shape[0], xs[0].device
+    shapes = _pre_shapes(in_dim, embed)
+    _validate(n, {"input": in_dim, "embed": embed}, [*xs, *hs, *ghs, *gqkvs], device)
+    row_tiles = max(-(-n // ROW_TILE), 1)
+    p = _Params(num_rows=n, in_dim=in_dim, embed=embed, x_is_bf16=int(xs[0].dtype == _BF16))
+    keep, results = [], []
+    for i, (x, h, gh, gqkv, ps) in enumerate(zip(xs, hs, ghs, gqkvs, pss)):
+        w_in, _, g1, bb1, w_q, w_k, w_v, *_ = _check_params(ps, shapes)
+        if h.dtype != torch.float32 or h.shape != (n, embed) or gqkv.shape != (n, 3 * embed):
+            raise ValueError("h must be fp32 [N, E] and the qkv cotangent [N, 3E]")
+        x, h = x.contiguous(), h.contiguous()
+        gqkv = gqkv.to(_BF16).contiguous()
+        gh = None if gh is None else gh.float().contiguous()
+        dx = None if skip_input_grad else torch.empty(n, in_dim, device=device)
+        sa, sb = (torch.empty(n, embed, dtype=_BF16, device=device) for _ in range(2))
+        part = torch.empty(row_tiles, 6 * embed, device=device)
+        dw = torch.empty(embed * in_dim + 3 * embed * embed, device=device)
+        sums = torch.empty(6 * embed, device=device)
+        chain = p.chain[i]
+        chain.x, chain.h, chain.g = x.data_ptr(), h.data_ptr(), gqkv.data_ptr()
+        chain.gh = None if gh is None else gh.data_ptr()
+        for j, w in enumerate((w_in, w_q, w_k, w_v)):
+            chain.w[j] = w.data_ptr()
+        chain.ln_g, chain.ln_b = g1.data_ptr(), bb1.data_ptr()
+        chain.out0 = None if dx is None else dx.data_ptr()
+        chain.sa, chain.sb, chain.part, chain.dw, chain.sums = (t.data_ptr() for t in (sa, sb, part, dw, sums))
+        keep += [x, h, gqkv, gh, w_in, w_q, w_k, w_v, g1, bb1, sa, sb, part]
+        dws = dw.split([embed * in_dim] + [embed * embed] * 3)
+        db_in, dg1, dbb1, db_q, db_k, db_v = sums.split(embed)
+        results.append((dx, dws[0].view(embed, in_dim), db_in, dg1, dbb1, *(d.view(embed, embed) for d in dws[1:]),
+                        db_q, db_k, db_v))
+    if n:
+        _launch("fused_block_pre_bwd", counter, p, len(xs), device)
+    else:
+        for r in results:
+            for t in r[1:]:
+                t.zero_()
+    return results
+
+
+def _launch_post_fwd(attns, hs, pss, activation, save, counter):
+    """``(outs, r1s, saveds)`` per chain (the last two None without ``save``)."""
+    n, embed = attns[0].shape
+    ff, device = pss[0][4].shape[0], attns[0].device
+    _validate(n, {"embed": embed, "ffn": ff}, [*attns, *hs, *(t for ps in pss for t in ps)], device)
+    p = _Params(num_rows=n, embed=embed, ff=ff, activation=_ACTIVATION_CODES[activation])
+    keep, outs, r1s, saveds = [], [], [], []
+    for i, (attn, h, ps) in enumerate(zip(attns, hs, pss)):
+        if attn.shape != (n, embed) or h.shape != (n, embed):
+            raise ValueError(f"attn and h must be [N, {embed}]")
+        attn, h = attn.float().contiguous(), h.float().contiguous()
+        w_o, b_o, g2, bb2, w_up, b_up, w_down, b_down = _check_params(ps, _post_shapes(embed, ff))
+        out = torch.empty(n, embed, dtype=_BF16, device=device)
+        r1 = torch.empty(n, embed, dtype=_BF16, device=device) if save else None
+        saved = torch.empty(n, ff, dtype=_BF16, device=device) if save else None
+        chain = p.chain[i]
+        chain.x, chain.h, chain.ln_g, chain.ln_b = attn.data_ptr(), h.data_ptr(), g2.data_ptr(), bb2.data_ptr()
+        for j, (w, b) in enumerate(((w_o, b_o), (w_up, b_up), (w_down, b_down))):
+            chain.w[j], chain.b[j] = w.data_ptr(), b.data_ptr()
+        chain.out0 = out.data_ptr()
+        chain.out1 = None if r1 is None else r1.data_ptr()
+        chain.out2 = None if saved is None else saved.data_ptr()
+        keep += [attn, h, w_o, b_o, g2, bb2, w_up, b_up, w_down, b_down]
+        outs.append(out)
+        r1s.append(r1)
+        saveds.append(saved)
+    if n:
+        _launch("fused_block_post_fwd", counter, p, len(attns), device)
+    return outs, r1s, saveds
+
+
+def _launch_post_bwd(attns, gs, r1s, saveds, wss, activation, counter):
+    """Per chain ``(dattn, dh, dw_o, db_o, dg2, dbb2, dw_up, db_up, dw_down,
+    db_down)``; ``wss`` holds ``(w_o, w_up, w_down, g2, bb2)`` per chain."""
+    n, embed = attns[0].shape
+    ff, device = wss[0][1].shape[0], attns[0].device
+    _validate(n, {"embed": embed, "ffn": ff}, [*attns, *gs, *r1s, *saveds], device)
+    row_tiles = max(-(-n // ROW_TILE), 1)
+    num_sums = 4 * embed + ff
+    p = _Params(num_rows=n, embed=embed, ff=ff, activation=_ACTIVATION_CODES[activation])
+    keep, results = [], []
+    for i, (attn, g, r1, saved, ws) in enumerate(zip(attns, gs, r1s, saveds, wss)):
+        w_o, w_up, w_down, g2, bb2 = _check_params(
+            ws, ((embed, embed), (ff, embed), (embed, ff), (embed,), (embed,)))
+        if g.shape != (n, embed) or r1.dtype != _BF16 or saved.dtype != _BF16 or saved.shape != (n, ff):
+            raise ValueError("the cotangent must be [N, E] and the saved r1 / activations bf16 [N, E] / [N, F]")
+        attn, r1, saved = attn.float().contiguous(), r1.contiguous(), saved.contiguous()
+        g = g.to(_BF16).contiguous()
+        dattn, dh = (torch.empty(n, embed, device=device) for _ in range(2))
+        sa, sb = (torch.empty(n, embed, dtype=_BF16, device=device) for _ in range(2))
+        sc = torch.empty(n, ff, dtype=_BF16, device=device)
+        part = torch.empty(row_tiles, num_sums, device=device)
+        dw = torch.empty(embed * embed + 2 * ff * embed, device=device)
+        sums = torch.empty(num_sums, device=device)
+        chain = p.chain[i]
+        chain.x, chain.g, chain.r1, chain.s = attn.data_ptr(), g.data_ptr(), r1.data_ptr(), saved.data_ptr()
+        for j, w in enumerate((w_o, w_up, w_down)):
+            chain.w[j] = w.data_ptr()
+        chain.ln_g, chain.ln_b = g2.data_ptr(), bb2.data_ptr()
+        chain.out0, chain.out1 = dattn.data_ptr(), dh.data_ptr()
+        chain.sa, chain.sb, chain.sc, chain.part, chain.dw, chain.sums = (
+            t.data_ptr() for t in (sa, sb, sc, part, dw, sums))
+        keep += [attn, g, r1, saved, w_o, w_up, w_down, g2, bb2, sa, sb, sc, part]
+        dw_o, dw_up, dw_down = dw.split([embed * embed, ff * embed, embed * ff])
+        db_o, dg2, dbb2, db_up, db_down = sums.split([embed, embed, embed, ff, embed])
+        results.append((dattn, dh, dw_o.view(embed, embed), db_o, dg2, dbb2, dw_up.view(ff, embed), db_up,
+                        dw_down.view(embed, ff), db_down))
+    if n:
+        _launch("fused_block_post_bwd", counter, p, len(attns), device)
+    else:
+        for r in results:
+            for t in r[2:]:
+                t.zero_()
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Device dispatch
+# ---------------------------------------------------------------------------
+
+
+def _on_cuda(device) -> bool:
+    """True for CUDA tensors (launch the kernel), False for CPU tensors (the
+    plain version); raises on any other device."""
+    if device.type not in ("cuda", "cpu"):
+        raise RuntimeError(f"fused block kernels run on CUDA tensors; got {device}")
+    return device.type == "cuda"
+
+
+def _counter(op: str, chains: int) -> str:
+    return f"K{4 if chains == 1 else 5}{op}"
+
+
+def _pre_fwd(xs, pss):
+    if _on_cuda(xs[0].device):
+        return _launch_pre_fwd(xs, pss, _counter("pre_f", len(xs)))
+    outs = [pre_fwd_plain(x, *ps) for x, ps in zip(xs, pss)]
+    return [o[0] for o in outs], [o[1] for o in outs]
+
+
+def _pre_bwd(xs, hs, ghs, gqkvs, pss, skip_input_grad):
+    if _on_cuda(xs[0].device):
+        return _launch_pre_bwd(xs, hs, ghs, gqkvs, pss, skip_input_grad, _counter("pre_b", len(xs)))
+    return [pre_bwd_plain(x, h, gh, gqkv, ps[0], *ps[4:7], ps[2], ps[3], skip_input_grad)
+            for x, h, gh, gqkv, ps in zip(xs, hs, ghs, gqkvs, pss)]
+
+
+def _post_fwd(attns, hs, pss, activation, save):
+    if _on_cuda(attns[0].device):
+        return _launch_post_fwd(attns, hs, pss, activation, save, _counter("post_f", len(attns)))
+    outs = [post_fwd_plain(a, h, *ps, activation, save) for a, h, ps in zip(attns, hs, pss)]
+    return [o[0] for o in outs], [o[1] for o in outs], [o[2] for o in outs]
+
+
+def _post_bwd(attns, gs, r1s, saveds, wss, activation):
+    if _on_cuda(attns[0].device):
+        return _launch_post_bwd(attns, gs, r1s, saveds, wss, activation, _counter("post_b", len(attns)))
+    return [post_bwd_plain(a, g, r1, s, *ws, activation) for a, g, r1, s, ws in zip(attns, gs, r1s, saveds, wss)]
+
+
+def _per_chain(flat, chains: int) -> list[tuple]:
+    size = len(flat) // chains
+    return [tuple(flat[i * size:(i + 1) * size]) for i in range(chains)]
+
+
+class _Pre(torch.autograd.Function):
+    """``chains`` pre ops (K4pre / K5pre); inputs ``(x_0.., *params_0, ..)``,
+    outputs ``(h_0.., qkv_0..)``."""
+
+    @staticmethod
+    def forward(ctx, chains, skip_input_grad, *tensors):
+        xs, flat = tensors[:chains], tensors[chains:]
+        hs, qkvs = _pre_fwd(xs, _per_chain(flat, chains))
+        ctx.save_for_backward(*xs, *hs, *flat)
+        ctx.meta = (chains, skip_input_grad)
+        return (*hs, *qkvs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        chains, skip_input_grad = ctx.meta
+        saved = ctx.saved_tensors
+        xs, hs, pss = saved[:chains], saved[chains:2 * chains], _per_chain(saved[2 * chains:], chains)
+        gqkvs = [torch.zeros(h.shape[0], 3 * h.shape[1], dtype=_BF16, device=h.device) if g is None else g
+                 for g, h in zip(grads[chains:], hs)]
+        skip = skip_input_grad or not any(ctx.needs_input_grad[2:2 + chains])
+        results = _pre_bwd(xs, hs, grads[:chains], gqkvs, pss, skip)
+        dxs = [None if r[0] is None else r[0].to(x.dtype) for r, x in zip(results, xs)]
+        return (None, None, *dxs, *(g for r in results for g in r[1:]))
+
+
+class _Post(torch.autograd.Function):
+    """``chains`` post ops saving r1 and the FFN activations (K4post / K5post);
+    inputs ``(attn_0.., h_0.., *params_0, ..)``, outputs ``(out_0..)``."""
+
+    @staticmethod
+    def forward(ctx, chains, activation, *tensors):
+        attns, hs, flat = tensors[:chains], tensors[chains:2 * chains], tensors[2 * chains:]
+        pss = _per_chain(flat, chains)
+        outs, r1s, saveds = _post_fwd(attns, hs, pss, activation, True)
+        weights = [t for ps in pss for t in (ps[0], ps[4], ps[6], ps[2], ps[3])]  # w_o, w_up, w_down, g2, bb2
+        ctx.save_for_backward(*attns, *r1s, *saveds, *weights)
+        ctx.meta = (chains, activation, [h.dtype for h in hs])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        chains, activation, h_dtypes = ctx.meta
+        saved = ctx.saved_tensors
+        attns, r1s, saveds = saved[:chains], saved[chains:2 * chains], saved[2 * chains:3 * chains]
+        wss = _per_chain(saved[3 * chains:], chains)
+        gs = [torch.zeros_like(r1) if g is None else g for g, r1 in zip(gs, r1s)]
+        results = _post_bwd(attns, gs, r1s, saveds, wss, activation)
+        dattns = [r[0].to(a.dtype) for r, a in zip(results, attns)]
+        dhs = [r[1].to(dtype) for r, dtype in zip(results, h_dtypes)]
+        return (None, None, *dattns, *dhs, *(g for r in results for g in r[2:]))
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _pre(xs, pss, skip_input_grad):
+    flat = [t for ps in pss for t in ps]
+    if _needs_grad(*xs, *flat):
+        outs = _Pre.apply(len(xs), bool(skip_input_grad), *xs, *flat)
+        return list(outs[:len(xs)]), list(outs[len(xs):])
+    return _pre_fwd(xs, pss)
+
+
+def _post(attns, hs, pss, activation):
+    flat = [t for ps in pss for t in ps]
+    if _needs_grad(*attns, *hs, *flat):
+        return list(_Post.apply(len(attns), activation, *attns, *hs, *flat))
+    return _post_fwd(attns, hs, pss, activation, False)[0]  # the primal variant saves nothing
+
+
+def fused_block_pre(x, w_in, b_in, ln1_scale, ln1_bias, w_q, w_k, w_v, b_q, b_k, b_v, *,
+                    skip_input_grad: bool = True):
+    """``h = input_proj(x)``; ``qkv = LN1(h) [W_q; W_k; W_v]^T + b`` in one
+    op.  Returns ``(h [N, E] fp32 holding bf16 values, qkv [N, 3E] bf16)``.
+    ``skip_input_grad=True`` declares x is data (observations): the backward
+    returns no input gradient."""
+    hs, qkvs = _pre([x], [(w_in, b_in, ln1_scale, ln1_bias, w_q, w_k, w_v, b_q, b_k, b_v)], skip_input_grad)
+    return hs[0], qkvs[0]
+
+
+def fused_block_pair_pre(xa, xc, params_a, params_c, *, skip_input_grad: bool = True):
+    """Two pre ops (actor and critic) in one launch; ``params_*`` as
+    ``fused_block_pre`` takes them.  Returns ``(ha, hc, qkva, qkvc)``."""
+    hs, qkvs = _pre([xa, xc.to(xa.dtype)], [tuple(params_a), tuple(params_c)], skip_input_grad)
+    return hs[0], hs[1], qkvs[0], qkvs[1]
+
+
+def _unsupported_on_cpu(activation, device) -> bool:
+    """True when ``activation`` is one the kernels do not take and the tensor
+    lies on the CPU (the reference runs, as the TPU package's
+    ``_post_reference``); raises for such an activation on CUDA tensors."""
+    if supports_fused_block(activation):
+        return False
+    if _on_cuda(device):
+        raise NotImplementedError(f"the fused block kernels do not take activation {activation!r}; "
+                                  f"supported: {', '.join(_SUPPORTED)}")
+    return True
+
+
+def fused_block_post(attn, h, w_o, b_o, ln2_scale, ln2_bias, w_up, b_up, w_down, b_down,
+                     activation: str = "gelu"):
+    """``r1 = h + attn W_o^T + b_o``; ``out = r1 + FFN(LN2(r1))`` in one op;
+    ``attn`` is the merged heads' attention (fp32), ``h`` the pre op's
+    residual.  Returns bf16 ``[N, E]``.  A call that needs no gradient takes
+    the primal variant, which writes only ``out``."""
+    params = (w_o, b_o, ln2_scale, ln2_bias, w_up, b_up, w_down, b_down)
+    if _unsupported_on_cpu(activation, attn.device):
+        return post_reference(attn, h, *params, activation)
+    return _post([attn], [h], [params], activation.lower())[0]
+
+
+def fused_block_pair_post(attna, attnc, ha, hc, params_a, params_c, activation: str = "gelu"):
+    """Two post ops (actor and critic) in one launch; ``params_*`` as
+    ``fused_block_post`` takes them.  Returns ``(outa, outc)``."""
+    if _unsupported_on_cpu(activation, attna.device):
+        return (post_reference(attna, ha, *params_a, activation), post_reference(attnc, hc, *params_c, activation))
+    outs = _post([attna, attnc], [ha, hc], [tuple(params_a), tuple(params_c)], activation.lower())
+    return outs[0], outs[1]

@@ -24,25 +24,44 @@ Sequence mode computes all T queries against ``[cache ++ sequence]`` keys:
 on CUDA for T <= 64, the JAX "auto" rule with "TPU" read as "CUDA"),
 ``batched`` as one masked SDPA, ``scan`` as a loop of the single-step cell
 (the definitional reference).  Where the JAX rule picks the banded flash
-kernel (K7, long sequences) the port raises ``NotImplementedError``.  The
-fused-block route (K4/K5) and the env-minor variants are not ported yet.
+kernel (K7, long sequences) the port raises ``NotImplementedError``.
+
+The encoder layer's fused-block route (``nn/kernels/fused_block.py``: K4, and
+K5 for the actor+critic pair in ``fused_pair_sequence``) runs every matmul
+and LayerNorm of the block in two ops around the attention middle
+(``sequence_core`` / ``step_core``).  The route is chosen per call by the JAX
+package's rule and environment variables: ``CUSRL_TPU_FUSED_TRANSFORMER``
+(``1``, the default: CUDA tensors with at least 256 rows; ``0``: never;
+``force``: always, the kernels' plain versions on the CPU) and
+``CUSRL_TPU_FUSED_TRANSFORMER_STEP`` (``1`` adds the single-step route;
+default ``0``).  The env-minor variants (``CUSRL_TPU_SEQCORE_EM``,
+``CUSRL_TPU_LANE_EM``) and the one-lane-call pair (``CUSRL_TPU_PAIR_CONCAT``)
+are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 from torch import nn
 
 from cusrl_tpu_torch.nn.base import BackboneContract, Memory
+from cusrl_tpu_torch.nn.kernels.fused_block import (
+    fused_block_pair_post,
+    fused_block_pair_pre,
+    fused_block_post,
+    fused_block_pre,
+    supports_fused_block,
+)
 from cusrl_tpu_torch.nn.kernels.lane_attention import (
     lane_next_token_attention,
     lane_window_attention,
     next_token_plain,
 )
 from cusrl_tpu_torch.nn.layer.encoding import alibi_slopes
-from cusrl_tpu_torch.nn.layer.gate import make_gate
+from cusrl_tpu_torch.nn.layer.gate import ResidualGate, make_gate
 from cusrl_tpu_torch.nn.layer.linear import Linear
 from cusrl_tpu_torch.nn.layer.mha import FeedForward, LayerNorm, MultiheadAttention, scaled_dot_product_attention
 
@@ -106,24 +125,36 @@ class CausalMultiheadSelfAttention(BackboneContract, nn.Module):
 
     def _step(self, x, memory):
         """x ``[N, C]``; returns ``(out [N, C], new ring memory)``."""
+        q, k_new, v_new = self.mha.project_qkv_raw(
+            x[:, None], q_positions=torch.full((1,), self.window, device=x.device)
+        )  # [N, H, 1, D], q RoPE'd at position W
+        out, new_memory = self._ring_attend(q, k_new, v_new, memory)
+        return self.mha.merge_output(out)[:, 0], new_memory
+
+    def step_core(self, q, k_new, v_new, memory):
+        """Ring write and masked SDPA for pre-projected single-step q/k/v
+        (``[N, H, 1, D]``, q RoPE'd at position W, k raw): the attention
+        middle of the fused-block step route.  Returns the merged heads
+        ``[N, E]`` fp32 without the output projection (the post op has it)."""
+        out, new_memory = self._ring_attend(q, k_new, v_new, memory)
+        return self.mha._merge(out)[:, 0], new_memory
+
+    def _ring_attend(self, q, k_new, v_new, memory):
+        """Writes ``k_new``/``v_new`` at the cursor and attends over the ring:
+        ``(out [N, H, 1, D] fp32, new memory)``."""
         slots = self._ring_slots
         cursor = _cursor_scalar(memory["cursor"])
-        device = x.device
-        q, k_new, v_new = self.mha.project_qkv_raw(
-            x[:, None], q_positions=torch.full((1,), self.window, device=device)
-        )  # [N, H, 1, D], q RoPE'd at position W
         index = cursor.reshape(1)
         k_cache = memory["k_cache"].index_copy(2, index, k_new.to(memory["k_cache"].dtype))
         v_cache = memory["v_cache"].index_copy(2, index, v_new.to(memory["v_cache"].dtype))
         mask = memory["cache_mask"].index_copy(1, index, torch.ones_like(memory["cache_mask"][:, :1]))
 
-        ages = torch.remainder(cursor - torch.arange(slots, device=device), slots)  # [P]; 0 == current token
+        ages = torch.remainder(cursor - torch.arange(slots, device=q.device), slots)  # [P]; 0 == current token
         k_rot = self.mha.rope_k(k_cache, self.window - ages)
         bias = None
         if self.use_alibi:
             bias = -self.alibi[:, None, None] * ages[None, None, :].float()  # [H, 1, P]
         out = scaled_dot_product_attention(q, k_rot, v_cache, mask=(mask > 0.5)[:, None, None, :], bias=bias)
-        out = self.mha.merge_output(out)[:, 0]
         new_memory = {
             "k_cache": k_cache.detach(),
             "v_cache": v_cache.detach(),
@@ -142,20 +173,6 @@ class CausalMultiheadSelfAttention(BackboneContract, nn.Module):
         index = torch.remainder(cursor + 1 + torch.arange(self.window, device=device), self._ring_slots)
         return (memory["k_cache"].index_select(2, index), memory["v_cache"].index_select(2, index),
                 memory["cache_mask"].index_select(1, index))
-
-    def _sequence_qkv(self, x, memory):
-        """``(q [N, H, T, D], k_rot/v [N, H, W+T, D], k_raw, cache_mask,
-        q_pos, kv_pos)`` for ``x [T, N, C]``."""
-        t_len = x.shape[0]
-        device = x.device
-        k_cache, v_cache, cache_mask = self._unrolled_cache(memory)
-        q_pos = self.window + torch.arange(t_len, device=device)
-        kv_pos = torch.arange(self.window + t_len, device=device)
-        q, k_seq, v_seq = self.mha.project_qkv_raw(x.transpose(0, 1), q_positions=q_pos)
-        dtype = torch.promote_types(k_cache.dtype, k_seq.dtype)
-        k_raw = torch.cat([k_cache.to(dtype), k_seq.to(dtype)], 2)
-        v_all = torch.cat([v_cache.to(dtype), v_seq.to(dtype)], 2)
-        return q, self.mha.rope_k(k_raw, kv_pos), v_all, k_raw, cache_mask, q_pos, kv_pos
 
     @staticmethod
     def _segments(done, t_len: int, batch: int):
@@ -218,19 +235,60 @@ class CausalMultiheadSelfAttention(BackboneContract, nn.Module):
         return torch.stack(outputs), memory, {}
 
     def _sequence(self, x, memory, done, *, lane: bool, collect_ctx: bool):
-        """All T queries at once: through the K3 wrapper (``lane``) or one
-        masked SDPA over ``[cache ++ sequence]`` keys (``batched``), with
-        the same masks: query t (combined position W+t) sees positions
-        ``[t, W+t]`` of its own segment; cache slots belong to segment 0 and
-        are valid by ``cache_mask``."""
-        t_len, batch = x.shape[:2]
+        """All T queries of ``x [T, N, C]`` at once: the projections, then
+        ``_attend_sequence`` and the output projection."""
+        q_pos = self.window + torch.arange(x.shape[0], device=x.device)
+        q, k_seq, v_seq = self.mha.project_qkv_raw(x.transpose(0, 1), q_positions=q_pos)
+        out, new_memory, ctx = self._attend_sequence(q, k_seq, v_seq, memory, done, lane=lane, collect_ctx=collect_ctx)
+        outputs = self.mha.merge_output(out).transpose(0, 1)  # [T, N, C]
+        return outputs, new_memory, ({"next_ctx": ctx} if collect_ctx else {})
+
+    def _split_qkv(self, qkv_flat, t_len: int, batch: int):
+        """The fused ``[T*N, 3E]`` projections as q, k, v ``[N, H, T, D]``."""
+        embed, heads = self.input_dim, self.mha.num_heads
+        return [qkv_flat[:, i * embed:(i + 1) * embed].reshape(t_len, batch, heads, -1).permute(1, 2, 0, 3)
+                for i in range(3)]
+
+    def sequence_core(self, qkv_flat, memory, done, t_len: int, batch: int, *, collect_ctx: bool = False):
+        """Attention middle of the fused-block route: the pre op's ``[T*N, 3E]``
+        bf16 projections (k not yet RoPE'd) in; the merged heads ``[T*N, E]``
+        fp32 (no output projection: the post op has it) and the ring-form
+        final memory out, and with ``collect_ctx`` the next-token context.
+        Same masks and cache as ``_sequence``; the K3 wrapper for T <= 64."""
+        if t_len > LANE_MAX_T:
+            raise NotImplementedError("the banded window-attention kernel (K7, banded_window_attention) that long "
+                                      "sequences take is not ported yet")
+        if os.environ.get("CUSRL_TPU_SEQCORE_EM", "0").lower() not in ("0", ""):
+            raise NotImplementedError("the env-minor sequence core (CUSRL_TPU_SEQCORE_EM) is not ported")
+        q, k_seq, v_seq = self._split_qkv(qkv_flat, t_len, batch)
+        if self.mha.rope is not None:
+            q = self.mha.rope(q, self.window + torch.arange(t_len, device=q.device))
+        out, new_memory, ctx = self._attend_sequence(q, k_seq, v_seq, memory, done, lane=True, collect_ctx=collect_ctx)
+        merged = self.mha._merge(out).transpose(0, 1).reshape(t_len * batch, self.input_dim)
+        return (merged, new_memory, ctx) if collect_ctx else (merged, new_memory)
+
+    def _attend_sequence(self, q, k_seq, v_seq, memory, done, *, lane: bool, collect_ctx: bool):
+        """q (RoPE'd at ``W+t``), k_seq, v_seq ``[N, H, T, D]`` against
+        ``[cache ++ sequence]`` keys, through the K3 wrapper (``lane``) or one
+        masked SDPA (``batched``), with the same masks: query t (combined
+        position W+t) sees positions ``[t, W+t]`` of its own segment; cache
+        slots belong to segment 0 and are valid by ``cache_mask``.  Returns
+        ``(out [N, H, T, D] fp32, new memory, next-token context or None)``."""
+        batch, _, t_len, _ = q.shape
         window = self.window
-        q, k_rot, v_all, k_raw, cache_mask, q_pos, kv_pos = self._sequence_qkv(x, memory)
+        device = q.device
+        k_cache, v_cache, cache_mask = self._unrolled_cache(memory)
+        q_pos = window + torch.arange(t_len, device=device)
+        kv_pos = torch.arange(window + t_len, device=device)
+        dtype = torch.promote_types(k_cache.dtype, k_seq.dtype)
+        k_raw = torch.cat([k_cache.to(dtype), k_seq.to(dtype)], 2)
+        v_all = torch.cat([v_cache.to(dtype), v_seq.to(dtype)], 2)
+        k_rot = self.mha.rope_k(k_raw, kv_pos)
         done2, seg = self._segments(done, t_len, batch)
         q_seg = seg.transpose(0, 1)  # [N, T]
         k_seg = torch.cat([torch.zeros_like(q_seg[:, :1]).expand(batch, window), q_seg], 1)  # [N, W+T]
         k_valid = torch.cat([(cache_mask > 0.5).to(torch.int32),
-                             torch.ones(batch, t_len, dtype=torch.int32, device=x.device)], 1)
+                             torch.ones(batch, t_len, dtype=torch.int32, device=device)], 1)
         if lane:
             out = lane_window_attention(q, k_rot, v_all, q_seg, k_seg, k_valid, window=window, slopes=self.slopes)
         else:
@@ -241,10 +299,9 @@ class CausalMultiheadSelfAttention(BackboneContract, nn.Module):
                 distance = (q_pos[:, None] - kv_pos[None, :]).float()  # [T, W+T]
                 bias = -self.alibi[:, None, None] * distance[None]  # [H, T, W+T]
             out = scaled_dot_product_attention(q, k_rot, v_all, mask=mask[:, None], bias=bias)
-        outputs = self.mha.merge_output(out).transpose(0, 1)  # [T, N, C]
         new_memory = self._final_memory(k_raw, v_all, k_valid, k_seg, seg, done2, memory)
-        aux = {"next_ctx": (k_rot, v_all, k_valid, k_seg, q_seg)} if collect_ctx else {}
-        return outputs, new_memory, aux
+        ctx = (k_rot, v_all, k_valid, k_seg, q_seg) if collect_ctx else None
+        return out, new_memory, ctx
 
     # -- counterfactual-append evaluation (nn/base.py contract) ----------------
 
@@ -281,15 +338,28 @@ class CausalMultiheadSelfAttention(BackboneContract, nn.Module):
 
 
 def fused_pair_sequence(layer_a, layer_c, xa, xc, mem_a, mem_c, done):
-    """The actor+critic fused-block pass of the JAX package needs the K4/K5
-    kernels (``nn/kernels/fused_block.py``), which are not ported yet."""
-    raise NotImplementedError("fused_pair_sequence needs the fused-block kernels K4/K5, not ported yet")
+    """The actor's and the critic's encoder layers as one pair pass: both pre
+    ops in one K5 launch, one lane-attention call per layer
+    (``sequence_core``), both post ops in one K5 launch.  Both memories share
+    the global ring cursor (both backbones advance through the same rollout).
+    Returns ``(latent_a, latent_c, new_mem_a, new_mem_c)``."""
+    if os.environ.get("CUSRL_TPU_PAIR_CONCAT", "0") == "1":
+        raise NotImplementedError("the one-lane-call pair pass (CUSRL_TPU_PAIR_CONCAT) is not ported")
+    t_len, batch = xa.shape[:2]
+    rows = t_len * batch
+    ha, hc, qkva, qkvc = fused_block_pair_pre(xa.reshape(rows, xa.shape[-1]), xc.reshape(rows, xc.shape[-1]),
+                                              layer_a._pre_params(), layer_c._pre_params())
+    attna, new_mem_a = layer_a.attention.sequence_core(qkva, mem_a, done, t_len, batch)
+    attnc, new_mem_c = layer_c.attention.sequence_core(qkvc, mem_c, done, t_len, batch)
+    outa, outc = fused_block_pair_post(attna, attnc, ha, hc, layer_a._post_params(), layer_c._post_params(),
+                                       layer_a.feed_forward.activation)
+    return outa.reshape(t_len, batch, -1), outc.reshape(t_len, batch, -1), new_mem_a, new_mem_c
 
 
 class CausalTransformerEncoderLayer(BackboneContract, nn.Module):
     """input proj -> [norm] windowed causal attention [gate] -> [norm] FFN
-    [gate], on the modular route (the JAX layer with
-    ``CUSRL_TPU_FUSED_TRANSFORMER=0``)."""
+    [gate]: the modular route, or the fused-block route where
+    ``_fused_eligible`` allows it (the JAX layer's two routes)."""
 
     is_recurrent = True
 
@@ -313,9 +383,9 @@ class CausalTransformerEncoderLayer(BackboneContract, nn.Module):
         return self.attention.init_memory(batch_size)
 
     def _chain(self, h, attend):
-        """The residual/gate/norm skeleton every route shares (stepwise,
-        sequence, context-collecting, counterfactual append): ``attend``
-        maps the attention input to ``(attn_out, extra)``."""
+        """The residual/gate/norm skeleton every modular route shares
+        (stepwise, sequence, context-collecting, counterfactual append):
+        ``attend`` maps the attention input to ``(attn_out, extra)``."""
         if self.norm_mode == "pre":
             attn_out, extra = attend(self.norm1(h))
             out = self.gate1(h, attn_out)
@@ -333,7 +403,83 @@ class CausalTransformerEncoderLayer(BackboneContract, nn.Module):
     def _project(self, x):
         return self.input_proj(x) if self.input_proj is not None else x
 
+    # -- the fused-block route (K4) ---------------------------------------------
+
+    def _fused_eligible(self, x, sequential: bool) -> bool:
+        """The JAX rule (``causal_attn.py:870-921``), with "backend is TPU" read
+        as "tensor is on CUDA".  The kernels cover the preset configuration;
+        anything else keeps the modular route."""
+        # Read per call: 1 (default) on CUDA tensors, 0 never, force always
+        # (the kernels' plain versions on the CPU).
+        mode = os.environ.get("CUSRL_TPU_FUSED_TRANSFORMER", "1").lower()
+        if mode == "0" or x.dim() != (3 if sequential else 2):
+            return False
+        if not sequential and mode != "force" and os.environ.get("CUSRL_TPU_FUSED_TRANSFORMER_STEP", "0") != "1":
+            return False  # the step route is off by default
+        if self.norm_mode != "pre" or self.input_proj is None:
+            return False
+        if not (isinstance(self.gate1, ResidualGate) and isinstance(self.gate2, ResidualGate)):
+            return False
+        # No QK-norm: the port's MultiheadAttention has none (not ported).
+        if self.attention.sequence_mode not in ("auto", "lane", "banded"):
+            return False
+        ff = self.feed_forward
+        if ff.glu or not supports_fused_block(ff.activation):
+            return False
+        mha = self.attention.mha
+        linears = (self.input_proj, mha.q_proj, mha.k_proj, mha.v_proj, mha.out_proj, ff.up, ff.down)
+        if not all(l.compute_dtype == "bfloat16" and l.bias is not None for l in linears):
+            return False
+        rows = x.shape[0] * (x.shape[1] if sequential else 1)
+        return mode == "force" or (rows >= 256 and x.is_cuda)
+
+    def _pre_params(self):
+        mha = self.attention.mha
+        return (self.input_proj.weight, self.input_proj.bias, self.norm1.scale, self.norm1.bias,
+                mha.q_proj.weight, mha.k_proj.weight, mha.v_proj.weight,
+                mha.q_proj.bias, mha.k_proj.bias, mha.v_proj.bias)
+
+    def _post_params(self):
+        mha, ff = self.attention.mha, self.feed_forward
+        return (mha.out_proj.weight, mha.out_proj.bias, self.norm2.scale, self.norm2.bias,
+                ff.up.weight, ff.up.bias, ff.down.weight, ff.down.bias)
+
+    def _fused_pass(self, x, middle):
+        """pre op -> ``middle(qkv_flat, t_len, batch)`` -> post op over
+        ``x [T, N, C]``; ``middle`` returns ``(attn [T*N, E], extra)``."""
+        t_len, batch = x.shape[:2]
+        h, qkv = fused_block_pre(x.reshape(t_len * batch, x.shape[-1]), *self._pre_params())
+        attn, extra = middle(qkv, t_len, batch)
+        out = fused_block_post(attn, h, *self._post_params(), self.feed_forward.activation)
+        return out.reshape(t_len, batch, -1), extra
+
+    def _fused_step(self, x, memory):
+        """The single-step route: pre op -> ring write and masked SDPA
+        (``step_core``) -> post op, their primal variants."""
+        attention = self.attention
+
+        def middle(qkv, t_len, batch):
+            q, k_new, v_new = attention._split_qkv(qkv, 1, batch)
+            if attention.mha.rope is not None:
+                q = attention.mha.rope(q, torch.full((1,), attention.window, device=q.device))
+            return attention.step_core(q, k_new, v_new, memory)
+
+        out, new_memory = self._fused_pass(x[None], middle)
+        return out[0], new_memory, {}
+
+    # -- routes --------------------------------------------------------------------
+
     def forward(self, x, memory: Memory = None, *, sequential: bool = False, done=None, **kwargs):
+        if self._fused_eligible(x, sequential):
+            if memory is None:
+                memory = self.init_memory(x.shape[1] if sequential else x.shape[0])
+            if not sequential:
+                return self._fused_step(x, memory)
+            if done is None:
+                done = torch.zeros(*x.shape[:2], 1, dtype=torch.bool, device=x.device)
+            out, new_memory = self._fused_pass(
+                x, lambda qkv, t, n: self.attention.sequence_core(qkv, memory, done, t, n))
+            return out, new_memory, {}
         out, new_memory = self._chain(
             self._project(x), lambda a: self.attention(a, memory, sequential=sequential, done=done)[:2]
         )
@@ -348,6 +494,13 @@ class CausalTransformerEncoderLayer(BackboneContract, nn.Module):
             memory = self.init_memory(x.shape[1])
         if done is None:
             done = torch.zeros(*x.shape[:2], 1, dtype=torch.bool, device=x.device)
+        if self._fused_eligible(x, True):
+            def middle(qkv, t_len, batch):
+                attn, new_memory, ctx = self.attention.sequence_core(qkv, memory, done, t_len, batch, collect_ctx=True)
+                return attn, (new_memory, ctx)
+
+            out, (new_memory, ctx) = self._fused_pass(x, middle)
+            return out, new_memory, ctx
 
         def attend(a):
             out, new_memory, aux = self.attention(a, memory, sequential=True, done=done, collect_next_ctx=True)
@@ -358,6 +511,18 @@ class CausalTransformerEncoderLayer(BackboneContract, nn.Module):
 
     def eval_next_token(self, y, ctx):
         attention = self.attention
+        if self._fused_eligible(y, True):
+            mha = attention.mha
+            q_pos = attention.window + 1 + torch.arange(y.shape[0], device=y.device)
+
+            def middle(qkv, t_len, batch):
+                q, k_self, v_self = attention._split_qkv(qkv, t_len, batch)
+                if mha.rope is not None:
+                    q = mha.rope(q, q_pos)
+                out = attention.eval_next_core(q, mha.rope_k(k_self, q_pos), v_self, ctx)
+                return mha._merge(out).transpose(0, 1).reshape(t_len * batch, -1), None
+
+            return self._fused_pass(y, middle)[0]
 
         def attend(a):
             out = attention.eval_next_core(*attention._next_token_heads(a), ctx)

@@ -1,9 +1,9 @@
 """PPO presets (counterpart of ``cusrl_tpu/preset/ppo.py``:
 ``ppo_hook_suite``, ``PpoAgentFactory`` and ``TransformerPpoAgentFactory``).
 
-The hook order is the JAX suite's (``preset/ppo.py:61-111``).  With recurrent
-backbones the joint evaluation (``JointSequentialEvaluation``, on the K5
-kernels) and the fused PPO update are not ported yet and raise
+The hook order is the JAX suite's (``preset/ppo.py:61-111``); with recurrent
+backbones the joint evaluation is ``JointSequentialEvaluation``.  The fused
+PPO update of recurrent backbones is not ported yet and raises
 ``NotImplementedError`` instead of being dropped.
 """
 
@@ -20,6 +20,7 @@ from cusrl_tpu_torch.hook.on_policy.fused_update import FusedPpoUpdate
 from cusrl_tpu_torch.hook.on_policy.gae import GeneralizedAdvantageEstimation
 from cusrl_tpu_torch.hook.on_policy.gradient_clipping import GradientClipping
 from cusrl_tpu_torch.hook.on_policy.joint_eval import JointPolicyValueEvaluation
+from cusrl_tpu_torch.hook.on_policy.joint_seq_eval import JointSequentialEvaluation
 from cusrl_tpu_torch.hook.on_policy.lr_schedule import AdaptiveLRSchedule
 from cusrl_tpu_torch.hook.on_policy.ppo import EntropyLoss, PpoSurrogateLoss
 from cusrl_tpu_torch.hook.on_policy.stats import OnPolicyStatistics
@@ -63,9 +64,6 @@ def ppo_hook_suite(
 ) -> list[Hook]:
     if recurrent_backbones and fused_ppo_update:
         raise NotImplementedError("the fused PPO update of recurrent backbones is not ported yet")
-    if recurrent_backbones and fuse_actor_critic_evaluation and not fused_ppo_update:
-        raise NotImplementedError("joint evaluation of recurrent backbones (JointSequentialEvaluation, on the "
-                                  "fused-block pair kernels K5) is not ported yet")
     if fused_ppo_update:
         # One fused step (K2f + K9s) computes surrogate + value loss and their
         # gradients; entropy stays outside.  Replaces the five-hook span below.
@@ -79,8 +77,14 @@ def ppo_hook_suite(
             )
         ]
     else:
+        if not fuse_actor_critic_evaluation:
+            joint_eval = None
+        elif recurrent_backbones:
+            joint_eval = JointSequentialEvaluation()
+        else:
+            joint_eval = JointPolicyValueEvaluation()
         objective_span = [
-            JointPolicyValueEvaluation() if fuse_actor_critic_evaluation else None,
+            joint_eval,
             ValueLoss(weight=value_loss_weight, loss_clip=value_loss_clip),
             OnPolicyPreparation(),
             PpoSurrogateLoss(clip_ratio=surrogate_clip_ratio, weight=surrogate_loss_weight),

@@ -388,3 +388,180 @@ def test_lane_autograd_wrapper_matches_plain_and_counts(cuda):
     for a, b in zip(leaves, cpu):
         assert a.grad.dtype == torch.bfloat16
         torch.testing.assert_close(a.grad.float().cpu(), b.grad.float(), rtol=1e-2, atol=1e-2)
+
+
+# -- K4/K5 (fused transformer block) and K2b with input gradients -------------
+
+BLOCK_IN, BLOCK_EMBED, BLOCK_FF = 48, 128, 512  # Velocity-Flat transformer_ppo
+
+
+def _block_params(gen, device):
+    """(pre params, post params) in the order ``fused_block_pre`` /
+    ``fused_block_post`` take them."""
+    def w(out, inp):
+        return (torch.randn(out, inp, generator=gen) / math.sqrt(inp)).to(device)
+
+    def v(n, base=0.0):
+        return (base + torch.randn(n, generator=gen) * 0.1).to(device)
+
+    e, f = BLOCK_EMBED, BLOCK_FF
+    pre = (w(e, BLOCK_IN), v(e), v(e, 1.0), v(e), w(e, e), w(e, e), w(e, e), v(e), v(e), v(e))
+    post = (w(e, e), v(e), v(e, 1.0), v(e), w(f, e), v(f), w(e, f), v(e))
+    return pre, post
+
+
+@pytest.mark.parametrize("rows,chains,skip", [(6144, 1, True), (1000, 1, False), (6144, 2, True), (37, 2, False)])
+def test_block_pre_kernels_match_plain(cuda, rows, chains, skip):
+    """The pre forward and backward (one layer: K4, the pair: K5), at the
+    minibatch's rows and ragged ones, with and without dX; the backward is
+    held from the plain forward's h on both sides."""
+    from cusrl_tpu_torch.nn.kernels import fused_block as fb
+
+    gen = torch.Generator().manual_seed(rows + chains)
+    pss = [_block_params(gen, cuda)[0] for _ in range(chains)]
+    xs = [torch.tanh(torch.randn(rows, BLOCK_IN, generator=gen)).to(cuda) for _ in range(chains)]
+    hs, qkvs = fb._launch_pre_fwd(xs, pss, fb._counter("pre_f", chains))
+    refs = [fb.pre_fwd_plain(x, *ps) for x, ps in zip(xs, pss)]
+    for h, qkv, (rh, rqkv) in zip(hs, qkvs, refs):
+        assert h.dtype == torch.float32 and torch.equal(h, h.to(torch.bfloat16).float())
+        _close(h, rh, grad=False)
+        _close(qkv, rqkv, grad=False)
+    ghs = [(torch.randn(rows, BLOCK_EMBED, generator=gen) * 0.01).to(cuda) for _ in range(chains)]
+    gqkvs = [(torch.randn(rows, 3 * BLOCK_EMBED, generator=gen) * 0.01).to(cuda, torch.bfloat16) for _ in range(chains)]
+    rhs = [r[0] for r in refs]
+    got = fb._launch_pre_bwd(xs, rhs, ghs, gqkvs, pss, skip, fb._counter("pre_b", chains))
+    for c, result in enumerate(got):
+        ps = pss[c]
+        want = fb.pre_bwd_plain(xs[c], rhs[c], ghs[c], gqkvs[c], ps[0], *ps[4:7], ps[2], ps[3], skip)
+        assert (result[0] is None) == skip
+        for a, b in zip(result, want):
+            if b is not None:
+                _close(a, b, grad=True)
+
+
+@pytest.mark.parametrize("rows,chains,activation", [(6144, 1, "gelu"), (1000, 1, "elu"), (6144, 2, "gelu"),
+                                                    (1000, 2, "identity")])
+def test_block_post_kernels_match_plain(cuda, rows, chains, activation):
+    """The post forward, saving and primal, and backward (K4 / K5), the
+    backward from the plain forward's saved r1 and activations."""
+    from cusrl_tpu_torch.nn.kernels import fused_block as fb
+
+    gen = torch.Generator().manual_seed(rows + 7 * chains)
+    pss = [_block_params(gen, cuda)[1] for _ in range(chains)]
+    attns = [torch.randn(rows, BLOCK_EMBED, generator=gen).to(cuda) for _ in range(chains)]
+    hs = [torch.randn(rows, BLOCK_EMBED, generator=gen).to(cuda, torch.bfloat16).float() for _ in range(chains)]
+    refs = [fb.post_fwd_plain(a, h, *ps, activation, True) for a, h, ps in zip(attns, hs, pss)]
+    for save in (True, False):
+        outs, r1s, saveds = fb._launch_post_fwd(attns, hs, pss, activation, save, fb._counter("post_f", chains))
+        for c, (out, r1, saved) in enumerate(zip(outs, r1s, saveds)):
+            _close(out, refs[c][0], grad=False)
+            assert (r1 is None) != save and (saved is None) != save
+            if save:
+                _close(r1, refs[c][1], grad=False)
+                _close(saved, refs[c][2], grad=False)
+    gs = [(torch.randn(rows, BLOCK_EMBED, generator=gen) * 0.01).to(cuda, torch.bfloat16) for _ in range(chains)]
+    wss = [(ps[0], ps[4], ps[6], ps[2], ps[3]) for ps in pss]
+    got = fb._launch_post_bwd(attns, gs, [r[1] for r in refs], [r[2] for r in refs], wss, activation,
+                              fb._counter("post_b", chains))
+    for c, result in enumerate(got):
+        want = fb.post_bwd_plain(attns[c], gs[c], refs[c][1], refs[c][2], *wss[c], activation)
+        for a, b in zip(result, want):
+            _close(a, b, grad=True)
+
+
+@pytest.mark.parametrize("pair", [False, True])
+def test_block_autograd_matches_cpu_and_carries_gh_in_fp32(cuda, pair):
+    """pre -> post under autograd on the card against the same on the CPU
+    (the plain versions): outputs, every parameter's gradient, and the
+    residual's cotangent reaching the pre op in fp32."""
+    from cusrl_tpu_torch.nn.kernels import fused_block as fb
+
+    gen = torch.Generator().manual_seed(21 + pair)
+    chains = 2 if pair else 1
+    params = [p for _ in range(chains) for ps in _block_params(gen, "cpu") for p in ps]
+    xs = [torch.tanh(torch.randn(6144, BLOCK_IN, generator=gen)) for _ in range(chains)]
+    attn_noise = [torch.randn(6144, BLOCK_EMBED, generator=gen) for _ in range(chains)]
+    gouts = [torch.randn(6144, BLOCK_EMBED, generator=gen) * 0.01 for _ in range(chains)]
+
+    def run(device):
+        ps = [p.detach().to(device).requires_grad_() for p in params]
+        pre = [ps[18 * c:18 * c + 10] for c in range(chains)]
+        post = [ps[18 * c + 10:18 * c + 18] for c in range(chains)]
+        x = [t.to(device) for t in xs]
+        fb.reset_launch_counts()
+        if pair:
+            ha, hc, qa, qc = fb.fused_block_pair_pre(*x, pre[0], pre[1])
+            hs, qkvs = [ha, hc], [qa, qc]
+        else:
+            h, qkv = fb.fused_block_pre(x[0], *pre[0])
+            hs, qkvs = [h], [qkv]
+        seen = []
+        for h in hs:
+            h.register_hook(seen.append)
+        attns = [q[:, :BLOCK_EMBED].float() * n.to(device) for q, n in zip(qkvs, attn_noise)]
+        if pair:
+            outs = list(fb.fused_block_pair_post(*attns, *hs, post[0], post[1]))
+        else:
+            outs = [fb.fused_block_post(attns[0], hs[0], *post[0])]
+        torch.autograd.backward(outs, [g.to(device, torch.bfloat16) for g in gouts])
+        return outs, ps, seen, dict(fb.LAUNCHES)
+
+    outs, ps, seen, launches = run(cuda)
+    ref_outs, ref_ps, _, _ = run("cpu")
+    k = "K5" if pair else "K4"
+    assert {n: v for n, v in launches.items() if v} == {f"{k}pre_f": 1, f"{k}pre_b": 1, f"{k}post_f": 1,
+                                                          f"{k}post_b": 1}
+    assert all(g.dtype == torch.float32 for g in seen) and len(seen) == chains
+    assert any(not torch.equal(g, g.to(torch.bfloat16).float()) for g in seen)
+    for a, b in zip(outs, ref_outs):
+        _close(a.cpu(), b, grad=False)
+    for a, b in zip(ps, ref_ps):
+        _close(a.grad.cpu(), b.grad, grad=True)
+
+
+def test_block_post_unsupported_activation_raises_on_cuda(cuda):
+    """An activation the kernels do not take raises on CUDA tensors (the CPU
+    takes the reference); nothing launches."""
+    from cusrl_tpu_torch.nn.kernels import fused_block as fb
+
+    gen = torch.Generator().manual_seed(27)
+    post = _block_params(gen, cuda)[1]
+    attn = torch.randn(64, BLOCK_EMBED, generator=gen).to(cuda)
+    h = torch.randn(64, BLOCK_EMBED, generator=gen).to(cuda, torch.bfloat16).float()
+    fb.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="silu"):
+        fb.fused_block_post(attn, h, *post, "silu")
+    with pytest.raises(NotImplementedError, match="silu"):
+        fb.fused_block_pair_post(attn, attn, h, h, post, post, "silu")
+    assert not any(fb.LAUNCHES.values())
+
+
+def test_pair_tail_with_input_gradients_matches_plain(cuda):
+    """K2f/K2b as the joint evaluation's MLP tails call them: 6,144 rows of
+    128 -> 128 ELU with a trailing activation, input gradients flowing back."""
+    gen = torch.Generator().manual_seed(33)
+    widths = (128, 128)
+    cpu = [_params(gen, "cpu", widths) for _ in range(2)]
+    xs = [torch.randn(6144, 128, generator=gen).to(torch.bfloat16) for _ in range(2)]
+    gs = [(torch.randn(6144, 128, generator=gen) * 0.01).to(torch.bfloat16) for _ in range(2)]
+
+    def run(device):
+        leaves = [[t.to(device).requires_grad_() for t in (*ws, *bs)] for ws, bs in cpu]
+        x = [t.to(device).requires_grad_() for t in xs]
+        fm.reset_launch_counts()
+        outs = fm.fused_mlp_pair(*x, leaves[0][:1], leaves[0][1:], leaves[1][:1], leaves[1][1:], "elu", True,
+                                 skip_input_grad=False)
+        torch.autograd.backward(list(outs), [g.to(device) for g in gs])
+        return outs, x, leaves, dict(fm.LAUNCHES)
+
+    outs, x, leaves, launches = run(cuda)
+    ref_outs, ref_x, ref_leaves, _ = run("cpu")
+    assert launches["K2f"] == 1 and launches["K2b"] == 1
+    for a, b in zip(outs, ref_outs):
+        _close(a.cpu(), b, grad=False)
+    for a, b in zip(x, ref_x):
+        assert a.grad.dtype == torch.bfloat16
+        _close(a.grad.cpu(), b.grad, grad=True)
+    for la_, lb in zip(leaves, ref_leaves):
+        for a, b in zip(la_, lb):
+            _close(a.grad.cpu(), b.grad, grad=True)

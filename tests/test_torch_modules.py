@@ -211,16 +211,27 @@ def test_gradient_clipping_matches_jax():
 
 @pytest.mark.parametrize("option", [
     dict(normalize_observation=True, sparse_value_bootstrap=True),
-    dict(desired_kl_divergence=0.01, recurrent_backbones=True, fuse_actor_critic_evaluation=True),
     dict(fused_ppo_update=True, recurrent_backbones=True),
-    dict(recurrent_backbones=True, fuse_actor_critic_evaluation=True),
 ])
 def test_hook_suite_refuses_options_not_ported(option):
-    """Options still waiting (the joint evaluation and the fused update of
-    recurrent backbones, the sparse bootstrap) raise, also beside the options
-    ported since."""
+    """Options still waiting (the fused update of recurrent backbones, the
+    sparse bootstrap) raise, also beside the options ported since."""
     with pytest.raises(NotImplementedError):
         ppo_hook_suite(**option)
+
+
+@pytest.mark.parametrize("option", [
+    dict(desired_kl_divergence=0.01, recurrent_backbones=True, fuse_actor_critic_evaluation=True),
+    dict(recurrent_backbones=True, fuse_actor_critic_evaluation=True),
+])
+def test_recurrent_hook_suite_builds_the_joint_evaluation_in_jax_order(option):
+    """With recurrent backbones the joint evaluation is
+    ``JointSequentialEvaluation``, in the JAX suite's position."""
+    from cusrl_tpu.preset.ppo import ppo_hook_suite as jax_suite
+
+    names = [h.hook_name for h in ppo_hook_suite(**option)]
+    assert names == [h.hook_name for h in jax_suite(**option)]
+    assert names.index("joint_sequential_evaluation") == names.index("value_loss") - 1
 
 
 def test_hook_suite_order_matches_jax():

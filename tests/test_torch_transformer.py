@@ -255,8 +255,6 @@ def test_banded_route_raises_naming_its_kernel():
     _, t = _attention_pair(4, False, True, None, "banded")
     with pytest.raises(NotImplementedError, match="K7"):
         t(torch.zeros(8, 2, 16), None, sequential=True)
-    with pytest.raises(NotImplementedError, match="K4/K5"):
-        tca.fused_pair_sequence(None, None, None, None, None, None, None)
 
 
 def _layer_pair(norm_mode, dtype, input_dim=12, **kwargs):

@@ -89,10 +89,12 @@ def test_zoo_transformer_entry_matches_jax():
     assert [h.hook_name for h in trainer.agent.hooks] == [h.hook_name for h in jax_suite(**kwargs)]
 
 
-def test_recurrent_suite_refuses_the_joint_evaluation_not_ported():
-    with pytest.raises(NotImplementedError, match="K5"):
-        ppo_hook_suite(recurrent_backbones=True, fuse_actor_critic_evaluation=True)
-    assert ppo_hook_suite(recurrent_backbones=True)
+def test_recurrent_suite_builds_the_joint_evaluation():
+    from cusrl_tpu.preset.ppo import ppo_hook_suite as jax_suite
+
+    kwargs = dict(recurrent_backbones=True, fuse_actor_critic_evaluation=True)
+    assert [h.hook_name for h in ppo_hook_suite(**kwargs)] == [h.hook_name for h in jax_suite(**kwargs)]
+    assert "joint_sequential_evaluation" not in [h.hook_name for h in ppo_hook_suite(recurrent_backbones=True)]
 
 
 def _kernel_routes(monkeypatch, bf16: bool):
@@ -105,11 +107,11 @@ def _kernel_routes(monkeypatch, bf16: bool):
             l.compute_dtype == "bfloat16" and l.bias is not None for l in self.layers))
 
 
-def _factories():
+def _factories(**overrides):
     jf = jax_get_experiment("Velocity-Flat", "transformer_ppo").make_agent_factory()
     tf = get_experiment("Velocity-Flat", "transformer_ppo").make_agent_factory()
     for f in (jf, tf):
-        for k, v in SMALL.items():
+        for k, v in {**SMALL, **overrides}.items():
             setattr(f, k, v)
     return jf, tf
 
@@ -187,12 +189,27 @@ def _tile_perms(indices, epochs):
 
 @pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
 def test_transformer_update_matches_jax(compute_dtype, monkeypatch):
+    _update_matches_jax(compute_dtype, monkeypatch)
+
+
+@pytest.mark.parametrize("fuse_actor_critic_evaluation", [False, True])
+def test_transformer_update_on_the_fused_route_matches_jax(fuse_actor_critic_evaluation, monkeypatch):
+    """The same update on the fused-block route (``CUSRL_TPU_FUSED_TRANSFORMER
+    =force`` on both sides: the port's K4 plain versions, JAX's Pallas
+    kernels in interpret mode), with and without the joint evaluation (K5 and
+    the tails' pair chain with input gradients, K2's plain version, in the
+    port; the Pallas pair kernels in JAX)."""
+    monkeypatch.setenv("CUSRL_TPU_FUSED_TRANSFORMER", "force")
+    _update_matches_jax("bfloat16", monkeypatch, fuse_actor_critic_evaluation=fuse_actor_critic_evaluation)
+
+
+def _update_matches_jax(compute_dtype, monkeypatch, **factory_kwargs):
     monkeypatch.setattr(JAX_CONFIG, "seed", 0)
     monkeypatch.setattr(jax_misc, "_KEY_COUNTER", [0])
     monkeypatch.setattr(JAX_CONFIG, "compute_dtype", compute_dtype)
     monkeypatch.setattr(CONFIG, "compute_dtype", compute_dtype)
     _kernel_routes(monkeypatch, compute_dtype is not None)
-    jf, tf = _factories()
+    jf, tf = _factories(**factory_kwargs)
     jax_agent = jf(JaxEnv(num_instances=N, observation_dim=OBS, action_dim=ACT).spec)
     agent = tf(VelocityLocomotionEnv(num_instances=N, observation_dim=OBS, action_dim=ACT, device="cpu").spec,
                device="cpu")
