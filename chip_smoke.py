@@ -11,21 +11,28 @@ without printing a result:
 2. build the hand-written kernels (``cusrl_tpu_torch/csrc/*.cu``, one ``nvcc``
    per source, all at once) and print the build seconds and ptxas usage;
 3. ``[kernels]``: hold each kernel (K1f, K1b, K2f, K2b; K8f with and without
-   saved activations, K8b with and without the latent's cotangent, K9s with
-   and without the value-loss clip; K3f primal and saving probabilities, K3b
-   and K6 at the transformer's shapes and a ragged one with ALiBi and rows
-   that see no key; the fused block's pre and post ops, forward and
+   saved activations, K8b with and without the latent's cotangent, K9s and
+   K9m (its forward's activations, then its loss and backward on them, and
+   against K2f + K9s) with and without the value-loss clip; K3f primal and
+   saving probabilities, K3b and K6 at the transformer's shapes and a ragged
+   one with ALiBi and rows that see no key; K7f at path TL's shapes, a ragged
+   T = 200 with ALiBi, rows that see no key and a part-valid cache, and a
+   window wider than its query block; the fused block's pre and post ops, forward and
    backward, single (K4) and paired (K5), at the minibatch's 6,144 rows,
-   the primal post at 24,576 and a ragged 1,000 (pre with dX, post with
-   ELU); K1f/K1b with gelu at the FFN's widths) against its plain PyTorch
+   the primal pre and post at 24,576 and a ragged 1,000 (pre with dX, post
+   with ELU), K4 also at path TL's 65,536 and 262,144 rows; K1f/K1b with
+   gelu at the FFN's widths, and on the ELU head at TL's 65,536 rows (K1f
+   primal also at 262,144)) against its plain PyTorch
    version on the card, and time the kernel, the plain version and a PyTorch
    yardstick the port never calls (bf16 ``F.linear`` chains, fp32 heads
-   and, for K9s, the loss; a masked ``scaled_dot_product_attention`` for the
-   attention kernels; bf16 ``F.linear`` + ``F.layer_norm`` chains for the
-   fused block; autograd for the backwards) with CUDA events;
+   and, for K9s, the loss, for K9m the forward too; a masked
+   ``scaled_dot_product_attention`` for the attention kernels; bf16
+   ``F.linear`` + ``F.layer_norm`` chains for the fused block; autograd for
+   the backwards) with CUDA events;
 4. ``[wrappers]``: hold the wrappers the port calls (``fused_mlp``,
-   ``fused_mlp_pair``, ``fused_mlp_pair_heads``, ``fused_ppo_step``,
-   ``lane_window_attention``, ``lane_next_token_attention``,
+   ``fused_mlp_pair``, ``fused_mlp_pair_heads``, ``fused_ppo_step`` in split
+   and in mono mode (against split too), ``lane_window_attention``,
+   ``banded_window_attention``, ``lane_next_token_attention``,
    ``fused_block_pre``/``post`` and their pair variants, and their autograd
    Functions) against the plain versions at the shapes their paths give
    them (for path T ``fused_mlp`` with the gelu FFN and the ELU head; for TJ
@@ -36,21 +43,23 @@ without printing a result:
    the modular step at 1,024 environments;
 5. ``[update-check]``: one whole update on the card against the same update
    through the port's plain CPU path, at full width on a small rollout, for
-   the slice-1 configuration, the zoo's paths A, B and C, path T (modular
-   route) and paths TF and TJ (the fused-block route; on the CPU under
-   ``CUSRL_TPU_FUSED_TRANSFORMER=force``);
+   the slice-1 configuration, the zoo's paths A, B, C and CM, path T
+   (modular route) and paths TF, TJ and TL (the fused-block route; on the
+   CPU under ``CUSRL_TPU_FUSED_TRANSFORMER=force``; TL keeps T = 256);
 6. ``[train]``: the slice-1 loop (Velocity-Rough widths without observation
    normalization and the adaptive learning rate) for a few iterations;
-7. ``[train-zoo]``: paths T, TF and TJ (the zoo's uncut Velocity-Flat
+7. ``[train-zoo]``: paths T, TF, TJ and TL (the zoo's uncut Velocity-Flat
    ``transformer_ppo``: embed 128, 4 heads, window 16, gelu FFN 512, ELU head
    128, 1,024 environments; T on the modular route with
    ``CUSRL_TPU_FUSED_TRANSFORMER=0``: K3f/K3b/K6 and K1 with gelu; TF on its
    default fused-block route: K4, K3, K6, K1; TJ as TF with
-   ``fuse_actor_critic_evaluation=True``: K5 and K2 in the minibatches) and
-   paths A (the
+   ``fuse_actor_critic_evaluation=True``: K5 and K2 in the minibatches; TL as
+   TF with ``num_steps_per_update=256``: K4 around K7f, the next-token pass
+   in its plain version) and paths A (the
    zoo's uncut Velocity-Rough ``ppo``: 4,096 environments, joint evaluation
-   on K2), B (A with the heads in the kernel: K8) and C (A with the fused
-   PPO update: K2f + K9s), each built through
+   on K2), B (A with the heads in the kernel: K8), C (A with the fused
+   PPO update: K2f + K9s) and CM (C in mono mode, ``fused_ppo_step._PPO_MODE
+   = "mono"``: K9m), each built through
    ``get_experiment(...).to_training_factory()`` with
    ``iterations_per_dispatch=10``, observation normalization and the
    KL-adaptive learning rate, and driven through the Trainer for a warm-up
@@ -58,11 +67,11 @@ without printing a result:
    0 just before the timed chunk and read just after (``EXPECTED_ZOO_LAUNCHES``
    per iteration), one host transfer per chunk and no other synchronizing
    call; and a profile of one iteration of each path;
-8. the ``nvidia-smi`` line, the ``kernels`` JSON line (each ported kernel's
-   launches from the path that runs it; the kernels still to port under
-   ``not_ported``), and the final ``{"ok": true, ...}`` line.
+8. the ``nvidia-smi`` line, the ``kernels`` JSON line (each kernel's
+   launches from the path that runs it; ``not_ported`` is empty), and the
+   final ``{"ok": true, ...}`` line.
 
-Depth is not cut: the MLP paths have 3 hidden layers, paths T, TF and TJ
+Depth is not cut: the MLP paths have 3 hidden layers, the transformer paths
 their one encoder layer and one head layer.  Weights are random, from seed 0.  There is no CPU
 fallback: without CUDA the script exits 2.
 """
@@ -111,6 +120,8 @@ REPLACES = {
     "K3f": "cusrl_tpu/nn/kernels/lane_attention.py:204",
     "K3b": "cusrl_tpu/nn/kernels/lane_attention.py:247",
     "K6": "cusrl_tpu/nn/kernels/lane_attention.py:385",
+    "K9m": "cusrl_tpu/nn/kernels/fused_ppo_step.py:289",
+    "K7f": "cusrl_tpu/nn/kernels/banded_attention.py:202",
 }
 SOURCES = {
     "K1f": "cusrl_tpu_torch/csrc/mlp_chain_fwd.cu",
@@ -123,10 +134,8 @@ SOURCES = {
     "K3f": "cusrl_tpu_torch/csrc/lane_attention.cu",
     "K3b": "cusrl_tpu_torch/csrc/lane_attention.cu",
     "K6": "cusrl_tpu_torch/csrc/lane_attention.cu",
-}
-NOT_PORTED = {
-    "K9m": "cusrl_tpu/nn/kernels/fused_ppo_step.py:289",
-    "K7": "cusrl_tpu/nn/kernels/banded_attention.py:202",
+    "K9m": "cusrl_tpu_torch/csrc/mlp_chain_bwd.cu",
+    "K7f": "cusrl_tpu_torch/csrc/banded_attention.cu",
 }
 ROUTE = "CUSRL_TPU_FUSED_TRANSFORMER"
 
@@ -581,7 +590,77 @@ def check_head_kernels(device) -> dict:
     k_ms, p_ms, l_ms, (bound, by) = timing[None]  # the zoo's value loss is unclipped
     results["K9s"] = dict(max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by, library_ms=l_ms,
                           shape="2 x 24576 x 48-512-256-128 + heads 12/1 + PPO loss, loss_clip None")
+
+    # -- K9m: both chains' forward, heads, loss and backward in one launch
+    print("[kernels] K9m mlp_ppo_step (mono): forward + heads + PPO loss + backward")
+    errs = []
+    for rows in (MINIBATCH_ROWS, RAGGED_ROWS):
+        xs = obs(rows)
+        with torch.no_grad():
+            mean = fm.mlp_chain_fwd_plain(xs[0], wa, ba, "elu", True, False)[0].float() @ wm.T + bm
+        std, rows_data = _loss_rows(gen, device, rows, mean)
+        for loss_clip in (None, 0.2):
+            tail = (wm, bm, wv, bv, std, *rows_data, 0.2, 1.0, 0.5, loss_clip, "elu", True)
+            got, sums, saved = fp._ppo_step(xs, [ba, bc], [wa, wc], *tail)
+            tag = f" clip={loss_clip} rows={rows}"
+            # The forward: the activations K9m wrote against the plain forward.
+            for c, (x, ws, bs, hs) in enumerate(zip(xs, (wa, wc), (ba, bc), saved)):
+                out, hidden = fm.mlp_chain_fwd_plain(x, ws, bs, "elu", True, True)
+                torch.cuda.synchronize()
+                for i, (h, r) in enumerate(zip(hs, [*hidden, out])):
+                    errs.append(_check(f"h{i + 1}[{c}]{tag}", h, r, rel=False))
+            # The loss and backward: against the plain loss backward on those
+            # activations, at K9s's limits; and against K2f + K9s.
+            want, ref_sums = fp.ppo_loss_bwd_plain(xs, saved, [wa, wc], *tail)
+            outs, hids, _ = fm._launch_fwd(xs, [wa, wc], [ba, bc], "elu", True, True, "K2f")
+            split, split_sums = fp._loss_bwd(xs, [[*h, o] for h, o in zip(hids, outs)], [wa, wc], *tail)
+            torch.cuda.synchronize()
+            names = ["dW_a", "db_a", "dW_c", "db_c"]
+            for ref_tag, ref_grads in (("", want), (" vs split", split)):
+                for name, a_list, b_list in zip(names, got[:4], ref_grads[:4]):
+                    for l, (a, b) in enumerate(zip(a_list, b_list)):
+                        errs.append(_check(f"{name}{l}{tag}{ref_tag}", a, b, rel=True, grad_rel=3e-2))
+                for name, a, b in zip(("dW_mean", "db_mean", "dW_value", "db_value", "dstd"), got[4:],
+                                      ref_grads[4:]):
+                    errs.append(_check(name + tag + ref_tag, a, b, rel=True, grad_rel=3e-2))
+            errs.append(_check_sums("sums" + tag, sums, ref_sums) / rows)
+            _check_sums("sums vs split" + tag, sums, split_sums)
+    xs = obs(MINIBATCH_ROWS)  # timed at the main-path shape
+    with torch.no_grad():
+        mean = fm.mlp_chain_fwd_plain(xs[0], wa, ba, "elu", True, False)[0].float() @ wm.T + bm
+    std, rows_data = _loss_rows(gen, device, MINIBATCH_ROWS, mean)
+    timing = {}
+    for loss_clip in (None, 0.2):
+        tail = (wm, bm, wv, bv, std, *rows_data, 0.2, 1.0, 0.5, loss_clip, "elu", True)
+        lib_std = std.clone().requires_grad_()
+        inputs = [p for ws, bs in zip(w16, b16) for p in (*ws, *bs)] + [t for h in lib_heads for t in h] + [lib_std]
+
+        def library():  # the forward, the loss and autograd's backward
+            with torch.enable_grad():
+                loss = _library_loss(xs, w16, b16, lib_heads, lib_std, rows_data, loss_clip)
+                return torch.autograd.grad(loss, inputs)
+
+        timing[loss_clip] = (_time_ms(lambda: fp._ppo_step(xs, [ba, bc], [wa, wc], *tail)),
+                             _time_ms(lambda: fp.ppo_step_mono_plain(xs, [ba, bc], [wa, wc], *tail)),
+                             _time_ms(library), _bound_ms(*_mono_work(MINIBATCH_ROWS, loss_clip)))
+    for loss_clip, (k_ms, p_ms, l_ms, (bound, by)) in timing.items():
+        print(f"    rows=24576 loss_clip={loss_clip}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
+              f"bound_ms={bound:.4f} ({by})")
+    k_ms, p_ms, l_ms, (bound, by) = timing[None]
+    results["K9m"] = dict(max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by, library_ms=l_ms,
+                          shape="2 x 24576 x 48-512-256-128 forward + heads 12/1 + PPO loss + backward, "
+                                "loss_clip None")
     return results
+
+
+def _mono_work(rows: int, loss_clip):
+    """(FLOP, bytes) of K9m: both chains' forward and K9s's work; it reads x
+    (not saved activations) and the loss rows, writes the gradients and sums."""
+    pairs = [(WIDTHS[i], WIDTHS[i + 1]) for i in range(len(WIDTHS) - 1)]
+    macs = sum(a * b for a, b in pairs)
+    flops, nbytes = _heads_work(rows, True, True, False, True, loss_clip)
+    hidden = sum(b for _, b in pairs)
+    return flops + 2 * 2 * rows * macs, nbytes - 2 * rows * hidden * 2 + 2 * sum(b for _, b in pairs) * 4
 
 
 def check_head_wrappers(device) -> dict:
@@ -659,7 +738,37 @@ def check_head_wrappers(device) -> dict:
     for i, (p, q) in enumerate(zip([*params, s], [*cpu_ref, c_s])):
         errs["K9s"].append(_check(f"param{i}.grad" if i < len(params) else "std.grad", p.grad.cpu(), q.grad,
                                   rel=True, grad_rel=3e-2))
+
+    print(f"[wrappers] fused_ppo_step in mono mode, rows={rows}: against the CPU (its plain version) and split")
+    split = (loss, metrics, s, params)
+    with _ppo_mode("mono"):
+        ((loss, metrics, s), params, launched), ((c_loss, c_metrics, c_s), cpu_ref, _) = (
+            run(device, step_fn), run("cpu", step_fn))
+    if launched != {"K9m": 1}:
+        raise AssertionError(f"fused_ppo_step in mono mode launched {launched}, not K9m once")
+    errs["K9m"] = []
+    values = torch.stack([loss, *metrics]).detach().cpu()
+    for tag, (r_loss, r_metrics, r_s, r_params) in (("cpu", (c_loss, c_metrics, c_s, cpu_ref)), ("split", split)):
+        errs["K9m"].append(_check_sums(f"loss, 4 metrics vs {tag}", values,
+                                       torch.stack([r_loss, *r_metrics]).detach().cpu(), tol=2e-3))
+        for i, (p, q) in enumerate(zip([*params, s], [*r_params, r_s])):
+            errs["K9m"].append(_check(f"{'std' if i == len(params) else f'param{i}'}.grad vs {tag}", p.grad.cpu(),
+                                      q.grad.cpu(), rel=True, grad_rel=3e-2))
     return {k: max(v) for k, v in errs.items() if v}
+
+
+@contextlib.contextmanager
+def _ppo_mode(mode: str):
+    """Sets the port's fused PPO step mode (``fused_ppo_step._PPO_MODE``, the
+    module attribute ``CUSRL_TPU_PPO_MODE`` sets at import) for the block."""
+    from cusrl_tpu_torch.nn.kernels import fused_ppo_step as fp
+
+    old = fp._PPO_MODE
+    fp._PPO_MODE = mode
+    try:
+        yield
+    finally:
+        fp._PPO_MODE = old
 
 
 def check_wrappers(device) -> dict:
@@ -872,6 +981,24 @@ def _lane_work(kind: str, q, k, masks, window: int, save: bool = False):
     return 8 * dim * pairs, nbytes
 
 
+def _check_attention(name, got, want) -> float:
+    """An attention kernel's fp32 output against its plain version within
+    ``ATT_RTOL``/``ATT_ATOL``; returns the largest error."""
+    import torch
+
+    torch.cuda.synchronize()
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = (got - want).abs().max().item()
+    ok = bool(torch.allclose(got, want, rtol=ATT_RTOL, atol=ATT_ATOL))
+    limit = ATT_ATOL + ATT_RTOL * want.abs().max().item()
+    print(f"    {name:28s} max_abs_err={err:.3e} (limit {limit:.3e}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version (max_abs_err {err:.3e})")
+    return err
+
+
 def check_lane_kernels(device) -> dict:
     """K3f (primal and saving the probabilities), K3b and K6 against their
     plain versions at the path's shapes (the update's 256 environments, the
@@ -886,19 +1013,7 @@ def check_lane_kernels(device) -> dict:
 
     gen = torch.Generator().manual_seed(SEED + 7)
     errs = {"K3f": [], "K3b": [], "K6": []}
-
-    def check(name, got, want):
-        torch.cuda.synchronize()
-        got, want = got.float(), want.float()
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"{name}: non-finite kernel output")
-        err = (got - want).abs().max().item()
-        ok = bool(torch.allclose(got, want, rtol=ATT_RTOL, atol=ATT_ATOL))
-        limit = ATT_ATOL + ATT_RTOL * want.abs().max().item()
-        print(f"    {name:28s} max_abs_err={err:.3e} (limit {limit:.3e}) {'ok' if ok else 'MISMATCH'}")
-        if not ok:
-            raise AssertionError(f"{name}: kernel disagrees with its plain version (max_abs_err {err:.3e})")
-        return err
+    check = _check_attention
 
     print("[kernels] K3f/K3b/K6 lane attention")
     cases = ((T_MB_ENVS, STEPS, T_WINDOW, None), (T_ENVS, STEPS, T_WINDOW, None), (130, 5, 4, (0.5, 0.25, 0.125, 0.0625)))
@@ -1002,6 +1117,87 @@ def check_lane_kernels(device) -> dict:
     return results
 
 
+TL_STEPS = 256  # path TL: the transformer entry with 256-step rollouts (T > 64: K7)
+
+
+def check_banded_kernels(device) -> dict:
+    """K7f against its plain version at path TL's shapes (the minibatch's 256
+    environments and the value and KL passes' 1,024, T = 256, W = 16), a
+    ragged one (T = 200: the second query block half full; ALiBi, a third of
+    the rows with no valid key, a half-valid cache) and a window wider than
+    the kernel's 128-query block (W = 160); timed with the plain version and
+    a masked ``scaled_dot_product_attention`` as the yardstick the port never
+    calls.  Then ``banded_window_attention`` under autograd at TL's
+    minibatch shape: output and q/k/v ``.grad`` against autograd of the
+    plain version, one K7f launch per call."""
+    import torch
+    import torch.nn.functional as F
+
+    from cusrl_tpu_torch.nn.kernels import banded_attention as ba
+
+    gen = torch.Generator().manual_seed(SEED + 12)
+    errs = []
+
+    def check(name, got, want):
+        errs.append(_check_attention(name, got, want))
+
+    print("[kernels] K7f banded window attention")
+    slopes4 = (0.5, 0.25, 0.125, 0.0625)
+    cases = ((T_MB_ENVS, TL_STEPS, T_WINDOW, None), (T_ENVS, TL_STEPS, T_WINDOW, None),
+             (130, 200, T_WINDOW, slopes4), (64, 70, 160, None))
+    for n, t_len, window, slopes in cases:
+        q, k, v, *masks = _lane_inputs(gen, device, n, t_len, window, invalid=slopes is not None)
+        tag = f"N={n} T={t_len} W={window}{' alibi' if slopes else ''}"
+        out = ba._launch_fwd(q, k, v, *masks, window, slopes)
+        check(f"K7f out {tag}", out, ba.banded_plain(q, k, v, *masks, window, slopes))
+        if slopes is not None and out[: n // 3].any():
+            raise AssertionError("K7f: a row without a valid key is not exactly 0")
+
+    print(f"[wrappers] banded_window_attention (autograd) against autograd of the plain version, N={T_MB_ENVS}")
+    q, k, v, *masks = _lane_inputs(gen, device, T_MB_ENVS, TL_STEPS)
+    g = torch.randn(q.shape, generator=gen).to(device)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = ba.LAUNCHES["K7f"]
+    out = ba.banded_window_attention(*leaves, *masks, window=T_WINDOW)
+    out.backward(g)
+    if ba.LAUNCHES["K7f"] != before + 1:
+        raise AssertionError(f"banded_window_attention with grad launched K7f {ba.LAUNCHES['K7f'] - before} times")
+    plain = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    ref = ba.banded_plain(*plain, *masks, T_WINDOW)
+    ref.backward(g)
+    check("wrapper out", out, ref)
+    for name, a, b in zip(("q", "k", "v"), leaves, plain):
+        if a.grad.dtype != torch.bfloat16:
+            raise AssertionError("the banded wrapper's input gradient is not in the input's dtype")
+        # Both sides' gradients come from the same recomputing backward, cast to bf16.
+        err = (a.grad.float() - b.grad.float()).abs().max().item()
+        limit = 2 ** -8 * b.grad.float().abs().max().item()
+        print(f"    {name + '.grad (bf16)':28s} max_abs_err={err:.3e} (limit {limit:.3e}) "
+              f"{'ok' if err <= limit else 'MISMATCH'}")
+        if err > limit:
+            raise AssertionError(f"banded wrapper {name}.grad disagrees with autograd of the plain version")
+
+    timing = {}
+    for n in (T_MB_ENVS, T_ENVS):
+        q, k, v, *masks = _lane_inputs(gen, device, n, TL_STEPS)
+        dense = _dense_mask(*masks, T_WINDOW, 0)
+        k_ms = _time_ms(lambda: ba._launch_fwd(q, k, v, *masks, T_WINDOW, None))
+        p_ms = _time_ms(lambda: ba.banded_plain(q, k, v, *masks, T_WINDOW))
+        with torch.no_grad():
+            l_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=dense))
+        flops, nbytes = _lane_work("K3f", q, k, masks, T_WINDOW)
+        t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+        bound, by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+        print(f"    K7f N={n}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} bound_ms={bound:.4f} "
+              f"({by}; {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP fp32)")
+        timing[n] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound, bound_by=by)
+    result = dict(timing[T_MB_ENVS], max_abs_err=max(errs),
+                  shape=f"N={T_MB_ENVS} H={T_HEADS} T={TL_STEPS} W={T_WINDOW} D={T_HEAD_DIM}, bf16 in, fp32 out "
+                        f"(the update's minibatch); primal at N={T_ENVS} (value and KL passes)")
+    result.update({f"primal_{key}": value for key, value in timing[T_ENVS].items() if key != "bound_by"})
+    return {"K7f": result}
+
+
 def check_gelu_kernels(device) -> dict:
     """K1f/K1b with gelu at the FFN's widths (128-512-128): forward saving the
     bf16 pre-activations and backward with dX, against the plain versions at
@@ -1082,11 +1278,74 @@ def check_gelu_kernels(device) -> dict:
     return fields
 
 
+def check_tl_head_kernels(device) -> dict:
+    """K1f and K1b on the transformer entry's ELU head (128 -> 128, trailing
+    activation) at the sizes path TL gives them: the forward saving at the
+    minibatch's 65,536 rows and primal at the value and KL passes' 262,144,
+    the backward with dX at 65,536; against the plain versions at
+    ``check_kernels``'s limits, and timed with the plain version and a bf16
+    ``F.linear`` + ``F.elu`` (autograd for the backward) as the yardstick.
+    Returns the ``tl_``/``tl_primal_`` fields of K1f and K1b."""
+    import torch
+    import torch.nn.functional as F
+
+    from cusrl_tpu_torch.nn.kernels import fused_mlp as fm
+
+    gen = torch.Generator().manual_seed(SEED + 14)
+    ws = [(torch.randn(T_EMBED, T_EMBED, generator=gen) / math.sqrt(T_EMBED)).to(device)]
+    bs = [(torch.randn(T_EMBED, generator=gen) * 0.1).to(device)]
+    w16, b16 = ws[0].to(torch.bfloat16).requires_grad_(), bs[0].to(torch.bfloat16).requires_grad_()
+    macs, params = T_EMBED * T_EMBED, T_EMBED * T_EMBED + T_EMBED
+    fields, errs = {"K1f": {}, "K1b": {}}, {"K1f": [], "K1b": []}
+
+    def record(key, tag, rows, timed, work):
+        (k_ms, p_ms, l_ms), (bound, by) = timed, _bound_ms(*work)
+        print(f"    {key} head rows={rows}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
+              f"bound_ms={bound:.4f} ({by})")
+        fields[key].update({f"{tag}ms": k_ms, f"{tag}plain_ms": p_ms, f"{tag}library_ms": l_ms,
+                            f"{tag}bound_ms": bound, f"{tag}bound_by": by})
+
+    print("[kernels] K1f/K1b on the ELU head 128 -> 128 at path TL's sizes")
+    for rows, save, tag in ((TL_MB_ROWS, True, "tl_head_"), (TL_PRIMAL_ROWS, False, "tl_head_primal_")):
+        x = torch.randn(rows, T_EMBED, generator=gen).to(device, torch.bfloat16)
+        (out,), _, _ = fm._launch_fwd([x], [ws], [bs], "elu", True, save, "K1f")
+        ref, _ = fm.mlp_chain_fwd_plain(x, ws, bs, "elu", True, False)
+        errs["K1f"].append(_check(f"head out save={int(save)} rows={rows}", out, ref, rel=False))
+        with torch.no_grad():
+            timed = (_time_ms(lambda: fm._launch_fwd([x], [ws], [bs], "elu", True, save, "K1f")),
+                     _time_ms(lambda: fm.mlp_chain_fwd_plain(x, ws, bs, "elu", True, save)),
+                     _time_ms(lambda: F.elu(F.linear(x, w16, b16))))
+        record("K1f", tag, rows, timed, (2 * rows * macs, rows * T_EMBED * 2 * 2 + params * 4))
+        if not save:
+            continue
+        g = (torch.randn(rows, T_EMBED, generator=gen) * 0.01).to(device, torch.bfloat16)
+        ((dx, dws, dbs, _),) = fm._launch_bwd([x], [g], [ws], [[ref]], "elu", True, False, "K1b")
+        rdx, rdws, rdbs = fm.mlp_chain_bwd_plain(x, g, ws, [ref], "elu", True, False)
+        for name, a, b in zip(("dx", "dW", "db"), (dx, *dws, *dbs), (rdx, *rdws, *rdbs)):
+            errs["K1b"].append(_check(f"head {name} rows={rows}", a, b, rel=True))
+        lx = x.clone().requires_grad_()
+        with torch.enable_grad():
+            lib_out = F.elu(F.linear(lx, w16, b16))
+        timed = (_time_ms(lambda: fm._launch_bwd([x], [g], [ws], [[ref]], "elu", True, False, "K1b")),
+                 _time_ms(lambda: fm.mlp_chain_bwd_plain(x, g, ws, [ref], "elu", True, False)),
+                 _time_ms(lambda: torch.autograd.grad(lib_out, [lx, w16, b16], g, retain_graph=True)))
+        # x, g and the saved output read; dx (fp32), dW and db written; W read.
+        record("K1b", tag, rows, timed, (4 * rows * macs, rows * T_EMBED * (3 * 2 + 4) + macs * 4 + params * 4))
+    for key in fields:
+        fields[key]["tl_head_shape"] = (f"{TL_MB_ROWS} x 128-128 ELU (TL's minibatch, saving; backward with dX)"
+                                        + (f"; primal at {TL_PRIMAL_ROWS} rows (value and KL passes)"
+                                           if key == "K1f" else ""))
+        fields[key]["tl_head_max_abs_err"] = max(errs[key])
+    return fields
+
+
 # -- Paths TF and TJ: the transformer entry on its fused-block route ----------
 
 T_IN = 48  # Velocity-Flat observations
 BLOCK_ROWS = T_MB_ENVS * STEPS  # 6,144 rows per minibatch pass
 PRIMAL_ROWS = T_ENVS * STEPS  # 24,576 rows in the value, next-token and KL passes
+TL_MB_ROWS = T_MB_ENVS * TL_STEPS  # 65,536 rows per minibatch pass on path TL
+TL_PRIMAL_ROWS = T_ENVS * TL_STEPS  # 262,144 rows in TL's value, next-token and KL passes
 BLOCK_REPLACES = {
     "K4pre_f": "cusrl_tpu/nn/kernels/fused_block.py:193",
     "K4pre_b": "cusrl_tpu/nn/kernels/fused_block.py:218",
@@ -1162,10 +1421,12 @@ def _library_block(op, x, h, pre16, post16):
 def check_block_kernels(device) -> dict:
     """K4 (one layer) and K5 (the actor+critic pair) pre and post, forward
     and backward, against their plain versions (forward and hand-written
-    backward) at the path's shapes (6,144 rows per minibatch pass, the primal
-    post at 24,576; K5 at 2 x 6,144) and a ragged one (1,000 rows: pre with
-    dX, post with ELU); timed with the plain version and the library
-    yardstick (autograd over a retained graph for the backwards)."""
+    backward) at the paths' shapes (TF's 6,144 rows per minibatch pass and
+    the primal pre and post at 24,576; K4 also at TL's 65,536 and 262,144;
+    K5 at 2 x 6,144) and a ragged one (1,000 rows: pre with dX, post with
+    ELU); timed with the plain version and the library yardstick (autograd
+    over a retained graph for the backwards).  TL's numbers are the ``tl_``
+    and ``tl_primal_`` fields."""
     import torch
 
     from cusrl_tpu_torch.nn.kernels import fused_block as fb
@@ -1197,6 +1458,8 @@ def check_block_kernels(device) -> dict:
         pres, posts = [l[0] for l in layers[:chains]], [l[1] for l in layers[:chains]]
         print(f"[kernels] {k} fused block, {chains} chain{'s' if chains > 1 else ''}")
         cases = ((BLOCK_ROWS, True, "gelu"), (RAGGED_ROWS, False, "elu"))
+        if k == "K4":
+            cases += ((TL_MB_ROWS, True, "gelu"),)
         for rows, skip, act in cases:
             xs = [obs(rows) for _ in range(chains)]
             hs, qkvs = fb._launch_pre_fwd(xs, pres, f"{k}pre_f")
@@ -1240,73 +1503,88 @@ def check_block_kernels(device) -> dict:
                 for name, a, b in zip(names, result, want):
                     errs[f"{k}post_b"].append(_check(f"post {name}[{c}] {act} rows={rows}", a, b, rel=True))
 
-        # Timing at the path's shapes (gelu, skip_input_grad): kernel, plain, library.
-        rows = BLOCK_ROWS
-        xs = [obs(rows) for _ in range(chains)]
-        attns, hs_in = [attn_in(rows) for _ in range(chains)], [residual(rows) for _ in range(chains)]
-        refs = [fb.pre_fwd_plain(x, *ps) for x, ps in zip(xs, pres)]
-        prefs = [fb.post_fwd_plain(a, h, *ps, "gelu", True) for a, h, ps in zip(attns, hs_in, posts)]
-        ghs = [cot(rows, T_EMBED, torch.float32) for _ in range(chains)]
-        gqkvs = [cot(rows, 3 * T_EMBED) for _ in range(chains)]
-        gs = [cot(rows, T_EMBED) for _ in range(chains)]
-        pre16 = [(ps[0], ps[1], ps[2], ps[3], torch.cat(ps[4:7]), torch.cat(ps[7:10])) for ps in pres]
-        pre16 = [[t.to(torch.bfloat16).requires_grad_() for t in ps] for ps in pre16]
-        post16 = [[t.to(torch.bfloat16).requires_grad_() for t in ps] for ps in posts]
-        x16 = [x.to(torch.bfloat16) for x in xs]
-        a16 = [a.to(torch.bfloat16).requires_grad_() for a in attns]
-        h16 = [h.to(torch.bfloat16).requires_grad_() for h in hs_in]
-        timed = {
-            "pre_f": (lambda: fb._launch_pre_fwd(xs, pres, f"{k}pre_f"),
-                      lambda: [fb.pre_fwd_plain(x, *ps) for x, ps in zip(xs, pres)]),
-            "pre_b": (lambda: fb._launch_pre_bwd(xs, [r[0] for r in refs], ghs, gqkvs, pres, True, f"{k}pre_b"),
-                      lambda: [bwd_plain_pre(x, r[0], gh, gq, ps, True)
-                               for x, r, gh, gq, ps in zip(xs, refs, ghs, gqkvs, pres)]),
-            "post_f": (lambda: fb._launch_post_fwd(attns, hs_in, posts, "gelu", True, f"{k}post_f"),
-                       lambda: [fb.post_fwd_plain(a, h, *ps, "gelu", True) for a, h, ps in zip(attns, hs_in, posts)]),
-            "post_b": (lambda: fb._launch_post_bwd(attns, gs, [r[1] for r in prefs], [r[2] for r in prefs],
-                                                   [post_w(ps) for ps in posts], "gelu", f"{k}post_b"),
-                       lambda: [fb.post_bwd_plain(a, g, r[1], r[2], *post_w(ps), "gelu")
-                                for a, g, r, ps in zip(attns, gs, prefs, posts)]),
-        }
-        with torch.no_grad():
-            lib_f = {"pre_f": lambda: [_library_block("pre", x, None, p, None) for x, p in zip(x16, pre16)],
-                     "post_f": lambda: [_library_block("post", a, h, None, p) for a, h, p in zip(a16, h16, post16)]}
-            lib_ms = {op: _time_ms(fn) for op, fn in lib_f.items()}
-        with torch.enable_grad():
-            pre_out = [_library_block("pre", x, None, p, None) for x, p in zip(x16, pre16)]
-            pre_in = [t for p in pre16 for t in p]
-            pre_g = [g for gh, gq in zip(ghs, gqkvs) for g in (gh.to(torch.bfloat16), gq)]
-            lib_ms["pre_b"] = _time_ms(lambda: torch.autograd.grad([t for o in pre_out for t in o], pre_in, pre_g,
-                                                                   retain_graph=True))
-            post_out = [_library_block("post", a, h, None, p)[0] for a, h, p in zip(a16, h16, post16)]
-            post_in = [*a16, *h16, *(t for p in post16 for t in p)]
-            lib_ms["post_b"] = _time_ms(lambda: torch.autograd.grad(post_out, post_in, gs, retain_graph=True))
-        for op, (kernel_fn, plain_fn) in timed.items():
-            key = f"{k}{op}"
-            k_ms, p_ms = _time_ms(kernel_fn), _time_ms(plain_fn)
-            bound, by = _bound_ms(*_block_work(op, rows, chains))
-            print(f"    {key} rows={rows}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={lib_ms[op]:.4f} "
-                  f"bound_ms={bound:.4f} ({by})")
-            results[key] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms[op], bound_ms=bound, bound_by=by,
-                                shape=f"{chains} x {rows} rows, 48 -> 128 (3 x 128), FFN 512 gelu"
-                                + (", skip_input_grad" if op == "pre_b" else "")
-                                + (", saves r1 and z1" if op == "post_f" else ""))
-        if k == "K4":  # the primal post of the value, next-token and KL passes
-            a, h = attn_in(PRIMAL_ROWS), residual(PRIMAL_ROWS)
-            ref = fb.post_fwd_plain(a, h, *posts[0], "gelu", False)[0]
-            out = fb._launch_post_fwd([a], [h], posts[:1], "gelu", False, "K4post_f")[0][0]
-            torch.cuda.synchronize()
-            errs["K4post_f"].append(_check(f"post out primal rows={PRIMAL_ROWS}", out, ref, rel=False))
-            k_ms = _time_ms(lambda: fb._launch_post_fwd([a], [h], posts[:1], "gelu", False, "K4post_f"))
-            p_ms = _time_ms(lambda: fb.post_fwd_plain(a, h, *posts[0], "gelu", False))
+        # Timing at the paths' shapes (gelu, skip_input_grad): kernel, plain, library.
+        for rows, tag in ((BLOCK_ROWS, ""), (TL_MB_ROWS, "tl_"))[: 2 if k == "K4" else 1]:
+            xs = [obs(rows) for _ in range(chains)]
+            attns, hs_in = [attn_in(rows) for _ in range(chains)], [residual(rows) for _ in range(chains)]
+            refs = [fb.pre_fwd_plain(x, *ps) for x, ps in zip(xs, pres)]
+            prefs = [fb.post_fwd_plain(a, h, *ps, "gelu", True) for a, h, ps in zip(attns, hs_in, posts)]
+            ghs = [cot(rows, T_EMBED, torch.float32) for _ in range(chains)]
+            gqkvs = [cot(rows, 3 * T_EMBED) for _ in range(chains)]
+            gs = [cot(rows, T_EMBED) for _ in range(chains)]
+            pre16 = [(ps[0], ps[1], ps[2], ps[3], torch.cat(ps[4:7]), torch.cat(ps[7:10])) for ps in pres]
+            pre16 = [[t.to(torch.bfloat16).requires_grad_() for t in ps] for ps in pre16]
+            post16 = [[t.to(torch.bfloat16).requires_grad_() for t in ps] for ps in posts]
+            x16 = [x.to(torch.bfloat16) for x in xs]
+            a16 = [a.to(torch.bfloat16).requires_grad_() for a in attns]
+            h16 = [h.to(torch.bfloat16).requires_grad_() for h in hs_in]
+            timed = {
+                "pre_f": (lambda: fb._launch_pre_fwd(xs, pres, f"{k}pre_f"),
+                          lambda: [fb.pre_fwd_plain(x, *ps) for x, ps in zip(xs, pres)]),
+                "pre_b": (lambda: fb._launch_pre_bwd(xs, [r[0] for r in refs], ghs, gqkvs, pres, True, f"{k}pre_b"),
+                          lambda: [bwd_plain_pre(x, r[0], gh, gq, ps, True)
+                                   for x, r, gh, gq, ps in zip(xs, refs, ghs, gqkvs, pres)]),
+                "post_f": (lambda: fb._launch_post_fwd(attns, hs_in, posts, "gelu", True, f"{k}post_f"),
+                           lambda: [fb.post_fwd_plain(a, h, *ps, "gelu", True) for a, h, ps in zip(attns, hs_in, posts)]),
+                "post_b": (lambda: fb._launch_post_bwd(attns, gs, [r[1] for r in prefs], [r[2] for r in prefs],
+                                                       [post_w(ps) for ps in posts], "gelu", f"{k}post_b"),
+                           lambda: [fb.post_bwd_plain(a, g, r[1], r[2], *post_w(ps), "gelu")
+                                    for a, g, r, ps in zip(attns, gs, prefs, posts)]),
+            }
             with torch.no_grad():
-                l_ms = _time_ms(lambda: _library_block("post", a.to(torch.bfloat16), h.to(torch.bfloat16), None,
-                                                       post16[0]))
-            bound, _ = _bound_ms(*_block_work("post_f", PRIMAL_ROWS, 1, save=False))
-            print(f"    K4post_f primal rows={PRIMAL_ROWS}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-                  f"library_ms={l_ms:.4f} bound_ms={bound:.4f}")
-            results["K4post_f"].update(primal_ms=k_ms, primal_plain_ms=p_ms, primal_library_ms=l_ms,
-                                       primal_bound_ms=bound)
+                lib_f = {"pre_f": lambda: [_library_block("pre", x, None, p, None) for x, p in zip(x16, pre16)],
+                         "post_f": lambda: [_library_block("post", a, h, None, p) for a, h, p in zip(a16, h16, post16)]}
+                lib_ms = {op: _time_ms(fn) for op, fn in lib_f.items()}
+            with torch.enable_grad():
+                pre_out = [_library_block("pre", x, None, p, None) for x, p in zip(x16, pre16)]
+                pre_in = [t for p in pre16 for t in p]
+                pre_g = [g for gh, gq in zip(ghs, gqkvs) for g in (gh.to(torch.bfloat16), gq)]
+                lib_ms["pre_b"] = _time_ms(lambda: torch.autograd.grad([t for o in pre_out for t in o], pre_in, pre_g,
+                                                                       retain_graph=True))
+                post_out = [_library_block("post", a, h, None, p)[0] for a, h, p in zip(a16, h16, post16)]
+                post_in = [*a16, *h16, *(t for p in post16 for t in p)]
+                lib_ms["post_b"] = _time_ms(lambda: torch.autograd.grad(post_out, post_in, gs, retain_graph=True))
+            for op, (kernel_fn, plain_fn) in timed.items():
+                key = f"{k}{op}"
+                k_ms, p_ms = _time_ms(kernel_fn), _time_ms(plain_fn)
+                bound, by = _bound_ms(*_block_work(op, rows, chains))
+                print(f"    {key} rows={rows}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={lib_ms[op]:.4f} "
+                      f"bound_ms={bound:.4f} ({by})")
+                fields = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms[op], bound_ms=bound, bound_by=by,
+                              shape=f"{chains} x {rows} rows, 48 -> 128 (3 x 128), FFN 512 gelu"
+                              + (", skip_input_grad" if op == "pre_b" else "")
+                              + (", saves r1 and z1" if op == "post_f" else ""))
+                results.setdefault(key, {}).update({tag + f: v for f, v in fields.items()})
+        if k == "K4":  # the value, next-token and KL passes: pre, and post saving nothing
+            for rows, tag in ((PRIMAL_ROWS, "primal_"), (TL_PRIMAL_ROWS, "tl_primal_")):
+                x, a, h = obs(rows), attn_in(rows), residual(rows)
+                (hh,), (qkv,) = fb._launch_pre_fwd([x], pres[:1], "K4pre_f")
+                rh, rqkv = fb.pre_fwd_plain(x, *pres[0])
+                errs["K4pre_f"].append(_check(f"pre h primal rows={rows}", hh, rh, rel=False))
+                errs["K4pre_f"].append(_check(f"pre qkv primal rows={rows}", qkv, rqkv, rel=False))
+                ref = fb.post_fwd_plain(a, h, *posts[0], "gelu", False)[0]
+                out = fb._launch_post_fwd([a], [h], posts[:1], "gelu", False, "K4post_f")[0][0]
+                errs["K4post_f"].append(_check(f"post out primal rows={rows}", out, ref, rel=False))
+                x16, a16, h16 = x.to(torch.bfloat16), a.to(torch.bfloat16), h.to(torch.bfloat16)
+                primal = {
+                    "K4pre_f": (lambda: fb._launch_pre_fwd([x], pres[:1], "K4pre_f"),
+                                lambda: fb.pre_fwd_plain(x, *pres[0]),
+                                lambda: _library_block("pre", x16, None, pre16[0], None),
+                                _block_work("pre_f", rows, 1)),
+                    "K4post_f": (lambda: fb._launch_post_fwd([a], [h], posts[:1], "gelu", False, "K4post_f"),
+                                 lambda: fb.post_fwd_plain(a, h, *posts[0], "gelu", False),
+                                 lambda: _library_block("post", a16, h16, None, post16[0]),
+                                 _block_work("post_f", rows, 1, save=False)),
+                }
+                for key, (kernel_fn, plain_fn, library_fn, work) in primal.items():
+                    k_ms, p_ms = _time_ms(kernel_fn), _time_ms(plain_fn)
+                    with torch.no_grad():
+                        l_ms = _time_ms(library_fn)
+                    bound, by = _bound_ms(*work)
+                    print(f"    {key} primal rows={rows}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                          f"library_ms={l_ms:.4f} bound_ms={bound:.4f} ({by})")
+                    results[key].update({tag + "ms": k_ms, tag + "plain_ms": p_ms, tag + "library_ms": l_ms,
+                                         tag + "bound_ms": bound})
     for key in results:
         results[key]["max_abs_err"] = max(errs[key])
     return results
@@ -1464,15 +1742,17 @@ def _slice_factory(**overrides):
     return PpoAgentFactory(**kwargs)
 
 
-PATHS = ("A", "B", "C")
+PATHS = ("A", "B", "C", "CM")
 PATH_NAMES = {"A": "zoo Velocity-Rough ppo", "B": "A + fuse_heads (K8)", "C": "A + fused_ppo_update (K9)",
+              "CM": "C in mono mode (K9m)",
               "T": "zoo Velocity-Flat transformer_ppo, modular route", "TF": "zoo Velocity-Flat transformer_ppo",
-              "TJ": "TF + fuse_actor_critic_evaluation (K5)"}
-# The route each transformer path runs: T the modular one, TF and TJ the default.
-PATH_ROUTES = {"T": "0", "TF": None, "TJ": None}
+              "TJ": "TF + fuse_actor_critic_evaluation (K5)", "TL": "TF with 256-step rollouts (K7)"}
+# The route each transformer path runs: T the modular one, TF, TJ and TL the default.
+PATH_ROUTES = {"T": "0", "TF": None, "TJ": None, "TL": None}
+PATH_STEPS = {"TL": TL_STEPS}  # rollout steps per iteration; STEPS elsewhere
 MB = EPOCHS * MINIBATCHES
-_NONE = {"K1f": 0, "K1b": 0, "K2f": 0, "K2b": 0, "K8f": 0, "K8b": 0, "K9s": 0, "K3f": 0, "K3b": 0, "K6": 0,
-         **{key: 0 for key in BLOCK_REPLACES}}
+_NONE = {"K1f": 0, "K1b": 0, "K2f": 0, "K2b": 0, "K8f": 0, "K8b": 0, "K9s": 0, "K9m": 0, "K3f": 0, "K3b": 0, "K6": 0,
+         "K7f": 0, **{key: 0 for key in BLOCK_REPLACES}}
 # One update of TF: per minibatch the actor and the critic each run K4 pre
 # and post forward and backward, K3f/K3b and the head's K1f/K1b; the value
 # pass and its next-token pass (K6) and the KL pass run K4's forwards (post
@@ -1483,10 +1763,16 @@ _TF_UPDATE = {"K1f": 3 + 2 * MB, "K1b": 2 * MB, "K3f": 2 + 2 * MB, "K3b": 2 * MB
               "K4pre_f": 3 + 2 * MB, "K4post_f": 3 + 2 * MB, "K4pre_b": 2 * MB, "K4post_b": 2 * MB}
 _TJ_UPDATE = {"K1f": 3, "K2f": MB, "K2b": MB, "K3f": 2 + 2 * MB, "K3b": 2 * MB, "K6": 1, "K4pre_f": 3,
               "K4post_f": 3, "K5pre_f": MB, "K5pre_b": MB, "K5post_f": MB, "K5post_b": MB}
+# TL is TF with T = 256 > 64: every sequence pass's attention is K7f (its
+# backward recomputes through the plain version: no launch), and the
+# next-token pass takes the plain version (no K6).
+_TL_UPDATE = {"K1f": 3 + 2 * MB, "K1b": 2 * MB, "K7f": 2 + 2 * MB, "K4pre_f": 3 + 2 * MB, "K4post_f": 3 + 2 * MB,
+              "K4pre_b": 2 * MB, "K4post_b": 2 * MB}
 EXPECTED_ZOO_LAUNCHES = {  # per training iteration
     "A": {**_NONE, "K1f": STEPS + 3, "K2f": MB, "K2b": MB},
     "B": {**_NONE, "K1f": STEPS + 3, "K8f": MB, "K8b": MB},
     "C": {**_NONE, "K1f": STEPS + 3, "K2f": MB, "K9s": MB},
+    "CM": {**_NONE, "K1f": STEPS + 3, "K9m": MB},
     # Path T: the actor's FFN (K1 gelu) and MLP head (K1 elu) per rollout
     # step; the value pass (sequence: K3f, FFN, head) and its next-token pass
     # (K6, FFN, head); per minibatch the actor and the critic in sequence
@@ -1497,33 +1783,38 @@ EXPECTED_ZOO_LAUNCHES = {  # per training iteration
     # runs the FFN and the head through K1f.
     "TF": {**_NONE, **_TF_UPDATE, "K1f": 2 * STEPS + _TF_UPDATE["K1f"]},
     "TJ": {**_NONE, **_TJ_UPDATE, "K1f": 2 * STEPS + _TJ_UPDATE["K1f"]},
+    "TL": {**_NONE, **_TL_UPDATE, "K1f": 2 * TL_STEPS + _TL_UPDATE["K1f"]},
 }
 
 
 def _launch_counts() -> dict:
+    from cusrl_tpu_torch.nn.kernels import banded_attention as ba
     from cusrl_tpu_torch.nn.kernels import fused_block as fb
     from cusrl_tpu_torch.nn.kernels import fused_mlp as fm
     from cusrl_tpu_torch.nn.kernels import lane_attention as la
 
-    return {**fm.LAUNCHES, **la.LAUNCHES, **fb.LAUNCHES}
+    return {**fm.LAUNCHES, **la.LAUNCHES, **ba.LAUNCHES, **fb.LAUNCHES}
 
 
 def _reset_launch_counts() -> None:
+    from cusrl_tpu_torch.nn.kernels import banded_attention as ba
     from cusrl_tpu_torch.nn.kernels import fused_block as fb
     from cusrl_tpu_torch.nn.kernels import fused_mlp as fm
     from cusrl_tpu_torch.nn.kernels import lane_attention as la
 
     fm.reset_launch_counts()
     la.reset_launch_counts()
+    ba.reset_launch_counts()
     fb.reset_launch_counts()
 
 
 def _with_path(agent_factory, path: str):
     """The zoo's agent factory for path A, B (joint evaluation with the heads
-    in the kernel) or C (the fused PPO update)."""
+    in the kernel), C or CM (the fused PPO update; CM runs it in mono mode,
+    set with ``_ppo_mode`` around the run)."""
     from cusrl_tpu_torch.hook.on_policy.joint_eval import JointPolicyValueEvaluation
 
-    if path == "C":
+    if path in ("C", "CM"):
         agent_factory.fused_ppo_update = True
     if path != "B":
         return agent_factory
@@ -1538,13 +1829,14 @@ def check_update_against_cpu(path: str) -> None:
     environments: every backbone call is large enough for the kernels), on
     the card and through the plain CPU path, same weights, rollout (dones
     mid-rollout), rollout-initial memories and permutations, for the slice-1
-    configuration, the zoo's paths A, B and C, path T (the modular route on
-    both sides) and paths TF and TJ (the card's default route against the
-    CPU under ``force``: the fused block's plain versions).  Metrics agree
+    configuration, the zoo's paths A, B, C and CM (C in mono mode on both
+    sides), path T (the modular route on both sides) and paths TF, TJ and TL
+    (the card's default route against the CPU under ``force``: the fused
+    block's plain versions; TL at 256 steps on 32 environments).  Metrics agree
     within bf16 rounding carried through 20 Adam steps (rtol 2e-2, atol
     2e-3): KL and the importance-weighted advantage are small differences of
     nearly equal terms, and the CPU side's matmuls block differently on each
-    host.  TF and TJ update at lr 1e-4: at the zoo's 1e-3 one update moves
+    host.  TF, TJ and TL update at lr 1e-4: at the zoo's 1e-3 one update moves
     the fresh policy to KL 0.19, and its metrics amplify rounding (on the
     CPU the fused and the modular route, the same arithmetic rounded in
     another order, read the importance-weighted advantage 3.0 % apart at
@@ -1553,7 +1845,9 @@ def check_update_against_cpu(path: str) -> None:
 
     from cusrl_tpu_torch.zoo.registry import get_experiment
 
-    steps, envs = 8, 256
+    # TL keeps its 256-step rollout (T > 64: the banded route) on 32
+    # environments: 8 per minibatch, 2,048 rows.
+    steps, envs = (TL_STEPS, 32) if path == "TL" else (8, 256)
     if path == "slice 1":
         factory, expected = _slice_factory(num_steps_per_update=steps), {"K1f": 3, "K2f": MB, "K2b": MB}
     elif path in PATH_ROUTES:
@@ -1564,9 +1858,9 @@ def check_update_against_cpu(path: str) -> None:
             factory.lr = 1e-4
         # T: the value pass (K3f, FFN, head) and its next-token pass (K6,
         # FFN, head); per minibatch actor and critic forward and backward;
-        # the KL pass.  TF and TJ: one training iteration's update.
+        # the KL pass.  TF, TJ and TL: one training iteration's update.
         expected = {"T": {"K1f": 4 + 4 * MB + 2, "K1b": 4 * MB, "K3f": 2 + 2 * MB, "K3b": 2 * MB, "K6": 1},
-                    "TF": _TF_UPDATE, "TJ": _TJ_UPDATE}[path]
+                    "TF": _TF_UPDATE, "TJ": _TJ_UPDATE, "TL": _TL_UPDATE}[path]
     else:
         zoo = get_experiment("Velocity-Rough", "ppo").make_agent_factory()
         zoo.num_steps_per_update = steps
@@ -1583,7 +1877,7 @@ def check_update_against_cpu(path: str) -> None:
     metrics, state = {}, None
     fused = path in PATH_ROUTES and PATH_ROUTES[path] is None
     for device, route in (("cpu", "force" if fused else PATH_ROUTES.get(path)), ("cuda", PATH_ROUTES.get(path))):
-        with _fused_route(route):
+        with _fused_route(route), _ppo_mode("mono" if path == "CM" else "split"):
             metrics[device], initial = _small_update(factory, device, state, obs, terminated, truncated, done, perms)
         state = state or initial
     launched = {k: v for k, v in _launch_counts().items() if v}
@@ -1664,7 +1958,7 @@ def train(kind: str) -> None:
 
     expected = {k: v * TIMED_ITERATIONS for k, v in EXPECTED_LAUNCHES_PER_ITERATION.items()}
     print(f"[train] launches over {TIMED_ITERATIONS} iterations: {launches} (expected {expected})")
-    if launches != expected or any(fm.LAUNCHES[k] for k in ("K8f", "K8b", "K9s")):
+    if launches != expected or any(fm.LAUNCHES[k] for k in ("K8f", "K8b", "K9s", "K9m")):
         raise AssertionError("the training loop did not launch the kernels the expected number of times")
     for i, (aggregates, metrics) in enumerate(history):
         values = {k: float(v) for k, v in metrics.items()}
@@ -1676,15 +1970,17 @@ def train(kind: str) -> None:
 
 
 def train_zoo(kind: str, path: str):
-    """Path A, B or C built through the port's zoo,
+    """Path A, B, C or CM built through the port's zoo,
     ``get_experiment("Velocity-Rough", "ppo").to_training_factory()``, on the
     card: 4,096 environments, ``iterations_per_dispatch=10``, observation
-    normalization and the KL-adaptive learning rate; or path T, TF or TJ,
+    normalization and the KL-adaptive learning rate (CM: C with
+    ``fused_ppo_step._PPO_MODE = "mono"``); or path T, TF, TJ or TL,
     ``get_experiment("Velocity-Flat", "transformer_ppo")``: 1,024
     environments, the same chunking, normalization and schedule, on the
     modular route (T, ``CUSRL_TPU_FUSED_TRANSFORMER=0``), the default route
-    (TF) or the default route with ``fuse_actor_critic_evaluation=True``
-    set on the agent factory (TJ).  One warm-up chunk, then
+    (TF), the default route with ``fuse_actor_critic_evaluation=True``
+    set on the agent factory (TJ) or with ``num_steps_per_update=256``
+    (TL).  One warm-up chunk, then
     one timed chunk through ``Trainer.rollout_and_update`` with the launch
     counters set to 0 just before and read just after, PyTorch's sync debug
     mode on (no synchronizing call but the chunk's one host transfer) and
@@ -1694,12 +1990,13 @@ def train_zoo(kind: str, path: str):
     if path in PATH_ROUTES:
         factory, envs = get_experiment("Velocity-Flat", "transformer_ppo").to_training_factory(), T_ENVS
         factory.agent.fuse_actor_critic_evaluation = path == "TJ"
+        factory.agent.num_steps_per_update = PATH_STEPS.get(path, STEPS)
     else:
         factory, envs = get_experiment("Velocity-Rough", "ppo").to_training_factory(), NUM_ENVS
         factory.agent = _with_path(factory.agent, path)
     chunk = factory.iterations_per_dispatch
     factory.num_iterations = 2 * chunk
-    with _fused_route(PATH_ROUTES.get(path)):
+    with _fused_route(PATH_ROUTES.get(path)), _ppo_mode("mono" if path == "CM" else "split"):
         return _train_chunks(kind, path, factory, envs, chunk)
 
 
@@ -1708,6 +2005,7 @@ def _train_chunks(kind: str, path: str, factory, envs: int, chunk: int):
 
     import torch
 
+    steps = PATH_STEPS.get(path, STEPS)
     trainer = factory(verbose=False, seed=SEED)  # device defaults to the card
     if trainer.environment.num_instances != envs or chunk != 10 or trainer.agent.device.type != "cuda":
         raise AssertionError("the zoo entry is not the uncut configuration on the card")
@@ -1742,13 +2040,13 @@ def _train_chunks(kind: str, path: str, factory, envs: int, chunk: int):
         if not all(math.isfinite(v) for v in row.values()):
             raise AssertionError(f"non-finite metrics at iteration {i}: {row}")
     print("    last iteration: " + " ".join(f"{k}={v:.5g}" for k, v in sorted(rows[-1].items())))
-    steps_per_s = chunk * STEPS * envs / elapsed
+    steps_per_s = chunk * steps * envs / elapsed
     print(f"[train-zoo] {path}: {steps_per_s:.1f} env-steps/s ({elapsed / chunk * 1e3:.2f} ms per iteration) on {kind}")
-    profile_iteration(trainer.driver, path)
+    profile_iteration(trainer.driver, path, steps)
     return launches, steps_per_s
 
 
-def profile_iteration(driver, label: str) -> None:
+def profile_iteration(driver, label: str, steps: int = STEPS) -> None:
     """Device time by kernel over one training iteration (torch.profiler),
     and the device's idle share of the iteration's wall time."""
     import torch
@@ -1757,7 +2055,7 @@ def profile_iteration(driver, label: str) -> None:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        driver.collect_and_update(STEPS)
+        driver.collect_and_update(steps)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
     rows = []
@@ -1809,6 +2107,7 @@ def main() -> int:
     results = check_kernels(device)
     results.update(check_head_kernels(device))
     results.update(check_lane_kernels(device))
+    results.update(check_banded_kernels(device))
     results.update(check_block_kernels(device))
     gelu = check_gelu_kernels(device)
     # K1b's ELU timing at the MLP's widths is off every path: kept under its own name.
@@ -1817,6 +2116,9 @@ def main() -> int:
     for key, fields in gelu.items():
         results[key].update(fields)
         results[key]["max_abs_err"] = max(results[key]["max_abs_err"], fields["gelu_max_abs_err"])
+    for key, fields in check_tl_head_kernels(device).items():
+        results[key].update(fields)
+        results[key]["max_abs_err"] = max(results[key]["max_abs_err"], fields["tl_head_max_abs_err"])
     for key, err in (*check_wrappers(device).items(), *check_head_wrappers(device).items()):
         results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
     for key, err in check_block_wrappers(device).items():
@@ -1829,9 +2131,9 @@ def main() -> int:
         path_launches[path], _ = train_zoo(kind, path)
 
     kernels = []
-    main_path = {"K8f": "B", "K8b": "B", "K9s": "C", "K1b": "T", "K3f": "TF", "K3b": "TF", "K6": "TF",
-                 **{key: ("TF" if key.startswith("K4") else "TJ") for key in BLOCK_REPLACES}}
-    for key in ("K1f", "K1b", "K2f", "K2b", "K8f", "K8b", "K9s", "K3f", "K3b", "K6", *BLOCK_REPLACES):
+    main_path = {"K8f": "B", "K8b": "B", "K9s": "C", "K9m": "CM", "K1b": "T", "K3f": "TF", "K3b": "TF", "K6": "TF",
+                 "K7f": "TL", **{key: ("TF" if key.startswith("K4") else "TJ") for key in BLOCK_REPLACES}}
+    for key in ("K1f", "K1b", "K2f", "K2b", "K8f", "K8b", "K9s", "K9m", "K3f", "K3b", "K6", "K7f", *BLOCK_REPLACES):
         r = results[key]
         path = main_path.get(key, "A")
         kernels.append({
@@ -1841,15 +2143,11 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"], "path": f"{path}: {PATH_NAMES[path]}",
             "launches_by_path": {p_: path_launches[p_][key] for p_ in path_launches if path_launches[p_][key]},
-            **{k: v for k, v in r.items() if k.startswith(("gelu", "primal", "offpath"))},
+            **{k: v for k, v in r.items() if k.startswith(("gelu", "primal", "offpath", "tl_"))},
             "status": "ported and checked",
         })
-    not_ported = []
-    for key, where in NOT_PORTED.items():
-        print(f"[kernels] {key} ({where}): not ported")
-        not_ported.append({"name": key, "replaces": where, "status": "not ported"})
     print(smi)
-    print(json.dumps({"kernels": kernels, "not_ported": not_ported}))
+    print(json.dumps({"kernels": kernels, "not_ported": []}))  # every TPU kernel has its counterpart
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 

@@ -231,6 +231,60 @@ __device__ void gemm_chunk(const bf16* A, int K, const float* __restrict__ W, in
   __syncthreads();
 }
 
+// The whole chain `c` on the 64-row tile at row0 (the forward of K1f, K2f,
+// K8f and K9m).  `smem` holds two activation tiles (ping-pong), a staged
+// weight slice and an fp32 staging tile (SMEM_BYTES).  Writes the chain output
+// where c.h[L-1] is set, and with save_hiddens every layer's saved value
+// (post-activation, for gelu the pre-activation).  Returns the index of the
+// activation tile that holds the chain output, complete for every thread only
+// after a block barrier.
+__device__ __forceinline__ int chain_forward_tile(const MlpParams& p, const MlpChain& c, int row0,
+                                                   unsigned char* smem) {
+  bf16* act[2] = {reinterpret_cast<bf16*>(smem), reinterpret_cast<bf16*>(smem + ACT_BYTES)};
+  bf16* ws = reinterpret_cast<bf16*>(smem + 2 * ACT_BYTES);
+  float* stg = reinterpret_cast<float*>(smem + 2 * ACT_BYTES + WS_BYTES);
+  const int n_rows = p.num_rows;
+  const int num_layers = p.num_layers;
+
+  // x tile -> bf16 activation tile (rows past the end are zero).
+  const int in0 = p.dims[0];
+  for (int i = threadIdx.x; i < BM * in0; i += THREADS) {
+    const int r = i / in0, k = i % in0;
+    const int gr = row0 + r;
+    float v = 0.f;
+    if (gr < n_rows) {
+      v = p.x_is_bf16 ? __bfloat162float(reinterpret_cast<const bf16*>(c.x)[size_t(gr) * in0 + k])
+                      : reinterpret_cast<const float*>(c.x)[size_t(gr) * in0 + k];
+    }
+    act[0][r * HLD + k] = __float2bfloat16(v);
+  }
+
+  int cur = 0;
+  for (int l = 0; l < num_layers; ++l) {
+    const int K = p.dims[l], n_out = p.dims[l + 1];
+    const bool apply_act = (l < num_layers - 1) || p.trailing;
+    bf16* out = reinterpret_cast<bf16*>(c.h[l]);
+    const bool write_global = out != nullptr && ((l == num_layers - 1) || p.save_hiddens);
+    const float* W = reinterpret_cast<const float*>(c.w[l]);
+    const float* bias = reinterpret_cast<const float*>(c.b[l]);
+    for (int n0 = 0; n0 < n_out; n0 += NC) {
+      gemm_chunk<true>(act[cur], K, W, K, n0, n_out, ws, stg);
+      const int ncols = min(NC, n_out - n0);
+      for (int i = threadIdx.x; i < BM * ncols; i += THREADS) {
+        const int r = i / ncols, j = i % ncols;
+        const float zb = bf16_round(stg[r * SLD + j] + bias[n0 + j]);
+        const bf16 hb = __float2bfloat16(apply_act ? act_fwd(p.activation, zb) : zb);
+        act[cur ^ 1][r * HLD + n0 + j] = hb;
+        const int gr = row0 + r;
+        if (write_global && gr < n_rows)
+          out[size_t(gr) * n_out + n0 + j] = apply_act ? saved_value(p.activation, __float2bfloat16(zb), hb) : hb;
+      }
+    }
+    cur ^= 1;
+  }
+  return cur;
+}
+
 }  // namespace mlp
 
 extern "C" const char* mlp_chain_error_string(int code);

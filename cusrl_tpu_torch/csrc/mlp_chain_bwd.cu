@@ -1,13 +1,27 @@
 // mlp_chain_bwd: gradient of the Linear+activation chain from the saved
 // post-activations, for one chain (K1b) or two chains selected by blockIdx.y
 // (K2b); with fp32 heads on the two chains' outputs (K8b); or with the heads
-// and the PPO + value loss computed from the saved activations (K9s).
+// and the PPO + value loss computed from the saved activations (K9s); or the
+// whole PPO step, forward included, per row tile in one launch (K9m).
 //
 // Replaces the Pallas kernels cusrl_tpu/nn/kernels/fused_mlp.py:_bwd_kernel
 // (via _run_bwd), _pair_bwd_kernel (via _pair_run_bwd) and
 // _pair_heads_bwd_kernel (via _pair_heads_run_bwd), and
 // cusrl_tpu/nn/kernels/fused_ppo_step.py:_loss_bwd_kernel (via _run_loss_bwd,
-// the split mode of fused_ppo_step).
+// the split mode of fused_ppo_step) and _ppo_step_kernel (via _run_ppo_step,
+// the mono mode, CUSRL_TPU_PPO_MODE=mono).
+//
+// K9m (mlp_ppo_step): the losses are separable per row and per chain (the
+// surrogate needs only the actor's mean, the value loss only the critic's
+// value), so one phase-1 block per (row tile, chain) runs that chain's whole
+// forward on its 64-row tile (chain_forward_tile, K2f's code: the activation
+// tile never leaves shared memory between layers), then after a block barrier
+// the heads, the loss and the backward of the same tile (K9s's phase 1).  The
+// forward writes each layer's bf16 activation to device memory on the way,
+// since the backward's activation derivatives and phase 2's dW products read
+// them; nothing is read from an earlier launch.  Phase 2 is K9s's, as the
+// second kernel of the same call.  With the same per-tile code on both sides,
+// mono and split (K2f + K9s) give the same numbers.
 //
 // K8b and K9s add a prologue to phase 1 (head_prologue): per 64-row tile the
 // latent is staged in shared memory; K9s first runs the heads' forward, the
@@ -55,9 +69,15 @@
 // the cotangent) plus the D_l round trip: compute bound by the roofline.
 // K8b and K9s add 2 * 2 * (A + Dv) * 128 FLOP per row for the heads (and, for
 // K9s, a few dozen per action for the loss), so at the main-path shape they
-// are bound as K2b is: ~34.6 GFLOP, 0.035 ms at 24,576 rows.
+// are bound as K2b is: ~34.6 GFLOP, 0.035 ms at 24,576 rows.  K9m adds the
+// forward's 2 * 188,416 FLOP per row per chain (~53 GFLOP, 0.054 ms at 24,576
+// rows).  Its bound counts only the bytes the function must move (x, the loss
+// rows and the outputs); the kernel itself still writes each layer's bf16
+// activation and reads it back, as split does.
 // Not yet done (later work): wgmma/TMA, splitting phase 2's row loop over more
-// blocks (it launches only as many blocks as there are 64x64 dW tiles).
+// blocks (it launches only as many blocks as there are 64x64 dW tiles), and
+// for K9m keeping the tile's activations in shared memory from the forward to
+// the backward instead of the device-memory round trip.
 #include "mlp_chain.cuh"
 
 namespace mlp {
@@ -259,14 +279,13 @@ __device__ void head_prologue(const MlpParams& p, const MlpChain& c, int chain, 
   }
 }
 
-__global__ void __launch_bounds__(THREADS) mlp_chain_bwd_rows_kernel(const MlpParams p) {
-  extern __shared__ __align__(128) unsigned char smem[];
+// Phase 1 of one row tile of chain `c` (blockIdx.y): the head prologue or the
+// upcast cotangent, then the gradient chain top layer down (module comment).
+__device__ void chain_backward_tile(const MlpParams& p, const MlpChain& c, int row0, unsigned char* smem) {
   bf16* dbuf[2] = {reinterpret_cast<bf16*>(smem), reinterpret_cast<bf16*>(smem + ACT_BYTES)};
   bf16* ws = reinterpret_cast<bf16*>(smem + 2 * ACT_BYTES);
   float* stg = reinterpret_cast<float*>(smem + 2 * ACT_BYTES + WS_BYTES);
 
-  const MlpChain& c = p.chain[blockIdx.y];
-  const int row0 = blockIdx.x * BM;
   const int num_layers = p.num_layers;
 
   if (p.head_mode != 0) {
@@ -311,6 +330,25 @@ __global__ void __launch_bounds__(THREADS) mlp_chain_bwd_rows_kernel(const MlpPa
     }
     cur ^= 1;
   }
+}
+
+__global__ void __launch_bounds__(THREADS) mlp_chain_bwd_rows_kernel(const MlpParams p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  chain_backward_tile(p, p.chain[blockIdx.y], blockIdx.x * BM, smem);
+}
+
+// K9m phase 1: the chain's forward on the row tile, writing every layer's
+// bf16 activation (save_hiddens), then, after a block barrier that makes
+// those writes visible to the whole block, the heads, the loss and the
+// backward of the same tile from them (K9s's phase 1).  Only this block
+// writes and reads its tile's rows.
+__global__ void __launch_bounds__(THREADS) mlp_ppo_step_rows_kernel(const MlpParams p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const MlpChain& c = p.chain[blockIdx.y];
+  const int row0 = blockIdx.x * BM;
+  chain_forward_tile(p, c, row0, smem);
+  __syncthreads();
+  chain_backward_tile(p, c, row0, smem);
 }
 
 // Phase 2 of the heads: each thread sums one column of the chain's per-tile
@@ -423,16 +461,17 @@ extern "C" const char* mlp_chain_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Launches both phases for `num_chains` (1 or 2) chains on `stream`; returns
-// cudaGetLastError() after the launches (0 on success).
-extern "C" int mlp_chain_bwd(const MlpParams* p, int num_chains, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(mlp::mlp_chain_bwd_rows_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+namespace {
+
+// Launches phase 1 (`rows_kernel`) and phase 2 for `num_chains` (1 or 2)
+// chains on `stream`; returns cudaGetLastError() after the launches.
+int launch_phases(void (*rows_kernel)(const MlpParams), const MlpParams* p, int num_chains, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(mlp::SMEM_BYTES));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int row_tiles = (p->num_rows + mlp::BM - 1) / mlp::BM;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  mlp::mlp_chain_bwd_rows_kernel<<<dim3(row_tiles, num_chains), mlp::THREADS, mlp::SMEM_BYTES, s>>>(*p);
+  rows_kernel<<<dim3(row_tiles, num_chains), mlp::THREADS, mlp::SMEM_BYTES, s>>>(*p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   int dw_tiles = 0;
@@ -443,4 +482,19 @@ extern "C" int mlp_chain_bwd(const MlpParams* p, int num_chains, void* stream) {
     head_blocks = max(head_blocks, (p->head[c].stride + mlp::THREADS - 1) / mlp::THREADS);
   mlp::mlp_chain_bwd_dw_kernel<<<dim3(dw_tiles + head_blocks, num_chains), mlp::THREADS, 0, s>>>(*p, row_tiles);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K1b, K2b, K8b, K9s: both phases from saved activations (0 on success).
+extern "C" int mlp_chain_bwd(const MlpParams* p, int num_chains, void* stream) {
+  return launch_phases(mlp::mlp_chain_bwd_rows_kernel, p, num_chains, stream);
+}
+
+// K9m: both chains' forward, heads, loss and backward per row tile in one
+// phase-1 launch (head_mode 2, save_hiddens, the biases and every h[l] set),
+// then phase 2 (0 on success).
+extern "C" int mlp_ppo_step(const MlpParams* p, void* stream) {
+  if (p->head_mode != 2 || !p->save_hiddens || !p->skip_input_grad) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_phases(mlp::mlp_ppo_step_rows_kernel, p, 2, stream);
 }

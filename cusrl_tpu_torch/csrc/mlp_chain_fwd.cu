@@ -43,64 +43,23 @@ namespace mlp {
 
 __global__ void __launch_bounds__(THREADS) mlp_chain_fwd_kernel(const MlpParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* act[2] = {reinterpret_cast<bf16*>(smem), reinterpret_cast<bf16*>(smem + ACT_BYTES)};
-  bf16* ws = reinterpret_cast<bf16*>(smem + 2 * ACT_BYTES);
-  float* stg = reinterpret_cast<float*>(smem + 2 * ACT_BYTES + WS_BYTES);
-
-  const MlpChain& c = p.chain[blockIdx.y];
   const int row0 = blockIdx.x * BM;
   const int n_rows = p.num_rows;
-  const int num_layers = p.num_layers;
-
-  // x tile -> bf16 activation tile (rows past the end are zero).
-  const int in0 = p.dims[0];
-  for (int i = threadIdx.x; i < BM * in0; i += THREADS) {
-    const int r = i / in0, k = i % in0;
-    const int gr = row0 + r;
-    float v = 0.f;
-    if (gr < n_rows) {
-      v = p.x_is_bf16 ? __bfloat162float(reinterpret_cast<const bf16*>(c.x)[size_t(gr) * in0 + k])
-                      : reinterpret_cast<const float*>(c.x)[size_t(gr) * in0 + k];
-    }
-    act[0][r * HLD + k] = __float2bfloat16(v);
-  }
-
-  int cur = 0;
-  for (int l = 0; l < num_layers; ++l) {
-    const int K = p.dims[l], n_out = p.dims[l + 1];
-    const bool apply_act = (l < num_layers - 1) || p.trailing;
-    bf16* out = reinterpret_cast<bf16*>(c.h[l]);
-    const bool write_global = out != nullptr && ((l == num_layers - 1) || p.save_hiddens);
-    const float* W = reinterpret_cast<const float*>(c.w[l]);
-    const float* bias = reinterpret_cast<const float*>(c.b[l]);
-    for (int n0 = 0; n0 < n_out; n0 += NC) {
-      gemm_chunk<true>(act[cur], K, W, K, n0, n_out, ws, stg);
-      const int ncols = min(NC, n_out - n0);
-      for (int i = threadIdx.x; i < BM * ncols; i += THREADS) {
-        const int r = i / ncols, j = i % ncols;
-        const float zb = bf16_round(stg[r * SLD + j] + bias[n0 + j]);
-        const bf16 hb = __float2bfloat16(apply_act ? act_fwd(p.activation, zb) : zb);
-        act[cur ^ 1][r * HLD + n0 + j] = hb;
-        const int gr = row0 + r;
-        if (write_global && gr < n_rows)
-          out[size_t(gr) * n_out + n0 + j] = apply_act ? saved_value(p.activation, __float2bfloat16(zb), hb) : hb;
-      }
-    }
-    cur ^= 1;
-  }
+  const int cur = chain_forward_tile(p, p.chain[blockIdx.y], row0, smem);
+  const bf16* latent_tile = reinterpret_cast<const bf16*>(smem + cur * ACT_BYTES);
 
   // K8f epilogue: the fp32 head on the latent tile, still in shared memory.
   const MlpHead& hd = p.head[blockIdx.y];
   if (p.head_mode == 1 && hd.dim > 0) {
-    __syncthreads();  // the last layer's epilogue wrote act[cur]
-    const int latent = p.dims[num_layers], dim = hd.dim;
+    __syncthreads();  // the last layer's epilogue wrote the latent tile
+    const int latent = p.dims[p.num_layers], dim = hd.dim;
     const float* W = reinterpret_cast<const float*>(hd.w);
     const float* bias = reinterpret_cast<const float*>(hd.b);
     float* out = reinterpret_cast<float*>(hd.out);
     for (int i = threadIdx.x; i < BM * dim; i += THREADS) {
       const int r = i / dim, o = i % dim;
       const int gr = row0 + r;
-      if (gr < n_rows) out[size_t(gr) * dim + o] = head_dot(act[cur] + r * HLD, W + size_t(o) * latent, latent, bias[o]);
+      if (gr < n_rows) out[size_t(gr) * dim + o] = head_dot(latent_tile + r * HLD, W + size_t(o) * latent, latent, bias[o]);
     }
   }
 }

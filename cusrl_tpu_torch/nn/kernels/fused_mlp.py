@@ -16,8 +16,9 @@ K8f   ``mlp_chain_fwd`` x2+heads  replaces ``_pair_heads_fwd_kernel`` (``_pair_h
 K8b   ``mlp_chain_bwd`` x2+heads  replaces ``_pair_heads_bwd_kernel`` (``_pair_heads_run_bwd``)
 ====  ==========================  ==============================================
 
-``mlp_chain_bwd`` with the PPO loss (K9s) is launched from
-``fused_ppo_step.py``; its count lives in ``LAUNCHES`` here too.  The heads
+``mlp_chain_bwd`` with the PPO loss (K9s), and ``mlp_ppo_step`` (K9m: the
+chains' forward, the loss and the backward in one launch), are launched from
+``fused_ppo_step.py``; their counts live in ``LAUNCHES`` here too.  The heads
 are fp32 islands: ``f32(latent) W^T + b`` with fp32 weights, and their
 backward keeps the latent's cotangent in fp32 until the activation derivative.
 
@@ -76,7 +77,7 @@ ROW_TILE = 64  # mlp::BM
 
 MAX_HEAD_DIM = 64  # mlp::MAX_HEAD_DIM
 
-LAUNCHES: dict[str, int] = {"K1f": 0, "K1b": 0, "K2f": 0, "K2b": 0, "K8f": 0, "K8b": 0, "K9s": 0}
+LAUNCHES: dict[str, int] = {"K1f": 0, "K1b": 0, "K2f": 0, "K2b": 0, "K8f": 0, "K8b": 0, "K9s": 0, "K9m": 0}
 
 
 def reset_launch_counts() -> None:
@@ -281,6 +282,9 @@ def _library(stem: str) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.mlp_chain_error_string.argtypes = [ctypes.c_int]
         lib.mlp_chain_error_string.restype = ctypes.c_char_p
+        if stem == "mlp_chain_bwd":
+            lib.mlp_ppo_step.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
+            lib.mlp_ppo_step.restype = ctypes.c_int
     return lib
 
 
@@ -392,14 +396,12 @@ def _launch_fwd(xs, wss, bss, activation, trailing, save_hiddens, counter, heads
     return outs, hiddens, head_outs
 
 
-def _launch_bwd(xs, gs, wss, hss, activation, trailing, skip_input_grad, counter, heads=None, loss=None):
-    """K1b/K2b from bf16 cotangents ``gs`` of the chain outputs.  With
-    ``heads`` (one ``(w [dim, latent], b, g [N, dim] fp32, gl [N, latent] or
-    None)`` per chain) K8b: the chains' cotangents come from the heads', and
-    each chain's result also carries the head's ``(dw, db)``.  With ``loss``
-    (``_LossArgs``) K9s: the heads' cotangents come from the PPO loss; the
-    loss's ``dstd`` and ``sums`` are filled in.  Returns
-    ``[(dx or None, dws, dbs, head_grads or None)]`` per chain."""
+def _bwd_params(xs, gs, wss, hss, activation, trailing, skip_input_grad, heads, loss):
+    """Checks the inputs of one ``mlp_chain_bwd`` or ``mlp_ppo_step`` launch
+    and fills its ``MlpParams``.  Returns ``(p, results, scratch)``:
+    ``results`` as ``_launch_bwd`` returns them (allocated, written by the
+    launch) and ``scratch`` the tensors the launch also reads or writes,
+    which must outlive it."""
     dims = _validate(xs, wss)
     num_layers, n = len(dims) - 1, xs[0].shape[0]
     device = xs[0].device
@@ -425,7 +427,7 @@ def _launch_bwd(xs, gs, wss, hss, activation, trailing, skip_input_grad, counter
             raise ValueError("saved activations must be bf16 [N, width] for every layer, on the inputs' device")
     row_tiles = -(-n // ROW_TILE)
     results = []
-    scratch = []
+    scratch = [xs, wss, hss, gs]
     p = _params(dims, n, activation, trailing)
     p.x_is_bf16 = int(xs[0].dtype == _BF16)
     p.skip_input_grad = int(skip_input_grad)
@@ -465,20 +467,61 @@ def _launch_bwd(xs, gs, wss, hss, activation, trailing, skip_input_grad, counter
         results.append((dx, dws, dbs, head_grads))
     if loss is not None:
         loss.fill(p.loss, n, heads[1][0].shape[0])
-    if n == 0:
-        for _, dws, dbs, head_grads in results:
-            for t in (*dws, *dbs, *(head_grads or ())):
-                t.zero_()
-        if loss is not None:
-            loss.dstd.zero_()
-            loss.sums.zero_()
-        return results
+    return p, results, scratch
+
+
+def _zeroed(results, loss):
+    """The results of a launch over no rows: every sum is 0."""
+    for _, dws, dbs, head_grads in results:
+        for t in (*dws, *dbs, *(head_grads or ())):
+            t.zero_()
+    if loss is not None:
+        loss.dstd.zero_()
+        loss.sums.zero_()
+    return results
+
+
+def _launch_bwd(xs, gs, wss, hss, activation, trailing, skip_input_grad, counter, heads=None, loss=None):
+    """K1b/K2b from bf16 cotangents ``gs`` of the chain outputs.  With
+    ``heads`` (one ``(w [dim, latent], b, g [N, dim] fp32, gl [N, latent] or
+    None)`` per chain) K8b: the chains' cotangents come from the heads', and
+    each chain's result also carries the head's ``(dw, db)``.  With ``loss``
+    (``_LossArgs``) K9s: the heads' cotangents come from the PPO loss; the
+    loss's ``dstd`` and ``sums`` are filled in.  Returns
+    ``[(dx or None, dws, dbs, head_grads or None)]`` per chain."""
+    p, results, scratch = _bwd_params(xs, gs, wss, hss, activation, trailing, skip_input_grad, heads, loss)
+    if xs[0].shape[0] == 0:
+        return _zeroed(results, loss)
     lib = _library("mlp_chain_bwd")
-    stream = torch.cuda.current_stream(device).cuda_stream
-    code = lib.mlp_chain_bwd(ctypes.byref(p), len(xs), stream)
+    code = lib.mlp_chain_bwd(ctypes.byref(p), len(xs), torch.cuda.current_stream(xs[0].device).cuda_stream)
     LAUNCHES[counter] += 1
     _check(lib, code, "mlp_chain_bwd")
     return results
+
+
+def _launch_ppo_step(xs, wss, bss, heads, loss, activation, trailing):
+    """K9m: in one launch, per row tile, both chains' forward from ``xs`` and
+    the biases ``bss``, then K9s's heads, loss and backward on the
+    activations just produced (no input gradient).  ``heads`` and ``loss`` as
+    ``_launch_bwd`` takes them for K9s.  Returns ``(results, hiddens)``:
+    ``[(None, dws, dbs, head_grads)]`` and the bf16 activations
+    ``[h_1..h_L]`` the launch wrote, per chain."""
+    dims = _validate(xs, wss, bss)
+    n, device = xs[0].shape[0], xs[0].device
+    hss = [[torch.empty(n, d, dtype=_BF16, device=device) for d in dims[1:]] for _ in xs]
+    p, results, scratch = _bwd_params(xs, None, wss, hss, activation, trailing, True, heads, loss)
+    bss = [[b.detach().contiguous() for b in bs] for bs in bss]
+    for i, bs in enumerate(bss):
+        for l, b in enumerate(bs):
+            p.chain[i].b[l] = b.data_ptr()
+    p.save_hiddens = 1
+    if n == 0:
+        return _zeroed(results, loss), hss
+    lib = _library("mlp_chain_bwd")
+    code = lib.mlp_ppo_step(ctypes.byref(p), torch.cuda.current_stream(device).cuda_stream)
+    LAUNCHES["K9m"] += 1
+    _check(lib, code, "mlp_ppo_step")
+    return results, hss
 
 
 # ---------------------------------------------------------------------------

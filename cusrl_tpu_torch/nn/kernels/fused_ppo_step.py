@@ -1,7 +1,7 @@
 """Fused PPO + value train step on Hopper (counterpart of
-``cusrl_tpu/nn/kernels/fused_ppo_step.py``, its default ``split`` mode).
+``cusrl_tpu/nn/kernels/fused_ppo_step.py``, in both of its modes).
 
-Split mode runs the pair forward with saved activations (K2f,
+Split mode (the default) runs the pair forward with saved activations (K2f,
 ``csrc/mlp_chain_fwd.cu``) and then ONE loss-backward launch (K9s,
 ``csrc/mlp_chain_bwd.cu`` with its loss prologue), which replaces
 ``_loss_bwd_kernel`` (``_run_loss_bwd``): from the saved activations it
@@ -10,8 +10,17 @@ surrogate, the (optionally clipped) value loss, their analytic per-row
 gradients, the heads' backward and both chains' backward (no input gradient:
 the inputs are rollout data).  dW, db, the heads' gradients, ``dstd`` and four
 loss sums come out summed over all rows, deterministically (per-tile partials
-summed in tile order).  The ``mono`` kernel (``_run_ppo_step``, selected in
-the JAX package by ``CUSRL_TPU_PPO_MODE=mono``) is not ported.
+summed in tile order).
+
+Mono mode (``CUSRL_TPU_PPO_MODE=mono``, read at import into ``_PPO_MODE`` as
+the JAX package does) runs the whole step as one launch (K9m,
+``mlp_ppo_step`` in ``csrc/mlp_chain_bwd.cu``), which replaces
+``_ppo_step_kernel`` (``_run_ppo_step``): per row tile the chains' forward,
+then the same loss and backward from the activations it has just produced.
+Its plain version is the split pair's: ``mlp_chain_fwd_plain`` on both chains,
+then ``ppo_loss_bwd_plain`` (the arithmetic of ``_ppo_step_kernel`` ->
+``_loss_tail``).  The JAX package's mono row tile ``CUSRL_TPU_PPO_BLOCK`` is a
+VMEM budget with no counterpart here (the CUDA kernels take 64-row tiles).
 
 Gradient integration is the JAX ``custom_vjp``'s: the forward computes the
 parameter gradients of ``loss_core = w_surr * surrogate + w_value *
@@ -30,13 +39,16 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Sequence
 
 import torch
 
 from cusrl_tpu_torch.nn.kernels.fused_mlp import (
+    LAUNCHES,
     _chain_fwd,
     _launch_bwd,
+    _launch_ppo_step,
     _on_cuda,
     head_bwd_plain,
     mlp_chain_bwd_plain,
@@ -44,9 +56,12 @@ from cusrl_tpu_torch.nn.kernels.fused_mlp import (
     supports_fused_mlp,
 )
 
-__all__ = ["fused_ppo_step", "ppo_loss_bwd_plain", "ppo_step_reference"]
+__all__ = ["LAUNCHES", "fused_ppo_step", "ppo_loss_bwd_plain", "ppo_step_mono_plain", "ppo_step_reference"]
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
+
+# "mono": K9m; anything else: split (K2f + K9s), as the JAX package reads it.
+_PPO_MODE = os.environ.get("CUSRL_TPU_PPO_MODE", "split")
 
 
 def _value_loss_terms(vhat, returns, old_value, loss_clip):
@@ -131,6 +146,20 @@ def ppo_loss_bwd_plain(xs, hss, wss, mean_weight, mean_bias, value_weight, value
     return (*grads, *head_grads, dstd), sums
 
 
+def ppo_step_mono_plain(xs, bss, wss, mean_weight, mean_bias, value_weight, value_bias, std, action, old_logp,
+                        advantage, old_value, returns, clip_ratio, w_surr, w_value, loss_clip, activation, trailing):
+    """Plain version of K9m: both chains' forward (``mlp_chain_fwd_plain``,
+    saving the activations), then ``ppo_loss_bwd_plain``.  Returns what
+    ``ppo_loss_bwd_plain`` returns."""
+    hss = []
+    for x, ws, bs in zip(xs, wss, bss):
+        out, hiddens = mlp_chain_fwd_plain(x, ws, bs, activation, trailing, True)
+        hss.append([*hiddens, out])
+    return ppo_loss_bwd_plain(xs, hss, wss, mean_weight, mean_bias, value_weight, value_bias, std, action, old_logp,
+                              advantage, old_value, returns, clip_ratio, w_surr, w_value, loss_clip, activation,
+                              trailing)
+
+
 @dataclasses.dataclass
 class _LossArgs:
     """K9s's loss inputs (fp32, contiguous; ``old_logp`` and ``advantage``
@@ -162,12 +191,9 @@ class _LossArgs:
         s.inv_nv = 1.0 / max(num_rows * value_dim, 1)
 
 
-def _loss_bwd(xs, hss, wss, wm, bm, wv, bv, std, action, old_logp, advantage, old_value, returns, clip_ratio,
-              w_surr, w_value, loss_clip, activation, trailing):
-    """K9s on CUDA tensors, its plain version on CPU tensors."""
-    if not _on_cuda(xs[0].device):
-        return ppo_loss_bwd_plain(xs, hss, wss, wm, bm, wv, bv, std, action, old_logp, advantage, old_value, returns,
-                                  clip_ratio, w_surr, w_value, loss_clip, activation, trailing)
+def _loss_args(xs, wm, wv, std, action, old_logp, advantage, old_value, returns, clip_ratio, w_surr, w_value,
+               loss_clip) -> _LossArgs:
+    """Checks the loss rows against the chains' inputs and packs them."""
     device = xs[0].device
     n, a_dim, v_dim = xs[0].shape[0], wm.shape[0], wv.shape[0]
     rows = {"action": (action, (n, a_dim)), "old_logp": (old_logp, (n,)), "advantage": (advantage, (n,)),
@@ -177,18 +203,47 @@ def _loss_bwd(xs, hss, wss, wm, bm, wv, bv, std, action, old_logp, advantage, ol
     for name, (t, shape) in rows.items():
         if tuple(t.shape) != shape or t.device != device:
             raise ValueError(f"{name} must be {list(shape)} on {device}; got {tuple(t.shape)} on {t.device}")
-    loss = _LossArgs(
+    return _LossArgs(
         *(None if t is None else t.detach().float().contiguous()
           for t in (action, old_logp, advantage, old_value if loss_clip is not None else None, returns, std)),
         clip_ratio=float(clip_ratio), w_surr=float(w_surr), w_value=float(w_value),
         loss_clip=None if loss_clip is None else float(loss_clip),
         dstd=torch.empty(a_dim, device=device), sums=torch.empty(4, device=device),
     )
+
+
+def _loss_bwd(xs, hss, wss, wm, bm, wv, bv, std, action, old_logp, advantage, old_value, returns, clip_ratio,
+              w_surr, w_value, loss_clip, activation, trailing):
+    """K9s on CUDA tensors, its plain version on CPU tensors: the loss and
+    backward from the chains' saved activations ``hss``."""
+    if not _on_cuda(xs[0].device):
+        return ppo_loss_bwd_plain(xs, hss, wss, wm, bm, wv, bv, std, action, old_logp, advantage, old_value, returns,
+                                  clip_ratio, w_surr, w_value, loss_clip, activation, trailing)
+    loss = _loss_args(xs, wm, wv, std, action, old_logp, advantage, old_value, returns, clip_ratio, w_surr, w_value,
+                      loss_clip)
     (_, dwa, dba, (dwm, dbm)), (_, dwc, dbc, (dwv, dbv)) = _launch_bwd(
         xs, None, wss, hss, activation, trailing, True, "K9s",
         heads=[(wm, bm, None, None), (wv, bv, None, None)], loss=loss,
     )
     return (dwa, dba, dwc, dbc, dwm, dbm, dwv, dbv, loss.dstd), loss.sums
+
+
+def _ppo_step(xs, bss, wss, wm, bm, wv, bv, std, action, old_logp, advantage, old_value, returns, clip_ratio,
+              w_surr, w_value, loss_clip, activation, trailing):
+    """K9m on CUDA tensors, its plain version on CPU tensors: the chains'
+    forward from their biases ``bss``, then the loss and backward.  Returns
+    ``(grads, sums, hiddens)``, ``grads`` and ``sums`` as ``_loss_bwd``'s and
+    ``hiddens`` the activations K9m wrote per chain (None on the CPU)."""
+    if not _on_cuda(xs[0].device):
+        grads, sums = ppo_step_mono_plain(xs, bss, wss, wm, bm, wv, bv, std, action, old_logp, advantage, old_value,
+                                          returns, clip_ratio, w_surr, w_value, loss_clip, activation, trailing)
+        return grads, sums, None
+    loss = _loss_args(xs, wm, wv, std, action, old_logp, advantage, old_value, returns, clip_ratio, w_surr, w_value,
+                      loss_clip)
+    ((_, dwa, dba, (dwm, dbm)), (_, dwc, dbc, (dwv, dbv))), hiddens = _launch_ppo_step(
+        xs, wss, bss, [(wm, bm, None, None), (wv, bv, None, None)], loss, activation, trailing,
+    )
+    return (dwa, dba, dwc, dbc, dwm, dbm, dwv, dbv, loss.dstd), loss.sums, hiddens
 
 
 class _FusedPpoStep(torch.autograd.Function):
@@ -198,12 +253,14 @@ class _FusedPpoStep(torch.autograd.Function):
         nl = num_layers
         wa, ba, wc, bc = params[:nl], params[nl : 2 * nl], params[2 * nl : 3 * nl], params[3 * nl : 4 * nl]
         wm, bm, wv, bv = params[4 * nl :]
-        outs, hiddens = _chain_fwd([xa, xc], [wa, wc], [ba, bc], activation, trailing, True, "K2f")
-        hss = [[*hiddens[0], outs[0]], [*hiddens[1], outs[1]]]
-        (dwa, dba, dwc, dbc, dwm, dbm, dwv, dbv, dstd), sums = _loss_bwd(
-            [xa, xc], hss, [wa, wc], wm, bm, wv, bv, std, action, old_logp, advantage, old_value, returns,
-            clip_ratio, w_surr, w_value, loss_clip, activation, trailing,
-        )
+        tail = (wm, bm, wv, bv, std, action, old_logp, advantage, old_value, returns, clip_ratio, w_surr, w_value,
+                loss_clip, activation, trailing)
+        if _PPO_MODE == "mono":  # K9m: forward, loss and backward in one launch
+            grads, sums, _ = _ppo_step([xa, xc], [ba, bc], [wa, wc], *tail)
+        else:  # K2f saving the activations, then K9s
+            outs, hiddens = _chain_fwd([xa, xc], [wa, wc], [ba, bc], activation, trailing, True, "K2f")
+            grads, sums = _loss_bwd([xa, xc], [[*hiddens[0], outs[0]], [*hiddens[1], outs[1]]], [wa, wc], *tail)
+        dwa, dba, dwc, dbc, dwm, dbm, dwv, dbv, dstd = grads
         n, v_dim = xa.shape[0], wv.shape[0]
         surrogate = -(sums[0] / n)
         value_loss = sums[1] / (n * v_dim)

@@ -22,9 +22,10 @@ Done-driven resets zero the per-env mask but never the cursor.
 Sequence mode computes all T queries against ``[cache ++ sequence]`` keys:
 ``lane`` through the K3 kernel wrapper (``nn/kernels/lane_attention.py``;
 on CUDA for T <= 64, the JAX "auto" rule with "TPU" read as "CUDA"),
-``batched`` as one masked SDPA, ``scan`` as a loop of the single-step cell
-(the definitional reference).  Where the JAX rule picks the banded flash
-kernel (K7, long sequences) the port raises ``NotImplementedError``.
+``banded`` through the K7 kernel wrapper (``nn/kernels/banded_attention.py``;
+where the JAX rule picks it: long sequences whose key band is at most half
+the keys), ``batched`` as one masked SDPA, ``scan`` as a loop of the
+single-step cell (the definitional reference).
 
 The encoder layer's fused-block route (``nn/kernels/fused_block.py``: K4, and
 K5 for the actor+critic pair in ``fused_pair_sequence``) runs every matmul
@@ -48,6 +49,7 @@ import torch
 from torch import nn
 
 from cusrl_tpu_torch.nn.base import BackboneContract, Memory
+from cusrl_tpu_torch.nn.kernels.banded_attention import banded_window_attention
 from cusrl_tpu_torch.nn.kernels.fused_block import (
     fused_block_pair_post,
     fused_block_pair_pre,
@@ -205,9 +207,6 @@ class CausalMultiheadSelfAttention(BackboneContract, nn.Module):
             block = min(128, -(-t_len // 8) * 8)
             band = (1 + -(-window // block)) * block
             mode = "banded" if band * 2 <= window + t_len else "batched"
-        if mode == "banded":
-            raise NotImplementedError("the banded window-attention kernel (K7, banded_window_attention) that long "
-                                      "sequences take is not ported yet")
         return mode
 
     def forward(self, x, memory: Memory = None, *, sequential: bool = False, done=None,
@@ -219,8 +218,8 @@ class CausalMultiheadSelfAttention(BackboneContract, nn.Module):
         if done is None:
             done = torch.zeros(*x.shape[:2], 1, dtype=torch.bool, device=x.device)
         mode = self._resolve_mode(x, collect_next_ctx)
-        if mode in ("lane", "batched"):
-            return self._sequence(x, memory, done, lane=mode == "lane", collect_ctx=collect_next_ctx)
+        if mode in ("lane", "banded", "batched"):
+            return self._sequence(x, memory, done, kernel=mode, collect_ctx=collect_next_ctx)
         outputs = []
         for t in range(x.shape[0]):
             out, memory = self._step(x[t], memory)
@@ -234,12 +233,13 @@ class CausalMultiheadSelfAttention(BackboneContract, nn.Module):
             outputs.append(out)
         return torch.stack(outputs), memory, {}
 
-    def _sequence(self, x, memory, done, *, lane: bool, collect_ctx: bool):
+    def _sequence(self, x, memory, done, *, kernel: str, collect_ctx: bool):
         """All T queries of ``x [T, N, C]`` at once: the projections, then
         ``_attend_sequence`` and the output projection."""
         q_pos = self.window + torch.arange(x.shape[0], device=x.device)
         q, k_seq, v_seq = self.mha.project_qkv_raw(x.transpose(0, 1), q_positions=q_pos)
-        out, new_memory, ctx = self._attend_sequence(q, k_seq, v_seq, memory, done, lane=lane, collect_ctx=collect_ctx)
+        out, new_memory, ctx = self._attend_sequence(q, k_seq, v_seq, memory, done, kernel=kernel,
+                                                     collect_ctx=collect_ctx)
         outputs = self.mha.merge_output(out).transpose(0, 1)  # [T, N, C]
         return outputs, new_memory, ({"next_ctx": ctx} if collect_ctx else {})
 
@@ -254,23 +254,24 @@ class CausalMultiheadSelfAttention(BackboneContract, nn.Module):
         bf16 projections (k not yet RoPE'd) in; the merged heads ``[T*N, E]``
         fp32 (no output projection: the post op has it) and the ring-form
         final memory out, and with ``collect_ctx`` the next-token context.
-        Same masks and cache as ``_sequence``; the K3 wrapper for T <= 64."""
-        if t_len > LANE_MAX_T:
-            raise NotImplementedError("the banded window-attention kernel (K7, banded_window_attention) that long "
-                                      "sequences take is not ported yet")
+        Same masks and cache as ``_sequence``; the K3 wrapper for T <= 64,
+        the K7 wrapper for longer sequences (JAX ``causal_attn.py:395-402``)."""
         if os.environ.get("CUSRL_TPU_SEQCORE_EM", "0").lower() not in ("0", ""):
             raise NotImplementedError("the env-minor sequence core (CUSRL_TPU_SEQCORE_EM) is not ported")
         q, k_seq, v_seq = self._split_qkv(qkv_flat, t_len, batch)
         if self.mha.rope is not None:
             q = self.mha.rope(q, self.window + torch.arange(t_len, device=q.device))
-        out, new_memory, ctx = self._attend_sequence(q, k_seq, v_seq, memory, done, lane=True, collect_ctx=collect_ctx)
+        kernel = "lane" if t_len <= LANE_MAX_T else "banded"
+        out, new_memory, ctx = self._attend_sequence(q, k_seq, v_seq, memory, done, kernel=kernel,
+                                                     collect_ctx=collect_ctx)
         merged = self.mha._merge(out).transpose(0, 1).reshape(t_len * batch, self.input_dim)
         return (merged, new_memory, ctx) if collect_ctx else (merged, new_memory)
 
-    def _attend_sequence(self, q, k_seq, v_seq, memory, done, *, lane: bool, collect_ctx: bool):
+    def _attend_sequence(self, q, k_seq, v_seq, memory, done, *, kernel: str, collect_ctx: bool):
         """q (RoPE'd at ``W+t``), k_seq, v_seq ``[N, H, T, D]`` against
-        ``[cache ++ sequence]`` keys, through the K3 wrapper (``lane``) or one
-        masked SDPA (``batched``), with the same masks: query t (combined
+        ``[cache ++ sequence]`` keys, through the K3 wrapper (``lane``), the
+        K7 wrapper (``banded``) or one masked SDPA (``batched``), with the
+        same masks: query t (combined
         position W+t) sees positions ``[t, W+t]`` of its own segment; cache
         slots belong to segment 0 and are valid by ``cache_mask``.  Returns
         ``(out [N, H, T, D] fp32, new memory, next-token context or None)``."""
@@ -289,8 +290,10 @@ class CausalMultiheadSelfAttention(BackboneContract, nn.Module):
         k_seg = torch.cat([torch.zeros_like(q_seg[:, :1]).expand(batch, window), q_seg], 1)  # [N, W+T]
         k_valid = torch.cat([(cache_mask > 0.5).to(torch.int32),
                              torch.ones(batch, t_len, dtype=torch.int32, device=device)], 1)
-        if lane:
+        if kernel == "lane":
             out = lane_window_attention(q, k_rot, v_all, q_seg, k_seg, k_valid, window=window, slopes=self.slopes)
+        elif kernel == "banded":
+            out = banded_window_attention(q, k_rot, v_all, q_seg, k_seg, k_valid, window=window, slopes=self.slopes)
         else:
             in_window = (kv_pos[None, :] <= q_pos[:, None]) & (kv_pos[None, :] >= q_pos[:, None] - window)
             mask = in_window[None] & (q_seg[:, :, None] == k_seg[:, None, :]) & (k_valid[:, None, :] > 0)

@@ -1,6 +1,6 @@
-"""The port's head-fused pair kernel (K8) and fused PPO step (K9, split mode),
-their plain versions on the CPU, against the JAX package's Pallas kernels in
-interpret mode.
+"""The port's head-fused pair kernel (K8) and fused PPO step (K9, split mode
+and mono mode), their plain versions on the CPU, against the JAX package's
+Pallas kernels in interpret mode.
 
 Inputs are made with numpy from a seed.  JAX's kernels take ``[in, out]``
 weights and ``[1, out]`` biases; the port's take ``[out, in]`` and ``[out]``.
@@ -148,6 +148,21 @@ def _ppo_problem(seed, n, a_dim=6, v_dim=1):
 def test_fused_ppo_step_matches_pallas(loss_clip, n):
     """Loss, the four metrics and every gradient (std's included) of the
     port's plain split step against the Pallas split kernel in interpret mode."""
+    _ppo_step_matches_pallas(loss_clip, n)
+
+
+@pytest.mark.parametrize("loss_clip", [None, 0.2])
+@pytest.mark.parametrize("n", [96, 100])
+def test_fused_ppo_step_mono_matches_pallas_mono(loss_clip, n, monkeypatch):
+    """The same with ``CUSRL_TPU_PPO_MODE=mono`` on both sides (the module
+    attribute ``_PPO_MODE``, read per call): the port's K9m plain version
+    against ``_run_ppo_step`` in interpret mode (``_ppo_step_kernel``)."""
+    monkeypatch.setattr(jfp, "_PPO_MODE", "mono")
+    monkeypatch.setattr(tfp, "_PPO_MODE", "mono")
+    _ppo_step_matches_pallas(loss_clip, n)
+
+
+def _ppo_step_matches_pallas(loss_clip, n):
     (wa, ba, wc, bc, wm, bm, wv, bv, std), rows = _ppo_problem(20 + n, n)
     j_rows = {k: jnp.asarray(v) for k, v in rows.items()}
 
@@ -209,3 +224,52 @@ def test_fused_ppo_step_plain_matches_its_autograd_reference(loss_clip):
     np.testing.assert_allclose(_f32(loss_k), _f32(loss_r), rtol=1e-5, atol=1e-6)
     for a, b in zip(grads_k, grads_r):
         np.testing.assert_allclose(_f32(a), _f32(b), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("loss_clip", [None, 0.2])
+def test_fused_ppo_step_mono_equals_split_on_the_cpu(loss_clip, monkeypatch):
+    """On CPU tensors mono's plain version (the chains' forward, then
+    ``ppo_loss_bwd_plain``) is the split pair's arithmetic: the same loss,
+    metrics and gradients, bit for bit, and no launch counted."""
+    (wa, ba, wc, bc, wm, bm, wv, bv, std), rows = _ppo_problem(11, 100)
+    t_rows = {k: torch.from_numpy(v) for k, v in rows.items()}
+    tfm.reset_launch_counts()
+    results = {}
+    for mode in ("split", "mono"):
+        monkeypatch.setattr(tfp, "_PPO_MODE", mode)
+        params = [*_torch(*wa), *_torch(*ba), *_torch(*wc), *_torch(*bc), *_torch(wm, bm, wv, bv, std)]
+        nl = len(wa)
+        loss, metrics = tfp.fused_ppo_step(
+            t_rows["xa"], t_rows["xc"], params[:nl], params[nl:2 * nl], params[2 * nl:3 * nl], params[3 * nl:4 * nl],
+            *params[4 * nl:], t_rows["action"], t_rows["old_logp"], t_rows["advantage"], t_rows["old_value"],
+            t_rows["returns"], 0.2, 1.0, 0.5, "elu", True, loss_clip=loss_clip,
+        )
+        (2.0 * loss).backward()
+        results[mode] = (torch.stack([loss, *metrics]).detach(), [p.grad for p in params])
+    assert not any(tfm.LAUNCHES.values())
+    (split, split_grads), (mono, mono_grads) = results["split"], results["mono"]
+    torch.testing.assert_close(mono, split, rtol=0, atol=0)
+    for a, b in zip(mono_grads, split_grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_mono_plain_is_the_forward_then_the_split_loss_backward():
+    """``ppo_step_mono_plain`` (K9m's oracle on the card) against the chains'
+    plain forward followed by ``ppo_loss_bwd_plain`` (K9s's)."""
+    (wa, ba, wc, bc, wm, bm, wv, bv, std), rows = _ppo_problem(12, 70)
+    t = lambda arrs: [torch.from_numpy(a) for a in arrs]
+    xs = [torch.from_numpy(rows["xa"]), torch.from_numpy(rows["xc"])]
+    hss = []
+    for x, ws, bs in zip(xs, (t(wa), t(wc)), (t(ba), t(bc))):
+        out, hidden = tfm.mlp_chain_fwd_plain(x, ws, bs, "elu", True, True)
+        hss.append([*hidden, out])
+    loss_rows = [torch.from_numpy(rows[k]) for k in ("action",)] + [
+        torch.from_numpy(rows["old_logp"]).reshape(-1), torch.from_numpy(rows["advantage"]).reshape(-1),
+        torch.from_numpy(rows["old_value"]), torch.from_numpy(rows["returns"])]
+    heads = [torch.from_numpy(a) for a in (wm, bm, wv, bv, std)]
+    args = (*heads, *loss_rows, 0.2, 1.0, 0.5, 0.2, "elu", True)
+    got = tfp.ppo_step_mono_plain(xs, [t(ba), t(bc)], [t(wa), t(wc)], *args)
+    want = tfp.ppo_loss_bwd_plain(xs, hss, [t(wa), t(wc)], *args)
+    flat = lambda r: [*(x for g in r[0][:4] for x in g), *r[0][4:], r[1]]
+    for a, b in zip(flat(got), flat(want)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

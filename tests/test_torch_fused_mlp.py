@@ -215,7 +215,7 @@ def test_plain_versions_count_no_launches():
     out = tfm.fused_mlp(torch.from_numpy(x), tw, tb)
     out.float().sum().backward()
     tfm.fused_mlp_pair(torch.from_numpy(x), torch.from_numpy(x), tw, tb, tw, tb)
-    assert tfm.LAUNCHES == {"K1f": 0, "K1b": 0, "K2f": 0, "K2b": 0, "K8f": 0, "K8b": 0, "K9s": 0}
+    assert tfm.LAUNCHES == {"K1f": 0, "K1b": 0, "K2f": 0, "K2b": 0, "K8f": 0, "K8b": 0, "K9s": 0, "K9m": 0}
 
 
 def test_supported_activations_and_widths():

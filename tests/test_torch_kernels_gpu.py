@@ -154,7 +154,7 @@ def test_autograd_wrappers_launch_and_count(cuda):
     with torch.no_grad():
         fm.fused_mlp(x, ws, bs)
     torch.cuda.synchronize()
-    assert fm.LAUNCHES == {"K1f": 2, "K1b": 1, "K2f": 1, "K2b": 1, "K8f": 0, "K8b": 0, "K9s": 0}
+    assert fm.LAUNCHES == {"K1f": 2, "K1b": 1, "K2f": 1, "K2b": 1, "K8f": 0, "K8b": 0, "K9s": 0, "K9m": 0}
 
 
 def test_unsupported_width_raises_on_cuda(cuda):
@@ -565,3 +565,149 @@ def test_pair_tail_with_input_gradients_matches_plain(cuda):
     for la_, lb in zip(leaves, ref_leaves):
         for a, b in zip(la_, lb):
             _close(a.grad.cpu(), b.grad, grad=True)
+
+
+# -- K7f (banded window attention, T > 64) --------------------------------------
+
+
+def _banded_inputs(gen, device, n, t_len, window, dim=32, heads=4, dtype=torch.bfloat16, invalid=False):
+    """q/k/v in the JAX layout, segments with dones, a half-valid cache; with
+    ``invalid`` a third of the environments see no valid key at all."""
+    q, k, v, *masks = _lane_inputs(gen, device, n, heads=heads, t_len=t_len, window=window, dim=dim,
+                                   invalid=invalid)
+    return [t.to(dtype) for t in (q, k, v)] + masks
+
+
+@pytest.mark.parametrize("n,t_len,window,dim,dtype,slopes", [
+    (256, 256, 16, 32, torch.bfloat16, None),  # the long-rollout minibatch
+    (1024, 256, 16, 32, torch.bfloat16, None),  # its value and KL passes
+    (37, 200, 16, 32, torch.bfloat16, (0.5, 0.25, 0.125, 0.0625)),  # ragged T, ALiBi, rows with no key
+    (5, 70, 160, 32, torch.bfloat16, None),  # W above the kernel's 128-query block
+    (3, 129, 20, 64, torch.float32, (0.5, 0.25, 0.125, 0.0625)),
+    (9, 65, 3, 8, torch.bfloat16, None),
+    (2, 1, 5, 16, torch.float32, None),  # one query
+])
+def test_banded_kernel_matches_plain(cuda, n, t_len, window, dim, dtype, slopes):
+    from cusrl_tpu_torch.nn.kernels import banded_attention as ba
+
+    gen = torch.Generator().manual_seed(n + t_len + window)
+    q, k, v, *masks = _banded_inputs(gen, cuda, n, t_len, window, dim, dtype=dtype, invalid=slopes is not None)
+    out = ba._launch_fwd(q, k, v, *masks, window, slopes)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    torch.testing.assert_close(out, ba.banded_plain(q, k, v, *masks, window, slopes), **ATT_TOL)
+    if slopes is not None:
+        assert not out[: n // 3].any()  # rows without a valid key are exactly 0
+
+
+def test_banded_autograd_wrapper_matches_plain_and_counts(cuda):
+    """One K7f launch per call, none in the backward (it recomputes through
+    the plain version, as the JAX package's custom VJP)."""
+    from cusrl_tpu_torch.nn.kernels import banded_attention as ba
+
+    gen = torch.Generator().manual_seed(11)
+    q, k, v, *masks = _banded_inputs(gen, cuda, 256, 256, 16)
+    g = torch.randn(q.shape, generator=gen).to(cuda)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ba.reset_launch_counts()
+    out = ba.banded_window_attention(*leaves, *masks, window=16)
+    out.backward(g)
+    with torch.no_grad():
+        primal = ba.banded_window_attention(q, k, v, *masks, window=16)
+    torch.cuda.synchronize()
+    assert ba.LAUNCHES == {"K7f": 2}
+    plain = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    ref = ba.banded_plain(*plain, *masks, 16)
+    ref.backward(g)
+    torch.testing.assert_close(out, ref, **ATT_TOL)
+    torch.testing.assert_close(primal, out.detach(), rtol=0, atol=0)
+    for a, b in zip(leaves, plain):
+        assert a.grad.dtype == torch.bfloat16
+        torch.testing.assert_close(a.grad.float(), b.grad.float(), rtol=1e-2, atol=1e-2)
+
+
+# -- K9m (the fused PPO step, mono) ---------------------------------------------
+
+
+def _ppo_rows(gen, device, rows, mean):
+    std = torch.exp(torch.randn(A_DIM, generator=gen) * 0.2).to(device)
+    action = mean + std * torch.randn(rows, A_DIM, generator=gen).to(device)
+    old_logp = (-0.5 * ((action - mean) / std).square() - torch.log(std) - 0.9189385332046727).sum(-1)
+    old_logp = old_logp + (torch.randn(rows, generator=gen) * 0.2).to(device)
+    return std, (action, old_logp, torch.randn(rows, generator=gen).to(device),
+                 torch.randn(rows, 1, generator=gen).to(device), torch.randn(rows, 1, generator=gen).to(device))
+
+
+@pytest.mark.parametrize("rows", [24576, 1000])
+@pytest.mark.parametrize("loss_clip", [None, 0.2])
+def test_mono_kernel_matches_plain_and_split(cuda, rows, loss_clip):
+    """K9m's forward (the activations it writes) against the plain forward
+    (bf16, one rounding); its loss and backward against the plain loss
+    backward on those activations at K9s's limits (a row at a clip bound may
+    take the other branch: 3e-2 of the largest value; the loss sums 1e-4);
+    and all of it against K2f + K9s, which run the same per-tile code."""
+    from cusrl_tpu_torch.nn.kernels import fused_ppo_step as fp
+
+    gen = torch.Generator().manual_seed(rows + 13)
+    (wa, ba), (wc, bc) = _params(gen, cuda), _params(gen, cuda)
+    (wm, bm), (wv, bv) = _heads(gen, cuda)
+    xs = [torch.tanh(torch.randn(rows, WIDTHS[0], generator=gen)).to(cuda) for _ in range(2)]
+    with torch.no_grad():
+        mean = fm.mlp_chain_fwd_plain(xs[0], wa, ba, "elu", True, False)[0].float() @ wm.T + bm
+    std, rows_data = _ppo_rows(gen, cuda, rows, mean)
+    tail = (wm, bm, wv, bv, std, *rows_data, 0.2, 1.0, 0.5, loss_clip, "elu", True)
+    before = dict(fm.LAUNCHES)
+    got, sums, saved = fp._ppo_step(xs, [ba, bc], [wa, wc], *tail)
+    assert fm.LAUNCHES["K9m"] == before["K9m"] + 1 and fm.LAUNCHES["K2f"] == before["K2f"]
+    for x, ws, bs, hs in zip(xs, (wa, wc), (ba, bc), saved):
+        out, hidden = fm.mlp_chain_fwd_plain(x, ws, bs, "elu", True, True)
+        for h, r in zip(hs, [*hidden, out]):
+            _close(h, r, grad=False)
+    want, ref_sums = fp.ppo_loss_bwd_plain(xs, saved, [wa, wc], *tail)
+    outs, hids, _ = fm._launch_fwd(xs, [wa, wc], [ba, bc], "elu", True, True, "K2f")
+    split, split_sums = fp._loss_bwd(xs, [[*h, o] for h, o in zip(hids, outs)], [wa, wc], *tail)
+    torch.cuda.synchronize()
+    flat = lambda g: [*g[0], *g[1], *g[2], *g[3], *g[4:]]
+    for a, b, s in zip(flat(got), flat(want), flat(split)):
+        a, b, s = a.float(), b.float(), s.float()
+        assert torch.isfinite(a).all() and (a - b).abs().max() <= 3e-2 * b.abs().max()
+        assert (a - s).abs().max() <= 3e-2 * s.abs().max()
+    for ref in (ref_sums, split_sums):
+        assert ((sums - ref).abs() <= 1e-4 * ref.abs().clamp(min=1.0)).all(), (sums, ref)
+
+
+def test_fused_ppo_step_mono_wrapper_matches_cpu_and_split(cuda, monkeypatch):
+    """``fused_ppo_step`` with ``_PPO_MODE = "mono"``: one K9m launch and no
+    K2f/K9s; the loss, its metrics and every ``.grad`` against the same call
+    on the CPU (the plain version) and against split mode on the card."""
+    from cusrl_tpu_torch.nn.kernels import fused_ppo_step as fp
+
+    gen = torch.Generator().manual_seed(17)
+    rows = 1000
+    base = [*_params(gen, "cpu"), *_params(gen, "cpu")]
+    heads = _heads(gen, "cpu")
+    xa, xc = (torch.tanh(torch.randn(rows, WIDTHS[0], generator=gen)) for _ in range(2))
+    with torch.no_grad():
+        mean = fm.mlp_chain_fwd_plain(xa, base[0], base[1], "elu", True, False)[0].float() @ heads[0][0].T + heads[0][1]
+    std, rows_data = _ppo_rows(gen, "cpu", rows, mean)
+
+    def run(device, mode):
+        monkeypatch.setattr(fp, "_PPO_MODE", mode)
+        leaf = lambda t: t.detach().to(device, copy=True).requires_grad_()
+        chains = [[leaf(t) for t in ts] for ts in base]
+        hs = [leaf(t) for h in heads for t in h]
+        s = leaf(std)
+        before = dict(fm.LAUNCHES)
+        loss, metrics = fp.fused_ppo_step(xa.to(device), xc.to(device), *chains, *hs, s,
+                                          *(t.to(device) for t in rows_data), 0.2, 1.0, 0.5)
+        loss.backward()
+        launched = {k: v - before[k] for k, v in fm.LAUNCHES.items() if v != before[k]}
+        grads = [p.grad.cpu() for p in (*(t for ts in chains for t in ts), *hs, s)]
+        return torch.stack([loss, *metrics]).detach().cpu(), grads, launched
+
+    mono, mono_grads, launched = run(cuda, "mono")
+    assert launched == {"K9m": 1}
+    for values, grads, _ in (run("cpu", "mono"), run(cuda, "split")):
+        assert ((mono - values).abs() <= 2e-3 * values.abs().clamp(min=1.0)).all(), (mono, values)
+        for a, b in zip(mono_grads, grads):
+            assert (a - b).abs().max() <= 3e-2 * b.abs().max()

@@ -252,9 +252,14 @@ def test_lane_mode_matches_scan_mode_with_dones():
 
 
 def test_banded_route_raises_naming_its_kernel():
+    """The banded route runs (K7's plain version on CPU tensors; against JAX
+    in tests/test_torch_banded_attention.py) and, on a device its kernel does
+    not take, raises naming that kernel."""
     _, t = _attention_pair(4, False, True, None, "banded")
-    with pytest.raises(NotImplementedError, match="K7"):
-        t(torch.zeros(8, 2, 16), None, sequential=True)
+    out, memory, _ = t(torch.zeros(8, 2, 16), None, sequential=True)
+    assert out.shape == (8, 2, 16) and memory["k_cache"].shape == (2, 2, 5, 8)
+    with pytest.raises(RuntimeError, match="banded attention kernel"):
+        t.to("meta")(torch.zeros(8, 2, 16, device="meta"), None, sequential=True)
 
 
 def _layer_pair(norm_mode, dtype, input_dim=12, **kwargs):

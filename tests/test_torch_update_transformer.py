@@ -107,27 +107,27 @@ def _kernel_routes(monkeypatch, bf16: bool):
             l.compute_dtype == "bfloat16" and l.bias is not None for l in self.layers))
 
 
-def _factories(**overrides):
+def _factories(t_len=T, **overrides):
     jf = jax_get_experiment("Velocity-Flat", "transformer_ppo").make_agent_factory()
     tf = get_experiment("Velocity-Flat", "transformer_ppo").make_agent_factory()
     for f in (jf, tf):
-        for k, v in {**SMALL, **overrides}.items():
+        for k, v in {**SMALL, "num_steps_per_update": t_len, **overrides}.items():
             setattr(f, k, v)
     return jf, tf
 
 
-def _warm_memories(jax_agent, rng):
+def _warm_memories(jax_agent, rng, n=N):
     """Part-full rings (cursor 3, some slots reset) for the actor and the
     critic's ValueComputation, from three steps on random inputs."""
     actor, critic = jax_agent.state.actor, jax_agent.state.critic
-    a_mem, c_mem = actor.init_memory(N), critic.init_memory(N)
+    a_mem, c_mem = actor.init_memory(n), critic.init_memory(n)
     from cusrl_tpu.nn.base import reset_memory
 
     for _ in range(3):
-        x = jnp.asarray(rng.standard_normal((N, OBS)), jnp.float32)
+        x = jnp.asarray(rng.standard_normal((n, OBS)), jnp.float32)
         _, a_mem, _ = actor(x, a_mem)
         _, c_mem, _ = critic(x, c_mem)
-        done = jnp.asarray(rng.random((N, 1)) < 0.2)
+        done = jnp.asarray(rng.random((n, 1)) < 0.2)
         a_mem, c_mem = reset_memory(a_mem, done), reset_memory(c_mem, done)
     jax_agent.actor_memory = a_mem
     hook = jax_agent.get_hook("value_computation")
@@ -142,16 +142,16 @@ def _warm_memories(jax_agent, rng):
             jax_agent.update_hook(h.hook_name, h.replace(lr_scale=jnp.asarray(0.7, jnp.float32)))
 
 
-def _rollout(jax_agent, rng):
-    obs = np.tanh(rng.standard_normal((T, N, OBS))).astype(np.float32)
-    next_obs = np.concatenate([obs[1:], np.tanh(rng.standard_normal((1, N, OBS)))], 0).astype(np.float32)
-    terminated = rng.random((T, N, 1)) < 0.05
-    truncated = rng.random((T, N, 1)) < 0.05
+def _rollout(jax_agent, rng, t_len=T, n=N):
+    obs = np.tanh(rng.standard_normal((t_len, n, OBS))).astype(np.float32)
+    next_obs = np.concatenate([obs[1:], np.tanh(rng.standard_normal((1, n, OBS)))], 0).astype(np.float32)
+    terminated = rng.random((t_len, n, 1)) < 0.05
+    truncated = rng.random((t_len, n, 1)) < 0.05
     done = terminated | truncated
-    next_obs = np.where(done, np.tanh(rng.standard_normal((T, N, OBS))).astype(np.float32), next_obs)
+    next_obs = np.where(done, np.tanh(rng.standard_normal((t_len, n, OBS))).astype(np.float32), next_obs)
     actor = jax_agent.state.actor
     dist, _, _ = actor(jnp.asarray(obs), jax_agent.actor_memory, sequential=True, done=jnp.asarray(done))
-    action = dist["mean"] + dist["std"] * rng.standard_normal((T, N, ACT)).astype(np.float32)
+    action = dist["mean"] + dist["std"] * rng.standard_normal((t_len, n, ACT)).astype(np.float32)
     critic_memory = jax_agent.get_hook("value_computation").memory
     return {
         "observation": obs,
@@ -159,13 +159,13 @@ def _rollout(jax_agent, rng):
         "action": np.asarray(action),
         "action_logp": np.asarray(actor.compute_logp(dist, action)),
         "action_dist": {"mean": np.asarray(dist["mean"]), "std": np.asarray(dist["std"])},
-        "reward": rng.standard_normal((T, N, 1)).astype(np.float32),
+        "reward": rng.standard_normal((t_len, n, 1)).astype(np.float32),
         "terminated": terminated,
         "truncated": truncated,
         "done": done,
         "actor_memory": jax.tree.map(lambda m: np.asarray(m)[None],
-                                     jax_storable_memory(jax_agent.actor_memory, N)),
-        "critic_memory": jax.tree.map(lambda m: np.asarray(m)[None], jax_storable_memory(critic_memory, N)),
+                                     jax_storable_memory(jax_agent.actor_memory, n)),
+        "critic_memory": jax.tree.map(lambda m: np.asarray(m)[None], jax_storable_memory(critic_memory, n)),
     }
 
 
@@ -179,10 +179,14 @@ def _to_torch(tree):
     return jax.tree.map(convert, tree)
 
 
-def _tile_perms(indices, epochs):
+def _tile_perms(indices, epochs, tiled=True):
     """The JAX temporal plan's ``[E*M, B]`` environment indices (runs of 128
-    consecutive environments) as the port's ``[E, N/128]`` tile permutation."""
+    consecutive environments) as the port's ``[E, N/128]`` tile permutation;
+    with ``tiled=False`` (fewer than 128 environments per minibatch) as the
+    ``[E, N]`` environment permutation."""
     order = np.asarray(indices).reshape(epochs, -1)
+    if not tiled:
+        return order
     assert (order.reshape(epochs, -1, 128) == order[:, ::128, None] + np.arange(128)).all()
     return order[:, ::128] // 128
 
@@ -203,28 +207,31 @@ def test_transformer_update_on_the_fused_route_matches_jax(fuse_actor_critic_eva
     _update_matches_jax("bfloat16", monkeypatch, fuse_actor_critic_evaluation=fuse_actor_critic_evaluation)
 
 
-def _update_matches_jax(compute_dtype, monkeypatch, **factory_kwargs):
+def _update_matches_jax(compute_dtype, monkeypatch, t_len=T, n=N, **factory_kwargs):
+    """One update on both sides (``t_len`` steps of ``n`` environments)."""
     monkeypatch.setattr(JAX_CONFIG, "seed", 0)
     monkeypatch.setattr(jax_misc, "_KEY_COUNTER", [0])
     monkeypatch.setattr(JAX_CONFIG, "compute_dtype", compute_dtype)
     monkeypatch.setattr(CONFIG, "compute_dtype", compute_dtype)
     _kernel_routes(monkeypatch, compute_dtype is not None)
-    jf, tf = _factories(**factory_kwargs)
-    jax_agent = jf(JaxEnv(num_instances=N, observation_dim=OBS, action_dim=ACT).spec)
-    agent = tf(VelocityLocomotionEnv(num_instances=N, observation_dim=OBS, action_dim=ACT, device="cpu").spec,
+    jf, tf = _factories(t_len, **factory_kwargs)
+    jax_agent = jf(JaxEnv(num_instances=n, observation_dim=OBS, action_dim=ACT).spec)
+    agent = tf(VelocityLocomotionEnv(num_instances=n, observation_dim=OBS, action_dim=ACT, device="cpu").spec,
                device="cpu")
     rng = np.random.default_rng(7)
-    _warm_memories(jax_agent, rng)
+    _warm_memories(jax_agent, rng, n)
     state = jax_agent.state_dict()
     load_jax_state(agent, state["agent_state"], actor_memory=state["actor_memory"])
 
-    rollout = _rollout(jax_agent, rng)
+    rollout = _rollout(jax_agent, rng, t_len, n)
     key = jax.random.key(5)
     jax_rollout = jax.tree.map(jnp.asarray, rollout)
-    _, _, indices = jax_agent.sampler.make_plan(key, T, N, jax_rollout)
+    _, _, indices = jax_agent.sampler.make_plan(key, t_len, n, jax_rollout)
     new_state, jax_metrics = jax.jit(jax_agent.update_body)(jax_agent.state, jax_rollout, key)
     epochs = jax_agent.sampler.num_epochs
-    metrics = agent.update_body(_to_torch(rollout), epoch_perms=_tile_perms(indices, epochs))
+    count = jax_agent.sampler.num_mini_batches
+    tiled = n % 128 == 0 and (n // count) % 128 == 0 and n // 128 >= count  # the samplers' "auto" tiles
+    metrics = agent.update_body(_to_torch(rollout), epoch_perms=_tile_perms(indices, epochs, tiled))
 
     metric_tol, param_tol, state_tol = FP32_TOL if compute_dtype is None else BF16_TOL
     assert set(metrics) == set(jax_metrics)
