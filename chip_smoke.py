@@ -28,7 +28,10 @@ without printing a result:
    and, for K9s, the loss, for K9m the forward too; a masked
    ``scaled_dot_product_attention`` for the attention kernels; bf16
    ``F.linear`` + ``F.layer_norm`` chains for the fused block; autograd for
-   the backwards) with CUDA events;
+   the backwards) with CUDA events; for every backward (K1b, K2b, K8b, K9s,
+   K9m, K4/K5 pre and post) also phase 1's and phase 2's device times (the
+   profiler's, by kernel name), phase 2's bound and row split,
+   and two calls on the same inputs compared bit for bit;
 4. ``[wrappers]``: hold the wrappers the port calls (``fused_mlp``,
    ``fused_mlp_pair``, ``fused_mlp_pair_heads``, ``fused_ppo_step`` in split
    and in mono mode (against split too), ``lane_window_attention``,
@@ -66,10 +69,16 @@ without printing a result:
    chunk and a timed chunk of 10 iterations, with the launch counters set to
    0 just before the timed chunk and read just after (``EXPECTED_ZOO_LAUNCHES``
    per iteration), one host transfer per chunk and no other synchronizing
-   call; and a profile of one iteration of each path;
+   call; and a profile of one iteration of each path (device time by kernel
+   name, phase 2 of the backwards listed whatever its rank);
 8. the ``nvidia-smi`` line, the ``kernels`` JSON line (each kernel's
    launches from the path that runs it; ``not_ported`` is empty), and the
    final ``{"ok": true, ...}`` line.
+
+``python3 chip_smoke.py --paths TL C`` runs only the named paths'
+``[train-zoo]`` chunks and profiles, with the kernels of the package beside
+the script: copied into another checkout, it times that checkout's port the
+same way (two versions compare inside one call, in turns).
 
 Depth is not cut: the MLP paths have 3 hidden layers, the transformer paths
 their one encoder layer and one head layer.  Weights are random, from seed 0.  There is no CPU
@@ -172,6 +181,76 @@ def _time_ms(fn, repeats: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def _tensors(obj) -> list:
+    """The tensors in a nest of tuples, lists and dicts, in order."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, dict):
+        obj = list(obj.values())
+    if isinstance(obj, (tuple, list)):
+        return [t for item in obj for t in _tensors(item)]
+    return []
+
+
+def _backward_phases(name: str, fn, rows: int, chains: int, dw_shapes, bytes_per_row: int, cols: int,
+                     repeats: int = 10, warmup: int = 3) -> dict:
+    """Phase 1's and phase 2's device time per call of the backward launch in
+    ``fn`` (torch.profiler over ``repeats`` calls, kernels by name: phase 1
+    the row kernel ``*rows_kernel``, phase 2 ``dw::split_kernel`` and
+    ``dw::reduce_kernel``), phase 2's bound and its row split, and two calls
+    of ``fn`` compared bit for bit (raises if they differ).  Phase 2's work
+    per chain: ``2 * rows * sum(n_out * n_in)`` FLOP over ``dw_shapes``; its
+    bytes each input read once (``bytes_per_row`` per chain: the bf16 output
+    cotangents and the layer inputs), the per-row-tile column partials
+    (``cols`` floats per tile, all chains) and the outputs once."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cusrl_tpu_torch.nn.kernels import dw_phase2
+
+    first, second = _tensors(fn()), _tensors(fn())
+    torch.cuda.synchronize()
+    if len(first) != len(second) or not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"{name}: two calls on the same inputs differ")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize()
+    # Each call launches one row kernel and the two phase-2 kernels; a phase's
+    # time per call is the sum of its kernels' mean times (the profiler can
+    # miss a profiled run's first kernel, so counts may fall short of ``repeats``).
+    kernels = [[], []]
+    for event in prof.key_averages():
+        if event.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        phase = 1 if "dw::" in event.key else 0 if "rows_kernel" in event.key else None
+        if phase is not None:
+            us = getattr(event, "self_device_time_total", 0) or getattr(event, "self_cuda_time_total", 0)
+            kernels[phase].append((event.key, event.count, us))
+    counts = [[count for _, count, _ in phase] for phase in kernels]
+    if len(counts[0]) != 1 or len(counts[1]) != 2 or not all(repeats // 2 <= c <= repeats for c in sum(counts, [])):
+        raise AssertionError(f"{name}: the profiler saw {kernels} over {repeats} calls; expected one row kernel and "
+                             f"two phase-2 kernels, each launched once per call")
+    p1, p2 = (sum(us / count for _, count, us in phase) / 1e3 for phase in kernels)
+    dw_floats = sum(o * i for o, i in dw_shapes)
+    row_tiles = -(-rows // dw_phase2.ROW_TILE)
+    work = (chains * 2 * rows * dw_floats,
+            chains * (rows * bytes_per_row + dw_floats * 4) + (row_tiles + 1) * cols * 4)
+    bound, by = _bound_ms(*work)
+    splits, per = dw_phase2.dw_row_splits(row_tiles, dw_phase2.dw_tile_count(dw_shapes), chains)
+    fields = dict(phase1_ms=p1, phase2_ms=p2, phase2_bound_ms=bound,
+                  phase2_bound_by=by, phase2_splits=f"{splits} x {per} row tiles", bitwise_repeat=True)
+    print(f"    {name} rows={rows}: phase1_ms={fields['phase1_ms']:.4f} phase2_ms={fields['phase2_ms']:.4f} "
+          f"phase2_bound_ms={bound:.4f} ({by}) splits={splits} (x {per} row tiles); two calls: same bits "
+          f"({len(first)} tensors)")
+    return fields
+
+
 def _chain_work(rows: int, chains: int, backward: bool, save_hiddens: bool, input_grad: bool):
     """(FLOP, bytes) the function must do and move: each input read once,
     each output written once."""
@@ -193,6 +272,12 @@ def _chain_work(rows: int, chains: int, backward: bool, save_hiddens: bool, inpu
 def _bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+# Phase 2 of the MLP backwards: the dW shapes and the bytes per row it reads
+# (D_l bf16 for the three layers; x fp32, h_1 and h_2 bf16).
+MLP_DW_SHAPES = [(WIDTHS[i + 1], WIDTHS[i]) for i in range(len(WIDTHS) - 1)]
+MLP_DW_BYTES_PER_ROW = 2 * sum(WIDTHS[1:]) + 4 * WIDTHS[0] + 2 * sum(WIDTHS[1:-1])
 
 
 def _params(generator, device):
@@ -352,8 +437,11 @@ def check_kernels(device) -> dict:
         bound, by = _bound_ms(*_chain_work(MINIBATCH_ROWS, chains, True, True, not skip))
         print(f"    rows=24576: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
               f"bound_ms={bound:.4f} ({by})")
+        phases = _backward_phases(key, lambda: fm._launch_bwd(xs, gs, wss, hss, "elu", True, skip, key),
+                                  MINIBATCH_ROWS, chains, MLP_DW_SHAPES, MLP_DW_BYTES_PER_ROW,
+                                  chains * sum(WIDTHS[1:]))
         results[key] = dict(max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by,
-                            library_ms=l_ms, shape=f"{chains} x 24576 x 48-512-256-128")
+                            library_ms=l_ms, shape=f"{chains} x 24576 x 48-512-256-128", **phases)
     return results
 
 
@@ -538,8 +626,12 @@ def check_head_kernels(device) -> dict:
         l_ms = _time_ms(lambda: torch.autograd.grad([mean, vhat], inputs, [gm, gv], retain_graph=True))
     bound, by = _bound_ms(*_heads_work(MINIBATCH_ROWS, True, True, False, False, False))
     print(f"    rows=24576: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} bound_ms={bound:.4f} ({by})")
+    head_cols = 2 * sum(WIDTHS[1:]) + (A_DIM + V_DIM) * (WIDTHS[-1] + 1)
+    phases = _backward_phases("K8b", lambda: fm._launch_bwd(xs, None, [wa, wc], hss, "elu", True, True, "K8b",
+                                                            heads=spec),
+                              MINIBATCH_ROWS, 2, MLP_DW_SHAPES, MLP_DW_BYTES_PER_ROW, head_cols)
     results["K8b"] = dict(max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by, library_ms=l_ms,
-                          shape="2 x 24576 x 48-512-256-128 + heads 12/1, skip_input_grad")
+                          shape="2 x 24576 x 48-512-256-128 + heads 12/1, skip_input_grad", **phases)
 
     # -- K9s: heads + PPO/value loss + analytic backward on K2f's saved activations
     print("[kernels] K9s mlp_chain_bwd x2 + heads + PPO loss")
@@ -588,8 +680,12 @@ def check_head_kernels(device) -> dict:
         print(f"    rows=24576 loss_clip={loss_clip}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
               f"bound_ms={bound:.4f} ({by})")
     k_ms, p_ms, l_ms, (bound, by) = timing[None]  # the zoo's value loss is unclipped
+    loss_cols = head_cols + 4 + A_DIM  # the four loss sums and dstd
+    args = (xs, hss, [wa, wc], wm, bm, wv, bv, std, *rows_data, 0.2, 1.0, 0.5, None, "elu", True)
+    phases = _backward_phases("K9s", lambda: fp._loss_bwd(*args), MINIBATCH_ROWS, 2, MLP_DW_SHAPES,
+                              MLP_DW_BYTES_PER_ROW, loss_cols)
     results["K9s"] = dict(max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by, library_ms=l_ms,
-                          shape="2 x 24576 x 48-512-256-128 + heads 12/1 + PPO loss, loss_clip None")
+                          shape="2 x 24576 x 48-512-256-128 + heads 12/1 + PPO loss, loss_clip None", **phases)
 
     # -- K9m: both chains' forward, heads, loss and backward in one launch
     print("[kernels] K9m mlp_ppo_step (mono): forward + heads + PPO loss + backward")
@@ -647,9 +743,12 @@ def check_head_kernels(device) -> dict:
         print(f"    rows=24576 loss_clip={loss_clip}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
               f"bound_ms={bound:.4f} ({by})")
     k_ms, p_ms, l_ms, (bound, by) = timing[None]
+    tail = (wm, bm, wv, bv, std, *rows_data, 0.2, 1.0, 0.5, None, "elu", True)
+    phases = _backward_phases("K9m", lambda: fp._ppo_step(xs, [ba, bc], [wa, wc], *tail), MINIBATCH_ROWS, 2,
+                              MLP_DW_SHAPES, MLP_DW_BYTES_PER_ROW, loss_cols)
     results["K9m"] = dict(max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by, library_ms=l_ms,
                           shape="2 x 24576 x 48-512-256-128 forward + heads 12/1 + PPO loss + backward, "
-                                "loss_clip None")
+                                "loss_clip None", **phases)
     return results
 
 
@@ -1269,9 +1368,15 @@ def check_gelu_kernels(device) -> dict:
         b_bound, b_by = _bound_ms(*work(rows, True, True))
         print(f"    K1b gelu rows={rows}: kernel_ms={b_ms:.4f} plain_ms={bp_ms:.4f} library_ms={bl_ms:.4f} "
               f"bound_ms={b_bound:.4f} ({b_by})")
+        ffn_shapes = list(zip(FFN_WIDTHS[1:], FFN_WIDTHS))
+        # D_1, D_2 bf16; x and z bf16 (gelu(z) recomputed).
+        phases = _backward_phases("K1b gelu", lambda: fm._launch_bwd([x], [g], [ws], [[*hid, out]], "gelu", False,
+                                                                      False, "K1b"),
+                                  rows, 1, ffn_shapes, 2 * (T_FF + T_EMBED) + 2 * (T_EMBED + T_FF), T_FF + T_EMBED)
         # K1b runs on path T alone: these are its main fields.
         fields["K1b"] = dict(ms=b_ms, plain_ms=bp_ms, library_ms=bl_ms, bound_ms=b_bound, bound_by=b_by,
-                             shape=f"{rows_mb} x 128-512-128 gelu with dX (the FFN's minibatch)")
+                             shape=f"{rows_mb} x 128-512-128 gelu with dX (the FFN's minibatch)",
+                             **{f"gelu_{k}": v for k, v in phases.items()})
     fields["K1f"]["gelu_shape"] = f"{rows_mb} x 128-512-128 gelu (the FFN's minibatch; step at {T_ENVS} rows)"
     for key in fields:
         fields[key]["gelu_max_abs_err"] = max(errs[key])
@@ -1331,6 +1436,10 @@ def check_tl_head_kernels(device) -> dict:
                  _time_ms(lambda: torch.autograd.grad(lib_out, [lx, w16, b16], g, retain_graph=True)))
         # x, g and the saved output read; dx (fp32), dW and db written; W read.
         record("K1b", tag, rows, timed, (4 * rows * macs, rows * T_EMBED * (3 * 2 + 4) + macs * 4 + params * 4))
+        phases = _backward_phases("K1b head", lambda: fm._launch_bwd([x], [g], [ws], [[ref]], "elu", True, False,
+                                                                      "K1b"),
+                                  rows, 1, [(T_EMBED, T_EMBED)], 2 * T_EMBED + 2 * T_EMBED, T_EMBED)
+        fields["K1b"].update({tag + k: v for k, v in phases.items()})
     for key in fields:
         fields[key]["tl_head_shape"] = (f"{TL_MB_ROWS} x 128-128 ELU (TL's minibatch, saving; backward with dX)"
                                         + (f"; primal at {TL_PRIMAL_ROWS} rows (value and KL passes)"
@@ -1355,6 +1464,16 @@ BLOCK_REPLACES = {
     "K5pre_b": "cusrl_tpu/nn/kernels/fused_block.py:720",
     "K5post_f": "cusrl_tpu/nn/kernels/fused_block.py:883",
     "K5post_b": "cusrl_tpu/nn/kernels/fused_block.py:910",
+}
+
+
+# Phase 2 of the block backwards: (dW shapes, bytes per row it reads, column
+# sums).  Pre: D = bf16(dh) and gqkv, H = x (fp32) and y; post: D = bf16(dr1),
+# bf16(dz1) and g, H = attn (fp32), y2 and the saved z1.
+BLOCK_PHASE2 = {
+    "pre_b": ([(T_EMBED, T_IN)] + [(T_EMBED, T_EMBED)] * 3, 2 * 4 * T_EMBED + 4 * T_IN + 2 * T_EMBED, 6 * T_EMBED),
+    "post_b": ([(T_EMBED, T_EMBED), (T_FF, T_EMBED), (T_EMBED, T_FF)],
+               2 * (2 * T_EMBED + T_FF) + 4 * T_EMBED + 2 * (T_EMBED + T_FF), 4 * T_EMBED + T_FF),
 }
 
 
@@ -1554,6 +1673,9 @@ def check_block_kernels(device) -> dict:
                               shape=f"{chains} x {rows} rows, 48 -> 128 (3 x 128), FFN 512 gelu"
                               + (", skip_input_grad" if op == "pre_b" else "")
                               + (", saves r1 and z1" if op == "post_f" else ""))
+                if op in BLOCK_PHASE2:
+                    fields.update(_backward_phases(key, kernel_fn, rows, chains, *BLOCK_PHASE2[op][:2],
+                                                   chains * BLOCK_PHASE2[op][2]))
                 results.setdefault(key, {}).update({tag + f: v for f, v in fields.items()})
         if k == "K4":  # the value, next-token and KL passes: pre, and post saving nothing
             for rows, tag in ((PRIMAL_ROWS, "primal_"), (TL_PRIMAL_ROWS, "tl_primal_")):
@@ -1836,11 +1958,17 @@ def check_update_against_cpu(path: str) -> None:
     within bf16 rounding carried through 20 Adam steps (rtol 2e-2, atol
     2e-3): KL and the importance-weighted advantage are small differences of
     nearly equal terms, and the CPU side's matmuls block differently on each
-    host.  TF, TJ and TL update at lr 1e-4: at the zoo's 1e-3 one update moves
-    the fresh policy to KL 0.19, and its metrics amplify rounding (on the
-    CPU the fused and the modular route, the same arithmetic rounded in
-    another order, read the importance-weighted advantage 3.0 % apart at
-    1e-3 and 0.33 % at 1e-4)."""
+    host.  The transformer paths (T, TF, TJ, TL) update at lr 1e-4: at the
+    zoo's 1e-3 one update moves the fresh policy to KL 0.19, and its metrics
+    amplify rounding (on the CPU the fused and the modular route, the same
+    arithmetic rounded in another order, read the importance-weighted
+    advantage 3.0 % apart at 1e-3 and 0.33 % at 1e-4; on path T's CPU side
+    alone, a 1e-7 relative change of every gradient moves it 7.5 % at 1e-3
+    and 0.15 % at 1e-4).  After 20 Adam steps at 1e-4 the metrics barely
+    see a wrong gradient, so every leaf of the first minibatch's gradient,
+    taken before the first step, is held to the CPU's too (2e-2 of the
+    leaf's largest element): a backward whose phase 2 leaves out a row split
+    fails there (tests/test_torch_update_check_conditioning.py)."""
     import torch
 
     from cusrl_tpu_torch.zoo.registry import get_experiment
@@ -1854,8 +1982,7 @@ def check_update_against_cpu(path: str) -> None:
         factory = get_experiment("Velocity-Flat", "transformer_ppo").make_agent_factory()
         factory.num_steps_per_update = steps
         factory.fuse_actor_critic_evaluation = path == "TJ"
-        if path != "T":
-            factory.lr = 1e-4
+        factory.lr = 1e-4
         # T: the value pass (K3f, FFN, head) and its next-token pass (K6,
         # FFN, head); per minibatch actor and critic forward and backward;
         # the KL pass.  TF, TJ and TL: one training iteration's update.
@@ -1874,29 +2001,65 @@ def check_update_against_cpu(path: str) -> None:
     # The flat sampler permutes 128-row tiles; the temporal one environments.
     units = envs if path in PATH_ROUTES else steps * envs // 128
     perms = torch.stack([torch.randperm(units, generator=torch.Generator().manual_seed(e)) for e in range(EPOCHS)])
-    metrics, state = {}, None
+    results, state = {}, None
     fused = path in PATH_ROUTES and PATH_ROUTES[path] is None
     for device, route in (("cpu", "force" if fused else PATH_ROUTES.get(path)), ("cuda", PATH_ROUTES.get(path))):
         with _fused_route(route), _ppo_mode("mono" if path == "CM" else "split"):
-            metrics[device], initial = _small_update(factory, device, state, obs, terminated, truncated, done, perms)
+            *results[device], initial = _small_update(factory, device, state, obs, terminated, truncated, done, perms)
         state = state or initial
     launched = {k: v for k, v in _launch_counts().items() if v}
     print(f"[update-check] {path}: cuda launches {launched}")
     if launched != expected:
         raise AssertionError(f"small update did not run through the kernels: {launched}, expected {expected}")
-    for key, ref in sorted(metrics["cpu"].items()):
-        got = metrics["cuda"][key]
-        ok = math.isfinite(got) and abs(got - ref) <= 2e-3 + 2e-2 * abs(ref)
-        print(f"    {key:32s} cuda={got:.6f} cpu={ref:.6f} {'ok' if ok else 'MISMATCH'}")
+    failed = update_check_failures(*results["cpu"], *results["cuda"], report=True)
+    if failed:
+        raise AssertionError(f"update check of path {path}: {failed} disagree between the card and the CPU path")
+
+
+UPDATE_RTOL, UPDATE_ATOL = 2e-2, 2e-3  # the update's metrics
+GRAD_RTOL = 2e-2  # the first minibatch's gradient, per leaf, of the leaf's largest element
+
+
+def update_check_failures(ref_metrics: dict, ref_grads: dict, metrics: dict, grads: dict,
+                          report: bool = False) -> list[str]:
+    """The keys of ``check_update_against_cpu`` that disagree: each metric
+    after the whole update within ``UPDATE_ATOL + UPDATE_RTOL * |ref|``, and
+    each leaf of the first minibatch's gradient (before any step, so the
+    learning rate does not enter) within ``GRAD_RTOL`` of the leaf's largest
+    element.  With ``report`` every metric's gap beside its limit and the
+    gradient leaves' worst ratio are printed."""
+    failed = []
+    for key, ref in sorted(ref_metrics.items()):
+        got, limit = metrics[key], UPDATE_ATOL + UPDATE_RTOL * abs(ref)
+        ok = math.isfinite(got) and abs(got - ref) <= limit
         if not ok:
-            raise AssertionError(f"update metric '{key}' disagrees between the card and the CPU path")
+            failed.append(key)
+        if report:
+            print(f"    {key:32s} cuda={got:.6f} cpu={ref:.6f} gap={abs(got - ref):.6f} limit={limit:.6f} "
+                  f"{'ok' if ok else 'MISMATCH'}")
+    if set(grads) != set(ref_grads):
+        return failed + ["gradient leaves"]
+    ratios = {}
+    for name, ref in ref_grads.items():
+        got = grads[name].float().cpu()
+        scale = ref.float().abs().max().item()
+        ratios[name] = (got - ref.float()).abs().max().item() / scale if scale > 0 else float(got.abs().max() > 0)
+        if not (math.isfinite(ratios[name]) and ratios[name] <= GRAD_RTOL):
+            failed.append(f"grad {name}")
+    if report and ratios:
+        worst = max(ratios, key=ratios.get)
+        print(f"    first-minibatch gradient, {len(ratios)} leaves: worst {worst} max|diff| / max|cpu| = "
+              f"{ratios[worst]:.3e} (limit {GRAD_RTOL:g})")
+    return failed
 
 
 def _small_update(factory, device, state, obs, terminated, truncated, done, perms):
     """One update of ``check_update_against_cpu`` on ``device``, from
-    ``state`` when given: ``(metrics, the agent's initial weights)``; the
-    launch counters are set to 0 just before the update."""
+    ``state`` when given: ``(metrics, the first minibatch's gradient by
+    parameter name, the agent's initial weights)``; the launch counters are
+    set to 0 just before the update."""
     import torch
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
 
     from cusrl_tpu_torch.environment.locomotion import VelocityLocomotionEnv
     from cusrl_tpu_torch.utils.nest import map_nested
@@ -1925,8 +2088,21 @@ def _small_update(factory, device, state, obs, terminated, truncated, done, perm
         "done": done.to(device),
         **map_nested(lambda t: t[None], memories),  # a rollout stores them as [1, N, ...]
     }
+    names = {id(p): name for name, p in agent.model.named_parameters()}
+    first_grads = {}
+
+    def keep_first(optimizer, args, kwargs):
+        if not first_grads:
+            first_grads.update({names[id(p)]: p.grad.detach().clone() for group in optimizer.param_groups
+                                for p in group["params"] if p.grad is not None})
+
+    handle = register_optimizer_step_pre_hook(keep_first)
     _reset_launch_counts()
-    return {k: float(v) for k, v in agent.update_body(rollout, epoch_perms=perms).items()}, initial
+    try:
+        metrics = {k: float(v) for k, v in agent.update_body(rollout, epoch_perms=perms).items()}
+    finally:
+        handle.remove()
+    return metrics, {k: v.cpu() for k, v in first_grads.items()}, initial
 
 
 def train(kind: str) -> None:
@@ -2073,9 +2249,16 @@ def profile_iteration(driver, label: str, steps: int = STEPS) -> None:
           f"idle share {max(0.0, 1 - busy_ms / wall_ms):.3f} (profiler on)")
     for ms, count, name in rows[:12]:
         print(f"    {ms:9.3f} ms {count:6d}x  {name[:90]}")
+    # Phase 2 of the backwards (csrc/dw_phase2.cuh), listed whatever its rank.
+    phase2 = [r for r in rows if "dw::" in r[2]]
+    for ms, count, name in phase2:
+        if (ms, count, name) not in rows[:12]:
+            print(f"    {ms:9.3f} ms {count:6d}x  {name[:90]}")
+    print(f"[profile] {label}, phase 2 of the backwards: {sum(r[0] for r in phase2):.3f} ms over "
+          f"{sum(r[1] for r in phase2)} launches per iteration")
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -2103,6 +2286,14 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"    {log.stem}: {line.strip()}")
 
+    if argv:  # --paths P ...: only the named paths' [train-zoo] chunks and profiles (comparing two checkouts)
+        if argv[0] != "--paths" or not set(argv[1:]) <= {*PATHS, *PATH_ROUTES}:
+            print(f"usage: chip_smoke.py [--paths {' '.join((*PATH_ROUTES, *PATHS))} ...]", file=sys.stderr)
+            return 2
+        for path in argv[1:]:
+            train_zoo(kind, path)
+        print(smi)
+        return 0
     device = torch.device("cuda", 0)
     results = check_kernels(device)
     results.update(check_head_kernels(device))
@@ -2143,7 +2334,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"], "path": f"{path}: {PATH_NAMES[path]}",
             "launches_by_path": {p_: path_launches[p_][key] for p_ in path_launches if path_launches[p_][key]},
-            **{k: v for k, v in r.items() if k.startswith(("gelu", "primal", "offpath", "tl_"))},
+            **{k: v for k, v in r.items() if k.startswith(("gelu", "primal", "offpath", "tl_", "phase", "bitwise"))},
             "status": "ported and checked",
         })
     print(smi)
@@ -2153,4 +2344,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -43,11 +43,16 @@
 //   * products are 16x16x16 bf16 WMMA with fp32 accumulators; LayerNorm runs
 //     as one warp per row on the tile in shared memory;
 //   * weight gradients without atomics, as mlp_chain_bwd.cu: the row kernel
-//     writes bf16(d) of each product and per-tile fp32 column sums (biases,
-//     LayerNorm scale and shift), then one block per 64 x 64 dW tile sums
-//     over all rows and a few blocks add the per-tile sums in tile order.
-// Not yet done (later work): wgmma/TMA, weights kept resident across tiles,
-// more blocks for phase 2's row loop.
+//     (phase 1) writes bf16(d) of each product and per-tile fp32 column sums
+//     (biases, LayerNorm scale and shift); phase 2 (dw_phase2.cuh, shared
+//     with mlp_chain_bwd.cu) forms each dW over row ranges split across
+//     blocks and adds the partials and the per-tile sums in a fixed order.
+//     It serves _pre_run_bwd, _post_run_bwd and their pair forms.  Bytes
+//     bound it (d and the layer input read once: ~218 MB for the post
+//     backward at 65,536 rows, 0.065 ms); the split over about four blocks
+//     per SM, a cp.async ring and 16-byte loads are what it does about it.
+// Not yet done (later work): wgmma/TMA, weights kept resident across tiles.
+#include "dw_phase2.cuh"
 #include "mlp_chain.cuh"
 
 #define FB_MAX_EMBED 128
@@ -113,9 +118,6 @@ static_assert(R_BYTES % 128 == 0, "smem regions must stay 128-byte aligned");
 static_assert(SMEM_BYTES <= 232448, "exceeds the 227 KB a block may use");
 static_assert(3 * FB_MAX_EMBED <= MLP_MAX_WIDTH, "the qkv cotangent tile must fit an activation tile");
 constexpr float LN_EPS = 1e-6f;
-constexpr int TW = 64;         // dW tile edge (phase 2)
-constexpr int DLD = TW + 8;    // bf16 staging leading dim (phase 2)
-constexpr int DSLD = TW + 4;   // fp32 staging leading dim (phase 2)
 
 struct Smem {
   bf16* t0;     // [BM][HLD] activation / cotangent tiles
@@ -587,107 +589,6 @@ __global__ void __launch_bounds__(THREADS) post_bwd_rows_kernel(const FbParams p
   }
 }
 
-// ---------------------------------------------------------------------------
-// Phase 2 of both backwards: dW = D^T H over all rows, one block per 64 x 64
-// tile of each weight gradient; blocks past the dW tiles add the per-tile
-// column sums in tile order.
-// ---------------------------------------------------------------------------
-
-struct DwJob {
-  const void* d;  // bf16 [N, d_ld]; the job's n_out columns start at d_col
-  const void* h;  // [N, n_in] (h_kind 0: bf16; 1: fp32; 2: bf16 saved activation -> the layer input)
-  float* dw;      // [n_out, n_in]
-  int d_ld, d_col, h_kind, n_out, n_in;
-};
-
-constexpr int MAX_JOBS = 4;
-
-struct DwJobs {
-  DwJob job[2][MAX_JOBS];
-  const float* part[2];
-  float* sums[2];
-  int num_jobs, num_sums, num_rows, activation;
-};
-
-__host__ __device__ inline int job_tiles(const DwJob& j) {
-  return ((j.n_out + TW - 1) / TW) * ((j.n_in + TW - 1) / TW);
-}
-
-__global__ void __launch_bounds__(THREADS) dw_kernel(const DwJobs J, int row_tiles) {
-  __shared__ __align__(128) bf16 ds[TW * DLD];  // D rows x 64 output columns
-  __shared__ __align__(128) bf16 hs[TW * DLD];  // H rows x 64 input columns
-  __shared__ __align__(128) float out[TW * DSLD];
-
-  const int chain = blockIdx.y;
-  int t = blockIdx.x, j = 0;
-  for (; j < J.num_jobs; ++j) {
-    const int tiles = job_tiles(J.job[chain][j]);
-    if (t < tiles) break;
-    t -= tiles;
-  }
-  if (j >= J.num_jobs) {  // uniform over the block
-    const int q = t * THREADS + threadIdx.x;
-    if (q < J.num_sums) {
-      float acc = 0.f;
-      for (int tile = 0; tile < row_tiles; ++tile) acc += J.part[chain][size_t(tile) * J.num_sums + q];
-      J.sums[chain][q] = acc;
-    }
-    return;
-  }
-  const DwJob& jb = J.job[chain][j];
-  const int k_tiles = (jb.n_in + TW - 1) / TW;
-  const int o0 = (t / k_tiles) * TW, k0 = (t % k_tiles) * TW;
-  const bf16* D = static_cast<const bf16*>(jb.d);
-
-  const int warp = threadIdx.x / 32;
-  const int wr = warp & 3;         // 16-row (output o) fragment
-  const int wc = (warp >> 2) * 2;  // first of two 16-column (input k) fragments
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-
-  for (int r0 = 0; r0 < J.num_rows; r0 += TW) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < TW * TW; i += THREADS) {
-      const int rr = i / TW, c = i % TW;
-      const int gr = r0 + rr;
-      bf16 dv = __float2bfloat16(0.f), hv = __float2bfloat16(0.f);
-      if (gr < J.num_rows) {
-        if (o0 + c < jb.n_out) dv = D[size_t(gr) * jb.d_ld + jb.d_col + o0 + c];
-        if (k0 + c < jb.n_in) {
-          const size_t idx = size_t(gr) * jb.n_in + k0 + c;
-          if (jb.h_kind == 1) hv = __float2bfloat16(static_cast<const float*>(jb.h)[idx]);
-          else if (jb.h_kind == 2) hv = mlp::layer_input_from_saved(J.activation, static_cast<const bf16*>(jb.h)[idx]);
-          else hv = static_cast<const bf16*>(jb.h)[idx];
-        }
-      }
-      ds[rr * DLD + c] = dv;
-      hs[rr * DLD + c] = hv;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TW; kk += 16) {
-      // A(m = o, k = row) = D[row][o]: column-major view of the row-major tile.
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-      wmma::load_matrix_sync(a, ds + kk * DLD + wr * 16, DLD);
-#pragma unroll
-      for (int f = 0; f < 2; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, hs + kk * DLD + (wc + f) * 16, DLD);
-        wmma::mma_sync(acc[f], a, b, acc[f]);
-      }
-    }
-  }
-#pragma unroll
-  for (int f = 0; f < 2; ++f)
-    wmma::store_matrix_sync(out + wr * 16 * DSLD + (wc + f) * 16, acc[f], DSLD, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = threadIdx.x; i < TW * TW; i += THREADS) {
-    const int m = i / TW, c = i % TW;
-    if (o0 + m < jb.n_out && k0 + c < jb.n_in) jb.dw[size_t(o0 + m) * jb.n_in + k0 + c] = out[m * DSLD + c];
-  }
-}
-
 int launch_rows(const void* kernel, const FbParams* p, int num_chains, cudaStream_t stream, int num_sums,
                 bool with_sums) {
   cudaError_t err =
@@ -699,15 +600,6 @@ int launch_rows(const void* kernel, const FbParams* p, int num_chains, cudaStrea
   void* args_bwd[] = {&copy, &num_sums};
   err = cudaLaunchKernel(kernel, grid, dim3(THREADS), with_sums ? args_bwd : args_fwd, SMEM_BYTES, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int launch_dw(DwJobs& J, int num_chains, cudaStream_t stream) {
-  const int row_tiles = (J.num_rows + BM - 1) / BM;
-  int tiles = 0;
-  for (int j = 0; j < J.num_jobs; ++j) tiles += job_tiles(J.job[0][j]);
-  const int sum_blocks = (J.num_sums + THREADS - 1) / THREADS;
-  dw_kernel<<<dim3(tiles + sum_blocks, num_chains), THREADS, 0, stream>>>(J, row_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -730,53 +622,58 @@ extern "C" int fused_block_post_fwd(const FbParams* p, int num_chains, void* str
                          static_cast<cudaStream_t>(stream), 0, false);
 }
 
-extern "C" int fused_block_pre_bwd(const FbParams* p, int num_chains, void* stream) {
-  const int E = p->embed, in = p->in_dim;
-  const int num_sums = 6 * E;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err = fb::launch_rows(reinterpret_cast<const void*>(fb::pre_bwd_rows_kernel), p, num_chains, s, num_sums, true);
-  if (err != 0) return err;
-  fb::DwJobs J;
+// The backwards: phase 1 (the row kernel), then phase 2 (dw_phase2.cuh) on
+// the jobs below; `s` is phase 2's split and scratch.
+namespace fb {
+
+int launch_bwd(const void* rows_kernel, const FbParams* p, int num_chains, int num_sums, dw::Phase2& P,
+               const DwScratch* s, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   for (int c = 0; c < num_chains; ++c) {
-    const FbChain& ch = p->chain[c];
-    float* dw = static_cast<float*>(ch.dw);
-    J.job[c][0] = {ch.sb, ch.x, dw, E, 0, p->x_is_bf16 ? 0 : 1, E, in};  // W_in: bf16(dh)^T x
-    dw += size_t(E) * in;
-    for (int q = 0; q < 3; ++q) {  // W_q, W_k, W_v: gqkv[:, qE:(q+1)E]^T y
-      J.job[c][1 + q] = {ch.g, ch.sa, dw, 3 * E, q * E, 0, E, E};
-      dw += size_t(E) * E;
-    }
-    J.part[c] = static_cast<const float*>(ch.part);
-    J.sums[c] = static_cast<float*>(ch.sums);
+    P.sum[c][0] = {static_cast<const float*>(p->chain[c].part), static_cast<float*>(p->chain[c].sums), num_sums, 0,
+                   num_sums, 1};
+    P.num_sums[c] = 1;
   }
-  J.num_jobs = 4;
-  J.num_sums = num_sums;
-  J.num_rows = p->num_rows;
-  J.activation = 0;
-  return fb::launch_dw(J, num_chains, s);
+  P.num_rows = p->num_rows;
+  int err = launch_rows(rows_kernel, p, num_chains, st, num_sums, true);
+  if (err != 0) return err;
+  return dw::launch(P, num_chains, s, st);
 }
 
-extern "C" int fused_block_post_bwd(const FbParams* p, int num_chains, void* stream) {
-  const int E = p->embed, F = p->ff;
-  const int num_sums = 4 * E + F;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err = fb::launch_rows(reinterpret_cast<const void*>(fb::post_bwd_rows_kernel), p, num_chains, s, num_sums, true);
-  if (err != 0) return err;
-  fb::DwJobs J;
+}  // namespace fb
+
+extern "C" int fused_block_pre_bwd(const FbParams* p, int num_chains, const DwScratch* s, void* stream) {
+  const int E = p->embed, in = p->in_dim;
+  dw::Phase2 P{};
   for (int c = 0; c < num_chains; ++c) {
     const FbChain& ch = p->chain[c];
-    float* dw = static_cast<float*>(ch.dw);
-    J.job[c][0] = {ch.sb, ch.x, dw, E, 0, 1, E, E};  // W_o: bf16(dr1)^T attn
-    dw += size_t(E) * E;
-    J.job[c][1] = {ch.sc, ch.sa, dw, F, 0, 0, F, E};  // W_up: bf16(dz1)^T y2
-    dw += size_t(F) * E;
-    J.job[c][2] = {ch.g, ch.s, dw, E, 0, 2, E, F};  // W_down: g^T hid
-    J.part[c] = static_cast<const float*>(ch.part);
-    J.sums[c] = static_cast<float*>(ch.sums);
+    float* dwp = static_cast<float*>(ch.dw);
+    P.job[c][0] = {ch.sb, ch.x, dwp, E, 0, p->x_is_bf16 ? dw::H_BF16 : dw::H_F32, E, in};  // W_in: bf16(dh)^T x
+    dwp += size_t(E) * in;
+    for (int q = 0; q < 3; ++q) {  // W_q, W_k, W_v: gqkv[:, qE:(q+1)E]^T y
+      P.job[c][1 + q] = {ch.g, ch.sa, dwp, 3 * E, q * E, dw::H_BF16, E, E};
+      dwp += size_t(E) * E;
+    }
   }
-  J.num_jobs = 3;
-  J.num_sums = num_sums;
-  J.num_rows = p->num_rows;
-  J.activation = p->activation;
-  return fb::launch_dw(J, num_chains, s);
+  P.num_jobs = 4;
+  P.activation = 0;
+  return fb::launch_bwd(reinterpret_cast<const void*>(fb::pre_bwd_rows_kernel), p, num_chains, 6 * E, P, s, stream);
+}
+
+extern "C" int fused_block_post_bwd(const FbParams* p, int num_chains, const DwScratch* s, void* stream) {
+  const int E = p->embed, F = p->ff;
+  dw::Phase2 P{};
+  for (int c = 0; c < num_chains; ++c) {
+    const FbChain& ch = p->chain[c];
+    float* dwp = static_cast<float*>(ch.dw);
+    P.job[c][0] = {ch.sb, ch.x, dwp, E, 0, dw::H_F32, E, E};  // W_o: bf16(dr1)^T attn
+    dwp += size_t(E) * E;
+    P.job[c][1] = {ch.sc, ch.sa, dwp, F, 0, dw::H_BF16, F, E};  // W_up: bf16(dz1)^T y2
+    dwp += size_t(F) * E;
+    P.job[c][2] = {ch.g, ch.s, dwp, E, 0, dw::H_SAVED, E, F};  // W_down: g^T hid
+  }
+  P.num_jobs = 3;
+  P.activation = p->activation;
+  return fb::launch_bwd(reinterpret_cast<const void*>(fb::post_bwd_rows_kernel), p, num_chains, 4 * E + F, P, s,
+                        stream);
 }

@@ -50,19 +50,22 @@
 //     with d kept in shared memory; writes every layer's d_bf to device memory
 //     (D_l, [N, out_l] bf16) and the tile's fp32 column sums of d (db
 //     partials, [tiles, out_l]), and dX unless skipped;
-//   phase 2 (one block per 64x64 tile of each dW): dW_l = D_l^T h_l over all
-//     rows with bf16 WMMA and fp32 accumulators; blocks holding column tile 0
-//     also sum the db partials in tile order.
-// The price is bytes: D_l is written once and read again by the dW blocks
-// (2 * 2 * sum(out_l) bytes per row, 3,584 B/row/chain at 512-256-128), and
-// each dW block reads its 64 columns of D_l and h_l for every row.
+//   phase 2 (dw_phase2.cuh, shared with fused_block.cu): dW_l = D_l^T h_l
+//     over row ranges split across blocks, and the db partials, summed in a
+//     fixed order.  It serves all five TPU kernels above (_run_bwd,
+//     _pair_run_bwd, _pair_heads_run_bwd, _run_loss_bwd, _run_ppo_step).
+//     Bytes bound it (D_l and h_l read once, 2 * out_l * in_l FLOP per
+//     row); splitting the rows over about four blocks per SM, a cp.async
+//     ring and 16-byte loads are what the design does about it.
+// The price is bytes: D_l is written once and read again by phase 2
+// (2 * 2 * sum(out_l) bytes per row, 3,584 B/row/chain at 512-256-128).
 // The heads (K8b, K9s) use the same two phases: each phase-1 block writes its
 // tile's partial dW_head, db_head (and, for K9s, dstd and the four loss sums)
-// as one row of a [row_tiles, stride] fp32 array; extra phase-2 blocks sum
-// each column over the tiles in tile order.  At 24,576 rows (384 tiles) with
-// A = 12, Dv = 1 and a 128-wide latent that is 384 * (1,562 + 131) * 4 B =
-// 2.6 MB written and read once (K8b: 384 * (1,548 + 129) * 4 B), against
-// ~100 MB the kernel must move anyway.
+// as one row of a [row_tiles, stride] fp32 array, which phase 2 sums as
+// columns.  At 24,576 rows (384 tiles) with A = 12, Dv = 1 and a 128-wide
+// latent that is 384 * (1,562 + 131) * 4 B = 2.6 MB written and read once
+// (K8b: 384 * (1,548 + 129) * 4 B), against ~100 MB the kernel must move
+// anyway.
 //
 // What bounds it on the H100: ~4 * 188,416 FLOP per row per chain (dX products
 // and dW products) against ~2.2 KB per row per chain read (saved hiddens, x,
@@ -74,17 +77,13 @@
 // rows).  Its bound counts only the bytes the function must move (x, the loss
 // rows and the outputs); the kernel itself still writes each layer's bf16
 // activation and reads it back, as split does.
-// Not yet done (later work): wgmma/TMA, splitting phase 2's row loop over more
-// blocks (it launches only as many blocks as there are 64x64 dW tiles), and
-// for K9m keeping the tile's activations in shared memory from the forward to
-// the backward instead of the device-memory round trip.
+// Not yet done (later work): wgmma/TMA, and for K9m keeping the tile's
+// activations in shared memory from the forward to the backward instead of
+// the device-memory round trip.
+#include "dw_phase2.cuh"
 #include "mlp_chain.cuh"
 
 namespace mlp {
-
-constexpr int TW = 64;              // dW tile edge (phase 2)
-constexpr int DLD = TW + 8;         // bf16 staging leading dim (phase 2)
-constexpr int DSLD = TW + 4;        // fp32 staging leading dim (phase 2)
 
 // Finishes one NC-column chunk of layer l's output gradient held (fp32) in
 // `stg`: multiplies by the activation derivative from the saved h_l output,
@@ -351,110 +350,6 @@ __global__ void __launch_bounds__(THREADS) mlp_ppo_step_rows_kernel(const MlpPar
   chain_backward_tile(p, c, row0, smem);
 }
 
-// Phase 2 of the heads: each thread sums one column of the chain's per-tile
-// partials over all row tiles, in tile order, and stores it as the head's dW
-// or db, a loss sum (chain 0: surrogate and |dlt| into sums[0] and sums[2];
-// chain 1: value loss and vhat into sums[1] and sums[3]) or dstd.
-__device__ void head_sums(const MlpParams& p, int chain, int block, int row_tiles) {
-  const MlpHead& hd = p.head[chain];
-  const int q = block * THREADS + threadIdx.x;
-  if (p.head_mode == 0 || q >= hd.stride) return;
-  const int wsize = hd.dim * p.dims[p.num_layers], base = wsize + hd.dim;
-  const float* part = reinterpret_cast<const float*>(hd.part);
-  float s = 0.f;
-  for (int tile = 0; tile < row_tiles; ++tile) s += part[size_t(tile) * hd.stride + q];
-  if (q < wsize) reinterpret_cast<float*>(hd.dw)[q] = s;
-  else if (q < base) reinterpret_cast<float*>(hd.db)[q - wsize] = s;
-  else if (q < base + 2) reinterpret_cast<float*>(p.loss.sums)[(q - base) * 2 + chain] = s;
-  else reinterpret_cast<float*>(p.loss.dstd)[q - base - 2] = s;
-}
-
-__global__ void __launch_bounds__(THREADS) mlp_chain_bwd_dw_kernel(const MlpParams p, int row_tiles) {
-  __shared__ __align__(128) bf16 ds[TW * DLD];   // D_l rows x 64 output columns
-  __shared__ __align__(128) bf16 hs[TW * DLD];   // h_l rows x 64 input columns
-  __shared__ __align__(128) float out[TW * DSLD];
-
-  const MlpChain& c = p.chain[blockIdx.y];
-  // Locate this block's (layer, o-tile, k-tile); blocks past the dW tiles sum
-  // the heads' partials.
-  int t = blockIdx.x, l = 0;
-  for (; l < p.num_layers; ++l) {
-    const int tiles = ((p.dims[l + 1] + TW - 1) / TW) * ((p.dims[l] + TW - 1) / TW);
-    if (t < tiles) break;
-    t -= tiles;
-  }
-  if (l >= p.num_layers) {  // uniform over the block
-    head_sums(p, blockIdx.y, t, row_tiles);
-    return;
-  }
-  const int n_out = p.dims[l + 1], n_in = p.dims[l];
-  const int k_tiles = (n_in + TW - 1) / TW;
-  const int o0 = (t / k_tiles) * TW, k0 = (t % k_tiles) * TW;
-  const bf16* D = reinterpret_cast<const bf16*>(c.d[l]);
-  const bool in_is_x = (l == 0);
-  const bool x_bf16 = p.x_is_bf16;
-  const void* hin = in_is_x ? c.x : c.h[l - 1];
-
-  const int warp = threadIdx.x / 32;
-  const int wr = warp & 3;          // 16-row (output o) fragment
-  const int wc = (warp >> 2) * 2;   // first of two 16-column (input k) fragments
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-
-  for (int r0 = 0; r0 < p.num_rows; r0 += TW) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < TW * TW; i += THREADS) {
-      const int rr = i / TW, j = i % TW;
-      const int gr = r0 + rr;
-      bf16 dv = __float2bfloat16(0.f), hv = __float2bfloat16(0.f);
-      if (gr < p.num_rows) {
-        if (o0 + j < n_out) dv = D[size_t(gr) * n_out + o0 + j];
-        if (k0 + j < n_in) {
-          const size_t idx = size_t(gr) * n_in + k0 + j;
-          if (!in_is_x) hv = layer_input_from_saved(p.activation, reinterpret_cast<const bf16*>(hin)[idx]);
-          else if (x_bf16) hv = reinterpret_cast<const bf16*>(hin)[idx];
-          else hv = __float2bfloat16(reinterpret_cast<const float*>(hin)[idx]);
-        }
-      }
-      ds[rr * DLD + j] = dv;
-      hs[rr * DLD + j] = hv;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TW; kk += 16) {
-      // A(m = o, k = row) = D[row][o]: column-major view of the row-major tile.
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-      wmma::load_matrix_sync(a, ds + kk * DLD + wr * 16, DLD);
-#pragma unroll
-      for (int f = 0; f < 2; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, hs + kk * DLD + (wc + f) * 16, DLD);
-        wmma::mma_sync(acc[f], a, b, acc[f]);
-      }
-    }
-  }
-#pragma unroll
-  for (int f = 0; f < 2; ++f)
-    wmma::store_matrix_sync(out + wr * 16 * DSLD + (wc + f) * 16, acc[f], DSLD, wmma::mem_row_major);
-  __syncthreads();
-  float* dw = reinterpret_cast<float*>(c.dw[l]);
-  for (int i = threadIdx.x; i < TW * TW; i += THREADS) {
-    const int m = i / TW, n = i % TW;
-    if (o0 + m < n_out && k0 + n < n_in) dw[size_t(o0 + m) * n_in + k0 + n] = out[m * DSLD + n];
-  }
-  if (k0 == 0) {
-    const float* dbp = reinterpret_cast<const float*>(c.dbp[l]);
-    float* db = reinterpret_cast<float*>(c.db[l]);
-    for (int m = threadIdx.x; m < TW; m += THREADS) {
-      if (o0 + m >= n_out) continue;
-      float s = 0.f;
-      for (int tile = 0; tile < row_tiles; ++tile) s += dbp[size_t(tile) * n_out + o0 + m];
-      db[o0 + m] = s;
-    }
-  }
-}
-
 }  // namespace mlp
 
 extern "C" const char* mlp_chain_error_string(int code) {
@@ -463,38 +358,69 @@ extern "C" const char* mlp_chain_error_string(int code) {
 
 namespace {
 
+// Phase 2 of `num_chains` chains (dw_phase2.cuh): per layer dW_l = D_l^T h_l
+// (layer 0 reads x, the others the saved value of the layer below) and db_l
+// from the per-tile partials; with heads, each head's per-tile partials
+// summed into its dW, db, the loss sums (sums[2 * q + chain]) and dstd.
+int launch_dw(const MlpParams* p, int num_chains, const DwScratch* s, cudaStream_t stream) {
+  dw::Phase2 P{};
+  const int L = p->num_layers;
+  for (int c = 0; c < num_chains; ++c) {
+    const MlpChain& ch = p->chain[c];
+    int n = 0;
+    for (int l = 0; l < L; ++l) {
+      const int n_out = p->dims[l + 1], n_in = p->dims[l];
+      const int kind = l > 0 ? dw::H_SAVED : (p->x_is_bf16 ? dw::H_BF16 : dw::H_F32);
+      P.job[c][l] = {ch.d[l], l > 0 ? ch.h[l - 1] : ch.x, static_cast<float*>(ch.dw[l]), n_out, 0, kind, n_out,
+                     n_in};
+      P.sum[c][n++] = {static_cast<const float*>(ch.dbp[l]), static_cast<float*>(ch.db[l]), n_out, 0, n_out, 1};
+    }
+    if (p->head_mode != 0) {
+      const MlpHead& hd = p->head[c];
+      const float* part = static_cast<const float*>(hd.part);
+      const int wsize = hd.dim * p->dims[L], base = wsize + hd.dim;
+      P.sum[c][n++] = {part, static_cast<float*>(hd.dw), hd.stride, 0, wsize, 1};
+      P.sum[c][n++] = {part, static_cast<float*>(hd.db), hd.stride, wsize, hd.dim, 1};
+      if (p->head_mode == 2) {
+        P.sum[c][n++] = {part, static_cast<float*>(p->loss.sums) + c, hd.stride, base, 2, 2};
+        if (c == 0) P.sum[c][n++] = {part, static_cast<float*>(p->loss.dstd), hd.stride, base + 2, hd.dim, 1};
+      }
+    }
+    P.num_sums[c] = n;
+  }
+  P.num_jobs = L;
+  P.num_rows = p->num_rows;
+  P.activation = p->activation;
+  return dw::launch(P, num_chains, s, stream);
+}
+
 // Launches phase 1 (`rows_kernel`) and phase 2 for `num_chains` (1 or 2)
 // chains on `stream`; returns cudaGetLastError() after the launches.
-int launch_phases(void (*rows_kernel)(const MlpParams), const MlpParams* p, int num_chains, void* stream) {
+int launch_phases(void (*rows_kernel)(const MlpParams), const MlpParams* p, int num_chains, const DwScratch* s,
+                  void* stream) {
   cudaError_t err = cudaFuncSetAttribute(rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(mlp::SMEM_BYTES));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int row_tiles = (p->num_rows + mlp::BM - 1) / mlp::BM;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  rows_kernel<<<dim3(row_tiles, num_chains), mlp::THREADS, mlp::SMEM_BYTES, s>>>(*p);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  rows_kernel<<<dim3(row_tiles, num_chains), mlp::THREADS, mlp::SMEM_BYTES, st>>>(*p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  int dw_tiles = 0;
-  for (int l = 0; l < p->num_layers; ++l)
-    dw_tiles += ((p->dims[l + 1] + mlp::TW - 1) / mlp::TW) * ((p->dims[l] + mlp::TW - 1) / mlp::TW);
-  int head_blocks = 0;
-  for (int c = 0; c < num_chains && p->head_mode != 0; ++c)
-    head_blocks = max(head_blocks, (p->head[c].stride + mlp::THREADS - 1) / mlp::THREADS);
-  mlp::mlp_chain_bwd_dw_kernel<<<dim3(dw_tiles + head_blocks, num_chains), mlp::THREADS, 0, s>>>(*p, row_tiles);
-  return static_cast<int>(cudaGetLastError());
+  return launch_dw(p, num_chains, s, st);
 }
 
 }  // namespace
 
 // K1b, K2b, K8b, K9s: both phases from saved activations (0 on success).
-extern "C" int mlp_chain_bwd(const MlpParams* p, int num_chains, void* stream) {
-  return launch_phases(mlp::mlp_chain_bwd_rows_kernel, p, num_chains, stream);
+// `s`: phase 2's split and scratch.
+extern "C" int mlp_chain_bwd(const MlpParams* p, int num_chains, const DwScratch* s, void* stream) {
+  return launch_phases(mlp::mlp_chain_bwd_rows_kernel, p, num_chains, s, stream);
 }
 
 // K9m: both chains' forward, heads, loss and backward per row tile in one
 // phase-1 launch (head_mode 2, save_hiddens, the biases and every h[l] set),
 // then phase 2 (0 on success).
-extern "C" int mlp_ppo_step(const MlpParams* p, void* stream) {
+extern "C" int mlp_ppo_step(const MlpParams* p, const DwScratch* s, void* stream) {
   if (p->head_mode != 2 || !p->save_hiddens || !p->skip_input_grad) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_phases(mlp::mlp_ppo_step_rows_kernel, p, 2, stream);
+  return launch_phases(mlp::mlp_ppo_step_rows_kernel, p, 2, s, stream);
 }

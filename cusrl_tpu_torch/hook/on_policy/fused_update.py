@@ -5,7 +5,13 @@
 OnPolicyPreparation -> PpoSurrogateLoss -> EntropyLoss span of the PPO suite
 with one objective.  Where the backbones' kernels apply (``Mlp._can_fuse``:
 CUDA tensors, bf16 layers, enough rows) it calls ``fused_ppo_step`` (K2f,
-then K9s); elsewhere ``ppo_step_reference``, the same math through autograd.
+then K9s, or K9m); elsewhere ``ppo_step_reference``, the same math through
+autograd.  The head kernels take at most ``MAX_HEAD_DIM`` outputs per head;
+with a wider action or value head (decided from the shapes at ``init``) the
+two chains still run in their kernels (``fused_mlp_pair``, K2f/K2b under
+autograd) and the fp32 heads and the loss run outside them
+(``ppo_loss_reference``), as ``JointPolicyValueEvaluation`` evaluates heads
+it does not fuse.
 The entropy of the state-independent-std Gaussian depends only on ``std`` and
 is computed outside the kernel; its gradient and the kernel's ``std``
 gradient reach ``std_param`` through the bijector.  Objectives:
@@ -20,8 +26,8 @@ import math
 import torch
 
 from cusrl_tpu_torch.hook.on_policy.joint_eval import _fusable
-from cusrl_tpu_torch.nn.kernels.fused_mlp import MAX_HEAD_DIM
-from cusrl_tpu_torch.nn.kernels.fused_ppo_step import fused_ppo_step, ppo_step_reference
+from cusrl_tpu_torch.nn.kernels.fused_mlp import MAX_HEAD_DIM, fused_mlp_pair
+from cusrl_tpu_torch.nn.kernels.fused_ppo_step import fused_ppo_step, ppo_loss_reference, ppo_step_reference
 from cusrl_tpu_torch.nn.module.distribution import NormalDist
 from cusrl_tpu_torch.template.hook import Hook
 from cusrl_tpu_torch.utils.nest import get_first
@@ -53,6 +59,7 @@ class FusedPpoUpdate(Hook):
         self.value_loss_weight = value_loss_weight
         self.entropy_loss_weight = entropy_loss_weight
         self.value_loss_clip = value_loss_clip
+        self.fuse_heads = True
 
     def init(self, agent) -> None:
         reason = _fusable(agent.actor.backbone, agent.critic.backbone)
@@ -67,8 +74,8 @@ class FusedPpoUpdate(Hook):
             raise ValueError("FusedPpoUpdate requires biased mean/value heads")
         if getattr(agent.critic, "action_aware", False):
             raise ValueError("FusedPpoUpdate does not support action-aware critics")
-        if max(dist.mean_head.output_dim, agent.critic.head.output_dim) > MAX_HEAD_DIM:
-            raise ValueError(f"FusedPpoUpdate takes heads of at most {MAX_HEAD_DIM} outputs")
+        # Wider heads than the head kernels take run outside them (objective).
+        self.fuse_heads = max(dist.mean_head.output_dim, agent.critic.head.output_dim) <= MAX_HEAD_DIM
 
     def objective(self, agent, metadata, batch):
         actor, critic = agent.actor, agent.critic
@@ -92,12 +99,18 @@ class FusedPpoUpdate(Hook):
             batch["return"].reshape(n, -1), self.clip_ratio, self.weight, self.value_loss_weight,
             backbone.activation, backbone.ends_with_activation,
         )
-        if backbone._can_fuse(xa):
+        fused = backbone._can_fuse(xa)
+        if fused and self.fuse_heads:
             loss_core, (surrogate_loss, value_loss, ratio, value) = fused_ppo_step(
                 *args, loss_clip=self.value_loss_clip
             )
         else:
-            loss_core, m = ppo_step_reference(*args, loss_clip=self.value_loss_clip)
+            if fused:  # wide heads: the chains in their kernels, the heads and loss outside
+                latents = fused_mlp_pair(*args[:6], backbone.activation, backbone.ends_with_activation,
+                                         skip_input_grad=True)
+                loss_core, m = ppo_loss_reference(*latents, *args[6:19], loss_clip=self.value_loss_clip)
+            else:
+                loss_core, m = ppo_step_reference(*args, loss_clip=self.value_loss_clip)
             surrogate_loss, value_loss, ratio, value = m["surrogate_loss"], m["value_loss"], m["ratio"], m["value"]
         entropy = torch.sum(torch.log(std) + 0.5 + _LOG_SQRT_2PI)
         objectives = {

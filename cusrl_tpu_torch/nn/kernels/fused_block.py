@@ -49,6 +49,7 @@ import ctypes
 
 import torch
 
+from cusrl_tpu_torch.nn.kernels import dw_phase2
 from cusrl_tpu_torch.nn.kernels.fused_mlp import _ACTIVATION_CODES, _PREACT_ACTIVATIONS, _act_plain, _dact_plain
 
 __all__ = [
@@ -210,16 +211,25 @@ def _library() -> ctypes.CDLL:
     if lib.fused_block_error_string.restype is not ctypes.c_char_p:
         for name in _ENTRIES:
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p]
+            if name.endswith("_bwd"):  # (params, chains, phase-2 scratch, stream)
+                fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.POINTER(dw_phase2.DwScratch),
+                               ctypes.c_void_p]
+            else:
+                fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.fused_block_error_string.argtypes = [ctypes.c_int]
         lib.fused_block_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(entry: str, counter: str, p: _Params, chains: int, device) -> None:
+def _launch(entry: str, counter: str, p: _Params, chains: int, device, phase2=None) -> None:
+    """Launches ``entry``; a backward also takes phase 2's ``DwScratch``."""
     lib = _library()
-    code = getattr(lib, entry)(ctypes.byref(p), chains, torch.cuda.current_stream(device).cuda_stream)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if phase2 is None:
+        code = getattr(lib, entry)(ctypes.byref(p), chains, stream)
+    else:
+        code = getattr(lib, entry)(ctypes.byref(p), chains, ctypes.byref(phase2), stream)
     LAUNCHES[counter] += 1
     if code != 0:
         raise RuntimeError(f"{entry} launch failed: {lib.fused_block_error_string(code).decode()} (cudaError {code})")
@@ -299,8 +309,8 @@ def _launch_pre_bwd(xs, hs, ghs, gqkvs, pss, skip_input_grad, counter):
         w_in, _, g1, bb1, w_q, w_k, w_v, *_ = _check_params(ps, shapes)
         if h.dtype != torch.float32 or h.shape != (n, embed) or gqkv.shape != (n, 3 * embed):
             raise ValueError("h must be fp32 [N, E] and the qkv cotangent [N, 3E]")
-        x, h = x.contiguous(), h.contiguous()
-        gqkv = gqkv.to(_BF16).contiguous()
+        x, h = dw_phase2.aligned16(x), h.contiguous()
+        gqkv = dw_phase2.aligned16(gqkv.to(_BF16))
         gh = None if gh is None else gh.float().contiguous()
         dx = None if skip_input_grad else torch.empty(n, in_dim, device=device)
         sa, sb = (torch.empty(n, embed, dtype=_BF16, device=device) for _ in range(2))
@@ -321,7 +331,10 @@ def _launch_pre_bwd(xs, hs, ghs, gqkvs, pss, skip_input_grad, counter):
         results.append((dx, dws[0].view(embed, in_dim), db_in, dg1, dbb1, *(d.view(embed, embed) for d in dws[1:]),
                         db_q, db_k, db_v))
     if n:
-        _launch("fused_block_pre_bwd", counter, p, len(xs), device)
+        shapes = [(embed, in_dim)] + [(embed, embed)] * 3
+        phase2, tensors = dw_phase2.make_scratch(shapes, [6 * embed] * len(xs), n, device)
+        keep += tensors
+        _launch("fused_block_pre_bwd", counter, p, len(xs), device, phase2)
     else:
         for r in results:
             for t in r[1:]:
@@ -375,8 +388,8 @@ def _launch_post_bwd(attns, gs, r1s, saveds, wss, activation, counter):
             ws, ((embed, embed), (ff, embed), (embed, ff), (embed,), (embed,)))
         if g.shape != (n, embed) or r1.dtype != _BF16 or saved.dtype != _BF16 or saved.shape != (n, ff):
             raise ValueError("the cotangent must be [N, E] and the saved r1 / activations bf16 [N, E] / [N, F]")
-        attn, r1, saved = attn.float().contiguous(), r1.contiguous(), saved.contiguous()
-        g = g.to(_BF16).contiguous()
+        attn, r1, saved = dw_phase2.aligned16(attn.float()), r1.contiguous(), dw_phase2.aligned16(saved)
+        g = dw_phase2.aligned16(g.to(_BF16))
         dattn, dh = (torch.empty(n, embed, device=device) for _ in range(2))
         sa, sb = (torch.empty(n, embed, dtype=_BF16, device=device) for _ in range(2))
         sc = torch.empty(n, ff, dtype=_BF16, device=device)
@@ -397,7 +410,10 @@ def _launch_post_bwd(attns, gs, r1s, saveds, wss, activation, counter):
         results.append((dattn, dh, dw_o.view(embed, embed), db_o, dg2, dbb2, dw_up.view(ff, embed), db_up,
                         dw_down.view(embed, ff), db_down))
     if n:
-        _launch("fused_block_post_bwd", counter, p, len(attns), device)
+        shapes = [(embed, embed), (ff, embed), (embed, ff)]
+        phase2, tensors = dw_phase2.make_scratch(shapes, [num_sums] * len(attns), n, device)
+        keep += tensors
+        _launch("fused_block_post_bwd", counter, p, len(attns), device, phase2)
     else:
         for r in results:
             for t in r[2:]:

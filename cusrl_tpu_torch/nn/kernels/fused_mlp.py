@@ -49,6 +49,8 @@ from typing import Sequence
 
 import torch
 
+from cusrl_tpu_torch.nn.kernels import dw_phase2
+
 __all__ = [
     "LAUNCHES",
     "fused_mlp",
@@ -278,13 +280,16 @@ def _library(stem: str) -> ctypes.CDLL:
     lib = load_library(stem)
     fn = getattr(lib, stem)
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.mlp_chain_error_string.argtypes = [ctypes.c_int]
         lib.mlp_chain_error_string.restype = ctypes.c_char_p
-        if stem == "mlp_chain_bwd":
-            lib.mlp_ppo_step.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
+        if stem == "mlp_chain_bwd":  # (params, [chains,] phase-2 scratch, stream)
+            scratch = ctypes.POINTER(dw_phase2.DwScratch)
+            fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, scratch, ctypes.c_void_p]
+            lib.mlp_ppo_step.argtypes = [ctypes.POINTER(_Params), scratch, ctypes.c_void_p]
             lib.mlp_ppo_step.restype = ctypes.c_int
+        else:
+            fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p]
     return lib
 
 
@@ -398,16 +403,17 @@ def _launch_fwd(xs, wss, bss, activation, trailing, save_hiddens, counter, heads
 
 def _bwd_params(xs, gs, wss, hss, activation, trailing, skip_input_grad, heads, loss):
     """Checks the inputs of one ``mlp_chain_bwd`` or ``mlp_ppo_step`` launch
-    and fills its ``MlpParams``.  Returns ``(p, results, scratch)``:
-    ``results`` as ``_launch_bwd`` returns them (allocated, written by the
-    launch) and ``scratch`` the tensors the launch also reads or writes,
-    which must outlive it."""
+    and fills its ``MlpParams``.  Returns ``(p, phase2, results, scratch)``:
+    ``phase2`` phase 2's split and scratch (``DwScratch``; None for no
+    rows), ``results`` as ``_launch_bwd`` returns them (allocated, written
+    by the launch) and ``scratch`` the tensors the launch also reads or
+    writes, which must outlive it."""
     dims = _validate(xs, wss)
     num_layers, n = len(dims) - 1, xs[0].shape[0]
     device = xs[0].device
-    xs = [x.contiguous() for x in xs]
+    xs = [dw_phase2.aligned16(x) for x in xs]
     wss = [[w.detach().contiguous() for w in ws] for ws in wss]
-    hss = [[h.contiguous() for h in hs] for hs in hss]
+    hss = [[dw_phase2.aligned16(h) for h in hs] for hs in hss]
     if heads is None:
         gs = [g.to(_BF16).contiguous() for g in gs]
         for g in gs:
@@ -428,6 +434,7 @@ def _bwd_params(xs, gs, wss, hss, activation, trailing, skip_input_grad, heads, 
     row_tiles = -(-n // ROW_TILE)
     results = []
     scratch = [xs, wss, hss, gs]
+    col_floats = []
     p = _params(dims, n, activation, trailing)
     p.x_is_bf16 = int(xs[0].dtype == _BF16)
     p.skip_input_grad = int(skip_input_grad)
@@ -452,10 +459,12 @@ def _bwd_params(xs, gs, wss, hss, activation, trailing, skip_input_grad, heads, 
             chain.dw[l] = dws[l].data_ptr()
             chain.db[l] = dbs[l].data_ptr()
         head_grads = None
+        col_floats.append(sum(dims[1:]))  # phase 2's column sums: every layer's db, then the head's partials
         if heads is not None:
             w, b, g, gl = heads[i]
             dim = w.shape[0]
             stride = dim * dims[-1] + dim + (0 if loss is None else 2 + (dim if i == 0 else 0))
+            col_floats[-1] += stride
             part = torch.empty(max(row_tiles, 1), stride, device=device)
             head_grads = (torch.empty(dim, dims[-1], device=device), torch.empty(dim, device=device))
             scratch.append((part, w, b, g, gl))
@@ -467,7 +476,12 @@ def _bwd_params(xs, gs, wss, hss, activation, trailing, skip_input_grad, heads, 
         results.append((dx, dws, dbs, head_grads))
     if loss is not None:
         loss.fill(p.loss, n, heads[1][0].shape[0])
-    return p, results, scratch
+    phase2 = None
+    if n > 0:
+        phase2, tensors = dw_phase2.make_scratch([(dims[l + 1], dims[l]) for l in range(num_layers)], col_floats, n,
+                                                 device)
+        scratch.append(tensors)
+    return p, phase2, results, scratch
 
 
 def _zeroed(results, loss):
@@ -489,11 +503,12 @@ def _launch_bwd(xs, gs, wss, hss, activation, trailing, skip_input_grad, counter
     (``_LossArgs``) K9s: the heads' cotangents come from the PPO loss; the
     loss's ``dstd`` and ``sums`` are filled in.  Returns
     ``[(dx or None, dws, dbs, head_grads or None)]`` per chain."""
-    p, results, scratch = _bwd_params(xs, gs, wss, hss, activation, trailing, skip_input_grad, heads, loss)
+    p, phase2, results, scratch = _bwd_params(xs, gs, wss, hss, activation, trailing, skip_input_grad, heads, loss)
     if xs[0].shape[0] == 0:
         return _zeroed(results, loss)
     lib = _library("mlp_chain_bwd")
-    code = lib.mlp_chain_bwd(ctypes.byref(p), len(xs), torch.cuda.current_stream(xs[0].device).cuda_stream)
+    code = lib.mlp_chain_bwd(ctypes.byref(p), len(xs), ctypes.byref(phase2),
+                             torch.cuda.current_stream(xs[0].device).cuda_stream)
     LAUNCHES[counter] += 1
     _check(lib, code, "mlp_chain_bwd")
     return results
@@ -509,7 +524,7 @@ def _launch_ppo_step(xs, wss, bss, heads, loss, activation, trailing):
     dims = _validate(xs, wss, bss)
     n, device = xs[0].shape[0], xs[0].device
     hss = [[torch.empty(n, d, dtype=_BF16, device=device) for d in dims[1:]] for _ in xs]
-    p, results, scratch = _bwd_params(xs, None, wss, hss, activation, trailing, True, heads, loss)
+    p, phase2, results, scratch = _bwd_params(xs, None, wss, hss, activation, trailing, True, heads, loss)
     bss = [[b.detach().contiguous() for b in bs] for bs in bss]
     for i, bs in enumerate(bss):
         for l, b in enumerate(bs):
@@ -518,7 +533,7 @@ def _launch_ppo_step(xs, wss, bss, heads, loss, activation, trailing):
     if n == 0:
         return _zeroed(results, loss), hss
     lib = _library("mlp_chain_bwd")
-    code = lib.mlp_ppo_step(ctypes.byref(p), torch.cuda.current_stream(device).cuda_stream)
+    code = lib.mlp_ppo_step(ctypes.byref(p), ctypes.byref(phase2), torch.cuda.current_stream(device).cuda_stream)
     LAUNCHES["K9m"] += 1
     _check(lib, code, "mlp_ppo_step")
     return results, hss

@@ -56,7 +56,14 @@ from cusrl_tpu_torch.nn.kernels.fused_mlp import (
     supports_fused_mlp,
 )
 
-__all__ = ["LAUNCHES", "fused_ppo_step", "ppo_loss_bwd_plain", "ppo_step_mono_plain", "ppo_step_reference"]
+__all__ = [
+    "LAUNCHES",
+    "fused_ppo_step",
+    "ppo_loss_bwd_plain",
+    "ppo_loss_reference",
+    "ppo_step_mono_plain",
+    "ppo_step_reference",
+]
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -84,6 +91,14 @@ def ppo_step_reference(xa, xc, weights_a, biases_a, weights_c, biases_c, mean_we
     ``(loss_core, metrics dict)``; numerics of the standard hook trio."""
     la, _ = mlp_chain_fwd_plain(xa, weights_a, biases_a, activation, trailing, False)
     lc, _ = mlp_chain_fwd_plain(xc, weights_c, biases_c, activation, trailing, False)
+    return ppo_loss_reference(la, lc, mean_weight, mean_bias, value_weight, value_bias, std, action, old_logp,
+                              advantage, old_value, returns, clip_ratio, w_surr, w_value, loss_clip)
+
+
+def ppo_loss_reference(la, lc, mean_weight, mean_bias, value_weight, value_bias, std, action, old_logp, advantage,
+                       old_value, returns, clip_ratio, w_surr, w_value, loss_clip=None):
+    """``ppo_step_reference`` from the chains' bf16 outputs ``la`` and ``lc``
+    on: the fp32 heads and the PPO + value loss, differentiable by autograd."""
     mean = la.float() @ mean_weight.T + mean_bias
     vhat = lc.float() @ value_weight.T + value_bias
     std = std.float()

@@ -2,9 +2,8 @@
 ``ppo_hook_suite``, ``PpoAgentFactory`` and ``TransformerPpoAgentFactory``).
 
 The hook order is the JAX suite's (``preset/ppo.py:61-111``); with recurrent
-backbones the joint evaluation is ``JointSequentialEvaluation``.  The fused
-PPO update of recurrent backbones is not ported yet and raises
-``NotImplementedError`` instead of being dropped.
+backbones the joint evaluation is ``JointSequentialEvaluation``, and the fused
+PPO update is built as there, for its ``init`` to refuse them.
 """
 
 from __future__ import annotations
@@ -62,11 +61,11 @@ def ppo_hook_suite(
     fused_ppo_update: bool = False,
     recurrent_backbones: bool = False,
 ) -> list[Hook]:
-    if recurrent_backbones and fused_ppo_update:
-        raise NotImplementedError("the fused PPO update of recurrent backbones is not ported yet")
     if fused_ppo_update:
         # One fused step (K2f + K9s) computes surrogate + value loss and their
         # gradients; entropy stays outside.  Replaces the five-hook span below.
+        # As in the JAX suite, recurrent backbones build it too and its init
+        # refuses them (ValueError).
         objective_span: list[Hook | None] = [
             FusedPpoUpdate(
                 clip_ratio=surrogate_clip_ratio,

@@ -711,3 +711,201 @@ def test_fused_ppo_step_mono_wrapper_matches_cpu_and_split(cuda, monkeypatch):
         assert ((mono - values).abs() <= 2e-3 * values.abs().clamp(min=1.0)).all(), (mono, values)
         for a, b in zip(mono_grads, grads):
             assert (a - b).abs().max() <= 3e-2 * b.abs().max()
+
+
+# -- Phase 2 of every backward (csrc/dw_phase2.cuh) ---------------------------
+
+def _phase2_cases(name, gen, device):
+    """``(kernel_fn, plain_fn, grad_rel)`` of one backward at a row count
+    with several row splits and a short last split: each fn returns a flat
+    list of the gradients (and sums) it computes."""
+    from cusrl_tpu_torch.nn.kernels import fused_block as fb
+    from cusrl_tpu_torch.nn.kernels import fused_ppo_step as fp
+
+    def flat(results):
+        if isinstance(results, torch.Tensor):
+            return [results]
+        return [t for r in (results or ()) for t in flat(r)]
+
+    if name == "K1b":  # TL's ELU head 128 -> 128 with dX
+        rows = 65_537
+        ws, bs = _params(gen, device, (128, 128))
+        x = torch.randn(rows, 128, generator=gen).to(device, torch.bfloat16)
+        g = (torch.randn(rows, 128, generator=gen) * 0.01).to(device, torch.bfloat16)
+        out, _ = fm.mlp_chain_fwd_plain(x, ws, bs, "elu", True, False)
+        return (lambda: flat(fm._launch_bwd([x], [g], [ws], [[out]], "elu", True, False, "K1b")[0][:3]),
+                lambda: flat(fm.mlp_chain_bwd_plain(x, g, ws, [out], "elu", True, False)), 1e-2)
+    rows = 24_577
+    if name in ("K2b", "K8b", "K9s", "K9m"):
+        (wa, ba), (wc, bc) = _params(gen, device), _params(gen, device)
+        xs = [torch.tanh(torch.randn(rows, WIDTHS[0], generator=gen)).to(device) for _ in range(2)]
+        outs, hids, _ = fm._launch_fwd(xs, [wa, wc], [ba, bc], "elu", True, True, "K2f")
+        hss = [[*h, o] for h, o in zip(hids, outs)]
+        if name == "K2b":
+            gs = [(torch.randn(rows, WIDTHS[-1], generator=gen) * 0.01).to(device, torch.bfloat16) for _ in range(2)]
+            return (lambda: flat(r[:3] for r in fm._launch_bwd(xs, gs, [wa, wc], hss, "elu", True, True, "K2b")),
+                    lambda: flat(fm.mlp_chain_bwd_plain(x, g, ws, hs, "elu", True, True)
+                                 for x, g, ws, hs in zip(xs, gs, [wa, wc], hss)), 1e-2)
+        heads = _heads(gen, device)
+        if name == "K8b":
+            gm = (torch.randn(rows, A_DIM, generator=gen) * 0.01).to(device)
+            gv = (torch.randn(rows, 1, generator=gen) * 0.01).to(device)
+            spec = [(heads[0][0], None, gm, None), (heads[1][0], None, gv, None)]
+
+            def plain():
+                res = []
+                for c in range(2):
+                    d, dwh, dbh = fm.head_bwd_plain(hss[c][-1], spec[c][2], spec[c][0])
+                    res += [*fm.mlp_chain_bwd_plain(xs[c], d, [wa, wc][c], hss[c], "elu", True, True)[1:], dwh, dbh]
+                return flat(res)
+
+            return (lambda: flat([*r[1:3], *r[3]] for r in fm._launch_bwd(xs, None, [wa, wc], hss, "elu", True, True,
+                                                                          "K8b", heads=spec)), plain, 1e-2)
+        (wm, bm), (wv, bv) = heads
+        std = torch.exp(torch.randn(A_DIM, generator=gen) * 0.2).to(device)
+        with torch.no_grad():
+            mean = hss[0][-1].float() @ wm.T + bm
+        action = mean + std * torch.randn(rows, A_DIM, generator=gen).to(device)
+        old_logp = (-0.5 * ((action - mean) / std).square() - torch.log(std) - 0.9189385332046727).sum(-1)
+        old_logp = old_logp + (torch.randn(rows, generator=gen) * 0.2).to(device)
+        adv = torch.randn(rows, generator=gen).to(device)
+        ret, old_value = torch.randn(rows, 1, generator=gen).to(device), torch.randn(rows, 1, generator=gen).to(device)
+        tail = (wm, bm, wv, bv, std, action, old_logp, adv, old_value, ret, 0.2, 1.0, 0.5, None, "elu", True)
+        if name == "K9s":
+            return (lambda: flat(fp._loss_bwd(xs, hss, [wa, wc], *tail)),
+                    lambda: flat(fp.ppo_loss_bwd_plain(xs, hss, [wa, wc], *tail)), 3e-2)
+        saved = fp._ppo_step(xs, [ba, bc], [wa, wc], *tail)[2]  # the mono kernel's activations, for the plain side
+        return (lambda: flat(fp._ppo_step(xs, [ba, bc], [wa, wc], *tail)[:2]),
+                lambda: flat(fp.ppo_loss_bwd_plain(xs, saved, [wa, wc], *tail)), 3e-2)
+    chains = 2 if name.startswith("K5") else 1
+    rows = 65_537 if chains == 1 else 24_577
+    layers = [_block_params(gen, device) for _ in range(chains)]
+    if name.endswith("pre_b"):
+        pres = [l[0] for l in layers]
+        xs = [torch.tanh(torch.randn(rows, 48, generator=gen)).to(device) for _ in range(chains)]
+        hs = [fb.pre_fwd_plain(x, *ps)[0] for x, ps in zip(xs, pres)]
+        ghs = [(torch.randn(rows, 128, generator=gen) * 0.01).to(device) for _ in range(chains)]
+        gqkvs = [(torch.randn(rows, 384, generator=gen) * 0.01).to(device, torch.bfloat16) for _ in range(chains)]
+        return (lambda: flat(fb._launch_pre_bwd(xs, hs, ghs, gqkvs, pres, True, name)),
+                lambda: flat(fb.pre_bwd_plain(x, h, gh, gq, ps[0], *ps[4:7], ps[2], ps[3], True)
+                             for x, h, gh, gq, ps in zip(xs, hs, ghs, gqkvs, pres)), 1e-2)
+    posts = [l[1] for l in layers]
+    attns = [torch.randn(rows, 128, generator=gen).to(device) for _ in range(chains)]
+    h_in = [torch.randn(rows, 128, generator=gen).to(device, torch.bfloat16).float() for _ in range(chains)]
+    prefs = [fb.post_fwd_plain(a, h, *ps, "gelu", True) for a, h, ps in zip(attns, h_in, posts)]
+    gs = [(torch.randn(rows, 128, generator=gen) * 0.01).to(device, torch.bfloat16) for _ in range(chains)]
+    wss = [(ps[0], ps[4], ps[6], ps[2], ps[3]) for ps in posts]
+    return (lambda: flat(fb._launch_post_bwd(attns, gs, [r[1] for r in prefs], [r[2] for r in prefs], wss, "gelu",
+                                             name)),
+            lambda: flat(fb.post_bwd_plain(a, g, r[1], r[2], *ws, "gelu")
+                         for a, g, r, ws in zip(attns, gs, prefs, wss)), 1e-2)
+
+
+@pytest.mark.parametrize("name", ["K1b", "K2b", "K8b", "K9s", "K9m", "K4pre_b", "K4post_b", "K5pre_b", "K5post_b"])
+def test_backward_phase2_split_rows_match_plain_and_repeat_bitwise(cuda, name):
+    """Every backward at a row count that phase 2 splits into several row
+    ranges with a short last one (65,537 or 24,577 rows): each gradient and
+    sum against the plain version at the usual limits (3e-2 for the PPO
+    step's, a row at a clip bound), and a second call gives the same bits."""
+    from cusrl_tpu_torch.nn.kernels import dw_phase2
+
+    assert dw_phase2.dw_row_splits(-(-24_577 // 64), 48, 2)[0] > 1
+    gen = torch.Generator().manual_seed(len(name) + 6)
+    kernel, plain, rel = _phase2_cases(name, gen, cuda)
+    first, second, want = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    assert len(first) == len(want)
+    for a, b, w in zip(first, second, want):
+        assert torch.equal(a, b)
+        a, w = a.float(), w.float()
+        assert torch.isfinite(a).all() and (a - w).abs().max() <= rel * w.abs().max()
+
+
+def test_wide_head_fused_update_step_on_card_matches_cpu(cuda):
+    """``FusedPpoUpdate`` with a 65-wide action head: the chains run K2f/K2b
+    on the card (one launch each, no K9s) and the heads and loss outside;
+    its objective and every gradient against the same step on the CPU
+    (``ppo_step_reference``), at the head wrappers' limits."""
+    from cusrl_tpu_torch.environment.locomotion import VelocityLocomotionEnv
+    from cusrl_tpu_torch.zoo.registry import get_experiment
+
+    factory = get_experiment("Velocity-Rough", "ppo").make_agent_factory()
+    factory.fused_ppo_update = True
+    agents = {d: factory(VelocityLocomotionEnv(num_instances=8, observation_dim=48, action_dim=65, device=d).spec,
+                         device=d) for d in ("cpu", "cuda")}
+    agents["cuda"].model.load_state_dict(agents["cpu"].model.state_dict())
+    gen = torch.Generator().manual_seed(65)
+    rows = 2048
+    obs = torch.tanh(torch.randn(rows, 48, generator=gen))
+    with torch.no_grad():
+        dist, _, _ = agents["cpu"].actor(obs)
+        action = dist["mean"] + dist["std"] * torch.randn(rows, 65, generator=gen)
+        logp = agents["cpu"].actor.compute_logp(dist, action)
+    batch = {"observation": obs, "action": action, "action_logp": logp + 0.1 * torch.randn(logp.shape, generator=gen),
+             "advantage": torch.randn(rows, 1, generator=gen), "return": torch.randn(rows, 1, generator=gen),
+             "value": torch.randn(rows, 1, generator=gen)}
+    results = {}
+    for device, agent in agents.items():
+        hook = agent.get_hook("fused_ppo_update")
+        assert not hook.fuse_heads
+        fm.reset_launch_counts()
+        objectives, metrics = hook.objective(agent, None, {k: v.to(device) for k, v in batch.items()})
+        sum(objectives.values()).backward()
+        launched = {k: v for k, v in fm.LAUNCHES.items() if v}
+        assert launched == ({"K2f": 1, "K2b": 1} if device == "cuda" else {}), launched
+        results[device] = ({k: v.item() for k, v in {**objectives, **metrics}.items()},
+                           {p: t.grad.cpu() for p, t in agent.model.named_parameters()})
+    (values, grads), (ref_values, ref_grads) = results["cuda"], results["cpu"]
+    for key, ref in ref_values.items():
+        assert abs(values[key] - ref) <= 2e-3 * max(1.0, abs(ref)), key
+    for path, ref in ref_grads.items():
+        assert (grads[path] - ref).abs().max() <= 3e-2 * ref.abs().max(), path
+
+
+def _at_offset(t):
+    """``t``'s values in a contiguous view that starts one element past an
+    aligned address."""
+    view = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    return view
+
+
+def test_backward_takes_contiguous_inputs_at_unaligned_offsets(cuda):
+    """Phase 2 reads its operands with 16-byte loads; the wrappers copy a
+    contiguous input that starts elsewhere (K1b's x and saved output, K4
+    pre b's x and qkv cotangent, K4 post b's attention output, cotangent
+    and saved activations), so such a view gives the same bits."""
+    from cusrl_tpu_torch.nn.kernels import fused_block as fb
+
+    def flat(results):
+        if isinstance(results, torch.Tensor):
+            return [results]
+        return [t for r in (results or ()) for t in flat(r)]
+
+    def same(a, b):
+        assert len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+    gen = torch.Generator().manual_seed(16)
+    rows = 1000
+    ws, bs = _params(gen, cuda, (128, 128))
+    x = torch.randn(rows, 128, generator=gen).to(cuda, torch.bfloat16)
+    g = (torch.randn(rows, 128, generator=gen) * 0.01).to(cuda, torch.bfloat16)
+    out, _ = fm.mlp_chain_fwd_plain(x, ws, bs, "elu", True, False)
+    same(flat(fm._launch_bwd([_at_offset(x)], [_at_offset(g)], [ws], [[_at_offset(out)]], "elu", True, False,
+                             "K1b")[0][:3]),
+         flat(fm._launch_bwd([x], [g], [ws], [[out]], "elu", True, False, "K1b")[0][:3]))
+    pre, post = _block_params(gen, cuda)
+    x = torch.tanh(torch.randn(rows, 48, generator=gen)).to(cuda)
+    h = fb.pre_fwd_plain(x, *pre)[0]
+    gh = (torch.randn(rows, 128, generator=gen) * 0.01).to(cuda)
+    gqkv = (torch.randn(rows, 384, generator=gen) * 0.01).to(cuda, torch.bfloat16)
+    same(flat(fb._launch_pre_bwd([_at_offset(x)], [h], [gh], [_at_offset(gqkv)], [pre], True, "K4pre_b")),
+         flat(fb._launch_pre_bwd([x], [h], [gh], [gqkv], [pre], True, "K4pre_b")))
+    attn = torch.randn(rows, 128, generator=gen).to(cuda)
+    _, r1, saved = fb.post_fwd_plain(attn, h, *post, "gelu", True)
+    g = (torch.randn(rows, 128, generator=gen) * 0.01).to(cuda, torch.bfloat16)
+    wts = (post[0], post[4], post[6], post[2], post[3])
+    same(flat(fb._launch_post_bwd([_at_offset(attn)], [_at_offset(g)], [r1], [_at_offset(saved)], [wts], "gelu",
+                                  "K4post_b")),
+         flat(fb._launch_post_bwd([attn], [g], [r1], [saved], [wts], "gelu", "K4post_b")))

@@ -214,10 +214,36 @@ def test_gradient_clipping_matches_jax():
     dict(fused_ppo_update=True, recurrent_backbones=True),
 ])
 def test_hook_suite_refuses_options_not_ported(option):
-    """Options still waiting (the fused update of recurrent backbones, the
-    sparse bootstrap) raise, also beside the options ported since."""
-    with pytest.raises(NotImplementedError):
-        ppo_hook_suite(**option)
+    """The sparse bootstrap, still waiting, raises, also beside the options
+    ported since.  The fused update of recurrent backbones is refused as the
+    JAX package refuses it: the suite builds ``FusedPpoUpdate`` in the JAX
+    suite's order, and its ``init`` raises ``ValueError`` on the same agent
+    configuration (the transformer entry with ``fused_ppo_update``) in both
+    packages."""
+    if not option.get("fused_ppo_update"):
+        with pytest.raises(NotImplementedError):
+            ppo_hook_suite(**option)
+        return
+    from cusrl_tpu.environment.locomotion import VelocityLocomotionEnv as JaxEnv
+    from cusrl_tpu.preset.ppo import ppo_hook_suite as jax_suite
+    from cusrl_tpu.zoo.registry import get_experiment as jax_get_experiment
+    from cusrl_tpu_torch.environment.locomotion import VelocityLocomotionEnv
+    from cusrl_tpu_torch.zoo.registry import get_experiment
+
+    names = [h.hook_name for h in ppo_hook_suite(**option)]
+    assert names == [h.hook_name for h in jax_suite(**option)]
+    assert "fused_ppo_update" in names
+    factories = [get("Velocity-Flat", "transformer_ppo").make_agent_factory()
+                 for get in (jax_get_experiment, get_experiment)]
+    for factory in factories:
+        for key, value in dict(fused_ppo_update=True, embed_dim=32, num_heads=2, attention_window=4,
+                               mlp_hidden_dims=(32,)).items():
+            setattr(factory, key, value)
+    env_kwargs = dict(num_instances=8, observation_dim=10, action_dim=3)
+    with pytest.raises(ValueError, match="FusedPpoUpdate requires fusable backbones"):
+        factories[0](JaxEnv(**env_kwargs).spec)
+    with pytest.raises(ValueError, match="FusedPpoUpdate requires fusable backbones"):
+        factories[1](VelocityLocomotionEnv(**env_kwargs, device="cpu").spec, device="cpu")
 
 
 @pytest.mark.parametrize("option", [

@@ -18,6 +18,8 @@ parameters 2e-6), bf16 to one rounding carried through 20 Adam steps
 (metrics rtol 1e-3 / atol 1e-4, parameters 3e-3).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -63,12 +65,12 @@ def _factories(path, **overrides):
     return jf, tf
 
 
-def _rollout(jax_agent, seed):
+def _rollout(jax_agent, seed, act=ACT):
     rng = np.random.default_rng(seed)
     obs = np.tanh(rng.standard_normal((T, N, OBS))).astype(np.float32)
     next_obs = np.concatenate([obs[1:], np.tanh(rng.standard_normal((1, N, OBS)))], 0).astype(np.float32)
     dist, _, _ = jax_agent.state.actor(jnp.asarray(obs))
-    action = dist["mean"] + dist["std"] * rng.standard_normal((T, N, ACT)).astype(np.float32)
+    action = dist["mean"] + dist["std"] * rng.standard_normal((T, N, act)).astype(np.float32)
     terminated = rng.random((T, N, 1)) < 0.05
     truncated = rng.random((T, N, 1)) < 0.05
     return {
@@ -100,7 +102,9 @@ def _hook_state(jax_agent, rng):
                 error_count=jnp.asarray(2.0, jnp.float32)))
 
 
-def _run_both(path, compute_dtype, monkeypatch, **overrides):
+def _agents(path, compute_dtype, monkeypatch, act=ACT, reward_dim=1, **overrides):
+    """The JAX agent and the port's, with the JAX agent's weights and hook
+    state (``act`` actions, ``reward_dim`` values)."""
     monkeypatch.setattr(JAX_CONFIG, "seed", 0)
     monkeypatch.setattr(jax_misc, "_KEY_COUNTER", [0])
     monkeypatch.setattr(JAX_CONFIG, "compute_dtype", compute_dtype)
@@ -110,13 +114,18 @@ def _run_both(path, compute_dtype, monkeypatch, **overrides):
     monkeypatch.setattr(Mlp, "_can_fuse", lambda self, x: x.dim() >= 2 and all(
         l.compute_dtype == "bfloat16" and l.bias is not None for l in self.layers))
     jf, tf = _factories(path, **overrides)
-    jax_agent = jf(JaxEnv(num_instances=N, observation_dim=OBS, action_dim=ACT).spec)
-    agent = tf(VelocityLocomotionEnv(num_instances=N, observation_dim=OBS, action_dim=ACT, device="cpu").spec,
-               device="cpu")
+    jax_spec = JaxEnv(num_instances=N, observation_dim=OBS, action_dim=act).spec
+    spec = VelocityLocomotionEnv(num_instances=N, observation_dim=OBS, action_dim=act, device="cpu").spec
+    jax_agent = jf(dataclasses.replace(jax_spec, reward_dim=reward_dim))
+    agent = tf(dataclasses.replace(spec, reward_dim=reward_dim), device="cpu")
     _hook_state(jax_agent, np.random.default_rng(3))
     load_jax_state(agent, jax_agent.state_dict()["agent_state"])
+    return jax_agent, agent
 
-    rollout = _rollout(jax_agent, seed=11)
+
+def _run_both(path, compute_dtype, monkeypatch, act=ACT, **overrides):
+    jax_agent, agent = _agents(path, compute_dtype, monkeypatch, act=act, **overrides)
+    rollout = _rollout(jax_agent, seed=11, act=act)
     key = jax.random.key(5)
     jax_rollout = jax.tree.map(jnp.asarray, rollout)
     _, perms, _ = jax_agent.sampler.make_epoch_plan(key, T, N, jax_rollout)
@@ -170,3 +179,85 @@ def test_deferred_normalization_and_rejected_update_match_jax(monkeypatch):
     for p in agent.model.parameters():
         assert not optimizer.state[p]["exp_avg"].any() and not optimizer.state[p]["exp_avg_sq"].any()
     assert float(agent.get_hook("adaptive_l_r_schedule").lr_scale) != 0.7
+
+
+WIDE = 65  # one output past the head kernels' MAX_HEAD_DIM
+
+
+@pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
+def test_zoo_update_with_a_wide_action_head_matches_jax(compute_dtype, monkeypatch):
+    """Path C with 65 actions: ``FusedPpoUpdate`` takes the wide head (in
+    bf16 through the chains' kernel route, K2 plain versions, with the heads
+    and the loss outside) and the whole update matches the JAX hook's, at
+    path C's tolerances."""
+    result = _run_both("C", compute_dtype, monkeypatch, act=WIDE)
+    hook = result[3].get_hook("fused_ppo_update")
+    assert not hook.fuse_heads
+    _compare(*result, BF16_TOL)
+    if compute_dtype is not None:  # the plain versions ran, and counted no launch
+        assert not any(LAUNCHES.values())
+
+
+@pytest.mark.parametrize("wide", ["action", "value"])
+@pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
+def test_fused_update_objective_with_a_wide_head_matches_jax(wide, compute_dtype, monkeypatch):
+    """One ``FusedPpoUpdate.objective`` with a 65-wide action head or a
+    65-wide value head, on the same weights and batch (actions drawn around
+    the JAX actor's mean with the same noise): objectives, metrics and every
+    parameter's gradient against the JAX hook's.  In bf16 the port takes the
+    wide route (the chains through ``fused_mlp_pair``, here its plain
+    version), in fp32 ``ppo_step_reference``; the JAX hook runs its XLA
+    reference."""
+    act, value_dim = (WIDE, 1) if wide == "action" else (ACT, WIDE)
+    jax_agent, agent = _agents("C", compute_dtype, monkeypatch, act=act, reward_dim=value_dim,
+                               value_loss_clip=0.2)
+    rows = 256
+    rng = np.random.default_rng(23)
+    obs = np.tanh(rng.standard_normal((rows, OBS))).astype(np.float32)
+    dist, _, _ = jax_agent.state.actor(jnp.asarray(obs))
+    action = np.asarray(dist["mean"] + dist["std"] * rng.standard_normal((rows, act)).astype(np.float32))
+    logp = np.asarray(jax_agent.state.actor.compute_logp(dist, jnp.asarray(action)))
+    batch = {
+        "observation": obs,
+        "action": action,
+        "action_logp": (logp + 0.1 * rng.standard_normal(logp.shape)).astype(np.float32),
+        "advantage": rng.standard_normal((rows, 1)).astype(np.float32),
+        "return": rng.standard_normal((rows, value_dim)).astype(np.float32),
+        "value": rng.standard_normal((rows, value_dim)).astype(np.float32),
+    }
+    jax_hook = next(h for h in jax_agent.state.hooks if h.hook_name == "fused_ppo_update")
+    jax_batch = {k: jnp.asarray(v) for k, v in batch.items()}
+
+    def jax_objective(actor, critic):
+        _, _, objectives, metrics = jax_hook.objective(jax_agent.state.replace(actor=actor, critic=critic), None,
+                                                       jax_batch)
+        return sum(objectives.values()), (objectives, metrics)
+
+    (_, (jax_objectives, jax_metrics)), jax_grads = jax.value_and_grad(jax_objective, argnums=(0, 1), has_aux=True)(
+        jax_agent.state.actor, jax_agent.state.critic)
+    jax_grads = {p: np.asarray(g) for p, g in tree_paths({"actor": jax_grads[0], "critic": jax_grads[1]})}
+
+    hook = agent.get_hook("fused_ppo_update")
+    assert not hook.fuse_heads
+    reset_launch_counts()
+    objectives, metrics = hook.objective(agent, None, {k: torch.tensor(v) for k, v in batch.items()})
+    sum(objectives.values()).backward()
+    assert not any(LAUNCHES.values())
+    assert set(objectives) == set(jax_objectives) and set(metrics) == set(jax_metrics)
+    for key in objectives:
+        np.testing.assert_allclose(objectives[key].item(), float(jax_objectives[key]), err_msg=key, **FP32_TOL[0])
+    for key in metrics:
+        np.testing.assert_allclose(float(metrics[key]), float(jax_metrics[key]), err_msg=key, **FP32_TOL[0])
+    params = dict(agent.model.named_parameters())
+    assert set(params) <= set(jax_grads)
+    for path, param in params.items():
+        want = jax_grads[path]
+        # The backbones are bf16 on both sides (the fused step's chains are
+        # bf16 whatever the compute dtype): their gradients differ by flipped
+        # bf16 roundings (measured up to 6.8e-3 of the largest element).  The
+        # fp32 heads and std are held as the metrics are.
+        if ".backbone." in path:
+            np.testing.assert_allclose(param.grad.numpy(), want, err_msg=path, rtol=0,
+                                       atol=1e-2 * np.abs(want).max())
+        else:
+            np.testing.assert_allclose(param.grad.numpy(), want, err_msg=path, **FP32_TOL[0])
