@@ -31,7 +31,11 @@ without printing a result:
    the backwards) with CUDA events; for every backward (K1b, K2b, K8b, K9s,
    K9m, K4/K5 pre and post) also phase 1's and phase 2's device times (the
    profiler's, by kernel name), phase 2's bound and row split,
-   and two calls on the same inputs compared bit for bit;
+   and two calls on the same inputs compared bit for bit; for the fused
+   block's forwards (K4/K5 pre and post f) at each timed shape the launch
+   plan (grid, tiles per block, ring slots, shared memory per block), the
+   kernel's registers and spills from the build log, and the device time of
+   the pack kernel and of the forward kernel (the profiler's, by name);
 4. ``[wrappers]``: hold the wrappers the port calls (``fused_mlp``,
    ``fused_mlp_pair``, ``fused_mlp_pair_heads``, ``fused_ppo_step`` in split
    and in mono mode (against split too), ``lane_window_attention``,
@@ -70,7 +74,8 @@ without printing a result:
    0 just before the timed chunk and read just after (``EXPECTED_ZOO_LAUNCHES``
    per iteration), one host transfer per chunk and no other synchronizing
    call; and a profile of one iteration of each path (device time by kernel
-   name, phase 2 of the backwards listed whatever its rank);
+   name, phase 2 of the backwards listed whatever its rank, and the fused
+   block's forward kernels by name with their sum);
 8. the ``nvidia-smi`` line, the ``kernels`` JSON line (each kernel's
    launches from the path that runs it; ``not_ported`` is empty), and the
    final ``{"ok": true, ...}`` line.
@@ -194,6 +199,31 @@ def _tensors(obj) -> list:
     return []
 
 
+PROFILE_ATTEMPTS = 3  # a profiler session can drop kernel events; a short count profiles again
+
+
+def _profiled_kernels(fn, keep, repeats: int, warmup: int) -> list:
+    """``(name, launches, device us)`` of the CUDA kernels whose name
+    ``keep`` selects, over ``repeats`` calls of ``fn`` under torch.profiler
+    after ``warmup`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize()
+    found = []
+    for event in prof.key_averages():
+        if event.device_type == torch.autograd.DeviceType.CUDA and keep(event.key):
+            us = getattr(event, "self_device_time_total", 0) or getattr(event, "self_cuda_time_total", 0)
+            found.append((event.key, event.count, us))
+    return found
+
+
 def _backward_phases(name: str, fn, rows: int, chains: int, dw_shapes, bytes_per_row: int, cols: int,
                      repeats: int = 10, warmup: int = 3) -> dict:
     """Phase 1's and phase 2's device time per call of the backward launch in
@@ -206,7 +236,6 @@ def _backward_phases(name: str, fn, rows: int, chains: int, dw_shapes, bytes_per
     cotangents and the layer inputs), the per-row-tile column partials
     (``cols`` floats per tile, all chains) and the outputs once."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from cusrl_tpu_torch.nn.kernels import dw_phase2
 
@@ -214,28 +243,18 @@ def _backward_phases(name: str, fn, rows: int, chains: int, dw_shapes, bytes_per
     torch.cuda.synchronize()
     if len(first) != len(second) or not all(torch.equal(a, b) for a, b in zip(first, second)):
         raise AssertionError(f"{name}: two calls on the same inputs differ")
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(repeats):
-            fn()
-        torch.cuda.synchronize()
     # Each call launches one row kernel and the two phase-2 kernels; a phase's
     # time per call is the sum of its kernels' mean times (the profiler can
     # miss a profiled run's first kernel, so counts may fall short of ``repeats``).
-    kernels = [[], []]
-    for event in prof.key_averages():
-        if event.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        phase = 1 if "dw::" in event.key else 0 if "rows_kernel" in event.key else None
-        if phase is not None:
-            us = getattr(event, "self_device_time_total", 0) or getattr(event, "self_cuda_time_total", 0)
-            kernels[phase].append((event.key, event.count, us))
-    counts = [[count for _, count, _ in phase] for phase in kernels]
-    if len(counts[0]) != 1 or len(counts[1]) != 2 or not all(repeats // 2 <= c <= repeats for c in sum(counts, [])):
-        raise AssertionError(f"{name}: the profiler saw {kernels} over {repeats} calls; expected one row kernel and "
-                             f"two phase-2 kernels, each launched once per call")
+    for _ in range(PROFILE_ATTEMPTS):
+        found = _profiled_kernels(fn, lambda key: "dw::" in key or "rows_kernel" in key, repeats, warmup)
+        kernels = [[k for k in found if "dw::" not in k[0]], [k for k in found if "dw::" in k[0]]]
+        counts = [[count for _, count, _ in phase] for phase in kernels]
+        if len(counts[0]) == 1 and len(counts[1]) == 2 and all(repeats // 2 <= c <= repeats for c in sum(counts, [])):
+            break
+    else:
+        raise AssertionError(f"{name}: the profiler saw {kernels} over {repeats} calls in each of {PROFILE_ATTEMPTS} "
+                             f"sessions; expected one row kernel and two phase-2 kernels, each launched once per call")
     p1, p2 = (sum(us / count for _, count, us in phase) / 1e3 for phase in kernels)
     dw_floats = sum(o * i for o, i in dw_shapes)
     row_tiles = -(-rows // dw_phase2.ROW_TILE)
@@ -1537,6 +1556,60 @@ def _library_block(op, x, h, pre16, post16):
     return (r1 + F.linear(F.gelu(F.linear(y2, w_up, b_up), approximate="tanh"), w_down, b_down),)
 
 
+def _ptxas_usage(stem: str) -> dict:
+    """``{kernel symbol: (registers, spill store bytes, spill load bytes)}``
+    from the ``-Xptxas -v`` log of ``csrc/<stem>.cu`` (``_build/<stem>.log``)."""
+    from cusrl_tpu_torch.nn.kernels import build
+
+    usage, name, spills = {}, None, (0, 0)
+    for line in (build.BUILD_DIR / f"{stem}.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line:
+            words = line.split()
+            spills = (int(words[words.index("spill") - 2]), int(words[-4]))
+        elif "Used" in line and "registers" in line and name:
+            words = line.split()
+            usage[name] = (int(words[words.index("registers,") - 1]), *spills)
+    return usage
+
+
+def _forward_device_ms(key: str, fn, repeats: int = 10, warmup: int = 3) -> dict:
+    """Device time per call of a fused block forward's two launches
+    (torch.profiler by kernel name: ``fbf::pack_kernel`` and the op's
+    ``fbf::*_fwd_kernel``, each its mean per launch); the events' ``ms`` adds
+    the wrapper's host time before the launches to these."""
+    for _ in range(PROFILE_ATTEMPTS):
+        found = _profiled_kernels(fn, lambda name: "fbf::" in name, repeats, warmup)
+        if len(found) == 2 and all(repeats // 2 <= count <= repeats for _, count, _ in found):
+            break
+    else:
+        raise AssertionError(f"{key}: the profiler saw {found} over {repeats} calls in each of {PROFILE_ATTEMPTS} "
+                             f"sessions; expected the pack kernel and the forward kernel, each once per call")
+    return {("pack_ms" if "pack_kernel" in name else "device_ms"): us / count / 1e3 for name, count, us in found}
+
+
+def _forward_plan_fields(key: str, rows: int, chains: int, save: bool) -> dict:
+    """Prints and returns the launch plan of a fused block forward (K4/K5 pre
+    or post f) at these rows: grid, tiles per block, ring, shared memory per
+    block, and the kernel's registers and spills from the build log."""
+    from cusrl_tpu_torch.nn.kernels import fused_block as fb
+
+    op = "pre" if "pre" in key else "post"
+    plan = fb.fwd_plan(op, rows, chains, T_IN, T_EMBED, T_FF, "gelu", save)
+    symbol = next(name for name in _ptxas_usage("fused_block") if f"{op}_fwd_kernel" in name and "fbf" in name)
+    regs, spill_st, spill_ld = _ptxas_usage("fused_block")[symbol]
+    per_block = -(-plan["tiles"] // plan["blocks"])
+    tile_rows, per_sm = fb.FWD_GRID[op]
+    print(f"    {key} rows={rows}: grid {plan['blocks']} blocks x {chains} chain(s) ({per_sm} per SM), "
+          f"{plan['tiles']} tiles of {tile_rows} rows, up to {per_block} per block; ring {plan['slots']} slots of "
+          f"{plan['images']} images ({'resident' if plan['resident'] else 'streamed'}); {plan['smem_bytes']} B shared "
+          f"memory per block; {regs} registers, spills {spill_st}/{spill_ld} B (ptxas)")
+    return {"grid": f"{plan['blocks']} x {chains} blocks, {plan['tiles']} tiles of {tile_rows} rows, up to "
+                    f"{per_block} per block", "ring": f"{plan['slots']} of {plan['images']} images",
+            "smem_bytes": plan["smem_bytes"], "regs": regs}
+
+
 def check_block_kernels(device) -> dict:
     """K4 (one layer) and K5 (the actor+critic pair) pre and post, forward
     and backward, against their plain versions (forward and hand-written
@@ -1676,6 +1749,11 @@ def check_block_kernels(device) -> dict:
                 if op in BLOCK_PHASE2:
                     fields.update(_backward_phases(key, kernel_fn, rows, chains, *BLOCK_PHASE2[op][:2],
                                                    chains * BLOCK_PHASE2[op][2]))
+                else:
+                    fields.update(_forward_plan_fields(key, rows, chains, save=True))
+                    fields.update(_forward_device_ms(key, kernel_fn))
+                    print(f"    {key} rows={rows}: device_ms={fields['device_ms']:.4f} (+ pack "
+                          f"{fields['pack_ms']:.4f}) of the events' {k_ms:.4f} ms")
                 results.setdefault(key, {}).update({tag + f: v for f, v in fields.items()})
         if k == "K4":  # the value, next-token and KL passes: pre, and post saving nothing
             for rows, tag in ((PRIMAL_ROWS, "primal_"), (TL_PRIMAL_ROWS, "tl_primal_")):
@@ -1707,6 +1785,11 @@ def check_block_kernels(device) -> dict:
                           f"library_ms={l_ms:.4f} bound_ms={bound:.4f} ({by})")
                     results[key].update({tag + "ms": k_ms, tag + "plain_ms": p_ms, tag + "library_ms": l_ms,
                                          tag + "bound_ms": bound})
+                    plan = _forward_plan_fields(key, rows, 1, save=False)
+                    plan.update(_forward_device_ms(key, kernel_fn))
+                    print(f"    {key} primal rows={rows}: device_ms={plan['device_ms']:.4f} (+ pack "
+                          f"{plan['pack_ms']:.4f}) of the events' {k_ms:.4f} ms")
+                    results[key].update({tag + f: v for f, v in plan.items()})
     for key in results:
         results[key]["max_abs_err"] = max(errs[key])
     return results
@@ -2256,6 +2339,12 @@ def profile_iteration(driver, label: str, steps: int = STEPS) -> None:
             print(f"    {ms:9.3f} ms {count:6d}x  {name[:90]}")
     print(f"[profile] {label}, phase 2 of the backwards: {sum(r[0] for r in phase2):.3f} ms over "
           f"{sum(r[1] for r in phase2)} launches per iteration")
+    # The fused block's forwards (csrc/fused_block.cu, namespace fbf), by kernel.
+    forwards = [r for r in rows if "fbf::" in r[2]]
+    if forwards:
+        print(f"[profile] {label}, the fused block's forwards: "
+              + "; ".join(f"{name.split('(')[0]} {ms:.3f} ms ({count})" for ms, count, name in forwards)
+              + f"; together {sum(r[0] for r in forwards):.3f} ms per iteration")
 
 
 def main(argv: list[str]) -> int:
@@ -2334,7 +2423,9 @@ def main(argv: list[str]) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"], "path": f"{path}: {PATH_NAMES[path]}",
             "launches_by_path": {p_: path_launches[p_][key] for p_ in path_launches if path_launches[p_][key]},
-            **{k: v for k, v in r.items() if k.startswith(("gelu", "primal", "offpath", "tl_", "phase", "bitwise"))},
+            **{k: v for k, v in r.items()
+               if k.startswith(("gelu", "primal", "offpath", "tl_", "phase", "bitwise", "grid", "ring", "smem", "regs",
+                                "device", "pack"))},
             "status": "ported and checked",
         })
     print(smi)

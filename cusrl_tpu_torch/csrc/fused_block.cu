@@ -28,20 +28,51 @@
 // (the ELU family), as the TPU kernels do.
 //
 // What bounds them on the H100: at the transformer's widths (48 -> 128,
-// 128 -> 384; 128 -> 128 -> 512 -> 128) the forwards do 2 * 67,584 (pre) and
-// 2 * 147,456 (post) FLOP per row against ~0.9 KB and ~1.0-1.8 KB per row in
-// and out, ~75-160 FLOP per byte: below the card's ~295, so bytes bound them
-// (7.5 MB for the pre forward at 6,144 rows, ~2 us at 3.35 TB/s).  Design:
-//   * one block per 64-row tile keeps the tile's activations in shared memory
-//     through the whole program (x, h, y; attn, r1, y2, the 512-wide hidden),
-//     so only the outputs (and, for the backward, the saved tensors) touch
-//     device memory;
-//   * the weights (288 KB of bf16 for the post chain, more than the 227 KB a
-//     block may use) stream from L2 in 128 x 64 slices, converted from the
-//     port's fp32 [out, in] parameters as they are staged; q, k and v are read
-//     from their three matrices (no concatenated copy per call);
-//   * products are 16x16x16 bf16 WMMA with fp32 accumulators; LayerNorm runs
-//     as one warp per row on the tile in shared memory;
+// 128 -> 384; 128 -> 128 -> 512 -> 128) the forwards do 2 * 55,296 (pre) and
+// 2 * 147,456 (post) FLOP per row against ~1.5 KB (pre) and ~1.3-2.6 KB
+// (post, primal or saving) of device memory per row: ~75-230 FLOP per byte,
+// below the card's ~295, so bytes bound them (0.029 ms for the pre forward
+// and 0.050 ms for the saving post forward at 65,536 rows, at 3.35 TB/s).
+//
+// The forwards (namespace fbf; building blocks in hopper_wg.cuh):
+//   * a pack kernel turns each fp32 [out, in] weight into bf16 images of
+//     128 rows x 64 columns, 16 KB each, already in the 128-byte-swizzled
+//     K-major layout that wgmma reads as its B operand, once per call (the
+//     optimizer updates the weights in place, so nothing is cached);
+//   * persistent blocks walk the row tiles of their chain (K5 splits the
+//     blocks between the chains): consumer warpgroups of 64 rows each and
+//     one producer warp that copies the images into a ring of shared-memory
+//     slots (cp.async.bulk; an mbarrier per slot for "full" and one for
+//     "empty"; a chunk may take more images than there are slots, each
+//     released as soon as its products are done);
+//   * pre: two consumer warpgroups (128-row tiles), one block per SM; its
+//     images fit (7 images, 112 KB at the zoo's widths), so each block loads
+//     them once and they stay;
+//   * post: its images (18, 288 KB) exceed the 227 KB a block may use, so
+//     they stream once per tile; one consumer warpgroup (64-row tiles) in
+//     each of two blocks per SM, so that one block's loads, stores and
+//     epilogues overlap the other's products (a shared ring keeps two
+//     warpgroups of one block in step, which overlaps nothing);
+//   * products are m64n128k16 wgmma with fp32 accumulators in registers;
+//     bias, bf16 rounding, residual adds, LayerNorm (the four threads that
+//     share a row reduce by shuffles) and the activation run on the
+//     accumulators; the post op's 512-wide hidden is made and consumed in
+//     128-column chunks (z1 chunk -> hid chunk in shared memory -> the
+//     W_down product accumulates), so it never leaves the chip;
+//   * outputs leave by 16-byte stores: qkv and the post op's saved
+//     activations from registers, with no staging tile and no barrier (the
+//     four threads of a quad transpose their bf16 words by shuffles so that
+//     each holds eight columns of one row), fp32 h from registers after
+//     neighbouring threads swap halves, r1 and out from their shared tiles
+//     (out's shuffles cost the post kernel registers it spilled).
+// What is left is not the products: the post op's gelu is ALU work (about
+// 50 instructions an element, tanhf included) and its loads and stores wait
+// on device memory; a block's phases follow each other, and the second
+// block per SM is what overlaps them.
+//
+// The backwards' row kernels (phase 1, namespace fb) keep one block per
+// 64-row tile with weights streamed from L2 as fp32 128 x 64 slices and
+// 16x16x16 bf16 WMMA; LayerNorm as one warp per row.
 //   * weight gradients without atomics, as mlp_chain_bwd.cu: the row kernel
 //     (phase 1) writes bf16(d) of each product and per-tile fp32 column sums
 //     (biases, LayerNorm scale and shift); phase 2 (dw_phase2.cuh, shared
@@ -51,8 +82,11 @@
 //     bound it (d and the layer input read once: ~218 MB for the post
 //     backward at 65,536 rows, 0.065 ms); the split over about four blocks
 //     per SM, a cp.async ring and 16-byte loads are what it does about it.
-// Not yet done (later work): wgmma/TMA, weights kept resident across tiles.
+// Not yet done (later work): the row kernels on the forwards' design.
+#include <algorithm>
+
 #include "dw_phase2.cuh"
+#include "hopper_wg.cuh"
 #include "mlp_chain.cuh"
 
 #define FB_MAX_EMBED 128
@@ -82,6 +116,7 @@ struct FbChain {
   void* dw;          // bwd out: the weight gradients [out, in] fp32, back to back in w[] order
   void* sums;        // bwd out [num_sums] fp32: pre db_in, dg1, dbb1, db_q, db_k, db_v;
                      //                          post db_o, dg2, dbb2, db_up, db_down
+  void* wpack;       // fwd scratch [num_stages][128][64] bf16: the weights' images (fbf::Pack)
 };
 
 struct FbParams {
@@ -92,6 +127,7 @@ struct FbParams {
   int ff;          // post: the FFN width F
   int activation;  // post: 0 identity, 1 elu, 2 relu, 3 tanh, 4 gelu (as mlp_chain.cuh)
   int x_is_bf16;   // pre
+  int num_stages;  // fwd: weight images per chain the caller allocated in wpack
 };
 
 namespace fb {
@@ -111,7 +147,7 @@ using mlp::bf16;
 namespace wmma = nvcuda::wmma;
 
 constexpr int WARPS = THREADS / 32;
-constexpr int RLD = FB_MAX_EMBED + 8;  // bf16 [BM][RLD] residual tile (post forward)
+constexpr int RLD = FB_MAX_EMBED + 8;  // bf16 [BM][RLD] tile; unused by the row kernels, kept in their carve
 constexpr size_t R_BYTES = size_t(BM) * RLD * sizeof(bf16);
 constexpr size_t SMEM_BYTES = 2 * ACT_BYTES + WS_BYTES + STG_BYTES + R_BYTES + 2 * BM * sizeof(float);
 static_assert(R_BYTES % 128 == 0, "smem regions must stay 128-byte aligned");
@@ -124,7 +160,7 @@ struct Smem {
   bf16* t1;
   bf16* ws;     // staged weight slice
   float* stg;   // [BM][SLD] fp32 GEMM output
-  bf16* r;      // [BM][RLD] residual r1 (post forward)
+  bf16* r;      // [BM][RLD] (unused by the row kernels)
   float* mean;  // [BM] LayerNorm statistics of the tile's rows
   float* inv;
 };
@@ -142,17 +178,8 @@ __device__ Smem carve(unsigned char* smem) {
 }
 
 // B(k, n) of a block GEMM from fp32 weights in the port's [out, in] layout;
-// up to three matrices of `seg` rows side by side (q, k and v).
-//   Rows: B(k, n) = W_s[n - s * seg][k], s = n / seg  (forward: y = a W^T)
+// up to three matrices of `seg` rows side by side (q, k and v):
 //   Cols: B(k, n) = W_s[k - s * seg][n], s = k / seg  (backward data: d_in = d_out W)
-struct Rows {
-  const float* w[3];
-  int seg, ld;
-  __device__ float operator()(int k, int n) const {
-    const int s = n / seg;
-    return w[s][size_t(n - s * seg) * ld + k];
-  }
-};
 struct Cols {
   const float* w[3];
   int seg, ld;
@@ -281,19 +308,6 @@ __device__ void column_sums(const float* stg, int ncols, float* part) {
   }
 }
 
-// y = bf16(LN(src) * g + b) for each row of a bf16 shared tile, one warp per row.
-__device__ void ln_tile(const bf16* src, int src_ld, int E, const float* g, const float* b, bf16* dst) {
-  const int lane = threadIdx.x & 31;
-  for (int r = threadIdx.x / 32; r < BM; r += WARPS) {
-    float mean, inv;
-    row_stats([&](int j) { return __bfloat162float(src[r * src_ld + j]); }, E, mean, inv);
-    for (int j = lane; j < E; j += 32) {
-      const float xhat = (__bfloat162float(src[r * src_ld + j]) - mean) * inv;
-      dst[r * HLD + j] = __float2bfloat16(xhat * g[j] + b[j]);
-    }
-  }
-}
-
 // LayerNorm recomputed from the saved rows `x` ([N, E], fp32 or bf16) of this
 // tile: statistics into s.mean / s.inv (0 on rows past the end) and
 // y = bf16(xhat * g + b) into `y` ([N, E] bf16 scratch for phase 2).
@@ -374,46 +388,8 @@ __device__ void ln_backward(const T* x, const float* g, int E, int row0, int n_r
 }
 
 // ---------------------------------------------------------------------------
-// Pre: h = bf16(x W_in^T + b_in); qkv = bf16(bf16(LN1(h)) W_qkv^T + b_qkv)
+// Pre backward: phase 1
 // ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(THREADS) pre_fwd_kernel(const FbParams p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Smem s = carve(smem);
-  const FbChain& c = p.chain[blockIdx.y];
-  const int row0 = blockIdx.x * BM, n_rows = p.num_rows, in = p.in_dim, E = p.embed;
-
-  load_tile(c.x, p.x_is_bf16, in, row0, n_rows, s.t0, HLD);
-  const Rows w_in = weights<Rows>(c.w[0], c.w[0], c.w[0], E, in);
-  const float* b_in = static_cast<const float*>(c.b[0]);
-  float* h = static_cast<float*>(c.out0);
-  for (int n0 = 0; n0 < E; n0 += NC) {
-    block_gemm<true>(s.t0, in, w_in, n0, E, s.ws, s.stg);
-    const int ncols = min(NC, E - n0);
-    for (int i = threadIdx.x; i < BM * ncols; i += THREADS) {
-      const int r = i / ncols, col = n0 + i % ncols;
-      const bf16 hb = __float2bfloat16(s.stg[r * SLD + col - n0] + b_in[col]);
-      s.t1[r * HLD + col] = hb;
-      if (row0 + r < n_rows) h[size_t(row0 + r) * E + col] = __bfloat162float(hb);
-    }
-  }
-  __syncthreads();
-  ln_tile(s.t1, HLD, E, static_cast<const float*>(c.ln_g), static_cast<const float*>(c.ln_b), s.t0);
-
-  const Rows w_qkv = weights<Rows>(c.w[1], c.w[2], c.w[3], E, E);
-  bf16* qkv = static_cast<bf16*>(c.out1);
-  const int E3 = 3 * E;
-  for (int n0 = 0; n0 < E3; n0 += NC) {
-    block_gemm<true>(s.t0, E, w_qkv, n0, E3, s.ws, s.stg);
-    const int ncols = min(NC, E3 - n0);
-    for (int i = threadIdx.x; i < BM * ncols; i += THREADS) {
-      const int r = i / ncols, col = n0 + i % ncols;
-      const int seg = col / E;
-      const float bias = static_cast<const float*>(c.b[1 + seg])[col - seg * E];
-      if (row0 + r < n_rows) qkv[size_t(row0 + r) * E3 + col] = __float2bfloat16(s.stg[r * SLD + col - n0] + bias);
-    }
-  }
-}
 
 // Phase 1 of the pre backward, one block per 64-row tile: from gqkv (bf16) and
 // gh (fp32), dy = gqkv W_qkv, dh = LN1^T(dy) + gh, dx = bf16(dh) W_in; writes
@@ -461,64 +437,8 @@ __global__ void __launch_bounds__(THREADS) pre_bwd_rows_kernel(const FbParams p,
 }
 
 // ---------------------------------------------------------------------------
-// Post: r1 = h + attn W_o^T + b_o; out = r1 + FFN(LN2(r1))
+// Post backward: phase 1
 // ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(THREADS) post_fwd_kernel(const FbParams p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Smem s = carve(smem);
-  const FbChain& c = p.chain[blockIdx.y];
-  const int row0 = blockIdx.x * BM, n_rows = p.num_rows, E = p.embed, F = p.ff;
-  bf16* r1_out = static_cast<bf16*>(c.out1);
-  bf16* s_out = static_cast<bf16*>(c.out2);
-  const bool save = r1_out != nullptr;
-
-  load_tile(c.x, false, E, row0, n_rows, s.t0, HLD);
-  const float* h = static_cast<const float*>(c.h);
-  const float* b_o = static_cast<const float*>(c.b[0]);
-  for (int n0 = 0; n0 < E; n0 += NC) {
-    block_gemm<true>(s.t0, E, weights<Rows>(c.w[0], c.w[0], c.w[0], E, E), n0, E, s.ws, s.stg);
-    const int ncols = min(NC, E - n0);
-    for (int i = threadIdx.x; i < BM * ncols; i += THREADS) {
-      const int r = i / ncols, col = n0 + i % ncols;
-      const int gr = row0 + r;
-      const float zo = mlp::bf16_round(s.stg[r * SLD + col - n0] + b_o[col]);
-      const bf16 r1 = __float2bfloat16((gr < n_rows ? h[size_t(gr) * E + col] : 0.f) + zo);
-      s.r[r * RLD + col] = r1;
-      if (save && gr < n_rows) r1_out[size_t(gr) * E + col] = r1;
-    }
-  }
-  __syncthreads();
-  ln_tile(s.r, RLD, E, static_cast<const float*>(c.ln_g), static_cast<const float*>(c.ln_b), s.t1);
-
-  const float* b_up = static_cast<const float*>(c.b[1]);
-  const Rows w_up = weights<Rows>(c.w[1], c.w[1], c.w[1], F, E);
-  for (int n0 = 0; n0 < F; n0 += NC) {
-    block_gemm<true>(s.t1, E, w_up, n0, F, s.ws, s.stg);
-    const int ncols = min(NC, F - n0);
-    for (int i = threadIdx.x; i < BM * ncols; i += THREADS) {
-      const int r = i / ncols, col = n0 + i % ncols;
-      const int gr = row0 + r;
-      const float zb = mlp::bf16_round(s.stg[r * SLD + col - n0] + b_up[col]);
-      const bf16 hb = __float2bfloat16(mlp::act_fwd(p.activation, zb));
-      s.t0[r * HLD + col] = hb;
-      if (save && gr < n_rows) s_out[size_t(gr) * F + col] = mlp::saved_value(p.activation, __float2bfloat16(zb), hb);
-    }
-  }
-
-  const float* b_down = static_cast<const float*>(c.b[2]);
-  bf16* out = static_cast<bf16*>(c.out0);
-  for (int n0 = 0; n0 < E; n0 += NC) {
-    block_gemm<true>(s.t0, F, weights<Rows>(c.w[2], c.w[2], c.w[2], E, F), n0, E, s.ws, s.stg);
-    const int ncols = min(NC, E - n0);
-    for (int i = threadIdx.x; i < BM * ncols; i += THREADS) {
-      const int r = i / ncols, col = n0 + i % ncols;
-      const int gr = row0 + r;
-      const float f = mlp::bf16_round(s.stg[r * SLD + col - n0] + b_down[col]);
-      if (gr < n_rows) out[size_t(gr) * E + col] = __float2bfloat16(__bfloat162float(s.r[r * RLD + col]) + f);
-    }
-  }
-}
 
 // Phase 1 of the post backward, one block per 64-row tile: dz1 = (g W_down)
 // act'(saved), dy2 = bf16(dz1) W_up, dr1 = g + LN2^T(dy2) (= dh, fp32),
@@ -605,6 +525,573 @@ int launch_rows(const void* kernel, const FbParams* p, int num_chains, cudaStrea
 
 }  // namespace fb
 
+// ---------------------------------------------------------------------------
+// The forwards: a pack kernel, then one persistent kernel per op
+// ---------------------------------------------------------------------------
+
+namespace fbf {
+
+using wg::bf16;
+// Consumer warpgroups (64 rows each) per block and blocks per SM.  Pre: two
+// warpgroups (128-row tiles) in one block per SM, which keeps its images
+// resident (112 KB at the zoo's widths).  Post: one warpgroup (64-row tiles)
+// in each of two blocks per SM, so that one block's loads, stores and
+// epilogues overlap the other's products; each block streams its own images.
+constexpr int PRE_WGS = 2, PRE_BLOCKS_PER_SM = 1;
+constexpr int POST_WGS = 1, POST_BLOCKS_PER_SM = 2;
+__host__ __device__ constexpr int threads(int wgs) { return wgs * 128 + 32; }  // and one producer warp
+constexpr int MAX_STAGES = 24;
+constexpr int SM_SMEM = 233472;     // shared memory of one SM
+constexpr int BLOCK_SMEM = 232448;  // the most one block may use
+constexpr int BARRIER_BYTES = 2 * MAX_STAGES * 8;
+constexpr float LN_EPS = 1e-6f;
+
+// One weight image: rows [n0, n0 + 128) and columns [k0, k0 + 64) of matrix
+// `mat`, bf16 in the swizzled layout (hopper_wg.cuh), 0 past the matrix.
+struct Stage {
+  int mat, n0, k0;
+};
+
+// The images of one op in the order its kernel takes them, and the matrices
+// they come from: matrix m stacks w[first[m]], w[first[m] + 1], ... of seg[m]
+// rows each, rows[m] x cols[m] in all (pre: W_in, [W_q; W_k; W_v]; post: W_o,
+// W_up, W_down).  Mirrored by fwd_stages in nn/kernels/fused_block.py.
+struct Pack {
+  int count;
+  Stage st[MAX_STAGES];
+  int first[3], seg[3], rows[3], cols[3];
+};
+
+// A block's shared memory, byte offsets from its 1,024-aligned base: the
+// ring, then each consumer warpgroup's tiles t[0..2], the biases and
+// LayerNorm parameters (par), the ring's barriers (bar).
+struct Layout {
+  int per_tile;  // images per tile (Pack::count)
+  int slots;     // ring slots
+  int resident;  // slots == per_tile: each image is loaded once per block
+  int tiles;     // tiles (64 rows per consumer warpgroup) per chain
+  int ring, wg0, wg_bytes, t[3], par, bar;
+  int bytes;  // dynamic shared memory requested, with 1 KB of alignment slack
+};
+
+inline int kblocks(int k) { return (k + wg::KBLOCK - 1) / wg::KBLOCK; }
+inline int nchunks(int n) { return (n + wg::STAGE_N - 1) / wg::STAGE_N; }
+
+inline void add(Pack& P, int mat, int n0, int k0) { P.st[P.count++] = Stage{mat, n0, k0}; }
+
+inline void matrix(Pack& P, int m, int first, int seg, int rows, int cols) {
+  P.first[m] = first;
+  P.seg[m] = seg;
+  P.rows[m] = rows;
+  P.cols[m] = cols;
+}
+
+// Pre: W_in by K block, then [W_q; W_k; W_v] by 128-row chunk and K block.
+inline Pack pre_pack(int in, int E) {
+  Pack P{};
+  for (int kb = 0; kb < kblocks(in); ++kb) add(P, 0, 0, 64 * kb);
+  for (int c = 0; c < nchunks(3 * E); ++c)
+    for (int kb = 0; kb < kblocks(E); ++kb) add(P, 1, 128 * c, 64 * kb);
+  matrix(P, 0, 0, E, E, in);
+  matrix(P, 1, 1, E, 3 * E, E);
+  return P;
+}
+
+// Post: W_o by K block; then per 128-column chunk of the FFN hidden, the
+// chunk's rows of W_up by K block and the chunk's columns of W_down.
+inline Pack post_pack(int E, int F) {
+  Pack P{};
+  for (int kb = 0; kb < kblocks(E); ++kb) add(P, 0, 0, 64 * kb);
+  for (int c = 0; c < nchunks(F); ++c) {
+    for (int kb = 0; kb < kblocks(E); ++kb) add(P, 1, 128 * c, 64 * kb);
+    for (int kb = 0; kb < kblocks(std::min(128, F - 128 * c)); ++kb) add(P, 2, 0, 128 * c + 64 * kb);
+  }
+  matrix(P, 0, 0, E, E, E);
+  matrix(P, 1, 1, F, F, E);
+  matrix(P, 2, 2, E, E, F);
+  return P;
+}
+
+// The ring takes what the tiles (per warpgroup), parameters and barriers
+// leave, up to one slot per image; 0 on success.
+inline int make_layout(Layout& L, int wgs, int blocks_per_sm, int per_tile, int n_rows, const int (&tile_bytes)[3],
+                       int par_floats) {
+  L.per_tile = per_tile;
+  L.tiles = (n_rows + wgs * wg::TILE_M - 1) / (wgs * wg::TILE_M);
+  int off = 0;
+  for (int i = 0; i < 3; ++i) {
+    L.t[i] = off;
+    off += tile_bytes[i];
+  }
+  L.wg_bytes = off;
+  const int par_bytes = (par_floats * 4 + 15) & ~15;
+  const int budget = std::min(BLOCK_SMEM, SM_SMEM / blocks_per_sm - 1024);  // the SM keeps 1 KB per block
+  const int fit = (budget - 1024 - wgs * L.wg_bytes - par_bytes - BARRIER_BYTES) / wg::STAGE_BYTES;
+  if (fit < 2) return static_cast<int>(cudaErrorInvalidValue);  // wg::issue keeps one image in flight
+  L.slots = std::min(per_tile, fit);
+  L.resident = L.slots == per_tile;
+  L.ring = 0;
+  L.wg0 = L.slots * wg::STAGE_BYTES;
+  L.par = L.wg0 + wgs * L.wg_bytes;
+  L.bar = L.par + par_bytes;
+  L.bytes = L.bar + 2 * L.slots * 8 + 1024;
+  return 0;
+}
+
+struct Plan {
+  Pack pack;
+  Layout L;
+  int blocks;  // per chain
+  int sms;
+  int device;
+};
+
+// Images, shared memory and grid of one forward.  Blocks per chain: the
+// op's blocks per SM on every SM, split between the chains, at most one per
+// tile.  Mirrored by fwd_grid in nn/kernels/fused_block.py.
+inline int plan(const FbParams& p, int num_chains, bool post, Plan& out) {
+  const int E = p.embed, F = p.ff, in = p.in_dim;
+  const int wide = post ? F : in;
+  if (num_chains < 1 || num_chains > 2 || E < 16 || E > FB_MAX_EMBED || E % 16 || wide < 16 ||
+      wide > MLP_MAX_WIDTH || wide % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int kb_e = kblocks(E) * wg::ABLOCK_BYTES, chunk = 2 * wg::ABLOCK_BYTES;
+  int err;
+  if (post) {
+    out.pack = post_pack(E, F);
+    const int tiles[3] = {kb_e, kb_e, chunk};
+    err = make_layout(out.L, POST_WGS, POST_BLOCKS_PER_SM, out.pack.count, p.num_rows, tiles, 4 * E + F);
+  } else {
+    out.pack = pre_pack(in, E);
+    const int tiles[3] = {kblocks(in) * wg::ABLOCK_BYTES, kb_e, 0};
+    err = make_layout(out.L, PRE_WGS, PRE_BLOCKS_PER_SM, out.pack.count, p.num_rows, tiles, 6 * E);
+  }
+  if (err != 0) return err;
+  if (cudaGetDevice(&out.device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&out.sms, cudaDevAttrMultiProcessorCount, out.device) != cudaSuccess)
+    return static_cast<int>(cudaGetLastError());
+  const int per_sm = post ? POST_BLOCKS_PER_SM : PRE_BLOCKS_PER_SM;
+  out.blocks = std::max(1, std::min(out.L.tiles, per_sm * out.sms / num_chains));
+  return 0;
+}
+
+// ---- device side ----------------------------------------------------------
+
+// fp32 [out, in] weights to their bf16 images, once per call (the optimizer
+// updates them in place between calls): one 16-byte chunk per thread, grid
+// (images, chains, PACK_SPLIT).
+constexpr int PACK_THREADS = 256, PACK_SPLIT = wg::STAGE_N * 8 / PACK_THREADS;
+
+__global__ void __launch_bounds__(PACK_THREADS) pack_kernel(const FbParams p, const Pack P) {
+  const FbChain& c = p.chain[blockIdx.y];
+  const Stage st = P.st[blockIdx.x];
+  const int m = st.mat;
+  const int u = blockIdx.z * PACK_THREADS + threadIdx.x;
+  const int n = u >> 3, ch = u & 7, row = st.n0 + n, col0 = st.k0 + ch * 8;
+  const float* src = nullptr;
+  if (row < P.rows[m]) {
+    const int s = row / P.seg[m];
+    src = static_cast<const float*>(c.w[P.first[m] + s]) + size_t(row - s * P.seg[m]) * P.cols[m];
+  }
+  uint32_t words[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int a = col0 + 2 * e;
+    const __nv_bfloat162 v = __floats2bfloat162_rn(src != nullptr && a < P.cols[m] ? src[a] : 0.f,
+                                                   src != nullptr && a + 1 < P.cols[m] ? src[a + 1] : 0.f);
+    words[e] = *reinterpret_cast<const uint32_t*>(&v);
+  }
+  unsigned char* img = static_cast<unsigned char*>(c.wpack) + size_t(blockIdx.x) * wg::STAGE_BYTES;
+  *reinterpret_cast<uint4*>(img + n * 128 + ((ch ^ (n & 7)) << 4)) = make_uint4(words[0], words[1], words[2], words[3]);
+}
+
+// Where thread t of a consumer warpgroup holds the accumulators: d[4j], d[4j + 1]
+// at (row, 8j + col), (row, 8j + col + 1); d[4j + 2], d[4j + 3] at row + 8.
+struct Frag {
+  int row, col;
+  __device__ explicit Frag(int t) : row((t >> 5) * 16 + ((t & 31) >> 2)), col((t & 3) * 2) {}
+};
+
+__device__ __forceinline__ float bf16r(float v) { return __bfloat162float(__float2bfloat16(v)); }
+
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ void zero(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0.f;
+}
+
+// d = bf16(d + bias[col]) on the first `cols` columns, kept as fp32 (the
+// accumulators are touched without a branch; the bias is read only where it
+// exists).
+__device__ __forceinline__ void add_bias_round(float (&d)[64], const float* bias, int cols, const Frag& f) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const bool valid = 8 * j < cols;
+    const float b0 = valid ? bias[8 * j + f.col] : 0.f, b1 = valid ? bias[8 * j + f.col + 1] : 0.f;
+    d[4 * j] = valid ? bf16r(d[4 * j] + b0) : d[4 * j];
+    d[4 * j + 1] = valid ? bf16r(d[4 * j + 1] + b1) : d[4 * j + 1];
+    d[4 * j + 2] = valid ? bf16r(d[4 * j + 2] + b0) : d[4 * j + 2];
+    d[4 * j + 3] = valid ? bf16r(d[4 * j + 3] + b1) : d[4 * j + 3];
+  }
+}
+
+// The first `cols` columns of d into a swizzled bf16 tile.
+__device__ __forceinline__ void to_tile(const float (&d)[64], int cols, unsigned char* tile, const Frag& f) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    if (8 * j < cols) {
+      wg::put2(tile, f.row, 8 * j + f.col, d[4 * j], d[4 * j + 1]);
+      wg::put2(tile, f.row + 8, 8 * j + f.col, d[4 * j + 2], d[4 * j + 3]);
+    }
+  }
+}
+
+// The first `cols` columns of d as fp32 rows of dst (leading dimension ld),
+// 16-byte stores: the two threads of a pair swap halves so that the even one
+// holds four columns of `row`, the odd one four of `row + 8`.
+__device__ __forceinline__ void store_f32(const float (&d)[64], int cols, float* dst, int ld, int row0, int n_rows,
+                                          const Frag& f) {
+  const bool odd = threadIdx.x & 1;
+  const int row = row0 + f.row + (odd ? 8 : 0);
+  const int col = f.col - (odd ? 2 : 0);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    if (8 * j < cols) {
+      const float s0 = odd ? d[4 * j] : d[4 * j + 2], s1 = odd ? d[4 * j + 1] : d[4 * j + 3];
+      const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1), r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+      const float4 v = odd ? make_float4(r0, r1, d[4 * j + 2], d[4 * j + 3]) : make_float4(d[4 * j], d[4 * j + 1], r0, r1);
+      if (row < n_rows) *reinterpret_cast<float4*>(dst + size_t(row) * ld + 8 * j + col) = v;
+    }
+  }
+}
+
+// The first `cols` (a multiple of 16) columns of d as bf16 rows of dst
+// (leading dimension ld, from column col0), 16-byte stores from registers:
+// per pair of 8-column chunks the four threads of a quad transpose their
+// 32-bit words in two rounds of shuffles, after which thread t holds the
+// eight columns of chunk 2q + t / 2 in row `row` (+ 8 for odd t).
+__device__ __forceinline__ void store_bf16(const float (&d)[64], int cols, bf16* dst, int ld, int col0, int row0,
+                                           int n_rows, const Frag& f) {
+  const bool odd = threadIdx.x & 1, hi = threadIdx.x & 2;
+  const int row = row0 + f.row + (odd ? 8 : 0);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    if (16 * q < cols) {
+      const int a = 8 * q, b = a + 4;  // accumulators of chunks 2q and 2q + 1
+      const uint32_t m0 = pack2(d[a], d[a + 1]), m1 = pack2(d[a + 2], d[a + 3]);
+      const uint32_t m2 = pack2(d[b], d[b + 1]), m3 = pack2(d[b + 2], d[b + 3]);
+      const uint32_t r0 = __shfl_xor_sync(0xffffffffu, odd ? m0 : m1, 1);
+      const uint32_t r1 = __shfl_xor_sync(0xffffffffu, odd ? m2 : m3, 1);
+      const uint32_t p0 = odd ? r0 : m0, p1 = odd ? m1 : r0, p2 = odd ? r1 : m2, p3 = odd ? m3 : r1;
+      const uint32_t v0 = __shfl_xor_sync(0xffffffffu, hi ? p0 : p2, 2);
+      const uint32_t v1 = __shfl_xor_sync(0xffffffffu, hi ? p1 : p3, 2);
+      const uint4 out = hi ? make_uint4(v0, v1, p2, p3) : make_uint4(p0, p1, v0, v1);
+      if (row < n_rows) *reinterpret_cast<uint4*>(dst + size_t(row) * ld + col0 + 16 * q + (hi ? 8 : 0)) = out;
+    }
+  }
+}
+
+// An fp32 [n_rows, ld] matrix's values at the accumulators' places (first
+// `cols` columns; 0 elsewhere and past the end).
+__device__ __forceinline__ void load_frag(const float* src, int ld, int cols, int row0, int n_rows, const Frag& f,
+                                          float (&v)[64]) {
+  const int ra = row0 + f.row, rb = ra + 8;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    float2 a = make_float2(0.f, 0.f), b = a;
+    if (8 * j < cols) {
+      if (ra < n_rows) a = *reinterpret_cast<const float2*>(src + size_t(ra) * ld + 8 * j + f.col);
+      if (rb < n_rows) b = *reinterpret_cast<const float2*>(src + size_t(rb) * ld + 8 * j + f.col);
+    }
+    v[4 * j] = a.x;
+    v[4 * j + 1] = a.y;
+    v[4 * j + 2] = b.x;
+    v[4 * j + 3] = b.y;
+  }
+}
+
+__device__ __forceinline__ int pad64(int n) { return (n + 63) & ~63; }
+
+// y = bf16((x - mean) inv g + b) over the first E columns of the thread's two
+// rows (d holds x), population variance, into a swizzled tile (0 from E to the
+// next multiple of 64); the four threads of a quad share a row.
+__device__ __forceinline__ void layer_norm(const float (&d)[64], int E, const float* g, const float* b,
+                                           unsigned char* tile, const Frag& f) {
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const bool valid = 8 * j < E;
+    s0 += valid ? d[4 * j] + d[4 * j + 1] : 0.f;
+    s1 += valid ? d[4 * j + 2] + d[4 * j + 3] : 0.f;
+  }
+  const float m0 = quad_sum(s0) / E, m1 = quad_sum(s1) / E;
+  float q0 = 0.f, q1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const bool valid = 8 * j < E;
+    const float a0 = d[4 * j] - m0, a1 = d[4 * j + 1] - m0, c0 = d[4 * j + 2] - m1, c1 = d[4 * j + 3] - m1;
+    q0 += valid ? a0 * a0 + a1 * a1 : 0.f;
+    q1 += valid ? c0 * c0 + c1 * c1 : 0.f;
+  }
+  const float i0 = 1.f / sqrtf(quad_sum(q0) / E + LN_EPS), i1 = 1.f / sqrtf(quad_sum(q1) / E + LN_EPS);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = 8 * j + f.col;
+    if (8 * j < E) {
+      const float g0 = g[col], g1 = g[col + 1], b0 = b[col], b1 = b[col + 1];
+      wg::put2(tile, f.row, col, (d[4 * j] - m0) * i0 * g0 + b0, (d[4 * j + 1] - m0) * i0 * g1 + b1);
+      wg::put2(tile, f.row + 8, col, (d[4 * j + 2] - m1) * i1 * g0 + b0, (d[4 * j + 3] - m1) * i1 * g1 + b1);
+    } else if (8 * j < pad64(E)) {  // the next product's K padding
+      wg::put2(tile, f.row, col, 0.f, 0.f);
+      wg::put2(tile, f.row + 8, col, 0.f, 0.f);
+    }
+  }
+}
+
+// hid = bf16(act(z)) on every accumulator, the activation fixed at compile
+// time so that the 64 elements' chains interleave.
+template <int A>
+__device__ __forceinline__ void activate(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = bf16r(mlp::act_fwd(A, d[i]));
+}
+
+__device__ __forceinline__ void activate(float (&d)[64], int act) {
+  switch (act) {
+    case 1: activate<1>(d); break;
+    case 2: activate<2>(d); break;
+    case 3: activate<3>(d); break;
+    case mlp::ACT_GELU: activate<mlp::ACT_GELU>(d); break;
+    default: activate<0>(d);
+  }
+}
+
+__device__ __forceinline__ unsigned char* aligned_base(unsigned char* raw) {
+  return raw + ((1024 - (wg::smem_u32(raw) & 1023)) & 1023);
+}
+
+// The warp's index, broadcast from lane 0 so that the compiler knows it is
+// the same across the warp (the roles and warpgroups branch on it).
+__device__ __forceinline__ int warp_index() { return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 32, 0); }
+
+// The ring of a block: thread 0 initialises its barriers (full: the
+// producer's arrival; empty: every consumer warp's).
+template <int WGS>
+__device__ __forceinline__ wg::Ring make_ring(unsigned char* smem, const Layout& L) {
+  wg::Ring r;
+  r.base = wg::smem_u32(smem + L.ring);
+  r.full = reinterpret_cast<uint64_t*>(smem + L.bar);
+  r.empty = r.full + L.slots;
+  r.slots = L.slots;
+  r.resident = L.resident;
+  r.next = 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L.slots; ++s) {
+      wg::mbar_init(&r.full[s], 1);
+      wg::mbar_init(&r.empty[s], WGS * 4);
+    }
+    wg::mbar_fence_init();
+  }
+  return r;
+}
+
+// The producer warp's first thread streams the images of this block's tiles;
+// returns true on the producer warp (which then leaves).
+template <int WGS>
+__device__ __forceinline__ bool producer(const wg::Ring& r, unsigned char* smem, const Layout& L, const void* images) {
+  if (warp_index() < WGS * 4) return false;
+  if (threadIdx.x == WGS * 128) {
+    const int tiles = (L.tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+    wg::produce(r, smem + L.ring, static_cast<const unsigned char*>(images), L.per_tile, tiles);
+  }
+  return true;
+}
+
+// Pre: h = bf16(x W_in^T + b_in); qkv = bf16(bf16(LN1(h)) [W_q; W_k; W_v]^T + b_qkv).
+// Each consumer warpgroup takes 64 rows of a 128-row tile; the images stay
+// resident when they fit (the zoo's widths: 7 images, 112 KB).
+__global__ void __launch_bounds__(threads(PRE_WGS), PRE_BLOCKS_PER_SM) pre_fwd_kernel(const FbParams p, const Layout L) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = aligned_base(smem_raw);
+  const FbChain& c = p.chain[blockIdx.y];
+  const int in = p.in_dim, E = p.embed, E3 = 3 * E, n_rows = p.num_rows;
+  float* par = reinterpret_cast<float*>(smem + L.par);  // b_in, g1, bb1 [E each], b_qkv [3E]
+  wg::Ring ring = make_ring<PRE_WGS>(smem, L);
+  for (int i = threadIdx.x; i < E3; i += threads(PRE_WGS)) {
+    const int s = i / E;
+    par[3 * E + i] = static_cast<const float*>(c.b[1 + s])[i - s * E];
+    if (i < E) {
+      par[i] = static_cast<const float*>(c.b[0])[i];
+      par[E + i] = static_cast<const float*>(c.ln_g)[i];
+      par[2 * E + i] = static_cast<const float*>(c.ln_b)[i];
+    }
+  }
+  __syncthreads();
+  if (producer<PRE_WGS>(ring, smem, L, c.wpack)) return;
+
+  const int w = warp_index() / 4, t = threadIdx.x & 127, bar = 1 + w;
+  unsigned char* mine = smem + L.wg0 + w * L.wg_bytes;
+  unsigned char* tx = mine + L.t[0];  // x
+  unsigned char* ty = mine + L.t[1];  // y = LN1(h)
+  const Frag f(t);
+  float* h = static_cast<float*>(c.out0);
+  bf16* qkv = static_cast<bf16*>(c.out1);
+  float d[64];
+  for (int tile = blockIdx.x; tile < L.tiles; tile += gridDim.x) {
+    const int row0 = (tile * PRE_WGS + w) * wg::TILE_M;
+    if (ring.resident) ring.next = 0;
+    wg::wg_sync(bar);  // the last tile's products are done with ty
+    wg::load_rows(c.x, p.x_is_bf16, in, row0, n_rows, tx, t);
+    wg::fence_async_smem();
+    wg::wg_sync(bar);
+    zero(d);
+    wg::issue(d, wg::smem_u32(tx), in, ring);
+    wg::finish(d, ring);
+    add_bias_round(d, par, E, f);
+    store_f32(d, E, h, E, row0, n_rows, f);
+    layer_norm(d, E, par + E, par + 2 * E, ty, f);
+    wg::fence_async_smem();
+    wg::wg_sync(bar);
+    for (int c0 = 0; c0 < E3; c0 += wg::STAGE_N) {
+      const int cols = min(wg::STAGE_N, E3 - c0);
+      zero(d);
+      wg::issue(d, wg::smem_u32(ty), E, ring);
+      wg::finish(d, ring);
+      add_bias_round(d, par + 3 * E + c0, cols, f);
+      store_bf16(d, cols, qkv, E3, c0, row0, n_rows, f);
+    }
+  }
+}
+
+// Post: r1 = bf16(h + bf16(attn W_o^T + b_o)); y2 = bf16(LN2(r1));
+// per 128-column chunk of the hidden: z1 = bf16(y2 W_up^T + b_up),
+// hid = bf16(act(z1)), acc += hid W_down^T; out = bf16(r1 + bf16(acc + b_down)).
+// The 512-wide hidden never leaves the chip; the images (288 KB at the zoo's
+// widths) stream through the ring once per 64-row tile.
+__global__ void __launch_bounds__(threads(POST_WGS), POST_BLOCKS_PER_SM)
+    post_fwd_kernel(const FbParams p, const Layout L) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = aligned_base(smem_raw);
+  const FbChain& c = p.chain[blockIdx.y];
+  const int E = p.embed, F = p.ff, n_rows = p.num_rows, act = p.activation;
+  bf16* out = static_cast<bf16*>(c.out0);
+  bf16* r1_out = static_cast<bf16*>(c.out1);
+  bf16* s_out = static_cast<bf16*>(c.out2);
+  const bool save = r1_out != nullptr, keep_z = save && act == mlp::ACT_GELU;
+  float* par = reinterpret_cast<float*>(smem + L.par);  // b_o, g2, bb2, b_down [E each], b_up [F]
+  wg::Ring ring = make_ring<POST_WGS>(smem, L);
+  for (int i = threadIdx.x; i < max(E, F); i += threads(POST_WGS)) {
+    if (i < F) par[4 * E + i] = static_cast<const float*>(c.b[1])[i];
+    if (i < E) {
+      par[i] = static_cast<const float*>(c.b[0])[i];
+      par[E + i] = static_cast<const float*>(c.ln_g)[i];
+      par[2 * E + i] = static_cast<const float*>(c.ln_b)[i];
+      par[3 * E + i] = static_cast<const float*>(c.b[2])[i];
+    }
+  }
+  __syncthreads();
+  if (producer<POST_WGS>(ring, smem, L, c.wpack)) return;
+
+  const int w = warp_index() / 4, t = threadIdx.x & 127, bar = 1 + w;
+  unsigned char* mine = smem + L.wg0 + w * L.wg_bytes;
+  unsigned char* ta = mine + L.t[0];  // attn, then y2, then out
+  unsigned char* tr = mine + L.t[1];  // r1
+  unsigned char* th = mine + L.t[2];  // a 128-column chunk of the hidden
+  const Frag f(t);
+  const float* h = static_cast<const float*>(c.h);
+  float d[64], o[64];
+  for (int tile = blockIdx.x; tile < L.tiles; tile += gridDim.x) {
+    const int row0 = (tile * POST_WGS + w) * wg::TILE_M;
+    if (ring.resident) ring.next = 0;
+    wg::wg_sync(bar);  // the last tile's readers of ta are done
+    wg::load_rows(c.x, false, E, row0, n_rows, ta, t);
+    wg::fence_async_smem();
+    wg::wg_sync(bar);
+    zero(d);
+    {
+      wg::issue(d, wg::smem_u32(ta), E, ring);
+      float hv[64];
+      load_frag(h, E, E, row0, n_rows, f, hv);  // while the product runs
+      wg::finish(d, ring);
+      add_bias_round(d, par, E, f);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) d[i] = bf16r(hv[i] + d[i]);
+    }
+    to_tile(d, E, tr, f);
+    layer_norm(d, E, par + E, par + 2 * E, ta, f);
+    wg::fence_async_smem();
+    wg::wg_sync(bar);
+    if (save) wg::store_rows(tr, E, r1_out, E, 0, row0, n_rows, t);
+    zero(o);
+    for (int c0 = 0; c0 < F; c0 += wg::STAGE_N) {
+      const int cols = min(wg::STAGE_N, F - c0);
+      zero(d);
+      wg::issue(d, wg::smem_u32(ta), E, ring);
+      wg::finish(d, ring);
+      add_bias_round(d, par + 4 * E + c0, cols, f);
+      if (keep_z) store_bf16(d, cols, s_out, F, c0, row0, n_rows, f);  // gelu saves z1
+      activate(d, act);
+      if (save && !keep_z) store_bf16(d, cols, s_out, F, c0, row0, n_rows, f);  // the others hid
+      to_tile(d, pad64(cols), th, f);  // past `cols` the accumulators and act(0) are 0
+      wg::fence_async_smem();
+      wg::wg_sync(bar);
+      wg::issue(o, wg::smem_u32(th), cols, ring);
+      wg::finish(o, ring);
+      wg::wg_sync(bar);  // the chunk's products are done with th
+    }
+    add_bias_round(o, par + 3 * E, E, f);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const bool valid = 8 * j < E;
+      const float2 ra = valid ? wg::get2(tr, f.row, 8 * j + f.col) : make_float2(0.f, 0.f);
+      const float2 rb = valid ? wg::get2(tr, f.row + 8, 8 * j + f.col) : make_float2(0.f, 0.f);
+      o[4 * j] += ra.x;
+      o[4 * j + 1] += ra.y;
+      o[4 * j + 2] += rb.x;
+      o[4 * j + 3] += rb.y;
+    }
+    to_tile(o, E, ta, f);  // rounds r1 + f to bf16 (y2's products are done)
+    wg::wg_sync(bar);
+    wg::store_rows(ta, E, out, E, 0, row0, n_rows, t);
+  }
+}
+
+// The pack kernel, then the op's kernel, on `stream`.
+int launch(const void* kernel, const FbParams* p, int num_chains, bool post, cudaStream_t stream) {
+  Plan P;
+  int err = plan(*p, num_chains, post, P);
+  if (err != 0) return err;
+  if (P.pack.count != p->num_stages) return static_cast<int>(cudaErrorInvalidValue);
+  static bool opted_in[2][64] = {};  // the shared-memory limit, set once per kernel and device
+  bool& done = opted_in[post][P.device & 63];
+  if (!done) {
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BLOCK_SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    done = true;
+  }
+  pack_kernel<<<dim3(P.pack.count, num_chains, PACK_SPLIT), PACK_THREADS, 0, stream>>>(*p, P.pack);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  FbParams copy = *p;
+  Layout L = P.L;
+  void* args[] = {&copy, &L};
+  e = cudaLaunchKernel(kernel, dim3(P.blocks, num_chains), dim3(threads(post ? POST_WGS : PRE_WGS)), args, P.L.bytes,
+                       stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace fbf
+
 extern "C" const char* fused_block_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
@@ -613,13 +1100,25 @@ extern "C" const char* fused_block_error_string(int code) {
 // returns cudaGetLastError() after its launches (0 on success).
 
 extern "C" int fused_block_pre_fwd(const FbParams* p, int num_chains, void* stream) {
-  return fb::launch_rows(reinterpret_cast<const void*>(fb::pre_fwd_kernel), p, num_chains,
-                         static_cast<cudaStream_t>(stream), 0, false);
+  return fbf::launch(reinterpret_cast<const void*>(fbf::pre_fwd_kernel), p, num_chains, false,
+                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int fused_block_post_fwd(const FbParams* p, int num_chains, void* stream) {
-  return fb::launch_rows(reinterpret_cast<const void*>(fb::post_fwd_kernel), p, num_chains,
-                         static_cast<cudaStream_t>(stream), 0, false);
+  return fbf::launch(reinterpret_cast<const void*>(fbf::post_fwd_kernel), p, num_chains, true,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// A forward's plan as the launch takes it: out = {images per tile, ring
+// slots, resident, tiles per chain, blocks per chain, dynamic shared memory
+// bytes, SMs}.
+extern "C" int fused_block_fwd_plan(const FbParams* p, int num_chains, int post, int* out) {
+  fbf::Plan P;
+  const int err = fbf::plan(*p, num_chains, post != 0, P);
+  if (err != 0) return err;
+  const int v[7] = {P.pack.count, P.L.slots, P.L.resident, P.L.tiles, P.blocks, P.L.bytes, P.sms};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
 }
 
 // The backwards: phase 1 (the row kernel), then phase 2 (dw_phase2.cuh) on

@@ -1,0 +1,319 @@
+// Hopper (sm_90a) building blocks for persistent, warp-specialised kernels:
+// mbarriers, bulk copies into shared memory, warpgroup products (wgmma) on
+// 128-byte-swizzled K-major bf16 operands, and the swizzled tile layout those
+// operands live in.
+//
+// Tile layout ("swizzled tile"): a bf16 matrix of R rows is kept in K blocks
+// of 64 columns; block b holds R rows of 128 bytes at b * R * 128, and the
+// 16-byte chunk c (columns 8c .. 8c + 7 of the block) of row r sits at chunk
+// c ^ (r % 8) of that row.  This is the layout TMA's 128-byte swizzle writes
+// and the one a wgmma descriptor with layout type 1 (SWIZZLE_128B) reads,
+// with 8-row groups 1,024 bytes apart.  Every tile starts 1,024-byte aligned.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int TILE_M = 64;                      // rows of one warpgroup product
+constexpr int KBLOCK = 64;                      // bf16 columns per swizzled row block (128 bytes)
+constexpr int STAGE_N = 128;                    // weight rows (output columns) per stage image
+constexpr int STAGE_BYTES = STAGE_N * KBLOCK * 2;  // 16 KB: one [128][64] bf16 weight slice
+constexpr int ABLOCK_BYTES = TILE_M * KBLOCK * 2;  // 8 KB: one K block of a 64-row tile
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of element (row, col) in a swizzled tile of 64 rows.
+__device__ __forceinline__ uint32_t swz(int row, int col) {
+  return (col >> 6) * ABLOCK_BYTES + row * 128 + ((((col >> 3) & 7) ^ (row & 7)) << 4) + ((col & 7) << 1);
+}
+
+// ---- mbarriers ----------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() { asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory"); }
+
+// Arrives and adds `bytes` to the transaction count the phase waits for.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+// Waits until the phase with this parity has completed.  The loop lives in
+// the PTX, so the compiler sees no divergent path next to the products; a
+// wait that lasts 2^34 cycles (about 9 s) traps, so that a broken pipeline
+// fails its launch instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .u64 t0, t1;\n"
+      "mov.u64 t0, %%clock64;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "mov.u64 t1, %%clock64;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.gt.u64 p, t1, 17179869184;\n"
+      "@p trap;\n"
+      "bra WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Arrives on `bar` from the threads with `pred` set (a predicated
+// instruction, no branch).
+__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(static_cast<int>(pred))
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from device
+// memory into shared memory; completion counts against `bar`'s transactions.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes), "r"(smem_u32(bar))
+               : "memory");
+}
+
+// Makes this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma operands).
+__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;" ::: "memory"); }
+
+// Barrier over the 128 threads of one warpgroup (named barrier `id` >= 1).
+__device__ __forceinline__ void wg_sync(int id) { asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory"); }
+
+// ---- wgmma --------------------------------------------------------------
+
+// Descriptor of a K-major operand in the swizzled layout starting at shared
+// address `addr`: 8-row groups 1,024 bytes apart (SBO), 128-byte swizzle.
+// Stepping 16 columns of K inside a 64-column block adds 32 bytes to `addr`.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses of the accumulators across the
+// asynchronous product.
+__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 128] += A[64 x 16] B[128 x 16]^T, bf16 operands from shared memory,
+// fp32 accumulators in registers.  Thread t of the warpgroup (warp w = t / 32,
+// lane l) holds d[4j + 2h + e] = D[16w + l / 4 + 8h][8j + 2(l % 4) + e].
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// ---- a ring of weight stages --------------------------------------------
+
+// Stage images of STAGE_BYTES stream from device memory through `slots`
+// ring buffers: `full[s]` completes when slot s holds its next image (one
+// producer arrival plus the copy's bytes), `empty[s]` when every consumer
+// warp has finished reading it.  When all `per_tile` images of a tile fit
+// (`resident`), each is loaded once and stays for every tile of the block.
+struct Ring {
+  uint32_t base;  // shared address of slot 0
+  uint64_t* full;
+  uint64_t* empty;
+  int slots;
+  int resident;
+  uint32_t next;  // index of the next image consumed (per tile when resident)
+};
+
+// The producer thread: loads the images of `tiles` tiles in order.
+__device__ __forceinline__ void produce(const Ring& r, unsigned char* ring_ptr, const unsigned char* images,
+                                        int per_tile, int tiles) {
+  if (r.resident) {
+    for (int s = 0; s < per_tile; ++s) {
+      mbar_expect_tx(&r.full[s], STAGE_BYTES);
+      bulk_load(ring_ptr + s * STAGE_BYTES, images + size_t(s) * STAGE_BYTES, STAGE_BYTES, &r.full[s]);
+    }
+    return;
+  }
+  uint32_t g = 0;
+  for (int t = 0; t < tiles; ++t) {
+    for (int s = 0; s < per_tile; ++s, ++g) {
+      const int slot = g % r.slots;
+      const uint32_t use = g / r.slots;
+      if (use > 0) mbar_wait(&r.empty[slot], (use - 1) & 1);
+      mbar_expect_tx(&r.full[slot], STAGE_BYTES);
+      bulk_load(ring_ptr + slot * STAGE_BYTES, images + size_t(s) * STAGE_BYTES, STAGE_BYTES, &r.full[slot]);
+    }
+  }
+}
+
+// Hands image g's slot back to the producer (every consumer warp arrives).
+__device__ __forceinline__ void release(const Ring& r, uint32_t g) {
+  mbar_arrive_if(&r.empty[g % r.slots], !r.resident && (threadIdx.x & 31) == 0);
+}
+
+// The products of one weight image: waits for it, then d += A[:, 64 kb .. 64 kb
+// + 64) W^T in four k16 steps (the fence follows the wait, so the compiler
+// needs none of its own after the wait's loop).  From the second image of a
+// chunk on, the previous image is released once its products are done.
+__device__ __forceinline__ void issue_block(float (&d)[64], uint32_t a, int kb, Ring& r) {
+  const int slot = r.next % r.slots;
+  mbar_wait(&r.full[slot], (r.next / r.slots) & 1);
+  wgmma_fence();
+  const uint32_t b = r.base + slot * STAGE_BYTES;
+#pragma unroll
+  for (int kk = 0; kk < KBLOCK / 16; ++kk)
+    wgmma_m64n128k16(d, desc_sw128(a + kb * ABLOCK_BYTES + kk * 32), desc_sw128(b + kk * 32));
+  wgmma_commit();
+  if (kb > 0) {
+    wgmma_wait<1>();
+    release(r, r.next - 1);
+  }
+  ++r.next;
+}
+
+template <int BLOCKS>
+__device__ __forceinline__ void issue_blocks(float (&d)[64], uint32_t a, Ring& r) {
+#pragma unroll
+  for (int kb = 0; kb < BLOCKS; ++kb) issue_block(d, a, kb, r);
+}
+
+// Issues d += A[:, 0:K] W^T for one 128-column chunk of the output, taking
+// the chunk's ceil(K / 64) weight images from the ring in order; `a` is the
+// shared address of the swizzled 64-row A tile, whose columns from K up to
+// the next multiple of 64 hold 0 (as the images' do), so that every image
+// takes four k16 steps without a branch between the products.  Each image
+// but the last is released as soon as its products are done, so a chunk may
+// take more images than the ring has slots; `finish` waits for the last
+// products and releases the last image.  One and two images (every product
+// at the zoo's widths) have bodies of their own, without a loop.
+__device__ __forceinline__ void issue(float (&d)[64], uint32_t a, int K, Ring& r) {
+  const int blocks = (K + KBLOCK - 1) / KBLOCK;
+  fence_regs(d);
+  if (blocks == 2) {
+    issue_blocks<2>(d, a, r);
+  } else if (blocks == 1) {
+    issue_blocks<1>(d, a, r);
+  } else {
+    for (int kb = 0; kb < blocks; ++kb) issue_block(d, a, kb, r);
+  }
+}
+
+__device__ __forceinline__ void finish(float (&d)[64], Ring& r) {
+  wgmma_wait<0>();
+  fence_regs(d);
+  release(r, r.next - 1);
+}
+
+// ---- tiles in and out ---------------------------------------------------
+
+// Rows [row0, row0 + 64) of a row-major [n_rows, width] fp32 or bf16 matrix
+// into a swizzled bf16 tile, four columns per access by the 128 threads of a
+// warpgroup (`t` = thread in the warpgroup); rows past the end, and columns
+// from `width` to the next multiple of 64, are 0.  Four loads are in flight
+// per thread before their stores (more cost the post kernel registers).
+__device__ __forceinline__ void load_rows(const void* src, bool is_bf16, int width, int row0, int n_rows,
+                                          unsigned char* tile, int t) {
+  constexpr int BATCH = 4;
+  const int quads = ((width + KBLOCK - 1) / KBLOCK) * (KBLOCK / 4), total = TILE_M * quads;
+  for (int base = t; base < total; base += BATCH * 128) {
+    float4 v[BATCH];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int i = base + u * 128;
+      const int m = i / quads;
+      const int col = (i - m * quads) * 4;
+      v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (i < total && row0 + m < n_rows && col < width) {
+        const size_t idx = size_t(row0 + m) * width + col;
+        if (is_bf16) {
+          const uint2 raw = *reinterpret_cast<const uint2*>(static_cast<const bf16*>(src) + idx);
+          const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+          const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+          v[u] = make_float4(lo.x, lo.y, hi.x, hi.y);
+        } else {
+          v[u] = *reinterpret_cast<const float4*>(static_cast<const float*>(src) + idx);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int i = base + u * 128;
+      if (i < total) {
+        const int m = i / quads;
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(v[u].x, v[u].y);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(v[u].z, v[u].w);
+        uint2 packed;
+        packed.x = *reinterpret_cast<const uint32_t*>(&lo);
+        packed.y = *reinterpret_cast<const uint32_t*>(&hi);
+        *reinterpret_cast<uint2*>(tile + swz(m, (i - m * quads) * 4)) = packed;
+      }
+    }
+  }
+}
+
+// Columns [0, cols) (a multiple of 8) of a swizzled 64-row bf16 tile to rows
+// [row0, row0 + 64) of `dst` (leading dimension ld), columns col0 onwards,
+// as 16-byte stores; rows past n_rows are skipped.
+__device__ __forceinline__ void store_rows(const unsigned char* tile, int cols, bf16* dst, int ld, int col0, int row0,
+                                           int n_rows, int t) {
+  const int units = cols >> 3;
+  for (int i = t; i < TILE_M * units; i += 128) {
+    const int m = i / units, u = i - m * units;
+    if (row0 + m < n_rows) {
+      const uint4 v = *reinterpret_cast<const uint4*>(tile + (u >> 3) * ABLOCK_BYTES + m * 128 + (((u & 7) ^ (m & 7)) << 4));
+      *reinterpret_cast<uint4*>(dst + size_t(row0 + m) * ld + col0 + u * 8) = v;
+    }
+  }
+}
+
+__device__ __forceinline__ void put2(unsigned char* tile, int row, int col, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(tile + swz(row, col)) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ float2 get2(const unsigned char* tile, int row, int col) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(tile + swz(row, col)));
+}
+
+}  // namespace wg

@@ -20,7 +20,13 @@ and the critic's layers in one launch (K5):
   and ``_pair_post_bwd_kernel``.
 
 What bounds them on the H100 and what the design does about it is written at
-the top of the CUDA source.  Beside the kernels this module keeps their plain
+the top of the CUDA source.  The forwards run in two launches: a pack kernel
+turns the fp32 weights into bf16 images in the layout the products read
+(afresh on every call: the optimizer updates the weights in place), then one
+persistent kernel per op walks the row tiles with wgmma products.  The
+wrappers allocate the images' scratch (``fwd_stages`` lists them,
+``pack_plain`` is the pack kernel's plain version) and ``fwd_grid`` /
+``fwd_plan`` give the grid.  Beside the kernels this module keeps their plain
 PyTorch versions, which repeat the kernels' arithmetic step by step, the
 backwards as explicit formulas (mirrors of the TPU kernels' ``_pre_bwd_kernel``
 and ``_post_bwd_kernel``, not autograd of the forward): bf16 operands, fp32
@@ -46,6 +52,7 @@ LayerNorm parameters ``[dim]`` fp32; q, k and v keep their three matrices.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -53,11 +60,18 @@ from cusrl_tpu_torch.nn.kernels import dw_phase2
 from cusrl_tpu_torch.nn.kernels.fused_mlp import _ACTIVATION_CODES, _PREACT_ACTIVATIONS, _act_plain, _dact_plain
 
 __all__ = [
+    "FWD_GRID",
     "LAUNCHES",
+    "STAGE_COLS",
+    "STAGE_ROWS",
     "fused_block_pair_post",
     "fused_block_pair_pre",
     "fused_block_post",
     "fused_block_pre",
+    "fwd_grid",
+    "fwd_plan",
+    "fwd_stages",
+    "pack_plain",
     "post_bwd_plain",
     "post_fwd_plain",
     "post_reference",
@@ -65,6 +79,7 @@ __all__ = [
     "pre_fwd_plain",
     "reset_launch_counts",
     "supports_fused_block",
+    "tile_schedule",
 ]
 
 _BF16 = torch.bfloat16
@@ -72,7 +87,7 @@ _SUPPORTED = ("elu", "relu", "tanh", "gelu", "identity", "none")
 LN_EPS = 1e-6
 MAX_EMBED = 128  # FB_MAX_EMBED in csrc/fused_block.cu
 MAX_WIDTH = 512  # MLP_MAX_WIDTH: the input and FFN widths
-WIDTH_MULTIPLE = 16  # the kernels' 16x16x16 WMMA tiles
+WIDTH_MULTIPLE = 16  # the products' k16 steps (WMMA in the backwards, wgmma in the forwards)
 ROW_TILE = 64  # mlp::BM
 
 LAUNCHES: dict[str, int] = {f"K{k}{op}_{d}": 0 for k in (4, 5) for op in ("pre", "post") for d in ("f", "b")}
@@ -180,6 +195,79 @@ def post_reference(attn, h, w_o, b_o, g2, bb2, w_up, b_up, w_down, b_down, activ
 
 
 # ---------------------------------------------------------------------------
+# The forwards' weight images and tile schedule (csrc/fused_block.cu, fbf)
+# ---------------------------------------------------------------------------
+
+STAGE_ROWS, STAGE_COLS = 128, 64  # one weight image, [128][64] bf16 (wg::STAGE_N, wg::KBLOCK)
+# (tile rows, blocks per SM) of each forward (fbf::PRE_WGS, fbf::POST_WGS and
+# their blocks per SM): 64 rows per consumer warpgroup.
+FWD_GRID = {"pre": (128, 1), "post": (64, 2)}
+
+
+def fwd_stages(op: str, in_dim: int, embed: int, ff: int) -> list[tuple[int, int, int]]:
+    """``(matrix, n0, k0)`` of each weight image of the ``"pre"`` or
+    ``"post"`` forward, in the order its kernel takes them (``fbf::pre_pack``,
+    ``fbf::post_pack``).  Pre's matrices are ``W_in`` and ``[W_q; W_k;
+    W_v]``; post's are ``W_o``, ``W_up`` and ``W_down``, the last two by
+    128-column chunk of the FFN hidden."""
+    def kblocks(k):
+        return -(-k // STAGE_COLS)
+
+    def chunks(n):
+        return range(0, n, STAGE_ROWS)
+
+    if op == "pre":
+        return ([(0, 0, k0) for k0 in range(0, in_dim, STAGE_COLS)]
+                + [(1, n0, k0) for n0 in chunks(3 * embed) for k0 in range(0, embed, STAGE_COLS)])
+    stages = [(0, 0, k0) for k0 in range(0, embed, STAGE_COLS)]
+    for c0 in chunks(ff):
+        stages += [(1, c0, k0) for k0 in range(0, embed, STAGE_COLS)]
+        stages += [(2, 0, c0 + STAGE_COLS * k) for k in range(kblocks(min(STAGE_ROWS, ff - c0)))]
+    return stages
+
+
+@functools.lru_cache(maxsize=None)
+def _stage_count(op: str, in_dim: int, embed: int, ff: int) -> int:
+    return len(fwd_stages(op, in_dim, embed, ff))
+
+
+def _swizzle_index() -> torch.Tensor:
+    """``[128, 8, 8]``: where logical 16-byte chunk ``c`` of image row ``n``
+    sits, ``c ^ (n % 8)``, repeated over the chunk's eight values."""
+    n = torch.arange(STAGE_ROWS)[:, None]
+    return (torch.arange(8)[None, :] ^ (n % 8))[..., None].expand(STAGE_ROWS, 8, 8)
+
+
+def pack_plain(matrices, stages) -> torch.Tensor:
+    """The plain version of ``fbf::pack_kernel``: bf16 ``[len(stages), 128,
+    64]`` images of the matrices' slices, 0 past a matrix's edge, each row's
+    16-byte chunks swizzled (on the CPU)."""
+    out = torch.zeros(len(stages), STAGE_ROWS, 8, 8, dtype=_BF16)
+    for img, (m, n0, k0) in zip(out, stages):
+        part = matrices[m][n0:n0 + STAGE_ROWS, k0:k0 + STAGE_COLS].detach().cpu().to(_BF16)
+        logical = torch.zeros(STAGE_ROWS, STAGE_COLS, dtype=_BF16)
+        logical[:part.shape[0], :part.shape[1]] = part
+        img.scatter_(1, _swizzle_index(), logical.view(STAGE_ROWS, 8, 8))
+    return out.view(len(stages), STAGE_ROWS, STAGE_COLS)
+
+
+def fwd_grid(op: str, rows: int, chains: int, num_sms: int) -> tuple[int, int]:
+    """``(blocks per chain, tiles per chain)`` of the ``"pre"`` or ``"post"``
+    forward's launch (``fbf::plan``): the op's blocks per SM on every SM,
+    split between the chains, at most one per tile."""
+    tile_rows, per_sm = FWD_GRID[op]
+    tiles = -(-rows // tile_rows)
+    return max(1, min(tiles, per_sm * num_sms // chains)), tiles
+
+
+def tile_schedule(op: str, rows: int, chains: int, num_sms: int) -> list[tuple[int, int, int]]:
+    """``(chain, block, tile)`` in the order each persistent block walks its
+    tiles: block ``b`` takes tiles ``b``, ``b + blocks``, ..."""
+    blocks, tiles = fwd_grid(op, rows, chains, num_sms)
+    return [(c, b, t) for c in range(chains) for b in range(blocks) for t in range(b, tiles, blocks)]
+
+
+# ---------------------------------------------------------------------------
 # CUDA launchers
 # ---------------------------------------------------------------------------
 
@@ -191,14 +279,14 @@ class _Chain(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_void_p) for name in ("x", "h", "g", "gh", "r1", "s")] + [
         ("w", _P4), ("b", _P4)] + [(name, ctypes.c_void_p) for name in (
-            "ln_g", "ln_b", "out0", "out1", "out2", "sa", "sb", "sc", "part", "dw", "sums")]
+            "ln_g", "ln_b", "out0", "out1", "out2", "sa", "sb", "sc", "part", "dw", "sums", "wpack")]
 
 
 class _Params(ctypes.Structure):
     """Mirror of ``FbParams`` in csrc/fused_block.cu."""
 
     _fields_ = [("chain", _Chain * 2)] + [(name, ctypes.c_int) for name in (
-        "num_rows", "in_dim", "embed", "ff", "activation", "x_is_bf16")]
+        "num_rows", "in_dim", "embed", "ff", "activation", "x_is_bf16", "num_stages")]
 
 
 _ENTRIES = ("fused_block_pre_fwd", "fused_block_pre_bwd", "fused_block_post_fwd", "fused_block_post_bwd")
@@ -217,6 +305,9 @@ def _library() -> ctypes.CDLL:
             else:
                 fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.fused_block_fwd_plan.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_int,
+                                             ctypes.POINTER(ctypes.c_int)]
+        lib.fused_block_fwd_plan.restype = ctypes.c_int
         lib.fused_block_error_string.argtypes = [ctypes.c_int]
         lib.fused_block_error_string.restype = ctypes.c_char_p
     return lib
@@ -233,6 +324,22 @@ def _launch(entry: str, counter: str, p: _Params, chains: int, device, phase2=No
     LAUNCHES[counter] += 1
     if code != 0:
         raise RuntimeError(f"{entry} launch failed: {lib.fused_block_error_string(code).decode()} (cudaError {code})")
+
+
+def fwd_plan(op: str, rows: int, chains: int, in_dim: int, embed: int, ff: int, activation: str = "gelu",
+             save: bool = True) -> dict:
+    """The plan ``fbf::plan`` makes for a ``"pre"`` or ``"post"`` forward on
+    the current card: weight images per tile, ring slots, whether the images
+    stay resident, tiles and blocks per chain, dynamic shared memory, SMs."""
+    p = _Params(num_rows=rows, in_dim=in_dim, embed=embed, ff=ff, activation=_ACTIVATION_CODES[activation])
+    if save:
+        p.chain[0].out1 = 1  # saving mode: the plan reads only whether out1 is set
+    out = (ctypes.c_int * 7)()
+    lib = _library()
+    code = lib.fused_block_fwd_plan(ctypes.byref(p), chains, int(op == "post"), out)
+    if code != 0:
+        raise RuntimeError(f"fused_block_fwd_plan failed: {lib.fused_block_error_string(code).decode()}")
+    return dict(zip(("images", "slots", "resident", "tiles", "blocks", "smem_bytes", "sms"), out))
 
 
 def _validate(rows, widths: dict, tensors, device) -> None:
@@ -253,9 +360,9 @@ def _validate(rows, widths: dict, tensors, device) -> None:
 
 def _check_params(params, shapes) -> list[torch.Tensor]:
     for t, shape in zip(params, shapes):
-        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+        if t.dtype != torch.float32 or t.shape != shape:
             raise ValueError(f"parameters must be fp32 of shapes {shapes}; got {t.dtype} {tuple(t.shape)}")
-    return [t.detach().contiguous() for t in params]
+    return [t if t.is_contiguous() else t.contiguous() for t in params]
 
 
 def _pre_shapes(in_dim: int, embed: int):
@@ -275,10 +382,11 @@ def _launch_pre_fwd(xs, pss, counter):
     _validate(n, {"input": in_dim, "embed": embed}, [*xs, *(t for ps in pss for t in ps)], device)
     if any(x.dtype not in (torch.float32, _BF16) or x.dtype != xs[0].dtype or x.shape != xs[0].shape for x in xs):
         raise TypeError("inputs must share one shape and one dtype, fp32 or bf16")
-    p = _Params(num_rows=n, in_dim=in_dim, embed=embed, x_is_bf16=int(xs[0].dtype == _BF16))
+    stages = _stage_count("pre", in_dim, embed, 0)
+    p = _Params(num_rows=n, in_dim=in_dim, embed=embed, x_is_bf16=int(xs[0].dtype == _BF16), num_stages=stages)
     keep, hs, qkvs = [], [], []
     for i, (x, ps) in enumerate(zip(xs, pss)):
-        x = x.contiguous()
+        x = dw_phase2.aligned16(x)
         w_in, b_in, g1, bb1, w_q, w_k, w_v, b_q, b_k, b_v = _check_params(ps, _pre_shapes(in_dim, embed))
         h = torch.empty(n, embed, device=device)
         qkv = torch.empty(n, 3 * embed, dtype=_BF16, device=device)
@@ -286,8 +394,9 @@ def _launch_pre_fwd(xs, pss, counter):
         chain.x, chain.ln_g, chain.ln_b = x.data_ptr(), g1.data_ptr(), bb1.data_ptr()
         for j, (w, b) in enumerate(((w_in, b_in), (w_q, b_q), (w_k, b_k), (w_v, b_v))):
             chain.w[j], chain.b[j] = w.data_ptr(), b.data_ptr()
-        chain.out0, chain.out1 = h.data_ptr(), qkv.data_ptr()
-        keep += [x, w_in, b_in, g1, bb1, w_q, w_k, w_v, b_q, b_k, b_v]
+        wpack = torch.empty(stages, STAGE_ROWS, STAGE_COLS, dtype=_BF16, device=device)
+        chain.out0, chain.out1, chain.wpack = h.data_ptr(), qkv.data_ptr(), wpack.data_ptr()
+        keep += [x, w_in, b_in, g1, bb1, w_q, w_k, w_v, b_q, b_k, b_v, wpack]
         hs.append(h)
         qkvs.append(qkv)
     if n:
@@ -347,12 +456,13 @@ def _launch_post_fwd(attns, hs, pss, activation, save, counter):
     n, embed = attns[0].shape
     ff, device = pss[0][4].shape[0], attns[0].device
     _validate(n, {"embed": embed, "ffn": ff}, [*attns, *hs, *(t for ps in pss for t in ps)], device)
-    p = _Params(num_rows=n, embed=embed, ff=ff, activation=_ACTIVATION_CODES[activation])
+    stages = _stage_count("post", 0, embed, ff)
+    p = _Params(num_rows=n, embed=embed, ff=ff, activation=_ACTIVATION_CODES[activation], num_stages=stages)
     keep, outs, r1s, saveds = [], [], [], []
     for i, (attn, h, ps) in enumerate(zip(attns, hs, pss)):
         if attn.shape != (n, embed) or h.shape != (n, embed):
             raise ValueError(f"attn and h must be [N, {embed}]")
-        attn, h = attn.float().contiguous(), h.float().contiguous()
+        attn, h = dw_phase2.aligned16(attn.float()), dw_phase2.aligned16(h.float())
         w_o, b_o, g2, bb2, w_up, b_up, w_down, b_down = _check_params(ps, _post_shapes(embed, ff))
         out = torch.empty(n, embed, dtype=_BF16, device=device)
         r1 = torch.empty(n, embed, dtype=_BF16, device=device) if save else None
@@ -361,10 +471,11 @@ def _launch_post_fwd(attns, hs, pss, activation, save, counter):
         chain.x, chain.h, chain.ln_g, chain.ln_b = attn.data_ptr(), h.data_ptr(), g2.data_ptr(), bb2.data_ptr()
         for j, (w, b) in enumerate(((w_o, b_o), (w_up, b_up), (w_down, b_down))):
             chain.w[j], chain.b[j] = w.data_ptr(), b.data_ptr()
-        chain.out0 = out.data_ptr()
+        wpack = torch.empty(stages, STAGE_ROWS, STAGE_COLS, dtype=_BF16, device=device)
+        chain.out0, chain.wpack = out.data_ptr(), wpack.data_ptr()
         chain.out1 = None if r1 is None else r1.data_ptr()
         chain.out2 = None if saved is None else saved.data_ptr()
-        keep += [attn, h, w_o, b_o, g2, bb2, w_up, b_up, w_down, b_down]
+        keep += [attn, h, w_o, b_o, g2, bb2, w_up, b_up, w_down, b_down, wpack]
         outs.append(out)
         r1s.append(r1)
         saveds.append(saved)

@@ -469,6 +469,165 @@ def test_block_post_kernels_match_plain(cuda, rows, chains, activation):
             _close(a, b, grad=True)
 
 
+def _block_params_at(gen, device, in_dim, embed, ff):
+    """(pre params, post params) at any widths the kernels take."""
+    def w(out, inp):
+        return (torch.randn(out, inp, generator=gen) / math.sqrt(inp)).to(device)
+
+    def v(n, base=0.0):
+        return (base + torch.randn(n, generator=gen) * 0.1).to(device)
+
+    e, f = embed, ff
+    return ((w(e, in_dim), v(e), v(e, 1.0), v(e), w(e, e), w(e, e), w(e, e), v(e), v(e), v(e)),
+            (w(e, e), v(e), v(e, 1.0), v(e), w(f, e), v(f), w(e, f), v(e)))
+
+
+def _check_pre_fwd(xs, pss):
+    from cusrl_tpu_torch.nn.kernels import fused_block as fb
+
+    hs, qkvs = fb._launch_pre_fwd(xs, pss, fb._counter("pre_f", len(xs)))
+    for x, ps, h, qkv in zip(xs, pss, hs, qkvs):
+        rh, rqkv = fb.pre_fwd_plain(x, *ps)
+        assert h.dtype == torch.float32 and torch.equal(h, h.to(torch.bfloat16).float())
+        _close(h, rh, grad=False)
+        _close(qkv, rqkv, grad=False)
+    return hs, qkvs
+
+
+def _check_post_fwd(attns, hs, pss, activation):
+    """Saving and primal, each against the plain version; returns the saving outputs."""
+    from cusrl_tpu_torch.nn.kernels import fused_block as fb
+
+    refs = [fb.post_fwd_plain(a, h, *ps, activation, True) for a, h, ps in zip(attns, hs, pss)]
+    results = {}
+    for save in (True, False):
+        outs, r1s, saveds = fb._launch_post_fwd(attns, hs, pss, activation, save, fb._counter("post_f", len(attns)))
+        for ref, out, r1, saved in zip(refs, outs, r1s, saveds):
+            _close(out, ref[0], grad=False)
+            assert (r1 is None) != save and (saved is None) != save
+            if save:
+                _close(r1, ref[1], grad=False)
+                _close(saved, ref[2], grad=False)
+        results[save] = (outs, r1s, saveds)
+    return results[True]
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chains", [1, 2])
+@pytest.mark.parametrize("rows", [1, 63, 65, 6144 + 17, 65536 + 37])
+def test_block_pre_forward_at_ragged_rows(cuda, rows, chains, x_dtype):
+    """The redesigned pre forward (128-row tiles, resident weight images) at
+    row counts that end inside a tile and inside a warpgroup's 64 rows."""
+    gen = torch.Generator().manual_seed(rows + 3 * chains)
+    pss = [_block_params(gen, cuda)[0] for _ in range(chains)]
+    xs = [torch.tanh(torch.randn(rows, BLOCK_IN, generator=gen)).to(cuda, x_dtype) for _ in range(chains)]
+    _check_pre_fwd(xs, pss)
+
+
+@pytest.mark.parametrize("chains", [1, 2])
+@pytest.mark.parametrize("rows", [1, 63, 65, 6144 + 17, 65536 + 37])
+def test_block_post_forward_at_ragged_rows(cuda, rows, chains):
+    """The redesigned post forward (weight images streamed through the ring),
+    saving and primal, at ragged row counts."""
+    gen = torch.Generator().manual_seed(rows + 5 * chains)
+    pss = [_block_params(gen, cuda)[1] for _ in range(chains)]
+    attns = [torch.randn(rows, BLOCK_EMBED, generator=gen).to(cuda) for _ in range(chains)]
+    hs = [torch.randn(rows, BLOCK_EMBED, generator=gen).to(cuda, torch.bfloat16).float() for _ in range(chains)]
+    _check_post_fwd(attns, hs, pss, "gelu")
+
+
+@pytest.mark.parametrize("activation", ["elu", "relu", "tanh", "gelu", "identity"])
+def test_block_post_forward_every_activation(cuda, activation):
+    gen = torch.Generator().manual_seed(len(activation))
+    pss = [_block_params(gen, cuda)[1] for _ in range(2)]
+    attns = [torch.randn(1000, BLOCK_EMBED, generator=gen).to(cuda) for _ in range(2)]
+    hs = [torch.randn(1000, BLOCK_EMBED, generator=gen).to(cuda, torch.bfloat16).float() for _ in range(2)]
+    _check_post_fwd(attns, hs, pss, activation)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("embed", [16, 128])
+@pytest.mark.parametrize("in_dim", [16, 48, 512])
+def test_block_pre_forward_at_the_width_limits(cuda, in_dim, embed, x_dtype):
+    """Input widths 16 to 512 (512: more images than the ring holds, so they
+    stream) and embeddings 16 and 128, one and two chains."""
+    gen = torch.Generator().manual_seed(in_dim + embed)
+    for chains in (1, 2):
+        pss = [_block_params_at(gen, cuda, in_dim, embed, 64)[0] for _ in range(chains)]
+        xs = [torch.tanh(torch.randn(1000, in_dim, generator=gen)).to(cuda, x_dtype) for _ in range(chains)]
+        _check_pre_fwd(xs, pss)
+
+
+@pytest.mark.parametrize("activation", ["gelu", "relu"])
+@pytest.mark.parametrize("embed", [16, 128])
+@pytest.mark.parametrize("ff", [16, 48, 512])
+def test_block_post_forward_at_the_width_limits(cuda, ff, embed, activation):
+    """FFN widths 16 to 512 and embeddings 16 and 128 (the small ones keep
+    their images resident), one and two chains, saving and primal."""
+    gen = torch.Generator().manual_seed(ff + embed + len(activation))
+    for chains in (1, 2):
+        pss = [_block_params_at(gen, cuda, 48, embed, ff)[1] for _ in range(chains)]
+        attns = [torch.randn(1000, embed, generator=gen).to(cuda) for _ in range(chains)]
+        hs = [torch.randn(1000, embed, generator=gen).to(cuda, torch.bfloat16).float() for _ in range(chains)]
+        _check_post_fwd(attns, hs, pss, activation)
+
+
+def test_block_forward_plan_matches_the_python_mirror(cuda):
+    """``fbf::plan`` against ``fwd_stages`` and ``fwd_grid``: the images the
+    wrapper allocates and the grid the schedule assumes."""
+    from cusrl_tpu_torch.nn.kernels import fused_block as fb
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for op, in_dim, embed, ff in (("pre", 48, 128, 512), ("pre", 512, 16, 16), ("post", 48, 128, 512),
+                                  ("post", 48, 16, 48)):
+        for rows, chains in ((1, 1), (6144, 1), (6144, 2), (65536 + 37, 1)):
+            plan = fb.fwd_plan(op, rows, chains, in_dim, embed, ff)
+            assert plan["images"] == len(fb.fwd_stages(op, in_dim, embed, ff))
+            assert (plan["blocks"], plan["tiles"]) == fb.fwd_grid(op, rows, chains, sms)
+            per_sm = fb.FWD_GRID[op][1]
+            assert plan["sms"] == sms and per_sm * (plan["smem_bytes"] + 1024) <= 233472
+            assert plan["resident"] == (plan["slots"] == plan["images"])
+    assert fb.fwd_plan("pre", 6144, 1, 48, 128, 512)["resident"] == 1  # the zoo's pre images stay
+    assert fb.fwd_plan("post", 6144, 1, 48, 128, 512)["resident"] == 0  # the zoo's post images stream
+
+
+def test_block_forwards_repeat_bitwise(cuda):
+    """Two calls of each forward on the same inputs give the same bits."""
+    from cusrl_tpu_torch.nn.kernels import fused_block as fb
+
+    gen = torch.Generator().manual_seed(41)
+    for chains in (1, 2):
+        layers = [_block_params(gen, cuda) for _ in range(chains)]
+        xs = [torch.tanh(torch.randn(6144 + 17, BLOCK_IN, generator=gen)).to(cuda) for _ in range(chains)]
+        attns = [torch.randn(6144 + 17, BLOCK_EMBED, generator=gen).to(cuda) for _ in range(chains)]
+        runs = []
+        for _ in range(2):
+            hs, qkvs = fb._launch_pre_fwd(xs, [l[0] for l in layers], fb._counter("pre_f", chains))
+            outs = fb._launch_post_fwd(attns, hs, [l[1] for l in layers], "gelu", True, fb._counter("post_f", chains))
+            runs.append([*hs, *qkvs, *(t for ts in outs for t in ts)])
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_block_forwards_follow_weights_changed_in_place(cuda):
+    """Weights updated in place between two calls (as the optimizer does):
+    the second call packs them afresh and gives the plain result for the new
+    weights."""
+    from cusrl_tpu_torch.nn.kernels import fused_block as fb
+
+    gen = torch.Generator().manual_seed(43)
+    pre, post = _block_params(gen, cuda)
+    x = torch.tanh(torch.randn(6144, BLOCK_IN, generator=gen)).to(cuda)
+    attn = torch.randn(6144, BLOCK_EMBED, generator=gen).to(cuda)
+    h0, qkv0 = fb._launch_pre_fwd([x], [pre], "K4pre_f")
+    out0 = fb._launch_post_fwd([attn], h0, [post], "gelu", False, "K4post_f")[0][0]
+    for t in (*pre, *post):
+        t.add_(0.05 * torch.randn(t.shape, generator=gen).to(cuda))
+    (h1,), (qkv1,) = _check_pre_fwd([x], [pre])
+    out1 = fb._launch_post_fwd([attn], [h1], [post], "gelu", False, "K4post_f")[0][0]
+    _close(out1, fb.post_fwd_plain(attn, h1, *post, "gelu", False)[0], grad=False)
+    assert not torch.equal(qkv0[0], qkv1) and not torch.equal(out0, out1)
+
+
 @pytest.mark.parametrize("pair", [False, True])
 def test_block_autograd_matches_cpu_and_carries_gh_in_fp32(cuda, pair):
     """pre -> post under autograd on the card against the same on the CPU
