@@ -22,7 +22,7 @@ without printing a result:
    the primal pre and post at 24,576 and a ragged 1,000 (pre with dX, post
    with ELU), K4 also at path TL's 65,536 and 262,144 rows; K1f/K1b with
    gelu at the FFN's widths, and on the ELU head at TL's 65,536 rows (K1f
-   primal also at 262,144)) against its plain PyTorch
+   primal also at 262,144 and at the rollout step's 1,024)) against its plain PyTorch
    version on the card, and time the kernel, the plain version and a PyTorch
    yardstick the port never calls (bf16 ``F.linear`` chains, fp32 heads
    and, for K9s, the loss, for K9m the forward too; a masked
@@ -32,10 +32,12 @@ without printing a result:
    K9m, K4/K5 pre and post) also phase 1's and phase 2's device times (the
    profiler's, by kernel name), phase 2's bound and row split,
    and two calls on the same inputs compared bit for bit; for the fused
-   block's forwards (K4/K5 pre and post f) at each timed shape the launch
-   plan (grid, tiles per block, ring slots, shared memory per block), the
+   block's forwards (K4/K5 pre and post f) and the MLP chain forward (K1f,
+   K2f, K8f) at each timed shape the launch plan (grid, tiles per block,
+   ring slots, resident or streamed images, shared memory per block), the
    kernel's registers and spills from the build log, and the device time of
-   the pack kernel and of the forward kernel (the profiler's, by name);
+   the pack kernel (where there is one) and of the forward kernel (the
+   profiler's, by name);
 4. ``[wrappers]``: hold the wrappers the port calls (``fused_mlp``,
    ``fused_mlp_pair``, ``fused_mlp_pair_heads``, ``fused_ppo_step`` in split
    and in mono mode (against split too), ``lane_window_attention``,
@@ -75,7 +77,7 @@ without printing a result:
    per iteration), one host transfer per chunk and no other synchronizing
    call; and a profile of one iteration of each path (device time by kernel
    name, phase 2 of the backwards listed whatever its rank, and the fused
-   block's forward kernels by name with their sum);
+   block's and the MLP chain's forward kernels by name with their sums);
 8. the ``nvidia-smi`` line, the ``kernels`` JSON line (each kernel's
    launches from the path that runs it; ``not_ported`` is empty), and the
    final ``{"ok": true, ...}`` line.
@@ -389,9 +391,14 @@ def check_kernels(device) -> dict:
     bound4, _ = _bound_ms(*_chain_work(4096, 1, False, False, False))
     print(f"    rows=98304: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} bound_ms={bound:.4f} ({by})")
     print(f"    rows=4096:  kernel_ms={k4_ms:.4f} plain_ms={p4_ms:.4f} library_ms={l4_ms:.4f} bound_ms={bound4:.4f}")
+    fields = _chain_forward_fields("K1f", lambda: fm._launch_fwd([x], [wa], [ba], "elu", True, False, "K1f"),
+                                   WIDTHS, NUM_ENVS * STEPS, 1, k_ms)
+    step = _chain_forward_fields("K1f step", lambda: fm._launch_fwd([x4], [wa], [ba], "elu", True, False, "K1f"),
+                                 WIDTHS, 4096, 1, k4_ms)
     results["K1f"] = dict(max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by, library_ms=l_ms,
                           shape="98304 x 48-512-256-128", rollout_step_ms=k4_ms, rollout_step_plain_ms=p4_ms,
-                          rollout_step_library_ms=l4_ms, rollout_step_bound_ms=bound4)
+                          rollout_step_library_ms=l4_ms, rollout_step_bound_ms=bound4, **fields,
+                          **{f"rollout_step_{k}": v for k, v in step.items()})
 
     # -- K2f: pair forward with saved activations (every minibatch)
     print("[kernels] K2f mlp_chain_fwd x2 (saves hiddens)")
@@ -413,8 +420,10 @@ def check_kernels(device) -> dict:
         l_ms = _time_ms(lambda: _library_fwd([xa, xc], [wa16, wc16], [ba16, bc16], True))
     bound, by = _bound_ms(*_chain_work(MINIBATCH_ROWS, 2, False, True, False))
     print(f"    rows=24576: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} bound_ms={bound:.4f} ({by})")
+    fields = _chain_forward_fields("K2f", lambda: fm._launch_fwd([xa, xc], [wa, wc], [ba, bc], "elu", True, True,
+                                                                 "K2f"), WIDTHS, MINIBATCH_ROWS, 2, k_ms)
     results["K2f"] = dict(max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by, library_ms=l_ms,
-                          shape="2 x 24576 x 48-512-256-128")
+                          shape="2 x 24576 x 48-512-256-128", **fields)
 
     # -- K2b: pair backward, skip_input_grad (every minibatch); K1b: single chain with dX
     for key, chains, skip in (("K2b", 2, True), ("K1b", 1, False)):
@@ -599,13 +608,18 @@ def check_head_kernels(device) -> dict:
         )
     with torch.no_grad():
         l_ms = _time_ms(lambda: _library_heads(xs, w16, b16, lib_heads))
+    device_fields = {}
     for save, (k_ms, p_ms, (bound, by)) in timing.items():
         print(f"    rows=24576 save={int(save)}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
               f"bound_ms={bound:.4f} ({by})")
+        device_fields[save] = _chain_forward_fields(
+            f"K8f save={int(save)}", lambda: fm._launch_fwd(xs, [wa, wc], [ba, bc], "elu", True, save, "K8f",
+                                                            heads=heads), WIDTHS, MINIBATCH_ROWS, 2, k_ms, heads=True)
     k_ms, p_ms, (bound, by) = timing[True]  # the grad path saves (path B)
     results["K8f"] = dict(max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by, library_ms=l_ms,
                           shape="2 x 24576 x 48-512-256-128 + heads 12/1, saves h", primal_ms=timing[False][0],
-                          primal_bound_ms=timing[False][2][0])
+                          primal_bound_ms=timing[False][2][0], **device_fields[True],
+                          **{f"primal_{k}": v for k, v in device_fields[False].items()})
 
     # -- K8b: heads' backward + both chains, skip_input_grad, with and without the latent's cotangent
     print("[kernels] K8b mlp_chain_bwd x2 + heads (skip_input_grad)")
@@ -1373,8 +1387,11 @@ def check_gelu_kernels(device) -> dict:
         print(f"    K1f gelu rows={rows}: kernel_ms={f_ms:.4f} plain_ms={fp_ms:.4f} library_ms={fl_ms:.4f} "
               f"bound_ms={f_bound:.4f} ({f_by})")
         tag = "gelu" if save else "gelu_step"
+        chain_fields = _chain_forward_fields(
+            f"K1f {tag}", lambda: fm._launch_fwd([x], [ws], [bs], "gelu", False, save, "K1f"), FFN_WIDTHS, rows, 1, f_ms)
         fields.setdefault("K1f", {}).update({f"{tag}_ms": f_ms, f"{tag}_plain_ms": fp_ms, f"{tag}_library_ms": fl_ms,
                                              f"{tag}_bound_ms": f_bound})
+        fields["K1f"].update({f"{tag}_{k}": v for k, v in chain_fields.items()})
         if not save:
             continue
         out, hid = fm.mlp_chain_fwd_plain(x, ws, bs, "gelu", False, True)
@@ -1429,8 +1446,9 @@ def check_tl_head_kernels(device) -> dict:
         fields[key].update({f"{tag}ms": k_ms, f"{tag}plain_ms": p_ms, f"{tag}library_ms": l_ms,
                             f"{tag}bound_ms": bound, f"{tag}bound_by": by})
 
-    print("[kernels] K1f/K1b on the ELU head 128 -> 128 at path TL's sizes")
-    for rows, save, tag in ((TL_MB_ROWS, True, "tl_head_"), (TL_PRIMAL_ROWS, False, "tl_head_primal_")):
+    print("[kernels] K1f/K1b on the ELU head 128 -> 128 at path TL's sizes (K1f also at its rollout step)")
+    for rows, save, tag in ((TL_MB_ROWS, True, "tl_head_"), (TL_PRIMAL_ROWS, False, "tl_head_primal_"),
+                            (T_ENVS, False, "tl_head_step_")):
         x = torch.randn(rows, T_EMBED, generator=gen).to(device, torch.bfloat16)
         (out,), _, _ = fm._launch_fwd([x], [ws], [bs], "elu", True, save, "K1f")
         ref, _ = fm.mlp_chain_fwd_plain(x, ws, bs, "elu", True, False)
@@ -1440,6 +1458,10 @@ def check_tl_head_kernels(device) -> dict:
                      _time_ms(lambda: fm.mlp_chain_fwd_plain(x, ws, bs, "elu", True, save)),
                      _time_ms(lambda: F.elu(F.linear(x, w16, b16))))
         record("K1f", tag, rows, timed, (2 * rows * macs, rows * T_EMBED * 2 * 2 + params * 4))
+        device_fields = _chain_forward_fields(f"K1f {tag[:-1]}", lambda: fm._launch_fwd([x], [ws], [bs], "elu", True,
+                                                                                        save, "K1f"),
+                                              (T_EMBED, T_EMBED), rows, 1, timed[0])
+        fields["K1f"].update({tag + k: v for k, v in device_fields.items()})
         if not save:
             continue
         g = (torch.randn(rows, T_EMBED, generator=gen) * 0.01).to(device, torch.bfloat16)
@@ -1461,8 +1483,8 @@ def check_tl_head_kernels(device) -> dict:
         fields["K1b"].update({tag + k: v for k, v in phases.items()})
     for key in fields:
         fields[key]["tl_head_shape"] = (f"{TL_MB_ROWS} x 128-128 ELU (TL's minibatch, saving; backward with dX)"
-                                        + (f"; primal at {TL_PRIMAL_ROWS} rows (value and KL passes)"
-                                           if key == "K1f" else ""))
+                                        + (f"; primal at {TL_PRIMAL_ROWS} rows (value and KL passes) and at "
+                                           f"{T_ENVS} (the rollout step)" if key == "K1f" else ""))
         fields[key]["tl_head_max_abs_err"] = max(errs[key])
     return fields
 
@@ -1574,19 +1596,46 @@ def _ptxas_usage(stem: str) -> dict:
     return usage
 
 
-def _forward_device_ms(key: str, fn, repeats: int = 10, warmup: int = 3) -> dict:
-    """Device time per call of a fused block forward's two launches
-    (torch.profiler by kernel name: ``fbf::pack_kernel`` and the op's
-    ``fbf::*_fwd_kernel``, each its mean per launch); the events' ``ms`` adds
-    the wrapper's host time before the launches to these."""
+def _forward_device_ms(key: str, fn, namespace: str = "fbf::", kernels: int = 2, repeats: int = 10,
+                       warmup: int = 3) -> dict:
+    """Device time per call of a wgmma forward's launches (torch.profiler by
+    kernel name in ``namespace``: the pack kernel, where there is one, and
+    the forward kernel, each its mean per launch; ``kernels`` of them); the
+    events' ``ms`` adds the wrapper's host time before the launches."""
     for _ in range(PROFILE_ATTEMPTS):
-        found = _profiled_kernels(fn, lambda name: "fbf::" in name, repeats, warmup)
-        if len(found) == 2 and all(repeats // 2 <= count <= repeats for _, count, _ in found):
+        found = _profiled_kernels(fn, lambda name: namespace in name, repeats, warmup)
+        if len(found) == kernels and all(repeats // 2 <= count <= repeats for _, count, _ in found):
             break
     else:
         raise AssertionError(f"{key}: the profiler saw {found} over {repeats} calls in each of {PROFILE_ATTEMPTS} "
-                             f"sessions; expected the pack kernel and the forward kernel, each once per call")
-    return {("pack_ms" if "pack_kernel" in name else "device_ms"): us / count / 1e3 for name, count, us in found}
+                             f"sessions; expected {kernels} kernel(s) of {namespace}, each once per call")
+    fields = {("pack_ms" if "pack_kernel" in name else "device_ms"): us / count / 1e3 for name, count, us in found}
+    return {"pack_ms": 0.0, **fields}
+
+
+def _chain_forward_fields(key: str, fn, dims, rows: int, chains: int, events_ms: float, heads: bool = False) -> dict:
+    """Prints and returns the MLP chain forward's plan at these rows
+    (``mlpf::plan``: grid, images resident or streamed through the ring,
+    shared memory per block, the kernel instance's registers from the build
+    log) and its device time per call by kernel name (``mlpf::pack_kernel``
+    where the images stream, ``mlpf::chain_fwd_kernel``) beside the events'."""
+    from cusrl_tpu_torch.nn.kernels import fused_mlp as fm
+
+    plan = fm.fwd_plan(dims, rows, chains)
+    usage = _ptxas_usage("mlp_chain_fwd")
+    symbol = next(name for name in usage if f"chain_fwd_kernelILi{plan['per_sm']}ELb{int(heads)}E" in name)
+    regs, spill_st, spill_ld = usage[symbol]
+    fields = _forward_device_ms(key, fn, "mlpf::", 1 if plan["resident"] else 2)
+    images = ("resident, converted once per block" if plan["resident"]
+              else f"streamed through {plan['slots']} slots, packed per call")
+    print(f"    {key} rows={rows}: device_ms={fields['device_ms']:.4f} (+ pack {fields['pack_ms']:.4f}) of the "
+          f"events' {events_ms:.4f} ms; grid {plan['blocks']} x {chains} ({plan['per_sm']} per SM), "
+          f"{plan['tiles']} tiles of 64 rows, up to {-(-plan['tiles'] // plan['blocks'])} per block; "
+          f"{plan['images']} images ({images}); {plan['smem_bytes']} B shared memory per block; {regs} registers, "
+          f"spills {spill_st}/{spill_ld} B (ptxas)")
+    return {**fields, "grid": f"{plan['blocks']} x {chains} blocks ({plan['per_sm']} per SM), {plan['tiles']} tiles",
+            "ring": f"{plan['slots']} of {plan['images']} images ({'resident' if plan['resident'] else 'streamed'})",
+            "smem_bytes": plan["smem_bytes"], "regs": regs}
 
 
 def _forward_plan_fields(key: str, rows: int, chains: int, save: bool) -> dict:
@@ -2339,12 +2388,14 @@ def profile_iteration(driver, label: str, steps: int = STEPS) -> None:
             print(f"    {ms:9.3f} ms {count:6d}x  {name[:90]}")
     print(f"[profile] {label}, phase 2 of the backwards: {sum(r[0] for r in phase2):.3f} ms over "
           f"{sum(r[1] for r in phase2)} launches per iteration")
-    # The fused block's forwards (csrc/fused_block.cu, namespace fbf), by kernel.
-    forwards = [r for r in rows if "fbf::" in r[2]]
-    if forwards:
-        print(f"[profile] {label}, the fused block's forwards: "
-              + "; ".join(f"{name.split('(')[0]} {ms:.3f} ms ({count})" for ms, count, name in forwards)
-              + f"; together {sum(r[0] for r in forwards):.3f} ms per iteration")
+    # The wgmma forwards by kernel: the fused block's (csrc/fused_block.cu,
+    # namespace fbf) and the MLP chain's (csrc/mlp_chain_fwd.cu, mlpf).
+    for namespace, what in (("fbf::", "the fused block's forwards"), ("mlpf::", "the MLP chain forward")):
+        forwards = [r for r in rows if namespace in r[2]]
+        if forwards:
+            print(f"[profile] {label}, {what}: "
+                  + "; ".join(f"{name.split('(')[0]} {ms:.3f} ms ({count})" for ms, count, name in forwards)
+                  + f"; together {sum(r[0] for r in forwards):.3f} ms per iteration")
 
 
 def main(argv: list[str]) -> int:
@@ -2410,6 +2461,9 @@ def main(argv: list[str]) -> int:
     for path in (*PATH_ROUTES, *PATHS):
         path_launches[path], _ = train_zoo(kind, path)
 
+    # TL's rollout step runs the FFN and the ELU head through K1f at 1,024 rows:
+    # half of its K1f launches per iteration beyond the update's are the head's.
+    results["K1f"]["tl_head_step_launches"] = (path_launches["TL"]["K1f"] // 10 - _TL_UPDATE["K1f"]) // 2
     kernels = []
     main_path = {"K8f": "B", "K8b": "B", "K9s": "C", "K9m": "CM", "K1b": "T", "K3f": "TF", "K3b": "TF", "K6": "TF",
                  "K7f": "TL", **{key: ("TF" if key.startswith("K4") else "TJ") for key in BLOCK_REPLACES}}
@@ -2425,7 +2479,7 @@ def main(argv: list[str]) -> int:
             "launches_by_path": {p_: path_launches[p_][key] for p_ in path_launches if path_launches[p_][key]},
             **{k: v for k, v in r.items()
                if k.startswith(("gelu", "primal", "offpath", "tl_", "phase", "bitwise", "grid", "ring", "smem", "regs",
-                                "device", "pack"))},
+                                "device", "pack", "rollout"))},
             "status": "ported and checked",
         })
     print(smi)

@@ -540,27 +540,10 @@ using wg::bf16;
 constexpr int PRE_WGS = 2, PRE_BLOCKS_PER_SM = 1;
 constexpr int POST_WGS = 1, POST_BLOCKS_PER_SM = 2;
 __host__ __device__ constexpr int threads(int wgs) { return wgs * 128 + 32; }  // and one producer warp
-constexpr int MAX_STAGES = 24;
 constexpr int SM_SMEM = 233472;     // shared memory of one SM
 constexpr int BLOCK_SMEM = 232448;  // the most one block may use
-constexpr int BARRIER_BYTES = 2 * MAX_STAGES * 8;
+constexpr int BARRIER_BYTES = 2 * 24 * 8;  // a ring's barriers: up to 24 slots
 constexpr float LN_EPS = 1e-6f;
-
-// One weight image: rows [n0, n0 + 128) and columns [k0, k0 + 64) of matrix
-// `mat`, bf16 in the swizzled layout (hopper_wg.cuh), 0 past the matrix.
-struct Stage {
-  int mat, n0, k0;
-};
-
-// The images of one op in the order its kernel takes them, and the matrices
-// they come from: matrix m stacks w[first[m]], w[first[m] + 1], ... of seg[m]
-// rows each, rows[m] x cols[m] in all (pre: W_in, [W_q; W_k; W_v]; post: W_o,
-// W_up, W_down).  Mirrored by fwd_stages in nn/kernels/fused_block.py.
-struct Pack {
-  int count;
-  Stage st[MAX_STAGES];
-  int first[3], seg[3], rows[3], cols[3];
-};
 
 // A block's shared memory, byte offsets from its 1,024-aligned base: the
 // ring, then each consumer warpgroup's tiles t[0..2], the biases and
@@ -574,26 +557,21 @@ struct Layout {
   int bytes;  // dynamic shared memory requested, with 1 KB of alignment slack
 };
 
-inline int kblocks(int k) { return (k + wg::KBLOCK - 1) / wg::KBLOCK; }
-inline int nchunks(int n) { return (n + wg::STAGE_N - 1) / wg::STAGE_N; }
+using wg::kblocks;
+using wg::nchunks;
+using wg::Pack;
+using wg::pad64;
 
-inline void add(Pack& P, int mat, int n0, int k0) { P.st[P.count++] = Stage{mat, n0, k0}; }
-
-inline void matrix(Pack& P, int m, int first, int seg, int rows, int cols) {
-  P.first[m] = first;
-  P.seg[m] = seg;
-  P.rows[m] = rows;
-  P.cols[m] = cols;
-}
-
-// Pre: W_in by K block, then [W_q; W_k; W_v] by 128-row chunk and K block.
+// The images of one op in the order its kernel takes them (wg::Pack): pre:
+// W_in by K block, then [W_q; W_k; W_v] by 128-row chunk and K block.
+// Mirrored by fwd_stages in nn/kernels/fused_block.py.
 inline Pack pre_pack(int in, int E) {
   Pack P{};
-  for (int kb = 0; kb < kblocks(in); ++kb) add(P, 0, 0, 64 * kb);
+  for (int kb = 0; kb < kblocks(in); ++kb) wg::pack_add(P, 0, 0, 64 * kb);
   for (int c = 0; c < nchunks(3 * E); ++c)
-    for (int kb = 0; kb < kblocks(E); ++kb) add(P, 1, 128 * c, 64 * kb);
-  matrix(P, 0, 0, E, E, in);
-  matrix(P, 1, 1, E, 3 * E, E);
+    for (int kb = 0; kb < kblocks(E); ++kb) wg::pack_add(P, 1, 128 * c, 64 * kb);
+  wg::pack_matrix(P, 0, 0, E, E, in);
+  wg::pack_matrix(P, 1, 1, E, 3 * E, E);
   return P;
 }
 
@@ -601,14 +579,14 @@ inline Pack pre_pack(int in, int E) {
 // chunk's rows of W_up by K block and the chunk's columns of W_down.
 inline Pack post_pack(int E, int F) {
   Pack P{};
-  for (int kb = 0; kb < kblocks(E); ++kb) add(P, 0, 0, 64 * kb);
+  for (int kb = 0; kb < kblocks(E); ++kb) wg::pack_add(P, 0, 0, 64 * kb);
   for (int c = 0; c < nchunks(F); ++c) {
-    for (int kb = 0; kb < kblocks(E); ++kb) add(P, 1, 128 * c, 64 * kb);
-    for (int kb = 0; kb < kblocks(std::min(128, F - 128 * c)); ++kb) add(P, 2, 0, 128 * c + 64 * kb);
+    for (int kb = 0; kb < kblocks(E); ++kb) wg::pack_add(P, 1, 128 * c, 64 * kb);
+    for (int kb = 0; kb < kblocks(std::min(128, F - 128 * c)); ++kb) wg::pack_add(P, 2, 0, 128 * c + 64 * kb);
   }
-  matrix(P, 0, 0, E, E, E);
-  matrix(P, 1, 1, F, F, E);
-  matrix(P, 2, 2, E, E, F);
+  wg::pack_matrix(P, 0, 0, E, E, E);
+  wg::pack_matrix(P, 1, 1, F, F, E);
+  wg::pack_matrix(P, 2, 2, E, E, F);
   return P;
 }
 
@@ -678,81 +656,24 @@ inline int plan(const FbParams& p, int num_chains, bool post, Plan& out) {
 // ---- device side ----------------------------------------------------------
 
 // fp32 [out, in] weights to their bf16 images, once per call (the optimizer
-// updates them in place between calls): one 16-byte chunk per thread, grid
-// (images, chains, PACK_SPLIT).
-constexpr int PACK_THREADS = 256, PACK_SPLIT = wg::STAGE_N * 8 / PACK_THREADS;
-
-__global__ void __launch_bounds__(PACK_THREADS) pack_kernel(const FbParams p, const Pack P) {
+// updates them in place between calls): one 16-byte unit per thread, grid
+// (images, chains, wg::PACK_SPLIT).
+__global__ void __launch_bounds__(wg::PACK_THREADS) pack_kernel(const FbParams p, const Pack P) {
   const FbChain& c = p.chain[blockIdx.y];
-  const Stage st = P.st[blockIdx.x];
-  const int m = st.mat;
-  const int u = blockIdx.z * PACK_THREADS + threadIdx.x;
-  const int n = u >> 3, ch = u & 7, row = st.n0 + n, col0 = st.k0 + ch * 8;
-  const float* src = nullptr;
-  if (row < P.rows[m]) {
-    const int s = row / P.seg[m];
-    src = static_cast<const float*>(c.w[P.first[m] + s]) + size_t(row - s * P.seg[m]) * P.cols[m];
-  }
-  uint32_t words[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int a = col0 + 2 * e;
-    const __nv_bfloat162 v = __floats2bfloat162_rn(src != nullptr && a < P.cols[m] ? src[a] : 0.f,
-                                                   src != nullptr && a + 1 < P.cols[m] ? src[a + 1] : 0.f);
-    words[e] = *reinterpret_cast<const uint32_t*>(&v);
-  }
-  unsigned char* img = static_cast<unsigned char*>(c.wpack) + size_t(blockIdx.x) * wg::STAGE_BYTES;
-  *reinterpret_cast<uint4*>(img + n * 128 + ((ch ^ (n & 7)) << 4)) = make_uint4(words[0], words[1], words[2], words[3]);
+  wg::pack_unit(P, c.w, blockIdx.x, blockIdx.z * wg::PACK_THREADS + threadIdx.x,
+                static_cast<unsigned char*>(c.wpack) + size_t(blockIdx.x) * wg::STAGE_BYTES);
 }
 
-// Where thread t of a consumer warpgroup holds the accumulators: d[4j], d[4j + 1]
-// at (row, 8j + col), (row, 8j + col + 1); d[4j + 2], d[4j + 3] at row + 8.
-struct Frag {
-  int row, col;
-  __device__ explicit Frag(int t) : row((t >> 5) * 16 + ((t & 31) >> 2)), col((t & 3) * 2) {}
-};
-
-__device__ __forceinline__ float bf16r(float v) { return __bfloat162float(__float2bfloat16(v)); }
-
-__device__ __forceinline__ uint32_t pack2(float a, float b) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
+using wg::add_bias_round;
+using wg::bf16r;
+using wg::Frag;
+using wg::store_bf16;
+using wg::to_tile;
+using wg::zero;
 
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-__device__ __forceinline__ void zero(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) d[i] = 0.f;
-}
-
-// d = bf16(d + bias[col]) on the first `cols` columns, kept as fp32 (the
-// accumulators are touched without a branch; the bias is read only where it
-// exists).
-__device__ __forceinline__ void add_bias_round(float (&d)[64], const float* bias, int cols, const Frag& f) {
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const bool valid = 8 * j < cols;
-    const float b0 = valid ? bias[8 * j + f.col] : 0.f, b1 = valid ? bias[8 * j + f.col + 1] : 0.f;
-    d[4 * j] = valid ? bf16r(d[4 * j] + b0) : d[4 * j];
-    d[4 * j + 1] = valid ? bf16r(d[4 * j + 1] + b1) : d[4 * j + 1];
-    d[4 * j + 2] = valid ? bf16r(d[4 * j + 2] + b0) : d[4 * j + 2];
-    d[4 * j + 3] = valid ? bf16r(d[4 * j + 3] + b1) : d[4 * j + 3];
-  }
-}
-
-// The first `cols` columns of d into a swizzled bf16 tile.
-__device__ __forceinline__ void to_tile(const float (&d)[64], int cols, unsigned char* tile, const Frag& f) {
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    if (8 * j < cols) {
-      wg::put2(tile, f.row, 8 * j + f.col, d[4 * j], d[4 * j + 1]);
-      wg::put2(tile, f.row + 8, 8 * j + f.col, d[4 * j + 2], d[4 * j + 3]);
-    }
-  }
 }
 
 // The first `cols` columns of d as fp32 rows of dst (leading dimension ld),
@@ -770,32 +691,6 @@ __device__ __forceinline__ void store_f32(const float (&d)[64], int cols, float*
       const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1), r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
       const float4 v = odd ? make_float4(r0, r1, d[4 * j + 2], d[4 * j + 3]) : make_float4(d[4 * j], d[4 * j + 1], r0, r1);
       if (row < n_rows) *reinterpret_cast<float4*>(dst + size_t(row) * ld + 8 * j + col) = v;
-    }
-  }
-}
-
-// The first `cols` (a multiple of 16) columns of d as bf16 rows of dst
-// (leading dimension ld, from column col0), 16-byte stores from registers:
-// per pair of 8-column chunks the four threads of a quad transpose their
-// 32-bit words in two rounds of shuffles, after which thread t holds the
-// eight columns of chunk 2q + t / 2 in row `row` (+ 8 for odd t).
-__device__ __forceinline__ void store_bf16(const float (&d)[64], int cols, bf16* dst, int ld, int col0, int row0,
-                                           int n_rows, const Frag& f) {
-  const bool odd = threadIdx.x & 1, hi = threadIdx.x & 2;
-  const int row = row0 + f.row + (odd ? 8 : 0);
-#pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    if (16 * q < cols) {
-      const int a = 8 * q, b = a + 4;  // accumulators of chunks 2q and 2q + 1
-      const uint32_t m0 = pack2(d[a], d[a + 1]), m1 = pack2(d[a + 2], d[a + 3]);
-      const uint32_t m2 = pack2(d[b], d[b + 1]), m3 = pack2(d[b + 2], d[b + 3]);
-      const uint32_t r0 = __shfl_xor_sync(0xffffffffu, odd ? m0 : m1, 1);
-      const uint32_t r1 = __shfl_xor_sync(0xffffffffu, odd ? m2 : m3, 1);
-      const uint32_t p0 = odd ? r0 : m0, p1 = odd ? m1 : r0, p2 = odd ? r1 : m2, p3 = odd ? m3 : r1;
-      const uint32_t v0 = __shfl_xor_sync(0xffffffffu, hi ? p0 : p2, 2);
-      const uint32_t v1 = __shfl_xor_sync(0xffffffffu, hi ? p1 : p3, 2);
-      const uint4 out = hi ? make_uint4(v0, v1, p2, p3) : make_uint4(p0, p1, v0, v1);
-      if (row < n_rows) *reinterpret_cast<uint4*>(dst + size_t(row) * ld + col0 + 16 * q + (hi ? 8 : 0)) = out;
     }
   }
 }
@@ -818,8 +713,6 @@ __device__ __forceinline__ void load_frag(const float* src, int ld, int cols, in
     v[4 * j + 3] = b.y;
   }
 }
-
-__device__ __forceinline__ int pad64(int n) { return (n + 63) & ~63; }
 
 // y = bf16((x - mean) inv g + b) over the first E columns of the thread's two
 // rows (d holds x), population variance, into a swizzled tile (0 from E to the
@@ -857,51 +750,12 @@ __device__ __forceinline__ void layer_norm(const float (&d)[64], int E, const fl
   }
 }
 
-// hid = bf16(act(z)) on every accumulator, the activation fixed at compile
-// time so that the 64 elements' chains interleave.
-template <int A>
-__device__ __forceinline__ void activate(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) d[i] = bf16r(mlp::act_fwd(A, d[i]));
-}
+using wg::aligned_base;
+using wg::warp_index;
 
-__device__ __forceinline__ void activate(float (&d)[64], int act) {
-  switch (act) {
-    case 1: activate<1>(d); break;
-    case 2: activate<2>(d); break;
-    case 3: activate<3>(d); break;
-    case mlp::ACT_GELU: activate<mlp::ACT_GELU>(d); break;
-    default: activate<0>(d);
-  }
-}
-
-__device__ __forceinline__ unsigned char* aligned_base(unsigned char* raw) {
-  return raw + ((1024 - (wg::smem_u32(raw) & 1023)) & 1023);
-}
-
-// The warp's index, broadcast from lane 0 so that the compiler knows it is
-// the same across the warp (the roles and warpgroups branch on it).
-__device__ __forceinline__ int warp_index() { return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 32, 0); }
-
-// The ring of a block: thread 0 initialises its barriers (full: the
-// producer's arrival; empty: every consumer warp's).
 template <int WGS>
 __device__ __forceinline__ wg::Ring make_ring(unsigned char* smem, const Layout& L) {
-  wg::Ring r;
-  r.base = wg::smem_u32(smem + L.ring);
-  r.full = reinterpret_cast<uint64_t*>(smem + L.bar);
-  r.empty = r.full + L.slots;
-  r.slots = L.slots;
-  r.resident = L.resident;
-  r.next = 0;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < L.slots; ++s) {
-      wg::mbar_init(&r.full[s], 1);
-      wg::mbar_init(&r.empty[s], WGS * 4);
-    }
-    wg::mbar_fence_init();
-  }
-  return r;
+  return wg::make_ring(smem, L.ring, L.bar, L.slots, L.resident, WGS * 4);
 }
 
 // The producer warp's first thread streams the images of this block's tiles;
@@ -1039,7 +893,7 @@ __global__ void __launch_bounds__(threads(POST_WGS), POST_BLOCKS_PER_SM)
       wg::finish(d, ring);
       add_bias_round(d, par + 4 * E + c0, cols, f);
       if (keep_z) store_bf16(d, cols, s_out, F, c0, row0, n_rows, f);  // gelu saves z1
-      activate(d, act);
+      mlp::activate(d, act);
       if (save && !keep_z) store_bf16(d, cols, s_out, F, c0, row0, n_rows, f);  // the others hid
       to_tile(d, pad64(cols), th, f);  // past `cols` the accumulators and act(0) are 0
       wg::fence_async_smem();
@@ -1078,7 +932,7 @@ int launch(const void* kernel, const FbParams* p, int num_chains, bool post, cud
     if (e != cudaSuccess) return static_cast<int>(e);
     done = true;
   }
-  pack_kernel<<<dim3(P.pack.count, num_chains, PACK_SPLIT), PACK_THREADS, 0, stream>>>(*p, P.pack);
+  pack_kernel<<<dim3(P.pack.count, num_chains, wg::PACK_SPLIT), wg::PACK_THREADS, 0, stream>>>(*p, P.pack);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   FbParams copy = *p;

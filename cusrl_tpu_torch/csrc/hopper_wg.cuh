@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks for persistent, warp-specialised kernels:
 // mbarriers, bulk copies into shared memory, warpgroup products (wgmma) on
-// 128-byte-swizzled K-major bf16 operands, and the swizzled tile layout those
-// operands live in.
+// 128-byte-swizzled K-major bf16 operands, the swizzled tile layout those
+// operands live in, the weight images (the pack) and the accumulator
+// epilogues.  Used by the fused block's forwards (fused_block.cu, fbf) and
+// the MLP chain forward (mlp_chain_fwd.cu, mlpf).
 //
 // Tile layout ("swizzled tile"): a bf16 matrix of R rows is kept in K blocks
 // of 64 columns; block b holds R rows of 128 bytes at b * R * 128, and the
@@ -101,6 +103,11 @@ __device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.a
 // Barrier over the 128 threads of one warpgroup (named barrier `id` >= 1).
 __device__ __forceinline__ void wg_sync(int id) { asm volatile("bar.sync %0, 128;" ::"r"(id) : "memory"); }
 
+// Barrier over `threads` threads (several warpgroups; named barrier `id` >= 1).
+__device__ __forceinline__ void group_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ---- wgmma --------------------------------------------------------------
 
 // Descriptor of a K-major operand in the swizzled layout starting at shared
@@ -119,9 +126,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Keeps the compiler from moving accesses of the accumulators across the
 // asynchronous product.
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+template <int NA>
+__device__ __forceinline__ void fence_regs(float (&d)[NA]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < NA; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d[64 x 128] += A[64 x 16] B[128 x 16]^T, bf16 operands from shared memory,
@@ -150,6 +158,52 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
+// d[64 x 64] += A[64 x 16] B[64 x 16]^T: as wgmma_m64n128k16 on half the
+// columns (d[4j + 2h + e], j < 8).
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// d[64 x 32] += A[64 x 16] B[32 x 16]^T (d[4j + 2h + e], j < 4).
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// The product of NA accumulators per thread: 128 (NA = 64), 64 (NA = 32) or
+// 32 (NA = 16) output columns, B's rows from its descriptor on.
+__device__ __forceinline__ void wgmma(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  wgmma_m64n128k16(d, desc_a, desc_b);
+}
+__device__ __forceinline__ void wgmma(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  wgmma_m64n64k16(d, desc_a, desc_b);
+}
+__device__ __forceinline__ void wgmma(float (&d)[16], uint64_t desc_a, uint64_t desc_b) {
+  wgmma_m64n32k16(d, desc_a, desc_b);
+}
+
 // ---- a ring of weight stages --------------------------------------------
 
 // Stage images of STAGE_BYTES stream from device memory through `slots`
@@ -165,6 +219,28 @@ struct Ring {
   int resident;
   uint32_t next;  // index of the next image consumed (per tile when resident)
 };
+
+// The ring of a block at `ring_off` of `smem`, its barriers at `bar_off`:
+// thread 0 initialises them (full: the producer's arrival; empty: every
+// consumer warp's), which the block's first barrier publishes.
+__device__ __forceinline__ Ring make_ring(unsigned char* smem, int ring_off, int bar_off, int slots, int resident,
+                                         int consumer_warps) {
+  Ring r;
+  r.base = smem_u32(smem + ring_off);
+  r.full = reinterpret_cast<uint64_t*>(smem + bar_off);
+  r.empty = r.full + slots;
+  r.slots = slots;
+  r.resident = resident;
+  r.next = 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < slots; ++s) {
+      mbar_init(&r.full[s], 1);
+      mbar_init(&r.empty[s], consumer_warps);
+    }
+    mbar_fence_init();
+  }
+  return r;
+}
 
 // The producer thread: loads the images of `tiles` tiles in order.
 __device__ __forceinline__ void produce(const Ring& r, unsigned char* ring_ptr, const unsigned char* images,
@@ -196,15 +272,18 @@ __device__ __forceinline__ void release(const Ring& r, uint32_t g) {
 // The products of one weight image: waits for it, then d += A[:, 64 kb .. 64 kb
 // + 64) W^T in four k16 steps (the fence follows the wait, so the compiler
 // needs none of its own after the wait's loop).  From the second image of a
-// chunk on, the previous image is released once its products are done.
-__device__ __forceinline__ void issue_block(float (&d)[64], uint32_t a, int kb, Ring& r) {
+// chunk on, the previous image is released once its products are done.  With
+// NA < 64 the product takes NA * 2 of the image's rows, from byte b_off (a
+// multiple of 1,024: whole 8-row groups) on.
+template <int NA>
+__device__ __forceinline__ void issue_block(float (&d)[NA], uint32_t a, int kb, Ring& r, uint32_t b_off) {
   const int slot = r.next % r.slots;
   mbar_wait(&r.full[slot], (r.next / r.slots) & 1);
   wgmma_fence();
-  const uint32_t b = r.base + slot * STAGE_BYTES;
+  const uint32_t b = r.base + slot * STAGE_BYTES + b_off;
 #pragma unroll
   for (int kk = 0; kk < KBLOCK / 16; ++kk)
-    wgmma_m64n128k16(d, desc_sw128(a + kb * ABLOCK_BYTES + kk * 32), desc_sw128(b + kk * 32));
+    wgmma(d, desc_sw128(a + kb * ABLOCK_BYTES + kk * 32), desc_sw128(b + kk * 32));
   wgmma_commit();
   if (kb > 0) {
     wgmma_wait<1>();
@@ -213,10 +292,10 @@ __device__ __forceinline__ void issue_block(float (&d)[64], uint32_t a, int kb, 
   ++r.next;
 }
 
-template <int BLOCKS>
-__device__ __forceinline__ void issue_blocks(float (&d)[64], uint32_t a, Ring& r) {
+template <int BLOCKS, int NA>
+__device__ __forceinline__ void issue_blocks(float (&d)[NA], uint32_t a, Ring& r, uint32_t b_off) {
 #pragma unroll
-  for (int kb = 0; kb < BLOCKS; ++kb) issue_block(d, a, kb, r);
+  for (int kb = 0; kb < BLOCKS; ++kb) issue_block(d, a, kb, r, b_off);
 }
 
 // Issues d += A[:, 0:K] W^T for one 128-column chunk of the output, taking
@@ -228,19 +307,21 @@ __device__ __forceinline__ void issue_blocks(float (&d)[64], uint32_t a, Ring& r
 // take more images than the ring has slots; `finish` waits for the last
 // products and releases the last image.  One and two images (every product
 // at the zoo's widths) have bodies of their own, without a loop.
-__device__ __forceinline__ void issue(float (&d)[64], uint32_t a, int K, Ring& r) {
+template <int NA>
+__device__ __forceinline__ void issue(float (&d)[NA], uint32_t a, int K, Ring& r, uint32_t b_off = 0) {
   const int blocks = (K + KBLOCK - 1) / KBLOCK;
   fence_regs(d);
   if (blocks == 2) {
-    issue_blocks<2>(d, a, r);
+    issue_blocks<2>(d, a, r, b_off);
   } else if (blocks == 1) {
-    issue_blocks<1>(d, a, r);
+    issue_blocks<1>(d, a, r, b_off);
   } else {
-    for (int kb = 0; kb < blocks; ++kb) issue_block(d, a, kb, r);
+    for (int kb = 0; kb < blocks; ++kb) issue_block(d, a, kb, r, b_off);
   }
 }
 
-__device__ __forceinline__ void finish(float (&d)[64], Ring& r) {
+template <int NA>
+__device__ __forceinline__ void finish(float (&d)[NA], Ring& r) {
   wgmma_wait<0>();
   fence_regs(d);
   release(r, r.next - 1);
@@ -315,5 +396,182 @@ __device__ __forceinline__ void put2(unsigned char* tile, int row, int col, floa
 __device__ __forceinline__ float2 get2(const unsigned char* tile, int row, int col) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(tile + swz(row, col)));
 }
+
+// ---- weight images (the pack) -------------------------------------------
+
+// A weight image is rows [n0, n0 + 128) and columns [k0, k0 + 64) of one
+// matrix, bf16 in the swizzled layout (STAGE_BYTES, wgmma's B operand), 0
+// past the matrix.  A Pack lists the images of one kernel in the order it
+// takes them, and the matrices they come from: matrix m stacks the fp32
+// [out, in] weights w[first[m]], w[first[m] + 1], ... of seg[m] rows each,
+// rows[m] x cols[m] in all.  The images are made afresh on every call (an
+// optimizer updates the weights in place).  Mirrored by
+// nn/kernels/weight_images.py (pack_plain).
+constexpr int PACK_MAX_STAGES = 256;  // an 8-layer chain of 512-wide layers
+constexpr int PACK_MAX_MATS = 8;
+constexpr int PACK_UNITS = STAGE_N * 8;  // 16-byte units of one image
+constexpr int PACK_THREADS = 256, PACK_SPLIT = PACK_UNITS / PACK_THREADS;  // a pack kernel's block and grid.z
+
+struct Stage {
+  int16_t mat, n0, k0;
+};
+
+struct Pack {
+  int count;
+  Stage st[PACK_MAX_STAGES];
+  int first[PACK_MAX_MATS], seg[PACK_MAX_MATS], rows[PACK_MAX_MATS], cols[PACK_MAX_MATS];
+};
+
+__host__ __device__ constexpr int kblocks(int k) { return (k + KBLOCK - 1) / KBLOCK; }
+__host__ __device__ constexpr int nchunks(int n) { return (n + STAGE_N - 1) / STAGE_N; }
+__host__ __device__ constexpr int pad64(int n) { return (n + KBLOCK - 1) & ~(KBLOCK - 1); }
+
+inline void pack_add(Pack& P, int mat, int n0, int k0) {
+  P.st[P.count++] = Stage{static_cast<int16_t>(mat), static_cast<int16_t>(n0), static_cast<int16_t>(k0)};
+}
+
+inline void pack_matrix(Pack& P, int m, int first, int seg, int rows, int cols) {
+  P.first[m] = first;
+  P.seg[m] = seg;
+  P.rows[m] = rows;
+  P.cols[m] = cols;
+}
+
+// The eight fp32 weights of unit u (image row u / 8, logical 16-byte chunk
+// u % 8) of image s, 0 past the matrix; 16-byte loads where the row allows.
+__device__ __forceinline__ void pack_load(const Pack& P, const void* const* w, int s, int u, float (&v)[8]) {
+  const Stage st = P.st[s];
+  const int m = st.mat, cols = P.cols[m];
+  const int row = st.n0 + (u >> 3), col0 = st.k0 + (u & 7) * 8;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = 0.f;
+  if (row < P.rows[m] && col0 < cols) {  // cols is a multiple of 16: the unit is whole
+    const int q = row / P.seg[m];
+    const float* src = static_cast<const float*>(w[P.first[m] + q]) + size_t(row - q * P.seg[m]) * cols + col0;
+    if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+      const float4 a = *reinterpret_cast<const float4*>(src), b = *reinterpret_cast<const float4*>(src + 4);
+      v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = src[e];
+    }
+  }
+}
+
+// Those eight values as bf16 into their swizzled place in `img` (the image's
+// first byte, in device or shared memory).
+__device__ __forceinline__ void pack_store(const float (&v)[8], int u, unsigned char* img) {
+  const int n = u >> 3, ch = u & 7;
+  uint32_t words[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+    words[e] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  *reinterpret_cast<uint4*>(img + n * 128 + ((ch ^ (n & 7)) << 4)) = make_uint4(words[0], words[1], words[2], words[3]);
+}
+
+// Unit u of image s from the weights `w` into `img`.
+__device__ __forceinline__ void pack_unit(const Pack& P, const void* const* w, int s, int u, unsigned char* img) {
+  float v[8];
+  pack_load(P, w, s, u, v);
+  pack_store(v, u, img);
+}
+
+// ---- accumulator epilogues ------------------------------------------------
+
+// Where thread t of a consumer warpgroup holds the accumulators: d[4j], d[4j + 1]
+// at (row, 8j + col), (row, 8j + col + 1); d[4j + 2], d[4j + 3] at row + 8.
+struct Frag {
+  int row, col;
+  __device__ explicit Frag(int t) : row((t >> 5) * 16 + ((t & 31) >> 2)), col((t & 3) * 2) {}
+};
+
+__device__ __forceinline__ float bf16r(float v) { return __bfloat162float(__float2bfloat16(v)); }
+
+// a, b = bf16(a), bf16(b), kept as fp32, by one packed conversion.
+__device__ __forceinline__ void bf16r2(float& a, float& b) {
+  const float2 h = __bfloat1622float2(__floats2bfloat162_rn(a, b));
+  a = h.x;
+  b = h.y;
+}
+
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int NA>
+__device__ __forceinline__ void zero(float (&d)[NA]) {
+#pragma unroll
+  for (int i = 0; i < NA; ++i) d[i] = 0.f;
+}
+
+// d = bf16(d + bias[col]) on the first `cols` columns, kept as fp32 (the
+// accumulators are touched without a branch; the bias is read only where it
+// exists).
+template <int NA>
+__device__ __forceinline__ void add_bias_round(float (&d)[NA], const float* bias, int cols, const Frag& f) {
+#pragma unroll
+  for (int j = 0; j < NA / 4; ++j) {
+    const bool valid = 8 * j < cols;
+    const float b0 = valid ? bias[8 * j + f.col] : 0.f, b1 = valid ? bias[8 * j + f.col + 1] : 0.f;
+    float a0 = d[4 * j] + b0, a1 = d[4 * j + 1] + b1, c0 = d[4 * j + 2] + b0, c1 = d[4 * j + 3] + b1;
+    bf16r2(a0, a1);
+    bf16r2(c0, c1);
+    d[4 * j] = valid ? a0 : d[4 * j];
+    d[4 * j + 1] = valid ? a1 : d[4 * j + 1];
+    d[4 * j + 2] = valid ? c0 : d[4 * j + 2];
+    d[4 * j + 3] = valid ? c1 : d[4 * j + 3];
+  }
+}
+
+// The first `cols` columns of d into a swizzled bf16 tile, from column col0.
+template <int NA>
+__device__ __forceinline__ void to_tile(const float (&d)[NA], int cols, unsigned char* tile, const Frag& f,
+                                        int col0 = 0) {
+#pragma unroll
+  for (int j = 0; j < NA / 4; ++j) {
+    if (8 * j < cols) {
+      put2(tile, f.row, col0 + 8 * j + f.col, d[4 * j], d[4 * j + 1]);
+      put2(tile, f.row + 8, col0 + 8 * j + f.col, d[4 * j + 2], d[4 * j + 3]);
+    }
+  }
+}
+
+// The first `cols` (a multiple of 16) columns of d as bf16 rows of dst
+// (leading dimension ld, from column col0), 16-byte stores from registers:
+// per pair of 8-column chunks the four threads of a quad transpose their
+// 32-bit words in two rounds of shuffles, after which thread t holds the
+// eight columns of chunk 2q + t / 2 in row `row` (+ 8 for odd t).
+template <int NA>
+__device__ __forceinline__ void store_bf16(const float (&d)[NA], int cols, bf16* dst, int ld, int col0, int row0,
+                                           int n_rows, const Frag& f) {
+  const bool odd = threadIdx.x & 1, hi = threadIdx.x & 2;
+  const int row = row0 + f.row + (odd ? 8 : 0);
+#pragma unroll
+  for (int q = 0; q < NA / 8; ++q) {
+    if (16 * q < cols) {
+      const int a = 8 * q, b = a + 4;  // accumulators of chunks 2q and 2q + 1
+      const uint32_t m0 = pack2(d[a], d[a + 1]), m1 = pack2(d[a + 2], d[a + 3]);
+      const uint32_t m2 = pack2(d[b], d[b + 1]), m3 = pack2(d[b + 2], d[b + 3]);
+      const uint32_t r0 = __shfl_xor_sync(0xffffffffu, odd ? m0 : m1, 1);
+      const uint32_t r1 = __shfl_xor_sync(0xffffffffu, odd ? m2 : m3, 1);
+      const uint32_t p0 = odd ? r0 : m0, p1 = odd ? m1 : r0, p2 = odd ? r1 : m2, p3 = odd ? m3 : r1;
+      const uint32_t v0 = __shfl_xor_sync(0xffffffffu, hi ? p0 : p2, 2);
+      const uint32_t v1 = __shfl_xor_sync(0xffffffffu, hi ? p1 : p3, 2);
+      const uint4 out = hi ? make_uint4(v0, v1, p2, p3) : make_uint4(p0, p1, v0, v1);
+      if (row < n_rows) *reinterpret_cast<uint4*>(dst + size_t(row) * ld + col0 + 16 * q + (hi ? 8 : 0)) = out;
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned char* aligned_base(unsigned char* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+}
+
+// The warp's index, broadcast from lane 0 so that the compiler knows it is
+// the same across the warp (the roles and warpgroups branch on it).
+__device__ __forceinline__ int warp_index() { return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 32, 0); }
 
 }  // namespace wg

@@ -1,7 +1,9 @@
 // Shared definitions of the fused Linear+activation chain kernels for Hopper
 // (sm_90a): the parameter block passed from Python through ctypes (chains,
 // their fp32 heads and the PPO loss), the tile constants, the activations, and
-// the block-level bf16 tensor-core GEMM.
+// the block-level bf16 tensor-core GEMM of the backwards' row kernels and of
+// K9m's forward (16x16x16 WMMA on fp32 weights restaged per 64-row tile; the
+// forward of K1f/K2f/K8f is the wgmma design of mlp_chain_fwd.cu).
 //
 // Numerics follow the TPU kernels in cusrl_tpu/nn/kernels/fused_mlp.py:
 // bf16 operands, fp32 accumulation, fp32 bias, round to bf16, activation in
@@ -29,6 +31,7 @@ struct MlpChain {
   void* dw[MLP_MAX_LAYERS];      // bwd out: [dims[l+1], dims[l]] fp32
   void* db[MLP_MAX_LAYERS];      // bwd out: [dims[l+1]] fp32
   void* dx;                      // bwd out: [N, dims[0]] fp32 (unused with skip_input_grad)
+  void* wpack;                   // fwd scratch: [num_stages][128][64] bf16, the weights' images (wg::Pack)
 };
 
 // An fp32 head on a chain's output h_L (K8f, K8b, K9s): out = f32(h_L) W^T + b,
@@ -79,6 +82,7 @@ struct MlpParams {
   int x_is_bf16;
   int skip_input_grad;  // bwd: no dX for layer 0
   int head_mode;        // 0: no heads; 1: heads (K8f writes out, K8b reads g); 2: heads + loss (K9s)
+  int num_stages;       // fwd: weight images per chain the caller allocated in wpack (0: none)
 };
 
 namespace mlp {
@@ -116,13 +120,39 @@ constexpr int ACT_GELU = 4;               // saves pre-activations (see act_grad
 constexpr float GELU_C = 0.7978845608028654f;  // sqrt(2/pi), the tanh form of jax.nn.gelu
 
 // Activation on the bf16-rounded pre-activation, in fp32 (fused_mlp.py:_act_kernel).
+// elu is written without a select, z > 0 ? z : exp(z) - 1 bit for bit
+// (exp(0) - 1 = 0): the select compiled to a branch per element.
 __device__ __forceinline__ float act_fwd(int activation, float z) {
   switch (activation) {
-    case 1: return z > 0.f ? z : expf(fminf(z, 0.f)) - 1.f;
+    case 1: return fmaxf(z, 0.f) + (expf(fminf(z, 0.f)) - 1.f);
     case 2: return fmaxf(z, 0.f);
     case 3: return tanhf(z);
     case ACT_GELU: return 0.5f * z * (1.f + tanhf(GELU_C * (z + 0.044715f * z * z * z)));
     default: return z;
+  }
+}
+
+// d = bf16(act(d)) on the NA accumulators of a warpgroup product
+// (mlp_chain_fwd.cu, fused_block.cu), the activation fixed at compile time so
+// that the elements' chains interleave.
+template <int A, int NA>
+__device__ __forceinline__ void activate(float (&d)[NA]) {
+#pragma unroll
+  for (int i = 0; i < NA; i += 2) {  // rounded in pairs: one packed conversion
+    const float2 h = __bfloat1622float2(__floats2bfloat162_rn(act_fwd(A, d[i]), act_fwd(A, d[i + 1])));
+    d[i] = h.x;
+    d[i + 1] = h.y;
+  }
+}
+
+template <int NA>
+__device__ __forceinline__ void activate(float (&d)[NA], int act) {
+  switch (act) {
+    case 1: activate<1>(d); break;
+    case 2: activate<2>(d); break;
+    case 3: activate<3>(d); break;
+    case ACT_GELU: activate<ACT_GELU>(d); break;
+    default: activate<0>(d);
   }
 }
 
@@ -231,9 +261,9 @@ __device__ void gemm_chunk(const bf16* A, int K, const float* __restrict__ W, in
   __syncthreads();
 }
 
-// The whole chain `c` on the 64-row tile at row0 (the forward of K1f, K2f,
-// K8f and K9m).  `smem` holds two activation tiles (ping-pong), a staged
-// weight slice and an fp32 staging tile (SMEM_BYTES).  Writes the chain output
+// The whole chain `c` on the 64-row tile at row0 (K9m's forward).  `smem`
+// holds two activation tiles (ping-pong), a staged weight slice and an fp32
+// staging tile (SMEM_BYTES).  Writes the chain output
 // where c.h[L-1] is set, and with save_hiddens every layer's saved value
 // (post-activation, for gelu the pre-activation).  Returns the index of the
 // activation tile that holds the chain output, complete for every thread only

@@ -14,14 +14,15 @@
 // K9m (mlp_ppo_step): the losses are separable per row and per chain (the
 // surrogate needs only the actor's mean, the value loss only the critic's
 // value), so one phase-1 block per (row tile, chain) runs that chain's whole
-// forward on its 64-row tile (chain_forward_tile, K2f's code: the activation
-// tile never leaves shared memory between layers), then after a block barrier
-// the heads, the loss and the backward of the same tile (K9s's phase 1).  The
-// forward writes each layer's bf16 activation to device memory on the way,
-// since the backward's activation derivatives and phase 2's dW products read
-// them; nothing is read from an earlier launch.  Phase 2 is K9s's, as the
-// second kernel of the same call.  With the same per-tile code on both sides,
-// mono and split (K2f + K9s) give the same numbers.
+// forward on its 64-row tile (chain_forward_tile, mlp_chain.cuh: the
+// activation tile never leaves shared memory between layers), then after a
+// block barrier the heads, the loss and the backward of the same tile (K9s's
+// phase 1).  The forward writes each layer's bf16 activation to device memory
+// on the way, since the backward's activation derivatives and phase 2's dW
+// products read them; nothing is read from an earlier launch.  Phase 2 is K9s's, as the
+// second kernel of the same call.  Mono and split (K2f + K9s) give the same
+// numbers up to the forward's summation order (K2f takes its products with
+// wgmma, chain_forward_tile with WMMA).
 //
 // K8b and K9s add a prologue to phase 1 (head_prologue): per 64-row tile the
 // latent is staged in shared memory; K9s first runs the heads' forward, the

@@ -24,9 +24,9 @@ the top of the CUDA source.  The forwards run in two launches: a pack kernel
 turns the fp32 weights into bf16 images in the layout the products read
 (afresh on every call: the optimizer updates the weights in place), then one
 persistent kernel per op walks the row tiles with wgmma products.  The
-wrappers allocate the images' scratch (``fwd_stages`` lists them,
-``pack_plain`` is the pack kernel's plain version) and ``fwd_grid`` /
-``fwd_plan`` give the grid.  Beside the kernels this module keeps their plain
+wrappers allocate the images' scratch (``fwd_stages`` lists them;
+``weight_images.pack_plain``, shared with the MLP chain forward, is the pack's
+plain version) and ``fwd_grid`` / ``fwd_plan`` give the grid.  Beside the kernels this module keeps their plain
 PyTorch versions, which repeat the kernels' arithmetic step by step, the
 backwards as explicit formulas (mirrors of the TPU kernels' ``_pre_bwd_kernel``
 and ``_post_bwd_kernel``, not autograd of the forward): bf16 operands, fp32
@@ -56,7 +56,7 @@ import functools
 
 import torch
 
-from cusrl_tpu_torch.nn.kernels import dw_phase2
+from cusrl_tpu_torch.nn.kernels import dw_phase2, weight_images
 from cusrl_tpu_torch.nn.kernels.fused_mlp import _ACTIVATION_CODES, _PREACT_ACTIVATIONS, _act_plain, _dact_plain
 
 __all__ = [
@@ -71,7 +71,6 @@ __all__ = [
     "fwd_grid",
     "fwd_plan",
     "fwd_stages",
-    "pack_plain",
     "post_bwd_plain",
     "post_fwd_plain",
     "post_reference",
@@ -198,7 +197,7 @@ def post_reference(attn, h, w_o, b_o, g2, bb2, w_up, b_up, w_down, b_down, activ
 # The forwards' weight images and tile schedule (csrc/fused_block.cu, fbf)
 # ---------------------------------------------------------------------------
 
-STAGE_ROWS, STAGE_COLS = 128, 64  # one weight image, [128][64] bf16 (wg::STAGE_N, wg::KBLOCK)
+STAGE_ROWS, STAGE_COLS = weight_images.STAGE_ROWS, weight_images.STAGE_COLS  # one weight image
 # (tile rows, blocks per SM) of each forward (fbf::PRE_WGS, fbf::POST_WGS and
 # their blocks per SM): 64 rows per consumer warpgroup.
 FWD_GRID = {"pre": (128, 1), "post": (64, 2)}
@@ -231,40 +230,19 @@ def _stage_count(op: str, in_dim: int, embed: int, ff: int) -> int:
     return len(fwd_stages(op, in_dim, embed, ff))
 
 
-def _swizzle_index() -> torch.Tensor:
-    """``[128, 8, 8]``: where logical 16-byte chunk ``c`` of image row ``n``
-    sits, ``c ^ (n % 8)``, repeated over the chunk's eight values."""
-    n = torch.arange(STAGE_ROWS)[:, None]
-    return (torch.arange(8)[None, :] ^ (n % 8))[..., None].expand(STAGE_ROWS, 8, 8)
-
-
-def pack_plain(matrices, stages) -> torch.Tensor:
-    """The plain version of ``fbf::pack_kernel``: bf16 ``[len(stages), 128,
-    64]`` images of the matrices' slices, 0 past a matrix's edge, each row's
-    16-byte chunks swizzled (on the CPU)."""
-    out = torch.zeros(len(stages), STAGE_ROWS, 8, 8, dtype=_BF16)
-    for img, (m, n0, k0) in zip(out, stages):
-        part = matrices[m][n0:n0 + STAGE_ROWS, k0:k0 + STAGE_COLS].detach().cpu().to(_BF16)
-        logical = torch.zeros(STAGE_ROWS, STAGE_COLS, dtype=_BF16)
-        logical[:part.shape[0], :part.shape[1]] = part
-        img.scatter_(1, _swizzle_index(), logical.view(STAGE_ROWS, 8, 8))
-    return out.view(len(stages), STAGE_ROWS, STAGE_COLS)
-
-
 def fwd_grid(op: str, rows: int, chains: int, num_sms: int) -> tuple[int, int]:
     """``(blocks per chain, tiles per chain)`` of the ``"pre"`` or ``"post"``
     forward's launch (``fbf::plan``): the op's blocks per SM on every SM,
     split between the chains, at most one per tile."""
     tile_rows, per_sm = FWD_GRID[op]
     tiles = -(-rows // tile_rows)
-    return max(1, min(tiles, per_sm * num_sms // chains)), tiles
+    return weight_images.persistent_blocks(tiles, per_sm, chains, num_sms), tiles
 
 
 def tile_schedule(op: str, rows: int, chains: int, num_sms: int) -> list[tuple[int, int, int]]:
     """``(chain, block, tile)`` in the order each persistent block walks its
-    tiles: block ``b`` takes tiles ``b``, ``b + blocks``, ..."""
-    blocks, tiles = fwd_grid(op, rows, chains, num_sms)
-    return [(c, b, t) for c in range(chains) for b in range(blocks) for t in range(b, tiles, blocks)]
+    tiles (``weight_images.tile_schedule``)."""
+    return weight_images.tile_schedule(*fwd_grid(op, rows, chains, num_sms), chains)
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,13 @@ are fp32 islands: ``f32(latent) W^T + b`` with fp32 weights, and their
 backward keeps the latent's cotangent in fp32 until the activation derivative.
 
 What bounds them on the H100 and what the design does about it is written at
-the top of each CUDA source.  Beside each kernel this module keeps its plain
+the top of each CUDA source.  The forward (K1f, K2f, K8f) takes its products
+with wgmma from bf16 images of the weights (``weight_images.py``, shared with
+the fused block's forwards), made afresh on every call: a chain whose images
+fit in a block converts them there; a wider one is packed into scratch that
+``_launch_fwd`` allocates, in a second launch, and streams through a ring
+(``weight_images.chain_plan`` mirrors the kernel's plan, ``fwd_plan`` reads
+it from the card).  Beside each kernel this module keeps its plain
 PyTorch version, which repeats the kernel's arithmetic step by step (including
 the explicit backward formulas): bf16 operands, fp32 accumulation, fp32 bias,
 round to bf16, activation in fp32 on the bf16 value, round to bf16 again; the
@@ -45,17 +51,19 @@ fp32, ``biases[l]`` is ``[out]`` fp32, and weight gradients come back
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import torch
 
-from cusrl_tpu_torch.nn.kernels import dw_phase2
+from cusrl_tpu_torch.nn.kernels import dw_phase2, weight_images
 
 __all__ = [
     "LAUNCHES",
     "fused_mlp",
     "fused_mlp_pair",
     "fused_mlp_pair_heads",
+    "fwd_plan",
     "head_bwd_plain",
     "mlp_chain_bwd_plain",
     "mlp_chain_fwd_plain",
@@ -74,7 +82,7 @@ _PREACT_ACTIVATIONS = ("gelu",)
 _GELU_C = 0.7978845608028654  # sqrt(2/pi): the tanh form of jax.nn.gelu
 MAX_LAYERS = 8  # MLP_MAX_LAYERS in csrc/mlp_chain.cuh
 MAX_WIDTH = 512  # MLP_MAX_WIDTH
-WIDTH_MULTIPLE = 16  # the kernels' 16x16x16 WMMA tiles
+WIDTH_MULTIPLE = 16  # the products' k16 steps (wgmma in the forward, WMMA in the backwards)
 ROW_TILE = 64  # mlp::BM
 
 MAX_HEAD_DIM = 64  # mlp::MAX_HEAD_DIM
@@ -213,6 +221,7 @@ class _Chain(ctypes.Structure):
         ("dw", _P8),
         ("db", _P8),
         ("dx", ctypes.c_void_p),
+        ("wpack", ctypes.c_void_p),
     ]
 
 
@@ -271,6 +280,7 @@ class _Params(ctypes.Structure):
         ("x_is_bf16", ctypes.c_int),
         ("skip_input_grad", ctypes.c_int),
         ("head_mode", ctypes.c_int),
+        ("num_stages", ctypes.c_int),
     ]
 
 
@@ -290,37 +300,42 @@ def _library(stem: str) -> ctypes.CDLL:
             lib.mlp_ppo_step.restype = ctypes.c_int
         else:
             fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p]
+            lib.mlp_chain_fwd_plan.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            lib.mlp_chain_fwd_plan.restype = ctypes.c_int
     return lib
 
 
 def _validate(xs, wss, bss=None) -> list[int]:
     """Checks what the kernels take and returns the chain widths (biases are
-    checked when given)."""
-    device = xs[0].device
-    dims = [wss[0][0].shape[1]] + [w.shape[0] for w in wss[0]]
-    if not 1 <= len(wss[0]) <= MAX_LAYERS:
-        raise ValueError(f"fused MLP kernels take 1 to {MAX_LAYERS} layers; got {len(wss[0])}")
-    bad = [d for d in dims if d % WIDTH_MULTIPLE or not 0 < d <= MAX_WIDTH]
-    if bad:
+    checked when given).  Every launch runs it, so the common case takes few
+    Python steps; a failing check finds its message on the way out."""
+    x0, ws0 = xs[0], wss[0]
+    if not 1 <= len(ws0) <= MAX_LAYERS:
+        raise ValueError(f"fused MLP kernels take 1 to {MAX_LAYERS} layers; got {len(ws0)}")
+    dims = [ws0[0].shape[1], *(w.shape[0] for w in ws0)]
+    if any(d % WIDTH_MULTIPLE or not 0 < d <= MAX_WIDTH for d in dims):
         raise ValueError(f"fused MLP kernels take widths that are multiples of {WIDTH_MULTIPLE} up to {MAX_WIDTH}; "
                          f"got {dims}")
+    shapes = [(dims[l + 1], dims[l]) for l in range(len(ws0))]
+    index, f32 = x0.get_device(), torch.float32
     for i, (x, ws) in enumerate(zip(xs, wss)):
-        bs = bss[i] if bss is not None else (None,) * len(ws)
-        if x.dtype not in (torch.float32, _BF16) or x.dtype != xs[0].dtype:
+        bs = bss[i] if bss is not None else ()
+        if x.dtype not in (f32, _BF16) or x.dtype != x0.dtype:
             raise TypeError(f"inputs must share one dtype, fp32 or bf16; got {x.dtype}")
-        if x.dim() != 2 or x.shape != xs[0].shape or x.shape[1] != dims[0]:
+        if x.dim() != 2 or x.shape != x0.shape or x.shape[1] != dims[0]:
             raise ValueError(f"input of shape {tuple(x.shape)} does not fit widths {dims}")
-        if [ws[0].shape[1]] + [w.shape[0] for w in ws] != dims:
-            raise ValueError("the two chains must have the same widths")
-        for layer, (w, b) in enumerate(zip(ws, bs)):
-            if w.shape != (dims[layer + 1], dims[layer]) or w.dtype != torch.float32:
-                raise ValueError(f"layer {layer}: weight must be fp32 [out, in]; got {w.dtype} {tuple(w.shape)}")
-            if bss is not None and (b is None or b.shape != (dims[layer + 1],) or b.dtype != torch.float32):
-                raise ValueError(f"layer {layer}: bias must be fp32 [out]")
-        for t in (x, *ws, *(b for b in bs if b is not None)):
-            if t.device != device:
-                raise ValueError("all tensors must lie on one CUDA device")
-    if xs[0].shape[0] >= 2**31:
+        if (len(ws) != len(shapes) or any(w.shape != s or w.dtype != f32 for w, s in zip(ws, shapes))
+                or (bss is not None and (len(bs) != len(shapes) or any(
+                    b is None or b.shape != s[:1] or b.dtype != f32 for b, s in zip(bs, shapes))))):
+            if [ws[0].shape[1], *(w.shape[0] for w in ws)] != dims:
+                raise ValueError("the two chains must have the same widths")
+            for layer, w in enumerate(ws):
+                if w.shape != shapes[layer] or w.dtype != f32:
+                    raise ValueError(f"layer {layer}: weight must be fp32 [out, in]; got {w.dtype} {tuple(w.shape)}")
+            raise ValueError(f"biases must be fp32 [out] for widths {dims}")
+        if any(t.get_device() != index for t in (x, *ws, *bs)):
+            raise ValueError("all tensors must lie on one CUDA device")
+    if x0.shape[0] >= 2**31:
         raise ValueError("row count exceeds the kernels' int range")
     return dims
 
@@ -354,6 +369,21 @@ def _validate_heads(heads, latent: int, device) -> None:
             raise ValueError("all tensors must lie on one CUDA device")
 
 
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def fwd_plan(dims, rows: int, chains: int) -> dict:
+    """The plan ``mlpf::plan`` makes for a chain forward of widths ``dims``
+    on the current card, with the keys of ``weight_images.chain_plan``."""
+    p = _params(list(dims), rows, "elu", True)
+    out = (ctypes.c_int * 8)()
+    lib = _library("mlp_chain_fwd")
+    _check(lib, lib.mlp_chain_fwd_plan(ctypes.byref(p), chains, out), "mlp_chain_fwd_plan")
+    return dict(zip(("images", "slots", "resident", "tiles", "blocks", "smem_bytes", "sms", "per_sm"), out))
+
+
 def _launch_fwd(xs, wss, bss, activation, trailing, save_hiddens, counter, heads=None):
     """K1f/K2f; with ``heads`` (one ``(w [dim, latent], b [dim])`` per chain)
     K8f, which also returns the heads' fp32 outputs and writes the chain
@@ -366,24 +396,29 @@ def _launch_fwd(xs, wss, bss, activation, trailing, save_hiddens, counter, heads
         _validate_heads(heads, dims[-1], device)
     write_out = heads is None or save_hiddens
     written = list(range(num_layers)) if save_hiddens else ([num_layers - 1] if write_out else [])
-    xs = [x.contiguous() for x in xs]
-    wss = [[w.detach().contiguous() for w in ws] for ws in wss]
-    bss = [[b.detach().contiguous() for b in bs] for bs in bss]
+    xs = [dw_phase2.aligned16(x) for x in xs]
+    wss = [[w.contiguous() for w in ws] for ws in wss]  # data_ptr needs no detach
+    bss = [[b.contiguous() for b in bs] for bs in bss]
     hss = [[torch.empty(n, dims[l + 1], dtype=_BF16, device=device) for l in written] for _ in xs]
     head_outs = None
     if heads is not None:
-        heads = [(w.detach().contiguous(), b.detach().contiguous()) for w, b in heads]
+        heads = [(dw_phase2.aligned16(w), b.contiguous()) for w, b in heads]  # 16-byte rows for the kernel
         head_outs = [torch.empty(n, w.shape[0], device=device) for w, _ in heads]
     if n > 0:
         p = _params(dims, n, activation, trailing)
         p.save_hiddens = int(save_hiddens)
         p.x_is_bf16 = int(xs[0].dtype == _BF16)
+        plan = weight_images.chain_plan(tuple(dims), n, len(xs), _sms(device.index))
+        if not plan["resident"]:  # the pack kernel's images, streamed per tile: one buffer for every chain
+            p.num_stages = images = plan["images"]
+            wpack = torch.empty(len(xs), images * weight_images.STAGE_BYTES // 2, dtype=_BF16, device=device)
         for i, (x, ws, bs, hs) in enumerate(zip(xs, wss, bss, hss)):
             chain = p.chain[i]
             chain.x = x.data_ptr()
-            for l in range(num_layers):
-                chain.w[l] = ws[l].data_ptr()
-                chain.b[l] = bs[l].data_ptr()
+            if not plan["resident"]:
+                chain.wpack = wpack[i].data_ptr()
+            chain.w[:num_layers] = [w.data_ptr() for w in ws]
+            chain.b[:num_layers] = [b.data_ptr() for b in bs]
             for l, h in zip(written, hs):
                 chain.h[l] = h.data_ptr()
             if heads is not None:
@@ -392,7 +427,7 @@ def _launch_fwd(xs, wss, bss, activation, trailing, save_hiddens, counter, heads
                 head.out, head.dim = head_outs[i].data_ptr(), heads[i][0].shape[0]
         p.head_mode = int(heads is not None)
         lib = _library("mlp_chain_fwd")
-        stream = torch.cuda.current_stream(device).cuda_stream
+        stream = torch.cuda.current_stream(device.index).cuda_stream
         code = lib.mlp_chain_fwd(ctypes.byref(p), len(xs), stream)
         LAUNCHES[counter] += 1
         _check(lib, code, "mlp_chain_fwd")

@@ -1,7 +1,7 @@
 """The fused block forwards' Python-side layout on the CPU: the weight images
-the pack kernel writes (``fwd_stages``, ``pack_plain``) and
-the persistent blocks' tile schedule (``FWD_GRID``, ``fwd_grid``,
-``tile_schedule``).  No
+the pack kernel writes (``fwd_stages``, and the pack shared with the MLP chain
+forward, ``weight_images.pack_plain``) and the persistent blocks' tile
+schedule (``FWD_GRID``, ``fwd_grid``, ``tile_schedule``).  No
 kernel runs here; the card checks the kernels against the same plan
 (``test_block_forward_plan_matches_the_python_mirror``)."""
 
@@ -9,19 +9,9 @@ import pytest
 import torch
 
 from cusrl_tpu_torch.nn.kernels import fused_block as fb
+from cusrl_tpu_torch.nn.kernels import weight_images as wi
 
 WIDTHS = [(48, 128, 512), (16, 16, 16), (512, 128, 48), (48, 80, 144)]  # (in, embed, ffn)
-
-
-def _unpack(images, stages, shapes) -> list[torch.Tensor]:
-    """The bf16 matrices of ``shapes`` whose images ``images`` holds: the
-    inverse of ``pack_plain``."""
-    mats = [torch.zeros(shape, dtype=torch.bfloat16) for shape in shapes]
-    for img, (m, n0, k0) in zip(images.view(-1, fb.STAGE_ROWS, 8, 8), stages):
-        logical = img.gather(1, fb._swizzle_index()).view(fb.STAGE_ROWS, fb.STAGE_COLS)
-        rows, cols = min(fb.STAGE_ROWS, shapes[m][0] - n0), min(fb.STAGE_COLS, shapes[m][1] - k0)
-        mats[m][n0:n0 + rows, k0:k0 + cols] = logical[:rows, :cols]
-    return mats
 
 
 def _matrices(op, in_dim, embed, ff, seed):
@@ -37,9 +27,9 @@ def test_packed_images_unpack_to_the_bf16_weights(op, in_dim, embed, ff):
     ``w.to(bfloat16)``; everything past a matrix's edge is 0."""
     mats = _matrices(op, in_dim, embed, ff, seed=in_dim + embed + ff)
     stages = fb.fwd_stages(op, in_dim, embed, ff)
-    images = fb.pack_plain(mats, stages)
+    images = wi.pack_plain(mats, stages)
     assert images.shape == (len(stages), fb.STAGE_ROWS, fb.STAGE_COLS) and images.dtype == torch.bfloat16
-    back = _unpack(images, stages, [m.shape for m in mats])
+    back = wi.unpack_plain(images, stages, [m.shape for m in mats])
     for m, b in zip(mats, back):
         assert torch.equal(b, m.to(torch.bfloat16))
     covered = sum(min(fb.STAGE_ROWS, mats[m].shape[0] - n0) * min(fb.STAGE_COLS, mats[m].shape[1] - k0)
@@ -52,7 +42,7 @@ def test_image_rows_are_swizzled_by_16_byte_chunk():
     """Row n of an image holds logical chunk c (columns 8c .. 8c + 7) at
     chunk c ^ (n % 8): what a 128-byte-swizzled wgmma operand reads."""
     ids = ((torch.arange(128)[:, None] % 8) * 8 + torch.arange(64)[None, :] // 8).float()  # exact in bf16
-    img = fb.pack_plain([ids], [(0, 0, 0)])[0].float()
+    img = wi.pack_plain([ids], [(0, 0, 0)])[0].float()
     for n in (0, 1, 7, 8, 100):
         for c in range(8):
             assert torch.all(img[n, 8 * (c ^ (n % 8)):8 * (c ^ (n % 8)) + 8] == (n % 8) * 8 + c)

@@ -163,6 +163,144 @@ def test_unsupported_width_raises_on_cuda(cuda):
         fm.fused_mlp(x, [torch.zeros(64, 40, device=cuda)], [torch.zeros(64, device=cuda)])
 
 
+# -- K1f/K2f/K8f: the wgmma forward at every shape the wrapper takes ---------
+
+EIGHT_LAYERS = (512, 16, 512, 48, 80, 128, 256, 512, 16)
+
+
+def _flat(obj) -> list:
+    """The tensors in a nest of lists and tuples, in order."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    return [t for item in obj for t in _flat(item)] if isinstance(obj, (list, tuple)) else []
+
+
+def _check_chain_fwd(xs, wss, bss, activation, trailing, save, counter="K1f"):
+    """Each chain of one launch against the plain version; returns the launch's outputs."""
+    outs, hids, _ = fm._launch_fwd(xs, wss, bss, activation, trailing, save, counter)
+    for x, ws, bs, out, hid in zip(xs, wss, bss, outs, hids):
+        ref, ref_hid = fm.mlp_chain_fwd_plain(x, ws, bs, activation, trailing, save)
+        _close(out, ref, grad=False)
+        assert len(hid) == len(ref_hid)
+        for h, r in zip(hid, ref_hid):
+            _close(h, r, grad=False)
+    return outs, hids
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chains", [1, 2])
+@pytest.mark.parametrize("rows", [1, 63, 65, 1024, 98304 + 37])
+def test_chain_forward_at_ragged_rows(cuda, rows, chains, x_dtype):
+    """Rows that end inside a 64-row tile load as 0 and are not stored; the
+    main path's widths stream their 24 images through the ring."""
+    gen = torch.Generator().manual_seed(rows + 3 * chains)
+    params = [_params(gen, cuda) for _ in range(chains)]
+    xs = [torch.tanh(torch.randn(rows, WIDTHS[0], generator=gen)).to(cuda, x_dtype) for _ in range(chains)]
+    for save in (True, False):
+        _check_chain_fwd(xs, [p[0] for p in params], [p[1] for p in params], "elu", True, save,
+                         "K1f" if chains == 1 else "K2f")
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("activation", ["elu", "relu", "tanh", "gelu", "identity"])
+def test_chain_forward_every_activation(cuda, activation, x_dtype):
+    """Each activation at the main path's widths (streamed) and the
+    transformer head's 128 -> 128 (resident), with and without the trailing
+    activation (gelu: without, the JAX rule)."""
+    gen = torch.Generator().manual_seed(len(activation))
+    for widths in (WIDTHS, (128, 128)):
+        ws, bs = _params(gen, cuda, widths)
+        x = torch.tanh(torch.randn(1000, widths[0], generator=gen)).to(cuda, x_dtype)
+        for trailing in ((False,) if activation == "gelu" else (True, False)):
+            _check_chain_fwd([x], [ws], [bs], activation, trailing, True)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("widths", [(16, 16), (48, 80, 48), (512, 512), (16, 512, 16), (80, 16, 512), (128, 128),
+                                    (512, 16), EIGHT_LAYERS])
+def test_chain_forward_at_the_width_limits(cuda, widths, x_dtype):
+    """Widths 16 to 512 (multiples of 16 that are not of 64 pad with zeros),
+    1 to 8 layers, resident and streamed images, one and two chains."""
+    gen = torch.Generator().manual_seed(sum(widths))
+    for chains in (1, 2):
+        params = [_params(gen, cuda, widths) for _ in range(chains)]
+        xs = [torch.tanh(torch.randn(1000, widths[0], generator=gen)).to(cuda, x_dtype) for _ in range(chains)]
+        _check_chain_fwd(xs, [p[0] for p in params], [p[1] for p in params], "tanh", True, True,
+                         "K1f" if chains == 1 else "K2f")
+
+
+@pytest.mark.parametrize("rows", [1024, 1000])
+@pytest.mark.parametrize("head_dim", [1, 12, 64])
+def test_pair_heads_forward_at_head_widths(cuda, head_dim, rows):
+    """K8f's fp32 heads 1 to 64 wide on the latent tile, with and without the
+    saved latent and hiddens."""
+    gen = torch.Generator().manual_seed(head_dim + rows)
+    (wa, ba), (wc, bc) = _params(gen, cuda), _params(gen, cuda)
+    heads = [((torch.randn(head_dim, WIDTHS[-1], generator=gen) * 0.2).to(cuda),
+              (torch.randn(head_dim, generator=gen) * 0.1).to(cuda)) for _ in range(2)]
+    xs = [torch.tanh(torch.randn(rows, WIDTHS[0], generator=gen)).to(cuda) for _ in range(2)]
+    for save in (False, True):
+        outs, hids, head_outs = fm._launch_fwd(xs, [wa, wc], [ba, bc], "elu", True, save, "K8f", heads=heads)
+        for c, (x, ws, bs, (w, b)) in enumerate(zip(xs, [wa, wc], [ba, bc], heads)):
+            ref, ref_lat, ref_hid = fm.pair_heads_fwd_plain(x, ws, bs, w, b, "elu", True, save)
+            assert head_outs[c].shape == (rows, head_dim) and head_outs[c].dtype == torch.float32
+            _close(head_outs[c], ref, grad=False)
+            assert (outs[c] is None) != save
+            if save:
+                _close(outs[c], ref_lat, grad=False)
+                for h, r in zip(hids[c], ref_hid):
+                    _close(h, r, grad=False)
+
+
+def test_chain_forwards_repeat_bitwise(cuda):
+    """Two calls of K1f (streamed and resident), K2f and K8f on the same
+    inputs give the same bits."""
+    gen = torch.Generator().manual_seed(47)
+    (wa, ba), (wc, bc) = _params(gen, cuda), _params(gen, cuda)
+    head_w, head_b = _params(gen, cuda, (128, 128))
+    heads = _heads(gen, cuda)
+    xs = [torch.tanh(torch.randn(24576 + 17, WIDTHS[0], generator=gen)).to(cuda) for _ in range(2)]
+    xh = torch.randn(65536 + 5, 128, generator=gen).to(cuda, torch.bfloat16)
+    calls = [lambda: fm._launch_fwd(xs[:1], [wa], [ba], "elu", True, True, "K1f"),
+             lambda: fm._launch_fwd([xh], [head_w], [head_b], "elu", True, False, "K1f"),
+             lambda: fm._launch_fwd(xs, [wa, wc], [ba, bc], "elu", True, True, "K2f"),
+             lambda: fm._launch_fwd(xs, [wa, wc], [ba, bc], "elu", True, False, "K8f", heads=heads)]
+    for call in calls:
+        first, second = _flat(call()), _flat(call())
+        assert first and len(first) == len(second)
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_chain_forward_follows_weights_changed_in_place(cuda):
+    """Weights updated in place between two calls (as the optimizer does):
+    the second call converts or packs them afresh."""
+    gen = torch.Generator().manual_seed(53)
+    for widths in (WIDTHS, (128, 128)):
+        ws, bs = _params(gen, cuda, widths)
+        x = torch.tanh(torch.randn(6144, widths[0], generator=gen)).to(cuda)
+        (out0,), _ = _check_chain_fwd([x], [ws], [bs], "elu", True, False)
+        for t in (*ws, *bs):
+            t.add_(0.05 * torch.randn(t.shape, generator=gen).to(cuda))
+        (out1,), _ = _check_chain_fwd([x], [ws], [bs], "elu", True, False)
+        assert not torch.equal(out0, out1)
+
+
+def test_chain_forward_plan_matches_the_python_mirror(cuda):
+    """``mlpf::plan`` against ``weight_images.chain_plan`` (the images the
+    wrapper allocates, resident or streamed, the grid the schedule assumes)
+    and the card's shared memory."""
+    from cusrl_tpu_torch.nn.kernels import weight_images as wi
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for widths in (WIDTHS, (128, 512, 128), (128, 128), (16, 16), (512, 16), EIGHT_LAYERS):
+        for rows, chains in ((1, 1), (1024, 1), (24576, 2), (98304 + 37, 1), (262144, 1)):
+            plan = fm.fwd_plan(widths, rows, chains)
+            assert plan == wi.chain_plan(tuple(widths), rows, chains, sms)
+            assert plan["per_sm"] * (plan["smem_bytes"] + 1024) <= 233472
+    assert fm.fwd_plan(WIDTHS, 98304, 1)["resident"] == 0  # the main path's 24 images stream
+    assert fm.fwd_plan((128, 128), 262144, 1)["resident"] == 1  # the transformer head's 2 stay
+
+
 # -- K8f/K8b (pair + heads) and K9s (PPO loss backward) ------------------------
 
 A_DIM = 12
