@@ -30,8 +30,11 @@ without printing a result:
    ``F.linear`` + ``F.layer_norm`` chains for the fused block; autograd for
    the backwards) with CUDA events; for every backward (K1b, K2b, K8b, K9s,
    K9m, K4/K5 pre and post) also phase 1's and phase 2's device times (the
-   profiler's, by kernel name), phase 2's bound and row split,
-   and two calls on the same inputs compared bit for bit; for the fused
+   profiler's, by kernel name: phase 1 every kernel of the call but phase
+   2's, the pack of the transposed weights included), both phases' bounds,
+   phase 2's row split, for the wgmma phase 1 (K1b, K2b, K8b, K9s, K4/K5
+   post b) its plan, registers and spills, and two calls on the same inputs
+   compared bit for bit; for the fused
    block's forwards (K4/K5 pre and post f) and the MLP chain forward (K1f,
    K2f, K8f) at each timed shape the launch plan (grid, tiles per block,
    ring slots, resident or streamed images, shared memory per block), the
@@ -77,7 +80,8 @@ without printing a result:
    per iteration), one host transfer per chunk and no other synchronizing
    call; and a profile of one iteration of each path (device time by kernel
    name, phase 2 of the backwards listed whatever its rank, and the fused
-   block's and the MLP chain's forward kernels by name with their sums);
+   block's and the MLP chain's forward kernels and phase-1 backward kernels
+   (``fbb::``, ``mlpb::``) by name with their sums);
 8. the ``nvidia-smi`` line, the ``kernels`` JSON line (each kernel's
    launches from the path that runs it; ``not_ported`` is empty), and the
    final ``{"ok": true, ...}`` line.
@@ -201,13 +205,23 @@ def _tensors(obj) -> list:
     return []
 
 
-PROFILE_ATTEMPTS = 3  # a profiler session can drop kernel events; a short count profiles again
+PROFILE_ATTEMPTS = 5  # a profiler session can drop kernel events; a short count profiles again
+# Queued ahead of a start event, this sleep (in clock cycles, some 10 ms) keeps
+# the card busy while the host does a call's work before its launches.
+QUEUED_SLEEP_CYCLES = 20_000_000
 
 
-def _profiled_kernels(fn, keep, repeats: int, warmup: int) -> list:
-    """``(name, launches, device us)`` of the CUDA kernels whose name
-    ``keep`` selects, over ``repeats`` calls of ``fn`` under torch.profiler
-    after ``warmup`` calls."""
+def _in_namespaces(key: str, namespaces) -> bool:
+    """Whether the profiler's kernel name ``key`` (demangled or not) is a
+    function of one of ``namespaces`` (``"fbf"``, ...): by its own name, not
+    by the types its signature names."""
+    return any(f"{ns}::" in key.split("(")[0] or key.startswith(f"_ZN{len(ns)}{ns}") for ns in namespaces)
+
+
+def _profiled_kernels(fn, namespaces, repeats: int, warmup: int) -> tuple[list, int]:
+    """``(name, launches, device us)`` of the CUDA kernels of ``namespaces``
+    over ``repeats`` calls of ``fn`` under torch.profiler after ``warmup``
+    calls, and the count of every device event the session recorded."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -218,25 +232,58 @@ def _profiled_kernels(fn, keep, repeats: int, warmup: int) -> list:
         for _ in range(repeats):
             fn()
         torch.cuda.synchronize()
-    found = []
+    found, device_events = [], 0
     for event in prof.key_averages():
-        if event.device_type == torch.autograd.DeviceType.CUDA and keep(event.key):
-            us = getattr(event, "self_device_time_total", 0) or getattr(event, "self_cuda_time_total", 0)
-            found.append((event.key, event.count, us))
-    return found
+        if event.device_type == torch.autograd.DeviceType.CUDA:
+            device_events += event.count
+            if _in_namespaces(event.key, namespaces):
+                us = getattr(event, "self_device_time_total", 0) or getattr(event, "self_cuda_time_total", 0)
+                found.append((event.key, event.count, us))
+    return found, device_events
+
+
+def _queued_events_ms(fn, repeats: int = 10, warmup: int = 3) -> float:
+    """Device time of one call of ``fn`` by CUDA events, its kernels together:
+    the median over ``repeats`` calls, each behind a queued sleep so that the
+    host's work before the launches does not show.  Taken where the profiler
+    records no device event at all."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUED_SLEEP_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _ms(value) -> str:
+    return "not measured" if value is None else f"{value:.4f}"
 
 
 def _backward_phases(name: str, fn, rows: int, chains: int, dw_shapes, bytes_per_row: int, cols: int,
-                     repeats: int = 10, warmup: int = 3) -> dict:
+                     phase1: tuple, plan: dict | None = None, repeats: int = 10, warmup: int = 3) -> dict:
     """Phase 1's and phase 2's device time per call of the backward launch in
-    ``fn`` (torch.profiler over ``repeats`` calls, kernels by name: phase 1
-    the row kernel ``*rows_kernel``, phase 2 ``dw::split_kernel`` and
-    ``dw::reduce_kernel``), phase 2's bound and its row split, and two calls
-    of ``fn`` compared bit for bit (raises if they differ).  Phase 2's work
-    per chain: ``2 * rows * sum(n_out * n_in)`` FLOP over ``dw_shapes``; its
-    bytes each input read once (``bytes_per_row`` per chain: the bf16 output
-    cotangents and the layer inputs), the per-row-tile column partials
-    (``cols`` floats per tile, all chains) and the outputs once."""
+    ``fn`` (torch.profiler over ``repeats`` calls, kernels by name: phase 2
+    ``dw::split_kernel`` and ``dw::reduce_kernel``, phase 1 every other
+    kernel of the port's backwards, the pack of the transposed weights
+    included: ``mlpb::`` and ``fbb::`` (the wgmma designs), ``mlp::`` (K9m)
+    and ``fb::`` (the pre backward)), both phases' bounds, phase 2's row
+    split, and two calls of ``fn`` compared bit for bit (raises if they
+    differ).  Phase 1's work, all chains: ``phase1 = (bytes, FLOP)`` per row
+    (each input read once, each output written once, the data products);
+    phase 2's per chain: ``2 * rows * sum(n_out * n_in)`` FLOP over
+    ``dw_shapes``, its bytes each input read once (``bytes_per_row`` per
+    chain: the bf16 output cotangents and the layer inputs), the per-row-tile
+    column partials (``cols`` floats per tile, all chains) and the outputs
+    once.  ``plan``: phase 1's plan fields, printed beside its time."""
     import torch
 
     from cusrl_tpu_torch.nn.kernels import dw_phase2
@@ -245,31 +292,92 @@ def _backward_phases(name: str, fn, rows: int, chains: int, dw_shapes, bytes_per
     torch.cuda.synchronize()
     if len(first) != len(second) or not all(torch.equal(a, b) for a, b in zip(first, second)):
         raise AssertionError(f"{name}: two calls on the same inputs differ")
-    # Each call launches one row kernel and the two phase-2 kernels; a phase's
-    # time per call is the sum of its kernels' mean times (the profiler can
-    # miss a profiled run's first kernel, so counts may fall short of ``repeats``).
+    # Each call launches phase 1's kernels (the pack, where the images stream,
+    # and the row kernel) and the two phase-2 kernels; a phase's time per call
+    # is the sum of its kernels' mean times (the profiler can miss a profiled
+    # run's first kernel, so counts may fall short of ``repeats``).
+    device_events = 0
     for _ in range(PROFILE_ATTEMPTS):
-        found = _profiled_kernels(fn, lambda key: "dw::" in key or "rows_kernel" in key, repeats, warmup)
-        kernels = [[k for k in found if "dw::" not in k[0]], [k for k in found if "dw::" in k[0]]]
+        found, seen = _profiled_kernels(fn, ("dw", "mlpb", "fbb", "mlp", "fb"), repeats, warmup)
+        device_events += seen
+        kernels = [[k for k in found if not _in_namespaces(k[0], ("dw",))],
+                   [k for k in found if _in_namespaces(k[0], ("dw",))]]
         counts = [[count for _, count, _ in phase] for phase in kernels]
-        if len(counts[0]) == 1 and len(counts[1]) == 2 and all(repeats // 2 <= c <= repeats for c in sum(counts, [])):
+        if (1 <= len(counts[0]) <= 2 and len(counts[1]) == 2
+                and all(repeats // 2 <= c <= repeats for c in sum(counts, []))):
+            p1, p2 = (sum(us / count for _, count, us in phase) / 1e3 for phase in kernels)
+            by_kernel = "; ".join(f"{k.split('(')[0]} {us / count / 1e3:.4f} ms" for k, count, us in kernels[0])
+            call_ms = None
             break
     else:
-        raise AssertionError(f"{name}: the profiler saw {kernels} over {repeats} calls in each of {PROFILE_ATTEMPTS} "
-                             f"sessions; expected one row kernel and two phase-2 kernels, each launched once per call")
-    p1, p2 = (sum(us / count for _, count, us in phase) / 1e3 for phase in kernels)
+        if device_events:
+            raise AssertionError(f"{name}: the profiler saw {kernels} over {repeats} calls in each of "
+                                 f"{PROFILE_ATTEMPTS} sessions; expected phase 1's one or two kernels and two phase-2 "
+                                 f"kernels, each launched once per call")
+        # The profiler recorded nothing on the card: both phases together by events.
+        p1 = p2 = None
+        call_ms = _queued_events_ms(fn, repeats, warmup)
+        by_kernel = (f"the profiler saw no device event in {PROFILE_ATTEMPTS} sessions; both phases together "
+                     f"{call_ms:.4f} ms by CUDA events")
     dw_floats = sum(o * i for o, i in dw_shapes)
     row_tiles = -(-rows // dw_phase2.ROW_TILE)
     work = (chains * 2 * rows * dw_floats,
             chains * (rows * bytes_per_row + dw_floats * 4) + (row_tiles + 1) * cols * 4)
     bound, by = _bound_ms(*work)
+    bound1, by1 = _bound_ms(rows * phase1[1], rows * phase1[0])
     splits, per = dw_phase2.dw_row_splits(row_tiles, dw_phase2.dw_tile_count(dw_shapes), chains)
-    fields = dict(phase1_ms=p1, phase2_ms=p2, phase2_bound_ms=bound,
-                  phase2_bound_by=by, phase2_splits=f"{splits} x {per} row tiles", bitwise_repeat=True)
-    print(f"    {name} rows={rows}: phase1_ms={fields['phase1_ms']:.4f} phase2_ms={fields['phase2_ms']:.4f} "
-          f"phase2_bound_ms={bound:.4f} ({by}) splits={splits} (x {per} row tiles); two calls: same bits "
-          f"({len(first)} tensors)")
+    fields = dict(phase1_ms=p1, phase1_bound_ms=bound1, phase1_bound_by=by1, phase1_kernels=by_kernel,
+                  phase2_ms=p2, phase2_bound_ms=bound, phase2_bound_by=by,
+                  phase2_splits=f"{splits} x {per} row tiles", bitwise_repeat=True, **(plan or {}))
+    if call_ms is not None:
+        fields["phases_events_ms"] = call_ms
+    print(f"    {name} rows={rows}: phase1_ms={_ms(p1)} ({by_kernel}) phase1_bound_ms={bound1:.4f} "
+          f"({by1}, {phase1[0]} B and {phase1[1]} FLOP a row) phase2_ms={_ms(p2)} phase2_bound_ms={bound:.4f} ({by}) "
+          f"splits={splits} (x {per} row tiles); two calls: same bits ({len(first)} tensors)")
     return fields
+
+
+def _chain_phase1_work(dims, skip: bool, head_dim: int = 0, loss_bytes: int = 0, trailing: bool = True):
+    """Phase 1's (bytes, FLOP) per row of one MLP chain's backward: the
+    cotangent read (bf16, or the head's fp32 and the loss rows), the saved
+    values whose derivative or latent it reads, each D_l written (bf16) and
+    dX (fp32) unless skipped; the data products and the head's two."""
+    top = 4 * head_dim + loss_bytes if head_dim else 2 * dims[-1]
+    saved = 2 * sum(dims[1:-1]) + (2 * dims[-1] if trailing or head_dim else 0)
+    nbytes = top + saved + 2 * sum(dims[1:]) + (0 if skip else 4 * dims[0])
+    flops = 2 * sum(dims[l] * dims[l + 1] for l in range(len(dims) - 1) if l > 0 or not skip)
+    return nbytes, flops + 4 * head_dim * dims[-1]
+
+
+def _sum_work(*works):
+    return tuple(sum(w[i] for w in works) for i in range(2))
+
+
+def _phase1_plan(key: str, plan: dict, stem: str, symbol: str) -> dict:
+    """Prints and returns phase 1's plan (grid, images resident or streamed,
+    shared memory per block) and its kernel's registers and spills from the
+    build log (``symbol``: a part of the mangled name)."""
+    usage = _ptxas_usage(stem)
+    name = next(n for n in usage if symbol in n)
+    regs, spill_st, spill_ld = usage[name]
+    per_sm = plan.get("per_sm", 2)
+    images = ("resident, converted once per block" if plan["resident"]
+              else f"streamed through {plan['slots']} slots, packed per call")
+    print(f"    {key} phase 1 plan: grid {plan['blocks']} blocks per chain ({per_sm} per SM), {plan['tiles']} tiles of "
+          f"64 rows, up to {-(-plan['tiles'] // plan['blocks'])} per block; {plan['images']} images of W^T ({images}); "
+          f"{plan['smem_bytes']} B shared memory per block; {regs} registers, spills {spill_st}/{spill_ld} B (ptxas)")
+    return {"phase1_grid": f"{plan['blocks']} blocks per chain ({per_sm} per SM), {plan['tiles']} tiles",
+            "phase1_ring": f"{plan['slots']} of {plan['images']} images "
+                           f"({'resident' if plan['resident'] else 'streamed'})",
+            "phase1_smem_bytes": plan["smem_bytes"], "phase1_regs": regs, "phase1_spills": f"{spill_st}/{spill_ld}"}
+
+
+def _chain_phase1_plan(key: str, dims, rows: int, chains: int, skip: bool, head_mode: int = 0,
+                       head_dim: int = 0) -> dict:
+    from cusrl_tpu_torch.nn.kernels import fused_mlp as fm
+
+    plan = fm.bwd_plan(dims, rows, chains, skip, head_mode, head_dim)
+    return _phase1_plan(key, plan, "mlp_chain_bwd", f"chain_bwd_kernelILi{plan['per_sm']}ELi{head_mode}E")
 
 
 def _chain_work(rows: int, chains: int, backward: bool, save_hiddens: bool, input_grad: bool):
@@ -467,7 +575,9 @@ def check_kernels(device) -> dict:
               f"bound_ms={bound:.4f} ({by})")
         phases = _backward_phases(key, lambda: fm._launch_bwd(xs, gs, wss, hss, "elu", True, skip, key),
                                   MINIBATCH_ROWS, chains, MLP_DW_SHAPES, MLP_DW_BYTES_PER_ROW,
-                                  chains * sum(WIDTHS[1:]))
+                                  chains * sum(WIDTHS[1:]),
+                                  _sum_work(*[_chain_phase1_work(WIDTHS, skip)] * chains),
+                                  _chain_phase1_plan(key, WIDTHS, MINIBATCH_ROWS, chains, skip))
         results[key] = dict(max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by,
                             library_ms=l_ms, shape=f"{chains} x 24576 x 48-512-256-128", **phases)
     return results
@@ -662,7 +772,9 @@ def check_head_kernels(device) -> dict:
     head_cols = 2 * sum(WIDTHS[1:]) + (A_DIM + V_DIM) * (WIDTHS[-1] + 1)
     phases = _backward_phases("K8b", lambda: fm._launch_bwd(xs, None, [wa, wc], hss, "elu", True, True, "K8b",
                                                             heads=spec),
-                              MINIBATCH_ROWS, 2, MLP_DW_SHAPES, MLP_DW_BYTES_PER_ROW, head_cols)
+                              MINIBATCH_ROWS, 2, MLP_DW_SHAPES, MLP_DW_BYTES_PER_ROW, head_cols,
+                              _sum_work(_chain_phase1_work(WIDTHS, True, A_DIM), _chain_phase1_work(WIDTHS, True, V_DIM)),
+                              _chain_phase1_plan("K8b", WIDTHS, MINIBATCH_ROWS, 2, True, 1, A_DIM))
     results["K8b"] = dict(max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by, library_ms=l_ms,
                           shape="2 x 24576 x 48-512-256-128 + heads 12/1, skip_input_grad", **phases)
 
@@ -715,8 +827,11 @@ def check_head_kernels(device) -> dict:
     k_ms, p_ms, l_ms, (bound, by) = timing[None]  # the zoo's value loss is unclipped
     loss_cols = head_cols + 4 + A_DIM  # the four loss sums and dstd
     args = (xs, hss, [wa, wc], wm, bm, wv, bv, std, *rows_data, 0.2, 1.0, 0.5, None, "elu", True)
+    # The loss rows read: action, old log-prob and advantage (actor); returns (critic).
+    k9s_work = _sum_work(_chain_phase1_work(WIDTHS, True, A_DIM, 4 * A_DIM + 8), _chain_phase1_work(WIDTHS, True, V_DIM, 4))
     phases = _backward_phases("K9s", lambda: fp._loss_bwd(*args), MINIBATCH_ROWS, 2, MLP_DW_SHAPES,
-                              MLP_DW_BYTES_PER_ROW, loss_cols)
+                              MLP_DW_BYTES_PER_ROW, loss_cols, k9s_work,
+                              _chain_phase1_plan("K9s", WIDTHS, MINIBATCH_ROWS, 2, True, 2, A_DIM))
     results["K9s"] = dict(max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by, library_ms=l_ms,
                           shape="2 x 24576 x 48-512-256-128 + heads 12/1 + PPO loss, loss_clip None", **phases)
 
@@ -777,8 +892,11 @@ def check_head_kernels(device) -> dict:
               f"bound_ms={bound:.4f} ({by})")
     k_ms, p_ms, l_ms, (bound, by) = timing[None]
     tail = (wm, bm, wv, bv, std, *rows_data, 0.2, 1.0, 0.5, None, "elu", True)
+    # K9m's phase 1 also reads x (fp32) and writes every activation, and runs the forward's products.
+    fwd_macs = sum(a * b for a, b in zip(WIDTHS[:-1], WIDTHS[1:]))
+    k9m_work = _sum_work(k9s_work, (2 * (4 * WIDTHS[0] + 2 * sum(WIDTHS[1:])), 2 * 2 * fwd_macs))
     phases = _backward_phases("K9m", lambda: fp._ppo_step(xs, [ba, bc], [wa, wc], *tail), MINIBATCH_ROWS, 2,
-                              MLP_DW_SHAPES, MLP_DW_BYTES_PER_ROW, loss_cols)
+                              MLP_DW_SHAPES, MLP_DW_BYTES_PER_ROW, loss_cols, k9m_work)
     results["K9m"] = dict(max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by, library_ms=l_ms,
                           shape="2 x 24576 x 48-512-256-128 forward + heads 12/1 + PPO loss + backward, "
                                 "loss_clip None", **phases)
@@ -1408,7 +1526,9 @@ def check_gelu_kernels(device) -> dict:
         # D_1, D_2 bf16; x and z bf16 (gelu(z) recomputed).
         phases = _backward_phases("K1b gelu", lambda: fm._launch_bwd([x], [g], [ws], [[*hid, out]], "gelu", False,
                                                                       False, "K1b"),
-                                  rows, 1, ffn_shapes, 2 * (T_FF + T_EMBED) + 2 * (T_EMBED + T_FF), T_FF + T_EMBED)
+                                  rows, 1, ffn_shapes, 2 * (T_FF + T_EMBED) + 2 * (T_EMBED + T_FF), T_FF + T_EMBED,
+                                  _chain_phase1_work(FFN_WIDTHS, False, trailing=False),
+                                  _chain_phase1_plan("K1b gelu", FFN_WIDTHS, rows, 1, False))
         # K1b runs on path T alone: these are its main fields.
         fields["K1b"] = dict(ms=b_ms, plain_ms=bp_ms, library_ms=bl_ms, bound_ms=b_bound, bound_by=b_by,
                              shape=f"{rows_mb} x 128-512-128 gelu with dX (the FFN's minibatch)",
@@ -1479,7 +1599,9 @@ def check_tl_head_kernels(device) -> dict:
         record("K1b", tag, rows, timed, (4 * rows * macs, rows * T_EMBED * (3 * 2 + 4) + macs * 4 + params * 4))
         phases = _backward_phases("K1b head", lambda: fm._launch_bwd([x], [g], [ws], [[ref]], "elu", True, False,
                                                                       "K1b"),
-                                  rows, 1, [(T_EMBED, T_EMBED)], 2 * T_EMBED + 2 * T_EMBED, T_EMBED)
+                                  rows, 1, [(T_EMBED, T_EMBED)], 2 * T_EMBED + 2 * T_EMBED, T_EMBED,
+                                  _chain_phase1_work((T_EMBED, T_EMBED), False),
+                                  _chain_phase1_plan("K1b head", (T_EMBED, T_EMBED), rows, 1, False))
         fields["K1b"].update({tag + k: v for k, v in phases.items()})
     for key in fields:
         fields[key]["tl_head_shape"] = (f"{TL_MB_ROWS} x 128-128 ELU (TL's minibatch, saving; backward with dX)"
@@ -1507,6 +1629,17 @@ BLOCK_REPLACES = {
     "K5post_b": "cusrl_tpu/nn/kernels/fused_block.py:910",
 }
 
+
+# Phase 1 of the block backwards: (bytes, FLOP) per row per chain, each input
+# read once and each output written once.  Pre (skip_input_grad): gqkv (bf16),
+# h and gh (fp32) in, y and bf16(dh) out; dy = gqkv W_qkv.  Post: g, r1 and the
+# saved z1 (bf16) in; bf16(dz1), y2, bf16(dr1) (bf16), dh and dattn (fp32)
+# out; dz1 = g W_down, dy2 = dz1 W_up, dattn = dr1 W_o.
+BLOCK_PHASE1 = {
+    "pre_b": (2 * 3 * T_EMBED + 4 * 2 * T_EMBED + 2 * 2 * T_EMBED, 2 * 3 * T_EMBED * T_EMBED),
+    "post_b": (2 * (2 * T_EMBED + T_FF) + 2 * (T_FF + 2 * T_EMBED) + 4 * 2 * T_EMBED,
+               2 * (2 * T_EMBED * T_FF + T_EMBED * T_EMBED)),
+}
 
 # Phase 2 of the block backwards: (dW shapes, bytes per row it reads, column
 # sums).  Pre: D = bf16(dh) and gqkv, H = x (fp32) and y; post: D = bf16(dr1),
@@ -1596,19 +1729,28 @@ def _ptxas_usage(stem: str) -> dict:
     return usage
 
 
-def _forward_device_ms(key: str, fn, namespace: str = "fbf::", kernels: int = 2, repeats: int = 10,
+def _forward_device_ms(key: str, fn, namespace: str = "fbf", kernels: int = 2, repeats: int = 10,
                        warmup: int = 3) -> dict:
     """Device time per call of a wgmma forward's launches (torch.profiler by
     kernel name in ``namespace``: the pack kernel, where there is one, and
     the forward kernel, each its mean per launch; ``kernels`` of them); the
-    events' ``ms`` adds the wrapper's host time before the launches."""
+    events' ``ms`` adds the wrapper's host time before the launches.  Where
+    the profiler records no device event, ``device_ms`` is the call's
+    kernels together by CUDA events, the pack's time not measured."""
+    device_events = 0
     for _ in range(PROFILE_ATTEMPTS):
-        found = _profiled_kernels(fn, lambda name: namespace in name, repeats, warmup)
+        found, seen = _profiled_kernels(fn, (namespace,), repeats, warmup)
+        device_events += seen
         if len(found) == kernels and all(repeats // 2 <= count <= repeats for _, count, _ in found):
             break
     else:
-        raise AssertionError(f"{key}: the profiler saw {found} over {repeats} calls in each of {PROFILE_ATTEMPTS} "
-                             f"sessions; expected {kernels} kernel(s) of {namespace}, each once per call")
+        if device_events:
+            raise AssertionError(f"{key}: the profiler saw {found} over {repeats} calls in each of {PROFILE_ATTEMPTS} "
+                                 f"sessions; expected {kernels} kernel(s) of {namespace}::, each once per call")
+        device_ms = _queued_events_ms(fn, repeats, warmup)
+        print(f"    {key}: the profiler saw no device event in {PROFILE_ATTEMPTS} sessions; the call's kernels "
+              f"together {device_ms:.4f} ms by CUDA events")
+        return {"pack_ms": None, "device_ms": device_ms, "device_ms_by": "CUDA events, the pack included"}
     fields = {("pack_ms" if "pack_kernel" in name else "device_ms"): us / count / 1e3 for name, count, us in found}
     return {"pack_ms": 0.0, **fields}
 
@@ -1625,10 +1767,10 @@ def _chain_forward_fields(key: str, fn, dims, rows: int, chains: int, events_ms:
     usage = _ptxas_usage("mlp_chain_fwd")
     symbol = next(name for name in usage if f"chain_fwd_kernelILi{plan['per_sm']}ELb{int(heads)}E" in name)
     regs, spill_st, spill_ld = usage[symbol]
-    fields = _forward_device_ms(key, fn, "mlpf::", 1 if plan["resident"] else 2)
+    fields = _forward_device_ms(key, fn, "mlpf", 1 if plan["resident"] else 2)
     images = ("resident, converted once per block" if plan["resident"]
               else f"streamed through {plan['slots']} slots, packed per call")
-    print(f"    {key} rows={rows}: device_ms={fields['device_ms']:.4f} (+ pack {fields['pack_ms']:.4f}) of the "
+    print(f"    {key} rows={rows}: device_ms={_ms(fields['device_ms'])} (+ pack {_ms(fields['pack_ms'])}) of the "
           f"events' {events_ms:.4f} ms; grid {plan['blocks']} x {chains} ({plan['per_sm']} per SM), "
           f"{plan['tiles']} tiles of 64 rows, up to {-(-plan['tiles'] // plan['blocks'])} per block; "
           f"{plan['images']} images ({images}); {plan['smem_bytes']} B shared memory per block; {regs} registers, "
@@ -1796,13 +1938,18 @@ def check_block_kernels(device) -> dict:
                               + (", skip_input_grad" if op == "pre_b" else "")
                               + (", saves r1 and z1" if op == "post_f" else ""))
                 if op in BLOCK_PHASE2:
+                    plan = None
+                    if op == "post_b":
+                        plan = _phase1_plan(key, fb.bwd_plan(rows, chains, T_EMBED, T_FF), "fused_block",
+                                            "3fbb15post_bwd_kernel")
                     fields.update(_backward_phases(key, kernel_fn, rows, chains, *BLOCK_PHASE2[op][:2],
-                                                   chains * BLOCK_PHASE2[op][2]))
+                                                   chains * BLOCK_PHASE2[op][2],
+                                                   tuple(chains * v for v in BLOCK_PHASE1[op]), plan))
                 else:
                     fields.update(_forward_plan_fields(key, rows, chains, save=True))
                     fields.update(_forward_device_ms(key, kernel_fn))
-                    print(f"    {key} rows={rows}: device_ms={fields['device_ms']:.4f} (+ pack "
-                          f"{fields['pack_ms']:.4f}) of the events' {k_ms:.4f} ms")
+                    print(f"    {key} rows={rows}: device_ms={_ms(fields['device_ms'])} (+ pack "
+                          f"{_ms(fields['pack_ms'])}) of the events' {k_ms:.4f} ms")
                 results.setdefault(key, {}).update({tag + f: v for f, v in fields.items()})
         if k == "K4":  # the value, next-token and KL passes: pre, and post saving nothing
             for rows, tag in ((PRIMAL_ROWS, "primal_"), (TL_PRIMAL_ROWS, "tl_primal_")):
@@ -1836,8 +1983,8 @@ def check_block_kernels(device) -> dict:
                                          tag + "bound_ms": bound})
                     plan = _forward_plan_fields(key, rows, 1, save=False)
                     plan.update(_forward_device_ms(key, kernel_fn))
-                    print(f"    {key} primal rows={rows}: device_ms={plan['device_ms']:.4f} (+ pack "
-                          f"{plan['pack_ms']:.4f}) of the events' {k_ms:.4f} ms")
+                    print(f"    {key} primal rows={rows}: device_ms={_ms(plan['device_ms'])} (+ pack "
+                          f"{_ms(plan['pack_ms'])}) of the events' {k_ms:.4f} ms")
                     results[key].update({tag + f: v for f, v in plan.items()})
     for key in results:
         results[key]["max_abs_err"] = max(errs[key])
@@ -2376,22 +2523,28 @@ def profile_iteration(driver, label: str, steps: int = STEPS) -> None:
         if device_us > 0:
             rows.append((device_us / 1e3, event.count, event.key))
     rows.sort(reverse=True)
+    if not rows:
+        print(f"[profile] {label}, one iteration: wall {wall_ms:.2f} ms; the profiler saw no device event, device "
+              f"busy and idle share not measured")
+        return
     busy_ms = sum(r[0] for r in rows)
     print(f"[profile] {label}, one iteration: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, "
           f"idle share {max(0.0, 1 - busy_ms / wall_ms):.3f} (profiler on)")
     for ms, count, name in rows[:12]:
         print(f"    {ms:9.3f} ms {count:6d}x  {name[:90]}")
     # Phase 2 of the backwards (csrc/dw_phase2.cuh), listed whatever its rank.
-    phase2 = [r for r in rows if "dw::" in r[2]]
+    phase2 = [r for r in rows if _in_namespaces(r[2], ("dw",))]
     for ms, count, name in phase2:
         if (ms, count, name) not in rows[:12]:
             print(f"    {ms:9.3f} ms {count:6d}x  {name[:90]}")
     print(f"[profile] {label}, phase 2 of the backwards: {sum(r[0] for r in phase2):.3f} ms over "
           f"{sum(r[1] for r in phase2)} launches per iteration")
-    # The wgmma forwards by kernel: the fused block's (csrc/fused_block.cu,
-    # namespace fbf) and the MLP chain's (csrc/mlp_chain_fwd.cu, mlpf).
-    for namespace, what in (("fbf::", "the fused block's forwards"), ("mlpf::", "the MLP chain forward")):
-        forwards = [r for r in rows if namespace in r[2]]
+    # The wgmma kernels by name: the fused block's forwards and post backward
+    # (csrc/fused_block.cu, namespaces fbf and fbb) and the MLP chain's
+    # forward and backward (csrc/mlp_chain_fwd.cu, mlpf; mlp_chain_bwd.cu, mlpb).
+    for namespace, what in (("fbf", "the fused block's forwards"), ("mlpf", "the MLP chain forward"),
+                            ("fbb", "the post backward's phase 1"), ("mlpb", "the MLP chain backward's phase 1")):
+        forwards = [r for r in rows if _in_namespaces(r[2], (namespace,))]  # by name: a signature names fbf::Layout
         if forwards:
             print(f"[profile] {label}, {what}: "
                   + "; ".join(f"{name.split('(')[0]} {ms:.3f} ms ({count})" for ms, count, name in forwards)

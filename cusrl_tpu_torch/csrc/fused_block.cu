@@ -70,19 +70,33 @@
 // on device memory; a block's phases follow each other, and the second
 // block per SM is what overlaps them.
 //
-// The backwards' row kernels (phase 1, namespace fb) keep one block per
-// 64-row tile with weights streamed from L2 as fp32 128 x 64 slices and
-// 16x16x16 bf16 WMMA; LayerNorm as one warp per row.
-//   * weight gradients without atomics, as mlp_chain_bwd.cu: the row kernel
-//     (phase 1) writes bf16(d) of each product and per-tile fp32 column sums
-//     (biases, LayerNorm scale and shift); phase 2 (dw_phase2.cuh, shared
-//     with mlp_chain_bwd.cu) forms each dW over row ranges split across
-//     blocks and adds the partials and the per-tile sums in a fixed order.
-//     It serves _pre_run_bwd, _post_run_bwd and their pair forms.  Bytes
-//     bound it (d and the layer input read once: ~218 MB for the post
+// The backwards, in two phases without atomics:
+//   * phase 1 writes bf16(d) of each product and per-64-row-tile fp32 column
+//     sums (biases, LayerNorm scale and shift); phase 2 (dw_phase2.cuh,
+//     shared with mlp_chain_bwd.cu) forms each dW over row ranges split
+//     across blocks and adds the partials and the per-tile sums in a fixed
+//     order.  It serves _pre_run_bwd, _post_run_bwd and their pair forms.
+//     Bytes bound it (d and the layer input read once: ~218 MB for the post
 //     backward at 65,536 rows, 0.065 ms); the split over about four blocks
-//     per SM, a cp.async ring and 16-byte loads are what it does about it.
-// Not yet done (later work): the row kernels on the forwards' design.
+//     per SM, a cp.async ring and 16-byte loads are what it does about it;
+//   * the post backward's phase 1 (namespace fbb) is the post forward's
+//     design turned around: a pack kernel writes images of W_down^T, W_up^T
+//     and W_o^T (wgmma's K-major B of d_in = d_out W), which stream through
+//     the ring of one consumer warpgroup in each of two blocks per SM; per
+//     128-column chunk of the hidden, dz1 = (g W_down) act'(saved) on the
+//     accumulators, bf16(dz1) to device memory and to the A tile of
+//     dy2 += bf16(dz1) W_up (a second accumulator set), so the 512-wide dz1
+//     never needs a whole tile; LN2's backward on dy2 with quad-shuffle row
+//     reductions, dr1 = g + LN2^T(dy2) to dh (fp32) and as bf16 to the A tile
+//     of dattn = bf16(dr1) W_o.  Column sums by shuffles over a warp's rows
+//     and the four warps in order.  Bytes bound it (4,096 B a row: 0.080 ms
+//     at 65,536 rows); what is left is its epilogues' ALU work (gelu's
+//     derivative, the sums) and the latency of one tile's phases in turn
+//     (probe_backward_phase1.py; PERF.md);
+//   * the pre backward's row kernel (namespace fb) keeps one block per
+//     64-row tile with weights streamed from L2 as fp32 128 x 64 slices and
+//     16x16x16 bf16 WMMA; LayerNorm as one warp per row.
+// Not yet done (later work): the pre backward's row kernel on this design.
 #include <algorithm>
 
 #include "dw_phase2.cuh"
@@ -116,7 +130,7 @@ struct FbChain {
   void* dw;          // bwd out: the weight gradients [out, in] fp32, back to back in w[] order
   void* sums;        // bwd out [num_sums] fp32: pre db_in, dg1, dbb1, db_q, db_k, db_v;
                      //                          post db_o, dg2, dbb2, db_up, db_down
-  void* wpack;       // fwd scratch [num_stages][128][64] bf16: the weights' images (fbf::Pack)
+  void* wpack;       // fwd, post bwd scratch [num_stages][128][64] bf16: the weights' images (fbf::, fbb::)
 };
 
 struct FbParams {
@@ -127,7 +141,7 @@ struct FbParams {
   int ff;          // post: the FFN width F
   int activation;  // post: 0 identity, 1 elu, 2 relu, 3 tanh, 4 gelu (as mlp_chain.cuh)
   int x_is_bf16;   // pre
-  int num_stages;  // fwd: weight images per chain the caller allocated in wpack
+  int num_stages;  // fwd, post bwd: weight images per chain the caller allocated in wpack
 };
 
 namespace fb {
@@ -436,89 +450,15 @@ __global__ void __launch_bounds__(THREADS) pre_bwd_rows_kernel(const FbParams p,
   }
 }
 
-// ---------------------------------------------------------------------------
-// Post backward: phase 1
-// ---------------------------------------------------------------------------
-
-// Phase 1 of the post backward, one block per 64-row tile: dz1 = (g W_down)
-// act'(saved), dy2 = bf16(dz1) W_up, dr1 = g + LN2^T(dy2) (= dh, fp32),
-// dattn = bf16(dr1) W_o; writes bf16(dz1), y2 and bf16(dr1) for phase 2 and
-// the tile's sums of db_o, dg2, dbb2, db_up, db_down.
-__global__ void __launch_bounds__(THREADS) post_bwd_rows_kernel(const FbParams p, int num_sums) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Smem s = carve(smem);
-  const FbChain& c = p.chain[blockIdx.y];
-  const int row0 = blockIdx.x * BM, n_rows = p.num_rows, E = p.embed, F = p.ff;
-  float* part = static_cast<float*>(c.part) + size_t(blockIdx.x) * num_sums;
-  const bf16* saved = static_cast<const bf16*>(c.s);
-  const bf16* r1 = static_cast<const bf16*>(c.r1);
-  const float* g2 = static_cast<const float*>(c.ln_g);
-
-  load_tile(c.g, true, E, row0, n_rows, s.t0, HLD);
-  __syncthreads();
-  for (int j = threadIdx.x; j < E; j += THREADS) {  // db_down
-    float acc = 0.f;
-    for (int r = 0; r < BM; ++r) acc += __bfloat162float(s.t0[r * HLD + j]);
-    part[3 * E + F + j] = acc;
-  }
-
-  bf16* dz1 = static_cast<bf16*>(c.sc);
-  const Cols w_down = weights<Cols>(c.w[2], c.w[2], c.w[2], E, F);
-  for (int n0 = 0; n0 < F; n0 += NC) {
-    block_gemm<false>(s.t0, E, w_down, n0, F, s.ws, s.stg);
-    const int ncols = min(NC, F - n0);
-    for (int i = threadIdx.x; i < BM * ncols; i += THREADS) {
-      const int r = i / ncols, j = i % ncols;
-      const int gr = row0 + r;
-      float d = 0.f;
-      if (gr < n_rows)
-        d = s.stg[r * SLD + j] *
-            mlp::act_grad_from_saved(p.activation, __bfloat162float(saved[size_t(gr) * F + n0 + j]));
-      s.stg[r * SLD + j] = d;
-      const bf16 db = __float2bfloat16(d);
-      s.t1[r * HLD + n0 + j] = db;
-      if (gr < n_rows) dz1[size_t(gr) * F + n0 + j] = db;
-    }
-    __syncthreads();
-    column_sums(s.stg, ncols, part + 3 * E + n0);  // db_up
-  }
-  ln_recompute(r1, E, g2, static_cast<const float*>(c.ln_b), row0, n_rows, static_cast<bf16*>(c.sa), s);
-
-  // dy2 = bf16(dz1) W_up: E <= NC columns, one chunk.
-  block_gemm<false>(s.t1, F, weights<Cols>(c.w[1], c.w[1], c.w[1], F, E), 0, E, s.ws, s.stg);
-  ln_param_sums(s.stg, r1, E, row0, n_rows, s, part + E, part + 2 * E);
-  __syncthreads();  // the sums have read stg
-  // The extra term is g, read from t0 by the thread that then overwrites that
-  // element with bf16(dr1).
-  const bf16* g_tile = s.t0;
-  ln_backward(r1, g2, E, row0, n_rows, s, [&](int r, int j) { return __bfloat162float(g_tile[r * HLD + j]); },
-              s.t0, static_cast<bf16*>(c.sb));
-  __syncthreads();
-  float* dh = static_cast<float*>(c.out1);
-  for (int i = threadIdx.x; i < BM * E; i += THREADS) {
-    const int r = i / E, j = i % E;
-    if (row0 + r < n_rows) dh[size_t(row0 + r) * E + j] = s.stg[r * SLD + j];
-  }
-  column_sums(s.stg, E, part);  // db_o
-
-  float* dattn = static_cast<float*>(c.out0);
-  block_gemm<false>(s.t0, E, weights<Cols>(c.w[0], c.w[0], c.w[0], E, E), 0, E, s.ws, s.stg);
-  for (int i = threadIdx.x; i < BM * E; i += THREADS) {
-    const int r = i / E, j = i % E;
-    if (row0 + r < n_rows) dattn[size_t(row0 + r) * E + j] = s.stg[r * SLD + j];
-  }
-}
-
-int launch_rows(const void* kernel, const FbParams* p, int num_chains, cudaStream_t stream, int num_sums,
-                bool with_sums) {
+// The pre backward's row kernel: one block per 64-row tile.
+int launch_rows(const void* kernel, const FbParams* p, int num_chains, cudaStream_t stream, int num_sums) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(SMEM_BYTES));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p->num_rows + BM - 1) / BM, num_chains);
   FbParams copy = *p;
-  void* args_fwd[] = {&copy};
-  void* args_bwd[] = {&copy, &num_sums};
-  err = cudaLaunchKernel(kernel, grid, dim3(THREADS), with_sums ? args_bwd : args_fwd, SMEM_BYTES, stream);
+  void* args[] = {&copy, &num_sums};
+  err = cudaLaunchKernel(kernel, grid, dim3(THREADS), args, SMEM_BYTES, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -540,8 +480,8 @@ using wg::bf16;
 constexpr int PRE_WGS = 2, PRE_BLOCKS_PER_SM = 1;
 constexpr int POST_WGS = 1, POST_BLOCKS_PER_SM = 2;
 __host__ __device__ constexpr int threads(int wgs) { return wgs * 128 + 32; }  // and one producer warp
-constexpr int SM_SMEM = 233472;     // shared memory of one SM
-constexpr int BLOCK_SMEM = 232448;  // the most one block may use
+using wg::BLOCK_SMEM;
+using wg::SM_SMEM;
 constexpr int BARRIER_BYTES = 2 * 24 * 8;  // a ring's barriers: up to 24 slots
 constexpr float LN_EPS = 1e-6f;
 
@@ -671,29 +611,8 @@ using wg::store_bf16;
 using wg::to_tile;
 using wg::zero;
 
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// The first `cols` columns of d as fp32 rows of dst (leading dimension ld),
-// 16-byte stores: the two threads of a pair swap halves so that the even one
-// holds four columns of `row`, the odd one four of `row + 8`.
-__device__ __forceinline__ void store_f32(const float (&d)[64], int cols, float* dst, int ld, int row0, int n_rows,
-                                          const Frag& f) {
-  const bool odd = threadIdx.x & 1;
-  const int row = row0 + f.row + (odd ? 8 : 0);
-  const int col = f.col - (odd ? 2 : 0);
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    if (8 * j < cols) {
-      const float s0 = odd ? d[4 * j] : d[4 * j + 2], s1 = odd ? d[4 * j + 1] : d[4 * j + 3];
-      const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1), r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
-      const float4 v = odd ? make_float4(r0, r1, d[4 * j + 2], d[4 * j + 3]) : make_float4(d[4 * j], d[4 * j + 1], r0, r1);
-      if (row < n_rows) *reinterpret_cast<float4*>(dst + size_t(row) * ld + 8 * j + col) = v;
-    }
-  }
-}
+using wg::quad_sum;
+using wg::store_f32;
 
 // An fp32 [n_rows, ld] matrix's values at the accumulators' places (first
 // `cols` columns; 0 elsewhere and past the end).
@@ -811,7 +730,7 @@ __global__ void __launch_bounds__(threads(PRE_WGS), PRE_BLOCKS_PER_SM) pre_fwd_k
     wg::issue(d, wg::smem_u32(tx), in, ring);
     wg::finish(d, ring);
     add_bias_round(d, par, E, f);
-    store_f32(d, E, h, E, row0, n_rows, f);
+    store_f32(d, E, h, E, 0, row0, n_rows, f);
     layer_norm(d, E, par + E, par + 2 * E, ty, f);
     wg::fence_async_smem();
     wg::wg_sync(bar);
@@ -946,6 +865,266 @@ int launch(const void* kernel, const FbParams* p, int num_chains, bool post, cud
 
 }  // namespace fbf
 
+// ---------------------------------------------------------------------------
+// The post backward's phase 1 (namespace fbb): a pack kernel of the
+// transposed weights' images, then one persistent kernel
+// ---------------------------------------------------------------------------
+
+namespace fbb {
+
+using fbf::Layout;
+using wg::bf16;
+using wg::Frag;
+using wg::Pack;
+using wg::kblocks;
+using wg::nchunks;
+using wg::pad64;
+// Two consumer warpgroups per block, each taking half the columns of every
+// product (NW of 128: m64n64k16 on its half of each image), in each of two
+// blocks per SM: sixteen consumer warps share an SM, so that one warp's
+// epilogue overlaps another's products and latencies.
+constexpr int WGS = 2, BLOCKS_PER_SM = 2, NW = 64, NA = NW / 2;
+constexpr int RED_FLOATS = WGS * 3 * 4 * NW;  // per warpgroup the column sums' warp partials, three sets at once
+constexpr int ROW_FLOATS = WGS * 64 * 4;      // per warpgroup and row, the halves of four row sums
+
+// The images in the order the kernel takes them: per 128-column chunk c of
+// the FFN hidden, W_down^T's rows [128 c, 128 c + 128) by K block of E (the
+// chunk of dz1 = g W_down), then W_up^T's K blocks [128 c, ...) (its
+// contribution to dy2 = dz1 W_up); last W_o^T by K block (dattn = dr1 W_o).
+// Matrices: 0 W_o^T [E, E], 1 W_up^T [E, F], 2 W_down^T [F, E], each the
+// transpose of the stored weight of the same index.  Mirrored by bwd_stages
+// in nn/kernels/fused_block.py.
+inline Pack post_bwd_pack(int E, int F) {
+  Pack P{};
+  for (int c = 0; c < nchunks(F); ++c) {
+    for (int kb = 0; kb < kblocks(E); ++kb) wg::pack_add(P, 2, 128 * c, 64 * kb);
+    for (int kb = 0; kb < kblocks(std::min(128, F - 128 * c)); ++kb) wg::pack_add(P, 1, 0, 128 * c + 64 * kb);
+  }
+  for (int kb = 0; kb < kblocks(E); ++kb) wg::pack_add(P, 0, 0, 64 * kb);
+  wg::pack_matrix(P, 0, 0, E, E, E, 1);
+  wg::pack_matrix(P, 1, 1, E, E, F, 1);
+  wg::pack_matrix(P, 2, 2, F, F, E, 1);
+  return P;
+}
+
+// Images, shared memory (the block's tiles of g, r1 and one 128-column chunk
+// of the hidden; LN2's parameters, the column sums' and the row sums'
+// partials) and grid: 64-row tiles, fbf::make_layout's accounting of one set
+// of tiles.
+// Mirrored by post_bwd_plan in nn/kernels/fused_block.py.
+inline int plan(const FbParams& p, int num_chains, fbf::Plan& out) {
+  const int E = p.embed, F = p.ff;
+  if (num_chains < 1 || num_chains > 2 || E < 16 || E > FB_MAX_EMBED || E % 16 || F < 16 || F > MLP_MAX_WIDTH ||
+      F % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  out.pack = post_bwd_pack(E, F);
+  const int kb_e = kblocks(E) * wg::ABLOCK_BYTES;
+  const int tiles[3] = {kb_e, kb_e, 2 * wg::ABLOCK_BYTES};
+  const int err =
+      fbf::make_layout(out.L, 1, BLOCKS_PER_SM, out.pack.count, p.num_rows, tiles, 2 * E + RED_FLOATS + ROW_FLOATS);
+  if (err != 0) return err;
+  if (cudaGetDevice(&out.device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&out.sms, cudaDevAttrMultiProcessorCount, out.device) != cudaSuccess)
+    return static_cast<int>(cudaGetLastError());
+  out.blocks = std::max(1, std::min(out.L.tiles, BLOCKS_PER_SM * out.sms / num_chains));
+  return 0;
+}
+
+__global__ void __launch_bounds__(wg::PACK_THREADS) pack_kernel(const FbParams p, const Pack P) {
+  const FbChain& c = p.chain[blockIdx.y];
+  wg::pack_unit(P, c.w, blockIdx.x, blockIdx.z * wg::PACK_THREADS + threadIdx.x,
+                static_cast<unsigned char*>(c.wpack) + size_t(blockIdx.x) * wg::STAGE_BYTES);
+}
+
+// Where accumulator i of thread f sits in a 64-row tile: (row, column).
+__device__ __forceinline__ int acc_row(const Frag& f, int i) { return f.row + ((i >> 1) & 1) * 8; }
+__device__ __forceinline__ int acc_col(const Frag& f, int i) { return 8 * (i >> 2) + f.col + (i & 1); }
+
+// Value i of a swizzled bf16 tile at the accumulators' places, from column col0.
+__device__ __forceinline__ float tile_at(const unsigned char* tile, const Frag& f, int i, int col0) {
+  return __bfloat162float(*reinterpret_cast<const bf16*>(tile + wg::swz(acc_row(f, i), col0 + acc_col(f, i))));
+}
+
+// Phase 1 of the post backward on this block's 64-row tiles, warpgroup w
+// taking the columns [64 w, 64 w + 64) of every product's output:
+//   per 128-column chunk of the hidden: dz1 = (g W_down) act'(saved) (fp32
+//   accumulators), bf16(dz1) to sc and to the chunk's A tile, dy2 += bf16(dz1)
+//   W_up (a second set of accumulators); then LN2's backward on dy2 with the
+//   statistics recomputed from r1 (row sums: quad shuffles, then the two
+//   warpgroups' halves in order), y2 to sa, dr1 = g + LN2^T(dy2) to dh (fp32)
+//   and bf16(dr1) to sb and to the A tile of dattn = bf16(dr1) W_o (fp32
+//   out).  The tile's column sums of db_o, dg2, dbb2, db_up and db_down go to
+//   its row of `part`.
+__global__ void __launch_bounds__(fbf::threads(WGS), BLOCKS_PER_SM)
+    post_bwd_kernel(const FbParams p, const Layout L, int num_sums) {
+  constexpr int NT = WGS * 128;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = wg::aligned_base(smem_raw);
+  const FbChain& c = p.chain[blockIdx.y];
+  const int E = p.embed, F = p.ff, n_rows = p.num_rows, act = p.activation;
+  float* par = reinterpret_cast<float*>(smem + L.par);  // g2, bb2 [E each], the column sums', the row sums' partials
+  wg::Ring ring = fbf::make_ring<WGS>(smem, L);
+  for (int i = threadIdx.x; i < E; i += fbf::threads(WGS)) {
+    par[i] = static_cast<const float*>(c.ln_g)[i];
+    par[E + i] = static_cast<const float*>(c.ln_b)[i];
+  }
+  __syncthreads();
+  if (fbf::producer<WGS>(ring, smem, L, c.wpack)) return;
+
+  const int w = wg::warp_index() / 4, t = threadIdx.x & 127, bar = 2 + w;
+  const int cw = w * NW;                                  // this warpgroup's first column of a product's output
+  const uint32_t b_off = w * NW * wg::KBLOCK * 2;         // its rows of each image
+  float* red = par + 2 * E + w * (RED_FLOATS / WGS);
+  float* rowsum = par + 2 * E + RED_FLOATS;               // [WGS][64 rows][4]
+  unsigned char* ta = smem + L.wg0 + L.t[0];  // g, then bf16(dr1)
+  unsigned char* tr = smem + L.wg0 + L.t[1];  // r1
+  unsigned char* th = smem + L.wg0 + L.t[2];  // a 128-column chunk of bf16(dz1), then y2
+  const Frag f(t);
+  const bf16* saved = static_cast<const bf16*>(c.s);
+  bf16* sc = static_cast<bf16*>(c.sc);
+  float* dattn = static_cast<float*>(c.out0);
+  float* dh = static_cast<float*>(c.out1);
+  const float* g2 = par;
+  const int ecols = max(0, min(NW, E - cw));  // this warpgroup's columns of dy2, dr1 and dattn
+  // The sums over both warpgroups' halves of a row of the thread's two rows'
+  // values a and b (quad sums first), through slot `slot` of rowsum.
+  auto row_totals = [&](float& a, float& b, int slot) {
+    a = wg::quad_sum(a);
+    b = wg::quad_sum(b);
+    if ((t & 3) == 0) {
+      rowsum[(w * 64 + f.row) * 4 + slot] = a;
+      rowsum[(w * 64 + f.row + 8) * 4 + slot] = b;
+    }
+    wg::group_sync(1, NT);
+    a = rowsum[f.row * 4 + slot] + rowsum[(64 + f.row) * 4 + slot];
+    b = rowsum[(f.row + 8) * 4 + slot] + rowsum[(64 + f.row + 8) * 4 + slot];
+  };
+  float d[NA], acc[NA];
+  for (int tile = blockIdx.x; tile < L.tiles; tile += gridDim.x) {
+    const int row0 = tile * wg::TILE_M;
+    float* part = static_cast<float*>(c.part) + size_t(tile) * num_sums;
+    if (ring.resident) ring.next = 0;
+    wg::group_sync(1, NT);  // the last tile's readers of the tiles and of rowsum are done
+    wg::load_x<true, 2, NT>(c.g, E, row0, n_rows, ta, threadIdx.x);
+    wg::load_x<true, 2, NT>(c.r1, E, row0, n_rows, tr, threadIdx.x);
+    wg::fence_async_smem();
+    wg::group_sync(1, NT);
+    wg::zero(acc);
+    for (int c0 = 0; c0 < F; c0 += wg::STAGE_N) {
+      const int cols = min(wg::STAGE_N, F - c0), ccols = max(0, min(NW, cols - cw));  // the chunk's, this half's
+      {
+        uint32_t sv[NA / 2];
+        // The loads fly during the ring's wait and the product.
+        wg::load_pairs<NA>(saved, F, c0 + cw, ccols, row0, n_rows, f, sv);
+        wg::zero(d);
+        wg::issue(d, wg::smem_u32(ta), E, ring, b_off);
+        wg::finish(d, ring);
+        mlp::mul_act_grad(d, [&](int i) { return wg::pair_at(sv, i); }, act);
+      }
+      wg::col_sums<NA>([&](int i) { return d[i]; }, ccols, red, part + 3 * E + c0 + cw, f, t, bar);  // db_up
+      wg::store_bf16(d, ccols, sc, F, c0 + cw, row0, n_rows, f);
+      wg::to_tile(d, max(0, min(NW, pad64(cols) - cw)), th, f, cw);  // past `cols` the accumulators are 0
+      wg::fence_async_smem();
+      wg::group_sync(1, NT);  // both halves of the chunk are in th
+      wg::issue(acc, wg::smem_u32(th), cols, ring, b_off);
+      wg::finish(acc, ring);
+      wg::group_sync(1, NT);  // both warpgroups' products are done with th
+    }
+    // LN2 recomputed from r1: xhat in d, per row mean and 1 / sqrt(var + eps).
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      d[i] = cw + 8 * (i >> 2) < E ? tile_at(tr, f, i, cw) : 0.f;
+      ((i >> 1) & 1 ? s1 : s0) += d[i];
+    }
+    row_totals(s0, s1, 0);
+    const float m0 = s0 / E, m1 = s1 / E;
+    float q0 = 0.f, q1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const float x = cw + 8 * (i >> 2) < E ? d[i] - ((i >> 1) & 1 ? m1 : m0) : 0.f;
+      ((i >> 1) & 1 ? q1 : q0) += x * x;
+    }
+    row_totals(q0, q1, 1);
+    const float inv0 = 1.f / sqrtf(q0 / E + fbf::LN_EPS), inv1 = 1.f / sqrtf(q1 / E + fbf::LN_EPS);
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const bool hi = (i >> 1) & 1;
+      d[i] = cw + 8 * (i >> 2) < E ? (d[i] - (hi ? m1 : m0)) * (hi ? inv1 : inv0) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < NA / 4; ++j) {  // y2 = bf16(xhat g2 + bb2) into th (free since the last chunk)
+      if (8 * j < ecols) {
+        const int col = cw + 8 * j + f.col;
+        const float ga = g2[col], gb = g2[col + 1], ba = par[E + col], bb = par[E + col + 1];
+        wg::put2(th, f.row, col, d[4 * j] * ga + ba, d[4 * j + 1] * gb + bb);
+        wg::put2(th, f.row + 8, col, d[4 * j + 2] * ga + ba, d[4 * j + 3] * gb + bb);
+      }
+    }
+    {  // dg2 = sum dy2 xhat, dbb2 = sum dy2, db_down = sum g (its barriers also publish this half of y2)
+      float* const outs[3] = {part + E + cw, part + 2 * E + cw, part + 3 * E + F + cw};
+      wg::col_sums<NA, 3>(
+          [&](int s, int i) { return s == 0 ? acc[i] * d[i] : (s == 1 ? acc[i] : tile_at(ta, f, i, cw)); }, ecols, red,
+          outs, f, t, bar);
+    }
+    wg::store_rows(th + w * wg::ABLOCK_BYTES, ecols, static_cast<bf16*>(c.sa), E, cw, row0, n_rows, t);
+    // dr1 = inv (dy2 g2 - mean(dy2 g2) - xhat mean(dy2 g2 xhat)) + g, in acc.
+    float a0 = 0.f, a1 = 0.f, b0 = 0.f, b1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      acc[i] = cw + 8 * (i >> 2) < E ? acc[i] * g2[cw + acc_col(f, i)] : 0.f;
+      const bool hi = (i >> 1) & 1;
+      (hi ? a1 : a0) += acc[i];
+      (hi ? b1 : b0) += acc[i] * d[i];
+    }
+    row_totals(a0, a1, 2);
+    row_totals(b0, b1, 3);
+    const float mean0 = a0 / E, mean1 = a1 / E, mx0 = b0 / E, mx1 = b1 / E;
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const bool hi = (i >> 1) & 1;
+      acc[i] = cw + 8 * (i >> 2) < E
+                   ? (hi ? inv1 : inv0) * (acc[i] - (hi ? mean1 : mean0) - d[i] * (hi ? mx1 : mx0)) + tile_at(ta, f, i, cw)
+                   : 0.f;
+    }
+    wg::store_f32(acc, ecols, dh, E, cw, row0, n_rows, f);
+    wg::col_sums<NA>([&](int i) { return acc[i]; }, ecols, red, part + cw, f, t, bar);  // db_o
+    // Each warpgroup overwrites only the half of g it read; every product
+    // that read g as its A operand is done.
+    wg::to_tile(acc, max(0, min(NW, pad64(E) - cw)), ta, f, cw);
+    wg::fence_async_smem();
+    wg::wg_sync(bar);
+    wg::store_rows(ta + w * wg::ABLOCK_BYTES, ecols, static_cast<bf16*>(c.sb), E, cw, row0, n_rows, t);
+    wg::group_sync(1, NT);  // both halves of bf16(dr1) are in ta
+    wg::zero(d);
+    wg::issue(d, wg::smem_u32(ta), E, ring, b_off);
+    wg::finish(d, ring);
+    wg::store_f32(d, ecols, dattn, E, cw, row0, n_rows, f);
+  }
+}
+
+// The pack kernel, then the persistent kernel, on `stream`.
+int launch(const FbParams* p, int num_chains, int num_sums, cudaStream_t stream) {
+  fbf::Plan P;
+  int err = plan(*p, num_chains, P);
+  if (err != 0) return err;
+  if (P.pack.count != p->num_stages) return static_cast<int>(cudaErrorInvalidValue);
+  static bool opted_in[64] = {};  // the shared-memory limit, set once per device
+  if (!opted_in[P.device & 63]) {
+    const cudaError_t e = cudaFuncSetAttribute(reinterpret_cast<const void*>(post_bwd_kernel),
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, fbf::BLOCK_SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opted_in[P.device & 63] = true;
+  }
+  pack_kernel<<<dim3(P.pack.count, num_chains, wg::PACK_SPLIT), wg::PACK_THREADS, 0, stream>>>(*p, P.pack);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  post_bwd_kernel<<<dim3(P.blocks, num_chains), fbf::threads(WGS), P.L.bytes, stream>>>(*p, P.L, num_sums);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace fbb
+
 extern "C" const char* fused_block_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
@@ -975,22 +1154,31 @@ extern "C" int fused_block_fwd_plan(const FbParams* p, int num_chains, int post,
   return 0;
 }
 
-// The backwards: phase 1 (the row kernel), then phase 2 (dw_phase2.cuh) on
-// the jobs below; `s` is phase 2's split and scratch.
+// The post backward's plan as the launch takes it (fused_block_fwd_plan's
+// fields).
+extern "C" int fused_block_post_bwd_plan(const FbParams* p, int num_chains, int* out) {
+  fbf::Plan P;
+  const int err = fbb::plan(*p, num_chains, P);
+  if (err != 0) return err;
+  const int v[7] = {P.pack.count, P.L.slots, P.L.resident, P.L.tiles, P.blocks, P.L.bytes, P.sms};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
+}
+
+// The backwards: phase 1 (the pre backward's row kernel; the post backward's
+// pack and persistent kernel, fbb), then phase 2 (dw_phase2.cuh) on the jobs
+// below; `s` is phase 2's split and scratch.
 namespace fb {
 
-int launch_bwd(const void* rows_kernel, const FbParams* p, int num_chains, int num_sums, dw::Phase2& P,
-               const DwScratch* s, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+// Phase 2's column sums: each chain's per-tile partials [row_tiles,
+// num_sums] into its `sums`.
+void set_sums(dw::Phase2& P, const FbParams* p, int num_chains, int num_sums) {
   for (int c = 0; c < num_chains; ++c) {
     P.sum[c][0] = {static_cast<const float*>(p->chain[c].part), static_cast<float*>(p->chain[c].sums), num_sums, 0,
                    num_sums, 1};
     P.num_sums[c] = 1;
   }
   P.num_rows = p->num_rows;
-  int err = launch_rows(rows_kernel, p, num_chains, st, num_sums, true);
-  if (err != 0) return err;
-  return dw::launch(P, num_chains, s, st);
 }
 
 }  // namespace fb
@@ -1010,7 +1198,11 @@ extern "C" int fused_block_pre_bwd(const FbParams* p, int num_chains, const DwSc
   }
   P.num_jobs = 4;
   P.activation = 0;
-  return fb::launch_bwd(reinterpret_cast<const void*>(fb::pre_bwd_rows_kernel), p, num_chains, 6 * E, P, s, stream);
+  fb::set_sums(P, p, num_chains, 6 * E);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = fb::launch_rows(reinterpret_cast<const void*>(fb::pre_bwd_rows_kernel), p, num_chains, st, 6 * E);
+  if (err != 0) return err;
+  return dw::launch(P, num_chains, s, st);
 }
 
 extern "C" int fused_block_post_bwd(const FbParams* p, int num_chains, const DwScratch* s, void* stream) {
@@ -1027,6 +1219,9 @@ extern "C" int fused_block_post_bwd(const FbParams* p, int num_chains, const DwS
   }
   P.num_jobs = 3;
   P.activation = p->activation;
-  return fb::launch_bwd(reinterpret_cast<const void*>(fb::post_bwd_rows_kernel), p, num_chains, 4 * E + F, P, s,
-                        stream);
+  fb::set_sums(P, p, num_chains, 4 * E + F);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = fbb::launch(p, num_chains, 4 * E + F, st);
+  if (err != 0) return err;
+  return dw::launch(P, num_chains, s, st);
 }

@@ -2,8 +2,9 @@
 // mbarriers, bulk copies into shared memory, warpgroup products (wgmma) on
 // 128-byte-swizzled K-major bf16 operands, the swizzled tile layout those
 // operands live in, the weight images (the pack) and the accumulator
-// epilogues.  Used by the fused block's forwards (fused_block.cu, fbf) and
-// the MLP chain forward (mlp_chain_fwd.cu, mlpf).
+// epilogues.  Used by the fused block's forwards and post backward
+// (fused_block.cu, fbf and fbb) and the MLP chain's forward and backward
+// (mlp_chain_fwd.cu, mlpf; mlp_chain_bwd.cu, mlpb).
 //
 // Tile layout ("swizzled tile"): a bf16 matrix of R rows is kept in K blocks
 // of 64 columns; block b holds R rows of 128 bytes at b * R * 128, and the
@@ -17,6 +18,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace wg {
 
 using bf16 = __nv_bfloat16;
@@ -26,6 +29,9 @@ constexpr int KBLOCK = 64;                      // bf16 columns per swizzled row
 constexpr int STAGE_N = 128;                    // weight rows (output columns) per stage image
 constexpr int STAGE_BYTES = STAGE_N * KBLOCK * 2;  // 16 KB: one [128][64] bf16 weight slice
 constexpr int ABLOCK_BYTES = TILE_M * KBLOCK * 2;  // 8 KB: one K block of a 64-row tile
+constexpr int SM_SMEM = 233472;                     // shared memory of one SM
+constexpr int BLOCK_SMEM = 232448;                  // the most one block may use
+constexpr int SLOT_COST = STAGE_BYTES + 16;         // a ring slot and its two barriers
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -242,6 +248,23 @@ __device__ __forceinline__ Ring make_ring(unsigned char* smem, int ring_off, int
   return r;
 }
 
+// The ring of a chain kernel (mlp_chain_fwd.cu, mlp_chain_bwd.cu) beside
+// `fixed` bytes of shared memory per block: resident (a slot per image)
+// before streamed (at least 2 slots: wg::issue keeps one image in flight),
+// and for each two blocks per SM before one, unless the launch has no more
+// tiles than SMs (`few_tiles`).  Returns the slots (-1: none fits) and sets
+// per_sm.  Mirrored by weight_images.py (_ring).
+inline int ring_slots(int per_tile, int fixed, bool few_tiles, int& per_sm) {
+  for (int pass = 0; pass < 2; ++pass) {
+    for (per_sm = few_tiles ? 1 : 2; per_sm >= 1; --per_sm) {
+      const int fit = (std::min(BLOCK_SMEM, SM_SMEM / per_sm - 1024) - 1024 - fixed) / SLOT_COST;
+      if (pass == 0 && fit >= per_tile) return per_tile;
+      if (pass == 1 && fit >= 2) return fit;
+    }
+  }
+  return -1;
+}
+
 // The producer thread: loads the images of `tiles` tiles in order.
 __device__ __forceinline__ void produce(const Ring& r, unsigned char* ring_ptr, const unsigned char* images,
                                         int per_tile, int tiles) {
@@ -404,7 +427,10 @@ __device__ __forceinline__ float2 get2(const unsigned char* tile, int row, int c
 // past the matrix.  A Pack lists the images of one kernel in the order it
 // takes them, and the matrices they come from: matrix m stacks the fp32
 // [out, in] weights w[first[m]], w[first[m] + 1], ... of seg[m] rows each,
-// rows[m] x cols[m] in all.  The images are made afresh on every call (an
+// rows[m] x cols[m] in all; or, with trans[m], it is the transpose of the one
+// weight w[first[m]] ([cols[m], rows[m]] as stored): a backward's data
+// product d_in = d_out W takes B(k = out, n = in) = W[k][n], whose K-major
+// image is one of W^T.  The images are made afresh on every call (an
 // optimizer updates the weights in place).  Mirrored by
 // nn/kernels/weight_images.py (pack_plain).
 constexpr int PACK_MAX_STAGES = 256;  // an 8-layer chain of 512-wide layers
@@ -419,7 +445,7 @@ struct Stage {
 struct Pack {
   int count;
   Stage st[PACK_MAX_STAGES];
-  int first[PACK_MAX_MATS], seg[PACK_MAX_MATS], rows[PACK_MAX_MATS], cols[PACK_MAX_MATS];
+  int first[PACK_MAX_MATS], seg[PACK_MAX_MATS], rows[PACK_MAX_MATS], cols[PACK_MAX_MATS], trans[PACK_MAX_MATS];
 };
 
 __host__ __device__ constexpr int kblocks(int k) { return (k + KBLOCK - 1) / KBLOCK; }
@@ -430,11 +456,12 @@ inline void pack_add(Pack& P, int mat, int n0, int k0) {
   P.st[P.count++] = Stage{static_cast<int16_t>(mat), static_cast<int16_t>(n0), static_cast<int16_t>(k0)};
 }
 
-inline void pack_matrix(Pack& P, int m, int first, int seg, int rows, int cols) {
+inline void pack_matrix(Pack& P, int m, int first, int seg, int rows, int cols, int trans = 0) {
   P.first[m] = first;
-  P.seg[m] = seg;
+  P.seg[m] = trans ? rows : seg;
   P.rows[m] = rows;
   P.cols[m] = cols;
+  P.trans[m] = trans;
 }
 
 // The eight fp32 weights of unit u (image row u / 8, logical 16-byte chunk
@@ -445,7 +472,11 @@ __device__ __forceinline__ void pack_load(const Pack& P, const void* const* w, i
   const int row = st.n0 + (u >> 3), col0 = st.k0 + (u & 7) * 8;
 #pragma unroll
   for (int e = 0; e < 8; ++e) v[e] = 0.f;
-  if (row < P.rows[m] && col0 < cols) {  // cols is a multiple of 16: the unit is whole
+  if (row < P.rows[m] && col0 < cols && P.trans[m]) {  // column `row` of the stored weight, 8 of its rows
+    const float* src = static_cast<const float*>(w[P.first[m]]) + size_t(col0) * P.rows[m] + row;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = src[size_t(e) * P.rows[m]];
+  } else if (row < P.rows[m] && col0 < cols) {  // cols is a multiple of 16: the unit is whole
     const int q = row / P.seg[m];
     const float* src = static_cast<const float*>(w[P.first[m] + q]) + size_t(row - q * P.seg[m]) * cols + col0;
     if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
@@ -476,6 +507,27 @@ __device__ __forceinline__ void pack_unit(const Pack& P, const void* const* w, i
   float v[8];
   pack_load(P, w, s, u, v);
   pack_store(v, u, img);
+}
+
+// Every image of P once, image s into the slot at smem + s * STAGE_BYTES
+// (a resident ring), by the nt threads of a block (t of them), four units in
+// flight each; then the writes are made visible to wgmma.
+__device__ __forceinline__ void convert_images(const Pack& P, const void* const* w, unsigned char* smem, int t, int nt) {
+  const int total = P.count * PACK_UNITS;
+  for (int base = t; base < total; base += 4 * nt) {
+    float v[4][8];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int i = base + b * nt;
+      if (i < total) pack_load(P, w, i / PACK_UNITS, i % PACK_UNITS, v[b]);
+    }
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int i = base + b * nt;
+      if (i < total) pack_store(v[b], i % PACK_UNITS, smem + (i / PACK_UNITS) * STAGE_BYTES);
+    }
+  }
+  fence_async_smem();
 }
 
 // ---- accumulator epilogues ------------------------------------------------
@@ -562,6 +614,142 @@ __device__ __forceinline__ void store_bf16(const float (&d)[NA], int cols, bf16*
       const uint32_t v1 = __shfl_xor_sync(0xffffffffu, hi ? p1 : p3, 2);
       const uint4 out = hi ? make_uint4(v0, v1, p2, p3) : make_uint4(p0, p1, v0, v1);
       if (row < n_rows) *reinterpret_cast<uint4*>(dst + size_t(row) * ld + col0 + 16 * q + (hi ? 8 : 0)) = out;
+    }
+  }
+}
+
+// The first `cols` columns of d as fp32 rows of dst (leading dimension ld,
+// from column col0), 16-byte stores: the two threads of a pair swap halves
+// so that the even one holds four columns of `row`, the odd one four of
+// `row + 8`.
+template <int NA>
+__device__ __forceinline__ void store_f32(const float (&d)[NA], int cols, float* dst, int ld, int col0, int row0,
+                                          int n_rows, const Frag& f) {
+  const bool odd = threadIdx.x & 1;
+  const int row = row0 + f.row + (odd ? 8 : 0);
+  const int col = col0 + f.col - (odd ? 2 : 0);
+#pragma unroll
+  for (int j = 0; j < NA / 4; ++j) {
+    if (8 * j < cols) {
+      const float s0 = odd ? d[4 * j] : d[4 * j + 2], s1 = odd ? d[4 * j + 1] : d[4 * j + 3];
+      const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1), r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+      const float4 v = odd ? make_float4(r0, r1, d[4 * j + 2], d[4 * j + 3]) : make_float4(d[4 * j], d[4 * j + 1], r0, r1);
+      if (row < n_rows) *reinterpret_cast<float4*>(dst + size_t(row) * ld + 8 * j + col) = v;
+    }
+  }
+}
+
+// The bf16 pairs of a row-major [n_rows, ld] matrix at the accumulators'
+// places, columns col0 onwards (the first `cols` of them; 0 elsewhere and
+// past the end), one 4-byte load each: v[i / 2] holds accumulator i's value
+// (pair_at), half the registers of fp32 values.
+template <int NA>
+__device__ __forceinline__ void load_pairs(const bf16* src, int ld, int col0, int cols, int row0, int n_rows,
+                                           const Frag& f, uint32_t (&v)[NA / 2]) {
+  const int ra = row0 + f.row, rb = ra + 8;
+#pragma unroll
+  for (int j = 0; j < NA / 4; ++j) {
+    uint32_t a = 0u, b = 0u;
+    if (8 * j < cols) {
+      const bf16* p = src + col0 + 8 * j + f.col;
+      if (ra < n_rows) a = *reinterpret_cast<const uint32_t*>(p + size_t(ra) * ld);
+      if (rb < n_rows) b = *reinterpret_cast<const uint32_t*>(p + size_t(rb) * ld);
+    }
+    v[2 * j] = a;
+    v[2 * j + 1] = b;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ float pair_at(const uint32_t (&v)[N], int i) {
+  return __uint_as_float(i & 1 ? v[i >> 1] & 0xffff0000u : v[i >> 1] << 16);
+}
+
+// Column sums over a warpgroup's 64 rows of S sets of values value(s, i) at
+// the accumulators' places (i < NA), first `cols` columns, into out[s][0 ..
+// cols): in a fixed order, without atomics: each thread adds its two rows,
+// the eight lanes that share a column add by shuffles, then the warpgroup's
+// threads add the four warps' sums of each column in warp order through
+// `red` ([S][4][2 NA] floats of shared memory, this warpgroup's own).  One
+// pair of barriers for the S sets.  `bar`: the warpgroup's named barrier;
+// `t`: the thread in the warpgroup.
+template <int NA, int S, class Value>
+__device__ __forceinline__ void col_sums(const Value& value, int cols, float* red, float* const (&out)[S],
+                                         const Frag& f, int t, int bar) {
+  const int warp = t >> 5;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+#pragma unroll
+    for (int j = 0; j < NA / 4; ++j) {
+      if (8 * j < cols) {
+        float s0 = value(s, 4 * j) + value(s, 4 * j + 2), s1 = value(s, 4 * j + 1) + value(s, 4 * j + 3);
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+          s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+        }
+        if ((t & 31) < 4) {
+          red[(s * 4 + warp) * 2 * NA + 8 * j + f.col] = s0;
+          red[(s * 4 + warp) * 2 * NA + 8 * j + f.col + 1] = s1;
+        }
+      }
+    }
+  }
+  wg_sync(bar);
+  for (int q = t; q < S * cols; q += 128) {
+    const int s = q / cols, c = q - s * cols;
+    const float* r = red + s * 8 * NA;
+    out[s][c] = ((r[c] + r[2 * NA + c]) + r[4 * NA + c]) + r[6 * NA + c];
+  }
+  wg_sync(bar);  // red is free for the next sums
+}
+
+// One set: value(i), into out[0 .. cols).
+template <int NA, class Value>
+__device__ __forceinline__ void col_sums(const Value& value, int cols, float* red, float* out, const Frag& f, int t,
+                                         int bar) {
+  float* const outs[1] = {out};
+  col_sums<NA, 1>([&](int, int i) { return value(i); }, cols, red, outs, f, t, bar);
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Rows [row0, row0 + 64) of x ([n_rows, width], fp32 or bf16, 16-byte aligned
+// rows) into a swizzled bf16 tile, one 16-byte chunk of the tile (8 columns)
+// per unit, by the NT threads (`t` of them); rows past the end, and columns
+// from `width` to the next multiple of 64, are 0.  B units are in flight per
+// thread before their stores.
+template <bool BF16, int B, int NT>
+__device__ __forceinline__ void load_x(const void* src, int width, int row0, int n_rows, unsigned char* tile, int t) {
+  const int units = pad64(width) / 8, total = TILE_M * units;
+  for (int base = t; base < total; base += B * NT) {
+    uint4 v[B];
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      const int i = base + u * NT;
+      const int m = i / units, col = (i - m * units) * 8;
+      v[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (i < total && row0 + m < n_rows && col < width) {
+        const size_t idx = size_t(row0 + m) * width + col;
+        if (BF16) {
+          v[u] = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(src) + idx);
+        } else {
+          const float4 a = *reinterpret_cast<const float4*>(static_cast<const float*>(src) + idx);
+          const float4 b = *reinterpret_cast<const float4*>(static_cast<const float*>(src) + idx + 4);
+          v[u] = make_uint4(pack2(a.x, a.y), pack2(a.z, a.w), pack2(b.x, b.y), pack2(b.z, b.w));
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      const int i = base + u * NT;
+      if (i < total) {
+        const int m = i / units;
+        *reinterpret_cast<uint4*>(tile + swz(m, (i - m * units) * 8)) = v[u];
+      }
     }
   }
 }

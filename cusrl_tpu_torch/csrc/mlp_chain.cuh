@@ -1,9 +1,10 @@
 // Shared definitions of the fused Linear+activation chain kernels for Hopper
 // (sm_90a): the parameter block passed from Python through ctypes (chains,
 // their fp32 heads and the PPO loss), the tile constants, the activations, and
-// the block-level bf16 tensor-core GEMM of the backwards' row kernels and of
-// K9m's forward (16x16x16 WMMA on fp32 weights restaged per 64-row tile; the
-// forward of K1f/K2f/K8f is the wgmma design of mlp_chain_fwd.cu).
+// the block-level bf16 tensor-core GEMM of K9m's row kernel (16x16x16 WMMA on
+// fp32 weights restaged per 64-row tile; K1f/K2f/K8f and phase 1 of
+// K1b/K2b/K8b/K9s are the wgmma designs of mlp_chain_fwd.cu and
+// mlp_chain_bwd.cu).
 //
 // Numerics follow the TPU kernels in cusrl_tpu/nn/kernels/fused_mlp.py:
 // bf16 operands, fp32 accumulation, fp32 bias, round to bf16, activation in
@@ -31,7 +32,7 @@ struct MlpChain {
   void* dw[MLP_MAX_LAYERS];      // bwd out: [dims[l+1], dims[l]] fp32
   void* db[MLP_MAX_LAYERS];      // bwd out: [dims[l+1]] fp32
   void* dx;                      // bwd out: [N, dims[0]] fp32 (unused with skip_input_grad)
-  void* wpack;                   // fwd scratch: [num_stages][128][64] bf16, the weights' images (wg::Pack)
+  void* wpack;                   // fwd, bwd scratch: [num_stages][128][64] bf16, the weights' images (wg::Pack)
 };
 
 // An fp32 head on a chain's output h_L (K8f, K8b, K9s): out = f32(h_L) W^T + b,
@@ -82,7 +83,7 @@ struct MlpParams {
   int x_is_bf16;
   int skip_input_grad;  // bwd: no dX for layer 0
   int head_mode;        // 0: no heads; 1: heads (K8f writes out, K8b reads g); 2: heads + loss (K9s)
-  int num_stages;       // fwd: weight images per chain the caller allocated in wpack (0: none)
+  int num_stages;       // weight images per chain the caller allocated in wpack (0: none)
 };
 
 namespace mlp {
@@ -112,7 +113,7 @@ constexpr size_t SMEM_BYTES = 2 * ACT_BYTES + WS_BYTES + STG_BYTES;
 static_assert(ACT_BYTES % 128 == 0 && WS_BYTES % 128 == 0, "smem regions must stay 128-byte aligned");
 static_assert(SMEM_BYTES <= 232448, "exceeds the 227 KB a block may use");
 static_assert(size_t(BM) * MAX_HEAD_DIM * sizeof(float) <= WS_BYTES, "head tile must fit the weight-slice region");
-static_assert(LOSS_COL + 4 + MAX_HEAD_DIM <= SLD, "per-row loss terms must fit the staging tile");
+static_assert(LOSS_COL + 2 + MAX_HEAD_DIM <= SLD, "per-row loss terms must fit the staging tile");
 
 __device__ __forceinline__ float bf16_round(float v) { return __bfloat162float(__float2bfloat16(v)); }
 
@@ -176,6 +177,25 @@ __device__ __forceinline__ float act_grad_from_saved(int activation, float s) {
       return 0.5f * (1.f + t) + 0.5f * s * (1.f - t * t) * du;
     }
     default: return 1.f;
+  }
+}
+
+// d[i] *= act'(saved(i)) on the NA accumulators of a warpgroup product
+// (mlp_chain_bwd.cu, fused_block.cu), the activation fixed at compile time so
+// that the elements' chains interleave.
+template <int NA, class Saved>
+__device__ __forceinline__ void mul_act_grad(float (&d)[NA], const Saved& saved, int act) {
+  switch (act) {
+#define MLP_ACT_GRAD_CASE(A)                                                     \
+  case A:                                                                        \
+    _Pragma("unroll") for (int i = 0; i < NA; ++i) d[i] *= act_grad_from_saved(A, saved(i)); \
+    break;
+    MLP_ACT_GRAD_CASE(1)
+    MLP_ACT_GRAD_CASE(2)
+    MLP_ACT_GRAD_CASE(3)
+    MLP_ACT_GRAD_CASE(ACT_GELU)
+#undef MLP_ACT_GRAD_CASE
+    default: break;  // identity
   }
 }
 

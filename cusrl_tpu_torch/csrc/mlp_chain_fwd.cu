@@ -82,9 +82,7 @@ using wg::bf16;
 // another's products and latencies.
 __host__ __device__ constexpr int consumer_wgs(int per_sm) { return per_sm == 1 ? 4 : 2; }
 __host__ __device__ constexpr int threads(int per_sm) { return consumer_wgs(per_sm) * 128 + 32; }  // and a producer warp
-constexpr int SM_SMEM = 233472;     // shared memory of one SM
-constexpr int BLOCK_SMEM = 232448;  // the most one block may use
-constexpr int SLOT_COST = wg::STAGE_BYTES + 16;  // a ring slot and its two barriers
+using wg::BLOCK_SMEM;
 
 // A block's shared memory, byte offsets from its 1,024-aligned base: the
 // ring's slots, the two activation tiles, the ring's barriers.
@@ -146,20 +144,8 @@ inline int plan(const MlpParams& p, int num_chains, Plan& out) {
   L.per_tile = out.pack.count;
   L.tiles = (p.num_rows + wg::TILE_M - 1) / wg::TILE_M;
   const int t0 = tile_bytes(p, 0), t1 = tile_bytes(p, 1);
-  // Resident before streamed (a streamed ring needs 2 slots: wg::issue keeps
-  // one image in flight), and for each two blocks per SM before one, unless
-  // the launch has no more tiles than SMs.
-  const int first = L.tiles * num_chains <= out.sms ? 1 : 2;
-  L.slots = 0;
-  for (int pass = 0; pass < 2 && L.slots == 0; ++pass) {
-    for (int per_sm = first; per_sm >= 1 && L.slots == 0; --per_sm) {
-      const int fit = (std::min(BLOCK_SMEM, SM_SMEM / per_sm - 1024) - 1024 - t0 - t1) / SLOT_COST;
-      L.per_sm = per_sm;
-      if (pass == 0 && fit >= L.per_tile) L.slots = L.per_tile;
-      if (pass == 1 && fit >= 2) L.slots = fit;
-    }
-  }
-  if (L.slots == 0) return static_cast<int>(cudaErrorInvalidValue);
+  L.slots = wg::ring_slots(L.per_tile, t0 + t1, L.tiles * num_chains <= out.sms, L.per_sm);
+  if (L.slots < 1) return static_cast<int>(cudaErrorInvalidValue);
   L.resident = L.slots == L.per_tile;
   L.buf[0] = L.slots * wg::STAGE_BYTES;
   L.buf[1] = L.buf[0] + t0;
@@ -177,43 +163,6 @@ __global__ void __launch_bounds__(wg::PACK_THREADS) pack_kernel(const MlpParams 
   const MlpChain& c = p.chain[blockIdx.y];
   wg::pack_unit(P, c.w, blockIdx.x, blockIdx.z * wg::PACK_THREADS + threadIdx.x,
                 static_cast<unsigned char*>(c.wpack) + size_t(blockIdx.x) * wg::STAGE_BYTES);
-}
-
-// Rows [row0, row0 + 64) of x ([n_rows, width], fp32 or bf16, 16-byte aligned
-// rows) into a swizzled bf16 tile, one 16-byte chunk of the tile (8 columns)
-// per unit, by the NT consumer threads; rows past the end, and
-// columns from `width` to the next multiple of 64, are 0.  B units are in
-// flight per thread before their stores.
-template <bool BF16, int B, int NT>
-__device__ __forceinline__ void load_x(const void* src, int width, int row0, int n_rows, unsigned char* tile, int t) {
-  const int units = wg::pad64(width) / 8, total = wg::TILE_M * units;
-  for (int base = t; base < total; base += B * NT) {
-    uint4 v[B];
-#pragma unroll
-    for (int u = 0; u < B; ++u) {
-      const int i = base + u * NT;
-      const int m = i / units, col = (i - m * units) * 8;
-      v[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (i < total && row0 + m < n_rows && col < width) {
-        const size_t idx = size_t(row0 + m) * width + col;
-        if (BF16) {
-          v[u] = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(src) + idx);
-        } else {
-          const float4 a = *reinterpret_cast<const float4*>(static_cast<const float*>(src) + idx);
-          const float4 b = *reinterpret_cast<const float4*>(static_cast<const float*>(src) + idx + 4);
-          v[u] = make_uint4(wg::pack2(a.x, a.y), wg::pack2(a.z, a.w), wg::pack2(b.x, b.y), wg::pack2(b.z, b.w));
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < B; ++u) {
-      const int i = base + u * NT;
-      if (i < total) {
-        const int m = i / units;
-        *reinterpret_cast<uint4*>(tile + wg::swz(m, (i - m * units) * 8)) = v[u];
-      }
-    }
-  }
 }
 
 // K8f: out[r][o] = f32(latent[r]) . W[o] + b[o] for the tile's rows, in
@@ -266,23 +215,7 @@ __global__ void __launch_bounds__(threads(PER_SM), PER_SM) chain_fwd_kernel(cons
   unsigned char* smem = wg::aligned_base(smem_raw);
   const MlpChain& c = p.chain[blockIdx.y];
   wg::Ring ring = wg::make_ring(smem, 0, L.bar, L.slots, L.resident, WGS * 4);
-  if (L.resident) {  // every image once, into its own slot, by every thread; four units in flight each
-    const int total = L.per_tile * wg::PACK_UNITS;
-    for (int base = threadIdx.x; base < total; base += 4 * threads(PER_SM)) {
-      float v[4][8];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int i = base + b * threads(PER_SM);
-        if (i < total) wg::pack_load(P, c.w, i / wg::PACK_UNITS, i % wg::PACK_UNITS, v[b]);
-      }
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int i = base + b * threads(PER_SM);
-        if (i < total) wg::pack_store(v[b], i % wg::PACK_UNITS, smem + (i / wg::PACK_UNITS) * wg::STAGE_BYTES);
-      }
-    }
-    wg::fence_async_smem();
-  }
+  if (L.resident) wg::convert_images(P, c.w, smem, threadIdx.x, threads(PER_SM));  // each image once, into its slot
   __syncthreads();  // the barriers are initialised (and the images converted)
   if (wg::warp_index() == WGS * 4) {
     if (!L.resident && threadIdx.x == NT) {
@@ -307,9 +240,9 @@ __global__ void __launch_bounds__(threads(PER_SM), PER_SM) chain_fwd_kernel(cons
     if (ring.resident) ring.next = 0;
     wg::group_sync(1, NT);  // the last tile's products and heads are done with the tiles
     if (p.x_is_bf16) {
-      load_x<true, 8 / WGS, NT>(c.x, p.dims[0], row0, n_rows, buf[0], t);
+      wg::load_x<true, 8 / WGS, NT>(c.x, p.dims[0], row0, n_rows, buf[0], t);
     } else {
-      load_x<false, 4 / WGS, NT>(c.x, p.dims[0], row0, n_rows, buf[0], t);
+      wg::load_x<false, 4 / WGS, NT>(c.x, p.dims[0], row0, n_rows, buf[0], t);
     }
     wg::fence_async_smem();
     wg::group_sync(1, NT);

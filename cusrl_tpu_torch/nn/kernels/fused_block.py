@@ -17,7 +17,9 @@ and the critic's layers in one launch (K5):
   ``r1 = h + attn W_o^T + b``, ``out = r1 + FFN(LN2(r1))``; replaces
   ``_post_fwd_kernel`` and ``_pair_post_fwd_kernel``;
 - post backward (``fused_block_post_bwd``): replaces ``_post_bwd_kernel``
-  and ``_pair_post_bwd_kernel``.
+  and ``_pair_post_bwd_kernel``; its phase 1 takes its products with wgmma
+  from images of the transposed weights (``bwd_stages``), packed per call
+  and streamed as the post forward's (``post_bwd_plan`` mirrors its plan).
 
 What bounds them on the H100 and what the design does about it is written at
 the top of the CUDA source.  The forwards run in two launches: a pack kernel
@@ -62,6 +64,7 @@ from cusrl_tpu_torch.nn.kernels.fused_mlp import _ACTIVATION_CODES, _PREACT_ACTI
 __all__ = [
     "FWD_GRID",
     "LAUNCHES",
+    "bwd_stages",
     "STAGE_COLS",
     "STAGE_ROWS",
     "fused_block_pair_post",
@@ -72,6 +75,7 @@ __all__ = [
     "fwd_plan",
     "fwd_stages",
     "post_bwd_plain",
+    "post_bwd_plan",
     "post_fwd_plain",
     "post_reference",
     "pre_bwd_plain",
@@ -86,7 +90,7 @@ _SUPPORTED = ("elu", "relu", "tanh", "gelu", "identity", "none")
 LN_EPS = 1e-6
 MAX_EMBED = 128  # FB_MAX_EMBED in csrc/fused_block.cu
 MAX_WIDTH = 512  # MLP_MAX_WIDTH: the input and FFN widths
-WIDTH_MULTIPLE = 16  # the products' k16 steps (WMMA in the backwards, wgmma in the forwards)
+WIDTH_MULTIPLE = 16  # the products' k16 steps (WMMA in the pre backward, wgmma elsewhere)
 ROW_TILE = 64  # mlp::BM
 
 LAUNCHES: dict[str, int] = {f"K{k}{op}_{d}": 0 for k in (4, 5) for op in ("pre", "post") for d in ("f", "b")}
@@ -225,9 +229,51 @@ def fwd_stages(op: str, in_dim: int, embed: int, ff: int) -> list[tuple[int, int
     return stages
 
 
+def bwd_stages(embed: int, ff: int) -> list[tuple[int, int, int]]:
+    """``(matrix, n0, k0)`` of each weight image of the post backward's
+    phase 1 (``fbb::post_bwd_pack``), in the order its kernel takes them: per
+    128-column chunk of the FFN hidden, ``W_down^T``'s rows of the chunk by K
+    block (``dz1 = g W_down``), then ``W_up^T``'s K blocks of the chunk
+    (``dy2 += dz1 W_up``); last ``W_o^T`` by K block (``dattn = dr1 W_o``).
+    Matrices 0, 1, 2 are ``W_o``, ``W_up`` and ``W_down``, each transposed
+    (``weight_images.pack_plain(..., transpose=(True,) * 3)``)."""
+    stages = []
+    for c0 in range(0, ff, STAGE_ROWS):
+        stages += [(2, c0, k0) for k0 in range(0, embed, STAGE_COLS)]
+        stages += [(1, 0, k0) for k0 in range(c0, min(c0 + STAGE_ROWS, ff), STAGE_COLS)]
+    return stages + [(0, 0, k0) for k0 in range(0, embed, STAGE_COLS)]
+
+
 @functools.lru_cache(maxsize=None)
 def _stage_count(op: str, in_dim: int, embed: int, ff: int) -> int:
-    return len(fwd_stages(op, in_dim, embed, ff))
+    return len(bwd_stages(embed, ff)) if op == "post_bwd" else len(fwd_stages(op, in_dim, embed, ff))
+
+
+BARRIER_BYTES = 2 * 24 * 8  # a ring's barriers: up to 24 slots (fbf::BARRIER_BYTES)
+RED_FLOATS = 2 * 3 * 4 * 64  # the column sums' warp partials of both warpgroups, three sets at once (fbb::)
+ROW_FLOATS = 2 * 64 * 4  # the halves of four row sums per warpgroup and row (fbb::ROW_FLOATS)
+
+
+@functools.lru_cache(maxsize=256)
+def post_bwd_plan(rows: int, chains: int, embed: int, ff: int, sms: int) -> dict:
+    """The post backward's phase-1 plan (``fbb::plan`` through
+    ``fbf::make_layout``), with the keys of ``fwd_plan``: two consumer
+    warpgroups, each taking half of every product's columns, in each of two
+    blocks per SM; 64-row tiles of g, r1 and one 128-column chunk of the
+    hidden, LN2's parameters and the column and row sums' partials beside
+    the ring, whose slots take what is left."""
+    images = len(bwd_stages(embed, ff))
+    wg_bytes = 2 * weight_images.kblocks(embed) * weight_images.ABLOCK_BYTES + 2 * weight_images.ABLOCK_BYTES
+    par_bytes = ((2 * embed + RED_FLOATS + ROW_FLOATS) * 4 + 15) & ~15
+    budget = min(weight_images.BLOCK_SMEM, weight_images.SM_SMEM // 2 - 1024)
+    fit = (budget - 1024 - wg_bytes - par_bytes - BARRIER_BYTES) // weight_images.STAGE_BYTES
+    if fit < 2:
+        raise ValueError(f"no launch plan for the post backward at embed {embed}, ffn {ff}")
+    slots = min(images, fit)
+    tiles = -(-rows // ROW_TILE)
+    return dict(images=images, slots=slots, resident=int(slots == images), tiles=tiles,
+                blocks=weight_images.persistent_blocks(tiles, 2, chains, sms),
+                smem_bytes=slots * weight_images.STAGE_BYTES + wg_bytes + par_bytes + 16 * slots + 1024, sms=sms)
 
 
 def fwd_grid(op: str, rows: int, chains: int, num_sms: int) -> tuple[int, int]:
@@ -268,6 +314,7 @@ class _Params(ctypes.Structure):
 
 
 _ENTRIES = ("fused_block_pre_fwd", "fused_block_pre_bwd", "fused_block_post_fwd", "fused_block_post_bwd")
+_PLAN_KEYS = ("images", "slots", "resident", "tiles", "blocks", "smem_bytes", "sms")
 
 
 def _library() -> ctypes.CDLL:
@@ -286,6 +333,8 @@ def _library() -> ctypes.CDLL:
         lib.fused_block_fwd_plan.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_int,
                                              ctypes.POINTER(ctypes.c_int)]
         lib.fused_block_fwd_plan.restype = ctypes.c_int
+        lib.fused_block_post_bwd_plan.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.fused_block_post_bwd_plan.restype = ctypes.c_int
         lib.fused_block_error_string.argtypes = [ctypes.c_int]
         lib.fused_block_error_string.restype = ctypes.c_char_p
     return lib
@@ -317,7 +366,19 @@ def fwd_plan(op: str, rows: int, chains: int, in_dim: int, embed: int, ff: int, 
     code = lib.fused_block_fwd_plan(ctypes.byref(p), chains, int(op == "post"), out)
     if code != 0:
         raise RuntimeError(f"fused_block_fwd_plan failed: {lib.fused_block_error_string(code).decode()}")
-    return dict(zip(("images", "slots", "resident", "tiles", "blocks", "smem_bytes", "sms"), out))
+    return dict(zip(_PLAN_KEYS, out))
+
+
+def bwd_plan(rows: int, chains: int, embed: int, ff: int) -> dict:
+    """The plan ``fbb::plan`` makes for the post backward's phase 1 on the
+    current card, with the keys of ``post_bwd_plan``."""
+    p = _Params(num_rows=rows, embed=embed, ff=ff)
+    out = (ctypes.c_int * 7)()
+    lib = _library()
+    code = lib.fused_block_post_bwd_plan(ctypes.byref(p), chains, out)
+    if code != 0:
+        raise RuntimeError(f"fused_block_post_bwd_plan failed: {lib.fused_block_error_string(code).decode()}")
+    return dict(zip(_PLAN_KEYS, out))
 
 
 def _validate(rows, widths: dict, tensors, device) -> None:
@@ -470,14 +531,15 @@ def _launch_post_bwd(attns, gs, r1s, saveds, wss, activation, counter):
     _validate(n, {"embed": embed, "ffn": ff}, [*attns, *gs, *r1s, *saveds], device)
     row_tiles = max(-(-n // ROW_TILE), 1)
     num_sums = 4 * embed + ff
-    p = _Params(num_rows=n, embed=embed, ff=ff, activation=_ACTIVATION_CODES[activation])
+    stages = _stage_count("post_bwd", 0, embed, ff)
+    p = _Params(num_rows=n, embed=embed, ff=ff, activation=_ACTIVATION_CODES[activation], num_stages=stages)
     keep, results = [], []
     for i, (attn, g, r1, saved, ws) in enumerate(zip(attns, gs, r1s, saveds, wss)):
         w_o, w_up, w_down, g2, bb2 = _check_params(
             ws, ((embed, embed), (ff, embed), (embed, ff), (embed,), (embed,)))
         if g.shape != (n, embed) or r1.dtype != _BF16 or saved.dtype != _BF16 or saved.shape != (n, ff):
             raise ValueError("the cotangent must be [N, E] and the saved r1 / activations bf16 [N, E] / [N, F]")
-        attn, r1, saved = dw_phase2.aligned16(attn.float()), r1.contiguous(), dw_phase2.aligned16(saved)
+        attn, r1, saved = dw_phase2.aligned16(attn.float()), dw_phase2.aligned16(r1), dw_phase2.aligned16(saved)
         g = dw_phase2.aligned16(g.to(_BF16))
         dattn, dh = (torch.empty(n, embed, device=device) for _ in range(2))
         sa, sb = (torch.empty(n, embed, dtype=_BF16, device=device) for _ in range(2))
@@ -485,15 +547,17 @@ def _launch_post_bwd(attns, gs, r1s, saveds, wss, activation, counter):
         part = torch.empty(row_tiles, num_sums, device=device)
         dw = torch.empty(embed * embed + 2 * ff * embed, device=device)
         sums = torch.empty(num_sums, device=device)
+        wpack = torch.empty(stages, STAGE_ROWS, STAGE_COLS, dtype=_BF16, device=device)
         chain = p.chain[i]
         chain.x, chain.g, chain.r1, chain.s = attn.data_ptr(), g.data_ptr(), r1.data_ptr(), saved.data_ptr()
+        chain.wpack = wpack.data_ptr()
         for j, w in enumerate((w_o, w_up, w_down)):
             chain.w[j] = w.data_ptr()
         chain.ln_g, chain.ln_b = g2.data_ptr(), bb2.data_ptr()
         chain.out0, chain.out1 = dattn.data_ptr(), dh.data_ptr()
         chain.sa, chain.sb, chain.sc, chain.part, chain.dw, chain.sums = (
             t.data_ptr() for t in (sa, sb, sc, part, dw, sums))
-        keep += [attn, g, r1, saved, w_o, w_up, w_down, g2, bb2, sa, sb, sc, part]
+        keep += [attn, g, r1, saved, w_o, w_up, w_down, g2, bb2, sa, sb, sc, part, wpack]
         dw_o, dw_up, dw_down = dw.split([embed * embed, ff * embed, embed * ff])
         db_o, dg2, dbb2, db_up, db_down = sums.split([embed, embed, embed, ff, embed])
         results.append((dattn, dh, dw_o.view(embed, embed), db_o, dg2, dbb2, dw_up.view(ff, embed), db_up,

@@ -23,13 +23,15 @@ are fp32 islands: ``f32(latent) W^T + b`` with fp32 weights, and their
 backward keeps the latent's cotangent in fp32 until the activation derivative.
 
 What bounds them on the H100 and what the design does about it is written at
-the top of each CUDA source.  The forward (K1f, K2f, K8f) takes its products
-with wgmma from bf16 images of the weights (``weight_images.py``, shared with
-the fused block's forwards), made afresh on every call: a chain whose images
-fit in a block converts them there; a wider one is packed into scratch that
-``_launch_fwd`` allocates, in a second launch, and streams through a ring
-(``weight_images.chain_plan`` mirrors the kernel's plan, ``fwd_plan`` reads
-it from the card).  Beside each kernel this module keeps its plain
+the top of each CUDA source.  The forward (K1f, K2f, K8f) and phase 1 of the
+backward (K1b, K2b, K8b, K9s) take their products with wgmma from bf16
+images of the weights (``weight_images.py``, shared with the fused block),
+the backward's of the transposed weights, made afresh on every call: a
+chain whose images fit in a block converts them there; a wider one is packed
+into scratch that ``_launch_fwd`` / ``_launch_bwd`` allocates, in a second
+launch, and streams through a ring (``weight_images.chain_plan`` and
+``chain_bwd_plan`` mirror the kernels' plans, ``fwd_plan`` and ``bwd_plan``
+read them from the card).  Beside each kernel this module keeps its plain
 PyTorch version, which repeats the kernel's arithmetic step by step (including
 the explicit backward formulas): bf16 operands, fp32 accumulation, fp32 bias,
 round to bf16, activation in fp32 on the bf16 value, round to bf16 again; the
@@ -63,6 +65,7 @@ __all__ = [
     "fused_mlp",
     "fused_mlp_pair",
     "fused_mlp_pair_heads",
+    "bwd_plan",
     "fwd_plan",
     "head_bwd_plain",
     "mlp_chain_bwd_plain",
@@ -82,7 +85,7 @@ _PREACT_ACTIVATIONS = ("gelu",)
 _GELU_C = 0.7978845608028654  # sqrt(2/pi): the tanh form of jax.nn.gelu
 MAX_LAYERS = 8  # MLP_MAX_LAYERS in csrc/mlp_chain.cuh
 MAX_WIDTH = 512  # MLP_MAX_WIDTH
-WIDTH_MULTIPLE = 16  # the products' k16 steps (wgmma in the forward, WMMA in the backwards)
+WIDTH_MULTIPLE = 16  # the products' k16 steps (wgmma; WMMA in K9m)
 ROW_TILE = 64  # mlp::BM
 
 MAX_HEAD_DIM = 64  # mlp::MAX_HEAD_DIM
@@ -298,6 +301,8 @@ def _library(stem: str) -> ctypes.CDLL:
             fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, scratch, ctypes.c_void_p]
             lib.mlp_ppo_step.argtypes = [ctypes.POINTER(_Params), scratch, ctypes.c_void_p]
             lib.mlp_ppo_step.restype = ctypes.c_int
+            lib.mlp_chain_bwd_plan.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            lib.mlp_chain_bwd_plan.restype = ctypes.c_int
         else:
             fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p]
             lib.mlp_chain_fwd_plan.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
@@ -374,6 +379,9 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+_PLAN_KEYS = ("images", "slots", "resident", "tiles", "blocks", "smem_bytes", "sms", "per_sm")
+
+
 def fwd_plan(dims, rows: int, chains: int) -> dict:
     """The plan ``mlpf::plan`` makes for a chain forward of widths ``dims``
     on the current card, with the keys of ``weight_images.chain_plan``."""
@@ -381,7 +389,21 @@ def fwd_plan(dims, rows: int, chains: int) -> dict:
     out = (ctypes.c_int * 8)()
     lib = _library("mlp_chain_fwd")
     _check(lib, lib.mlp_chain_fwd_plan(ctypes.byref(p), chains, out), "mlp_chain_fwd_plan")
-    return dict(zip(("images", "slots", "resident", "tiles", "blocks", "smem_bytes", "sms", "per_sm"), out))
+    return dict(zip(_PLAN_KEYS, out))
+
+
+def bwd_plan(dims, rows: int, chains: int, skip_input_grad: bool, head_mode: int = 0, head_dim: int = 0) -> dict:
+    """The plan ``mlpb::plan`` makes for phase 1 of a chain backward on the
+    current card (heads of ``head_dim`` outputs on every chain), with the
+    keys of ``weight_images.chain_bwd_plan``."""
+    p = _params(list(dims), rows, "elu", True)
+    p.skip_input_grad, p.head_mode = int(skip_input_grad), head_mode
+    for i in range(chains):
+        p.head[i].dim = head_dim
+    out = (ctypes.c_int * 8)()
+    lib = _library("mlp_chain_bwd")
+    _check(lib, lib.mlp_chain_bwd_plan(ctypes.byref(p), chains, out), "mlp_chain_bwd_plan")
+    return dict(zip(_PLAN_KEYS, out))
 
 
 def _launch_fwd(xs, wss, bss, activation, trailing, save_hiddens, counter, heads=None):
@@ -450,13 +472,13 @@ def _bwd_params(xs, gs, wss, hss, activation, trailing, skip_input_grad, heads, 
     wss = [[w.detach().contiguous() for w in ws] for ws in wss]
     hss = [[dw_phase2.aligned16(h) for h in hs] for hs in hss]
     if heads is None:
-        gs = [g.to(_BF16).contiguous() for g in gs]
+        gs = [dw_phase2.aligned16(g.to(_BF16)) for g in gs]
         for g in gs:
             if g.shape != (n, dims[-1]) or g.device != device:
                 raise ValueError(f"cotangent must be [N, {dims[-1]}] on {device}; got {tuple(g.shape)} on {g.device}")
     else:
         _validate_heads(heads, dims[-1], device)
-        heads = [tuple(None if t is None else t.detach().float().contiguous() for t in head) for head in heads]
+        heads = [tuple(None if t is None else dw_phase2.aligned16(t.detach().float()) for t in head) for head in heads]
         for w, _, g, gl in heads:
             if (loss is None and (g is None or g.shape != (n, w.shape[0]))) or (
                     gl is not None and gl.shape != (n, dims[-1])):
@@ -539,8 +561,19 @@ def _launch_bwd(xs, gs, wss, hss, activation, trailing, skip_input_grad, counter
     loss's ``dstd`` and ``sums`` are filled in.  Returns
     ``[(dx or None, dws, dbs, head_grads or None)]`` per chain."""
     p, phase2, results, scratch = _bwd_params(xs, gs, wss, hss, activation, trailing, skip_input_grad, heads, loss)
-    if xs[0].shape[0] == 0:
+    n = xs[0].shape[0]
+    if n == 0:
         return _zeroed(results, loss)
+    dims = tuple(p.dims[:p.num_layers + 1])
+    head_dim = max(p.head[i].dim for i in range(len(xs))) if heads is not None else 0
+    plan = weight_images.chain_bwd_plan(dims, n, len(xs), _sms(xs[0].device.index), bool(skip_input_grad),
+                                        p.head_mode, head_dim)
+    if not plan["resident"]:  # the pack kernel's images of W_l^T, streamed per tile: one buffer for every chain
+        p.num_stages = images = plan["images"]
+        wpack = torch.empty(len(xs), images * weight_images.STAGE_BYTES // 2, dtype=_BF16, device=xs[0].device)
+        scratch.append(wpack)
+        for i in range(len(xs)):
+            p.chain[i].wpack = wpack[i].data_ptr()
     lib = _library("mlp_chain_bwd")
     code = lib.mlp_chain_bwd(ctypes.byref(p), len(xs), ctypes.byref(phase2),
                              torch.cuda.current_stream(xs[0].device).cuda_stream)

@@ -1206,3 +1206,212 @@ def test_backward_takes_contiguous_inputs_at_unaligned_offsets(cuda):
     same(flat(fb._launch_post_bwd([_at_offset(attn)], [_at_offset(g)], [r1], [_at_offset(saved)], [wts], "gelu",
                                   "K4post_b")),
          flat(fb._launch_post_bwd([attn], [g], [r1], [saved], [wts], "gelu", "K4post_b")))
+
+
+# -- Phase 1 of the backwards on wgmma: the chain (K1b, K2b, K8b, K9s) and the
+# -- fused block's post backward (K4/K5 post b) at every shape they take ------
+
+
+def _check_chain_bwd(xs, gs, wss, hss, activation, trailing, skip, counter, heads=None):
+    """Each chain of one backward launch against the plain version; returns
+    the launch's results."""
+    got = fm._launch_bwd(xs, gs, wss, hss, activation, trailing, skip, counter, heads=heads)
+    for c, (dx, dws, dbs, head_grads) in enumerate(got):
+        g = gs[c] if heads is None else None
+        want_head = ()
+        if heads is not None:
+            w, _, gh, gl = heads[c]
+            g, rdwh, rdbh = fm.head_bwd_plain(hss[c][-1], gh, w, gl)
+            want_head = (rdwh, rdbh)
+        rdx, rdws, rdbs = fm.mlp_chain_bwd_plain(xs[c], g, wss[c], hss[c], activation, trailing, skip)
+        for a, b in zip([*dws, *dbs, *(head_grads or ())], [*rdws, *rdbs, *want_head]):
+            _close(a, b, grad=True)
+        assert (dx is None) == skip
+        if not skip:
+            _close(dx, rdx, grad=True)
+    return got
+
+
+def _chain_inputs(gen, device, widths, rows, chains, activation="elu", trailing=True):
+    """Weights, inputs, bf16 cotangents and the plain forward's saved values."""
+    params = [_params(gen, device, widths) for _ in range(chains)]
+    wss = [p[0] for p in params]
+    xs = [torch.tanh(torch.randn(rows, widths[0], generator=gen)).to(device) for _ in range(chains)]
+    gs = [(torch.randn(rows, widths[-1], generator=gen) * 0.01).to(device, torch.bfloat16) for _ in range(chains)]
+    hss = []
+    for x, (ws, bs) in zip(xs, params):
+        out, hiddens = fm.mlp_chain_fwd_plain(x, ws, bs, activation, trailing, True)
+        hss.append([*hiddens, out])
+    return xs, gs, wss, hss
+
+
+@pytest.mark.parametrize("chains", [1, 2])
+@pytest.mark.parametrize("rows", [1, 63, 65, 1024, 65573])
+def test_chain_backward_at_ragged_rows(cuda, rows, chains):
+    """Rows that end inside a 64-row tile give 0 there and are not stored;
+    with and without dX (K1b, K2b)."""
+    gen = torch.Generator().manual_seed(rows + 11 * chains)
+    xs, gs, wss, hss = _chain_inputs(gen, cuda, WIDTHS, rows, chains)
+    for skip in (False, True):
+        _check_chain_bwd(xs, gs, wss, hss, "elu", True, skip, "K1b" if chains == 1 else "K2b")
+
+
+@pytest.mark.parametrize("activation", ["elu", "relu", "tanh", "gelu", "identity"])
+def test_chain_backward_every_activation(cuda, activation):
+    """Each activation (gelu's derivative from the saved pre-activation) at
+    the main path's widths (streamed images) and the transformer head's
+    128 -> 128 (resident), with and without the trailing activation."""
+    gen = torch.Generator().manual_seed(3 * len(activation))
+    for widths in (WIDTHS, (128, 128), (128, 512, 128)):
+        for trailing in ((False,) if activation == "gelu" else (True, False)):
+            xs, gs, wss, hss = _chain_inputs(gen, cuda, widths, 1000, 1, activation, trailing)
+            for skip in (False, True):
+                _check_chain_bwd(xs, gs, wss, hss, activation, trailing, skip, "K1b")
+
+
+@pytest.mark.parametrize("widths", [(16, 16), (48, 80, 48), (512, 512), (16, 512, 16), (80, 16, 512), (128, 128),
+                                    (512, 16), EIGHT_LAYERS])
+def test_chain_backward_at_the_width_limits(cuda, widths):
+    """Widths 16 to 512, 1 to 8 layers, one and two chains, with and
+    without dX and the trailing activation."""
+    gen = torch.Generator().manual_seed(sum(widths) + 1)
+    for chains in (1, 2):
+        for trailing in (True, False):
+            xs, gs, wss, hss = _chain_inputs(gen, cuda, widths, 1000, chains, "tanh", trailing)
+            for skip in (False, True):
+                _check_chain_bwd(xs, gs, wss, hss, "tanh", trailing, skip, "K1b" if chains == 1 else "K2b")
+
+
+@pytest.mark.parametrize("rows", [1024, 1000])
+@pytest.mark.parametrize("head_dim", [1, 12, 64])
+def test_pair_heads_backward_at_head_widths(cuda, head_dim, rows):
+    """K8b's fp32 head backward 1 to 64 outputs wide, its top d in the
+    accumulators' layout, with the latent's own cotangent on the actor."""
+    gen = torch.Generator().manual_seed(7 * head_dim + rows)
+    xs, _, wss, hss = _chain_inputs(gen, cuda, WIDTHS, rows, 2)
+    gl = (torch.randn(rows, WIDTHS[-1], generator=gen) * 0.01).to(cuda)
+    spec = [((torch.randn(head_dim, WIDTHS[-1], generator=gen) * 0.2).to(cuda), None,
+             (torch.randn(rows, head_dim, generator=gen) * 0.01).to(cuda), latent) for latent in (gl, None)]
+    for skip in (True, False):
+        _check_chain_bwd(xs, None, wss, hss, "elu", True, skip, "K8b", heads=spec)
+
+
+def _post_bwd_case(gen, device, rows, chains, embed, ff, activation):
+    from cusrl_tpu_torch.nn.kernels import fused_block as fb
+
+    pss = [_block_params_at(gen, device, 16, embed, ff)[1] for _ in range(chains)]
+    attns = [torch.randn(rows, embed, generator=gen).to(device) for _ in range(chains)]
+    hs = [torch.randn(rows, embed, generator=gen).to(device, torch.bfloat16).float() for _ in range(chains)]
+    refs = [fb.post_fwd_plain(a, h, *ps, activation, True) for a, h, ps in zip(attns, hs, pss)]
+    gs = [(torch.randn(rows, embed, generator=gen) * 0.01).to(device, torch.bfloat16) for _ in range(chains)]
+    wss = [(ps[0], ps[4], ps[6], ps[2], ps[3]) for ps in pss]
+    return attns, gs, [r[1] for r in refs], [r[2] for r in refs], wss
+
+
+def _check_post_bwd(case, activation):
+    from cusrl_tpu_torch.nn.kernels import fused_block as fb
+
+    attns, gs, r1s, saveds, wss = case
+    got = fb._launch_post_bwd(attns, gs, r1s, saveds, wss, activation, fb._counter("post_b", len(attns)))
+    for c, result in enumerate(got):
+        want = fb.post_bwd_plain(attns[c], gs[c], r1s[c], saveds[c], *wss[c], activation)
+        for a, b in zip(result, want):
+            _close(a, b, grad=True)
+    return got
+
+
+@pytest.mark.parametrize("chains", [1, 2])
+@pytest.mark.parametrize("embed", [16, 128])
+@pytest.mark.parametrize("ff", [16, 48, 512])
+def test_block_post_backward_at_the_width_limits(cuda, ff, embed, chains):
+    """The post backward's phase 1 at embed 16 and 128 and FFN widths 16,
+    48 and 512 (resident and streamed images, a chunk narrower than 64),
+    one and two chains, gelu and relu."""
+    gen = torch.Generator().manual_seed(ff + embed + chains)
+    for activation in ("gelu", "relu"):
+        _check_post_bwd(_post_bwd_case(gen, cuda, 1000, chains, embed, ff, activation), activation)
+
+
+@pytest.mark.parametrize("chains", [1, 2])
+@pytest.mark.parametrize("rows", [1, 63, 65, 1024, 65573])
+def test_block_post_backward_at_ragged_rows(cuda, rows, chains):
+    gen = torch.Generator().manual_seed(rows + 5 * chains)
+    _check_post_bwd(_post_bwd_case(gen, cuda, rows, chains, BLOCK_EMBED, BLOCK_FF, "gelu"), "gelu")
+
+
+@pytest.mark.parametrize("activation", ["elu", "relu", "tanh", "gelu", "identity"])
+def test_block_post_backward_every_activation(cuda, activation):
+    gen = torch.Generator().manual_seed(len(activation) + 1)
+    _check_post_bwd(_post_bwd_case(gen, cuda, 6144 + 17, 1, BLOCK_EMBED, BLOCK_FF, activation), activation)
+
+
+def test_redesigned_backwards_repeat_bitwise(cuda):
+    """Two calls of K1b (streamed and resident images), K2b, K8b, K9s and
+    the post backward (K4, K5) on the same inputs give the same bits: the
+    column sums take a fixed order."""
+    from cusrl_tpu_torch.nn.kernels import fused_block as fb
+    from cusrl_tpu_torch.nn.kernels import fused_ppo_step as fp
+
+    gen = torch.Generator().manual_seed(61)
+    rows = 24576 + 17
+    xs, gs, wss, hss = _chain_inputs(gen, cuda, WIDTHS, rows, 2)
+    xh, gh, wh, hh = _chain_inputs(gen, cuda, (128, 128), 65536 + 5, 1)
+    heads = [(w, None, (torch.randn(rows, w.shape[0], generator=gen) * 0.01).to(cuda), None)
+             for w, _ in _heads(gen, cuda)]
+    (wm, bm), (wv, bv) = _heads(gen, cuda)
+    std = torch.exp(torch.randn(A_DIM, generator=gen) * 0.2).to(cuda)
+    action = torch.randn(rows, A_DIM, generator=gen).to(cuda)
+    loss_args = (xs, hss, wss, wm, bm, wv, bv, std, action, torch.randn(rows, generator=gen).to(cuda) - 12.0,
+                 torch.randn(rows, generator=gen).to(cuda), torch.randn(rows, 1, generator=gen).to(cuda),
+                 torch.randn(rows, 1, generator=gen).to(cuda), 0.2, 1.0, 0.5, 0.2, "elu", True)
+    post = [_post_bwd_case(gen, cuda, 65536 + 37, chains, BLOCK_EMBED, BLOCK_FF, "gelu") for chains in (1, 2)]
+    calls = [lambda: fm._launch_bwd(xs[:1], gs[:1], wss[:1], hss[:1], "elu", True, False, "K1b"),
+             lambda: fm._launch_bwd(xh, gh, wh, hh, "elu", True, False, "K1b"),
+             lambda: fm._launch_bwd(xs, gs, wss, hss, "elu", True, True, "K2b"),
+             lambda: fm._launch_bwd(xs, None, wss, hss, "elu", True, True, "K8b", heads=heads),
+             lambda: fp._loss_bwd(*loss_args),
+             *(lambda case=case: fb._launch_post_bwd(*case, "gelu", fb._counter("post_b", len(case[0])))
+               for case in post)]
+    for call in calls:
+        first, second = _flat(call()), _flat(call())
+        assert first and len(first) == len(second)
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_redesigned_backwards_follow_weights_changed_in_place(cuda):
+    """Weights updated in place between two calls (as the optimizer does):
+    the second call packs or converts their transposed images afresh."""
+    gen = torch.Generator().manual_seed(67)
+    for widths in (WIDTHS, (128, 128)):
+        xs, gs, wss, hss = _chain_inputs(gen, cuda, widths, 6144, 1)
+        first = _check_chain_bwd(xs, gs, wss, hss, "elu", True, False, "K1b")[0][0].clone()
+        for w in wss[0]:
+            w.add_(0.05 * torch.randn(w.shape, generator=gen).to(cuda))
+        second = _check_chain_bwd(xs, gs, wss, hss, "elu", True, False, "K1b")[0][0]
+        assert not torch.equal(first, second)
+    case = _post_bwd_case(gen, cuda, 6144, 1, BLOCK_EMBED, BLOCK_FF, "gelu")
+    first = _check_post_bwd(case, "gelu")[0][0].clone()
+    for w in case[4][0][:3]:
+        w.add_(0.05 * torch.randn(w.shape, generator=gen).to(cuda))
+    assert not torch.equal(first, _check_post_bwd(case, "gelu")[0][0])
+
+
+def test_backward_plans_match_the_python_mirrors(cuda):
+    """``mlpb::plan`` against ``weight_images.chain_bwd_plan`` and
+    ``fbb::plan`` against ``fused_block.post_bwd_plan`` (the images the
+    wrappers allocate, the grid the schedule assumes), within the card's
+    shared memory."""
+    from cusrl_tpu_torch.nn.kernels import fused_block as fb
+    from cusrl_tpu_torch.nn.kernels import weight_images as wi
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for widths in (WIDTHS, (128, 512, 128), (128, 128), (16, 16), (512, 16), EIGHT_LAYERS):
+        for rows, chains in ((1, 1), (1024, 2), (24576, 2), (65573, 1)):
+            for skip in (False, True):
+                for head_mode, head_dim in ((0, 0), (1, 12), (2, 12), (1, 64)):
+                    plan = fm.bwd_plan(widths, rows, chains, skip, head_mode, head_dim)
+                    assert plan == wi.chain_bwd_plan(tuple(widths), rows, chains, sms, skip, head_mode, head_dim)
+                    assert plan["per_sm"] * (plan["smem_bytes"] + 1024) <= 233472
+    for embed, ff in ((128, 512), (16, 16), (128, 48), (16, 512)):
+        for rows, chains in ((1, 1), (6144, 2), (65573, 1)):
+            assert fb.bwd_plan(rows, chains, embed, ff) == fb.post_bwd_plan(rows, chains, embed, ff, sms)
