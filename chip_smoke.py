@@ -33,8 +33,11 @@ without printing a result:
    profiler's, by kernel name: phase 1 every kernel of the call but phase
    2's, the pack of the transposed weights included), both phases' bounds,
    phase 2's row split, for the wgmma phase 1 (K1b, K2b, K8b, K9s, K4/K5
-   post b) its plan, registers and spills, and two calls on the same inputs
-   compared bit for bit; for the fused
+   pre and post b) its plan, registers and spills, and two calls on the same
+   inputs compared bit for bit; for K6 its device time (the profiler's)
+   beside its events' time, its wrapper's host time per call and its launch
+   plan; then the redesign queue (K3f saving and primal, K3b, K6, K9m, K4/K5
+   pre b) beside its library calls in one block, ten calls each; for the fused
    block's forwards (K4/K5 pre and post f) and the MLP chain forward (K1f,
    K2f, K8f) at each timed shape the launch plan (grid, tiles per block,
    ring slots, resident or streamed images, shared memory per block), the
@@ -48,7 +51,8 @@ without printing a result:
    ``fused_block_pre``/``post`` and their pair variants, and their autograd
    Functions) against the plain versions at the shapes their paths give
    them (for path T ``fused_mlp`` with the gelu FFN and the ELU head; for TJ
-   ``fused_mlp_pair`` with input gradients): outputs, losses and every
+   ``fused_mlp_pair`` with input gradients; ``lane_next_token_attention`` on
+   the transformer's views, one device event a call): outputs, losses and every
    ``.grad`` after ``backward``, one launch per call, the residual's
    cotangent reaching the pre op in fp32, an activation the fused block
    does not take raising on the card; and the fused step route against
@@ -81,7 +85,7 @@ without printing a result:
    call; and a profile of one iteration of each path (device time by kernel
    name, phase 2 of the backwards listed whatever its rank, and the fused
    block's and the MLP chain's forward kernels and phase-1 backward kernels
-   (``fbb::``, ``mlpb::``) by name with their sums);
+   (``fbp::``, ``fbb::``, ``mlpb::``) by name with their sums);
 8. the ``nvidia-smi`` line, the ``kernels`` JSON line (each kernel's
    launches from the path that runs it; ``not_ported`` is empty), and the
    final ``{"ok": true, ...}`` line.
@@ -99,6 +103,7 @@ fallback: without CUDA the script exits 2.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -206,6 +211,10 @@ def _tensors(obj) -> list:
 
 
 PROFILE_ATTEMPTS = 5  # a profiler session can drop kernel events; a short count profiles again
+# The redesign queue's kernels beside their library calls, {(kernel, field
+# prefix): (kernel call, library call)}, filled by the kernel checks and
+# timed together by time_redesign_queue.
+QUEUE: dict = {}
 # Queued ahead of a start event, this sleep (in clock cycles, some 10 ms) keeps
 # the card busy while the host does a call's work before its launches.
 QUEUED_SLEEP_CYCLES = 20_000_000
@@ -264,6 +273,38 @@ def _queued_events_ms(fn, repeats: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def _host_ms(fn, repeats: int = 20, warmup: int = 3) -> float:
+    """The host's time per call of ``fn`` (a wrapper's checks, allocations
+    and launch) by the host clock over ``repeats`` calls queued behind a
+    sleep on the card, so that no call waits for the device."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUED_SLEEP_CYCLES)
+    start = time.perf_counter()
+    for _ in range(repeats):
+        fn()
+    host_ms = (time.perf_counter() - start) * 1e3 / repeats
+    torch.cuda.synchronize()
+    return host_ms
+
+
+def time_redesign_queue(results: dict) -> None:
+    """The kernels of the redesign queue (K3f saving and primal, K3b, K6,
+    K9m, K4/K5 pre b) each beside its library call, timed together in this
+    one block: CUDA events, median of ten calls each, kernel then library.
+    Adds ``queue_ms`` and ``queue_library_ms`` (with the shape's prefix) to
+    each kernel's results."""
+    print("[kernels] the redesign queue beside its library calls, one block (CUDA events, median of 10 calls each)")
+    for (key, prefix), (kernel, library) in QUEUE.items():
+        k_ms, l_ms = _time_ms(kernel), _time_ms(library)
+        results[key].update({prefix + "queue_ms": k_ms, prefix + "queue_library_ms": l_ms})
+        print(f"    {key + ' ' + prefix.rstrip('_'):16s} kernel_ms={k_ms:.4f} library_ms={l_ms:.4f} "
+              f"factor={k_ms / l_ms:.2f}")
+
+
 def _ms(value) -> str:
     return "not measured" if value is None else f"{value:.4f}"
 
@@ -274,8 +315,8 @@ def _backward_phases(name: str, fn, rows: int, chains: int, dw_shapes, bytes_per
     ``fn`` (torch.profiler over ``repeats`` calls, kernels by name: phase 2
     ``dw::split_kernel`` and ``dw::reduce_kernel``, phase 1 every other
     kernel of the port's backwards, the pack of the transposed weights
-    included: ``mlpb::`` and ``fbb::`` (the wgmma designs), ``mlp::`` (K9m)
-    and ``fb::`` (the pre backward)), both phases' bounds, phase 2's row
+    included: ``mlpb::``, ``fbb::`` and ``fbp::`` (the wgmma designs) and
+    ``mlp::`` (K9m)), both phases' bounds, phase 2's row
     split, and two calls of ``fn`` compared bit for bit (raises if they
     differ).  Phase 1's work, all chains: ``phase1 = (bytes, FLOP)`` per row
     (each input read once, each output written once, the data products);
@@ -298,7 +339,7 @@ def _backward_phases(name: str, fn, rows: int, chains: int, dw_shapes, bytes_per
     # run's first kernel, so counts may fall short of ``repeats``).
     device_events = 0
     for _ in range(PROFILE_ATTEMPTS):
-        found, seen = _profiled_kernels(fn, ("dw", "mlpb", "fbb", "mlp", "fb"), repeats, warmup)
+        found, seen = _profiled_kernels(fn, ("dw", "mlpb", "fbb", "fbp", "mlp"), repeats, warmup)
         device_events += seen
         kernels = [[k for k in found if not _in_namespaces(k[0], ("dw",))],
                    [k for k in found if _in_namespaces(k[0], ("dw",))]]
@@ -361,8 +402,8 @@ def _phase1_plan(key: str, plan: dict, stem: str, symbol: str) -> dict:
     name = next(n for n in usage if symbol in n)
     regs, spill_st, spill_ld = usage[name]
     per_sm = plan.get("per_sm", 2)
-    images = ("resident, converted once per block" if plan["resident"]
-              else f"streamed through {plan['slots']} slots, packed per call")
+    loaded = "converted once per block" if stem == "mlp_chain_bwd" else "packed per call, loaded once per block"
+    images = f"resident, {loaded}" if plan["resident"] else f"streamed through {plan['slots']} slots, packed per call"
     print(f"    {key} phase 1 plan: grid {plan['blocks']} blocks per chain ({per_sm} per SM), {plan['tiles']} tiles of "
           f"64 rows, up to {-(-plan['tiles'] // plan['blocks'])} per block; {plan['images']} images of W^T ({images}); "
           f"{plan['smem_bytes']} B shared memory per block; {regs} registers, spills {spill_st}/{spill_ld} B (ptxas)")
@@ -879,10 +920,13 @@ def check_head_kernels(device) -> dict:
         lib_std = std.clone().requires_grad_()
         inputs = [p for ws, bs in zip(w16, b16) for p in (*ws, *bs)] + [t for h in lib_heads for t in h] + [lib_std]
 
-        def library():  # the forward, the loss and autograd's backward
+        def library(loss_clip=loss_clip, lib_std=lib_std, inputs=inputs):  # the forward, loss, autograd's backward
             with torch.enable_grad():
                 loss = _library_loss(xs, w16, b16, lib_heads, lib_std, rows_data, loss_clip)
                 return torch.autograd.grad(loss, inputs)
+
+        if loss_clip is None:
+            QUEUE["K9m", ""] = (functools.partial(fp._ppo_step, xs, [ba, bc], [wa, wc], *tail), library)
 
         timing[loss_clip] = (_time_ms(lambda: fp._ppo_step(xs, [ba, bc], [wa, wc], *tail)),
                              _time_ms(lambda: fp.ppo_step_mono_plain(xs, [ba, bc], [wa, wc], *tail)),
@@ -1311,15 +1355,33 @@ def check_lane_kernels(device) -> dict:
         if err > limit:
             raise AssertionError(f"lane wrapper {name}.grad disagrees with autograd of the plain version")
 
-    print("[wrappers] lane_next_token_attention against its plain version, N=1024")
-    q, k, v, *masks = _lane_inputs(gen, device, T_ENVS)
-    k_self, v_self = (torch.randn(q.shape, generator=gen).to(device, torch.bfloat16) for _ in range(2))
+    print("[wrappers] lane_next_token_attention against its plain version, N=1024, on the main path's views")
+    q, k, v, q_seg, k_seg, k_valid = _lane_inputs(gen, device, T_ENVS)
+    k_self = torch.randn(q.shape, generator=gen).to(device, torch.bfloat16)
+    # As the transformer hands them over: v_self a head-split view of the
+    # projection, q_seg a transposed view.
+    proj = torch.randn(T_ENVS, STEPS, 3 * T_EMBED, generator=gen).to(device, torch.bfloat16)
+    v_self = proj[..., 2 * T_EMBED:].reshape(T_ENVS, STEPS, T_HEADS, T_HEAD_DIM).transpose(1, 2)
+    q_seg = q_seg.T.contiguous().T
+    masks = (q_seg, k_seg, k_valid)
     before = dict(la.LAUNCHES)
     out = la.lane_next_token_attention(q, k_self, v_self, k, v, *masks, window=T_WINDOW)
     launched = {key: la.LAUNCHES[key] - before[key] for key in before}
     if launched != {"K3f": 0, "K3b": 0, "K6": 1}:
         raise AssertionError(f"lane_next_token_attention launched {launched}")
     errs["K6"].append(check("wrapper out", out, la.next_token_plain(q, k_self, v_self, k, v, *masks, T_WINDOW)))
+    # Every device event of a profiled run of ten calls (kernels, copies,
+    # fills) must be K6's; a session that records none is profiled again.
+    for _ in range(PROFILE_ATTEMPTS):
+        found, seen = _profiled_kernels(
+            lambda: la.lane_next_token_attention(q, k_self, v_self, k, v, *masks, window=T_WINDOW), ("",), 10, 3)
+        if seen:
+            break
+    k6_events = sum(count for name, count, _ in found if "lane_next_kernel" in name)
+    print(f"    device events over ten calls on these views: {seen}, K6's {k6_events} "
+          f"({'; '.join(f'{name.split(chr(40))[0]} x{count}' for name, count, _ in found) or 'not measured'})")
+    if seen != k6_events:
+        raise AssertionError(f"lane_next_token_attention ran {found} on the main path's views, not K6 alone")
 
     results = {}
     for key, n in (("K3f", T_MB_ENVS), ("K3f primal", T_ENVS), ("K3b", T_MB_ENVS), ("K6", T_ENVS)):
@@ -1327,37 +1389,53 @@ def check_lane_kernels(device) -> dict:
         dense = _dense_mask(*masks, T_WINDOW, 1 if key == "K6" else 0)
         if key.startswith("K3f"):
             save = key == "K3f"
-            k_ms = _time_ms(lambda: la._launch_fwd(q, k, v, *masks, T_WINDOW, None, save))
+            kernel = functools.partial(la._launch_fwd, q, k, v, *masks, T_WINDOW, None, save)
+            k_ms = _time_ms(kernel)
             p_ms = _time_ms(lambda: la.lane_fwd_plain(q, k, v, *masks, T_WINDOW, None, save))
             with torch.no_grad():
-                l_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=dense))
+                library = functools.partial(F.scaled_dot_product_attention, q, k, v, attn_mask=dense)
+                l_ms = _time_ms(library)
+            QUEUE["K3f", "primal_" if key == "K3f primal" else ""] = (kernel, library)
             flops, nbytes = _lane_work("K3f", q, k, masks, T_WINDOW, save)
         elif key == "K3b":
             _, probs = la.lane_fwd_plain(q, k, v, *masks, T_WINDOW, None, True)
             g = torch.randn(q.shape, generator=gen).to(device)
-            k_ms = _time_ms(lambda: la._launch_bwd(q, k, v, probs, g, *masks, T_WINDOW))
+            kernel = functools.partial(la._launch_bwd, q, k, v, probs, g, *masks, T_WINDOW)
+            k_ms = _time_ms(kernel)
             p_ms = _time_ms(lambda: la.lane_bwd_plain(q, k, v, probs, g, T_WINDOW))
             lq, lk, lv = (t.clone().requires_grad_() for t in (q, k, v))
             lib_out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=dense)
             gb = g.to(torch.bfloat16)
-            l_ms = _time_ms(lambda: torch.autograd.grad(lib_out, (lq, lk, lv), gb, retain_graph=True))
+            library = functools.partial(torch.autograd.grad, lib_out, (lq, lk, lv), gb, retain_graph=True)
+            l_ms = _time_ms(library)
+            QUEUE[key, ""] = (kernel, library)
             flops, nbytes = _lane_work("K3b", q, k, masks, T_WINDOW)
         else:
             k_self, v_self = (torch.randn(q.shape, generator=gen).to(device, torch.bfloat16) for _ in range(2))
-            k_ms = _time_ms(lambda: la._launch_next(q, k_self, v_self, k, v, *masks, T_WINDOW, None))
+            kernel = functools.partial(la._launch_next, q, k_self, v_self, k, v, *masks, T_WINDOW, None)
+            k_ms = _time_ms(kernel)
             p_ms = _time_ms(lambda: la.next_token_plain(q, k_self, v_self, k, v, *masks, T_WINDOW, None))
             # One SDPA over [cache ++ sequence ++ self] keys: the band [t+1, W+t] and key S+t.
             eye = torch.eye(STEPS, dtype=torch.bool, device=device)[None, None].expand(n, 1, STEPS, STEPS)
             kk, vv, mm = torch.cat([k, k_self], 2), torch.cat([v, v_self], 2), torch.cat([dense, eye], 3)
             with torch.no_grad():
-                l_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, kk, vv, attn_mask=mm))
+                library = functools.partial(F.scaled_dot_product_attention, q, kk, vv, attn_mask=mm)
+                l_ms = _time_ms(library)
+            QUEUE["K6", ""] = (kernel, library)
             flops, nbytes = _lane_work("K6", q, k, masks, T_WINDOW)
+            extra = _forward_device_ms("K6", kernel, "lane", 1)
+            extra["host_ms"] = _host_ms(kernel)
+            extra["plan"] = la.next_card_plan(q, T_WINDOW)
+            print(f"    K6 N={n}: device_ms={_ms(extra['device_ms'])} (torch.profiler) of the events' {k_ms:.4f} ms; "
+                  f"the wrapper's host time {extra['host_ms']:.4f} ms a call; plan {extra['plan']}")
         t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
         bound, by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
         print(f"    {key} N={n}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
               f"bound_ms={bound:.4f} ({by}; {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP fp32)")
         results[key] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by, library_ms=l_ms,
                             shape=f"N={n} H={T_HEADS} T={STEPS} W={T_WINDOW} D={T_HEAD_DIM}, bf16 in, fp32 out")
+        if key == "K6":
+            results[key].update(device_ms=extra["device_ms"], host_ms=extra["host_ms"], plan=extra["plan"])
     primal = results.pop("K3f primal")
     results["K3f"].update(primal_ms=primal["ms"], primal_bound_ms=primal["bound_ms"],
                           primal_plain_ms=primal["plain_ms"], primal_library_ms=primal["library_ms"])
@@ -1922,8 +2000,11 @@ def check_block_kernels(device) -> dict:
                 pre_out = [_library_block("pre", x, None, p, None) for x, p in zip(x16, pre16)]
                 pre_in = [t for p in pre16 for t in p]
                 pre_g = [g for gh, gq in zip(ghs, gqkvs) for g in (gh.to(torch.bfloat16), gq)]
-                lib_ms["pre_b"] = _time_ms(lambda: torch.autograd.grad([t for o in pre_out for t in o], pre_in, pre_g,
-                                                                       retain_graph=True))
+                lib_pre_b = functools.partial(torch.autograd.grad, [t for o in pre_out for t in o], pre_in, pre_g,
+                                              retain_graph=True)
+                lib_ms["pre_b"] = _time_ms(lib_pre_b)
+                QUEUE[f"{k}pre_b", tag] = (functools.partial(fb._launch_pre_bwd, xs, [r[0] for r in refs], ghs, gqkvs,
+                                                             pres, True, f"{k}pre_b"), lib_pre_b)
                 post_out = [_library_block("post", a, h, None, p)[0] for a, h, p in zip(a16, h16, post16)]
                 post_in = [*a16, *h16, *(t for p in post16 for t in p)]
                 lib_ms["post_b"] = _time_ms(lambda: torch.autograd.grad(post_out, post_in, gs, retain_graph=True))
@@ -1938,10 +2019,13 @@ def check_block_kernels(device) -> dict:
                               + (", skip_input_grad" if op == "pre_b" else "")
                               + (", saves r1 and z1" if op == "post_f" else ""))
                 if op in BLOCK_PHASE2:
-                    plan = None
                     if op == "post_b":
                         plan = _phase1_plan(key, fb.bwd_plan(rows, chains, T_EMBED, T_FF), "fused_block",
                                             "3fbb15post_bwd_kernel")
+                    else:
+                        plan = _phase1_plan(key, {**fb.pre_bwd_card_plan(rows, chains, T_IN, T_EMBED, True),
+                                                  "per_sm": fb.PRE_BWD_BLOCKS_PER_SM}, "fused_block",
+                                            "3fbp14pre_bwd_kernel")
                     fields.update(_backward_phases(key, kernel_fn, rows, chains, *BLOCK_PHASE2[op][:2],
                                                    chains * BLOCK_PHASE2[op][2],
                                                    tuple(chains * v for v in BLOCK_PHASE1[op]), plan))
@@ -2543,7 +2627,8 @@ def profile_iteration(driver, label: str, steps: int = STEPS) -> None:
     # (csrc/fused_block.cu, namespaces fbf and fbb) and the MLP chain's
     # forward and backward (csrc/mlp_chain_fwd.cu, mlpf; mlp_chain_bwd.cu, mlpb).
     for namespace, what in (("fbf", "the fused block's forwards"), ("mlpf", "the MLP chain forward"),
-                            ("fbb", "the post backward's phase 1"), ("mlpb", "the MLP chain backward's phase 1")):
+                            ("fbp", "the pre backward's phase 1"), ("fbb", "the post backward's phase 1"),
+                            ("mlpb", "the MLP chain backward's phase 1")):
         forwards = [r for r in rows if _in_namespaces(r[2], (namespace,))]  # by name: a signature names fbf::Layout
         if forwards:
             print(f"[profile] {label}, {what}: "
@@ -2607,6 +2692,7 @@ def main(argv: list[str]) -> int:
         results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
     for key, err in check_block_wrappers(device).items():
         results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
+    time_redesign_queue(results)
     for path in ("slice 1", *PATHS, *PATH_ROUTES):
         check_update_against_cpu(path)
     train(kind)
@@ -2632,7 +2718,7 @@ def main(argv: list[str]) -> int:
             "launches_by_path": {p_: path_launches[p_][key] for p_ in path_launches if path_launches[p_][key]},
             **{k: v for k, v in r.items()
                if k.startswith(("gelu", "primal", "offpath", "tl_", "phase", "bitwise", "grid", "ring", "smem", "regs",
-                                "device", "pack", "rollout"))},
+                                "device", "pack", "rollout", "queue", "host", "plan"))},
             "status": "ported and checked",
         })
     print(smi)

@@ -93,10 +93,23 @@
 //     at 65,536 rows); what is left is its epilogues' ALU work (gelu's
 //     derivative, the sums) and the latency of one tile's phases in turn
 //     (probe_backward_phase1.py; PERF.md);
-//   * the pre backward's row kernel (namespace fb) keeps one block per
-//     64-row tile with weights streamed from L2 as fp32 128 x 64 slices and
-//     16x16x16 bf16 WMMA; LayerNorm as one warp per row.
-// Not yet done (later work): the pre backward's row kernel on this design.
+//   * the pre backward's phase 1 (namespace fbp) is fbb's design on the pre
+//     op: a pack kernel writes images of W_q^T, W_k^T and W_v^T (the K
+//     blocks of dy = gqkv [W_q; W_k; W_v]) and, unless skip_input_grad,
+//     W_in^T (dx = bf16(dh) W_in); two consumer warpgroups per block split
+//     every product's columns; the gqkv tile (three segments of pad64(E)
+//     columns) comes in by 16-byte cp.async; while the dy product runs, h is
+//     read at the accumulators' places and db_qkv summed from the tile; LN1
+//     is recomputed from h on the accumulators (row sums across the halves
+//     through shared memory), y goes to device memory from registers,
+//     dh = LN1^T(dy) + gh (fp32 gh) in fp32, bf16(dh) to device memory and
+//     to the A tile of dx.  The qkv images (96 KB at the zoo's widths) stay
+//     resident in one block per SM beside two such tiles (the next tile's
+//     gqkv arrives while one is worked on); the six column sums of
+//     a tile are gathered as warp partials (a reduce-scatter over the lanes
+//     that share a column) and added under one barrier.
+//     Bytes bound it (2,304 B a row with skip_input_grad: 0.045 ms at 65,536
+//     rows).
 #include <algorithm>
 
 #include "dw_phase2.cuh"
@@ -130,7 +143,7 @@ struct FbChain {
   void* dw;          // bwd out: the weight gradients [out, in] fp32, back to back in w[] order
   void* sums;        // bwd out [num_sums] fp32: pre db_in, dg1, dbb1, db_q, db_k, db_v;
                      //                          post db_o, dg2, dbb2, db_up, db_down
-  void* wpack;       // fwd, post bwd scratch [num_stages][128][64] bf16: the weights' images (fbf::, fbb::)
+  void* wpack;       // scratch [num_stages][128][64] bf16: the weights' images (fbf::, fbb::, fbp::)
 };
 
 struct FbParams {
@@ -141,329 +154,8 @@ struct FbParams {
   int ff;          // post: the FFN width F
   int activation;  // post: 0 identity, 1 elu, 2 relu, 3 tanh, 4 gelu (as mlp_chain.cuh)
   int x_is_bf16;   // pre
-  int num_stages;  // fwd, post bwd: weight images per chain the caller allocated in wpack
+  int num_stages;  // weight images per chain the caller allocated in wpack
 };
-
-namespace fb {
-
-using mlp::ACT_BYTES;
-using mlp::BM;
-using mlp::HLD;
-using mlp::KS;
-using mlp::NC;
-using mlp::SLD;
-using mlp::STG_BYTES;
-using mlp::THREADS;
-using mlp::WLD_COL;
-using mlp::WLD_ROW;
-using mlp::WS_BYTES;
-using mlp::bf16;
-namespace wmma = nvcuda::wmma;
-
-constexpr int WARPS = THREADS / 32;
-constexpr int RLD = FB_MAX_EMBED + 8;  // bf16 [BM][RLD] tile; unused by the row kernels, kept in their carve
-constexpr size_t R_BYTES = size_t(BM) * RLD * sizeof(bf16);
-constexpr size_t SMEM_BYTES = 2 * ACT_BYTES + WS_BYTES + STG_BYTES + R_BYTES + 2 * BM * sizeof(float);
-static_assert(R_BYTES % 128 == 0, "smem regions must stay 128-byte aligned");
-static_assert(SMEM_BYTES <= 232448, "exceeds the 227 KB a block may use");
-static_assert(3 * FB_MAX_EMBED <= MLP_MAX_WIDTH, "the qkv cotangent tile must fit an activation tile");
-constexpr float LN_EPS = 1e-6f;
-
-struct Smem {
-  bf16* t0;     // [BM][HLD] activation / cotangent tiles
-  bf16* t1;
-  bf16* ws;     // staged weight slice
-  float* stg;   // [BM][SLD] fp32 GEMM output
-  bf16* r;      // [BM][RLD] (unused by the row kernels)
-  float* mean;  // [BM] LayerNorm statistics of the tile's rows
-  float* inv;
-};
-
-__device__ Smem carve(unsigned char* smem) {
-  Smem s;
-  s.t0 = reinterpret_cast<bf16*>(smem);
-  s.t1 = reinterpret_cast<bf16*>(smem + ACT_BYTES);
-  s.ws = reinterpret_cast<bf16*>(smem + 2 * ACT_BYTES);
-  s.stg = reinterpret_cast<float*>(smem + 2 * ACT_BYTES + WS_BYTES);
-  s.r = reinterpret_cast<bf16*>(smem + 2 * ACT_BYTES + WS_BYTES + STG_BYTES);
-  s.mean = reinterpret_cast<float*>(smem + 2 * ACT_BYTES + WS_BYTES + STG_BYTES + R_BYTES);
-  s.inv = s.mean + BM;
-  return s;
-}
-
-// B(k, n) of a block GEMM from fp32 weights in the port's [out, in] layout;
-// up to three matrices of `seg` rows side by side (q, k and v):
-//   Cols: B(k, n) = W_s[k - s * seg][n], s = k / seg  (backward data: d_in = d_out W)
-struct Cols {
-  const float* w[3];
-  int seg, ld;
-  __device__ float operator()(int k, int n) const {
-    const int s = k / seg;
-    return w[s][size_t(k - s * seg) * ld + n];
-  }
-};
-
-template <class B>
-__device__ B weights(const void* w0, const void* w1, const void* w2, int seg, int ld) {
-  B b;
-  b.w[0] = static_cast<const float*>(w0);
-  b.w[1] = static_cast<const float*>(w1);
-  b.w[2] = static_cast<const float*>(w2);
-  b.seg = seg;
-  b.ld = ld;
-  return b;
-}
-
-// One NC-column chunk of C[BM, n_total] = A[BM, K] B[K, n_total], columns
-// [n0, n0 + NC), into `stg`: mlp::gemm_chunk with B read through a functor.
-// A is bf16 in shared memory (leading dim HLD); K and n_total are multiples
-// of 16.  Ends with a block barrier, after which `stg` holds the chunk.
-template <bool ROWS, class B>
-__device__ void block_gemm(const bf16* A, int K, const B& b, int n0, int n_total, bf16* ws, float* stg) {
-  const int warp = threadIdx.x / 32;
-  const int wr = warp & 3;   // 16-row fragment row
-  const int wc = warp >> 2;  // 64-column half
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-  for (int f = 0; f < 4; ++f) wmma::fill_fragment(acc[f], 0.f);
-
-  for (int k0 = 0; k0 < K; k0 += KS) {
-    __syncthreads();  // previous readers of ws / stg are done
-    if constexpr (ROWS) {
-      for (int i = threadIdx.x; i < NC * KS; i += THREADS) {
-        const int n = i / KS, k = i % KS;
-        const int gn = n0 + n, gk = k0 + k;
-        ws[n * WLD_COL + k] = __float2bfloat16((gn < n_total && gk < K) ? b(gk, gn) : 0.f);
-      }
-    } else {
-      for (int i = threadIdx.x; i < KS * NC; i += THREADS) {
-        const int k = i / NC, n = i % NC;
-        const int gn = n0 + n, gk = k0 + k;
-        ws[k * WLD_ROW + n] = __float2bfloat16((gn < n_total && gk < K) ? b(gk, gn) : 0.f);
-      }
-    }
-    __syncthreads();
-    const int kmax = min(KS, K - k0);
-    for (int kk = 0; kk < kmax; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, A + wr * 16 * HLD + k0 + kk, HLD);
-#pragma unroll
-      for (int f = 0; f < 4; ++f) {
-        const int nl = wc * 64 + f * 16;
-        if (n0 + nl < n_total) {  // warp-uniform
-          if constexpr (ROWS) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bf;
-            wmma::load_matrix_sync(bf, ws + nl * WLD_COL + kk, WLD_COL);
-            wmma::mma_sync(acc[f], a, bf, acc[f]);
-          } else {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bf;
-            wmma::load_matrix_sync(bf, ws + kk * WLD_ROW + nl, WLD_ROW);
-            wmma::mma_sync(acc[f], a, bf, acc[f]);
-          }
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int f = 0; f < 4; ++f) {
-    const int nl = wc * 64 + f * 16;
-    if (n0 + nl < n_total) wmma::store_matrix_sync(stg + wr * 16 * SLD + nl, acc[f], SLD, wmma::mem_row_major);
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Mean and 1 / sqrt(var + eps) of one row of E values read through `row`,
-// by one warp: the population variance mean((x - mean)^2), as the TPU kernels.
-template <class Row>
-__device__ void row_stats(const Row& row, int E, float& mean, float& inv) {
-  const int lane = threadIdx.x & 31;
-  float s = 0.f;
-  for (int j = lane; j < E; j += 32) s += row(j);
-  mean = warp_sum(s) / E;
-  float q = 0.f;
-  for (int j = lane; j < E; j += 32) {
-    const float c = row(j) - mean;
-    q += c * c;
-  }
-  inv = 1.f / sqrtf(warp_sum(q) / E + LN_EPS);
-}
-
-// Tile of `width` columns from device memory into a bf16 shared tile (leading
-// dim ld); rows past the end are 0.
-__device__ void load_tile(const void* src, bool is_bf16, int width, int row0, int n_rows, bf16* dst, int ld) {
-  for (int i = threadIdx.x; i < BM * width; i += THREADS) {
-    const int r = i / width, k = i % width;
-    const int gr = row0 + r;
-    float v = 0.f;
-    if (gr < n_rows) {
-      const size_t idx = size_t(gr) * width + k;
-      v = is_bf16 ? __bfloat162float(static_cast<const bf16*>(src)[idx]) : static_cast<const float*>(src)[idx];
-    }
-    dst[r * ld + k] = __float2bfloat16(v);
-  }
-}
-
-// Column sums over the tile's rows of the fp32 tile `stg` (row order) into
-// part[0 .. ncols).
-__device__ void column_sums(const float* stg, int ncols, float* part) {
-  for (int j = threadIdx.x; j < ncols; j += THREADS) {
-    float acc = 0.f;
-    for (int r = 0; r < BM; ++r) acc += stg[r * SLD + j];
-    part[j] = acc;
-  }
-}
-
-// LayerNorm recomputed from the saved rows `x` ([N, E], fp32 or bf16) of this
-// tile: statistics into s.mean / s.inv (0 on rows past the end) and
-// y = bf16(xhat * g + b) into `y` ([N, E] bf16 scratch for phase 2).
-template <class T>
-__device__ void ln_recompute(const T* x, int E, const float* g, const float* b, int row0, int n_rows, bf16* y,
-                             const Smem& s) {
-  const int lane = threadIdx.x & 31;
-  for (int r = threadIdx.x / 32; r < BM; r += WARPS) {
-    const int gr = row0 + r;
-    float mean = 0.f, inv = 0.f;
-    if (gr < n_rows) {  // warp-uniform
-      const T* row = x + size_t(gr) * E;
-      row_stats([&](int j) { return to_f(row[j]); }, E, mean, inv);
-      for (int j = lane; j < E; j += 32)
-        y[size_t(gr) * E + j] = __float2bfloat16((to_f(row[j]) - mean) * inv * g[j] + b[j]);
-    }
-    if (lane == 0) {
-      s.mean[r] = mean;
-      s.inv[r] = inv;
-    }
-  }
-}
-
-// Per-tile sums of dg = dy * xhat and dbb = dy (dy: the fp32 tile in stg), in
-// row order, with xhat from the saved rows `x` and the tile's statistics.
-template <class T>
-__device__ void ln_param_sums(const float* stg, const T* x, int E, int row0, int n_rows, const Smem& s, float* dg,
-                              float* dbb) {
-  for (int j = threadIdx.x; j < E; j += THREADS) {
-    float a = 0.f, c = 0.f;
-    for (int r = 0; r < BM && row0 + r < n_rows; ++r) {
-      const float dy = stg[r * SLD + j];
-      const float xhat = (to_f(x[size_t(row0 + r) * E + j]) - s.mean[r]) * s.inv[r];
-      a += dy * xhat;
-      c += dy;
-    }
-    dg[j] = a;
-    dbb[j] = c;
-  }
-}
-
-// The LayerNorm input cotangent from dy (fp32 in stg, per row):
-// inv * (dy g - mean(dy g) - xhat mean(dy g xhat)) + extra(row, j), written
-// back to stg, in bf16 to `tile` (leading dim HLD) and to `scratch` ([N, E]);
-// rows past the end become 0.  One warp per row.
-template <class T, class Extra>
-__device__ void ln_backward(const T* x, const float* g, int E, int row0, int n_rows, const Smem& s,
-                            const Extra& extra, bf16* tile, bf16* scratch) {
-  const int lane = threadIdx.x & 31;
-  for (int r = threadIdx.x / 32; r < BM; r += WARPS) {
-    const int gr = row0 + r;
-    if (gr >= n_rows) {  // warp-uniform
-      for (int j = lane; j < E; j += 32) {
-        s.stg[r * SLD + j] = 0.f;
-        tile[r * HLD + j] = __float2bfloat16(0.f);
-      }
-      continue;
-    }
-    const T* row = x + size_t(gr) * E;
-    const float mean = s.mean[r], inv = s.inv[r];
-    float m1 = 0.f, m2 = 0.f;
-    for (int j = lane; j < E; j += 32) {
-      const float dxhat = s.stg[r * SLD + j] * g[j];
-      m1 += dxhat;
-      m2 += dxhat * ((to_f(row[j]) - mean) * inv);
-    }
-    m1 = warp_sum(m1) / E;
-    m2 = warp_sum(m2) / E;
-    for (int j = lane; j < E; j += 32) {
-      const float xhat = (to_f(row[j]) - mean) * inv;
-      const float d = inv * (s.stg[r * SLD + j] * g[j] - m1 - xhat * m2) + extra(r, j);
-      s.stg[r * SLD + j] = d;
-      const bf16 db = __float2bfloat16(d);
-      tile[r * HLD + j] = db;
-      scratch[size_t(gr) * E + j] = db;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Pre backward: phase 1
-// ---------------------------------------------------------------------------
-
-// Phase 1 of the pre backward, one block per 64-row tile: from gqkv (bf16) and
-// gh (fp32), dy = gqkv W_qkv, dh = LN1^T(dy) + gh, dx = bf16(dh) W_in; writes
-// y and bf16(dh) for phase 2 and the tile's sums of db_in, dg1, dbb1, db_qkv.
-__global__ void __launch_bounds__(THREADS) pre_bwd_rows_kernel(const FbParams p, int num_sums) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Smem s = carve(smem);
-  const FbChain& c = p.chain[blockIdx.y];
-  const int row0 = blockIdx.x * BM, n_rows = p.num_rows, in = p.in_dim, E = p.embed, E3 = 3 * E;
-  float* part = static_cast<float*>(c.part) + size_t(blockIdx.x) * num_sums;
-  const float* h = static_cast<const float*>(c.h);
-  const float* g1 = static_cast<const float*>(c.ln_g);
-
-  load_tile(c.g, true, E3, row0, n_rows, s.t0, HLD);
-  __syncthreads();
-  for (int j = threadIdx.x; j < E3; j += THREADS) {  // db_q, db_k, db_v
-    float acc = 0.f;
-    for (int r = 0; r < BM; ++r) acc += __bfloat162float(s.t0[r * HLD + j]);
-    part[3 * E + j] = acc;
-  }
-  ln_recompute(h, E, g1, static_cast<const float*>(c.ln_b), row0, n_rows, static_cast<bf16*>(c.sa), s);
-
-  // dy = gqkv [W_q; W_k; W_v]: E <= NC columns, one chunk.
-  block_gemm<false>(s.t0, E3, weights<Cols>(c.w[1], c.w[2], c.w[3], E, E), 0, E, s.ws, s.stg);
-  ln_param_sums(s.stg, h, E, row0, n_rows, s, part + E, part + 2 * E);
-  __syncthreads();  // the sums have read stg
-  const float* gh = static_cast<const float*>(c.gh);
-  ln_backward(h, g1, E, row0, n_rows, s,
-              [&](int r, int j) { return gh != nullptr ? gh[size_t(row0 + r) * E + j] : 0.f; },
-              s.t1, static_cast<bf16*>(c.sb));
-  __syncthreads();
-  column_sums(s.stg, E, part);  // db_in
-
-  float* dx = static_cast<float*>(c.out0);
-  if (dx == nullptr) return;
-  const Cols w_in = weights<Cols>(c.w[0], c.w[0], c.w[0], E, in);
-  for (int n0 = 0; n0 < in; n0 += NC) {
-    block_gemm<false>(s.t1, E, w_in, n0, in, s.ws, s.stg);
-    const int ncols = min(NC, in - n0);
-    for (int i = threadIdx.x; i < BM * ncols; i += THREADS) {
-      const int r = i / ncols, j = i % ncols;
-      if (row0 + r < n_rows) dx[size_t(row0 + r) * in + n0 + j] = s.stg[r * SLD + j];
-    }
-  }
-}
-
-// The pre backward's row kernel: one block per 64-row tile.
-int launch_rows(const void* kernel, const FbParams* p, int num_chains, cudaStream_t stream, int num_sums) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(SMEM_BYTES));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p->num_rows + BM - 1) / BM, num_chains);
-  FbParams copy = *p;
-  void* args[] = {&copy, &num_sums};
-  err = cudaLaunchKernel(kernel, grid, dim3(THREADS), args, SMEM_BYTES, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace fb
 
 // ---------------------------------------------------------------------------
 // The forwards: a pack kernel, then one persistent kernel per op
@@ -1125,6 +817,335 @@ int launch(const FbParams* p, int num_chains, int num_sums, cudaStream_t stream)
 
 }  // namespace fbb
 
+// ---------------------------------------------------------------------------
+// The pre backward's phase 1 (namespace fbp): a pack kernel of the
+// transposed weights' images, then one persistent kernel
+// ---------------------------------------------------------------------------
+
+namespace fbp {
+
+using fbb::acc_col;
+using fbb::tile_at;
+using fbf::Layout;
+using wg::bf16;
+using wg::Frag;
+using wg::Pack;
+using wg::kblocks;
+using wg::nchunks;
+using wg::pad64;
+// Two consumer warpgroups per block, each taking half the columns of every
+// product (NW of 128: m64n64k16 on its half of each image), as fbb; one
+// block per SM, which holds the qkv images (96 KB at the zoo's widths)
+// resident beside GQKV_TILES gqkv tiles (48 KB each; with two, the next
+// tile's arrives by cp.async while one is worked on).  ptxas holds this
+// 288-thread block to 168 registers a thread; the two-tile build fits them
+// and the one-tile build spills (PERF.md has both, and two blocks per SM
+// with the images streamed through three slots).
+constexpr int WGS = 2, BLOCKS_PER_SM = 1, GQKV_TILES = 2, NW = 64, NA = NW / 2;
+constexpr int SETS = 6;                           // column sums per tile: db_in, dg1, dbb1, db_q, db_k, db_v
+constexpr int RED_FLOATS = WGS * SETS * 4 * NW;  // per warpgroup the column sums' warp partials
+constexpr int ROW_FLOATS = WGS * 64 * 4;         // per warpgroup and row, the halves of four row sums
+
+// The images in the order the kernel takes them: W_q^T, W_k^T and W_v^T by
+// K block of E (dy = gqkv [W_q; W_k; W_v], one K block run over the gqkv
+// tile's three segments), then, unless skip_input_grad, per 128-column chunk
+// of the input width W_in^T's rows by K block of E (dx = bf16(dh) W_in).
+// Matrices: 0-2 W_q^T, W_k^T, W_v^T [E, E], 3 W_in^T [in, E], each the
+// transpose of its stored weight.  Mirrored by pre_bwd_stages in
+// nn/kernels/fused_block.py.
+inline Pack pre_bwd_pack(int in, int E, bool dx) {
+  Pack P{};
+  for (int q = 0; q < 3; ++q)
+    for (int kb = 0; kb < kblocks(E); ++kb) wg::pack_add(P, q, 0, 64 * kb);
+  if (dx)
+    for (int c = 0; c < nchunks(in); ++c)
+      for (int kb = 0; kb < kblocks(E); ++kb) wg::pack_add(P, 3, 128 * c, 64 * kb);
+  for (int q = 0; q < 3; ++q) wg::pack_matrix(P, q, 1 + q, E, E, E, 1);
+  wg::pack_matrix(P, 3, 0, in, in, E, 1);
+  return P;
+}
+
+// Images, shared memory (the block's GQKV_TILES gqkv tiles, each three
+// segments of pad64(E) columns, the current one later holding bf16(dh);
+// LN1's parameters, the column sums' and the row sums' partials) and grid:
+// 64-row tiles, fbf::make_layout's accounting of one set of tiles.  dX is written
+// when out0 is set.  Mirrored by pre_bwd_plan in nn/kernels/fused_block.py.
+inline int plan(const FbParams& p, int num_chains, fbf::Plan& out) {
+  const int E = p.embed, in = p.in_dim;
+  if (num_chains < 1 || num_chains > 2 || E < 16 || E > FB_MAX_EMBED || E % 16 || in < 16 || in > MLP_MAX_WIDTH ||
+      in % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  out.pack = pre_bwd_pack(in, E, p.chain[0].out0 != nullptr);
+  const int tiles[3] = {GQKV_TILES * 3 * kblocks(E) * wg::ABLOCK_BYTES, 0, 0};
+  const int err =
+      fbf::make_layout(out.L, 1, BLOCKS_PER_SM, out.pack.count, p.num_rows, tiles, 2 * E + RED_FLOATS + ROW_FLOATS);
+  if (err != 0) return err;
+  if (cudaGetDevice(&out.device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&out.sms, cudaDevAttrMultiProcessorCount, out.device) != cudaSuccess)
+    return static_cast<int>(cudaGetLastError());
+  out.blocks = std::max(1, std::min(out.L.tiles, BLOCKS_PER_SM * out.sms / num_chains));
+  return 0;
+}
+
+__global__ void __launch_bounds__(wg::PACK_THREADS) pack_kernel(const FbParams p, const Pack P) {
+  const FbChain& c = p.chain[blockIdx.y];
+  wg::pack_unit(P, c.w, blockIdx.x, blockIdx.z * wg::PACK_THREADS + threadIdx.x,
+                static_cast<unsigned char*>(c.wpack) + size_t(blockIdx.x) * wg::STAGE_BYTES);
+}
+
+// Rows [row0, row0 + 64) of the bf16 [n_rows, 3E] gqkv into a swizzled
+// tile as three segments of pad64(E) columns (q, k, v: the K blocks of the
+// W_q^T, W_k^T and W_v^T images), 0 from E to pad64(E) and past the end, by
+// 16-byte cp.async (a zero fill where there is no source), the NT threads
+// (t of them) each issuing its units; then one commit group.
+template <int NT>
+__device__ __forceinline__ void load_gqkv(const bf16* src, int E, int row0, int n_rows, unsigned char* tile,
+                                              int t) {
+  const int units = pad64(E) / 8, per_seg = wg::TILE_M * units, total = 3 * per_seg;
+  for (int i = t; i < total; i += NT) {
+    const int q = i / per_seg, r = i - q * per_seg, m = r / units, col = (r - m * units) * 8;
+    const bool on = row0 + m < n_rows && col < E;
+    const bf16* from = on ? src + size_t(row0 + m) * 3 * E + q * E + col : src;
+    const uint32_t to = wg::smem_u32(tile + wg::swz(m, q * pad64(E) + col));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(to), "l"(from), "r"(on ? 16 : 0) : "memory");
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wg::col_partials by reduce-scatter: the eight lanes that share a column
+// pair halve the sixteen sums they hold in three rounds of exchanges with
+// lanes 4, 8 and 16 apart (8 + 4 + 2 shuffles, against 48 for three rounds
+// on every sum), after which each lane holds the warp's sums of two columns,
+// 8 j + f.col and the next, j = 4 b4 + 2 b8 + b16 from its lane's bits.  A
+// fixed order; red as col_partials writes it (col_combine adds the warps).
+template <class Value>
+__device__ __forceinline__ void col_rs(const Value& value, int cols, float* red, const Frag& f, int t) {
+  const int lane = t & 31, warp = t >> 5;
+  const bool b4 = lane & 4, b8 = lane & 8, b16 = lane & 16;
+  float v[16];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float a = 0.f, b = 0.f;
+    if (8 * j < cols) {  // the warpgroup's columns: uniform
+      a = value(4 * j) + value(4 * j + 2);
+      b = value(4 * j + 1) + value(4 * j + 3);
+    }
+    v[2 * j] = a;
+    v[2 * j + 1] = b;
+  }
+  float r[8], r2[4], r3[2];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) r[k] = (b4 ? v[8 + k] : v[k]) + __shfl_xor_sync(0xffffffffu, b4 ? v[k] : v[8 + k], 4);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) r2[k] = (b8 ? r[4 + k] : r[k]) + __shfl_xor_sync(0xffffffffu, b8 ? r[k] : r[4 + k], 8);
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    r3[k] = (b16 ? r2[2 + k] : r2[k]) + __shfl_xor_sync(0xffffffffu, b16 ? r2[k] : r2[2 + k], 16);
+  const int j = 4 * b4 + 2 * b8 + b16;
+  if (8 * j < cols) {
+    red[warp * 2 * NA + 8 * j + f.col] = r3[0];
+    red[warp * 2 * NA + 8 * j + f.col + 1] = r3[1];
+  }
+}
+
+// An fp32 [n_rows, ld] matrix's values at the accumulators' places, columns
+// col0 onwards (the first `cols` of them; 0 elsewhere, past the end and for
+// a null src), one 8-byte load per pair.
+__device__ __forceinline__ void load_f32(const float* src, int ld, int col0, int cols, int row0, int n_rows,
+                                         const Frag& f, float (&v)[NA]) {
+  const int ra = row0 + f.row, rb = ra + 8;
+#pragma unroll
+  for (int j = 0; j < NA / 4; ++j) {
+    float2 a = make_float2(0.f, 0.f), b = a;
+    if (src != nullptr && 8 * j < cols) {
+      const float* s = src + col0 + 8 * j + f.col;
+      if (ra < n_rows) a = *reinterpret_cast<const float2*>(s + size_t(ra) * ld);
+      if (rb < n_rows) b = *reinterpret_cast<const float2*>(s + size_t(rb) * ld);
+    }
+    v[4 * j] = a.x;
+    v[4 * j + 1] = a.y;
+    v[4 * j + 2] = b.x;
+    v[4 * j + 3] = b.y;
+  }
+}
+
+// Phase 1 of the pre backward on this block's 64-row tiles, warpgroup w
+// taking the columns [64 w, 64 w + 64) of every product's output: dy = gqkv
+// [W_q; W_k; W_v] (fp32 accumulators; h at the accumulators' places and the
+// partials of db_q, db_k and db_v from the gqkv tile are read while the
+// product runs, and with two gqkv tiles the next tile's arrives); LN1 recomputed
+// from h (row sums: quad shuffles, then the two warpgroups' halves in order),
+// y to sa; dh = LN1^T(dy) + gh, bf16(dh) to sb and, unless skip_input_grad,
+// to the A tile of dx = bf16(dh) W_in (fp32 out).  The tile's six column
+// sums (db_in, dg1, dbb1, db_qkv) are gathered as warp partials and added
+// in warp order under one barrier into its row of `part`.
+__global__ void __launch_bounds__(fbf::threads(WGS), BLOCKS_PER_SM)
+    pre_bwd_kernel(const FbParams p, const Layout L, int num_sums) {
+  constexpr int NT = WGS * 128;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = wg::aligned_base(smem_raw);
+  const FbChain& c = p.chain[blockIdx.y];
+  const int E = p.embed, in = p.in_dim, n_rows = p.num_rows, seg = pad64(E);
+  float* par = reinterpret_cast<float*>(smem + L.par);  // g1, bb1 [E each], the column sums', the row sums' partials
+  wg::Ring ring = fbf::make_ring<WGS>(smem, L);
+  for (int i = threadIdx.x; i < E; i += fbf::threads(WGS)) {
+    par[i] = static_cast<const float*>(c.ln_g)[i];
+    par[E + i] = static_cast<const float*>(c.ln_b)[i];
+  }
+  __syncthreads();
+  if (fbf::producer<WGS>(ring, smem, L, c.wpack)) return;
+
+  const int w = wg::warp_index() / 4, t = threadIdx.x & 127, bar = 2 + w;
+  const int cw = w * NW;                           // this warpgroup's first column of a product's output
+  const uint32_t b_off = w * NW * wg::KBLOCK * 2;  // its rows of each image
+  float* red = par + 2 * E + w * (RED_FLOATS / WGS);  // [SETS][4 warps][2 NA], in part's order of the sums
+  float* rowsum = par + 2 * E + RED_FLOATS;           // [WGS][64 rows][4]
+  const Frag f(t);
+  const bf16* gqkv = static_cast<const bf16*>(c.g);
+  const float* h = static_cast<const float*>(c.h);
+  const float* gh = static_cast<const float*>(c.gh);
+  float* dx = static_cast<float*>(c.out0);
+  const float *g1 = par, *bb1 = par + E;
+  const int ecols = max(0, min(NW, E - cw));  // this warpgroup's columns of dy, y and dh
+  // The sums over both warpgroups' halves of a row of the thread's two rows'
+  // values a and b (quad sums first), through slot `slot` of rowsum (and
+  // with `pairs` 2 the values a2, b2 through the next slot, one barrier).
+  auto row_totals = [&](float& a, float& b, float& a2, float& b2, int slot, int pairs) {
+    a = wg::quad_sum(a);
+    b = wg::quad_sum(b);
+    a2 = wg::quad_sum(a2);
+    b2 = wg::quad_sum(b2);
+    if ((t & 3) == 0) {
+      rowsum[(w * 64 + f.row) * 4 + slot] = a;
+      rowsum[(w * 64 + f.row + 8) * 4 + slot] = b;
+      if (pairs == 2) {
+        rowsum[(w * 64 + f.row) * 4 + slot + 1] = a2;
+        rowsum[(w * 64 + f.row + 8) * 4 + slot + 1] = b2;
+      }
+    }
+    wg::group_sync(1, NT);
+    a = rowsum[f.row * 4 + slot] + rowsum[(64 + f.row) * 4 + slot];
+    b = rowsum[(f.row + 8) * 4 + slot] + rowsum[(64 + f.row + 8) * 4 + slot];
+    if (pairs == 2) {
+      a2 = rowsum[f.row * 4 + slot + 1] + rowsum[(64 + f.row) * 4 + slot + 1];
+      b2 = rowsum[(f.row + 8) * 4 + slot + 1] + rowsum[(64 + f.row + 8) * 4 + slot + 1];
+    }
+  };
+  auto valid = [&](int i) { return cw + 8 * (i >> 2) < E; };
+  float d[NA], x[NA], e[NA];
+  const int tile_bytes = 3 * kblocks(E) * wg::ABLOCK_BYTES;
+  int buf = 0;
+  if (GQKV_TILES == 2 && static_cast<int>(blockIdx.x) < L.tiles)
+    load_gqkv<NT>(gqkv, E, blockIdx.x * wg::TILE_M, n_rows, smem + L.wg0 + L.t[0], threadIdx.x);
+  for (int tile = blockIdx.x; tile < L.tiles; tile += gridDim.x, buf = GQKV_TILES - 1 - buf) {
+    const int row0 = tile * wg::TILE_M;
+    float* part = static_cast<float*>(c.part) + size_t(tile) * num_sums;
+    unsigned char* ta = smem + L.wg0 + L.t[0] + buf * tile_bytes;  // gqkv, then bf16(dh) in its first K blocks
+    if (ring.resident) ring.next = 0;
+    if (GQKV_TILES == 1) {
+      wg::group_sync(1, NT);  // the last tile's readers of ta, of rowsum and of red are done
+      load_gqkv<NT>(gqkv, E, row0, n_rows, ta, threadIdx.x);
+    }
+    asm volatile("cp.async.wait_group 0;" ::: "memory");  // this thread's units of this tile's gqkv
+    wg::fence_async_smem();
+    // Every thread's units are in ta; with two tiles, the last tile's
+    // readers of the other one, of rowsum and of red are done.
+    wg::group_sync(1, NT);
+    if (GQKV_TILES == 2 && tile + static_cast<int>(gridDim.x) < L.tiles)
+      load_gqkv<NT>(gqkv, E, row0 + gridDim.x * wg::TILE_M, n_rows, smem + L.wg0 + L.t[0] + (1 - buf) * tile_bytes,
+                    threadIdx.x);
+    wg::zero(d);
+    wg::issue(d, wg::smem_u32(ta), 3 * seg, ring, b_off);
+    load_f32(h, E, cw, ecols, row0, n_rows, f, x);  // while the product runs
+#pragma unroll
+    for (int s = 0; s < 3; ++s)  // db_q, db_k, db_v
+      col_rs([&](int i) { return tile_at(ta, f, i, s * seg + cw); }, ecols, red + (3 + s) * 8 * NA, f, t);
+    wg::finish(d, ring);
+    // LN1 recomputed from h: xhat in x, per row mean and 1 / sqrt(var + eps).
+    float s0 = 0.f, s1 = 0.f, u0 = 0.f, u1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NA; ++i) ((i >> 1) & 1 ? s1 : s0) += x[i];  // 0 past E
+    row_totals(s0, s1, u0, u1, 0, 1);  // also: both warpgroups' products are done with ta
+    const float m0 = s0 / E, m1 = s1 / E;
+    float q0 = 0.f, q1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const float v = valid(i) ? x[i] - ((i >> 1) & 1 ? m1 : m0) : 0.f;
+      ((i >> 1) & 1 ? q1 : q0) += v * v;
+    }
+    row_totals(q0, q1, u0, u1, 1, 1);
+    const float inv0 = 1.f / sqrtf(q0 / E + fbf::LN_EPS), inv1 = 1.f / sqrtf(q1 / E + fbf::LN_EPS);
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const bool hi = (i >> 1) & 1;
+      x[i] = valid(i) ? (x[i] - (hi ? m1 : m0)) * (hi ? inv1 : inv0) : 0.f;
+      e[i] = valid(i) ? x[i] * g1[cw + acc_col(f, i)] + bb1[cw + acc_col(f, i)] : 0.f;  // y
+    }
+    wg::store_bf16(e, ecols, static_cast<bf16*>(c.sa), E, cw, row0, n_rows, f);
+    load_f32(gh, E, cw, ecols, row0, n_rows, f, e);  // flies during the sums
+    col_rs([&](int i) { return d[i] * x[i]; }, ecols, red + 1 * 8 * NA, f, t);  // dg1
+    col_rs([&](int i) { return d[i]; }, ecols, red + 2 * 8 * NA, f, t);         // dbb1
+    // dh = inv (dy g1 - mean(dy g1) - xhat mean(dy g1 xhat)) + gh, in d.
+    float a0 = 0.f, a1 = 0.f, b0 = 0.f, b1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      d[i] = valid(i) ? d[i] * g1[cw + acc_col(f, i)] : 0.f;
+      const bool hi = (i >> 1) & 1;
+      (hi ? a1 : a0) += d[i];
+      (hi ? b1 : b0) += d[i] * x[i];
+    }
+    row_totals(a0, a1, b0, b1, 2, 2);
+    const float mean0 = a0 / E, mean1 = a1 / E, mx0 = b0 / E, mx1 = b1 / E;
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const bool hi = (i >> 1) & 1;
+      d[i] = valid(i) ? (hi ? inv1 : inv0) * (d[i] - (hi ? mean1 : mean0) - x[i] * (hi ? mx1 : mx0)) + e[i] : 0.f;
+    }
+    col_rs([&](int i) { return d[i]; }, ecols, red, f, t);  // db_in
+    wg::store_bf16(d, ecols, static_cast<bf16*>(c.sb), E, cw, row0, n_rows, f);
+    {  // the six sums in warp order into the tile's row of part (red is next written after the next tile's barriers)
+      float* const outs_t[SETS] = {part + cw, part + E + cw, part + 2 * E + cw, part + 3 * E + cw, part + 4 * E + cw,
+                                   part + 5 * E + cw};
+      wg::col_combine<NA, SETS>(ecols, red, outs_t, t, bar);
+    }
+    if (dx == nullptr) continue;
+    // bf16(dh) into the first segment's K blocks of ta (every product that
+    // read gqkv is done: row_totals' barriers), then dx by 128-column chunk.
+    wg::to_tile(d, max(0, min(NW, seg - cw)), ta, f, cw);
+    wg::fence_async_smem();
+    wg::group_sync(1, NT);  // both halves of bf16(dh) are in ta
+    for (int c0 = 0; c0 < in; c0 += wg::STAGE_N) {
+      const int cols = min(wg::STAGE_N, in - c0);
+      wg::zero(d);
+      wg::issue(d, wg::smem_u32(ta), E, ring, b_off);
+      wg::finish(d, ring);
+      wg::store_f32(d, max(0, min(NW, cols - cw)), dx, in, c0 + cw, row0, n_rows, f);
+    }
+  }
+}
+
+// The pack kernel, then the persistent kernel, on `stream`.
+int launch(const FbParams* p, int num_chains, int num_sums, cudaStream_t stream) {
+  fbf::Plan P;
+  int err = plan(*p, num_chains, P);
+  if (err != 0) return err;
+  if (P.pack.count != p->num_stages) return static_cast<int>(cudaErrorInvalidValue);
+  static bool opted_in[64] = {};  // the shared-memory limit, set once per device
+  if (!opted_in[P.device & 63]) {
+    const cudaError_t e = cudaFuncSetAttribute(reinterpret_cast<const void*>(pre_bwd_kernel),
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, fbf::BLOCK_SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    opted_in[P.device & 63] = true;
+  }
+  pack_kernel<<<dim3(P.pack.count, num_chains, wg::PACK_SPLIT), wg::PACK_THREADS, 0, stream>>>(*p, P.pack);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  pre_bwd_kernel<<<dim3(P.blocks, num_chains), fbf::threads(WGS), P.L.bytes, stream>>>(*p, P.L, num_sums);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace fbp
+
 extern "C" const char* fused_block_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
@@ -1165,8 +1186,19 @@ extern "C" int fused_block_post_bwd_plan(const FbParams* p, int num_chains, int*
   return 0;
 }
 
-// The backwards: phase 1 (the pre backward's row kernel; the post backward's
-// pack and persistent kernel, fbb), then phase 2 (dw_phase2.cuh) on the jobs
+// The pre backward's plan (fbp::plan; dX when out0 is set), with the same
+// fields.
+extern "C" int fused_block_pre_bwd_plan(const FbParams* p, int num_chains, int* out) {
+  fbf::Plan P;
+  const int err = fbp::plan(*p, num_chains, P);
+  if (err != 0) return err;
+  const int v[7] = {P.pack.count, P.L.slots, P.L.resident, P.L.tiles, P.blocks, P.L.bytes, P.sms};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
+}
+
+// The backwards: phase 1 (a pack kernel and a persistent kernel: fbp for
+// the pre backward, fbb for the post backward), then phase 2 (dw_phase2.cuh) on the jobs
 // below; `s` is phase 2's split and scratch.
 namespace fb {
 
@@ -1200,7 +1232,7 @@ extern "C" int fused_block_pre_bwd(const FbParams* p, int num_chains, const DwSc
   P.activation = 0;
   fb::set_sums(P, p, num_chains, 6 * E);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err = fb::launch_rows(reinterpret_cast<const void*>(fb::pre_bwd_rows_kernel), p, num_chains, st, 6 * E);
+  const int err = fbp::launch(p, num_chains, 6 * E, st);
   if (err != 0) return err;
   return dw::launch(P, num_chains, s, st);
 }

@@ -665,42 +665,54 @@ __device__ __forceinline__ float pair_at(const uint32_t (&v)[N], int i) {
   return __uint_as_float(i & 1 ? v[i >> 1] & 0xffff0000u : v[i >> 1] << 16);
 }
 
-// Column sums over a warpgroup's 64 rows of S sets of values value(s, i) at
-// the accumulators' places (i < NA), first `cols` columns, into out[s][0 ..
-// cols): in a fixed order, without atomics: each thread adds its two rows,
-// the eight lanes that share a column add by shuffles, then the warpgroup's
-// threads add the four warps' sums of each column in warp order through
-// `red` ([S][4][2 NA] floats of shared memory, this warpgroup's own).  One
-// pair of barriers for the S sets.  `bar`: the warpgroup's named barrier;
-// `t`: the thread in the warpgroup.
-template <int NA, int S, class Value>
-__device__ __forceinline__ void col_sums(const Value& value, int cols, float* red, float* const (&out)[S],
-                                         const Frag& f, int t, int bar) {
+// Column sums over a warpgroup's 64 rows of values value(i) at the
+// accumulators' places (i < NA), first `cols` columns, in two halves: each
+// thread adds its two rows and the eight lanes that share a column add by
+// shuffles, the four warps' sums going to `red` ([4][2 NA] floats of shared
+// memory, this warpgroup's own, one set); then col_combine adds the four
+// warps' sums of each column in warp order.  A fixed order, no atomics.
+template <int NA, class Value>
+__device__ __forceinline__ void col_partials(const Value& value, int cols, float* red, const Frag& f, int t) {
   const int warp = t >> 5;
 #pragma unroll
-  for (int s = 0; s < S; ++s) {
+  for (int j = 0; j < NA / 4; ++j) {
+    if (8 * j < cols) {
+      float s0 = value(4 * j) + value(4 * j + 2), s1 = value(4 * j + 1) + value(4 * j + 3);
 #pragma unroll
-    for (int j = 0; j < NA / 4; ++j) {
-      if (8 * j < cols) {
-        float s0 = value(s, 4 * j) + value(s, 4 * j + 2), s1 = value(s, 4 * j + 1) + value(s, 4 * j + 3);
-#pragma unroll
-        for (int o = 4; o < 32; o <<= 1) {
-          s0 += __shfl_xor_sync(0xffffffffu, s0, o);
-          s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-        }
-        if ((t & 31) < 4) {
-          red[(s * 4 + warp) * 2 * NA + 8 * j + f.col] = s0;
-          red[(s * 4 + warp) * 2 * NA + 8 * j + f.col + 1] = s1;
-        }
+      for (int o = 4; o < 32; o <<= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      }
+      if ((t & 31) < 4) {
+        red[warp * 2 * NA + 8 * j + f.col] = s0;
+        red[warp * 2 * NA + 8 * j + f.col + 1] = s1;
       }
     }
   }
+}
+
+// After the warpgroup's barrier, S sets of partials (set s at red + s * 8 NA)
+// into out[s][0 .. cols).  `red` may be written again after a later barrier
+// of the warpgroup.
+template <int NA, int S>
+__device__ __forceinline__ void col_combine(int cols, const float* red, float* const (&out)[S], int t, int bar) {
   wg_sync(bar);
   for (int q = t; q < S * cols; q += 128) {
     const int s = q / cols, c = q - s * cols;
     const float* r = red + s * 8 * NA;
     out[s][c] = ((r[c] + r[2 * NA + c]) + r[4 * NA + c]) + r[6 * NA + c];
   }
+}
+
+// S sets of values value(s, i), into out[s][0 .. cols), through `red`
+// ([S][4][2 NA] floats): one pair of barriers for the S sets.  `bar`: the
+// warpgroup's named barrier; `t`: the thread in the warpgroup.
+template <int NA, int S, class Value>
+__device__ __forceinline__ void col_sums(const Value& value, int cols, float* red, float* const (&out)[S],
+                                         const Frag& f, int t, int bar) {
+#pragma unroll
+  for (int s = 0; s < S; ++s) col_partials<NA>([&](int i) { return value(s, i); }, cols, red + s * 8 * NA, f, t);
+  col_combine<NA, S>(cols, red, out, t, bar);
   wg_sync(bar);  // red is free for the next sums
 }
 

@@ -19,7 +19,7 @@
 //
 // The TPU kernels lay environments in the 128 vector lanes ([H, D, T, N])
 // so that the tiny per-env products become dense elementwise slabs.  On
-// Hopper the natural unit is one thread per (env, head, query): q (D floats)
+// Hopper K3f and K3b take one thread per (env, head, query): q (D floats)
 // and the D output accumulators live in registers, the loop over the W+1
 // band keys runs in fp32, and the problem's W+T key and value rows are
 // staged once, coalesced, in shared memory (rows padded by two elements so
@@ -27,7 +27,12 @@
 // floor(128 / T) problems (5 at T = 24: 120 threads).  The max, the
 // denominator and the weighted sum are three passes over the band that
 // recompute each score from the staged keys (17 x 32 FMAs each at the
-// transformer entry's shapes), so no score array is kept.
+// transformer entry's shapes), so no score array is kept.  K6 takes LQ
+// lanes per query (4 at D = 32 in bf16), each on D / LQ columns in 16-byte
+// units: K and V staged by 16-byte cp.async without padding, q, k_self,
+// v_self read and out written in 16-byte units, each score computed once
+// and kept in registers, 288 threads per block at the entry's shapes
+// (lane_next_kernel below).
 //
 // What bounds them on the H100: bytes.  At the entry's update shape
 // (256 envs x 4 heads, T = 24, W = 16, D = 32, bf16 in, fp32 out) K3f reads
@@ -45,11 +50,14 @@
 // and dk_s = sum_j ds[s-j][j] q[s-j] in the TPU kernel's order (j
 // ascending).  The result is deterministic.
 //
-// Not yet done (later work): warp-cooperative dot products, vector loads,
-// keeping a window of rows in registers, fusing RoPE and the head split.
+// Not yet done (later work): K3f's and K3b's warp-cooperative dot products
+// and vector loads (K6's design), fusing RoPE and the head split.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include <algorithm>
 
 #define LANE_MAX_HEADS 32
 
@@ -79,6 +87,11 @@ struct LaneParams {
   int use_alibi;
   float scale;           // D^-1/2
   float slopes[LANE_MAX_HEADS];
+  // K6 reads its operands in place: element strides (n, h, t or s) of q,
+  // k_self, v_self, k and v (the last dim contiguous; each row 16-byte
+  // aligned), and (n, t or s) of q_seg, k_seg and k_valid.
+  long long sq[3], sks[3], svs[3], sk[3], sv[3];
+  long long sqseg[2], skseg[2], skval[2];
 };
 
 namespace lane {
@@ -167,62 +180,189 @@ __global__ void lane_fwd_kernel(const LaneParams p, int pb) {
   for (int d = 0; d < D; ++d) orow[d] = acc[d];
 }
 
-// K6: the band j = 1..W plus the query's own key at distance 0.
+// ---- K6 ---------------------------------------------------------------------
+
+// K6's thread layout: LQ lanes per query, lane l taking the 16-byte units
+// l, l + LQ, ... of a row (VEC elements each), so that the lanes of a warp
+// read consecutive units of consecutive rows.  NB band keys are scored per
+// pass and kept in registers (one pass at W <= NB).
 template <typename T, int D>
-__global__ void lane_next_kernel(const LaneParams p, int pb) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int LD = D + 2;
-  const int tl = p.t_len, W = p.window, S = W + tl;
-  const int problems = p.n * p.heads, first = blockIdx.x * pb;
-  T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + size_t(pb) * S * LD;
-  stage_rows<T, D>(ks, static_cast<const T*>(p.k), first, pb, problems, S);
-  stage_rows<T, D>(vs, static_cast<const T*>(p.v), first, pb, problems, S);
-  __syncthreads();
+struct Next {
+  static constexpr int VEC = 16 / int(sizeof(T));
+  static constexpr int UNITS = D / VEC;
+  static constexpr int LQ = UNITS < 4 ? UNITS : 4;
+  static constexpr int UPL = UNITS / LQ;
+  static constexpr int PER = UPL * VEC;
+  static constexpr int NB = 16;
+};
+constexpr int NEXT_TARGET_THREADS = 256, NEXT_MAX_THREADS = 512;
+constexpr size_t NEXT_SOFT_SMEM = 64 * 1024;  // more problems per block only while the block stays this small
 
-  const int b = threadIdx.x / tl, t = threadIdx.x % tl, pr = first + b;
-  if (b >= pb || pr >= problems) return;
-  const int n = pr / p.heads, h = pr % p.heads;
-  const size_t row = (size_t(pr) * tl + t) * D;
-  float q[D];
-  const T* qrow = static_cast<const T*>(p.q) + row;
-#pragma unroll
-  for (int d = 0; d < D; ++d) q[d] = to_f(qrow[d]);
-  const int qs = p.q_seg[size_t(n) * tl + t];
-  const int* kseg = p.k_seg + size_t(n) * S;
-  const int* kval = p.k_valid + size_t(n) * S;
-  const float slope = p.use_alibi ? p.slopes[h] : 0.f;
-  const T* kp = ks + size_t(b) * S * LD;
-  const T* vp = vs + size_t(b) * S * LD;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
 
-  auto valid = [&](int j) { return kseg[t + j] == qs && kval[t + j] > 0; };
-  auto score = [&](int j) {
-    float s = dot_row<T, D>(q, kp + (t + j) * LD) * p.scale;
-    if (p.use_alibi) s -= slope * float(W + 1 - j);
-    return s;
-  };
-  const float self_score = dot_row<T, D>(q, static_cast<const T*>(p.k_self) + row) * p.scale;
-  float m = self_score;
-  for (int j = 1; j <= W; ++j)
-    if (valid(j)) m = fmaxf(m, score(j));
-  float denom = expf(self_score - m);
-  for (int j = 1; j <= W; ++j)
-    if (valid(j)) denom += expf(score(j) - m);
-  const float inv = denom > 0.f ? 1.f / denom : 0.f;
-  const float w_self = expf(self_score - m) * inv;
-  float acc[D];
-  const T* vself = static_cast<const T*>(p.v_self) + row;
+// One 16-byte unit as fp32 values (four fp32 or eight bf16).
+__device__ __forceinline__ void unit_to_f(const uint4& raw, float* out, float) {
+  out[0] = __uint_as_float(raw.x), out[1] = __uint_as_float(raw.y), out[2] = __uint_as_float(raw.z);
+  out[3] = __uint_as_float(raw.w);
+}
+__device__ __forceinline__ void unit_to_f(const uint4& raw, float* out, bf16) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = w_self * to_f(vself[d]);
-  for (int j = 1; j <= W; ++j) {
-    const float w = valid(j) ? expf(score(j) - m) * inv : 0.f;
-    const T* vrow = vp + (t + j) * LD;
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] = fmaf(w, to_f(vrow[d]), acc[d]);
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+    out[2 * e] = f.x;
+    out[2 * e + 1] = f.y;
   }
-  float* orow = p.out + row;
+}
+
+// The lane's PER elements of the row at `row` (units l, l + LQ, ...) as fp32.
+template <typename T, int D>
+__device__ __forceinline__ void lane_row(const T* row, int l, float (&v)[Next<T, D>::PER]) {
+  using X = Next<T, D>;
 #pragma unroll
-  for (int d = 0; d < D; ++d) orow[d] = acc[d];
+  for (int k = 0; k < X::UPL; ++k)
+    unit_to_f(*reinterpret_cast<const uint4*>(row + (l + k * X::LQ) * X::VEC), v + k * X::VEC, T());
+}
+
+// K6: query t over the band j = 1..W (ALiBi distance W+1-j) plus its own key
+// k_self[t] at distance 0, which is always valid.  A block holds `pb`
+// problems x T queries x LQ lanes: K and V rows and the keys' (segment,
+// valid) pairs are staged once with 16-byte cp.async (no padding: the lanes
+// of a warp read consecutive 16-byte units), q, k_self and v_self come
+// straight from device memory in 16-byte units, and each lane keeps its
+// D / LQ output columns in fp32.  Each band score is computed once (a dot
+// over the lane's columns, then a fixed-order sum over the LQ lanes by
+// shuffles) and kept in registers; the softmax is taken per pass of NB keys
+// against the running maximum (the weights found so far rescaled when it
+// rises; with W <= NB there is one pass and no rescale), the weighted sum of
+// V in fp32 FMAs, and the sum times the inverse denominator leaves by
+// 16-byte stores.
+template <typename T, int D>
+__global__ void __launch_bounds__(NEXT_MAX_THREADS) lane_next_kernel(const LaneParams p, int pb) {
+  using X = Next<T, D>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tl = p.t_len, W = p.window, S = W + tl, H = p.heads;
+  const int problems = p.n * H, first = blockIdx.x * pb;
+  T* ks = reinterpret_cast<T*>(smem);
+  T* vs = ks + size_t(pb) * S * D;
+  int2* ms = reinterpret_cast<int2*>(vs + size_t(pb) * S * D);  // per key: (segment, valid)
+  for (int i = threadIdx.x; i < pb * S * X::UNITS; i += blockDim.x) {
+    const int b = i / (S * X::UNITS), r = i - b * S * X::UNITS, s = r / X::UNITS, u = r - s * X::UNITS;
+    const int pr = first + b;
+    if (pr < problems) {
+      const int n = pr / H, h = pr - n * H;
+      const size_t dst = (size_t(b) * S + s) * D + u * X::VEC;
+      cp_async16(ks + dst, static_cast<const T*>(p.k) + n * p.sk[0] + h * p.sk[1] + s * p.sk[2] + u * X::VEC);
+      cp_async16(vs + dst, static_cast<const T*>(p.v) + n * p.sv[0] + h * p.sv[1] + s * p.sv[2] + u * X::VEC);
+    }
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  for (int i = threadIdx.x; i < pb * S; i += blockDim.x) {
+    const int b = i / S, s = i - b * S, pr = first + b;
+    if (pr < problems) {
+      const int n = pr / H;
+      ms[i] = make_int2(p.k_seg[n * p.skseg[0] + s * p.skseg[1]], p.k_valid[n * p.skval[0] + s * p.skval[1]] > 0);
+    }
+  }
+  // The query's own operands while the copies fly.
+  const int qi = threadIdx.x / X::LQ, l = threadIdx.x - qi * X::LQ, b = qi / tl, t = qi - b * tl, pr = first + b;
+  const bool active = pr < problems;  // the same for the LQ lanes of a query
+  const int n = active ? pr / H : 0, h = active ? pr - n * H : 0;
+  float q[X::PER], acc[X::PER], tmp[X::PER];
+  float self_dot = 0.f;
+  int qs = 0;
+  if (active) {
+    lane_row<T, D>(static_cast<const T*>(p.q) + n * p.sq[0] + h * p.sq[1] + t * p.sq[2], l, q);
+    lane_row<T, D>(static_cast<const T*>(p.k_self) + n * p.sks[0] + h * p.sks[1] + t * p.sks[2], l, tmp);
+    lane_row<T, D>(static_cast<const T*>(p.v_self) + n * p.svs[0] + h * p.svs[1] + t * p.svs[2], l, acc);
+#pragma unroll
+    for (int d = 0; d < X::PER; ++d) self_dot = fmaf(q[d], tmp[d], self_dot);
+    qs = p.q_seg[n * p.sqseg[0] + t * p.sqseg[1]];
+  }
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  __syncthreads();
+  if (!active) return;  // whole queries leave; no barrier follows
+
+  const unsigned group = X::LQ == 32 ? 0xffffffffu : ((1u << X::LQ) - 1u) << ((threadIdx.x & 31) & ~(X::LQ - 1));
+  auto lanes_sum = [&](float v) {  // the same fixed order on every lane of the query
+#pragma unroll
+    for (int o = 1; o < X::LQ; o <<= 1) v += __shfl_xor_sync(group, v, o);
+    return v;
+  };
+  const float slope = p.use_alibi ? p.slopes[h] : 0.f;
+  const T* kp = ks + size_t(b) * S * D;
+  const T* vp = vs + size_t(b) * S * D;
+  const int2* mp = ms + size_t(b) * S;
+  float m = lanes_sum(self_dot) * p.scale, denom = 1.f;  // the own key: weight exp(0), v_self already in acc
+  for (int j0 = 1; j0 <= W; j0 += X::NB) {
+    float sc[X::NB];
+    float top = NEG;
+#pragma unroll
+    for (int u = 0; u < X::NB; ++u) {
+      const int j = j0 + u;
+      sc[u] = NEG;  // masked: exp(NEG - m) = 0
+      if (j <= W) {
+        const int2 key = mp[t + j];
+        if (key.x == qs && key.y) {
+          lane_row<T, D>(kp + (t + j) * D, l, tmp);
+          float dot = 0.f;
+#pragma unroll
+          for (int d = 0; d < X::PER; ++d) dot = fmaf(q[d], tmp[d], dot);
+          float s = lanes_sum(dot) * p.scale;
+          if (p.use_alibi) s -= slope * float(W + 1 - j);
+          sc[u] = s;
+          top = fmaxf(top, s);
+        }
+      }
+    }
+    const float mn = fmaxf(m, top), r = expf(m - mn);  // r = 1 while the maximum stays
+    denom *= r;
+#pragma unroll
+    for (int d = 0; d < X::PER; ++d) acc[d] *= r;
+    m = mn;
+#pragma unroll
+    for (int u = 0; u < X::NB; ++u) {
+      const float e = j0 + u <= W ? expf(sc[u] - m) : 0.f;
+      if (e > 0.f) {
+        denom += e;
+        lane_row<T, D>(vp + (t + j0 + u) * D, l, tmp);
+#pragma unroll
+        for (int d = 0; d < X::PER; ++d) acc[d] = fmaf(e, tmp[d], acc[d]);
+      }
+    }
+  }
+  const float inv = 1.f / denom;
+  float* orow = p.out + ((size_t(pr) * tl + t) * D);
+#pragma unroll
+  for (int k = 0; k < X::UPL; ++k) {
+#pragma unroll
+    for (int e = 0; e < X::VEC; e += 4) {
+      const float* a = acc + k * X::VEC + e;
+      *reinterpret_cast<float4*>(orow + (l + k * X::LQ) * X::VEC + e) =
+          make_float4(a[0] * inv, a[1] * inv, a[2] * inv, a[3] * inv);
+    }
+  }
+}
+
+// K6's problems per block and dynamic shared memory: at least
+// NEXT_TARGET_THREADS threads where the queries allow, at most
+// NEXT_MAX_THREADS, fewer problems while the block's staging exceeds
+// NEXT_SOFT_SMEM.  Mirrored by next_plan in nn/kernels/lane_attention.py.
+template <typename T, int D>
+size_t next_smem(const LaneParams& p, int pb) {
+  return size_t(pb) * (p.window + p.t_len) * (2 * D * sizeof(T) + sizeof(int2));
+}
+
+template <typename T, int D>
+int next_problems(const LaneParams& p) {
+  const int per = p.t_len * Next<T, D>::LQ;
+  int pb = std::max(1, (NEXT_TARGET_THREADS + per - 1) / per);
+  while (pb > 1 && (pb * per > NEXT_MAX_THREADS || next_smem<T, D>(p, pb) > NEXT_SOFT_SMEM)) --pb;
+  return pb;
 }
 
 // K3b.  Block: `pb` whole problems; phase A per query, phase B per key row.
@@ -328,8 +468,30 @@ size_t smem_bytes(const LaneParams& p, int pb, bool backward) {
 }
 
 template <typename T, int D>
-cudaError_t launch(const LaneParams& p, int kind, cudaStream_t stream) {
+cudaError_t launch_next(const LaneParams& p, cudaStream_t stream, int* plan) {
+  const int pb = next_problems<T, D>(p);
+  const size_t smem = next_smem<T, D>(p, pb);
+  const int threads = pb * p.t_len * Next<T, D>::LQ;
+  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
+  if (plan != nullptr) {
+    const int v[4] = {Next<T, D>::LQ, pb, threads, static_cast<int>(smem)};
+    for (int i = 0; i < 4; ++i) plan[i] = v[i];
+    return cudaSuccess;
+  }
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(lane_next_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 int(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int problems = p.n * p.heads;
+  lane_next_kernel<T, D><<<(problems + pb - 1) / pb, threads, smem, stream>>>(p, pb);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch(const LaneParams& p, int kind, cudaStream_t stream, int* plan) {
   if (p.t_len <= 0 || p.t_len > TARGET_THREADS) return cudaErrorInvalidValue;
+  if (kind == 2) return launch_next<T, D>(p, stream, plan);
   const bool backward = kind == 1;
   int pb = TARGET_THREADS / p.t_len;
   while (pb > 1 && smem_bytes<T, D>(p, pb, backward) > MAX_SMEM) --pb;
@@ -337,8 +499,7 @@ cudaError_t launch(const LaneParams& p, int kind, cudaStream_t stream) {
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   const int problems = p.n * p.heads;
   const dim3 grid((problems + pb - 1) / pb), block(pb * p.t_len);
-  void (*kernel)(const LaneParams, int) =
-      kind == 0 ? lane_fwd_kernel<T, D> : (kind == 1 ? lane_bwd_kernel<T, D> : lane_next_kernel<T, D>);
+  void (*kernel)(const LaneParams, int) = kind == 0 ? lane_fwd_kernel<T, D> : lane_bwd_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   kernel<<<grid, block, smem, stream>>>(p, pb);
@@ -346,20 +507,22 @@ cudaError_t launch(const LaneParams& p, int kind, cudaStream_t stream) {
 }
 
 template <typename T>
-cudaError_t dispatch_dim(const LaneParams& p, int kind, cudaStream_t stream) {
+cudaError_t dispatch_dim(const LaneParams& p, int kind, cudaStream_t stream, int* plan) {
   switch (p.dim) {
-    case 8: return launch<T, 8>(p, kind, stream);
-    case 16: return launch<T, 16>(p, kind, stream);
-    case 32: return launch<T, 32>(p, kind, stream);
-    case 64: return launch<T, 64>(p, kind, stream);
+    case 8: return launch<T, 8>(p, kind, stream, plan);
+    case 16: return launch<T, 16>(p, kind, stream, plan);
+    case 32: return launch<T, 32>(p, kind, stream, plan);
+    case 64: return launch<T, 64>(p, kind, stream, plan);
     default: return cudaErrorInvalidValue;
   }
 }
 
-int run(const LaneParams* p, int kind, void* stream) {
+// Launches kernel `kind` (0 K3f, 1 K3b, 2 K6), or with `plan` set writes
+// K6's launch plan there and launches nothing.
+int run(const LaneParams* p, int kind, void* stream, int* plan = nullptr) {
   if (p->n <= 0 || p->heads <= 0 || p->heads > LANE_MAX_HEADS) return int(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return int(p->is_bf16 ? dispatch_dim<bf16>(*p, kind, s) : dispatch_dim<float>(*p, kind, s));
+  return int(p->is_bf16 ? dispatch_dim<bf16>(*p, kind, s, plan) : dispatch_dim<float>(*p, kind, s, plan));
 }
 
 }  // namespace lane
@@ -373,3 +536,7 @@ extern "C" const char* lane_attention_error_string(int code) {
 extern "C" int lane_attention_fwd(const LaneParams* p, void* stream) { return lane::run(p, 0, stream); }
 extern "C" int lane_attention_bwd(const LaneParams* p, void* stream) { return lane::run(p, 1, stream); }
 extern "C" int lane_attention_next(const LaneParams* p, void* stream) { return lane::run(p, 2, stream); }
+
+// K6's launch plan: out = {lanes per query, problems per block, threads per
+// block, dynamic shared memory bytes}.
+extern "C" int lane_attention_next_plan(const LaneParams* p, int* out) { return lane::run(p, 2, nullptr, out); }

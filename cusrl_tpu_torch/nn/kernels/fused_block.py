@@ -12,7 +12,10 @@ and the critic's layers in one launch (K5):
   ``qkv = LN1(h) [W_q; W_k; W_v]^T + b``; replaces ``_pre_fwd_kernel`` and
   ``_pair_pre_fwd_kernel``;
 - pre backward (``fused_block_pre_bwd``): replaces ``_pre_bwd_kernel`` and
-  ``_pair_pre_bwd_kernel``;
+  ``_pair_pre_bwd_kernel``; its phase 1 takes its products with wgmma from
+  images of the transposed weights (``pre_bwd_stages``), packed per call and
+  kept resident in one block per SM where they fit (``pre_bwd_plan``
+  mirrors its plan);
 - post forward (``fused_block_post_fwd``, saving or primal):
   ``r1 = h + attn W_o^T + b``, ``out = r1 + FFN(LN2(r1))``; replaces
   ``_post_fwd_kernel`` and ``_pair_post_fwd_kernel``;
@@ -79,6 +82,8 @@ __all__ = [
     "post_fwd_plain",
     "post_reference",
     "pre_bwd_plain",
+    "pre_bwd_plan",
+    "pre_bwd_stages",
     "pre_fwd_plain",
     "reset_launch_counts",
     "supports_fused_block",
@@ -90,8 +95,8 @@ _SUPPORTED = ("elu", "relu", "tanh", "gelu", "identity", "none")
 LN_EPS = 1e-6
 MAX_EMBED = 128  # FB_MAX_EMBED in csrc/fused_block.cu
 MAX_WIDTH = 512  # MLP_MAX_WIDTH: the input and FFN widths
-WIDTH_MULTIPLE = 16  # the products' k16 steps (WMMA in the pre backward, wgmma elsewhere)
-ROW_TILE = 64  # mlp::BM
+WIDTH_MULTIPLE = 16  # the products' k16 steps (wgmma)
+ROW_TILE = 64  # wg::TILE_M: the backwards' row tiles
 
 LAUNCHES: dict[str, int] = {f"K{k}{op}_{d}": 0 for k in (4, 5) for op in ("pre", "post") for d in ("f", "b")}
 
@@ -244,14 +249,54 @@ def bwd_stages(embed: int, ff: int) -> list[tuple[int, int, int]]:
     return stages + [(0, 0, k0) for k0 in range(0, embed, STAGE_COLS)]
 
 
+def pre_bwd_stages(in_dim: int, embed: int, skip_input_grad: bool) -> list[tuple[int, int, int]]:
+    """``(matrix, n0, k0)`` of each weight image of the pre backward's
+    phase 1 (``fbp::pre_bwd_pack``), in the order its kernel takes them:
+    ``W_q^T``, ``W_k^T`` and ``W_v^T`` by K block (``dy = gqkv [W_q; W_k;
+    W_v]``, the K blocks of the gqkv tile's three segments), then, unless
+    ``skip_input_grad``, per 128-column chunk of the input width ``W_in^T``'s
+    rows by K block (``dx = dh W_in``).  Matrices 0-3 are ``W_q``, ``W_k``,
+    ``W_v`` and ``W_in``, each transposed (``weight_images.pack_plain(...,
+    transpose=(True,) * 4)``)."""
+    stages = [(q, 0, k0) for q in range(3) for k0 in range(0, embed, STAGE_COLS)]
+    if not skip_input_grad:
+        stages += [(3, n0, k0) for n0 in range(0, in_dim, STAGE_ROWS) for k0 in range(0, embed, STAGE_COLS)]
+    return stages
+
+
 @functools.lru_cache(maxsize=None)
-def _stage_count(op: str, in_dim: int, embed: int, ff: int) -> int:
+def _stage_count(op: str, in_dim: int, embed: int, ff: int, skip_input_grad: bool = True) -> int:
+    if op == "pre_bwd":
+        return len(pre_bwd_stages(in_dim, embed, skip_input_grad))
     return len(bwd_stages(embed, ff)) if op == "post_bwd" else len(fwd_stages(op, in_dim, embed, ff))
 
 
 BARRIER_BYTES = 2 * 24 * 8  # a ring's barriers: up to 24 slots (fbf::BARRIER_BYTES)
 RED_FLOATS = 2 * 3 * 4 * 64  # the column sums' warp partials of both warpgroups, three sets at once (fbb::)
+PRE_RED_FLOATS = 2 * 6 * 4 * 64  # the pre backward's: its six sums of a tile at once (fbp::RED_FLOATS)
 ROW_FLOATS = 2 * 64 * 4  # the halves of four row sums per warpgroup and row (fbb::ROW_FLOATS)
+
+
+PRE_BWD_BLOCKS_PER_SM = 1  # fbp::BLOCKS_PER_SM: the qkv images stay resident beside the gqkv tiles
+PRE_BWD_GQKV_TILES = 2  # fbp::GQKV_TILES: the next tile's gqkv arrives while one is worked on
+
+
+def _bwd_layout(what: str, images: int, wg_bytes: int, red_floats: int, embed: int, rows: int, chains: int,
+                sms: int, per_sm: int) -> dict:
+    """A backward's phase-1 plan through ``fbf::make_layout`` (one set of
+    64-row tiles, ``wg_bytes`` of them; LN's two parameters and the column
+    and row sums' partials beside them; the ring's slots take what is left
+    of the block's share of the SM, resident when every image has one)."""
+    par_bytes = ((2 * embed + red_floats + ROW_FLOATS) * 4 + 15) & ~15
+    budget = min(weight_images.BLOCK_SMEM, weight_images.SM_SMEM // per_sm - 1024)
+    fit = (budget - 1024 - wg_bytes - par_bytes - BARRIER_BYTES) // weight_images.STAGE_BYTES
+    if fit < 2:
+        raise ValueError(f"no launch plan for {what}")
+    slots = min(images, fit)
+    tiles = -(-rows // ROW_TILE)
+    return dict(images=images, slots=slots, resident=int(slots == images), tiles=tiles,
+                blocks=weight_images.persistent_blocks(tiles, per_sm, chains, sms),
+                smem_bytes=slots * weight_images.STAGE_BYTES + wg_bytes + par_bytes + 16 * slots + 1024, sms=sms)
 
 
 @functools.lru_cache(maxsize=256)
@@ -262,18 +307,24 @@ def post_bwd_plan(rows: int, chains: int, embed: int, ff: int, sms: int) -> dict
     blocks per SM; 64-row tiles of g, r1 and one 128-column chunk of the
     hidden, LN2's parameters and the column and row sums' partials beside
     the ring, whose slots take what is left."""
-    images = len(bwd_stages(embed, ff))
     wg_bytes = 2 * weight_images.kblocks(embed) * weight_images.ABLOCK_BYTES + 2 * weight_images.ABLOCK_BYTES
-    par_bytes = ((2 * embed + RED_FLOATS + ROW_FLOATS) * 4 + 15) & ~15
-    budget = min(weight_images.BLOCK_SMEM, weight_images.SM_SMEM // 2 - 1024)
-    fit = (budget - 1024 - wg_bytes - par_bytes - BARRIER_BYTES) // weight_images.STAGE_BYTES
-    if fit < 2:
-        raise ValueError(f"no launch plan for the post backward at embed {embed}, ffn {ff}")
-    slots = min(images, fit)
-    tiles = -(-rows // ROW_TILE)
-    return dict(images=images, slots=slots, resident=int(slots == images), tiles=tiles,
-                blocks=weight_images.persistent_blocks(tiles, 2, chains, sms),
-                smem_bytes=slots * weight_images.STAGE_BYTES + wg_bytes + par_bytes + 16 * slots + 1024, sms=sms)
+    return _bwd_layout(f"the post backward at embed {embed}, ffn {ff}", len(bwd_stages(embed, ff)), wg_bytes,
+                       RED_FLOATS, embed, rows, chains, sms, 2)
+
+
+@functools.lru_cache(maxsize=256)
+def pre_bwd_plan(rows: int, chains: int, in_dim: int, embed: int, skip_input_grad: bool, sms: int) -> dict:
+    """The pre backward's phase-1 plan (``fbp::plan`` through
+    ``fbf::make_layout``), with the keys of ``fwd_plan``: two consumer
+    warpgroups, each taking half of every product's columns, in
+    ``PRE_BWD_BLOCKS_PER_SM`` block(s) per SM; ``PRE_BWD_GQKV_TILES``
+    64-row gqkv tiles (three segments of ``pad64(embed)`` columns each, the
+    current one later bf16(dh)), LN1's parameters and the column sums' (six
+    sets) and row sums' partials beside the ring."""
+    wg_bytes = PRE_BWD_GQKV_TILES * 3 * weight_images.kblocks(embed) * weight_images.ABLOCK_BYTES
+    return _bwd_layout(f"the pre backward at input {in_dim}, embed {embed}",
+                       len(pre_bwd_stages(in_dim, embed, skip_input_grad)), wg_bytes, PRE_RED_FLOATS, embed, rows,
+                       chains, sms, PRE_BWD_BLOCKS_PER_SM)
 
 
 def fwd_grid(op: str, rows: int, chains: int, num_sms: int) -> tuple[int, int]:
@@ -333,8 +384,9 @@ def _library() -> ctypes.CDLL:
         lib.fused_block_fwd_plan.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_int,
                                              ctypes.POINTER(ctypes.c_int)]
         lib.fused_block_fwd_plan.restype = ctypes.c_int
-        lib.fused_block_post_bwd_plan.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-        lib.fused_block_post_bwd_plan.restype = ctypes.c_int
+        for name in ("fused_block_post_bwd_plan", "fused_block_pre_bwd_plan"):
+            getattr(lib, name).argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            getattr(lib, name).restype = ctypes.c_int
         lib.fused_block_error_string.argtypes = [ctypes.c_int]
         lib.fused_block_error_string.restype = ctypes.c_char_p
     return lib
@@ -369,16 +421,28 @@ def fwd_plan(op: str, rows: int, chains: int, in_dim: int, embed: int, ff: int, 
     return dict(zip(_PLAN_KEYS, out))
 
 
+def _card_plan(entry: str, p: _Params, chains: int) -> dict:
+    out = (ctypes.c_int * 7)()
+    lib = _library()
+    code = getattr(lib, entry)(ctypes.byref(p), chains, out)
+    if code != 0:
+        raise RuntimeError(f"{entry} failed: {lib.fused_block_error_string(code).decode()}")
+    return dict(zip(_PLAN_KEYS, out))
+
+
 def bwd_plan(rows: int, chains: int, embed: int, ff: int) -> dict:
     """The plan ``fbb::plan`` makes for the post backward's phase 1 on the
     current card, with the keys of ``post_bwd_plan``."""
-    p = _Params(num_rows=rows, embed=embed, ff=ff)
-    out = (ctypes.c_int * 7)()
-    lib = _library()
-    code = lib.fused_block_post_bwd_plan(ctypes.byref(p), chains, out)
-    if code != 0:
-        raise RuntimeError(f"fused_block_post_bwd_plan failed: {lib.fused_block_error_string(code).decode()}")
-    return dict(zip(_PLAN_KEYS, out))
+    return _card_plan("fused_block_post_bwd_plan", _Params(num_rows=rows, embed=embed, ff=ff), chains)
+
+
+def pre_bwd_card_plan(rows: int, chains: int, in_dim: int, embed: int, skip_input_grad: bool) -> dict:
+    """The plan ``fbp::plan`` makes for the pre backward's phase 1 on the
+    current card, with the keys of ``pre_bwd_plan``."""
+    p = _Params(num_rows=rows, in_dim=in_dim, embed=embed)
+    if not skip_input_grad:
+        p.chain[0].out0 = 1  # dX: the plan reads only whether out0 is set
+    return _card_plan("fused_block_pre_bwd_plan", p, chains)
 
 
 def _validate(rows, widths: dict, tensors, device) -> None:
@@ -451,29 +515,33 @@ def _launch_pre_bwd(xs, hs, ghs, gqkvs, pss, skip_input_grad, counter):
     shapes = _pre_shapes(in_dim, embed)
     _validate(n, {"input": in_dim, "embed": embed}, [*xs, *hs, *ghs, *gqkvs], device)
     row_tiles = max(-(-n // ROW_TILE), 1)
-    p = _Params(num_rows=n, in_dim=in_dim, embed=embed, x_is_bf16=int(xs[0].dtype == _BF16))
+    stages = _stage_count("pre_bwd", in_dim, embed, 0, bool(skip_input_grad))
+    p = _Params(num_rows=n, in_dim=in_dim, embed=embed, x_is_bf16=int(xs[0].dtype == _BF16), num_stages=stages)
     keep, results = [], []
     for i, (x, h, gh, gqkv, ps) in enumerate(zip(xs, hs, ghs, gqkvs, pss)):
         w_in, _, g1, bb1, w_q, w_k, w_v, *_ = _check_params(ps, shapes)
         if h.dtype != torch.float32 or h.shape != (n, embed) or gqkv.shape != (n, 3 * embed):
             raise ValueError("h must be fp32 [N, E] and the qkv cotangent [N, 3E]")
-        x, h = dw_phase2.aligned16(x), h.contiguous()
+        if gh is not None and gh.shape != (n, embed):
+            raise ValueError("the residual's cotangent must be [N, E]")
+        x, h = dw_phase2.aligned16(x), dw_phase2.aligned16(h)
         gqkv = dw_phase2.aligned16(gqkv.to(_BF16))
-        gh = None if gh is None else gh.float().contiguous()
+        gh = None if gh is None else dw_phase2.aligned16(gh.float())
         dx = None if skip_input_grad else torch.empty(n, in_dim, device=device)
         sa, sb = (torch.empty(n, embed, dtype=_BF16, device=device) for _ in range(2))
         part = torch.empty(row_tiles, 6 * embed, device=device)
         dw = torch.empty(embed * in_dim + 3 * embed * embed, device=device)
         sums = torch.empty(6 * embed, device=device)
+        wpack = torch.empty(stages, STAGE_ROWS, STAGE_COLS, dtype=_BF16, device=device)
         chain = p.chain[i]
-        chain.x, chain.h, chain.g = x.data_ptr(), h.data_ptr(), gqkv.data_ptr()
+        chain.x, chain.h, chain.g, chain.wpack = x.data_ptr(), h.data_ptr(), gqkv.data_ptr(), wpack.data_ptr()
         chain.gh = None if gh is None else gh.data_ptr()
         for j, w in enumerate((w_in, w_q, w_k, w_v)):
             chain.w[j] = w.data_ptr()
         chain.ln_g, chain.ln_b = g1.data_ptr(), bb1.data_ptr()
         chain.out0 = None if dx is None else dx.data_ptr()
         chain.sa, chain.sb, chain.part, chain.dw, chain.sums = (t.data_ptr() for t in (sa, sb, part, dw, sums))
-        keep += [x, h, gqkv, gh, w_in, w_q, w_k, w_v, g1, bb1, sa, sb, part]
+        keep += [x, h, gqkv, gh, w_in, w_q, w_k, w_v, g1, bb1, sa, sb, part, wpack]
         dws = dw.split([embed * in_dim] + [embed * embed] * 3)
         db_in, dg1, dbb1, db_q, db_k, db_v = sums.split(embed)
         results.append((dx, dws[0].view(embed, in_dim), db_in, dg1, dbb1, *(d.view(embed, embed) for d in dws[1:]),

@@ -46,6 +46,7 @@ __all__ = [
     "lane_fwd_plain",
     "lane_next_token_attention",
     "lane_window_attention",
+    "next_plan",
     "next_token_plain",
     "reset_launch_counts",
 ]
@@ -172,7 +173,8 @@ class _LaneParams(ctypes.Structure):
         ("use_alibi", ctypes.c_int),
         ("scale", ctypes.c_float),
         ("slopes", ctypes.c_float * MAX_HEADS),
-    ]
+    ] + [(name, ctypes.c_longlong * 3) for name in ("sq", "sks", "svs", "sk", "sv")] + [
+        (name, ctypes.c_longlong * 2) for name in ("sqseg", "skseg", "skval")]
 
 
 _ENTRY = {"K3f": "lane_attention_fwd", "K3b": "lane_attention_bwd", "K6": "lane_attention_next"}
@@ -187,14 +189,15 @@ def _library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.POINTER(_LaneParams), ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.lane_attention_next_plan.argtypes = [ctypes.POINTER(_LaneParams), ctypes.POINTER(ctypes.c_int)]
+        lib.lane_attention_next_plan.restype = ctypes.c_int
         lib.lane_attention_error_string.argtypes = [ctypes.c_int]
         lib.lane_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _params(q, k, v, q_seg, k_seg, k_valid, window: int, slopes) -> tuple[_LaneParams, list]:
-    """Checks what the kernels take; returns the filled parameter block and
-    the tensors it points to (kept alive until the launch)."""
+def _check_inputs(q, k, v, q_seg, k_seg, k_valid, window: int, slopes) -> None:
+    """Raises on what the kernels do not take."""
     if q.dim() != 4:
         raise ValueError(f"q must be [N, H, T, D]; got {tuple(q.shape)}")
     n, heads, t_len, dim = q.shape
@@ -214,16 +217,91 @@ def _params(q, k, v, q_seg, k_seg, k_valid, window: int, slopes) -> tuple[_LaneP
     tensors = [q, k, v, q_seg, k_seg, k_valid]
     if any(t.device != q.device for t in tensors):
         raise ValueError("all tensors must lie on one CUDA device")
-    keep = [t.contiguous() for t in (q, k, v)] + [t.to(torch.int32).contiguous() for t in (q_seg, k_seg, k_valid)]
-    p = _LaneParams()
-    p.q, p.k, p.v, p.q_seg, p.k_seg, p.k_valid = (t.data_ptr() for t in keep)
+
+
+def _fill(p: _LaneParams, q, window: int, slopes) -> _LaneParams:
+    n, heads, t_len, dim = q.shape
     p.n, p.heads, p.t_len, p.window, p.dim = n, heads, t_len, window, dim
     p.is_bf16 = int(q.dtype == torch.bfloat16)
     p.scale = 1.0 / math.sqrt(dim)
     p.use_alibi = int(slopes is not None)
     for i, s in enumerate(slopes or ()):
         p.slopes[i] = float(s)
-    return p, keep
+    return p
+
+
+def _params(q, k, v, q_seg, k_seg, k_valid, window: int, slopes) -> tuple[_LaneParams, list]:
+    """K3f's and K3b's parameter block (contiguous operands, int32 masks)
+    and the tensors it points to (kept alive until the launch)."""
+    _check_inputs(q, k, v, q_seg, k_seg, k_valid, window, slopes)
+    keep = [t.contiguous() for t in (q, k, v)] + [t.to(torch.int32).contiguous() for t in (q_seg, k_seg, k_valid)]
+    p = _LaneParams()
+    p.q, p.k, p.v, p.q_seg, p.k_seg, p.k_valid = (t.data_ptr() for t in keep)
+    return _fill(p, q, window, slopes), keep
+
+
+def _in_units(t: torch.Tensor) -> torch.Tensor:
+    """``t`` ([N, H, L, D]) as K6 reads it in place: the last dim
+    contiguous, every row at a 16-byte boundary; otherwise a contiguous
+    copy."""
+    vec = 16 // t.element_size()
+    if t.stride(-1) == 1 and all(st % vec == 0 for st in t.stride()[:-1]) and t.data_ptr() % 16 == 0:
+        return t
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _next_params(q, k_self, v_self, k, v, q_seg, k_seg, k_valid, window: int, slopes):
+    """K6's parameter block, which reads its operands in place with their
+    strides (the main path's v_self is a view of the projection, q_seg a
+    transposed view): a copy only where a row would not be 16-byte aligned
+    or the masks are not int32."""
+    _check_inputs(q, k, v, q_seg, k_seg, k_valid, window, slopes)
+    keep = [_in_units(t) for t in (q, k_self, v_self, k, v)]
+    keep += [t if t.dtype == torch.int32 else t.to(torch.int32) for t in (q_seg, k_seg, k_valid)]
+    p = _LaneParams()
+    p.q, p.k_self, p.v_self, p.k, p.v, p.q_seg, p.k_seg, p.k_valid = (t.data_ptr() for t in keep)
+    for name, t in zip(("sq", "sks", "svs", "sk", "sv", "sqseg", "skseg", "skval"), keep):
+        getattr(p, name)[:] = t.stride()[:-1] if t.dim() == 4 else t.stride()
+    return _fill(p, q, window, slopes), keep
+
+
+NEXT_TARGET_THREADS, NEXT_MAX_THREADS = 256, 512  # lane::NEXT_TARGET_THREADS, NEXT_MAX_THREADS
+NEXT_SOFT_SMEM, MAX_SMEM = 64 * 1024, 232448  # lane::NEXT_SOFT_SMEM, lane::MAX_SMEM
+
+
+def next_plan(t_len: int, window: int, dim: int, dtype: torch.dtype) -> dict:
+    """K6's launch plan (``lane::launch_next``): lanes per query (each on
+    ``dim / lanes`` columns in 16-byte units, at most four), problems per
+    block (at least 256 threads where the queries allow, at most 512, fewer
+    while the block's staging exceeds 64 KB), threads per block, and the
+    dynamic shared memory (the K and V rows and one (segment, valid) pair per
+    key, per problem)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    lanes = min(dim * size // 16, 4)
+    per = t_len * lanes
+
+    def smem(pb):
+        return pb * (window + t_len) * (2 * dim * size + 8)
+
+    pb = max(1, -(-NEXT_TARGET_THREADS // per))
+    while pb > 1 and (pb * per > NEXT_MAX_THREADS or smem(pb) > NEXT_SOFT_SMEM):
+        pb -= 1
+    if smem(pb) > MAX_SMEM:
+        raise ValueError(f"K6 does not fit a block at T={t_len}, W={window}, D={dim}")
+    return dict(lanes=lanes, problems=pb, threads=pb * per, smem_bytes=smem(pb))
+
+
+def next_card_plan(q, window: int) -> dict:
+    """The plan ``lane::launch_next`` makes on the card for queries shaped
+    as ``q``, with the keys of ``next_plan``."""
+    p = _fill(_LaneParams(), q, window, None)
+    out = (ctypes.c_int * 4)()
+    lib = _library()
+    code = lib.lane_attention_next_plan(ctypes.byref(p), out)
+    if code != 0:
+        raise RuntimeError(f"lane_attention_next_plan failed: {lib.lane_attention_error_string(code).decode()}")
+    return dict(zip(("lanes", "problems", "threads", "smem_bytes"), out))
 
 
 def _launch(name: str, p: _LaneParams, device) -> None:
@@ -269,14 +347,13 @@ def _launch_bwd(q, k, v, probs, g, q_seg, k_seg, k_valid, window: int):
 
 def _launch_next(q, k_self, v_self, k, v, q_seg, k_seg, k_valid, window: int, slopes):
     """K6: ``out`` fp32."""
-    p, keep = _params(q, k, v, q_seg, k_seg, k_valid, window, slopes)
     if k_self.shape != q.shape or v_self.shape != q.shape or k_self.dtype != q.dtype or v_self.dtype != q.dtype:
         raise ValueError("k_self/v_self must match q's shape and dtype")
     if k_self.device != q.device or v_self.device != q.device:
         raise ValueError("all tensors must lie on one CUDA device")
-    k_self, v_self = k_self.contiguous(), v_self.contiguous()
+    p, keep = _next_params(q, k_self, v_self, k, v, q_seg, k_seg, k_valid, window, slopes)
     out = torch.empty(q.shape, device=q.device)
-    p.k_self, p.v_self, p.out = k_self.data_ptr(), v_self.data_ptr(), out.data_ptr()
+    p.out = out.data_ptr()
     _launch("K6", p, q.device)
     del keep
     return out

@@ -6,15 +6,17 @@ Run from the root of a checkout on a machine with a card:
 
     python3 probe_backward_phase1.py [--variants]
 
-For each backward whose phase 1 runs on wgmma (the fused block's post
-backward, ``fbb::``; the MLP chain backward, ``mlpb::``) at the main paths'
+For each backward whose phase 1 runs on wgmma (the fused block's pre and
+post backwards, ``fbp::`` and ``fbb::``; the MLP chain backward, ``mlpb::``) at the main paths'
 shapes it prints the device time per call of every kernel of the launch
 (``torch.profiler``, mean of 10 calls after 3), phase 1's sum (the pack and
 the persistent kernel) and phase 2's, on random inputs from a fixed seed.
 With ``--variants`` it builds copies of ``csrc/fused_block.cu`` and
 ``csrc/mlp_chain_bwd.cu`` with one part taken out or done another way
 (``VARIANTS``: textual substitutions, one ``nvcc`` each, all at once, into
-``cusrl_tpu_torch/_build/probe/``) and prints phase 1's device ms of each.
+``cusrl_tpu_torch/_build/probe/``) and prints phase 1's device ms of each on
+the cases of its kernel (a variant's name starts with ``pre``, ``post`` or
+``chain``).
 Nothing is checked here (a variant that takes a part out gives other
 outputs): ``chip_smoke.py`` and ``tests/test_torch_kernels_gpu.py`` hold the
 kernels against their plain versions.
@@ -38,6 +40,14 @@ HEAD = (128, 128)
 HEADERS = ("hopper_wg.cuh", "mlp_chain.cuh", "dw_phase2.cuh")
 # name: (source, substitutions); each substitution replaces every occurrence in the source.
 VARIANTS = {
+    "pre: one gqkv tile": ("fused_block.cu", [(
+        "BLOCKS_PER_SM = 1, GQKV_TILES = 2,", "BLOCKS_PER_SM = 1, GQKV_TILES = 1,")]),
+    "pre: two blocks per SM, one gqkv tile each, images streamed": ("fused_block.cu", [(
+        "BLOCKS_PER_SM = 1, GQKV_TILES = 2,", "BLOCKS_PER_SM = 2, GQKV_TILES = 1,")]),
+    "pre: no column sums": ("fused_block.cu", [
+        ("col_rs([&]", "if (false) col_rs([&]"),
+        ("      wg::col_combine<NA, SETS>(", "      if (false) wg::col_combine<NA, SETS>(")]),
+    "pre: column partials by three shuffle rounds": ("fused_block.cu", [("col_rs([&]", "wg::col_partials<NA>([&]")]),
     "post: no column sums": ("fused_block.cu", [("wg::col_sums<NA", "if (false) wg::col_sums<NA")]),
     "post: no act'": ("fused_block.cu", [("mlp::mul_act_grad(d, [&](int i) { return wg::pair_at(sv, i); }, act);", "")]),
     "post: saved loads after the product": ("fused_block.cu", [(
@@ -83,6 +93,19 @@ def _cases(torch, device):
             hss.append([*hid, out])
         return xs, gs, wss, hss
 
+    def pre(rows, chains):
+        e, i = 128, 48
+        args = [[], [], [], [], []]
+        for _ in range(chains):
+            ps = (w(e, i), v(e), v(e, 1.0), v(e), w(e, e), w(e, e), w(e, e), v(e), v(e), v(e))
+            x = torch.tanh(torch.randn(rows, i, generator=gen)).to(device)
+            h = fb.pre_fwd_plain(x, *ps)[0]
+            gh = (torch.randn(rows, e, generator=gen) * 0.01).to(device)
+            gqkv = (torch.randn(rows, 3 * e, generator=gen) * 0.01).to(device, torch.bfloat16)
+            for a, t in zip(args, (x, h, gh, gqkv, ps)):
+                a.append(t)
+        return lambda: fb._launch_pre_bwd(*args, True, fb._counter("pre_b", chains))
+
     def post(rows, chains):
         e, f = 128, 512
         args = [[], [], [], [], []]
@@ -97,6 +120,8 @@ def _cases(torch, device):
         return lambda: fb._launch_post_bwd(*args, "gelu", fb._counter("post_b", chains))
 
     cases = {}
+    for rows, chains in ((65536, 1), (6144, 1), (6144, 2)):
+        cases[f"K{4 if chains == 1 else 5} pre b {chains} x {rows}"] = pre(rows, chains)
     for rows, chains in ((65536, 1), (6144, 1), (6144, 2)):
         cases[f"K{4 if chains == 1 else 5} post b {chains} x {rows}"] = post(rows, chains)
     xs, gs, wss, hss = chain(MLP, 24576, 2)
@@ -120,6 +145,22 @@ def _cases(torch, device):
     xf, gf, wf, hf = chain(FFN, 6144, 1, "gelu", False)
     cases["K1b gelu FFN 6144"] = lambda: fm._launch_bwd(xf, gf, wf, hf, "gelu", False, False, "K1b")
     return cases
+
+
+KERNELS = {"pre": "3fbp14pre_bwd_kernel", "post": "3fbb15post_bwd_kernel", "chain": "chain_bwd_kernel"}
+
+
+def _usage(log: str, symbol: str) -> str:
+    """Registers, spills and wgmma serialization (C7515) of the kernels
+    whose mangled names hold ``symbol``, from a build's ptxas log."""
+    found, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and symbol in name and ("registers" in line or "spill stores" in line):
+            found.append(line.split(":", 1)[-1].strip())
+    serial = sum("C7515" in line and symbol in line for line in log.splitlines())
+    return "; ".join(found) + (f"; C7515 x{serial}" if serial else "")
 
 
 def _build(name: str, source: str, subs) -> tuple[subprocess.Popen, Path]:
@@ -156,10 +197,9 @@ def _variant(stem: str, path: Path):
 
 
 def _phase_ms(chip_smoke, fn) -> tuple[float, float, str]:
-    ours = ("dw::", "mlpb::", "fbb::", "mlp::", "fb::")
-    found = chip_smoke._profiled_kernels(fn, lambda key: any(ns in key for ns in ours), 10, 3)
-    phase1 = [k for k in found if "dw::" not in k[0]]
-    phase2 = [k for k in found if "dw::" in k[0]]
+    found, _ = chip_smoke._profiled_kernels(fn, ("dw", "mlpb", "fbb", "fbp", "mlp"), 10, 3)
+    phase1 = [k for k in found if not chip_smoke._in_namespaces(k[0], ("dw",))]
+    phase2 = [k for k in found if chip_smoke._in_namespaces(k[0], ("dw",))]
     ms = [sum(us / count for _, count, us in phase) / 1e3 for phase in (phase1, phase2)]
     kernels = "; ".join(f"{k.split('(')[0].replace('void ', '')} {us / count / 1e3:.4f} ({count})"
                         for k, count, us in phase1)
@@ -182,12 +222,17 @@ def main(argv: list[str]) -> int:
     start = time.perf_counter()
     builds = {name: _build(name, source, subs) for name, (source, subs) in VARIANTS.items()} if argv else {}
     build.build_all()
+    usage = {}
     for name, (proc, _) in builds.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             print(f"variant {name!r} failed to build:\n{log}", file=sys.stderr)
             return 1
+        usage[name] = _usage(log, KERNELS[name.split(":")[0]])
     print(f"[build] {time.perf_counter() - start:.1f} s, {len(builds)} variants")
+    for kind, symbol in KERNELS.items():
+        stem = "mlp_chain_bwd" if kind == "chain" else "fused_block"
+        print(f"  {kind}: {_usage((build.BUILD_DIR / f'{stem}.log').read_text(), symbol)}")
     cases = _cases(torch, torch.device("cuda", 0))
     for name, fn in cases.items():
         p1, p2, kernels = _phase_ms(chip_smoke, fn)
@@ -195,9 +240,10 @@ def main(argv: list[str]) -> int:
     for name, (_, out) in builds.items():
         stem = VARIANTS[name][0][:-3]
         with _variant(stem, out / "lib.so"):
+            kind = name.split(":")[0]  # pre, post or chain
             times = [f"{case} {_phase_ms(chip_smoke, fn)[0]:.4f}" for case, fn in cases.items()
-                     if ("post" in case) == (stem == "fused_block")]
-        print(f"  {name:36s} phase1_ms: " + " | ".join(times))
+                     if (f" {kind} b " in case) or (kind == "chain" and " b " not in case)]
+        print(f"  {name:36s} phase1_ms: " + " | ".join(times) + f"  [{usage[name]}]")
     return 0
 
 

@@ -183,3 +183,92 @@ def test_backward_schedules_take_every_tile_once(rows, chains, sms):
         for c in range(chains):
             per_block = [sum(1 for c_, b, _ in schedule if (c_, b) == (c, k)) for k in range(blocks)]
             assert max(per_block) - min(per_block) <= 1 and min(per_block) >= 1
+
+
+PRE_WIDTHS = [(48, 128), (16, 16), (512, 128), (16, 128), (512, 16), (80, 48), (144, 64)]  # (in, embed)
+
+
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("in_dim,embed", PRE_WIDTHS)
+def test_pre_backward_image_order_follows_the_kernel(in_dim, embed, skip):
+    """W_q^T, W_k^T and W_v^T by K block (one run of K blocks over the gqkv
+    tile's three segments), then W_in^T's 128-row chunks of the input width,
+    each chunk's K blocks over the embedding in order (``fbp::pre_bwd_pack``)."""
+    stages = fb.pre_bwd_stages(in_dim, embed, skip)
+    kb_e = wi.kblocks(embed)
+    assert stages[:3 * kb_e] == [(q, 0, k0) for q in range(3) for k0 in range(0, embed, 64)]
+    tail = stages[3 * kb_e:]
+    if skip:
+        assert tail == []
+    else:
+        assert tail == [(3, n0, k0) for n0 in range(0, in_dim, 128) for k0 in range(0, embed, 64)]
+        assert len(tail) == -(-in_dim // 128) * kb_e
+    if (in_dim, embed) == (48, 128):
+        assert len(stages) == (6 if skip else 8)  # the zoo's widths: 96 KB of qkv images, W_in^T 32 KB
+
+
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("in_dim,embed", PRE_WIDTHS)
+def test_pre_backward_images_unpack_to_the_transposed_weights(in_dim, embed, skip):
+    """Each image unpacks to its weight's bf16 transpose (W_q^T, W_k^T, W_v^T
+    and, with dX, W_in^T), every element in exactly one image, 0 past a
+    matrix's edge."""
+    gen = torch.Generator().manual_seed(in_dim + embed + skip)
+    mats = [torch.randn(embed, embed, generator=gen) for _ in range(3)] + [torch.randn(embed, in_dim, generator=gen)]
+    stages = fb.pre_bwd_stages(in_dim, embed, skip)
+    images = wi.pack_plain(mats, stages, (True,) * 4)
+    used = [0, 1, 2] if skip else [0, 1, 2, 3]
+    assert sorted({m for m, _, _ in stages}) == used
+    back = wi.unpack_plain(images, stages, [tuple(m.t().shape) for m in mats])
+    for m in used:
+        assert torch.equal(back[m], mats[m].t().to(torch.bfloat16))
+    qkv_t = torch.cat([back[q] for q in range(3)], 1)  # [E, 3E]: the B operand of dy = gqkv [W_q; W_k; W_v]
+    assert torch.equal(qkv_t, torch.cat(mats[:3]).t().to(torch.bfloat16))
+    covered = sum(min(wi.STAGE_ROWS, mats[m].shape[1] - n0) * min(wi.STAGE_COLS, mats[m].shape[0] - k0)
+                  for m, n0, k0 in stages)
+    assert covered == sum(mats[m].numel() for m in used)
+    assert int((images != 0).sum()) == sum(int((mats[m].to(torch.bfloat16) != 0).sum()) for m in used)
+
+
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("sms", [132, 7])
+@pytest.mark.parametrize("chains", [1, 2])
+@pytest.mark.parametrize("rows", [1, 63, 65, 6144 + 17, 65536 + 37])
+@pytest.mark.parametrize("in_dim,embed", PRE_WIDTHS)
+def test_pre_backward_plan_fits_the_block_and_the_sm(in_dim, embed, rows, chains, sms, skip):
+    """The gqkv tiles (three segments of pad64(E) columns each), LN1's
+    parameters and the sums' partials (six sets) beside the ring; resident
+    exactly when every image has its slot, a streamed ring at least 2 slots;
+    within 227 KB a block and the SM's shared memory for its blocks per SM."""
+    plan = fb.pre_bwd_plan(rows, chains, in_dim, embed, skip, sms)
+    per_sm = fb.PRE_BWD_BLOCKS_PER_SM
+    tile = fb.PRE_BWD_GQKV_TILES * 3 * wi.kblocks(embed) * 8192
+    par = (2 * embed + fb.PRE_RED_FLOATS + fb.ROW_FLOATS) * 4
+    assert plan["images"] == len(fb.pre_bwd_stages(in_dim, embed, skip))
+    assert plan["resident"] == (plan["slots"] == plan["images"]) and plan["slots"] >= 2
+    assert plan["smem_bytes"] == plan["slots"] * (wi.STAGE_BYTES + 16) + tile + par + 1024
+    assert plan["smem_bytes"] <= 232448 and per_sm * (plan["smem_bytes"] + 1024) <= 233472
+    assert plan["tiles"] == -(-rows // 64) and 1 <= plan["blocks"] <= min(plan["tiles"], per_sm * sms // chains)
+
+
+@pytest.mark.parametrize("skip,resident,slots", [(True, 1, 6), (False, 0, 7)])
+def test_pre_backward_plan_at_the_zoo_widths(skip, resident, slots):
+    """Input 48, embedding 128: the six qkv images stay resident in one
+    block per SM beside two gqkv tiles (the paths' skip_input_grad); with
+    dX's two more images they stream through seven slots."""
+    plan = fb.pre_bwd_plan(65536, 1, 48, 128, skip, 132)
+    assert (plan["resident"], plan["slots"], plan["blocks"], plan["tiles"]) == (resident, slots, 132, 1024)
+
+
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("sms", [132, 7, 1])
+@pytest.mark.parametrize("chains", [1, 2])
+@pytest.mark.parametrize("rows", [1, 63, 65, 6144 + 17, 65536 + 37])
+def test_pre_backward_schedule_takes_every_tile_once(rows, chains, sms, skip):
+    plan = fb.pre_bwd_plan(rows, chains, 48, 128, skip, sms)
+    blocks, tiles = plan["blocks"], plan["tiles"]
+    schedule = wi.tile_schedule(blocks, tiles, chains)
+    assert sorted((c, t) for c, _, t in schedule) == [(c, t) for c in range(chains) for t in range(tiles)]
+    for c in range(chains):
+        per_block = [sum(1 for c_, b, _ in schedule if (c_, b) == (c, k)) for k in range(blocks)]
+        assert max(per_block) - min(per_block) <= 1 and min(per_block) >= 1

@@ -1415,3 +1415,156 @@ def test_backward_plans_match_the_python_mirrors(cuda):
     for embed, ff in ((128, 512), (16, 16), (128, 48), (16, 512)):
         for rows, chains in ((1, 1), (6144, 2), (65573, 1)):
             assert fb.bwd_plan(rows, chains, embed, ff) == fb.post_bwd_plan(rows, chains, embed, ff, sms)
+
+
+# -- the pre backward's phase 1 on wgmma (fbp::) ---------------------------------
+
+
+def _pre_bwd_case(gen, device, rows, chains, in_dim, embed, x_dtype=torch.float32, with_gh=True):
+    from cusrl_tpu_torch.nn.kernels import fused_block as fb
+
+    pss = [_block_params_at(gen, device, in_dim, embed, 16)[0] for _ in range(chains)]
+    xs = [torch.tanh(torch.randn(rows, in_dim, generator=gen)).to(device, x_dtype) for _ in range(chains)]
+    hs = [fb.pre_fwd_plain(x, *ps)[0] for x, ps in zip(xs, pss)]
+    ghs = [(torch.randn(rows, embed, generator=gen) * 0.01).to(device) if with_gh else None for _ in range(chains)]
+    gqkvs = [(torch.randn(rows, 3 * embed, generator=gen) * 0.01).to(device, torch.bfloat16) for _ in range(chains)]
+    return xs, hs, ghs, gqkvs, pss
+
+
+def _check_pre_bwd(case, skip):
+    from cusrl_tpu_torch.nn.kernels import fused_block as fb
+
+    xs, hs, ghs, gqkvs, pss = case
+    got = fb._launch_pre_bwd(xs, hs, ghs, gqkvs, pss, skip, fb._counter("pre_b", len(xs)))
+    for c, result in enumerate(got):
+        ps = pss[c]
+        want = fb.pre_bwd_plain(xs[c], hs[c], ghs[c], gqkvs[c], ps[0], *ps[4:7], ps[2], ps[3], skip)
+        assert (result[0] is None) == skip
+        for a, b in zip(result, want):
+            if b is not None:
+                _close(a, b, grad=True)
+    return got
+
+
+@pytest.mark.parametrize("chains", [1, 2])
+@pytest.mark.parametrize("rows", [1, 63, 65, 6144 + 17, 65536 + 37])
+def test_block_pre_backward_at_ragged_rows(cuda, rows, chains):
+    """The pre backward's phase 1 (resident qkv images) at row counts that
+    end inside a 64-row tile, one and two chains, with and without dX."""
+    gen = torch.Generator().manual_seed(rows + 11 * chains)
+    case = _pre_bwd_case(gen, cuda, rows, chains, BLOCK_IN, BLOCK_EMBED)
+    for skip in (True, False):
+        _check_pre_bwd(case, skip)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chains", [1, 2])
+@pytest.mark.parametrize("embed", [16, 128])
+@pytest.mark.parametrize("in_dim", [16, 48, 512])
+def test_block_pre_backward_at_the_width_limits(cuda, in_dim, embed, chains, x_dtype):
+    """Input widths 16, 48 and 512 (dX in one to four 128-column chunks, its
+    images streamed where they outgrow the ring), embeddings 16 (segments of
+    16 columns padded to 64) and 128, x in fp32 and bf16; without gh in one
+    chain."""
+    gen = torch.Generator().manual_seed(in_dim + embed + chains)
+    case = _pre_bwd_case(gen, cuda, 1000, chains, in_dim, embed, x_dtype, with_gh=chains == 1)
+    for skip in (True, False):
+        _check_pre_bwd(case, skip)
+
+
+def test_pre_backward_repeats_bitwise_and_follows_weights_changed_in_place(cuda):
+    """Two calls of K4 and K5 pre b on the same inputs give the same bits
+    (the column sums take a fixed order); weights updated in place between
+    calls are packed afresh."""
+    from cusrl_tpu_torch.nn.kernels import fused_block as fb
+
+    gen = torch.Generator().manual_seed(71)
+    for chains in (1, 2):
+        case = _pre_bwd_case(gen, cuda, 65536 + 37, chains, BLOCK_IN, BLOCK_EMBED)
+        for skip in (True, False):
+            call = lambda: fb._launch_pre_bwd(*case, skip, fb._counter("pre_b", chains))  # noqa: E731
+            first, second = _flat(call()), _flat(call())
+            assert first and len(first) == len(second)
+            assert all(torch.equal(a, b) for a, b in zip(first, second))
+    case = _pre_bwd_case(gen, cuda, 6144, 1, BLOCK_IN, BLOCK_EMBED)
+    first = _check_pre_bwd(case, False)[0]
+    before = [t.clone() for t in (first[0], first[5])]  # dx, dW_q
+    for i in (0, 4, 5, 6):  # W_in, W_q, W_k, W_v
+        case[4][0][i].add_(0.05 * torch.randn(case[4][0][i].shape, generator=gen).to(cuda))
+    second = _check_pre_bwd(case, False)[0]
+    assert not torch.equal(before[0], second[0]) and torch.equal(before[1], second[5])  # dW_q reads no weight
+
+
+def test_pre_backward_plan_matches_the_python_mirror(cuda):
+    """``fbp::plan`` against ``fused_block.pre_bwd_plan`` (the images the
+    wrapper allocates, the grid the schedule assumes)."""
+    from cusrl_tpu_torch.nn.kernels import fused_block as fb
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for in_dim, embed in ((48, 128), (16, 16), (512, 128), (512, 16)):
+        for rows, chains in ((1, 1), (6144, 2), (65573, 1)):
+            for skip in (True, False):
+                plan = fb.pre_bwd_card_plan(rows, chains, in_dim, embed, skip)
+                assert plan == fb.pre_bwd_plan(rows, chains, in_dim, embed, skip, sms)
+
+
+# -- K6 (next-token lane attention), redesigned ----------------------------------
+
+
+def _next_inputs(gen, device, n, t_len, window, dim, dtype, heads=4):
+    q, k, v, *masks = _lane_inputs(gen, device, n, heads=heads, t_len=t_len, window=window, dim=dim, invalid=True)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    k_self, v_self = (torch.randn(q.shape, generator=gen).to(device, dtype) for _ in range(2))
+    return q, k_self, v_self, k, v, masks
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dim", [8, 16, 32, 64])
+@pytest.mark.parametrize("t_len", [1, 24, 64, 128])
+def test_next_token_kernel_matches_plain(cuda, t_len, dim, dtype):
+    """K6 against ``next_token_plain`` at ragged N (37 environments), with
+    and without ALiBi, a third of the environments with an all-masked band
+    (the own key alone), W = 16 and W = 40 (three passes of the band); two
+    calls give the same bits."""
+    from cusrl_tpu_torch.nn.kernels import lane_attention as la
+
+    gen = torch.Generator().manual_seed(t_len + dim)
+    for window, slopes in ((16, None), (40, (0.5, 0.25, 0.125, 0.0625))):
+        q, k_self, v_self, k, v, masks = _next_inputs(gen, cuda, 37, t_len, window, dim, dtype)
+        out = la._launch_next(q, k_self, v_self, k, v, *masks, window, slopes)
+        want = la.next_token_plain(q, k_self, v_self, k, v, *masks, window, slopes)
+        torch.testing.assert_close(out, want, **ATT_TOL)
+        torch.testing.assert_close(out[: 37 // 3], v_self[: 37 // 3].float(), **ATT_TOL)  # nothing but the own key
+        assert torch.equal(out, la._launch_next(q, k_self, v_self, k, v, *masks, window, slopes))
+
+
+def test_next_token_kernel_reads_the_main_paths_views(cuda):
+    """The operands as the transformer hands them over (v_self a head-split
+    view of the projection, q_seg a transposed view): no copy, and the same
+    bits as on contiguous copies; one launch, counted."""
+    from cusrl_tpu_torch.nn.kernels import lane_attention as la
+
+    gen = torch.Generator().manual_seed(5)
+    n, heads, t_len, window, dim = 1024, 4, 24, 16, 32
+    q, k_self, _, k, v, (q_seg, k_seg, k_valid) = _next_inputs(gen, cuda, n, t_len, window, dim, torch.bfloat16)
+    proj = torch.randn(n, t_len, 3 * heads * dim, generator=gen).to(cuda, torch.bfloat16)
+    v_self = proj[..., 2 * heads * dim:].reshape(n, t_len, heads, dim).transpose(1, 2)
+    q_seg_t = q_seg.T.contiguous().T
+    la.reset_launch_counts()
+    out = la.lane_next_token_attention(q, k_self, v_self, k, v, q_seg_t, k_seg, k_valid, window=window)
+    assert la.LAUNCHES["K6"] == 1
+    same = la._launch_next(q, k_self, v_self.contiguous(), k, v, q_seg, k_seg, k_valid, window, None)
+    assert torch.equal(out, same)
+    torch.testing.assert_close(out, la.next_token_plain(q, k_self, v_self, k, v, q_seg, k_seg, k_valid, window),
+                               **ATT_TOL)
+
+
+def test_next_token_plan_matches_the_python_mirror(cuda):
+    from cusrl_tpu_torch.nn.kernels import lane_attention as la
+
+    for t_len in (1, 24, 128):
+        for dim in (8, 32, 64):
+            for dtype in (torch.bfloat16, torch.float32):
+                for window in (0, 16, 100):
+                    q = torch.empty(3, 4, t_len, dim, dtype=dtype, device=cuda)
+                    assert la.next_card_plan(q, window) == la.next_plan(t_len, window, dim, dtype)
