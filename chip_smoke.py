@@ -13,7 +13,8 @@ without printing a result:
 3. ``[kernels]``: hold each kernel (K1f, K1b, K2f, K2b; K8f with and without
    saved activations, K8b with and without the latent's cotangent, K9s and
    K9m (its forward's activations, then its loss and backward on them, and
-   against K2f + K9s) with and without the value-loss clip; K3f primal and
+   against K2f + K9s, whose bits it must give) with and without the
+   value-loss clip; K3f primal and
    saving probabilities, K3b and K6 at the transformer's shapes and a ragged
    one with ALiBi and rows that see no key; K7f at path TL's shapes, a ragged
    T = 200 with ALiBi, rows that see no key and a part-valid cache, and a
@@ -33,11 +34,14 @@ without printing a result:
    profiler's, by kernel name: phase 1 every kernel of the call but phase
    2's, the pack of the transposed weights included), both phases' bounds,
    phase 2's row split, for the wgmma phase 1 (K1b, K2b, K8b, K9s, K4/K5
-   pre and post b) its plan, registers and spills, and two calls on the same
-   inputs compared bit for bit; for K6 its device time (the profiler's)
-   beside its events' time, its wrapper's host time per call and its launch
-   plan; then the redesign queue (K3f saving and primal, K3b, K6, K9m, K4/K5
-   pre b) beside its library calls in one block, ten calls each; for the fused
+   pre and post b, K9m) its plan, registers and spills, and two calls on the
+   same inputs compared bit for bit; for K3f and K6 their device time (the
+   profiler's) beside their events' time, their wrapper's host time per call
+   and their launch plan; then the redesign queue (K3f saving and primal,
+   K3b, K6, K9m, K4/K5 pre b) and the rows still to be ordered (K1f with the
+   gelu FFN at 6,144 and 1,024 rows and on TL's ELU head at 65,536 and 1,024,
+   K4 post f at 65,536, K4 pre f primal at 24,576, K5 pre f) beside their
+   library calls in one block, ten calls each; for the fused
    block's forwards (K4/K5 pre and post f) and the MLP chain forward (K1f,
    K2f, K8f) at each timed shape the launch plan (grid, tiles per block,
    ring slots, resident or streamed images, shared memory per block), the
@@ -83,9 +87,10 @@ without printing a result:
    0 just before the timed chunk and read just after (``EXPECTED_ZOO_LAUNCHES``
    per iteration), one host transfer per chunk and no other synchronizing
    call; and a profile of one iteration of each path (device time by kernel
-   name, phase 2 of the backwards listed whatever its rank, and the fused
+   name, phase 2 of the backwards listed whatever its rank, the fused
    block's and the MLP chain's forward kernels and phase-1 backward kernels
-   (``fbp::``, ``fbb::``, ``mlpb::``) by name with their sums);
+   (``fbp::``, ``fbb::``, ``mlpb::``, K9m's ``mlpm::``) by name with their
+   sums, and K3f's share of the device's busy time);
 8. the ``nvidia-smi`` line, the ``kernels`` JSON line (each kernel's
    launches from the path that runs it; ``not_ported`` is empty), and the
    final ``{"ok": true, ...}`` line.
@@ -293,16 +298,31 @@ def _host_ms(fn, repeats: int = 20, warmup: int = 3) -> float:
 
 def time_redesign_queue(results: dict) -> None:
     """The kernels of the redesign queue (K3f saving and primal, K3b, K6,
-    K9m, K4/K5 pre b) each beside its library call, timed together in this
-    one block: CUDA events, median of ten calls each, kernel then library.
-    Adds ``queue_ms`` and ``queue_library_ms`` (with the shape's prefix) to
-    each kernel's results."""
+    K9m, K4/K5 pre b) and the rows that wait to be ordered (K1f with the gelu
+    FFN at 6,144 and 1,024 rows, K1f on TL's ELU head at 65,536 and 1,024, K4
+    post f at 65,536 saving, K4 pre f primal at 24,576, K5 pre f) each beside
+    its library call, timed together in this one block: CUDA events, median
+    of ten calls each, kernel then library.  Adds ``queue_ms`` and
+    ``queue_library_ms`` (with the shape's prefix) to each kernel's
+    results."""
     print("[kernels] the redesign queue beside its library calls, one block (CUDA events, median of 10 calls each)")
     for (key, prefix), (kernel, library) in QUEUE.items():
         k_ms, l_ms = _time_ms(kernel), _time_ms(library)
         results[key].update({prefix + "queue_ms": k_ms, prefix + "queue_library_ms": l_ms})
         print(f"    {key + ' ' + prefix.rstrip('_'):16s} kernel_ms={k_ms:.4f} library_ms={l_ms:.4f} "
               f"factor={k_ms / l_ms:.2f}")
+
+
+def _no_grad(fn):
+    """``fn`` called under ``torch.no_grad()``: a library yardstick that must
+    build no autograd graph, queued to run later."""
+    import torch
+
+    def call():
+        with torch.no_grad():
+            return fn()
+
+    return call
 
 
 def _ms(value) -> str:
@@ -315,8 +335,8 @@ def _backward_phases(name: str, fn, rows: int, chains: int, dw_shapes, bytes_per
     ``fn`` (torch.profiler over ``repeats`` calls, kernels by name: phase 2
     ``dw::split_kernel`` and ``dw::reduce_kernel``, phase 1 every other
     kernel of the port's backwards, the pack of the transposed weights
-    included: ``mlpb::``, ``fbb::`` and ``fbp::`` (the wgmma designs) and
-    ``mlp::`` (K9m)), both phases' bounds, phase 2's row
+    included: ``mlpb::``, ``fbb::``, ``fbp::`` and ``mlpm::`` (K9m, whose
+    forward runs in its phase 1)), both phases' bounds, phase 2's row
     split, and two calls of ``fn`` compared bit for bit (raises if they
     differ).  Phase 1's work, all chains: ``phase1 = (bytes, FLOP)`` per row
     (each input read once, each output written once, the data products);
@@ -339,7 +359,7 @@ def _backward_phases(name: str, fn, rows: int, chains: int, dw_shapes, bytes_per
     # run's first kernel, so counts may fall short of ``repeats``).
     device_events = 0
     for _ in range(PROFILE_ATTEMPTS):
-        found, seen = _profiled_kernels(fn, ("dw", "mlpb", "fbb", "fbp", "mlp"), repeats, warmup)
+        found, seen = _profiled_kernels(fn, ("dw", "mlpb", "fbb", "fbp", "mlpm"), repeats, warmup)
         device_events += seen
         kernels = [[k for k in found if not _in_namespaces(k[0], ("dw",))],
                    [k for k in found if _in_namespaces(k[0], ("dw",))]]
@@ -394,7 +414,7 @@ def _sum_work(*works):
     return tuple(sum(w[i] for w in works) for i in range(2))
 
 
-def _phase1_plan(key: str, plan: dict, stem: str, symbol: str) -> dict:
+def _phase1_plan(key: str, plan: dict, stem: str, symbol: str, images_of: str = "W^T") -> dict:
     """Prints and returns phase 1's plan (grid, images resident or streamed,
     shared memory per block) and its kernel's registers and spills from the
     build log (``symbol``: a part of the mangled name)."""
@@ -405,7 +425,8 @@ def _phase1_plan(key: str, plan: dict, stem: str, symbol: str) -> dict:
     loaded = "converted once per block" if stem == "mlp_chain_bwd" else "packed per call, loaded once per block"
     images = f"resident, {loaded}" if plan["resident"] else f"streamed through {plan['slots']} slots, packed per call"
     print(f"    {key} phase 1 plan: grid {plan['blocks']} blocks per chain ({per_sm} per SM), {plan['tiles']} tiles of "
-          f"64 rows, up to {-(-plan['tiles'] // plan['blocks'])} per block; {plan['images']} images of W^T ({images}); "
+          f"64 rows, up to {-(-plan['tiles'] // plan['blocks'])} per block; {plan['images']} images of {images_of} "
+          f"({images}); "
           f"{plan['smem_bytes']} B shared memory per block; {regs} registers, spills {spill_st}/{spill_ld} B (ptxas)")
     return {"phase1_grid": f"{plan['blocks']} blocks per chain ({per_sm} per SM), {plan['tiles']} tiles",
             "phase1_ring": f"{plan['slots']} of {plan['images']} images "
@@ -910,6 +931,15 @@ def check_head_kernels(device) -> dict:
                     errs.append(_check(name + tag + ref_tag, a, b, rel=True, grad_rel=3e-2))
             errs.append(_check_sums("sums" + tag, sums, ref_sums) / rows)
             _check_sums("sums vs split" + tag, sums, split_sums)
+            # K9m runs K2f's forward tile and K9s's backward tile: the same bits.
+            split_saved = [[*h, o] for h, o in zip(hids, outs)]
+            same = (all(torch.equal(h, r) for hs, rs in zip(saved, split_saved) for h, r in zip(hs, rs))
+                    and all(torch.equal(a, b) for a, b in zip(_tensors(got), _tensors(split)))
+                    and torch.equal(sums, split_sums))
+            verdict = "the same bits as" if same else "DIFFER from"
+            print(f"    activations, gradients and sums{tag}: {verdict} K2f + K9s")
+            if not same:
+                raise AssertionError(f"K9m{tag}: its activations, gradients or sums differ from K2f + K9s's bits")
     xs = obs(MINIBATCH_ROWS)  # timed at the main-path shape
     with torch.no_grad():
         mean = fm.mlp_chain_fwd_plain(xs[0], wa, ba, "elu", True, False)[0].float() @ wm.T + bm
@@ -939,11 +969,14 @@ def check_head_kernels(device) -> dict:
     # K9m's phase 1 also reads x (fp32) and writes every activation, and runs the forward's products.
     fwd_macs = sum(a * b for a, b in zip(WIDTHS[:-1], WIDTHS[1:]))
     k9m_work = _sum_work(k9s_work, (2 * (4 * WIDTHS[0] + 2 * sum(WIDTHS[1:])), 2 * 2 * fwd_macs))
+    plan = fm.ppo_step_plan(WIDTHS, MINIBATCH_ROWS, A_DIM)
+    phase1_plan = _phase1_plan("K9m", plan, "mlp_chain_bwd", f"ppo_step_kernelILi{plan['per_sm']}E",
+                               f"W ({plan['fwd_images']}) and W^T")
     phases = _backward_phases("K9m", lambda: fp._ppo_step(xs, [ba, bc], [wa, wc], *tail), MINIBATCH_ROWS, 2,
-                              MLP_DW_SHAPES, MLP_DW_BYTES_PER_ROW, loss_cols, k9m_work)
+                              MLP_DW_SHAPES, MLP_DW_BYTES_PER_ROW, loss_cols, k9m_work, phase1_plan)
     results["K9m"] = dict(max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by, library_ms=l_ms,
                           shape="2 x 24576 x 48-512-256-128 forward + heads 12/1 + PPO loss + backward, "
-                                "loss_clip None", **phases)
+                                "loss_clip None", bitwise_equals_split=True, **phases)
     return results
 
 
@@ -1397,6 +1430,11 @@ def check_lane_kernels(device) -> dict:
                 l_ms = _time_ms(library)
             QUEUE["K3f", "primal_" if key == "K3f primal" else ""] = (kernel, library)
             flops, nbytes = _lane_work("K3f", q, k, masks, T_WINDOW, save)
+            extra = _forward_device_ms(key, kernel, "lane", 1)
+            extra["host_ms"] = _host_ms(kernel)
+            extra["plan"] = la.fwd_card_plan(q, T_WINDOW)
+            print(f"    {key} N={n}: device_ms={_ms(extra['device_ms'])} (torch.profiler) of the events' "
+                  f"{k_ms:.4f} ms; the wrapper's host time {extra['host_ms']:.4f} ms a call; plan {extra['plan']}")
         elif key == "K3b":
             _, probs = la.lane_fwd_plain(q, k, v, *masks, T_WINDOW, None, True)
             g = torch.randn(q.shape, generator=gen).to(device)
@@ -1434,11 +1472,11 @@ def check_lane_kernels(device) -> dict:
               f"bound_ms={bound:.4f} ({by}; {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP fp32)")
         results[key] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by, library_ms=l_ms,
                             shape=f"N={n} H={T_HEADS} T={STEPS} W={T_WINDOW} D={T_HEAD_DIM}, bf16 in, fp32 out")
-        if key == "K6":
+        if key != "K3b":
             results[key].update(device_ms=extra["device_ms"], host_ms=extra["host_ms"], plan=extra["plan"])
     primal = results.pop("K3f primal")
-    results["K3f"].update(primal_ms=primal["ms"], primal_bound_ms=primal["bound_ms"],
-                          primal_plain_ms=primal["plain_ms"], primal_library_ms=primal["library_ms"])
+    results["K3f"].update({f"primal_{field}": primal[field]
+                           for field in ("ms", "bound_ms", "plain_ms", "library_ms", "device_ms", "host_ms", "plan")})
     results["K3f"]["shape"] += ", saves probabilities (the update); primal at N=1024 (value and KL passes)"
     for key in results:
         results[key]["max_abs_err"] = max(errs[key])
@@ -1583,6 +1621,8 @@ def check_gelu_kernels(device) -> dict:
         print(f"    K1f gelu rows={rows}: kernel_ms={f_ms:.4f} plain_ms={fp_ms:.4f} library_ms={fl_ms:.4f} "
               f"bound_ms={f_bound:.4f} ({f_by})")
         tag = "gelu" if save else "gelu_step"
+        QUEUE["K1f", tag + "_"] = (functools.partial(fm._launch_fwd, [x], [ws], [bs], "gelu", False, save, "K1f"),
+                                   _no_grad(functools.partial(library, x)))
         chain_fields = _chain_forward_fields(
             f"K1f {tag}", lambda: fm._launch_fwd([x], [ws], [bs], "gelu", False, save, "K1f"), FFN_WIDTHS, rows, 1, f_ms)
         fields.setdefault("K1f", {}).update({f"{tag}_ms": f_ms, f"{tag}_plain_ms": fp_ms, f"{tag}_library_ms": fl_ms,
@@ -1656,6 +1696,9 @@ def check_tl_head_kernels(device) -> dict:
                      _time_ms(lambda: fm.mlp_chain_fwd_plain(x, ws, bs, "elu", True, save)),
                      _time_ms(lambda: F.elu(F.linear(x, w16, b16))))
         record("K1f", tag, rows, timed, (2 * rows * macs, rows * T_EMBED * 2 * 2 + params * 4))
+        if tag != "tl_head_primal_":
+            QUEUE["K1f", tag] = (functools.partial(fm._launch_fwd, [x], [ws], [bs], "elu", True, save, "K1f"),
+                                 _no_grad(functools.partial(lambda x_: F.elu(F.linear(x_, w16, b16)), x)))
         device_fields = _chain_forward_fields(f"K1f {tag[:-1]}", lambda: fm._launch_fwd([x], [ws], [bs], "elu", True,
                                                                                         save, "K1f"),
                                               (T_EMBED, T_EMBED), rows, 1, timed[0])
@@ -1770,6 +1813,15 @@ def _block_work(op: str, rows: int, chains: int, save: bool = True):
             nbytes = (rows * (e * 4 + e * 2 + e * 2 + f * 2) + (e * e + 2 * e * f + 2 * e) * 4  # attn, g, r1, s, W
                       + rows * e * 8 + params * 4)  # dattn, dh, gradients
     return chains * flops, chains * nbytes
+
+
+def _library_blocks(op, xs, hs, params):
+    """``_library_block`` on each chain: the pre op on ``xs`` with the pre
+    parameters ``params``, or the post op on ``xs`` (attention outputs) and
+    ``hs`` with the post parameters."""
+    if op == "pre":
+        return [_library_block("pre", x, None, p, None) for x, p in zip(xs, params)]
+    return [_library_block("post", a, h, None, p) for a, h, p in zip(xs, hs, params)]
 
 
 def _library_block(op, x, h, pre16, post16):
@@ -1993,9 +2045,16 @@ def check_block_kernels(device) -> dict:
                                     for a, g, r, ps in zip(attns, gs, prefs, posts)]),
             }
             with torch.no_grad():
-                lib_f = {"pre_f": lambda: [_library_block("pre", x, None, p, None) for x, p in zip(x16, pre16)],
-                         "post_f": lambda: [_library_block("post", a, h, None, p) for a, h, p in zip(a16, h16, post16)]}
+                lib_f = {"pre_f": functools.partial(_library_blocks, "pre", x16, None, pre16),
+                         "post_f": functools.partial(_library_blocks, "post", a16, h16, post16)}
                 lib_ms = {op: _time_ms(fn) for op, fn in lib_f.items()}
+            if (k, tag) == ("K4", "tl_"):  # TL's post forward, saving
+                QUEUE["K4post_f", tag] = (
+                    functools.partial(fb._launch_post_fwd, attns, hs_in, posts, "gelu", True, "K4post_f"),
+                    _no_grad(lib_f["post_f"]))
+            if (k, tag) == ("K5", ""):  # TJ's paired pre forward
+                QUEUE["K5pre_f", tag] = (functools.partial(fb._launch_pre_fwd, xs, pres, "K5pre_f"),
+                                         _no_grad(lib_f["pre_f"]))
             with torch.enable_grad():
                 pre_out = [_library_block("pre", x, None, p, None) for x, p in zip(x16, pre16)]
                 pre_in = [t for p in pre16 for t in p]
@@ -2056,6 +2115,10 @@ def check_block_kernels(device) -> dict:
                                  lambda: _library_block("post", a16, h16, None, post16[0]),
                                  _block_work("post_f", rows, 1, save=False)),
                 }
+                if rows == PRIMAL_ROWS:  # the value, next-token and KL passes' pre forward
+                    QUEUE["K4pre_f", tag] = (
+                        functools.partial(fb._launch_pre_fwd, [x], pres[:1], "K4pre_f"),
+                        _no_grad(functools.partial(_library_blocks, "pre", [x16], None, pre16[:1])))
                 for key, (kernel_fn, plain_fn, library_fn, work) in primal.items():
                     k_ms, p_ms = _time_ms(kernel_fn), _time_ms(plain_fn)
                     with torch.no_grad():
@@ -2628,12 +2691,19 @@ def profile_iteration(driver, label: str, steps: int = STEPS) -> None:
     # forward and backward (csrc/mlp_chain_fwd.cu, mlpf; mlp_chain_bwd.cu, mlpb).
     for namespace, what in (("fbf", "the fused block's forwards"), ("mlpf", "the MLP chain forward"),
                             ("fbp", "the pre backward's phase 1"), ("fbb", "the post backward's phase 1"),
-                            ("mlpb", "the MLP chain backward's phase 1")):
+                            ("mlpb", "the MLP chain backward's phase 1"),
+                            ("mlpm", "the single-launch PPO step's phase 1 (K9m, its pack included)")):
         forwards = [r for r in rows if _in_namespaces(r[2], (namespace,))]  # by name: a signature names fbf::Layout
         if forwards:
             print(f"[profile] {label}, {what}: "
                   + "; ".join(f"{name.split('(')[0]} {ms:.3f} ms ({count})" for ms, count, name in forwards)
                   + f"; together {sum(r[0] for r in forwards):.3f} ms per iteration")
+    # K3f (the lane attention forward) by name, and its share of the device's busy time.
+    k3f = [r for r in rows if "lane_fwd_kernel" in r[2]]
+    if k3f:
+        k3f_ms = sum(r[0] for r in k3f)
+        print(f"[profile] {label}, K3f (lane::lane_fwd_kernel): {k3f_ms:.3f} ms over {sum(r[1] for r in k3f)} "
+              f"launches per iteration, {k3f_ms / busy_ms:.4f} of the device's busy time")
 
 
 def main(argv: list[str]) -> int:

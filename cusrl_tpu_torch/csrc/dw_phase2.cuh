@@ -31,6 +31,7 @@
 //     No atomics: two calls give the same bits.
 #pragma once
 
+#include <mma.h>
 #include <stdint.h>
 
 #include "mlp_chain.cuh"

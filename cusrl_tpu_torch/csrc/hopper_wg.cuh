@@ -2,9 +2,10 @@
 // mbarriers, bulk copies into shared memory, warpgroup products (wgmma) on
 // 128-byte-swizzled K-major bf16 operands, the swizzled tile layout those
 // operands live in, the weight images (the pack) and the accumulator
-// epilogues.  Used by the fused block's forwards and post backward
-// (fused_block.cu, fbf and fbb) and the MLP chain's forward and backward
-// (mlp_chain_fwd.cu, mlpf; mlp_chain_bwd.cu, mlpb).
+// epilogues.  Used by the fused block's forwards and backwards
+// (fused_block.cu, fbf, fbp and fbb) and the MLP chain's forward, backward
+// and single-launch PPO step (mlp_chain.cuh and mlp_chain_fwd.cu, mlpf;
+// mlp_chain_bwd.cu, mlpb and mlpm).
 //
 // Tile layout ("swizzled tile"): a bf16 matrix of R rows is kept in K blocks
 // of 64 columns; block b holds R rows of 128 bytes at b * R * 128, and the
@@ -657,6 +658,21 @@ __device__ __forceinline__ void load_pairs(const bf16* src, int ld, int col0, in
     }
     v[2 * j] = a;
     v[2 * j + 1] = b;
+  }
+}
+
+// The bf16 pairs of a swizzled 64-row tile at the accumulators' places, as
+// load_pairs gives them from device memory (columns col0 onwards, the first
+// `cols` of them; 0 elsewhere).
+template <int NA>
+__device__ __forceinline__ void tile_pairs(const unsigned char* tile, int col0, int cols, const Frag& f,
+                                           uint32_t (&v)[NA / 2]) {
+#pragma unroll
+  for (int j = 0; j < NA / 4; ++j) {
+    const bool in = 8 * j < cols;
+    const int col = col0 + 8 * j + f.col;
+    v[2 * j] = in ? *reinterpret_cast<const uint32_t*>(tile + swz(f.row, col)) : 0u;
+    v[2 * j + 1] = in ? *reinterpret_cast<const uint32_t*>(tile + swz(f.row + 8, col)) : 0u;
   }
 }
 

@@ -1,10 +1,9 @@
 // Shared definitions of the fused Linear+activation chain kernels for Hopper
 // (sm_90a): the parameter block passed from Python through ctypes (chains,
-// their fp32 heads and the PPO loss), the tile constants, the activations, and
-// the block-level bf16 tensor-core GEMM of K9m's row kernel (16x16x16 WMMA on
-// fp32 weights restaged per 64-row tile; K1f/K2f/K8f and phase 1 of
-// K1b/K2b/K8b/K9s are the wgmma designs of mlp_chain_fwd.cu and
-// mlp_chain_bwd.cu).
+// their fp32 heads and the PPO loss), the activations and their derivatives,
+// and the chain forward's weight images and 64-row tile (namespace mlpf: the
+// forward of K1f/K2f/K8f in mlp_chain_fwd.cu, and of K9m's single-launch PPO
+// step in mlp_chain_bwd.cu).
 //
 // Numerics follow the TPU kernels in cusrl_tpu/nn/kernels/fused_mlp.py:
 // bf16 operands, fp32 accumulation, fp32 bias, round to bf16, activation in
@@ -13,8 +12,11 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stddef.h>
+
+#include <algorithm>
+
+#include "hopper_wg.cuh"
 
 #define MLP_MAX_LAYERS 8
 #define MLP_MAX_WIDTH 512
@@ -89,33 +91,10 @@ struct MlpParams {
 namespace mlp {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
-constexpr int BM = 64;                    // rows per block (row tile)
-constexpr int NC = 128;                   // output columns per GEMM chunk
-constexpr int KS = 64;                    // reduction depth staged per step
-constexpr int THREADS = 256;              // 8 warps: 4 (16-row) x 2 (64-col)
-constexpr int HLD = MLP_MAX_WIDTH + 8;    // bf16 activation tile leading dim
-constexpr int WLD_COL = KS + 8;           // staged W slice [NC][KS] (fwd)
-constexpr int WLD_ROW = NC + 8;           // staged W slice [KS][NC] (bwd data)
-constexpr int SLD = NC + 4;               // fp32 accumulator staging leading dim
-
-constexpr int MAX_HEAD_DIM = 64;          // head tile [BM][dim] fp32 fits the weight-slice region
-constexpr int LOSS_COL = 64;              // stg columns past the widest head: per-row loss terms
+constexpr int BM = wg::TILE_M;            // rows of a row tile: phase 1's per-tile partials, phase 2's stages
+constexpr int MAX_HEAD_DIM = 64;          // the heads' scratch of a tile ([64][dim] fp32)
 constexpr float LOG_SQRT_2PI = 0.9189385332046727f;
-
-constexpr size_t ACT_BYTES = size_t(BM) * HLD * sizeof(bf16);
-constexpr size_t WS_BYTES =
-    (size_t(NC) * WLD_COL > size_t(KS) * WLD_ROW ? size_t(NC) * WLD_COL : size_t(KS) * WLD_ROW) * sizeof(bf16);
-constexpr size_t STG_BYTES = size_t(BM) * SLD * sizeof(float);
-// Two activation tiles (ping-pong), one staged weight slice, one fp32 staging tile.
-constexpr size_t SMEM_BYTES = 2 * ACT_BYTES + WS_BYTES + STG_BYTES;
-static_assert(ACT_BYTES % 128 == 0 && WS_BYTES % 128 == 0, "smem regions must stay 128-byte aligned");
-static_assert(SMEM_BYTES <= 232448, "exceeds the 227 KB a block may use");
-static_assert(size_t(BM) * MAX_HEAD_DIM * sizeof(float) <= WS_BYTES, "head tile must fit the weight-slice region");
-static_assert(LOSS_COL + 2 + MAX_HEAD_DIM <= SLD, "per-row loss terms must fit the staging tile");
-
-__device__ __forceinline__ float bf16_round(float v) { return __bfloat162float(__float2bfloat16(v)); }
 
 constexpr int ACT_GELU = 4;               // saves pre-activations (see act_grad_from_saved)
 constexpr float GELU_C = 0.7978845608028654f;  // sqrt(2/pi), the tanh form of jax.nn.gelu
@@ -155,13 +134,6 @@ __device__ __forceinline__ void activate(float (&d)[NA], int act) {
     case ACT_GELU: activate<ACT_GELU>(d); break;
     default: activate<0>(d);
   }
-}
-
-// What the forward saves for the backward of an activated layer: the
-// post-activation h, or for gelu (whose derivative is not a function of its
-// output) the bf16 pre-activation z (fused_mlp.py:206-209).
-__device__ __forceinline__ bf16 saved_value(int activation, bf16 zb, bf16 hb) {
-  return activation == ACT_GELU ? zb : hb;
 }
 
 // Derivative from the saved value: from the POST-activation h
@@ -205,136 +177,88 @@ __device__ __forceinline__ bf16 layer_input_from_saved(int activation, bf16 s) {
   return activation == ACT_GELU ? __float2bfloat16(act_fwd(ACT_GELU, __bfloat162float(s))) : s;
 }
 
-// One output of an fp32 head: f32(lat_row) . w_row + bias, fp32 FMAs in
-// column order (lat_row: one bf16 row of the latent tile; w_row: one row of
-// the head's [out, in] weight).
-__device__ __forceinline__ float head_dot(const bf16* lat_row, const float* __restrict__ w_row, int n, float bias) {
-  float s = 0.f;
-  for (int k = 0; k < n; ++k) s = fmaf(__bfloat162float(lat_row[k]), w_row[k], s);
-  return s + bias;
-}
-
-// One NC-column chunk of C[BM, n_total] = A[BM, K] * B[K, n_total], columns
-// [n0, n0 + NC), into the fp32 staging tile `stg` ([BM][SLD]).
-//   A: bf16 in shared memory, row-major, leading dim HLD.
-//   B comes from the fp32 weight W ([out, in] row-major, row length w_ld):
-//     W_IS_NK = true : B(k, n) = W[n][k]  (forward: y = h W^T)
-//     W_IS_NK = false: B(k, n) = W[k][n]  (backward data: d_in = d_out W)
-//   Each KS-deep slice of B is converted to bf16 into `ws` and consumed by
-//   16x16x16 bf16 WMMA products with fp32 accumulators.
-// K and n_total must be multiples of 16.  Ends with a block barrier, after
-// which `stg` holds the chunk for every thread.
-template <bool W_IS_NK>
-__device__ void gemm_chunk(const bf16* A, int K, const float* __restrict__ W, int w_ld, int n0, int n_total,
-                           bf16* ws, float* stg) {
-  const int warp = threadIdx.x / 32;
-  const int wr = warp & 3;   // 16-row fragment row
-  const int wc = warp >> 2;  // 64-column half
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-  for (int f = 0; f < 4; ++f) wmma::fill_fragment(acc[f], 0.f);
-
-  for (int k0 = 0; k0 < K; k0 += KS) {
-    __syncthreads();  // previous readers of ws / stg are done
-    if (W_IS_NK) {
-      for (int i = threadIdx.x; i < NC * KS; i += THREADS) {
-        const int n = i / KS, k = i % KS;
-        const int gn = n0 + n, gk = k0 + k;
-        const float v = (gn < n_total && gk < K) ? W[size_t(gn) * w_ld + gk] : 0.f;
-        ws[n * WLD_COL + k] = __float2bfloat16(v);
-      }
-    } else {
-      for (int i = threadIdx.x; i < KS * NC; i += THREADS) {
-        const int k = i / NC, n = i % NC;
-        const int gn = n0 + n, gk = k0 + k;
-        const float v = (gn < n_total && gk < K) ? W[size_t(gk) * w_ld + gn] : 0.f;
-        ws[k * WLD_ROW + n] = __float2bfloat16(v);
-      }
-    }
-    __syncthreads();
-    const int kmax = min(KS, K - k0);
-    for (int kk = 0; kk < kmax; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, A + wr * 16 * HLD + k0 + kk, HLD);
-#pragma unroll
-      for (int f = 0; f < 4; ++f) {
-        const int nl = wc * 64 + f * 16;
-        if (n0 + nl < n_total) {  // warp-uniform
-          if (W_IS_NK) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-            wmma::load_matrix_sync(b, ws + nl * WLD_COL + kk, WLD_COL);
-            wmma::mma_sync(acc[f], a, b, acc[f]);
-          } else {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-            wmma::load_matrix_sync(b, ws + kk * WLD_ROW + nl, WLD_ROW);
-            wmma::mma_sync(acc[f], a, b, acc[f]);
-          }
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int f = 0; f < 4; ++f) {
-    const int nl = wc * 64 + f * 16;
-    if (n0 + nl < n_total) wmma::store_matrix_sync(stg + wr * 16 * SLD + nl, acc[f], SLD, wmma::mem_row_major);
-  }
-  __syncthreads();
-}
-
-// The whole chain `c` on the 64-row tile at row0 (K9m's forward).  `smem`
-// holds two activation tiles (ping-pong), a staged weight slice and an fp32
-// staging tile (SMEM_BYTES).  Writes the chain output
-// where c.h[L-1] is set, and with save_hiddens every layer's saved value
-// (post-activation, for gelu the pre-activation).  Returns the index of the
-// activation tile that holds the chain output, complete for every thread only
-// after a block barrier.
-__device__ __forceinline__ int chain_forward_tile(const MlpParams& p, const MlpChain& c, int row0,
-                                                   unsigned char* smem) {
-  bf16* act[2] = {reinterpret_cast<bf16*>(smem), reinterpret_cast<bf16*>(smem + ACT_BYTES)};
-  bf16* ws = reinterpret_cast<bf16*>(smem + 2 * ACT_BYTES);
-  float* stg = reinterpret_cast<float*>(smem + 2 * ACT_BYTES + WS_BYTES);
-  const int n_rows = p.num_rows;
-  const int num_layers = p.num_layers;
-
-  // x tile -> bf16 activation tile (rows past the end are zero).
-  const int in0 = p.dims[0];
-  for (int i = threadIdx.x; i < BM * in0; i += THREADS) {
-    const int r = i / in0, k = i % in0;
-    const int gr = row0 + r;
-    float v = 0.f;
-    if (gr < n_rows) {
-      v = p.x_is_bf16 ? __bfloat162float(reinterpret_cast<const bf16*>(c.x)[size_t(gr) * in0 + k])
-                      : reinterpret_cast<const float*>(c.x)[size_t(gr) * in0 + k];
-    }
-    act[0][r * HLD + k] = __float2bfloat16(v);
-  }
-
-  int cur = 0;
-  for (int l = 0; l < num_layers; ++l) {
-    const int K = p.dims[l], n_out = p.dims[l + 1];
-    const bool apply_act = (l < num_layers - 1) || p.trailing;
-    bf16* out = reinterpret_cast<bf16*>(c.h[l]);
-    const bool write_global = out != nullptr && ((l == num_layers - 1) || p.save_hiddens);
-    const float* W = reinterpret_cast<const float*>(c.w[l]);
-    const float* bias = reinterpret_cast<const float*>(c.b[l]);
-    for (int n0 = 0; n0 < n_out; n0 += NC) {
-      gemm_chunk<true>(act[cur], K, W, K, n0, n_out, ws, stg);
-      const int ncols = min(NC, n_out - n0);
-      for (int i = threadIdx.x; i < BM * ncols; i += THREADS) {
-        const int r = i / ncols, j = i % ncols;
-        const float zb = bf16_round(stg[r * SLD + j] + bias[n0 + j]);
-        const bf16 hb = __float2bfloat16(apply_act ? act_fwd(p.activation, zb) : zb);
-        act[cur ^ 1][r * HLD + n0 + j] = hb;
-        const int gr = row0 + r;
-        if (write_global && gr < n_rows)
-          out[size_t(gr) * n_out + n0 + j] = apply_act ? saved_value(p.activation, __float2bfloat16(zb), hb) : hb;
-      }
-    }
-    cur ^= 1;
-  }
-  return cur;
-}
-
 }  // namespace mlp
+
+namespace mlpf {
+
+using wg::bf16;
+
+// Layer l's images: per 128-row chunk of its output, per 64-column K block.
+// Mirrored by chain_stages in nn/kernels/weight_images.py.
+inline wg::Pack chain_pack(const MlpParams& p) {
+  wg::Pack P{};
+  for (int l = 0; l < p.num_layers; ++l) {
+    const int K = p.dims[l], N = p.dims[l + 1];
+    wg::pack_matrix(P, l, l, N, N, K);
+    for (int c = 0; c < wg::nchunks(N); ++c)
+      for (int kb = 0; kb < wg::kblocks(K); ++kb) wg::pack_add(P, l, 128 * c, 64 * kb);
+  }
+  return P;
+}
+
+// Bytes of the tile that holds the inputs of the layers of this parity (the
+// chain output counts as layer L's input: the heads read it there).
+inline int tile_bytes(const MlpParams& p, int parity) {
+  int widest = 0;
+  for (int i = parity; i <= p.num_layers; i += 2) widest = std::max(widest, wg::kblocks(p.dims[i]));
+  return widest * wg::ABLOCK_BYTES;
+}
+
+// The chain forward of chain c on the 64-row tile at row0, by the WGS
+// consumer warpgroups of a block (t: the thread among them): x's rows into
+// buf[0], then per layer and per 128-column chunk of its output the products
+// from the ring's images (warpgroup w taking the columns [w * NW, (w + 1) *
+// NW) of the chunk, NW / 2 accumulators per thread), the epilogue on the
+// accumulators (bias, bf16 rounding, the activation; gelu's hidden layers
+// save z) and the bf16 result into the next layer's tile (even and odd
+// layers' inputs in buf[0] and buf[1]) and, where c.h[l] is set (the chain
+// output; the hidden layers with save_hiddens), to device memory.  With
+// keep_out the chain output also stays in buf[L & 1], complete for every
+// consumer thread on return (K8f's heads and K9m's loss read it there).
+template <int WGS>
+__device__ __forceinline__ void forward_tile(const MlpParams& p, const MlpChain& c, wg::Ring& ring,
+                                             unsigned char* const (&buf)[2], int row0, bool keep_out, int t) {
+  constexpr int NT = WGS * 128, NW = wg::STAGE_N / WGS;
+  const int w = wg::warp_index() / 4, num_layers = p.num_layers, n_rows = p.num_rows, act = p.activation;
+  const uint32_t b_off = w * NW * wg::KBLOCK * 2;  // this warpgroup's rows of each image
+  const wg::Frag f(t & 127);
+  float d[NW / 2];
+  if (p.x_is_bf16) {
+    wg::load_x<true, 8 / WGS, NT>(c.x, p.dims[0], row0, n_rows, buf[0], t);
+  } else {
+    wg::load_x<false, 4 / WGS, NT>(c.x, p.dims[0], row0, n_rows, buf[0], t);
+  }
+  wg::fence_async_smem();
+  wg::group_sync(1, NT);
+  for (int l = 0; l < num_layers; ++l) {
+    const int K = p.dims[l], N = p.dims[l + 1];
+    const bool last = l == num_layers - 1, apply_act = !last || p.trailing;
+    const bool keep_z = !last && act == mlp::ACT_GELU;  // gelu's hidden layers save z
+    const bool to_smem = !last || keep_out;
+    bf16* dst = (last || p.save_hiddens) ? static_cast<bf16*>(c.h[l]) : nullptr;
+    const float* bias = static_cast<const float*>(c.b[l]);
+    const uint32_t a_in = wg::smem_u32(buf[l & 1]);
+    unsigned char* next = buf[(l + 1) & 1];
+    for (int n0 = 0; n0 < N; n0 += wg::STAGE_N) {
+      const int c0 = n0 + w * NW, cols = max(0, min(NW, N - c0));  // this warpgroup's columns
+      wg::zero(d);
+      wg::issue(d, a_in, K, ring, b_off);
+      wg::finish(d, ring);
+      wg::add_bias_round(d, bias + c0, cols, f);
+      if (dst != nullptr && keep_z) wg::store_bf16(d, cols, dst, N, c0, row0, n_rows, f);
+      if (apply_act) mlp::activate(d, act);
+      if (dst != nullptr && !keep_z) wg::store_bf16(d, cols, dst, N, c0, row0, n_rows, f);
+      // Past `cols` the accumulators and act(0) are 0: the next layer's K
+      // padding, up to the next multiple of 64, in each warpgroup's columns.
+      if (to_smem) wg::to_tile(d, max(0, min(NW, wg::pad64(N) - c0)), next, f, c0);
+    }
+    if (to_smem) {
+      wg::fence_async_smem();
+      wg::group_sync(1, NT);
+    }
+  }
+}
+
+}  // namespace mlpf
 
 extern "C" const char* mlp_chain_error_string(int code);

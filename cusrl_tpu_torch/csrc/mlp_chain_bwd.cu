@@ -11,23 +11,30 @@
 // the split mode of fused_ppo_step) and _ppo_step_kernel (via _run_ppo_step,
 // the mono mode, CUSRL_TPU_PPO_MODE=mono).
 //
-// K9m (mlp_ppo_step): the losses are separable per row and per chain (the
-// surrogate needs only the actor's mean, the value loss only the critic's
-// value), so one phase-1 block per (row tile, chain) runs that chain's whole
-// forward on its 64-row tile (chain_forward_tile, mlp_chain.cuh: the
-// activation tile never leaves shared memory between layers), then after a
-// block barrier the heads, the loss and the backward of the same tile (K9s's
-// phase 1).  The forward writes each layer's bf16 activation to device memory
-// on the way, since the backward's activation derivatives and phase 2's dW
-// products read them; nothing is read from an earlier launch.  Phase 2 is K9s's, as the
-// second kernel of the same call.  Mono and split (K2f + K9s) give the same
-// numbers up to the forward's summation order (K2f takes its products with
-// wgmma, chain_forward_tile with WMMA).
+// K9m (mlp_ppo_step, namespace mlpm): the losses are separable per row and
+// per chain (the surrogate needs only the actor's mean, the value loss only
+// the critic's value), so a persistent block of one chain runs, per 64-row
+// tile, the chain forward of K2f (mlpf::forward_tile, mlp_chain.cuh) and then
+// K9s's heads, loss and backward (mlpb::backward_tile) on the same tile: the
+// latent stays in shared memory from the forward's last layer to the heads
+// and the top layer's act'.  The forward writes every layer's bf16
+// activation to device memory, since the lower layers' act' and phase 2's dW
+// products read them (the tile's own rows, written a few microseconds
+// before, from L2).  One ring streams the tile's images in the order it
+// takes them: the forward's images of W_l, then the backward's of W_l^T,
+// packed once per call by one pack kernel.  Phase 2 is K9s's, as the third
+// kernel of the same call.  The products, their order and every rounding are
+// K2f's and K9s's, so mono and split (K2f + K9s) give the same activations
+// and gradients.  The forward's two tiles (96 KB at the main path's widths:
+// the 512-wide h1) leave room for one block per SM, of four warpgroups,
+// where K9s alone runs two of two; its backward part pays for that: K9s
+// forced into that layout took 0.2352 ms against 0.1898 (probe_backward_
+// phase1.py --variants, NVIDIA H100 80GB HBM3 at 700 W).
 //
-// K8b and K9s add a prologue to phase 1 (head_prologue): per 64-row tile the
+// K8b and K9s add the heads to phase 1 (head_tile): per 64-row tile the
 // latent is staged in shared memory; K9s first runs the heads' forward, the
 // Normal logp, ratio, clipped surrogate and (clipped) value loss, and their
-// analytic per-row gradients (loss_rows), where K8b reads the heads'
+// analytic per-row gradients (mlp::loss_row), where K8b reads the heads'
 // cotangents.  The heads' backward is fp32 (dW_head partials = f32(latent)^T
 // g_head; d = g_head W_head (+ gl)); d stays fp32 through the activation
 // derivative and joins the chain backward below.  The chains of one PPO
@@ -92,10 +99,8 @@
 // heads stay fp32 and scalar but for their top d = gh W_head (+ gl), which is
 // taken at the accumulators' places.  Bytes bound phase 1 (3,840 B a row per
 // chain at the main path's widths: 0.056 ms for K2b at 2 x 24,576 rows).
-// K9m (mlp_ppo_step_rows_kernel) keeps the WMMA row design of
-// mlp_chain.cuh.  Not yet done (later work): K9m on wgmma, keeping the tile's
-// activations in shared memory from the forward to the backward instead of
-// the device-memory round trip.
+// With heads the top layer's act' reads the latent where the heads read it,
+// in its tile.
 #include <algorithm>
 
 #include "dw_phase2.cuh"
@@ -103,38 +108,6 @@
 #include "mlp_chain.cuh"
 
 namespace mlp {
-
-// Finishes one NC-column chunk of layer l's output gradient held (fp32) in
-// `stg`: multiplies by the activation derivative from the saved h_l output,
-// writes bf16(d) to the next GEMM's A tile and to D_l, and the tile's fp32
-// column sums to the db partials.
-__device__ void finish_d_chunk(const MlpParams& p, const MlpChain& c, int l, int n0, int ncols, int row0,
-                               float* stg, bf16* dnext) {
-  const int n_out = p.dims[l + 1];
-  const bool has_act = (l < p.num_layers - 1) || p.trailing;
-  const bf16* saved = reinterpret_cast<const bf16*>(c.h[l]);
-  bf16* dg = reinterpret_cast<bf16*>(c.d[l]);
-  for (int i = threadIdx.x; i < BM * ncols; i += THREADS) {
-    const int r = i / ncols, j = i % ncols;
-    const int gr = row0 + r;
-    float d = 0.f;
-    if (gr < p.num_rows) {
-      d = stg[r * SLD + j];
-      if (has_act) d *= act_grad_from_saved(p.activation, __bfloat162float(saved[size_t(gr) * n_out + n0 + j]));
-    }
-    stg[r * SLD + j] = d;
-    const bf16 db = __float2bfloat16(d);
-    dnext[r * HLD + n0 + j] = db;
-    if (gr < p.num_rows) dg[size_t(gr) * n_out + n0 + j] = db;
-  }
-  __syncthreads();
-  float* dbp = reinterpret_cast<float*>(c.dbp[l]);
-  for (int j = threadIdx.x; j < ncols; j += THREADS) {
-    float s = 0.f;
-    for (int r = 0; r < BM; ++r) s += stg[r * SLD + j];
-    dbp[size_t(blockIdx.x) * n_out + n0 + j] = s;
-  }
-}
 
 // K9s: the PPO + value loss of one row (gr, real when gr < num_rows) from
 // the heads' outputs `out` ([dim] fp32), with the analytic gradient of
@@ -212,159 +185,6 @@ __device__ void loss_row(const MlpParams& p, const MlpHead& hd, int chain, int g
   }
 }
 
-// K9s (K9m's phase 1): the heads' forward and the loss of one row tile
-// (loss_row per row).  `lat` holds the tile's latent (bf16, pad rows 0).
-// Writes the head cotangent into `gh` ([BM][dim] fp32) and the tile's loss
-// sums, in row order, into `part` past the head's dW and db partials.
-__device__ void loss_rows(const MlpParams& p, const MlpHead& hd, int chain, int row0, const bf16* lat, float* gh,
-                          float* stg, float* part) {
-  const int latent = p.dims[p.num_layers], dim = hd.dim;
-  const float* W = reinterpret_cast<const float*>(hd.w);
-  const float* bias = reinterpret_cast<const float*>(hd.b);
-  for (int i = threadIdx.x; i < BM * dim; i += THREADS) {
-    const int r = i / dim, o = i % dim;
-    stg[r * SLD + o] = head_dot(lat + r * HLD, W + size_t(o) * latent, latent, bias[o]);
-  }
-  __syncthreads();
-  for (int r = threadIdx.x; r < BM; r += THREADS)
-    loss_row(p, hd, chain, row0 + r, stg + r * SLD, gh + r * dim, stg + r * SLD + LOSS_COL);
-  __syncthreads();
-  const int base = dim * latent + dim;
-  const int extra = chain == 0 ? 2 + dim : 2;
-  for (int q = threadIdx.x; q < extra; q += THREADS) {
-    float s = 0.f;
-    for (int r = 0; r < BM; ++r) s += stg[r * SLD + LOSS_COL + q];
-    part[base + q] = s;
-  }
-}
-
-// K8b / K9s prologue of one row tile: the head backward in fp32, then the
-// chain's top-layer d.  Per tile it writes the head's dW and db partials
-// (sums over the tile's rows, in row order) to `part`; d = gh W (+ gl) stays
-// fp32 through the activation derivative taken from the saved latent, and
-// only bf16(d) feeds the products (fused_mlp.py:930-952).
-__device__ void head_prologue(const MlpParams& p, const MlpChain& c, int chain, int row0, bf16* lat, float* gh,
-                              float* stg, bf16* dtop) {
-  const MlpHead& hd = p.head[chain];
-  const int num_layers = p.num_layers, latent = p.dims[num_layers], dim = hd.dim;
-  const bf16* saved = reinterpret_cast<const bf16*>(c.h[num_layers - 1]);
-  float* part = reinterpret_cast<float*>(hd.part) + size_t(blockIdx.x) * hd.stride;
-  for (int i = threadIdx.x; i < BM * latent; i += THREADS) {
-    const int r = i / latent, k = i % latent;
-    const int gr = row0 + r;
-    lat[r * HLD + k] = gr < p.num_rows ? saved[size_t(gr) * latent + k] : __float2bfloat16(0.f);
-  }
-  if (p.head_mode == 2) {
-    __syncthreads();
-    loss_rows(p, hd, chain, row0, lat, gh, stg, part);
-  } else {
-    const float* g = reinterpret_cast<const float*>(hd.g);
-    for (int i = threadIdx.x; i < BM * dim; i += THREADS) {
-      const int r = i / dim, o = i % dim;
-      const int gr = row0 + r;
-      gh[r * dim + o] = gr < p.num_rows ? g[size_t(gr) * dim + o] : 0.f;
-    }
-  }
-  __syncthreads();
-  // Per-tile partials of the head's dW = f32(latent)^T gh and db = sum gh.
-  for (int q = threadIdx.x; q < dim * latent; q += THREADS) {
-    const int o = q / latent, k = q % latent;
-    float s = 0.f;
-    for (int r = 0; r < BM; ++r) s = fmaf(__bfloat162float(lat[r * HLD + k]), gh[r * dim + o], s);
-    part[q] = s;
-  }
-  for (int o = threadIdx.x; o < dim; o += THREADS) {
-    float s = 0.f;
-    for (int r = 0; r < BM; ++r) s += gh[r * dim + o];
-    part[dim * latent + o] = s;
-  }
-  // Top-layer d = gh W (+ gl), fp32, per NC-column chunk of the latent.
-  const float* W = reinterpret_cast<const float*>(hd.w);
-  const float* gl = reinterpret_cast<const float*>(hd.gl);
-  for (int n0 = 0; n0 < latent; n0 += NC) {
-    const int ncols = min(NC, latent - n0);
-    __syncthreads();  // previous readers of stg are done
-    for (int i = threadIdx.x; i < BM * ncols; i += THREADS) {
-      const int r = i / ncols, j = i % ncols;
-      const int gr = row0 + r;
-      float d = 0.f;
-      if (gr < p.num_rows) {
-        for (int o = 0; o < dim; ++o) d = fmaf(gh[r * dim + o], W[size_t(o) * latent + n0 + j], d);
-        if (gl != nullptr) d += gl[size_t(gr) * latent + n0 + j];
-      }
-      stg[r * SLD + j] = d;
-    }
-    __syncthreads();
-    finish_d_chunk(p, c, num_layers - 1, n0, ncols, row0, stg, dtop);
-  }
-}
-
-// Phase 1 of one row tile of chain `c` (blockIdx.y): the head prologue or the
-// upcast cotangent, then the gradient chain top layer down (module comment).
-__device__ void chain_backward_tile(const MlpParams& p, const MlpChain& c, int row0, unsigned char* smem) {
-  bf16* dbuf[2] = {reinterpret_cast<bf16*>(smem), reinterpret_cast<bf16*>(smem + ACT_BYTES)};
-  bf16* ws = reinterpret_cast<bf16*>(smem + 2 * ACT_BYTES);
-  float* stg = reinterpret_cast<float*>(smem + 2 * ACT_BYTES + WS_BYTES);
-
-  const int num_layers = p.num_layers;
-
-  if (p.head_mode != 0) {
-    // Heads: the latent tile goes to dbuf[1] and the head cotangent to the
-    // weight-slice region, both free until the first layer's product.
-    head_prologue(p, c, blockIdx.y, row0, dbuf[1], reinterpret_cast<float*>(ws), stg, dbuf[0]);
-  } else {
-    // Cotangent of the chain output (bf16, upcast per tile) -> d of layer L-1.
-    const int n_out = p.dims[num_layers];
-    const bf16* g = reinterpret_cast<const bf16*>(c.g);
-    for (int n0 = 0; n0 < n_out; n0 += NC) {
-      const int ncols = min(NC, n_out - n0);
-      __syncthreads();  // previous readers of stg are done
-      for (int i = threadIdx.x; i < BM * ncols; i += THREADS) {
-        const int r = i / ncols, j = i % ncols;
-        const int gr = row0 + r;
-        stg[r * SLD + j] = gr < p.num_rows ? __bfloat162float(g[size_t(gr) * n_out + n0 + j]) : 0.f;
-      }
-      __syncthreads();
-      finish_d_chunk(p, c, num_layers - 1, n0, ncols, row0, stg, dbuf[0]);
-    }
-  }
-
-  int cur = 0;
-  for (int l = num_layers - 1; l >= 0; --l) {
-    if (l == 0 && p.skip_input_grad) break;
-    const int K = p.dims[l + 1], n_in = p.dims[l];
-    const float* W = reinterpret_cast<const float*>(c.w[l]);
-    for (int n0 = 0; n0 < n_in; n0 += NC) {
-      gemm_chunk<false>(dbuf[cur], K, W, n_in, n0, n_in, ws, stg);
-      const int ncols = min(NC, n_in - n0);
-      if (l > 0) {
-        finish_d_chunk(p, c, l - 1, n0, ncols, row0, stg, dbuf[cur ^ 1]);
-      } else {
-        float* dx = reinterpret_cast<float*>(c.dx);
-        for (int i = threadIdx.x; i < BM * ncols; i += THREADS) {
-          const int r = i / ncols, j = i % ncols;
-          const int gr = row0 + r;
-          if (gr < p.num_rows) dx[size_t(gr) * n_in + n0 + j] = stg[r * SLD + j];
-        }
-      }
-    }
-    cur ^= 1;
-  }
-}
-
-// K9m phase 1: the chain's forward on the row tile, writing every layer's
-// bf16 activation (save_hiddens), then, after a block barrier that makes
-// those writes visible to the whole block, the heads, the loss and the
-// backward of the same tile from them (K9s's phase 1).  Only this block
-// writes and reads its tile's rows.
-__global__ void __launch_bounds__(THREADS) mlp_ppo_step_rows_kernel(const MlpParams p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const MlpChain& c = p.chain[blockIdx.y];
-  const int row0 = blockIdx.x * BM;
-  chain_forward_tile(p, c, row0, smem);
-  __syncthreads();
-  chain_backward_tile(p, c, row0, smem);
-}
 
 }  // namespace mlp
 
@@ -487,20 +307,23 @@ __device__ __forceinline__ float tile_val(const unsigned char* tile, int r, int 
   return __bfloat162float(*reinterpret_cast<const bf16*>(tile + wg::swz(r, k)));
 }
 
-// K8b / K9s: the heads' part of one row tile, by the NT consumer threads:
-// the latent (the saved chain output) into `lat`; K9s the heads' forward
+// K8b / K9s / K9m: the heads' part of one row tile, by the NT consumer
+// threads: the latent (the saved chain output) into `lat` where load_latent
+// is set (K9m's forward leaves it there); K9s and K9m the heads' forward
 // (fp32 FMAs in column order) and loss_row per row, K8b the heads'
 // cotangents from hd.g, into gh ([64][dim] fp32, 0 on pad rows); the tile's
 // partials of the head's dW = f32(latent)^T gh and db = sum gh (and K9s's
 // loss sums), in row order, into its row of hd.part.
 template <int HEADS, int NT>
 __device__ __forceinline__ void head_tile(const MlpParams& p, const MlpChain& c, int chain, int tile, int row0,
-                                          unsigned char* lat, float* gh, int t) {
+                                          unsigned char* lat, float* gh, int t, bool load_latent) {
   const MlpHead& hd = p.head[chain];
   const int latent = p.dims[p.num_layers], dim = hd.dim, n_rows = p.num_rows;
   float* part = static_cast<float*>(hd.part) + size_t(tile) * hd.stride;
-  wg::load_x<true, 4 * 128 / NT, NT>(c.h[p.num_layers - 1], latent, row0, n_rows, lat, t);
-  wg::group_sync(1, NT);
+  if (load_latent) {
+    wg::load_x<true, 4 * 128 / NT, NT>(c.h[p.num_layers - 1], latent, row0, n_rows, lat, t);
+    wg::group_sync(1, NT);
+  }
   if constexpr (HEADS == 2) {
     const float* W = static_cast<const float*>(hd.w);
     const float* bias = static_cast<const float*>(hd.b);
@@ -548,11 +371,32 @@ __device__ __forceinline__ void head_tile(const MlpParams& p, const MlpChain& c,
     }
     wg::group_sync(1, NT);
   }
-  for (int q = t; q < dim * latent; q += NT) {
-    const int o = q / latent, k = q - o * latent;
-    float s = 0.f;
-    for (int r = 0; r < wg::TILE_M; ++r) s = fmaf(tile_val(lat, r, k), gh[r * dim + o], s);
-    part[q] = s;
+  // dW_head's partials, four outputs (o0 .. o0 + 3, one latent column k) a
+  // thread: each latent value is loaded once for the four, and gh's four by
+  // one broadcast load where its rows allow (the loads, not the FMAs, bound
+  // this loop); each sum runs over the rows in order.
+  for (int q = t; q < (dim + 3) / 4 * latent; q += NT) {
+    const int o0 = q / latent * 4, k = q - o0 / 4 * latent, no = min(4, dim - o0);
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+    for (int r = 0; r < wg::TILE_M; ++r) {
+      const float x = tile_val(lat, r, k);
+      const float* g = gh + r * dim + o0;
+      if ((dim & 3) == 0) {
+        const float4 g4 = *reinterpret_cast<const float4*>(g);
+        s[0] = fmaf(x, g4.x, s[0]);
+        s[1] = fmaf(x, g4.y, s[1]);
+        s[2] = fmaf(x, g4.z, s[2]);
+        s[3] = fmaf(x, g4.w, s[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (e < no) s[e] = fmaf(x, g[e], s[e]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e < no) part[(o0 + e) * latent + k] = s[e];
   }
   for (int o = t; o < dim; o += NT) {
     float s = 0.f;
@@ -561,20 +405,128 @@ __device__ __forceinline__ void head_tile(const MlpParams& p, const MlpChain& c,
   }
 }
 
-// Phase 1 of chain blockIdx.y on this block's 64-row tiles: the top d from
-// the bf16 cotangent (or the heads: d = gh W_head (+ gl), fp32, at the
-// accumulators' places), then per layer from the top down the epilogue of
-// d_l at the accumulators' places (times act' of the saved value, bf16(d_l)
-// to D_l and to the next product's A tile, the column sums into the tile's
-// db partials) and the product bf16(d_l) W_l, whose output is d_{l-1}'s (or
-// dX, fp32).  Warps 0 .. 4 WGS - 1 are the consumer warpgroups, warpgroup w
-// taking the columns [w * NW, (w + 1) * NW) of each 128-column chunk; the
-// last warp is the producer (streamed images) or, with resident images, a
-// helper of the conversion only.  HEADS: the head mode (0, K8b's 1, K9s's 2).
+// Phase 1 of chain `chain` on the 64-row tile `tile`, by the WGS consumer
+// warpgroups of a block (t: the thread among them): the top d from the bf16
+// cotangent (or the heads: d = gh W_head (+ gl), fp32, at the accumulators'
+// places), then per layer from the top down the epilogue of d_l at the
+// accumulators' places (times act' of the saved value, bf16(d_l) to D_l and
+// to the next product's A tile, the column sums into the tile's db
+// partials) and the product bf16(d_l) W_l, whose output is d_{l-1}'s (or
+// dX, fp32).  Warpgroup w takes the columns [w * NW, (w + 1) * NW) of each
+// 128-column chunk.  HEADS: the head mode (0, K8b's 1, K9s's and K9m's 2);
+// with heads the latent sits in buf[L & 1] (read there for the top layer's
+// act'), loaded from device memory where load_latent is set.
+template <int WGS, int HEADS>
+__device__ __forceinline__ void backward_tile(const MlpParams& p, const MlpChain& c, int chain, int tile,
+                                              wg::Ring& ring, unsigned char* smem, const Layout& L, bool load_latent,
+                                              int t) {
+  constexpr int NT = WGS * 128, NW = wg::STAGE_N / WGS, NA = NW / 2;
+  const int w = wg::warp_index() / 4, tw = t & 127, bar = 2 + w;
+  const int num_layers = p.num_layers, top = p.dims[num_layers], n_rows = p.num_rows, act = p.activation;
+  const uint32_t b_off = w * NW * wg::KBLOCK * 2;  // this warpgroup's rows of each image
+  const wg::Frag f(tw);
+  unsigned char* const buf[2] = {smem + L.buf[0], smem + L.buf[1]};
+  unsigned char* const lat = buf[num_layers & 1];
+  float* red = reinterpret_cast<float*>(smem + L.red) + w * 4 * NW;
+  float* gh = reinterpret_cast<float*>(smem + L.head);
+  const MlpHead& hd = p.head[chain];
+  float* dx = static_cast<float*>(c.dx);
+  const int row0 = tile * wg::TILE_M;
+  float d[NA];
+  uint32_t sv[NA / 2];
+  // The epilogue of d_l's columns [c0, c0 + cols) (d: the upstream cotangent).
+  auto epilogue = [&](int l, int c0, int cols) {
+    const int n_out = p.dims[l + 1];
+    if (has_act(p, l)) mlp::mul_act_grad(d, [&](int i) { return wg::pair_at(sv, i); }, act);
+    wg::store_bf16(d, cols, static_cast<bf16*>(c.d[l]), n_out, c0, row0, n_rows, f);
+    wg::col_sums<NA>([&](int i) { return d[i]; }, cols, red,
+                     static_cast<float*>(c.dbp[l]) + size_t(tile) * n_out + c0, f, tw, bar);
+    // Past `cols` the accumulators are 0: the next product's K padding, up
+    // to the next multiple of 64, in each warpgroup's columns.
+    if (has_product(p, l)) wg::to_tile(d, max(0, min(NW, wg::pad64(n_out) - c0)), buf[l & 1], f, c0);
+  };
+  if constexpr (HEADS != 0) head_tile<HEADS, NT>(p, c, chain, tile, row0, lat, gh, t, load_latent);
+  for (int n0 = 0; n0 < top; n0 += wg::STAGE_N) {
+    const int c0 = n0 + w * NW, cols = max(0, min(NW, top - c0));  // this warpgroup's columns
+    if (has_act(p, num_layers - 1)) {
+      if constexpr (HEADS != 0) {
+        wg::tile_pairs<NA>(lat, c0, cols, f, sv);  // the latent, already in its tile
+      } else {
+        wg::load_pairs<NA>(static_cast<const bf16*>(c.h[num_layers - 1]), top, c0, cols, row0, n_rows, f, sv);
+      }
+    }
+    if constexpr (HEADS != 0) {  // d = gh W_head (+ gl): per element fp32 FMAs in the order of the head's outputs
+      const float* gl = static_cast<const float*>(hd.gl);
+      const int ra = row0 + f.row, rb = ra + 8;
+      wg::zero(d);
+      for (int o = 0; o < hd.dim; ++o) {
+        const float ga = gh[f.row * hd.dim + o], gb = gh[(f.row + 8) * hd.dim + o];
+        const float* w = static_cast<const float*>(hd.w) + size_t(o) * top + c0 + f.col;
+#pragma unroll
+        for (int j = 0; j < NA / 4; ++j) {
+          if (8 * j < cols) {
+            const float2 wv = __ldg(reinterpret_cast<const float2*>(w + 8 * j));
+            d[4 * j] = fmaf(ga, wv.x, d[4 * j]);
+            d[4 * j + 1] = fmaf(ga, wv.y, d[4 * j + 1]);
+            d[4 * j + 2] = fmaf(gb, wv.x, d[4 * j + 2]);
+            d[4 * j + 3] = fmaf(gb, wv.y, d[4 * j + 3]);
+          }
+        }
+      }
+      if (gl != nullptr) {
+#pragma unroll
+        for (int j = 0; j < NA / 4; ++j) {
+          if (8 * j < cols) {
+            const float* q = gl + c0 + 8 * j + f.col;
+            if (ra < n_rows) {
+              const float2 v = *reinterpret_cast<const float2*>(q + size_t(ra) * top);
+              d[4 * j] += v.x;
+              d[4 * j + 1] += v.y;
+            }
+            if (rb < n_rows) {
+              const float2 v = *reinterpret_cast<const float2*>(q + size_t(rb) * top);
+              d[4 * j + 2] += v.x;
+              d[4 * j + 3] += v.y;
+            }
+          }
+        }
+      }
+    } else {  // the bf16 cotangent of the chain output
+      uint32_t gv[NA / 2];
+      wg::load_pairs<NA>(static_cast<const bf16*>(c.g), top, c0, cols, row0, n_rows, f, gv);
+#pragma unroll
+      for (int i = 0; i < NA; ++i) d[i] = wg::pair_at(gv, i);
+    }
+    epilogue(num_layers - 1, c0, cols);
+  }
+  for (int l = num_layers - 1; l >= 0 && has_product(p, l); --l) {
+    wg::fence_async_smem();
+    wg::group_sync(1, NT);  // bf16(d_l) is in its tile for every warpgroup
+    const int K = p.dims[l + 1], N = p.dims[l];
+    const uint32_t a_in = wg::smem_u32(buf[l & 1]);
+    for (int n0 = 0; n0 < N; n0 += wg::STAGE_N) {
+      const int c0 = n0 + w * NW, cols = max(0, min(NW, N - c0));
+      if (l > 0) wg::load_pairs<NA>(static_cast<const bf16*>(c.h[l - 1]), N, c0, cols, row0, n_rows, f, sv);
+      wg::zero(d);
+      wg::issue(d, a_in, K, ring, b_off);  // the loads above fly during the ring's wait and the product
+      wg::finish(d, ring);
+      if (l > 0) {
+        epilogue(l - 1, c0, cols);
+      } else {
+        wg::store_f32(d, cols, dx, N, c0, row0, n_rows, f);
+      }
+    }
+  }
+}
+
+// Phase 1 of chain blockIdx.y on this block's 64-row tiles (backward_tile
+// each).  Warps 0 .. 4 WGS - 1 are the consumer warpgroups; the last warp is
+// the producer (streamed images) or, with resident images, a helper of the
+// conversion only.
 template <int PER_SM, int HEADS>
 __global__ void __launch_bounds__(threads(PER_SM), PER_SM) chain_bwd_kernel(const MlpParams p, const Layout L,
                                                                             const wg::Pack P) {
-  constexpr int WGS = consumer_wgs(PER_SM), NT = WGS * 128, NW = wg::STAGE_N / WGS, NA = NW / 2;
+  constexpr int WGS = consumer_wgs(PER_SM), NT = WGS * 128;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* smem = wg::aligned_base(smem_raw);
   const int chain = blockIdx.y;
@@ -592,100 +544,10 @@ __global__ void __launch_bounds__(threads(PER_SM), PER_SM) chain_bwd_kernel(cons
   // Resident: each slot's "full" phase completes once, here, and stays.
   const int t = threadIdx.x;
   wg::mbar_arrive_if(&ring.full[t < L.slots ? t : 0], L.resident && t < L.slots);
-
-  const int w = wg::warp_index() / 4, tw = t & 127, bar = 2 + w;
-  const int num_layers = p.num_layers, top = p.dims[num_layers], n_rows = p.num_rows, act = p.activation;
-  const uint32_t b_off = w * NW * wg::KBLOCK * 2;  // this warpgroup's rows of each image
-  const wg::Frag f(tw);
-  unsigned char* buf[2] = {smem + L.buf[0], smem + L.buf[1]};
-  float* red = reinterpret_cast<float*>(smem + L.red) + w * 4 * NW;
-  float* gh = reinterpret_cast<float*>(smem + L.head);
-  const MlpHead& hd = p.head[chain];
-  float* dx = static_cast<float*>(c.dx);
-  float d[NA];
-  uint32_t sv[NA / 2];
   for (int tile = blockIdx.x; tile < L.tiles; tile += gridDim.x) {
-    const int row0 = tile * wg::TILE_M;
     if (ring.resident) ring.next = 0;
     wg::group_sync(1, NT);  // the last tile's products and heads are done with the tiles
-    // The epilogue of d_l's columns [c0, c0 + cols) (d: the upstream cotangent).
-    auto epilogue = [&](int l, int c0, int cols) {
-      const int n_out = p.dims[l + 1];
-      if (has_act(p, l)) mlp::mul_act_grad(d, [&](int i) { return wg::pair_at(sv, i); }, act);
-      wg::store_bf16(d, cols, static_cast<bf16*>(c.d[l]), n_out, c0, row0, n_rows, f);
-      wg::col_sums<NA>([&](int i) { return d[i]; }, cols, red,
-                       static_cast<float*>(c.dbp[l]) + size_t(tile) * n_out + c0, f, tw, bar);
-      // Past `cols` the accumulators are 0: the next product's K padding, up
-      // to the next multiple of 64, in each warpgroup's columns.
-      if (has_product(p, l)) wg::to_tile(d, max(0, min(NW, wg::pad64(n_out) - c0)), buf[l & 1], f, c0);
-    };
-    if constexpr (HEADS != 0) head_tile<HEADS, NT>(p, c, chain, tile, row0, buf[num_layers & 1], gh, t);
-    for (int n0 = 0; n0 < top; n0 += wg::STAGE_N) {
-      const int c0 = n0 + w * NW, cols = max(0, min(NW, top - c0));  // this warpgroup's columns
-      if (has_act(p, num_layers - 1))
-        wg::load_pairs<NA>(static_cast<const bf16*>(c.h[num_layers - 1]), top, c0, cols, row0, n_rows, f, sv);
-      if constexpr (HEADS != 0) {  // d = gh W_head (+ gl): per element fp32 FMAs in the order of the head's outputs
-        const float* gl = static_cast<const float*>(hd.gl);
-        const int ra = row0 + f.row, rb = ra + 8;
-        wg::zero(d);
-        for (int o = 0; o < hd.dim; ++o) {
-          const float ga = gh[f.row * hd.dim + o], gb = gh[(f.row + 8) * hd.dim + o];
-          const float* w = static_cast<const float*>(hd.w) + size_t(o) * top + c0 + f.col;
-#pragma unroll
-          for (int j = 0; j < NA / 4; ++j) {
-            if (8 * j < cols) {
-              const float2 wv = __ldg(reinterpret_cast<const float2*>(w + 8 * j));
-              d[4 * j] = fmaf(ga, wv.x, d[4 * j]);
-              d[4 * j + 1] = fmaf(ga, wv.y, d[4 * j + 1]);
-              d[4 * j + 2] = fmaf(gb, wv.x, d[4 * j + 2]);
-              d[4 * j + 3] = fmaf(gb, wv.y, d[4 * j + 3]);
-            }
-          }
-        }
-        if (gl != nullptr) {
-#pragma unroll
-          for (int j = 0; j < NA / 4; ++j) {
-            if (8 * j < cols) {
-              const float* q = gl + c0 + 8 * j + f.col;
-              if (ra < n_rows) {
-                const float2 v = *reinterpret_cast<const float2*>(q + size_t(ra) * top);
-                d[4 * j] += v.x;
-                d[4 * j + 1] += v.y;
-              }
-              if (rb < n_rows) {
-                const float2 v = *reinterpret_cast<const float2*>(q + size_t(rb) * top);
-                d[4 * j + 2] += v.x;
-                d[4 * j + 3] += v.y;
-              }
-            }
-          }
-        }
-      } else {  // the bf16 cotangent of the chain output
-        uint32_t gv[NA / 2];
-        wg::load_pairs<NA>(static_cast<const bf16*>(c.g), top, c0, cols, row0, n_rows, f, gv);
-#pragma unroll
-        for (int i = 0; i < NA; ++i) d[i] = wg::pair_at(gv, i);
-      }
-      epilogue(num_layers - 1, c0, cols);
-    }
-    for (int l = num_layers - 1; l >= 0 && has_product(p, l); --l) {
-      wg::fence_async_smem();
-      wg::group_sync(1, NT);  // bf16(d_l) is in its tile for every warpgroup
-      const int K = p.dims[l + 1], N = p.dims[l];
-      const uint32_t a_in = wg::smem_u32(buf[l & 1]);
-      for (int n0 = 0; n0 < N; n0 += wg::STAGE_N) {
-        const int c0 = n0 + w * NW, cols = max(0, min(NW, N - c0));
-        if (l > 0) wg::load_pairs<NA>(static_cast<const bf16*>(c.h[l - 1]), N, c0, cols, row0, n_rows, f, sv);
-        wg::zero(d);
-        wg::issue(d, a_in, K, ring, b_off);  // the loads above fly during the ring's wait and the product
-        wg::finish(d, ring);
-        if (l > 0) {
-          epilogue(l - 1, c0, cols);
-        } else {
-          wg::store_f32(d, cols, dx, N, c0, row0, n_rows, f);
-        }
-      }
-    }
+    backward_tile<WGS, HEADS>(p, c, chain, tile, ring, smem, L, true, t);
   }
 }
 
@@ -727,6 +589,158 @@ int launch(const MlpParams* p, int num_chains, cudaStream_t stream) {
 }
 
 }  // namespace mlpb
+
+// ---------------------------------------------------------------------------
+// K9m (namespace mlpm): the whole PPO step's phase 1 in one persistent kernel
+// after one pack kernel of the forward's and the backward's images
+// ---------------------------------------------------------------------------
+
+namespace mlpm {
+
+using mlpb::consumer_wgs;
+using mlpb::Layout;
+using mlpb::threads;
+using wg::BLOCK_SMEM;
+
+struct Plan {
+  wg::Pack fwd;  // the images of W_l, in the forward's order (mlpf::chain_pack)
+  wg::Pack bwd;  // the images of W_l^T, in the backward's order (mlpb::bwd_pack)
+  Layout L;
+  int blocks;  // per chain
+  int sms;
+  int device;
+};
+
+// Images, shared memory and grid of K9m's phase 1.  A tile takes the
+// forward's images, then the backward's, from one ring (per_tile = both
+// counts), always streamed; the ring gets the slots that fit beside the two
+// tiles (each as large as the forward's or the backward's of its parity),
+// the column sums' partials and the heads' scratch: two blocks per SM before
+// one, unless the launch has no more tiles than SMs, and at least 2 slots.
+// Mirrored by ppo_step_plan in nn/kernels/weight_images.py.
+inline int plan(const MlpParams& p, Plan& out) {
+  if (p.num_layers < 1 || p.num_layers > MLP_MAX_LAYERS || p.head_mode != 2 || !p.skip_input_grad)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i <= p.num_layers; ++i)
+    if (p.dims[i] < 16 || p.dims[i] > MLP_MAX_WIDTH || p.dims[i] % 16) return static_cast<int>(cudaErrorInvalidValue);
+  for (int c = 0; c < 2; ++c)
+    if (p.head[c].dim < 1 || p.head[c].dim > mlp::MAX_HEAD_DIM) return static_cast<int>(cudaErrorInvalidValue);
+  out.fwd = mlpf::chain_pack(p);
+  out.bwd = mlpb::bwd_pack(p);
+  if (cudaGetDevice(&out.device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&out.sms, cudaDevAttrMultiProcessorCount, out.device) != cudaSuccess)
+    return static_cast<int>(cudaGetLastError());
+  Layout& L = out.L;
+  L.per_tile = out.fwd.count + out.bwd.count;
+  L.tiles = (p.num_rows + wg::TILE_M - 1) / wg::TILE_M;
+  L.resident = 0;
+  const int t0 = std::max(mlpf::tile_bytes(p, 0), mlpb::tile_bytes(p, 0));
+  const int t1 = std::max(mlpf::tile_bytes(p, 1), mlpb::tile_bytes(p, 1));
+  const int hb = mlpb::head_bytes(p, 2), fixed = t0 + t1 + mlpb::RED_BYTES + hb;
+  L.slots = -1;
+  for (L.per_sm = L.tiles * 2 <= out.sms ? 1 : 2; L.per_sm >= 1; --L.per_sm) {
+    const int fit = (std::min(BLOCK_SMEM, wg::SM_SMEM / L.per_sm - 1024) - 1024 - fixed) / wg::SLOT_COST;
+    if (fit >= 2) {
+      L.slots = std::min(fit, std::max(L.per_tile, 2));
+      break;
+    }
+  }
+  if (L.slots < 2) return static_cast<int>(cudaErrorInvalidValue);
+  L.buf[0] = L.slots * wg::STAGE_BYTES;
+  L.buf[1] = L.buf[0] + t0;
+  L.red = L.buf[1] + t1;
+  L.head = L.red + mlpb::RED_BYTES;
+  L.bar = L.head + hb;
+  L.bytes = L.bar + 2 * L.slots * 8 + 1024;
+  out.blocks = std::max(1, std::min(L.tiles, L.per_sm * out.sms / 2));
+  return 0;
+}
+
+// The fp32 weights of both chains and where their images go (the pack
+// kernel's argument: two Packs and MlpParams would pass the 4 KB a kernel's
+// parameters may take).
+struct Images {
+  const void* w[2][MLP_MAX_LAYERS];
+  void* wpack[2];
+};
+
+// Both chains' images, once per call: the forward's (F) then the backward's
+// (B), one 16-byte unit per thread, grid (images, chains, wg::PACK_SPLIT).
+__global__ void __launch_bounds__(wg::PACK_THREADS) pack_kernel(const Images I, const wg::Pack F, const wg::Pack B) {
+  const int s = blockIdx.x, u = blockIdx.z * wg::PACK_THREADS + threadIdx.x;
+  unsigned char* img = static_cast<unsigned char*>(I.wpack[blockIdx.y]) + size_t(s) * wg::STAGE_BYTES;
+  if (s < F.count) {
+    wg::pack_unit(F, I.w[blockIdx.y], s, u, img);
+  } else {
+    wg::pack_unit(B, I.w[blockIdx.y], s - F.count, u, img);
+  }
+}
+
+// Phase 1 of chain blockIdx.y on this block's 64-row tiles: per tile the
+// chain forward (mlpf::forward_tile, the latent kept in its tile), then the
+// heads, the loss and the backward from it (mlpb::backward_tile, the latent
+// not loaded again).  Warps 0 .. 4 WGS - 1 are the consumer warpgroups, the
+// last warp the producer, which streams each tile's forward and backward
+// images through the one ring in the order the consumers take them.
+template <int PER_SM>
+__global__ void __launch_bounds__(threads(PER_SM), PER_SM) ppo_step_kernel(const MlpParams p, const Layout L) {
+  constexpr int WGS = consumer_wgs(PER_SM), NT = WGS * 128;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = wg::aligned_base(smem_raw);
+  const int chain = blockIdx.y;
+  const MlpChain& c = p.chain[chain];
+  wg::Ring ring = wg::make_ring(smem, 0, L.bar, L.slots, 0, WGS * 4);
+  __syncthreads();  // the barriers are initialised
+  if (wg::warp_index() == WGS * 4) {
+    if (threadIdx.x == NT) {
+      const int tiles = (L.tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+      wg::produce(ring, smem, static_cast<const unsigned char*>(c.wpack), L.per_tile, tiles);
+    }
+    return;
+  }
+  const int t = threadIdx.x;
+  unsigned char* const buf[2] = {smem + L.buf[0], smem + L.buf[1]};
+  for (int tile = blockIdx.x; tile < L.tiles; tile += gridDim.x) {
+    wg::group_sync(1, NT);  // the last tile's products and heads are done with the tiles
+    mlpf::forward_tile<WGS>(p, c, ring, buf, tile * wg::TILE_M, true, t);
+    mlpb::backward_tile<WGS, 2>(p, c, chain, tile, ring, smem, L, false, t);
+  }
+}
+
+// The pack kernel, then the persistent kernel, on `stream`.
+int launch(const MlpParams* p, cudaStream_t stream) {
+  Plan P;
+  int err = plan(*p, P);
+  if (err != 0) return err;
+  if (p->num_stages != P.L.per_tile) return static_cast<int>(cudaErrorInvalidValue);
+  Images I{};
+  for (int c = 0; c < 2; ++c) {
+    if (p->chain[c].wpack == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    for (int l = 0; l < p->num_layers; ++l) I.w[c][l] = p->chain[c].w[l];
+    I.wpack[c] = p->chain[c].wpack;
+  }
+  pack_kernel<<<dim3(P.L.per_tile, 2, wg::PACK_SPLIT), wg::PACK_THREADS, 0, stream>>>(I, P.fwd, P.bwd);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int per_sm = P.L.per_sm;
+  const void* kernel = per_sm == 1 ? reinterpret_cast<const void*>(ppo_step_kernel<1>)
+                                   : reinterpret_cast<const void*>(ppo_step_kernel<2>);
+  static bool opted_in[2][64] = {};  // the shared-memory limit, set once per kernel and device
+  bool& done = opted_in[per_sm - 1][P.device & 63];
+  if (!done) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BLOCK_SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    done = true;
+  }
+  MlpParams copy = *p;
+  Layout L = P.L;
+  void* args[] = {&copy, &L};
+  e = cudaLaunchKernel(kernel, dim3(P.blocks, 2), dim3(threads(per_sm)), args, L.bytes, stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace mlpm
 
 extern "C" const char* mlp_chain_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -770,19 +784,6 @@ int launch_dw(const MlpParams* p, int num_chains, const DwScratch* s, cudaStream
   return dw::launch(P, num_chains, s, stream);
 }
 
-// K9m: phase 1 (mlp_ppo_step_rows_kernel, one block per 64-row tile) and
-// phase 2 on `stream`; returns cudaGetLastError() after the launches.
-int launch_ppo_step(const MlpParams* p, const DwScratch* s, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(mlp::mlp_ppo_step_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(mlp::SMEM_BYTES));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int row_tiles = (p->num_rows + mlp::BM - 1) / mlp::BM;
-  mlp::mlp_ppo_step_rows_kernel<<<dim3(row_tiles, 2), mlp::THREADS, mlp::SMEM_BYTES, stream>>>(*p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_dw(p, 2, s, stream);
-}
-
 }  // namespace
 
 // K1b, K2b, K8b, K9s: both phases from saved activations (0 on success).
@@ -795,11 +796,15 @@ extern "C" int mlp_chain_bwd(const MlpParams* p, int num_chains, const DwScratch
 }
 
 // K9m: both chains' forward, heads, loss and backward per row tile in one
-// phase-1 launch (head_mode 2, save_hiddens, the biases and every h[l] set),
-// then phase 2 (0 on success).
+// phase-1 launch after the images' pack (head_mode 2, save_hiddens, the
+// biases and every h[l] set, num_stages and wpack as mlp_ppo_step_plan
+// says), then phase 2 (0 on success).
 extern "C" int mlp_ppo_step(const MlpParams* p, const DwScratch* s, void* stream) {
-  if (p->head_mode != 2 || !p->save_hiddens || !p->skip_input_grad) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_ppo_step(p, s, static_cast<cudaStream_t>(stream));
+  if (!p->save_hiddens) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = mlpm::launch(p, st);
+  if (err != 0) return err;
+  return launch_dw(p, 2, s, st);
 }
 
 // Phase 1's plan of mlp_chain_bwd as the launch takes it: out = {images per
@@ -811,5 +816,18 @@ extern "C" int mlp_chain_bwd_plan(const MlpParams* p, int num_chains, int* out) 
   if (err != 0) return err;
   const int v[8] = {P.pack.count, P.L.slots, P.L.resident, P.L.tiles, P.blocks, P.L.bytes, P.sms, P.L.per_sm};
   for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return 0;
+}
+
+// K9m's phase-1 plan as the launch takes it: out = {images per tile, ring
+// slots, resident (0), tiles per chain, blocks per chain, dynamic shared
+// memory bytes, SMs, blocks per SM, the forward's images per tile}.
+extern "C" int mlp_ppo_step_plan(const MlpParams* p, int* out) {
+  mlpm::Plan P;
+  const int err = mlpm::plan(*p, P);
+  if (err != 0) return err;
+  const int v[9] = {P.L.per_tile, P.L.slots, P.L.resident, P.L.tiles, P.blocks, P.L.bytes, P.sms, P.L.per_sm,
+                    P.fwd.count};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
   return 0;
 }

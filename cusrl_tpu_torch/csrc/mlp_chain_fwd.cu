@@ -23,8 +23,9 @@
 // transformer's 128->128 ELU head does 32,768 FLOP per row against 512 bytes
 // (bf16 in and out), so bytes bound it (0.040 ms at 262,144 rows).
 //
-// Design (namespace mlpf; building blocks in hopper_wg.cuh, shared with the
-// fused block's forwards):
+// Design (namespace mlpf; the per-tile forward, forward_tile, in
+// mlp_chain.cuh, shared with K9m's single-launch step; building blocks in
+// hopper_wg.cuh, shared with the fused block's forwards):
 //   * each layer's fp32 [out, in] weight becomes bf16 images of 128 output
 //     rows x 64 K columns (16 KB, 128-byte swizzled, the B operand of
 //     wgmma), taken per layer, per 128-column output chunk, per K block;
@@ -74,7 +75,6 @@
 
 namespace mlpf {
 
-using wg::bf16;
 // Consumer warpgroups per block, by blocks per SM: the warpgroups of a block
 // split each 128-column chunk of a layer (a quarter or a half of the image's
 // rows each), four in one block per SM, two in each of two blocks per SM, so
@@ -104,27 +104,6 @@ struct Plan {
   int sms;
   int device;
 };
-
-// Layer l's images: per 128-row chunk of its output, per 64-column K block.
-// Mirrored by chain_stages in nn/kernels/weight_images.py.
-inline wg::Pack chain_pack(const MlpParams& p) {
-  wg::Pack P{};
-  for (int l = 0; l < p.num_layers; ++l) {
-    const int K = p.dims[l], N = p.dims[l + 1];
-    wg::pack_matrix(P, l, l, N, N, K);
-    for (int c = 0; c < wg::nchunks(N); ++c)
-      for (int kb = 0; kb < wg::kblocks(K); ++kb) wg::pack_add(P, l, 128 * c, 64 * kb);
-  }
-  return P;
-}
-
-// Bytes of the tile that holds the inputs of the layers of this parity (the
-// chain output counts as layer L's input: the heads read it there).
-inline int tile_bytes(const MlpParams& p, int parity) {
-  int widest = 0;
-  for (int i = parity; i <= p.num_layers; i += 2) widest = std::max(widest, wg::kblocks(p.dims[i]));
-  return widest * wg::ABLOCK_BYTES;
-}
 
 // Images, shared memory and grid of one forward.  Mirrored by chain_plan in
 // nn/kernels/weight_images.py.
@@ -210,7 +189,7 @@ __device__ __forceinline__ void heads(const MlpHead& hd, int latent, const unsig
 template <int PER_SM, bool HEADS>
 __global__ void __launch_bounds__(threads(PER_SM), PER_SM) chain_fwd_kernel(const MlpParams p, const Layout L,
                                                                             const wg::Pack P) {
-  constexpr int WGS = consumer_wgs(PER_SM), NT = WGS * 128, NW = wg::STAGE_N / WGS;
+  constexpr int WGS = consumer_wgs(PER_SM), NT = WGS * 128;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* smem = wg::aligned_base(smem_raw);
   const MlpChain& c = p.chain[blockIdx.y];
@@ -228,52 +207,15 @@ __global__ void __launch_bounds__(threads(PER_SM), PER_SM) chain_fwd_kernel(cons
   const int t = threadIdx.x;
   wg::mbar_arrive_if(&ring.full[t < L.slots ? t : 0], L.resident && t < L.slots);
 
-  const int w = wg::warp_index() / 4, num_layers = p.num_layers, n_rows = p.num_rows, act = p.activation;
-  const uint32_t b_off = w * NW * wg::KBLOCK * 2;  // this warpgroup's rows of each image
-  const wg::Frag f(t & 127);
-  unsigned char* buf[2] = {smem + L.buf[0], smem + L.buf[1]};
+  unsigned char* const buf[2] = {smem + L.buf[0], smem + L.buf[1]};
   const MlpHead& hd = p.head[blockIdx.y];
   const bool head = HEADS && hd.dim > 0;
-  float d[NW / 2];
   for (int tile = blockIdx.x; tile < L.tiles; tile += gridDim.x) {
     const int row0 = tile * wg::TILE_M;
     if (ring.resident) ring.next = 0;
     wg::group_sync(1, NT);  // the last tile's products and heads are done with the tiles
-    if (p.x_is_bf16) {
-      wg::load_x<true, 8 / WGS, NT>(c.x, p.dims[0], row0, n_rows, buf[0], t);
-    } else {
-      wg::load_x<false, 4 / WGS, NT>(c.x, p.dims[0], row0, n_rows, buf[0], t);
-    }
-    wg::fence_async_smem();
-    wg::group_sync(1, NT);
-    for (int l = 0; l < num_layers; ++l) {
-      const int K = p.dims[l], N = p.dims[l + 1];
-      const bool last = l == num_layers - 1, apply_act = !last || p.trailing;
-      const bool keep_z = !last && act == mlp::ACT_GELU;  // gelu's hidden layers save z
-      const bool to_smem = !last || head;
-      bf16* dst = (last || p.save_hiddens) ? static_cast<bf16*>(c.h[l]) : nullptr;
-      const float* bias = static_cast<const float*>(c.b[l]);
-      const uint32_t a_in = wg::smem_u32(buf[l & 1]);
-      unsigned char* next = buf[(l + 1) & 1];
-      for (int n0 = 0; n0 < N; n0 += wg::STAGE_N) {
-        const int c0 = n0 + w * NW, cols = max(0, min(NW, N - c0));  // this warpgroup's columns
-        wg::zero(d);
-        wg::issue(d, a_in, K, ring, b_off);
-        wg::finish(d, ring);
-        wg::add_bias_round(d, bias + c0, cols, f);
-        if (dst != nullptr && keep_z) wg::store_bf16(d, cols, dst, N, c0, row0, n_rows, f);
-        if (apply_act) mlp::activate(d, act);
-        if (dst != nullptr && !keep_z) wg::store_bf16(d, cols, dst, N, c0, row0, n_rows, f);
-        // Past `cols` the accumulators and act(0) are 0: the next layer's K
-        // padding, up to the next multiple of 64, in each warpgroup's columns.
-        if (to_smem) wg::to_tile(d, max(0, min(NW, wg::pad64(N) - c0)), next, f, c0);
-      }
-      if (to_smem) {
-        wg::fence_async_smem();
-        wg::group_sync(1, NT);
-      }
-    }
-    if (HEADS && head) heads(hd, p.dims[num_layers], buf[num_layers & 1], row0, n_rows, t, NT);
+    forward_tile<WGS>(p, c, ring, buf, row0, head, t);
+    if (HEADS && head) heads(hd, p.dims[p.num_layers], buf[p.num_layers & 1], row0, p.num_rows, t, NT);
   }
 }
 

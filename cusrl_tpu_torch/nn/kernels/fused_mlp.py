@@ -17,7 +17,7 @@ K8b   ``mlp_chain_bwd`` x2+heads  replaces ``_pair_heads_bwd_kernel`` (``_pair_h
 ====  ==========================  ==============================================
 
 ``mlp_chain_bwd`` with the PPO loss (K9s), and ``mlp_ppo_step`` (K9m: the
-chains' forward, the loss and the backward in one launch), are launched from
+chains' forward, the loss and the backward in one phase-1 launch), are launched from
 ``fused_ppo_step.py``; their counts live in ``LAUNCHES`` here too.  The heads
 are fp32 islands: ``f32(latent) W^T + b`` with fp32 weights, and their
 backward keeps the latent's cotangent in fp32 until the activation derivative.
@@ -31,10 +31,12 @@ chain whose images fit in a block converts them there; a wider one is packed
 into scratch that ``_launch_fwd`` / ``_launch_bwd`` allocates, in a second
 launch, and streams through a ring (``weight_images.chain_plan`` and
 ``chain_bwd_plan`` mirror the kernels' plans, ``fwd_plan`` and ``bwd_plan``
-read them from the card).  Beside each kernel this module keeps its plain
-PyTorch version, which repeats the kernel's arithmetic step by step (including
-the explicit backward formulas): bf16 operands, fp32 accumulation, fp32 bias,
-round to bf16, activation in fp32 on the bf16 value, round to bf16 again; the
+read them from the card; ``ppo_step_plan`` K9m's, which streams the
+forward's and the backward's images through one ring).  Beside each kernel
+this module keeps its plain PyTorch version, which repeats the kernel's
+arithmetic step by step (including the explicit backward formulas): bf16
+operands, fp32 accumulation, fp32 bias, round to bf16, activation in fp32 on
+the bf16 value, round to bf16 again; the
 backward keeps ``d`` in fp32, multiplies it by the activation derivative taken
 from the saved post-activation, and feeds ``bf16(d)`` to both products.  gelu
 (the tanh form) saves the hidden layers' pre-activations instead: its
@@ -67,6 +69,7 @@ __all__ = [
     "fused_mlp_pair_heads",
     "bwd_plan",
     "fwd_plan",
+    "ppo_step_plan",
     "head_bwd_plain",
     "mlp_chain_bwd_plain",
     "mlp_chain_fwd_plain",
@@ -85,8 +88,8 @@ _PREACT_ACTIVATIONS = ("gelu",)
 _GELU_C = 0.7978845608028654  # sqrt(2/pi): the tanh form of jax.nn.gelu
 MAX_LAYERS = 8  # MLP_MAX_LAYERS in csrc/mlp_chain.cuh
 MAX_WIDTH = 512  # MLP_MAX_WIDTH
-WIDTH_MULTIPLE = 16  # the products' k16 steps (wgmma; WMMA in K9m)
-ROW_TILE = 64  # mlp::BM
+WIDTH_MULTIPLE = 16  # the products' k16 steps (wgmma)
+ROW_TILE = 64  # mlp::BM (wg::TILE_M)
 
 MAX_HEAD_DIM = 64  # mlp::MAX_HEAD_DIM
 
@@ -303,6 +306,8 @@ def _library(stem: str) -> ctypes.CDLL:
             lib.mlp_ppo_step.restype = ctypes.c_int
             lib.mlp_chain_bwd_plan.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
             lib.mlp_chain_bwd_plan.restype = ctypes.c_int
+            lib.mlp_ppo_step_plan.argtypes = [ctypes.POINTER(_Params), ctypes.POINTER(ctypes.c_int)]
+            lib.mlp_ppo_step_plan.restype = ctypes.c_int
         else:
             fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_void_p]
             lib.mlp_chain_fwd_plan.argtypes = [ctypes.POINTER(_Params), ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
@@ -404,6 +409,20 @@ def bwd_plan(dims, rows: int, chains: int, skip_input_grad: bool, head_mode: int
     lib = _library("mlp_chain_bwd")
     _check(lib, lib.mlp_chain_bwd_plan(ctypes.byref(p), chains, out), "mlp_chain_bwd_plan")
     return dict(zip(_PLAN_KEYS, out))
+
+
+def ppo_step_plan(dims, rows: int, head_dim: int) -> dict:
+    """The plan ``mlpm::plan`` makes for K9m's phase 1 on the current card
+    (two chains of widths ``dims``, heads of ``head_dim`` outputs), with the
+    keys of ``weight_images.ppo_step_plan``."""
+    p = _params(list(dims), rows, "elu", True)
+    p.skip_input_grad, p.head_mode = 1, 2
+    for i in range(2):
+        p.head[i].dim = head_dim
+    out = (ctypes.c_int * 9)()
+    lib = _library("mlp_chain_bwd")
+    _check(lib, lib.mlp_ppo_step_plan(ctypes.byref(p), out), "mlp_ppo_step_plan")
+    return dict(zip((*_PLAN_KEYS, "fwd_images"), out))
 
 
 def _launch_fwd(xs, wss, bss, activation, trailing, save_hiddens, counter, heads=None):
@@ -583,9 +602,11 @@ def _launch_bwd(xs, gs, wss, hss, activation, trailing, skip_input_grad, counter
 
 
 def _launch_ppo_step(xs, wss, bss, heads, loss, activation, trailing):
-    """K9m: in one launch, per row tile, both chains' forward from ``xs`` and
-    the biases ``bss``, then K9s's heads, loss and backward on the
-    activations just produced (no input gradient).  ``heads`` and ``loss`` as
+    """K9m: in one phase-1 launch, per row tile, both chains' forward from
+    ``xs`` and the biases ``bss``, then K9s's heads, loss and backward on the
+    activations just produced (no input gradient); the forward's and the
+    backward's weight images are packed into one scratch per chain
+    (``weight_images.ppo_step_plan``).  ``heads`` and ``loss`` as
     ``_launch_bwd`` takes them for K9s.  Returns ``(results, hiddens)``:
     ``[(None, dws, dbs, head_grads)]`` and the bf16 activations
     ``[h_1..h_L]`` the launch wrote, per chain."""
@@ -600,6 +621,11 @@ def _launch_ppo_step(xs, wss, bss, heads, loss, activation, trailing):
     p.save_hiddens = 1
     if n == 0:
         return _zeroed(results, loss), hss
+    plan = weight_images.ppo_step_plan(tuple(dims), n, _sms(device.index), max(p.head[0].dim, p.head[1].dim))
+    p.num_stages = plan["images"]
+    wpack = torch.empty(2, plan["images"] * weight_images.STAGE_BYTES // 2, dtype=_BF16, device=device)
+    for i in range(2):
+        p.chain[i].wpack = wpack[i].data_ptr()
     lib = _library("mlp_chain_bwd")
     code = lib.mlp_ppo_step(ctypes.byref(p), ctypes.byref(phase2), torch.cuda.current_stream(device).cuda_stream)
     LAUNCHES["K9m"] += 1

@@ -15,9 +15,10 @@ summed in tile order).
 Mono mode (``CUSRL_TPU_PPO_MODE=mono``, read at import into ``_PPO_MODE`` as
 the JAX package does) runs the whole step as one launch (K9m,
 ``mlp_ppo_step`` in ``csrc/mlp_chain_bwd.cu``), which replaces
-``_ppo_step_kernel`` (``_run_ppo_step``): per row tile the chains' forward,
-then the same loss and backward from the activations it has just produced.
-Its plain version is the split pair's: ``mlp_chain_fwd_plain`` on both chains,
+``_ppo_step_kernel`` (``_run_ppo_step``): per row tile the chains' forward
+(K2f's tile), then the same loss and backward (K9s's tile) from the
+activations it has just produced, so that its activations, gradients and
+sums are split's, bit for bit.  Its plain version is the split pair's: ``mlp_chain_fwd_plain`` on both chains,
 then ``ppo_loss_bwd_plain`` (the arithmetic of ``_ppo_step_kernel`` ->
 ``_loss_tail``).  The JAX package's mono row tile ``CUSRL_TPU_PPO_BLOCK`` is a
 VMEM budget with no counterpart here (the CUDA kernels take 64-row tiles).

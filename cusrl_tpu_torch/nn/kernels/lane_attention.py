@@ -29,7 +29,10 @@ JAX package's dense references ``_lane_reference`` and
 Dispatch is by the device of the input: a CPU tensor takes the plain version,
 a CUDA tensor launches the kernel or raises.  ``LAUNCHES`` counts kernel
 launches; the plain versions count nothing.  ALiBi slopes are a sequence of
-floats (passed to the kernels by value, so no host-to-device copy).
+floats (passed to the kernels by value, so no host-to-device copy).  K3f and
+K6 read their operands in place with their strides (the transformer hands
+over head-split views and a transposed ``q_seg``); K3b reads contiguous
+copies.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import torch
 
 __all__ = [
     "LAUNCHES",
+    "fwd_plan",
     "lane_bwd_plain",
     "lane_fwd_plain",
     "lane_next_token_attention",
@@ -189,8 +193,9 @@ def _library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.POINTER(_LaneParams), ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        lib.lane_attention_next_plan.argtypes = [ctypes.POINTER(_LaneParams), ctypes.POINTER(ctypes.c_int)]
-        lib.lane_attention_next_plan.restype = ctypes.c_int
+        for name in ("lane_attention_next_plan", "lane_attention_fwd_plan"):
+            getattr(lib, name).argtypes = [ctypes.POINTER(_LaneParams), ctypes.POINTER(ctypes.c_int)]
+            getattr(lib, name).restype = ctypes.c_int
         lib.lane_attention_error_string.argtypes = [ctypes.c_int]
         lib.lane_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -231,8 +236,8 @@ def _fill(p: _LaneParams, q, window: int, slopes) -> _LaneParams:
 
 
 def _params(q, k, v, q_seg, k_seg, k_valid, window: int, slopes) -> tuple[_LaneParams, list]:
-    """K3f's and K3b's parameter block (contiguous operands, int32 masks)
-    and the tensors it points to (kept alive until the launch)."""
+    """K3b's parameter block (contiguous operands, int32 masks) and the
+    tensors it points to (kept alive until the launch)."""
     _check_inputs(q, k, v, q_seg, k_seg, k_valid, window, slopes)
     keep = [t.contiguous() for t in (q, k, v)] + [t.to(torch.int32).contiguous() for t in (q_seg, k_seg, k_valid)]
     p = _LaneParams()
@@ -251,27 +256,49 @@ def _in_units(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _in_place(p: _LaneParams, operands: dict) -> list:
+    """Points ``p`` at ``operands`` (``{field: tensor}``, the rows first, then
+    the masks) as K3f and K6 read them in place with their strides: a copy
+    only where a row would not be 16-byte aligned or a mask is not int32.
+    Returns the tensors pointed to, in order (kept alive until the launch)."""
+    strides = {"q": "sq", "k_self": "sks", "v_self": "svs", "k": "sk", "v": "sv", "q_seg": "sqseg",
+               "k_seg": "skseg", "k_valid": "skval"}
+    keep = []
+    for name, t in operands.items():
+        t = _in_units(t) if t.dim() == 4 else (t if t.dtype == torch.int32 else t.to(torch.int32))
+        setattr(p, name, t.data_ptr())
+        getattr(p, strides[name])[:] = t.stride()[:-1] if t.dim() == 4 else t.stride()
+        keep.append(t)
+    return keep
+
+
+def _fwd_params(q, k, v, q_seg, k_seg, k_valid, window: int, slopes):
+    """K3f's parameter block, which reads its operands in place with their
+    strides (the main path's q_seg is a transposed view)."""
+    _check_inputs(q, k, v, q_seg, k_seg, k_valid, window, slopes)
+    p = _LaneParams()
+    keep = _in_place(p, dict(q=q, k=k, v=v, q_seg=q_seg, k_seg=k_seg, k_valid=k_valid))
+    return _fill(p, q, window, slopes), keep
+
+
 def _next_params(q, k_self, v_self, k, v, q_seg, k_seg, k_valid, window: int, slopes):
     """K6's parameter block, which reads its operands in place with their
     strides (the main path's v_self is a view of the projection, q_seg a
-    transposed view): a copy only where a row would not be 16-byte aligned
-    or the masks are not int32."""
+    transposed view)."""
     _check_inputs(q, k, v, q_seg, k_seg, k_valid, window, slopes)
-    keep = [_in_units(t) for t in (q, k_self, v_self, k, v)]
-    keep += [t if t.dtype == torch.int32 else t.to(torch.int32) for t in (q_seg, k_seg, k_valid)]
     p = _LaneParams()
-    p.q, p.k_self, p.v_self, p.k, p.v, p.q_seg, p.k_seg, p.k_valid = (t.data_ptr() for t in keep)
-    for name, t in zip(("sq", "sks", "svs", "sk", "sv", "sqseg", "skseg", "skval"), keep):
-        getattr(p, name)[:] = t.stride()[:-1] if t.dim() == 4 else t.stride()
+    keep = _in_place(p, dict(q=q, k_self=k_self, v_self=v_self, k=k, v=v, q_seg=q_seg, k_seg=k_seg, k_valid=k_valid))
     return _fill(p, q, window, slopes), keep
 
 
 NEXT_TARGET_THREADS, NEXT_MAX_THREADS = 256, 512  # lane::NEXT_TARGET_THREADS, NEXT_MAX_THREADS
 NEXT_SOFT_SMEM, MAX_SMEM = 64 * 1024, 232448  # lane::NEXT_SOFT_SMEM, lane::MAX_SMEM
+FWD_KEYS_PER_PASS = 32  # lane::FWD_NB: K3f's band scores kept in registers
+FWD_SMALL_THREADS, FWD_SMALL_BLOCKS = 288, 3  # lane::FWD_SMALL_THREADS, FWD_SMALL_BLOCKS
 
 
 def next_plan(t_len: int, window: int, dim: int, dtype: torch.dtype) -> dict:
-    """K6's launch plan (``lane::launch_next``): lanes per query (each on
+    """K6's launch plan (``lane::launch_band``): lanes per query (each on
     ``dim / lanes`` columns in 16-byte units, at most four), problems per
     block (at least 256 threads where the queries allow, at most 512, fewer
     while the block's staging exceeds 64 KB), threads per block, and the
@@ -292,16 +319,39 @@ def next_plan(t_len: int, window: int, dim: int, dtype: torch.dtype) -> dict:
     return dict(lanes=lanes, problems=pb, threads=pb * per, smem_bytes=smem(pb))
 
 
-def next_card_plan(q, window: int) -> dict:
-    """The plan ``lane::launch_next`` makes on the card for queries shaped
-    as ``q``, with the keys of ``next_plan``."""
+def fwd_plan(t_len: int, window: int, dim: int, dtype: torch.dtype) -> dict:
+    """K3f's launch plan (``lane::launch_band``): K6's layout and staging
+    (``next_plan``); the passes over the band's scores, 1 where its
+    ``window + 1`` keys fit the 32 kept in registers, else 2 (the scores are
+    computed again for the weighted sum); and the blocks per SM of the
+    kernel instance launched: three for blocks of up to 288 threads (their
+    registers capped to fit), else one."""
+    plan = next_plan(t_len, window, dim, dtype)
+    return dict(plan, passes=1 if window < FWD_KEYS_PER_PASS else 2,
+                blocks_per_sm=FWD_SMALL_BLOCKS if plan["threads"] <= FWD_SMALL_THREADS else 1)
+
+
+def _card_plan(entry: str, q, window: int, keys) -> dict:
     p = _fill(_LaneParams(), q, window, None)
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * len(keys))()
     lib = _library()
-    code = lib.lane_attention_next_plan(ctypes.byref(p), out)
+    code = getattr(lib, entry)(ctypes.byref(p), out)
     if code != 0:
-        raise RuntimeError(f"lane_attention_next_plan failed: {lib.lane_attention_error_string(code).decode()}")
-    return dict(zip(("lanes", "problems", "threads", "smem_bytes"), out))
+        raise RuntimeError(f"{entry} failed: {lib.lane_attention_error_string(code).decode()}")
+    return dict(zip(keys, out))
+
+
+def next_card_plan(q, window: int) -> dict:
+    """The plan ``lane::launch_band`` makes on the card for K6's queries
+    shaped as ``q``, with the keys of ``next_plan``."""
+    return _card_plan("lane_attention_next_plan", q, window, ("lanes", "problems", "threads", "smem_bytes"))
+
+
+def fwd_card_plan(q, window: int) -> dict:
+    """The plan ``lane::launch_band`` makes on the card for K3f's queries
+    shaped as ``q``, with the keys of ``fwd_plan``."""
+    return _card_plan("lane_attention_fwd_plan", q, window,
+                      ("lanes", "problems", "threads", "smem_bytes", "passes", "blocks_per_sm"))
 
 
 def _launch(name: str, p: _LaneParams, device) -> None:
@@ -315,7 +365,7 @@ def _launch(name: str, p: _LaneParams, device) -> None:
 
 def _launch_fwd(q, k, v, q_seg, k_seg, k_valid, window: int, slopes, save_probs: bool):
     """K3f: ``(out, probs or None)``."""
-    p, keep = _params(q, k, v, q_seg, k_seg, k_valid, window, slopes)
+    p, keep = _fwd_params(q, k, v, q_seg, k_seg, k_valid, window, slopes)
     n, heads, t_len, dim = q.shape
     out = torch.empty(n, heads, t_len, dim, device=q.device)
     probs = torch.empty(n, heads, t_len, window + 1, device=q.device) if save_probs else None

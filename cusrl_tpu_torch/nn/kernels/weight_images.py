@@ -13,9 +13,11 @@ per image; ``pack_plain`` is the pack's plain version.
 
 The MLP chain forward's launch plan (``mlpf::plan`` in
 ``csrc/mlp_chain_fwd.cu``) is mirrored by ``chain_plan``, phase 1 of its
-backward (``mlpb::plan`` in ``csrc/mlp_chain_bwd.cu``) by ``chain_bwd_plan``:
-whether a chain's images stay resident in a block or stream through a ring,
-the ring's slots, the blocks per SM and the shared memory per block.
+backward (``mlpb::plan`` in ``csrc/mlp_chain_bwd.cu``) by ``chain_bwd_plan``,
+the single-launch PPO step's (K9m, ``mlpm::plan``) by ``ppo_step_plan`` with
+its image order ``ppo_step_stages``: whether a chain's images stay resident
+in a block or stream through a ring, the ring's slots, the blocks per SM and
+the shared memory per block.
 Persistent blocks take tiles ``b``, ``b + blocks``, ... of their chain
 (``tile_schedule``).  Nothing here touches a card.
 """
@@ -37,6 +39,8 @@ __all__ = [
     "chain_stages",
     "pack_plain",
     "persistent_blocks",
+    "ppo_step_plan",
+    "ppo_step_stages",
     "tile_schedule",
     "unpack_plain",
 ]
@@ -161,6 +165,26 @@ def chain_bwd_stages(dims, skip_input_grad: bool) -> list[tuple[int, int, int]]:
 RED_BYTES = 4 * 128 * 4  # the column sums' warp partials of a block (mlpb::RED_BYTES)
 
 
+def _bwd_tiles(dims, skip_input_grad: bool, head_mode: int) -> tuple[int, int]:
+    """Bytes of a chain backward's two tiles (``mlpb::tile_bytes``): each
+    layer's ``bf16(d_l)`` of its parity where the layer's product runs, and
+    with heads the latent in the tile of the chain's depth's parity."""
+    num_layers = len(dims) - 1
+    widest = [0, 0]
+    for l in range(num_layers):
+        if l > 0 or not skip_input_grad:
+            widest[l & 1] = max(widest[l & 1], kblocks(dims[l + 1]))
+    if head_mode:
+        widest[num_layers & 1] = max(widest[num_layers & 1], kblocks(dims[-1]))
+    return widest[0] * ABLOCK_BYTES, widest[1] * ABLOCK_BYTES
+
+
+def _head_bytes(head_mode: int, head_dim: int) -> int:
+    """The heads' scratch of a tile (``mlpb::head_bytes``): gh, and for the
+    loss (mode 2) also the heads' outputs and the per-row loss terms."""
+    return TILE_ROWS * (3 * head_dim + 2 if head_mode == 2 else head_dim) * 4 if head_mode else 0
+
+
 @functools.lru_cache(maxsize=256)
 def chain_bwd_plan(dims: tuple, rows: int, chains: int, sms: int, skip_input_grad: bool, head_mode: int = 0,
                    head_dim: int = 0) -> dict:
@@ -172,19 +196,51 @@ def chain_bwd_plan(dims: tuple, rows: int, chains: int, sms: int, skip_input_gra
     them the column sums' partials and the heads' scratch (``gh``; K9s also
     the heads' outputs and the per-row loss terms).  No images (one layer
     without dX) counts as resident."""
-    num_layers = len(dims) - 1
     images = len(chain_bwd_stages(dims, skip_input_grad))
     tiles = -(-rows // TILE_ROWS)
-    widest = [0, 0]
-    for l in range(num_layers):
-        if l > 0 or not skip_input_grad:
-            widest[l & 1] = max(widest[l & 1], kblocks(dims[l + 1]))
-    if head_mode:
-        widest[num_layers & 1] = max(widest[num_layers & 1], kblocks(dims[-1]))
-    t0, t1 = (w * ABLOCK_BYTES for w in widest)
-    heads = TILE_ROWS * (3 * head_dim + 2 if head_mode == 2 else head_dim) * 4 if head_mode else 0
+    t0, t1 = _bwd_tiles(dims, skip_input_grad, head_mode)
+    heads = _head_bytes(head_mode, head_dim)
     per_sm, slots = _ring(images, t0 + t1 + RED_BYTES + heads, tiles * chains <= sms, dims)
     return dict(images=images, slots=slots, resident=int(slots == images), tiles=tiles,
                 blocks=persistent_blocks(tiles, per_sm, chains, sms),
                 smem_bytes=slots * STAGE_BYTES + t0 + t1 + RED_BYTES + heads + 16 * slots + 1024, sms=sms,
                 per_sm=per_sm)
+
+
+def ppo_step_stages(dims) -> list[tuple[int, int, int]]:
+    """``(matrix, n0, k0)`` of each image K9m's phase 1 takes per tile, in
+    its ring's order (``mlpm::plan``): the forward's images of ``W_l``
+    (matrix ``l``, ``chain_stages``), then the backward's of ``W_l^T``
+    (matrix ``L + l``, ``chain_bwd_stages`` without dX).  Their pack is
+    ``pack_plain(ws + ws, stages, (False,) * L + (True,) * L)``."""
+    num_layers = len(dims) - 1
+    return chain_stages(dims) + [(num_layers + l, n0, k0) for l, n0, k0 in chain_bwd_stages(dims, True)]
+
+
+@functools.lru_cache(maxsize=256)
+def ppo_step_plan(dims: tuple, rows: int, sms: int, head_dim: int) -> dict:
+    """K9m's phase-1 plan (``mlpm::plan``) for two chains of widths ``dims``
+    with heads of up to ``head_dim`` outputs, with the keys of
+    ``chain_plan`` and ``fwd_images`` (the forward's share of each tile's
+    images).  The images always stream, forward's then backward's, through
+    one ring; its two tiles are each as large as the forward's
+    (``chain_plan``) or the backward's (``chain_bwd_plan``) of its parity,
+    beside the column sums' partials and the loss heads' scratch; the ring
+    takes the slots that fit, at least 2 and no more than a tile's images
+    (or 2), two blocks per SM before one unless the launch has no more
+    tiles than SMs."""
+    fwd = len(chain_stages(dims))
+    images = len(ppo_step_stages(dims))
+    tiles = -(-rows // TILE_ROWS)
+    bwd = _bwd_tiles(dims, True, 2)
+    t0, t1 = (max(max(kblocks(d) for d in dims[parity::2]) * ABLOCK_BYTES, bwd[parity]) for parity in (0, 1))
+    fixed = t0 + t1 + RED_BYTES + _head_bytes(2, head_dim)
+    for per_sm in ((1,) if tiles * 2 <= sms else (2, 1)):
+        fit = (min(BLOCK_SMEM, SM_SMEM // per_sm - 1024) - 1024 - fixed) // SLOT_COST
+        if fit >= 2:
+            slots = min(fit, max(images, 2))
+            break
+    else:
+        raise ValueError(f"no K9m launch plan for widths {dims}")
+    return dict(images=images, slots=slots, resident=0, tiles=tiles, blocks=persistent_blocks(tiles, per_sm, 2, sms),
+                smem_bytes=slots * STAGE_BYTES + fixed + 16 * slots + 1024, sms=sms, per_sm=per_sm, fwd_images=fwd)

@@ -7,8 +7,9 @@ Run from the root of a checkout on a machine with a card:
     python3 probe_backward_phase1.py [--variants]
 
 For each backward whose phase 1 runs on wgmma (the fused block's pre and
-post backwards, ``fbp::`` and ``fbb::``; the MLP chain backward, ``mlpb::``) at the main paths'
-shapes it prints the device time per call of every kernel of the launch
+post backwards, ``fbp::`` and ``fbb::``; the MLP chain backward, ``mlpb::``;
+the single-launch PPO step, ``mlpm::``, whose phase 1 runs the forward too)
+at the main paths' shapes it prints the device time per call of every kernel of the launch
 (``torch.profiler``, mean of 10 calls after 3), phase 1's sum (the pack and
 the persistent kernel) and phase 2's, on random inputs from a fixed seed.
 With ``--variants`` it builds copies of ``csrc/fused_block.cu`` and
@@ -57,15 +58,20 @@ VARIANTS = {
         "        wg::zero(d);\n        wg::issue(d, wg::smem_u32(ta), E, ring, b_off);\n        wg::finish(d, ring);\n"
         "        wg::load_pairs<NA>(saved, F, c0 + cw, ccols, row0, n_rows, f, sv);\n")]),
     "chain: saved loads after the issue": ("mlp_chain_bwd.cu", [(
-        "        if (l > 0) wg::load_pairs<NA>(static_cast<const bf16*>(c.h[l - 1]), N, c0, cols, row0, n_rows, f, sv);\n"
-        "        wg::zero(d);\n        wg::issue(d, a_in, K, ring, b_off);",
-        "        wg::zero(d);\n        wg::issue(d, a_in, K, ring, b_off);\n"
-        "        if (l > 0) wg::load_pairs<NA>(static_cast<const bf16*>(c.h[l - 1]), N, c0, cols, row0, n_rows, f, sv);")]),
+        "      if (l > 0) wg::load_pairs<NA>(static_cast<const bf16*>(c.h[l - 1]), N, c0, cols, row0, n_rows, f, sv);\n"
+        "      wg::zero(d);\n      wg::issue(d, a_in, K, ring, b_off);",
+        "      wg::zero(d);\n      wg::issue(d, a_in, K, ring, b_off);\n"
+        "      if (l > 0) wg::load_pairs<NA>(static_cast<const bf16*>(c.h[l - 1]), N, c0, cols, row0, n_rows, f, sv);")]),
     "chain: no column sums": ("mlp_chain_bwd.cu", [("wg::col_sums<NA>(", "if (false) wg::col_sums<NA>(")]),
     "chain: no act'": ("mlp_chain_bwd.cu", [("if (has_act(p, l)) mlp::mul_act_grad(", "if (false) mlp::mul_act_grad(")]),
-    "chain: no head partials": ("mlp_chain_bwd.cu", [("  for (int q = t; q < dim * latent; q += NT) {",
+    "chain: no head partials": ("mlp_chain_bwd.cu", [("  for (int q = t; q < (dim + 3) / 4 * latent; q += NT) {",
                                                       "  for (int q = t; false; q += NT) {")]),
     "chain: no head top d": ("mlp_chain_bwd.cu", [("for (int o = 0; o < hd.dim; ++o) {", "for (int o = 0; o < 0; ++o) {")]),
+    "chain: one block of four warpgroups per SM": ("mlp_chain_bwd.cu", [(
+        "L.tiles * num_chains <= out.sms, L.per_sm);", "true, L.per_sm);")]),
+    "chain: the heads' top act' from device memory": ("mlp_chain_bwd.cu", [(
+        "wg::tile_pairs<NA>(lat, c0, cols, f, sv);  // the latent, already in its tile",
+        "wg::load_pairs<NA>(static_cast<const bf16*>(c.h[num_layers - 1]), top, c0, cols, row0, n_rows, f, sv);")]),
 }
 
 
@@ -138,6 +144,8 @@ def _cases(torch, device):
             torch.randn(24576, 1, generator=gen).to(device), torch.randn(24576, 1, generator=gen).to(device), 0.2, 1.0,
             0.5, None, "elu", True)
     cases["K9s 2 x 24576"] = lambda: fp._loss_bwd(*loss)
+    bss = [[v(b) for b in MLP[1:]] for _ in range(2)]
+    cases["K9m 2 x 24576"] = lambda: fp._ppo_step(xs, bss, wss, *loss[3:])[:2]
     x1, g1, w1, h1 = chain(MLP, 24576, 1)
     cases["K1b ELU dX 24576"] = lambda: fm._launch_bwd(x1, g1, w1, h1, "elu", True, False, "K1b")
     xh, gh, wh, hh = chain(HEAD, 65536, 1)
@@ -147,7 +155,8 @@ def _cases(torch, device):
     return cases
 
 
-KERNELS = {"pre": "3fbp14pre_bwd_kernel", "post": "3fbb15post_bwd_kernel", "chain": "chain_bwd_kernel"}
+KERNELS = {"pre": "3fbp14pre_bwd_kernel", "post": "3fbb15post_bwd_kernel", "chain": "chain_bwd_kernel",
+           "step": "ppo_step_kernel"}
 
 
 def _usage(log: str, symbol: str) -> str:
@@ -197,7 +206,7 @@ def _variant(stem: str, path: Path):
 
 
 def _phase_ms(chip_smoke, fn) -> tuple[float, float, str]:
-    found, _ = chip_smoke._profiled_kernels(fn, ("dw", "mlpb", "fbb", "fbp", "mlp"), 10, 3)
+    found, _ = chip_smoke._profiled_kernels(fn, ("dw", "mlpb", "fbb", "fbp", "mlpm"), 10, 3)
     phase1 = [k for k in found if not chip_smoke._in_namespaces(k[0], ("dw",))]
     phase2 = [k for k in found if chip_smoke._in_namespaces(k[0], ("dw",))]
     ms = [sum(us / count for _, count, us in phase) / 1e3 for phase in (phase1, phase2)]
@@ -231,7 +240,7 @@ def main(argv: list[str]) -> int:
         usage[name] = _usage(log, KERNELS[name.split(":")[0]])
     print(f"[build] {time.perf_counter() - start:.1f} s, {len(builds)} variants")
     for kind, symbol in KERNELS.items():
-        stem = "mlp_chain_bwd" if kind == "chain" else "fused_block"
+        stem = "mlp_chain_bwd" if kind in ("chain", "step") else "fused_block"
         print(f"  {kind}: {_usage((build.BUILD_DIR / f'{stem}.log').read_text(), symbol)}")
     cases = _cases(torch, torch.device("cuda", 0))
     for name, fn in cases.items():

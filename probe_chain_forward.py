@@ -35,11 +35,11 @@ HEADERS = ("hopper_wg.cuh", "mlp_chain.cuh")
 SOURCE = "mlp_chain_fwd.cu"
 
 _EPILOGUE = (
-    "        wg::add_bias_round(d, bias + c0, cols, f);\n",
-    "        if (dst != nullptr && keep_z) wg::store_bf16(d, cols, dst, N, c0, row0, n_rows, f);\n",
-    "        if (apply_act) mlp::activate(d, act);\n",
-    "        if (dst != nullptr && !keep_z) wg::store_bf16(d, cols, dst, N, c0, row0, n_rows, f);\n",
-    "        if (to_smem) wg::to_tile(d, max(0, min(NW, wg::pad64(N) - c0)), next, f, c0);\n",
+    "      wg::add_bias_round(d, bias + c0, cols, f);\n",
+    "      if (dst != nullptr && keep_z) wg::store_bf16(d, cols, dst, N, c0, row0, n_rows, f);\n",
+    "      if (apply_act) mlp::activate(d, act);\n",
+    "      if (dst != nullptr && !keep_z) wg::store_bf16(d, cols, dst, N, c0, row0, n_rows, f);\n",
+    "      if (to_smem) wg::to_tile(d, max(0, min(NW, wg::pad64(N) - c0)), next, f, c0);\n",
 )
 _ELU = "case 1: return fmaxf(z, 0.f) + (expf(fminf(z, 0.f)) - 1.f);"
 # (substitutions, images streamed where the plan keeps them resident)
@@ -51,8 +51,8 @@ VARIANTS = {
     "elu with __expf": ([(_ELU, _ELU.replace("expf", "__expf"))], False),
     "elu as a select": ([(_ELU, "case 1: return z > 0.f ? z : expf(fminf(z, 0.f)) - 1.f;")], False),
     "one warpgroup a block": ([("return per_sm == 1 ? 4 : 2;", "return 1;")], False),
-    "streamed, never resident": ([("      if (pass == 0 && fit >= L.per_tile) L.slots = L.per_tile;",
-                                   "      if (false) L.slots = L.per_tile;")], True),
+    "streamed, never resident": ([("      if (pass == 0 && fit >= per_tile) return per_tile;",
+                                   "      if (false) return per_tile;")], True),
 }
 
 

@@ -1568,3 +1568,136 @@ def test_next_token_plan_matches_the_python_mirror(cuda):
                 for window in (0, 16, 100):
                     q = torch.empty(3, 4, t_len, dim, dtype=dtype, device=cuda)
                     assert la.next_card_plan(q, window) == la.next_plan(t_len, window, dim, dtype)
+
+
+# -- K3f (lane window attention forward), redesigned -----------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dim", [8, 16, 32, 64])
+@pytest.mark.parametrize("t_len", [1, 5, 24, 128])
+def test_lane_fwd_kernel_matches_plain(cuda, t_len, dim, dtype):
+    """K3f, primal and saving the probabilities, against ``lane_fwd_plain``
+    at a ragged N (37 environments: not a multiple of a block's problems),
+    with and without ALiBi, a third of the environments with no valid key
+    (exactly 0), W = 16 (the band's scores in one pass) and W = 40 (two
+    passes); two calls give the same bits."""
+    from cusrl_tpu_torch.nn.kernels import lane_attention as la
+
+    gen = torch.Generator().manual_seed(t_len * 100 + dim)
+    for window, slopes in ((16, None), (40, (0.5, 0.25, 0.125, 0.0625))):
+        q, k, v, *masks = _lane_inputs(gen, cuda, 37, t_len=t_len, window=window, dim=dim, invalid=True)
+        q, k, v = (t.to(dtype) for t in (q, k, v))
+        for save in (False, True):
+            out, probs = la._launch_fwd(q, k, v, *masks, window, slopes, save)
+            ref, ref_probs = la.lane_fwd_plain(q, k, v, *masks, window, slopes, save)
+            torch.testing.assert_close(out, ref, **ATT_TOL)
+            assert (probs is None) != save
+            if save:
+                torch.testing.assert_close(probs, ref_probs, **ATT_TOL)
+                assert not probs[: 37 // 3].any()
+            assert not out[: 37 // 3].any()
+            again, again_probs = la._launch_fwd(q, k, v, *masks, window, slopes, save)
+            assert torch.equal(out, again) and (not save or torch.equal(probs, again_probs))
+
+
+def test_lane_fwd_kernel_reads_the_main_paths_views(cuda):
+    """The operands as the transformer hands them over (q a head-split view
+    of a projection, q_seg a transposed view): no copy, the same bits as on
+    contiguous copies, one launch a call; at the update's N = 256 (saving)
+    and the value pass's N = 1,024 (primal) against the plain version."""
+    from cusrl_tpu_torch.nn.kernels import lane_attention as la
+
+    gen = torch.Generator().manual_seed(8)
+    heads, t_len, window, dim = 4, 24, 16, 32
+    for n, save in ((256, True), (1024, False)):
+        _, k, v, q_seg, k_seg, k_valid = _lane_inputs(gen, cuda, n)
+        proj = torch.randn(n, t_len, 3 * heads * dim, generator=gen).to(cuda, torch.bfloat16)
+        q = proj[..., :heads * dim].reshape(n, t_len, heads, dim).transpose(1, 2)
+        q_seg_t = q_seg.T.contiguous().T
+        p, keep = la._fwd_params(q, k, v, q_seg_t, k_seg, k_valid, window, None)
+        assert (p.q, p.q_seg) == (q.data_ptr(), q_seg_t.data_ptr())
+        la.reset_launch_counts()
+        out, probs = la._launch_fwd(q, k, v, q_seg_t, k_seg, k_valid, window, None, save)
+        assert la.LAUNCHES["K3f"] == 1
+        same, same_probs = la._launch_fwd(q.contiguous(), k, v, q_seg, k_seg, k_valid, window, None, save)
+        assert torch.equal(out, same) and (not save or torch.equal(probs, same_probs))
+        ref, ref_probs = la.lane_fwd_plain(q, k, v, q_seg, k_seg, k_valid, window, None, save)
+        torch.testing.assert_close(out, ref, **ATT_TOL)
+        if save:
+            torch.testing.assert_close(probs, ref_probs, **ATT_TOL)
+
+
+def test_lane_fwd_plan_matches_the_python_mirror(cuda):
+    from cusrl_tpu_torch.nn.kernels import lane_attention as la
+
+    for t_len in (1, 24, 128):
+        for dim in (8, 32, 64):
+            for dtype in (torch.bfloat16, torch.float32):
+                for window in (0, 16, 31, 32, 100):
+                    q = torch.empty(3, 4, t_len, dim, dtype=dtype, device=cuda)
+                    assert la.fwd_card_plan(q, window) == la.fwd_plan(t_len, window, dim, dtype)
+
+
+# -- K9m (the single-launch PPO step), redesigned ---------------------------------
+
+
+def test_ppo_step_plan_matches_the_python_mirror(cuda):
+    """``mlpm::plan`` against ``weight_images.ppo_step_plan`` (the images
+    the wrapper packs, the grid the schedule assumes), within the card's
+    shared memory."""
+    from cusrl_tpu_torch.nn.kernels import weight_images as wi
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for widths in (WIDTHS, (128, 512, 128), (128, 128), (16, 16), (512, 16), (16, 64, 32), EIGHT_LAYERS):
+        for rows in (1, 1000, 24576, 65573):
+            for head_dim in (1, 12, 64):
+                plan = fm.ppo_step_plan(widths, rows, head_dim)
+                assert plan == wi.ppo_step_plan(tuple(widths), rows, sms, head_dim)
+                assert plan["per_sm"] * (plan["smem_bytes"] + 1024) <= 233472
+
+
+def _mono_case(gen, device, widths, rows, activation):
+    (wa, ba), (wc, bc) = _params(gen, device, widths), _params(gen, device, widths)
+    heads = [((torch.randn(d, widths[-1], generator=gen) * 0.2).to(device),
+              (torch.randn(d, generator=gen) * 0.1).to(device)) for d in (A_DIM, 1)]
+    (wm, bm), (wv, bv) = heads
+    xs = [torch.tanh(torch.randn(rows, widths[0], generator=gen)).to(device) for _ in range(2)]
+    with torch.no_grad():
+        mean = fm.mlp_chain_fwd_plain(xs[0], wa, ba, activation, True, False)[0].float() @ wm.T + bm
+    std, rows_data = _ppo_rows(gen, device, rows, mean)
+    return xs, (wa, ba, wc, bc), (wm, bm, wv, bv, std, *rows_data)
+
+
+@pytest.mark.parametrize("widths,activation,rows", [
+    (WIDTHS, "elu", 24576), (WIDTHS, "elu", 1000), ((16, 64, 32), "relu", 24576 + 17), ((128, 512, 128), "tanh", 130)])
+@pytest.mark.parametrize("loss_clip", [None, 0.2])
+def test_mono_kernel_gives_splits_bits(cuda, widths, activation, rows, loss_clip):
+    """K9m runs K2f's forward tile and K9s's heads, loss and backward tile in
+    one kernel: the activations it writes, every gradient and the four loss
+    sums equal K2f + K9s's bit for bit (the zoo's widths, one block per SM;
+    narrow chains, two blocks per SM and a ragged last tile); and a second
+    call repeats them."""
+    from cusrl_tpu_torch.nn.kernels import fused_ppo_step as fp
+
+    gen = torch.Generator().manual_seed(rows + len(widths))
+    xs, (wa, ba, wc, bc), tail = _mono_case(gen, cuda, widths, rows, activation)
+    tail = (*tail, 0.2, 1.0, 0.5, loss_clip, activation, True)
+    got, sums, saved = fp._ppo_step(xs, [ba, bc], [wa, wc], *tail)
+    again, again_sums, _ = fp._ppo_step(xs, [ba, bc], [wa, wc], *tail)
+    outs, hids, _ = fm._launch_fwd(xs, [wa, wc], [ba, bc], activation, True, True, "K2f")
+    split_saved = [[*h, o] for h, o in zip(hids, outs)]
+    split, split_sums = fp._loss_bwd(xs, split_saved, [wa, wc], *tail)
+    torch.cuda.synchronize()
+    for hs, ss in zip(saved, split_saved):
+        for h, s in zip(hs, ss):
+            assert torch.equal(h, s)
+    flat = lambda g: [*g[0], *g[1], *g[2], *g[3], *g[4:]]
+    for a, b, s in zip(flat(got), flat(again), flat(split)):
+        assert torch.equal(a, b) and torch.equal(a, s)
+    assert torch.equal(sums, split_sums) and torch.equal(sums, again_sums)
+    want, ref_sums = fp.ppo_loss_bwd_plain(xs, saved, [wa, wc], *tail)
+    for a, b in zip(flat(got), flat(want)):
+        a, b = a.float(), b.float()
+        assert torch.isfinite(a).all() and (a - b).abs().max() <= 3e-2 * b.abs().max()
+    assert ((sums - ref_sums).abs() <= 1e-4 * ref_sums.abs().clamp(min=1.0)).all(), (sums, ref_sums)

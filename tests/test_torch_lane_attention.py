@@ -69,6 +69,31 @@ def test_lane_forward_matches_pallas(use_alibi, t_len, window):
     np.testing.assert_allclose(got.numpy(), np.asarray(expected), **TOL)
 
 
+@pytest.mark.parametrize("invalid_rows", [False, True])
+@pytest.mark.parametrize("use_alibi", [False, True])
+@pytest.mark.parametrize("save", [False, True])
+def test_lane_forward_variants_match_the_pallas_kernel(save, use_alibi, invalid_rows):
+    """K3f's plain version, primal and saving the probabilities, against
+    ``_lane_pallas_fwd`` in interpret mode (its output and, saving, its
+    weights ``[H, W+1, T8, N_pad]`` in the port's ``[N, H, T, W+1]``
+    layout), with and without ALiBi, with rows that see no valid key (0)."""
+    t_len, window = 7, 5
+    arrays = _make(t_len=t_len, window=window, seed=4 + invalid_rows, invalid_rows=invalid_rows)
+    slopes = _slopes(use_alibi)
+    q, k, v, q_seg, k_seg, k_valid = _jax(arrays)
+    n = q.shape[0]
+    em = jla._to_lane_layout(q, k, v, q_seg, k_seg, k_valid, window, 128)[:6]
+    out_em, weights = jla._lane_pallas_fwd(*em, window, 1.0 / np.sqrt(q.shape[-1]), slopes, 128, True, save)
+    got, probs = tla.lane_fwd_plain(*_torch(arrays), window, slopes, save)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jnp.transpose(out_em, (3, 0, 2, 1))[:n, :, :t_len]), **TOL)
+    assert (probs is None) != save and (weights is None) != save
+    if save:
+        np.testing.assert_allclose(probs.numpy(), np.asarray(jnp.transpose(weights, (3, 0, 2, 1))[:n, :, :t_len]),
+                                   **TOL)
+    if invalid_rows:
+        assert not got[0].any() and (probs is None or not probs[0].any())
+
+
 @pytest.mark.parametrize("use_alibi", [False, True])
 def test_lane_gradients_match_pallas(use_alibi):
     window = 4
