@@ -35,10 +35,14 @@ without printing a result:
    2's, the pack of the transposed weights included), both phases' bounds,
    phase 2's row split, for the wgmma phase 1 (K1b, K2b, K8b, K9s, K4/K5
    pre and post b, K9m) its plan, registers and spills, and two calls on the
-   same inputs compared bit for bit; for K3f and K6 their device time (the
-   profiler's) beside their events' time, their wrapper's host time per call
-   and their launch plan; then the redesign queue (K3f saving and primal,
-   K3b, K6, K9m, K4/K5 pre b) and the rows still to be ordered (K1f with the
+   same inputs compared bit for bit; for K3f, K3b, K6 and K7f their device
+   time (the profiler's) beside their events' time, their wrapper's host
+   time per call, their launch plan and every instance's registers and
+   spills, K3b's bf16 outputs against its fp32 ones cast and K3b and K7f on
+   two calls bit for bit, K3b and K7f on the main path's views (one device
+   event a call), and the device time of TL's recomputing K7 backward;
+   then the redesign queue (K3f saving and primal, K3b, K6, K7f at 256 and
+   1,024 environments, K9m, K4/K5 pre b) and the rows still to be ordered (K1f with the
    gelu FFN at 6,144 and 1,024 rows and on TL's ELU head at 65,536 and 1,024,
    K4 post f at 65,536, K4 pre f primal at 24,576, K5 pre f) beside their
    library calls in one block, ten calls each; for the fused
@@ -56,7 +60,8 @@ without printing a result:
    Functions) against the plain versions at the shapes their paths give
    them (for path T ``fused_mlp`` with the gelu FFN and the ELU head; for TJ
    ``fused_mlp_pair`` with input gradients; ``lane_next_token_attention`` on
-   the transformer's views, one device event a call): outputs, losses and every
+   the transformer's views, one device event a call; the lane wrapper's
+   backward one K3b launch and no cast): outputs, losses and every
    ``.grad`` after ``backward``, one launch per call, the residual's
    cotangent reaching the pre op in fp32, an activation the fused block
    does not take raising on the card; and the fused step route against
@@ -90,7 +95,7 @@ without printing a result:
    name, phase 2 of the backwards listed whatever its rank, the fused
    block's and the MLP chain's forward kernels and phase-1 backward kernels
    (``fbp::``, ``fbb::``, ``mlpb::``, K9m's ``mlpm::``) by name with their
-   sums, and K3f's share of the device's busy time);
+   sums, and the share of the device's busy time of K3f, K3b, K6 and K7f);
 8. the ``nvidia-smi`` line, the ``kernels`` JSON line (each kernel's
    launches from the path that runs it; ``not_ported`` is empty), and the
    final ``{"ok": true, ...}`` line.
@@ -232,10 +237,11 @@ def _in_namespaces(key: str, namespaces) -> bool:
     return any(f"{ns}::" in key.split("(")[0] or key.startswith(f"_ZN{len(ns)}{ns}") for ns in namespaces)
 
 
-def _profiled_kernels(fn, namespaces, repeats: int, warmup: int) -> tuple[list, int]:
+def _profiled_kernels(fn, namespaces, repeats: int, warmup: int) -> tuple[list, int, float]:
     """``(name, launches, device us)`` of the CUDA kernels of ``namespaces``
     over ``repeats`` calls of ``fn`` under torch.profiler after ``warmup``
-    calls, and the count of every device event the session recorded."""
+    calls, then the count and the device us of every device event the
+    session recorded (kernels of any name, copies, fills)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -246,14 +252,15 @@ def _profiled_kernels(fn, namespaces, repeats: int, warmup: int) -> tuple[list, 
         for _ in range(repeats):
             fn()
         torch.cuda.synchronize()
-    found, device_events = [], 0
+    found, device_events, device_us = [], 0, 0.0
     for event in prof.key_averages():
         if event.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(event, "self_device_time_total", 0) or getattr(event, "self_cuda_time_total", 0)
             device_events += event.count
+            device_us += us
             if _in_namespaces(event.key, namespaces):
-                us = getattr(event, "self_device_time_total", 0) or getattr(event, "self_cuda_time_total", 0)
                 found.append((event.key, event.count, us))
-    return found, device_events
+    return found, device_events, device_us
 
 
 def _queued_events_ms(fn, repeats: int = 10, warmup: int = 3) -> float:
@@ -298,7 +305,7 @@ def _host_ms(fn, repeats: int = 20, warmup: int = 3) -> float:
 
 def time_redesign_queue(results: dict) -> None:
     """The kernels of the redesign queue (K3f saving and primal, K3b, K6,
-    K9m, K4/K5 pre b) and the rows that wait to be ordered (K1f with the gelu
+    K7f at TL's minibatch and primal, K9m, K4/K5 pre b) and the rows that wait to be ordered (K1f with the gelu
     FFN at 6,144 and 1,024 rows, K1f on TL's ELU head at 65,536 and 1,024, K4
     post f at 65,536 saving, K4 pre f primal at 24,576, K5 pre f) each beside
     its library call, timed together in this one block: CUDA events, median
@@ -359,7 +366,7 @@ def _backward_phases(name: str, fn, rows: int, chains: int, dw_shapes, bytes_per
     # run's first kernel, so counts may fall short of ``repeats``).
     device_events = 0
     for _ in range(PROFILE_ATTEMPTS):
-        found, seen = _profiled_kernels(fn, ("dw", "mlpb", "fbb", "fbp", "mlpm"), repeats, warmup)
+        found, seen, _ = _profiled_kernels(fn, ("dw", "mlpb", "fbb", "fbp", "mlpm"), repeats, warmup)
         device_events += seen
         kernels = [[k for k in found if not _in_namespaces(k[0], ("dw",))],
                    [k for k in found if _in_namespaces(k[0], ("dw",))]]
@@ -1287,11 +1294,12 @@ def _dense_mask(q_seg, k_seg, k_valid, window: int, first: int):
     return (band[None] & (k_seg[:, None, :] == q_seg[:, :, None]) & (k_valid[:, None, :] > 0))[:, None]
 
 
-def _lane_work(kind: str, q, k, masks, window: int, save: bool = False):
+def _lane_work(kind: str, q, k, masks, window: int, save: bool = False, out_bytes: int = 4):
     """(FLOP, bytes) of K3f / K3b / K6 on these inputs: each input read once,
-    each output written once; FLOP from the (query, key) pairs this data
-    makes valid (two per multiply-add: QK and PV forward, four products
-    backward)."""
+    each output written once (K3b's dq, dk and dv at ``out_bytes`` each: 2
+    for the bf16 variant the autograd wrapper takes); FLOP from the (query,
+    key) pairs this data makes valid (two per multiply-add: QK and PV
+    forward, four products backward)."""
     q_seg, k_seg, k_valid = masks
     heads, dim = q.shape[1], q.shape[-1]
     mask_bytes = 4 * (q_seg.numel() + k_seg.numel() + k_valid.numel())
@@ -1304,7 +1312,7 @@ def _lane_work(kind: str, q, k, masks, window: int, save: bool = False):
     if kind == "K3f":
         nbytes = 2 * (q.numel() + 2 * k.numel()) + mask_bytes + 4 * q.numel() + (4 * probs if save else 0)
         return 4 * dim * pairs, nbytes
-    nbytes = 2 * (q.numel() + 2 * k.numel()) + 4 * probs + 4 * q.numel() + 4 * (q.numel() + 2 * k.numel())
+    nbytes = 2 * (q.numel() + 2 * k.numel()) + 4 * probs + 4 * q.numel() + out_bytes * (q.numel() + 2 * k.numel())
     return 8 * dim * pairs, nbytes
 
 
@@ -1326,13 +1334,58 @@ def _check_attention(name, got, want) -> float:
     return err
 
 
+def _band_kernel_usage(stem: str, kernel: str) -> dict:
+    """``{"bf16 D=32 small": (registers, spill store bytes, spill load
+    bytes), ...}``: ptxas's usage of every instance of ``kernel`` (a band
+    attention kernel of ``csrc/<stem>.cu``) from the build log."""
+    import re
+
+    usage = {}
+    for symbol, regs in _ptxas_usage(stem).items():
+        found = re.search(rf"{kernel}I(13__nv_bfloat16|f)Li(\d+)E(?:Lb(\d)E)?", symbol)
+        if found:
+            dtype, dim, small = found.groups()
+            tag = f"{'bf16' if dtype != 'f' else 'fp32'} D={dim}" + {None: "", "1": " small", "0": " large"}[small]
+            usage[tag] = regs
+    return dict(sorted(usage.items()))
+
+
+def _print_usage(name: str, usage: dict) -> dict:
+    """Prints every instance's registers and spills; returns the main
+    path's (bf16, D = 32, the instance for small blocks where there are
+    two) as ``{"regs": .., "spills": "store/load B"}``."""
+    print(f"    {name} ptxas: " + "; ".join(f"{tag} {r} registers, spills {st}/{ld} B"
+                                          for tag, (r, st, ld) in usage.items()))
+    main = usage.get("bf16 D=32 small", usage.get("bf16 D=32"))
+    return {} if main is None else {"regs": main[0], "spills": f"{main[1]}/{main[2]}"}
+
+
+def _only_kernel(name: str, fn, symbol: str) -> None:
+    """Every device event of a profiled run of ten calls of ``fn`` (kernels,
+    copies, casts, fills) must be the kernel ``symbol``'s; a session that
+    records none is profiled again."""
+    for _ in range(PROFILE_ATTEMPTS):
+        found, seen, _ = _profiled_kernels(fn, ("",), 10, 3)
+        if seen:
+            break
+    own = sum(count for key, count, _ in found if symbol in key)
+    print(f"    {name}: device events over ten calls: {seen}, {symbol}'s {own} "
+          f"({'; '.join(f'{key.split(chr(40))[0]} x{count}' for key, count, _ in found) or 'not measured'})")
+    if seen != own:
+        raise AssertionError(f"{name} ran {found}, not {symbol} alone")
+
+
 def check_lane_kernels(device) -> dict:
     """K3f (primal and saving the probabilities), K3b and K6 against their
     plain versions at the path's shapes (the update's 256 environments, the
     value and KL passes' 1,024) and a ragged one (130 environments, T = 5,
-    W = 4, ALiBi, a third of the rows with no valid key), then timed with
-    the plain version and a masked ``scaled_dot_product_attention`` (for K3b
-    its autograd) as the yardstick the port never calls."""
+    W = 4, ALiBi, a third of the rows with no valid key), K3b's bf16 outputs
+    against its fp32 ones cast and two calls bit for bit; K3b and K6 on the
+    main path's views and the autograd wrapper's backward, each one device
+    event a call; then each timed with the plain version and a masked
+    ``scaled_dot_product_attention`` (for K3b its autograd) as the yardstick
+    the port never calls, with its device time, host time, plan, registers
+    and spills."""
     import torch
     import torch.nn.functional as F
 
@@ -1356,9 +1409,18 @@ def check_lane_kernels(device) -> dict:
             if slopes is not None and out[: n // 3].any():
                 raise AssertionError("K3f: a row without a valid key is not exactly 0")
         g = torch.randn(q.shape, generator=gen).to(device)
-        for name, a, b in zip(("dq", "dk", "dv"), la._launch_bwd(q, k, v, ref_probs, g, *masks, window),
-                              la.lane_bwd_plain(q, k, v, ref_probs, g, window)):
+        got = la._launch_bwd(q, k, v, ref_probs, g, *masks, window)
+        for name, a, b in zip(("dq", "dk", "dv"), got, la.lane_bwd_plain(q, k, v, ref_probs, g, window)):
             errs["K3b"].append(check(f"K3b {name} {tag}", a, b))
+        rounded = la._launch_bwd(q, k, v, ref_probs, g, *masks, window, torch.bfloat16)
+        again = la._launch_bwd(q, k, v, ref_probs, g, *masks, window)
+        if not all(r.dtype == torch.bfloat16 and torch.equal(r, a.to(torch.bfloat16)) for r, a in zip(rounded, got)):
+            raise AssertionError(f"K3b {tag}: the bf16 outputs are not the fp32 outputs cast")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"K3b {tag}: two calls gave different bits")
+        if slopes is not None and any(a[: n // 3].any() for a in got):
+            raise AssertionError("K3b: an environment without a valid key has a gradient that is not exactly 0")
+        print(f"    K3b {tag}: bf16 outputs are the fp32 outputs cast, bit for bit; two calls, the same bits")
         k_self, v_self = (torch.randn(q.shape, generator=gen).to(device, torch.bfloat16) for _ in range(2))
         errs["K6"].append(check(f"K6 out {tag}", la._launch_next(q, k_self, v_self, k, v, *masks, window, slopes),
                                 la.next_token_plain(q, k_self, v_self, k, v, *masks, window, slopes)))
@@ -1387,6 +1449,24 @@ def check_lane_kernels(device) -> dict:
               f"{'ok' if err <= limit else 'MISMATCH'}")
         if err > limit:
             raise AssertionError(f"lane wrapper {name}.grad disagrees with autograd of the plain version")
+    # The wrapper's backward writes the inputs' dtype itself: no cast kernel.
+    again = la.lane_window_attention(*leaves, *masks, window=T_WINDOW)
+    _only_kernel("lane_window_attention backward (autograd.grad)",
+                 lambda: torch.autograd.grad(again, leaves, g, retain_graph=True), "lane_bwd_kernel")
+
+    print("[kernels] K3b on the main path's views, N=256: q a head-split view, the cotangent a transposed view")
+    _, k, v, *masks = _lane_inputs(gen, device, T_MB_ENVS)
+    proj = torch.randn(T_MB_ENVS, STEPS, 3 * T_EMBED, generator=gen).to(device, torch.bfloat16)
+    q = proj[..., :T_EMBED].reshape(T_MB_ENVS, STEPS, T_HEADS, T_HEAD_DIM).transpose(1, 2)
+    g = torch.randn(STEPS * T_MB_ENVS, T_EMBED, generator=gen).to(device)
+    g = g.view(STEPS, T_MB_ENVS, T_HEADS, T_HEAD_DIM).permute(1, 2, 0, 3)
+    _, probs = la.lane_fwd_plain(q, k, v, *masks, T_WINDOW, None, True)
+    views = la._launch_bwd(q, k, v, probs, g, *masks, T_WINDOW, torch.bfloat16)
+    copies = la._launch_bwd(q.contiguous(), k, v, probs, g.contiguous(), *masks, T_WINDOW, torch.bfloat16)
+    if not all(torch.equal(a, b) for a, b in zip(views, copies)):
+        raise AssertionError("K3b on the main path's views gave other bits than on contiguous copies")
+    _only_kernel("K3b on these views", lambda: la._launch_bwd(q, k, v, probs, g, *masks, T_WINDOW, torch.bfloat16),
+                 "lane_bwd_kernel")
 
     print("[wrappers] lane_next_token_attention against its plain version, N=1024, on the main path's views")
     q, k, v, q_seg, k_seg, k_valid = _lane_inputs(gen, device, T_ENVS)
@@ -1403,19 +1483,13 @@ def check_lane_kernels(device) -> dict:
     if launched != {"K3f": 0, "K3b": 0, "K6": 1}:
         raise AssertionError(f"lane_next_token_attention launched {launched}")
     errs["K6"].append(check("wrapper out", out, la.next_token_plain(q, k_self, v_self, k, v, *masks, T_WINDOW)))
-    # Every device event of a profiled run of ten calls (kernels, copies,
-    # fills) must be K6's; a session that records none is profiled again.
-    for _ in range(PROFILE_ATTEMPTS):
-        found, seen = _profiled_kernels(
-            lambda: la.lane_next_token_attention(q, k_self, v_self, k, v, *masks, window=T_WINDOW), ("",), 10, 3)
-        if seen:
-            break
-    k6_events = sum(count for name, count, _ in found if "lane_next_kernel" in name)
-    print(f"    device events over ten calls on these views: {seen}, K6's {k6_events} "
-          f"({'; '.join(f'{name.split(chr(40))[0]} x{count}' for name, count, _ in found) or 'not measured'})")
-    if seen != k6_events:
-        raise AssertionError(f"lane_next_token_attention ran {found} on the main path's views, not K6 alone")
+    _only_kernel("lane_next_token_attention on these views",
+                 lambda: la.lane_next_token_attention(q, k_self, v_self, k, v, *masks, window=T_WINDOW),
+                 "lane_next_kernel")
 
+    usage = {"K3f": _print_usage("K3f", _band_kernel_usage("lane_attention", "lane_fwd_kernel")),
+             "K3b": _print_usage("K3b", _band_kernel_usage("lane_attention", "lane_bwd_kernel")),
+             "K6": _print_usage("K6", _band_kernel_usage("lane_attention", "lane_next_kernel"))}
     results = {}
     for key, n in (("K3f", T_MB_ENVS), ("K3f primal", T_ENVS), ("K3b", T_MB_ENVS), ("K6", T_ENVS)):
         q, k, v, *masks = _lane_inputs(gen, device, n)
@@ -1438,7 +1512,8 @@ def check_lane_kernels(device) -> dict:
         elif key == "K3b":
             _, probs = la.lane_fwd_plain(q, k, v, *masks, T_WINDOW, None, True)
             g = torch.randn(q.shape, generator=gen).to(device)
-            kernel = functools.partial(la._launch_bwd, q, k, v, probs, g, *masks, T_WINDOW)
+            # The variant the autograd wrapper launches: bf16 gradients.
+            kernel = functools.partial(la._launch_bwd, q, k, v, probs, g, *masks, T_WINDOW, torch.bfloat16)
             k_ms = _time_ms(kernel)
             p_ms = _time_ms(lambda: la.lane_bwd_plain(q, k, v, probs, g, T_WINDOW))
             lq, lk, lv = (t.clone().requires_grad_() for t in (q, k, v))
@@ -1447,7 +1522,12 @@ def check_lane_kernels(device) -> dict:
             library = functools.partial(torch.autograd.grad, lib_out, (lq, lk, lv), gb, retain_graph=True)
             l_ms = _time_ms(library)
             QUEUE[key, ""] = (kernel, library)
-            flops, nbytes = _lane_work("K3b", q, k, masks, T_WINDOW)
+            flops, nbytes = _lane_work("K3b", q, k, masks, T_WINDOW, out_bytes=2)
+            extra = _forward_device_ms("K3b", kernel, "lane", 1)
+            extra["host_ms"] = _host_ms(kernel)
+            extra["plan"] = la.bwd_card_plan(q, T_WINDOW)
+            print(f"    K3b N={n}: device_ms={_ms(extra['device_ms'])} (torch.profiler) of the events' {k_ms:.4f} "
+                  f"ms; the wrapper's host time {extra['host_ms']:.4f} ms a call; plan {extra['plan']}")
         else:
             k_self, v_self = (torch.randn(q.shape, generator=gen).to(device, torch.bfloat16) for _ in range(2))
             kernel = functools.partial(la._launch_next, q, k_self, v_self, k, v, *masks, T_WINDOW, None)
@@ -1470,10 +1550,11 @@ def check_lane_kernels(device) -> dict:
         bound, by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
         print(f"    {key} N={n}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
               f"bound_ms={bound:.4f} ({by}; {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP fp32)")
+        out_type = "bf16 gradients out (the autograd wrapper's)" if key == "K3b" else "fp32 out"
         results[key] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=by, library_ms=l_ms,
-                            shape=f"N={n} H={T_HEADS} T={STEPS} W={T_WINDOW} D={T_HEAD_DIM}, bf16 in, fp32 out")
-        if key != "K3b":
-            results[key].update(device_ms=extra["device_ms"], host_ms=extra["host_ms"], plan=extra["plan"])
+                            shape=f"N={n} H={T_HEADS} T={STEPS} W={T_WINDOW} D={T_HEAD_DIM}, bf16 in, {out_type}",
+                            device_ms=extra["device_ms"], host_ms=extra["host_ms"], plan=extra["plan"],
+                            **usage[key.split()[0]])
     primal = results.pop("K3f primal")
     results["K3f"].update({f"primal_{field}": primal[field]
                            for field in ("ms", "bound_ms", "plain_ms", "library_ms", "device_ms", "host_ms", "plan")})
@@ -1491,11 +1572,16 @@ def check_banded_kernels(device) -> dict:
     environments and the value and KL passes' 1,024, T = 256, W = 16), a
     ragged one (T = 200: the second query block half full; ALiBi, a third of
     the rows with no valid key, a half-valid cache) and a window wider than
-    the kernel's 128-query block (W = 160); timed with the plain version and
-    a masked ``scaled_dot_product_attention`` as the yardstick the port never
-    calls.  Then ``banded_window_attention`` under autograd at TL's
-    minibatch shape: output and q/k/v ``.grad`` against autograd of the
-    plain version, one K7f launch per call."""
+    the kernel's 128-query block (W = 160) and one too wide for its
+    tensor-core staging (W = 1,582: the lanes path, ALiBi, rows with no
+    valid key), each repeated bit for bit; then
+    ``banded_window_attention`` under autograd at TL's minibatch shape:
+    output and q/k/v ``.grad`` against autograd of the plain version, one K7f
+    launch per call; K7f on TL's views, one device event a call; the device
+    time of the recomputing backward (all its events); then K7f timed with
+    the plain version and a masked ``scaled_dot_product_attention`` as the
+    yardstick the port never calls, with its device time, host time, plan,
+    registers and spills."""
     import torch
     import torch.nn.functional as F
 
@@ -1510,7 +1596,7 @@ def check_banded_kernels(device) -> dict:
     print("[kernels] K7f banded window attention")
     slopes4 = (0.5, 0.25, 0.125, 0.0625)
     cases = ((T_MB_ENVS, TL_STEPS, T_WINDOW, None), (T_ENVS, TL_STEPS, T_WINDOW, None),
-             (130, 200, T_WINDOW, slopes4), (64, 70, 160, None))
+             (130, 200, T_WINDOW, slopes4), (64, 70, 160, None), (8, 70, 1582, slopes4))
     for n, t_len, window, slopes in cases:
         q, k, v, *masks = _lane_inputs(gen, device, n, t_len, window, invalid=slopes is not None)
         tag = f"N={n} T={t_len} W={window}{' alibi' if slopes else ''}"
@@ -1518,6 +1604,8 @@ def check_banded_kernels(device) -> dict:
         check(f"K7f out {tag}", out, ba.banded_plain(q, k, v, *masks, window, slopes))
         if slopes is not None and out[: n // 3].any():
             raise AssertionError("K7f: a row without a valid key is not exactly 0")
+        if not torch.equal(out, ba._launch_fwd(q, k, v, *masks, window, slopes)):
+            raise AssertionError(f"K7f {tag}: two calls gave different bits")
 
     print(f"[wrappers] banded_window_attention (autograd) against autograd of the plain version, N={T_MB_ENVS}")
     q, k, v, *masks = _lane_inputs(gen, device, T_MB_ENVS, TL_STEPS)
@@ -1543,21 +1631,55 @@ def check_banded_kernels(device) -> dict:
         if err > limit:
             raise AssertionError(f"banded wrapper {name}.grad disagrees with autograd of the plain version")
 
+    # TL's recomputing backward (banded_plain under autograd): all its device time.
+    grad_leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    again = ba.banded_window_attention(*grad_leaves, *masks, window=T_WINDOW)
+    backward = functools.partial(torch.autograd.grad, again, grad_leaves, g, retain_graph=True)
+    for _ in range(PROFILE_ATTEMPTS):
+        _, events, us = _profiled_kernels(backward, (), 10, 3)
+        if events:
+            break
+    bwd_ms = us / 10 / 1e3 if events else None
+    print(f"    TL's recomputing K7 backward, N={T_MB_ENVS} T={TL_STEPS}: device_ms={_ms(bwd_ms)} a call over its "
+          f"{events / 10:g} device events (torch.profiler, 10 calls)")
+
+    print("[kernels] K7f on TL's views, N=256: q a head-split view of the projection, q_seg a transposed view")
+    _, k, v, q_seg, k_seg, k_valid = _lane_inputs(gen, device, T_MB_ENVS, TL_STEPS)
+    proj = torch.randn(TL_STEPS * T_MB_ENVS, 3 * T_EMBED, generator=gen).to(device, torch.bfloat16)
+    q = proj[:, :T_EMBED].reshape(TL_STEPS, T_MB_ENVS, T_HEADS, T_HEAD_DIM).permute(1, 2, 0, 3)
+    q_seg_t = q_seg.T.contiguous().T
+    if not torch.equal(ba._launch_fwd(q, k, v, q_seg_t, k_seg, k_valid, T_WINDOW, None),
+                       ba._launch_fwd(q.contiguous(), k, v, q_seg, k_seg, k_valid, T_WINDOW, None)):
+        raise AssertionError("K7f on TL's views gave other bits than on contiguous copies")
+    _only_kernel("K7f on these views", lambda: ba._launch_fwd(q, k, v, q_seg_t, k_seg, k_valid, T_WINDOW, None),
+                 "banded_fwd_kernel")
+
+    usage = _print_usage("K7f (tensor cores)", _band_kernel_usage("banded_attention", "banded_fwd_kernel"))
+    _print_usage("K7f (lanes)", _band_kernel_usage("banded_attention", "banded_lanes_kernel"))
     timing = {}
     for n in (T_MB_ENVS, T_ENVS):
         q, k, v, *masks = _lane_inputs(gen, device, n, TL_STEPS)
         dense = _dense_mask(*masks, T_WINDOW, 0)
-        k_ms = _time_ms(lambda: ba._launch_fwd(q, k, v, *masks, T_WINDOW, None))
+        kernel = functools.partial(ba._launch_fwd, q, k, v, *masks, T_WINDOW, None)
+        k_ms = _time_ms(kernel)
         p_ms = _time_ms(lambda: ba.banded_plain(q, k, v, *masks, T_WINDOW))
         with torch.no_grad():
-            l_ms = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=dense))
+            library = functools.partial(F.scaled_dot_product_attention, q, k, v, attn_mask=dense)
+            l_ms = _time_ms(library)
+        QUEUE["K7f", "primal_" if n == T_ENVS else ""] = (kernel, library)
         flops, nbytes = _lane_work("K3f", q, k, masks, T_WINDOW)
         t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
         bound, by = max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+        extra = _forward_device_ms(f"K7f N={n}", kernel, "banded", 1)
+        extra["host_ms"] = _host_ms(kernel)
+        extra["plan"] = ba.fwd_card_plan(q, T_WINDOW)
+        print(f"    K7f N={n}: device_ms={_ms(extra['device_ms'])} (torch.profiler) of the events' {k_ms:.4f} ms; "
+              f"the wrapper's host time {extra['host_ms']:.4f} ms a call; plan {extra['plan']}")
         print(f"    K7f N={n}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} bound_ms={bound:.4f} "
               f"({by}; {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP fp32)")
-        timing[n] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound, bound_by=by)
-    result = dict(timing[T_MB_ENVS], max_abs_err=max(errs),
+        timing[n] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound, bound_by=by,
+                         device_ms=extra["device_ms"], host_ms=extra["host_ms"], plan=extra["plan"])
+    result = dict(timing[T_MB_ENVS], max_abs_err=max(errs), **usage, tl_recompute_bwd_device_ms=bwd_ms,
                   shape=f"N={T_MB_ENVS} H={T_HEADS} T={TL_STEPS} W={T_WINDOW} D={T_HEAD_DIM}, bf16 in, fp32 out "
                         f"(the update's minibatch); primal at N={T_ENVS} (value and KL passes)")
     result.update({f"primal_{key}": value for key, value in timing[T_ENVS].items() if key != "bound_by"})
@@ -1869,7 +1991,7 @@ def _forward_device_ms(key: str, fn, namespace: str = "fbf", kernels: int = 2, r
     kernels together by CUDA events, the pack's time not measured."""
     device_events = 0
     for _ in range(PROFILE_ATTEMPTS):
-        found, seen = _profiled_kernels(fn, (namespace,), repeats, warmup)
+        found, seen, _ = _profiled_kernels(fn, (namespace,), repeats, warmup)
         device_events += seen
         if len(found) == kernels and all(repeats // 2 <= count <= repeats for _, count, _ in found):
             break
@@ -2314,7 +2436,8 @@ _TJ_UPDATE = {"K1f": 3, "K2f": MB, "K2b": MB, "K3f": 2 + 2 * MB, "K3b": 2 * MB, 
 # TL is TF with T = 256 > 64: every sequence pass's attention is K7f (its
 # backward recomputes through the plain version: no launch), and the
 # next-token pass takes the plain version (no K6).
-_TL_UPDATE = {"K1f": 3 + 2 * MB, "K1b": 2 * MB, "K7f": 2 + 2 * MB, "K4pre_f": 3 + 2 * MB, "K4post_f": 3 + 2 * MB,
+TL_PRIMAL_K7F = 2  # path TL's K7f launches per iteration without a gradient: the value and KL passes
+_TL_UPDATE = {"K1f": 3 + 2 * MB, "K1b": 2 * MB, "K7f": TL_PRIMAL_K7F + 2 * MB, "K4pre_f": 3 + 2 * MB, "K4post_f": 3 + 2 * MB,
               "K4pre_b": 2 * MB, "K4post_b": 2 * MB}
 EXPECTED_ZOO_LAUNCHES = {  # per training iteration
     "A": {**_NONE, "K1f": STEPS + 3, "K2f": MB, "K2b": MB},
@@ -2698,12 +2821,14 @@ def profile_iteration(driver, label: str, steps: int = STEPS) -> None:
             print(f"[profile] {label}, {what}: "
                   + "; ".join(f"{name.split('(')[0]} {ms:.3f} ms ({count})" for ms, count, name in forwards)
                   + f"; together {sum(r[0] for r in forwards):.3f} ms per iteration")
-    # K3f (the lane attention forward) by name, and its share of the device's busy time.
-    k3f = [r for r in rows if "lane_fwd_kernel" in r[2]]
-    if k3f:
-        k3f_ms = sum(r[0] for r in k3f)
-        print(f"[profile] {label}, K3f (lane::lane_fwd_kernel): {k3f_ms:.3f} ms over {sum(r[1] for r in k3f)} "
-              f"launches per iteration, {k3f_ms / busy_ms:.4f} of the device's busy time")
+    # The band attention kernels by name, and each one's share of the device's busy time.
+    for key, symbol in (("K3f", "lane::lane_fwd_kernel"), ("K3b", "lane::lane_bwd_kernel"),
+                        ("K6", "lane::lane_next_kernel"), ("K7f", "banded::banded_fwd_kernel")):
+        found = [r for r in rows if symbol.split("::")[1] in r[2]]
+        if found:
+            ms = sum(r[0] for r in found)
+            print(f"[profile] {label}, {key} ({symbol}): {ms:.3f} ms over {sum(r[1] for r in found)} launches per "
+                  f"iteration, {ms / busy_ms:.4f} of the device's busy time")
 
 
 def main(argv: list[str]) -> int:
@@ -2773,6 +2898,12 @@ def main(argv: list[str]) -> int:
     # TL's rollout step runs the FFN and the ELU head through K1f at 1,024 rows:
     # half of its K1f launches per iteration beyond the update's are the head's.
     results["K1f"]["tl_head_step_launches"] = (path_launches["TL"]["K1f"] // 10 - _TL_UPDATE["K1f"]) // 2
+    # TL's recomputing K7 backward runs once for each K7f launch that takes a
+    # gradient: the run's launches per iteration less the value and KL passes'.
+    bwd_ms, grad_calls = results["K7f"]["tl_recompute_bwd_device_ms"], path_launches["TL"]["K7f"] / 10 - TL_PRIMAL_K7F
+    print(f"[estimate] TL's recomputing K7 backward per iteration: {grad_calls:g} calls (TL's K7f launches per "
+          f"iteration in this run, less its {TL_PRIMAL_K7F} primal ones) x {_ms(bwd_ms)} device ms (one call timed "
+          f"alone) = {_ms(None if bwd_ms is None else grad_calls * bwd_ms)} ms; extrapolated, not measured in the loop")
     kernels = []
     main_path = {"K8f": "B", "K8b": "B", "K9s": "C", "K9m": "CM", "K1b": "T", "K3f": "TF", "K3b": "TF", "K6": "TF",
                  "K7f": "TL", **{key: ("TF" if key.startswith("K4") else "TJ") for key in BLOCK_REPLACES}}
@@ -2788,7 +2919,7 @@ def main(argv: list[str]) -> int:
             "launches_by_path": {p_: path_launches[p_][key] for p_ in path_launches if path_launches[p_][key]},
             **{k: v for k, v in r.items()
                if k.startswith(("gelu", "primal", "offpath", "tl_", "phase", "bitwise", "grid", "ring", "smem", "regs",
-                                "device", "pack", "rollout", "queue", "host", "plan"))},
+                                "spills", "device", "pack", "rollout", "queue", "host", "plan"))},
             "status": "ported and checked",
         })
     print(smi)

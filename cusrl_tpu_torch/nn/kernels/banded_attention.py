@@ -26,7 +26,9 @@ the saved q, k and v (the JAX package has no backward kernel for K7).
 Dispatch is by the device of the input: a CPU tensor takes the plain version,
 a CUDA tensor launches the kernel or raises.  ``LAUNCHES`` counts kernel
 launches; the plain version counts nothing.  ALiBi slopes are a sequence of
-floats (passed to the kernel by value, so no host-to-device copy).
+floats (passed to the kernel by value, so no host-to-device copy).  The
+kernel reads its operands in place with their strides (the transformer hands
+over a transposed ``q_seg``), as the lane kernels do.
 """
 
 from __future__ import annotations
@@ -37,15 +39,17 @@ from typing import Sequence
 
 import torch
 
-from cusrl_tpu_torch.nn.kernels.lane_attention import _slopes
+from cusrl_tpu_torch.nn.kernels.operands import in_place, slope_values
 
-__all__ = ["LAUNCHES", "banded_plain", "banded_window_attention", "reset_launch_counts"]
+__all__ = ["LAUNCHES", "banded_plain", "banded_window_attention", "fwd_plan", "reset_launch_counts"]
 
 MAX_HEADS = 32  # BANDED_MAX_HEADS in csrc/banded_attention.cu
 HEAD_DIMS = (8, 16, 32, 64)  # the head dims the kernel is instantiated for
 MAX_SMEM = 232448  # the 227 KB a block may use
-KERNEL_BLOCK_Q = 128  # the kernel's query block (halved while the band does not fit)
-MIN_BLOCK_Q = 32
+TC_BLOCK_Q, TC_KEYS = 128, 32  # banded::TC_BQ, TC_KEYS: the tensor-core path's queries a block, keys a chunk
+THREADS, BLOCKS_PER_SM = 256, 3  # banded::THREADS, BLOCKS: the lanes path's threads a block at most, three to an SM
+MIN_BLOCK_Q = 8  # banded::MIN_BQ
+KEYS_PER_PASS = 32  # band::NB: the lanes path's band scores kept in registers
 
 LAUNCHES: dict[str, int] = {"K7f": 0}
 
@@ -130,10 +134,10 @@ class _BandedParams(ctypes.Structure):
         ("dim", ctypes.c_int),
         ("is_bf16", ctypes.c_int),
         ("use_alibi", ctypes.c_int),
-        ("block_q", ctypes.c_int),
         ("scale", ctypes.c_float),
         ("slopes", ctypes.c_float * MAX_HEADS),
-    ]
+    ] + [(name, ctypes.c_longlong * 3) for name in ("sq", "sk", "sv")] + [
+        (name, ctypes.c_longlong * 2) for name in ("sqseg", "skseg", "skval")]
 
 
 def _library() -> ctypes.CDLL:
@@ -143,30 +147,95 @@ def _library() -> ctypes.CDLL:
     if lib.banded_attention_error_string.restype is not ctypes.c_char_p:
         lib.banded_attention_fwd.argtypes = [ctypes.POINTER(_BandedParams), ctypes.c_void_p]
         lib.banded_attention_fwd.restype = ctypes.c_int
+        lib.banded_attention_fwd_plan.argtypes = [ctypes.POINTER(_BandedParams), ctypes.POINTER(ctypes.c_int)]
+        lib.banded_attention_fwd_plan.restype = ctypes.c_int
         lib.banded_attention_error_string.argtypes = [ctypes.c_int]
         lib.banded_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def smem_bytes(block_q: int, window: int, dim: int, elem_bytes: int) -> int:
-    """Dynamic shared memory of one K7f block (``banded::smem_bytes``): the
-    band's k and v rows (``D * elem / 4 + 1`` words each) and two ints per key."""
-    rows = block_q + window
-    return rows * (2 * 4 * (dim * elem_bytes // 4 + 1) + 8)
+def fwd_plan(t_len: int, window: int, dim: int, dtype: torch.dtype) -> dict:
+    """K7f's launch plan (``banded::plan_of``).  bf16 with ``dim >= 16``
+    takes the tensor-core path: two threads a query (a warp per 16), 128
+    queries a block (fewer for a short sequence, a multiple of 16), halved
+    while the block's staging does not fit shared memory: the key and value
+    rows its warps' chunks of 32 keys reach (``bq - 16 + 32 * chunks``) and
+    the block's q rows, each padded by 16 bytes, and a (segment, valid) pair
+    per key row; ``passes`` counts the chunks.  fp32, ``dim == 8``, or a
+    window too wide for that staging at 16 queries takes the lanes path:
+    ``lanes`` per query (each on ``dim / lanes`` columns in 16-byte units,
+    at most four), ``256 / lanes`` queries a block (fewer for a short
+    sequence, a multiple of 8), halved while the band (its K and V rows and
+    (segment, valid) pairs) does not fit; ``passes`` 1 where the band's
+    ``window + 1`` scores fit the 32 kept in registers, else 2.  ``block_q``
+    is 0 where even the smallest block does not fit (its shared memory is
+    then the smallest block's)."""
+    size = dtype.itemsize
+    if size == 2 and dim >= 16:
+        chunks = -(-(16 + window) // TC_KEYS)
+
+        def tc_smem(bq):
+            rows = bq - 16 + TC_KEYS * chunks
+            return (2 * rows + bq) * (dim + 8) * 2 + rows * 8
+
+        bq = min(TC_BLOCK_Q, -(-t_len // 16) * 16)
+        while bq > 16 and tc_smem(bq) > MAX_SMEM:
+            bq = max(16, bq // 2 // 16 * 16)
+        if tc_smem(bq) <= MAX_SMEM:
+            return dict(lanes=2, block_q=bq, threads=2 * bq, smem_bytes=tc_smem(bq), passes=chunks,
+                        blocks_per_sm=3 if dim <= 32 else 2, tensor_cores=1)
+    lanes = min(dim * size // 16, 4)
+
+    def smem(bq):
+        return (bq + window) * (2 * dim * size + 8)
+
+    bq = min(THREADS // lanes, -(-t_len // 8) * 8)
+    while bq > MIN_BLOCK_Q and smem(bq) > MAX_SMEM:
+        bq = max(MIN_BLOCK_Q, bq // 2)
+    fits = smem(bq) <= MAX_SMEM
+    return dict(lanes=lanes, block_q=bq if fits else 0, threads=bq * lanes if fits else 0, smem_bytes=smem(bq),
+                passes=1 if window < KEYS_PER_PASS else 2, blocks_per_sm=BLOCKS_PER_SM, tensor_cores=0)
 
 
-def kernel_block_q(t_len: int, window: int, dim: int, elem_bytes: int) -> int:
-    """The kernel's query block: 128 queries (fewer for a short sequence,
-    a multiple of 32), halved while the band does not fit a block's shared
-    memory; 0 if even 32 queries do not fit."""
-    bq = min(KERNEL_BLOCK_Q, -(-t_len // 32) * 32)
-    while bq > MIN_BLOCK_Q and smem_bytes(bq, window, dim, elem_bytes) > MAX_SMEM:
-        bq //= 2
-    return bq if smem_bytes(bq, window, dim, elem_bytes) <= MAX_SMEM else 0
+def fwd_card_plan(q, window: int) -> dict:
+    """The plan ``banded::launch`` makes on the card for queries shaped as
+    ``q``, with the keys of ``fwd_plan``."""
+    n, heads, t_len, dim = q.shape
+    p = _BandedParams()
+    p.n, p.heads, p.t_len, p.window, p.dim = n, heads, t_len, window, dim
+    p.is_bf16 = int(q.dtype == torch.bfloat16)
+    keys = ("lanes", "block_q", "threads", "smem_bytes", "passes", "blocks_per_sm", "tensor_cores")
+    out = (ctypes.c_int * len(keys))()
+    lib = _library()
+    code = lib.banded_attention_fwd_plan(ctypes.byref(p), out)
+    if code != 0:
+        raise RuntimeError(f"banded_attention_fwd_plan failed: {lib.banded_attention_error_string(code).decode()}")
+    return dict(zip(keys, out))
+
+
+# The fields' stride fields in ``BandedParams``.
+_STRIDES = {"q": "sq", "k": "sk", "v": "sv", "q_seg": "sqseg", "k_seg": "skseg", "k_valid": "skval"}
+
+
+def _fwd_params(q, k, v, q_seg, k_seg, k_valid, window: int, slopes):
+    """K7f's parameter block, which reads its operands in place with their
+    strides (the main path's q_seg is a transposed view), and the tensors it
+    points to (kept alive until the launch)."""
+    n, heads, t_len, dim = q.shape
+    p = _BandedParams()
+    keep = in_place(p, dict(q=q, k=k, v=v, q_seg=q_seg, k_seg=k_seg, k_valid=k_valid), _STRIDES)
+    p.n, p.heads, p.t_len, p.window, p.dim = n, heads, t_len, window, dim
+    p.is_bf16 = int(q.dtype == torch.bfloat16)
+    p.use_alibi = int(slopes is not None)
+    p.scale = 1.0 / math.sqrt(dim)
+    for i, s in enumerate(slopes or ()):
+        p.slopes[i] = float(s)
+    return p, keep
 
 
 def _launch_fwd(q, k, v, q_seg, k_seg, k_valid, window: int, slopes) -> torch.Tensor:
-    """K7f: checks what the kernel takes and launches it; fp32 ``[N, H, T, D]``."""
+    """K7f: checks what the kernel takes and launches it, reading the
+    operands in place; fp32 ``[N, H, T, D]``."""
     if q.dim() != 4:
         raise ValueError(f"q must be [N, H, T, D]; got {tuple(q.shape)}")
     n, heads, t_len, dim = q.shape
@@ -185,27 +254,17 @@ def _launch_fwd(q, k, v, q_seg, k_seg, k_valid, window: int, slopes) -> torch.Te
         raise ValueError(f"slopes must have one value per head ({heads})")
     if any(t.device != q.device for t in (k, v, q_seg, k_seg, k_valid)):
         raise ValueError("all tensors must lie on one CUDA device")
-    if n * heads >= 2**31 or n * heads * s_len * dim >= 2**62:
+    plan = fwd_plan(t_len, window, dim, q.dtype)
+    if plan["block_q"] == 0:
+        raise ValueError(f"window {window} is too wide for the banded kernel: the key band of its smallest query "
+                         f"block needs {plan['smem_bytes']} bytes of shared memory, more than {MAX_SMEM}")
+    if n * heads * -(-t_len // plan["block_q"]) >= 2**31 or n * heads * s_len * dim >= 2**62:
         raise ValueError("problem exceeds the kernel's index range")
-    block_q = kernel_block_q(t_len, window, dim, q.element_size())
-    if block_q == 0:
-        raise ValueError(f"window {window} is too wide for the banded kernel: the key band of 32 queries needs "
-                         f"{smem_bytes(MIN_BLOCK_Q, window, dim, q.element_size())} bytes of shared memory, "
-                         f"more than {MAX_SMEM}")
-    keep = [t.contiguous() for t in (q, k, v)] + [t.to(torch.int32).contiguous() for t in (q_seg, k_seg, k_valid)]
     out = torch.empty(n, heads, t_len, dim, device=q.device)
-    p = _BandedParams()
-    p.q, p.k, p.v, p.q_seg, p.k_seg, p.k_valid = (t.data_ptr() for t in keep)
-    p.out = out.data_ptr()
-    p.n, p.heads, p.t_len, p.window, p.dim = n, heads, t_len, window, dim
-    p.is_bf16 = int(q.dtype == torch.bfloat16)
-    p.use_alibi = int(slopes is not None)
-    p.block_q = block_q
-    p.scale = 1.0 / math.sqrt(dim)
-    for i, s in enumerate(slopes or ()):
-        p.slopes[i] = float(s)
     if n == 0:
         return out
+    p, keep = _fwd_params(q, k, v, q_seg, k_seg, k_valid, window, slopes)
+    p.out = out.data_ptr()
     lib = _library()
     code = lib.banded_attention_fwd(ctypes.byref(p), torch.cuda.current_stream(q.device).cuda_stream)
     LAUNCHES["K7f"] += 1
@@ -264,7 +323,7 @@ def banded_window_attention(q, k, v, q_seg, k_seg, k_valid, *, window: int,
     is the plain version's query block (the CPU path and the backward); the
     kernel takes its own.  A call that needs a gradient saves q, k and v for
     the recomputing backward; one that needs none saves nothing."""
-    slopes = _slopes(slopes)
+    slopes = slope_values(slopes)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _BandedWindowAttention.apply(q, k, v, q_seg, k_seg, k_valid, int(window), slopes, int(block_q))
     return _fwd(q, k, v, q_seg, k_seg, k_valid, int(window), slopes, int(block_q))

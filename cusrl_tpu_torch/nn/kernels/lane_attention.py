@@ -29,10 +29,12 @@ JAX package's dense references ``_lane_reference`` and
 Dispatch is by the device of the input: a CPU tensor takes the plain version,
 a CUDA tensor launches the kernel or raises.  ``LAUNCHES`` counts kernel
 launches; the plain versions count nothing.  ALiBi slopes are a sequence of
-floats (passed to the kernels by value, so no host-to-device copy).  K3f and
-K6 read their operands in place with their strides (the transformer hands
-over head-split views and a transposed ``q_seg``); K3b reads contiguous
-copies.
+floats (passed to the kernels by value, so no host-to-device copy).  The
+kernels read their operands in place with their strides (the transformer
+hands over head-split views, a transposed ``q_seg`` and a transposed
+cotangent).  K3b writes ``dq``, ``dk`` and ``dv`` in the dtype its caller
+asks for: the autograd wrapper takes the inputs' dtype, one rounding of the
+kernel's fp32 sums.
 """
 
 from __future__ import annotations
@@ -43,8 +45,11 @@ from typing import Sequence
 
 import torch
 
+from cusrl_tpu_torch.nn.kernels.operands import in_place, slope_values
+
 __all__ = [
     "LAUNCHES",
+    "bwd_plan",
     "fwd_plan",
     "lane_bwd_plain",
     "lane_fwd_plain",
@@ -175,9 +180,10 @@ class _LaneParams(ctypes.Structure):
         ("dim", ctypes.c_int),
         ("is_bf16", ctypes.c_int),
         ("use_alibi", ctypes.c_int),
+        ("out_bf16", ctypes.c_int),
         ("scale", ctypes.c_float),
         ("slopes", ctypes.c_float * MAX_HEADS),
-    ] + [(name, ctypes.c_longlong * 3) for name in ("sq", "sks", "svs", "sk", "sv")] + [
+    ] + [(name, ctypes.c_longlong * 3) for name in ("sq", "sks", "svs", "sk", "sv", "sg")] + [
         (name, ctypes.c_longlong * 2) for name in ("sqseg", "skseg", "skval")]
 
 
@@ -193,7 +199,7 @@ def _library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.POINTER(_LaneParams), ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        for name in ("lane_attention_next_plan", "lane_attention_fwd_plan"):
+        for name in ("lane_attention_next_plan", "lane_attention_fwd_plan", "lane_attention_bwd_plan"):
             getattr(lib, name).argtypes = [ctypes.POINTER(_LaneParams), ctypes.POINTER(ctypes.c_int)]
             getattr(lib, name).restype = ctypes.c_int
         lib.lane_attention_error_string.argtypes = [ctypes.c_int]
@@ -235,41 +241,9 @@ def _fill(p: _LaneParams, q, window: int, slopes) -> _LaneParams:
     return p
 
 
-def _params(q, k, v, q_seg, k_seg, k_valid, window: int, slopes) -> tuple[_LaneParams, list]:
-    """K3b's parameter block (contiguous operands, int32 masks) and the
-    tensors it points to (kept alive until the launch)."""
-    _check_inputs(q, k, v, q_seg, k_seg, k_valid, window, slopes)
-    keep = [t.contiguous() for t in (q, k, v)] + [t.to(torch.int32).contiguous() for t in (q_seg, k_seg, k_valid)]
-    p = _LaneParams()
-    p.q, p.k, p.v, p.q_seg, p.k_seg, p.k_valid = (t.data_ptr() for t in keep)
-    return _fill(p, q, window, slopes), keep
-
-
-def _in_units(t: torch.Tensor) -> torch.Tensor:
-    """``t`` ([N, H, L, D]) as K6 reads it in place: the last dim
-    contiguous, every row at a 16-byte boundary; otherwise a contiguous
-    copy."""
-    vec = 16 // t.element_size()
-    if t.stride(-1) == 1 and all(st % vec == 0 for st in t.stride()[:-1]) and t.data_ptr() % 16 == 0:
-        return t
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
-def _in_place(p: _LaneParams, operands: dict) -> list:
-    """Points ``p`` at ``operands`` (``{field: tensor}``, the rows first, then
-    the masks) as K3f and K6 read them in place with their strides: a copy
-    only where a row would not be 16-byte aligned or a mask is not int32.
-    Returns the tensors pointed to, in order (kept alive until the launch)."""
-    strides = {"q": "sq", "k_self": "sks", "v_self": "svs", "k": "sk", "v": "sv", "q_seg": "sqseg",
-               "k_seg": "skseg", "k_valid": "skval"}
-    keep = []
-    for name, t in operands.items():
-        t = _in_units(t) if t.dim() == 4 else (t if t.dtype == torch.int32 else t.to(torch.int32))
-        setattr(p, name, t.data_ptr())
-        getattr(p, strides[name])[:] = t.stride()[:-1] if t.dim() == 4 else t.stride()
-        keep.append(t)
-    return keep
+# The fields' stride fields in ``LaneParams``.
+_STRIDES = {"q": "sq", "k_self": "sks", "v_self": "svs", "k": "sk", "v": "sv", "g": "sg", "q_seg": "sqseg",
+            "k_seg": "skseg", "k_valid": "skval"}
 
 
 def _fwd_params(q, k, v, q_seg, k_seg, k_valid, window: int, slopes):
@@ -277,8 +251,26 @@ def _fwd_params(q, k, v, q_seg, k_seg, k_valid, window: int, slopes):
     strides (the main path's q_seg is a transposed view)."""
     _check_inputs(q, k, v, q_seg, k_seg, k_valid, window, slopes)
     p = _LaneParams()
-    keep = _in_place(p, dict(q=q, k=k, v=v, q_seg=q_seg, k_seg=k_seg, k_valid=k_valid))
+    keep = in_place(p, dict(q=q, k=k, v=v, q_seg=q_seg, k_seg=k_seg, k_valid=k_valid), _STRIDES)
     return _fill(p, q, window, slopes), keep
+
+
+def _bwd_params(q, k, v, probs, g, q_seg, k_seg, k_valid, window: int):
+    """K3b's parameter block, which reads q, k, v and the fp32 cotangent in
+    place with their strides (the main path's g is a transposed view of the
+    merged heads' gradient) and the saved probabilities as K3f wrote them;
+    it reads no mask (a masked key's probability is 0)."""
+    _check_inputs(q, k, v, q_seg, k_seg, k_valid, window, None)
+    n, heads, t_len, _ = q.shape
+    if probs.shape != (n, heads, t_len, window + 1) or probs.dtype != torch.float32 or probs.device != q.device:
+        raise ValueError(f"probs must be fp32 [N, H, T, W+1] on {q.device}")
+    if g.shape != q.shape or g.device != q.device:
+        raise ValueError(f"the cotangent must be [N, H, T, D] on {q.device}")
+    p = _LaneParams()
+    keep = in_place(p, dict(q=q, k=k, v=v, g=g if g.dtype == torch.float32 else g.float()), _STRIDES)
+    probs = probs.contiguous()
+    p.probs = probs.data_ptr()
+    return _fill(p, q, window, None), keep + [probs]
 
 
 def _next_params(q, k_self, v_self, k, v, q_seg, k_seg, k_valid, window: int, slopes):
@@ -287,48 +279,70 @@ def _next_params(q, k_self, v_self, k, v, q_seg, k_seg, k_valid, window: int, sl
     transposed view)."""
     _check_inputs(q, k, v, q_seg, k_seg, k_valid, window, slopes)
     p = _LaneParams()
-    keep = _in_place(p, dict(q=q, k_self=k_self, v_self=v_self, k=k, v=v, q_seg=q_seg, k_seg=k_seg, k_valid=k_valid))
+    operands = dict(q=q, k_self=k_self, v_self=v_self, k=k, v=v, q_seg=q_seg, k_seg=k_seg, k_valid=k_valid)
+    keep = in_place(p, operands, _STRIDES)
     return _fill(p, q, window, slopes), keep
 
 
 NEXT_TARGET_THREADS, NEXT_MAX_THREADS = 256, 512  # lane::NEXT_TARGET_THREADS, NEXT_MAX_THREADS
 NEXT_SOFT_SMEM, MAX_SMEM = 64 * 1024, 232448  # lane::NEXT_SOFT_SMEM, lane::MAX_SMEM
-FWD_KEYS_PER_PASS = 32  # lane::FWD_NB: K3f's band scores kept in registers
-FWD_SMALL_THREADS, FWD_SMALL_BLOCKS = 288, 3  # lane::FWD_SMALL_THREADS, FWD_SMALL_BLOCKS
+KEYS_PER_PASS = 32  # band::NB: K3f's scores and K3b's dw kept in registers
+SMALL_THREADS, SMALL_BLOCKS = 288, 3  # lane::SMALL_THREADS, SMALL_BLOCKS
+
+
+def _block_plan(kernel: str, t_len: int, dim: int, size: int, per_problem: int) -> dict:
+    """``lane::block_problems``: lanes per query (each on ``dim / lanes``
+    columns in 16-byte units, at most four), problems per block (at least
+    256 threads where the queries allow, at most 512, fewer while the
+    block's staging of ``per_problem`` bytes a problem exceeds 64 KB),
+    threads per block and the dynamic shared memory."""
+    lanes = min(dim * size // 16, 4)
+    per = t_len * lanes
+    pb = max(1, -(-NEXT_TARGET_THREADS // per))
+    while pb > 1 and (pb * per > NEXT_MAX_THREADS or pb * per_problem > NEXT_SOFT_SMEM):
+        pb -= 1
+    if pb * per_problem > MAX_SMEM:
+        raise ValueError(f"{kernel} does not fit a block at T={t_len}, D={dim}")
+    return dict(lanes=lanes, problems=pb, threads=pb * per, smem_bytes=pb * per_problem)
 
 
 def next_plan(t_len: int, window: int, dim: int, dtype: torch.dtype) -> dict:
-    """K6's launch plan (``lane::launch_band``): lanes per query (each on
-    ``dim / lanes`` columns in 16-byte units, at most four), problems per
-    block (at least 256 threads where the queries allow, at most 512, fewer
-    while the block's staging exceeds 64 KB), threads per block, and the
-    dynamic shared memory (the K and V rows and one (segment, valid) pair per
-    key, per problem)."""
+    """K6's launch plan (``lane::launch``, ``_block_plan``) for its staging:
+    the K and V rows and one (segment, valid) pair per key, per problem."""
     size = torch.empty((), dtype=dtype).element_size()
-    lanes = min(dim * size // 16, 4)
-    per = t_len * lanes
+    return _block_plan("K6", t_len, dim, size, (window + t_len) * (2 * dim * size + 8))
 
-    def smem(pb):
-        return pb * (window + t_len) * (2 * dim * size + 8)
 
-    pb = max(1, -(-NEXT_TARGET_THREADS // per))
-    while pb > 1 and (pb * per > NEXT_MAX_THREADS or smem(pb) > NEXT_SOFT_SMEM):
-        pb -= 1
-    if smem(pb) > MAX_SMEM:
-        raise ValueError(f"K6 does not fit a block at T={t_len}, W={window}, D={dim}")
-    return dict(lanes=lanes, problems=pb, threads=pb * per, smem_bytes=smem(pb))
+def _with_passes(plan: dict, window: int) -> dict:
+    """A plan with the passes over the band, 1 where its ``window + 1`` keys
+    fit the 32 kept in registers, else 2 (computed again in the second), and
+    the blocks per SM of the kernel instance launched: three for blocks of
+    up to 288 threads (their registers capped to fit), else one."""
+    return dict(plan, passes=1 if window < KEYS_PER_PASS else 2,
+                blocks_per_sm=SMALL_BLOCKS if plan["threads"] <= SMALL_THREADS else 1)
 
 
 def fwd_plan(t_len: int, window: int, dim: int, dtype: torch.dtype) -> dict:
-    """K3f's launch plan (``lane::launch_band``): K6's layout and staging
-    (``next_plan``); the passes over the band's scores, 1 where its
-    ``window + 1`` keys fit the 32 kept in registers, else 2 (the scores are
-    computed again for the weighted sum); and the blocks per SM of the
-    kernel instance launched: three for blocks of up to 288 threads (their
-    registers capped to fit), else one."""
-    plan = next_plan(t_len, window, dim, dtype)
-    return dict(plan, passes=1 if window < FWD_KEYS_PER_PASS else 2,
-                blocks_per_sm=FWD_SMALL_BLOCKS if plan["threads"] <= FWD_SMALL_THREADS else 1)
+    """K3f's launch plan: K6's layout and staging (``next_plan``), the
+    scores' passes and blocks per SM (``_with_passes``)."""
+    return _with_passes(next_plan(t_len, window, dim, dtype), window)
+
+
+def bwd_stage_bytes(t_len: int, window: int, dim: int, size: int) -> int:
+    """K3b's staging of one problem (``lane::BwdStage``): the K and V rows,
+    the q rows, the fp32 cotangent in rows padded by 16 bytes, and the
+    probabilities and ds in rows padded to an odd count of floats."""
+    return ((2 * (window + t_len) + t_len) * dim * size + t_len * (dim + 4) * 4
+            + 2 * t_len * ((window + 1) | 1) * 4)
+
+
+def bwd_plan(t_len: int, window: int, dim: int, dtype: torch.dtype) -> dict:
+    """K3b's launch plan: ``_block_plan`` for its staging
+    (``bwd_stage_bytes``), its passes over the band's dw and blocks per SM
+    (``_with_passes``)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    plan = _block_plan("K3b", t_len, dim, size, bwd_stage_bytes(t_len, window, dim, size))
+    return _with_passes(plan, window)
 
 
 def _card_plan(entry: str, q, window: int, keys) -> dict:
@@ -342,15 +356,22 @@ def _card_plan(entry: str, q, window: int, keys) -> dict:
 
 
 def next_card_plan(q, window: int) -> dict:
-    """The plan ``lane::launch_band`` makes on the card for K6's queries
+    """The plan ``lane::launch`` makes on the card for K6's queries
     shaped as ``q``, with the keys of ``next_plan``."""
     return _card_plan("lane_attention_next_plan", q, window, ("lanes", "problems", "threads", "smem_bytes"))
 
 
 def fwd_card_plan(q, window: int) -> dict:
-    """The plan ``lane::launch_band`` makes on the card for K3f's queries
-    shaped as ``q``, with the keys of ``fwd_plan``."""
+    """The plan ``lane::launch`` makes on the card for K3f's queries shaped
+    as ``q``, with the keys of ``fwd_plan``."""
     return _card_plan("lane_attention_fwd_plan", q, window,
+                      ("lanes", "problems", "threads", "smem_bytes", "passes", "blocks_per_sm"))
+
+
+def bwd_card_plan(q, window: int) -> dict:
+    """The plan ``lane::launch`` makes on the card for K3b's queries shaped
+    as ``q``, with the keys of ``bwd_plan``."""
+    return _card_plan("lane_attention_bwd_plan", q, window,
                       ("lanes", "problems", "threads", "smem_bytes", "passes", "blocks_per_sm"))
 
 
@@ -376,19 +397,16 @@ def _launch_fwd(q, k, v, q_seg, k_seg, k_valid, window: int, slopes, save_probs:
     return out, probs
 
 
-def _launch_bwd(q, k, v, probs, g, q_seg, k_seg, k_valid, window: int):
-    """K3b: ``(dq, dk, dv)`` fp32."""
-    p, keep = _params(q, k, v, q_seg, k_seg, k_valid, window, None)
-    n, heads, t_len, dim = q.shape
-    if probs.shape != (n, heads, t_len, window + 1) or probs.dtype != torch.float32:
-        raise ValueError("probs must be fp32 [N, H, T, W+1]")
-    if g.shape != q.shape or g.device != q.device:
-        raise ValueError(f"the cotangent must be [N, H, T, D] on {q.device}")
-    probs, g = probs.contiguous(), g.float().contiguous()
-    dq = torch.empty(q.shape, device=q.device)
-    dk = torch.empty(k.shape, device=q.device)
-    dv = torch.empty(k.shape, device=q.device)
-    p.probs, p.g = probs.data_ptr(), g.data_ptr()
+def _launch_bwd(q, k, v, probs, g, q_seg, k_seg, k_valid, window: int, out_dtype: torch.dtype = torch.float32):
+    """K3b: ``(dq, dk, dv)`` in ``out_dtype`` (fp32, or bf16: the fp32 sums
+    rounded once)."""
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"K3b writes fp32 or bf16 gradients; got {out_dtype}")
+    p, keep = _bwd_params(q, k, v, probs, g, q_seg, k_seg, k_valid, window)
+    dq = torch.empty(q.shape, dtype=out_dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=out_dtype, device=q.device)
+    dv = torch.empty(k.shape, dtype=out_dtype, device=q.device)
+    p.out_bf16 = int(out_dtype == torch.bfloat16)
     p.dq, p.dk, p.dv = dq.data_ptr(), dk.data_ptr(), dv.data_ptr()
     _launch("K3b", p, q.device)
     del keep
@@ -430,7 +448,8 @@ def _fwd(q, k, v, q_seg, k_seg, k_valid, window, slopes, save_probs):
 
 class _LaneWindowAttention(torch.autograd.Function):
     """K3f saving the probabilities; backward K3b.  Input gradients come back
-    in the inputs' dtypes (``lane_attention.py:306-321``)."""
+    in the inputs' dtypes (``lane_attention.py:306-321``): on the card K3b
+    writes them so (one rounding of its fp32 sums, no cast kernel)."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_seg, k_seg, k_valid, window, slopes):
@@ -443,18 +462,10 @@ class _LaneWindowAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, probs, q_seg, k_seg, k_valid = ctx.saved_tensors
         if _on_cuda(q.device):
-            dq, dk, dv = _launch_bwd(q, k, v, probs, g, q_seg, k_seg, k_valid, ctx.window)
+            dq, dk, dv = _launch_bwd(q, k, v, probs, g, q_seg, k_seg, k_valid, ctx.window, q.dtype)
         else:
             dq, dk, dv = lane_bwd_plain(q, k, v, probs, g, ctx.window)
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None, None
-
-
-def _slopes(slopes) -> tuple[float, ...] | None:
-    if slopes is None:
-        return None
-    if isinstance(slopes, torch.Tensor):
-        raise TypeError("pass ALiBi slopes as a sequence of floats (a tensor would need a device read)")
-    return tuple(float(s) for s in slopes)
 
 
 def lane_window_attention(q, k, v, q_seg, k_seg, k_valid, *, window: int,
@@ -463,7 +474,7 @@ def lane_window_attention(q, k, v, q_seg, k_seg, k_valid, *, window: int,
     fp32 ``[N, H, T, D]``.  A call that needs a gradient saves the
     probabilities (K3f) for K3b; one that needs none takes the primal
     variant, which writes only the output."""
-    slopes = _slopes(slopes)
+    slopes = slope_values(slopes)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _LaneWindowAttention.apply(q, k, v, q_seg, k_seg, k_valid, int(window), slopes)
     return _fwd(q, k, v, q_seg, k_seg, k_valid, int(window), slopes, False)[0]
@@ -475,7 +486,7 @@ def lane_next_token_attention(q, k_self, v_self, k, v, q_seg, k_seg, k_valid, *,
     over the value pass's combined keys ``[t+1, W+t]`` plus its own
     ``k_self``/``v_self``; forward only (bootstrap values are consumed
     without gradient).  fp32 ``[N, H, T, D]``."""
-    slopes = _slopes(slopes)
+    slopes = slope_values(slopes)
     if _on_cuda(q.device):
         return _launch_next(q, k_self, v_self, k, v, q_seg, k_seg, k_valid, int(window), slopes)
     return next_token_plain(q, k_self, v_self, k, v, q_seg, k_seg, k_valid, int(window), slopes)

@@ -206,7 +206,7 @@ def _variant(stem: str, path: Path):
 
 
 def _phase_ms(chip_smoke, fn) -> tuple[float, float, str]:
-    found, _ = chip_smoke._profiled_kernels(fn, ("dw", "mlpb", "fbb", "fbp", "mlpm"), 10, 3)
+    found = chip_smoke._profiled_kernels(fn, ("dw", "mlpb", "fbb", "fbp", "mlpm"), 10, 3)[0]
     phase1 = [k for k in found if not chip_smoke._in_namespaces(k[0], ("dw",))]
     phase2 = [k for k in found if chip_smoke._in_namespaces(k[0], ("dw",))]
     ms = [sum(us / count for _, count, us in phase) / 1e3 for phase in (phase1, phase2)]

@@ -177,14 +177,19 @@ def test_wrapper_counts_no_launch_and_refuses_what_the_kernel_does_not_take():
 
 
 def test_kernel_query_block_fits_shared_memory():
-    """The kernel's query block: 128 queries at the long-rollout shape, fewer
-    for a short sequence, halved while the band does not fit."""
-    assert tba.kernel_block_q(256, 16, 32, 2) == 128
-    assert tba.kernel_block_q(70, 16, 32, 2) == 96
-    assert tba.kernel_block_q(256, 160, 64, 4) == 128
-    assert tba.kernel_block_q(256, 330, 64, 4) == 64
-    assert tba.smem_bytes(64, 330, 64, 4) <= tba.MAX_SMEM < tba.smem_bytes(128, 330, 64, 4)
-    assert tba.kernel_block_q(256, 2000, 64, 4) == 0
+    """The kernel's query block (``fwd_plan``): on the tensor-core path (bf16,
+    D >= 16) 128 queries at the long-rollout shape, fewer for a short
+    sequence (a multiple of 16); on the lanes path (fp32) 256 / lanes; on
+    either, halved while the band does not fit."""
+    plan = lambda t_len, window, dim, dtype: tba.fwd_plan(t_len, window, dim, dtype)["block_q"]
+    assert plan(256, 16, 32, torch.bfloat16) == 128
+    assert plan(70, 16, 32, torch.bfloat16) == 80 and plan(20, 16, 32, torch.bfloat16) == 32
+    assert plan(256, 160, 64, torch.float32) == 64
+    assert plan(256, 400, 64, torch.float32) == 32
+    assert (tba.fwd_plan(256, 400, 64, torch.float32)["smem_bytes"] <= tba.MAX_SMEM
+            < (64 + 400) * (2 * 64 * 4 + 8))
+    assert plan(256, 600, 64, torch.bfloat16) == 64
+    assert plan(256, 2000, 64, torch.float32) == 0
 
 
 # ---------------------------------------------------------------------------

@@ -1639,6 +1639,162 @@ def test_lane_fwd_plan_matches_the_python_mirror(cuda):
                     assert la.fwd_card_plan(q, window) == la.fwd_plan(t_len, window, dim, dtype)
 
 
+# -- K3b (lane window attention backward), redesigned ----------------------------
+
+
+def _bwd_case(gen, device, n, t_len, window, dim, dtype, slopes=None):
+    """K3b's inputs: q/k/v in ``dtype``, the plain forward's probabilities
+    (a third of the environments see no valid key: all their weights 0) and
+    an fp32 cotangent."""
+    from cusrl_tpu_torch.nn.kernels import lane_attention as la
+
+    q, k, v, *masks = _lane_inputs(gen, device, n, t_len=t_len, window=window, dim=dim, invalid=True)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    _, probs = la.lane_fwd_plain(q, k, v, *masks, window, slopes, True)
+    g = torch.randn(q.shape, generator=gen).to(device)
+    return q, k, v, probs, g, masks
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dim", [8, 16, 32, 64])
+@pytest.mark.parametrize("t_len", [1, 5, 24, 128])
+def test_lane_bwd_kernel_matches_plain(cuda, t_len, dim, dtype):
+    """K3b against ``lane_bwd_plain`` at a ragged N (37 environments: not a
+    multiple of a block's problems), W = 16 (dw in one pass) and W = 40 with
+    ALiBi (two passes), a third of the environments with no valid key (their
+    dq, dk and dv exactly 0); the bf16 outputs are the fp32 ones cast, bit
+    for bit; two calls give the same bits."""
+    from cusrl_tpu_torch.nn.kernels import lane_attention as la
+
+    gen = torch.Generator().manual_seed(t_len * 100 + dim + 7)
+    for window, slopes in ((16, None), (40, (0.5, 0.25, 0.125, 0.0625))):
+        q, k, v, probs, g, masks = _bwd_case(gen, cuda, 37, t_len, window, dim, dtype, slopes)
+        got = la._launch_bwd(q, k, v, probs, g, *masks, window)
+        for a, b in zip(got, la.lane_bwd_plain(q, k, v, probs, g, window)):
+            assert a.dtype == torch.float32 and a.shape == b.shape
+            torch.testing.assert_close(a, b, **ATT_TOL)
+            assert not a[: 37 // 3].any()
+        rounded = la._launch_bwd(q, k, v, probs, g, *masks, window, torch.bfloat16)
+        again = la._launch_bwd(q, k, v, probs, g, *masks, window)
+        for a, b, c in zip(got, rounded, again):
+            assert b.dtype == torch.bfloat16 and torch.equal(b, a.to(torch.bfloat16))
+            assert torch.equal(a, c)
+
+
+def test_lane_bwd_kernel_reads_the_main_paths_views(cuda):
+    """The operands as the transformer hands them over (q a head-split view
+    of a projection, the cotangent the transposed view of the merged heads'
+    gradient): no copy, the same bits as on contiguous copies, one launch a
+    call, bf16 outputs as the autograd wrapper asks; at the update's
+    N = 256 against the plain version."""
+    from cusrl_tpu_torch.nn.kernels import lane_attention as la
+
+    gen = torch.Generator().manual_seed(9)
+    n, heads, t_len, window, dim = 256, 4, 24, 16, 32
+    _, k, v, *masks = _lane_inputs(gen, cuda, n)
+    proj = torch.randn(n, t_len, 3 * heads * dim, generator=gen).to(cuda, torch.bfloat16)
+    q = proj[..., :heads * dim].reshape(n, t_len, heads, dim).transpose(1, 2)
+    _, probs = la.lane_fwd_plain(q, k, v, *masks, window, None, True)
+    g = torch.randn(t_len * n, heads * dim, generator=gen).to(cuda).view(t_len, n, heads, dim).permute(1, 2, 0, 3)
+    p, keep = la._bwd_params(q, k, v, probs, g, *masks, window)
+    assert (p.q, p.g) == (q.data_ptr(), g.data_ptr())
+    la.reset_launch_counts()
+    got = la._launch_bwd(q, k, v, probs, g, *masks, window, torch.bfloat16)
+    assert la.LAUNCHES["K3b"] == 1
+    same = la._launch_bwd(q.contiguous(), k, v, probs, g.contiguous(), *masks, window, torch.bfloat16)
+    for a, b, c in zip(got, same, la.lane_bwd_plain(q, k, v, probs, g, window)):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+        torch.testing.assert_close(a.float(), c, rtol=2 ** -8, atol=1e-5)
+
+
+def test_lane_bwd_plan_matches_the_python_mirror(cuda):
+    from cusrl_tpu_torch.nn.kernels import lane_attention as la
+
+    for t_len in (1, 5, 24, 64, 128):
+        for dim in (8, 32, 64):
+            for dtype in (torch.bfloat16, torch.float32):
+                for window in (0, 16, 31, 32, 40):
+                    q = torch.empty(3, 4, t_len, dim, dtype=dtype, device=cuda)
+                    assert la.bwd_card_plan(q, window) == la.bwd_plan(t_len, window, dim, dtype)
+
+
+# -- K7f (banded window attention), redesigned -----------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dim", [8, 16, 32, 64])
+def test_banded_kernel_at_every_dim(cuda, dim, dtype):
+    """K7f against ``banded_plain`` at every head dim in bf16 and fp32: a
+    ragged T = 200 (the fourth query block a quarter full) with ALiBi and a
+    third of the environments with no valid key (exactly 0), and W = 160
+    (the band's scores in passes of 32, wider than a query block); two calls
+    give the same bits."""
+    from cusrl_tpu_torch.nn.kernels import banded_attention as ba
+
+    gen = torch.Generator().manual_seed(dim * 10 + (dtype == torch.float32))
+    for n, t_len, window, slopes in ((13, 200, 16, (0.5, 0.25, 0.125, 0.0625)), (5, 70, 160, None)):
+        q, k, v, *masks = _banded_inputs(gen, cuda, n, t_len, window, dim, dtype=dtype, invalid=slopes is not None)
+        out = ba._launch_fwd(q, k, v, *masks, window, slopes)
+        torch.testing.assert_close(out, ba.banded_plain(q, k, v, *masks, window, slopes), **ATT_TOL)
+        if slopes is not None:
+            assert not out[: n // 3].any()
+        assert torch.equal(out, ba._launch_fwd(q, k, v, *masks, window, slopes))
+
+
+def test_banded_kernel_reads_the_main_paths_views(cuda):
+    """The operands as path TL hands them over (q a head-split view of a
+    projection, q_seg a transposed view): no copy, the same bits as on
+    contiguous copies, one launch a call; at TL's N = 256 against the plain
+    version."""
+    from cusrl_tpu_torch.nn.kernels import banded_attention as ba
+
+    gen = torch.Generator().manual_seed(12)
+    n, heads, t_len, window, dim = 256, 4, 256, 16, 32
+    _, k, v, q_seg, k_seg, k_valid = _banded_inputs(gen, cuda, n, t_len, window)
+    proj = torch.randn(t_len * n, 3 * heads * dim, generator=gen).to(cuda, torch.bfloat16)
+    q = proj[:, :heads * dim].reshape(t_len, n, heads, dim).permute(1, 2, 0, 3)
+    q_seg_t = q_seg.T.contiguous().T
+    p, keep = ba._fwd_params(q, k, v, q_seg_t, k_seg, k_valid, window, None)
+    assert (p.q, p.q_seg) == (q.data_ptr(), q_seg_t.data_ptr())
+    ba.reset_launch_counts()
+    out = ba._launch_fwd(q, k, v, q_seg_t, k_seg, k_valid, window, None)
+    assert ba.LAUNCHES["K7f"] == 1
+    assert torch.equal(out, ba._launch_fwd(q.contiguous(), k, v, q_seg, k_seg, k_valid, window, None))
+    torch.testing.assert_close(out, ba.banded_plain(q, k, v, q_seg, k_seg, k_valid, window), **ATT_TOL)
+
+
+@pytest.mark.parametrize("dim, window", [(16, 2873), (32, 1582), (64, 800), (64, 822)])
+def test_banded_kernel_takes_wide_bf16_windows_on_lanes(cuda, dim, window):
+    """A bf16 window too wide for the tensor-core staging at 16 queries
+    takes the lanes path, up to the widest window the first-slice kernel
+    took at each head dim: against ``banded_plain`` with ALiBi and rows with
+    no valid key (exactly 0), the card's plan as the mirror's, two calls
+    the same bits."""
+    from cusrl_tpu_torch.nn.kernels import banded_attention as ba
+
+    gen = torch.Generator().manual_seed(dim + window)
+    n, t_len, slopes = 7, 70, (0.5, 0.25, 0.125, 0.0625)
+    q, k, v, *masks = _banded_inputs(gen, cuda, n, t_len, window, dim, invalid=True)
+    plan = ba.fwd_card_plan(q, window)
+    assert plan == ba.fwd_plan(t_len, window, dim, torch.bfloat16)
+    assert plan["tensor_cores"] == 0 and plan["block_q"] > 0
+    out = ba._launch_fwd(q, k, v, *masks, window, slopes)
+    torch.testing.assert_close(out, ba.banded_plain(q, k, v, *masks, window, slopes), **ATT_TOL)
+    assert not out[: n // 3].any()
+    assert torch.equal(out, ba._launch_fwd(q, k, v, *masks, window, slopes))
+
+
+def test_banded_plan_matches_the_python_mirror(cuda):
+    from cusrl_tpu_torch.nn.kernels import banded_attention as ba
+
+    for t_len in (1, 65, 200, 256):
+        for dim in (8, 32, 64):
+            for dtype in (torch.bfloat16, torch.float32):
+                for window in (0, 16, 160, 400):
+                    q = torch.empty(3, 4, t_len, dim, dtype=dtype, device=cuda)
+                    assert ba.fwd_card_plan(q, window) == ba.fwd_plan(t_len, window, dim, dtype)
+
+
 # -- K9m (the single-launch PPO step), redesigned ---------------------------------
 
 

@@ -207,7 +207,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     meta = [t.to("meta") for t in (q, k, v, *masks)]
     with pytest.raises(RuntimeError, match="CUDA tensors"):
         tla.lane_window_attention(*meta, window=window)
+    probs = torch.zeros(*q.shape[:3], window + 1)
     with pytest.raises(ValueError, match="W\\+T"):
-        tla._params(q, k[:, :, 1:], v[:, :, 1:], *masks, window, None)
+        tla._bwd_params(q, k[:, :, 1:], v[:, :, 1:], probs, q, *masks, window)
     with pytest.raises(ValueError, match="head dims"):
-        tla._params(q[..., :6], k[..., :6], v[..., :6], *masks, window, None)
+        tla._bwd_params(q[..., :6], k[..., :6], v[..., :6], probs, q[..., :6], *masks, window)
+    with pytest.raises(ValueError, match="probs"):
+        tla._bwd_params(q, k, v, probs[..., 1:], q, *masks, window)
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        tla._launch_bwd(q, k, v, probs, q, *masks, window, torch.float16)
