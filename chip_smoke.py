@@ -23,7 +23,10 @@ without printing a result:
    the primal pre and post at 24,576 and a ragged 1,000 (pre with dX, post
    with ELU), K4 also at path TL's 65,536 and 262,144 rows; K1f/K1b with
    gelu at the FFN's widths, and on the ELU head at TL's 65,536 rows (K1f
-   primal also at 262,144 and at the rollout step's 1,024)) against its plain PyTorch
+   primal also at 262,144 and at the rollout step's 1,024); K1f/K1b on the
+   recurrent entry's ELU head (256 -> 128 on the GRU's fp32 output) at path
+   R's 1,024-row rollout step, 6,144-row minibatch (saving; the backward with
+   dX), 24,576-row KL pass and a ragged 1,000) against its plain PyTorch
    version on the card, and time the kernel, the plain version and a PyTorch
    yardstick the port never calls (bf16 ``F.linear`` chains, fp32 heads
    and, for K9s, the loss, for K9m the forward too; a masked
@@ -70,7 +73,10 @@ without printing a result:
    through the port's plain CPU path, at full width on a small rollout, for
    the slice-1 configuration, the zoo's paths A, B, C and CM, path T
    (modular route) and paths TF, TJ and TL (the fused-block route; on the
-   CPU under ``CUSRL_TPU_FUSED_TRANSFORMER=force``; TL keeps T = 256);
+   CPU under ``CUSRL_TPU_FUSED_TRANSFORMER=force``; TL keeps T = 256), and
+   the recurrent entry's paths R (the zoo's ``recurrent_ppo``: GRU 256, the
+   per-step critic), RJ (R with the joint evaluation: the two GRUs stacked,
+   the heads on K2) and RL (R with LSTM cells);
 6. ``[train]``: the slice-1 loop (Velocity-Rough widths without observation
    normalization and the adaptive learning rate) for a few iterations;
 7. ``[train-zoo]``: paths T, TF, TJ and TL (the zoo's uncut Velocity-Flat
@@ -84,8 +90,10 @@ without printing a result:
    zoo's uncut Velocity-Rough ``ppo``: 4,096 environments, joint evaluation
    on K2), B (A with the heads in the kernel: K8), C (A with the fused
    PPO update: K2f + K9s) and CM (C in mono mode, ``fused_ppo_step._PPO_MODE
-   = "mono"``: K9m), each built through
-   ``get_experiment(...).to_training_factory()`` with
+   = "mono"``: K9m), and paths R and RJ (the zoo's uncut Velocity-Flat
+   ``recurrent_ppo``: GRU 256 and an ELU head of 128, 1,024 environments,
+   the per-step critic; RJ with ``fuse_actor_critic_evaluation=True``),
+   each built through ``get_experiment(...).to_training_factory()`` with
    ``iterations_per_dispatch=10``, observation normalization and the
    KL-adaptive learning rate, and driven through the Trainer for a warm-up
    chunk and a timed chunk of 10 iterations, with the launch counters set to
@@ -106,7 +114,8 @@ the script: copied into another checkout, it times that checkout's port the
 same way (two versions compare inside one call, in turns).
 
 Depth is not cut: the MLP paths have 3 hidden layers, the transformer paths
-their one encoder layer and one head layer.  Weights are random, from seed 0.  There is no CPU
+their one encoder layer and one head layer, the recurrent paths their one GRU
+layer and one head layer.  Weights are random, from seed 0.  There is no CPU
 fallback: without CUDA the script exits 2.
 """
 
@@ -1779,78 +1788,181 @@ def check_gelu_kernels(device) -> dict:
     return fields
 
 
-def check_tl_head_kernels(device) -> dict:
-    """K1f and K1b on the transformer entry's ELU head (128 -> 128, trailing
-    activation) at the sizes path TL gives them: the forward saving at the
-    minibatch's 65,536 rows and primal at the value and KL passes' 262,144,
-    the backward with dX at 65,536; against the plain versions at
-    ``check_kernels``'s limits, and timed with the plain version and a bf16
-    ``F.linear`` + ``F.elu`` (autograd for the backward) as the yardstick.
-    Returns the ``tl_``/``tl_primal_`` fields of K1f and K1b."""
+def _check_head_kernels(device, label: str, prefix: str, in_dim: int, x_dtype, cases, seed: int,
+                        queued: tuple = (), chains: int = 1) -> dict:
+    """K1f and K1b on a one-layer ELU head of 128 (``in_dim`` -> 128, trailing
+    activation), or with ``chains=2`` K2f and K2b on a pair of such heads, at
+    ``cases``, ``(rows, save, tag, timed)`` each: the forward primal or
+    saving, the backward with dX after a saving forward, against the plain
+    versions at ``check_kernels``'s limits; where ``timed``, also two
+    forward calls compared bit for bit, the times of the kernel, the plain
+    version and a bf16 ``F.linear`` + ``F.elu`` per chain on the bf16 input
+    (autograd for the backward) with CUDA events, the forward's device time
+    and plan, the backward's phases, plan, registers, spills and two calls
+    bit for bit.  ``queued`` tags go to the redesign queue's block.  Returns
+    ``{forward key, backward key: {prefix + tag + field: value}}`` with
+    ``prefix + "max_abs_err"``."""
     import torch
     import torch.nn.functional as F
 
     from cusrl_tpu_torch.nn.kernels import fused_mlp as fm
 
-    gen = torch.Generator().manual_seed(SEED + 14)
-    ws = [(torch.randn(T_EMBED, T_EMBED, generator=gen) / math.sqrt(T_EMBED)).to(device)]
-    bs = [(torch.randn(T_EMBED, generator=gen) * 0.1).to(device)]
-    w16, b16 = ws[0].to(torch.bfloat16).requires_grad_(), bs[0].to(torch.bfloat16).requires_grad_()
-    macs, params = T_EMBED * T_EMBED, T_EMBED * T_EMBED + T_EMBED
-    fields, errs = {"K1f": {}, "K1b": {}}, {"K1f": [], "K1b": []}
+    fkey, bkey = ("K1f", "K1b") if chains == 1 else ("K2f", "K2b")
+    out_dim = T_EMBED
+    gen = torch.Generator().manual_seed(SEED + seed)
+    wss = [[(torch.randn(out_dim, in_dim, generator=gen) / math.sqrt(in_dim)).to(device)] for _ in range(chains)]
+    bss = [[(torch.randn(out_dim, generator=gen) * 0.1).to(device)] for _ in range(chains)]
+    w16 = [ws[0].to(torch.bfloat16).requires_grad_() for ws in wss]
+    b16 = [bs[0].to(torch.bfloat16).requires_grad_() for bs in bss]
+    macs, params = in_dim * out_dim, in_dim * out_dim + out_dim
+    x_bytes = torch.finfo(x_dtype).bits // 8
+    fields, errs = {fkey: {}, bkey: {}}, {fkey: [], bkey: []}
 
     def record(key, tag, rows, timed, work):
-        (k_ms, p_ms, l_ms), (bound, by) = timed, _bound_ms(*work)
-        print(f"    {key} head rows={rows}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
+        (k_ms, p_ms, l_ms), (bound, by) = timed, _bound_ms(*(chains * w for w in work))
+        print(f"    {key} {label} rows={rows}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
               f"bound_ms={bound:.4f} ({by})")
         fields[key].update({f"{tag}ms": k_ms, f"{tag}plain_ms": p_ms, f"{tag}library_ms": l_ms,
                             f"{tag}bound_ms": bound, f"{tag}bound_by": by})
 
-    print("[kernels] K1f/K1b on the ELU head 128 -> 128 at path TL's sizes (K1f also at its rollout step)")
-    for rows, save, tag in ((TL_MB_ROWS, True, "tl_head_"), (TL_PRIMAL_ROWS, False, "tl_head_primal_"),
-                            (T_ENVS, False, "tl_head_step_")):
-        x = torch.randn(rows, T_EMBED, generator=gen).to(device, torch.bfloat16)
-        (out,), _, _ = fm._launch_fwd([x], [ws], [bs], "elu", True, save, "K1f")
-        ref, _ = fm.mlp_chain_fwd_plain(x, ws, bs, "elu", True, False)
-        errs["K1f"].append(_check(f"head out save={int(save)} rows={rows}", out, ref, rel=False))
-        with torch.no_grad():
-            timed = (_time_ms(lambda: fm._launch_fwd([x], [ws], [bs], "elu", True, save, "K1f")),
-                     _time_ms(lambda: fm.mlp_chain_fwd_plain(x, ws, bs, "elu", True, save)),
-                     _time_ms(lambda: F.elu(F.linear(x, w16, b16))))
-        record("K1f", tag, rows, timed, (2 * rows * macs, rows * T_EMBED * 2 * 2 + params * 4))
-        if tag != "tl_head_primal_":
-            QUEUE["K1f", tag] = (functools.partial(fm._launch_fwd, [x], [ws], [bs], "elu", True, save, "K1f"),
-                                 _no_grad(functools.partial(lambda x_: F.elu(F.linear(x_, w16, b16)), x)))
-        device_fields = _chain_forward_fields(f"K1f {tag[:-1]}", lambda: fm._launch_fwd([x], [ws], [bs], "elu", True,
-                                                                                        save, "K1f"),
-                                              (T_EMBED, T_EMBED), rows, 1, timed[0])
-        fields["K1f"].update({tag + k: v for k, v in device_fields.items()})
+    def library(xs_):
+        return [F.elu(F.linear(x_.to(torch.bfloat16), w, b)) for x_, w, b in zip(xs_, w16, b16)]
+
+    def forward(xs_, save):
+        return fm._launch_fwd(xs_, wss, bss, "elu", True, save, fkey)
+
+    def plain_forward(xs_, save):
+        return [fm.mlp_chain_fwd_plain(x_, ws, bs, "elu", True, save) for x_, ws, bs in zip(xs_, wss, bss)]
+
+    def chain(name, c):
+        return name if chains == 1 else f"{name}[{c}]"
+
+    for rows, save, tag, timed_case in cases:
+        tag = prefix + tag
+        xs = [torch.randn(rows, in_dim, generator=gen).to(device, x_dtype) for _ in range(chains)]
+        outs, _, _ = forward(xs, save)
+        refs = [ref for ref, _ in plain_forward(xs, False)]
+        for c, (out, ref) in enumerate(zip(outs, refs)):
+            errs[fkey].append(_check(f"{label} {chain('out', c)} save={int(save)} rows={rows}", out, ref, rel=False))
+        if timed_case:
+            again = forward(xs, save)[0]
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(outs, again)):
+                raise AssertionError(f"{fkey} {label} rows={rows}: two calls on the same inputs differ")
+            with torch.no_grad():
+                timed = (_time_ms(lambda: forward(xs, save)), _time_ms(lambda: plain_forward(xs, save)),
+                         _time_ms(lambda: library(xs)))
+            # x read, the bf16 output written, W and b read (per chain).
+            record(fkey, tag, rows, timed, (2 * rows * macs, rows * (in_dim * x_bytes + out_dim * 2) + params * 4))
+            if tag in queued:
+                QUEUE[fkey, tag] = (functools.partial(forward, xs, save), _no_grad(functools.partial(library, xs)))
+            device_fields = _chain_forward_fields(f"{fkey} {tag[:-1]}", lambda: forward(xs, save),
+                                                  (in_dim, out_dim), rows, chains, timed[0])
+            fields[fkey].update({tag + k: v for k, v in device_fields.items()})
         if not save:
             continue
-        g = (torch.randn(rows, T_EMBED, generator=gen) * 0.01).to(device, torch.bfloat16)
-        ((dx, dws, dbs, _),) = fm._launch_bwd([x], [g], [ws], [[ref]], "elu", True, False, "K1b")
-        rdx, rdws, rdbs = fm.mlp_chain_bwd_plain(x, g, ws, [ref], "elu", True, False)
-        for name, a, b in zip(("dx", "dW", "db"), (dx, *dws, *dbs), (rdx, *rdws, *rdbs)):
-            errs["K1b"].append(_check(f"head {name} rows={rows}", a, b, rel=True))
-        lx = x.clone().requires_grad_()
+        gs = [(torch.randn(rows, out_dim, generator=gen) * 0.01).to(device, torch.bfloat16) for _ in range(chains)]
+        hss = [[ref] for ref in refs]
+
+        def backward():
+            return fm._launch_bwd(xs, gs, wss, hss, "elu", True, False, bkey)
+
+        for c, ((dx, dws, dbs, _), x, g, ws, hs) in enumerate(zip(backward(), xs, gs, wss, hss)):
+            rdx, rdws, rdbs = fm.mlp_chain_bwd_plain(x, g, ws, hs, "elu", True, False)
+            for name, a, b in zip(("dx", "dW", "db"), (dx, *dws, *dbs), (rdx, *rdws, *rdbs)):
+                errs[bkey].append(_check(f"{label} {chain(name, c)} rows={rows}", a, b, rel=True))
+        if not timed_case:
+            continue
+        lxs = [x.to(torch.bfloat16, copy=True).requires_grad_() for x in xs]
         with torch.enable_grad():
-            lib_out = F.elu(F.linear(lx, w16, b16))
-        timed = (_time_ms(lambda: fm._launch_bwd([x], [g], [ws], [[ref]], "elu", True, False, "K1b")),
-                 _time_ms(lambda: fm.mlp_chain_bwd_plain(x, g, ws, [ref], "elu", True, False)),
-                 _time_ms(lambda: torch.autograd.grad(lib_out, [lx, w16, b16], g, retain_graph=True)))
-        # x, g and the saved output read; dx (fp32), dW and db written; W read.
-        record("K1b", tag, rows, timed, (4 * rows * macs, rows * T_EMBED * (3 * 2 + 4) + macs * 4 + params * 4))
-        phases = _backward_phases("K1b head", lambda: fm._launch_bwd([x], [g], [ws], [[ref]], "elu", True, False,
-                                                                      "K1b"),
-                                  rows, 1, [(T_EMBED, T_EMBED)], 2 * T_EMBED + 2 * T_EMBED, T_EMBED,
-                                  _chain_phase1_work((T_EMBED, T_EMBED), False),
-                                  _chain_phase1_plan("K1b head", (T_EMBED, T_EMBED), rows, 1, False))
-        fields["K1b"].update({tag + k: v for k, v in phases.items()})
+            lib_outs = library(lxs)
+        timed = (_time_ms(backward),
+                 _time_ms(lambda: [fm.mlp_chain_bwd_plain(x, g, ws, hs, "elu", True, False)
+                                   for x, g, ws, hs in zip(xs, gs, wss, hss)]),
+                 _time_ms(lambda: torch.autograd.grad(lib_outs, [*lxs, *w16, *b16], gs, retain_graph=True)))
+        # x, g and the saved output read; dx (fp32), dW and db written; W read (per chain).
+        record(bkey, tag, rows, timed, (4 * rows * macs, rows * (in_dim * (x_bytes + 4) + out_dim * 2 * 2)
+                                        + macs * 4 + params * 4))
+        phases = _backward_phases(f"{bkey} {label}", backward, rows, chains, [(out_dim, in_dim)],
+                                  2 * out_dim + x_bytes * in_dim, chains * out_dim,
+                                  _sum_work(*[_chain_phase1_work((in_dim, out_dim), False)] * chains),
+                                  _chain_phase1_plan(f"{bkey} {label}", (in_dim, out_dim), rows, chains, False))
+        fields[bkey].update({tag + k: v for k, v in phases.items()})
+    for key in fields:
+        fields[key][prefix + "max_abs_err"] = max(errs[key])
+    return fields
+
+
+def check_tl_head_kernels(device) -> dict:
+    """K1f and K1b on the transformer entry's ELU head (128 -> 128, trailing
+    activation) at the sizes path TL gives them: the forward saving at the
+    minibatch's 65,536 rows and primal at the value and KL passes' 262,144
+    and at the rollout step's 1,024, the backward with dX at 65,536.
+    Returns the ``tl_head_`` fields of K1f and K1b."""
+    import torch
+
+    print("[kernels] K1f/K1b on the ELU head 128 -> 128 at path TL's sizes (K1f also at its rollout step)")
+    fields = _check_head_kernels(device, "head", "tl_head_", T_EMBED, torch.bfloat16,
+                                 ((TL_MB_ROWS, True, "", True), (TL_PRIMAL_ROWS, False, "primal_", True),
+                                  (T_ENVS, False, "step_", True)), seed=14, queued=("tl_head_", "tl_head_step_"))
     for key in fields:
         fields[key]["tl_head_shape"] = (f"{TL_MB_ROWS} x 128-128 ELU (TL's minibatch, saving; backward with dX)"
                                         + (f"; primal at {TL_PRIMAL_ROWS} rows (value and KL passes) and at "
                                            f"{T_ENVS} (the rollout step)" if key == "K1f" else ""))
-        fields[key]["tl_head_max_abs_err"] = max(errs[key])
+    return fields
+
+
+# -- Paths R and RJ: the zoo's recurrent entry (GRU 256, ELU head 128) ---------
+
+R_HIDDEN = 256  # Velocity-Flat recurrent_ppo: GRU 256, one ELU head layer of 128
+R_MB_ROWS = T_ENVS // MINIBATCHES * STEPS  # 6,144 rows per minibatch (256 environments x 24 steps)
+R_PRIMAL_ROWS = T_ENVS * STEPS  # 24,576 rows in the KL pass
+
+
+def check_r_head_kernels(device) -> dict:
+    """K1f and K1b on the recurrent entry's head (256 -> 128 ELU, trailing
+    activation) at the sizes path R gives them, on the GRU's fp32 output (the
+    kernel rounds it to bf16 as the plain version's cast does): the forward
+    primal at the rollout step's 1,024 rows and the KL pass's 24,576, saving
+    at the minibatch's 6,144, and at a ragged 1,000 (checked, not timed); the
+    backward with dX at 6,144 and 1,000.  Returns the ``r_head_`` fields of
+    K1f and K1b."""
+    import torch
+
+    print("[kernels] K1f/K1b on the recurrent entry's ELU head 256 -> 128 at path R's sizes (fp32 input: the GRU's)")
+    fields = _check_head_kernels(device, "R head", "r_head_", R_HIDDEN, torch.float32,
+                                 ((T_ENVS, False, "step_", True), (R_MB_ROWS, True, "", True),
+                                  (R_PRIMAL_ROWS, False, "primal_", True), (RAGGED_ROWS, True, "ragged_", False)),
+                                 seed=15)
+    for key in fields:
+        fields[key]["r_head_shape"] = (f"{R_MB_ROWS} x 256-128 ELU on fp32 input (R's minibatch, saving; backward "
+                                       f"with dX; also {RAGGED_ROWS} rows)"
+                                       + (f"; primal at {T_ENVS} rows (the rollout step) and {R_PRIMAL_ROWS} (the KL "
+                                          f"pass)" if key == "K1f" else ""))
+    return fields
+
+
+def check_rj_pair_kernels(device) -> dict:
+    """K2f and K2b on path RJ's pair of heads (two 256 -> 128 ELU, trailing
+    activation, on the stacked GRUs' fp32 output): the forward saving and
+    the backward with dX at the minibatch's 2 x 6,144 rows (timed, planned,
+    repeated bit for bit) and at a ragged 2 x 1,000 (checked), then
+    ``fused_mlp_pair(..., skip_input_grad=False)`` under autograd at 2 x
+    6,144 against the CPU.  Returns the ``rj_pair_`` fields of K2f and K2b."""
+    import torch
+
+    print("[kernels] K2f/K2b on path RJ's pair of ELU heads 256 -> 128 with dX (fp32 input: the stacked GRUs')")
+    fields = _check_head_kernels(device, "RJ pair", "rj_pair_", R_HIDDEN, torch.float32,
+                                 ((R_MB_ROWS, True, "", True), (RAGGED_ROWS, True, "ragged_", False)),
+                                 seed=16, chains=2)
+    print(f"[wrappers] fused_mlp_pair with input gradients, rows={R_MB_ROWS}, 256 -> 128 ELU on fp32 input "
+          f"(path RJ's heads)")
+    errs = _pair_wrapper_errors(device, torch.Generator().manual_seed(SEED + 17), R_HIDDEN, torch.float32,
+                                R_MB_ROWS)
+    for key in fields:
+        fields[key]["rj_pair_max_abs_err"] = max(fields[key]["rj_pair_max_abs_err"], *errs[key])
+        fields[key]["rj_pair_shape"] = (f"2 x {R_MB_ROWS} x 256-128 ELU on fp32 input (RJ's minibatch, saving; "
+                                        f"backward with dX; also 2 x {RAGGED_ROWS} rows)")
     return fields
 
 
@@ -2260,6 +2372,46 @@ def check_block_kernels(device) -> dict:
     return results
 
 
+def _pair_wrapper_errors(device, gen, in_dim: int, x_dtype, rows: int) -> dict:
+    """``fused_mlp_pair`` with input gradients on two ``in_dim`` -> 128 ELU
+    tails (trailing activation) under autograd, on the card against the same
+    call on the CPU (its plain version): each call launches K2f and K2b once,
+    the input gradients come back in the inputs' dtype, and the outputs, dX,
+    dW and db agree at ``check_kernels``'s limits.  Returns
+    ``{"K2f": [errors], "K2b": [errors]}``."""
+    import torch
+
+    from cusrl_tpu_torch.nn.kernels import fused_mlp as fm
+
+    tails = [[(torch.randn(T_EMBED, in_dim, generator=gen) / math.sqrt(in_dim)),
+              torch.randn(T_EMBED, generator=gen) * 0.1] for _ in range(2)]
+    lat = [torch.randn(rows, in_dim, generator=gen).to(x_dtype) for _ in range(2)]
+    gl = [(torch.randn(rows, T_EMBED, generator=gen) * 0.01).to(torch.bfloat16) for _ in range(2)]
+
+    def run(device_):
+        leaves = [[t.to(device_).requires_grad_() for t in tail] for tail in tails]
+        x = [t.to(device_).requires_grad_() for t in lat]
+        before = dict(fm.LAUNCHES)
+        outs = fm.fused_mlp_pair(*x, leaves[0][:1], leaves[0][1:], leaves[1][:1], leaves[1][1:], "elu", True,
+                                 skip_input_grad=False)
+        torch.autograd.backward(list(outs), [g.to(device_) for g in gl])
+        launched = {n: v - before[n] for n, v in fm.LAUNCHES.items() if v != before[n]}
+        return outs, x, leaves, launched
+
+    (outs, x, leaves, launched), (ref_outs, ref_x, ref_leaves, _) = run(device), run("cpu")
+    if launched != {"K2f": 1, "K2b": 1}:
+        raise AssertionError(f"fused_mlp_pair with input gradients launched {launched}")
+    errs = {"K2f": [], "K2b": []}
+    for c in range(2):
+        errs["K2f"].append(_check(f"tail out[{c}]", outs[c].cpu(), ref_outs[c], rel=False))
+        if x[c].grad is None or x[c].grad.dtype != x_dtype:
+            raise AssertionError(f"fused_mlp_pair returned no {x_dtype} input gradient")
+        errs["K2b"].append(_check(f"tail x.grad[{c}]", x[c].grad.cpu(), ref_x[c].grad, rel=True))
+        for i, (a, b) in enumerate(zip(leaves[c], ref_leaves[c])):
+            errs["K2b"].append(_check(f"tail param{i}.grad[{c}]", a.grad.cpu(), b.grad, rel=True))
+    return errs
+
+
 def check_block_wrappers(device) -> dict:
     """The wrappers the fused route calls, under autograd at the path's
     shapes, against the same calls on the CPU (their plain versions): K4's
@@ -2335,31 +2487,8 @@ def check_block_wrappers(device) -> dict:
     print("[wrappers] an unsupported activation (silu) raises on the card, single and pair")
 
     print(f"[wrappers] fused_mlp_pair with input gradients, rows={rows}, 128 -> 128 ELU (the joint evaluation's tails)")
-    tails = [[(torch.randn(T_EMBED, T_EMBED, generator=gen) / math.sqrt(T_EMBED)),
-              torch.randn(T_EMBED, generator=gen) * 0.1] for _ in range(2)]
-    lat = [torch.randn(rows, T_EMBED, generator=gen).to(torch.bfloat16) for _ in range(2)]
-    gl = [(torch.randn(rows, T_EMBED, generator=gen) * 0.01).to(torch.bfloat16) for _ in range(2)]
-
-    def tail_run(device_):
-        leaves = [[t.to(device_).requires_grad_() for t in tail] for tail in tails]
-        x = [t.to(device_).requires_grad_() for t in lat]
-        before = dict(fm.LAUNCHES)
-        outs = fm.fused_mlp_pair(*x, leaves[0][:1], leaves[0][1:], leaves[1][:1], leaves[1][1:], "elu", True,
-                                 skip_input_grad=False)
-        torch.autograd.backward(list(outs), [g.to(device_) for g in gl])
-        launched = {n: v - before[n] for n, v in fm.LAUNCHES.items() if v != before[n]}
-        return outs, x, leaves, launched
-
-    (outs, x, leaves, launched), (ref_outs, ref_x, ref_leaves, _) = tail_run(device), tail_run("cpu")
-    if launched != {"K2f": 1, "K2b": 1}:
-        raise AssertionError(f"fused_mlp_pair with input gradients launched {launched}")
-    for c in range(2):
-        errs["K2f"].append(_check(f"tail out[{c}]", outs[c].cpu(), ref_outs[c], rel=False))
-        if x[c].grad is None or x[c].grad.dtype != torch.bfloat16:
-            raise AssertionError("fused_mlp_pair returned no bf16 input gradient")
-        errs["K2b"].append(_check(f"tail x.grad[{c}]", x[c].grad.cpu(), ref_x[c].grad, rel=True))
-        for i, (a, b) in enumerate(zip(leaves[c], ref_leaves[c])):
-            errs["K2b"].append(_check(f"tail param{i}.grad[{c}]", a.grad.cpu(), b.grad, rel=True))
+    for key, found in _pair_wrapper_errors(device, gen, T_EMBED, torch.bfloat16, rows).items():
+        errs[key].extend(found)
 
     print(f"[wrappers] the fused step route against the modular step, {T_ENVS} environments, 4 steps")
     from cusrl_tpu_torch.nn.module.causal_attn import CausalTransformerEncoderLayerFactory
@@ -2416,10 +2545,16 @@ PATHS = ("A", "B", "C", "CM")
 PATH_NAMES = {"A": "zoo Velocity-Rough ppo", "B": "A + fuse_heads (K8)", "C": "A + fused_ppo_update (K9)",
               "CM": "C in mono mode (K9m)",
               "T": "zoo Velocity-Flat transformer_ppo, modular route", "TF": "zoo Velocity-Flat transformer_ppo",
-              "TJ": "TF + fuse_actor_critic_evaluation (K5)", "TL": "TF with 256-step rollouts (K7)"}
+              "TJ": "TF + fuse_actor_critic_evaluation (K5)", "TL": "TF with 256-step rollouts (K7)",
+              "R": "zoo Velocity-Flat recurrent_ppo (GRU 256)", "RJ": "R + fuse_actor_critic_evaluation (K2)",
+              "RL": "R with rnn_type='lstm'"}
 # The route each transformer path runs: T the modular one, TF, TJ and TL the default.
 PATH_ROUTES = {"T": "0", "TF": None, "TJ": None, "TL": None}
 PATH_STEPS = {"TL": TL_STEPS}  # rollout steps per iteration; STEPS elsewhere
+# The recurrent entry's paths: R as registered, RJ with the joint evaluation
+# (the GRUs stacked, the heads on K2), RL with LSTM cells (update check only).
+RECURRENT_PATHS = ("R", "RJ")
+RECURRENT_CHECKS = ("R", "RJ", "RL")
 MB = EPOCHS * MINIBATCHES
 _NONE = {"K1f": 0, "K1b": 0, "K2f": 0, "K2b": 0, "K8f": 0, "K8b": 0, "K9s": 0, "K9m": 0, "K3f": 0, "K3b": 0, "K6": 0,
          "K7f": 0, **{key: 0 for key in BLOCK_REPLACES}}
@@ -2455,6 +2590,14 @@ EXPECTED_ZOO_LAUNCHES = {  # per training iteration
     "TF": {**_NONE, **_TF_UPDATE, "K1f": 2 * STEPS + _TF_UPDATE["K1f"]},
     "TJ": {**_NONE, **_TJ_UPDATE, "K1f": 2 * STEPS + _TJ_UPDATE["K1f"]},
     "TL": {**_NONE, **_TL_UPDATE, "K1f": 2 * TL_STEPS + _TL_UPDATE["K1f"]},
+    # Path R: per rollout step the actor's head, the per-step critic's head
+    # (post_act) and its bootstrap head (post_step) on 1,024 rows; per
+    # minibatch the actor's and the critic's heads forward (saving) and
+    # backward with dX into the GRUs; the KL pass's head.  The GRUs' products
+    # are fp32 matmuls (no kernel).  RJ: the minibatch's two heads as one K2
+    # pair with input gradients.
+    "R": {**_NONE, "K1f": 3 * STEPS + 2 * MB + 1, "K1b": 2 * MB},
+    "RJ": {**_NONE, "K1f": 3 * STEPS + 1, "K2f": MB, "K2b": MB},
 }
 
 
@@ -2513,7 +2656,10 @@ def check_update_against_cpu(path: str) -> None:
     arithmetic rounded in another order, read the importance-weighted
     advantage 3.0 % apart at 1e-3 and 0.33 % at 1e-4; on path T's CPU side
     alone, a 1e-7 relative change of every gradient moves it 7.5 % at 1e-3
-    and 0.15 % at 1e-4).  After 20 Adam steps at 1e-4 the metrics barely
+    and 0.15 % at 1e-4).  The recurrent paths (R, RJ, RL) update at the zoo's
+    1e-3 on 256 environments x 8 steps; their per-step critic's values and
+    bootstrap values come from the value hook's own ``post_act`` and
+    ``post_step`` on each side, step by step.  After 20 Adam steps at 1e-4 the metrics barely
     see a wrong gradient, so every leaf of the first minibatch's gradient,
     taken before the first step, is held to the CPU's too (2e-2 of the
     leaf's largest element): a backward whose phase 2 leaves out a row split
@@ -2525,7 +2671,15 @@ def check_update_against_cpu(path: str) -> None:
     # TL keeps its 256-step rollout (T > 64: the banded route) on 32
     # environments: 8 per minibatch, 2,048 rows.
     steps, envs = (TL_STEPS, 32) if path == "TL" else (8, 256)
-    if path == "slice 1":
+    if path in RECURRENT_CHECKS:
+        factory = get_experiment("Velocity-Flat", "recurrent_ppo").make_agent_factory()
+        factory.num_steps_per_update = steps
+        factory.fuse_actor_critic_evaluation = path == "RJ"
+        factory.rnn_type = "lstm" if path == "RL" else "gru"
+        # The update only (the per-step critic's values are the rollout's):
+        # per minibatch both heads forward and backward, then the KL pass.
+        expected = {"K1f": 1, "K2f": MB, "K2b": MB} if path == "RJ" else {"K1f": 2 * MB + 1, "K1b": 2 * MB}
+    elif path == "slice 1":
         factory, expected = _slice_factory(num_steps_per_update=steps), {"K1f": 3, "K2f": MB, "K2b": MB}
     elif path in PATH_ROUTES:
         factory = get_experiment("Velocity-Flat", "transformer_ppo").make_agent_factory()
@@ -2548,7 +2702,7 @@ def check_update_against_cpu(path: str) -> None:
     truncated = torch.rand(steps, envs, 1, generator=gen) < 0.05
     done = terminated | truncated
     # The flat sampler permutes 128-row tiles; the temporal one environments.
-    units = envs if path in PATH_ROUTES else steps * envs // 128
+    units = envs if path in PATH_ROUTES or path in RECURRENT_CHECKS else steps * envs // 128
     perms = torch.stack([torch.randperm(units, generator=torch.Generator().manual_seed(e)) for e in range(EPOCHS)])
     results, state = {}, None
     fused = path in PATH_ROUTES and PATH_ROUTES[path] is None
@@ -2623,6 +2777,17 @@ def _small_update(factory, device, state, obs, terminated, truncated, done, perm
     with torch.no_grad():
         dist, _, _ = agent.actor(obs[:-1].to(device), memories.get("actor_memory"), sequential=True,
                                  done=done.to(device))
+        # The per-step critic (a GRU's or an LSTM's) records its values and
+        # bootstrap values in the rollout: its hook's post_act and post_step.
+        per_step, hook = {}, agent.get_hook("value_computation")
+        if hook.deferred is False:
+            transitions = []
+            for t in range(steps):
+                transitions.append({"observation": obs[t].to(device), "next_observation": obs[t + 1].to(device),
+                                    "done": done[t].to(device)})
+                hook.post_act(agent, transitions[-1])
+                hook.post_step(agent, transitions[-1])
+            per_step = {k: torch.stack([tr[k] for tr in transitions]) for k in ("value", "bootstrap_value")}
     noise = torch.randn(steps, envs, 12, generator=torch.Generator().manual_seed(SEED + 2)).to(device)
     action = dist["mean"] + dist["std"] * noise
     rollout = {
@@ -2635,6 +2800,7 @@ def _small_update(factory, device, state, obs, terminated, truncated, done, perm
         "terminated": terminated.to(device),
         "truncated": truncated.to(device),
         "done": done.to(device),
+        **per_step,
         **map_nested(lambda t: t[None], memories),  # a rollout stores them as [1, N, ...]
     }
     names = {id(p): name for name, p in agent.model.named_parameters()}
@@ -2716,6 +2882,9 @@ def train_zoo(kind: str, path: str):
         factory, envs = get_experiment("Velocity-Flat", "transformer_ppo").to_training_factory(), T_ENVS
         factory.agent.fuse_actor_critic_evaluation = path == "TJ"
         factory.agent.num_steps_per_update = PATH_STEPS.get(path, STEPS)
+    elif path in RECURRENT_PATHS:
+        factory, envs = get_experiment("Velocity-Flat", "recurrent_ppo").to_training_factory(), T_ENVS
+        factory.agent.fuse_actor_critic_evaluation = path == "RJ"
     else:
         factory, envs = get_experiment("Velocity-Rough", "ppo").to_training_factory(), NUM_ENVS
         factory.agent = _with_path(factory.agent, path)
@@ -2802,6 +2971,10 @@ def profile_iteration(driver, label: str, steps: int = STEPS) -> None:
           f"idle share {max(0.0, 1 - busy_ms / wall_ms):.3f} (profiler on)")
     for ms, count, name in rows[:12]:
         print(f"    {ms:9.3f} ms {count:6d}x  {name[:90]}")
+    # The library's matrix products (cuBLAS and CUTLASS, by name), whatever their rank.
+    gemms = [r for r in rows if "gemm" in r[2].lower()]
+    print(f"[profile] {label}, library matrix products: {sum(r[1] for r in gemms)} launches of {len(gemms)} kernels, "
+          f"{sum(r[0] for r in gemms):.3f} ms per iteration")
     # Phase 2 of the backwards (csrc/dw_phase2.cuh), listed whatever its rank.
     phase2 = [r for r in rows if _in_namespaces(r[2], ("dw",))]
     for ms, count, name in phase2:
@@ -2860,8 +3033,9 @@ def main(argv: list[str]) -> int:
                 print(f"    {log.stem}: {line.strip()}")
 
     if argv:  # --paths P ...: only the named paths' [train-zoo] chunks and profiles (comparing two checkouts)
-        if argv[0] != "--paths" or not set(argv[1:]) <= {*PATHS, *PATH_ROUTES}:
-            print(f"usage: chip_smoke.py [--paths {' '.join((*PATH_ROUTES, *PATHS))} ...]", file=sys.stderr)
+        if argv[0] != "--paths" or not set(argv[1:]) <= {*PATHS, *PATH_ROUTES, *RECURRENT_PATHS}:
+            print(f"usage: chip_smoke.py [--paths {' '.join((*PATH_ROUTES, *PATHS, *RECURRENT_PATHS))} ...]",
+                  file=sys.stderr)
             return 2
         for path in argv[1:]:
             train_zoo(kind, path)
@@ -2883,21 +3057,31 @@ def main(argv: list[str]) -> int:
     for key, fields in check_tl_head_kernels(device).items():
         results[key].update(fields)
         results[key]["max_abs_err"] = max(results[key]["max_abs_err"], fields["tl_head_max_abs_err"])
+    for prefix, check in (("r_head_", check_r_head_kernels), ("rj_pair_", check_rj_pair_kernels)):
+        for key, fields in check(device).items():
+            results[key].update(fields)
+            results[key]["max_abs_err"] = max(results[key]["max_abs_err"], fields[prefix + "max_abs_err"])
     for key, err in (*check_wrappers(device).items(), *check_head_wrappers(device).items()):
         results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
     for key, err in check_block_wrappers(device).items():
         results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
     time_redesign_queue(results)
-    for path in ("slice 1", *PATHS, *PATH_ROUTES):
+    for path in ("slice 1", *PATHS, *PATH_ROUTES, *RECURRENT_CHECKS):
         check_update_against_cpu(path)
     train(kind)
     path_launches = {}
-    for path in (*PATH_ROUTES, *PATHS):
+    for path in (*PATH_ROUTES, *PATHS, *RECURRENT_PATHS):
         path_launches[path], _ = train_zoo(kind, path)
 
     # TL's rollout step runs the FFN and the ELU head through K1f at 1,024 rows:
     # half of its K1f launches per iteration beyond the update's are the head's.
     results["K1f"]["tl_head_step_launches"] = (path_launches["TL"]["K1f"] // 10 - _TL_UPDATE["K1f"]) // 2
+    # Every K1f and K1b launch of path R is the head's (256 -> 128): per iteration.
+    for key in ("K1f", "K1b"):
+        results[key]["r_head_launches"] = path_launches["R"][key] // 10
+    # Every K2f and K2b launch of path RJ is its pair of heads: per iteration.
+    for key in ("K2f", "K2b"):
+        results[key]["rj_pair_launches"] = path_launches["RJ"][key] // 10
     # TL's recomputing K7 backward runs once for each K7f launch that takes a
     # gradient: the run's launches per iteration less the value and KL passes'.
     bwd_ms, grad_calls = results["K7f"]["tl_recompute_bwd_device_ms"], path_launches["TL"]["K7f"] / 10 - TL_PRIMAL_K7F
@@ -2918,7 +3102,7 @@ def main(argv: list[str]) -> int:
             "library_ms": r["library_ms"], "shape": r["shape"], "path": f"{path}: {PATH_NAMES[path]}",
             "launches_by_path": {p_: path_launches[p_][key] for p_ in path_launches if path_launches[p_][key]},
             **{k: v for k, v in r.items()
-               if k.startswith(("gelu", "primal", "offpath", "tl_", "phase", "bitwise", "grid", "ring", "smem", "regs",
+               if k.startswith(("gelu", "primal", "offpath", "tl_", "r_head", "rj_pair", "phase", "bitwise", "grid", "ring", "smem", "regs",
                                 "spills", "device", "pack", "rollout", "queue", "host", "plan"))},
             "status": "ported and checked",
         })

@@ -1,7 +1,10 @@
 """Generalized Advantage Estimation (counterpart of
 ``cusrl_tpu/hook/on_policy/gae.py``): the reverse recurrence as a Python loop
 over the time axis, in fp32, with the optional distinct ``lamda_value`` for
-the return targets."""
+the return targets.  With ``recompute`` the advantages and returns are
+computed afresh for every minibatch in ``objective`` (from the batch's
+rewards, dones, values and next values) instead of once in ``pre_update``;
+that needs temporal batches, whose time axis is intact."""
 
 from __future__ import annotations
 
@@ -37,18 +40,31 @@ class GeneralizedAdvantageEstimation(Hook):
             raise ValueError(f"'lamda' must be in [0, 1]; got {lamda}")
         if lamda_value is not None and not 0 <= lamda_value <= 1:
             raise ValueError(f"'lamda_value' must be in [0, 1]; got {lamda_value}")
-        if recompute:
-            raise NotImplementedError("GAE recompute needs temporal batches, which are not ported yet")
         self.gamma = gamma
         self.lamda = lamda
         self.lamda_value = lamda_value
+        self.recompute = recompute
+        # What a recomputing objective reads of the batch.
+        self.batch_keys = ("reward", "done", "value", "next_value") if recompute else ()
 
-    def pre_update(self, agent, rollout: dict) -> dict:
-        args = (rollout["reward"], rollout["done"], rollout["value"], rollout["next_value"], self.gamma)
+    def _compute(self, data: dict) -> None:
+        args = (data["reward"], data["done"], data["value"], data["next_value"], self.gamma)
         advantage = generalized_advantage_estimation(*args, self.lamda)
         value_advantage = advantage if self.lamda_value is None else generalized_advantage_estimation(
             *args, self.lamda_value
         )
-        rollout["advantage"] = advantage
-        rollout["return"] = rollout["value"].float() + value_advantage
+        data["advantage"] = advantage
+        data["return"] = data["value"].float() + value_advantage
+
+    def pre_update(self, agent, rollout: dict) -> dict:
+        if not self.recompute:
+            self._compute(rollout)
         return {}
+
+    def objective(self, agent, metadata, batch):
+        if self.recompute:
+            if not metadata.get("temporal"):
+                raise RuntimeError("GAE recompute requires temporal batches (time axis intact)")
+            with torch.no_grad():  # the inputs are rollout constants
+                self._compute(batch)
+        return None, {}

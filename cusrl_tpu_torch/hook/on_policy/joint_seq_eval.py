@@ -1,4 +1,4 @@
-"""Joint actor+critic sequence evaluation for transformer backbones
+"""Joint actor+critic sequence evaluation for recurrent backbones
 (counterpart of ``cusrl_tpu/hook/on_policy/joint_seq_eval.py``).
 
 The PPO presets build the actor and the critic with identical backbone
@@ -12,9 +12,13 @@ followed by one ``Mlp`` tail) whose layers are both fused-eligible take the
 pair route: ``fused_pair_sequence`` (the K5 pre and post ops around one lane
 attention call per layer), then the two tails as one ``fused_mlp_pair`` (K2
 with input gradients, which flow back through the block) when both fuse.
-Other transformer backbones run one after the other: the JAX package's
-vmapped leaf stack computes the same numbers.  The stack of recurrent (GRU or
-LSTM) backbones comes with the port's recurrent slice and raises until then.
+Recurrent cells of one class (a ``Gru``, ``Lstm`` or ``VanillaRnn``,
+optionally followed by one ``Mlp`` tail) run as the JAX package's vmapped
+stack does: each step's products as one batched product over the two
+networks' stacked weights (``rnn.stacked_sequence``), then the tails as one
+``fused_mlp_pair`` with input gradients (K2, flowing back into the cells)
+when both fuse.  Other backbones run one after the other: the vmapped leaf
+stack computes the same numbers.
 """
 
 from __future__ import annotations
@@ -23,12 +27,9 @@ import torch
 from torch import nn
 
 from cusrl_tpu_torch.nn.kernels.fused_mlp import fused_mlp_pair
-from cusrl_tpu_torch.nn.module.causal_attn import (
-    CausalMultiheadSelfAttention,
-    CausalTransformerEncoderLayer,
-    fused_pair_sequence,
-)
+from cusrl_tpu_torch.nn.module.causal_attn import CausalTransformerEncoderLayer, fused_pair_sequence
 from cusrl_tpu_torch.nn.module.mlp import Mlp
+from cusrl_tpu_torch.nn.module.rnn import _RnnBase, stacked_sequence
 from cusrl_tpu_torch.nn.module.sequential import Sequential
 from cusrl_tpu_torch.template.hook import Hook
 from cusrl_tpu_torch.utils.nest import get_first, map_nested
@@ -56,28 +57,21 @@ def _stackable(actor_backbone, critic_backbone) -> str | None:
     return None
 
 
-def _pair_parts(backbone):
-    """``(encoder layer, Mlp tail or None, memory key or None)`` for the pair
-    shape, else ``(None, None, None)``."""
-    if isinstance(backbone, CausalTransformerEncoderLayer):
+def _pair_parts(backbone, head_types=(CausalTransformerEncoderLayer,)):
+    """``(head module, Mlp tail or None, memory key or None)`` for a backbone
+    that is a ``head_types`` module, optionally followed by one ``Mlp``,
+    else ``(None, None, None)``."""
+    if isinstance(backbone, head_types):
         return backbone, None, None
     if (isinstance(backbone, Sequential) and len(backbone.members) == 2
-            and isinstance(backbone.members[0], CausalTransformerEncoderLayer)
-            and isinstance(backbone.members[1], Mlp)):
+            and isinstance(backbone.members[0], head_types) and isinstance(backbone.members[1], Mlp)):
         return backbone.members[0], backbone.members[1], "0"
     return None, None, None
 
 
-def _transformer_only(backbone) -> bool:
-    """Every recurrent part of the backbone is causal attention."""
-    return all(not getattr(m, "is_recurrent", False)
-               or isinstance(m, (Sequential, CausalTransformerEncoderLayer, CausalMultiheadSelfAttention))
-               for m in backbone.modules())
-
-
 class JointSequentialEvaluation(Hook):
-    """Precomputes ``curr_action_dist`` and ``curr_value`` for transformer
-    agents; must precede ValueLoss and OnPolicyPreparation (the PPO presets
+    """Precomputes ``curr_action_dist`` and ``curr_value`` for recurrent
+    (transformer, GRU, LSTM) agents; must precede ValueLoss and OnPolicyPreparation (the PPO presets
     place it so)."""
 
     training_only = True
@@ -105,16 +99,20 @@ class JointSequentialEvaluation(Hook):
 
         layer_a, tail_a, key_a = _pair_parts(actor.backbone)
         layer_c, tail_c, key_c = _pair_parts(critic.backbone)
+        rnn_a, rtail_a, rkey_a = _pair_parts(actor.backbone, (_RnnBase,))
+        rnn_c, rtail_c, rkey_c = _pair_parts(critic.backbone, (_RnnBase,))
         if (layer_a is not None and layer_c is not None and (tail_a is None) == (tail_c is None)
                 and layer_a._fused_eligible(observation, True) and layer_c._fused_eligible(critic_input, True)):
             latent_a, latent_c = self._pair_eval(layer_a, layer_c, tail_a, tail_c, key_a, key_c, observation,
                                                  critic_input, actor_memory, critic_memory, done)
-        elif _transformer_only(actor.backbone):
+        elif rnn_a is not None and rnn_c is not None:  # one structure (init checked it)
+            mem_a = actor_memory if rkey_a is None else actor_memory[rkey_a]
+            mem_c = critic_memory if rkey_c is None else critic_memory[rkey_c]
+            la, lc, _, _ = stacked_sequence(rnn_a, rnn_c, observation, critic_input, mem_a, mem_c, done)
+            latent_a, latent_c = self._tails(la, lc, rtail_a, rtail_c)
+        else:
             latent_a = actor.backbone(observation, actor_memory, sequential=True, done=done)[0]
             latent_c = critic.backbone(critic_input, critic_memory, sequential=True, done=done)[0]
-        else:
-            raise NotImplementedError("joint evaluation of recurrent (GRU/LSTM) backbones, a vmapped stack in the "
-                                      "JAX package, comes with the recurrent slice of the port")
 
         batch["curr_action_dist"] = actor.distribution(latent_a)
         batch["actor_intermediate"] = {"backbone.output": latent_a}
@@ -129,10 +127,15 @@ class JointSequentialEvaluation(Hook):
         if done is None:
             done = torch.zeros(*observation.shape[:2], 1, dtype=torch.bool, device=observation.device)
         la, lc, _, _ = fused_pair_sequence(layer_a, layer_c, observation, critic_input, mem_a, mem_c, done)
+        return JointSequentialEvaluation._tails(la, lc, tail_a, tail_c)
+
+    @staticmethod
+    def _tails(la, lc, tail_a, tail_c):
+        """The two Mlp tails (if any) on ``[T, B, E]`` latents: as one pair
+        launch when both fuse (input gradients flow back into the modules
+        below), else each on its own."""
         if tail_a is None:
             return la, lc
-        # The tails as one pair launch when both fuse; input gradients flow
-        # back through the block here.
         rows = la.shape[0] * la.shape[1]
         la_flat, lc_flat = la.reshape(rows, -1), lc.reshape(rows, -1)
         if (tail_a._can_fuse(la_flat) and tail_c._can_fuse(lc_flat)

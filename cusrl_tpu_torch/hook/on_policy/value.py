@@ -1,38 +1,46 @@
 """Value computation and value loss hooks (counterpart of
 ``cusrl_tpu/hook/on_policy/value.py``).
 
-No critic pass runs during the rollout.  ``deferred`` is chosen as in the
-JAX hook (``value.py:58-98``): a feedforward critic takes ``True``, a
-recurrent one that supports the counterfactual-append contract takes
-``"sequential"``.  (The port has no sampler that needs per-step memory, which
-the JAX hook also checks for.)
+``deferred`` is chosen as in the JAX hook (``value.py:58-98``): a
+feedforward critic takes ``True``; a recurrent one that supports the
+counterfactual-append contract takes ``"sequential"`` unless the sampler
+needs per-step memory (``requires_per_step_memory``) or
+``CUSRL_TPU_DEFERRED_SEQ=0``; any other recurrent critic (a GRU or an LSTM)
+takes the per-step path, ``False``.
 
-* ``deferred=True``: ``pre_update`` evaluates the critic over the whole
-  ``[T*N]`` rollout twice (observations, then next observations for the
-  bootstrap).
-* ``deferred="sequential"``: one sequence-mode pass over the rollout from the
-  hook's memory as of the rollout's start (the values, the final memory and
-  the attention context), then one counterfactual "next token" pass for the
-  bootstrap values (``value.py:143-167``).  The last step's done is zeroed for
-  the pass, so the final memory is the pre-reset state the last-row
-  bootstrap needs; the hook's memory then resets where the last step ended
-  an episode.  The per-step recurrent path (``deferred=False``) is not ported
-  yet.
+* ``deferred=True``: no critic pass runs during the rollout; ``pre_update``
+  evaluates the critic over the whole ``[T*N]`` rollout twice (observations,
+  then next observations for the bootstrap).
+* ``deferred="sequential"``: no critic pass during the rollout either; one
+  sequence-mode pass over the rollout from the hook's memory as of the
+  rollout's start (the values, the final memory and the attention context),
+  then one counterfactual "next token" pass for the bootstrap values
+  (``value.py:143-167``).  The last step's done is zeroed for the pass, so
+  the final memory is the pre-reset state the last-row bootstrap needs; the
+  hook's memory then resets where the last step ended an episode.
+* ``deferred=False``: the critic runs in every rollout step.  ``post_act``
+  records the step's ``value`` from the hook's memory (and, under a
+  per-step sampler, that memory as ``critic_memory``) and advances the
+  memory; ``post_step`` records ``bootstrap_value``, the value of the step's
+  next state from the advanced, pre-reset memory, and only then resets the
+  memory where the step ended an episode (``value.py:100-135``).
 
 ``next_value[t] = value[t + 1]``, the bootstrap value where the step
 truncated and at the last step, and ``termination_value`` where it
 terminated: termination overrides the truncation bootstrap
 (``value.py:223-229``).  Environments whose final state is missing
-(``final_state_is_missing``) bootstrap truncated steps with their own value,
-on the sequential path only; the feedforward path assumes the final state is
-there, as the environments of the port provide it.
+(``final_state_is_missing``) bootstrap truncated steps with their own value
+on the sequential and per-step paths; the feedforward batched path assumes
+the final state is there, as the environments of the port provide it.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
-from cusrl_tpu_torch.nn.base import reset_memory
+from cusrl_tpu_torch.nn.base import reset_memory, storable_memory
 from cusrl_tpu_torch.template.hook import Hook
 from cusrl_tpu_torch.utils.nest import flatten_nested, get_first, map_nested
 
@@ -65,22 +73,29 @@ class ValueComputation(Hook):
 
     def init(self, agent) -> None:
         critic = agent.critic
+        per_step_sampler = agent.records_per_step_memory
+        self.bootstrap_truncated_states = not agent.environment_spec.final_state_is_missing
         if self.deferred is None:
             if not critic.is_recurrent:
                 self.deferred = True
+            elif (not per_step_sampler and critic.supports_next_token_eval
+                  and os.environ.get("CUSRL_TPU_DEFERRED_SEQ", "1") != "0"):
+                self.deferred = "sequential"
             else:
-                self.deferred = "sequential" if critic.supports_next_token_eval else False
-        if self.deferred is False:
-            raise NotImplementedError("the per-step critic path (deferred=False) is not ported yet")
+                self.deferred = False
         if not critic.is_recurrent:
-            self.deferred = True  # the sequential path of a feedforward critic is the batched one
+            if self.deferred == "sequential":
+                self.deferred = True  # the sequential path of a feedforward critic is the batched one
             return
         if self.deferred is True:
             raise ValueError("deferred=True ValueComputation requires a feedforward critic "
                              "(recurrent critics use deferred='sequential')")
-        if not critic.supports_next_token_eval:
+        if self.deferred == "sequential" and not critic.supports_next_token_eval:
             raise ValueError("deferred='sequential' requires a critic supporting next-token evaluation")
-        self.bootstrap_truncated_states = not agent.environment_spec.final_state_is_missing
+        if self.deferred == "sequential" and per_step_sampler:
+            raise ValueError("deferred='sequential' records no per-step critic_memory snapshots, which this sampler "
+                             "(requires_per_step_memory) needs for BPTT from arbitrary offsets; use the per-step "
+                             "path (deferred=False)")
         # Hooks initialize before the model moves to the agent's device.
         self.memory = map_nested(lambda t: t.to(agent.device), critic.init_memory(agent.parallelism))
 
@@ -88,13 +103,41 @@ class ValueComputation(Hook):
         return {} if self.memory is None else flatten_nested(self.memory, "memory")
 
     def rollout_memory_entries(self) -> dict:
-        return {} if self.memory is None else {"critic_memory": self.memory}
+        if self.memory is None or self.deferred is True:
+            return {}
+        return {"critic_memory": self.memory}
+
+    @torch.no_grad()
+    def post_act(self, agent, transition: dict) -> None:
+        if self.deferred:
+            return
+        observation = get_first(transition, "state", "observation")
+        value, next_memory, _ = agent.critic(observation, self.memory)
+        transition["value"] = value
+        if self.memory is not None:
+            if agent.records_per_step_memory:
+                transition["critic_memory"] = storable_memory(self.memory, observation.shape[0])
+            self.memory = next_memory
+
+    @torch.no_grad()
+    def post_step(self, agent, transition: dict) -> None:
+        if self.memory is None or self.deferred == "sequential":
+            return
+        next_state = get_first(transition, "next_state", "next_observation")
+        transition["bootstrap_value"], _, _ = agent.critic(next_state, self.memory)
+        self.memory = reset_memory(self.memory, transition["done"])
 
     def pre_update(self, agent, rollout: dict) -> dict:
         critic = agent.critic
         observation = get_first(rollout, "state", "observation")
         next_state = get_first(rollout, "next_state", "next_observation")
         terminated, truncated = rollout["terminated"], rollout["truncated"]
+
+        def eval_batched(states):
+            t, n = states.shape[:2]
+            value, _, _ = critic(states.reshape(t * n, *states.shape[2:]))
+            return value.reshape(t, n, -1)
+
         if self.deferred == "sequential":
             done = rollout["done"]
             done_seq = torch.cat([done[:-1], torch.zeros_like(done[-1:])], 0)
@@ -106,15 +149,19 @@ class ValueComputation(Hook):
                 bootstrap = torch.cat([value[:-1], last_value[None]], 0)
                 bootstrap = torch.where(truncated, value, bootstrap)
             self.memory = reset_memory(final_memory, done[-1])
-        else:
-            t, n = observation.shape[:2]
-
-            def eval_batched(states):
-                value, _, _ = critic(states.reshape(t * n, *states.shape[2:]))
-                return value.reshape(t, n, -1)
-
+        elif self.deferred:
             value = eval_batched(observation)
             bootstrap = eval_batched(next_state)
+        else:  # the per-step path: values and (recurrent) bootstrap values from the rollout
+            value = rollout["value"]
+            bootstrap = rollout.get("bootstrap_value")
+            if self.bootstrap_truncated_states:
+                if bootstrap is None:  # a feedforward critic: one batched pass
+                    bootstrap = eval_batched(next_state)
+            else:
+                last = bootstrap[-1] if bootstrap is not None else critic(next_state[-1])[0]
+                bootstrap = torch.cat([value[:-1], last[None]], 0)
+                bootstrap = torch.where(truncated, value, bootstrap)
         rollout["value"] = value
         rollout["next_value"] = compute_next_value(value, bootstrap, terminated, truncated, self.termination_value)
         return {}

@@ -1,5 +1,6 @@
 """PPO presets (counterpart of ``cusrl_tpu/preset/ppo.py``:
-``ppo_hook_suite``, ``PpoAgentFactory`` and ``TransformerPpoAgentFactory``).
+``ppo_hook_suite``, ``PpoAgentFactory``, ``RecurrentPpoAgentFactory`` and
+``TransformerPpoAgentFactory``).
 
 The hook order is the JAX suite's (``preset/ppo.py:61-111``); with recurrent
 backbones the joint evaluation is ``JointSequentialEvaluation``, and the fused
@@ -35,7 +36,7 @@ from cusrl_tpu_torch.template.agent import AgentFactory
 from cusrl_tpu_torch.template.environment import EnvironmentSpec
 from cusrl_tpu_torch.template.hook import Hook
 
-__all__ = ["PpoAgentFactory", "TransformerPpoAgentFactory", "ppo_hook_suite"]
+__all__ = ["PpoAgentFactory", "RecurrentPpoAgentFactory", "TransformerPpoAgentFactory", "ppo_hook_suite"]
 
 
 def ppo_hook_suite(
@@ -198,6 +199,33 @@ class PpoAgentFactory(AgentFactory):
 
     def __call__(self, environment_spec: EnvironmentSpec, *, device=None, seed: int = 0):
         return self.to_underlying()(environment_spec, device=device, seed=seed)
+
+
+@dataclasses.dataclass(kw_only=True)
+class RecurrentPpoAgentFactory(PpoAgentFactory):
+    """PPO with recurrent (GRU/LSTM) backbones, ``Sequential(Rnn, Mlp)`` or
+    the bare RNN without ``mlp_hidden_dims``; temporal sampling engages
+    through the memory entries of the rollout."""
+
+    _recurrent_backbones = True
+
+    rnn_type: str = "gru"
+    rnn_hidden_size: int = 256
+    rnn_num_layers: int = 1
+    mlp_hidden_dims: Sequence[int] = (256,)
+
+    def _backbone_factory(self, hidden_dims):
+        from cusrl_tpu_torch.nn.module.rnn import RnnFactory
+        from cusrl_tpu_torch.nn.module.sequential import SequentialFactory
+
+        rnn = RnnFactory(cell=self.rnn_type, hidden_size=self.rnn_hidden_size, num_layers=self.rnn_num_layers)
+        if not self.mlp_hidden_dims:
+            return rnn
+        return SequentialFactory(factories=(
+            rnn,
+            MlpFactory(hidden_dims=tuple(self.mlp_hidden_dims), activation=self.activation_fn,
+                       ends_with_activation=True),
+        ))
 
 
 @dataclasses.dataclass(kw_only=True)

@@ -88,6 +88,11 @@ class MiniBatchSampler:
         """The rollout fields in the layout ``gather`` indexes: ``[T*N, ...]``."""
         return {key: map_nested(lambda x: x.reshape(-1, *x.shape[2:]), value) for key, value in rollout.items()}
 
+    def metadata(self, plan: EpochPlan, epoch: int, mini_batch: int) -> dict:
+        """What the hooks see of minibatch ``mini_batch`` of epoch ``epoch``."""
+        return {"total_epochs": self.num_epochs, "total_mini_batches": plan.num_mini_batches, "epoch_index": epoch,
+                "mini_batch_index": mini_batch, "temporal": self.temporal}
+
     def _indices(self, plan: EpochPlan, epoch: int, mini_batch: int) -> torch.Tensor:
         per_batch = plan.batch_size // plan.block
         return plan.perms[epoch][mini_batch * per_batch : (mini_batch + 1) * per_batch]

@@ -8,7 +8,11 @@ objective -> backward -> ``pre_optim`` -> optimizer step, then
 ``post_update``; the objective runs once per minibatch.  Step metrics are
 averaged over all minibatches, as in the JAX update.  A recurrent actor's
 memory (``actor_memory``) is carried by the agent: it advances in
-``act_body`` and resets where an episode ends in ``step_body``.
+``act_body`` and resets where an episode ends in ``step_body``.  Under a
+sampler with ``requires_per_step_memory`` (``TemporalRandomSampler``) each
+transition records the memories entering its step (``actor_memory`` here,
+``critic_memory`` in ``ValueComputation``), stacked ``[T, N, ...]``;
+otherwise the rollout records them once, as of its first step.
 """
 
 from __future__ import annotations
@@ -78,6 +82,12 @@ class ActorCritic(Agent):
     def critic(self) -> Value:
         return self.model["critic"]
 
+    @property
+    def records_per_step_memory(self) -> bool:
+        """Whether transitions record the memories entering their step (the
+        sampler replays windows from any step)."""
+        return getattr(self.sampler, "requires_per_step_memory", False)
+
     def get_hook(self, hook_name: str) -> Hook:
         return find_hook(self.hooks, hook_name)
 
@@ -128,7 +138,11 @@ class ActorCritic(Agent):
         (``actor_memory``) and each active hook's
         (``Hook.rollout_memory_entries``), with rank-0 leaves broadcast to
         ``[N]``.  Sequence-mode passes replay the rollout from them; the
-        per-step snapshots are never stored (``rollout.py:46-71,114-121``)."""
+        per-step snapshots are never stored (``rollout.py:46-71,114-121``).
+        None under a per-step sampler, whose transitions carry the memories
+        entering each step."""
+        if self.records_per_step_memory:
+            return {}
         entries = {} if self.actor_memory is None else {"actor_memory": self.actor_memory}
         for hook in self._composite._active():
             entries.update({k: v for k, v in hook.rollout_memory_entries().items() if v is not None})
@@ -144,6 +158,8 @@ class ActorCritic(Agent):
         if state is not None:
             transition["state"] = state
         self._composite.pre_act(self, transition)
+        if self.actor_memory is not None and self.records_per_step_memory:
+            transition["actor_memory"] = storable_memory(self.actor_memory, self.parallelism)
         dist_params, (action, logp), self.actor_memory, _ = self.actor.explore(
             transition["observation"], self.generator, self.actor_memory, noise=noise
         )
@@ -211,10 +227,11 @@ class ActorCritic(Agent):
 
     def update_body(self, rollout: dict, epoch_perms=None) -> dict[str, torch.Tensor]:
         """One whole update on a ``[T, N, ...]`` rollout (memories as
-        ``[1, N, ...]``); returns metrics as 0-d tensors.  ``epoch_perms``
-        injects the sampler's permutations.  With memory in the rollout the
-        sampler is temporal: minibatches are whole environments, and the
-        hooks see ``metadata["temporal"]``."""
+        ``[1, N, ...]``, or ``[T, N, ...]`` per step); returns metrics as 0-d
+        tensors.  ``epoch_perms`` injects the sampler's plan (the mini-batch
+        samplers' permutations, the random samplers' indices).  With memory in
+        the rollout the sampler is temporal: minibatches are whole
+        environments or windows, and the hooks see ``metadata["temporal"]``."""
         rollout = dict(rollout)
         sampler = self.sampler.resolve(rollout)
         active = self._composite._active()
@@ -229,13 +246,7 @@ class ActorCritic(Agent):
         for epoch in range(sampler.num_epochs):
             for mini_batch in range(plan.num_mini_batches):
                 batch = sampler.gather(source, plan, epoch, mini_batch)
-                metadata = {
-                    "total_epochs": sampler.num_epochs,
-                    "total_mini_batches": plan.num_mini_batches,
-                    "epoch_index": epoch,
-                    "mini_batch_index": mini_batch,
-                    "temporal": sampler.temporal,
-                }
+                metadata = sampler.metadata(plan, epoch, mini_batch)
                 for key, value in self._train_step(metadata, batch).items():
                     sums[key] = sums[key] + value if key in sums else value
                 steps += 1

@@ -10,8 +10,11 @@ is no packing: the agent's state is always readable.  Memories (a recurrent
 actor's, a recurrent critic's) are recorded once, as of the rollout's first
 step, as ``[1, N, ...]`` entries: sequence-mode passes replay the rollout from
 them, and the per-step ring snapshots (about 214 MB per network at the
-transformer entry's shapes) are never stored.  The actor's memory stays on
-the agent from rollout to rollout.
+transformer entry's shapes) are never stored.  Only a sampler with
+``requires_per_step_memory`` (windows from any step) gets the per-step
+``[T, N, ...]`` stacks of the memories entering each step, which the
+transitions then carry, as the JAX driver keeps them.  The actor's memory
+stays on the agent from rollout to rollout.
 """
 
 from __future__ import annotations

@@ -11,8 +11,11 @@ scale and error accumulators) each of those tensors is loaded, and a missing
 or extra path raises, as for parameters (fields the hook lists in
 ``jax_config_fields`` are configuration and skipped).  Other entries
 (configuration of the other hooks, optimizer state, the iteration) are
-ignored.  A recurrent critic's ``ValueComputation.memory`` (its ring, mask
-and cursor) is such hook state.  ``actor_memory``, the JAX agent's
+ignored.  A recurrent critic's ``ValueComputation.memory`` (a transformer's
+ring, mask and cursor, a GRU's ``[N, layers, H]`` state, an LSTM's hidden and
+cell states) is such hook state.  The recurrent cells' raw parameters
+(``weights_ih.<layer>`` and the rest) load like any other parameter, under
+``Sequential``'s member index.  ``actor_memory``, the JAX agent's
 ``state_dict()["actor_memory"]``, loads into the agent's carried actor
 memory when given.
 """

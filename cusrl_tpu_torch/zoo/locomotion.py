@@ -1,11 +1,11 @@
-"""Velocity-locomotion experiments (counterpart of the ``ppo`` and
-``transformer_ppo`` entries of ``cusrl_tpu/zoo/locomotion.py``; their kwargs
-are the JAX entries' letter for letter).  The recurrent and AMP entries wait
-for their slices.
+"""Velocity-locomotion experiments (counterpart of the ``ppo``,
+``recurrent_ppo`` and ``transformer_ppo`` entries of
+``cusrl_tpu/zoo/locomotion.py``; their kwargs are the JAX entries' letter for
+letter).  The AMP entry waits for its slice.
 """
 
 from cusrl_tpu_torch.environment.locomotion import VelocityLocomotionEnv
-from cusrl_tpu_torch.preset.ppo import PpoAgentFactory, TransformerPpoAgentFactory
+from cusrl_tpu_torch.preset.ppo import PpoAgentFactory, RecurrentPpoAgentFactory, TransformerPpoAgentFactory
 from cusrl_tpu_torch.zoo.registry import register_experiment
 
 register_experiment(
@@ -57,6 +57,31 @@ register_experiment(
     benchmarking_env_factory_kwargs={"num_instances": 64},
     num_iterations=1500,
     checkpoint_interval=200,
+    iterations_per_dispatch=10,
+)
+
+register_experiment(
+    environment_name="Velocity-Flat",
+    algorithm_name="recurrent_ppo",
+    agent_meta_factory=RecurrentPpoAgentFactory,
+    agent_meta_factory_kwargs=dict(
+        num_steps_per_update=24,
+        rnn_type="gru",
+        rnn_hidden_size=256,
+        mlp_hidden_dims=(128,),
+        activation_fn="elu",
+        lr=1e-3,
+        sampler_epochs=5,
+        sampler_mini_batches=4,
+        normalize_observation=True,
+        desired_kl_divergence=0.015,
+    ),
+    training_env_factory=VelocityLocomotionEnv,
+    training_env_factory_kwargs={"num_instances": 1024},
+    benchmarking_env_factory=VelocityLocomotionEnv,
+    benchmarking_env_factory_kwargs={"num_instances": 64},
+    num_iterations=300,
+    checkpoint_interval=50,
     iterations_per_dispatch=10,
 )
 

@@ -172,25 +172,33 @@ def test_non_temporal_batch_passes_through(agents):
 
 
 class _Recurrent(nn.Module):
-    """A stand-in recurrent backbone that is not causal attention."""
+    """A stand-in recurrent backbone that is neither causal attention nor a
+    recurrent cell; it records whether each call ran in sequence mode."""
 
     is_recurrent = True
 
     def __init__(self, width=4):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(width))
+        self._calls = []
+
+    def forward(self, x, memory=None, *, sequential=False, done=None):
+        self._calls.append(sequential)
+        return x[..., : self.weight.shape[0]] + self.weight, memory, {}
 
 
 def test_rejections_match_jax(agents):
     """Unstackable backbones and action-aware critics raise ValueError, as the
-    JAX hook's ``init``; a recurrent backbone that is not a transformer
-    (GRU/LSTM, the JAX vmapped stack) raises naming the recurrent slice."""
+    JAX hook's ``init``; a recurrent backbone outside the transformer pair
+    and the recurrent cells' stack runs each network on its own in sequence
+    mode (the JAX vmapped stack computes the same numbers)."""
     _, agent = agents
     layer = agent.actor.backbone.members[0]
 
     def fake(actor_backbone, critic_backbone, action_aware=False):
-        actor = type("Actor", (), {"backbone": actor_backbone})()
-        critic = type("Critic", (), {"backbone": critic_backbone, "action_aware": action_aware})()
+        actor = type("Actor", (), {"backbone": actor_backbone, "distribution": staticmethod(lambda z: {"mean": z})})()
+        critic = type("Critic", (), {"backbone": critic_backbone, "action_aware": action_aware,
+                                     "head": staticmethod(lambda z: z.sum(-1, keepdim=True))})()
         return type("Agent", (), {"actor": actor, "critic": critic})()
 
     hook = JointSequentialEvaluation()
@@ -207,6 +215,7 @@ def test_rejections_match_jax(agents):
 
     stub = fake(_Recurrent(), _Recurrent())
     hook.init(stub)
-    with pytest.raises(NotImplementedError, match="recurrent slice"):
-        hook.objective(stub, {"temporal": True}, {"observation": torch.zeros(T, N, OBS), "actor_memory": {},
-                                                  "critic_memory": {}})
+    batch = {"observation": torch.ones(T, N, OBS), "actor_memory": {}, "critic_memory": {}}
+    hook.objective(stub, {"temporal": True}, batch)
+    assert stub.actor.backbone._calls == stub.critic.backbone._calls == [True]
+    assert batch["curr_action_dist"]["mean"].shape == (T, N, 4) and batch["curr_value"].shape == (T, N, 1)

@@ -26,7 +26,8 @@ def test_zoo_ppo_entries_match_jax(environment):
     assert spec.benchmarking_env_factory_kwargs == ref.benchmarking_env_factory_kwargs
     for name in ("num_iterations", "checkpoint_interval", "iterations_per_dispatch", "experiment_name"):
         assert getattr(spec, name) == getattr(ref, name), name
-    assert set(list_experiments()) == {"Velocity-Flat_ppo", "Velocity-Rough_ppo", "Velocity-Flat_transformer_ppo"}
+    assert set(list_experiments()) == {"Velocity-Flat_ppo", "Velocity-Rough_ppo", "Velocity-Flat_transformer_ppo",
+                                       "Velocity-Flat_recurrent_ppo"}
     with pytest.raises(NotImplementedError):
         spec.to_playing_factory()
 
