@@ -26,7 +26,10 @@ without printing a result:
    primal also at 262,144 and at the rollout step's 1,024); K1f/K1b on the
    recurrent entry's ELU head (256 -> 128 on the GRU's fp32 output) at path
    R's 1,024-row rollout step, 6,144-row minibatch (saving; the backward with
-   dX), 24,576-row KL pass and a ragged 1,000) against its plain PyTorch
+   dX), 24,576-row KL pass and a ragged 1,000); K1f/K1b with relu on the amp
+   entry's 48-512-256 backbones at path AMP's 1,024-row rollout step,
+   4,096-row minibatch (saving; the backward with ``skip_input_grad``),
+   16,384-row value and KL passes and a ragged 1,000) against its plain PyTorch
    version on the card, and time the kernel, the plain version and a PyTorch
    yardstick the port never calls (bf16 ``F.linear`` chains, fp32 heads
    and, for K9s, the loss, for K9m the forward too; a masked
@@ -68,7 +71,14 @@ without printing a result:
    ``.grad`` after ``backward``, one launch per call, the residual's
    cotangent reaching the pre op in fp32, an activation the fused block
    does not take raising on the card; and the fused step route against
-   the modular step at 1,024 environments;
+   the modular step at 1,024 environments; ``[second-order]``: AMP's
+   gradient penalty differentiated once more on the card (the
+   discriminator's gradient at penalty weight 5 less at 0) against the CPU,
+   no kernel launched; ``[optimizer]``: adam, adamw, sgd (Nesterov momentum)
+   and rmsprop three steps on the card against the CPU on AMP's parameter
+   set with device learning rates, packed Adam against the default, and the
+   device time of one step on path A's and AMP's parameter sets for the
+   default Adam, packed Adam and ``torch.optim.Adam(fused=True)``;
 5. ``[update-check]``: one whole update on the card against the same update
    through the port's plain CPU path, at full width on a small rollout, for
    the slice-1 configuration, the zoo's paths A, B, C and CM, path T
@@ -76,7 +86,11 @@ without printing a result:
    CPU under ``CUSRL_TPU_FUSED_TRANSFORMER=force``; TL keeps T = 256), and
    the recurrent entry's paths R (the zoo's ``recurrent_ppo``: GRU 256, the
    per-step critic), RJ (R with the joint evaluation: the two GRUs stacked,
-   the heads on K2) and RL (R with LSTM cells);
+   the heads on K2) and RL (R with LSTM cells), and path AMP (the zoo's
+   ``Velocity-Flat``/``amp``: reward shaping and AMP's ``post_step`` over the
+   rollout with the same expert rows on both sides, then the update with the
+   same subsamples; the AMP losses and accuracy among the metrics, the
+   discriminator among the gradient leaves);
 6. ``[train]``: the slice-1 loop (Velocity-Rough widths without observation
    normalization and the adaptive learning rate) for a few iterations;
 7. ``[train-zoo]``: paths T, TF, TJ and TL (the zoo's uncut Velocity-Flat
@@ -92,10 +106,14 @@ without printing a result:
    PPO update: K2f + K9s) and CM (C in mono mode, ``fused_ppo_step._PPO_MODE
    = "mono"``: K9m), and paths R and RJ (the zoo's uncut Velocity-Flat
    ``recurrent_ppo``: GRU 256 and an ELU head of 128, 1,024 environments,
-   the per-step critic; RJ with ``fuse_actor_critic_evaluation=True``),
+   the per-step critic; RJ with ``fuse_actor_critic_evaluation=True``), and
+   path AMP (the zoo's uncut Velocity-Flat ``amp``: relu 512-256 actor and
+   critic, 1,024 environments, 16 steps, 4 x 4 minibatches of 4,096 rows,
+   reward shaping and the AMP discriminator with its gradient penalty in
+   plain layers; the entry's ``iterations_per_dispatch`` of 1 set to 10),
    each built through ``get_experiment(...).to_training_factory()`` with
-   ``iterations_per_dispatch=10``, observation normalization and the
-   KL-adaptive learning rate, and driven through the Trainer for a warm-up
+   ``iterations_per_dispatch=10``, observation normalization and (but AMP)
+   the KL-adaptive learning rate, and driven through the Trainer for a warm-up
    chunk and a timed chunk of 10 iterations, with the launch counters set to
    0 just before the timed chunk and read just after (``EXPECTED_ZOO_LAUNCHES``
    per iteration), one host transfer per chunk and no other synchronizing
@@ -113,9 +131,9 @@ without printing a result:
 the script: copied into another checkout, it times that checkout's port the
 same way (two versions compare inside one call, in turns).
 
-Depth is not cut: the MLP paths have 3 hidden layers, the transformer paths
-their one encoder layer and one head layer, the recurrent paths their one GRU
-layer and one head layer.  Weights are random, from seed 0.  There is no CPU
+Depth is not cut: the MLP paths have 3 hidden layers (AMP 2, as registered),
+the transformer paths their one encoder layer and one head layer, the
+recurrent paths their one GRU layer and one head layer.  Weights are random, from seed 0.  There is no CPU
 fallback: without CUDA the script exits 2.
 """
 
@@ -263,13 +281,23 @@ def _profiled_kernels(fn, namespaces, repeats: int, warmup: int) -> tuple[list, 
         torch.cuda.synchronize()
     found, device_events, device_us = [], 0, 0.0
     for event in prof.key_averages():
-        if event.device_type == torch.autograd.DeviceType.CUDA:
+        if _is_device_work(event):
             us = getattr(event, "self_device_time_total", 0) or getattr(event, "self_cuda_time_total", 0)
             device_events += event.count
             device_us += us
             if _in_namespaces(event.key, namespaces):
                 found.append((event.key, event.count, us))
     return found, device_events, device_us
+
+
+def _is_device_work(event) -> bool:
+    """Whether a profiler event is work on the card (a kernel, a copy, a
+    fill).  A ``record_function`` range that PyTorch also records on the
+    device (``Optimizer.step#Adam.step``: the span from its first kernel to
+    its last, gaps included) repeats its kernels' time, and is not."""
+    import torch
+
+    return event.device_type == torch.autograd.DeviceType.CUDA and not getattr(event, "is_user_annotation", False)
 
 
 def _queued_events_ms(fn, repeats: int = 10, warmup: int = 3) -> float:
@@ -458,21 +486,22 @@ def _chain_phase1_plan(key: str, dims, rows: int, chains: int, skip: bool, head_
     return _phase1_plan(key, plan, "mlp_chain_bwd", f"chain_bwd_kernelILi{plan['per_sm']}ELi{head_mode}E")
 
 
-def _chain_work(rows: int, chains: int, backward: bool, save_hiddens: bool, input_grad: bool):
-    """(FLOP, bytes) the function must do and move: each input read once,
-    each output written once."""
-    pairs = [(WIDTHS[i], WIDTHS[i + 1]) for i in range(len(WIDTHS) - 1)]
+def _chain_work(rows: int, chains: int, backward: bool, save_hiddens: bool, input_grad: bool, dims=WIDTHS,
+                x_bytes: int = 4):
+    """(FLOP, bytes) the function must do and move: each input read once
+    (``x_bytes`` per element of x), each output written once."""
+    pairs = [(dims[i], dims[i + 1]) for i in range(len(dims) - 1)]
     macs = sum(a * b for a, b in pairs)
     params = macs + sum(b for _, b in pairs)
     hidden = sum(b for _, b in pairs[:-1])
     if not backward:
         flops = 2 * rows * macs
-        nbytes = rows * WIDTHS[0] * 4 + params * 4 + rows * WIDTHS[-1] * 2 + (rows * hidden * 2 if save_hiddens else 0)
+        nbytes = rows * dims[0] * x_bytes + params * 4 + rows * dims[-1] * 2 + (rows * hidden * 2 if save_hiddens else 0)
     else:
         dx_macs = sum(a * b for a, b in (pairs if input_grad else pairs[1:]))
         flops = 2 * rows * (macs + dx_macs)
-        nbytes = (rows * WIDTHS[0] * 4 + rows * WIDTHS[-1] * 2 + rows * (hidden + WIDTHS[-1]) * 2  # x, g, saved h
-                  + macs * 4 + params * 4 + (rows * WIDTHS[0] * 4 if input_grad else 0))  # W, dW + db, dx
+        nbytes = (rows * dims[0] * x_bytes + rows * dims[-1] * 2 + rows * (hidden + dims[-1]) * 2  # x, g, saved h
+                  + macs * 4 + params * 4 + (rows * dims[0] * 4 if input_grad else 0))  # W, dW + db, dx
     return chains * flops, chains * nbytes
 
 
@@ -1788,62 +1817,70 @@ def check_gelu_kernels(device) -> dict:
     return fields
 
 
-def _check_head_kernels(device, label: str, prefix: str, in_dim: int, x_dtype, cases, seed: int,
-                        queued: tuple = (), chains: int = 1) -> dict:
-    """K1f and K1b on a one-layer ELU head of 128 (``in_dim`` -> 128, trailing
-    activation), or with ``chains=2`` K2f and K2b on a pair of such heads, at
-    ``cases``, ``(rows, save, tag, timed)`` each: the forward primal or
-    saving, the backward with dX after a saving forward, against the plain
-    versions at ``check_kernels``'s limits; where ``timed``, also two
-    forward calls compared bit for bit, the times of the kernel, the plain
-    version and a bf16 ``F.linear`` + ``F.elu`` per chain on the bf16 input
-    (autograd for the backward) with CUDA events, the forward's device time
-    and plan, the backward's phases, plan, registers, spills and two calls
-    bit for bit.  ``queued`` tags go to the redesign queue's block.  Returns
-    ``{forward key, backward key: {prefix + tag + field: value}}`` with
-    ``prefix + "max_abs_err"``."""
+def _check_chain_kernels(device, label: str, prefix: str, dims, x_dtype, cases, seed: int, activation: str = "elu",
+                         skip_input_grad: bool = False, queued: tuple = (), chains: int = 1) -> dict:
+    """K1f and K1b on one MLP chain of widths ``dims`` (trailing activation),
+    or with ``chains=2`` K2f and K2b on a pair of such chains, at ``cases``,
+    ``(rows, save, tag, timed)`` each: the forward primal or saving, the
+    backward (with dX unless ``skip_input_grad``) after a saving forward,
+    against the plain versions at ``check_kernels``'s limits; where
+    ``timed``, also two forward calls compared bit for bit, the times of the
+    kernel, the plain version and a bf16 ``F.linear`` + activation chain on
+    the input (autograd for the backward) with CUDA events, the forward's
+    device time and plan, the backward's phases, plan, registers, spills and
+    two calls bit for bit.  ``queued`` tags go to the redesign queue's block.
+    Returns ``{forward key, backward key: {prefix + tag + field: value}}``
+    with ``prefix + "max_abs_err"``."""
     import torch
     import torch.nn.functional as F
 
     from cusrl_tpu_torch.nn.kernels import fused_mlp as fm
 
     fkey, bkey = ("K1f", "K1b") if chains == 1 else ("K2f", "K2b")
-    out_dim = T_EMBED
+    act = {"elu": F.elu, "relu": F.relu}[activation]
     gen = torch.Generator().manual_seed(SEED + seed)
-    wss = [[(torch.randn(out_dim, in_dim, generator=gen) / math.sqrt(in_dim)).to(device)] for _ in range(chains)]
-    bss = [[(torch.randn(out_dim, generator=gen) * 0.1).to(device)] for _ in range(chains)]
-    w16 = [ws[0].to(torch.bfloat16).requires_grad_() for ws in wss]
-    b16 = [bs[0].to(torch.bfloat16).requires_grad_() for bs in bss]
-    macs, params = in_dim * out_dim, in_dim * out_dim + out_dim
+    pairs = list(zip(dims[:-1], dims[1:]))
+    wss = [[(torch.randn(b, a, generator=gen) / math.sqrt(a)).to(device) for a, b in pairs] for _ in range(chains)]
+    bss = [[(torch.randn(b, generator=gen) * 0.1).to(device) for _, b in pairs] for _ in range(chains)]
+    w16 = [[w.to(torch.bfloat16).requires_grad_() for w in ws] for ws in wss]
+    b16 = [[b.to(torch.bfloat16).requires_grad_() for b in bs] for bs in bss]
     x_bytes = torch.finfo(x_dtype).bits // 8
     fields, errs = {fkey: {}, bkey: {}}, {fkey: [], bkey: []}
 
     def record(key, tag, rows, timed, work):
-        (k_ms, p_ms, l_ms), (bound, by) = timed, _bound_ms(*(chains * w for w in work))
+        (k_ms, p_ms, l_ms), (bound, by) = timed, _bound_ms(*work)
         print(f"    {key} {label} rows={rows}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
               f"bound_ms={bound:.4f} ({by})")
         fields[key].update({f"{tag}ms": k_ms, f"{tag}plain_ms": p_ms, f"{tag}library_ms": l_ms,
                             f"{tag}bound_ms": bound, f"{tag}bound_by": by})
 
     def library(xs_):
-        return [F.elu(F.linear(x_.to(torch.bfloat16), w, b)) for x_, w, b in zip(xs_, w16, b16)]
+        outs = []
+        for x_, ws, bs in zip(xs_, w16, b16):
+            h = x_.to(torch.bfloat16)
+            for w, b in zip(ws, bs):
+                h = act(F.linear(h, w, b))
+            outs.append(h)
+        return outs
 
     def forward(xs_, save):
-        return fm._launch_fwd(xs_, wss, bss, "elu", True, save, fkey)
+        return fm._launch_fwd(xs_, wss, bss, activation, True, save, fkey)
 
     def plain_forward(xs_, save):
-        return [fm.mlp_chain_fwd_plain(x_, ws, bs, "elu", True, save) for x_, ws, bs in zip(xs_, wss, bss)]
+        return [fm.mlp_chain_fwd_plain(x_, ws, bs, activation, True, save) for x_, ws, bs in zip(xs_, wss, bss)]
 
     def chain(name, c):
         return name if chains == 1 else f"{name}[{c}]"
 
     for rows, save, tag, timed_case in cases:
         tag = prefix + tag
-        xs = [torch.randn(rows, in_dim, generator=gen).to(device, x_dtype) for _ in range(chains)]
-        outs, _, _ = forward(xs, save)
-        refs = [ref for ref, _ in plain_forward(xs, False)]
-        for c, (out, ref) in enumerate(zip(outs, refs)):
+        xs = [torch.randn(rows, dims[0], generator=gen).to(device, x_dtype) for _ in range(chains)]
+        outs, hids, _ = forward(xs, save)
+        refs = plain_forward(xs, True)
+        for c, (out, hid, (ref, ref_hid)) in enumerate(zip(outs, hids, refs)):
             errs[fkey].append(_check(f"{label} {chain('out', c)} save={int(save)} rows={rows}", out, ref, rel=False))
+            for i, (h, r) in enumerate(zip(hid, ref_hid)):
+                errs[fkey].append(_check(f"{label} {chain(f'h{i + 1}', c)} rows={rows}", h, r, rel=False))
         if timed_case:
             again = forward(xs, save)[0]
             torch.cuda.synchronize()
@@ -1852,41 +1889,46 @@ def _check_head_kernels(device, label: str, prefix: str, in_dim: int, x_dtype, c
             with torch.no_grad():
                 timed = (_time_ms(lambda: forward(xs, save)), _time_ms(lambda: plain_forward(xs, save)),
                          _time_ms(lambda: library(xs)))
-            # x read, the bf16 output written, W and b read (per chain).
-            record(fkey, tag, rows, timed, (2 * rows * macs, rows * (in_dim * x_bytes + out_dim * 2) + params * 4))
+            record(fkey, tag, rows, timed, _chain_work(rows, chains, False, save, False, dims, x_bytes))
             if tag in queued:
                 QUEUE[fkey, tag] = (functools.partial(forward, xs, save), _no_grad(functools.partial(library, xs)))
-            device_fields = _chain_forward_fields(f"{fkey} {tag[:-1]}", lambda: forward(xs, save),
-                                                  (in_dim, out_dim), rows, chains, timed[0])
+            device_fields = _chain_forward_fields(f"{fkey} {tag[:-1]}", lambda: forward(xs, save), dims, rows, chains,
+                                                  timed[0])
             fields[fkey].update({tag + k: v for k, v in device_fields.items()})
         if not save:
             continue
-        gs = [(torch.randn(rows, out_dim, generator=gen) * 0.01).to(device, torch.bfloat16) for _ in range(chains)]
-        hss = [[ref] for ref in refs]
+        gs = [(torch.randn(rows, dims[-1], generator=gen) * 0.01).to(device, torch.bfloat16) for _ in range(chains)]
+        hss = [[*ref_hid, ref] for ref, ref_hid in refs]
 
         def backward():
-            return fm._launch_bwd(xs, gs, wss, hss, "elu", True, False, bkey)
+            return fm._launch_bwd(xs, gs, wss, hss, activation, True, skip_input_grad, bkey)
 
         for c, ((dx, dws, dbs, _), x, g, ws, hs) in enumerate(zip(backward(), xs, gs, wss, hss)):
-            rdx, rdws, rdbs = fm.mlp_chain_bwd_plain(x, g, ws, hs, "elu", True, False)
-            for name, a, b in zip(("dx", "dW", "db"), (dx, *dws, *dbs), (rdx, *rdws, *rdbs)):
-                errs[bkey].append(_check(f"{label} {chain(name, c)} rows={rows}", a, b, rel=True))
+            rdx, rdws, rdbs = fm.mlp_chain_bwd_plain(x, g, ws, hs, activation, True, skip_input_grad)
+            if skip_input_grad:
+                if dx is not None:
+                    raise AssertionError(f"{bkey} {label}: skip_input_grad still wrote dX")
+            else:
+                errs[bkey].append(_check(f"{label} {chain('dx', c)} rows={rows}", dx, rdx, rel=True))
+            for l, (a, b) in enumerate(zip(dws, rdws)):
+                errs[bkey].append(_check(f"{label} {chain(f'dW{l}', c)} rows={rows}", a, b, rel=True))
+            for l, (a, b) in enumerate(zip(dbs, rdbs)):
+                errs[bkey].append(_check(f"{label} {chain(f'db{l}', c)} rows={rows}", a, b, rel=True))
         if not timed_case:
             continue
-        lxs = [x.to(torch.bfloat16, copy=True).requires_grad_() for x in xs]
+        lxs = [x.to(torch.bfloat16, copy=True).requires_grad_(not skip_input_grad) for x in xs]
         with torch.enable_grad():
             lib_outs = library(lxs)
+        lib_inputs = [p for ws, bs in zip(w16, b16) for p in (*ws, *bs)] + ([] if skip_input_grad else lxs)
         timed = (_time_ms(backward),
-                 _time_ms(lambda: [fm.mlp_chain_bwd_plain(x, g, ws, hs, "elu", True, False)
+                 _time_ms(lambda: [fm.mlp_chain_bwd_plain(x, g, ws, hs, activation, True, skip_input_grad)
                                    for x, g, ws, hs in zip(xs, gs, wss, hss)]),
-                 _time_ms(lambda: torch.autograd.grad(lib_outs, [*lxs, *w16, *b16], gs, retain_graph=True)))
-        # x, g and the saved output read; dx (fp32), dW and db written; W read (per chain).
-        record(bkey, tag, rows, timed, (4 * rows * macs, rows * (in_dim * (x_bytes + 4) + out_dim * 2 * 2)
-                                        + macs * 4 + params * 4))
-        phases = _backward_phases(f"{bkey} {label}", backward, rows, chains, [(out_dim, in_dim)],
-                                  2 * out_dim + x_bytes * in_dim, chains * out_dim,
-                                  _sum_work(*[_chain_phase1_work((in_dim, out_dim), False)] * chains),
-                                  _chain_phase1_plan(f"{bkey} {label}", (in_dim, out_dim), rows, chains, False))
+                 _time_ms(lambda: torch.autograd.grad(lib_outs, lib_inputs, gs, retain_graph=True)))
+        record(bkey, tag, rows, timed, _chain_work(rows, chains, True, True, not skip_input_grad, dims, x_bytes))
+        phases = _backward_phases(f"{bkey} {label}", backward, rows, chains, [(b, a) for a, b in pairs],
+                                  2 * sum(dims[1:]) + x_bytes * dims[0] + 2 * sum(dims[1:-1]), chains * sum(dims[1:]),
+                                  _sum_work(*[_chain_phase1_work(dims, skip_input_grad)] * chains),
+                                  _chain_phase1_plan(f"{bkey} {label}", dims, rows, chains, skip_input_grad))
         fields[bkey].update({tag + k: v for k, v in phases.items()})
     for key in fields:
         fields[key][prefix + "max_abs_err"] = max(errs[key])
@@ -1902,7 +1944,7 @@ def check_tl_head_kernels(device) -> dict:
     import torch
 
     print("[kernels] K1f/K1b on the ELU head 128 -> 128 at path TL's sizes (K1f also at its rollout step)")
-    fields = _check_head_kernels(device, "head", "tl_head_", T_EMBED, torch.bfloat16,
+    fields = _check_chain_kernels(device, "head", "tl_head_", (T_EMBED, T_EMBED), torch.bfloat16,
                                  ((TL_MB_ROWS, True, "", True), (TL_PRIMAL_ROWS, False, "primal_", True),
                                   (T_ENVS, False, "step_", True)), seed=14, queued=("tl_head_", "tl_head_step_"))
     for key in fields:
@@ -1930,7 +1972,7 @@ def check_r_head_kernels(device) -> dict:
     import torch
 
     print("[kernels] K1f/K1b on the recurrent entry's ELU head 256 -> 128 at path R's sizes (fp32 input: the GRU's)")
-    fields = _check_head_kernels(device, "R head", "r_head_", R_HIDDEN, torch.float32,
+    fields = _check_chain_kernels(device, "R head", "r_head_", (R_HIDDEN, T_EMBED), torch.float32,
                                  ((T_ENVS, False, "step_", True), (R_MB_ROWS, True, "", True),
                                   (R_PRIMAL_ROWS, False, "primal_", True), (RAGGED_ROWS, True, "ragged_", False)),
                                  seed=15)
@@ -1952,7 +1994,7 @@ def check_rj_pair_kernels(device) -> dict:
     import torch
 
     print("[kernels] K2f/K2b on path RJ's pair of ELU heads 256 -> 128 with dX (fp32 input: the stacked GRUs')")
-    fields = _check_head_kernels(device, "RJ pair", "rj_pair_", R_HIDDEN, torch.float32,
+    fields = _check_chain_kernels(device, "RJ pair", "rj_pair_", (R_HIDDEN, T_EMBED), torch.float32,
                                  ((R_MB_ROWS, True, "", True), (RAGGED_ROWS, True, "ragged_", False)),
                                  seed=16, chains=2)
     print(f"[wrappers] fused_mlp_pair with input gradients, rows={R_MB_ROWS}, 256 -> 128 ELU on fp32 input "
@@ -1963,6 +2005,231 @@ def check_rj_pair_kernels(device) -> dict:
         fields[key]["rj_pair_max_abs_err"] = max(fields[key]["rj_pair_max_abs_err"], *errs[key])
         fields[key]["rj_pair_shape"] = (f"2 x {R_MB_ROWS} x 256-128 ELU on fp32 input (RJ's minibatch, saving; "
                                         f"backward with dX; also 2 x {RAGGED_ROWS} rows)")
+    return fields
+
+
+# -- Path AMP: the zoo's Velocity-Flat amp entry (relu 48-512-256, discriminator) --
+
+AMP_WIDTHS = (48, 512, 256)  # Velocity-Flat amp: relu actor and critic backbones 512-256
+AMP_STEPS, AMP_EPOCHS, AMP_MINIBATCHES = 16, 4, 4
+AMP_MB = AMP_EPOCHS * AMP_MINIBATCHES  # 16 minibatches an update
+AMP_MB_ROWS = T_ENVS * AMP_STEPS // AMP_MINIBATCHES  # 4,096 rows per minibatch
+AMP_ROLLOUT_ROWS = T_ENVS * AMP_STEPS  # 16,384 rows in the value and KL passes
+AMP_HOOK = "adversarial_motion_prior"
+
+
+def check_amp_kernels(device) -> dict:
+    """K1f and K1b on the AMP entry's relu backbones (48 -> 512 -> 256, trailing
+    relu; its derivative from the saved post-activation) at the sizes path
+    AMP gives them: the forward primal at the rollout step's 1,024 rows and
+    the value and KL passes' 16,384, saving at the minibatch's 4,096 and a
+    ragged 1,000 (checked, not timed); the backward with ``skip_input_grad``
+    (the observations take no gradient) at 4,096 and 1,000.  Returns the
+    ``amp_`` fields of K1f and K1b."""
+    import torch
+
+    print("[kernels] K1f/K1b on the AMP entry's relu backbones 48-512-256 at path AMP's sizes")
+    fields = _check_chain_kernels(device, "AMP", "amp_", AMP_WIDTHS, torch.float32,
+                                  ((T_ENVS, False, "step_", True), (AMP_MB_ROWS, True, "", True),
+                                   (AMP_ROLLOUT_ROWS, False, "rollout_", True), (RAGGED_ROWS, True, "ragged_", False)),
+                                  seed=18, activation="relu", skip_input_grad=True)
+    for key in fields:
+        fields[key]["amp_shape"] = (f"{AMP_MB_ROWS} x 48-512-256 relu (AMP's minibatch, saving; backward with "
+                                    f"skip_input_grad; also {RAGGED_ROWS} rows)"
+                                    + (f"; primal at {T_ENVS} rows (the rollout step) and {AMP_ROLLOUT_ROWS} (the "
+                                       f"value and KL passes)" if key == "K1f" else ""))
+    return fields
+
+
+def _amp_agent(device, live_logits: bool = True):
+    """The zoo's uncut AMP agent on ``device`` (weights from seed 0), its
+    discriminator's last bias lifted to 0.5 where ``live_logits``: at its
+    random start the trailing relu can leave every logit at 0, where the
+    gradient penalty and its second derivative hold nothing to compare."""
+    import torch
+
+    from cusrl_tpu_torch.environment.locomotion import VelocityLocomotionEnv
+    from cusrl_tpu_torch.zoo.registry import get_experiment
+
+    env = VelocityLocomotionEnv(num_instances=T_ENVS, device=device)
+    agent = get_experiment("Velocity-Flat", "amp").make_agent_factory()(env.spec, device=device, seed=SEED)
+    if live_logits:
+        with torch.no_grad():
+            agent.get_hook(AMP_HOOK).discriminator.layers[-1].bias.fill_(0.5)
+    return agent
+
+
+def check_second_order(device) -> None:
+    """The gradient penalty's second derivative on the card: the
+    discriminator's gradient at ``grad_penalty_weight`` 5 less its gradient
+    at 0 (the penalty's own gradient, a second derivative of the
+    discriminator) against the same on the CPU (same weights, batch and
+    subsample), each leaf within 2e-2 of its largest element, and not 0; the
+    discriminator took no kernel (``fused_kernel=False``, K1f and K1b
+    launches 0)."""
+    import torch
+
+    print("[second-order] AMP's gradient penalty: the discriminator's gradient at weight 5 less at weight 0, card "
+          "against CPU")
+    gen = torch.Generator().manual_seed(SEED + 19)
+    batch = {"agent_transition": torch.randn(AMP_MB_ROWS, 32, generator=gen),
+             "expert_transition": torch.randn(AMP_MB_ROWS, 32, generator=gen) * 0.5 + 0.2}
+    subsample = torch.randint(0, AMP_MB_ROWS, (512,), generator=gen)
+    diffs = {}
+    state = None
+    for dev in ("cpu", device):
+        agent = _amp_agent(dev)
+        hook = agent.get_hook(AMP_HOOK)
+        if state is None:
+            state = {k: v.detach().clone() for k, v in hook.discriminator.state_dict().items()}
+        hook.discriminator.load_state_dict(state)
+        grads = {}
+        _reset_launch_counts()
+        for weight in (5.0, 0.0):
+            hook.grad_penalty_weight = weight
+            hook.queue_draws(subsample=[subsample])
+            objectives, _ = hook.objective(agent, {}, {k: v.to(dev) for k, v in batch.items()})
+            params = list(hook.discriminator.parameters())
+            grads[weight] = torch.autograd.grad(sum(objectives.values()), params)
+            if any(g.device.type != torch.device(dev).type for g in grads[weight]):
+                raise AssertionError(f"the discriminator's gradient is not on {dev}")
+        launched = {k: v for k, v in _launch_counts().items() if v}
+        if launched:
+            raise AssertionError(f"the discriminator launched kernels on {dev}: {launched}")
+        diffs[str(dev)] = [(a - b).cpu() for a, b in zip(grads[5.0], grads[0.0])]
+    # A relu network's input gradient is W3 D2 W2 D1 W1 with 0/1 masks D: its
+    # penalty moves the weights, and the biases only where a unit flips (a
+    # gradient of 0 on both sides).
+    worst = 0.0
+    for (name, _), card, cpu in zip(hook.discriminator.named_parameters(), diffs[str(device)], diffs["cpu"]):
+        scale = cpu.abs().max().item()
+        ratio = (card - cpu).abs().max().item() / max(scale, 1e-30)
+        worst = max(worst, ratio)
+        print(f"    {name:18s} max|penalty grad| cpu={scale:.4e} card={card.abs().max().item():.4e} "
+              f"max|card - cpu| / max|cpu| = {ratio:.3e} (limit 2e-2)")
+        if not (ratio <= 2e-2 and (scale > 0 or name.endswith("bias"))):
+            raise AssertionError(f"the penalty's gradient of {name} on the card disagrees with the CPU's")
+    print(f"[second-order] held: worst leaf {worst:.3e}; the discriminator launched no kernel")
+
+
+OPTIMIZER_FAMILIES = (("adam", {}), ("adamw", {}), ("sgd", {"momentum": 0.9, "nesterov": True}), ("rmsprop", {}))
+
+
+def _optimizer_run(named, factory, grads, device_lr: bool, steps: int = 3) -> dict:
+    """``steps`` steps of ``build_optimizer(factory)`` on copies of ``named``
+    with the given gradients; returns the parameters by path."""
+    import torch
+
+    from cusrl_tpu_torch.template.optimizer import build_optimizer
+
+    params = [(path, torch.nn.Parameter(p.detach().clone())) for path, p in named]
+    opt = build_optimizer(factory, params)
+    if device_lr:
+        opt.use_device_learning_rates()
+    for step in range(steps):
+        for (path, p), g in zip(params, grads[step]):
+            p.grad = g.to(p.device)
+        opt.step()
+    return {path: p.detach() for path, p in params}
+
+
+def _device_ms_per_call(fn, repeats: int = 10, warmup: int = 3) -> tuple[float, str]:
+    """Device time of one call of ``fn``: every device event of ``repeats``
+    calls under torch.profiler, or by queued CUDA events where the profiler
+    records none."""
+    for _ in range(PROFILE_ATTEMPTS):
+        _, events, us = _profiled_kernels(fn, (), repeats, warmup)
+        if events:
+            return us / repeats / 1e3, "torch.profiler, every device event"
+    return _queued_events_ms(fn, repeats, warmup), "CUDA events behind a queued sleep"
+
+
+def check_optimizer(device) -> dict:
+    """``[optimizer]``: each family (adam, adamw, sgd with momentum 0.9 and
+    Nesterov, rmsprop) three steps on the card against the CPU on AMP's
+    parameter set (actor, critic, discriminator; the critic a group at
+    another lr) with device learning rates, and packed Adam
+    (``CUSRL_TPU_PACKED_ADAM=1``) against the default Adam on the card (bit
+    for bit printed), each element within 1e-4 of the steps' largest
+    movement (3 x the largest lr): fp32 rounding of the update, whose bias
+    corrections ``1 - b^t`` carry up to 6e-5 relative error at t = 1 in fp32
+    (JAX's arithmetic, and Adam's ``capturable`` on the card) and none in
+    fp64 (``torch.optim.Adam`` on the CPU); then
+    the device time of one step on path A's and AMP's parameter sets for the
+    default (``torch.optim.Adam`` as each path builds it: A with its
+    schedule's device learning rates, ``capturable``; AMP with float ones),
+    packed Adam and ``torch.optim.Adam(fused=True)`` (float learning rates; a
+    yardstick the port never builds).  Returns the phase's fields."""
+    import torch
+
+    from cusrl_tpu_torch.environment.locomotion import VelocityLocomotionEnv
+    from cusrl_tpu_torch.template.optimizer import AdamFactory, OptimizerFactory, build_optimizer
+    from cusrl_tpu_torch.zoo.registry import get_experiment
+
+    print("[optimizer] the families on the card against the CPU, on AMP's parameter set (3 steps, device lrs)")
+    amp = _amp_agent(device, live_logits=False)
+    named = [(path, p) for path, p in amp.model.named_parameters()]
+    gen = torch.Generator().manual_seed(SEED + 20)
+    grads = [[torch.randn(p.shape, generator=gen) * 0.01 for _, p in named] for _ in range(3)]
+    cpu_named = [(path, p.detach().cpu()) for path, p in named]
+    movement = 3 * 3e-3  # three steps at the largest group lr
+
+    def gap(got, want):
+        """The largest element gap over every leaf, as a share of ``movement``: (share, leaf)."""
+        gaps = {path: (got[path].cpu() - want[path].cpu()).abs().max().item() / movement for path in want}
+        name = max(gaps, key=gaps.get)
+        return gaps[name], name
+
+    fields, worst = {}, {}
+    for cls, kwargs in OPTIMIZER_FAMILIES:
+        factory = OptimizerFactory(cls=cls, lr=1e-3, kwargs=dict(kwargs), param_groups={"critic": {"lr": 3e-3}})
+        ratio, name = gap(_optimizer_run(named, factory, grads, True), _optimizer_run(cpu_named, factory, grads, True))
+        worst[cls] = ratio
+        print(f"    {cls:8s} {kwargs}: worst leaf {name} max|card - cpu| / (3 x 3e-3) = {ratio:.3e} (limit 1e-4)")
+        if not ratio <= 1e-4:
+            raise AssertionError(f"optimizer {cls} on the card disagrees with the CPU")
+    fields["family_worst_gap"] = worst
+    adam = OptimizerFactory(cls="adam", lr=1e-3, param_groups={"critic": {"lr": 3e-3}})
+    default = _optimizer_run(named, adam, grads, True)
+    os.environ["CUSRL_TPU_PACKED_ADAM"] = "1"
+    try:
+        packed = _optimizer_run(named, adam, grads, True)
+    finally:
+        os.environ.pop("CUSRL_TPU_PACKED_ADAM")
+    ratio, name = gap(packed, default)
+    bitwise = all(torch.equal(packed[p], default[p]) for p in default)
+    print(f"    packed Adam against the default on the card: worst leaf {name} {ratio:.3e} (limit 1e-4), "
+          f"{'the same bits' if bitwise else 'not the same bits'}")
+    if not ratio <= 1e-4:
+        raise AssertionError("packed Adam disagrees with the default Adam on the card")
+    fields.update(packed_gap=ratio, packed_bitwise=bitwise)
+
+    print("[optimizer] device ms of one optimizer step (torch.profiler), three variants")
+    path_a = get_experiment("Velocity-Rough", "ppo").make_agent_factory()
+    a_agent = path_a(VelocityLocomotionEnv(num_instances=NUM_ENVS, device=device).spec, device=device, seed=SEED)
+    for label, agent in (("A", a_agent), ("AMP", amp)):
+        params = [p for p in agent.model.parameters()]
+        for p in params:
+            p.grad = torch.randn(p.shape, generator=gen).to(device) * 0.01
+        count = sum(p.numel() for p in params)
+        groups = [{"params": g["params"], "lr": float(g["lr"])} for g in agent.optimizer.optimizer.param_groups]
+        os.environ["CUSRL_TPU_PACKED_ADAM"] = "1"
+        try:
+            packed_opt = build_optimizer(AdamFactory(lr=agent.optimizer.base_learning_rates["default"]),
+                                         agent.model.named_parameters())
+        finally:
+            os.environ.pop("CUSRL_TPU_PACKED_ADAM")
+        if isinstance(agent.optimizer.optimizer.param_groups[0]["lr"], torch.Tensor):  # A: its schedule's
+            packed_opt.use_device_learning_rates()
+        fused = torch.optim.Adam(groups, fused=True)
+        variants = {"default": agent.optimizer.step, "packed": packed_opt.step, "fused": fused.step}
+        times = {}
+        for variant, step in variants.items():
+            ms, by = _device_ms_per_call(step)
+            times[variant] = ms
+            print(f"    {label} ({count} parameters in {len(params)} leaves): {variant:8s} {ms:.4f} device ms per "
+                  f"step ({by})")
+        fields[f"{label}_step_device_ms"] = times
     return fields
 
 
@@ -2547,14 +2814,15 @@ PATH_NAMES = {"A": "zoo Velocity-Rough ppo", "B": "A + fuse_heads (K8)", "C": "A
               "T": "zoo Velocity-Flat transformer_ppo, modular route", "TF": "zoo Velocity-Flat transformer_ppo",
               "TJ": "TF + fuse_actor_critic_evaluation (K5)", "TL": "TF with 256-step rollouts (K7)",
               "R": "zoo Velocity-Flat recurrent_ppo (GRU 256)", "RJ": "R + fuse_actor_critic_evaluation (K2)",
-              "RL": "R with rnn_type='lstm'"}
+              "RL": "R with rnn_type='lstm'", "AMP": "zoo Velocity-Flat amp (relu 512-256, the AMP discriminator)"}
 # The route each transformer path runs: T the modular one, TF, TJ and TL the default.
 PATH_ROUTES = {"T": "0", "TF": None, "TJ": None, "TL": None}
-PATH_STEPS = {"TL": TL_STEPS}  # rollout steps per iteration; STEPS elsewhere
+PATH_STEPS = {"TL": TL_STEPS, "AMP": AMP_STEPS}  # rollout steps per iteration; STEPS elsewhere
 # The recurrent entry's paths: R as registered, RJ with the joint evaluation
 # (the GRUs stacked, the heads on K2), RL with LSTM cells (update check only).
 RECURRENT_PATHS = ("R", "RJ")
 RECURRENT_CHECKS = ("R", "RJ", "RL")
+AMP_PATHS = ("AMP",)  # the zoo's amp entry: 16 steps, 4 x 4 minibatches (not STEPS and MB)
 MB = EPOCHS * MINIBATCHES
 _NONE = {"K1f": 0, "K1b": 0, "K2f": 0, "K2b": 0, "K8f": 0, "K8b": 0, "K9s": 0, "K9m": 0, "K3f": 0, "K3b": 0, "K6": 0,
          "K7f": 0, **{key: 0 for key in BLOCK_REPLACES}}
@@ -2598,6 +2866,12 @@ EXPECTED_ZOO_LAUNCHES = {  # per training iteration
     # pair with input gradients.
     "R": {**_NONE, "K1f": 3 * STEPS + 2 * MB + 1, "K1b": 2 * MB},
     "RJ": {**_NONE, "K1f": 3 * STEPS + 1, "K2f": MB, "K2b": MB},
+    # Path AMP (no joint evaluation): per rollout step the actor on 1,024
+    # rows; the deferred value pass over observations and next observations
+    # and the KL pass on 16,384; per minibatch the actor and the critic
+    # forward (saving) and backward (skip_input_grad) on 4,096.  The
+    # discriminator runs its plain layers (fused_kernel=False): no launch.
+    "AMP": {**_NONE, "K1f": AMP_STEPS + 3 + 2 * AMP_MB, "K1b": 2 * AMP_MB},
 }
 
 
@@ -2681,6 +2955,12 @@ def check_update_against_cpu(path: str) -> None:
         expected = {"K1f": 1, "K2f": MB, "K2b": MB} if path == "RJ" else {"K1f": 2 * MB + 1, "K1b": 2 * MB}
     elif path == "slice 1":
         factory, expected = _slice_factory(num_steps_per_update=steps), {"K1f": 3, "K2f": MB, "K2b": MB}
+    elif path in AMP_PATHS:
+        # The update only: the value and KL passes, per minibatch actor and
+        # critic forward and backward; the discriminator takes no kernel.
+        factory = get_experiment("Velocity-Flat", "amp").make_agent_factory()
+        factory.num_steps_per_update = steps
+        expected = {"K1f": 3 + 2 * AMP_MB, "K1b": 2 * AMP_MB}
     elif path in PATH_ROUTES:
         factory = get_experiment("Velocity-Flat", "transformer_ppo").make_agent_factory()
         factory.num_steps_per_update = steps
@@ -2703,7 +2983,8 @@ def check_update_against_cpu(path: str) -> None:
     done = terminated | truncated
     # The flat sampler permutes 128-row tiles; the temporal one environments.
     units = envs if path in PATH_ROUTES or path in RECURRENT_CHECKS else steps * envs // 128
-    perms = torch.stack([torch.randperm(units, generator=torch.Generator().manual_seed(e)) for e in range(EPOCHS)])
+    epochs = AMP_EPOCHS if path in AMP_PATHS else EPOCHS
+    perms = torch.stack([torch.randperm(units, generator=torch.Generator().manual_seed(e)) for e in range(epochs)])
     results, state = {}, None
     fused = path in PATH_ROUTES and PATH_ROUTES[path] is None
     for device, route in (("cpu", "force" if fused else PATH_ROUTES.get(path)), ("cuda", PATH_ROUTES.get(path))):
@@ -2770,9 +3051,20 @@ def _small_update(factory, device, state, obs, terminated, truncated, done, perm
     steps, envs = done.shape[:2]
     env = VelocityLocomotionEnv(num_instances=envs, device=device)
     agent = factory(env.spec, device=device, seed=SEED)
-    initial = {k: v.detach().clone() for k, v in agent.model.state_dict().items()}
+    amp = next((hook for hook in agent.hooks if hook.hook_name == AMP_HOOK), None)
+    if amp is not None:  # a live logit (see _amp_agent); the card's side loads it below
+        with torch.no_grad():
+            amp.discriminator.layers[-1].bias.fill_(0.5)
+    # The weights and every hook's state (AMP's expert dataset among them,
+    # drawn from each device's own stream) go from the first side to the second.
+    initial = {"model": {k: v.detach().clone() for k, v in agent.model.state_dict().items()},
+               "hooks": [{k: v.detach().clone() for k, v in hook.state_tensors().items()} for hook in agent.hooks]}
     if state is not None:
-        agent.model.load_state_dict(state)
+        agent.model.load_state_dict(state["model"])
+        with torch.no_grad():
+            for hook, tensors in zip(agent.hooks, state["hooks"]):
+                for key, value in hook.state_tensors().items():
+                    value.copy_(tensors[key])
     memories = agent.rollout_memory_entries()  # empty for the MLP paths
     with torch.no_grad():
         dist, _, _ = agent.actor(obs[:-1].to(device), memories.get("actor_memory"), sequential=True,
@@ -2790,13 +3082,29 @@ def _small_update(factory, device, state, obs, terminated, truncated, done, perm
             per_step = {k: torch.stack([tr[k] for tr in transitions]) for k in ("value", "bootstrap_value")}
     noise = torch.randn(steps, envs, 12, generator=torch.Generator().manual_seed(SEED + 2)).to(device)
     action = dist["mean"] + dist["std"] * noise
+    if amp is not None:
+        # The rollout's reward shaping and AMP post_step, step by step, with
+        # the same expert rows on both sides; the update's subsamples too.
+        gen = torch.Generator().manual_seed(SEED + 3)
+        amp.queue_draws(expert=[torch.randint(0, amp.dataset.shape[0], (envs,), generator=gen) for _ in range(steps)],
+                        subsample=[torch.randint(0, steps * envs // AMP_MINIBATCHES, (amp.batch_size,), generator=gen)
+                                   for _ in range(AMP_MB)])
+        with torch.no_grad():
+            transitions = []
+            for t in range(steps):
+                transitions.append({"observation": obs[t].to(device), "next_observation": obs[t + 1].to(device),
+                                    "reward": torch.ones(envs, 1, device=device)})
+                for name in ("reward_shaping", AMP_HOOK):
+                    agent.get_hook(name).post_step(agent, transitions[-1])
+            per_step = {k: torch.stack([tr[k] for tr in transitions])
+                        for k in ("reward", "agent_transition", "expert_transition")}
     rollout = {
         "observation": obs[:-1].to(device),
         "next_observation": obs[1:].to(device),
         "action": action,
         "action_logp": agent.actor.compute_logp(dist, action),
         "action_dist": dist,
-        "reward": torch.ones(steps, envs, 1, device=device),
+        "reward": torch.ones(steps, envs, 1, device=device),  # AMP's shaped reward comes in per_step
         "terminated": terminated.to(device),
         "truncated": truncated.to(device),
         "done": done.to(device),
@@ -2817,6 +3125,8 @@ def _small_update(factory, device, state, obs, terminated, truncated, done, perm
         metrics = {k: float(v) for k, v in agent.update_body(rollout, epoch_perms=perms).items()}
     finally:
         handle.remove()
+    if amp is not None and (amp._expert_draws or amp._subsample_draws):
+        raise AssertionError("AMP's update check left draws unused")
     return metrics, {k: v.cpu() for k, v in first_grads.items()}, initial
 
 
@@ -2885,6 +3195,9 @@ def train_zoo(kind: str, path: str):
     elif path in RECURRENT_PATHS:
         factory, envs = get_experiment("Velocity-Flat", "recurrent_ppo").to_training_factory(), T_ENVS
         factory.agent.fuse_actor_critic_evaluation = path == "RJ"
+    elif path in AMP_PATHS:
+        factory, envs = get_experiment("Velocity-Flat", "amp").to_training_factory(), T_ENVS
+        factory.iterations_per_dispatch = 10  # the entry dispatches one iteration at a time
     else:
         factory, envs = get_experiment("Velocity-Rough", "ppo").to_training_factory(), NUM_ENVS
         factory.agent = _with_path(factory.agent, path)
@@ -2952,11 +3265,14 @@ def profile_iteration(driver, label: str, steps: int = STEPS) -> None:
         driver.collect_and_update(steps)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
-    rows = []
+    rows, spans = [], []
     for event in prof.key_averages():
         # Device-side events only (kernels, copies, fills): a CPU op's device
-        # time repeats the time of the kernels it launched.
-        if event.device_type != torch.autograd.DeviceType.CUDA:
+        # time repeats the time of the kernels it launched, and so does a
+        # range's span on the device (listed apart).
+        if getattr(event, "is_user_annotation", False) and event.device_type == torch.autograd.DeviceType.CUDA:
+            spans.append(event)
+        if not _is_device_work(event):
             continue
         device_us = getattr(event, "self_device_time_total", 0) or getattr(event, "self_cuda_time_total", 0)
         if device_us > 0:
@@ -2971,6 +3287,14 @@ def profile_iteration(driver, label: str, steps: int = STEPS) -> None:
           f"idle share {max(0.0, 1 - busy_ms / wall_ms):.3f} (profiler on)")
     for ms, count, name in rows[:12]:
         print(f"    {ms:9.3f} ms {count:6d}x  {name[:90]}")
+    for event in spans:
+        us = getattr(event, "self_device_time_total", 0) or getattr(event, "self_cuda_time_total", 0)
+        print(f"[profile] {label}, range {event.key} on the device: {us / 1e3:.3f} ms over {event.count} calls, first "
+              f"kernel to last (not counted in device busy)")
+    # The optimizer's updates: PyTorch's foreach kernels (multi_tensor_apply), whatever their rank.
+    foreach = [r for r in rows if "multi_tensor_apply" in r[2]]
+    print(f"[profile] {label}, foreach (multi_tensor_apply) kernels, the optimizer's among them: "
+          f"{sum(r[1] for r in foreach)} launches, {sum(r[0] for r in foreach):.3f} ms per iteration")
     # The library's matrix products (cuBLAS and CUTLASS, by name), whatever their rank.
     gemms = [r for r in rows if "gemm" in r[2].lower()]
     print(f"[profile] {label}, library matrix products: {sum(r[1] for r in gemms)} launches of {len(gemms)} kernels, "
@@ -3033,9 +3357,9 @@ def main(argv: list[str]) -> int:
                 print(f"    {log.stem}: {line.strip()}")
 
     if argv:  # --paths P ...: only the named paths' [train-zoo] chunks and profiles (comparing two checkouts)
-        if argv[0] != "--paths" or not set(argv[1:]) <= {*PATHS, *PATH_ROUTES, *RECURRENT_PATHS}:
-            print(f"usage: chip_smoke.py [--paths {' '.join((*PATH_ROUTES, *PATHS, *RECURRENT_PATHS))} ...]",
-                  file=sys.stderr)
+        if argv[0] != "--paths" or not set(argv[1:]) <= {*PATHS, *PATH_ROUTES, *RECURRENT_PATHS, *AMP_PATHS}:
+            print(f"usage: chip_smoke.py [--paths {' '.join((*PATH_ROUTES, *PATHS, *RECURRENT_PATHS, *AMP_PATHS))} "
+                  f"...]", file=sys.stderr)
             return 2
         for path in argv[1:]:
             train_zoo(kind, path)
@@ -3057,7 +3381,8 @@ def main(argv: list[str]) -> int:
     for key, fields in check_tl_head_kernels(device).items():
         results[key].update(fields)
         results[key]["max_abs_err"] = max(results[key]["max_abs_err"], fields["tl_head_max_abs_err"])
-    for prefix, check in (("r_head_", check_r_head_kernels), ("rj_pair_", check_rj_pair_kernels)):
+    for prefix, check in (("r_head_", check_r_head_kernels), ("rj_pair_", check_rj_pair_kernels),
+                          ("amp_", check_amp_kernels)):
         for key, fields in check(device).items():
             results[key].update(fields)
             results[key]["max_abs_err"] = max(results[key]["max_abs_err"], fields[prefix + "max_abs_err"])
@@ -3066,11 +3391,13 @@ def main(argv: list[str]) -> int:
     for key, err in check_block_wrappers(device).items():
         results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
     time_redesign_queue(results)
-    for path in ("slice 1", *PATHS, *PATH_ROUTES, *RECURRENT_CHECKS):
+    check_second_order(device)
+    optimizer_fields = check_optimizer(device)
+    for path in ("slice 1", *PATHS, *PATH_ROUTES, *RECURRENT_CHECKS, *AMP_PATHS):
         check_update_against_cpu(path)
     train(kind)
     path_launches = {}
-    for path in (*PATH_ROUTES, *PATHS, *RECURRENT_PATHS):
+    for path in (*PATH_ROUTES, *PATHS, *RECURRENT_PATHS, *AMP_PATHS):
         path_launches[path], _ = train_zoo(kind, path)
 
     # TL's rollout step runs the FFN and the ELU head through K1f at 1,024 rows:
@@ -3082,6 +3409,9 @@ def main(argv: list[str]) -> int:
     # Every K2f and K2b launch of path RJ is its pair of heads: per iteration.
     for key in ("K2f", "K2b"):
         results[key]["rj_pair_launches"] = path_launches["RJ"][key] // 10
+    # Every K1f and K1b launch of path AMP is a relu 48-512-256 backbone's: per iteration.
+    for key in ("K1f", "K1b"):
+        results[key]["amp_launches"] = path_launches["AMP"][key] // 10
     # TL's recomputing K7 backward runs once for each K7f launch that takes a
     # gradient: the run's launches per iteration less the value and KL passes'.
     bwd_ms, grad_calls = results["K7f"]["tl_recompute_bwd_device_ms"], path_launches["TL"]["K7f"] / 10 - TL_PRIMAL_K7F
@@ -3102,10 +3432,12 @@ def main(argv: list[str]) -> int:
             "library_ms": r["library_ms"], "shape": r["shape"], "path": f"{path}: {PATH_NAMES[path]}",
             "launches_by_path": {p_: path_launches[p_][key] for p_ in path_launches if path_launches[p_][key]},
             **{k: v for k, v in r.items()
-               if k.startswith(("gelu", "primal", "offpath", "tl_", "r_head", "rj_pair", "phase", "bitwise", "grid", "ring", "smem", "regs",
+               if k.startswith(("gelu", "primal", "offpath", "tl_", "r_head", "rj_pair", "amp_", "phase", "bitwise", "grid",
+                                "ring", "smem", "regs",
                                 "spills", "device", "pack", "rollout", "queue", "host", "plan"))},
             "status": "ported and checked",
         })
+    print("[optimizer] " + json.dumps(optimizer_fields))
     print(smi)
     print(json.dumps({"kernels": kernels, "not_ported": []}))  # every TPU kernel has its counterpart
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

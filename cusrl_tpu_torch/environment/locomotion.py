@@ -6,7 +6,8 @@ mapped through a fixed actuation matrix, observes a 48-D feature vector,
 terminates when it leaves the arena and truncates on a time limit.  The fixed
 ``actuation`` ``[2, A]`` and ``obs_proj`` ``[8 + A, obs]`` matrices are drawn
 from a torch generator seeded with ``seed``, or taken as given (so a test can
-hand in the JAX environment's matrices).
+hand in the JAX environment's matrices).  ``demonstration_dataset`` rolls a
+scripted controller out on it for AMP's expert transitions.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 from cusrl_tpu_torch.template.environment import EnvironmentSpec, TensorEnvironment
 from cusrl_tpu_torch.utils.config import resolve_device
 
-__all__ = ["VelocityLocomotionEnv"]
+__all__ = ["VelocityLocomotionEnv", "demonstration_dataset"]
 
 
 class VelocityLocomotionEnv(TensorEnvironment):
@@ -106,3 +107,45 @@ class VelocityLocomotionEnv(TensorEnvironment):
             "steps": torch.where(reset[:, 0], 0, steps).to(torch.int32),
         }
         return new_state, reward, terminated, truncated, {}
+
+
+@torch.no_grad()
+def demonstration_dataset(
+    num_transitions: int = 65536,
+    state_indices: tuple[int, ...] = tuple(range(16)),
+    num_instances: int = 256,
+    seed: int = 1,
+    *,
+    generator: torch.Generator | None = None,
+    device: str | torch.device | None = None,
+    env: VelocityLocomotionEnv | None = None,
+    init_state: dict | None = None,
+) -> torch.Tensor:
+    """``[num_transitions, 2 * len(state_indices)]`` expert ``(obs_t,
+    obs_{t+1})`` pairs on ``state_indices`` for the AMP discriminator: a
+    scripted velocity-tracking controller (the least-squares inverse of the
+    actuation matrix, ``pinv(actuation.T)``) rolled out on
+    ``VelocityLocomotionEnv(num_instances, seed=seed)`` on ``device`` (None:
+    the card), rows ordered step by step.  ``generator`` draws the commands
+    (a generator on ``device`` seeded with ``seed + 1`` when None); ``env``
+    and ``init_state`` replace the environment and its first state (a test
+    hands in the JAX environment's matrices and state)."""
+    if env is None:
+        env = VelocityLocomotionEnv(num_instances=num_instances, seed=seed, device=device)
+    device = env.device
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(seed + 1)
+    steps = -(-num_transitions // env.num_instances)
+    inverse_actuation = torch.linalg.pinv(env._actuation.T)  # [2, A]
+    idx = torch.tensor(state_indices, dtype=torch.long, device=device)
+    state = env.init_fn(generator) if init_state is None else init_state
+    pairs = []
+    obs, _ = env.observe_fn(state)
+    for _ in range(steps):
+        desired_accel = (state["command"] - state["vel"]) * (5.0 / (env.dt * 10.0))
+        action = torch.clamp(desired_accel @ inverse_actuation, -1.0, 1.0)
+        state, _, _, _, _ = env.step_fn(state, action, generator)
+        next_obs, _ = env.observe_fn(state)
+        pairs.append(torch.cat([obs[..., idx], next_obs[..., idx]], dim=-1))
+        obs = next_obs
+    return torch.cat(pairs)[:num_transitions]

@@ -38,6 +38,7 @@ import math
 from typing import Sequence
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from cusrl_tpu_torch.nn.kernels.operands import in_place, slope_values
 
@@ -306,6 +307,7 @@ class _BandedWindowAttention(torch.autograd.Function):
         return _fwd(q, k, v, q_seg, k_seg, k_valid, window, slopes, block_q)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, g):
         q, k, v, q_seg, k_seg, k_valid = ctx.saved_tensors
         window, slopes, block_q = ctx.meta

@@ -60,6 +60,7 @@ import ctypes
 import functools
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from cusrl_tpu_torch.nn.kernels import dw_phase2, weight_images
 from cusrl_tpu_torch.nn.kernels.fused_mlp import _ACTIVATION_CODES, _PREACT_ACTIVATIONS, _act_plain, _dact_plain
@@ -704,6 +705,7 @@ class _Pre(torch.autograd.Function):
         return (*hs, *qkvs)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, *grads):
         chains, skip_input_grad = ctx.meta
         saved = ctx.saved_tensors
@@ -731,6 +733,7 @@ class _Post(torch.autograd.Function):
         return tuple(outs)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, *gs):
         chains, activation, h_dtypes = ctx.meta
         saved = ctx.saved_tensors

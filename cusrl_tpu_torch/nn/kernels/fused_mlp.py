@@ -59,6 +59,7 @@ import functools
 from typing import Sequence
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from cusrl_tpu_torch.nn.kernels import dw_phase2, weight_images
 
@@ -699,6 +700,7 @@ class _FusedMlp(torch.autograd.Function):
         return outs[0]
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, g):
         activation, trailing, num_layers = ctx.meta
         saved = ctx.saved_tensors
@@ -719,6 +721,7 @@ class _FusedMlpPair(torch.autograd.Function):
         return outs[0], outs[1]
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, ga, gc):
         activation, trailing, nl, skip_input_grad = ctx.meta
         saved = ctx.saved_tensors
@@ -803,6 +806,7 @@ class _FusedMlpPairHeads(torch.autograd.Function):
         return (mean, value, la) if expose_latent else (mean, value)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, gm, gv, gl=None):
         activation, trailing, nl, expose_latent, skip_input_grad = ctx.meta
         saved = ctx.saved_tensors

@@ -44,6 +44,7 @@ import os
 from typing import Sequence
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from cusrl_tpu_torch.nn.kernels.fused_mlp import (
     LAUNCHES,
@@ -287,6 +288,7 @@ class _FusedPpoStep(torch.autograd.Function):
         return (loss_core, *metrics)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, g, *metric_grads):
         dstd, *param_grads = ctx.saved_tensors
         return (None,) * 14 + (dstd * g,) + tuple(t * g for t in param_grads)

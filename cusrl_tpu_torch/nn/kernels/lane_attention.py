@@ -44,6 +44,7 @@ import math
 from typing import Sequence
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from cusrl_tpu_torch.nn.kernels.operands import in_place, slope_values
 
@@ -459,6 +460,7 @@ class _LaneWindowAttention(torch.autograd.Function):
         return out
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, g):
         q, k, v, probs, q_seg, k_seg, k_valid = ctx.saved_tensors
         if _on_cuda(q.device):

@@ -5,7 +5,9 @@
 module maps ``[T, N, C]`` row by row).
 On CUDA tensors with enough rows the whole chain runs as one fused kernel
 (``nn/kernels/fused_mlp.py``); elsewhere it runs layer by layer with the same
-numerics.
+numerics.  ``fused_kernel=False`` keeps a module off the kernels everywhere:
+a network differentiated to second order (AMP's discriminator and its
+gradient penalty) needs it, as the kernels' backward is first-order.
 """
 
 from __future__ import annotations
@@ -30,11 +32,13 @@ class Mlp(BackboneContract, nn.Module):
         layers: list[Linear],
         activation: str = "elu",
         ends_with_activation: bool = False,
+        fused_kernel: bool = True,
     ):
         super().__init__()
         self.layers = nn.ModuleList(layers)
         self.activation = activation
         self.ends_with_activation = ends_with_activation
+        self.fused_kernel = fused_kernel
 
     @property
     def input_dim(self) -> int:
@@ -55,7 +59,8 @@ class Mlp(BackboneContract, nn.Module):
         for dim in x.shape[:-1]:
             rows *= dim
         return (
-            x.dim() >= 2
+            self.fused_kernel
+            and x.dim() >= 2
             and rows >= 256
             and x.is_cuda
             and supports_fused_mlp(self.activation, len(self.layers), self.ends_with_activation)
@@ -91,6 +96,7 @@ class MlpFactory:
     ends_with_activation: bool = True
     bias: bool = True
     compute_dtype: str | None = "default"
+    fused_kernel: bool = True
 
     is_recurrent = False
 
@@ -105,4 +111,4 @@ class MlpFactory:
             Linear(dims[i], dims[i + 1], bias=self.bias, compute_dtype=compute_dtype, generator=generator)
             for i in range(len(dims) - 1)
         ]
-        return Mlp(layers, self.activation, self.ends_with_activation)
+        return Mlp(layers, self.activation, self.ends_with_activation, self.fused_kernel)

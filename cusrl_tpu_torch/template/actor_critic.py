@@ -1,8 +1,12 @@
 """Actor-critic agent (counterpart of ``cusrl_tpu/template/actor_critic.py``:
 act, step and update).
 
-The actor and critic live in one ``nn.ModuleDict`` so their parameter paths
-(``actor.backbone.layers.0.weight``, ...) are the JAX package's dotted paths.
+The actor, the critic and the networks the hooks train live in one
+``nn.ModuleDict`` so their parameter paths (``actor.backbone.layers.0.weight``,
+``hooks.adversarial_motion_prior.discriminator.layers.0.weight``, ...) are the
+JAX package's dotted paths (``params_view``): the optimizer's groups, gradient
+clipping, the update snapshot and ``.to(device)`` cover the hooks' networks
+as they cover the actor and the critic.
 ``update_body`` runs ``pre_update``, then epochs x minibatches of
 objective -> backward -> ``pre_optim`` -> optimizer step, then
 ``post_update``; the objective runs once per minibatch.  Step metrics are
@@ -61,6 +65,10 @@ class ActorCritic(Agent):
             raise RuntimeError(f"Duplicate hook names: {sorted({n for n in names if names.count(n) > 1})}")
         for hook in self.hooks:
             hook.init(self)
+        # Registered before the model moves and the optimizer is built.
+        hook_modules = {h.hook_name: nn.ModuleDict(m) for h in self.hooks if (m := h.trainable_modules())}
+        if hook_modules:
+            self.model["hooks"] = nn.ModuleDict(hook_modules)
         self.model.to(self.device)
         # A recurrent actor's memory, carried from step to step and from
         # rollout to rollout (None for a feedforward actor).
@@ -278,3 +286,31 @@ class ActorCriticFactory(AgentFactory):
             seed=seed,
             name=self.name,
         )
+
+    # -- hook list editing (cusrl_tpu/template/actor_critic.py:716-745) --------
+
+    def register_hook(self, hook: Hook, index: int | None = None, before: str | None = None,
+                      after: str | None = None) -> "ActorCriticFactory":
+        if (index is not None) + (before is not None) + (after is not None) > 1:
+            raise ValueError("Only one of index, before, or after can be specified")
+        if before is not None:
+            index = self.get_hook_index(before)
+        elif after is not None:
+            index = self.get_hook_index(after) + 1
+        elif index is None:
+            index = len(self.hooks)
+        self.hooks.insert(index, hook)
+        return self
+
+    def get_hook(self, hook_name: str) -> Hook:
+        return self.hooks[self.get_hook_index(hook_name)]
+
+    def get_hook_index(self, hook_name: str) -> int:
+        for i, hook in enumerate(self.hooks):
+            if hook.hook_name == hook_name:
+                return i
+        raise ValueError(f"No hook named '{hook_name}' is registered")
+
+    def remove_hook(self, hook_name: str) -> "ActorCriticFactory":
+        self.hooks.pop(self.get_hook_index(hook_name))
+        return self

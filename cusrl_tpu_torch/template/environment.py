@@ -16,6 +16,7 @@ truncated ``[N, 1]`` bool.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Callable
 
 __all__ = ["EnvironmentSpec", "TensorEnvironment"]
 
@@ -35,6 +36,8 @@ class EnvironmentSpec:
     state_normalization_excluded_indices: tuple[int, ...] | None = None
     observation_stat_groups: tuple[tuple[int, ...], ...] = ()
     state_stat_groups: tuple[tuple[int, ...], ...] = ()
+    # Imitation: ``sampler(num) -> [num, D]`` expert transitions (AMP).
+    demonstration_sampler: Callable[[int], Any] | None = None
 
     @property
     def has_state(self) -> bool:

@@ -15,10 +15,14 @@ returning new pytrees; the order of the lifecycle is the JAX package's:
 
 A hook's device state (running statistics, an adaptive scale) lives in
 tensors that it updates in place and lists in ``state_tensors()``, keyed by
-the JAX hook's field path.  ``post_update`` receives the pre-update
-``snapshot`` (parameters, optimizer state and every hook's state tensors)
-when some active hook sets ``needs_snapshot``; otherwise it gets None and no
-snapshot is taken.
+the JAX hook's field path.  A hook that trains a network of its own (AMP's
+discriminator) returns it from ``trainable_modules()`` after ``init``; the
+agent registers it as ``model["hooks"][hook_name][name]``, so its parameters
+are ``hooks.<hook_name>.<name>...``, the JAX optimizer's paths, and move,
+train, clip and snapshot with the actor's and the critic's.
+``post_update`` receives the pre-update ``snapshot`` (parameters, optimizer
+state and every hook's state tensors) when some active hook sets
+``needs_snapshot``; otherwise it gets None and no snapshot is taken.
 
 ``HookComposite`` folds each callback over the active hooks in list order.
 """
@@ -29,6 +33,8 @@ import re
 from typing import TYPE_CHECKING, Any, Iterable
 
 if TYPE_CHECKING:
+    from torch import nn
+
     from cusrl_tpu_torch.template.actor_critic import ActorCritic
 
 __all__ = ["Hook", "HookComposite", "camel_to_snake"]
@@ -68,6 +74,10 @@ class Hook:
 
     def state_tensors(self) -> dict[str, Any]:
         """The hook's device state, updated in place, by JAX field path."""
+        return {}
+
+    def trainable_modules(self) -> dict[str, "nn.Module"]:
+        """The networks the hook trains, by JAX field name (after ``init``)."""
         return {}
 
     def rollout_memory_entries(self) -> dict[str, Any]:

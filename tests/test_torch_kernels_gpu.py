@@ -1915,3 +1915,89 @@ def test_mono_kernel_gives_splits_bits(cuda, widths, activation, rows, loss_clip
         a, b = a.float(), b.float()
         assert torch.isfinite(a).all() and (a - b).abs().max() <= 3e-2 * b.abs().max()
     assert ((sums - ref_sums).abs() <= 1e-4 * ref_sums.abs().clamp(min=1.0)).all(), (sums, ref_sums)
+
+
+AMP_WIDTHS = (48, 512, 256)  # the zoo's Velocity-Flat amp entry: relu actor and critic backbones
+
+
+@pytest.mark.parametrize("rows", [1024, 4096, 1000])
+def test_amp_relu_chain_matches_plain_and_repeats_bitwise(cuda, rows):
+    """K1f with relu on AMP's 48-512-256 backbones (primal at the rollout
+    step's 1,024 rows, saving at the minibatch's 4,096 and a ragged 1,000)
+    and K1b with ``skip_input_grad`` after a saving forward: the relu
+    derivative from the saved post-activation; two calls give the same bits."""
+    gen = torch.Generator().manual_seed(rows + 3)
+    ws, bs = _params(gen, cuda, AMP_WIDTHS)
+    x = torch.tanh(torch.randn(rows, AMP_WIDTHS[0], generator=gen)).to(cuda)
+    save = rows != 1024
+    (out,), (hid,), _ = fm._launch_fwd([x], [ws], [bs], "relu", True, save, "K1f")
+    ref, ref_hid = fm.mlp_chain_fwd_plain(x, ws, bs, "relu", True, save)
+    _close(out, ref, grad=False)
+    for h, r in zip(hid, ref_hid):
+        _close(h, r, grad=False)
+    assert torch.equal(out, fm._launch_fwd([x], [ws], [bs], "relu", True, save, "K1f")[0][0])
+    if not save:
+        return
+    g = (torch.randn(rows, AMP_WIDTHS[-1], generator=gen) * 0.01).to(cuda, torch.bfloat16)
+    hs = [*hid, out]
+    ((dx, dws, dbs, _),) = fm._launch_bwd([x], [g], [ws], [hs], "relu", True, True, "K1b")
+    assert dx is None
+    _, rdws, rdbs = fm.mlp_chain_bwd_plain(x, g, ws, hs, "relu", True, True)
+    for a, b in zip([*dws, *dbs], [*rdws, *rdbs]):
+        _close(a, b, grad=True)
+    ((_, again, _, _),) = fm._launch_bwd([x], [g], [ws], [hs], "relu", True, True, "K1b")
+    assert all(torch.equal(a, b) for a, b in zip(dws, again))
+
+
+def _discriminator(fused_kernel: bool):
+    from cusrl_tpu_torch.nn.module.mlp import MlpFactory
+
+    factory = MlpFactory(hidden_dims=(512, 256), activation="relu", ends_with_activation=True,
+                         compute_dtype="bfloat16", fused_kernel=fused_kernel)
+    disc = factory(32, 1, torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        disc.layers[-1].bias.fill_(0.5)  # a live logit under the trailing relu
+    return disc
+
+
+def test_gradient_penalty_on_the_card_matches_cpu(cuda):
+    """AMP's discriminator (32-512-256-1 relu, bf16, ``fused_kernel=False``)
+    at 512 rows: the gradient penalty and its gradient with respect to the
+    weights (a second derivative) on the card against the CPU, with no kernel
+    launched; the weights' gradients within 2e-2 of their largest element."""
+    from cusrl_tpu_torch.nn.layer.loss import gradient_penalty
+
+    disc = _discriminator(False)
+    x = torch.randn(512, 32, generator=torch.Generator().manual_seed(6))
+    results = {}
+    fm.reset_launch_counts()
+    for device in ("cpu", cuda):
+        net = disc.to(device)
+        penalty = gradient_penalty(lambda v: net(v)[0], x.to(device))
+        grads = torch.autograd.grad(penalty, [l.weight for l in net.layers])
+        results[str(device)] = (penalty.cpu(), [g.cpu() for g in grads])
+    assert not any(fm.LAUNCHES.values())
+    (cpu_penalty, cpu_grads), (card_penalty, card_grads) = results["cpu"], results[str(cuda)]
+    assert cpu_penalty > 0
+    torch.testing.assert_close(card_penalty, cpu_penalty, rtol=2e-2, atol=0)
+    for got, want in zip(card_grads, cpu_grads):
+        assert want.abs().max() > 0
+        assert (got - want).abs().max() <= 2e-2 * want.abs().max()
+
+
+def test_second_derivative_through_the_kernel_raises_on_the_card(cuda):
+    """A fused relu chain 32-512-256 (K1f/K1b, first-order) under a trainable
+    head, as a discriminator with the kernel would run: the gradient
+    penalty's backward raises instead of dropping the second-order term."""
+    from cusrl_tpu_torch.nn.layer.loss import gradient_penalty
+    from cusrl_tpu_torch.nn.module.mlp import MlpFactory
+
+    net = MlpFactory(hidden_dims=(512,), activation="relu", compute_dtype="bfloat16")(
+        32, 256, torch.Generator().manual_seed(5)).to(cuda)
+    head = torch.nn.Linear(256, 1).to(cuda)
+    x = torch.randn(512, 32, generator=torch.Generator().manual_seed(6)).to(cuda)
+    fm.reset_launch_counts()
+    penalty = gradient_penalty(lambda v: head(net(v)[0].float()), x)
+    assert fm.LAUNCHES["K1f"] == 1 and fm.LAUNCHES["K1b"] == 1
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        penalty.backward()

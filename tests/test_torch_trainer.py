@@ -27,7 +27,7 @@ def test_zoo_ppo_entries_match_jax(environment):
     for name in ("num_iterations", "checkpoint_interval", "iterations_per_dispatch", "experiment_name"):
         assert getattr(spec, name) == getattr(ref, name), name
     assert set(list_experiments()) == {"Velocity-Flat_ppo", "Velocity-Rough_ppo", "Velocity-Flat_transformer_ppo",
-                                       "Velocity-Flat_recurrent_ppo"}
+                                       "Velocity-Flat_recurrent_ppo", "Velocity-Flat_amp"}
     with pytest.raises(NotImplementedError):
         spec.to_playing_factory()
 
