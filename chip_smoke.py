@@ -29,7 +29,11 @@ without printing a result:
    dX), 24,576-row KL pass and a ragged 1,000); K1f/K1b with relu on the amp
    entry's 48-512-256 backbones at path AMP's 1,024-row rollout step,
    4,096-row minibatch (saving; the backward with ``skip_input_grad``),
-   16,384-row value and KL passes and a ragged 1,000) against its plain PyTorch
+   16,384-row value and KL passes and a ragged 1,000); K1f at path F's
+   48-128-128-128 (the zoo's Velocity-Flat ``ppo``) at its 4,096-row rollout
+   step, 98,304-row value and KL passes and the Player's 64 rows, and K2f/K2b
+   on F's pair at 2 x 24,576 (saving; the backward with ``skip_input_grad``)
+   and a ragged 2 x 1,000) against its plain PyTorch
    version on the card, and time the kernel, the plain version and a PyTorch
    yardstick the port never calls (bf16 ``F.linear`` chains, fp32 heads
    and, for K9s, the loss, for K9m the forward too; a masked
@@ -90,7 +94,8 @@ without printing a result:
    ``Velocity-Flat``/``amp``: reward shaping and AMP's ``post_step`` over the
    rollout with the same expert rows on both sides, then the update with the
    same subsamples; the AMP losses and accuracy among the metrics, the
-   discriminator among the gradient leaves);
+   discriminator among the gradient leaves), and path F (the zoo's
+   ``Velocity-Flat``/``ppo``, the README's quick-start entry);
 6. ``[train]``: the slice-1 loop (Velocity-Rough widths without observation
    normalization and the adaptive learning rate) for a few iterations;
 7. ``[train-zoo]``: paths T, TF, TJ and TL (the zoo's uncut Velocity-Flat
@@ -111,7 +116,8 @@ without printing a result:
    critic, 1,024 environments, 16 steps, 4 x 4 minibatches of 4,096 rows,
    reward shaping and the AMP discriminator with its gradient penalty in
    plain layers; the entry's ``iterations_per_dispatch`` of 1 set to 10),
-   each built through ``get_experiment(...).to_training_factory()`` with
+   and path F (the zoo's uncut Velocity-Flat ``ppo``: ELU 128-128-128,
+   4,096 environments, joint evaluation on K2), each built through ``get_experiment(...).to_training_factory()`` with
    ``iterations_per_dispatch=10``, observation normalization and (but AMP)
    the KL-adaptive learning rate, and driven through the Trainer for a warm-up
    chunk and a timed chunk of 10 iterations, with the launch counters set to
@@ -122,9 +128,28 @@ without printing a result:
    block's and the MLP chain's forward kernels and phase-1 backward kernels
    (``fbp::``, ``fbb::``, ``mlpb::``, K9m's ``mlpm::``) by name with their
    sums, and the share of the device's busy time of K3f, K3b, K6 and K7f);
-8. the ``nvidia-smi`` line, the ``kernels`` JSON line (each kernel's
-   launches from the path that runs it; ``not_ported`` is empty), and the
-   final ``{"ok": true, ...}`` line.
+8. ``[cli]``: the user surface on path F, in a temporary directory:
+   ``python -m cusrl_tpu_torch train -env Velocity-Flat -alg ppo
+   --num-iterations 20 --logger jsonl --seed 0 --log-dir <tmp> --
+   --checkpoint_interval 10`` as a subprocess (exit 0, ``ckpt_10.npz``,
+   ``ckpt_20.npz``, ``info/metadata.json``, the ``latest`` link, 20 finite
+   jsonl lines); then in this process, through
+   ``cusrl_tpu_torch.__main__.main``: ``train --checkpoint`` resuming at 20
+   and stopping at 25, fresh card agents loading ``ckpt_20.npz`` and
+   ``ckpt_25.npz`` giving back each file's ``agent_state`` bit for bit (and
+   for 25 the saving agent's deterministic actions on a fixed batch), ``play
+   --num-steps 100`` deterministic and ``--stochastic`` (finite summaries,
+   one K1f launch a step at the Player's 64 rows), ``benchmark --num-steps
+   1000`` (its env-steps/s), ``find-trial``, ``list-experiments``, ``export``
+   as ``torch_export`` (the ``graph.pt2`` run on the card and on the CPU,
+   each against the card agent's kernel route within 2e-2) and as
+   ``package``; and a jsonl-logged Trainer whose chunk ending at no
+   checkpoint makes one host transfer and no other synchronizing call; each
+   subcommand's seconds;
+9. the total seconds, the ``nvidia-smi`` line, the ``kernels`` JSON line
+   (each kernel's launches from the path that runs it, ``launches_by_path``
+   every path's; ``not_ported`` is empty), and the final
+   ``{"ok": true, ...}`` line.
 
 ``python3 chip_smoke.py --paths TL C`` runs only the named paths'
 ``[train-zoo]`` chunks and profiles, with the kernels of the package beside
@@ -1830,7 +1855,8 @@ def _check_chain_kernels(device, label: str, prefix: str, dims, x_dtype, cases, 
     device time and plan, the backward's phases, plan, registers, spills and
     two calls bit for bit.  ``queued`` tags go to the redesign queue's block.
     Returns ``{forward key, backward key: {prefix + tag + field: value}}``
-    with ``prefix + "max_abs_err"``."""
+    with ``prefix + "max_abs_err"``, for the keys the cases checked (only the
+    forward's where no case saves)."""
     import torch
     import torch.nn.functional as F
 
@@ -1930,9 +1956,9 @@ def _check_chain_kernels(device, label: str, prefix: str, dims, x_dtype, cases, 
                                   _sum_work(*[_chain_phase1_work(dims, skip_input_grad)] * chains),
                                   _chain_phase1_plan(f"{bkey} {label}", dims, rows, chains, skip_input_grad))
         fields[bkey].update({tag + k: v for k, v in phases.items()})
-    for key in fields:
+    for key in [key for key in fields if errs[key]]:
         fields[key][prefix + "max_abs_err"] = max(errs[key])
-    return fields
+    return {key: value for key, value in fields.items() if errs[key]}
 
 
 def check_tl_head_kernels(device) -> dict:
@@ -2039,6 +2065,39 @@ def check_amp_kernels(device) -> dict:
                                     + (f"; primal at {T_ENVS} rows (the rollout step) and {AMP_ROLLOUT_ROWS} (the "
                                        f"value and KL passes)" if key == "K1f" else ""))
     return fields
+
+
+# -- Path F: the zoo's Velocity-Flat ppo entry (ELU 128-128-128), the quick start --
+
+F_WIDTHS = (48, 128, 128, 128)  # Velocity-Flat ppo: 48-D observations, ELU 128-128-128 backbones
+F_PRIMAL_ROWS = NUM_ENVS * STEPS  # 98,304 rows in the value and KL passes
+PLAYER_ROWS = 64  # the entry's benchmarking environments: the Player's policy step
+
+
+def check_f_kernels(device) -> dict:
+    """K1f on path F's backbones (48 -> 128 -> 128 -> 128 ELU, trailing
+    activation) primal at the rollout step's 4,096 rows, the value and KL
+    passes' 98,304 and the Player's 64; K2f/K2b on F's pair (the joint
+    evaluation) saving at the minibatch's 2 x 24,576 rows and a ragged
+    2 x 1,000 (checked, not timed), the backward with ``skip_input_grad``.
+    Returns the ``f_`` fields of K1f and the ``f_pair_`` fields of K2f and
+    K2b."""
+    import torch
+
+    print("[kernels] K1f on path F's ELU backbones 48-128-128-128 (rollout step, value and KL passes, Player step)")
+    fields = _check_chain_kernels(device, "F", "f_", F_WIDTHS, torch.float32,
+                                  ((NUM_ENVS, False, "step_", True), (F_PRIMAL_ROWS, False, "primal_", True),
+                                   (PLAYER_ROWS, False, "play_", True)), seed=19)
+    fields["K1f"]["f_shape"] = (f"48-128-128-128 ELU primal at {NUM_ENVS} rows (the rollout step), {F_PRIMAL_ROWS} "
+                                f"(the value and KL passes) and {PLAYER_ROWS} (the Player's step)")
+    print("[kernels] K2f/K2b on path F's pair of ELU backbones 48-128-128-128 (skip_input_grad)")
+    pair = _check_chain_kernels(device, "F pair", "f_pair_", F_WIDTHS, torch.float32,
+                                ((MINIBATCH_ROWS, True, "", True), (RAGGED_ROWS, True, "ragged_", False)), seed=20,
+                                skip_input_grad=True, chains=2)
+    for key in pair:
+        pair[key]["f_pair_shape"] = (f"2 x {MINIBATCH_ROWS} x 48-128-128-128 ELU (F's minibatch, saving; backward "
+                                     f"with skip_input_grad; also 2 x {RAGGED_ROWS} rows)")
+    return {**fields, **pair}
 
 
 def _amp_agent(device, live_logits: bool = True):
@@ -2814,7 +2873,8 @@ PATH_NAMES = {"A": "zoo Velocity-Rough ppo", "B": "A + fuse_heads (K8)", "C": "A
               "T": "zoo Velocity-Flat transformer_ppo, modular route", "TF": "zoo Velocity-Flat transformer_ppo",
               "TJ": "TF + fuse_actor_critic_evaluation (K5)", "TL": "TF with 256-step rollouts (K7)",
               "R": "zoo Velocity-Flat recurrent_ppo (GRU 256)", "RJ": "R + fuse_actor_critic_evaluation (K2)",
-              "RL": "R with rnn_type='lstm'", "AMP": "zoo Velocity-Flat amp (relu 512-256, the AMP discriminator)"}
+              "RL": "R with rnn_type='lstm'", "AMP": "zoo Velocity-Flat amp (relu 512-256, the AMP discriminator)",
+              "F": "zoo Velocity-Flat ppo (ELU 128-128-128), the quick start"}
 # The route each transformer path runs: T the modular one, TF, TJ and TL the default.
 PATH_ROUTES = {"T": "0", "TF": None, "TJ": None, "TL": None}
 PATH_STEPS = {"TL": TL_STEPS, "AMP": AMP_STEPS}  # rollout steps per iteration; STEPS elsewhere
@@ -2823,6 +2883,7 @@ PATH_STEPS = {"TL": TL_STEPS, "AMP": AMP_STEPS}  # rollout steps per iteration; 
 RECURRENT_PATHS = ("R", "RJ")
 RECURRENT_CHECKS = ("R", "RJ", "RL")
 AMP_PATHS = ("AMP",)  # the zoo's amp entry: 16 steps, 4 x 4 minibatches (not STEPS and MB)
+F_PATHS = ("F",)  # the zoo's Velocity-Flat ppo entry, the user surface's path
 MB = EPOCHS * MINIBATCHES
 _NONE = {"K1f": 0, "K1b": 0, "K2f": 0, "K2b": 0, "K8f": 0, "K8b": 0, "K9s": 0, "K9m": 0, "K3f": 0, "K3b": 0, "K6": 0,
          "K7f": 0, **{key: 0 for key in BLOCK_REPLACES}}
@@ -2872,6 +2933,8 @@ EXPECTED_ZOO_LAUNCHES = {  # per training iteration
     # forward (saving) and backward (skip_input_grad) on 4,096.  The
     # discriminator runs its plain layers (fused_kernel=False): no launch.
     "AMP": {**_NONE, "K1f": AMP_STEPS + 3 + 2 * AMP_MB, "K1b": 2 * AMP_MB},
+    # Path F: A's launches at F's widths.
+    "F": {**_NONE, "K1f": STEPS + 3, "K2f": MB, "K2b": MB},
 }
 
 
@@ -2918,7 +2981,7 @@ def check_update_against_cpu(path: str) -> None:
     the card and through the plain CPU path, same weights, rollout (dones
     mid-rollout), rollout-initial memories and permutations, for the slice-1
     configuration, the zoo's paths A, B, C and CM (C in mono mode on both
-    sides), path T (the modular route on both sides) and paths TF, TJ and TL
+    sides), path F (the zoo's Velocity-Flat ``ppo``), path T (the modular route on both sides) and paths TF, TJ and TL
     (the card's default route against the CPU under ``force``: the fused
     block's plain versions; TL at 256 steps on 32 environments).  Metrics agree
     within bf16 rounding carried through 20 Adam steps (rtol 2e-2, atol
@@ -2961,6 +3024,10 @@ def check_update_against_cpu(path: str) -> None:
         factory = get_experiment("Velocity-Flat", "amp").make_agent_factory()
         factory.num_steps_per_update = steps
         expected = {"K1f": 3 + 2 * AMP_MB, "K1b": 2 * AMP_MB}
+    elif path in F_PATHS:
+        factory = get_experiment("Velocity-Flat", "ppo").make_agent_factory()
+        factory.num_steps_per_update = steps
+        expected = {"K1f": 3, "K2f": MB, "K2b": MB}
     elif path in PATH_ROUTES:
         factory = get_experiment("Velocity-Flat", "transformer_ppo").make_agent_factory()
         factory.num_steps_per_update = steps
@@ -3181,7 +3248,8 @@ def train_zoo(kind: str, path: str):
     modular route (T, ``CUSRL_TPU_FUSED_TRANSFORMER=0``), the default route
     (TF), the default route with ``fuse_actor_critic_evaluation=True``
     set on the agent factory (TJ) or with ``num_steps_per_update=256``
-    (TL).  One warm-up chunk, then
+    (TL); or path F, ``get_experiment("Velocity-Flat", "ppo")``: 4,096
+    environments, ELU 128-128-128.  One warm-up chunk, then
     one timed chunk through ``Trainer.rollout_and_update`` with the launch
     counters set to 0 just before and read just after, PyTorch's sync debug
     mode on (no synchronizing call but the chunk's one host transfer) and
@@ -3198,6 +3266,8 @@ def train_zoo(kind: str, path: str):
     elif path in AMP_PATHS:
         factory, envs = get_experiment("Velocity-Flat", "amp").to_training_factory(), T_ENVS
         factory.iterations_per_dispatch = 10  # the entry dispatches one iteration at a time
+    elif path in F_PATHS:
+        factory, envs = get_experiment("Velocity-Flat", "ppo").to_training_factory(), NUM_ENVS
     else:
         factory, envs = get_experiment("Velocity-Rough", "ppo").to_training_factory(), NUM_ENVS
         factory.agent = _with_path(factory.agent, path)
@@ -3251,6 +3321,244 @@ def _train_chunks(kind: str, path: str, factory, envs: int, chunk: int):
     print(f"[train-zoo] {path}: {steps_per_s:.1f} env-steps/s ({elapsed / chunk * 1e3:.2f} ms per iteration) on {kind}")
     profile_iteration(trainer.driver, path, steps)
     return launches, steps_per_s
+
+
+# -- [cli]: the user surface on path F ---------------------------------------
+
+CLI_ENTRY = ["-env", "Velocity-Flat", "-alg", "ppo"]
+EXPORT_RTOL = EXPORT_ATOL = 2e-2  # the exported graph (plain bf16 layers) against the kernel route
+
+
+def _cli(argv: list[str], timings: dict, label: str, capture: bool = False):
+    """``cusrl_tpu_torch.__main__.main(argv)`` in this process, timed; with
+    ``capture`` returns its standard output instead of its result."""
+    import io
+
+    from cusrl_tpu_torch.__main__ import main as cli_main
+
+    start = time.perf_counter()
+    if capture:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli_main(argv)
+        result = out.getvalue()
+    else:
+        result = cli_main(argv)
+    timings[label] = time.perf_counter() - start
+    print(f"[cli] {label}: {timings[label]:.2f} s")
+    return result
+
+
+def _fresh_f_agent(device):
+    """The zoo's Velocity-Flat ppo agent for 4,096 environments on ``device``."""
+    from cusrl_tpu_torch.environment.locomotion import VelocityLocomotionEnv
+    from cusrl_tpu_torch.zoo.registry import get_experiment
+
+    env = VelocityLocomotionEnv(num_instances=NUM_ENVS, device=device)
+    return get_experiment("Velocity-Flat", "ppo").make_agent_factory()(env.spec, device=device, seed=SEED + 9)
+
+
+def _check_round_trip(path: str, saving_agent=None) -> None:
+    """A fresh card agent loads the checkpoint file and gives back its
+    ``agent_state`` bit for bit (keys, dtypes, values); with
+    ``saving_agent``, also its deterministic actions on a fixed batch."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from cusrl_tpu_torch.template.logger import load_checkpoint_file
+
+    saved = load_checkpoint_file(path)["agent"]
+    agent = _fresh_f_agent(torch.device("cuda", 0))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        agent.load_state_dict(saved)
+    if caught:
+        raise AssertionError(f"loading {os.path.basename(path)} warned: {[str(w.message) for w in caught]}")
+    again = agent.state_dict()["agent_state"]
+    differ = [p for p, v in saved["agent_state"].items()
+              if p not in again or again[p].dtype != v.dtype or not np.array_equal(again[p], v)]
+    if differ or set(again) != set(saved["agent_state"]):
+        raise AssertionError(f"{os.path.basename(path)} does not round-trip bit for bit: {differ[:8]}")
+    line = f"[cli] {os.path.basename(path)}: a fresh card agent gives back its {len(again)} agent_state paths bit for bit"
+    if saving_agent is not None:
+        obs = torch.tanh(torch.randn(NUM_ENVS, F_WIDTHS[0], generator=torch.Generator().manual_seed(SEED + 5)))
+        obs = obs.to(agent.device)
+        actions = []
+        for a in (saving_agent, agent):
+            a.set_inference_mode(True)
+            actions.append(a.act(obs))
+        if not torch.equal(*actions):
+            raise AssertionError(f"{os.path.basename(path)}: the loaded agent's deterministic actions differ from the "
+                                 f"saving agent's by {(actions[0] - actions[1]).abs().max().item():.3e}")
+        line += f", and the saving agent's deterministic actions on {NUM_ENVS} observations bit for bit"
+    print(line)
+
+
+def _check_export(directory: str, checkpoint: str) -> dict:
+    """The exported ``graph.pt2`` on the card and on the CPU against the card
+    agent's kernel route (observation normalization, then the actor's mean;
+    K1f at 4,096 rows) on the same observations, with the weights of the
+    checkpoint the export read."""
+    import torch
+
+    from cusrl_tpu_torch.export import load_exported_graph
+    from cusrl_tpu_torch.template.logger import load_checkpoint_file
+
+    device = torch.device("cuda", 0)
+    agent = _fresh_f_agent(device)
+    agent.load_state_dict(load_checkpoint_file(checkpoint)["agent"])
+    obs = torch.tanh(torch.randn(NUM_ENVS, F_WIDTHS[0], generator=torch.Generator().manual_seed(SEED + 6)))
+    _reset_launch_counts()
+    with torch.no_grad():
+        normalized = agent.get_hook("observation_normalization").observation_rms.normalize(obs.to(device))
+        want = agent.actor(normalized)[0]["mean"].float()
+    if _launch_counts()["K1f"] != 1:
+        raise AssertionError(f"the card agent's route did not launch K1f once: {_launch_counts()}")
+    errors = {}
+    for where in ("cuda", "cpu"):
+        call, manifest = load_exported_graph(directory, device=where)
+        if manifest["inputs"]["observation"]["shape"] != [NUM_ENVS, F_WIDTHS[0]]:
+            raise AssertionError(f"unexpected manifest: {manifest}")
+        _reset_launch_counts()
+        with torch.no_grad():
+            got = call({"observation": obs.to(where)})["action"].float().to(device)
+        if any(_launch_counts().values()):
+            raise AssertionError("the exported graph launched a kernel")
+        errors[where] = (got - want).abs().max().item()
+        torch.testing.assert_close(got, want, rtol=EXPORT_RTOL, atol=EXPORT_ATOL)
+    print(f"[cli] export: graph.pt2 against the card agent's kernel route, worst |error| on the card "
+          f"{errors['cuda']:.3e}, on the CPU {errors['cpu']:.3e} (limit rtol/atol {EXPORT_RTOL})")
+    return errors
+
+
+def check_cli_sync(tmp: str) -> None:
+    """A Trainer of path F with the jsonl logger: its second chunk of 10
+    iterations, which ends at no checkpoint (the entry's interval is 50),
+    makes one host transfer and no other synchronizing call, counted as
+    ``[train-zoo]`` counts them, logging included."""
+    import warnings
+
+    import torch
+
+    from cusrl_tpu_torch.template.logger import LoggerFactory
+    from cusrl_tpu_torch.template.trainer import TrainerHook
+    from cusrl_tpu_torch.zoo.registry import get_experiment
+
+    class SyncWindow(TrainerHook):
+        """Sync debug mode on from the pre_iteration of iteration 10 to the
+        post_iteration of iteration 19."""
+
+        def __init__(self):
+            self.calls, self.caught, self.transfers = 0, None, 0
+
+        def pre_iteration(self, trainer):
+            if self.calls == 10:
+                # The mode's own "prototype feature" warning comes before the record.
+                torch.cuda.set_sync_debug_mode("warn")
+                self._record = warnings.catch_warnings(record=True)
+                self.caught = self._record.__enter__()
+                warnings.simplefilter("always")
+                self.transfers = trainer.host_transfers
+
+        def post_iteration(self, trainer, metrics):
+            if self.calls == 19:
+                torch.cuda.set_sync_debug_mode("default")
+                self._record.__exit__(None, None, None)
+                self.transfers = trainer.host_transfers - self.transfers
+            self.calls += 1
+
+    window = SyncWindow()
+    factory = get_experiment("Velocity-Flat", "ppo").to_training_factory()
+    factory.num_iterations, factory.trainer_hooks = 30, (window,)
+    trainer = factory(logger_factory=LoggerFactory("jsonl", log_dir=os.path.join(tmp, "sync")), verbose=False,
+                      seed=SEED)
+    trainer.run_training_loop()
+    syncs = [f"{w.filename}:{w.lineno}" for w in window.caught if "synchroniz" in str(w.message)]
+    others = [site for site in syncs if "template/trainer.py:" not in site]
+    print(f"[cli] jsonl-logged chunk of 10 iterations ending at no checkpoint: host transfers {window.transfers}; "
+          f"synchronizing calls {len(syncs)} ({len(others)} outside the Trainer's transfer)")
+    if window.transfers != 1 or others:
+        raise AssertionError(f"the logged chunk made more than one host sync: {syncs}")
+
+
+def check_cli() -> dict:
+    """``[cli]``: the port's CLI on path F in a temporary directory (the
+    module docstring's phase 8).  Returns each subcommand's seconds and the
+    benchmark's env-steps/s."""
+    import math as _math
+    import tempfile
+
+    import torch
+
+    timings: dict[str, float] = {}
+    with tempfile.TemporaryDirectory(prefix="cusrl_cli_") as tmp:
+        logs = os.path.join(tmp, "logs")
+        argv = [sys.executable, "-m", "cusrl_tpu_torch", "train", *CLI_ENTRY, "--num-iterations", "20", "--logger",
+                "jsonl", "--seed", "0", "--log-dir", logs, "--", "--checkpoint_interval", "10"]
+        start = time.perf_counter()
+        proc = subprocess.run(argv, cwd=REPO, capture_output=True, text=True, timeout=600)
+        timings["train (subprocess)"] = time.perf_counter() - start
+        print(f"[cli] train (subprocess, 20 iterations): {timings['train (subprocess)']:.2f} s, exit {proc.returncode}")
+        for line in proc.stdout.splitlines()[-2:]:
+            print(f"    {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"train exited {proc.returncode}:\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+        run = os.path.realpath(os.path.join(logs, "latest"))
+        for name in ("ckpt/ckpt_10.npz", "ckpt/ckpt_20.npz", "info/metadata.json", "metrics.jsonl"):
+            if not os.path.isfile(os.path.join(run, name)):
+                raise AssertionError(f"the run directory lacks {name}")
+        rows = [json.loads(line) for line in open(os.path.join(run, "metrics.jsonl"))]
+        if len(rows) != 20 or not all(_math.isfinite(v) for row in rows for v in row.values()):
+            raise AssertionError(f"expected 20 finite jsonl lines, got {len(rows)}")
+        print(f"[cli] run directory {os.path.basename(run)}: ckpt_10.npz, ckpt_20.npz, info/metadata.json, the "
+              f"latest link, 20 finite jsonl lines")
+
+        resumed = _cli(["train", *CLI_ENTRY, "--num-iterations", "25", "--logger", "jsonl", "--log-dir",
+                        os.path.join(tmp, "resumed"), "--checkpoint", run, "--quiet"], timings, "train --checkpoint")
+        resumed_rows = [json.loads(line) for line in open(os.path.join(resumed.logger.log_dir, "metrics.jsonl"))]
+        if resumed.agent.iteration != 25 or [r["iteration"] for r in resumed_rows] != list(range(20, 25)):
+            raise AssertionError(f"the resumed run did not go from 20 to 25: {[r['iteration'] for r in resumed_rows]}")
+        print("[cli] train --checkpoint: resumed at 20, stopped at 25")
+        _check_round_trip(os.path.join(run, "ckpt", "ckpt_20.npz"))
+        _check_round_trip(os.path.join(resumed.logger.ckpt_dir, "ckpt_25.npz"), saving_agent=resumed.agent)
+
+        # play runs the entry's training environments (4,096), paced at 1 / dt;
+        # benchmark its 64 benchmarking environments, unpaced: K1f below the
+        # 256-row floor, as inference mode allows.
+        for label, extra, steps in (("play", ["--num-steps", "100"], 100),
+                                    ("play --stochastic", ["--num-steps", "100", "--stochastic"], 100),
+                                    ("benchmark", ["--num-steps", "1000"], 1000)):
+            _reset_launch_counts()
+            player = _cli([label.split()[0], *CLI_ENTRY, "--log-dir", logs, "--checkpoint", run, *extra], timings,
+                          label)
+            summary = player.metrics.summary()
+            launched = {k: v for k, v in _launch_counts().items() if v}
+            print(f"[cli] {label}: {player.steps_taken} steps on {player.environment.num_instances} environments, "
+                  f"summary {summary}, launches {launched}")
+            if not summary or not all(_math.isfinite(v) for v in summary.values()) or launched != {"K1f": steps}:
+                raise AssertionError(f"{label}: a non-finite summary or not one K1f launch a step")
+        rate = player.steps_taken * player.environment.num_instances / player.loop_seconds
+        print(f"[cli] benchmark: {player.steps_taken} steps x {player.environment.num_instances} environments in "
+              f"{player.loop_seconds:.3f} s of loop: {rate:.1f} env-steps/s (unpaced, deterministic)")
+        found = _cli(["find-trial", "--log-dir", logs], timings, "find-trial", capture=True).strip()
+        if found != os.path.join(run, "ckpt", "ckpt_20.npz"):
+            raise AssertionError(f"find-trial printed {found}")
+        listed = _cli(["list-experiments"], timings, "list-experiments", capture=True).split()
+        if "Velocity-Flat_ppo" not in listed:
+            raise AssertionError(f"list-experiments printed {listed}")
+        print(f"[cli] find-trial: {found}; list-experiments: {' '.join(listed)}")
+        for fmt in ("torch_export", "package"):
+            _cli(["export", *CLI_ENTRY, "--log-dir", logs, "--checkpoint", run, "-o", os.path.join(tmp, fmt),
+                  "--format", fmt, "--batch-size", str(NUM_ENVS)], timings, f"export --format {fmt}")
+        if not os.path.isfile(os.path.join(tmp, "package", "policy.pkl")):
+            raise AssertionError("export --format package wrote no policy.pkl")
+        errors = _check_export(os.path.join(tmp, "torch_export"), os.path.join(run, "ckpt", "ckpt_20.npz"))
+        check_cli_sync(tmp)
+        torch.cuda.synchronize()
+    print("[cli] " + json.dumps({"seconds": timings, "benchmark_env_steps_per_s": rate, "export_max_abs_err": errors}))
+    return timings
 
 
 def profile_iteration(driver, label: str, steps: int = STEPS) -> None:
@@ -3331,6 +3639,7 @@ def profile_iteration(driver, label: str, steps: int = STEPS) -> None:
 def main(argv: list[str]) -> int:
     import torch
 
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -3357,9 +3666,9 @@ def main(argv: list[str]) -> int:
                 print(f"    {log.stem}: {line.strip()}")
 
     if argv:  # --paths P ...: only the named paths' [train-zoo] chunks and profiles (comparing two checkouts)
-        if argv[0] != "--paths" or not set(argv[1:]) <= {*PATHS, *PATH_ROUTES, *RECURRENT_PATHS, *AMP_PATHS}:
-            print(f"usage: chip_smoke.py [--paths {' '.join((*PATH_ROUTES, *PATHS, *RECURRENT_PATHS, *AMP_PATHS))} "
-                  f"...]", file=sys.stderr)
+        every = (*PATH_ROUTES, *PATHS, *RECURRENT_PATHS, *AMP_PATHS, *F_PATHS)
+        if argv[0] != "--paths" or not set(argv[1:]) <= set(every):
+            print(f"usage: chip_smoke.py [--paths {' '.join(every)} ...]", file=sys.stderr)
             return 2
         for path in argv[1:]:
             train_zoo(kind, path)
@@ -3386,6 +3695,10 @@ def main(argv: list[str]) -> int:
         for key, fields in check(device).items():
             results[key].update(fields)
             results[key]["max_abs_err"] = max(results[key]["max_abs_err"], fields[prefix + "max_abs_err"])
+    for key, fields in check_f_kernels(device).items():
+        results[key].update(fields)
+        prefix = "f_" if key == "K1f" else "f_pair_"
+        results[key]["max_abs_err"] = max(results[key]["max_abs_err"], fields[prefix + "max_abs_err"])
     for key, err in (*check_wrappers(device).items(), *check_head_wrappers(device).items()):
         results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
     for key, err in check_block_wrappers(device).items():
@@ -3393,12 +3706,13 @@ def main(argv: list[str]) -> int:
     time_redesign_queue(results)
     check_second_order(device)
     optimizer_fields = check_optimizer(device)
-    for path in ("slice 1", *PATHS, *PATH_ROUTES, *RECURRENT_CHECKS, *AMP_PATHS):
+    for path in ("slice 1", *PATHS, *PATH_ROUTES, *RECURRENT_CHECKS, *AMP_PATHS, *F_PATHS):
         check_update_against_cpu(path)
     train(kind)
     path_launches = {}
-    for path in (*PATH_ROUTES, *PATHS, *RECURRENT_PATHS, *AMP_PATHS):
+    for path in (*PATH_ROUTES, *PATHS, *RECURRENT_PATHS, *AMP_PATHS, *F_PATHS):
         path_launches[path], _ = train_zoo(kind, path)
+    check_cli()
 
     # TL's rollout step runs the FFN and the ELU head through K1f at 1,024 rows:
     # half of its K1f launches per iteration beyond the update's are the head's.
@@ -3412,6 +3726,9 @@ def main(argv: list[str]) -> int:
     # Every K1f and K1b launch of path AMP is a relu 48-512-256 backbone's: per iteration.
     for key in ("K1f", "K1b"):
         results[key]["amp_launches"] = path_launches["AMP"][key] // 10
+    # Every K1f, K2f and K2b launch of path F is an ELU 48-128-128-128 backbone's: per iteration.
+    for key in ("K1f", "K2f", "K2b"):
+        results[key]["f_launches"] = path_launches["F"][key] // 10
     # TL's recomputing K7 backward runs once for each K7f launch that takes a
     # gradient: the run's launches per iteration less the value and KL passes'.
     bwd_ms, grad_calls = results["K7f"]["tl_recompute_bwd_device_ms"], path_launches["TL"]["K7f"] / 10 - TL_PRIMAL_K7F
@@ -3432,12 +3749,13 @@ def main(argv: list[str]) -> int:
             "library_ms": r["library_ms"], "shape": r["shape"], "path": f"{path}: {PATH_NAMES[path]}",
             "launches_by_path": {p_: path_launches[p_][key] for p_ in path_launches if path_launches[p_][key]},
             **{k: v for k, v in r.items()
-               if k.startswith(("gelu", "primal", "offpath", "tl_", "r_head", "rj_pair", "amp_", "phase", "bitwise", "grid",
-                                "ring", "smem", "regs",
-                                "spills", "device", "pack", "rollout", "queue", "host", "plan"))},
+               if k.startswith(("gelu", "primal", "offpath", "tl_", "r_head", "rj_pair", "amp_", "f_", "phase", "bitwise",
+                                "grid", "ring", "smem", "regs", "spills", "device", "pack", "rollout", "queue", "host",
+                                "plan"))},
             "status": "ported and checked",
         })
     print("[optimizer] " + json.dumps(optimizer_fields))
+    print(f"[total] {time.perf_counter() - started:.1f} s, the build included")
     print(smi)
     print(json.dumps({"kernels": kernels, "not_ported": []}))  # every TPU kernel has its counterpart
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -42,6 +42,7 @@ class VelocityLocomotionEnv(TensorEnvironment):
             action_dim=action_dim,
             num_instances=num_instances,
             reward_dim=1,
+            timestep=dt,
         )
         super().__init__(spec)
         self.device = resolve_device(device)

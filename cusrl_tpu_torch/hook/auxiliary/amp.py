@@ -46,8 +46,9 @@ def _bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tenso
 
 class AdversarialMotionPrior(Hook):
     # JAX state fields that are configuration here; the JAX hook's PRNG key
-    # is not carried (the port's stream is a torch.Generator of its own).
-    jax_config_fields = ("reward_scale", "loss_weight", "grad_penalty_weight", "rng")
+    # ``rng`` is not carried (``utils.interop.JAX_ONLY_FIELDS``: the port's
+    # stream is a torch.Generator of its own).
+    jax_config_fields = ("reward_scale", "loss_weight", "grad_penalty_weight")
     batch_keys = ("agent_transition", "expert_transition")
 
     def __init__(

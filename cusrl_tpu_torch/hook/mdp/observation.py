@@ -15,8 +15,11 @@ by at most one rollout).  ``store_originals`` keeps the raw values as
 masks and ``torch.where`` (no host branch), in place on tensors listed in
 ``state_tensors()`` under the JAX field paths.  The environment spec's
 mirror functions and ``observation_is_subset_of_state`` are not ported
-(``EnvironmentSpec`` does not carry them yet), nor are ``renormalize`` and
-the frozen (inference) mode; ``ObservationNanToNum`` waits.
+(``EnvironmentSpec`` does not carry them yet), nor is ``renormalize``;
+``ObservationNanToNum`` waits.  In inference mode (``set_inference_mode``,
+the Player's) the hook is frozen: it normalizes and updates nothing.  At
+export it puts the observation statistics ahead of the actor
+(``pre_export``).
 """
 
 from __future__ import annotations
@@ -69,6 +72,10 @@ class ObservationNormalization(Hook):
         self.obs_acc = self.state_acc = None
         self.last_done = self.first_step = None
         self.final_state_is_missing = False
+        self.frozen = False
+
+    def set_inference_mode(self, inference: bool) -> None:
+        self.frozen = self.frozen or inference
 
     def init(self, agent) -> None:
         spec = agent.environment_spec
@@ -108,6 +115,8 @@ class ObservationNormalization(Hook):
     # -- statistics updates ----------------------------------------------------
 
     def _update(self, observation, state, mask) -> None:
+        if self.frozen:
+            return
         if self.defer_updates:
             _accumulate(self.obs_acc, observation, mask)
             if state is not None and self.state_acc is not None:
@@ -154,7 +163,7 @@ class ObservationNormalization(Hook):
 
     @torch.no_grad()
     def pre_update(self, agent, rollout: dict) -> dict:
-        if not self.defer_updates:
+        if not self.defer_updates or self.frozen:
             return {}
         # Fold the rollout's raw sums into the running statistics once.
         self.observation_rms.update_from_stats(*_finalize_acc(self.obs_acc))
@@ -164,3 +173,6 @@ class ObservationNormalization(Hook):
             for t in acc or ():
                 t.zero_()
         return {}
+
+    def pre_export(self, agent, graph) -> None:
+        graph.add_normalization("observation_rms", self.observation_rms, input_name="observation")

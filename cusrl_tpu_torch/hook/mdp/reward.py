@@ -12,6 +12,8 @@ __all__ = ["RewardShaping"]
 
 
 class RewardShaping(Hook):
+    jax_config_fields = ("scale", "shift", "lower_bound", "upper_bound")
+
     def __init__(self, scale: float = 1.0, shift: float = 0.0, lower_bound: float | None = None,
                  upper_bound: float | None = None, **kwargs):
         super().__init__(**kwargs)

@@ -38,6 +38,7 @@ _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 
 
 class FusedPpoUpdate(Hook):
+    jax_config_fields = ("clip_ratio", "weight", "value_loss_weight", "entropy_loss_weight")
     training_only = True
     batch_keys = ("observation", "state", "action", "action_logp", "advantage", "return", "value")
 

@@ -29,6 +29,7 @@ def generalized_advantage_estimation(reward, done, value, next_value, gamma: flo
 
 
 class GeneralizedAdvantageEstimation(Hook):
+    jax_config_fields = ("gamma", "lamda", "lamda_value")
     training_only = True
 
     def __init__(self, gamma: float = 0.99, lamda: float = 0.95, lamda_value: float | None = None,

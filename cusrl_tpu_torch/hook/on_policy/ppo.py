@@ -17,6 +17,7 @@ def ppo_surrogate_loss(advantage, prob_ratio, clip_ratio: float):
 
 
 class PpoSurrogateLoss(Hook):
+    jax_config_fields = ("clip_ratio", "weight")
     training_only = True
     batch_keys = ("advantage",)
 
@@ -38,6 +39,7 @@ class PpoSurrogateLoss(Hook):
 
 
 class EntropyLoss(Hook):
+    jax_config_fields = ("weight",)
     training_only = True
 
     def __init__(self, weight: float = 0.01, **kwargs):

@@ -172,6 +172,7 @@ class ValueLoss(Hook):
     temporal minibatch the critic runs in sequence mode from the stored
     rollout-initial memory."""
 
+    jax_config_fields = ("weight",)
     training_only = True
     batch_keys = ("value", "return", "observation", "state", "critic_memory", "done")
 

@@ -8,6 +8,8 @@ On CUDA tensors with enough rows the whole chain runs as one fused kernel
 numerics.  ``fused_kernel=False`` keeps a module off the kernels everywhere:
 a network differentiated to second order (AMP's discriminator and its
 gradient penalty) needs it, as the kernels' backward is first-order.
+``min_fused_rows`` is the JAX rule's floor of 256 rows; an agent in inference
+mode sets it to 1, so a policy step below the floor still takes the kernel.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ __all__ = ["Mlp", "MlpFactory"]
 
 
 class Mlp(BackboneContract, nn.Module):
+    min_fused_rows = 256
 
     def __init__(
         self,
@@ -54,14 +57,14 @@ class Mlp(BackboneContract, nn.Module):
 
     def _can_fuse(self, x: torch.Tensor) -> bool:
         """The JAX rule (``mlp.py:63-77``) with "backend is TPU" replaced by
-        "tensor is on CUDA"."""
+        "tensor is on CUDA" (and its row floor by ``min_fused_rows``)."""
         rows = 1
         for dim in x.shape[:-1]:
             rows *= dim
         return (
             self.fused_kernel
             and x.dim() >= 2
-            and rows >= 256
+            and rows >= self.min_fused_rows
             and x.is_cuda
             and supports_fused_mlp(self.activation, len(self.layers), self.ends_with_activation)
             and all(l.compute_dtype == "bfloat16" and l.bias is not None for l in self.layers)

@@ -5,7 +5,8 @@ Memory is a dict keyed by the stringified member index, holding entries only
 for recurrent members.  The members are registered under ``modules``, the
 JAX field's name, so parameter paths read ``backbone.modules.0....`` in both
 packages; ``nn.Module.modules()`` keeps that attribute name, so the list is
-reached through ``members``.
+reached through ``members``: the module's one child, whatever its name (the
+export registers it under another, ``export._cpu_copy``).
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ class Sequential(BackboneContract, nn.Module):
 
     @property
     def members(self) -> nn.ModuleList:
-        return self._modules["modules"]
+        (members,) = self._modules.values()
+        return members
 
     @property
     def input_dim(self) -> int:

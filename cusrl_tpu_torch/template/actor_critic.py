@@ -17,6 +17,21 @@ sampler with ``requires_per_step_memory`` (``TemporalRandomSampler``) each
 transition records the memories entering its step (``actor_memory`` here,
 ``critic_memory`` in ``ValueComputation``), stacked ``[T, N, ...]``;
 otherwise the rollout records them once, as of its first step.
+
+In inference mode (``set_inference_mode``, the Player's) the hooks marked
+``training_only`` are skipped, the hooks adapt (observation normalization
+freezes), ``act`` takes the distribution's mode where ``deterministic``,
+``step`` keeps no transition, and every MLP of the model runs its kernel at
+any row count: the floor of 256 rows is the JAX rule for a training pass,
+and a policy step at the Player's 64 environments would fall below it.
+
+``state_dict()`` is the JAX package's layout: ``iteration``,
+``agent_state`` (every leaf by its JAX path, ``utils/interop.py``) and
+``actor_memory``, plus the port's own ``torch_rng``: the states of the
+agent's generators and of every hook's (``hooks.<hook_name>.generator``;
+the environment draws from the agent's generator).  ``load_state_dict``
+warns and keeps the initial value where a path is missing, as the JAX
+package does.
 """
 
 from __future__ import annotations
@@ -24,6 +39,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Iterable
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -34,6 +50,7 @@ from cusrl_tpu_torch.template.agent import Agent, AgentFactory
 from cusrl_tpu_torch.template.environment import EnvironmentSpec
 from cusrl_tpu_torch.template.hook import Hook, HookComposite, find_hook
 from cusrl_tpu_torch.template.optimizer import OptimizerFactory, build_optimizer
+from cusrl_tpu_torch.utils.interop import load_agent_state, memory_to_numpy, state_entries
 from cusrl_tpu_torch.utils.nest import map_nested, stack_nested
 
 __all__ = ["ActorCritic", "ActorCriticFactory"]
@@ -104,6 +121,61 @@ class ActorCritic(Agent):
         for hook in self._composite._active():
             hook.apply_schedule(iteration, self)
 
+    def set_iteration(self, iteration: int) -> None:
+        if iteration != self.iteration:
+            super().set_iteration(iteration)
+            self.apply_schedules(iteration)
+
+    def set_inference_mode(self, deterministic: bool = True) -> None:
+        super().set_inference_mode(deterministic)
+        self._composite = HookComposite(self.hooks, inference_mode=True)
+        for hook in self.hooks:
+            adapt = getattr(hook, "set_inference_mode", None)
+            if adapt is not None:
+                adapt(True)
+        for module in self.model.modules():
+            if hasattr(module, "min_fused_rows"):
+                module.min_fused_rows = 1
+
+    # -- checkpointing -----------------------------------------------------------
+
+    def _generators(self) -> dict[str, torch.Generator]:
+        generators = {"agent.init_generator": self.init_generator, "agent.generator": self.generator}
+        for hook in self.hooks:
+            if isinstance(getattr(hook, "generator", None), torch.Generator):
+                generators[f"hooks.{hook.hook_name}.generator"] = hook.generator
+        return generators
+
+    def state_dict(self) -> dict[str, Any]:
+        result = super().state_dict()
+        result["agent_state"] = {path: entry.read() for path, entry in state_entries(self).items()}
+        result["actor_memory"] = memory_to_numpy(self.actor_memory)
+        result["torch_rng"] = {name: g.get_state().numpy() for name, g in self._generators().items()}
+        return result
+
+    def load_state_dict(self, state_dict: dict[str, Any]) -> None:
+        super().load_state_dict(state_dict)
+        saved = state_dict.get("agent_state")
+        if saved is None:
+            self.warn("No 'agent_state' entry in checkpoint.")
+            return
+        load_agent_state(self, saved, state_dict.get("actor_memory"))
+        if "torch_rng" not in state_dict:
+            self.warn("No 'torch_rng' entry (a JAX package checkpoint): the generators keep their seeds.")
+        for name, generator in self._generators().items():
+            rng = state_dict.get("torch_rng", {}).get(name)
+            if rng is None or rng.shape != tuple(generator.get_state().shape):
+                if "torch_rng" in state_dict:
+                    self.warn(f"No usable generator state for '{name}'; keeping its seed.")
+                continue
+            generator.set_state(torch.from_numpy(np.array(rng, dtype=np.uint8)))
+        self.set_iteration(int(state_dict.get("iteration", self.iteration)))
+
+    def export(self, output_dir: str, **kwargs) -> None:
+        from cusrl_tpu_torch.export import export_agent
+
+        export_agent(self, output_dir, **kwargs)
+
     # -- update snapshots (taken only when a hook's post_update reads one) ----
 
     @torch.no_grad()
@@ -168,9 +240,14 @@ class ActorCritic(Agent):
         self._composite.pre_act(self, transition)
         if self.actor_memory is not None and self.records_per_step_memory:
             transition["actor_memory"] = storable_memory(self.actor_memory, self.parallelism)
-        dist_params, (action, logp), self.actor_memory, _ = self.actor.explore(
-            transition["observation"], self.generator, self.actor_memory, noise=noise
-        )
+        if self.inference_mode and self.deterministic:  # the distribution's mode
+            dist_params, self.actor_memory, _ = self.actor(transition["observation"], self.actor_memory)
+            action = dist_params["mean"]
+            logp = self.actor.compute_logp(dist_params, action)
+        else:
+            dist_params, (action, logp), self.actor_memory, _ = self.actor.explore(
+                transition["observation"], self.generator, self.actor_memory, noise=noise
+            )
         transition.update(action_dist=dist_params, action=action, action_logp=logp)
         self._composite.post_act(self, transition)
         return transition
@@ -182,14 +259,18 @@ class ActorCritic(Agent):
         self.actor_memory = reset_memory(self.actor_memory, transition["done"])
         return transition
 
-    def act(self, observation, noise: torch.Tensor | None = None) -> torch.Tensor:
-        if self.step_index == 0:
+    def act(self, observation, state=None, noise: torch.Tensor | None = None):
+        """The action for ``observation`` (numpy in, numpy out)."""
+        if self.step_index == 0 and not self.inference_mode:
             self._initial_memories = self.rollout_memory_entries()
-        self.transition = self.act_body(torch.as_tensor(observation, device=self.device), noise)
-        return self.transition["action"]
+        self.transition = self.act_body(torch.as_tensor(observation, device=self.device), noise,
+                                        None if state is None else torch.as_tensor(state, device=self.device))
+        action = self.transition["action"]
+        return action.cpu().numpy() if isinstance(observation, np.ndarray) else action
 
-    def step(self, next_observation, reward, terminated, truncated, **info) -> bool:
-        """Records the transition; returns whether an update is due."""
+    def step(self, next_observation, reward, terminated, truncated, next_state=None, **info) -> bool:
+        """Records the transition (none in inference mode); returns whether
+        an update is due."""
         terminated = torch.as_tensor(terminated, device=self.device)
         truncated = torch.as_tensor(truncated, device=self.device)
         if terminated.dtype != torch.bool or truncated.dtype != torch.bool:
@@ -202,8 +283,13 @@ class ActorCritic(Agent):
             truncated=truncated,
             **info,
         )
-        self.buffer.append(self.step_body(transition))
+        if next_state is not None:
+            transition["next_state"] = torch.as_tensor(next_state, device=self.device)
+        transition = self.step_body(transition)
         self.step_index += 1
+        if self.inference_mode:
+            return False
+        self.buffer.append(transition)
         return self.step_index >= self.num_steps_per_update
 
     def update(self) -> dict[str, float]:

@@ -1,9 +1,12 @@
 """Agent base (counterpart of ``cusrl_tpu/template/agent.py``): dimensions,
-device, random generators and update cadence."""
+device, random generators, update cadence, inference mode and the
+checkpoint's top level."""
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
+from typing import Any
 
 import torch
 
@@ -33,6 +36,8 @@ class Agent:
         self.parallelism = environment_spec.num_instances
         self.iteration = 0
         self.step_index = 0
+        self.inference_mode = False
+        self.deterministic = False
         self.metrics = Metrics()
         # Explicit generators in place of jax.random keys: parameters are
         # initialised on the host (the same weights on every device), sampling
@@ -43,8 +48,37 @@ class Agent:
     def record(self, metrics_dict: dict | None = None, /, **kwargs) -> None:
         self.metrics.record(metrics_dict, **kwargs)
 
+    def set_inference_mode(self, deterministic: bool = True) -> None:
+        self.inference_mode = True
+        self.deterministic = deterministic
+
+    def set_iteration(self, iteration: int) -> None:
+        self.iteration = int(iteration)
+
+    # -- checkpointing ---------------------------------------------------------
+
+    def state_dict(self) -> dict[str, Any]:
+        return {"iteration": self.iteration}
+
+    def load_state_dict(self, state_dict: dict[str, Any]) -> None:
+        if "iteration" in state_dict:
+            self.set_iteration(int(state_dict["iteration"]))
+
+    @classmethod
+    def warn(cls, message: str) -> None:
+        """A ``RuntimeWarning`` naming the agent class (catchable and
+        filterable by callers and tests)."""
+        warnings.warn(f"{cls.__name__}: {message}", RuntimeWarning, stacklevel=3)
+
 
 @dataclasses.dataclass(kw_only=True)
 class AgentFactory:
     num_steps_per_update: int = 24
     name: str = "Agent"
+
+    def from_environment(self, environment, *, device=None, seed: int = 0) -> Agent:
+        """The agent for ``environment``'s spec, on ``device`` (by default the
+        environment's own)."""
+        if device is None:
+            device = getattr(environment, "device", None)
+        return self(environment.spec, device=device, seed=seed)

@@ -10,7 +10,8 @@
 ``step_fn`` autoresets: a finished instance's returned state already holds
 the next episode's start, while reward/terminated/truncated describe the
 finished transition.  Shapes: reward ``[N, reward_dim]``, terminated and
-truncated ``[N, 1]`` bool.
+truncated ``[N, 1]`` bool.  Its ``state_dict`` is empty, as the JAX
+package's is: a resumed run starts fresh episodes.
 """
 
 from __future__ import annotations
@@ -32,6 +33,10 @@ class EnvironmentSpec:
     state_dim: int | None = None
     reward_dim: int = 1
     final_state_is_missing: bool = False
+    timestep: float | None = None  # the Player paces at 1 / timestep
+    # Predefined export-time statistics: (scale, shift) pairs.
+    observation_normalization: tuple[Any, Any] | None = None
+    action_denormalization: tuple[Any, Any] | None = None
     observation_normalization_excluded_indices: tuple[int, ...] | None = None
     state_normalization_excluded_indices: tuple[int, ...] | None = None
     observation_stat_groups: tuple[tuple[int, ...], ...] = ()
@@ -60,3 +65,12 @@ class TensorEnvironment:
 
     def step_fn(self, env_state, action, generator):
         raise NotImplementedError
+
+    def state_dict(self) -> dict:
+        return {}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

@@ -12,6 +12,8 @@ returning new pytrees; the order of the lifecycle is the JAX package's:
                     summed, one backward) -> ``pre_optim`` (gradients on the
                     parameters) -> optimizer step; finally ``post_update``.
   after an update:  ``apply_schedule(iteration, agent)`` (host side).
+  at export:        ``pre_export(agent, graph)`` per hook, then the actor,
+                    then ``post_export(agent, graph)`` per hook.
 
 A hook's device state (running statistics, an adaptive scale) lives in
 tensors that it updates in place and lists in ``state_tensors()``, keyed by
@@ -24,7 +26,8 @@ train, clip and snapshot with the actor's and the critic's.
 state and every hook's state tensors) when some active hook sets
 ``needs_snapshot``; otherwise it gets None and no snapshot is taken.
 
-``HookComposite`` folds each callback over the active hooks in list order.
+``HookComposite`` folds each callback over the active hooks in list order;
+in inference mode (the Player) it skips the hooks marked ``training_only``.
 """
 
 from __future__ import annotations
@@ -51,8 +54,9 @@ class Hook:
     training_only: bool = False
     # post_update reads the pre-update snapshot (taken only when some hook asks).
     needs_snapshot: bool = False
-    # Fields of the JAX hook's state that are configuration here (skipped by
-    # load_jax_state).
+    # Fields of the JAX hook's state that are configuration here: the
+    # checkpoint reads and writes them as the hook's attributes, and
+    # load_jax_state skips them.
     jax_config_fields: tuple[str, ...] = ()
 
     def __init__(self, *, name: str | None = None, active: bool = True):
@@ -110,15 +114,22 @@ class Hook:
         """After the optimization epochs; ``snapshot`` as the module says."""
         return {}
 
+    def pre_export(self, agent: "ActorCritic", graph) -> None:
+        """Adds nodes ahead of the actor to the export graph."""
+
+    def post_export(self, agent: "ActorCritic", graph) -> None:
+        """Adds nodes (heads) after the actor to the export graph."""
+
 
 class HookComposite:
     """Folds callbacks over the active hooks in order."""
 
-    def __init__(self, hooks: Iterable[Hook]):
+    def __init__(self, hooks: Iterable[Hook], inference_mode: bool = False):
         self.hooks = list(hooks)
+        self.inference_mode = inference_mode
 
     def _active(self) -> list[Hook]:
-        return [h for h in self.hooks if h.active]
+        return [h for h in self.hooks if h.active and not (self.inference_mode and h.training_only)]
 
     def pre_act(self, agent, transition: dict) -> None:
         for hook in self._active():

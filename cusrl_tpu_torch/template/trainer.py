@@ -13,13 +13,28 @@ one's transfer; that has no counterpart here: CUDA launches are queued
 asynchronously, so the host already runs ahead of the device until the
 chunk's one transfer.
 
-Not ported yet (they raise ``NotImplementedError``): the host-loop driver for
-a non-tensor ``Environment``, ``logger_factory``, checkpoint files
-(``checkpoint``) and the profiler window (``profile_dir``).
+With a ``logger_factory`` the Trainer writes the run directory
+(``info/metadata.json``, ``agent_info.txt``, the git provenance of
+``save_version_info``), logs every iteration's scalars and saves
+``ckpt/ckpt_<iteration>.npz`` every ``checkpoint_interval`` iterations and
+at the end.  ``checkpoint`` (a loaded checkpoint dict) resumes: the agent's
+state, the step count, the iteration; the environment's state is empty, so
+a resumed run starts fresh episodes, as the JAX package's does.  Logging
+reads the chunk's host values: a chunk that ends at no checkpoint makes one
+host transfer.  ``profile_dir`` records a ``torch.profiler`` trace
+(``trace.json``) of the iterations ``profile_iterations = (start, stop)``;
+chunks also clamp to those two iterations, so the trace holds exactly the
+window's device work.
+
+Not ported yet (it raises ``NotImplementedError``): the host-loop driver for
+a non-tensor ``Environment``.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import subprocess
 import time
 from collections import deque
 from typing import Any, Callable
@@ -27,10 +42,11 @@ from typing import Any, Callable
 import torch
 
 from cusrl_tpu_torch.template.environment import TensorEnvironment
+from cusrl_tpu_torch.template.logger import LoggerFactory
 from cusrl_tpu_torch.template.rollout import RolloutDriver
 from cusrl_tpu_torch.utils.timing import Timer
 
-__all__ = ["EnvironmentStats", "Trainer", "TrainerHook"]
+__all__ = ["EnvironmentStats", "Trainer", "TrainerHook", "save_version_info"]
 
 
 class EnvironmentStats:
@@ -70,6 +86,37 @@ class EnvironmentStats:
             result[f"{prefix}episode_length"] = length
         return result
 
+    def state_dict(self) -> dict:
+        return {"total_steps": self.total_steps}
+
+    def load_state_dict(self, state: dict) -> None:
+        # Only the step count: the rolling window starts anew.
+        self.total_steps = int(state.get("total_steps", 0))
+
+
+def save_version_info(output_dir: str) -> None:
+    """Git provenance of the working directory: ``workspace.txt``, the last
+    20 commits, the status and the diff."""
+    os.makedirs(output_dir, exist_ok=True)
+
+    def run(cmd: list[str]) -> str:
+        try:
+            return subprocess.run(cmd, capture_output=True, text=True, timeout=20).stdout
+        except (OSError, subprocess.SubprocessError):
+            return ""
+
+    with open(os.path.join(output_dir, "workspace.txt"), "w") as f:
+        f.write(os.getcwd() + "\n")
+    for name, cmd in [
+        ("git_log.txt", ["git", "log", "--oneline", "-20"]),
+        ("git_status.txt", ["git", "status", "--short"]),
+        ("git_diff.patch", ["git", "diff"]),
+    ]:
+        out = run(cmd)
+        if out:
+            with open(os.path.join(output_dir, name), "w") as f:
+                f.write(out)
+
 
 class TrainerHook:
     """Side callbacks on the training loop (not agent hooks)."""
@@ -90,20 +137,19 @@ class Trainer:
         environment: TensorEnvironment | Callable[[], Any],
         agent_factory,
         num_iterations: int = 1000,
-        logger_factory=None,
+        logger_factory: LoggerFactory | Callable[..., Any] | None = None,
         checkpoint_interval: int = 50,
+        experiment_name: str = "experiment",
         checkpoint: dict[str, Any] | None = None,
         verbose: bool = True,
         hooks: tuple[TrainerHook, ...] = (),
+        metadata: dict[str, Any] | None = None,
         profile_dir: str | None = None,
+        profile_iterations: tuple[int, int] = (3, 6),
         iterations_per_dispatch: int = 1,
         device: str | torch.device | None = None,
         seed: int = 0,
     ):
-        for name, value in (("logger_factory", logger_factory), ("checkpoint", checkpoint),
-                            ("profile_dir", profile_dir)):
-            if value is not None:
-                raise NotImplementedError(f"Trainer '{name}' is not ported yet")
         self.environment = environment() if callable(environment) and not hasattr(environment, "spec") else environment
         if not isinstance(self.environment, TensorEnvironment):
             raise NotImplementedError("the host-loop driver for non-tensor environments is not ported yet")
@@ -114,6 +160,10 @@ class Trainer:
         self.stats = EnvironmentStats()
         self.timer = Timer(synchronize=True)
         self.hooks = tuple(hooks)
+        self.logger = logger_factory(experiment_name) if logger_factory is not None else None
+        self.profile_dir = profile_dir
+        self.profile_iterations = tuple(profile_iterations)
+        self._profiler = None
         self.iterations_per_dispatch = max(1, int(iterations_per_dispatch))
         self.driver = RolloutDriver(self.agent, self.environment)
         self.host_transfers = 0  # one per chunk
@@ -121,18 +171,84 @@ class Trainer:
         self._pending_keys: tuple[str, ...] = ()
         self._last_chunk_done: float | None = None
         self._chunk_iter_time = 0.0
+        if checkpoint is not None:
+            self.load_checkpoint(checkpoint)
+        if self.logger is not None:
+            save_version_info(self.logger.info_dir)
+            with open(os.path.join(self.logger.info_dir, "metadata.json"), "w") as f:
+                json.dump(metadata or {}, f, indent=2, default=str)
+            self._save_agent_info()
         for hook in self.hooks:
             hook.init(self)
+
+    def _save_agent_info(self) -> None:
+        """The hook pipeline, the parameter shapes and count, the spec."""
+        agent = self.agent
+        lines = [f"agent: {type(agent).__name__}", f"spec: {agent.environment_spec}", "", "hooks:"]
+        lines += [f"  - {hook.hook_name}: {type(hook).__name__}(active={hook.active})" for hook in agent.hooks]
+        lines += ["", "parameters:"]
+        lines += [f"  {path}: {tuple(p.shape)}" for path, p in agent.model.named_parameters()]
+        lines.append(f"total_parameters: {sum(p.numel() for p in agent.model.parameters())}")
+        with open(os.path.join(self.logger.info_dir, "agent_info.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+    # -- checkpointing ---------------------------------------------------------
+
+    def make_checkpoint(self) -> dict[str, Any]:
+        return {
+            "agent": self.agent.state_dict(),
+            "environment": self.environment.state_dict(),
+            "stats": self.stats.state_dict(),
+            "iteration": self.agent.iteration,
+        }
+
+    def load_checkpoint(self, checkpoint: dict[str, Any]) -> None:
+        self.agent.load_state_dict(checkpoint.get("agent", {}))
+        if checkpoint.get("environment"):
+            self.environment.load_state_dict(checkpoint["environment"])
+        if checkpoint.get("stats"):
+            self.stats.load_state_dict(checkpoint["stats"])
+        if "iteration" in checkpoint:
+            self.agent.set_iteration(int(checkpoint["iteration"]))
 
     # -- main loop -------------------------------------------------------------
 
     def run_training_loop(self) -> None:
         for iteration in range(self.agent.iteration, self.num_iterations):
+            if self.profile_dir is not None and iteration == self.profile_iterations[0]:
+                self._start_profile()
             for hook in self.hooks:
                 hook.pre_iteration(self)
-            metrics = self._log_iteration(iteration, self.rollout_and_update())
+            metrics = self.rollout_and_update()
+            if self._profiler is not None and iteration + 1 == self.profile_iterations[1]:
+                self._stop_profile()
+            metrics = self._log_iteration(iteration, metrics)
             for hook in self.hooks:
                 hook.post_iteration(self, metrics)
+            if self.logger is not None and (iteration + 1) % self.checkpoint_interval == 0:
+                self.logger.save_checkpoint(self.make_checkpoint(), iteration + 1)
+        if self._profiler is not None:
+            self._stop_profile()
+        if self.logger is not None:
+            self.logger.save_checkpoint(self.make_checkpoint(), self.num_iterations)
+            self.logger.close()
+
+    def _start_profile(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.agent.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self._profiler = profile(activities=activities)
+        self._profiler.__enter__()
+
+    def _stop_profile(self) -> None:
+        if self.agent.device.type == "cuda":
+            torch.cuda.synchronize()
+        profiler, self._profiler = self._profiler, None
+        profiler.__exit__(None, None, None)
+        os.makedirs(self.profile_dir, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(self.profile_dir, "trace.json"))
 
     def rollout_and_update(self) -> dict[str, float]:
         """One iteration's metrics; device work and the host transfer happen
@@ -151,10 +267,13 @@ class Trainer:
 
     def chunk_size(self) -> int:
         """Iterations in the next chunk: clamped to the next checkpoint
-        boundary and to the end of training."""
+        boundary, to the end of training and to the profiler window's ends."""
         logical = self.agent.iteration
         boundary = self.checkpoint_interval - (logical % self.checkpoint_interval)
-        return max(1, min(self.iterations_per_dispatch, self.num_iterations - logical, boundary))
+        chunk = min(self.iterations_per_dispatch, self.num_iterations - logical, boundary)
+        if self.profile_dir is not None:
+            chunk = min([chunk] + [end - logical for end in self.profile_iterations if end > logical])
+        return max(1, chunk)
 
     def _run_chunk(self) -> None:
         start = time.perf_counter()
@@ -190,6 +309,8 @@ class Trainer:
                 "Perf/total_fps": steps / (env_time + agent_time) if env_time + agent_time > 0 else 0.0,
             }
         )
+        if self.logger is not None:
+            self.logger.log_scalars(info, iteration)
         if self.verbose:
             reward = info.get("Environment/episode_reward")
             reward_str = f"{reward:9.3f}" if reward is not None else "      n/a"

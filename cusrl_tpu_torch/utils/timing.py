@@ -1,9 +1,11 @@
-"""Wall-clock timing (counterpart of ``Timer`` in ``cusrl_tpu/utils/timing.py``).
+"""Wall-clock timing (counterpart of ``Timer`` and ``Rate`` in
+``cusrl_tpu/utils/timing.py``).
 
 ``Timer.record`` is a context manager accumulating named buckets.  With
 ``synchronize=True`` it waits for the CUDA device (``torch.cuda.synchronize``)
 at entry and exit, so a bucket covers the device work queued inside it; on a
-process that has not touched CUDA it is a plain host clock.
+process that has not touched CUDA it is a plain host clock.  ``Rate`` paces a
+real-time loop.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import time
 
 import torch
 
-__all__ = ["Timer"]
+__all__ = ["Rate", "Timer"]
 
 
 def _synchronize() -> None:
@@ -46,3 +48,29 @@ class Timer:
 
     def clear(self) -> None:
         self._totals.clear()
+
+
+class Rate:
+    """Real-time loop pacing at a fixed frequency (0 disables pacing)."""
+
+    def __init__(self, frequency: float):
+        self.frequency = frequency
+        self.period = 1.0 / frequency if frequency > 0 else 0.0
+        self._next_tick: float | None = None
+
+    def reset(self) -> None:
+        self._next_tick = None
+
+    def tick(self) -> None:
+        if self.period <= 0:
+            return
+        now = time.perf_counter()
+        if self._next_tick is None:
+            self._next_tick = now + self.period
+            return
+        sleep_for = self._next_tick - now
+        if sleep_for > 0:
+            time.sleep(sleep_for)
+            self._next_tick += self.period
+        else:  # fell behind: re-anchor instead of bursting
+            self._next_tick = now + self.period

@@ -1,7 +1,8 @@
 """Experiment registry (counterpart of ``cusrl_tpu/zoo/registry.py``).
 
 Global ``registry`` keyed ``"<env>_<algo>"``, with the experiment modules
-loaded at the first lookup.  The port registers only
+loaded at the first lookup; ``add_experiment_modules`` adds modules of the
+caller's (the CLI's ``-m``).  The port registers only
 ``cusrl_tpu_torch.zoo.locomotion`` so far.
 """
 
@@ -10,9 +11,11 @@ from __future__ import annotations
 import importlib
 from typing import Any, Callable, Iterable, Sequence
 
+from cusrl_tpu_torch.template.player import Player
 from cusrl_tpu_torch.zoo.experiment import ExperimentSpec
 
 __all__ = [
+    "add_experiment_modules",
     "get_experiment",
     "list_experiments",
     "load_experiment_modules",
@@ -23,6 +26,12 @@ __all__ = [
 registry: dict[str, ExperimentSpec] = {}
 experiment_modules: list[str] = ["cusrl_tpu_torch.zoo.locomotion"]
 _loaded = False
+
+
+def add_experiment_modules(*modules: str) -> None:
+    global _loaded
+    experiment_modules.extend(modules)
+    _loaded = False
 
 
 def load_experiment_modules() -> None:
@@ -41,9 +50,13 @@ def register_experiment(
     training_env_factory: Callable,
     agent_meta_factory_kwargs: dict[str, Any] | None = None,
     training_env_factory_kwargs: dict[str, Any] | None = None,
+    playing_env_factory: Callable | None = None,
+    playing_env_factory_kwargs: dict[str, Any] | None = None,
     benchmarking_env_factory: Callable | None = None,
     benchmarking_env_factory_kwargs: dict[str, Any] | None = None,
     trainer_hooks: Iterable = (),
+    player_hooks: Iterable = (),
+    player_factory: Callable | None = None,
     num_iterations: int = 1000,
     checkpoint_interval: int = 50,
     iterations_per_dispatch: int = 1,
@@ -57,9 +70,13 @@ def register_experiment(
             agent_meta_factory_kwargs=dict(agent_meta_factory_kwargs or {}),
             training_env_factory=training_env_factory,
             training_env_factory_kwargs=dict(training_env_factory_kwargs or {}),
+            playing_env_factory=playing_env_factory,
+            playing_env_factory_kwargs=playing_env_factory_kwargs,
             benchmarking_env_factory=benchmarking_env_factory,
             benchmarking_env_factory_kwargs=benchmarking_env_factory_kwargs,
             trainer_hooks=tuple(trainer_hooks),
+            player_hooks=tuple(player_hooks),
+            player_factory=player_factory or Player,
             num_iterations=num_iterations,
             checkpoint_interval=checkpoint_interval,
             iterations_per_dispatch=iterations_per_dispatch,

@@ -2001,3 +2001,86 @@ def test_second_derivative_through_the_kernel_raises_on_the_card(cuda):
     assert fm.LAUNCHES["K1f"] == 1 and fm.LAUNCHES["K1b"] == 1
     with pytest.raises(RuntimeError, match="once_differentiable"):
         penalty.backward()
+
+
+# -- Path F: the zoo's Velocity-Flat ppo entry (ELU 48-128-128-128) and its user surface --
+
+F_WIDTHS = (48, 128, 128, 128)
+
+
+@pytest.mark.parametrize("rows", [64, 4096, 24576, 1000])
+def test_f_chains_match_plain(cuda, rows):
+    """K1f primal at the Player's 64 rows and the rollout step's 4,096; K2f
+    saving and K2b with ``skip_input_grad`` on the joint evaluation's pair
+    at the minibatch's 2 x 24,576 rows and a ragged 2 x 1,000."""
+    gen = torch.Generator().manual_seed(rows + 11)
+    if rows <= 4096:
+        ws, bs = _params(gen, cuda, F_WIDTHS)
+        x = torch.tanh(torch.randn(rows, F_WIDTHS[0], generator=gen)).to(cuda)
+        _check_chain_fwd([x], [ws], [bs], "elu", True, False)
+        return
+    xs, gs, wss, hss = _chain_inputs(gen, cuda, F_WIDTHS, rows, 2)
+    bss = [[(torch.randn(b, generator=gen) * 0.1).to(cuda) for b in F_WIDTHS[1:]] for _ in range(2)]
+    _check_chain_fwd(xs, wss, bss, "elu", True, True, "K2f")
+    _check_chain_bwd(xs, gs, wss, hss, "elu", True, True, "K2b")
+
+
+def _f_agent(device, num_instances=256):
+    from cusrl_tpu_torch.environment.locomotion import VelocityLocomotionEnv
+    from cusrl_tpu_torch.zoo.registry import get_experiment
+
+    env = VelocityLocomotionEnv(num_instances=num_instances, device=device)
+    return get_experiment("Velocity-Flat", "ppo").make_agent_factory()(env.spec, device=device, seed=7), env
+
+
+def test_f_checkpoint_round_trips_bitwise_on_the_card(cuda, tmp_path):
+    """Two training iterations of path F at 256 environments on the card, a
+    checkpoint file, and a fresh card agent that loads it: the same
+    ``agent_state`` bit for bit and the same deterministic actions."""
+    import numpy as np
+
+    from cusrl_tpu_torch.template.logger import load_checkpoint_file, save_checkpoint_file
+    from cusrl_tpu_torch.template.rollout import RolloutDriver
+
+    agent, env = _f_agent(cuda)
+    driver = RolloutDriver(agent, env)
+    for _ in range(2):
+        driver.collect_and_update(24)
+        agent.apply_schedules(agent.iteration)
+    save_checkpoint_file(str(tmp_path / "ckpt_2.npz"), {"agent": agent.state_dict()})
+    saved = load_checkpoint_file(str(tmp_path / "ckpt_2.npz"))["agent"]
+    fresh, _ = _f_agent(cuda)
+    fresh.load_state_dict(saved)
+    again = fresh.state_dict()["agent_state"]
+    assert set(again) == set(saved["agent_state"])
+    for path, value in saved["agent_state"].items():
+        assert again[path].dtype == value.dtype and np.array_equal(again[path], value), path
+    obs = torch.tanh(torch.randn(256, 48, generator=torch.Generator().manual_seed(1))).to(cuda)
+    for a in (agent, fresh):
+        a.set_inference_mode(True)
+    assert torch.equal(agent.act(obs), fresh.act(obs))
+
+
+def test_f_exported_graph_matches_the_kernel_route(cuda, tmp_path):
+    """The ``torch_export`` graph of a card agent (plain bf16 layers) on the
+    card and on the CPU against the agent's kernel route (K1f at 256 rows),
+    within the bf16 limit 2e-2; the graph launches no kernel."""
+    from cusrl_tpu_torch.export import load_exported_graph
+
+    agent, _ = _f_agent(cuda)
+    norm = agent.get_hook("observation_normalization").observation_rms
+    with torch.no_grad():
+        norm.mean.uniform_(-0.3, 0.3)
+        norm.var.uniform_(0.5, 1.5)
+    agent.export(str(tmp_path), batch_size=256, verbose=False)
+    obs = torch.tanh(torch.randn(256, 48, generator=torch.Generator().manual_seed(2))).to(cuda)
+    fm.reset_launch_counts()
+    with torch.no_grad():
+        want = agent.actor(norm.normalize(obs))[0]["mean"]
+    assert fm.LAUNCHES["K1f"] == 1
+    for where in ("cuda", "cpu"):
+        call, _ = load_exported_graph(str(tmp_path), device=where)
+        with torch.no_grad():
+            got = call({"observation": obs.to(where)})["action"].to(cuda)
+        torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+    assert fm.LAUNCHES["K1f"] == 1

@@ -1,10 +1,15 @@
 """The port's zoo, Trainer and their utilities, on the CPU.
 
-The zoo's registered kwargs must equal the JAX package's letter for letter;
-a chunked Trainer run (``iterations_per_dispatch=3`` with checkpoint
-boundaries every 4 iterations) must give the same per-iteration metrics as an
-unchunked one, with one host transfer per chunk.
+The zoo's registered kwargs must equal the JAX package's letter for letter,
+and so must its playing and benchmarking factories; a chunked Trainer run
+(``iterations_per_dispatch=3`` with checkpoint boundaries every 4
+iterations) must give the same per-iteration metrics as an unchunked one,
+with one host transfer per chunk.  The Trainer takes a logger, a checkpoint
+and a profiler window, and still refuses a non-tensor environment.
 """
+
+import json
+import os
 
 import numpy as np
 import pytest
@@ -12,6 +17,8 @@ import torch
 
 from cusrl_tpu.zoo.registry import get_experiment as jax_get_experiment
 from cusrl_tpu_torch.environment.locomotion import VelocityLocomotionEnv
+from cusrl_tpu_torch.template.logger import LoggerFactory
+from cusrl_tpu_torch.template.player import Player
 from cusrl_tpu_torch.template.trainer import EnvironmentStats, Trainer
 from cusrl_tpu_torch.utils.metrics import Metrics
 from cusrl_tpu_torch.utils.timing import Timer
@@ -28,8 +35,11 @@ def test_zoo_ppo_entries_match_jax(environment):
         assert getattr(spec, name) == getattr(ref, name), name
     assert set(list_experiments()) == {"Velocity-Flat_ppo", "Velocity-Rough_ppo", "Velocity-Flat_transformer_ppo",
                                        "Velocity-Flat_recurrent_ppo", "Velocity-Flat_amp"}
-    with pytest.raises(NotImplementedError):
-        spec.to_playing_factory()
+    for lower in ("to_playing_factory", "to_benchmarking_factory"):
+        factory, ref_factory = getattr(spec, lower)(), getattr(ref, lower)()
+        assert type(factory).__name__ == type(ref_factory).__name__
+        for name in ("environment_kwargs", "num_steps", "num_episodes", "deterministic", "timestep"):
+            assert getattr(factory, name) == getattr(ref_factory, name), (lower, name)
 
 
 def test_zoo_factory_builds_the_uncut_agent_with_its_hooks():
@@ -84,13 +94,40 @@ def test_trainer_loop_logs_the_jax_format(capsys):
 
 
 def test_trainer_refuses_what_is_not_ported():
-    env = VelocityLocomotionEnv(num_instances=4, device="cpu")
+    """The host-loop driver (a non-tensor environment) waits, in the Trainer
+    and in the Player."""
     factory = get_experiment("Velocity-Flat", "ppo").make_agent_factory()
-    for kwargs in (dict(logger_factory=lambda name: None), dict(checkpoint={}), dict(profile_dir="p")):
-        with pytest.raises(NotImplementedError):
-            Trainer(env, factory, device="cpu", **kwargs)
     with pytest.raises(NotImplementedError, match="host-loop"):
         Trainer(object(), factory, device="cpu")
+    with pytest.raises(NotImplementedError, match="host-loop"):
+        Player(object(), factory, device="cpu")
+
+
+@pytest.mark.parametrize("option", ["logger_factory", "checkpoint", "profile_dir"])
+def test_trainer_takes_what_was_refused(option, tmp_path):
+    """The three options the Trainer refused before this slice: a logger
+    (run directory, metadata, checkpoints), a checkpoint to resume from, and a
+    profiler window."""
+    env = VelocityLocomotionEnv(num_instances=16, device="cpu")
+    factory = get_experiment("Velocity-Flat", "ppo").make_agent_factory()
+    factory.actor_hidden_dims = factory.critic_hidden_dims = (16,)
+    factory.num_steps_per_update = 8
+    kwargs = {
+        "logger_factory": dict(logger_factory=LoggerFactory(log_dir=str(tmp_path)), metadata={"k": 1}),
+        "checkpoint": dict(checkpoint={"agent": Trainer(env, factory, device="cpu").agent.state_dict(),
+                                       "stats": {"total_steps": 128}, "iteration": 1}),
+        "profile_dir": dict(profile_dir=str(tmp_path / "trace"), profile_iterations=(1, 2)),
+    }[option]
+    trainer = Trainer(env, factory, num_iterations=2, device="cpu", verbose=False, **kwargs)
+    trainer.run_training_loop()
+    assert trainer.agent.iteration == 2
+    if option == "logger_factory":
+        assert json.load(open(os.path.join(trainer.logger.info_dir, "metadata.json"))) == {"k": 1}
+        assert os.listdir(trainer.logger.ckpt_dir) == ["ckpt_2.npz"]
+    elif option == "checkpoint":
+        assert trainer.host_transfers == 1 and trainer.stats.total_steps == 128 + 8 * 16
+    else:
+        assert os.path.isfile(tmp_path / "trace" / "trace.json")
 
 
 def test_metrics_timer_and_environment_stats():
