@@ -33,7 +33,12 @@ without printing a result:
    48-128-128-128 (the zoo's Velocity-Flat ``ppo``) at its 4,096-row rollout
    step, 98,304-row value and KL passes and the Player's 64 rows, and K2f/K2b
    on F's pair at 2 x 24,576 (saving; the backward with ``skip_input_grad``)
-   and a ragged 2 x 1,000) against its plain PyTorch
+   and a ragged 2 x 1,000; ``[kernels] H``: K1f/K1b with tanh on path H's
+   4-64-64 backbones (fp32 observations 4 wide, which the launch pads to 16
+   columns) at the update's 256 rows (saving, the backward with
+   ``skip_input_grad`` and with dX; and primal), the Player's 8 rows, a
+   ragged 1,000 and the input widths 2, 3, 6 and 24, with the pad's device
+   time apart from the kernels') against its plain PyTorch
    version on the card, and time the kernel, the plain version and a PyTorch
    yardstick the port never calls (bf16 ``F.linear`` chains, fp32 heads
    and, for K9s, the loss, for K9m the forward too; a masked
@@ -95,7 +100,10 @@ without printing a result:
    rollout with the same expert rows on both sides, then the update with the
    same subsamples; the AMP losses and accuracy among the metrics, the
    discriminator among the gradient leaves), and path F (the zoo's
-   ``Velocity-Flat``/``ppo``, the README's quick-start entry);
+   ``Velocity-Flat``/``ppo``, the README's quick-start entry); and
+   ``[update-check] H``: the zoo's ``CartPole-v1``/``ppo`` update (20 epochs
+   of one 256-row minibatch) on the CPU agent's 32-step rollout on the native
+   CartPole, the same Gumbel draws and minibatch plan on both sides;
 6. ``[train]``: the slice-1 loop (Velocity-Rough widths without observation
    normalization and the adaptive learning rate) for a few iterations;
 7. ``[train-zoo]``: paths T, TF, TJ and TL (the zoo's uncut Velocity-Flat
@@ -123,7 +131,16 @@ without printing a result:
    chunk and a timed chunk of 10 iterations, with the launch counters set to
    0 just before the timed chunk and read just after (``EXPECTED_ZOO_LAUNCHES``
    per iteration), one host transfer per chunk and no other synchronizing
-   call; and a profile of one iteration of each path (device time by kernel
+   call; ``[train-zoo] H``: the zoo's ``CartPole-v1``/``ppo`` entry as
+   registered on ``NativeCartPoleEnv(8)`` (the card's machine has no
+   gymnasium) through the Trainer's host loop, two warm-up iterations and 10
+   timed ones (43 K1f and 40 K1b an iteration; the 8-row policy steps run
+   plain layers below the training floor), the synchronizing calls by site
+   (one a rollout step, the action's transfer; one an update, the
+   metrics'), the Timer's environment and agent seconds and env-steps/s;
+   ``[play] H``: the Player on the trained checkpoint, deterministic and
+   unpaced, for 500 steps on ``NativeCartPoleEnv(8)``, one K1f launch a
+   step; and a profile of one iteration of each path (device time by kernel
    name, phase 2 of the backwards listed whatever its rank, the fused
    block's and the MLP chain's forward kernels and phase-1 backward kernels
    (``fbp::``, ``fbb::``, ``mlpb::``, K9m's ``mlpm::``) by name with their
@@ -152,7 +169,8 @@ without printing a result:
    ``{"ok": true, ...}`` line.
 
 ``python3 chip_smoke.py --paths TL C`` runs only the named paths'
-``[train-zoo]`` chunks and profiles, with the kernels of the package beside
+``[train-zoo]`` chunks and profiles (``H``: its host-loop iterations and
+profile), with the kernels of the package beside
 the script: copied into another checkout, it times that checkout's port the
 same way (two versions compare inside one call, in turns).
 
@@ -1863,7 +1881,7 @@ def _check_chain_kernels(device, label: str, prefix: str, dims, x_dtype, cases, 
     from cusrl_tpu_torch.nn.kernels import fused_mlp as fm
 
     fkey, bkey = ("K1f", "K1b") if chains == 1 else ("K2f", "K2b")
-    act = {"elu": F.elu, "relu": F.relu}[activation]
+    act = {"elu": F.elu, "relu": F.relu, "tanh": torch.tanh}[activation]
     gen = torch.Generator().manual_seed(SEED + seed)
     pairs = list(zip(dims[:-1], dims[1:]))
     wss = [[(torch.randn(b, a, generator=gen) / math.sqrt(a)).to(device) for a, b in pairs] for _ in range(chains)]
@@ -2098,6 +2116,61 @@ def check_f_kernels(device) -> dict:
         pair[key]["f_pair_shape"] = (f"2 x {MINIBATCH_ROWS} x 48-128-128-128 ELU (F's minibatch, saving; backward "
                                      f"with skip_input_grad; also 2 x {RAGGED_ROWS} rows)")
     return {**fields, **pair}
+
+
+# -- Path H: the zoo's CartPole-v1 ppo entry on the host loop ---------------
+
+H_WIDTHS = (4, 64, 64)  # CartPole-v1 ppo: 4 observations, tanh 64-64 backbones
+H_ENVS, H_STEPS, H_EPOCHS = 8, 32, 20  # 8 environments, 32 steps, 20 epochs x 1 minibatch of 256 rows
+H_ROWS = H_ENVS * H_STEPS  # 256: the value, minibatch and KL passes
+H_PLAY_STEPS = 500
+H_NARROW = (2, 3, 6, 24)  # the other gym entries' input widths (MountainCar, Pendulum, Acrobot, BipedalWalker)
+
+
+def check_h_kernels(device) -> dict:
+    """K1f and K1b with tanh on path H's backbones (4 -> 64 -> 64, fp32
+    observations 4 wide: the launch pads x and W_0 to 16 columns) at the
+    update's 256 rows (saving, the backward with ``skip_input_grad`` as the
+    path runs it; and primal), the Player's 8 rows and a ragged 1,000; K1b
+    with dX at width 4; the input widths 2, 3, 6 and 24 at 256 rows (forward
+    and backward with dX, checked, not timed); and the pad's device time
+    apart from the kernel's.  Returns the ``h_`` fields of K1f and K1b."""
+    import torch
+
+    from cusrl_tpu_torch.nn.kernels import fused_mlp as fm
+
+    print("[kernels] H: K1f/K1b with tanh on path H's backbones 4-64-64 (the update's 256 rows, the Player's 8, "
+          "a ragged 1,000)")
+    fields = _check_chain_kernels(device, "H", "h_", H_WIDTHS, torch.float32,
+                                  ((H_ROWS, True, "", True), (H_ROWS, False, "primal_", True),
+                                   (H_ENVS, False, "play_", True), (RAGGED_ROWS, True, "ragged_", False)), seed=21,
+                                  activation="tanh", skip_input_grad=True)
+    print("[kernels] H: K1b with dX at input width 4")
+    with_dx = _check_chain_kernels(device, "H dX", "h_dx_", H_WIDTHS, torch.float32, ((H_ROWS, True, "", True),),
+                                   seed=22, activation="tanh")
+    fields["K1b"].update({k: v for k, v in with_dx["K1b"].items()})
+    errs = {key: [fields[key]["h_max_abs_err"], with_dx[key]["h_dx_max_abs_err"]] for key in ("K1f", "K1b")}
+    for width in H_NARROW:
+        print(f"[kernels] H: K1f/K1b with tanh at input width {width} ({width}-64-64, 256 rows, backward with dX)")
+        narrow = _check_chain_kernels(device, f"H w{width}", f"h_w{width}_", (width, *H_WIDTHS[1:]), torch.float32,
+                                      ((H_ROWS, True, "", False),), seed=23 + width, activation="tanh")
+        for key in errs:
+            errs[key].append(narrow[key][f"h_w{width}_max_abs_err"])
+    for key in errs:
+        fields[key]["h_max_abs_err"] = max(errs[key])
+    gen = torch.Generator().manual_seed(SEED + 29)
+    x = torch.randn(H_ROWS, H_WIDTHS[0], generator=gen).to(device)
+    ws = [(torch.randn(b, a, generator=gen) / math.sqrt(a)).to(device) for a, b in zip(H_WIDTHS[:-1], H_WIDTHS[1:])]
+    pad_ms = _queued_events_ms(lambda: fm.pad_input([x], [ws]))
+    print(f"    the pad of x [{H_ROWS}, 4] and W_0 [64, 4] to 16 columns: {pad_ms:.4f} device ms a launch (CUDA "
+          f"events behind a queued sleep; not in the kernels' device times)")
+    for key in ("K1f", "K1b"):
+        fields[key]["h_pad_device_ms"] = pad_ms
+        fields[key]["h_shape"] = (f"{H_ROWS} x 4-64-64 tanh, fp32 input padded to 16 columns per launch (H's value, "
+                                  f"minibatch and KL passes; backward with skip_input_grad, also with dX)"
+                                  + (f"; primal also at {H_ENVS} rows (the Player's step)" if key == "K1f" else "")
+                                  + f"; input widths {', '.join(map(str, H_NARROW))} checked at {H_ROWS} rows")
+    return fields
 
 
 def _amp_agent(device, live_logits: bool = True):
@@ -2874,7 +2947,8 @@ PATH_NAMES = {"A": "zoo Velocity-Rough ppo", "B": "A + fuse_heads (K8)", "C": "A
               "TJ": "TF + fuse_actor_critic_evaluation (K5)", "TL": "TF with 256-step rollouts (K7)",
               "R": "zoo Velocity-Flat recurrent_ppo (GRU 256)", "RJ": "R + fuse_actor_critic_evaluation (K2)",
               "RL": "R with rnn_type='lstm'", "AMP": "zoo Velocity-Flat amp (relu 512-256, the AMP discriminator)",
-              "F": "zoo Velocity-Flat ppo (ELU 128-128-128), the quick start"}
+              "F": "zoo Velocity-Flat ppo (ELU 128-128-128), the quick start",
+              "H": "zoo CartPole-v1 ppo (tanh 4-64-64) on NativeCartPoleEnv(8), the host loop"}
 # The route each transformer path runs: T the modular one, TF, TJ and TL the default.
 PATH_ROUTES = {"T": "0", "TF": None, "TJ": None, "TL": None}
 PATH_STEPS = {"TL": TL_STEPS, "AMP": AMP_STEPS}  # rollout steps per iteration; STEPS elsewhere
@@ -2884,6 +2958,7 @@ RECURRENT_PATHS = ("R", "RJ")
 RECURRENT_CHECKS = ("R", "RJ", "RL")
 AMP_PATHS = ("AMP",)  # the zoo's amp entry: 16 steps, 4 x 4 minibatches (not STEPS and MB)
 F_PATHS = ("F",)  # the zoo's Velocity-Flat ppo entry, the user surface's path
+H_PATHS = ("H",)  # the zoo's CartPole-v1 ppo entry through the Trainer's host loop
 MB = EPOCHS * MINIBATCHES
 _NONE = {"K1f": 0, "K1b": 0, "K2f": 0, "K2b": 0, "K8f": 0, "K8b": 0, "K9s": 0, "K9m": 0, "K3f": 0, "K3b": 0, "K6": 0,
          "K7f": 0, **{key: 0 for key in BLOCK_REPLACES}}
@@ -2935,6 +3010,11 @@ EXPECTED_ZOO_LAUNCHES = {  # per training iteration
     "AMP": {**_NONE, "K1f": AMP_STEPS + 3 + 2 * AMP_MB, "K1b": 2 * AMP_MB},
     # Path F: A's launches at F's widths.
     "F": {**_NONE, "K1f": STEPS + 3, "K2f": MB, "K2b": MB},
+    # Path H: the rollout's 8-row policy steps run plain layers (below the
+    # training floor of 256 rows); the update's two value passes, per
+    # minibatch the actor's and the critic's forward (saving) and backward
+    # (skip_input_grad), and the KL pass run at 256 rows.
+    "H": {**_NONE, "K1f": 2 + 2 * H_EPOCHS + 1, "K1b": 2 * H_EPOCHS},
 }
 
 
@@ -3268,6 +3348,8 @@ def train_zoo(kind: str, path: str):
         factory.iterations_per_dispatch = 10  # the entry dispatches one iteration at a time
     elif path in F_PATHS:
         factory, envs = get_experiment("Velocity-Flat", "ppo").to_training_factory(), NUM_ENVS
+    elif path in H_PATHS:
+        return train_host(kind)[:2]
     else:
         factory, envs = get_experiment("Velocity-Rough", "ppo").to_training_factory(), NUM_ENVS
         factory.agent = _with_path(factory.agent, path)
@@ -3321,6 +3403,206 @@ def _train_chunks(kind: str, path: str, factory, envs: int, chunk: int):
     print(f"[train-zoo] {path}: {steps_per_s:.1f} env-steps/s ({elapsed / chunk * 1e3:.2f} ms per iteration) on {kind}")
     profile_iteration(trainer.driver, path, steps)
     return launches, steps_per_s
+
+
+def _h_factory(kind: str):
+    """The zoo's CartPole-v1 ``ppo`` entry's factory (``to_training_factory``
+    or ``to_playing_factory``) on ``NativeCartPoleEnv(8)``: the card's
+    machine has no gymnasium, and the C stepper simulates the same system."""
+    from cusrl_tpu_torch.environment.native import NativeCartPoleEnv
+    from cusrl_tpu_torch.zoo.registry import get_experiment
+
+    factory = getattr(get_experiment("CartPole-v1", "ppo"), f"to_{kind}_factory")()
+    factory.environment_factory, factory.environment_kwargs = NativeCartPoleEnv, {"num_instances": H_ENVS}
+    return factory
+
+
+def _h_rollout() -> dict:
+    """Path H's rollout for ``[update-check] H``: 32 steps of the CPU agent on
+    ``NativeCartPoleEnv(8)`` through the host API, actions from seeded
+    Gumbel draws, finished instances reset by index."""
+    import torch
+
+    from cusrl_tpu_torch.template.environment import get_done_indices, update_observation_and_state
+
+    factory = _h_factory("training")
+    env = factory.environment_factory(**factory.environment_kwargs, seed=SEED)
+    agent = factory.agent(env.spec, device="cpu", seed=SEED)
+    gen = torch.Generator().manual_seed(SEED + 5)
+    observation, _, _ = env.reset()
+    for _ in range(H_STEPS):
+        gumbel = -torch.log(-torch.log(torch.rand(H_ENVS, 2, generator=gen).clamp_min(1e-12)))
+        action = agent.act(observation, noise=gumbel)
+        next_observation, _, reward, terminated, truncated, _ = env.step(action)
+        agent.step(next_observation, reward, terminated, truncated)
+        done = get_done_indices(terminated, truncated)
+        if done.size:
+            new, _, _ = env.reset(indices=done)
+            next_observation, _ = update_observation_and_state(next_observation, None, new, None, done)
+        observation = next_observation
+    data = agent.buffer.data
+    return {key: data[key] for key in ("observation", "next_observation", "action", "reward", "terminated",
+                                       "truncated", "done")}
+
+
+def _h_update(device, rollout: dict, perms, state=None):
+    """One update of path H's agent on ``device`` (from the weights ``state``
+    when given) on ``rollout``, each side's own ``action_dist`` and
+    ``action_logp`` of the same one-hot actions: ``(metrics, the first
+    minibatch's gradient by parameter name, the initial weights)``; the
+    launch counters are set to 0 just before the update."""
+    import torch
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    factory = _h_factory("training")
+    agent = factory.agent(factory.environment_factory(**factory.environment_kwargs).spec, device=device, seed=SEED)
+    initial = {k: v.detach().clone() for k, v in agent.model.state_dict().items()}
+    if state is not None:
+        agent.model.load_state_dict(state)
+    rollout = {key: value.to(device) for key, value in rollout.items()}
+    with torch.no_grad():
+        dist, _, _ = agent.actor(rollout["observation"])
+    rollout.update(action_dist=dist, action_logp=agent.actor.compute_logp(dist, rollout["action"]))
+    names = {id(p): name for name, p in agent.model.named_parameters()}
+    first_grads = {}
+
+    def keep_first(optimizer, args, kwargs):
+        if not first_grads:
+            first_grads.update({names[id(p)]: p.grad.detach().clone() for group in optimizer.param_groups
+                                for p in group["params"] if p.grad is not None})
+
+    handle = register_optimizer_step_pre_hook(keep_first)
+    _reset_launch_counts()
+    try:
+        metrics = {k: float(v) for k, v in agent.update_body(rollout, epoch_perms=perms).items()}
+    finally:
+        handle.remove()
+    return metrics, {k: v.cpu() for k, v in first_grads.items()}, initial
+
+
+def check_h_update_against_cpu() -> None:
+    """``[update-check] H``: one update of path H on the card against the
+    port's plain CPU path, same weights, the same rollout (the CPU agent's
+    32 steps on the native CartPole, actions from the same Gumbel draws) and
+    the same minibatch plan; ``update_check_failures``'s limits."""
+    import torch
+
+    rollout = _h_rollout()
+    perms = torch.stack([torch.randperm(H_ROWS // 128, generator=torch.Generator().manual_seed(e))
+                         for e in range(H_EPOCHS)])
+    cpu_metrics, cpu_grads, state = _h_update("cpu", rollout, perms)
+    cuda_metrics, cuda_grads, _ = _h_update("cuda", rollout, perms, state)
+    launched = {k: v for k, v in _launch_counts().items() if v}
+    expected = {k: v for k, v in EXPECTED_ZOO_LAUNCHES["H"].items() if v}
+    print(f"[update-check] H: {int(rollout['done'].sum())} finished episodes in the rollout; cuda launches "
+          f"{launched}")
+    if launched != expected:
+        raise AssertionError(f"path H's update did not run through the kernels: {launched}, expected {expected}")
+    failed = update_check_failures(cpu_metrics, cpu_grads, cuda_metrics, cuda_grads, report=True)
+    if failed:
+        raise AssertionError(f"update check of path H: {failed} disagree between the card and the CPU path")
+
+
+def _sync_sites(caught) -> dict:
+    """``{file:line: count}`` of the synchronizing calls that PyTorch's sync
+    debug mode reported."""
+    sites: dict = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            site = f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"
+            sites[site] = sites.get(site, 0) + 1
+    return sites
+
+
+def _source_line(relative: str, text: str) -> str:
+    """``relative:line`` of the one line of a port source that holds ``text``."""
+    lines = [i + 1 for i, line in enumerate((REPO / relative).read_text().splitlines()) if text in line]
+    if len(lines) != 1:
+        raise AssertionError(f"{relative}: {len(lines)} lines hold {text!r}")
+    return f"{relative}:{lines[0]}"
+
+
+def train_host(kind: str):
+    """``[train-zoo] H``: the zoo's CartPole-v1 ``ppo`` entry as registered
+    (tanh 4-64-64, 8 environments, 32 steps, 20 epochs of one 256-row
+    minibatch) on ``NativeCartPoleEnv(8)`` through the Trainer's host loop
+    on the card: two warm-up iterations, then 10 with the launch counters
+    set to 0 just before and read just after, PyTorch's sync debug mode on
+    (the synchronizing calls by site: the action's transfer a step, the
+    metrics' an update) and every metric finite; the Timer's environment
+    and agent seconds; a profile of one iteration.  Returns the launches,
+    env-steps/s and the trainer's checkpoint."""
+    import warnings
+
+    import torch
+
+    factory = _h_factory("training")
+    factory.num_iterations = 12
+    trainer = factory(verbose=False, seed=SEED)  # device defaults to the card
+    if (trainer.driver is not None or trainer.environment.num_instances != H_ENVS
+            or trainer.agent.device.type != "cuda" or trainer.agent.num_steps_per_update != H_STEPS):
+        raise AssertionError("path H is not the registered entry on the host loop on the card")
+    start = time.perf_counter()
+    for _ in range(2):
+        trainer.rollout_and_update()
+    torch.cuda.synchronize()
+    print(f"[train-zoo] H ({PATH_NAMES['H']}): warm-up of 2 iterations {time.perf_counter() - start:.3f} s")
+    iterations = 10
+    _reset_launch_counts()
+    trainer.timer.clear()
+    torch.cuda.set_sync_debug_mode("warn")
+    start = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        rows = [trainer.rollout_and_update() for _ in range(iterations)]
+    elapsed = time.perf_counter() - start
+    torch.cuda.set_sync_debug_mode("default")
+    launches = _launch_counts()
+    expected = {k: v * iterations for k, v in EXPECTED_ZOO_LAUNCHES["H"].items()}
+    sites = _sync_sites(caught)
+    act_site = _source_line("cusrl_tpu_torch/template/actor_critic.py", "action.cpu().numpy()")
+    update_site = _source_line("cusrl_tpu_torch/template/actor_critic.py", "values.tolist()")
+    steps = iterations * H_STEPS
+    per_step, per_update = sites.get(act_site, 0) / steps, sites.get(update_site, 0) / iterations
+    others = {site: n for site, n in sites.items() if site not in (act_site, update_site)}
+    print(f"[train-zoo] H: launches over {iterations} iterations {launches} (expected {expected}); synchronizing "
+          f"calls: {per_step:g} a rollout step ({act_site}, the action's transfer), {per_update:g} an update "
+          f"({update_site}, the metrics'), others {others or 'none'}")
+    if launches != expected:
+        raise AssertionError("path H did not launch the kernels the expected number of times")
+    if per_step != 1 or per_update != 1:
+        raise AssertionError(f"path H: not one host transfer a step and one an update: {sites}")
+    for i, row in enumerate(rows):
+        if not all(math.isfinite(v) for v in row.values()):
+            raise AssertionError(f"non-finite metrics at iteration {i}: {row}")
+    print("    last iteration: " + " ".join(f"{k}={v:.5g}" for k, v in sorted(rows[-1].items())))
+    env_s, agent_s = trainer.timer.total("environment"), trainer.timer.total("agent")
+    steps_per_s = steps * H_ENVS / elapsed
+    print(f"[train-zoo] H: {steps_per_s:.1f} env-steps/s ({elapsed / iterations * 1e3:.2f} ms per iteration) on "
+          f"{kind}; Timer: environment {env_s:.4f} s ({steps * H_ENVS / env_s:.1f} env-steps/s), agent "
+          f"{agent_s:.4f} s over {iterations} iterations; episodes {trainer.stats.summary()}")
+    profile_iteration(None, "H", fn=trainer.rollout_and_update)
+    return launches, steps_per_s, trainer.make_checkpoint()
+
+
+def play_h(kind: str, checkpoint: dict) -> dict:
+    """``[play] H``: the Player, deterministic and unpaced, on
+    ``NativeCartPoleEnv(8)`` from path H's trained checkpoint for 500 steps:
+    one K1f launch a step (the 8-row step takes the kernel in inference
+    mode), a finite summary, env-steps/s."""
+    factory = _h_factory("playing")
+    factory.num_steps, factory.timestep = H_PLAY_STEPS, 0.0
+    player = factory(checkpoint, verbose=False, seed=SEED)
+    _reset_launch_counts()
+    summary = player.run_playing_loop()
+    launched = {k: v for k, v in _launch_counts().items() if v}
+    rate = player.steps_taken * H_ENVS / player.loop_seconds
+    print(f"[play] H: {player.steps_taken} steps on {H_ENVS} environments in {player.loop_seconds:.3f} s: "
+          f"{rate:.1f} env-steps/s (deterministic, unpaced) on {kind}; launches {launched}; summary {summary}")
+    if (player.steps_taken != H_PLAY_STEPS or launched != {"K1f": H_PLAY_STEPS}
+            or not all(math.isfinite(v) for v in summary.values()) or "episode_reward" not in summary):
+        raise AssertionError("[play] H: not one K1f launch a step, or a non-finite or incomplete summary")
+    return {"env_steps_per_s": rate, **summary}
 
 
 # -- [cli]: the user surface on path F ---------------------------------------
@@ -3546,7 +3828,7 @@ def check_cli() -> dict:
         if found != os.path.join(run, "ckpt", "ckpt_20.npz"):
             raise AssertionError(f"find-trial printed {found}")
         listed = _cli(["list-experiments"], timings, "list-experiments", capture=True).split()
-        if "Velocity-Flat_ppo" not in listed:
+        if not {"Velocity-Flat_ppo", "CartPole-v1_ppo", "Pendulum-v1_ppo"} <= set(listed):
             raise AssertionError(f"list-experiments printed {listed}")
         print(f"[cli] find-trial: {found}; list-experiments: {' '.join(listed)}")
         for fmt in ("torch_export", "package"):
@@ -3561,16 +3843,17 @@ def check_cli() -> dict:
     return timings
 
 
-def profile_iteration(driver, label: str, steps: int = STEPS) -> None:
-    """Device time by kernel over one training iteration (torch.profiler),
-    and the device's idle share of the iteration's wall time."""
+def profile_iteration(driver, label: str, steps: int = STEPS, fn=None) -> None:
+    """Device time by kernel over one training iteration (torch.profiler:
+    ``fn()``, else ``driver.collect_and_update(steps)``), and the device's
+    idle share of the iteration's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        driver.collect_and_update(steps)
+        fn() if fn is not None else driver.collect_and_update(steps)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
     rows, spans = [], []
@@ -3666,7 +3949,7 @@ def main(argv: list[str]) -> int:
                 print(f"    {log.stem}: {line.strip()}")
 
     if argv:  # --paths P ...: only the named paths' [train-zoo] chunks and profiles (comparing two checkouts)
-        every = (*PATH_ROUTES, *PATHS, *RECURRENT_PATHS, *AMP_PATHS, *F_PATHS)
+        every = (*PATH_ROUTES, *PATHS, *RECURRENT_PATHS, *AMP_PATHS, *F_PATHS, *H_PATHS)
         if argv[0] != "--paths" or not set(argv[1:]) <= set(every):
             print(f"usage: chip_smoke.py [--paths {' '.join(every)} ...]", file=sys.stderr)
             return 2
@@ -3699,6 +3982,9 @@ def main(argv: list[str]) -> int:
         results[key].update(fields)
         prefix = "f_" if key == "K1f" else "f_pair_"
         results[key]["max_abs_err"] = max(results[key]["max_abs_err"], fields[prefix + "max_abs_err"])
+    for key, fields in check_h_kernels(device).items():
+        results[key].update(fields)
+        results[key]["max_abs_err"] = max(results[key]["max_abs_err"], fields["h_max_abs_err"])
     for key, err in (*check_wrappers(device).items(), *check_head_wrappers(device).items()):
         results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
     for key, err in check_block_wrappers(device).items():
@@ -3708,10 +3994,13 @@ def main(argv: list[str]) -> int:
     optimizer_fields = check_optimizer(device)
     for path in ("slice 1", *PATHS, *PATH_ROUTES, *RECURRENT_CHECKS, *AMP_PATHS, *F_PATHS):
         check_update_against_cpu(path)
+    check_h_update_against_cpu()
     train(kind)
     path_launches = {}
     for path in (*PATH_ROUTES, *PATHS, *RECURRENT_PATHS, *AMP_PATHS, *F_PATHS):
         path_launches[path], _ = train_zoo(kind, path)
+    path_launches["H"], h_rate, h_checkpoint = train_host(kind)
+    h_play = play_h(kind, h_checkpoint)
     check_cli()
 
     # TL's rollout step runs the FFN and the ELU head through K1f at 1,024 rows:
@@ -3729,6 +4018,11 @@ def main(argv: list[str]) -> int:
     # Every K1f, K2f and K2b launch of path F is an ELU 48-128-128-128 backbone's: per iteration.
     for key in ("K1f", "K2f", "K2b"):
         results[key]["f_launches"] = path_launches["F"][key] // 10
+    # Every K1f and K1b launch of path H is a tanh 4-64-64 backbone's at 256 rows: per iteration.
+    for key in ("K1f", "K1b"):
+        results[key]["h_launches"] = path_launches["H"][key] // 10
+    results["K1f"]["h_play_launches_per_step"] = 1
+    results["K1f"]["h_env_steps_per_s"], results["K1f"]["h_play_env_steps_per_s"] = h_rate, h_play["env_steps_per_s"]
     # TL's recomputing K7 backward runs once for each K7f launch that takes a
     # gradient: the run's launches per iteration less the value and KL passes'.
     bwd_ms, grad_calls = results["K7f"]["tl_recompute_bwd_device_ms"], path_launches["TL"]["K7f"] / 10 - TL_PRIMAL_K7F
@@ -3749,7 +4043,7 @@ def main(argv: list[str]) -> int:
             "library_ms": r["library_ms"], "shape": r["shape"], "path": f"{path}: {PATH_NAMES[path]}",
             "launches_by_path": {p_: path_launches[p_][key] for p_ in path_launches if path_launches[p_][key]},
             **{k: v for k, v in r.items()
-               if k.startswith(("gelu", "primal", "offpath", "tl_", "r_head", "rj_pair", "amp_", "f_", "phase", "bitwise",
+               if k.startswith(("gelu", "primal", "offpath", "tl_", "r_head", "rj_pair", "amp_", "f_", "h_", "phase", "bitwise",
                                 "grid", "ring", "smem", "regs", "spills", "device", "pack", "rollout", "queue", "host",
                                 "plan"))},
             "status": "ported and checked",

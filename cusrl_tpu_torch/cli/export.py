@@ -24,7 +24,7 @@ def main(args: argparse.Namespace, overrides: list[str]) -> None:
     trial = load_trial(args)
     factory, _ = resolve_overrides(spec.to_playing_factory(), overrides, trial, args.inherit_args)
     environment = factory.environment_factory(**{**factory.environment_kwargs, "device": args.device})
-    agent = factory.agent.from_environment(environment)
+    agent = factory.agent.from_environment(environment, device=args.device)
     if trial is not None and (checkpoint := trial.load_checkpoint()) is not None:
         agent.load_state_dict(checkpoint.get("agent", checkpoint))
     agent.export(args.output, target_format=args.format, batch_size=args.batch_size)

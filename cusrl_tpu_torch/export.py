@@ -184,7 +184,7 @@ def build_actor_graph(agent, with_environment_normalization: bool = True) -> Exp
         def actor_fn(observation, memory):
             memory = _cast_like(memory, dtypes)  # int32 at the boundary, the actor's own dtypes inside
             dist_params, new_memory, aux = actor(observation, memory)
-            return dist_params["mean"], aux["backbone.output"], _boundary_memory(new_memory)
+            return actor.distribution.mode(dist_params), aux["backbone.output"], _boundary_memory(new_memory)
 
         graph.add_node("actor", actor_fn, {"observation": "observation", "memory": "memory_in"},
                        ("action", "actor.backbone.output", "memory_out"), expose_outputs=True, info=info)
@@ -192,7 +192,7 @@ def build_actor_graph(agent, with_environment_normalization: bool = True) -> Exp
 
         def actor_fn(observation):
             dist_params, _, aux = actor(observation, None)
-            return dist_params["mean"], aux["backbone.output"]
+            return actor.distribution.mode(dist_params), aux["backbone.output"]
 
         graph.add_node("actor", actor_fn, {"observation": "observation"}, ("action", "actor.backbone.output"),
                        expose_outputs=True, info=info)
@@ -307,7 +307,8 @@ class InferencePolicy:
         if squeeze:
             observation = observation[None]
         dist_params, self.memory, _ = self.actor(observation, self.memory)
-        action = dist_params["mean"][0] if squeeze else dist_params["mean"]
+        action = self.actor.distribution.mode(dist_params)
+        action = action[0] if squeeze else action
         return action.cpu().numpy() if was_numpy else action
 
     def reset(self, indices=None) -> None:

@@ -30,8 +30,9 @@ truncated and at the last step, and ``termination_value`` where it
 terminated: termination overrides the truncation bootstrap
 (``value.py:223-229``).  Environments whose final state is missing
 (``final_state_is_missing``) bootstrap truncated steps with their own value
-on the sequential and per-step paths; the feedforward batched path assumes
-the final state is there, as the environments of the port provide it.
+on every path, and the last step with the critic on its next state
+(``value.py:194-195,206-228``): the batched path then runs its second pass
+on the last row only.
 """
 
 from __future__ import annotations
@@ -149,12 +150,9 @@ class ValueComputation(Hook):
                 bootstrap = torch.cat([value[:-1], last_value[None]], 0)
                 bootstrap = torch.where(truncated, value, bootstrap)
             self.memory = reset_memory(final_memory, done[-1])
-        elif self.deferred:
-            value = eval_batched(observation)
-            bootstrap = eval_batched(next_state)
-        else:  # the per-step path: values and (recurrent) bootstrap values from the rollout
-            value = rollout["value"]
-            bootstrap = rollout.get("bootstrap_value")
+        else:  # the batched pass (deferred=True), or the per-step path's values from the rollout
+            value = eval_batched(observation) if self.deferred else rollout["value"]
+            bootstrap = None if self.deferred else rollout.get("bootstrap_value")
             if self.bootstrap_truncated_states:
                 if bootstrap is None:  # a feedforward critic: one batched pass
                     bootstrap = eval_batched(next_state)

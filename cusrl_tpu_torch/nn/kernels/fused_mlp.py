@@ -50,6 +50,14 @@ launches per kernel name; the plain versions count nothing.
 Layouts are the port's parameter layouts: ``weights[l]`` is ``[out, in]``
 fp32, ``biases[l]`` is ``[out]`` fp32, and weight gradients come back
 ``[out, in]``.
+
+The kernels' products step through k in 16s, so every width they see is a
+multiple of 16.  The input width may be any from 1 to ``MAX_WIDTH`` (a gym
+task's 4 observations): a launch with a narrow input takes ``x`` with zero
+columns up to the next multiple of 16 and ``W_0`` with as many zero columns
+(``pad_input``, a copy of each per launch), which leaves every fp32 sum as it
+was; the backward gives back ``dW_0`` and ``dX`` without the padding's
+columns.  The plain versions take the input as it is.
 """
 
 from __future__ import annotations
@@ -74,6 +82,7 @@ __all__ = [
     "head_bwd_plain",
     "mlp_chain_bwd_plain",
     "mlp_chain_fwd_plain",
+    "pad_input",
     "pair_heads_fwd_plain",
     "reset_launch_counts",
     "supports_fused_mlp",
@@ -324,9 +333,9 @@ def _validate(xs, wss, bss=None) -> list[int]:
     if not 1 <= len(ws0) <= MAX_LAYERS:
         raise ValueError(f"fused MLP kernels take 1 to {MAX_LAYERS} layers; got {len(ws0)}")
     dims = [ws0[0].shape[1], *(w.shape[0] for w in ws0)]
-    if any(d % WIDTH_MULTIPLE or not 0 < d <= MAX_WIDTH for d in dims):
-        raise ValueError(f"fused MLP kernels take widths that are multiples of {WIDTH_MULTIPLE} up to {MAX_WIDTH}; "
-                         f"got {dims}")
+    if any(d % WIDTH_MULTIPLE or not 0 < d <= MAX_WIDTH for d in dims[1:]) or not 0 < dims[0] <= MAX_WIDTH:
+        raise ValueError(f"fused MLP kernels take an input width up to {MAX_WIDTH} and hidden and output widths "
+                         f"that are multiples of {WIDTH_MULTIPLE} up to {MAX_WIDTH}; got {dims}")
     shapes = [(dims[l + 1], dims[l]) for l in range(len(ws0))]
     index, f32 = x0.get_device(), torch.float32
     for i, (x, ws) in enumerate(zip(xs, wss)):
@@ -349,6 +358,24 @@ def _validate(xs, wss, bss=None) -> list[int]:
     if x0.shape[0] >= 2**31:
         raise ValueError("row count exceeds the kernels' int range")
     return dims
+
+
+def _padded(width: int) -> int:
+    return -(-width // WIDTH_MULTIPLE) * WIDTH_MULTIPLE
+
+
+def pad_input(xs, wss):
+    """``(xs, wss)`` as a launch gives them to the kernel: where the input
+    width is not a multiple of 16, each ``x`` with zero columns up to the
+    next one and each chain's ``W_0`` with as many zero columns (fresh
+    tensors); otherwise as they are."""
+    width = wss[0][0].shape[1]
+    extra = _padded(width) - width
+    if not extra:
+        return xs, wss
+    xs = [torch.nn.functional.pad(x.detach(), (0, extra)) for x in xs]
+    wss = [[torch.nn.functional.pad(ws[0].detach(), (0, extra)), *ws[1:]] for ws in wss]
+    return xs, wss
 
 
 def _params(dims, num_rows, activation, trailing) -> _Params:
@@ -391,7 +418,7 @@ _PLAN_KEYS = ("images", "slots", "resident", "tiles", "blocks", "smem_bytes", "s
 def fwd_plan(dims, rows: int, chains: int) -> dict:
     """The plan ``mlpf::plan`` makes for a chain forward of widths ``dims``
     on the current card, with the keys of ``weight_images.chain_plan``."""
-    p = _params(list(dims), rows, "elu", True)
+    p = _params([_padded(dims[0]), *dims[1:]], rows, "elu", True)
     out = (ctypes.c_int * 8)()
     lib = _library("mlp_chain_fwd")
     _check(lib, lib.mlp_chain_fwd_plan(ctypes.byref(p), chains, out), "mlp_chain_fwd_plan")
@@ -402,7 +429,7 @@ def bwd_plan(dims, rows: int, chains: int, skip_input_grad: bool, head_mode: int
     """The plan ``mlpb::plan`` makes for phase 1 of a chain backward on the
     current card (heads of ``head_dim`` outputs on every chain), with the
     keys of ``weight_images.chain_bwd_plan``."""
-    p = _params(list(dims), rows, "elu", True)
+    p = _params([_padded(dims[0]), *dims[1:]], rows, "elu", True)
     p.skip_input_grad, p.head_mode = int(skip_input_grad), head_mode
     for i in range(chains):
         p.head[i].dim = head_dim
@@ -416,7 +443,7 @@ def ppo_step_plan(dims, rows: int, head_dim: int) -> dict:
     """The plan ``mlpm::plan`` makes for K9m's phase 1 on the current card
     (two chains of widths ``dims``, heads of ``head_dim`` outputs), with the
     keys of ``weight_images.ppo_step_plan``."""
-    p = _params(list(dims), rows, "elu", True)
+    p = _params([_padded(dims[0]), *dims[1:]], rows, "elu", True)
     p.skip_input_grad, p.head_mode = 1, 2
     for i in range(2):
         p.head[i].dim = head_dim
@@ -432,6 +459,8 @@ def _launch_fwd(xs, wss, bss, activation, trailing, save_hiddens, counter, heads
     outputs only with ``save_hiddens``.  Returns ``(outs, hiddens, head_outs)``
     per chain (``outs`` None where not written)."""
     dims = _validate(xs, wss, bss)
+    xs, wss = pad_input(xs, wss)
+    dims[0] = xs[0].shape[1]
     num_layers, n = len(dims) - 1, xs[0].shape[0]
     device = xs[0].device
     if heads is not None:
@@ -486,6 +515,9 @@ def _bwd_params(xs, gs, wss, hss, activation, trailing, skip_input_grad, heads, 
     by the launch) and ``scratch`` the tensors the launch also reads or
     writes, which must outlive it."""
     dims = _validate(xs, wss)
+    width = dims[0]
+    xs, wss = pad_input(xs, wss)
+    dims[0] = xs[0].shape[1]
     num_layers, n = len(dims) - 1, xs[0].shape[0]
     device = xs[0].device
     xs = [dw_phase2.aligned16(x) for x in xs]
@@ -558,6 +590,9 @@ def _bwd_params(xs, gs, wss, hss, activation, trailing, skip_input_grad, heads, 
         phase2, tensors = dw_phase2.make_scratch([(dims[l + 1], dims[l]) for l in range(num_layers)], col_floats, n,
                                                  device)
         scratch.append(tensors)
+    if width != dims[0]:  # the padding's columns of dW_0 and dX are not given back
+        results = [(None if dx is None else dx[:, :width], [dws[0][:, :width], *dws[1:]], dbs, head_grads)
+                   for dx, dws, dbs, head_grads in results]
     return p, phase2, results, scratch
 
 

@@ -9,13 +9,13 @@ import dataclasses
 import torch
 from torch import nn
 
-from cusrl_tpu_torch.nn.module.distribution import NormalDist, NormalDistFactory
+from cusrl_tpu_torch.nn.module.distribution import NormalDist, NormalDistFactory, OneHotCategoricalDist
 
 __all__ = ["Actor", "ActorFactory"]
 
 
 class Actor(nn.Module):
-    def __init__(self, backbone: nn.Module, distribution: NormalDist):
+    def __init__(self, backbone: nn.Module, distribution: NormalDist | OneHotCategoricalDist):
         super().__init__()
         self.backbone = backbone
         self.distribution = distribution
@@ -57,7 +57,7 @@ class Actor(nn.Module):
 @dataclasses.dataclass
 class ActorFactory:
     backbone_factory: object
-    distribution_factory: NormalDistFactory = dataclasses.field(default_factory=NormalDistFactory)
+    distribution_factory: object = dataclasses.field(default_factory=NormalDistFactory)
 
     def __call__(self, input_dim: int, action_dim: int, generator: torch.Generator | None = None) -> Actor:
         backbone = self.backbone_factory(input_dim, None, generator)

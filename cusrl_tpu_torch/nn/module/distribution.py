@@ -1,10 +1,12 @@
-"""Normal action distribution (counterpart of ``NormalDist`` in
-``cusrl_tpu/nn/module/distribution.py``).
+"""Action distributions (counterpart of ``NormalDist`` and
+``OneHotCategoricalDist`` in ``cusrl_tpu/nn/module/distribution.py``).
 
 All distribution math is fp32 whatever the backbone's compute dtype: the mean
 head is an fp32 ``Linear`` and parameters, log-probabilities, entropy and KL
 are computed in fp32.  Distribution parameters are plain dicts of tensors so
-they store directly into transitions.
+they store directly into transitions.  ``determine(latent)`` and
+``mode(dist_params)`` give the deterministic action (the mean, or the
+argmax's one-hot vector).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from torch import nn
 from cusrl_tpu_torch.nn.layer.bijector import Bijector, make_bijector
 from cusrl_tpu_torch.nn.layer.linear import Linear
 
-__all__ = ["NormalDist", "NormalDistFactory"]
+__all__ = ["NormalDist", "NormalDistFactory", "OneHotCategoricalDist", "OneHotCategoricalDistFactory"]
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -73,6 +75,72 @@ class NormalDist(nn.Module):
         kl = 0.5 * (var_ratio + ((mean2 - mean1) / std2).square() - 1.0) - torch.log(std1 / std2)
         return torch.sum(kl, dim=-1, keepdim=True)
 
+    def determine(self, backbone_feat: torch.Tensor) -> torch.Tensor:
+        return self.mean_head(backbone_feat.float())
+
+    def mode(self, dist_params) -> torch.Tensor:
+        return dist_params["mean"]
+
+
+def _one_hot(index: torch.Tensor, num_classes: int) -> torch.Tensor:
+    return torch.nn.functional.one_hot(index, num_classes).float()
+
+
+class OneHotCategoricalDist(nn.Module):
+    """One-hot categorical over the logits of an fp32 head, with
+    straight-through samples: the forward value is the drawn one-hot vector,
+    the gradient the softmax's."""
+
+    def __init__(self, mean_head: Linear):
+        super().__init__()
+        self.mean_head = mean_head
+
+    @property
+    def input_dim(self) -> int:
+        return self.mean_head.input_dim
+
+    @property
+    def output_dim(self) -> int:
+        return self.mean_head.output_dim
+
+    def forward(self, backbone_feat: torch.Tensor) -> dict[str, torch.Tensor]:
+        return {"logits": self.mean_head(backbone_feat.float())}
+
+    def sample(self, dist_params, generator: torch.Generator | None = None, noise: torch.Tensor | None = None):
+        """``(action, logp)``: the one-hot ``argmax(logits + noise)``, ``noise``
+        a standard Gumbel draw of the logits' shape (the JAX package's
+        ``jax.random.categorical``), drawn from ``generator`` unless given."""
+        logits = dist_params["logits"].float()
+        if noise is None:
+            tiny = torch.finfo(torch.float32).tiny
+            uniform = torch.rand(logits.shape, generator=generator, device=logits.device) * (1.0 - tiny) + tiny
+            noise = -torch.log(-torch.log(uniform))
+        hard = _one_hot(torch.argmax(logits + noise.float(), dim=-1), logits.shape[-1])
+        soft = torch.softmax(logits, dim=-1)
+        action = soft + (hard - soft).detach()  # forward: hard; backward: the softmax's
+        logp = torch.sum(torch.log_softmax(logits, dim=-1) * hard, dim=-1, keepdim=True)
+        return action, logp
+
+    def compute_logp(self, dist_params, sample):
+        logp = torch.log_softmax(dist_params["logits"].float(), dim=-1)
+        return torch.sum(logp * sample.float(), dim=-1, keepdim=True)
+
+    def compute_entropy(self, dist_params):
+        logp = torch.log_softmax(dist_params["logits"].float(), dim=-1)
+        return -torch.sum(torch.exp(logp) * logp, dim=-1, keepdim=True)
+
+    def compute_kl_div(self, p, q):
+        logp = torch.log_softmax(p["logits"].float(), dim=-1)
+        logq = torch.log_softmax(q["logits"].float(), dim=-1)
+        return torch.sum(torch.exp(logp) * (logp - logq), dim=-1, keepdim=True)
+
+    def determine(self, backbone_feat: torch.Tensor) -> torch.Tensor:
+        return self.mode(self(backbone_feat))
+
+    def mode(self, dist_params) -> torch.Tensor:
+        logits = dist_params["logits"]
+        return _one_hot(torch.argmax(logits, dim=-1), logits.shape[-1])
+
 
 @dataclasses.dataclass
 class NormalDistFactory:
@@ -89,3 +157,10 @@ class NormalDistFactory:
             std_param=torch.full((output_dim,), bij.inverse(init_std)),
             bijector=bij,
         )
+
+
+@dataclasses.dataclass
+class OneHotCategoricalDistFactory:
+    def __call__(self, input_dim: int, output_dim: int,
+                 generator: torch.Generator | None = None) -> OneHotCategoricalDist:
+        return OneHotCategoricalDist(mean_head=Linear(input_dim, output_dim, generator=generator))

@@ -27,7 +27,7 @@ from cusrl_tpu_torch.hook.on_policy.stats import OnPolicyStatistics
 from cusrl_tpu_torch.hook.on_policy.value import ValueComputation, ValueLoss
 from cusrl_tpu_torch.nn.module.actor import ActorFactory
 from cusrl_tpu_torch.nn.module.critic import ValueFactory
-from cusrl_tpu_torch.nn.module.distribution import NormalDistFactory
+from cusrl_tpu_torch.nn.module.distribution import NormalDistFactory, OneHotCategoricalDistFactory
 from cusrl_tpu_torch.nn.module.mlp import MlpFactory
 from cusrl_tpu_torch.preset.optimizer import AdamFactory
 from cusrl_tpu_torch.sampler.mini_batch_sampler import AutoMiniBatchSampler
@@ -36,7 +36,13 @@ from cusrl_tpu_torch.template.agent import AgentFactory
 from cusrl_tpu_torch.template.environment import EnvironmentSpec
 from cusrl_tpu_torch.template.hook import Hook
 
-__all__ = ["PpoAgentFactory", "RecurrentPpoAgentFactory", "TransformerPpoAgentFactory", "ppo_hook_suite"]
+__all__ = [
+    "PpoAgentFactory",
+    "RecurrentPpoAgentFactory",
+    "TransformerPpoAgentFactory",
+    "get_distribution_factory",
+    "ppo_hook_suite",
+]
 
 
 def ppo_hook_suite(
@@ -114,6 +120,16 @@ def ppo_hook_suite(
     return [hook for hook in hooks if hook is not None]
 
 
+def get_distribution_factory(action_space_type: str, **kwargs):
+    """``NormalDistFactory(**kwargs)`` for a continuous action space,
+    ``OneHotCategoricalDistFactory()`` for a discrete one."""
+    if action_space_type == "continuous":
+        return NormalDistFactory(**kwargs)
+    if action_space_type == "discrete":
+        return OneHotCategoricalDistFactory()
+    raise ValueError(f"Unsupported action space type '{action_space_type}'")
+
+
 @dataclasses.dataclass(kw_only=True)
 class PpoAgentFactory(AgentFactory):
     """Flat-kwarg PPO config lowering to ``ActorCriticFactory``; the defaults
@@ -182,13 +198,12 @@ class PpoAgentFactory(AgentFactory):
     _recurrent_backbones = False
 
     def to_underlying(self) -> ActorCriticFactory:
-        if self.action_space_type != "continuous":
-            raise NotImplementedError(f"action space '{self.action_space_type}' is not ported yet")
         return ActorCriticFactory(
             num_steps_per_update=self.num_steps_per_update,
             actor_factory=ActorFactory(
                 backbone_factory=self._backbone_factory(self.actor_hidden_dims),
-                distribution_factory=NormalDistFactory(init_std=self.init_distribution_std),
+                distribution_factory=get_distribution_factory(self.action_space_type,
+                                                              init_std=self.init_distribution_std),
             ),
             critic_factory=ValueFactory(backbone_factory=self._backbone_factory(self.critic_hidden_dims)),
             optimizer_factory=AdamFactory(lr=self.lr),

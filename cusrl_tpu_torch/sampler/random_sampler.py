@@ -14,9 +14,15 @@ The update runs the plan as one pass of ``num_batches`` minibatches, with the
 JAX plan's metadata (``total_batches``, ``temporal``, ``batch_index``).
 Indices are drawn from the agent's generator on its device, or injected
 (``plan``: the ``[K, B]`` indices, or the ``([K, L, B] time, [K, B]
-environment)`` indices), so a test can hand in the JAX sampler's plan.  The
-ring buffer's ``buffer_state`` (a partly filled or wrapped buffer) waits for
-the port of ``template/buffer.py`` and raises.
+environment)`` indices), so a test can hand in the JAX sampler's plan.
+
+``buffer_state = {"cursor", "full"}`` (the agent's ``Buffer``, host values)
+bounds the draws to the valid steps, ``capacity`` once full, else
+``cursor`` (``random_sampler.py:29-37,59-83``): ``RandomSampler`` draws over
+the first ``valid * N`` rows of the flattened rollout; the temporal windows
+start in logical time over the valid extent, and on a wrapped ring step
+``t`` of a window lies at ``(cursor + t) % capacity``, the oldest step at the
+cursor.  Without it the plans cover the whole rollout.
 """
 
 from __future__ import annotations
@@ -36,9 +42,12 @@ class RandomPlan:
     indices: object  # [K, B] rows, or ([K, L, B] time, [K, B] environment) indices
 
 
-def _no_buffer_state(buffer_state) -> None:
-    if buffer_state is not None:
-        raise NotImplementedError("buffer_state (a partly filled or wrapped ring buffer) is not ported yet")
+def _valid_steps(capacity: int, buffer_state) -> int | None:
+    """The number of valid steps: the capacity once full, else the cursor
+    (None: the whole rollout)."""
+    if buffer_state is None:
+        return None
+    return capacity if bool(buffer_state["full"]) else int(buffer_state["cursor"])
 
 
 def _has_memory(rollout: dict) -> bool:
@@ -64,10 +73,10 @@ class RandomSampler(_RandomBase):
 
     def make_epoch_plan(self, capacity: int, parallelism: int, generator: torch.Generator | None = None,
                         device: torch.device | str = "cpu", plan=None, buffer_state=None) -> RandomPlan:
-        _no_buffer_state(buffer_state)
+        valid = _valid_steps(capacity, buffer_state)
         if plan is None:
-            plan = torch.randint(0, capacity * parallelism, (self.num_batches, self.batch_size), generator=generator,
-                                 device=device)
+            total = (capacity if valid is None else valid) * parallelism
+            plan = torch.randint(0, total, (self.num_batches, self.batch_size), generator=generator, device=device)
         indices = torch.as_tensor(plan, dtype=torch.int64, device=device)
         if indices.shape != (self.num_batches, self.batch_size):
             raise ValueError(f"plan must be [{self.num_batches}, {self.batch_size}]; got {tuple(indices.shape)}")
@@ -98,13 +107,16 @@ class TemporalRandomSampler(_RandomBase):
 
     def make_epoch_plan(self, capacity: int, parallelism: int, generator: torch.Generator | None = None,
                         device: torch.device | str = "cpu", plan=None, buffer_state=None) -> RandomPlan:
-        _no_buffer_state(buffer_state)
         length = capacity if self.sequence_len is None else min(self.sequence_len, capacity)
         shape = (self.num_batches, self.batch_size)
         if plan is None:
+            valid = _valid_steps(capacity, buffer_state)
+            num_starts = capacity - length + 1 if valid is None else max(valid - length + 1, 1)
             env_indices = torch.randint(0, parallelism, shape, generator=generator, device=device)
-            starts = torch.randint(0, capacity - length + 1, shape, generator=generator, device=device)
+            starts = torch.randint(0, num_starts, shape, generator=generator, device=device)
             time_indices = starts[:, None, :] + torch.arange(length, device=device)[None, :, None]  # [K, L, B]
+            if valid is not None and bool(buffer_state["full"]):  # logical time -> ring position
+                time_indices = (int(buffer_state["cursor"]) + time_indices) % capacity
         else:
             time_indices, env_indices = plan
         time_indices = torch.as_tensor(time_indices, dtype=torch.int64, device=device)

@@ -18,6 +18,14 @@ transition records the memories entering its step (``actor_memory`` here,
 ``critic_memory`` in ``ValueComputation``), stacked ``[T, N, ...]``;
 otherwise the rollout records them once, as of its first step.
 
+The host loop (``act`` and ``step`` on numpy arrays, ``update``) pushes each
+step's transition into a ``Buffer`` of ``num_steps_per_update`` steps on the
+agent's device; ``step`` returns whether an update is due (every active
+hook's ``should_update`` agreeing), and ``update`` reads the buffer (one
+stack per field), hands the samplers its ``buffer_state`` and brings the
+metrics to the host in one transfer.  The tensor driver
+(``template/rollout.py``) stacks its own rollout and calls ``update_body``.
+
 In inference mode (``set_inference_mode``, the Player's) the hooks marked
 ``training_only`` are skipped, the hooks adapt (observation normalization
 freezes), ``act`` takes the distribution's mode where ``deterministic``,
@@ -37,6 +45,7 @@ package does.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Any, Iterable
 
 import numpy as np
@@ -47,11 +56,12 @@ from cusrl_tpu_torch.nn.base import reset_memory, storable_memory
 from cusrl_tpu_torch.nn.module.actor import Actor, ActorFactory
 from cusrl_tpu_torch.nn.module.critic import Value, ValueFactory
 from cusrl_tpu_torch.template.agent import Agent, AgentFactory
+from cusrl_tpu_torch.template.buffer import Buffer
 from cusrl_tpu_torch.template.environment import EnvironmentSpec
 from cusrl_tpu_torch.template.hook import Hook, HookComposite, find_hook
 from cusrl_tpu_torch.template.optimizer import OptimizerFactory, build_optimizer
 from cusrl_tpu_torch.utils.interop import load_agent_state, memory_to_numpy, state_entries
-from cusrl_tpu_torch.utils.nest import map_nested, stack_nested
+from cusrl_tpu_torch.utils.nest import map_nested
 
 __all__ = ["ActorCritic", "ActorCriticFactory"]
 
@@ -93,7 +103,7 @@ class ActorCritic(Agent):
         self.optimizer = build_optimizer(optimizer_factory, self.model.named_parameters())
         self._composite = HookComposite(self.hooks)
         self.transition: dict[str, Any] = {}
-        self.buffer: list[dict] = []
+        self.buffer = Buffer(self.num_steps_per_update, self.parallelism, self.device)
         self._initial_memories: dict[str, Any] = {}  # the buffered rollout's, for update()
         for hook in self.hooks:
             hook.post_init(self)
@@ -242,7 +252,7 @@ class ActorCritic(Agent):
             transition["actor_memory"] = storable_memory(self.actor_memory, self.parallelism)
         if self.inference_mode and self.deterministic:  # the distribution's mode
             dist_params, self.actor_memory, _ = self.actor(transition["observation"], self.actor_memory)
-            action = dist_params["mean"]
+            action = self.actor.distribution.mode(dist_params)
             logp = self.actor.compute_logp(dist_params, action)
         else:
             dist_params, (action, logp), self.actor_memory, _ = self.actor.explore(
@@ -259,45 +269,62 @@ class ActorCritic(Agent):
         self.actor_memory = reset_memory(self.actor_memory, transition["done"])
         return transition
 
+    def _device_tensor(self, value) -> torch.Tensor:
+        """``value`` on the agent's device; a host array goes to the card by a
+        non-blocking copy from pinned memory, so the host does not wait."""
+        if isinstance(value, np.ndarray) and self.device.type == "cuda":
+            return torch.from_numpy(np.require(value, requirements="CW")).pin_memory().to(self.device,
+                                                                                          non_blocking=True)
+        return torch.as_tensor(value, device=self.device)
+
     def act(self, observation, state=None, noise: torch.Tensor | None = None):
-        """The action for ``observation`` (numpy in, numpy out)."""
+        """The action for ``observation`` (numpy in, numpy out: the step's
+        one transfer to the host)."""
         if self.step_index == 0 and not self.inference_mode:
             self._initial_memories = self.rollout_memory_entries()
-        self.transition = self.act_body(torch.as_tensor(observation, device=self.device), noise,
-                                        None if state is None else torch.as_tensor(state, device=self.device))
+        self.transition = self.act_body(self._device_tensor(observation), noise,
+                                        None if state is None else self._device_tensor(state))
         action = self.transition["action"]
         return action.cpu().numpy() if isinstance(observation, np.ndarray) else action
 
     def step(self, next_observation, reward, terminated, truncated, next_state=None, **info) -> bool:
-        """Records the transition (none in inference mode); returns whether
-        an update is due."""
-        terminated = torch.as_tensor(terminated, device=self.device)
-        truncated = torch.as_tensor(truncated, device=self.device)
+        """Records the transition (none in inference mode), with the
+        environment's ``info`` arrays; returns whether an update is due."""
+        terminated = self._device_tensor(terminated)
+        truncated = self._device_tensor(truncated)
         if terminated.dtype != torch.bool or truncated.dtype != torch.bool:
             raise TypeError("'terminated' and 'truncated' must have dtype bool")
         transition = dict(self.transition)
         transition.update(
-            next_observation=torch.as_tensor(next_observation, device=self.device),
-            reward=torch.as_tensor(reward, device=self.device),
+            next_observation=self._device_tensor(next_observation),
+            reward=self._device_tensor(reward),
             terminated=terminated,
             truncated=truncated,
-            **info,
         )
+        transition.update({key: map_nested(self._device_tensor, value) for key, value in info.items()
+                           if value is not None})
         if next_state is not None:
-            transition["next_state"] = torch.as_tensor(next_state, device=self.device)
+            transition["next_state"] = self._device_tensor(next_state)
         transition = self.step_body(transition)
         self.step_index += 1
         if self.inference_mode:
             return False
-        self.buffer.append(transition)
-        return self.step_index >= self.num_steps_per_update
+        self.buffer.push(transition)
+        return self.step_index >= self.num_steps_per_update and all(
+            hook.should_update(self) for hook in self.hooks if hook.active)
 
     def update(self) -> dict[str, float]:
-        rollout = stack_nested(self.buffer, torch.stack)
+        """One update on the buffer's rollout; the metrics come to the host
+        in one transfer."""
+        rollout = self.buffer.data
         rollout.update({k: map_nested(lambda x: x[None], v) for k, v in self._initial_memories.items()})
-        self.buffer = []
+        buffer_state = {"cursor": self.buffer.cursor, "full": self.buffer.full}
         self.step_index = 0
-        return {key: float(value) for key, value in self.update_body(rollout).items()}
+        metrics = self.update_body(rollout, buffer_state=buffer_state)
+        keys = sorted(metrics)
+        values = torch.stack([torch.as_tensor(metrics[k], device=self.device).float().reshape(()) for k in keys])
+        self.apply_schedules(self.iteration)
+        return dict(zip(keys, values.tolist()))
 
     # -- update ----------------------------------------------------------------
 
@@ -319,13 +346,15 @@ class ActorCritic(Agent):
             self.optimizer.step()
         return step_metrics
 
-    def update_body(self, rollout: dict, epoch_perms=None) -> dict[str, torch.Tensor]:
+    def update_body(self, rollout: dict, epoch_perms=None, buffer_state=None) -> dict[str, torch.Tensor]:
         """One whole update on a ``[T, N, ...]`` rollout (memories as
         ``[1, N, ...]``, or ``[T, N, ...]`` per step); returns metrics as 0-d
         tensors.  ``epoch_perms`` injects the sampler's plan (the mini-batch
         samplers' permutations, the random samplers' indices).  With memory in
         the rollout the sampler is temporal: minibatches are whole
-        environments or windows, and the hooks see ``metadata["temporal"]``."""
+        environments or windows, and the hooks see ``metadata["temporal"]``.
+        ``buffer_state`` (``{"cursor", "full"}``) goes to a sampler that
+        takes it (the random samplers)."""
         rollout = dict(rollout)
         sampler = self.sampler.resolve(rollout)
         active = self._composite._active()
@@ -333,7 +362,10 @@ class ActorCritic(Agent):
         with torch.no_grad():
             metrics = self._composite.pre_update(self, rollout)
         capacity, parallelism = rollout["action"].shape[:2]
-        plan = sampler.make_epoch_plan(capacity, parallelism, self.generator, self.device, epoch_perms)
+        ring = {}
+        if buffer_state is not None and "buffer_state" in inspect.signature(sampler.make_epoch_plan).parameters:
+            ring["buffer_state"] = buffer_state
+        plan = sampler.make_epoch_plan(capacity, parallelism, self.generator, self.device, epoch_perms, **ring)
         source = sampler.source({key: rollout[key] for key in self._batch_keys() if key in rollout})
         sums: dict[str, torch.Tensor] = {}
         steps = 0

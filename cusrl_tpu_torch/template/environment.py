@@ -1,5 +1,16 @@
-"""Environment contract (counterpart of ``cusrl_tpu/template/environment.py``:
-``EnvironmentSpec`` and the device-resident ``JaxEnvironment``).
+"""Environment contracts (counterpart of ``cusrl_tpu/template/environment.py``:
+``EnvironmentSpec``, the host-driven ``Environment`` and the device-resident
+``JaxEnvironment``).
+
+``Environment`` is the host-driven vectorized contract on numpy arrays (gym
+adapters, the native CartPole, external simulators)::
+
+    reset(indices=None)  -> (observation, state | None, info)
+    step(action)         -> (observation, state | None, reward [N, Dr], terminated [N, 1], truncated [N, 1], info)
+
+The Trainer drives it with a Python loop around the agent's ``act`` and
+``step``, and resets the finished instances itself where ``spec.autoreset``
+is false (``get_done_indices``, ``update_observation_and_state``).
 
 ``TensorEnvironment`` is the device-resident contract on torch tensors::
 
@@ -17,23 +28,37 @@ package's is: a resumed run starts fresh episodes.
 from __future__ import annotations
 
 import dataclasses
+from abc import ABC, abstractmethod
 from typing import Any, Callable
 
-__all__ = ["EnvironmentSpec", "TensorEnvironment"]
+import numpy as np
+
+__all__ = [
+    "Environment",
+    "EnvironmentSpec",
+    "TensorEnvironment",
+    "get_done_indices",
+    "update_observation_and_state",
+]
 
 
 @dataclasses.dataclass
 class EnvironmentSpec:
-    """The subset of the JAX spec's fields the port reads (the mirror
-    functions and ``observation_is_subset_of_state`` are not ported yet)."""
+    """The JAX spec's fields but the mirror functions,
+    ``state_normalization``, ``observation_is_subset_of_state`` and
+    ``environment_instance``, which the port does not read yet."""
 
     observation_dim: int
     action_dim: int
     num_instances: int = 1
     state_dim: int | None = None
     reward_dim: int = 1
+    autoreset: bool = False
     final_state_is_missing: bool = False
     timestep: float | None = None  # the Player paces at 1 / timestep
+    # Spaces (loosely typed; only the gym adapters fill them).
+    observation_space: Any = None
+    action_space: Any = None
     # Predefined export-time statistics: (scale, shift) pairs.
     observation_normalization: tuple[Any, Any] | None = None
     action_denormalization: tuple[Any, Any] | None = None
@@ -43,14 +68,56 @@ class EnvironmentSpec:
     state_stat_groups: tuple[tuple[int, ...], ...] = ()
     # Imitation: ``sampler(num) -> [num, D]`` expert transitions (AMP).
     demonstration_sampler: Callable[[int], Any] | None = None
+    extras: dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def get(self, key: str, default=None):
+        if hasattr(self, key):
+            return getattr(self, key)
+        return self.extras.get(key, default)
 
     @property
     def has_state(self) -> bool:
         return self.state_dim is not None
 
 
+class Environment(ABC):
+    """Host-driven vectorized environment; the spec is built from the
+    keyword arguments, unknown keys going to ``spec.extras``."""
+
+    def __init__(self, observation_dim: int, action_dim: int, num_instances: int, state_dim: int | None = None,
+                 **spec_kwargs: Any):
+        known = {f.name for f in dataclasses.fields(EnvironmentSpec)}
+        extras = {k: v for k, v in spec_kwargs.items() if k not in known}
+        spec_kwargs = {k: v for k, v in spec_kwargs.items() if k in known}
+        self.spec = EnvironmentSpec(observation_dim=observation_dim, action_dim=action_dim,
+                                    num_instances=num_instances, state_dim=state_dim, extras=extras,
+                                    **spec_kwargs)
+
+    @property
+    def num_instances(self) -> int:
+        return self.spec.num_instances
+
+    @abstractmethod
+    def reset(self, indices=None, *, randomize_episode_progress: bool = False):
+        raise NotImplementedError
+
+    @abstractmethod
+    def step(self, action):
+        raise NotImplementedError
+
+    def state_dict(self) -> dict:
+        return {}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 class TensorEnvironment:
     def __init__(self, spec: EnvironmentSpec):
+        spec.autoreset = True
         self.spec = spec
 
     @property
@@ -74,3 +141,20 @@ class TensorEnvironment:
 
     def close(self) -> None:
         pass
+
+
+def get_done_indices(terminated, truncated) -> np.ndarray:
+    """Indices of the instances that finished this step."""
+    done = np.asarray(terminated).reshape(-1) | np.asarray(truncated).reshape(-1)
+    return np.nonzero(done)[0]
+
+
+def update_observation_and_state(observation, state, new_observation, new_state, indices):
+    """Writes the rows ``indices`` of a partial reset into copies of the
+    running observation and state."""
+    observation = np.asarray(observation).copy()
+    observation[indices] = np.asarray(new_observation)[indices]
+    if state is not None and new_state is not None:
+        state = np.asarray(state).copy()
+        state[indices] = np.asarray(new_state)[indices]
+    return observation, state

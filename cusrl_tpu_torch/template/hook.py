@@ -12,6 +12,7 @@ returning new pytrees; the order of the lifecycle is the JAX package's:
                     summed, one backward) -> ``pre_optim`` (gradients on the
                     parameters) -> optimizer step; finally ``post_update``.
   after an update:  ``apply_schedule(iteration, agent)`` (host side).
+  host loop:        ``should_update(agent)`` when a rollout is complete.
   at export:        ``pre_export(agent, graph)`` per hook, then the actor,
                     then ``post_export(agent, graph)`` per hook.
 
@@ -88,6 +89,11 @@ class Hook:
         """Memories the rollout records as of its first step (``[1, N, ...]``
         in the rollout), by rollout key."""
         return {}
+
+    def should_update(self, agent: "ActorCritic") -> bool:
+        """Whether the host loop may update once the rollout is complete (all
+        active hooks must agree)."""
+        return True
 
     def pre_act(self, agent: "ActorCritic", transition: dict) -> None:
         pass

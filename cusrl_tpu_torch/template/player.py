@@ -10,6 +10,9 @@ finished, ``episode_reward`` and ``episode_length`` (means over the finished
 episodes).  ``PlayerHook``s see every step's ``reward``, ``terminated`` and
 ``truncated`` and every reset.
 
+A host ``Environment`` is driven on numpy arrays, as the JAX Player drives
+it: the episode statistics are kept on the host, and where the environment
+does not autoreset the finished instances are reset by index.
 A ``TensorEnvironment`` is driven step by step through ``_TensorEnvAdapter``
 (the counterpart of ``_JaxEnvAdapter``), on its device: the episode
 statistics accumulate there and come to the host once, at the end; a step
@@ -24,9 +27,10 @@ import signal
 import time
 from typing import Any
 
+import numpy as np
 import torch
 
-from cusrl_tpu_torch.template.environment import TensorEnvironment
+from cusrl_tpu_torch.template.environment import TensorEnvironment, get_done_indices, update_observation_and_state
 from cusrl_tpu_torch.utils.metrics import Metrics
 from cusrl_tpu_torch.utils.timing import Rate
 
@@ -94,9 +98,8 @@ class Player:
         seed: int = 0,
     ):
         raw_env = environment() if callable(environment) and not hasattr(environment, "spec") else environment
-        if not isinstance(raw_env, TensorEnvironment):
-            raise NotImplementedError("the host-loop driver for non-tensor environments is not ported yet")
-        self.environment = _TensorEnvAdapter(raw_env, seed=seed)
+        is_tensor = isinstance(raw_env, TensorEnvironment)
+        self.environment = _TensorEnvAdapter(raw_env, seed=seed) if is_tensor else raw_env
         self.agent = agent_factory.from_environment(self.environment, device=device, seed=seed)
         if checkpoint is not None:
             self.agent.load_state_dict(checkpoint.get("agent", checkpoint))
@@ -128,6 +131,69 @@ class Player:
                 hook.close(self)
 
     def _run(self) -> dict[str, float]:
+        start = time.perf_counter()
+        if isinstance(self.environment, _TensorEnvAdapter):
+            self._run_tensor()
+        else:
+            self._run_host()
+        self.loop_seconds = time.perf_counter() - start
+        summary = self.metrics.summary()
+        if self.verbose:
+            width = max((len(k) for k in summary), default=10) + 2
+            print("┌" + "─" * (width + 14) + "┐")
+            for key, value in summary.items():
+                print(f"│ {key:<{width}}{value:>10.4f}  │")
+            print("└" + "─" * (width + 14) + "┘")
+        return summary
+
+    def _stops(self, step: int, finished) -> bool:
+        if self.num_steps is not None and step >= self.num_steps:
+            return True
+        return self.num_episodes is not None and bool((finished >= self.num_episodes).all())
+
+    def _run_host(self) -> None:
+        """The host environment's loop (``cusrl_tpu/template/player.py:130-184``)."""
+        env = self.environment
+        observation, state, _ = env.reset()
+        episode_counts = np.zeros(env.num_instances, dtype=np.int64)
+        episode_rewards: list[float] = []
+        episode_lengths: list[float] = []
+        cum_reward = np.zeros(env.num_instances)
+        cum_length = np.zeros(env.num_instances)
+        step = 0
+        self.rate.reset()
+        while not self._stop:
+            action = self.agent.act(observation, state)
+            observation, state, reward, terminated, truncated, _ = env.step(action)
+            self.agent.step(observation, reward, terminated, truncated, next_state=state)
+            transition = {"reward": reward, "terminated": terminated, "truncated": truncated}
+            for hook in self.hooks:
+                hook.step(self, transition)
+            cum_reward += np.asarray(reward).sum(-1)
+            cum_length += 1
+            self.metrics.record(step_reward=float(np.asarray(reward).mean()))
+            done_indices = get_done_indices(terminated, truncated)
+            if done_indices.size:
+                episode_counts[done_indices] += 1
+                episode_rewards.extend(cum_reward[done_indices].tolist())
+                episode_lengths.extend(cum_length[done_indices].tolist())
+                cum_reward[done_indices] = 0
+                cum_length[done_indices] = 0
+                if not env.spec.autoreset:
+                    new_obs, new_state, _ = env.reset(indices=done_indices)
+                    observation, state = update_observation_and_state(observation, state, new_obs, new_state,
+                                                                      done_indices)
+                for hook in self.hooks:
+                    hook.reset(self, done_indices)
+            step += 1
+            if self._stops(step, episode_counts):
+                break
+            self.rate.tick()
+        self.steps_taken = step
+        if episode_rewards:
+            self.metrics.record(episode_reward=episode_rewards, episode_length=episode_lengths)
+
+    def _run_tensor(self) -> None:
         env = self.environment
         observation, state, _ = env.reset()
         zeros = torch.zeros(env.num_instances, device=env.device)
@@ -136,7 +202,6 @@ class Player:
         finished = torch.zeros(3, device=env.device)  # episodes, their reward sum, their length sum
         step_reward_sum = torch.zeros((), device=env.device)
         step = 0
-        start = time.perf_counter()
         self.rate.reset()
 
         while not self._stop:
@@ -163,23 +228,12 @@ class Player:
                         hook.reset(self, indices)
 
             step += 1
-            if self.num_steps is not None and step >= self.num_steps:
-                break
-            if self.num_episodes is not None and bool((episode_counts >= self.num_episodes).all()):
+            if self._stops(step, episode_counts):
                 break
             self.rate.tick()
 
         self.steps_taken = step
         values = torch.cat([step_reward_sum.reshape(1), finished]).tolist()  # the loop's one transfer
-        self.loop_seconds = time.perf_counter() - start
         self.metrics.record(step_reward=values[0] / max(step, 1))
         if values[1] > 0:
             self.metrics.record(episode_reward=values[2] / values[1], episode_length=values[3] / values[1])
-        summary = self.metrics.summary()
-        if self.verbose:
-            width = max((len(k) for k in summary), default=10) + 2
-            print("┌" + "─" * (width + 14) + "┐")
-            for key, value in summary.items():
-                print(f"│ {key:<{width}}{value:>10.4f}  │")
-            print("└" + "─" * (width + 14) + "┘")
-        return summary

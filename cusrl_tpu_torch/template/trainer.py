@@ -1,8 +1,22 @@
 """Training orchestrator (counterpart of ``cusrl_tpu/template/trainer.py``).
 
-The port's Trainer drives a device-resident ``TensorEnvironment`` through the
-``RolloutDriver`` (the JAX Trainer's scan path, ``_rollout_and_update_scan``
-and its chunked form).  With ``iterations_per_dispatch = K > 1`` the loop runs
+Two drivers behind one Trainer, as in the JAX package:
+
+* **Host driver**, for a host ``Environment`` (gym adapters, the native
+  CartPole, ``DummyEnvironment``): a Python loop around the agent's ``act``
+  and ``step`` on numpy arrays until ``step`` says an update is due, then
+  ``update`` (``_rollout_and_update_host``).  Episode sums are kept on the
+  host; the environment's ``info`` arrays go into the transitions; where the
+  environment does not autoreset the finished instances are reset by
+  index.  The Timer splits each iteration into ``environment`` (the loop,
+  the policy's steps included) and ``agent`` (the update), and
+  ``Perf/environment_fps`` reads the first.  ``iterations_per_dispatch`` does
+  not apply: every iteration makes its own transfers.
+* **Tensor driver**, for a device-resident ``TensorEnvironment``: the
+  ``RolloutDriver`` (the JAX Trainer's scan path, ``_rollout_and_update_scan``
+  and its chunked form).
+
+With ``iterations_per_dispatch = K > 1`` the tensor driver runs
 K iterations per chunk and brings their aggregates and metrics to the host in
 ONE transfer; chunks clamp to checkpoint boundaries and to the end of
 training.  Each call of the per-iteration step still returns one iteration's
@@ -25,9 +39,6 @@ host transfer.  ``profile_dir`` records a ``torch.profiler`` trace
 (``trace.json``) of the iterations ``profile_iterations = (start, stop)``;
 chunks also clamp to those two iterations, so the trace holds exactly the
 window's device work.
-
-Not ported yet (it raises ``NotImplementedError``): the host-loop driver for
-a non-tensor ``Environment``.
 """
 
 from __future__ import annotations
@@ -39,9 +50,15 @@ import time
 from collections import deque
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
-from cusrl_tpu_torch.template.environment import TensorEnvironment
+from cusrl_tpu_torch.template.environment import (
+    Environment,
+    TensorEnvironment,
+    get_done_indices,
+    update_observation_and_state,
+)
 from cusrl_tpu_torch.template.logger import LoggerFactory
 from cusrl_tpu_torch.template.rollout import RolloutDriver
 from cusrl_tpu_torch.utils.timing import Timer
@@ -134,7 +151,7 @@ class TrainerHook:
 class Trainer:
     def __init__(
         self,
-        environment: TensorEnvironment | Callable[[], Any],
+        environment: Environment | TensorEnvironment | Callable[[], Any],
         agent_factory,
         num_iterations: int = 1000,
         logger_factory: LoggerFactory | Callable[..., Any] | None = None,
@@ -151,8 +168,6 @@ class Trainer:
         seed: int = 0,
     ):
         self.environment = environment() if callable(environment) and not hasattr(environment, "spec") else environment
-        if not isinstance(self.environment, TensorEnvironment):
-            raise NotImplementedError("the host-loop driver for non-tensor environments is not ported yet")
         self.agent = agent_factory(self.environment.spec, device=device, seed=seed)
         self.num_iterations = num_iterations
         self.checkpoint_interval = checkpoint_interval
@@ -165,8 +180,10 @@ class Trainer:
         self.profile_iterations = tuple(profile_iterations)
         self._profiler = None
         self.iterations_per_dispatch = max(1, int(iterations_per_dispatch))
-        self.driver = RolloutDriver(self.agent, self.environment)
-        self.host_transfers = 0  # one per chunk
+        is_tensor = isinstance(self.environment, TensorEnvironment)
+        self.driver = RolloutDriver(self.agent, self.environment) if is_tensor else None
+        self._host_obs = self._host_state = None
+        self.host_transfers = 0  # one per chunk (the tensor driver)
         self._pending_rows: list[torch.Tensor] = []
         self._pending_keys: tuple[str, ...] = ()
         self._last_chunk_done: float | None = None
@@ -251,8 +268,10 @@ class Trainer:
         profiler.export_chrome_trace(os.path.join(self.profile_dir, "trace.json"))
 
     def rollout_and_update(self) -> dict[str, float]:
-        """One iteration's metrics; device work and the host transfer happen
-        on the first call of each chunk."""
+        """One iteration's metrics; on the tensor driver device work and the
+        host transfer happen on the first call of each chunk."""
+        if self.driver is None:
+            return self._rollout_and_update_host()
         if not self._pending_rows:
             self._run_chunk()
         self.timer.add("agent", self._chunk_iter_time)
@@ -264,6 +283,37 @@ class Trainer:
         summary = self.agent.metrics.summary()
         self.agent.metrics.clear()
         return summary
+
+    def _rollout_and_update_host(self) -> dict[str, float]:
+        env, agent = self.environment, self.agent
+        if self._host_obs is None:
+            self._host_obs, self._host_state, _ = env.reset()
+            self._host_cum_reward = np.zeros(env.num_instances)
+            self._host_cum_length = np.zeros(env.num_instances)
+        with self.timer.record("environment"):
+            should_update = False
+            while not should_update:
+                action = agent.act(self._host_obs, self._host_state)
+                obs, state, reward, terminated, truncated, info = env.step(action)
+                done = np.asarray(terminated).reshape(-1) | np.asarray(truncated).reshape(-1)
+                self._host_cum_reward += np.asarray(reward).sum(-1)
+                self._host_cum_length += 1
+                if done.any():
+                    self.stats.track_aggregates(float(done.sum()), float(self._host_cum_reward[done].sum()),
+                                                float(self._host_cum_length[done].sum()), 0)
+                    self._host_cum_reward[done] = 0
+                    self._host_cum_length[done] = 0
+                self.stats.total_steps += env.num_instances
+                extra = {k: v for k, v in (info or {}).items() if isinstance(v, np.ndarray)}
+                should_update = agent.step(obs, reward, terminated, truncated, next_state=state, **extra)
+                if not env.spec.autoreset:
+                    indices = get_done_indices(terminated, truncated)
+                    if indices.size:
+                        new_obs, new_state, _ = env.reset(indices=indices)
+                        obs, state = update_observation_and_state(obs, state, new_obs, new_state, indices)
+                self._host_obs, self._host_state = obs, state
+        with self.timer.record("agent"):
+            return agent.update()
 
     def chunk_size(self) -> int:
         """Iterations in the next chunk: clamped to the next checkpoint

@@ -5,7 +5,15 @@ from __future__ import annotations
 
 from typing import Any, Callable, Mapping
 
-__all__ = ["flatten_nested", "get_first", "map_nested", "stack_nested"]
+__all__ = [
+    "flatten_nested",
+    "get_first",
+    "get_schema",
+    "iterate_nested",
+    "map_nested",
+    "reconstruct_nested",
+    "stack_nested",
+]
 
 _MISSING = object()
 
@@ -44,3 +52,40 @@ def get_first(data: Mapping, *keys, default: Any = _MISSING) -> Any:
     if default is _MISSING:
         raise KeyError(f"None of {keys!r} present")
     return default
+
+
+def _join(prefix: str, key: Any) -> str:
+    return f"{prefix}.{key}" if prefix else str(key)
+
+
+def get_schema(data: Any, prefix: str = "") -> Any:
+    """The nest's structure with dotted-path leaf names:
+    ``{"a": {"b": x}, "c": y}`` -> ``{"a": {"b": "a.b"}, "c": "c"}``."""
+    if isinstance(data, Mapping):
+        return {key: get_schema(value, _join(prefix, key)) for key, value in data.items()}
+    if isinstance(data, (list, tuple)):
+        walked = [get_schema(value, _join(prefix, i)) for i, value in enumerate(data)]
+        return tuple(walked) if isinstance(data, tuple) else walked
+    return prefix
+
+
+def iterate_nested(data: Any, prefix: str = ""):
+    """Yields ``(dotted path, leaf)`` pairs in order (dicts, lists and tuples)."""
+    if isinstance(data, Mapping):
+        for key, value in data.items():
+            yield from iterate_nested(value, _join(prefix, key))
+    elif isinstance(data, (list, tuple)):
+        for index, value in enumerate(data):
+            yield from iterate_nested(value, _join(prefix, index))
+    else:
+        yield prefix, data
+
+
+def reconstruct_nested(flattened: Mapping[str, Any], schema: Any) -> Any:
+    """The inverse of ``iterate_nested`` given ``get_schema``'s schema."""
+    if isinstance(schema, Mapping):
+        return {key: reconstruct_nested(flattened, value) for key, value in schema.items()}
+    if isinstance(schema, (list, tuple)):
+        rebuilt = [reconstruct_nested(flattened, value) for value in schema]
+        return tuple(rebuilt) if isinstance(schema, tuple) else rebuilt
+    return flattened[schema]

@@ -2,8 +2,8 @@
 
 Global ``registry`` keyed ``"<env>_<algo>"``, with the experiment modules
 loaded at the first lookup; ``add_experiment_modules`` adds modules of the
-caller's (the CLI's ``-m``).  The port registers only
-``cusrl_tpu_torch.zoo.locomotion`` so far.
+caller's (the CLI's ``-m``).  The port registers the gym entries
+(``cusrl_tpu_torch.zoo.gym``) and the locomotion ones.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ __all__ = [
 ]
 
 registry: dict[str, ExperimentSpec] = {}
-experiment_modules: list[str] = ["cusrl_tpu_torch.zoo.locomotion"]
+experiment_modules: list[str] = ["cusrl_tpu_torch.zoo.gym", "cusrl_tpu_torch.zoo.locomotion"]
 _loaded = False
 
 

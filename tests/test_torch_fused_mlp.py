@@ -235,3 +235,46 @@ def test_wrapper_refuses_devices_other_than_cpu_and_cuda():
     x = torch.zeros(8, 16, device="meta")
     with pytest.raises(RuntimeError, match="CUDA tensors"):
         tfm.fused_mlp(x, [torch.zeros(16, 16, device="meta")], [torch.zeros(16, device="meta")])
+
+
+@pytest.mark.parametrize("width", [1, 2, 3, 4, 6, 8, 24, 48])
+def test_narrow_inputs_pad_to_the_kernels_k_step(width):
+    """An input width that is not a multiple of 16 reaches the kernels as x
+    and W_0 with zero columns up to the next one; the zero terms leave the
+    plain chain's outputs and gradients as they were, and the backward's
+    launch hands back dW_0 and dX without the padding's columns."""
+    gen = torch.Generator().manual_seed(width)
+    dims = (width, 64, 64)
+    ws = [torch.randn(b, a, generator=gen) / a ** 0.5 for a, b in zip(dims[:-1], dims[1:])]
+    bs = [torch.randn(b, generator=gen) * 0.1 for b in dims[1:]]
+    x = torch.randn(100, width, generator=gen)
+    (xp,), (wp,) = tfm.pad_input([x], [ws])
+    padded = -(-width // 16) * 16
+    assert xp.shape == (100, padded) and wp[0].shape == (64, padded) and wp[1] is ws[1]
+    if padded == width:
+        assert xp is x and wp[0] is ws[0]
+    assert not xp[:, width:].any() and not wp[0][:, width:].any()
+    assert tfm._validate([x], [ws], [bs]) == list(dims)
+    out, hid = tfm.mlp_chain_fwd_plain(x, ws, bs, "tanh", True, True)
+    out_p, hid_p = tfm.mlp_chain_fwd_plain(xp, wp, bs, "tanh", True, True)
+    torch.testing.assert_close(out_p, out, rtol=0, atol=0)
+    g = (torch.randn(100, 64, generator=gen) * 0.01).to(torch.bfloat16)
+    dx, dws, dbs = tfm.mlp_chain_bwd_plain(x, g, ws, [*hid, out], "tanh", True, False)
+    dx_p, dws_p, dbs_p = tfm.mlp_chain_bwd_plain(xp, g, wp, [*hid, out], "tanh", True, False)
+    torch.testing.assert_close(dx_p[:, :width], dx, rtol=0, atol=1e-6)
+    torch.testing.assert_close(dws_p[0][:, :width], dws[0], rtol=0, atol=1e-6)
+    assert not dws_p[0][:, width:].any() and not dx_p[:, width:].any()
+    for skip in (False, True):
+        p, _, results, _ = tfm._bwd_params([x], [g], [ws], [[*hid, out]], "tanh", True, skip, None, None)
+        rdx, rdws, _, _ = results[0]
+        assert list(p.dims[:3]) == [padded, 64, 64]
+        assert rdws[0].shape == (64, width) and rdws[1].shape == (64, 64)
+        assert rdx is None if skip else rdx.shape == (100, width)
+
+
+def test_input_width_limits():
+    x = torch.zeros(8, 520)
+    with pytest.raises(ValueError, match="input width up to 512"):
+        tfm._validate([x], [[torch.zeros(64, 520)]], [[torch.zeros(64)]])
+    with pytest.raises(ValueError, match="multiples of 16"):
+        tfm._validate([torch.zeros(8, 4)], [[torch.zeros(40, 4)]], [[torch.zeros(40)]])

@@ -158,9 +158,14 @@ def test_autograd_wrappers_launch_and_count(cuda):
 
 
 def test_unsupported_width_raises_on_cuda(cuda):
+    """A hidden or output width that is not a multiple of 16 raises (the
+    input width may be any, up to 512)."""
     x = torch.zeros(64, 40, device=cuda)
     with pytest.raises(ValueError, match="multiples of 16"):
-        fm.fused_mlp(x, [torch.zeros(64, 40, device=cuda)], [torch.zeros(64, device=cuda)])
+        fm.fused_mlp(x, [torch.zeros(40, 40, device=cuda)], [torch.zeros(40, device=cuda)])
+    with pytest.raises(ValueError, match="up to 512"):
+        fm.fused_mlp(torch.zeros(64, 520, device=cuda), [torch.zeros(64, 520, device=cuda)],
+                     [torch.zeros(64, device=cuda)])
 
 
 # -- K1f/K2f/K8f: the wgmma forward at every shape the wrapper takes ---------
@@ -2084,3 +2089,95 @@ def test_f_exported_graph_matches_the_kernel_route(cuda, tmp_path):
             got = call({"observation": obs.to(where)})["action"].to(cuda)
         torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
     assert fm.LAUNCHES["K1f"] == 1
+
+
+# -- Path H: K1f/K1b with tanh on inputs narrower than the k16 step ------------
+
+
+@pytest.mark.parametrize("width", [2, 3, 4, 6, 24])
+@pytest.mark.parametrize("rows", [256, 1000, 8])
+def test_narrow_input_tanh_chain_matches_plain(cuda, width, rows):
+    """K1f (saving and primal) and K1b (with dX and with
+    ``skip_input_grad``) on a tanh width-64-64 chain, fp32 input of a width
+    that is not a multiple of 16 (the gym entries'), against the plain
+    versions on the unpadded input; dW_0 and dX come back unpadded."""
+    gen = torch.Generator().manual_seed(width * 1000 + rows)
+    dims = (width, 64, 64)
+    ws, bs = _params(gen, cuda, dims)
+    x = torch.randn(rows, width, generator=gen).to(cuda)
+    g = (torch.randn(rows, 64, generator=gen) * 0.01).to(cuda, torch.bfloat16)
+    fm.reset_launch_counts()
+    for save in (True, False):
+        (out,), (hid,), _ = fm._launch_fwd([x], [ws], [bs], "tanh", True, save, "K1f")
+        ref, ref_hid = fm.mlp_chain_fwd_plain(x, ws, bs, "tanh", True, True)
+        _close(out, ref, grad=False)
+        for h, r in zip(hid, ref_hid):
+            _close(h, r, grad=False)
+    for skip in (False, True):
+        ((dx, dws, dbs, _),) = fm._launch_bwd([x], [g], [ws], [[*ref_hid, ref]], "tanh", True, skip, "K1b")
+        rdx, rdws, rdbs = fm.mlp_chain_bwd_plain(x, g, ws, [*ref_hid, ref], "tanh", True, skip)
+        assert dws[0].shape == (64, width) and (dx is None) == skip
+        for a, b in zip([*dws, *dbs, *([] if skip else [dx])], [*rdws, *rdbs, *([] if skip else [rdx])]):
+            _close(a, b, grad=True)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES["K1f"] == 2 and fm.LAUNCHES["K1b"] == 2
+
+
+def test_narrow_input_autograd_and_pair_match_plain(cuda):
+    """``fused_mlp`` under autograd (x.grad of the unpadded width) and the
+    K2f/K2b pair with input gradients, at input width 4."""
+    gen = torch.Generator().manual_seed(4)
+    dims = (4, 64, 64)
+    (wa, ba), (wc, bc) = _params(gen, cuda, dims), _params(gen, cuda, dims)
+    for t in (*wa, *ba, *wc, *bc):
+        t.requires_grad_(True)
+    xa, xc = (torch.randn(256, 4, generator=gen).to(cuda).requires_grad_() for _ in range(2))
+    ga, gc = ((torch.randn(256, 64, generator=gen) * 0.01).to(cuda, torch.bfloat16) for _ in range(2))
+    fm.reset_launch_counts()
+    out = fm.fused_mlp(xa, wa, ba, "tanh")
+    out.backward(ga)
+    with torch.no_grad():
+        ref, hid = fm.mlp_chain_fwd_plain(xa, wa, ba, "tanh", True, True)
+        rdx, rdws, rdbs = fm.mlp_chain_bwd_plain(xa, ga, wa, [*hid, ref], "tanh", True, False)
+    _close(out, ref, grad=False)
+    assert xa.grad.shape == (256, 4)
+    for got, want in zip([xa.grad, *(w.grad for w in wa), *(b.grad for b in ba)], [rdx, *rdws, *rdbs]):
+        _close(got, want, grad=True)
+    for t in (xa, *wa, *ba):
+        t.grad = None
+    out_a, out_c = fm.fused_mlp_pair(xa, xc, wa, ba, wc, bc, "tanh")
+    torch.autograd.backward([out_a, out_c], [ga, gc])
+    for x, ws, bs, g, o in ((xa, wa, ba, ga, out_a), (xc, wc, bc, gc, out_c)):
+        with torch.no_grad():
+            ref, hid = fm.mlp_chain_fwd_plain(x, ws, bs, "tanh", True, True)
+            rdx, rdws, rdbs = fm.mlp_chain_bwd_plain(x, g, ws, [*hid, ref], "tanh", True, False)
+        _close(o, ref, grad=False)
+        for got, want in zip([x.grad, *(w.grad for w in ws), *(b.grad for b in bs)], [rdx, *rdws, *rdbs]):
+            _close(got, want, grad=True)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fm.LAUNCHES.items() if v} == {"K1f": 1, "K1b": 1, "K2f": 1, "K2b": 1}
+
+
+def test_cartpole_player_step_takes_one_kernel_launch(cuda):
+    """The zoo's CartPole-v1 agent in inference mode on the card: a
+    deterministic step at the Player's 8 rows is one K1f launch (tanh
+    4-64-64), one-hot, the mode of logits that agree with the CPU agent's."""
+    import numpy as np
+
+    from cusrl_tpu_torch.environment.native import NativeCartPoleEnv
+    from cusrl_tpu_torch.zoo.registry import get_experiment
+
+    factory = get_experiment("CartPole-v1", "ppo").make_agent_factory()
+    spec = NativeCartPoleEnv(8).spec
+    agent, cpu_agent = factory(spec, device=cuda, seed=0), factory(spec, device="cpu", seed=0)
+    for a in (agent, cpu_agent):
+        a.set_inference_mode()
+    observation = np.random.default_rng(0).standard_normal((8, 4)).astype(np.float32)
+    fm.reset_launch_counts()
+    action = agent.act(observation)
+    assert {k: v for k, v in fm.LAUNCHES.items() if v} == {"K1f": 1}
+    assert action.shape == (8, 2) and (action.sum(-1) == 1).all()
+    with torch.no_grad():
+        logits = agent.actor(torch.from_numpy(observation).to(cuda))[0]["logits"]
+        ref = cpu_agent.actor(torch.from_numpy(observation))[0]["logits"]
+    torch.testing.assert_close(logits.cpu(), ref, rtol=2e-2, atol=2e-2)

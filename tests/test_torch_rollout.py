@@ -117,7 +117,9 @@ def test_host_loop_act_step_update():
         obs, _ = env.observe_fn(state)
         should_update = agent.step(obs, reward, terminated, truncated)
     metrics = agent.update()
-    assert agent.iteration == 1 and agent.buffer == [] and all(np.isfinite(v) for v in metrics.values())
+    assert agent.iteration == 1 and agent.step_index == 0 and all(np.isfinite(v) for v in metrics.values())
+    # The ring holds the rollout it updated on, as the JAX agent's does: full, the cursor back at 0.
+    assert agent.buffer.full and agent.buffer.cursor == 0 and agent.buffer["observation"].shape == (4, 8, 16)
 
 
 def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):

@@ -34,7 +34,9 @@ def test_zoo_ppo_entries_match_jax(environment):
     for name in ("num_iterations", "checkpoint_interval", "iterations_per_dispatch", "experiment_name"):
         assert getattr(spec, name) == getattr(ref, name), name
     assert set(list_experiments()) == {"Velocity-Flat_ppo", "Velocity-Rough_ppo", "Velocity-Flat_transformer_ppo",
-                                       "Velocity-Flat_recurrent_ppo", "Velocity-Flat_amp"}
+                                       "Velocity-Flat_recurrent_ppo", "Velocity-Flat_amp", "CartPole-v1_ppo",
+                                       "MountainCar-v0_ppo", "MountainCarContinuous-v0_ppo", "Pendulum-v1_ppo",
+                                       "Acrobot-v1_ppo", "BipedalWalker-v3_ppo", "LunarLanderContinuous-v3_ppo"}
     for lower in ("to_playing_factory", "to_benchmarking_factory"):
         factory, ref_factory = getattr(spec, lower)(), getattr(ref, lower)()
         assert type(factory).__name__ == type(ref_factory).__name__
@@ -94,13 +96,24 @@ def test_trainer_loop_logs_the_jax_format(capsys):
 
 
 def test_trainer_refuses_what_is_not_ported():
-    """The host-loop driver (a non-tensor environment) waits, in the Trainer
-    and in the Player."""
+    """What the Trainer and the Player refused before the host-loop slice, a
+    host ``Environment``, now trains and plays: one iteration of the host
+    driver and a few Player steps on ``DummyEnvironment``, continuous
+    actions, with the Timer's environment/agent split."""
+    from cusrl_tpu_torch.testing.environment import DummyEnvironment
+
     factory = get_experiment("Velocity-Flat", "ppo").make_agent_factory()
-    with pytest.raises(NotImplementedError, match="host-loop"):
-        Trainer(object(), factory, device="cpu")
-    with pytest.raises(NotImplementedError, match="host-loop"):
-        Player(object(), factory, device="cpu")
+    factory.actor_hidden_dims = factory.critic_hidden_dims = (16,)
+    factory.num_steps_per_update = 4
+    trainer = Trainer(DummyEnvironment(observation_dim=48, action_dim=12, num_instances=8), factory,
+                      num_iterations=1, device="cpu", verbose=False)
+    assert trainer.driver is None
+    trainer.run_training_loop()
+    assert trainer.agent.iteration == 1 and trainer.stats.total_steps == 4 * 8
+    player = Player(DummyEnvironment(observation_dim=48, action_dim=12, num_instances=8), factory, device="cpu",
+                    num_steps=3, verbose=False)
+    summary = player.run_playing_loop()
+    assert player.steps_taken == 3 and np.isfinite(summary["step_reward"])
 
 
 @pytest.mark.parametrize("option", ["logger_factory", "checkpoint", "profile_dir"])

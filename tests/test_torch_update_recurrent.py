@@ -362,8 +362,10 @@ def test_hooks_raise_where_the_jax_hooks_raise():
         GeneralizedAdvantageEstimation(recompute=True).objective(None, {"temporal": False}, {})
     with pytest.raises(ValueError, match="needs TemporalRandomSampler"):
         RandomSampler(1, 4).source({"observation": torch.zeros(2, 4, 1), "actor_memory": torch.zeros(1, 4, 3)})
-    with pytest.raises(NotImplementedError, match="buffer_state"):
-        TemporalRandomSampler(1, 2).make_epoch_plan(4, 4, buffer_state={"cursor": 1, "full": False})
+    # A partly filled ring (cursor 3 of 4): the windows of 2 steps lie in the first 3.
+    plan = TemporalRandomSampler(8, 2, 2).make_epoch_plan(4, 4, torch.Generator().manual_seed(0),
+                                                          buffer_state={"cursor": 3, "full": False})
+    assert int(plan.indices[0].max()) <= 2
     agent = RecurrentPpoAgentFactory(rnn_hidden_size=8, mlp_hidden_dims=(), num_steps_per_update=4)(
         env.spec, device="cpu")
     assert isinstance(agent.actor.backbone, Gru)  # the bare cell without mlp_hidden_dims

@@ -261,3 +261,41 @@ def test_fused_update_objective_with_a_wide_head_matches_jax(wide, compute_dtype
                                        atol=1e-2 * np.abs(want).max())
         else:
             np.testing.assert_allclose(param.grad.numpy(), want, err_msg=path, **FP32_TOL[0])
+
+
+@pytest.mark.parametrize("final_state_is_missing", [True, False])
+def test_feedforward_value_bootstrap_follows_final_state_is_missing(final_state_is_missing, monkeypatch):
+    """The feedforward (``deferred=True``) ValueComputation against the JAX
+    hook on a 6 x 4 rollout with 2 truncated rows and 1 terminated one: with
+    the final state missing, truncated rows take their own value and the last
+    row bootstraps from the critic on its next state."""
+    monkeypatch.setattr(JAX_CONFIG, "seed", 0)
+    monkeypatch.setattr(jax_misc, "_KEY_COUNTER", [0])
+    jf, tf = _factories("A")
+    jax_spec = dataclasses.replace(JaxEnv(num_instances=4, observation_dim=OBS, action_dim=ACT).spec,
+                                   final_state_is_missing=final_state_is_missing)
+    spec = dataclasses.replace(VelocityLocomotionEnv(num_instances=4, observation_dim=OBS, action_dim=ACT,
+                                                     device="cpu").spec, final_state_is_missing=final_state_is_missing)
+    jax_agent, agent = jf(jax_spec), tf(spec, device="cpu")
+    load_jax_state(agent, jax_agent.state_dict()["agent_state"])
+    rng = np.random.default_rng(7)
+    obs = rng.standard_normal((7, 4, OBS)).astype(np.float32)
+    truncated = np.zeros((6, 4, 1), bool)
+    truncated[1, 2] = truncated[4, 0] = True
+    terminated = np.zeros((6, 4, 1), bool)
+    terminated[3, 1] = True
+    rollout = {"observation": obs[:-1], "next_observation": obs[1:], "terminated": terminated,
+               "truncated": truncated, "done": terminated | truncated}
+    jax_hook = jax_agent.get_hook("value_computation")
+    _, jax_rollout, _ = jax_hook.pre_update(jax_agent.state, jax.tree.map(jnp.asarray, rollout))
+    hook = agent.get_hook("value_computation")
+    assert hook.deferred is True and hook.bootstrap_truncated_states is not final_state_is_missing
+    port_rollout = {k: torch.from_numpy(v) for k, v in rollout.items()}
+    with torch.no_grad():
+        hook.pre_update(agent, port_rollout)
+    for key in ("value", "next_value"):
+        np.testing.assert_allclose(port_rollout[key].numpy(), np.asarray(jax_rollout[key]), err_msg=key,
+                                   **FP32_TOL[0])
+    next_value, value = port_rollout["next_value"].numpy(), port_rollout["value"].numpy()
+    if final_state_is_missing:
+        np.testing.assert_array_equal(next_value[truncated[..., 0]], value[truncated[..., 0]])
