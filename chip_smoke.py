@@ -163,11 +163,31 @@ without printing a result:
    ``package``; and a jsonl-logged Trainer whose chunk ending at no
    checkpoint makes one host transfer and no other synchronizing call; each
    subcommand's seconds;
-9. the total seconds, the ``nvidia-smi`` line, the ``kernels`` JSON line
+9. ``[ddp]``: data parallelism over ``torch.distributed``.  A1, a NCCL group
+   of one in this process: path A's update (4,096 environments x 24 steps)
+   through ``distribute_agent`` / ``cross_process_update`` against the same
+   update without a group, from the same state, rollout and permutations,
+   bit for bit (metrics, every leaf of the agent's state, the first
+   minibatch's gradient); then path A through the Trainer undistributed and
+   distributed (a warm-up and a timed 10-iteration chunk each: launches,
+   one host transfer a chunk in sync debug mode, env-steps/s, the
+   collectives' calls and bytes an iteration, a profile of the distributed
+   iteration).  A2, two rank processes on this one card (``--ddp-rank``;
+   first a NCCL probe, ``--ddp-probe``: NCCL if it takes two ranks on one
+   device, else gloo, which moves CUDA tensors through the host), each with
+   path A's 4,096 environments: one update of A, then one of CM, on their
+   own rollouts with the permutations fed, against this process's update
+   of the 8,192 environments side by side at ``[update-check]``'s limits,
+   the ranks bit for bit equal, 20 K2f/K2b or K9m launches a rank on
+   24,576-row slices; a rank that fails or outlives its 300 s fails the
+   run;
+10. the total seconds, the ``nvidia-smi`` line, the ``kernels`` JSON line
    (each kernel's launches from the path that runs it, ``launches_by_path``
    every path's; ``not_ported`` is empty), and the final
    ``{"ok": true, ...}`` line.
 
+``python3 chip_smoke.py --ddp`` runs only ``[ddp]``; ``--ddp-cards`` runs A2's
+check with one rank on each card of the machine, over NCCL.
 ``python3 chip_smoke.py --paths TL C`` runs only the named paths'
 ``[train-zoo]`` chunks and profiles (``H``: its host-loop iterations and
 profile), with the kernels of the package beside
@@ -3359,23 +3379,34 @@ def train_zoo(kind: str, path: str):
         return _train_chunks(kind, path, factory, envs, chunk)
 
 
-def _train_chunks(kind: str, path: str, factory, envs: int, chunk: int):
+def _train_chunks(kind: str, path: str, factory, envs: int, chunk: int, distribute: bool = False,
+                  profile: bool = True):
+    """The warm-up and the timed chunk of ``train_zoo``; with ``distribute``
+    the Trainer's agent is distributed over the process group first and the
+    timed chunk's collectives are counted (``[ddp] A1``)."""
     import warnings
 
     import torch
+
+    from cusrl_tpu_torch.parallel import distribute_agent
+    from cusrl_tpu_torch.utils import distributed
 
     steps = PATH_STEPS.get(path, STEPS)
     trainer = factory(verbose=False, seed=SEED)  # device defaults to the card
     if trainer.environment.num_instances != envs or chunk != 10 or trainer.agent.device.type != "cuda":
         raise AssertionError("the zoo entry is not the uncut configuration on the card")
+    if distribute:
+        distribute_agent(trainer.agent)
+        path = f"{path} distributed"
     start = time.perf_counter()
     for _ in range(chunk):
         trainer.rollout_and_update()
     torch.cuda.synchronize()
-    print(f"[train-zoo] {path} ({PATH_NAMES[path]}): warm-up chunk of {chunk} iterations "
+    print(f"[train-zoo] {path} ({PATH_NAMES[path.split()[0]]}): warm-up chunk of {chunk} iterations "
           f"{time.perf_counter() - start:.3f} s")
 
     _reset_launch_counts()
+    distributed.reset_collective_counts()
     transfers = trainer.host_transfers
     torch.cuda.set_sync_debug_mode("warn")
     start = time.perf_counter()
@@ -3385,9 +3416,10 @@ def _train_chunks(kind: str, path: str, factory, envs: int, chunk: int):
     elapsed = time.perf_counter() - start
     torch.cuda.set_sync_debug_mode("default")
     launches = _launch_counts()
+    collectives = {k: (v[0] / chunk, v[1] / chunk) for k, v in distributed.COLLECTIVES.items()}
     syncs = [f"{w.filename}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
     others = [site for site in syncs if "template/trainer.py:" not in site]
-    expected = {k: v * chunk for k, v in EXPECTED_ZOO_LAUNCHES[path].items()}
+    expected = {k: v * chunk for k, v in EXPECTED_ZOO_LAUNCHES[path.split()[0]].items()}
     print(f"[train-zoo] {path}: launches over {chunk} iterations {launches} (expected {expected}); "
           f"host transfers {trainer.host_transfers - transfers}; synchronizing calls {len(syncs)} "
           f"({len(others)} outside the Trainer's transfer)")
@@ -3401,7 +3433,15 @@ def _train_chunks(kind: str, path: str, factory, envs: int, chunk: int):
     print("    last iteration: " + " ".join(f"{k}={v:.5g}" for k, v in sorted(rows[-1].items())))
     steps_per_s = chunk * steps * envs / elapsed
     print(f"[train-zoo] {path}: {steps_per_s:.1f} env-steps/s ({elapsed / chunk * 1e3:.2f} ms per iteration) on {kind}")
-    profile_iteration(trainer.driver, path, steps)
+    if distribute:
+        if not collectives["all_reduce"][0] or not collectives["all_gather"][0]:
+            raise AssertionError(f"path {path}: the distributed chunk ran no collective: {collectives}")
+        print(f"[ddp] A1: collectives per iteration: " + ", ".join(
+            f"{k} {n:g} calls, {b:,.0f} bytes" for k, (n, b) in collectives.items()))
+    elif any(n for n, _ in collectives.values()):
+        raise AssertionError(f"path {path}: an undistributed chunk ran collectives: {collectives}")
+    if profile:
+        profile_iteration(trainer.driver, path, steps)
     return launches, steps_per_s
 
 
@@ -3843,6 +3883,368 @@ def check_cli() -> dict:
     return timings
 
 
+# -- [ddp]: data parallelism over torch.distributed -------------------------------
+
+DDP_RANKS = 2
+DDP_ENVS = NUM_ENVS  # path A's 4,096 environments on each rank
+DDP_PATHS = ("A", "CM")  # the joint evaluation (K2f/K2b), then the fused PPO step in mono mode (K9m)
+DDP_RANK_ROWS = STEPS * DDP_RANKS * DDP_ENVS // MINIBATCHES // DDP_RANKS  # 24,576: a rank's slice of a minibatch
+DDP_RANK_TIMEOUT = 300.0  # seconds a rank process may take, its start and CUDA's included
+DDP_PROBE_TIMEOUT = 90.0
+DDP_GROUP_TIMEOUT = 120.0  # the process group's own limit on a collective
+_DDP_UPDATE = {"A": {"K1f": 3, "K2f": MB, "K2b": MB}, "CM": {"K1f": 3, "K9m": MB}}  # one update's launches
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _group_env(rank: int, world: int, port: int, local_rank: int = 0) -> dict:
+    """torchrun's variables for ``rank`` of ``world`` on card ``local_rank``."""
+    return {"RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": str(local_rank), "MASTER_ADDR": "127.0.0.1",
+            "MASTER_PORT": str(port)}
+
+
+def _zoo_agent_factory(path: str):
+    from cusrl_tpu_torch.zoo.registry import get_experiment
+
+    return _with_path(get_experiment("Velocity-Rough", "ppo").make_agent_factory(), path)
+
+
+def _agent_state(agent) -> dict:
+    """Every leaf of the agent's state by its checkpoint path, on the host."""
+    import numpy as np
+
+    from cusrl_tpu_torch.utils.interop import state_entries
+
+    return {path: np.array(entry.read()) for path, entry in state_entries(agent).items()}
+
+
+def _load_state(agent, state: dict) -> None:
+    import torch
+
+    from cusrl_tpu_torch.utils.interop import state_entries
+
+    with torch.no_grad():
+        for path, entry in state_entries(agent).items():
+            entry.write(path, state[path])
+
+
+def _ddp_rollout(agent, envs: int, seed: int) -> dict:
+    """A ``[STEPS, envs]`` rollout at path A's shapes on the agent's device:
+    observations, rewards and episode ends from ``seed``, actions drawn from
+    the agent's actor."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    obs = torch.tanh(torch.randn(STEPS + 1, envs, WIDTHS[0], generator=gen))
+    terminated = torch.rand(STEPS, envs, 1, generator=gen) < 0.02
+    truncated = torch.rand(STEPS, envs, 1, generator=gen) < 0.01
+    noise = torch.randn(STEPS, envs, agent.action_dim, generator=gen)
+    reward = torch.randn(STEPS, envs, 1, generator=gen)
+    device = agent.device
+    with torch.no_grad():
+        dist, _, _ = agent.actor(obs[:-1].to(device))
+        action = dist["mean"] + dist["std"] * noise.to(device)
+        logp = agent.actor.compute_logp(dist, action)
+    return {"observation": obs[:-1].to(device), "next_observation": obs[1:].to(device), "action": action,
+            "action_logp": logp, "action_dist": dist, "reward": reward.to(device),
+            "terminated": terminated.to(device), "truncated": truncated.to(device),
+            "done": (terminated | truncated).to(device)}
+
+
+def _ddp_perms(envs: int):
+    import torch
+
+    units = STEPS * envs // 128  # the sampler's 128-row tiles
+    return torch.stack([torch.randperm(units, generator=torch.Generator().manual_seed(100 + e)) for e in range(EPOCHS)])
+
+
+def _ddp_update(agent, rollout: dict, perms, distributed_update: bool):
+    """One update (``cross_process_update`` with ``distributed_update``, else
+    ``update_body``): ``(metrics, the first minibatch's gradient by parameter
+    name, launches, each minibatch's rows)``; the launch counters are set to
+    0 just before it."""
+    from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+    from cusrl_tpu_torch.parallel import cross_process_update
+
+    names = {id(p): name for name, p in agent.model.named_parameters()}
+    first_grads, rows = {}, []
+
+    def keep_first(optimizer, args, kwargs):
+        if not first_grads:
+            first_grads.update({names[id(p)]: p.grad.detach().clone() for group in optimizer.param_groups
+                                for p in group["params"] if p.grad is not None})
+
+    train_step = agent._train_step
+
+    def count_rows(metadata, batch, *args):
+        rows.append(batch["observation"].shape[0])
+        return train_step(metadata, batch, *args)
+
+    agent._train_step = count_rows
+    handle = register_optimizer_step_pre_hook(keep_first)
+    _reset_launch_counts()
+    try:
+        if distributed_update:
+            metrics = cross_process_update(agent, rollout, epoch_perms=perms)
+        else:
+            metrics = {k: float(v) for k, v in agent.update_body(rollout, epoch_perms=perms).items()}
+    finally:
+        handle.remove()
+        del agent._train_step
+    launches = {k: v for k, v in _launch_counts().items() if v}
+    return metrics, {k: v.cpu() for k, v in first_grads.items()}, launches, rows
+
+
+def _states_differ(a: dict, b: dict) -> list[str]:
+    import numpy as np
+
+    if set(a) != set(b):
+        return sorted(set(a) ^ set(b))
+    return [path for path in sorted(a) if a[path].shape != b[path].shape or not np.array_equal(a[path], b[path])]
+
+
+def check_ddp_world1(kind: str) -> dict:
+    """``[ddp] A1``: a NCCL group of one in this process.  One update of
+    path A (the zoo's Velocity-Rough ``ppo``, 4,096 environments x 24 steps)
+    through ``distribute_agent`` / ``cross_process_update`` against the same
+    update without a process group, from the same state, rollout and
+    permutations: metrics and every leaf of the agent's state bit for bit
+    (the collectives run, each the identity).  Then path A through the
+    Trainer, undistributed and distributed, a warm-up and a timed chunk of
+    10 iterations each: launches, one host transfer a chunk (sync debug
+    mode), env-steps/s, and the distributed chunk's collectives (calls and
+    bytes an iteration)."""
+    import torch
+    import torch.distributed as dist
+
+    from cusrl_tpu_torch.environment.locomotion import VelocityLocomotionEnv
+    from cusrl_tpu_torch.parallel import distribute_agent
+    from cusrl_tpu_torch.utils import distributed
+    from cusrl_tpu_torch.utils.config import configure_distributed
+    from cusrl_tpu_torch.zoo.registry import get_experiment
+
+    variables = _group_env(0, 1, _free_port())
+    os.environ.update(variables)
+    try:
+        if not configure_distributed(timeout_s=DDP_GROUP_TIMEOUT) or dist.get_backend() != "nccl":
+            raise AssertionError("[ddp] A1: no NCCL group of one")
+        print(f"[ddp] A1: {dist.get_backend()} group of {dist.get_world_size()}, rank {dist.get_rank()} on "
+              f"cuda:{torch.cuda.current_device()}")
+        factory = _zoo_agent_factory("A")
+        env = VelocityLocomotionEnv(num_instances=NUM_ENVS)  # the card
+        plain = factory(env.spec, seed=SEED)
+        state = _agent_state(plain)
+        rollout, perms = _ddp_rollout(plain, NUM_ENVS, SEED + 7), _ddp_perms(NUM_ENVS)
+        want = _ddp_update(plain, rollout, perms, distributed_update=False)
+        agent = factory(env.spec, seed=SEED + 1)
+        _load_state(agent, state)
+        distribute_agent(agent)
+        distributed.reset_collective_counts()
+        got = _ddp_update(agent, rollout, perms, distributed_update=True)
+        collectives = {k: tuple(v) for k, v in distributed.COLLECTIVES.items()}
+        differ = [k for k in want[0] if got[0].get(k) != want[0][k]] + _states_differ(_agent_state(agent),
+                                                                                      _agent_state(plain))
+        differ += [f"grad {k}" for k in want[1] if not torch.equal(got[1][k], want[1][k])]
+        print(f"[ddp] A1: one update, distributed against plain: {len(want[0])} metrics, {len(state)} state "
+              f"leaves, {len(want[1])} first-minibatch gradient leaves; launches {got[2]} (plain {want[2]}); "
+              f"collectives {collectives}; {'bit for bit' if not differ else 'DIFFER: ' + ', '.join(differ[:8])}")
+        if differ or got[2] != want[2] or want[2] != _DDP_UPDATE["A"] or not collectives["all_reduce"][0]:
+            raise AssertionError("[ddp] A1: the distributed update is not the plain one bit for bit")
+        rates, chunk_launches = {}, None
+        for distribute in (False, True):
+            trainer_factory = get_experiment("Velocity-Rough", "ppo").to_training_factory()
+            chunk = trainer_factory.iterations_per_dispatch
+            trainer_factory.num_iterations = 2 * chunk
+            # The undistributed chunk's profile is [train-zoo] A's; here the distributed one's.
+            launches, rates[distribute] = _train_chunks(kind, "A", trainer_factory, NUM_ENVS, chunk,
+                                                        distribute=distribute, profile=distribute)
+            chunk_launches = launches if distribute else chunk_launches
+        print(f"[ddp] A1: path A through the Trainer: {rates[True]:.1f} env-steps/s distributed over the group of "
+              f"one, {rates[False]:.1f} undistributed, on {kind}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for name in variables:
+            os.environ.pop(name, None)
+    return {"launches": chunk_launches, "env_steps_per_s": rates[True], "undistributed_env_steps_per_s": rates[False]}
+
+
+def _run_ranks(args: list[str], world: int, timeout: float, workdir: Path, tag: str,
+               spread: bool = False) -> tuple[list, list[str]]:
+    """``python3 chip_smoke.py *args`` as ``world`` rank processes, all on
+    card 0 or (``spread``) each on its own card; waits for all of them, kills
+    every one that is left once one fails or ``timeout`` passes.  Returns
+    their exit codes (None: killed) and the end of each one's output."""
+    port = _free_port()
+    logs = [workdir / f"{tag}{rank}.log" for rank in range(world)]
+    procs = []
+    for rank in range(world):
+        with open(logs[rank], "w") as log:
+            procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()), *args],
+                                          env={**os.environ, **_group_env(rank, world, port, rank * spread)},
+                                          stdout=log, stderr=subprocess.STDOUT, cwd=REPO))
+    deadline = time.perf_counter() + timeout
+    try:
+        while any(p.poll() is None for p in procs) and time.perf_counter() < deadline:
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    codes = [p.returncode if p.returncode >= 0 else None for p in procs]
+    return codes, [log.read_text()[-2000:] for log in logs]
+
+
+def ddp_probe() -> int:
+    """One rank of the NCCL probe: the group and one all-reduce on the card."""
+    import torch
+    import torch.distributed as dist
+
+    from cusrl_tpu_torch.utils.config import configure_distributed
+
+    configure_distributed(backend="nccl", timeout_s=DDP_PROBE_TIMEOUT / 2)
+    x = torch.ones(4, device="cuda")
+    dist.all_reduce(x)
+    ok = x.tolist() == [float(dist.get_world_size())] * 4
+    dist.destroy_process_group()
+    return 0 if ok else 1
+
+
+def ddp_rank(workdir: str, backend: str) -> int:
+    """One rank of ``[ddp] A2``: rank 0 loads the state, ``distribute_agent``
+    broadcasts it, and each path's update runs on the rank's own 4,096
+    environments; the results go to ``rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from cusrl_tpu_torch.environment.locomotion import VelocityLocomotionEnv
+    from cusrl_tpu_torch.parallel import distribute_agent
+    from cusrl_tpu_torch.utils.config import configure_distributed
+    from cusrl_tpu_torch.utils.nest import map_nested
+
+    configure_distributed(backend=backend, timeout_s=DDP_GROUP_TIMEOUT)
+    rank = dist.get_rank()
+    inputs = torch.load(Path(workdir) / "inputs.pt", weights_only=False)
+    out = {}
+    for path in DDP_PATHS:
+        with _ppo_mode("mono" if path == "CM" else "split"):
+            env = VelocityLocomotionEnv(num_instances=DDP_ENVS)
+            agent = _zoo_agent_factory(path)(env.spec, seed=SEED + 100 + rank)  # the broadcast replaces these
+            if rank == 0:
+                _load_state(agent, inputs[path]["state"])
+            distribute_agent(agent)
+            rollout = map_nested(lambda x: x[:, rank * DDP_ENVS:(rank + 1) * DDP_ENVS].to(agent.device),
+                                 inputs[path]["rollout"])
+            start = time.perf_counter()
+            metrics, grads, launches, rows = _ddp_update(agent, rollout, inputs[path]["perms"], distributed_update=True)
+            seconds = time.perf_counter() - start
+        out[path] = {"metrics": metrics, "grads": grads, "launches": launches, "rows": rows, "seconds": seconds,
+                     "state": _agent_state(agent)}
+    torch.save(out, Path(workdir) / f"rank{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def check_ddp_ranks(kind: str, world: int = DDP_RANKS, spread: bool = False) -> dict:
+    """``[ddp] A2``: ``world`` rank processes on this one card (or, with
+    ``spread``, ``[ddp] cards``: each on its own card over NCCL), each with
+    path A's 4,096 environments, take one update of path A and then one of
+    path CM (the fused PPO step, mono mode: K9m) on their own rollouts, the
+    permutations fed; held against this process's single update of all
+    ranks' environments side by side, at ``[update-check]``'s limits
+    (metrics and every leaf of the first minibatch's gradient), the ranks
+    bit for bit equal, and each rank's K2f/K2b (A) or K9m (CM) launched on
+    24,576-row slices.  On one card, first a NCCL probe: where NCCL refuses
+    two ranks on one card, gloo moves the CUDA tensors through the host."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from cusrl_tpu_torch.environment.locomotion import VelocityLocomotionEnv
+    from cusrl_tpu_torch.utils.nest import map_nested
+
+    label = f"[ddp] {world} cards" if spread else "[ddp] A2"
+    workdir = Path(tempfile.mkdtemp(prefix="ddp_"))
+    try:
+        envs = world * DDP_ENVS
+        inputs, oracle = {}, {}
+        for path in DDP_PATHS:
+            with _ppo_mode("mono" if path == "CM" else "split"):
+                agent = _zoo_agent_factory(path)(VelocityLocomotionEnv(num_instances=DDP_ENVS).spec, seed=SEED)
+                state = _agent_state(agent)
+                rollout, perms = _ddp_rollout(agent, envs, SEED + 11), _ddp_perms(envs)
+                start = time.perf_counter()
+                oracle[path] = _ddp_update(agent, rollout, perms, distributed_update=False)
+                torch.cuda.synchronize()
+                print(f"{label}: {path} on one process of {envs} environments: {time.perf_counter() - start:.3f} s, "
+                      f"launches {oracle[path][2]}")
+            inputs[path] = {"state": state, "rollout": map_nested(lambda x: x.cpu(), rollout), "perms": perms}
+        torch.save(inputs, workdir / "inputs.pt")
+
+        backend = "nccl"
+        if not spread:
+            start = time.perf_counter()
+            codes, logs = _run_ranks(["--ddp-probe"], world, DDP_PROBE_TIMEOUT, workdir, "probe")
+            if codes == [0] * world:
+                print(f"{label}: NCCL accepts {world} ranks on one card ({time.perf_counter() - start:.1f} s): "
+                      "the ranks run over NCCL")
+            else:
+                backend = "gloo"
+                lines = [line.strip() for log in logs for line in log.splitlines()]
+                reason = next((line for line in lines if "Duplicate GPU" in line or "ncclInvalidUsage" in line),
+                              next((line for line in reversed(lines) if "Error" in line), "no error line"))
+                print(f"{label}: NCCL refuses {world} ranks on one card (exit codes {codes}, "
+                      f"{time.perf_counter() - start:.1f} s): {reason[:300]}; the ranks run over gloo")
+        start = time.perf_counter()
+        codes, logs = _run_ranks(["--ddp-rank", str(workdir), backend], world, DDP_RANK_TIMEOUT, workdir, "rank",
+                                 spread=spread)
+        elapsed = time.perf_counter() - start
+        if codes != [0] * world:
+            raise AssertionError(f"{label}: rank exit codes {codes} (None: killed at {DDP_RANK_TIMEOUT:g} s or "
+                                 "after another rank failed):\n" + "\n".join(logs))
+        ranks = [torch.load(workdir / f"rank{rank}.pt", weights_only=False) for rank in range(world)]
+        print(f"{label}: {world} ranks over {backend}, {elapsed:.1f} s for the processes, start to exit")
+        failures = []
+        for path in DDP_PATHS:
+            first = ranks[0][path]
+            for rank, result in enumerate(ranks[1:], 1):
+                differ = [k for k in first["metrics"] if result[path]["metrics"][k] != first["metrics"][k]]
+                differ += _states_differ(result[path]["state"], first["state"])
+                differ += [f"grad {k}" for k in first["grads"] if not torch.equal(result[path]["grads"][k],
+                                                                                  first["grads"][k])]
+                if differ:
+                    failures.append(f"{path}: rank {rank} differs from rank 0 in {differ[:8]}")
+            expected = _DDP_UPDATE[path]
+            for rank, result in enumerate(ranks):
+                r = result[path]
+                print(f"{label}: {path} rank {rank}: launches {r['launches']}, minibatch rows "
+                      f"{sorted(set(r['rows']))} x {len(r['rows'])}, update {r['seconds']:.3f} s")
+                if r["launches"] != expected or set(r["rows"]) != {DDP_RANK_ROWS} or len(r["rows"]) != MB:
+                    failures.append(f"{path}: rank {rank} launched {r['launches']} on rows {sorted(set(r['rows']))}")
+            print(f"{label}: {path}, rank 0 against one process of {envs} environments:")
+            failed = update_check_failures(*oracle[path][:2], first["metrics"], first["grads"], report=True)
+            failures += [f"{path}: {key}" for key in failed]
+        if failures:
+            raise AssertionError(f"{label} failed: " + "; ".join(failures))
+        print(f"{label}: the ranks bit for bit equal; rank 0 within [update-check]'s limits of the single process "
+              f"(rtol {UPDATE_RTOL:g}, atol {UPDATE_ATOL:g}; gradient leaves {GRAD_RTOL:g}) on {kind}")
+        return {"backend": backend, "rank_launches": {p: ranks[0][p]["launches"] for p in DDP_PATHS},
+                "seconds": elapsed}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def profile_iteration(driver, label: str, steps: int = STEPS, fn=None) -> None:
     """Device time by kernel over one training iteration (torch.profiler:
     ``fn()``, else ``driver.collect_and_update(steps)``), and the device's
@@ -3933,6 +4335,10 @@ def main(argv: list[str]) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions run true fp32 products
     torch.backends.cudnn.allow_tf32 = False
 
+    if argv[:1] == ["--ddp-rank"]:  # a rank process of [ddp] A2
+        return ddp_rank(argv[1], argv[2])
+    if argv[:1] == ["--ddp-probe"]:  # a rank process of [ddp] A2's NCCL probe
+        return ddp_probe()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
@@ -3948,10 +4354,21 @@ def main(argv: list[str]) -> int:
             if "registers" in line or "spill" in line:
                 print(f"    {log.stem}: {line.strip()}")
 
+    if argv == ["--ddp-cards"]:  # path A's update on every card of the machine, one rank each, over NCCL
+        check_ddp_ranks(kind, torch.cuda.device_count(), spread=True)
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60, check=True).stdout.strip())
+        return 0
+    if argv == ["--ddp"]:  # only the [ddp] phase
+        check_ddp_world1(kind)
+        check_ddp_ranks(kind)
+        print(f"[total] {time.perf_counter() - started:.1f} s, the build included")
+        print(smi)
+        return 0
     if argv:  # --paths P ...: only the named paths' [train-zoo] chunks and profiles (comparing two checkouts)
         every = (*PATH_ROUTES, *PATHS, *RECURRENT_PATHS, *AMP_PATHS, *F_PATHS, *H_PATHS)
         if argv[0] != "--paths" or not set(argv[1:]) <= set(every):
-            print(f"usage: chip_smoke.py [--paths {' '.join(every)} ...]", file=sys.stderr)
+            print(f"usage: chip_smoke.py [--ddp | --ddp-cards | --paths {' '.join(every)} ...]", file=sys.stderr)
             return 2
         for path in argv[1:]:
             train_zoo(kind, path)
@@ -4002,6 +4419,13 @@ def main(argv: list[str]) -> int:
     path_launches["H"], h_rate, h_checkpoint = train_host(kind)
     h_play = play_h(kind, h_checkpoint)
     check_cli()
+    ddp_a1 = check_ddp_world1(kind)
+    ddp_a2 = check_ddp_ranks(kind)
+    path_launches["A ddp"] = ddp_a1["launches"]  # A1's distributed Trainer chunk
+    for key in ("K1f", "K2f", "K2b", "K9m"):
+        results[key]["ddp_rank_launches"] = {p_: n for p_, launches in ddp_a2["rank_launches"].items()
+                                             if (n := launches.get(key))}
+        results[key]["ddp_backend"] = ddp_a2["backend"]
 
     # TL's rollout step runs the FFN and the ELU head through K1f at 1,024 rows:
     # half of its K1f launches per iteration beyond the update's are the head's.
@@ -4043,7 +4467,7 @@ def main(argv: list[str]) -> int:
             "library_ms": r["library_ms"], "shape": r["shape"], "path": f"{path}: {PATH_NAMES[path]}",
             "launches_by_path": {p_: path_launches[p_][key] for p_ in path_launches if path_launches[p_][key]},
             **{k: v for k, v in r.items()
-               if k.startswith(("gelu", "primal", "offpath", "tl_", "r_head", "rj_pair", "amp_", "f_", "h_", "phase", "bitwise",
+               if k.startswith(("gelu", "primal", "offpath", "tl_", "r_head", "rj_pair", "amp_", "f_", "h_", "ddp_", "phase", "bitwise",
                                 "grid", "ring", "smem", "regs", "spills", "device", "pack", "rollout", "queue", "host",
                                 "plan"))},
             "status": "ported and checked",

@@ -2,8 +2,12 @@
 
 ``--device`` (default ``cuda``) is the port's counterpart of
 ``JAX_PLATFORMS=cpu``: the subcommands run on the card unless the caller asks
-for the CPU, and without CUDA and without ``--device cpu`` they raise.  No
-distributed set-up runs here: multi-process training is a later slice.
+for the CPU, and without CUDA and without ``--device cpu`` they raise.
+Under ``torchrun`` ``prepare_experiment`` first joins the process group
+(``configure_distributed``: NCCL on the card, gloo with ``--device cpu``),
+and ``--device cuda`` means ``cuda:LOCAL_RANK``.  As in the JAX package the
+CLI does not call ``parallel.distribute_agent``: each rank trains its own
+copy of the policy, with rank-0-only files and prints and averaged logs.
 """
 
 from __future__ import annotations
@@ -13,7 +17,7 @@ from typing import Any
 
 from cusrl_tpu_torch.template.trial import Trial
 from cusrl_tpu_torch.utils.cli_utils import apply_overrides
-from cusrl_tpu_torch.utils.config import resolve_device
+from cusrl_tpu_torch.utils.config import configure_distributed, resolve_device
 from cusrl_tpu_torch.utils.misc import import_module, set_global_seed
 
 __all__ = ["add_common_arguments", "load_trial", "prepare_experiment", "resolve_overrides"]
@@ -33,10 +37,12 @@ def add_common_arguments(parser: argparse.ArgumentParser) -> None:
 
 
 def prepare_experiment(args: argparse.Namespace):
-    """Resolves the device (raising without CUDA unless ``--device cpu``),
-    seeds, imports the extra modules and scripts; returns the experiment."""
+    """Joins the process group under ``torchrun``, resolves the device
+    (raising without CUDA unless ``--device cpu``), seeds (``seed + rank``),
+    imports the extra modules and scripts; returns the experiment."""
     from cusrl_tpu_torch.zoo.registry import add_experiment_modules, get_experiment
 
+    configure_distributed(args.device)
     args.device = resolve_device(args.device)
     if args.seed is not None:
         set_global_seed(args.seed)

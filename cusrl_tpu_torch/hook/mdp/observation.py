@@ -10,7 +10,12 @@ Statistics update policy, as in the JAX hook:
 
 ``defer_updates=True`` accumulates raw ``(sum, sumsq, count)`` per stream
 instead and folds them once per rollout in ``pre_update`` (statistics then lag
-by at most one rollout).  ``store_originals`` keeps the raw values as
+by at most one rollout).  Under a data-parallel agent every fold takes
+all ranks' rows, as the JAX package's mesh gives them by construction: the
+batch's ``(mean, var, count)`` merged across ranks
+(``utils.distributed.merge_moments``), or the deferred ``(sum, sumsq,
+count)`` all-reduced, before the update of the running statistics, so the
+ranks' statistics stay equal.  ``store_originals`` keeps the raw values as
 ``original_*`` transition fields.  Every update runs on the device with
 masks and ``torch.where`` (no host branch), in place on tensors listed in
 ``state_tensors()`` under the JAX field paths.  The environment spec's
@@ -27,7 +32,9 @@ from __future__ import annotations
 import torch
 
 from cusrl_tpu_torch.nn.layer.rms import RunningMeanStd
+from cusrl_tpu_torch.nn.utils.normalization import mean_var_count
 from cusrl_tpu_torch.template.hook import Hook
+from cusrl_tpu_torch.utils import distributed
 
 __all__ = ["ObservationNormalization"]
 
@@ -52,12 +59,26 @@ def _accumulate(acc, data, mask) -> None:
         count.add_(float(data.shape[0]))
 
 
-def _finalize_acc(acc):
+def _finalize_acc(acc, group=None):
     total, sumsq, count = acc
+    if group is not None:
+        total, sumsq, count = distributed.weighted_sum(torch.cat([total, sumsq, count.reshape(1)]), 1.0,
+                                                       group).split([total.shape[0], sumsq.shape[0], 1])
+        count = count.reshape(())
     safe = torch.clamp(count, min=1.0)
     mean = total / safe
     var = torch.clamp(sumsq / safe - mean.square(), min=0.0)
     return mean, var, count
+
+
+@torch.no_grad()
+def _fold(rms: RunningMeanStd, data, mask, group) -> None:
+    """Folds ``data`` (rows where ``mask``) into ``rms``: every rank's rows
+    under a process ``group``."""
+    if group is None:
+        rms.update(data, mask=mask)
+    else:
+        rms.update_from_stats(*distributed.merge_moments(*mean_var_count(data, mask=mask), group))
 
 
 class ObservationNormalization(Hook):
@@ -114,7 +135,7 @@ class ObservationNormalization(Hook):
 
     # -- statistics updates ----------------------------------------------------
 
-    def _update(self, observation, state, mask) -> None:
+    def _update(self, agent, observation, state, mask) -> None:
         if self.frozen:
             return
         if self.defer_updates:
@@ -122,9 +143,10 @@ class ObservationNormalization(Hook):
             if state is not None and self.state_acc is not None:
                 _accumulate(self.state_acc, state, mask)
             return
+        group = getattr(agent, "process_group", None)
         if state is not None and self.state_rms is not None:
-            self.state_rms.update(state, mask=mask)
-        self.observation_rms.update(observation, mask=mask)
+            _fold(self.state_rms, state, mask, group)
+        _fold(self.observation_rms, observation, mask, group)
 
     # -- lifecycle ---------------------------------------------------------------
 
@@ -137,7 +159,7 @@ class ObservationNormalization(Hook):
             mask = self.first_step | self.last_done.reshape(rows)
         else:
             mask = self.first_step.expand(rows)
-        self._update(observation, env_state, mask)
+        self._update(agent, observation, env_state, mask)
         self.first_step.fill_(False)
         if self.store_originals:
             transition["original_observation"] = observation
@@ -151,7 +173,7 @@ class ObservationNormalization(Hook):
     def post_step(self, agent, transition: dict) -> None:
         next_observation = transition["next_observation"]
         next_state = transition.get("next_state")
-        self._update(next_observation, next_state, None)
+        self._update(agent, next_observation, next_state, None)
         self.last_done.copy_(transition["done"].reshape(self.last_done.shape))
         if self.store_originals:
             transition["original_next_observation"] = next_observation
@@ -166,9 +188,10 @@ class ObservationNormalization(Hook):
         if not self.defer_updates or self.frozen:
             return {}
         # Fold the rollout's raw sums into the running statistics once.
-        self.observation_rms.update_from_stats(*_finalize_acc(self.obs_acc))
+        group = getattr(agent, "process_group", None)
+        self.observation_rms.update_from_stats(*_finalize_acc(self.obs_acc, group))
         if self.state_acc is not None and self.state_rms is not None:
-            self.state_rms.update_from_stats(*_finalize_acc(self.state_acc))
+            self.state_rms.update_from_stats(*_finalize_acc(self.state_acc, group))
         for acc in (self.obs_acc, self.state_acc):
             for t in acc or ():
                 t.zero_()

@@ -14,6 +14,14 @@ minibatch counts are not ported yet.  Each epoch covers every transition (or
 environment) once; the ``total % num_mini_batches`` remainder is dropped.
 The epoch permutations can be injected (``epoch_perms``), so a test can hand
 in the JAX sampler's plan.
+
+Under a data-parallel agent (``parallel.distribute_agent``) the plan covers
+the global batch: ``W`` ranks' ``[T, N]`` rollouts gathered on the
+environment axis, so global row ``t * W * N + r * N + n`` is rank ``r``'s
+row ``(t, n)``, drawn from a generator that is the same on every rank.  Each
+rank gathers only its own slice of each global minibatch's rows
+(``shard_rows``: equal parts, the first ``B % W`` ranks one row more), and
+its share of the rows weights its gradient.
 """
 
 from __future__ import annotations
@@ -24,9 +32,19 @@ import torch
 
 from cusrl_tpu_torch.utils.nest import map_nested
 
-__all__ = ["AutoMiniBatchSampler", "EpochPlan", "MiniBatchSampler", "TemporalMiniBatchSampler"]
+__all__ = ["AutoMiniBatchSampler", "EpochPlan", "MiniBatchSampler", "TemporalMiniBatchSampler", "shard_rows"]
 
 TILE = 128
+
+
+def shard_rows(batch_size: int, rank: int, world_size: int) -> tuple[int, int]:
+    """Rank ``rank``'s ``[start, stop)`` of a ``batch_size``-row minibatch."""
+    base, extra = divmod(batch_size, world_size)
+    start = rank * base + min(rank, extra)
+    stop = start + base + (rank < extra)
+    if stop == start:
+        raise ValueError(f"a {batch_size}-row minibatch leaves rank {rank} of {world_size} no rows")
+    return start, stop
 
 
 @dataclasses.dataclass
@@ -97,15 +115,21 @@ class MiniBatchSampler:
         per_batch = plan.batch_size // plan.block
         return plan.perms[epoch][mini_batch * per_batch : (mini_batch + 1) * per_batch]
 
-    def gather(self, source: dict, plan: EpochPlan, epoch: int, mini_batch: int) -> dict:
+    def gather(self, source: dict, plan: EpochPlan, epoch: int, mini_batch: int,
+               rows: tuple[int, int] | None = None) -> dict:
         """Minibatch ``mini_batch`` of epoch ``epoch``: a gather of whole
-        tiles, or of rows."""
+        tiles, or of rows; with ``rows``, only the minibatch's rows
+        ``[start, stop)`` (the tiles that hold them)."""
         idx = self._indices(plan, epoch, mini_batch)
+        start, stop = rows or (0, plan.batch_size)
         if plan.block > 1:
+            first, last = start // plan.block, -(-stop // plan.block)
+            offset = first * plan.block
             return map_nested(
-                lambda x: x.reshape(-1, plan.block, *x.shape[1:])[idx].reshape(plan.batch_size, *x.shape[1:]), source
+                lambda x: x.reshape(-1, plan.block, *x.shape[1:])[idx[first:last]].reshape(-1, *x.shape[1:])[
+                    start - offset: stop - offset], source
             )
-        return map_nested(lambda x: x[idx], source)
+        return map_nested(lambda x: x[idx[start:stop]], source)
 
 
 @dataclasses.dataclass

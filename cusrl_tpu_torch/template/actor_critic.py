@@ -40,6 +40,20 @@ agent's generators and of every hook's (``hooks.<hook_name>.generator``;
 the environment draws from the agent's generator).  ``load_state_dict``
 warns and keeps the initial value where a path is missing, as the JAX
 package does.
+
+A data-parallel agent (``parallel.distribute_agent``: ``process_group`` set)
+runs ``update_body`` as one global update over every rank's rollout, the
+JAX package's ``cross_process_update``: ``pre_update`` on the rank's own
+rollout (the statistics it takes are global, see the hooks), then the batch
+keys gathered on the environment axis, the epoch plan drawn over the global
+batch from ``plan_generator`` (the same on every rank), each rank's slice of
+every global minibatch, and between ``backward`` and ``pre_optim`` one flat
+all-reduce of the gradients weighted by each rank's share of the rows
+(``utils.distributed.reduce_gradients``, the reference's
+``reduce_gradients``).  The objective's metrics are averaged the same way.
+Under more than one rank the routes this does not cover raise
+``NotImplementedError``: the temporal samplers, hook-owned networks (AMP's
+discriminator) and the host loop's ``update``.
 """
 
 from __future__ import annotations
@@ -55,11 +69,14 @@ from torch import nn
 from cusrl_tpu_torch.nn.base import reset_memory, storable_memory
 from cusrl_tpu_torch.nn.module.actor import Actor, ActorFactory
 from cusrl_tpu_torch.nn.module.critic import Value, ValueFactory
+from cusrl_tpu_torch.parallel.multiprocess import check_data_parallel_route, globalize_rollout
+from cusrl_tpu_torch.sampler.mini_batch_sampler import shard_rows
 from cusrl_tpu_torch.template.agent import Agent, AgentFactory
 from cusrl_tpu_torch.template.buffer import Buffer
 from cusrl_tpu_torch.template.environment import EnvironmentSpec
 from cusrl_tpu_torch.template.hook import Hook, HookComposite, find_hook
 from cusrl_tpu_torch.template.optimizer import OptimizerFactory, build_optimizer
+from cusrl_tpu_torch.utils import distributed
 from cusrl_tpu_torch.utils.interop import load_agent_state, memory_to_numpy, state_entries
 from cusrl_tpu_torch.utils.nest import map_nested
 
@@ -151,6 +168,8 @@ class ActorCritic(Agent):
 
     def _generators(self) -> dict[str, torch.Generator]:
         generators = {"agent.init_generator": self.init_generator, "agent.generator": self.generator}
+        if self.plan_generator is not None:
+            generators["agent.plan_generator"] = self.plan_generator
         for hook in self.hooks:
             if isinstance(getattr(hook, "generator", None), torch.Generator):
                 generators[f"hooks.{hook.hook_name}.generator"] = hook.generator
@@ -316,6 +335,9 @@ class ActorCritic(Agent):
     def update(self) -> dict[str, float]:
         """One update on the buffer's rollout; the metrics come to the host
         in one transfer."""
+        if self.process_group is not None and torch.distributed.get_world_size(self.process_group) > 1:
+            raise NotImplementedError("the host loop under data parallelism is not ported yet "
+                                      "(ROADMAP.md, Queue 1 item 2a)")
         rollout = self.buffer.data
         rollout.update({k: map_nested(lambda x: x[None], v) for k, v in self._initial_memories.items()})
         buffer_state = {"cursor": self.buffer.cursor, "full": self.buffer.full}
@@ -334,17 +356,23 @@ class ActorCritic(Agent):
             keys.update(getattr(hook, "batch_keys", ()))
         return keys
 
-    def _train_step(self, metadata: dict, batch: dict) -> dict:
+    def _train_step(self, metadata: dict, batch: dict, row_share: float = 1.0) -> tuple[dict, dict]:
+        """One minibatch: ``(the objective's metrics, pre_optim's)``.  Under a
+        process group the gradients are reduced before ``pre_optim``, with
+        this rank's ``row_share`` of the global minibatch as its weight."""
         objectives, metrics = self._composite.objective(self, metadata, batch)
         step_metrics = {key: value.detach() for key, value in objectives.items()}
         step_metrics.update(metrics)
+        optim_metrics = {}
         if objectives:
             loss = sum(value.float() for value in objectives.values())
             self.optimizer.zero_grad()
             loss.backward()
-            step_metrics.update(self._composite.pre_optim(self))
+            if self.process_group is not None:
+                distributed.reduce_gradients(self.model.parameters(), row_share, self.process_group)
+            optim_metrics = self._composite.pre_optim(self)
             self.optimizer.step()
-        return step_metrics
+        return step_metrics, optim_metrics
 
     def update_body(self, rollout: dict, epoch_perms=None, buffer_state=None) -> dict[str, torch.Tensor]:
         """One whole update on a ``[T, N, ...]`` rollout (memories as
@@ -357,6 +385,9 @@ class ActorCritic(Agent):
         takes it (the random samplers)."""
         rollout = dict(rollout)
         sampler = self.sampler.resolve(rollout)
+        group = self.process_group
+        if group is not None:
+            check_data_parallel_route(self, sampler)
         active = self._composite._active()
         snapshot = self.take_snapshot() if any(h.needs_snapshot for h in active) else None
         with torch.no_grad():
@@ -365,18 +396,43 @@ class ActorCritic(Agent):
         ring = {}
         if buffer_state is not None and "buffer_state" in inspect.signature(sampler.make_epoch_plan).parameters:
             ring["buffer_state"] = buffer_state
-        plan = sampler.make_epoch_plan(capacity, parallelism, self.generator, self.device, epoch_perms, **ring)
-        source = sampler.source({key: rollout[key] for key in self._batch_keys() if key in rollout})
+        batch_keys = {key: rollout[key] for key in self._batch_keys() if key in rollout}
+        generator, rows, row_share = self.generator, None, 1.0
+        if group is not None:
+            # One global batch: every rank's environments, in rank order.
+            batch_keys = globalize_rollout(batch_keys, group)
+            parallelism *= torch.distributed.get_world_size(group)
+            generator = self.plan_generator
+            if generator is None and epoch_perms is None:
+                raise RuntimeError("a distributed update draws its plan from 'plan_generator': "
+                                   "call parallel.broadcast_agent_state(agent) first")
+        plan = sampler.make_epoch_plan(capacity, parallelism, generator, self.device, epoch_perms, **ring)
+        if group is not None:
+            rows = shard_rows(plan.batch_size, torch.distributed.get_rank(group),
+                              torch.distributed.get_world_size(group))
+            row_share = (rows[1] - rows[0]) / plan.batch_size
+        source = sampler.source(batch_keys)
         sums: dict[str, torch.Tensor] = {}
+        global_keys: set[str] = set()
         steps = 0
         for epoch in range(sampler.num_epochs):
             for mini_batch in range(plan.num_mini_batches):
-                batch = sampler.gather(source, plan, epoch, mini_batch)
+                if rows is None:
+                    batch = sampler.gather(source, plan, epoch, mini_batch)
+                else:
+                    batch = sampler.gather(source, plan, epoch, mini_batch, rows)
                 metadata = sampler.metadata(plan, epoch, mini_batch)
-                for key, value in self._train_step(metadata, batch).items():
+                step_metrics, optim_metrics = self._train_step(metadata, batch, row_share)
+                global_keys.update(optim_metrics)  # taken from the reduced gradients
+                for key, value in {**step_metrics, **optim_metrics}.items():
                     sums[key] = sums[key] + value if key in sums else value
                 steps += 1
-        metrics.update({key: value / steps for key, value in sums.items()})
+        means = {key: value / steps for key, value in sums.items()}
+        local = sorted(key for key in means if key not in global_keys)
+        if group is not None and local:
+            stacked = torch.stack([means[key].float().reshape(()) for key in local])
+            means.update(zip(local, distributed.weighted_sum(stacked, row_share, group).unbind()))
+        metrics.update(means)
         with torch.no_grad():
             metrics.update(self._composite.post_update(self, rollout, snapshot))
         self.iteration += 1

@@ -11,6 +11,7 @@ from typing import Any
 import torch
 
 from cusrl_tpu_torch.template.environment import EnvironmentSpec
+from cusrl_tpu_torch.utils import distributed
 from cusrl_tpu_torch.utils.config import resolve_device
 from cusrl_tpu_torch.utils.metrics import Metrics
 
@@ -44,6 +45,11 @@ class Agent:
         # (actions, permutations, commands) draws on the agent's device.
         self.init_generator = torch.Generator().manual_seed(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
+        # Data parallelism (parallel.distribute_agent): the process group the
+        # update's collectives run over, and the epoch plan's generator, the
+        # same on every rank (``generator`` stays the rank's own).
+        self.process_group = None
+        self.plan_generator: torch.Generator | None = None
 
     def record(self, metrics_dict: dict | None = None, /, **kwargs) -> None:
         self.metrics.record(metrics_dict, **kwargs)
@@ -67,8 +73,9 @@ class Agent:
     @classmethod
     def warn(cls, message: str) -> None:
         """A ``RuntimeWarning`` naming the agent class (catchable and
-        filterable by callers and tests)."""
-        warnings.warn(f"{cls.__name__}: {message}", RuntimeWarning, stacklevel=3)
+        filterable by callers and tests), on rank 0 only."""
+        if distributed.is_main_process():
+            warnings.warn(f"{cls.__name__}: {message}", RuntimeWarning, stacklevel=3)
 
 
 @dataclasses.dataclass(kw_only=True)

@@ -6,7 +6,10 @@ writes checkpoints.  A checkpoint file keeps the JAX package's ``.npz``
 layout: every top-level entry whose value is a non-empty dict of numpy arrays
 is stored as ``<top>::<path>`` arrays, everything else pickled into the
 ``__pickled__`` byte array, so a file written by either package loads in the
-other (the pickle holds only Python and numpy objects).
+other (the pickle holds only Python and numpy objects).  Under several
+processes every rank builds its Logger: the directory's name is rank 0's
+(broadcast), and only rank 0 creates the directories, writes the backend's
+output and saves checkpoints.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import time
 from typing import Any
 
 import numpy as np
+
+from cusrl_tpu_torch.utils import distributed
 
 __all__ = ["Logger", "LoggerFactory", "load_checkpoint_file", "make_logger_factory", "save_checkpoint_file"]
 
@@ -58,10 +63,13 @@ class Logger:
             dir_name = f"{stamp}_{name}" if name else stamp
         else:
             dir_name = name
+        dir_name = distributed.broadcast_obj(dir_name)
         self.name = name
         self.log_dir = os.path.join(log_dir, dir_name)
         self.info_dir = os.path.join(self.log_dir, "info")
         self.ckpt_dir = os.path.join(self.log_dir, "ckpt")
+        if not distributed.is_main_process():
+            return
         os.makedirs(self.info_dir, exist_ok=True)
         os.makedirs(self.ckpt_dir, exist_ok=True)
         latest = os.path.join(log_dir, "latest")
@@ -82,7 +90,8 @@ class Logger:
         if (iteration + 1) % self.interval == 0:
             averaged = {k: float(np.mean(v)) for k, v in self._accumulator.items() if v}
             self._accumulator.clear()
-            self._log_impl(averaged, iteration)
+            if distributed.is_main_process():
+                self._log_impl(averaged, iteration)
 
     def _setup_backend(self, **kwargs) -> None:
         pass
@@ -97,7 +106,8 @@ class Logger:
 
     def save_checkpoint(self, checkpoint: dict[str, Any], iteration: int) -> str:
         path = os.path.join(self.ckpt_dir, f"ckpt_{iteration}.npz")
-        save_checkpoint_file(path, checkpoint)
+        if distributed.is_main_process():
+            save_checkpoint_file(path, checkpoint)
         return path
 
 

@@ -18,7 +18,8 @@ A ``TensorEnvironment`` is driven step by step through ``_TensorEnvAdapter``
 statistics accumulate there and come to the host once, at the end; a step
 waits on the device only where ``num_episodes`` or a hook needs the host.
 ``steps_taken`` and ``loop_seconds`` (the loop's wall time, its final
-transfer included) give the loop's rate.
+transfer included) give the loop's rate.  Under several processes only rank 0
+prints the summary.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from cusrl_tpu_torch.template.environment import TensorEnvironment, get_done_indices, update_observation_and_state
+from cusrl_tpu_torch.utils import distributed
 from cusrl_tpu_torch.utils.metrics import Metrics
 from cusrl_tpu_torch.utils.timing import Rate
 
@@ -138,7 +140,7 @@ class Player:
             self._run_host()
         self.loop_seconds = time.perf_counter() - start
         summary = self.metrics.summary()
-        if self.verbose:
+        if self.verbose and distributed.is_main_process():
             width = max((len(k) for k in summary), default=10) + 2
             print("┌" + "─" * (width + 14) + "┐")
             for key, value in summary.items():

@@ -14,7 +14,10 @@ transformer entry's shapes) are never stored.  Only a sampler with
 ``requires_per_step_memory`` (windows from any step) gets the per-step
 ``[T, N, ...]`` stacks of the memories entering each step, which the
 transitions then carry, as the JAX driver keeps them.  The actor's memory
-stays on the agent from rollout to rollout.
+stays on the agent from rollout to rollout.  Under a data-parallel agent each
+rank's driver steps its own environments (the JAX driver shards them over
+the mesh) and the episode aggregates are averaged across ranks on the
+device: one all-reduce a rollout, no host transfer.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from cusrl_tpu_torch.template.environment import TensorEnvironment
+from cusrl_tpu_torch.utils import distributed
 from cusrl_tpu_torch.utils.nest import map_nested, stack_nested
 
 __all__ = ["RolloutDriver"]
@@ -80,7 +84,11 @@ class RolloutDriver:
             self._observation, self._obs_state = next_observation, next_obs_state
         rollout = stack_nested(transitions, torch.stack)
         rollout.update({key: map_nested(lambda x: x[None], value) for key, value in initial_memories.items()})
-        return rollout, torch.stack([episodes, return_sum, length_sum])
+        aggregates = torch.stack([episodes, return_sum, length_sum])
+        if agent.process_group is not None:
+            group = agent.process_group
+            aggregates = distributed.weighted_sum(aggregates, 1.0 / torch.distributed.get_world_size(group), group)
+        return rollout, aggregates
 
     def collect_and_update(self, num_steps: int):
         """One training iteration (rollout + update); returns ``(aggregates

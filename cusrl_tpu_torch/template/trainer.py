@@ -39,6 +39,13 @@ host transfer.  ``profile_dir`` records a ``torch.profiler`` trace
 (``trace.json``) of the iterations ``profile_iterations = (start, stop)``;
 chunks also clamp to those two iterations, so the trace holds exactly the
 window's device work.
+
+Under several processes (``torchrun``) each rank runs its own Trainer, as in
+the JAX package: env-steps count ``x world_size``, the logged scalars are
+averaged across ranks (``utils.distributed.average_dict``), and the run
+directory's files, the logger's output and the prints come from rank 0
+only.  Whether the ranks share one policy is the agent's business
+(``parallel.distribute_agent``); the Trainer does not distribute it.
 """
 
 from __future__ import annotations
@@ -61,6 +68,7 @@ from cusrl_tpu_torch.template.environment import (
 )
 from cusrl_tpu_torch.template.logger import LoggerFactory
 from cusrl_tpu_torch.template.rollout import RolloutDriver
+from cusrl_tpu_torch.utils import distributed
 from cusrl_tpu_torch.utils.timing import Timer
 
 __all__ = ["EnvironmentStats", "Trainer", "TrainerHook", "save_version_info"]
@@ -190,7 +198,7 @@ class Trainer:
         self._chunk_iter_time = 0.0
         if checkpoint is not None:
             self.load_checkpoint(checkpoint)
-        if self.logger is not None:
+        if self.logger is not None and distributed.is_main_process():
             save_version_info(self.logger.info_dir)
             with open(os.path.join(self.logger.info_dir, "metadata.json"), "w") as f:
                 json.dump(metadata or {}, f, indent=2, default=str)
@@ -277,7 +285,7 @@ class Trainer:
         self.timer.add("agent", self._chunk_iter_time)
         row = self._pending_rows.pop(0)
         count, return_sum, length_sum = (float(x) for x in row[:3])
-        steps = self.agent.num_steps_per_update * self.environment.num_instances
+        steps = self.agent.num_steps_per_update * self.environment.num_instances * distributed.world_size()
         self.stats.track_aggregates(count, return_sum, length_sum, steps)
         self.agent.record(dict(zip(self._pending_keys, row[3:])))
         summary = self.agent.metrics.summary()
@@ -346,7 +354,7 @@ class Trainer:
         env_time = self.timer.total("environment")
         agent_time = self.timer.total("agent")
         self.timer.clear()
-        steps = self.agent.num_steps_per_update * self.environment.num_instances
+        steps = self.agent.num_steps_per_update * self.environment.num_instances * distributed.world_size()
         info = {f"Train/{k}": v for k, v in metrics.items()}
         info.update(self.stats.summary())
         info.update(
@@ -359,9 +367,10 @@ class Trainer:
                 "Perf/total_fps": steps / (env_time + agent_time) if env_time + agent_time > 0 else 0.0,
             }
         )
+        info = distributed.average_dict(info)
         if self.logger is not None:
             self.logger.log_scalars(info, iteration)
-        if self.verbose:
+        if self.verbose and distributed.is_main_process():
             reward = info.get("Environment/episode_reward")
             reward_str = f"{reward:9.3f}" if reward is not None else "      n/a"
             print(

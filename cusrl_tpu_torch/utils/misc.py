@@ -1,9 +1,11 @@
 """Seeding and module import (counterpart of ``cusrl_tpu/utils/misc.py``).
 
 ``set_global_seed`` seeds Python's ``random``, numpy and torch (the host
-generator and every CUDA device's) and records the seed in ``CONFIG.seed``,
-where the experiment factories read the agent's seed when the caller gives
-none.  The port draws from explicit ``torch.Generator``s seeded from that
+generator and every CUDA device's) with ``seed + rank`` and records the base
+seed in ``CONFIG.seed``; the experiment factories seed the agent with
+``CONFIG.process_seed`` when the caller gives none, so each process of a
+data-parallel run starts from its own weights (``parallel.distribute_agent``
+then broadcasts rank 0's) and draws its own action noise.  The port draws from explicit ``torch.Generator``s seeded from that
 value, in place of the JAX package's ``new_key``.
 """
 
@@ -24,15 +26,17 @@ __all__ = ["import_module", "import_obj", "set_global_seed"]
 
 
 def set_global_seed(seed: int | None = None) -> int:
-    """Seeds python, numpy and torch with ``seed`` (a random one when None)
-    and records it in ``CONFIG.seed``; returns it."""
+    """Seeds python, numpy and torch with ``seed + rank`` (``seed`` a random
+    one when None) and records ``seed`` in ``CONFIG.seed``; returns the
+    process's seed."""
     if seed is None:
         seed = random.randint(0, 2**31 - 1)
     CONFIG.seed = int(seed)
-    random.seed(CONFIG.seed)
-    np.random.seed(CONFIG.seed % (2**32))
-    torch.manual_seed(CONFIG.seed)  # also seeds every CUDA device
-    return CONFIG.seed
+    process_seed = CONFIG.process_seed
+    random.seed(process_seed)
+    np.random.seed(process_seed % (2**32))
+    torch.manual_seed(process_seed)  # also seeds every CUDA device
+    return process_seed
 
 
 def import_module(module_name: str | None = None, path: str | None = None, args: list[str] | None = None):

@@ -6,8 +6,8 @@ factories; it lowers to a ``TrainingExperimentFactory`` (the ``Trainer``), a
 ``BenchmarkingExperimentFactory`` (the Player unpaced, for 1,000 steps by
 default), which the CLI builds after applying its ``--`` overrides.  Each
 builds its environment and agent on ``device`` (the card unless the caller
-asks for the CPU) with ``seed`` (by default ``CONFIG.seed``, which
-``set_global_seed`` sets).
+asks for the CPU) with ``seed`` (by default ``CONFIG.process_seed``, the
+seed ``set_global_seed`` sets plus the process's rank).
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ class TrainingExperimentFactory:
             verbose=verbose,
             iterations_per_dispatch=self.iterations_per_dispatch,
             device=device,
-            seed=CONFIG.seed if seed is None else seed,
+            seed=CONFIG.process_seed if seed is None else seed,
         )
 
 
@@ -92,7 +92,7 @@ class PlayingExperimentFactory:
             hooks=self.player_hooks,
             verbose=verbose,
             device=device,
-            seed=CONFIG.seed if seed is None else seed,
+            seed=CONFIG.process_seed if seed is None else seed,
         )
 
 

@@ -28,7 +28,8 @@ def test_port_has_modules():
     names = {p.relative_to(ROOT / "cusrl_tpu_torch").as_posix() for p in _port_files()}
     assert {"nn/kernels/fused_mlp.py", "template/actor_critic.py", "nn/layer/linear.py", "nn/kernels/lane_attention.py",
             "nn/module/causal_attn.py", "nn/layer/mha.py", "nn/base.py", "nn/kernels/fused_block.py",
-            "hook/on_policy/joint_seq_eval.py", "nn/kernels/banded_attention.py"} <= names
+            "hook/on_policy/joint_seq_eval.py", "nn/kernels/banded_attention.py", "parallel/__init__.py",
+            "parallel/multiprocess.py", "parallel/sharding.py", "utils/distributed.py"} <= names
 
 
 @pytest.mark.parametrize("target", ["cusrl_tpu_torch", "chip_smoke.py"])

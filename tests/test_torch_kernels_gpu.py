@@ -2181,3 +2181,73 @@ def test_cartpole_player_step_takes_one_kernel_launch(cuda):
         logits = agent.actor(torch.from_numpy(observation).to(cuda))[0]["logits"]
         ref = cpu_agent.actor(torch.from_numpy(observation))[0]["logits"]
     torch.testing.assert_close(logits.cpu(), ref, rtol=2e-2, atol=2e-2)
+
+
+def test_world_one_nccl_update_equals_the_undistributed_one_bit_for_bit(cuda, monkeypatch):
+    """Path A's update at full width (8 steps x 256 environments: every
+    minibatch on K2f/K2b) through ``distribute_agent`` and
+    ``cross_process_update`` over a NCCL group of one against the same update
+    without a group, from the same weights, rollout and permutations: the
+    collectives run, each the identity, and the metrics and every leaf of the
+    agent's state come out bit for bit."""
+    import socket
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from cusrl_tpu_torch.environment.locomotion import VelocityLocomotionEnv
+    from cusrl_tpu_torch.parallel import cross_process_update, distribute_agent
+    from cusrl_tpu_torch.utils import distributed
+    from cusrl_tpu_torch.utils.config import configure_distributed
+    from cusrl_tpu_torch.utils.interop import state_entries
+    from cusrl_tpu_torch.zoo.registry import get_experiment
+
+    steps, envs = 8, 256
+    factory = get_experiment("Velocity-Rough", "ppo").make_agent_factory()
+    factory.num_steps_per_update = steps
+    env = VelocityLocomotionEnv(num_instances=envs, device=cuda)
+    gen = torch.Generator().manual_seed(17)
+    obs = torch.tanh(torch.randn(steps + 1, envs, 48, generator=gen)).to(cuda)
+    noise = torch.randn(steps, envs, 12, generator=gen).to(cuda)
+    terminated = (torch.rand(steps, envs, 1, generator=gen) < 0.05).to(cuda)
+    truncated = (torch.rand(steps, envs, 1, generator=gen) < 0.05).to(cuda)
+    perms = torch.stack([torch.randperm(steps * envs // 128, generator=gen) for _ in range(5)])
+
+    def update(distribute):
+        agent = factory(env.spec, device=cuda, seed=0)
+        with torch.no_grad():
+            dist_params, _, _ = agent.actor(obs[:-1])
+            action = dist_params["mean"] + dist_params["std"] * noise
+            rollout = {"observation": obs[:-1], "next_observation": obs[1:], "action": action,
+                       "action_logp": agent.actor.compute_logp(dist_params, action), "action_dist": dist_params,
+                       "reward": noise[..., :1], "terminated": terminated, "truncated": truncated,
+                       "done": terminated | truncated}
+        fm.reset_launch_counts()
+        distributed.reset_collective_counts()
+        if distribute:
+            distribute_agent(agent)
+            metrics = cross_process_update(agent, rollout, epoch_perms=perms)
+        else:
+            metrics = {k: float(v) for k, v in agent.update_body(rollout, epoch_perms=perms).items()}
+        counts = {"launches": dict(fm.LAUNCHES), "collectives": distributed.COLLECTIVES["all_reduce"][0]}
+        return metrics, {p: np.array(e.read()) for p, e in state_entries(agent).items()}, counts
+
+    plain = update(False)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    for name, value in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+                        "MASTER_PORT": str(port)}.items():
+        monkeypatch.setenv(name, value)
+    assert configure_distributed(timeout_s=120) and dist.get_backend() == "nccl"
+    try:
+        grouped = update(True)
+    finally:
+        dist.destroy_process_group()
+    assert plain[2]["launches"]["K2f"] == plain[2]["launches"]["K2b"] == 20
+    assert grouped[2]["launches"] == plain[2]["launches"] and grouped[2]["collectives"] > 20
+    assert plain[2]["collectives"] == 0
+    assert grouped[0] == plain[0]
+    assert set(grouped[1]) == set(plain[1])
+    for path, value in plain[1].items():
+        np.testing.assert_array_equal(grouped[1][path], value, err_msg=path)
