@@ -38,7 +38,13 @@ without printing a result:
    columns) at the update's 256 rows (saving, the backward with
    ``skip_input_grad`` and with dX; and primal), the Player's 8 rows, a
    ragged 1,000 and the input widths 2, 3, 6 and 24, with the pad's device
-   time apart from the kernels') against its plain PyTorch
+   time apart from the kernels'); ``[kernels]`` of the auxiliary paths
+   (``check_aux_kernels``): K1f/K1b on path D's student (relu 48-256-128)
+   primal at 4,096 rows and saving at the minibatch's 12,288, K2f/K2b on
+   path S's augmented pair at 2 x 49,152, K1f/K1b on path SL's mirrored
+   actor pass at 24,576, and K1f/K1b on path X's RND networks (ELU
+   48-256-128-64) primal at 98,304 and 24,576 and saving at 24,576, each
+   backward with ``skip_input_grad``) against its plain PyTorch
    version on the card, and time the kernel, the plain version and a PyTorch
    yardstick the port never calls (bf16 ``F.linear`` chains, fp32 heads
    and, for K9s, the loss, for K9m the forward too; a masked
@@ -103,7 +109,14 @@ without printing a result:
    ``Velocity-Flat``/``ppo``, the README's quick-start entry); and
    ``[update-check] H``: the zoo's ``CartPole-v1``/``ppo`` update (20 epochs
    of one 256-row minibatch) on the CPU agent's 32-step rollout on the native
-   CartPole, the same Gumbel draws and minibatch plan on both sides;
+   CartPole, the same Gumbel draws and minibatch plan on both sides; and the
+   auxiliary paths: D (the distillation preset's student with a path-A
+   expert from a ``package`` export, its actions from the hook's
+   ``post_step``), S (A with ``SymmetricDataAugmentation`` before the joint
+   evaluation and the mirrors' override: the batch doubled), SL (A with
+   ``MirrorSymmetryLoss``), X (A with RND and ``ReturnPrediction``: RND's
+   predictor and the return head among the gradient leaves) and RS (R with
+   ``ActionSmoothnessLoss`` on its temporal batches);
 6. ``[train]``: the slice-1 loop (Velocity-Rough widths without observation
    normalization and the adaptive learning rate) for a few iterations;
 7. ``[train-zoo]``: paths T, TF, TJ and TL (the zoo's uncut Velocity-Flat
@@ -125,7 +138,11 @@ without printing a result:
    reward shaping and the AMP discriminator with its gradient penalty in
    plain layers; the entry's ``iterations_per_dispatch`` of 1 set to 10),
    and path F (the zoo's uncut Velocity-Flat ``ppo``: ELU 128-128-128,
-   4,096 environments, joint evaluation on K2), each built through ``get_experiment(...).to_training_factory()`` with
+   4,096 environments, joint evaluation on K2), and paths S and X (path A
+   uncut with the symmetric augmentation, or with RND and the return probe)
+   and D (the distillation preset at its defaults on Velocity-Rough's 4,096
+   environments, its expert the agent ``[train-zoo] A`` trained, exported
+   and loaded by ``expert_path``), each built through ``get_experiment(...).to_training_factory()`` with
    ``iterations_per_dispatch=10``, observation normalization and (but AMP)
    the KL-adaptive learning rate, and driven through the Trainer for a warm-up
    chunk and a timed chunk of 10 iterations, with the launch counters set to
@@ -181,7 +198,9 @@ without printing a result:
    the ranks bit for bit equal, 20 K2f/K2b or K9m launches a rank on
    24,576-row slices; a rank that fails or outlives its 300 s fails the
    run;
-10. the total seconds, the ``nvidia-smi`` line, the ``kernels`` JSON line
+10. each phase's seconds on a line of its own as it ends, and all of them
+   in one ``[seconds]`` line; the total seconds, the ``nvidia-smi`` line,
+   the ``kernels`` JSON line
    (each kernel's launches from the path that runs it, ``launches_by_path``
    every path's; ``not_ported`` is empty), and the final
    ``{"ok": true, ...}`` line.
@@ -210,6 +229,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2942,6 +2962,135 @@ def check_block_wrappers(device) -> dict:
     return {k: max(v) for k, v in errs.items() if v}
 
 
+# -- Paths D, S, SL and X: the auxiliary hook library on path A's configuration --
+
+D_WIDTHS = (48, 256, 128)  # the distillation preset's student: relu 48-256-128, a Normal head of 12
+D_EPOCHS, D_MINIBATCHES = 1, 8
+D_MB = D_EPOCHS * D_MINIBATCHES  # 8 minibatches an update
+D_MB_ROWS = NUM_ENVS * STEPS // D_MINIBATCHES  # 12,288 rows per minibatch
+D_HOOK = "policy_distillation"
+S_MB_ROWS = 2 * MINIBATCH_ROWS  # 49,152: path S's augmented minibatch, per chain of the joint evaluation
+X_WIDTHS = (48, 256, 128, 64)  # RND's target and predictor: ELU 48-256-128 -> 64
+X_ROLLOUT_ROWS = NUM_ENVS * STEPS  # 98,304 rows in RND's pre_update passes
+X_HOOK = "random_network_distillation"
+AUX_PATHS = ("D", "S", "X")  # [train-zoo] and [profile]
+AUX_CHECKS = ("D", "S", "SL", "X")  # [update-check]
+TRAINED: dict = {}  # [train-zoo]'s trained agents by path: A's is path D's expert
+
+
+def _s_mirrors():
+    """Path S's mirrors, each its own inverse: the halves of the 48-wide
+    observation and of the 12-wide action swapped, one channel pair that is
+    closed under the swap flipped."""
+    from cusrl_tpu_torch.hook.auxiliary.symmetry import MirrorDef
+
+    return {"mirror_observation": MirrorDef((*range(24, 48), *range(24)), (0, 1, 24, 25)),
+            "mirror_action": MirrorDef((*range(6, 12), *range(6)), (0, 6))}
+
+
+def _aux_factory(path: str, ppo_factory=None, expert_path: str | None = None):
+    """The agent factory of path D (the distillation preset at its defaults,
+    the expert from a ``package`` export at ``expert_path``) or of S, SL or X
+    (path A's zoo factory, or ``ppo_factory``, with the hooks added: S the
+    override at index 0 and ``SymmetricDataAugmentation`` before the joint
+    evaluation, whose batch it doubles; SL the override and
+    ``MirrorSymmetryLoss`` after ``on_policy_preparation``; X RND before
+    ``value_computation`` and ``ReturnPrediction`` after
+    ``on_policy_preparation``)."""
+    from cusrl_tpu_torch.hook import (
+        EnvironmentSpecOverride,
+        MirrorSymmetryLoss,
+        RandomNetworkDistillation,
+        ReturnPrediction,
+        SymmetricDataAugmentation,
+    )
+    from cusrl_tpu_torch.nn.module.mlp import MlpFactory
+    from cusrl_tpu_torch.preset.distillation import DistillationAgentFactory
+    from cusrl_tpu_torch.zoo.registry import get_experiment
+
+    if path == "D":
+        return DistillationAgentFactory(expert_path=expert_path)
+    underlying = (ppo_factory or get_experiment("Velocity-Rough", "ppo").make_agent_factory()).to_underlying()
+    if path in ("S", "SL"):
+        underlying.register_hook(EnvironmentSpecOverride.create(_s_mirrors()), index=0)
+    if path == "S":
+        underlying.register_hook(SymmetricDataAugmentation(), before="joint_policy_value_evaluation")
+    elif path == "SL":
+        underlying.register_hook(MirrorSymmetryLoss(weight=1.0), after="on_policy_preparation")
+    elif path == "X":
+        underlying.register_hook(RandomNetworkDistillation(module_factory=MlpFactory(hidden_dims=X_WIDTHS[1:-1]),
+                                                           output_dim=X_WIDTHS[-1]), before="value_computation")
+        underlying.register_hook(ReturnPrediction(), after="on_policy_preparation")
+    return underlying
+
+
+def _export_expert(agent, directory: str) -> str:
+    """``agent``'s actor as a ``package`` export in ``directory``."""
+    from cusrl_tpu_torch.export import export_agent
+
+    export_agent(agent, directory, target_format="package", verbose=False)
+    return directory
+
+
+def _path_a_agent():
+    """A fresh agent of path A (the zoo's Velocity-Rough ``ppo``) on the
+    CPU, from the script's seed: the expert of path D's update check."""
+    from cusrl_tpu_torch.environment.locomotion import VelocityLocomotionEnv
+    from cusrl_tpu_torch.zoo.registry import get_experiment
+
+    spec = VelocityLocomotionEnv(num_instances=256, device="cpu").spec
+    return get_experiment("Velocity-Rough", "ppo").make_agent_factory()(spec, device="cpu", seed=SEED)
+
+
+def check_aux_kernels(device) -> dict:
+    """The chain kernels at the shapes paths D, S, SL and X give them: D's
+    student (relu 48-256-128) K1f primal at the rollout step's 4,096 rows,
+    saving at the minibatch's 12,288 and a ragged 1,000, K1b with
+    ``skip_input_grad`` at both (D's expert, ELU 48-512-256-128 at 4,096,
+    is path A's step, checked in ``check_kernels``); S's pair K2f/K2b at 2 x
+    49,152 (the augmented minibatch), K2b with ``skip_input_grad``; SL's
+    mirrored actor pass, K1f saving and K1b with ``skip_input_grad`` at
+    24,576 x 48-512-256-128; X's RND networks (ELU 48-256-128-64) K1f primal
+    at ``pre_update``'s 98,304 rows and at the minibatch's 24,576 (the
+    target), saving at 24,576 and a ragged 1,000 with K1b
+    ``skip_input_grad`` (the predictor).  Returns the ``d_``, ``s_pair_``,
+    ``sl_`` and ``x_`` fields of K1f, K1b, K2f and K2b."""
+    import torch
+
+    results: dict = {}
+
+    def merge(fields, prefix, shape):
+        for key, value in fields.items():
+            value[prefix + "shape"] = shape
+            results.setdefault(key, {}).update(value)
+
+    print("[kernels] K1f/K1b on path D's student, relu 48-256-128 (the distillation preset)")
+    merge(_check_chain_kernels(device, "D", "d_", D_WIDTHS, torch.float32,
+                               ((NUM_ENVS, False, "step_", True), (D_MB_ROWS, True, "", True),
+                                (RAGGED_ROWS, True, "ragged_", False)), seed=30, activation="relu",
+                               skip_input_grad=True), "d_",
+          f"{D_MB_ROWS} x 48-256-128 relu (D's minibatch, saving; backward with skip_input_grad; also "
+          f"{RAGGED_ROWS} rows); primal at {NUM_ENVS} rows (the rollout step)")
+    print("[kernels] K2f/K2b on path S's augmented pair, 2 x 49,152 x 48-512-256-128 (skip_input_grad)")
+    merge(_check_chain_kernels(device, "S pair", "s_pair_", WIDTHS, torch.float32,
+                               ((S_MB_ROWS, True, "", True),), seed=31, skip_input_grad=True, chains=2), "s_pair_",
+          f"2 x {S_MB_ROWS} x 48-512-256-128 ELU (S's augmented minibatch, saving; backward with skip_input_grad)")
+    print("[kernels] K1f/K1b on path SL's mirrored actor pass, 24,576 x 48-512-256-128 (skip_input_grad)")
+    merge(_check_chain_kernels(device, "SL", "sl_", WIDTHS, torch.float32, ((MINIBATCH_ROWS, True, "", True),),
+                               seed=32, skip_input_grad=True), "sl_",
+          f"{MINIBATCH_ROWS} x 48-512-256-128 ELU (SL's mirrored actor pass, saving; backward with skip_input_grad)")
+    print("[kernels] K1f/K1b on path X's RND networks, ELU 48-256-128-64")
+    merge(_check_chain_kernels(device, "X", "x_", X_WIDTHS, torch.float32,
+                               ((X_ROLLOUT_ROWS, False, "primal_", True), (MINIBATCH_ROWS, False, "target_", True),
+                                (MINIBATCH_ROWS, True, "", True), (RAGGED_ROWS, True, "ragged_", False)), seed=33,
+                               skip_input_grad=True), "x_",
+          f"{MINIBATCH_ROWS} x 48-256-128-64 ELU (X's predictor, saving; backward with skip_input_grad; also "
+          f"{RAGGED_ROWS} rows); primal at {X_ROLLOUT_ROWS} rows (pre_update) and {MINIBATCH_ROWS} (the target)")
+    for key, value in results.items():
+        value["aux_max_abs_err"] = max(v for k, v in value.items() if k.endswith("max_abs_err"))
+    return results
+
+
 def _slice_factory(**overrides):
     from cusrl_tpu_torch.preset.ppo import PpoAgentFactory
 
@@ -2966,16 +3115,19 @@ PATH_NAMES = {"A": "zoo Velocity-Rough ppo", "B": "A + fuse_heads (K8)", "C": "A
               "T": "zoo Velocity-Flat transformer_ppo, modular route", "TF": "zoo Velocity-Flat transformer_ppo",
               "TJ": "TF + fuse_actor_critic_evaluation (K5)", "TL": "TF with 256-step rollouts (K7)",
               "R": "zoo Velocity-Flat recurrent_ppo (GRU 256)", "RJ": "R + fuse_actor_critic_evaluation (K2)",
-              "RL": "R with rnn_type='lstm'", "AMP": "zoo Velocity-Flat amp (relu 512-256, the AMP discriminator)",
+              "RL": "R with rnn_type='lstm'", "RS": "R + ActionSmoothnessLoss", "AMP": "zoo Velocity-Flat amp (relu 512-256, the AMP discriminator)",
               "F": "zoo Velocity-Flat ppo (ELU 128-128-128), the quick start",
-              "H": "zoo CartPole-v1 ppo (tanh 4-64-64) on NativeCartPoleEnv(8), the host loop"}
+              "H": "zoo CartPole-v1 ppo (tanh 4-64-64) on NativeCartPoleEnv(8), the host loop",
+              "D": "the distillation preset (relu 256-128, Stub critic) on Velocity-Rough, expert: path A's agent",
+              "S": "A + SymmetricDataAugmentation (the batch doubled, mirrored statistics)",
+              "SL": "A + MirrorSymmetryLoss", "X": "A + RandomNetworkDistillation (ELU 256-128-64) + ReturnPrediction"}
 # The route each transformer path runs: T the modular one, TF, TJ and TL the default.
 PATH_ROUTES = {"T": "0", "TF": None, "TJ": None, "TL": None}
 PATH_STEPS = {"TL": TL_STEPS, "AMP": AMP_STEPS}  # rollout steps per iteration; STEPS elsewhere
 # The recurrent entry's paths: R as registered, RJ with the joint evaluation
 # (the GRUs stacked, the heads on K2), RL with LSTM cells (update check only).
 RECURRENT_PATHS = ("R", "RJ")
-RECURRENT_CHECKS = ("R", "RJ", "RL")
+RECURRENT_CHECKS = ("R", "RJ", "RL", "RS")  # RS: R with ActionSmoothnessLoss (temporal batches)
 AMP_PATHS = ("AMP",)  # the zoo's amp entry: 16 steps, 4 x 4 minibatches (not STEPS and MB)
 F_PATHS = ("F",)  # the zoo's Velocity-Flat ppo entry, the user surface's path
 H_PATHS = ("H",)  # the zoo's CartPole-v1 ppo entry through the Trainer's host loop
@@ -3035,6 +3187,19 @@ EXPECTED_ZOO_LAUNCHES = {  # per training iteration
     # minibatch the actor's and the critic's forward (saving) and backward
     # (skip_input_grad), and the KL pass run at 256 rows.
     "H": {**_NONE, "K1f": 2 + 2 * H_EPOCHS + 1, "K1b": 2 * H_EPOCHS},
+    # Path D: per rollout step the student (relu 48-256-128) and the frozen
+    # expert (post_step, no gradient) on 4,096 rows; per minibatch the
+    # student forward (saving) and backward (skip_input_grad) on 12,288.  No
+    # value pass (the Stub critic), no KL pass (no statistics hook).
+    "D": {**_NONE, "K1f": 2 * STEPS + D_MB, "K1b": D_MB},
+    # Path S: A's launches; the joint evaluation's pair takes the doubled
+    # 2 x 49,152-row minibatch, the value and KL passes the rollout as is.
+    "S": {**_NONE, "K1f": STEPS + 3, "K2f": MB, "K2b": MB},
+    # Path X: A's, plus RND's target and predictor over the 98,304-row
+    # rollout in pre_update, and per minibatch the target (primal) and the
+    # predictor (saving, and its backward) on 24,576.  The return probe is
+    # an fp32 Linear.
+    "X": {**_NONE, "K1f": STEPS + 3 + 2 + 2 * MB, "K1b": MB, "K2f": MB, "K2b": MB},
 }
 
 
@@ -3075,13 +3240,15 @@ def _with_path(agent_factory, path: str):
     return underlying
 
 
-def check_update_against_cpu(path: str) -> None:
+def check_update_against_cpu(path: str, expert_path: str | None = None) -> None:
     """One whole update at full width on a small rollout (8 steps x 256
     environments: every backbone call is large enough for the kernels), on
     the card and through the plain CPU path, same weights, rollout (dones
     mid-rollout), rollout-initial memories and permutations, for the slice-1
     configuration, the zoo's paths A, B, C and CM (C in mono mode on both
-    sides), path F (the zoo's Velocity-Flat ``ppo``), path T (the modular route on both sides) and paths TF, TJ and TL
+    sides), path F (the zoo's Velocity-Flat ``ppo``), the auxiliary paths D,
+    S, SL and X (``_aux_factory``; D with ``expert_path``) and RS (R with
+    ``ActionSmoothnessLoss``), path T (the modular route on both sides) and paths TF, TJ and TL
     (the card's default route against the CPU under ``force``: the fused
     block's plain versions; TL at 256 steps on 32 environments).  Metrics agree
     within bf16 rounding carried through 20 Adam steps (rtol 2e-2, atol
@@ -3113,6 +3280,12 @@ def check_update_against_cpu(path: str) -> None:
         factory.num_steps_per_update = steps
         factory.fuse_actor_critic_evaluation = path == "RJ"
         factory.rnn_type = "lstm" if path == "RL" else "gru"
+        if path == "RS":
+            from cusrl_tpu_torch.hook import ActionSmoothnessLoss
+
+            factory = factory.to_underlying()
+            factory.register_hook(ActionSmoothnessLoss(weight_1st_order=0.1, weight_2nd_order=0.1),
+                                  after="on_policy_preparation")
         # The update only (the per-step critic's values are the rollout's):
         # per minibatch both heads forward and backward, then the KL pass.
         expected = {"K1f": 1, "K2f": MB, "K2b": MB} if path == "RJ" else {"K1f": 2 * MB + 1, "K1b": 2 * MB}
@@ -3128,6 +3301,19 @@ def check_update_against_cpu(path: str) -> None:
         factory = get_experiment("Velocity-Flat", "ppo").make_agent_factory()
         factory.num_steps_per_update = steps
         expected = {"K1f": 3, "K2f": MB, "K2b": MB}
+    elif path in AUX_CHECKS:
+        # The update only: D per minibatch the student forward and backward
+        # (its rollout's expert actions come from the hook's post_step); S,
+        # SL and X path A's value passes, pair and KL pass, SL with the
+        # mirrored actor pass and X with RND's passes.
+        zoo = get_experiment("Velocity-Rough", "ppo").make_agent_factory()
+        zoo.num_steps_per_update = steps
+        factory = _aux_factory(path, zoo, expert_path)
+        if path == "D":
+            factory.num_steps_per_update = steps
+        expected = {"D": {"K1f": D_MB, "K1b": D_MB}, "S": {"K1f": 3, "K2f": MB, "K2b": MB},
+                    "SL": {"K1f": 3 + MB, "K1b": MB, "K2f": MB, "K2b": MB},
+                    "X": {"K1f": 3 + 2 + 2 * MB, "K1b": MB, "K2f": MB, "K2b": MB}}[path]
     elif path in PATH_ROUTES:
         factory = get_experiment("Velocity-Flat", "transformer_ppo").make_agent_factory()
         factory.num_steps_per_update = steps
@@ -3150,7 +3336,7 @@ def check_update_against_cpu(path: str) -> None:
     done = terminated | truncated
     # The flat sampler permutes 128-row tiles; the temporal one environments.
     units = envs if path in PATH_ROUTES or path in RECURRENT_CHECKS else steps * envs // 128
-    epochs = AMP_EPOCHS if path in AMP_PATHS else EPOCHS
+    epochs = AMP_EPOCHS if path in AMP_PATHS else D_EPOCHS if path == "D" else EPOCHS
     perms = torch.stack([torch.randperm(units, generator=torch.Generator().manual_seed(e)) for e in range(epochs)])
     results, state = {}, None
     fused = path in PATH_ROUTES and PATH_ROUTES[path] is None
@@ -3238,8 +3424,9 @@ def _small_update(factory, device, state, obs, terminated, truncated, done, perm
                                  done=done.to(device))
         # The per-step critic (a GRU's or an LSTM's) records its values and
         # bootstrap values in the rollout: its hook's post_act and post_step.
-        per_step, hook = {}, agent.get_hook("value_computation")
-        if hook.deferred is False:
+        per_step = {}
+        hook = next((h for h in agent.hooks if h.hook_name == "value_computation"), None)  # D has none
+        if hook is not None and hook.deferred is False:
             transitions = []
             for t in range(steps):
                 transitions.append({"observation": obs[t].to(device), "next_observation": obs[t + 1].to(device),
@@ -3265,6 +3452,19 @@ def _small_update(factory, device, state, obs, terminated, truncated, done, perm
                     agent.get_hook(name).post_step(agent, transitions[-1])
             per_step = {k: torch.stack([tr[k] for tr in transitions])
                         for k in ("reward", "agent_transition", "expert_transition")}
+    aux = [hook for hook in agent.hooks if hook.hook_name in ("symmetric_data_augmentation", D_HOOK)]
+    if aux:
+        # Path S's augmented fields and path D's expert actions: the hooks'
+        # post_step over the rollout, step by step (D's expert on 256 rows).
+        with torch.no_grad():
+            transitions = []
+            for t in range(steps):
+                transitions.append({"observation": obs[t].to(device), "next_observation": obs[t + 1].to(device),
+                                    "action": action[t], "done": done[t].to(device)})
+                for hook in aux:
+                    hook.post_step(agent, transitions[-1])
+            per_step.update({k: torch.stack([tr[k] for tr in transitions]) for k in transitions[0]
+                             if k.startswith("augmented_") or k == "expert_action"})
     rollout = {
         "observation": obs[:-1].to(device),
         "next_observation": obs[1:].to(device),
@@ -3370,6 +3570,18 @@ def train_zoo(kind: str, path: str):
         factory, envs = get_experiment("Velocity-Flat", "ppo").to_training_factory(), NUM_ENVS
     elif path in H_PATHS:
         return train_host(kind)[:2]
+    elif path in AUX_PATHS:
+        import tempfile
+
+        factory, envs = get_experiment("Velocity-Rough", "ppo").to_training_factory(), NUM_ENVS
+        if path != "D":
+            factory.agent = _aux_factory(path, factory.agent)
+            return _train_chunks(kind, path, factory, envs, factory.iterations_per_dispatch)
+        # D's expert: the agent [train-zoo] A trained (a fresh path-A agent when A did not run), exported.
+        with tempfile.TemporaryDirectory(prefix="cusrl_expert_") as tmp:
+            expert = TRAINED.get("A") or _path_a_agent()
+            factory.agent = _aux_factory("D", expert_path=_export_expert(expert, tmp))
+            return _train_chunks(kind, path, factory, envs, factory.iterations_per_dispatch)
     else:
         factory, envs = get_experiment("Velocity-Rough", "ppo").to_training_factory(), NUM_ENVS
         factory.agent = _with_path(factory.agent, path)
@@ -3442,6 +3654,14 @@ def _train_chunks(kind: str, path: str, factory, envs: int, chunk: int, distribu
         raise AssertionError(f"path {path}: an undistributed chunk ran collectives: {collectives}")
     if profile:
         profile_iteration(trainer.driver, path, steps)
+    if path == "A":
+        TRAINED["A"] = trainer.agent
+    if path == "D":
+        expert = trainer.agent.get_hook(D_HOOK).expert
+        if next(expert.parameters()).device.type != "cuda" or any(
+                p.requires_grad for p in expert.parameters()) or any(
+                ".expert." in k for k in trainer.agent.optimizer.labels):
+            raise AssertionError("path D: the expert is not frozen on the card, out of the optimizer")
     return launches, steps_per_s
 
 
@@ -4321,6 +4541,20 @@ def profile_iteration(driver, label: str, steps: int = STEPS, fn=None) -> None:
                   f"iteration, {ms / busy_ms:.4f} of the device's busy time")
 
 
+PHASE_SECONDS: dict = {}
+
+
+@contextlib.contextmanager
+def _phase(name: str):
+    """Prints the seconds the block took on a line of its own and keeps
+    them for the ``[seconds]`` summary."""
+    start = time.perf_counter()
+    yield
+    seconds = time.perf_counter() - start
+    PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + seconds
+    print(f"[seconds] {name}: {seconds:.1f} s")
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -4348,6 +4582,7 @@ def main(argv: list[str]) -> int:
 
     start = time.perf_counter()
     build.build_all()
+    PHASE_SECONDS["[build]"] = time.perf_counter() - start
     print(f"[build] {time.perf_counter() - start:.1f} s (nvcc, sources compiled in parallel)")
     for log in sorted(build.BUILD_DIR.glob("*.log")):
         for line in log.read_text().splitlines():
@@ -4360,13 +4595,15 @@ def main(argv: list[str]) -> int:
                              capture_output=True, text=True, timeout=60, check=True).stdout.strip())
         return 0
     if argv == ["--ddp"]:  # only the [ddp] phase
-        check_ddp_world1(kind)
-        check_ddp_ranks(kind)
+        with _phase("[ddp] A1"):
+            check_ddp_world1(kind)
+        with _phase("[ddp] A2"):
+            check_ddp_ranks(kind)
         print(f"[total] {time.perf_counter() - started:.1f} s, the build included")
         print(smi)
         return 0
     if argv:  # --paths P ...: only the named paths' [train-zoo] chunks and profiles (comparing two checkouts)
-        every = (*PATH_ROUTES, *PATHS, *RECURRENT_PATHS, *AMP_PATHS, *F_PATHS, *H_PATHS)
+        every = (*PATH_ROUTES, *PATHS, *RECURRENT_PATHS, *AMP_PATHS, *F_PATHS, *H_PATHS, *AUX_PATHS)
         if argv[0] != "--paths" or not set(argv[1:]) <= set(every):
             print(f"usage: chip_smoke.py [--ddp | --ddp-cards | --paths {' '.join(every)} ...]", file=sys.stderr)
             return 2
@@ -4375,52 +4612,71 @@ def main(argv: list[str]) -> int:
         print(smi)
         return 0
     device = torch.device("cuda", 0)
-    results = check_kernels(device)
-    results.update(check_head_kernels(device))
-    results.update(check_lane_kernels(device))
-    results.update(check_banded_kernels(device))
-    results.update(check_block_kernels(device))
-    gelu = check_gelu_kernels(device)
-    # K1b's ELU timing at the MLP's widths is off every path: kept under its own name.
-    results["K1b"] = {f"offpath_elu_{k}": v for k, v in results["K1b"].items()}
-    results["K1b"]["max_abs_err"] = results["K1b"].pop("offpath_elu_max_abs_err")
-    for key, fields in gelu.items():
-        results[key].update(fields)
-        results[key]["max_abs_err"] = max(results[key]["max_abs_err"], fields["gelu_max_abs_err"])
-    for key, fields in check_tl_head_kernels(device).items():
-        results[key].update(fields)
-        results[key]["max_abs_err"] = max(results[key]["max_abs_err"], fields["tl_head_max_abs_err"])
-    for prefix, check in (("r_head_", check_r_head_kernels), ("rj_pair_", check_rj_pair_kernels),
-                          ("amp_", check_amp_kernels)):
-        for key, fields in check(device).items():
+    with _phase("[kernels]"):
+        results = check_kernels(device)
+        results.update(check_head_kernels(device))
+        results.update(check_lane_kernels(device))
+        results.update(check_banded_kernels(device))
+        results.update(check_block_kernels(device))
+        gelu = check_gelu_kernels(device)
+        # K1b's ELU timing at the MLP's widths is off every path: kept under its own name.
+        results["K1b"] = {f"offpath_elu_{k}": v for k, v in results["K1b"].items()}
+        results["K1b"]["max_abs_err"] = results["K1b"].pop("offpath_elu_max_abs_err")
+        for key, fields in gelu.items():
             results[key].update(fields)
+            results[key]["max_abs_err"] = max(results[key]["max_abs_err"], fields["gelu_max_abs_err"])
+        for key, fields in check_tl_head_kernels(device).items():
+            results[key].update(fields)
+            results[key]["max_abs_err"] = max(results[key]["max_abs_err"], fields["tl_head_max_abs_err"])
+        for prefix, check in (("r_head_", check_r_head_kernels), ("rj_pair_", check_rj_pair_kernels),
+                              ("amp_", check_amp_kernels)):
+            for key, fields in check(device).items():
+                results[key].update(fields)
+                results[key]["max_abs_err"] = max(results[key]["max_abs_err"], fields[prefix + "max_abs_err"])
+        for key, fields in check_f_kernels(device).items():
+            results[key].update(fields)
+            prefix = "f_" if key == "K1f" else "f_pair_"
             results[key]["max_abs_err"] = max(results[key]["max_abs_err"], fields[prefix + "max_abs_err"])
-    for key, fields in check_f_kernels(device).items():
-        results[key].update(fields)
-        prefix = "f_" if key == "K1f" else "f_pair_"
-        results[key]["max_abs_err"] = max(results[key]["max_abs_err"], fields[prefix + "max_abs_err"])
-    for key, fields in check_h_kernels(device).items():
-        results[key].update(fields)
-        results[key]["max_abs_err"] = max(results[key]["max_abs_err"], fields["h_max_abs_err"])
-    for key, err in (*check_wrappers(device).items(), *check_head_wrappers(device).items()):
-        results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
-    for key, err in check_block_wrappers(device).items():
-        results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
-    time_redesign_queue(results)
-    check_second_order(device)
-    optimizer_fields = check_optimizer(device)
-    for path in ("slice 1", *PATHS, *PATH_ROUTES, *RECURRENT_CHECKS, *AMP_PATHS, *F_PATHS):
-        check_update_against_cpu(path)
-    check_h_update_against_cpu()
-    train(kind)
+        for key, fields in check_h_kernels(device).items():
+            results[key].update(fields)
+            results[key]["max_abs_err"] = max(results[key]["max_abs_err"], fields["h_max_abs_err"])
+        for key, fields in check_aux_kernels(device).items():
+            results[key].update(fields)
+            results[key]["max_abs_err"] = max(results[key]["max_abs_err"], fields["aux_max_abs_err"])
+    with _phase("[wrappers]"):
+        for key, err in (*check_wrappers(device).items(), *check_head_wrappers(device).items()):
+            results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
+        for key, err in check_block_wrappers(device).items():
+            results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
+    with _phase("[redesign queue]"):
+        time_redesign_queue(results)
+    with _phase("[second-order]"):
+        check_second_order(device)
+    with _phase("[optimizer]"):
+        optimizer_fields = check_optimizer(device)
+    with _phase("[update-check]"):
+        for path in ("slice 1", *PATHS, *PATH_ROUTES, *RECURRENT_CHECKS, *AMP_PATHS, *F_PATHS):
+            check_update_against_cpu(path)
+        check_h_update_against_cpu()
+    with _phase("[update-check] D S SL X"), tempfile.TemporaryDirectory(prefix="cusrl_expert_") as tmp:
+        expert_path = _export_expert(_path_a_agent(), tmp)
+        for path in AUX_CHECKS:
+            check_update_against_cpu(path, expert_path)
+    with _phase("[train]"):
+        train(kind)
     path_launches = {}
-    for path in (*PATH_ROUTES, *PATHS, *RECURRENT_PATHS, *AMP_PATHS, *F_PATHS):
-        path_launches[path], _ = train_zoo(kind, path)
-    path_launches["H"], h_rate, h_checkpoint = train_host(kind)
-    h_play = play_h(kind, h_checkpoint)
-    check_cli()
-    ddp_a1 = check_ddp_world1(kind)
-    ddp_a2 = check_ddp_ranks(kind)
+    for path in (*PATH_ROUTES, *PATHS, *RECURRENT_PATHS, *AMP_PATHS, *F_PATHS, *AUX_PATHS):
+        with _phase(f"[train-zoo] {path}"):
+            path_launches[path], _ = train_zoo(kind, path)
+    with _phase("[train-zoo] H, [play] H"):
+        path_launches["H"], h_rate, h_checkpoint = train_host(kind)
+        h_play = play_h(kind, h_checkpoint)
+    with _phase("[cli]"):
+        check_cli()
+    with _phase("[ddp] A1"):
+        ddp_a1 = check_ddp_world1(kind)
+    with _phase("[ddp] A2"):
+        ddp_a2 = check_ddp_ranks(kind)
     path_launches["A ddp"] = ddp_a1["launches"]  # A1's distributed Trainer chunk
     for key in ("K1f", "K2f", "K2b", "K9m"):
         results[key]["ddp_rank_launches"] = {p_: n for p_, launches in ddp_a2["rank_launches"].items()
@@ -4446,6 +4702,11 @@ def main(argv: list[str]) -> int:
     for key in ("K1f", "K1b"):
         results[key]["h_launches"] = path_launches["H"][key] // 10
     results["K1f"]["h_play_launches_per_step"] = 1
+    # Paths D, S and X per iteration (D: student and expert; X: A's and RND's).
+    for path in AUX_PATHS:
+        for key in ("K1f", "K1b", "K2f", "K2b"):
+            if path_launches[path][key]:
+                results[key][f"{path.lower()}_launches"] = path_launches[path][key] // 10
     results["K1f"]["h_env_steps_per_s"], results["K1f"]["h_play_env_steps_per_s"] = h_rate, h_play["env_steps_per_s"]
     # TL's recomputing K7 backward runs once for each K7f launch that takes a
     # gradient: the run's launches per iteration less the value and KL passes'.
@@ -4467,12 +4728,14 @@ def main(argv: list[str]) -> int:
             "library_ms": r["library_ms"], "shape": r["shape"], "path": f"{path}: {PATH_NAMES[path]}",
             "launches_by_path": {p_: path_launches[p_][key] for p_ in path_launches if path_launches[p_][key]},
             **{k: v for k, v in r.items()
-               if k.startswith(("gelu", "primal", "offpath", "tl_", "r_head", "rj_pair", "amp_", "f_", "h_", "ddp_", "phase", "bitwise",
+               if k.startswith(("gelu", "primal", "offpath", "tl_", "r_head", "rj_pair", "amp_", "f_", "h_", "ddp_",
+                                "d_", "s_pair_", "s_launches", "sl_", "x_", "aux_", "phase", "bitwise",
                                 "grid", "ring", "smem", "regs", "spills", "device", "pack", "rollout", "queue", "host",
                                 "plan"))},
             "status": "ported and checked",
         })
     print("[optimizer] " + json.dumps(optimizer_fields))
+    print("[seconds] " + json.dumps({name: round(seconds, 1) for name, seconds in PHASE_SECONDS.items()}))
     print(f"[total] {time.perf_counter() - started:.1f} s, the build included")
     print(smi)
     print(json.dumps({"kernels": kernels, "not_ported": []}))  # every TPU kernel has its counterpart

@@ -16,19 +16,26 @@ batch's ``(mean, var, count)`` merged across ranks
 (``utils.distributed.merge_moments``), or the deferred ``(sum, sumsq,
 count)`` all-reduced, before the update of the running statistics, so the
 ranks' statistics stay equal.  ``store_originals`` keeps the raw values as
-``original_*`` transition fields.  Every update runs on the device with
-masks and ``torch.where`` (no host branch), in place on tensors listed in
-``state_tensors()`` under the JAX field paths.  The environment spec's
-mirror functions and ``observation_is_subset_of_state`` are not ported
-(``EnvironmentSpec`` does not carry them yet), nor is ``renormalize``;
-``ObservationNanToNum`` waits.  In inference mode (``set_inference_mode``,
-the Player's) the hook is frozen: it normalizes and updates nothing.  At
-export it puts the observation statistics ahead of the actor
-(``pre_export``).
+``original_*`` transition fields.  With the environment spec's mirror
+functions every fold takes the statistics of the batch and its mirror image
+together (JAX ``observation.py:159-163,257-259``): the batch's moments, merged
+across ranks first under a process group, then averaged with their mirror,
+which is what one process would fold from every rank's rows.  With
+``observation_is_subset_of_state`` the observation's statistics are the
+state's at those indices, copied after each fold.  ``renormalize`` is not
+ported.  Every update runs on the device with masks and ``torch.where`` (no
+host branch), in place on tensors listed in ``state_tensors()`` under the JAX
+field paths.  In inference mode (``set_inference_mode``, the Player's) the
+hook is frozen: it normalizes and updates nothing.  At export it puts the
+observation statistics ahead of the actor (``pre_export``).
+
+``ObservationNanToNum`` replaces NaN and infinities in observations and
+states (JAX ``observation.py:53``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from cusrl_tpu_torch.nn.layer.rms import RunningMeanStd
@@ -36,7 +43,7 @@ from cusrl_tpu_torch.nn.utils.normalization import mean_var_count
 from cusrl_tpu_torch.template.hook import Hook
 from cusrl_tpu_torch.utils import distributed
 
-__all__ = ["ObservationNormalization"]
+__all__ = ["ObservationNanToNum", "ObservationNormalization"]
 
 
 def _zero_acc(dim: int, device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -71,14 +78,49 @@ def _finalize_acc(acc, group=None):
     return mean, var, count
 
 
+def _mirror_moments(mean, var, count, mirror):
+    """The moments of a batch and its mirror image together."""
+    if mirror is not None:
+        m_mean = mirror(mean)
+        m_var = mirror(var).abs()
+        var = (var + m_var) / 2 + (mean - m_mean).square() / 4
+        mean = (mean + m_mean) / 2
+    return mean, var, count
+
+
 @torch.no_grad()
-def _fold(rms: RunningMeanStd, data, mask, group) -> None:
+def _fold(rms: RunningMeanStd, data, mask, group, mirror=None) -> None:
     """Folds ``data`` (rows where ``mask``) into ``rms``: every rank's rows
-    under a process ``group``."""
-    if group is None:
-        rms.update(data, mask=mask)
-    else:
-        rms.update_from_stats(*distributed.merge_moments(*mean_var_count(data, mask=mask), group))
+    under a process ``group``, with their mirror image where ``mirror``."""
+    moments = mean_var_count(data, mask=mask)
+    if group is not None:
+        moments = distributed.merge_moments(*moments, group)
+    rms.update_from_stats(*_mirror_moments(*moments, mirror))
+
+
+class ObservationNanToNum(Hook):
+    """Replaces NaN, +inf and -inf in observations and states (``None``:
+    the dtype's largest finite values, as ``torch.nan_to_num``)."""
+
+    jax_config_fields = ("nan", "posinf", "neginf")
+
+    def __init__(self, nan: float = 0.0, posinf: float | None = None, neginf: float | None = None, **kwargs):
+        super().__init__(**kwargs)
+        self.nan = nan
+        self.posinf = posinf
+        self.neginf = neginf
+
+    def _clean(self, transition: dict, *keys: str) -> None:
+        for key in keys:
+            if transition.get(key) is not None:
+                transition[key] = torch.nan_to_num(transition[key], nan=self.nan, posinf=self.posinf,
+                                                   neginf=self.neginf)
+
+    def pre_act(self, agent, transition: dict) -> None:
+        self._clean(transition, "observation", "state")
+
+    def post_step(self, agent, transition: dict) -> None:
+        self._clean(transition, "next_observation", "next_state")
 
 
 class ObservationNormalization(Hook):
@@ -94,20 +136,28 @@ class ObservationNormalization(Hook):
         self.last_done = self.first_step = None
         self.final_state_is_missing = False
         self.frozen = False
+        self.mirror_observation = self.mirror_state = None
+        self.subset_index: torch.Tensor | None = None
 
     def set_inference_mode(self, inference: bool) -> None:
         self.frozen = self.frozen or inference
 
     def init(self, agent) -> None:
         spec = agent.environment_spec
-        for name in ("mirror_observation", "mirror_state", "observation_is_subset_of_state"):
-            if getattr(spec, name, None) is not None:
-                raise NotImplementedError(f"ObservationNormalization with '{name}' is not ported yet")
         device = agent.device
-        self.observation_rms = RunningMeanStd(
-            spec.observation_dim, max_count=self.max_count, groups=spec.observation_stat_groups,
-            excluded_indices=spec.observation_normalization_excluded_indices, device=device,
-        )
+        subset = spec.observation_is_subset_of_state
+        if subset is not None:
+            if not spec.has_state:
+                raise ValueError("'observation_is_subset_of_state' set without a state")
+            subset = [int(i) for i in np.atleast_1d(np.asarray(subset)).tolist()]
+            self.subset_index = torch.tensor(subset, dtype=torch.long, device=device)
+            self.observation_rms = RunningMeanStd(spec.observation_dim, device=device)
+        else:
+            self.observation_rms = RunningMeanStd(
+                spec.observation_dim, max_count=self.max_count, groups=spec.observation_stat_groups,
+                excluded_indices=spec.observation_normalization_excluded_indices, device=device,
+            )
+        self.mirror_observation, self.mirror_state = spec.mirror_observation, spec.mirror_state
         if spec.has_state:
             self.state_rms = RunningMeanStd(
                 spec.state_dim, max_count=self.max_count, groups=spec.state_stat_groups,
@@ -145,8 +195,17 @@ class ObservationNormalization(Hook):
             return
         group = getattr(agent, "process_group", None)
         if state is not None and self.state_rms is not None:
-            _fold(self.state_rms, state, mask, group)
-        _fold(self.observation_rms, observation, mask, group)
+            _fold(self.state_rms, state, mask, group, self.mirror_state)
+        if self.subset_index is not None:
+            self._copy_subset_stats()
+        else:
+            _fold(self.observation_rms, observation, mask, group, self.mirror_observation)
+
+    def _copy_subset_stats(self) -> None:
+        obs, state = self.observation_rms, self.state_rms
+        obs.mean.copy_(state.mean.index_select(0, self.subset_index))
+        obs.var.copy_(state.var.index_select(0, self.subset_index))
+        obs.count.copy_(state.count)
 
     # -- lifecycle ---------------------------------------------------------------
 
@@ -189,9 +248,14 @@ class ObservationNormalization(Hook):
             return {}
         # Fold the rollout's raw sums into the running statistics once.
         group = getattr(agent, "process_group", None)
-        self.observation_rms.update_from_stats(*_finalize_acc(self.obs_acc, group))
+        if self.subset_index is None:
+            self.observation_rms.update_from_stats(
+                *_mirror_moments(*_finalize_acc(self.obs_acc, group), self.mirror_observation))
         if self.state_acc is not None and self.state_rms is not None:
-            self.state_rms.update_from_stats(*_finalize_acc(self.state_acc, group))
+            self.state_rms.update_from_stats(*_mirror_moments(*_finalize_acc(self.state_acc, group),
+                                                              self.mirror_state))
+        if self.subset_index is not None:
+            self._copy_subset_stats()
         for acc in (self.obs_acc, self.state_acc):
             for t in acc or ():
                 t.zero_()

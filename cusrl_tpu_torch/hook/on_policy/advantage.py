@@ -1,7 +1,9 @@
-"""Advantage normalization (counterpart of ``AdvantageNormalization`` in
-``cusrl_tpu/hook/on_policy/advantage.py``): standardize over every axis but
-the last, with the population variance and ``1e-8`` inside the root, once
-over the whole rollout (the minibatch-wise variant is not ported yet)."""
+"""Advantage post-processing (counterpart of
+``cusrl_tpu/hook/on_policy/advantage.py``).  ``AdvantageNormalization``
+standardizes over every axis but the last, with the population variance and
+``1e-8`` inside the root, once over the whole rollout (the minibatch-wise
+variant is not ported yet).  ``AdvantageReduction`` reduces multi-reward
+advantages to one channel per minibatch: a weighted sum or mean."""
 
 from __future__ import annotations
 
@@ -10,7 +12,7 @@ import torch
 from cusrl_tpu_torch.template.hook import Hook
 from cusrl_tpu_torch.utils import distributed
 
-__all__ = ["AdvantageNormalization", "standardize"]
+__all__ = ["AdvantageNormalization", "AdvantageReduction", "standardize"]
 
 
 def standardize(advantage: torch.Tensor, group=None) -> torch.Tensor:
@@ -33,3 +35,25 @@ class AdvantageNormalization(Hook):
     def pre_update(self, agent, rollout: dict) -> dict:
         rollout["advantage"] = standardize(rollout["advantage"], getattr(agent, "process_group", None))
         return {}
+
+
+class AdvantageReduction(Hook):
+    jax_config_fields = ("weight",)
+    training_only = True
+    data_parallel = False
+    batch_keys = ("advantage",)
+
+    def __init__(self, reduction: str = "sum", weight: tuple[float, ...] | None = None, **kwargs):
+        super().__init__(**kwargs)
+        if reduction not in ("sum", "mean"):
+            raise ValueError(f"Unsupported reduction '{reduction}'")
+        self.reduction = reduction
+        self.weight = None if weight is None else tuple(weight)
+
+    def objective(self, agent, metadata, batch):
+        advantage = batch["advantage"]
+        if self.weight is not None:
+            advantage = advantage * torch.tensor(self.weight, dtype=advantage.dtype, device=advantage.device)
+        reduce = torch.sum if self.reduction == "sum" else torch.mean
+        batch["advantage"] = reduce(advantage, dim=-1, keepdim=True)
+        return None, {}

@@ -28,16 +28,22 @@ __all__ = ["JointPolicyValueEvaluation"]
 
 
 def _stacked_linear(x, weight, bias, compute_dtype):
-    """x ``[K, B, in]``, weight ``[K, out, in]``, bias ``[K, out]``; the
-    numerics of ``nn/layer/linear.py``."""
+    """x ``[K, ..., in]``, weight ``[K, out, in]``, bias ``[K, out]``; the
+    numerics of ``nn/layer/linear.py``.  The lead dimensions (a temporal
+    batch's, the symmetric augmentation's) flatten into one."""
+    lead = x.shape[1:-1]
+    x = x.reshape(x.shape[0], -1, x.shape[-1])
     if compute_dtype is not None:
         dtype = getattr(torch, compute_dtype)
         y = torch.bmm(x.to(dtype).float(), weight.to(dtype).float().transpose(1, 2))
         if bias is not None:
             y = y + bias[:, None, :]
-        return y.to(dtype)
-    y = torch.bmm(x.float(), weight.transpose(1, 2))
-    return y if bias is None else y + bias[:, None, :]
+        y = y.to(dtype)
+    else:
+        y = torch.bmm(x.float(), weight.transpose(1, 2))
+        if bias is not None:
+            y = y + bias[:, None, :]
+    return y.reshape(y.shape[0], *lead, y.shape[-1])
 
 
 def _fusable(actor_backbone, critic_backbone) -> str | None:

@@ -44,6 +44,11 @@ class Actor(nn.Module):
         action, logp = self.distribution.sample(dist_params, generator, noise)
         return dist_params, (action, logp), new_memory, aux
 
+    def act_deterministic(self, observation, memory=None, **kwargs):
+        """``(the distribution's mode from the backbone's latent, new_memory)``."""
+        latent, new_memory, _ = self.backbone(observation, memory, **kwargs)
+        return self.distribution.determine(latent), new_memory
+
     def compute_logp(self, dist_params, action):
         return self.distribution.compute_logp(dist_params, action)
 

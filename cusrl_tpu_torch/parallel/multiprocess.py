@@ -52,8 +52,10 @@ def process_mesh():
 def check_data_parallel_route(agent, sampler=None) -> None:
     """Raises ``NotImplementedError`` for a route this port does not run
     under more than one rank: recurrent and transformer actors (whose
-    minibatches the temporal samplers draw), the random samplers and
-    hook-owned networks."""
+    minibatches the temporal samplers draw), the random samplers,
+    hook-owned networks (trained or frozen) and the hooks marked
+    ``data_parallel = False`` (the symmetry, distillation and smoothness
+    hooks)."""
     group = agent.process_group
     if group is None or dist.get_world_size(group) == 1:
         return
@@ -63,9 +65,12 @@ def check_data_parallel_route(agent, sampler=None) -> None:
         raise NotImplementedError(f"a temporal sampler (a recurrent or transformer actor) {where}")
     if not isinstance(sampler, MiniBatchSampler):
         raise NotImplementedError(f"the random samplers ({type(sampler).__name__}) {where}")
-    owners = [hook.hook_name for hook in agent.hooks if hook.trainable_modules()]
+    owners = [hook.hook_name for hook in agent.hooks if hook.owned_modules()]
     if owners:
         raise NotImplementedError(f"hook-owned networks ({', '.join(owners)}) {where}")
+    single = [hook.hook_name for hook in agent.hooks if hook.active and not hook.data_parallel]
+    if single:
+        raise NotImplementedError(f"the hooks {', '.join(single)} {where}")
 
 
 @torch.no_grad()

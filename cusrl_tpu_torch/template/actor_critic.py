@@ -53,7 +53,9 @@ all-reduce of the gradients weighted by each rank's share of the rows
 ``reduce_gradients``).  The objective's metrics are averaged the same way.
 Under more than one rank the routes this does not cover raise
 ``NotImplementedError``: the temporal samplers, hook-owned networks (AMP's
-discriminator) and the host loop's ``update``.
+discriminator, RND's, the distillation expert, the estimator and the
+representation probes), the symmetry and smoothness hooks and the host
+loop's ``update``.
 """
 
 from __future__ import annotations
@@ -110,9 +112,12 @@ class ActorCritic(Agent):
         for hook in self.hooks:
             hook.init(self)
         # Registered before the model moves and the optimizer is built.
-        hook_modules = {h.hook_name: nn.ModuleDict(m) for h in self.hooks if (m := h.trainable_modules())}
+        hook_modules = {h.hook_name: nn.ModuleDict(m) for h in self.hooks if (m := h.owned_modules())}
         if hook_modules:
             self.model["hooks"] = nn.ModuleDict(hook_modules)
+        for hook in self.hooks:
+            for module in hook.frozen_modules().values():
+                module.requires_grad_(False)
         self.model.to(self.device)
         # A recurrent actor's memory, carried from step to step and from
         # rollout to rollout (None for a feedforward actor).

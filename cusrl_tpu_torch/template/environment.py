@@ -44,9 +44,11 @@ __all__ = [
 
 @dataclasses.dataclass
 class EnvironmentSpec:
-    """The JAX spec's fields but the mirror functions,
-    ``state_normalization``, ``observation_is_subset_of_state`` and
-    ``environment_instance``, which the port does not read yet."""
+    """The JAX spec's fields.  The mirror functions map ``[..., C]`` to
+    ``[..., C]`` (one variant) or ``[K, ..., C]`` (K variants); the symmetry
+    hooks and observation normalization read them.  ``environment_instance``
+    is the environment that built the spec (``DynamicEnvironmentSpecOverride``
+    reads it)."""
 
     observation_dim: int
     action_dim: int
@@ -59,15 +61,24 @@ class EnvironmentSpec:
     # Spaces (loosely typed; only the gym adapters fill them).
     observation_space: Any = None
     action_space: Any = None
+    # Symmetry transformations: callables tensor -> mirrored tensor.
+    mirror_observation: Callable | None = None
+    mirror_state: Callable | None = None
+    mirror_action: Callable | None = None
     # Predefined export-time statistics: (scale, shift) pairs.
     observation_normalization: tuple[Any, Any] | None = None
+    state_normalization: tuple[Any, Any] | None = None
     action_denormalization: tuple[Any, Any] | None = None
     observation_normalization_excluded_indices: tuple[int, ...] | None = None
     state_normalization_excluded_indices: tuple[int, ...] | None = None
     observation_stat_groups: tuple[tuple[int, ...], ...] = ()
     state_stat_groups: tuple[tuple[int, ...], ...] = ()
+    # Observation channels as indices into the state: observation
+    # normalization then takes the observation's statistics from the state's.
+    observation_is_subset_of_state: Any = None
     # Imitation: ``sampler(num) -> [num, D]`` expert transitions (AMP).
     demonstration_sampler: Callable[[int], Any] | None = None
+    environment_instance: Any = None
     extras: dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def get(self, key: str, default=None):
@@ -90,8 +101,8 @@ class Environment(ABC):
         extras = {k: v for k, v in spec_kwargs.items() if k not in known}
         spec_kwargs = {k: v for k, v in spec_kwargs.items() if k in known}
         self.spec = EnvironmentSpec(observation_dim=observation_dim, action_dim=action_dim,
-                                    num_instances=num_instances, state_dim=state_dim, extras=extras,
-                                    **spec_kwargs)
+                                    num_instances=num_instances, state_dim=state_dim, environment_instance=self,
+                                    extras=extras, **spec_kwargs)
 
     @property
     def num_instances(self) -> int:
@@ -118,6 +129,7 @@ class Environment(ABC):
 class TensorEnvironment:
     def __init__(self, spec: EnvironmentSpec):
         spec.autoreset = True
+        spec.environment_instance = self
         self.spec = spec
 
     @property

@@ -19,10 +19,14 @@ returning new pytrees; the order of the lifecycle is the JAX package's:
 A hook's device state (running statistics, an adaptive scale) lives in
 tensors that it updates in place and lists in ``state_tensors()``, keyed by
 the JAX hook's field path.  A hook that trains a network of its own (AMP's
-discriminator) returns it from ``trainable_modules()`` after ``init``; the
-agent registers it as ``model["hooks"][hook_name][name]``, so its parameters
-are ``hooks.<hook_name>.<name>...``, the JAX optimizer's paths, and move,
-train, clip and snapshot with the actor's and the critic's.
+discriminator, RND's predictor) returns it from ``trainable_modules()``
+after ``init``, and one it owns but never trains (RND's target, the
+distillation expert) from ``frozen_modules()``; the agent registers both as
+``model["hooks"][hook_name][name]``, so their parameters are
+``hooks.<hook_name>.<name>...``, the JAX state's paths, and move and
+snapshot with the actor's and the critic's.  The frozen ones have
+``requires_grad`` off: the optimizer, gradient clipping and the gradient
+all-reduce never see them.
 ``post_update`` receives the pre-update ``snapshot`` (parameters, optimizer
 state and every hook's state tensors) when some active hook sets
 ``needs_snapshot``; otherwise it gets None and no snapshot is taken.
@@ -55,6 +59,8 @@ class Hook:
     training_only: bool = False
     # post_update reads the pre-update snapshot (taken only when some hook asks).
     needs_snapshot: bool = False
+    # False: the hook is not ported under more than one rank (the update raises).
+    data_parallel: bool = True
     # Fields of the JAX hook's state that are configuration here: the
     # checkpoint reads and writes them as the hook's attributes, and
     # load_jax_state skips them.
@@ -84,6 +90,14 @@ class Hook:
     def trainable_modules(self) -> dict[str, "nn.Module"]:
         """The networks the hook trains, by JAX field name (after ``init``)."""
         return {}
+
+    def frozen_modules(self) -> dict[str, "nn.Module"]:
+        """The networks the hook owns but never trains, by JAX field name
+        (after ``init``)."""
+        return {}
+
+    def owned_modules(self) -> dict[str, "nn.Module"]:
+        return {**self.trainable_modules(), **self.frozen_modules()}
 
     def rollout_memory_entries(self) -> dict[str, Any]:
         """Memories the rollout records as of its first step (``[1, N, ...]``

@@ -7,16 +7,18 @@ JAX path, each with a reader (to numpy) and a writer:
 
 * ``actor.*`` and ``critic.*``: the parameters (both packages store
   ``Linear.weight`` as ``[out, in]``, so weights copy without a transpose);
-  a hook's trainable networks (``trainable_modules()``, AMP's discriminator),
-  the port's ``hooks.<hook_name>.<module>.*``, go by JAX's
-  ``hooks.<index>.<module>.*``;
+  a hook's networks (``owned_modules()``: trained ones such as AMP's
+  discriminator and RND's predictor, frozen ones such as RND's target and
+  the distillation expert), the port's ``hooks.<hook_name>.<module>.*``, go
+  by JAX's ``hooks.<index>.<module>.*``;
 * ``hooks.<index>.<field>``: every tensor of a hook's ``state_tensors()``
   (observation normalization's statistics and accumulators, the
   learning-rate schedule's scale and error accumulators, a recurrent critic's
   ``ValueComputation.memory``, AMP's ``transition_rms`` and expert
   ``dataset``), and the configuration the JAX hook keeps as leaves, the
   fields it lists in ``jax_config_fields`` (``gamma``, ``clip_ratio``, ...),
-  read from and written to the hook's attributes;
+  read from and written to the hook's attributes (a tuple one element a
+  leaf, ``<field>.<i>``, as JAX flattens it);
 * ``opt_state.<group index>.inner_state.*``: the optax state of each
   parameter group (groups in sorted order, as both packages build them):
   Adam's ``count``, ``mu.<param path>`` and ``nu.<param path>`` are
@@ -100,6 +102,26 @@ def _tensor_entry(kind: str, tensor: torch.Tensor) -> Entry:
 def _config_entry(hook, name: str) -> Entry:
     return Entry("config", (), lambda: np.asarray(getattr(hook, name), np.float32),
                  lambda path, v: setattr(hook, name, float(v)))
+
+
+def _config_element_entry(hook, name: str, index: int) -> Entry:
+    def write(path, v):
+        values = list(getattr(hook, name))
+        values[index] = float(v)
+        setattr(hook, name, tuple(values))
+
+    return Entry("config", (), lambda: np.asarray(getattr(hook, name)[index], np.float32), write)
+
+
+def _config_entries(hook, prefix: str) -> dict[str, Entry]:
+    entries = {}
+    for name in hook.jax_config_fields:
+        value = getattr(hook, name, None)
+        if isinstance(value, (tuple, list)):
+            entries.update({f"{prefix}{name}.{i}": _config_element_entry(hook, name, i) for i in range(len(value))})
+        elif value is not None:
+            entries[f"{prefix}{name}"] = _config_entry(hook, name)
+    return entries
 
 
 def _state_of(optimizer: torch.optim.Optimizer, p: torch.Tensor, key: str, group: dict) -> torch.Tensor:
@@ -198,9 +220,7 @@ def state_entries(agent) -> dict[str, Entry]:
     for index, hook in enumerate(agent.hooks):
         for name, tensor in hook.state_tensors().items():
             entries[f"hooks.{index}.{name}"] = _tensor_entry("state", tensor)
-        for name in hook.jax_config_fields:
-            if getattr(hook, name, None) is not None:
-                entries[f"hooks.{index}.{name}"] = _config_entry(hook, name)
+        entries.update(_config_entries(hook, f"hooks.{index}."))
     entries.update(_optimizer_entries(agent.optimizer, {k: v for k, v in named.items() if v.requires_grad}))
     for name in agent.optimizer.group_names:
         entries[f"learning_rates.{name}"] = _learning_rate_entry(agent.optimizer, name)
@@ -229,7 +249,7 @@ def load_jax_state(agent, agent_state: Mapping[str, np.ndarray], actor_memory=No
     shape mismatch."""
     entries = state_entries(agent)
     module_prefixes = tuple(f"hooks.{index}.{module}." for index, hook in enumerate(agent.hooks)
-                            for module in hook.trainable_modules())
+                            for module in hook.owned_modules())
     _load_tree("parameter paths", {p: e for p, e in entries.items() if e.kind == "parameter"},
                {p: v for p, v in agent_state.items() if p.startswith(_PARAMETER_PREFIXES + module_prefixes)})
     if actor_memory is not None:
@@ -242,9 +262,9 @@ def load_jax_state(agent, agent_state: Mapping[str, np.ndarray], actor_memory=No
         if not targets:
             continue
         skip = set(hook.jax_config_fields) | set(jax_only_fields(hook))
-        modules = tuple(f"{module}." for module in hook.trainable_modules())
+        skipped = tuple(f"{name}." for name in (*skip, *hook.owned_modules()))
         given = {p[len(prefix):]: v for p, v in agent_state.items()
-                 if p.startswith(prefix) and p[len(prefix):] not in skip and not p[len(prefix):].startswith(modules)}
+                 if p.startswith(prefix) and p[len(prefix):] not in skip and not p[len(prefix):].startswith(skipped)}
         _load_tree(f"state of hook {index} ('{hook.hook_name}')", targets, given)
 
 

@@ -2251,3 +2251,80 @@ def test_world_one_nccl_update_equals_the_undistributed_one_bit_for_bit(cuda, mo
     assert set(grouped[1]) == set(plain[1])
     for path, value in plain[1].items():
         np.testing.assert_array_equal(grouped[1][path], value, err_msg=path)
+
+
+# -- paths D, S, SL and X: the auxiliary hooks' shapes -----------------------------
+
+D_WIDTHS = (48, 256, 128)  # the distillation preset's student, relu
+X_WIDTHS = (48, 256, 128, 64)  # RND's target and predictor, ELU
+
+
+@pytest.mark.parametrize("widths,activation,rows,chains", [
+    (D_WIDTHS, "relu", 4096, 1),  # D's student at the rollout step (primal)
+    (D_WIDTHS, "relu", 12288, 1),  # D's student per minibatch
+    (WIDTHS, "elu", 49152, 2),  # S's augmented pair
+    (WIDTHS, "elu", 24576, 1),  # SL's mirrored actor pass
+    (X_WIDTHS, "elu", 98304, 1),  # X's RND passes in pre_update (primal)
+    (X_WIDTHS, "elu", 24576, 1),  # X's target and predictor per minibatch
+])
+def test_auxiliary_path_shapes_match_plain(cuda, widths, activation, rows, chains):
+    """K1f/K1b and K2f/K2b at the shapes paths D, S, SL and X give them: the
+    forward primal and saving, the backward with ``skip_input_grad`` (the
+    observations take no gradient) after the saving forward."""
+    gen = torch.Generator().manual_seed(rows + chains + len(widths))
+    params = [_params(gen, cuda, widths) for _ in range(chains)]
+    wss, bss = [p[0] for p in params], [p[1] for p in params]
+    xs = [torch.tanh(torch.randn(rows, widths[0], generator=gen)).to(cuda) for _ in range(chains)]
+    fkey, bkey = ("K1f", "K1b") if chains == 1 else ("K2f", "K2b")
+    for save in (False, True):
+        outs, hids, _ = fm._launch_fwd(xs, wss, bss, activation, True, save, fkey)
+        for x, ws, bs, out in zip(xs, wss, bss, outs):
+            _close(out, fm.mlp_chain_fwd_plain(x, ws, bs, activation, True, False)[0], grad=False)
+    gs = [(torch.randn(rows, widths[-1], generator=gen) * 0.01).to(cuda, torch.bfloat16) for _ in range(chains)]
+    hss = [[*h, o] for h, o in zip(hids, outs)]
+    for c, (dx, dws, dbs, _) in enumerate(fm._launch_bwd(xs, gs, wss, hss, activation, True, True, bkey)):
+        assert dx is None
+        _, rdws, rdbs = fm.mlp_chain_bwd_plain(xs[c], gs[c], wss[c], hss[c], activation, True, True)
+        for a, b in zip([*dws, *dbs], [*rdws, *rdbs]):
+            _close(a, b, grad=True)
+
+
+def test_distillation_expert_stays_frozen_on_the_card(cuda, tmp_path):
+    """Path D's expert on the card: loaded from a ``package`` export (the
+    file holds a CPU actor), moved to the card, frozen, out of the optimizer;
+    its step takes K1f (primal) at the rollout's rows, and an update of the
+    student leaves it unchanged and gives it no gradient."""
+    from cusrl_tpu_torch.environment.locomotion import VelocityLocomotionEnv
+    from cusrl_tpu_torch.export import export_agent
+    from cusrl_tpu_torch.preset.distillation import DistillationAgentFactory
+    from cusrl_tpu_torch.zoo.registry import get_experiment
+
+    env = VelocityLocomotionEnv(num_instances=256, device=cuda)
+    teacher = get_experiment("Velocity-Rough", "ppo").make_agent_factory()(env.spec, device=cuda, seed=0)
+    export_agent(teacher, str(tmp_path), target_format="package", verbose=False)
+    agent = DistillationAgentFactory(expert_path=str(tmp_path), num_steps_per_update=8)(env.spec, device=cuda)
+    expert = agent.get_hook("policy_distillation").expert
+    assert all(p.is_cuda and not p.requires_grad for p in expert.parameters())
+    optimized = {id(p) for group in agent.optimizer.optimizer.param_groups for p in group["params"]}
+    assert not optimized & {id(p) for p in expert.parameters()}
+    before = [p.detach().clone() for p in expert.parameters()]
+    gen = torch.Generator().manual_seed(40)
+    obs = torch.tanh(torch.randn(9, 256, 48, generator=gen)).to(cuda)
+    transitions = []
+    fm.reset_launch_counts()
+    for t in range(8):
+        tr = agent.act_body(obs[t])
+        tr.update(next_observation=obs[t + 1], reward=torch.zeros(256, 1, device=cuda),
+                  terminated=torch.zeros(256, 1, dtype=torch.bool, device=cuda),
+                  truncated=torch.zeros(256, 1, dtype=torch.bool, device=cuda))
+        transitions.append(agent.step_body(tr))
+    assert fm.LAUNCHES["K1f"] == 16  # the student's and the expert's step
+    rollout = {k: torch.stack([tr[k] for tr in transitions]) for k in transitions[0] if k != "action_dist"}
+    rollout["action_dist"] = {k: torch.stack([tr["action_dist"][k] for tr in transitions]) for k in ("mean", "std")}
+    agent.update_body(rollout)
+    assert all(p.grad is None for p in expert.parameters())
+    for a, b in zip(expert.parameters(), before):
+        assert torch.equal(a, b)
+    with torch.no_grad():
+        want, _ = teacher.actor.act_deterministic(obs[0])
+    _close(transitions[0]["expert_action"], want, grad=False)
