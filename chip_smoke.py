@@ -44,7 +44,11 @@ without printing a result:
    path S's augmented pair at 2 x 49,152, K1f/K1b on path SL's mirrored
    actor pass at 24,576, and K1f/K1b on path X's RND networks (ELU
    48-256-128-64) primal at 98,304 and 24,576 and saving at 24,576, each
-   backward with ``skip_input_grad``) against its plain PyTorch
+   backward with ``skip_input_grad``); ``[kernels]`` of the control paths
+   (``check_control_kernels``): K1f/K1b on path SC's state estimator (ELU
+   48-256-128-16) saving at 32,768 and 24,576 rows, K2f/K2b on SC's pair at
+   2 x 32,768 and PO's at 2 x 49,152, each backward with
+   ``skip_input_grad``) against its plain PyTorch
    version on the card, and time the kernel, the plain version and a PyTorch
    yardstick the port never calls (bf16 ``F.linear`` chains, fp32 heads
    and, for K9s, the loss, for K9m the forward too; a masked
@@ -116,7 +120,11 @@ without printing a result:
    evaluation and the mirrors' override: the batch doubled), SL (A with
    ``MirrorSymmetryLoss``), X (A with RND and ``ReturnPrediction``: RND's
    predictor and the return head among the gradient leaves) and RS (R with
-   ``ActionSmoothnessLoss`` on its temporal batches);
+   ``ActionSmoothnessLoss`` on its temporal batches); and the control
+   paths: SC (A with the control hooks and schedules; the optimization
+   stage's first gradient and its Adam moments after the update among the
+   leaves) and PO (A with the adaptive Normal head, the minibatch-wise
+   advantages, the sparse bootstrap and 4-4-4-2-2 minibatches, at lr 1e-4);
 6. ``[train]``: the slice-1 loop (Velocity-Rough widths without observation
    normalization and the adaptive learning rate) for a few iterations;
 7. ``[train-zoo]``: paths T, TF, TJ and TL (the zoo's uncut Velocity-Flat
@@ -142,7 +150,17 @@ without printing a result:
    uncut with the symmetric augmentation, or with RND and the return probe)
    and D (the distillation preset at its defaults on Velocity-Rough's 4,096
    environments, its expert the agent ``[train-zoo] A`` trained, exported
-   and loaded by ``expert_path``), each built through ``get_experiment(...).to_training_factory()`` with
+   and loaded by ``expert_path``), and paths SC (A uncut with
+   ``ConditionalObjectiveActivation``, ``MiniBatchWiseLRSchedule``, an
+   ``OptimizationStage`` with its own Adam around a ``StateEstimation``,
+   the entropy weight's parameter schedule, the entropy loss switched off
+   from iteration 3, ``OnPolicyBufferCapacitySchedule`` from 24 to 32 steps
+   at iteration 2, so its timed chunk runs 32, and ``DeviceMemoryStats``,
+   whose ``Memory/device_peak_bytes`` it prints) and PO (A uncut with
+   ``AdaptiveNormalDistFactory(bijector="softplus")``, the minibatch-wise
+   advantage normalization, ``sparse_value_bootstrap`` and 4, 4, 4, 2 and
+   2 minibatches in its five epochs: one host read of the bootstrap's
+   overflow flag an update beside the chunk's transfer), each built through ``get_experiment(...).to_training_factory()`` with
    ``iterations_per_dispatch=10``, observation normalization and (but AMP)
    the KL-adaptive learning rate, and driven through the Trainer for a warm-up
    chunk and a timed chunk of 10 iterations, with the launch counters set to
@@ -208,7 +226,7 @@ without printing a result:
 ``python3 chip_smoke.py --ddp`` runs only ``[ddp]``; ``--ddp-cards`` runs A2's
 check with one rank on each card of the machine, over NCCL.
 ``python3 chip_smoke.py --paths TL C`` runs only the named paths'
-``[train-zoo]`` chunks and profiles (``H``: its host-loop iterations and
+``[train-zoo]`` chunks and profiles (``SC PO``: the control paths) (``H``: its host-loop iterations and
 profile), with the kernels of the package beside
 the script: copied into another checkout, it times that checkout's port the
 same way (two versions compare inside one call, in turns).
@@ -2975,6 +2993,13 @@ X_ROLLOUT_ROWS = NUM_ENVS * STEPS  # 98,304 rows in RND's pre_update passes
 X_HOOK = "random_network_distillation"
 AUX_PATHS = ("D", "S", "X")  # [train-zoo] and [profile]
 AUX_CHECKS = ("D", "S", "SL", "X")  # [update-check]
+SC_EST_WIDTHS = (48, 256, 128, 16)  # SC's state estimator (in its optimization stage): ELU, 16 observation channels
+SC_STEPS = 32  # SC's rollout length from iteration 2 on (OnPolicyBufferCapacitySchedule: 24, then 32)
+SC_MB_ROWS = NUM_ENVS * SC_STEPS // MINIBATCHES  # 32,768 rows per minibatch at 32 steps
+PO_MINI_BATCHES = (4, 4, 4, 2, 2)  # PO's minibatches in each of its five epochs
+PO_MB = sum(PO_MINI_BATCHES)  # 16 minibatches an update
+PO_MB_ROWS = NUM_ENVS * STEPS // 2  # 49,152 rows per minibatch in PO's 2-minibatch epochs
+CONTROL_PATHS = ("SC", "PO")  # [update-check], [train-zoo] and [profile]
 TRAINED: dict = {}  # [train-zoo]'s trained agents by path: A's is path D's expert
 
 
@@ -3091,6 +3116,104 @@ def check_aux_kernels(device) -> dict:
     return results
 
 
+def _control_factory(path: str, ppo_factory=None):
+    """The agent factory of path SC or PO: path A's zoo factory (or
+    ``ppo_factory``) with, for SC, ``ConditionalObjectiveActivation`` (the
+    value loss in epochs 0-2 only) before the value loss,
+    ``MiniBatchWiseLRSchedule`` after ``on_policy_preparation``, then an
+    ``OptimizationStage`` with its own Adam around a ``StateEstimation`` (ELU
+    48-256-128 -> 16 observation channels, from the observation), the
+    entropy weight's ``HookParameterSchedule`` (piecewise linear to 0 at
+    iteration 10), ``HookActivationSchedule`` (entropy loss off from
+    iteration 3), ``OnPolicyBufferCapacitySchedule`` (24 steps, then 32 from
+    iteration 2) and ``DeviceMemoryStats``; for PO the adaptive Normal head
+    with the softplus bijector, the minibatch-wise advantage normalization,
+    ``sparse_value_bootstrap`` and 4, 4, 4, 2 and 2 minibatches in its five
+    epochs."""
+    from cusrl_tpu_torch.hook import (
+        AdvantageNormalization,
+        ConditionalObjectiveActivation,
+        DeviceMemoryStats,
+        EpochIndexCondition,
+        HookActivationSchedule,
+        HookParameterSchedule,
+        MiniBatchWiseLRSchedule,
+        OnPolicyBufferCapacitySchedule,
+        OptimizationStage,
+        StateEstimation,
+    )
+    from cusrl_tpu_torch.nn.module.distribution import AdaptiveNormalDistFactory
+    from cusrl_tpu_torch.nn.module.mlp import MlpFactory
+    from cusrl_tpu_torch.preset.optimizer import AdamFactory
+    from cusrl_tpu_torch.sampler import AutoMiniBatchSampler
+    from cusrl_tpu_torch.utils.scheduler import LessThan, PiecewiseLinearScheduler, StepScheduler
+    from cusrl_tpu_torch.zoo.registry import get_experiment
+
+    zoo = ppo_factory or get_experiment("Velocity-Rough", "ppo").make_agent_factory()
+    if path == "PO":
+        zoo.sparse_value_bootstrap = True
+        underlying = zoo.to_underlying()
+        underlying.actor_factory.distribution_factory = AdaptiveNormalDistFactory(bijector="softplus")
+        underlying.sampler = AutoMiniBatchSampler(num_epochs=EPOCHS, num_mini_batches=PO_MINI_BATCHES)
+        underlying.hooks = [AdvantageNormalization(mini_batch_wise=True) if isinstance(h, AdvantageNormalization)
+                            else h for h in underlying.hooks]
+        return underlying
+    underlying = zoo.to_underlying()
+    estimation = StateEstimation(estimator_factory=MlpFactory(hidden_dims=SC_EST_WIDTHS[1:-1]),
+                                 target_name="observation", target_indices=tuple(range(SC_EST_WIDTHS[-1])))
+    underlying.register_hook(ConditionalObjectiveActivation.create(value_loss=EpochIndexCondition((0, 1, 2))),
+                             before="value_loss")
+    underlying.register_hook(MiniBatchWiseLRSchedule(desired_kl_divergence=zoo.desired_kl_divergence),
+                             after="on_policy_preparation")
+    for hook in (OptimizationStage(stage_name="estimation", stage_hooks=(estimation,),
+                                   optimizer_factory=AdamFactory(lr=1e-3)),
+                 HookParameterSchedule(target_hook="entropy_loss", parameter="weight",
+                                       scheduler=PiecewiseLinearScheduler((0, zoo.entropy_loss_weight), (10, 0.0))),
+                 HookActivationSchedule(target_hook="entropy_loss", scheduler=LessThan(3)),
+                 OnPolicyBufferCapacitySchedule(schedule=StepScheduler(STEPS, (2, SC_STEPS))),
+                 DeviceMemoryStats()):
+        underlying.register_hook(hook)
+    return underlying
+
+
+def check_control_kernels(device) -> dict:
+    """The chain kernels at the new shapes paths SC and PO give them: SC's
+    state estimator (ELU 48-256-128 -> 16, in its optimization stage) K1f
+    saving and K1b with ``skip_input_grad`` at the minibatch's 32,768 rows
+    (32 steps, timed) and 24,576 (24 steps); SC's joint evaluation K2f/K2b
+    at 2 x 32,768 and PO's at 2 x 49,152 (its 2-minibatch epochs), each
+    backward with ``skip_input_grad``.  Returns the ``sc_est_``,
+    ``sc_pair_`` and ``po_pair_`` fields of K1f, K1b, K2f and K2b."""
+    import torch
+
+    results: dict = {}
+
+    def merge(fields, prefix, shape):
+        for key, value in fields.items():
+            value[prefix + "shape"] = shape
+            results.setdefault(key, {}).update(value)
+
+    print("[kernels] K1f/K1b on path SC's state estimator, ELU 48-256-128-16 (skip_input_grad)")
+    merge(_check_chain_kernels(device, "SC estimator", "sc_est_", SC_EST_WIDTHS, torch.float32,
+                               ((SC_MB_ROWS, True, "", True), (MINIBATCH_ROWS, True, "mb24_", False)), seed=34,
+                               skip_input_grad=True), "sc_est_",
+          f"{SC_MB_ROWS} x 48-256-128-16 ELU (SC's estimator per minibatch at 32 steps, saving; backward with "
+          f"skip_input_grad; also {MINIBATCH_ROWS} rows at 24 steps)")
+    print("[kernels] K2f/K2b on path SC's pair at 32 steps, 2 x 32,768 x 48-512-256-128 (skip_input_grad)")
+    merge(_check_chain_kernels(device, "SC pair", "sc_pair_", WIDTHS, torch.float32, ((SC_MB_ROWS, True, "", True),),
+                               seed=35, skip_input_grad=True, chains=2), "sc_pair_",
+          f"2 x {SC_MB_ROWS} x 48-512-256-128 ELU (SC's minibatch at 32 steps, saving; backward with "
+          f"skip_input_grad)")
+    print("[kernels] K2f/K2b on path PO's pair in its 2-minibatch epochs, 2 x 49,152 x 48-512-256-128")
+    merge(_check_chain_kernels(device, "PO pair", "po_pair_", WIDTHS, torch.float32, ((PO_MB_ROWS, True, "", True),),
+                               seed=36, skip_input_grad=True, chains=2), "po_pair_",
+          f"2 x {PO_MB_ROWS} x 48-512-256-128 ELU (PO's minibatch in its 2-minibatch epochs, saving; backward "
+          f"with skip_input_grad)")
+    for key, value in results.items():
+        value["control_max_abs_err"] = max(v for k, v in value.items() if k.endswith("max_abs_err"))
+    return results
+
+
 def _slice_factory(**overrides):
     from cusrl_tpu_torch.preset.ppo import PpoAgentFactory
 
@@ -3120,10 +3243,14 @@ PATH_NAMES = {"A": "zoo Velocity-Rough ppo", "B": "A + fuse_heads (K8)", "C": "A
               "H": "zoo CartPole-v1 ppo (tanh 4-64-64) on NativeCartPoleEnv(8), the host loop",
               "D": "the distillation preset (relu 256-128, Stub critic) on Velocity-Rough, expert: path A's agent",
               "S": "A + SymmetricDataAugmentation (the batch doubled, mirrored statistics)",
-              "SL": "A + MirrorSymmetryLoss", "X": "A + RandomNetworkDistillation (ELU 256-128-64) + ReturnPrediction"}
+              "SL": "A + MirrorSymmetryLoss", "X": "A + RandomNetworkDistillation (ELU 256-128-64) + ReturnPrediction",
+              "SC": "A + the control hooks and schedules (an optimization stage with a state estimator, 24 -> 32 "
+                    "steps)",
+              "PO": "A + the adaptive Normal head (softplus), minibatch-wise advantages, the sparse bootstrap, "
+                    "4-4-4-2-2 minibatches"}
 # The route each transformer path runs: T the modular one, TF, TJ and TL the default.
 PATH_ROUTES = {"T": "0", "TF": None, "TJ": None, "TL": None}
-PATH_STEPS = {"TL": TL_STEPS, "AMP": AMP_STEPS}  # rollout steps per iteration; STEPS elsewhere
+PATH_STEPS = {"TL": TL_STEPS, "AMP": AMP_STEPS, "SC": SC_STEPS}  # rollout steps per iteration; STEPS elsewhere
 # The recurrent entry's paths: R as registered, RJ with the joint evaluation
 # (the GRUs stacked, the heads on K2), RL with LSTM cells (update check only).
 RECURRENT_PATHS = ("R", "RJ")
@@ -3200,6 +3327,15 @@ EXPECTED_ZOO_LAUNCHES = {  # per training iteration
     # predictor (saving, and its backward) on 24,576.  The return probe is
     # an fp32 Linear.
     "X": {**_NONE, "K1f": STEPS + 3 + 2 + 2 * MB, "K1b": MB, "K2f": MB, "K2b": MB},
+    # Path SC at 32 steps (the timed chunk; the warm-up chunk ran at 24): A's
+    # launches, plus per minibatch the stage's estimator forward (saving) and
+    # backward (skip_input_grad) on 32,768 rows.
+    "SC": {**_NONE, "K1f": SC_STEPS + 3 + MB, "K1b": MB, "K2f": MB, "K2b": MB},
+    # Path PO: A's rollout, value pass over the observations and KL pass; the
+    # sparse bootstrap's two 4,096-row passes (the truncated next states, the
+    # last step's; on an overflow the full pass and the last step's: the
+    # same count); 16 minibatches of the pair.
+    "PO": {**_NONE, "K1f": STEPS + 4, "K2f": PO_MB, "K2b": PO_MB},
 }
 
 
@@ -3260,7 +3396,8 @@ def check_update_against_cpu(path: str, expert_path: str | None = None) -> None:
     arithmetic rounded in another order, read the importance-weighted
     advantage 3.0 % apart at 1e-3 and 0.33 % at 1e-4; on path T's CPU side
     alone, a 1e-7 relative change of every gradient moves it 7.5 % at 1e-3
-    and 0.15 % at 1e-4).  The recurrent paths (R, RJ, RL) update at the zoo's
+    and 0.15 % at 1e-4); path PO updates at 1e-4 too (see its branch).  The
+    recurrent paths (R, RJ, RL) update at the zoo's
     1e-3 on 256 environments x 8 steps; their per-step critic's values and
     bootstrap values come from the value hook's own ``post_act`` and
     ``post_step`` on each side, step by step.  After 20 Adam steps at 1e-4 the metrics barely
@@ -3314,6 +3451,23 @@ def check_update_against_cpu(path: str, expert_path: str | None = None) -> None:
         expected = {"D": {"K1f": D_MB, "K1b": D_MB}, "S": {"K1f": 3, "K2f": MB, "K2b": MB},
                     "SL": {"K1f": 3 + MB, "K1b": MB, "K2f": MB, "K2b": MB},
                     "X": {"K1f": 3 + 2 + 2 * MB, "K1b": MB, "K2f": MB, "K2b": MB}}[path]
+    elif path in CONTROL_PATHS:
+        # The update only: A's value passes (PO: the observations' and the
+        # sparse bootstrap's two), per minibatch the pair (SC: and the
+        # stage's estimator forward and backward), the KL pass.
+        zoo = get_experiment("Velocity-Rough", "ppo").make_agent_factory()
+        zoo.num_steps_per_update = steps
+        if path == "PO":
+            # At the zoo's 1e-3 Adam moves all 128 weights of the adaptive std
+            # head at once: one update takes the std from 1 to about 0.7 and
+            # the KL to 2.2 on both sides, where the ratio and the
+            # importance-weighted advantage amplify rounding (the card and the
+            # CPU 3.7 % and 7.1 % apart while every gradient leaf agrees to
+            # 4.4e-3): PO's check updates at 1e-4, as the transformer paths'.
+            zoo.lr = 1e-4
+        factory = _control_factory(path, zoo)
+        expected = {"SC": {"K1f": 3 + MB, "K1b": MB, "K2f": MB, "K2b": MB},
+                    "PO": {"K1f": 4, "K2f": PO_MB, "K2b": PO_MB}}[path]
     elif path in PATH_ROUTES:
         factory = get_experiment("Velocity-Flat", "transformer_ppo").make_agent_factory()
         factory.num_steps_per_update = steps
@@ -3338,6 +3492,8 @@ def check_update_against_cpu(path: str, expert_path: str | None = None) -> None:
     units = envs if path in PATH_ROUTES or path in RECURRENT_CHECKS else steps * envs // 128
     epochs = AMP_EPOCHS if path in AMP_PATHS else D_EPOCHS if path == "D" else EPOCHS
     perms = torch.stack([torch.randperm(units, generator=torch.Generator().manual_seed(e)) for e in range(epochs)])
+    if path == "PO":  # two segments: three epochs of 4 minibatches, two of 2 (128-row tiles in both)
+        perms = [perms[:3], perms[3:]]
     results, state = {}, None
     fused = path in PATH_ROUTES and PATH_ROUTES[path] is None
     for device, route in (("cpu", "force" if fused else PATH_ROUTES.get(path)), ("cuda", PATH_ROUTES.get(path))):
@@ -3479,12 +3635,16 @@ def _small_update(factory, device, state, obs, terminated, truncated, done, perm
         **map_nested(lambda t: t[None], memories),  # a rollout stores them as [1, N, ...]
     }
     names = {id(p): name for name, p in agent.model.named_parameters()}
-    first_grads = {}
+    # An optimization stage's first gradient and its optimizer's state after
+    # the update are compared too (path SC).
+    stage = next((h.stage_optimizer.optimizer for h in agent.hooks if getattr(h, "stage_optimizer", None)), None)
+    first_grads, first_stage_grads = {}, {}
 
     def keep_first(optimizer, args, kwargs):
-        if not first_grads:
-            first_grads.update({names[id(p)]: p.grad.detach().clone() for group in optimizer.param_groups
-                                for p in group["params"] if p.grad is not None})
+        kept, tag = (first_stage_grads, "stage grad ") if optimizer is stage else (first_grads, "")
+        if not kept:
+            kept.update({tag + names[id(p)]: p.grad.detach().clone() for group in optimizer.param_groups
+                         for p in group["params"] if p.grad is not None})
 
     handle = register_optimizer_step_pre_hook(keep_first)
     _reset_launch_counts()
@@ -3492,6 +3652,11 @@ def _small_update(factory, device, state, obs, terminated, truncated, done, perm
         metrics = {k: float(v) for k, v in agent.update_body(rollout, epoch_perms=perms).items()}
     finally:
         handle.remove()
+    first_grads.update(first_stage_grads)
+    if stage is not None:
+        first_grads.update({f"stage {key} {names[id(p)]}": value.detach().clone()
+                            for group in stage.param_groups for p in group["params"]
+                            for key, value in stage.state.get(p, {}).items() if key in ("exp_avg", "exp_avg_sq")})
     if amp is not None and (amp._expert_draws or amp._subsample_draws):
         raise AssertionError("AMP's update check left draws unused")
     return metrics, {k: v.cpu() for k, v in first_grads.items()}, initial
@@ -3570,6 +3735,9 @@ def train_zoo(kind: str, path: str):
         factory, envs = get_experiment("Velocity-Flat", "ppo").to_training_factory(), NUM_ENVS
     elif path in H_PATHS:
         return train_host(kind)[:2]
+    elif path in CONTROL_PATHS:
+        factory, envs = get_experiment("Velocity-Rough", "ppo").to_training_factory(), NUM_ENVS
+        factory.agent = _control_factory(path, factory.agent)
     elif path in AUX_PATHS:
         import tempfile
 
@@ -3610,6 +3778,7 @@ def _train_chunks(kind: str, path: str, factory, envs: int, chunk: int, distribu
     if distribute:
         distribute_agent(trainer.agent)
         path = f"{path} distributed"
+    torch.cuda.reset_peak_memory_stats()  # DeviceMemoryStats (SC) reads the peak since this path began
     start = time.perf_counter()
     for _ in range(chunk):
         trainer.rollout_and_update()
@@ -3619,7 +3788,7 @@ def _train_chunks(kind: str, path: str, factory, envs: int, chunk: int, distribu
 
     _reset_launch_counts()
     distributed.reset_collective_counts()
-    transfers = trainer.host_transfers
+    transfers, reads = trainer.host_transfers, _host_reads(trainer.agent)
     torch.cuda.set_sync_debug_mode("warn")
     start = time.perf_counter()
     with warnings.catch_warnings(record=True) as caught:
@@ -3629,20 +3798,28 @@ def _train_chunks(kind: str, path: str, factory, envs: int, chunk: int, distribu
     torch.cuda.set_sync_debug_mode("default")
     launches = _launch_counts()
     collectives = {k: (v[0] / chunk, v[1] / chunk) for k, v in distributed.COLLECTIVES.items()}
+    # The sparse bootstrap reads its overflow flag once an update (PO).
+    reads = _host_reads(trainer.agent) - reads
     syncs = [f"{w.filename}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
-    others = [site for site in syncs if "template/trainer.py:" not in site]
+    others = [site for site in syncs if "template/trainer.py:" not in site
+              and not (reads and "hook/on_policy/value.py:" in site)]
     expected = {k: v * chunk for k, v in EXPECTED_ZOO_LAUNCHES[path.split()[0]].items()}
     print(f"[train-zoo] {path}: launches over {chunk} iterations {launches} (expected {expected}); "
-          f"host transfers {trainer.host_transfers - transfers}; synchronizing calls {len(syncs)} "
-          f"({len(others)} outside the Trainer's transfer)")
+          f"host transfers {trainer.host_transfers - transfers} (the Trainer's) + {reads} (the sparse bootstrap's "
+          f"overflow flags); synchronizing calls {len(syncs)} ({len(others)} outside those transfers)")
     if launches != expected:
         raise AssertionError(f"path {path} did not launch the kernels the expected number of times")
-    if trainer.host_transfers - transfers != 1 or others:
-        raise AssertionError(f"path {path}: not one host transfer per chunk: {syncs}")
+    if trainer.host_transfers - transfers != 1 or others or reads != (chunk if path == "PO" else 0):
+        raise AssertionError(f"path {path}: not one host transfer per chunk: {syncs}, {reads} flag reads")
     for i, row in enumerate(rows):
         if not all(math.isfinite(v) for v in row.values()):
             raise AssertionError(f"non-finite metrics at iteration {i}: {row}")
     print("    last iteration: " + " ".join(f"{k}={v:.5g}" for k, v in sorted(rows[-1].items())))
+    peaks = [row["Memory/device_peak_bytes"] for row in rows if "Memory/device_peak_bytes" in row]
+    if peaks:  # DeviceMemoryStats (SC): the caching allocator's peak since the process started
+        print(f"[train-zoo] {path}: Memory/device_peak_bytes {max(peaks):.0f} ({max(peaks) / 2**30:.3f} GiB), "
+              f"Memory/device_bytes_in_use {rows[0]['Memory/device_bytes_in_use']:.0f} (means over the chunk's "
+              f"iterations)")
     steps_per_s = chunk * steps * envs / elapsed
     print(f"[train-zoo] {path}: {steps_per_s:.1f} env-steps/s ({elapsed / chunk * 1e3:.2f} ms per iteration) on {kind}")
     if distribute:
@@ -3663,6 +3840,11 @@ def _train_chunks(kind: str, path: str, factory, envs: int, chunk: int, distribu
                 ".expert." in k for k in trainer.agent.optimizer.labels):
             raise AssertionError("path D: the expert is not frozen on the card, out of the optimizer")
     return launches, steps_per_s
+
+
+def _host_reads(agent) -> int:
+    """The agent's sparse-bootstrap overflow flags read on the host so far."""
+    return sum(getattr(hook, "host_reads", 0) for hook in agent.hooks)
 
 
 def _h_factory(kind: str):
@@ -4603,7 +4785,7 @@ def main(argv: list[str]) -> int:
         print(smi)
         return 0
     if argv:  # --paths P ...: only the named paths' [train-zoo] chunks and profiles (comparing two checkouts)
-        every = (*PATH_ROUTES, *PATHS, *RECURRENT_PATHS, *AMP_PATHS, *F_PATHS, *H_PATHS, *AUX_PATHS)
+        every = (*PATH_ROUTES, *PATHS, *RECURRENT_PATHS, *AMP_PATHS, *F_PATHS, *H_PATHS, *AUX_PATHS, *CONTROL_PATHS)
         if argv[0] != "--paths" or not set(argv[1:]) <= set(every):
             print(f"usage: chip_smoke.py [--ddp | --ddp-cards | --paths {' '.join(every)} ...]", file=sys.stderr)
             return 2
@@ -4643,6 +4825,9 @@ def main(argv: list[str]) -> int:
         for key, fields in check_aux_kernels(device).items():
             results[key].update(fields)
             results[key]["max_abs_err"] = max(results[key]["max_abs_err"], fields["aux_max_abs_err"])
+        for key, fields in check_control_kernels(device).items():
+            results[key].update(fields)
+            results[key]["max_abs_err"] = max(results[key]["max_abs_err"], fields["control_max_abs_err"])
     with _phase("[wrappers]"):
         for key, err in (*check_wrappers(device).items(), *check_head_wrappers(device).items()):
             results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
@@ -4662,10 +4847,13 @@ def main(argv: list[str]) -> int:
         expert_path = _export_expert(_path_a_agent(), tmp)
         for path in AUX_CHECKS:
             check_update_against_cpu(path, expert_path)
+    with _phase("[update-check] SC PO"):
+        for path in CONTROL_PATHS:
+            check_update_against_cpu(path)
     with _phase("[train]"):
         train(kind)
     path_launches = {}
-    for path in (*PATH_ROUTES, *PATHS, *RECURRENT_PATHS, *AMP_PATHS, *F_PATHS, *AUX_PATHS):
+    for path in (*PATH_ROUTES, *PATHS, *RECURRENT_PATHS, *AMP_PATHS, *F_PATHS, *AUX_PATHS, *CONTROL_PATHS):
         with _phase(f"[train-zoo] {path}"):
             path_launches[path], _ = train_zoo(kind, path)
     with _phase("[train-zoo] H, [play] H"):
@@ -4703,7 +4891,7 @@ def main(argv: list[str]) -> int:
         results[key]["h_launches"] = path_launches["H"][key] // 10
     results["K1f"]["h_play_launches_per_step"] = 1
     # Paths D, S and X per iteration (D: student and expert; X: A's and RND's).
-    for path in AUX_PATHS:
+    for path in (*AUX_PATHS, *CONTROL_PATHS):
         for key in ("K1f", "K1b", "K2f", "K2b"):
             if path_launches[path][key]:
                 results[key][f"{path.lower()}_launches"] = path_launches[path][key] // 10
@@ -4729,7 +4917,8 @@ def main(argv: list[str]) -> int:
             "launches_by_path": {p_: path_launches[p_][key] for p_ in path_launches if path_launches[p_][key]},
             **{k: v for k, v in r.items()
                if k.startswith(("gelu", "primal", "offpath", "tl_", "r_head", "rj_pair", "amp_", "f_", "h_", "ddp_",
-                                "d_", "s_pair_", "s_launches", "sl_", "x_", "aux_", "phase", "bitwise",
+                                "d_", "s_pair_", "s_launches", "sl_", "x_", "aux_", "sc_", "po_", "control_",
+                                "phase", "bitwise",
                                 "grid", "ring", "smem", "regs", "spills", "device", "pack", "rollout", "queue", "host",
                                 "plan"))},
             "status": "ported and checked",

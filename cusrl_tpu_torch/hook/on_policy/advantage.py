@@ -1,8 +1,9 @@
 """Advantage post-processing (counterpart of
 ``cusrl_tpu/hook/on_policy/advantage.py``).  ``AdvantageNormalization``
 standardizes over every axis but the last, with the population variance and
-``1e-8`` inside the root, once over the whole rollout (the minibatch-wise
-variant is not ported yet).  ``AdvantageReduction`` reduces multi-reward
+``1e-8`` inside the root, once over the whole rollout, or with
+``mini_batch_wise`` over each minibatch in ``objective`` (over the rank's
+own rows: ``data_parallel`` is then False).  ``AdvantageReduction`` reduces multi-reward
 advantages to one channel per minibatch: a weighted sum or mean."""
 
 from __future__ import annotations
@@ -32,9 +33,20 @@ class AdvantageNormalization(Hook):
     training_only = True
     batch_keys = ("advantage",)
 
+    def __init__(self, mini_batch_wise: bool = False, **kwargs):
+        super().__init__(**kwargs)
+        self.mini_batch_wise = mini_batch_wise
+        self.data_parallel = not mini_batch_wise
+
     def pre_update(self, agent, rollout: dict) -> dict:
-        rollout["advantage"] = standardize(rollout["advantage"], getattr(agent, "process_group", None))
+        if not self.mini_batch_wise:
+            rollout["advantage"] = standardize(rollout["advantage"], getattr(agent, "process_group", None))
         return {}
+
+    def objective(self, agent, metadata, batch):
+        if self.mini_batch_wise:
+            batch["advantage"] = standardize(batch["advantage"])
+        return None, {}
 
 
 class AdvantageReduction(Hook):

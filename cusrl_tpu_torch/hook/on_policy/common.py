@@ -4,7 +4,8 @@
 the log-probabilities, entropy and probability ratios the losses read.  On a
 temporal minibatch (whole environments over the rollout) the actor runs in
 sequence mode from the stored rollout-initial memory, with done-driven
-resets."""
+resets.  With ``calculate_kl_divergence`` (``MiniBatchWiseLRSchedule`` turns
+it on) it also writes ``kl_divergence``, KL(rollout policy || current)."""
 
 from __future__ import annotations
 
@@ -19,6 +20,10 @@ __all__ = ["OnPolicyPreparation"]
 class OnPolicyPreparation(Hook):
     training_only = True
     batch_keys = ("observation", "action", "action_logp", "action_dist", "actor_memory", "done")
+
+    def __init__(self, calculate_kl_divergence: bool = False, **kwargs):
+        super().__init__(**kwargs)
+        self.calculate_kl_divergence = calculate_kl_divergence
 
     def objective(self, agent, metadata, batch):
         actor = agent.actor
@@ -40,5 +45,7 @@ class OnPolicyPreparation(Hook):
         batch["curr_entropy"] = entropy
         batch["action_logp_ratio"] = logp_ratio
         batch["action_prob_ratio"] = torch.exp(logp_ratio)
+        if self.calculate_kl_divergence:
+            batch["kl_divergence"] = actor.compute_kl_div(batch["action_dist"], action_dist)
         metrics = {"ratio": logp_ratio.detach().abs().mean(), "entropy": entropy.detach().mean()}
         return None, metrics

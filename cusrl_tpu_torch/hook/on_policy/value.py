@@ -33,6 +33,18 @@ terminated: termination overrides the truncation bootstrap
 on every path, and the last step with the critic on its next state
 (``value.py:194-195,206-228``): the batched path then runs its second pass
 on the last row only.
+
+``sparse_bootstrap`` (the batched path): bootstrap values are read only at
+truncated steps and at the last step, so instead of the second ``[T*N]``
+pass the critic runs on the first N truncated next states (gathered in row
+order by a cumulative sum, no host read), whose values are scattered back,
+and on the last step's next states; where more than N steps truncated, the
+full pass runs instead (``value.py:234-265``).  The result equals the full
+pass on every input.  JAX picks the pass on the device (``lax.cond``); here
+the overflow flag goes to pinned host memory before the value pass is
+queued, and the host waits for it (a CUDA event) only after queueing that
+pass, so the device is not left idle.  That is one host read per update,
+counted in ``host_reads``.
 """
 
 from __future__ import annotations
@@ -65,9 +77,10 @@ class ValueComputation(Hook):
     def __init__(self, termination_value: float = 0.0, sparse_bootstrap: bool = False,
                  deferred: bool | str | None = None, **kwargs):
         super().__init__(**kwargs)
-        if sparse_bootstrap:
-            raise NotImplementedError("sparse_bootstrap is not ported yet")
         self.termination_value = termination_value
+        self.sparse_bootstrap = sparse_bootstrap
+        self.host_reads = 0  # the sparse bootstrap's overflow flags read on the host
+        self._overflow_flag = None
         self.deferred = deferred
         self.memory = None
         self.bootstrap_truncated_states = True
@@ -150,6 +163,10 @@ class ValueComputation(Hook):
                 bootstrap = torch.cat([value[:-1], last_value[None]], 0)
                 bootstrap = torch.where(truncated, value, bootstrap)
             self.memory = reset_memory(final_memory, done[-1])
+        elif self.deferred and self.bootstrap_truncated_states and self.sparse_bootstrap:
+            overflow = self._read_overflow(truncated)
+            value = eval_batched(observation)
+            bootstrap = self._sparse_bootstrap(critic, next_state, truncated, overflow())
         else:  # the batched pass (deferred=True), or the per-step path's values from the rollout
             value = eval_batched(observation) if self.deferred else rollout["value"]
             bootstrap = None if self.deferred else rollout.get("bootstrap_value")
@@ -163,6 +180,48 @@ class ValueComputation(Hook):
         rollout["value"] = value
         rollout["next_value"] = compute_next_value(value, bootstrap, terminated, truncated, self.termination_value)
         return {}
+
+    def _read_overflow(self, truncated: torch.Tensor):
+        """Starts reading whether more steps truncated than there are
+        environments; returns the function that waits for the answer."""
+        t, n = truncated.shape[:2]
+        overflow = truncated.sum() > n
+        self.host_reads += 1
+        if overflow.device.type != "cuda":
+            return lambda: bool(overflow)
+        if self._overflow_flag is None:  # pinned, so the copy does not wait for the device
+            self._overflow_flag = torch.empty((), dtype=torch.bool, pin_memory=True)
+        host = self._overflow_flag.copy_(overflow, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+
+        def wait() -> bool:
+            ready.synchronize()
+            return bool(host)
+
+        return wait
+
+    @staticmethod
+    def _sparse_bootstrap(critic, next_state: torch.Tensor, truncated: torch.Tensor, overflow: bool):
+        """Bootstrap values ``[T, N, Dr]`` where ``compute_next_value`` reads
+        them: at the truncated steps the critic on the first N truncated next
+        states (or on all of them where ``overflow``), at the last step's
+        other rows the critic on its next states."""
+        t, n = next_state.shape[:2]
+        flat_states = next_state.reshape(t * n, *next_state.shape[2:])
+        if overflow:
+            boot = critic(flat_states)[0]
+        else:
+            flat = truncated.reshape(t * n)
+            position = torch.cumsum(flat.int(), 0) - 1
+            slot = torch.where(flat & (position < n), position, n)  # slot n collects what is dropped
+            rows = torch.arange(t * n, device=flat.device)
+            index = torch.full((n + 1,), t * n, dtype=torch.long, device=flat.device).scatter_(0, slot, rows)[:n]
+            values = critic(flat_states[index.clamp(max=t * n - 1)])[0]  # [N, Dr]
+            boot = values.new_zeros(t * n + 1, values.shape[-1]).index_copy_(0, index, values)[:t * n]
+        boot = boot.reshape(t, n, -1)
+        last = torch.where(truncated[-1], boot[-1], critic(next_state[-1])[0])
+        return torch.cat([boot[:-1], last[None]], 0)
 
 
 class ValueLoss(Hook):

@@ -2,7 +2,14 @@
 (those the port has)."""
 
 from cusrl_tpu_torch.nn.base import Memory, reset_memory, storable_memory
-from cusrl_tpu_torch.nn.layer.bijector import Bijector, ExponentialBijector, IdentityBijector, make_bijector
+from cusrl_tpu_torch.nn.layer.bijector import (
+    Bijector,
+    ExponentialBijector,
+    IdentityBijector,
+    SigmoidBijector,
+    SoftplusBijector,
+    make_bijector,
+)
 from cusrl_tpu_torch.nn.layer.encoding import RotaryEmbedding, alibi_slopes
 from cusrl_tpu_torch.nn.layer.gate import GruGate, HighwayGate, InputGate, OutputGate, ResidualGate, make_gate
 from cusrl_tpu_torch.nn.layer.linear import Linear, get_activation
@@ -17,6 +24,8 @@ from cusrl_tpu_torch.nn.module.causal_attn import (
 )
 from cusrl_tpu_torch.nn.module.critic import Value, ValueFactory
 from cusrl_tpu_torch.nn.module.distribution import (
+    AdaptiveNormalDist,
+    AdaptiveNormalDistFactory,
     NormalDist,
     NormalDistFactory,
     OneHotCategoricalDist,

@@ -1,12 +1,17 @@
-"""Action distributions (counterpart of ``NormalDist`` and
-``OneHotCategoricalDist`` in ``cusrl_tpu/nn/module/distribution.py``).
+"""Action distributions (counterpart of ``NormalDist``,
+``AdaptiveNormalDist`` and ``OneHotCategoricalDist`` in
+``cusrl_tpu/nn/module/distribution.py``).
 
 All distribution math is fp32 whatever the backbone's compute dtype: the mean
 head is an fp32 ``Linear`` and parameters, log-probabilities, entropy and KL
 are computed in fp32.  Distribution parameters are plain dicts of tensors so
 they store directly into transitions.  ``determine(latent)`` and
 ``mode(dist_params)`` give the deterministic action (the mean, or the
-argmax's one-hot vector).
+argmax's one-hot vector).  ``AdaptiveNormalDist`` takes its std from an
+fp32 head on the latent (zero weights and the bijector's inverse of
+``init_std`` as bias at start, as in JAX); with ``backward=False`` the std
+head reads a detached latent, so its loss reaches the head but not the
+backbone.
 """
 
 from __future__ import annotations
@@ -20,7 +25,14 @@ from torch import nn
 from cusrl_tpu_torch.nn.layer.bijector import Bijector, make_bijector
 from cusrl_tpu_torch.nn.layer.linear import Linear
 
-__all__ = ["NormalDist", "NormalDistFactory", "OneHotCategoricalDist", "OneHotCategoricalDistFactory"]
+__all__ = [
+    "AdaptiveNormalDist",
+    "AdaptiveNormalDistFactory",
+    "NormalDist",
+    "NormalDistFactory",
+    "OneHotCategoricalDist",
+    "OneHotCategoricalDistFactory",
+]
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -30,14 +42,8 @@ def _normal_logp(mean, std, x):
     return torch.sum(-0.5 * z.square() - torch.log(std) - _LOG_SQRT_2PI, dim=-1, keepdim=True)
 
 
-class NormalDist(nn.Module):
-    """Gaussian with a state-independent learnable std vector (through a bijector)."""
-
-    def __init__(self, mean_head: Linear, std_param: torch.Tensor, bijector: Bijector):
-        super().__init__()
-        self.mean_head = mean_head
-        self.std_param = nn.Parameter(std_param)
-        self.bijector = bijector
+class _Normal(nn.Module):
+    """Diagonal-Gaussian math in fp32, shared by the two Normal heads."""
 
     @property
     def input_dim(self) -> int:
@@ -46,11 +52,6 @@ class NormalDist(nn.Module):
     @property
     def output_dim(self) -> int:
         return self.mean_head.output_dim
-
-    def forward(self, backbone_feat: torch.Tensor) -> dict[str, torch.Tensor]:
-        mean = self.mean_head(backbone_feat.float())
-        std = self.bijector(self.std_param.float()).expand_as(mean)
-        return {"mean": mean, "std": std}
 
     def sample(self, dist_params, generator: torch.Generator | None = None, noise: torch.Tensor | None = None):
         """``(action, logp)``; ``noise`` (standard normal, the mean's shape)
@@ -80,6 +81,38 @@ class NormalDist(nn.Module):
 
     def mode(self, dist_params) -> torch.Tensor:
         return dist_params["mean"]
+
+
+class NormalDist(_Normal):
+    """Gaussian with a state-independent learnable std vector (through a bijector)."""
+
+    def __init__(self, mean_head: Linear, std_param: torch.Tensor, bijector: Bijector):
+        super().__init__()
+        self.mean_head = mean_head
+        self.std_param = nn.Parameter(std_param)
+        self.bijector = bijector
+
+    def forward(self, backbone_feat: torch.Tensor) -> dict[str, torch.Tensor]:
+        mean = self.mean_head(backbone_feat.float())
+        std = self.bijector(self.std_param.float()).expand_as(mean)
+        return {"mean": mean, "std": std}
+
+
+class AdaptiveNormalDist(_Normal):
+    """Gaussian with a state-dependent std: ``bijector(std_head(latent))``."""
+
+    def __init__(self, mean_head: Linear, std_head: Linear, bijector: Bijector, backward: bool = True):
+        super().__init__()
+        self.mean_head = mean_head
+        self.std_head = std_head
+        self.bijector = bijector
+        self.backward = backward
+
+    def forward(self, backbone_feat: torch.Tensor) -> dict[str, torch.Tensor]:
+        feat = backbone_feat.float()
+        mean = self.mean_head(feat)
+        std = self.bijector(self.std_head(feat if self.backward else feat.detach()))
+        return {"mean": mean, "std": std.float()}
 
 
 def _one_hot(index: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -156,6 +189,31 @@ class NormalDistFactory:
             mean_head=Linear(input_dim, output_dim, generator=generator),
             std_param=torch.full((output_dim,), bij.inverse(init_std)),
             bijector=bij,
+        )
+
+
+@dataclasses.dataclass
+class AdaptiveNormalDistFactory:
+    init_std: float | None = None
+    bijector: str | None = "exp"
+    backward: bool = True
+
+    def __call__(self, input_dim: int, output_dim: int,
+                 generator: torch.Generator | None = None) -> AdaptiveNormalDist:
+        bij = make_bijector(self.bijector)
+        init_std = 1.0 if self.init_std is None else self.init_std
+        if init_std <= 0:
+            raise ValueError("'init_std' must be positive")
+        mean_head = Linear(input_dim, output_dim, generator=generator)
+        std_head = Linear(input_dim, output_dim)
+        with torch.no_grad():
+            std_head.weight.zero_()
+            std_head.bias.fill_(bij.inverse(init_std))
+        return AdaptiveNormalDist(
+            mean_head=mean_head,
+            std_head=std_head,
+            bijector=bij,
+            backward=self.backward,
         )
 
 

@@ -41,6 +41,9 @@ class RandomPlan:
     num_mini_batches: int
     indices: object  # [K, B] rows, or ([K, L, B] time, [K, B] environment) indices
 
+    epoch_start = 0  # one pass of num_mini_batches minibatches
+    num_epochs = 1
+
 
 def _valid_steps(capacity: int, buffer_state) -> int | None:
     """The number of valid steps: the capacity once full, else the cursor

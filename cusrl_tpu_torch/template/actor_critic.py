@@ -8,11 +8,15 @@ JAX package's dotted paths (``params_view``): the optimizer's groups, gradient
 clipping, the update snapshot and ``.to(device)`` cover the hooks' networks
 as they cover the actor and the critic.
 ``update_body`` runs ``pre_update``, then epochs x minibatches of
-objective -> backward -> ``pre_optim`` -> optimizer step, then
-``post_update``; the objective runs once per minibatch.  Step metrics are
-averaged over all minibatches, as in the JAX update.  A recurrent actor's
-memory (``actor_memory``) is carried by the agent: it advances in
-``act_body`` and resets where an episode ends in ``step_body``.  Under a
+objective -> backward -> ``pre_optim`` -> optimizer step -> ``post_objective``
+(an ``OptimizationStage``'s own objective and step), then ``post_update``;
+the objective runs once per minibatch.  Under per-epoch minibatch counts the
+sampler's plan is a list of segments, run in order.  Step metrics are
+averaged over all minibatches, as in the JAX update.  The schedules run
+after each update (``apply_schedules``), skipped when every active hook's
+``schedule_is_noop``; ``resize_buffer`` follows a capacity schedule.  A
+recurrent actor's memory (``actor_memory``) is carried by the agent: it
+advances in ``act_body`` and resets where an episode ends in ``step_body``.  Under a
 sampler with ``requires_per_step_memory`` (``TemporalRandomSampler``) each
 transition records the memories entering its step (``actor_memory`` here,
 ``critic_memory`` in ``ValueComputation``), stacked ``[T, N, ...]``;
@@ -150,8 +154,15 @@ class ActorCritic(Agent):
 
     def apply_schedules(self, iteration: int) -> None:
         """Host-side hook schedules (at construction and after each update)."""
-        for hook in self._composite._active():
+        active = self._composite._active()
+        if all(hook.schedule_is_noop(iteration) for hook in active):
+            return
+        for hook in active:
             hook.apply_schedule(iteration, self)
+
+    def resize_buffer(self, capacity: int) -> None:
+        """A new rollout length for the host loop's buffer (emptied)."""
+        self.buffer.resize(capacity)
 
     def set_iteration(self, iteration: int) -> None:
         if iteration != self.iteration:
@@ -212,35 +223,53 @@ class ActorCritic(Agent):
 
     # -- update snapshots (taken only when a hook's post_update reads one) ----
 
+    def _optimizers(self) -> list:
+        """``(owning hook or None, torch optimizer)`` for the update's
+        optimizers: the agent's, then each optimization stage's
+        (``OptimizationStage.stage_optimizer``)."""
+        stages = [(hook, hook.stage_optimizer.optimizer) for hook in self.hooks
+                  if getattr(hook, "stage_optimizer", None) is not None]
+        return [(None, self.optimizer.optimizer), *stages]
+
     @torch.no_grad()
     def take_snapshot(self) -> dict:
-        """Device copies of the parameters, the optimizer state and every
+        """Device copies of the parameters, the optimizers' state and every
         hook's state tensors."""
-        optimizer = self.optimizer.optimizer
+        params = list(self.model.named_parameters())
         return {
-            "params": {path: p.detach().clone() for path, p in self.model.named_parameters()},
-            "optimizer": {path: {k: v.clone() for k, v in optimizer.state.get(p, {}).items()}
-                          for path, p in self.model.named_parameters()},
+            "params": {path: p.detach().clone() for path, p in params},
+            "optimizer": [{path: {k: v.clone() for k, v in optimizer.state.get(p, {}).items()} for path, p in params}
+                          for _, optimizer in self._optimizers()],
             "hooks": [{k: v.clone() for k, v in hook.state_tensors().items()} for hook in self.hooks],
         }
 
     @torch.no_grad()
     def restore_snapshot(self, snapshot: dict, where: torch.Tensor, keep: Hook | None = None) -> None:
         """Where the 0-d bool ``where`` holds, puts the snapshot back into the
-        parameters, the optimizer state and the state of every hook but
+        parameters, the optimizers' state and the state of every hook but
         ``keep``; a device select, no host branch.  Optimizer state created
-        after the snapshot (the first update) goes back to zeros."""
-        optimizer = self.optimizer.optimizer
+        after the snapshot (the first update) goes back to zeros.  The
+        active hooks after ``keep`` keep their state, their networks and
+        their stage optimizer's state, as in JAX: its ``post_update`` fold
+        puts each later hook's own post-update self back over the restored
+        state (ROADMAP Queue 3)."""
+        active = self._composite._active()
+        later = {h.hook_name for h in active[active.index(keep) + 1:]} if keep in active else set()
         for path, p in self.model.named_parameters():
-            p.copy_(torch.where(where, snapshot["params"][path], p))
-            old_state = snapshot["optimizer"][path]
-            for key, value in optimizer.state.get(p, {}).items():
-                if isinstance(value, torch.Tensor):
-                    old = old_state.get(key)
-                    value.copy_(torch.where(where.to(value.device), torch.zeros_like(value) if old is None else old,
-                                            value))
+            if not (path.startswith("hooks.") and path.split(".")[1] in later):
+                p.copy_(torch.where(where, snapshot["params"][path], p))
+        for (owner, optimizer), saved in zip(self._optimizers(), snapshot["optimizer"]):
+            if owner is not None and owner.hook_name in later:
+                continue
+            for path, p in self.model.named_parameters():
+                old_state = saved[path]
+                for key, value in optimizer.state.get(p, {}).items():
+                    if isinstance(value, torch.Tensor):
+                        old = old_state.get(key)
+                        value.copy_(torch.where(where.to(value.device),
+                                                torch.zeros_like(value) if old is None else old, value))
         for hook, old_state in zip(self.hooks, snapshot["hooks"]):
-            if hook is keep:
+            if hook is keep or hook.hook_name in later:
                 continue
             for key, value in hook.state_tensors().items():
                 value.copy_(torch.where(where, old_state[key], value))
@@ -361,10 +390,11 @@ class ActorCritic(Agent):
             keys.update(getattr(hook, "batch_keys", ()))
         return keys
 
-    def _train_step(self, metadata: dict, batch: dict, row_share: float = 1.0) -> tuple[dict, dict]:
-        """One minibatch: ``(the objective's metrics, pre_optim's)``.  Under a
-        process group the gradients are reduced before ``pre_optim``, with
-        this rank's ``row_share`` of the global minibatch as its weight."""
+    def _train_step(self, metadata: dict, batch: dict, row_share: float = 1.0) -> tuple[dict, dict, dict]:
+        """One minibatch: ``(the objective's metrics, pre_optim's,
+        post_objective's)``.  Under a process group the gradients are
+        reduced before ``pre_optim``, with this rank's ``row_share`` of the
+        global minibatch as its weight."""
         objectives, metrics = self._composite.objective(self, metadata, batch)
         step_metrics = {key: value.detach() for key, value in objectives.items()}
         step_metrics.update(metrics)
@@ -377,7 +407,7 @@ class ActorCritic(Agent):
                 distributed.reduce_gradients(self.model.parameters(), row_share, self.process_group)
             optim_metrics = self._composite.pre_optim(self)
             self.optimizer.step()
-        return step_metrics, optim_metrics
+        return step_metrics, optim_metrics, self._composite.post_objective(self, metadata, batch)
 
     def update_body(self, rollout: dict, epoch_perms=None, buffer_state=None) -> dict[str, torch.Tensor]:
         """One whole update on a ``[T, N, ...]`` rollout (memories as
@@ -412,26 +442,27 @@ class ActorCritic(Agent):
                 raise RuntimeError("a distributed update draws its plan from 'plan_generator': "
                                    "call parallel.broadcast_agent_state(agent) first")
         plan = sampler.make_epoch_plan(capacity, parallelism, generator, self.device, epoch_perms, **ring)
-        if group is not None:
-            rows = shard_rows(plan.batch_size, torch.distributed.get_rank(group),
-                              torch.distributed.get_world_size(group))
-            row_share = (rows[1] - rows[0]) / plan.batch_size
         source = sampler.source(batch_keys)
         sums: dict[str, torch.Tensor] = {}
         global_keys: set[str] = set()
         steps = 0
-        for epoch in range(sampler.num_epochs):
-            for mini_batch in range(plan.num_mini_batches):
-                if rows is None:
-                    batch = sampler.gather(source, plan, epoch, mini_batch)
-                else:
-                    batch = sampler.gather(source, plan, epoch, mini_batch, rows)
-                metadata = sampler.metadata(plan, epoch, mini_batch)
-                step_metrics, optim_metrics = self._train_step(metadata, batch, row_share)
-                global_keys.update(optim_metrics)  # taken from the reduced gradients
-                for key, value in {**step_metrics, **optim_metrics}.items():
-                    sums[key] = sums[key] + value if key in sums else value
-                steps += 1
+        for segment in plan if isinstance(plan, list) else [plan]:
+            if group is not None:
+                rows = shard_rows(segment.batch_size, torch.distributed.get_rank(group),
+                                  torch.distributed.get_world_size(group))
+                row_share = (rows[1] - rows[0]) / segment.batch_size
+            for epoch in range(segment.num_epochs):
+                for mini_batch in range(segment.num_mini_batches):
+                    if rows is None:
+                        batch = sampler.gather(source, segment, epoch, mini_batch)
+                    else:
+                        batch = sampler.gather(source, segment, epoch, mini_batch, rows)
+                    metadata = sampler.metadata(segment, segment.epoch_start + epoch, mini_batch)
+                    step_metrics, optim_metrics, post_metrics = self._train_step(metadata, batch, row_share)
+                    global_keys.update(optim_metrics)  # taken from the reduced gradients
+                    for key, value in {**step_metrics, **optim_metrics, **post_metrics}.items():
+                        sums[key] = sums[key] + value if key in sums else value
+                    steps += 1
         means = {key: value / steps for key, value in sums.items()}
         local = sorted(key for key in means if key not in global_keys)
         if group is not None and local:

@@ -10,8 +10,11 @@ returning new pytrees; the order of the lifecycle is the JAX package's:
                     -> ``post_step``
   every update:     ``pre_update``; then per minibatch ``objective`` (losses
                     summed, one backward) -> ``pre_optim`` (gradients on the
-                    parameters) -> optimizer step; finally ``post_update``.
-  after an update:  ``apply_schedule(iteration, agent)`` (host side).
+                    parameters) -> optimizer step -> ``post_objective`` (a
+                    nested optimization stage's point); finally
+                    ``post_update``.
+  after an update:  ``apply_schedule(iteration, agent)`` (host side), unless
+                    every active hook's ``schedule_is_noop(iteration)``.
   host loop:        ``should_update(agent)`` when a rollout is complete.
   at export:        ``pre_export(agent, graph)`` per hook, then the actor,
                     then ``post_export(agent, graph)`` per hook.
@@ -33,6 +36,9 @@ state and every hook's state tensors) when some active hook sets
 
 ``HookComposite`` folds each callback over the active hooks in list order;
 in inference mode (the Player) it skips the hooks marked ``training_only``.
+An earlier hook may write ``batch["__objective_scales__"][hook_name]``
+(``ConditionalObjectiveActivation``): that hook's losses are multiplied by
+the scale (a 0/1 number or tensor), so its metrics stay as they are.
 """
 
 from __future__ import annotations
@@ -80,8 +86,27 @@ class Hook:
     def post_init(self, agent: "ActorCritic") -> None:
         """After every hook's ``init`` and the optimizer's construction."""
 
+    def with_active(self, active: bool) -> "Hook":
+        self.active = active
+        return self
+
     def apply_schedule(self, iteration: int, agent: "ActorCritic | None" = None) -> None:
         """Host-side schedule, applied at construction and after each update."""
+
+    def schedule_is_noop(self, iteration: int) -> bool:
+        """True when ``apply_schedule(iteration)`` changes nothing (a hook
+        that overrides ``apply_schedule`` overrides this too)."""
+        return type(self).apply_schedule is Hook.apply_schedule
+
+    def update_attribute(self, name: str, value: Any) -> "Hook":
+        """A schedule's entry point: sets attribute ``name``; a device tensor
+        takes the value in place (no host sync)."""
+        current = getattr(self, name)
+        if hasattr(current, "fill_"):
+            current.fill_(value)
+        else:
+            setattr(self, name, value)
+        return self
 
     def state_tensors(self) -> dict[str, Any]:
         """The hook's device state, updated in place, by JAX field path."""
@@ -130,6 +155,10 @@ class Hook:
         """Gradient-space callback (gradients are on the parameters); returns metrics."""
         return {}
 
+    def post_objective(self, agent: "ActorCritic", metadata: dict, batch: dict) -> dict[str, Any]:
+        """After the optimizer step of a minibatch; returns metrics."""
+        return {}
+
     def post_update(self, agent: "ActorCritic", rollout: dict, snapshot=None) -> dict[str, Any]:
         """After the optimization epochs; ``snapshot`` as the module says."""
         return {}
@@ -174,6 +203,9 @@ class HookComposite:
         metrics: dict = {}
         for hook in self._active():
             obj, m = hook.objective(agent, metadata, batch)
+            scale = batch.get("__objective_scales__", {}).get(hook.hook_name)
+            if obj and scale is not None:
+                obj = {key: value * scale for key, value in obj.items()}
             for key in obj or {}:
                 if key in objectives:
                     raise RuntimeError(f"Duplicate objective '{key}'")
@@ -185,6 +217,12 @@ class HookComposite:
         metrics: dict = {}
         for hook in self._active():
             metrics.update(hook.pre_optim(agent))
+        return metrics
+
+    def post_objective(self, agent, metadata: dict, batch: dict) -> dict:
+        metrics: dict = {}
+        for hook in self._active():
+            metrics.update(hook.post_objective(agent, metadata, batch))
         return metrics
 
     def post_update(self, agent, rollout: dict, snapshot=None) -> dict:

@@ -98,24 +98,29 @@ class RolloutDriver:
         return aggregates, metrics
 
     def collect_and_update_many(self, num_steps: int, num_iters: int):
-        """``num_iters`` training iterations; returns ``(aggregates [K, 3],
-        metric values [K, M], metric keys)``, all values on the device, for
-        one transfer by the caller.  ``update_body`` advances
+        """``num_iters`` training iterations of ``num_steps`` steps each;
+        returns ``(aggregates [K, 3], metric values [K, M], metric keys: one
+        tuple per iteration)``, all values on the device, for one transfer
+        by the caller.  Row ``k`` holds iteration ``k``'s values in the order
+        of its keys, zero-padded to ``M``, the most any iteration has: a
+        schedule that switches a hook on or off changes the keys from one
+        iteration to the next.  ``update_body`` advances
         ``agent.iteration``; the hook schedules are applied after each
         iteration, as the JAX driver's per-iteration branch does
-        (``rollout.py:250-260``).  The JAX driver's single-dispatch scan over
-        iterations has no counterpart: CUDA launches are already queued
-        asynchronously, so the host runs ahead of the device until the
-        caller's transfer."""
-        aggregates, stacked, keys = [], [], None
+        (``rollout.py:250-260``).  A schedule that changes the rollout's
+        length (``OnPolicyBufferCapacitySchedule``) takes effect at the next
+        call: every iteration of this one runs ``num_steps`` steps, as in the
+        JAX driver.  The JAX driver's single-dispatch scan over iterations
+        has no counterpart: CUDA launches are already queued asynchronously,
+        so the host runs ahead of the device until the caller's transfer."""
+        aggregates, rows, keys = [], [], []
         for _ in range(num_iters):
             aggs, metrics = self.collect_and_update(num_steps)
-            if keys is None:
-                keys = tuple(sorted(metrics))
-            elif tuple(sorted(metrics)) != keys:
-                raise RuntimeError("metric keys changed between iterations")
+            keys.append(tuple(sorted(metrics)))
             aggregates.append(aggs)
-            stacked.append(torch.stack([torch.as_tensor(metrics[k], device=self.agent.device).float().reshape(())
-                                        for k in keys]))
+            rows.append(torch.stack([torch.as_tensor(metrics[k], device=self.agent.device).float().reshape(())
+                                     for k in keys[-1]]))
             self.agent.apply_schedules(self.agent.iteration)
-        return torch.stack(aggregates), torch.stack(stacked), keys
+        width = max(len(row) for row in rows)
+        stacked = torch.stack([torch.nn.functional.pad(row, (0, width - len(row))) for row in rows])
+        return torch.stack(aggregates), stacked, keys

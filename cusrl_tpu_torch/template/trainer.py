@@ -193,7 +193,7 @@ class Trainer:
         self._host_obs = self._host_state = None
         self.host_transfers = 0  # one per chunk (the tensor driver)
         self._pending_rows: list[torch.Tensor] = []
-        self._pending_keys: tuple[str, ...] = ()
+        self._pending_keys: list[tuple[str, ...]] = []
         self._last_chunk_done: float | None = None
         self._chunk_iter_time = 0.0
         if checkpoint is not None:
@@ -287,7 +287,7 @@ class Trainer:
         count, return_sum, length_sum = (float(x) for x in row[:3])
         steps = self.agent.num_steps_per_update * self.environment.num_instances * distributed.world_size()
         self.stats.track_aggregates(count, return_sum, length_sum, steps)
-        self.agent.record(dict(zip(self._pending_keys, row[3:])))
+        self.agent.record(dict(zip(self._pending_keys.pop(0), row[3:])))
         summary = self.agent.metrics.summary()
         self.agent.metrics.clear()
         return summary

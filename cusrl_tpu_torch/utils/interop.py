@@ -28,7 +28,14 @@ JAX path, each with a reader (to numpy) and a writer:
   RMSprop's ``nu.<param path>`` is ``square_avg``.  ``PackedAdam`` is
   ``opt_state.{count, mu.<path>, nu.<path>}``.  A parameter that has not
   stepped yet reads as zeros, as optax's initial state does;
-* ``learning_rates.<group>`` and ``iteration``.
+* ``learning_rates.<group>`` and ``iteration``;
+* an ``OptimizationStage``'s: its stage hooks' state and configuration under
+  ``hooks.<index>.stage_hooks.<i>.``, its optimizer's state under
+  ``hooks.<index>.opt_state.*`` (the same layout, over every trainable
+  parameter of the agent, as JAX's stage optimizer holds) and
+  ``hooks.<index>.stage_learning_rates.<group>``.  An optax group's ``count``
+  is the step of the group's parameters that stepped most (a stage's
+  optimizer never steps the actor's).
 
 ``JAX_ONLY_FIELDS`` names the JAX leaves with no port counterpart (AMP's PRNG
 ``rng``: the port's hook draws from a ``torch.Generator`` of its own); they
@@ -121,6 +128,8 @@ def _config_entries(hook, prefix: str) -> dict[str, Entry]:
             entries.update({f"{prefix}{name}.{i}": _config_element_entry(hook, name, i) for i in range(len(value))})
         elif value is not None:
             entries[f"{prefix}{name}"] = _config_entry(hook, name)
+    for index, stage_hook in enumerate(getattr(hook, "stage_hooks", ())):
+        entries.update(_config_entries(stage_hook, f"{prefix}stage_hooks.{index}."))
     return entries
 
 
@@ -147,8 +156,8 @@ def _moment_entry(optimizer, p: torch.Tensor, key: str, group: dict) -> Entry:
 
 def _count_entry(optimizer, params: list, group: dict) -> Entry:
     def read():
-        state = optimizer.state[params[0]]
-        return np.asarray(float(state["step"]) if "step" in state else 0.0).astype(np.int32)
+        steps = [float(optimizer.state[p]["step"]) for p in params if "step" in optimizer.state[p]]
+        return np.asarray(max(steps, default=0.0)).astype(np.int32)
 
     def write(path, v):
         for p in params:
@@ -217,11 +226,17 @@ def state_entries(agent) -> dict[str, Entry]:
     index_of = {hook.hook_name: index for index, hook in enumerate(agent.hooks)}
     named = dict(agent.model.named_parameters())
     entries = {_jax_parameter_path(path, index_of): _tensor_entry("parameter", p) for path, p in named.items()}
+    trainable = {k: v for k, v in named.items() if v.requires_grad}
     for index, hook in enumerate(agent.hooks):
         for name, tensor in hook.state_tensors().items():
             entries[f"hooks.{index}.{name}"] = _tensor_entry("state", tensor)
         entries.update(_config_entries(hook, f"hooks.{index}."))
-    entries.update(_optimizer_entries(agent.optimizer, {k: v for k, v in named.items() if v.requires_grad}))
+        stage = getattr(hook, "stage_optimizer", None)
+        if stage is not None:
+            entries.update({f"hooks.{index}.{path}": e for path, e in _optimizer_entries(stage, trainable).items()})
+            for name in stage.group_names:
+                entries[f"hooks.{index}.stage_learning_rates.{name}"] = _learning_rate_entry(stage, name)
+    entries.update(_optimizer_entries(agent.optimizer, trainable))
     for name in agent.optimizer.group_names:
         entries[f"learning_rates.{name}"] = _learning_rate_entry(agent.optimizer, name)
     entries["iteration"] = Entry("iteration", (), lambda: np.asarray(agent.iteration, np.int32),
@@ -248,10 +263,12 @@ def load_jax_state(agent, agent_state: Mapping[str, np.ndarray], actor_memory=No
     ``actor_memory`` when given); raises on a missing or extra path or a
     shape mismatch."""
     entries = state_entries(agent)
+    kinds = {path: entry.kind for path, entry in entries.items()}
     module_prefixes = tuple(f"hooks.{index}.{module}." for index, hook in enumerate(agent.hooks)
                             for module in hook.owned_modules())
     _load_tree("parameter paths", {p: e for p, e in entries.items() if e.kind == "parameter"},
-               {p: v for p, v in agent_state.items() if p.startswith(_PARAMETER_PREFIXES + module_prefixes)})
+               {p: v for p, v in agent_state.items()
+                if p.startswith(_PARAMETER_PREFIXES + module_prefixes) and kinds.get(p, "parameter") == "parameter"})
     if actor_memory is not None:
         if agent.actor_memory is None:
             raise ValueError("actor_memory given for an actor without memory")
@@ -262,9 +279,9 @@ def load_jax_state(agent, agent_state: Mapping[str, np.ndarray], actor_memory=No
         if not targets:
             continue
         skip = set(hook.jax_config_fields) | set(jax_only_fields(hook))
-        skipped = tuple(f"{name}." for name in (*skip, *hook.owned_modules()))
         given = {p[len(prefix):]: v for p, v in agent_state.items()
-                 if p.startswith(prefix) and p[len(prefix):] not in skip and not p[len(prefix):].startswith(skipped)}
+                 if p.startswith(prefix) and p[len(prefix):].split(".")[0] not in skip
+                 and kinds.get(p, "state") == "state"}
         _load_tree(f"state of hook {index} ('{hook.hook_name}')", targets, given)
 
 

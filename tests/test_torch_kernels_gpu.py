@@ -2253,10 +2253,11 @@ def test_world_one_nccl_update_equals_the_undistributed_one_bit_for_bit(cuda, mo
         np.testing.assert_array_equal(grouped[1][path], value, err_msg=path)
 
 
-# -- paths D, S, SL and X: the auxiliary hooks' shapes -----------------------------
+# -- paths D, S, SL, X, SC and PO: the auxiliary and control hooks' shapes --------
 
 D_WIDTHS = (48, 256, 128)  # the distillation preset's student, relu
 X_WIDTHS = (48, 256, 128, 64)  # RND's target and predictor, ELU
+SC_WIDTHS = (48, 256, 128, 16)  # SC's state estimator in its optimization stage, ELU
 
 
 @pytest.mark.parametrize("widths,activation,rows,chains", [
@@ -2266,9 +2267,14 @@ X_WIDTHS = (48, 256, 128, 64)  # RND's target and predictor, ELU
     (WIDTHS, "elu", 24576, 1),  # SL's mirrored actor pass
     (X_WIDTHS, "elu", 98304, 1),  # X's RND passes in pre_update (primal)
     (X_WIDTHS, "elu", 24576, 1),  # X's target and predictor per minibatch
+    (SC_WIDTHS, "elu", 24576, 1),  # SC's estimator per minibatch at 24 steps
+    (SC_WIDTHS, "elu", 32768, 1),  # ... and at 32 steps (the capacity schedule)
+    (WIDTHS, "elu", 32768, 2),  # SC's joint evaluation at 32 steps
+    (WIDTHS, "elu", 131072, 1),  # SC's value and KL passes at 32 steps (primal)
+    (WIDTHS, "elu", 49152, 2),  # PO's joint evaluation in its 2-minibatch epochs
 ])
 def test_auxiliary_path_shapes_match_plain(cuda, widths, activation, rows, chains):
-    """K1f/K1b and K2f/K2b at the shapes paths D, S, SL and X give them: the
+    """K1f/K1b and K2f/K2b at the shapes paths D, S, SL, X, SC and PO give them: the
     forward primal and saving, the backward with ``skip_input_grad`` (the
     observations take no gradient) after the saving forward."""
     gen = torch.Generator().manual_seed(rows + chains + len(widths))

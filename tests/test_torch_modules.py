@@ -214,15 +214,19 @@ def test_gradient_clipping_matches_jax():
     dict(fused_ppo_update=True, recurrent_backbones=True),
 ])
 def test_hook_suite_refuses_options_not_ported(option):
-    """The sparse bootstrap, still waiting, raises, also beside the options
-    ported since.  The fused update of recurrent backbones is refused as the
-    JAX package refuses it: the suite builds ``FusedPpoUpdate`` in the JAX
-    suite's order, and its ``init`` raises ``ValueError`` on the same agent
-    configuration (the transformer entry with ``fused_ppo_update``) in both
-    packages."""
+    """The sparse bootstrap, ported since, no longer raises: beside
+    observation normalization the suite holds the JAX suite's hooks in its
+    order, the value hook with ``sparse_bootstrap``.  The fused update of
+    recurrent backbones is refused as the JAX package refuses it: the suite
+    builds ``FusedPpoUpdate`` in the JAX suite's order, and its ``init``
+    raises ``ValueError`` on the same agent configuration (the transformer
+    entry with ``fused_ppo_update``) in both packages."""
     if not option.get("fused_ppo_update"):
-        with pytest.raises(NotImplementedError):
-            ppo_hook_suite(**option)
+        from cusrl_tpu.preset.ppo import ppo_hook_suite as jax_suite
+
+        hooks = ppo_hook_suite(**option)
+        assert [h.hook_name for h in hooks] == [h.hook_name for h in jax_suite(**option)]
+        assert next(h for h in hooks if h.hook_name == "value_computation").sparse_bootstrap
         return
     from cusrl_tpu.environment.locomotion import VelocityLocomotionEnv as JaxEnv
     from cusrl_tpu.preset.ppo import ppo_hook_suite as jax_suite
