@@ -214,8 +214,18 @@ without printing a result:
    own rollouts with the permutations fed, against this process's update
    of the 8,192 environments side by side at ``[update-check]``'s limits,
    the ranks bit for bit equal, 20 K2f/K2b or K9m launches a rank on
-   24,576-row slices; a rank that fails or outlives its 300 s fails the
-   run;
+   24,576-row slices; then, in the same rank processes, every other route
+   at its zoo entry's environments a rank (``DDP_ROUTES``: R, TF, TJ, AMP,
+   X, SC at 24 steps, PO, S, D, and H through ``agent.update()`` on a
+   ``Buffer`` of 8 environments a rank; TF, TJ and PO at lr 1e-4): this
+   process collects one rollout of both ranks' environments with the
+   path's own agent and environment (every hook's fields, memories warm),
+   the ranks load the state after it (their own environments' rows of the
+   memories) and update on their halves with the plan and AMP's subsample
+   draws fed, each rank launching every kernel of the one-process update
+   on half its rows; each path prints each rank's launches, minibatch
+   rows, collectives (calls and bytes) and the seconds of both updates; a
+   rank that fails or outlives its time fails the run;
 10. each phase's seconds on a line of its own as it ends, and all of them
    in one ``[seconds]`` line; the total seconds, the ``nvidia-smi`` line,
    the ``kernels`` JSON line
@@ -4289,7 +4299,11 @@ def check_cli() -> dict:
 
 DDP_RANKS = 2
 DDP_ENVS = NUM_ENVS  # path A's 4,096 environments on each rank
-DDP_PATHS = ("A", "CM")  # the joint evaluation (K2f/K2b), then the fused PPO step in mono mode (K9m)
+# Every other route at its zoo entry's environments a rank, from a rollout of the path's own agent and
+# environment: the recurrent (R), fused-block (TF), joint sequential (TJ), AMP, auxiliary (X, S, D),
+# control (SC, PO) paths, and the host loop's update() on a Buffer (H).
+DDP_ROUTES = ("R", "TF", "TJ", "AMP", "X", "SC", "PO", "S", "D", "H")
+DDP_PATHS = ("A", "CM", *DDP_ROUTES)  # A: the joint evaluation (K2f/K2b); CM: the fused PPO step, mono (K9m)
 DDP_RANK_ROWS = STEPS * DDP_RANKS * DDP_ENVS // MINIBATCHES // DDP_RANKS  # 24,576: a rank's slice of a minibatch
 DDP_RANK_TIMEOUT = 300.0  # seconds a rank process may take, its start and CUDA's included
 DDP_PROBE_TIMEOUT = 90.0
@@ -4366,14 +4380,17 @@ def _ddp_perms(envs: int):
     return torch.stack([torch.randperm(units, generator=torch.Generator().manual_seed(100 + e)) for e in range(EPOCHS)])
 
 
-def _ddp_update(agent, rollout: dict, perms, distributed_update: bool):
+def _ddp_update(agent, rollout: dict, perms, distributed_update: bool, host: bool = False):
     """One update (``cross_process_update`` with ``distributed_update``, else
-    ``update_body``): ``(metrics, the first minibatch's gradient by parameter
-    name, launches, each minibatch's rows)``; the launch counters are set to
-    0 just before it."""
+    ``update_body``; with ``host`` the rollout's steps are pushed into the
+    agent's ``Buffer`` and ``agent.update()`` runs, the plan fed):
+    ``(metrics, the first minibatch's gradient by parameter name, launches,
+    each minibatch's rows)``; the launch counters are set to 0 just before
+    it."""
     from torch.optim.optimizer import register_optimizer_step_pre_hook
 
     from cusrl_tpu_torch.parallel import cross_process_update
+    from cusrl_tpu_torch.utils.nest import map_nested
 
     names = {id(p): name for name, p in agent.model.named_parameters()}
     first_grads, rows = {}, []
@@ -4386,22 +4403,167 @@ def _ddp_update(agent, rollout: dict, perms, distributed_update: bool):
     train_step = agent._train_step
 
     def count_rows(metadata, batch, *args):
-        rows.append(batch["observation"].shape[0])
+        rows.append(batch["action"].shape[:-1].numel())  # [B] rows, or [T, B] under a temporal sampler
         return train_step(metadata, batch, *args)
 
+    if host:
+        memories = {k for k in rollout if k.endswith("memory")}
+        for t in range(rollout["action"].shape[0]):
+            agent.buffer.push({k: map_nested(lambda x: x[t], v) for k, v in rollout.items() if k not in memories})
+        agent._initial_memories = {k: map_nested(lambda x: x[0], rollout[k]) for k in memories}
+        update_body = agent.update_body
+        agent.update_body = lambda r, **kw: update_body(r, **{**kw, "epoch_perms": perms})
     agent._train_step = count_rows
     handle = register_optimizer_step_pre_hook(keep_first)
     _reset_launch_counts()
     try:
-        if distributed_update:
+        if host:
+            metrics = agent.update()
+        elif distributed_update:
             metrics = cross_process_update(agent, rollout, epoch_perms=perms)
         else:
             metrics = {k: float(v) for k, v in agent.update_body(rollout, epoch_perms=perms).items()}
     finally:
         handle.remove()
         del agent._train_step
+        agent.__dict__.pop("update_body", None)
     launches = {k: v for k, v in _launch_counts().items() if v}
     return metrics, {k: v.cpu() for k, v in first_grads.items()}, launches, rows
+
+
+def _ddp_factory(path: str, expert_path: str | None = None):
+    """Path ``path``'s training factory as ``[train-zoo]`` builds it, its
+    environments a rank (the zoo entry's) and its rollout steps (SC at 24,
+    before its capacity schedule).  TF, TJ and PO update at lr 1e-4, as their
+    ``[update-check]`` does."""
+    from cusrl_tpu_torch.zoo.registry import get_experiment
+
+    if path == "H":
+        return _h_factory("training"), H_ENVS, H_STEPS
+    if path in ("TF", "TJ"):
+        factory, envs = get_experiment("Velocity-Flat", "transformer_ppo").to_training_factory(), T_ENVS
+        factory.agent.fuse_actor_critic_evaluation = path == "TJ"
+        factory.agent.lr = 1e-4
+    elif path == "R":
+        factory, envs = get_experiment("Velocity-Flat", "recurrent_ppo").to_training_factory(), T_ENVS
+    elif path == "AMP":
+        factory, envs = get_experiment("Velocity-Flat", "amp").to_training_factory(), T_ENVS
+    else:
+        factory, envs = get_experiment("Velocity-Rough", "ppo").to_training_factory(), NUM_ENVS
+        if path in CONTROL_PATHS:
+            factory.agent.lr = 1e-4 if path == "PO" else factory.agent.lr
+            factory.agent = _control_factory(path, factory.agent)
+        else:
+            factory.agent = _aux_factory(path, factory.agent, expert_path)
+    return factory, envs, factory.agent.num_steps_per_update
+
+
+def _ddp_environment(factory, envs: int, seed: int = SEED):
+    return factory.environment_factory(**{**factory.environment_kwargs, "num_instances": envs}, seed=seed)
+
+
+def _ddp_collect(agent, env, steps: int) -> dict:
+    """Two rollouts of ``agent`` on ``env`` (a tensor environment through
+    ``RolloutDriver``, a host one through ``act``/``step``); returns the
+    second, its memories warm, with every hook's rollout fields."""
+    import torch
+
+    from cusrl_tpu_torch.template.environment import TensorEnvironment, get_done_indices, update_observation_and_state
+    from cusrl_tpu_torch.template.rollout import RolloutDriver
+
+    if isinstance(env, TensorEnvironment):
+        driver = RolloutDriver(agent, env)
+        driver.collect(steps)
+        return driver.collect(steps)[0]
+    observation, _, _ = env.reset()
+    for _ in range(2):
+        for _ in range(steps):
+            action = agent.act(observation)
+            next_observation, _, reward, terminated, truncated, _ = env.step(action)
+            agent.step(next_observation, reward, terminated, truncated)
+            done = get_done_indices(terminated, truncated)
+            if done.size:
+                new, _, _ = env.reset(indices=done)
+                next_observation, _ = update_observation_and_state(next_observation, None, new, None, done)
+            observation = next_observation
+        rollout, _ = agent.take_buffered_rollout()
+    return {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in rollout.items()}
+
+
+def _ddp_route_inputs(path: str, world: int, workdir: Path, expert_path: str | None):
+    """Path ``path``'s inputs for the ranks (written to ``<path>.pt``: the
+    state after this process's rollout of ``world`` ranks' environments,
+    that rollout, the plan and AMP's subsample draws) and this process's
+    update of the whole rollout: ``(oracle, seconds)``."""
+    import torch
+
+    from cusrl_tpu_torch.utils.nest import map_nested
+
+    factory, envs, steps = _ddp_factory(path, expert_path)
+    env = _ddp_environment(factory, world * envs)
+    agent = factory.agent(env.spec, seed=SEED)
+    rollout = _ddp_collect(agent, env, steps)
+    state = _agent_state(agent)
+    plan = agent.sampler.resolve(rollout).make_epoch_plan(steps, world * envs,
+                                                          torch.Generator().manual_seed(SEED + 3), "cpu")
+    perms = [p.perms for p in plan] if isinstance(plan, list) else plan.perms
+    draws = []
+    if path == "AMP":  # one subsample of each global minibatch's rows, the same on every rank
+        hook = agent.get_hook(AMP_HOOK)
+        gen = torch.Generator().manual_seed(SEED + 4)
+        draws = [torch.randint(0, world * envs * steps // AMP_MINIBATCHES, (hook.batch_size,), generator=gen)
+                 for _ in range(AMP_MB)]
+        hook.queue_draws(subsample=draws)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    oracle = _ddp_update(agent, rollout, perms, distributed_update=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    torch.save({"state": state, "rollout": map_nested(lambda x: x.cpu(), rollout), "perms": perms, "draws": draws,
+                "expert_path": expert_path}, workdir / f"{path}.pt")
+    return oracle, seconds
+
+
+def _ddp_route_rank(path: str, workdir: Path, rank: int, world: int) -> dict:
+    """One rank's update of path ``path`` on its environments' part of the
+    rollout (``_ddp_route_inputs``): every rank loads the state, its own
+    environments' rows of each per-environment entry (the memories, the
+    episode flags)."""
+    import numpy as np
+    import torch
+
+    from cusrl_tpu_torch.parallel import distribute_agent
+    from cusrl_tpu_torch.utils import distributed
+    from cusrl_tpu_torch.utils.interop import state_entries
+    from cusrl_tpu_torch.utils.nest import map_nested
+
+    inputs = torch.load(workdir / f"{path}.pt", weights_only=False)
+    factory, envs, _ = _ddp_factory(path, inputs["expert_path"])
+    agent = factory.agent(_ddp_environment(factory, envs, SEED + rank).spec, seed=SEED + 100 + rank)
+    distribute_agent(agent)
+    rows = np.arange(rank * envs, (rank + 1) * envs)
+    per_env = []
+    with torch.no_grad():
+        for key, entry in state_entries(agent).items():
+            value = inputs["state"][key]
+            if tuple(value.shape) != tuple(entry.shape):
+                value = np.take(value, rows, axis=[a != b for a, b in zip(value.shape, entry.shape)].index(True))
+                per_env.append(key)
+            entry.write(key, value)
+    if inputs["draws"]:
+        agent.get_hook(AMP_HOOK).queue_draws(subsample=inputs["draws"])
+    rollout = map_nested(lambda x: x[:, rank * envs:(rank + 1) * envs].to(agent.device), inputs["rollout"])
+    distributed.reset_collective_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    metrics, grads, launches, batch_rows = _ddp_update(agent, rollout, inputs["perms"], distributed_update=True,
+                                                       host=path == "H")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    collectives = {k: tuple(v) for k, v in distributed.COLLECTIVES.items()}
+    state = {k: v for k, v in _agent_state(agent).items() if k not in per_env}
+    return {"metrics": metrics, "grads": grads, "launches": launches, "rows": batch_rows, "seconds": seconds,
+            "state": state, "collectives": collectives, "per_env": len(per_env)}
 
 
 def _states_differ(a: dict, b: dict) -> list[str]:
@@ -4534,11 +4696,16 @@ def ddp_rank(workdir: str, backend: str) -> int:
     from cusrl_tpu_torch.utils.config import configure_distributed
     from cusrl_tpu_torch.utils.nest import map_nested
 
+    from cusrl_tpu_torch.utils import distributed
+
     configure_distributed(backend=backend, timeout_s=DDP_GROUP_TIMEOUT)
     rank = dist.get_rank()
     inputs = torch.load(Path(workdir) / "inputs.pt", weights_only=False)
     out = {}
     for path in DDP_PATHS:
+        if path in DDP_ROUTES:
+            out[path] = _ddp_route_rank(path, Path(workdir), rank, dist.get_world_size())
+            continue
         with _ppo_mode("mono" if path == "CM" else "split"):
             env = VelocityLocomotionEnv(num_instances=DDP_ENVS)
             agent = _zoo_agent_factory(path)(env.spec, seed=SEED + 100 + rank)  # the broadcast replaces these
@@ -4547,11 +4714,13 @@ def ddp_rank(workdir: str, backend: str) -> int:
             distribute_agent(agent)
             rollout = map_nested(lambda x: x[:, rank * DDP_ENVS:(rank + 1) * DDP_ENVS].to(agent.device),
                                  inputs[path]["rollout"])
+            distributed.reset_collective_counts()
             start = time.perf_counter()
             metrics, grads, launches, rows = _ddp_update(agent, rollout, inputs[path]["perms"], distributed_update=True)
             seconds = time.perf_counter() - start
         out[path] = {"metrics": metrics, "grads": grads, "launches": launches, "rows": rows, "seconds": seconds,
-                     "state": _agent_state(agent)}
+                     "state": _agent_state(agent), "per_env": 0,
+                     "collectives": {k: tuple(v) for k, v in distributed.COLLECTIVES.items()}}
     torch.save(out, Path(workdir) / f"rank{rank}.pt")
     dist.destroy_process_group()
     return 0
@@ -4580,8 +4749,15 @@ def check_ddp_ranks(kind: str, world: int = DDP_RANKS, spread: bool = False) -> 
     workdir = Path(tempfile.mkdtemp(prefix="ddp_"))
     try:
         envs = world * DDP_ENVS
-        inputs, oracle = {}, {}
+        inputs, oracle, oracle_seconds = {}, {}, {}
+        # Path D's expert: a fresh path-A agent, exported where the ranks read it.
+        expert_path = _export_expert(_path_a_agent(), str(workdir / "expert"))
         for path in DDP_PATHS:
+            if path in DDP_ROUTES:
+                oracle[path], oracle_seconds[path] = _ddp_route_inputs(path, world, workdir, expert_path)
+                print(f"{label}: {path} on one process of {world} ranks' environments: {oracle_seconds[path]:.3f} s "
+                      f"for the update, launches {oracle[path][2]}")
+                continue
             with _ppo_mode("mono" if path == "CM" else "split"):
                 agent = _zoo_agent_factory(path)(VelocityLocomotionEnv(num_instances=DDP_ENVS).spec, seed=SEED)
                 state = _agent_state(agent)
@@ -4589,7 +4765,8 @@ def check_ddp_ranks(kind: str, world: int = DDP_RANKS, spread: bool = False) -> 
                 start = time.perf_counter()
                 oracle[path] = _ddp_update(agent, rollout, perms, distributed_update=False)
                 torch.cuda.synchronize()
-                print(f"{label}: {path} on one process of {envs} environments: {time.perf_counter() - start:.3f} s, "
+                oracle_seconds[path] = time.perf_counter() - start
+                print(f"{label}: {path} on one process of {envs} environments: {oracle_seconds[path]:.3f} s, "
                       f"launches {oracle[path][2]}")
             inputs[path] = {"state": state, "rollout": map_nested(lambda x: x.cpu(), rollout), "perms": perms}
         torch.save(inputs, workdir / "inputs.pt")
@@ -4627,14 +4804,22 @@ def check_ddp_ranks(kind: str, world: int = DDP_RANKS, spread: bool = False) -> 
                                                                                   first["grads"][k])]
                 if differ:
                     failures.append(f"{path}: rank {rank} differs from rank 0 in {differ[:8]}")
-            expected = _DDP_UPDATE[path]
             for rank, result in enumerate(ranks):
                 r = result[path]
                 print(f"{label}: {path} rank {rank}: launches {r['launches']}, minibatch rows "
-                      f"{sorted(set(r['rows']))} x {len(r['rows'])}, update {r['seconds']:.3f} s")
-                if r["launches"] != expected or set(r["rows"]) != {DDP_RANK_ROWS} or len(r["rows"]) != MB:
+                      f"{sorted(set(r['rows']))} x {len(r['rows'])}, collectives (calls, bytes) {r['collectives']}, "
+                      f"{r['per_env']} per-environment state leaves its own, update {r['seconds']:.3f} s "
+                      f"(one process {oracle_seconds[path]:.3f} s)")
+                if path in DDP_ROUTES:
+                    # Each kernel of one process's update launches on the rank too, on its slice.
+                    ok = set(r["launches"]) == set(oracle[path][2]) and len(r["rows"]) == len(oracle[path][3])
+                    ok = ok and all(world * n == m for n, m in zip(r["rows"], oracle[path][3]))
+                else:
+                    ok = r["launches"] == _DDP_UPDATE[path] and set(r["rows"]) == {DDP_RANK_ROWS} and len(
+                        r["rows"]) == MB
+                if not ok:
                     failures.append(f"{path}: rank {rank} launched {r['launches']} on rows {sorted(set(r['rows']))}")
-            print(f"{label}: {path}, rank 0 against one process of {envs} environments:")
+            print(f"{label}: {path}, rank 0 against one process of {world} ranks' environments:")
             failed = update_check_failures(*oracle[path][:2], first["metrics"], first["grads"], report=True)
             failures += [f"{path}: {key}" for key in failed]
         if failures:
@@ -4642,7 +4827,8 @@ def check_ddp_ranks(kind: str, world: int = DDP_RANKS, spread: bool = False) -> 
         print(f"{label}: the ranks bit for bit equal; rank 0 within [update-check]'s limits of the single process "
               f"(rtol {UPDATE_RTOL:g}, atol {UPDATE_ATOL:g}; gradient leaves {GRAD_RTOL:g}) on {kind}")
         return {"backend": backend, "rank_launches": {p: ranks[0][p]["launches"] for p in DDP_PATHS},
-                "seconds": elapsed}
+                "seconds": elapsed, "rank_seconds": {p: ranks[0][p]["seconds"] for p in DDP_PATHS},
+                "one_process_seconds": oracle_seconds}
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -4866,10 +5052,10 @@ def main(argv: list[str]) -> int:
     with _phase("[ddp] A2"):
         ddp_a2 = check_ddp_ranks(kind)
     path_launches["A ddp"] = ddp_a1["launches"]  # A1's distributed Trainer chunk
-    for key in ("K1f", "K2f", "K2b", "K9m"):
-        results[key]["ddp_rank_launches"] = {p_: n for p_, launches in ddp_a2["rank_launches"].items()
-                                             if (n := launches.get(key))}
-        results[key]["ddp_backend"] = ddp_a2["backend"]
+    for key in results:  # each kernel's launches in each path's update on rank 0 of [ddp] A2
+        if launched := {p_: n for p_, launches in ddp_a2["rank_launches"].items() if (n := launches.get(key))}:
+            results[key]["ddp_rank_launches"] = launched
+            results[key]["ddp_backend"] = ddp_a2["backend"]
 
     # TL's rollout step runs the FFN and the ELU head through K1f at 1,024 rows:
     # half of its K1f launches per iteration beyond the update's are the head's.

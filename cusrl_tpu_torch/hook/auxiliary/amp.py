@@ -16,6 +16,18 @@ from the environment spec's ``demonstration_sampler``, drawn once at
 ``torch.Generator`` on the device; ``queue_draws`` hands it indices to take
 first, so a test can give two implementations the same draws.
 
+Under a data-parallel agent the hook computes what one process of every
+rank's environments would.  ``post_step`` draws the expert rows of all
+ranks' environments from a generator that is the same on every rank
+(``parallel.broadcast_agent_state`` hands it over) and keeps its own
+environments' slice; ``transition_rms`` folds every rank's rows (the batch's
+moments merged across ranks, as the observation statistics are).  The
+objective draws its ``batch_size`` subsample over the flattened global
+minibatch, the same on every rank; a rank computes the drawn rows of its
+slice, masked (no host read of a data-dependent row count), and its losses
+and ``amp_accuracy`` are its terms of the global means over the subsample
+(``utils.distributed.mean_term``).
+
 As in the JAX package, ``MlpFactory(ends_with_activation=True)`` applies the
 activation after the 1-wide output layer too, so with relu the logit is
 never below 0: the agent is never classified as such, ``amp_accuracy`` is at
@@ -32,16 +44,22 @@ import torch
 
 from cusrl_tpu_torch.nn.layer.loss import gradient_penalty
 from cusrl_tpu_torch.nn.layer.rms import RunningMeanStd
+from cusrl_tpu_torch.nn.utils.normalization import mean_var_count
 from cusrl_tpu_torch.template.hook import Hook
+from cusrl_tpu_torch.utils import distributed
 from cusrl_tpu_torch.utils.nest import get_first
 
 __all__ = ["AdversarialMotionPrior"]
 
 
+def _bce_terms(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """``max(l, 0) - l t + log1p(exp(-|l|))`` in the logits' dtype, the JAX
+    hook's formula."""
+    return torch.clamp(logits, min=0.0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
+
+
 def _bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """``mean(max(l, 0) - l t + log1p(exp(-|l|)))`` in the logits' dtype, the
-    JAX hook's formula."""
-    return torch.mean(torch.clamp(logits, min=0.0) - logits * targets + torch.log1p(torch.exp(-logits.abs())))
+    return torch.mean(_bce_terms(logits, targets))
 
 
 class AdversarialMotionPrior(Hook):
@@ -124,9 +142,10 @@ class AdversarialMotionPrior(Hook):
 
     def queue_draws(self, expert=(), subsample=()) -> None:
         """Indices the hook takes, in order, before it draws its own: each
-        ``expert`` entry for one ``post_step`` (``[N]`` rows of the dataset),
-        each ``subsample`` entry for one objective (``[batch_size]`` rows of
-        the flattened minibatch)."""
+        ``expert`` entry for one ``post_step`` (``[N]`` rows of the dataset;
+        under a process group ``[W * N]``, every rank's environments), each
+        ``subsample`` entry for one objective (``[batch_size]`` rows of the
+        flattened minibatch, the global one under a process group)."""
         device = self.dataset.device
         self._expert_draws += [torch.as_tensor(i, dtype=torch.long).to(device) for i in expert]
         self._subsample_draws += [torch.as_tensor(i, dtype=torch.long).to(device) for i in subsample]
@@ -150,10 +169,19 @@ class AdversarialMotionPrior(Hook):
             obs = get_first(transition, "state", "observation").index_select(-1, self._state_index)
             next_obs = get_first(transition, "next_state", "next_observation").index_select(-1, self._state_index)
             agent_transition = torch.cat([obs, next_obs], dim=-1)
-        indices = self._draw(self._expert_draws, agent_transition.shape[0], self.dataset.shape[0])
-        expert_transition = self.dataset[indices]
-        self.transition_rms.update(agent_transition)
-        self.transition_rms.update(expert_transition)
+        group = getattr(agent, "process_group", None)
+        if group is None:
+            indices = self._draw(self._expert_draws, agent_transition.shape[0], self.dataset.shape[0])
+            expert_transition = self.dataset[indices]
+            self.transition_rms.update(agent_transition)
+            self.transition_rms.update(expert_transition)
+        else:  # every rank's environments drawn, this rank's kept; every rank's rows folded
+            n, rank = agent_transition.shape[0], torch.distributed.get_rank(group)
+            indices = self._draw(self._expert_draws, n * torch.distributed.get_world_size(group),
+                                 self.dataset.shape[0])
+            expert_transition = self.dataset[indices[rank * n:(rank + 1) * n]]
+            for rows in (agent_transition, expert_transition):
+                self.transition_rms.update_from_stats(*distributed.merge_moments(*mean_var_count(rows), group))
         agent_transition = self.transition_rms.normalize(agent_transition)
         transition["agent_transition"] = agent_transition
         transition["expert_transition"] = self.transition_rms.normalize(expert_transition)
@@ -166,6 +194,8 @@ class AdversarialMotionPrior(Hook):
         transition["reward"] = transition["reward"] + self.reward_scale * neg_log.float()
 
     def objective(self, agent, metadata: dict, batch: dict):
+        if getattr(agent, "batch_slice", None) is not None and self.batch_size is not None:
+            return self._global_objective(agent, batch)
         width = batch["agent_transition"].shape[-1]
         agent_transition = batch["agent_transition"].reshape(-1, width)
         expert_transition = batch["expert_transition"].reshape(-1, width)
@@ -185,4 +215,33 @@ class AdversarialMotionPrior(Hook):
         }
         with torch.no_grad():
             accuracy = 0.5 * ((agent_logit < 0).float().mean() + (expert_logit > 0).float().mean())
+        return objectives, {"amp_accuracy": accuracy}
+
+    def _global_objective(self, agent, batch: dict):
+        """The objective over a subsample of the global minibatch: this
+        rank's terms of the global means (the module says how)."""
+        start, stop, size = agent.batch_slice
+        lead = batch["agent_transition"].shape[:-1]  # [B_r] or [T, B_r]: the slice is the last axis
+        width = batch["agent_transition"].shape[-1]
+        steps = lead[:-1].numel()
+        indices = self._draw(self._subsample_draws, self.batch_size, steps * size)  # global flat rows
+        column, step = indices % size, indices // size
+        mine = (column >= start) & (column < stop)
+        local = (step * (stop - start) + column - start).clamp(0, steps * (stop - start) - 1)
+        agent_transition = batch["agent_transition"].reshape(-1, width)[local]
+        expert_transition = batch["expert_transition"].reshape(-1, width)[local]
+        weight = mine.float()
+        agent_logit = self._logit(agent_transition)
+        expert_logit = self._logit(expert_transition)
+        bce = _bce_terms(agent_logit, torch.zeros_like(agent_logit)) + _bce_terms(
+            expert_logit, torch.ones_like(expert_logit))
+        penalty = gradient_penalty(self._logit, expert_transition, reduce_mean=False)
+        term = lambda values: distributed.mean_term((values.float().reshape(-1) * weight).sum(), self.batch_size,
+                                                    agent.row_share)
+        objectives = {
+            "amp_discrimination_loss": 0.5 * term(bce) * self.loss_weight,
+            "amp_grad_penalty_loss": term(penalty) * (self.grad_penalty_weight * self.loss_weight),
+        }
+        with torch.no_grad():
+            accuracy = 0.5 * term((agent_logit < 0).float() + (expert_logit > 0).float())
         return objectives, {"amp_accuracy": accuracy}

@@ -26,7 +26,6 @@ __all__ = ["PolicyDistillation", "PolicyDistillationLoss"]
 
 class PolicyDistillationLoss(Hook):
     jax_config_fields = ("weight",)
-    data_parallel = False
 
     def __init__(self, target_name: str = "expert_action", weight: float = 1.0, **kwargs):
         super().__init__(**kwargs)

@@ -6,7 +6,10 @@ pairs that span an episode boundary masked out with the done flags::
     1st order:  |a[t+1] - a[t]|              valid unless done[t]
     2nd order:  |a[t+2] - 2 a[t+1] + a[t]|   valid unless done[t] or done[t+1]
 
-Each weight is a scalar or one per action channel.
+Each weight is a scalar or one per action channel.  Under a data-parallel
+agent each loss is the mean over every rank's valid pairs: the ranks'
+counts summed in one all-reduce, and the rank's term of that mean
+(``utils.distributed.mean_term``).
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from cusrl_tpu_torch.template.hook import Hook
+from cusrl_tpu_torch.utils import distributed
 
 __all__ = ["ActionSmoothnessLoss"]
 
@@ -26,15 +30,15 @@ def _weight(weight, device):
     return torch.tensor(weight, dtype=torch.float32, device=device)
 
 
-def _masked_mean(values: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+def _masked_sums(values: torch.Tensor, valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(sum of the valid values, their count)``."""
     weight = valid.float()
-    return (values * weight).sum() / torch.clamp(weight.sum() * values.shape[-1], min=1.0)
+    return (values * weight).sum(), weight.sum() * values.shape[-1]
 
 
 class ActionSmoothnessLoss(Hook):
     jax_config_fields = ("weight_1st_order", "weight_2nd_order")
     training_only = True
-    data_parallel = False
     batch_keys = ("done",)
 
     def __init__(self, weight_1st_order: float | tuple[float, ...] | None = None,
@@ -50,15 +54,22 @@ class ActionSmoothnessLoss(Hook):
         if mean.shape[0] < 3:
             raise ValueError(f"Sequences need >= 3 steps; got {mean.shape[0]}")
         not_boundary = ~batch["done"]  # [T, B, 1]
-        objectives = {}
+        sums = {}
         if self.weight_1st_order is not None:
             weight = _weight(self.weight_1st_order, mean.device)
             diff = (mean[1:] - mean[:-1]).abs()
-            objectives["action_smoothness_1st_order_loss"] = _masked_mean(
+            sums["action_smoothness_1st_order_loss"] = _masked_sums(
                 (weight * diff).sum(-1, keepdim=True), not_boundary[:-1])
         if self.weight_2nd_order is not None:
             weight = _weight(self.weight_2nd_order, mean.device)
             diff = (mean[2:] - 2.0 * mean[1:-1] + mean[:-2]).abs()
-            objectives["action_smoothness_2nd_order_loss"] = _masked_mean(
+            sums["action_smoothness_2nd_order_loss"] = _masked_sums(
                 (weight * diff).sum(-1, keepdim=True), not_boundary[:-2] & not_boundary[1:-1])
-        return objectives or None, {}
+        if not sums:
+            return None, {}
+        group = getattr(agent, "process_group", None)
+        if group is None:
+            return {key: total / torch.clamp(count, min=1.0) for key, (total, count) in sums.items()}, {}
+        counts = distributed.weighted_sum(torch.stack([count for _, count in sums.values()]), 1.0, group)
+        return {key: distributed.mean_term(total, torch.clamp(count, min=1.0), agent.row_share)
+                for (key, (total, _)), count in zip(sums.items(), counts.unbind())}, {}

@@ -100,8 +100,6 @@ def _on_device(memory, device):
 
 
 class _SymmetryHook(Hook):
-    data_parallel = False
-
     def __init__(self, **kwargs):
         super().__init__(**kwargs)
         self.mirror_observation = self.mirror_state = self.mirror_action = None

@@ -20,8 +20,10 @@ the agent's objective left it, detached (JAX differentiates the stage's
 loss alone), and ``metadata["optimization_stage"]`` names the stage.  The
 stage's checkpoint entries are JAX's: the stage hooks' state and
 configuration under ``stage_hooks.<i>.``, ``opt_state.*`` and
-``stage_learning_rates.*`` (``utils/interop.py``).  Under more than one
-rank the stage's gradients are not reduced: ``data_parallel = False``.
+``stage_learning_rates.*`` (``utils/interop.py``).  Under a data-parallel
+agent the stage's gradients are reduced before its hooks' ``pre_optim`` and
+its step, as the agent's are (each rank weighted by its ``row_share``), so
+its optimizer state stays the same on every rank.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from torch import nn
 
 from cusrl_tpu_torch.template.hook import Hook
 from cusrl_tpu_torch.template.optimizer import OptimizerFactory, build_optimizer
+from cusrl_tpu_torch.utils import distributed
 from cusrl_tpu_torch.utils.nest import map_nested
 
 __all__ = ["OptimizationStage"]
@@ -40,7 +43,6 @@ __all__ = ["OptimizationStage"]
 
 class OptimizationStage(Hook):
     training_only = True
-    data_parallel = False
 
     def __init__(self, stage_name: str = "stage", stage_hooks: tuple[Hook, ...] = (),
                  optimizer_factory: OptimizerFactory | None = None, **kwargs):
@@ -101,6 +103,8 @@ class OptimizationStage(Hook):
         self.stage_optimizer.zero_grad()
         agent.optimizer.zero_grad()  # the agent's step left its gradients on the parameters
         sum(value.float() for value in objectives.values()).backward()
+        if agent.process_group is not None:
+            distributed.reduce_gradients(agent.model.parameters(), agent.row_share, agent.process_group)
         for hook in active:
             metrics.update(hook.pre_optim(agent))
         own = [p for module in self.trainable_modules().values() for p in module.parameters()]

@@ -2,9 +2,10 @@
 ``cusrl_tpu/hook/on_policy/advantage.py``).  ``AdvantageNormalization``
 standardizes over every axis but the last, with the population variance and
 ``1e-8`` inside the root, once over the whole rollout, or with
-``mini_batch_wise`` over each minibatch in ``objective`` (over the rank's
-own rows: ``data_parallel`` is then False).  ``AdvantageReduction`` reduces multi-reward
-advantages to one channel per minibatch: a weighted sum or mean."""
+``mini_batch_wise`` over each minibatch in ``objective``.  Under a
+data-parallel agent either takes the moments of every rank's rows (the
+global rollout, or the global minibatch).  ``AdvantageReduction`` reduces
+multi-reward advantages to one channel per row: a weighted sum or mean."""
 
 from __future__ import annotations
 
@@ -36,7 +37,6 @@ class AdvantageNormalization(Hook):
     def __init__(self, mini_batch_wise: bool = False, **kwargs):
         super().__init__(**kwargs)
         self.mini_batch_wise = mini_batch_wise
-        self.data_parallel = not mini_batch_wise
 
     def pre_update(self, agent, rollout: dict) -> dict:
         if not self.mini_batch_wise:
@@ -45,14 +45,13 @@ class AdvantageNormalization(Hook):
 
     def objective(self, agent, metadata, batch):
         if self.mini_batch_wise:
-            batch["advantage"] = standardize(batch["advantage"])
+            batch["advantage"] = standardize(batch["advantage"], getattr(agent, "process_group", None))
         return None, {}
 
 
 class AdvantageReduction(Hook):
     jax_config_fields = ("weight",)
     training_only = True
-    data_parallel = False
     batch_keys = ("advantage",)
 
     def __init__(self, reduction: str = "sum", weight: tuple[float, ...] | None = None, **kwargs):

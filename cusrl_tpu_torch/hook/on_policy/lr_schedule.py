@@ -16,7 +16,9 @@ hook's adapted ``lr_scale`` is kept, as in the JAX hook.
 scales ``lr_scale`` by the minibatch's mean KL (``OnPolicyPreparation``'s
 ``kl_divergence``, which its ``post_init`` turns on) and its ``pre_optim``
 writes ``base_lr * lr_scale`` into every group before the step, all on the
-device.  Its KL is the rank's own rows': ``data_parallel = False``.
+device.  Under a data-parallel agent the minibatch's KL is the global
+minibatch's: the ranks' means weighted by their row shares, one all-reduce
+on the device, so every rank takes the same rate.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 
 from cusrl_tpu_torch.hook.on_policy.stats import compute_rollout_kl
 from cusrl_tpu_torch.template.hook import Hook
+from cusrl_tpu_torch.utils import distributed
 
 __all__ = ["AdaptiveLRSchedule", "MiniBatchWiseLRSchedule", "ThresholdLRSchedule"]
 
@@ -152,8 +155,6 @@ class AdaptiveLRSchedule(_KLDivergenceBasedLRSchedule):
 class MiniBatchWiseLRSchedule(ThresholdLRSchedule):
     """Per-minibatch threshold control (rsl-rl style) of every group's rate."""
 
-    data_parallel = False
-
     def __init__(self, desired_kl_divergence: float = 0.01, *, threshold: float = 2.0, scale_factor: float = 1.5,
                  scale_all_params: bool = True, **kwargs):
         super().__init__(desired_kl_divergence, threshold=threshold, scale_factor=scale_factor,
@@ -174,7 +175,11 @@ class MiniBatchWiseLRSchedule(ThresholdLRSchedule):
         if "kl_divergence" not in batch:
             raise RuntimeError("MiniBatchWiseLRSchedule requires 'kl_divergence' from OnPolicyPreparation")
         with torch.no_grad():
-            scale = self._compute_scale(batch["kl_divergence"].mean())
+            kl = batch["kl_divergence"].mean()
+            group = getattr(agent, "process_group", None)
+            if group is not None:
+                kl = distributed.weighted_sum(kl, agent.row_share, group)
+            scale = self._compute_scale(kl)
             if agent.iteration >= self.warmup_iterations:
                 self.lr_scale.mul_(scale)
         return None, {"lr_scale": self.lr_scale.clone()}

@@ -17,8 +17,13 @@ Usage per process (after ``configure_distributed()``)::
     metrics = cross_process_update(agent, rollout)  # one global update
 
 Every process ends each update holding the same parameters, optimizer state
-and hook state, bit for bit, so checkpoints stay rank-0-only and resume from
-any rank's view.
+and hook state, bit for bit (except the per-environment state: memories and
+episode flags stay the rank's own), so checkpoints stay rank-0-only and
+resume from any rank's view.  Every route the port trains on one process
+runs so: the mini-batch, temporal and random samplers, hook-owned networks
+and every hook; ``cross_process_update(agent)`` without a rollout, and the
+host loop's ``agent.update()``, take the agent's ``Buffer``.  Only tensor
+parallelism is not ported (``check_data_parallel_route``).
 """
 
 from __future__ import annotations
@@ -27,7 +32,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from cusrl_tpu_torch.sampler.mini_batch_sampler import MiniBatchSampler
 from cusrl_tpu_torch.utils import distributed
 from cusrl_tpu_torch.utils.interop import state_entries
 from cusrl_tpu_torch.utils.nest import get_schema, iterate_nested, reconstruct_nested
@@ -49,36 +53,21 @@ def process_mesh():
     return dist.group.WORLD
 
 
-def check_data_parallel_route(agent, sampler=None) -> None:
-    """Raises ``NotImplementedError`` for a route this port does not run
-    under more than one rank: recurrent and transformer actors (whose
-    minibatches the temporal samplers draw), the random samplers,
-    hook-owned networks (trained or frozen) and the hooks marked
-    ``data_parallel = False`` (the symmetry, distillation and smoothness
-    hooks)."""
-    group = agent.process_group
-    if group is None or dist.get_world_size(group) == 1:
-        return
-    where = "is not ported yet under data parallelism (ROADMAP.md, Queue 1 item 2a)"
-    sampler = sampler or agent.sampler
-    if getattr(agent.actor, "is_recurrent", False) or getattr(sampler, "temporal", False):
-        raise NotImplementedError(f"a temporal sampler (a recurrent or transformer actor) {where}")
-    if not isinstance(sampler, MiniBatchSampler):
-        raise NotImplementedError(f"the random samplers ({type(sampler).__name__}) {where}")
-    owners = [hook.hook_name for hook in agent.hooks if hook.owned_modules()]
-    if owners:
-        raise NotImplementedError(f"hook-owned networks ({', '.join(owners)}) {where}")
-    single = [hook.hook_name for hook in agent.hooks if hook.active and not hook.data_parallel]
-    if single:
-        raise NotImplementedError(f"the hooks {', '.join(single)} {where}")
+def check_data_parallel_route(agent, tensor_parallel: bool = False) -> None:
+    """Raises ``NotImplementedError`` for what data parallelism does not
+    run: tensor parallelism (ROADMAP.md, Queue 1 item 2b)."""
+    if tensor_parallel:
+        raise NotImplementedError("tensor parallelism is not ported yet (ROADMAP.md, Queue 1 item 2b)")
 
 
 @torch.no_grad()
 def broadcast_agent_state(agent, group=None) -> None:
     """Replicates rank 0's agent state to every process: every leaf of the
     checkpoint's map (parameters, optimizer state, every hook's state
-    tensors, learning rates, the iteration) and the sampler's plan
-    generator.  The action noise generator stays the rank's own."""
+    tensors, learning rates, the iteration), the sampler's plan generator
+    and the hooks' generators (AMP's expert rows and subsamples are drawn
+    over the global batch, the same on every rank).  The action noise
+    generator stays the rank's own."""
     group = group or agent.process_group or process_mesh()
     main = dist.get_rank(group) == 0
     if main and agent.plan_generator is None:
@@ -86,30 +75,47 @@ def broadcast_agent_state(agent, group=None) -> None:
     if dist.get_world_size(group) == 1:
         return
     entries = state_entries(agent)
+    hooks = {name: g for name, g in agent._generators().items() if name.startswith("hooks.")}
     payload = [{"state": {path: entry.read() for path, entry in entries.items()},
-                "plan": agent.plan_generator.get_state().numpy()} if main else None]
+                "plan": agent.plan_generator.get_state().numpy(),
+                "hooks": {name: g.get_state().numpy() for name, g in hooks.items()}} if main else None]
     dist.broadcast_object_list(payload, src=dist.get_global_rank(group, 0), group=group)
+    # Rank 0 too writes what it sent: a host learning rate goes out as float32
+    # and must hold the same bits everywhere.
+    for path, entry in entries.items():
+        entry.write(path, payload[0]["state"][path])
     if not main:
-        for path, entry in entries.items():
-            entry.write(path, payload[0]["state"][path])
         agent.plan_generator = torch.Generator(device=agent.device)
         agent.plan_generator.set_state(torch.from_numpy(np.array(payload[0]["plan"], dtype=np.uint8)))
+        for name, generator in hooks.items():
+            generator.set_state(torch.from_numpy(np.array(payload[0]["hooks"][name], dtype=np.uint8)))
 
 
 def globalize_rollout(rollout: dict, group, env_axis: int = 1) -> dict:
-    """Every process's ``[T, N_local, ...]`` rollout fields concatenated on
-    the environment axis, in rank order: one gather per dtype of the
-    fields flattened side by side."""
+    """Every process's rollout fields concatenated on the environment axis,
+    in rank order: one gather per dtype and lead shape, of the fields
+    flattened side by side.  The fields are ``[T, N_local, ...]``, the
+    memories ``[1, N_local, ...]`` (as of the rollout's first step) or
+    ``[T, N_local, ...]`` (per step): the port's memories hold the
+    environments first (the recurrent modules' ``[N, layers, H]``, the
+    attention cache's ``[N, heads, slots, D]``, and ``storable_memory``
+    broadcasts a 0-d leaf, the cache's cursor, to ``[N]``), so every leaf
+    has them on ``env_axis``.  A leaf whose ``env_axis`` is not the
+    rollout's environment count raises."""
     schema = get_schema(rollout)
     leaves = dict(iterate_nested(rollout))
-    by_dtype: dict[str, list[str]] = {}
+    counts = {path: leaf.shape[env_axis] if leaf.dim() > env_axis else None for path, leaf in leaves.items()}
+    if len(set(counts.values())) > 1:
+        raise ValueError(f"the rollout's fields disagree on their environments (axis {env_axis}): {counts}")
+    groups: dict[tuple, list[str]] = {}
     for path in sorted(leaves):  # the same order on every rank, whatever the dict's
-        by_dtype.setdefault(str(leaves[path].dtype), []).append(path)
+        leaf = leaves[path]
+        groups.setdefault((str(leaf.dtype), tuple(leaf.shape[:env_axis])), []).append(path)
     world = dist.get_world_size(group)
     result = {}
-    for _, paths in sorted(by_dtype.items()):
+    for _, paths in sorted(groups.items()):
         lead = leaves[paths[0]].shape[: env_axis + 1]
-        widths = [leaves[p][0, 0].numel() if leaves[p].dim() > env_axis + 1 else 1 for p in paths]
+        widths = [leaves[p][(0,) * (env_axis + 1)].numel() for p in paths]
         flat = torch.cat([leaves[p].reshape(*lead, w) for p, w in zip(paths, widths)], dim=-1)
         gathered = distributed.gather(flat, group)  # [W, T, N, F]
         gathered = gathered.movedim(0, env_axis).reshape(*lead[:env_axis], world * lead[env_axis], -1)
@@ -120,21 +126,19 @@ def globalize_rollout(rollout: dict, group, env_axis: int = 1) -> dict:
 
 def cross_process_update(agent, rollout: dict | None = None, epoch_perms=None, group=None) -> dict[str, float]:
     """One update over the concatenation of every process's ``[T, N_local,
-    ...]`` rollout (by default the agent's buffer, which only the host loop
-    fills: not ported under more than one rank); returns the metrics on the
-    host.  The plan comes from ``epoch_perms`` or the agent's
-    ``plan_generator`` (``broadcast_agent_state``), the same on every rank,
-    not from the rank-offset action noise stream."""
+    ...]`` rollout (by default the agent's buffer, with its ``buffer_state``
+    and the memories as of its first step, as ``agent.update()`` takes
+    them); returns the metrics on the host.  The plan comes from
+    ``epoch_perms`` or the agent's ``plan_generator``
+    (``broadcast_agent_state``), the same on every rank, not from the
+    rank-offset action noise stream."""
     previous = agent.process_group
     agent.process_group = group or previous or process_mesh()
     try:
+        buffer_state = None
         if rollout is None:
-            if dist.get_world_size(agent.process_group) > 1:
-                raise NotImplementedError("the host loop under data parallelism is not ported yet "
-                                          "(ROADMAP.md, Queue 1 item 2a)")
-            rollout = agent.buffer.data
-            agent.step_index = 0
-        metrics = agent.update_body(rollout, epoch_perms=epoch_perms)
+            rollout, buffer_state = agent.take_buffered_rollout()
+        metrics = agent.update_body(rollout, epoch_perms=epoch_perms, buffer_state=buffer_state)
     finally:
         agent.process_group = previous
     agent.apply_schedules(agent.iteration)

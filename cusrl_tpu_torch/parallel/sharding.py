@@ -62,14 +62,8 @@ def distribute_agent(agent, mesh=None, tensor_parallel: bool = False):
     """Broadcasts rank 0's agent state to every process and marks the agent
     distributed (its ``process_group``): from then on its rollout statistics
     and updates are global.  Returns the group."""
-    if tensor_parallel:
-        raise NotImplementedError("tensor parallelism is not ported yet (ROADMAP.md, Queue 1 item 2b)")
+    check_data_parallel_route(agent, tensor_parallel)
     group = mesh or process_mesh()
     agent.process_group = group
-    try:
-        check_data_parallel_route(agent)
-    except NotImplementedError:
-        agent.process_group = None
-        raise
     broadcast_agent_state(agent, group)
     return group

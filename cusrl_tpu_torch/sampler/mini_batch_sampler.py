@@ -26,7 +26,10 @@ environment axis, so global row ``t * W * N + r * N + n`` is rank ``r``'s
 row ``(t, n)``, drawn from a generator that is the same on every rank.  Each
 rank gathers only its own slice of each global minibatch's rows
 (``shard_rows``: equal parts, the first ``B % W`` ranks one row more), and
-its share of the rows weights its gradient.
+its share of the rows weights its gradient.  The temporal sampler's plan
+permutes the ``W * N`` global environments, and a rank takes its slice of
+each minibatch's environments by the same rule, over all T steps: its share
+of the minibatch's ``T x B`` entries is its share of the environments.
 """
 
 from __future__ import annotations
@@ -199,14 +202,20 @@ class TemporalMiniBatchSampler(MiniBatchSampler):
     def source(self, rollout: dict) -> dict:
         return rollout
 
-    def gather(self, source: dict, plan: EpochPlan, epoch: int, mini_batch: int) -> dict:
+    def gather(self, source: dict, plan: EpochPlan, epoch: int, mini_batch: int,
+               rows: tuple[int, int] | None = None) -> dict:
+        """``[T, B, ...]`` (memories ``[1, B, ...]``): the minibatch's
+        environments, or with ``rows`` its environments ``[start, stop)``."""
         idx = self._indices(plan, epoch, mini_batch)
+        start, stop = rows or (0, plan.batch_size)
         if plan.block > 1:
+            first, last = start // plan.block, -(-stop // plan.block)
+            offset = first * plan.block
             return map_nested(
-                lambda x: x.reshape(x.shape[0], -1, plan.block, *x.shape[2:])[:, idx].reshape(
-                    x.shape[0], plan.batch_size, *x.shape[2:]), source
+                lambda x: x.reshape(x.shape[0], -1, plan.block, *x.shape[2:])[:, idx[first:last]].reshape(
+                    x.shape[0], (last - first) * plan.block, *x.shape[2:])[:, start - offset: stop - offset], source
             )
-        return map_nested(lambda x: x[:, idx], source)
+        return map_nested(lambda x: x[:, idx[start:stop]], source)
 
 
 @dataclasses.dataclass

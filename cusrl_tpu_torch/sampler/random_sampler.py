@@ -23,6 +23,11 @@ the first ``valid * N`` rows of the flattened rollout; the temporal windows
 start in logical time over the valid extent, and on a wrapped ring step
 ``t`` of a window lies at ``(cursor + t) % capacity``, the oldest step at the
 cursor.  Without it the plans cover the whole rollout.
+
+Under a data-parallel agent the indices are drawn over the global rollout
+(every rank's environments, in rank order) from a generator that is the same
+on every rank, and each rank gathers its slice of each batch's draws
+(``gather``'s ``rows``, the mini-batch samplers' ``shard_rows``).
 """
 
 from __future__ import annotations
@@ -43,6 +48,11 @@ class RandomPlan:
 
     epoch_start = 0  # one pass of num_mini_batches minibatches
     num_epochs = 1
+
+    @property
+    def batch_size(self) -> int:
+        """Draws per batch (rows, or windows when temporal)."""
+        return (self.indices[1] if isinstance(self.indices, tuple) else self.indices).shape[-1]
 
 
 def _valid_steps(capacity: int, buffer_state) -> int | None:
@@ -94,8 +104,11 @@ class RandomSampler(_RandomBase):
                              "TemporalRandomSampler (or AutoRandomSampler)")
         return {key: map_nested(lambda x: x.reshape(-1, *x.shape[2:]), value) for key, value in rollout.items()}
 
-    def gather(self, source: dict, plan: RandomPlan, epoch: int, mini_batch: int) -> dict:
+    def gather(self, source: dict, plan: RandomPlan, epoch: int, mini_batch: int,
+               rows: tuple[int, int] | None = None) -> dict:
         idx = plan.indices[mini_batch]
+        if rows is not None:
+            idx = idx[rows[0]:rows[1]]
         return map_nested(lambda x: x[idx], source)
 
 
@@ -133,8 +146,11 @@ class TemporalRandomSampler(_RandomBase):
     def source(self, rollout: dict) -> dict:
         return rollout
 
-    def gather(self, source: dict, plan: RandomPlan, epoch: int, mini_batch: int) -> dict:
+    def gather(self, source: dict, plan: RandomPlan, epoch: int, mini_batch: int,
+               rows: tuple[int, int] | None = None) -> dict:
         time_indices, env_indices = plan.indices[0][mini_batch], plan.indices[1][mini_batch]  # [L, B], [B]
+        if rows is not None:
+            time_indices, env_indices = time_indices[:, rows[0]:rows[1]], env_indices[rows[0]:rows[1]]
         return map_nested(lambda x: x[time_indices, env_indices[None, :]], source)
 
 

@@ -48,18 +48,20 @@ package does.
 A data-parallel agent (``parallel.distribute_agent``: ``process_group`` set)
 runs ``update_body`` as one global update over every rank's rollout, the
 JAX package's ``cross_process_update``: ``pre_update`` on the rank's own
-rollout (the statistics it takes are global, see the hooks), then the batch
-keys gathered on the environment axis, the epoch plan drawn over the global
-batch from ``plan_generator`` (the same on every rank), each rank's slice of
-every global minibatch, and between ``backward`` and ``pre_optim`` one flat
-all-reduce of the gradients weighted by each rank's share of the rows
-(``utils.distributed.reduce_gradients``, the reference's
-``reduce_gradients``).  The objective's metrics are averaged the same way.
-Under more than one rank the routes this does not cover raise
-``NotImplementedError``: the temporal samplers, hook-owned networks (AMP's
-discriminator, RND's, the distillation expert, the estimator and the
-representation probes), the symmetry and smoothness hooks and the host
-loop's ``update``.
+rollout (the statistics it takes are global, see the hooks; its metrics are
+averaged over the ranks), then the batch keys gathered on the environment
+axis (memories included), the plan drawn over the global batch from
+``plan_generator`` (the same on every rank), each rank's slice of every
+global minibatch (rows, or environments under a temporal sampler:
+``batch_slice``), and between ``backward`` and ``pre_optim`` one flat
+all-reduce of the gradients weighted by each rank's share of the minibatch
+(``row_share``; ``utils.distributed.reduce_gradients``, the reference's
+``reduce_gradients``).  A loss that is a plain mean over the rank's rows
+needs nothing more; a hook whose loss is another mean (AMP's subsample, a
+masked mean) returns its rank's term of the global mean
+(``utils.distributed.mean_term``).  The objective's metrics are averaged
+with the same weights, one all-reduce an update.  The host loop's
+``update`` runs so on the buffer's rollout.
 """
 
 from __future__ import annotations
@@ -75,7 +77,7 @@ from torch import nn
 from cusrl_tpu_torch.nn.base import reset_memory, storable_memory
 from cusrl_tpu_torch.nn.module.actor import Actor, ActorFactory
 from cusrl_tpu_torch.nn.module.critic import Value, ValueFactory
-from cusrl_tpu_torch.parallel.multiprocess import check_data_parallel_route, globalize_rollout
+from cusrl_tpu_torch.parallel.multiprocess import globalize_rollout
 from cusrl_tpu_torch.sampler.mini_batch_sampler import shard_rows
 from cusrl_tpu_torch.template.agent import Agent, AgentFactory
 from cusrl_tpu_torch.template.buffer import Buffer
@@ -366,16 +368,18 @@ class ActorCritic(Agent):
         return self.step_index >= self.num_steps_per_update and all(
             hook.should_update(self) for hook in self.hooks if hook.active)
 
-    def update(self) -> dict[str, float]:
-        """One update on the buffer's rollout; the metrics come to the host
-        in one transfer."""
-        if self.process_group is not None and torch.distributed.get_world_size(self.process_group) > 1:
-            raise NotImplementedError("the host loop under data parallelism is not ported yet "
-                                      "(ROADMAP.md, Queue 1 item 2a)")
+    def take_buffered_rollout(self) -> tuple[dict, dict]:
+        """The buffer's rollout with the memories as of its first step, and
+        its ``buffer_state``; the next step starts a new rollout."""
         rollout = self.buffer.data
         rollout.update({k: map_nested(lambda x: x[None], v) for k, v in self._initial_memories.items()})
-        buffer_state = {"cursor": self.buffer.cursor, "full": self.buffer.full}
         self.step_index = 0
+        return rollout, {"cursor": self.buffer.cursor, "full": self.buffer.full}
+
+    def update(self) -> dict[str, float]:
+        """One update on the buffer's rollout (global under a process
+        group); the metrics come to the host in one transfer."""
+        rollout, buffer_state = self.take_buffered_rollout()
         metrics = self.update_body(rollout, buffer_state=buffer_state)
         keys = sorted(metrics)
         values = torch.stack([torch.as_tensor(metrics[k], device=self.device).float().reshape(()) for k in keys])
@@ -390,7 +394,16 @@ class ActorCritic(Agent):
             keys.update(getattr(hook, "batch_keys", ()))
         return keys
 
-    def _train_step(self, metadata: dict, batch: dict, row_share: float = 1.0) -> tuple[dict, dict, dict]:
+    @property
+    def row_share(self) -> float:
+        """This rank's share of the current global minibatch (1 without a
+        process group)."""
+        if self.batch_slice is None:
+            return 1.0
+        start, stop, size = self.batch_slice
+        return (stop - start) / size
+
+    def _train_step(self, metadata: dict, batch: dict) -> tuple[dict, dict, dict]:
         """One minibatch: ``(the objective's metrics, pre_optim's,
         post_objective's)``.  Under a process group the gradients are
         reduced before ``pre_optim``, with this rank's ``row_share`` of the
@@ -404,7 +417,7 @@ class ActorCritic(Agent):
             self.optimizer.zero_grad()
             loss.backward()
             if self.process_group is not None:
-                distributed.reduce_gradients(self.model.parameters(), row_share, self.process_group)
+                distributed.reduce_gradients(self.model.parameters(), self.row_share, self.process_group)
             optim_metrics = self._composite.pre_optim(self)
             self.optimizer.step()
         return step_metrics, optim_metrics, self._composite.post_objective(self, metadata, batch)
@@ -421,18 +434,21 @@ class ActorCritic(Agent):
         rollout = dict(rollout)
         sampler = self.sampler.resolve(rollout)
         group = self.process_group
-        if group is not None:
-            check_data_parallel_route(self, sampler)
         active = self._composite._active()
         snapshot = self.take_snapshot() if any(h.needs_snapshot for h in active) else None
         with torch.no_grad():
             metrics = self._composite.pre_update(self, rollout)
+        if group is not None and metrics:  # means over the rank's rollout, one of W equal parts
+            keys = sorted(metrics)
+            stacked = torch.stack([torch.as_tensor(metrics[key]).float().reshape(()) for key in keys])
+            world = torch.distributed.get_world_size(group)
+            metrics = dict(zip(keys, distributed.weighted_sum(stacked, 1.0 / world, group).unbind()))
         capacity, parallelism = rollout["action"].shape[:2]
         ring = {}
         if buffer_state is not None and "buffer_state" in inspect.signature(sampler.make_epoch_plan).parameters:
             ring["buffer_state"] = buffer_state
         batch_keys = {key: rollout[key] for key in self._batch_keys() if key in rollout}
-        generator, rows, row_share = self.generator, None, 1.0
+        generator = self.generator
         if group is not None:
             # One global batch: every rank's environments, in rank order.
             batch_keys = globalize_rollout(batch_keys, group)
@@ -444,31 +460,32 @@ class ActorCritic(Agent):
         plan = sampler.make_epoch_plan(capacity, parallelism, generator, self.device, epoch_perms, **ring)
         source = sampler.source(batch_keys)
         sums: dict[str, torch.Tensor] = {}
-        global_keys: set[str] = set()
         steps = 0
-        for segment in plan if isinstance(plan, list) else [plan]:
-            if group is not None:
-                rows = shard_rows(segment.batch_size, torch.distributed.get_rank(group),
-                                  torch.distributed.get_world_size(group))
-                row_share = (rows[1] - rows[0]) / segment.batch_size
-            for epoch in range(segment.num_epochs):
-                for mini_batch in range(segment.num_mini_batches):
-                    if rows is None:
-                        batch = sampler.gather(source, segment, epoch, mini_batch)
-                    else:
+        try:
+            for segment in plan if isinstance(plan, list) else [plan]:
+                rows = None
+                if group is not None:
+                    rows = shard_rows(segment.batch_size, torch.distributed.get_rank(group),
+                                      torch.distributed.get_world_size(group))
+                    self.batch_slice = (*rows, segment.batch_size)
+                for epoch in range(segment.num_epochs):
+                    for mini_batch in range(segment.num_mini_batches):
                         batch = sampler.gather(source, segment, epoch, mini_batch, rows)
-                    metadata = sampler.metadata(segment, segment.epoch_start + epoch, mini_batch)
-                    step_metrics, optim_metrics, post_metrics = self._train_step(metadata, batch, row_share)
-                    global_keys.update(optim_metrics)  # taken from the reduced gradients
-                    for key, value in {**step_metrics, **optim_metrics, **post_metrics}.items():
-                        sums[key] = sums[key] + value if key in sums else value
-                    steps += 1
-        means = {key: value / steps for key, value in sums.items()}
-        local = sorted(key for key in means if key not in global_keys)
-        if group is not None and local:
-            stacked = torch.stack([means[key].float().reshape(()) for key in local])
-            means.update(zip(local, distributed.weighted_sum(stacked, row_share, group).unbind()))
-        metrics.update(means)
+                        metadata = sampler.metadata(segment, segment.epoch_start + epoch, mini_batch)
+                        step_metrics, optim_metrics, post_metrics = self._train_step(metadata, batch)
+                        for key, value in {**step_metrics, **optim_metrics, **post_metrics}.items():
+                            # The rank's term weighted by its share, summed over the ranks below (a
+                            # value that is global already, a gradient norm, comes back as it is).
+                            value = value * self.row_share if group is not None else value
+                            sums[key] = sums[key] + value if key in sums else value
+                        steps += 1
+        finally:
+            self.batch_slice = None
+        if group is not None and sums:
+            keys = sorted(sums)
+            stacked = torch.stack([sums[key].float().reshape(()) for key in keys])
+            sums.update(zip(keys, distributed.weighted_sum(stacked, 1.0, group).unbind()))
+        metrics.update({key: value / steps for key, value in sums.items()})
         with torch.no_grad():
             metrics.update(self._composite.post_update(self, rollout, snapshot))
         self.iteration += 1

@@ -47,9 +47,11 @@ class Agent:
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
         # Data parallelism (parallel.distribute_agent): the process group the
         # update's collectives run over, and the epoch plan's generator, the
-        # same on every rank (``generator`` stays the rank's own).
+        # same on every rank (``generator`` stays the rank's own); during an
+        # update, this rank's ``(start, stop, size)`` of the global minibatch.
         self.process_group = None
         self.plan_generator: torch.Generator | None = None
+        self.batch_slice: tuple[int, int, int] | None = None
 
     def record(self, metrics_dict: dict | None = None, /, **kwargs) -> None:
         self.metrics.record(metrics_dict, **kwargs)

@@ -65,8 +65,6 @@ class Hook:
     training_only: bool = False
     # post_update reads the pre-update snapshot (taken only when some hook asks).
     needs_snapshot: bool = False
-    # False: the hook is not ported under more than one rank (the update raises).
-    data_parallel: bool = True
     # Fields of the JAX hook's state that are configuration here: the
     # checkpoint reads and writes them as the hook's attributes, and
     # load_jax_state skips them.

@@ -13,7 +13,9 @@ must become global: ``reduce_gradients`` (one flat all-reduce of every
 gradient, each rank weighted by its share of the minibatch's rows),
 ``weighted_sum`` (means over rows), ``merge_moments`` (running statistics,
 Chan's merge of every rank's ``(mean, var, count)`` in rank order) and
-``gather`` (the rollout's batch keys).  Unlike the host helpers they run
+``gather`` (the rollout's batch keys), and ``mean_term`` for a loss that is
+not a plain mean over the rank's rows (a subsample drawn over the global
+minibatch, a masked mean).  Unlike the host helpers they run
 whenever the agent holds a group, a group of one included: there each is the
 identity, bit for bit.  Gloo moves CUDA tensors through the host and gathers
 none, so on gloo a CUDA gather is a sum of zero-padded parts.
@@ -40,6 +42,7 @@ __all__ = [
     "gather_obj",
     "gather_print",
     "is_main_process",
+    "mean_term",
     "merge_moments",
     "print_rank0",
     "rank",
@@ -171,6 +174,14 @@ def weighted_sum(tensor: torch.Tensor, weight: float, group) -> torch.Tensor:
     """``sum over ranks of weight_r * tensor_r`` (a new tensor): with each
     rank's share of the rows as ``weight``, the global mean of per-rank means."""
     return _all_reduce(tensor * weight, group)
+
+
+def mean_term(local_sum: torch.Tensor, global_count, row_share: float) -> torch.Tensor:
+    """This rank's term of the global mean ``sum over ranks of local_sum_r /
+    global_count``.  The update weights every rank's losses (through the
+    gradients) and metrics by its ``row_share`` and sums them, so the term is
+    ``local_sum / (global_count * row_share)``."""
+    return local_sum / (global_count * row_share)
 
 
 @torch.no_grad()

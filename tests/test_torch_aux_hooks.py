@@ -438,24 +438,21 @@ def test_initialization_helpers_match_jax():
 # -- data parallelism ----------------------------------------------------------
 
 
-def test_new_hooks_raise_under_more_than_one_rank(x_agents, monkeypatch):
-    """Under a group of two every new hook that owns a network or is marked
-    single-process raises, naming Queue 1 item 2a."""
+def test_new_hooks_raise_under_more_than_one_rank(x_agents):
+    """Data parallelism covers every route now (the updates on gloo ranks:
+    ``tests/test_torch_distributed_routes.py``): an agent with hook-owned
+    networks and every hook once marked single-process pass the route
+    check; only tensor parallelism raises, naming Queue 1 item 2b."""
     from cusrl_tpu_torch.hook import (
         ActionSmoothnessLoss as Smooth, MirrorSymmetryLoss, PolicyDistillationLoss, SymmetricDataAugmentation)
 
     _, agent = x_agents
-    monkeypatch.setattr(multiprocess.dist, "get_world_size", lambda group=None: 2)
-    agent.process_group = object()
-    try:
-        with pytest.raises(NotImplementedError, match=r"hook-owned networks \(random_network_distillation, "
-                                                      r"return_prediction\).*item 2a"):
-            multiprocess.check_data_parallel_route(agent)
-        for hook in (Smooth(weight_1st_order=1.0), MirrorSymmetryLoss(), PolicyDistillationLoss(),
-                     SymmetricDataAugmentation(), AdvantageReduction()):
-            single = types.SimpleNamespace(process_group=object(), actor=agent.actor, sampler=agent.sampler,
-                                           hooks=[hook])
-            with pytest.raises(NotImplementedError, match=f"{hook.hook_name}.*item 2a"):
-                multiprocess.check_data_parallel_route(single)
-    finally:
-        agent.process_group = None
+    assert [hook.hook_name for hook in agent.hooks if hook.owned_modules()] == ["random_network_distillation",
+                                                                                 "return_prediction"]
+    multiprocess.check_data_parallel_route(agent)
+    for hook in (Smooth(weight_1st_order=1.0), MirrorSymmetryLoss(), PolicyDistillationLoss(),
+                 SymmetricDataAugmentation(), AdvantageReduction()):
+        assert not hasattr(hook, "data_parallel")
+        multiprocess.check_data_parallel_route(types.SimpleNamespace(hooks=[hook]))
+    with pytest.raises(NotImplementedError, match="item 2b"):
+        multiprocess.check_data_parallel_route(agent, tensor_parallel=True)

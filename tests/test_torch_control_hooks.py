@@ -453,23 +453,19 @@ def test_device_memory_stats_record_nothing_on_the_cpu(stage_agents):
     assert not jax_agent.metrics.summary()
 
 
-def test_single_process_hooks_raise_under_more_than_one_rank(stage_agents, monkeypatch):
+def test_single_process_hooks_raise_under_more_than_one_rank(stage_agents):
     """The stage, the minibatch-wise rate and the minibatch-wise advantage
-    normalization take their statistics or gradients on the rank's own rows:
-    under a group of two they raise, naming Queue 1 item 2a; the schedules
-    and the whole-rollout normalization do not."""
+    normalization take global gradients and statistics under a process
+    group now (held against JAX on gloo ranks in
+    ``tests/test_torch_distributed_routes.py``): they pass the route check,
+    as the schedules and the whole-rollout normalization do; only tensor
+    parallelism raises, naming Queue 1 item 2b."""
     _, agent = stage_agents
-    monkeypatch.setattr(multiprocess.dist, "get_world_size", lambda group=None: 2)
-
-    def route(hook):
-        single = types.SimpleNamespace(process_group=object(), actor=agent.actor, sampler=agent.sampler,
-                                       hooks=[hook])
-        multiprocess.check_data_parallel_route(single)
-
-    for hook in (OptimizationStage(), MiniBatchWiseLRSchedule(), AdvantageNormalization(mini_batch_wise=True)):
-        with pytest.raises(NotImplementedError, match=f"{hook.hook_name}.*item 2a"):
-            route(hook)
-    for hook in (AdvantageNormalization(), HookParameterSchedule(target_hook="x", parameter="y"),
+    for hook in (OptimizationStage(), MiniBatchWiseLRSchedule(), AdvantageNormalization(mini_batch_wise=True),
+                 AdvantageNormalization(), HookParameterSchedule(target_hook="x", parameter="y"),
                  HookActivationSchedule(target_hook="x"), OnPolicyBufferCapacitySchedule(),
                  ConditionalObjectiveActivation.create(), DeviceMemoryStats()):
-        route(hook)
+        assert not hasattr(hook, "data_parallel")
+        multiprocess.check_data_parallel_route(types.SimpleNamespace(hooks=[hook]))
+    with pytest.raises(NotImplementedError, match="item 2b"):
+        multiprocess.check_data_parallel_route(agent, tensor_parallel=True)

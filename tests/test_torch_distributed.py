@@ -6,8 +6,9 @@ Two subprocess ranks join a gloo group from torchrun's variables (a free
 port, a process-group timeout, a hard ``communicate`` timeout) and check the
 ten host helpers, the device collectives of a data-parallel agent, the
 rank-0-only run directory, the ``seed + rank`` seeding, the CLI's
-independent copies (the JAX CLI never calls ``distribute_agent``) and the
-routes that raise under more than one rank.  In this process:
+independent copies (the JAX CLI never calls ``distribute_agent``), a global
+update on each route that once raised under more than one rank, and the
+tensor parallelism that still raises.  In this process:
 ``configure_distributed`` without the variables, the device it picks, and a
 group of one leaving the update bit for bit.  Last, ``torchrun`` launching
 the CLI on two CPU ranks.
@@ -42,29 +43,38 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch(script: str, world: int, case_dir: Path) -> list:
-    """Runs ``script`` on ``world`` gloo ranks (torchrun's variables, a free
-    port); returns each rank's pickled ``rank<r>.pkl`` from ``case_dir``.  A
-    rank that fails or overruns fails the test, and every rank is killed on
-    the way out."""
+def start(script: str, world: int, case_dir: Path):
+    """Starts ``script`` on ``world`` gloo ranks (torchrun's variables, a
+    free port); returns the function that waits for them and returns each
+    rank's pickled ``rank<r>.pkl`` from ``case_dir``.  A rank that fails or
+    overruns fails the test, and every rank is killed on the way out."""
     env = {**os.environ, "REPO_ROOT": str(ROOT), "CASE_DIR": str(case_dir), "MASTER_ADDR": "127.0.0.1",
            "MASTER_PORT": str(_free_port()), "WORLD_SIZE": str(world), "OMP_NUM_THREADS": "1"}
     procs = [subprocess.Popen([sys.executable, "-c", script], env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
                               cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for r in range(world)]
-    errors = []
-    try:
-        for rank, proc in enumerate(procs):
-            _, err = proc.communicate(timeout=TIMEOUT)
-            if proc.returncode:
-                errors.append(f"rank {rank} exited {proc.returncode}:\n{err[-3000:]}")
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    assert not errors, "\n".join(errors)
-    return [pickle.loads((case_dir / f"rank{r}.pkl").read_bytes()) for r in range(world)]
+
+    def wait() -> list:
+        errors = []
+        try:
+            for rank, proc in enumerate(procs):
+                _, err = proc.communicate(timeout=TIMEOUT)
+                if proc.returncode:
+                    errors.append(f"rank {rank} exited {proc.returncode}:\n{err[-3000:]}")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        assert not errors, "\n".join(errors)
+        return [pickle.loads((case_dir / f"rank{r}.pkl").read_bytes()) for r in range(world)]
+
+    return wait
+
+
+def launch(script: str, world: int, case_dir: Path) -> list:
+    """``start`` and wait: each rank's pickled result."""
+    return start(script, world, case_dir)()
 
 
 _WORKER = r"""
@@ -79,6 +89,7 @@ from cusrl_tpu_torch.__main__ import main
 from cusrl_tpu_torch.logger import Jsonl
 from cusrl_tpu_torch.nn.utils.normalization import mean_var_count
 from cusrl_tpu_torch.parallel import cross_process_update, distribute_agent, replicate, shard_batch
+from cusrl_tpu_torch.sampler import TemporalMiniBatchSampler
 from cusrl_tpu_torch.utils import distributed
 from cusrl_tpu_torch.utils.misc import set_global_seed
 from cusrl_tpu_torch.zoo.registry import get_experiment
@@ -148,27 +159,58 @@ def spec_of(name, algorithm, envs=8):
                                                    "device": "cpu"})
 
 
+def drive(agent, env, mode, steps=4):
+    # ``steps`` host-loop steps on rank-own random data, then one global update.
+    rng = np.random.default_rng(10 + rank)
+    n = env.spec.num_instances
+    for _ in range(steps):
+        agent.act(rng.standard_normal((n, env.spec.observation_dim)).astype(np.float32))
+        agent.step(rng.standard_normal((n, env.spec.observation_dim)).astype(np.float32),
+                   rng.standard_normal((n, 1)).astype(np.float32), rng.random((n, 1)) < 0.1,
+                   np.zeros((n, 1), bool))
+    if mode == "update":
+        metrics = agent.update()
+    elif mode == "buffer":
+        metrics = cross_process_update(agent)
+    else:
+        metrics = cross_process_update(agent, agent.take_buffered_rollout()[0])
+    params = {path: p.detach().numpy().copy() for path, p in agent.model.named_parameters()}
+    return {"metrics": metrics, "params": params}
+
+
 routes = {}
 factory, env = spec_of("Velocity-Flat", "transformer_ppo")
 for key, value in dict(embed_dim=16, num_heads=2, attention_window=4, mlp_hidden_dims=(16,),
                        num_steps_per_update=4).items():
     setattr(factory.agent, key, value)
-routes["transformer"] = raises(lambda: distribute_agent(factory.agent(env.spec, device="cpu")))
+agent = factory.agent(env.spec, device="cpu", seed=rank)
+distribute_agent(agent)
+routes["transformer"] = drive(agent, env, "rollout")
 factory, env = spec_of("Velocity-Flat", "recurrent_ppo")
-factory.agent.rnn_hidden_size, factory.agent.mlp_hidden_dims = 16, (16,)
-routes["recurrent"] = raises(lambda: distribute_agent(factory.agent(env.spec, device="cpu")))
+factory.agent.rnn_hidden_size, factory.agent.mlp_hidden_dims, factory.agent.num_steps_per_update = 16, (16,), 4
+agent = factory.agent(env.spec, device="cpu", seed=rank)
+distribute_agent(agent)
+routes["recurrent"] = drive(agent, env, "rollout")
 factory, env = spec_of("Velocity-Flat", "amp")
 for key in ("actor_hidden_dims", "critic_hidden_dims", "amp_discriminator_hidden_dims"):
     setattr(factory.agent, key, (16,))
-routes["amp"] = raises(lambda: distribute_agent(factory.agent(env.spec, device="cpu")))
+factory.agent.num_steps_per_update = 4
+agent = factory.agent(env.spec, device="cpu", seed=rank)
+distribute_agent(agent)
+routes["amp"] = drive(agent, env, "rollout")
 factory, env = spec_of("Velocity-Flat", "ppo")
 factory.agent.actor_hidden_dims = factory.agent.critic_hidden_dims = (16,)
-agent = factory.agent(env.spec, device="cpu")
+factory.agent.num_steps_per_update = 4
+for route, mode in (("host_update", "update"), ("host_buffer", "buffer")):
+    agent = factory.agent(env.spec, device="cpu", seed=rank)
+    distribute_agent(agent)
+    routes[route] = drive(agent, env, mode)
+temporal = factory.agent.to_underlying()
+temporal.sampler = TemporalMiniBatchSampler(num_epochs=2, num_mini_batches=2)
+agent = temporal(env.spec, device="cpu", seed=rank)
 distribute_agent(agent)
-routes["host_update"] = raises(agent.update)
-routes["host_buffer"] = raises(lambda: cross_process_update(agent))
-routes["temporal_rollout"] = raises(lambda: agent.update_body({"action": torch.zeros(2, 8, 4),
-                                                               "actor_memory": torch.zeros(1, 8, 4)}))
+routes["temporal_rollout"] = drive(agent, env, "rollout")
+out["tensor_parallel"] = raises(lambda: distribute_agent(temporal(env.spec, device="cpu"), tensor_parallel=True))
 out["routes"] = routes
 open(os.path.join(case_dir, f"rank{rank}.pkl"), "wb").write(pickle.dumps(out))
 torch.distributed.destroy_process_group()
@@ -260,11 +302,26 @@ def test_cli_trains_an_independent_copy_on_each_rank(two_ranks):
 
 @pytest.mark.parametrize("route", ["transformer", "recurrent", "amp", "host_update", "host_buffer",
                                    "temporal_rollout"])
-def test_uncovered_routes_raise_under_two_ranks(two_ranks, route):
+def test_routes_run_under_two_ranks(two_ranks, route):
+    """Each route once raised under more than one rank; now a few host-loop
+    steps on each rank's own data and one global update (on a rollout the
+    agent took from its buffer, in ``agent.update()``, or in
+    ``cross_process_update(agent)`` on the buffer) give finite metrics and
+    the same metrics and parameters, bit for bit, on both ranks.  Their
+    updates are held against JAX in ``tests/test_torch_distributed_routes.py``."""
+    _, results = two_ranks
+    first, second = (result["routes"][route] for result in results)
+    assert first["metrics"] and all(np.isfinite(value) for value in first["metrics"].values())
+    assert first["metrics"] == second["metrics"]
+    assert set(first["params"]) == set(second["params"])
+    for path, value in first["params"].items():
+        np.testing.assert_array_equal(second["params"][path], value, err_msg=path)
+
+
+def test_tensor_parallelism_still_raises(two_ranks):
     _, results = two_ranks
     for result in results:
-        message = result["routes"][route]
-        assert message is not None and "Queue 1 item 2a" in message
+        assert result["tensor_parallel"] is not None and "Queue 1 item 2b" in result["tensor_parallel"]
 
 
 def test_configure_distributed_without_the_variables_is_a_no_op(monkeypatch):

@@ -2253,6 +2253,85 @@ def test_world_one_nccl_update_equals_the_undistributed_one_bit_for_bit(cuda, mo
         np.testing.assert_array_equal(grouped[1][path], value, err_msg=path)
 
 
+@pytest.mark.parametrize("host", [False, True])
+def test_world_one_nccl_recurrent_update_equals_the_undistributed_one_bit_for_bit(cuda, monkeypatch, host):
+    """Path R's update at full width (GRU 256, 8 steps x 256 environments,
+    the temporal sampler's minibatches of 64 environments on K1f/K1b) over a
+    NCCL group of one against the same update without a group, from the
+    same state and a rollout the agent collected: the memories joined, the
+    rank's slice of each minibatch, the collectives each the identity; with
+    ``host`` through ``agent.update()`` on the ``Buffer`` (the rollout's
+    steps pushed).  Metrics and every leaf of the agent's state bit for
+    bit."""
+    import socket
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from cusrl_tpu_torch.environment.locomotion import VelocityLocomotionEnv
+    from cusrl_tpu_torch.parallel import distribute_agent
+    from cusrl_tpu_torch.template.rollout import RolloutDriver
+    from cusrl_tpu_torch.utils import distributed
+    from cusrl_tpu_torch.utils.config import configure_distributed
+    from cusrl_tpu_torch.utils.interop import state_entries
+    from cusrl_tpu_torch.utils.nest import map_nested
+    from cusrl_tpu_torch.zoo.registry import get_experiment
+
+    steps, envs = 8, 256
+    factory = get_experiment("Velocity-Flat", "recurrent_ppo").make_agent_factory()
+    factory.num_steps_per_update = steps
+    env = VelocityLocomotionEnv(num_instances=envs, device=cuda)
+    source = factory(env.spec, device=cuda, seed=0)
+    driver = RolloutDriver(source, env)
+    driver.collect(steps)
+    rollout, _ = driver.collect(steps)  # the memories warm
+    state = {p: np.array(e.read()) for p, e in state_entries(source).items()}
+    perms = torch.stack([torch.randperm(envs, generator=torch.Generator().manual_seed(e)) for e in range(5)])
+
+    def update(distribute):
+        agent = factory(env.spec, device=cuda, seed=1)
+        with torch.no_grad():
+            for path, entry in state_entries(agent).items():
+                entry.write(path, state[path])
+        data = map_nested(lambda x: x.clone(), rollout)
+        fm.reset_launch_counts()
+        distributed.reset_collective_counts()
+        if distribute:
+            distribute_agent(agent)
+        if host:
+            memories = {k for k in data if k.endswith("memory")}
+            for t in range(steps):
+                agent.buffer.push({k: map_nested(lambda x: x[t], v) for k, v in data.items() if k not in memories})
+            agent._initial_memories = {k: map_nested(lambda x: x[0], data[k]) for k in memories}
+            update_body = agent.update_body
+            agent.update_body = lambda r, **kw: update_body(r, **{**kw, "epoch_perms": perms})
+            metrics = agent.update()
+        else:
+            metrics = {k: float(v) for k, v in agent.update_body(data, epoch_perms=perms).items()}
+        counts = {"launches": dict(fm.LAUNCHES), "collectives": distributed.COLLECTIVES["all_reduce"][0]}
+        return metrics, {p: np.array(e.read()) for p, e in state_entries(agent).items()}, counts
+
+    plain = update(False)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    for name, value in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+                        "MASTER_PORT": str(port)}.items():
+        monkeypatch.setenv(name, value)
+    assert configure_distributed(timeout_s=120) and dist.get_backend() == "nccl"
+    try:
+        grouped = update(True)
+    finally:
+        dist.destroy_process_group()
+    assert plain[2]["launches"]["K1f"] > 0 and plain[2]["launches"]["K1b"] == 40
+    assert grouped[2]["launches"] == plain[2]["launches"] and grouped[2]["collectives"] > 20
+    assert plain[2]["collectives"] == 0
+    assert grouped[0] == plain[0]
+    assert set(grouped[1]) == set(plain[1])
+    for path, value in plain[1].items():
+        np.testing.assert_array_equal(grouped[1][path], value, err_msg=path)
+
+
 # -- paths D, S, SL, X, SC and PO: the auxiliary and control hooks' shapes --------
 
 D_WIDTHS = (48, 256, 128)  # the distillation preset's student, relu

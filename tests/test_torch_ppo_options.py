@@ -185,7 +185,6 @@ def test_minibatch_wise_advantage_normalization_matches_jax():
     _, jax_batch, _, _ = JaxAdvantageNormalization(mini_batch_wise=True).objective(
         None, {}, {"advantage": jnp.asarray(advantage)})
     np.testing.assert_allclose(batch["advantage"].numpy(), np.asarray(jax_batch["advantage"]), **FP32)
-    assert hook.data_parallel is False and AdvantageNormalization().data_parallel is True
 
 
 # -- sparse bootstrap -------------------------------------------------------------------
