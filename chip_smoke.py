@@ -48,7 +48,9 @@ without printing a result:
    (``check_control_kernels``): K1f/K1b on path SC's state estimator (ELU
    48-256-128-16) saving at 32,768 and 24,576 rows, K2f/K2b on SC's pair at
    2 x 32,768 and PO's at 2 x 49,152, each backward with
-   ``skip_input_grad``) against its plain PyTorch
+   ``skip_input_grad``; ``check_lane_routes``: K3f and K3b at path TJC's
+   N = 512, both networks in one call, and on path TQ's RMS-normed q and k,
+   K3f primal also at 1,024) against its plain PyTorch
    version on the card, and time the kernel, the plain version and a PyTorch
    yardstick the port never calls (bf16 ``F.linear`` chains, fp32 heads
    and, for K9s, the loss, for K9m the forward too; a masked
@@ -125,6 +127,14 @@ without printing a result:
    stage's first gradient and its Adam moments after the update among the
    leaves) and PO (A with the adaptive Normal head, the minibatch-wise
    advantages, the sparse bootstrap and 4-4-4-2-2 minibatches, at lr 1e-4);
+   ``[update-check] TQ TJC SB``: TQ (path T's entry with ``qk_norm=True`` on
+   every encoder layer, through the default route, which keeps a QK-normed
+   layer modular: T's launches), TJC (TJ with ``CUSRL_TPU_PAIR_CONCAT=1``,
+   set around its phases only: each minibatch's pair attention one
+   K3f/K3b over 512 environments), also against TJ on the card on the same
+   weights and batch (bit for bit or within the limits, printed), and SB
+   (path A's entry with ``SimbaFactory()`` backbones and without the joint
+   evaluation, which takes Mlp backbones only: no kernel launch);
 6. ``[train]``: the slice-1 loop (Velocity-Rough widths without observation
    normalization and the adaptive learning rate) for a few iterations;
 7. ``[train-zoo]``: paths T, TF, TJ and TL (the zoo's uncut Velocity-Flat
@@ -160,7 +170,8 @@ without printing a result:
    ``AdaptiveNormalDistFactory(bijector="softplus")``, the minibatch-wise
    advantage normalization, ``sparse_value_bootstrap`` and 4, 4, 4, 2 and
    2 minibatches in its five epochs: one host read of the bootstrap's
-   overflow flag an update beside the chunk's transfer), each built through ``get_experiment(...).to_training_factory()`` with
+   overflow flag an update beside the chunk's transfer), and path TQ (T with
+   QK-norm on its default route), each built through ``get_experiment(...).to_training_factory()`` with
    ``iterations_per_dispatch=10``, observation normalization and (but AMP)
    the KL-adaptive learning rate, and driven through the Trainer for a warm-up
    chunk and a timed chunk of 10 iterations, with the launch counters set to
@@ -180,6 +191,18 @@ without printing a result:
    block's and the MLP chain's forward kernels and phase-1 backward kernels
    (``fbp::``, ``fbb::``, ``mlpb::``, K9m's ``mlpm::``) by name with their
    sums, and the share of the device's busy time of K3f, K3b, K6 and K7f);
+   path TJC runs two warm-up iterations and one profiled iteration, its
+   launches counted over that iteration (``launches_by_path`` holds them
+   per iteration, the other paths' per 10-iteration chunk), and its K3f and
+   K3b launches and device ms print beside TJ's; ``[modules]``: ``Cnn`` at
+   ``CnnFactory()``'s defaults on 4,096 images, ``SeparableConv2d`` on its
+   first feature map, ``TransformerEncoderLayer`` and
+   ``TransformerDecoderLayer`` (128 wide, 4 heads, gelu FFN 512 with bf16
+   layers, each launching one K1f and one K1b) on 24 x 1,024 tokens and
+   ``GeGlu``/``SwiGlu``, forward and backward on the card against the CPU
+   (2e-2 of each value's largest element) with device ms a call;
+   ``[library]``: the README's snippet through ``cusrl_tpu_torch``'s
+   top-level names for 2 iterations on the card;
 8. ``[cli]``: the user surface on path F, in a temporary directory:
    ``python -m cusrl_tpu_torch train -env Velocity-Flat -alg ppo
    --num-iterations 20 --logger jsonl --seed 0 --log-dir <tmp> --
@@ -237,7 +260,7 @@ without printing a result:
 check with one rank on each card of the machine, over NCCL.
 ``python3 chip_smoke.py --paths TL C`` runs only the named paths'
 ``[train-zoo]`` chunks and profiles (``SC PO``: the control paths) (``H``: its host-loop iterations and
-profile), with the kernels of the package beside
+profile; ``TJC``: its profiled iteration), with the kernels of the package beside
 the script: copied into another checkout, it times that checkout's port the
 same way (two versions compare inside one call, in turns).
 
@@ -250,6 +273,7 @@ fallback: without CUDA the script exits 2.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -616,8 +640,8 @@ def _chain_work(rows: int, chains: int, backward: bool, save_hiddens: bool, inpu
     return chains * flops, chains * nbytes
 
 
-def _bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def _bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -1710,6 +1734,83 @@ def check_lane_kernels(device) -> dict:
     results["K3f"]["shape"] += ", saves probabilities (the update); primal at N=1024 (value and KL passes)"
     for key in results:
         results[key]["max_abs_err"] = max(errs[key])
+    return results
+
+
+TJC_MB_ENVS = 2 * T_MB_ENVS  # path TJC: the pair pass's one lane call over both networks' 256 environments
+
+
+def _rms_normed(gen, device, t, head_dim: int = T_HEAD_DIM):
+    """``t`` through the port's QK-norm (an RMS norm of each head's features,
+    a random fp32 scale about 1), in its dtype: path TQ's q and k."""
+    import torch
+
+    from cusrl_tpu_torch.nn.layer.mha import _RmsNorm
+
+    norm = _RmsNorm(head_dim).to(device)
+    with torch.no_grad():
+        norm.scale.copy_(0.5 + torch.rand(head_dim, generator=gen))
+        return norm(t)
+
+
+def check_lane_routes(device) -> dict:
+    """K3f (saving) and K3b on the two routes this slice adds, each against
+    its plain version and timed beside it, the masked SDPA (its autograd for
+    K3b) and the bound: path TJC's one lane call over both networks'
+    environments (N = 512 in the update) and path TQ's RMS-normed q and k
+    (N = 256 in the update, the value and KL passes' primal K3f at 1,024).
+    Returns the fields under ``tjc_`` and ``tq_`` (``tq_primal_`` for the
+    primal K3f)."""
+    import torch
+    import torch.nn.functional as F
+
+    from cusrl_tpu_torch.nn.kernels import lane_attention as la
+
+    gen = torch.Generator().manual_seed(SEED + 21)
+    results, errs = {"K3f": {}, "K3b": {}}, {"K3f": [], "K3b": []}
+    print("[kernels] K3f/K3b on paths TJC (N=512, both networks in one call) and TQ (RMS-normed q and k)")
+    for prefix, n, save, normed in (("tjc_", TJC_MB_ENVS, True, False), ("tq_", T_MB_ENVS, True, True),
+                                    ("tq_primal_", T_ENVS, False, True)):
+        q, k, v, *masks = _lane_inputs(gen, device, n)
+        if normed:
+            q, k = _rms_normed(gen, device, q), _rms_normed(gen, device, k)
+        tag = f"{prefix[:-1]} N={n}"
+        ref, ref_probs = la.lane_fwd_plain(q, k, v, *masks, T_WINDOW, None, True)
+        out, probs = la._launch_fwd(q, k, v, *masks, T_WINDOW, None, save)
+        errs["K3f"].append(_check_attention(f"K3f out {tag}", out, ref))
+        if save:
+            errs["K3f"].append(_check_attention(f"K3f probs {tag}", probs, ref_probs))
+        dense = _dense_mask(*masks, T_WINDOW, 0)
+        kernel = functools.partial(la._launch_fwd, q, k, v, *masks, T_WINDOW, None, save)
+        plain = functools.partial(la.lane_fwd_plain, q, k, v, *masks, T_WINDOW, None, save)
+        with torch.no_grad():
+            library = functools.partial(F.scaled_dot_product_attention, q, k, v, attn_mask=dense)
+            rows = [("K3f", kernel, plain, library, _lane_work("K3f", q, k, masks, T_WINDOW, save))]
+        if save:
+            g = torch.randn(q.shape, generator=gen).to(device)
+            got = la._launch_bwd(q, k, v, ref_probs, g, *masks, T_WINDOW)
+            for name, a, b in zip(("dq", "dk", "dv"), got, la.lane_bwd_plain(q, k, v, ref_probs, g, T_WINDOW)):
+                errs["K3b"].append(_check_attention(f"K3b {name} {tag}", a, b))
+            lq, lk, lv = (t.clone().requires_grad_() for t in (q, k, v))
+            lib_out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=dense)
+            rows.append(("K3b", functools.partial(la._launch_bwd, q, k, v, ref_probs, g, *masks, T_WINDOW,
+                                                  torch.bfloat16),
+                         functools.partial(la.lane_bwd_plain, q, k, v, ref_probs, g, T_WINDOW),
+                         functools.partial(torch.autograd.grad, lib_out, (lq, lk, lv), g.to(torch.bfloat16),
+                                           retain_graph=True),
+                         _lane_work("K3b", q, k, masks, T_WINDOW, out_bytes=2)))
+        for key, kernel, plain, library, (flops, nbytes) in rows:
+            k_ms, p_ms, l_ms = _time_ms(kernel), _time_ms(plain), _time_ms(library)
+            device_ms = _forward_device_ms(f"{key} {tag}", kernel, "lane", 1)["device_ms"]
+            bound, by = _bound_ms(flops, nbytes, PEAK_FP32_FLOPS)
+            print(f"    {key} {tag}: kernel_ms={k_ms:.4f} device_ms={_ms(device_ms)} plain_ms={p_ms:.4f} "
+                  f"library_ms={l_ms:.4f} bound_ms={bound:.4f} ({by}; {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+            results[key].update({f"{prefix}ms": k_ms, f"{prefix}device_ms": device_ms, f"{prefix}plain_ms": p_ms,
+                                 f"{prefix}library_ms": l_ms, f"{prefix}bound_ms": bound, f"{prefix}bound_by": by,
+                                 f"{prefix}shape": f"N={n} H={T_HEADS} T={STEPS} W={T_WINDOW} D={T_HEAD_DIM}"
+                                                   + (", RMS-normed q and k" if normed else "")})
+    for key in results:
+        results[key]["lane_routes_max_abs_err"] = max(errs[key])
     return results
 
 
@@ -3257,9 +3358,17 @@ PATH_NAMES = {"A": "zoo Velocity-Rough ppo", "B": "A + fuse_heads (K8)", "C": "A
               "SC": "A + the control hooks and schedules (an optimization stage with a state estimator, 24 -> 32 "
                     "steps)",
               "PO": "A + the adaptive Normal head (softplus), minibatch-wise advantages, the sparse bootstrap, "
-                    "4-4-4-2-2 minibatches"}
-# The route each transformer path runs: T the modular one, TF, TJ and TL the default.
-PATH_ROUTES = {"T": "0", "TF": None, "TJ": None, "TL": None}
+                    "4-4-4-2-2 minibatches",
+              "TQ": "T with qk_norm=True on every encoder layer (the default route, which keeps it modular)",
+              "TJC": "TJ with CUSRL_TPU_PAIR_CONCAT=1 (one lane call over both networks' environments)",
+              "SB": "A with SimbaFactory() backbones (hidden 256, 2 blocks; plain layers), without the joint "
+                    "evaluation (it takes Mlp backbones only)"}
+# The route each transformer path runs: T the modular one, TF, TJ, TL, TQ and TJC the default.
+PATH_ROUTES = {"T": "0", "TF": None, "TJ": None, "TL": None, "TQ": None, "TJC": None}
+# TJC's [train-zoo] is one profiled iteration after two warm-up ones (its
+# counts per iteration, its device ms beside TJ's).
+PROFILE_ONLY_PATHS = ("TJC",)
+QK_PAIR_PATHS = ("TQ", "TJC")  # QK-norm and the one-lane-call pair pass: [update-check] in a phase of their own
 PATH_STEPS = {"TL": TL_STEPS, "AMP": AMP_STEPS, "SC": SC_STEPS}  # rollout steps per iteration; STEPS elsewhere
 # The recurrent entry's paths: R as registered, RJ with the joint evaluation
 # (the GRUs stacked, the heads on K2), RL with LSTM cells (update check only).
@@ -3281,6 +3390,8 @@ _TF_UPDATE = {"K1f": 3 + 2 * MB, "K1b": 2 * MB, "K3f": 2 + 2 * MB, "K3b": 2 * MB
               "K4pre_f": 3 + 2 * MB, "K4post_f": 3 + 2 * MB, "K4pre_b": 2 * MB, "K4post_b": 2 * MB}
 _TJ_UPDATE = {"K1f": 3, "K2f": MB, "K2b": MB, "K3f": 2 + 2 * MB, "K3b": 2 * MB, "K6": 1, "K4pre_f": 3,
               "K4post_f": 3, "K5pre_f": MB, "K5pre_b": MB, "K5post_f": MB, "K5post_b": MB}
+# TJC: TJ with each minibatch's pair attention as one K3f/K3b over 512 environments.
+_TJC_UPDATE = {**_TJ_UPDATE, "K3f": 2 + MB, "K3b": MB}
 # TL is TF with T = 256 > 64: every sequence pass's attention is K7f (its
 # backward recomputes through the plain version: no launch), and the
 # next-token pass takes the plain version (no K6).
@@ -3298,10 +3409,13 @@ EXPECTED_ZOO_LAUNCHES = {  # per training iteration
     # mode (K3f, FFN, head each) and their backward (K3b, FFN, head each);
     # the KL pass after the update (K3f, FFN, head).
     "T": {**_NONE, "K1f": 2 * STEPS + 4 + 4 * MB + 2, "K1b": 4 * MB, "K3f": 1 + 2 * MB + 1, "K3b": 2 * MB, "K6": 1},
+    # Path TQ: QK-norm keeps the default route modular, so T's launches.
+    "TQ": {**_NONE, "K1f": 2 * STEPS + 4 + 4 * MB + 2, "K1b": 4 * MB, "K3f": 1 + 2 * MB + 1, "K3b": 2 * MB, "K6": 1},
     # TF and TJ: the rollout's step (the fused step route is off by default)
     # runs the FFN and the head through K1f.
     "TF": {**_NONE, **_TF_UPDATE, "K1f": 2 * STEPS + _TF_UPDATE["K1f"]},
     "TJ": {**_NONE, **_TJ_UPDATE, "K1f": 2 * STEPS + _TJ_UPDATE["K1f"]},
+    "TJC": {**_NONE, **_TJC_UPDATE, "K1f": 2 * STEPS + _TJC_UPDATE["K1f"]},
     "TL": {**_NONE, **_TL_UPDATE, "K1f": 2 * TL_STEPS + _TL_UPDATE["K1f"]},
     # Path R: per rollout step the actor's head, the per-step critic's head
     # (post_act) and its bootstrap head (post_step) on 1,024 rows; per
@@ -3368,6 +3482,43 @@ def _reset_launch_counts() -> None:
     la.reset_launch_counts()
     ba.reset_launch_counts()
     fb.reset_launch_counts()
+
+
+PAIR_CONCAT = "CUSRL_TPU_PAIR_CONCAT"
+
+
+@contextlib.contextmanager
+def _pair_concat(path: str):
+    """Sets ``CUSRL_TPU_PAIR_CONCAT=1`` for path TJC's block (unset for
+    every other path) and restores it after."""
+    old = os.environ.pop(PAIR_CONCAT, None)
+    if path == "TJC":
+        os.environ[PAIR_CONCAT] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop(PAIR_CONCAT, None)
+        if old is not None:
+            os.environ[PAIR_CONCAT] = old
+
+
+def _qk_norm_factory(agent_factory):
+    """Path TQ: the transformer entry's agent factory as its underlying
+    ``ActorCriticFactory``, every encoder layer of both backbones with
+    ``qk_norm=True`` (the preset has no such field)."""
+    from cusrl_tpu_torch.nn.module.causal_attn import CausalTransformerEncoderLayerFactory
+
+    def with_qk_norm(factory):
+        if isinstance(factory, CausalTransformerEncoderLayerFactory):
+            return dataclasses.replace(factory, qk_norm=True)
+        if hasattr(factory, "factories"):  # Sequential(layer, Mlp)
+            return dataclasses.replace(factory, factories=tuple(with_qk_norm(f) for f in factory.factories))
+        return factory
+
+    underlying = agent_factory.to_underlying()
+    for network in (underlying.actor_factory, underlying.critic_factory):
+        network.backbone_factory = with_qk_norm(network.backbone_factory)
+    return underlying
 
 
 def _with_path(agent_factory, path: str):
@@ -3481,13 +3632,32 @@ def check_update_against_cpu(path: str, expert_path: str | None = None) -> None:
     elif path in PATH_ROUTES:
         factory = get_experiment("Velocity-Flat", "transformer_ppo").make_agent_factory()
         factory.num_steps_per_update = steps
-        factory.fuse_actor_critic_evaluation = path == "TJ"
+        factory.fuse_actor_critic_evaluation = path in ("TJ", "TJC")
         factory.lr = 1e-4
-        # T: the value pass (K3f, FFN, head) and its next-token pass (K6,
-        # FFN, head); per minibatch actor and critic forward and backward;
-        # the KL pass.  TF, TJ and TL: one training iteration's update.
-        expected = {"T": {"K1f": 4 + 4 * MB + 2, "K1b": 4 * MB, "K3f": 2 + 2 * MB, "K3b": 2 * MB, "K6": 1},
-                    "TF": _TF_UPDATE, "TJ": _TJ_UPDATE, "TL": _TL_UPDATE}[path]
+        if path == "TQ":
+            factory = _qk_norm_factory(factory)
+        # T and TQ: the value pass (K3f, FFN, head) and its next-token pass
+        # (K6, FFN, head); per minibatch actor and critic forward and
+        # backward; the KL pass.  TF, TJ, TJC and TL: one training
+        # iteration's update.
+        modular = {"K1f": 4 + 4 * MB + 2, "K1b": 4 * MB, "K3f": 2 + 2 * MB, "K3b": 2 * MB, "K6": 1}
+        expected = {"T": modular, "TQ": modular, "TF": _TF_UPDATE, "TJ": _TJ_UPDATE, "TJC": _TJC_UPDATE,
+                    "TL": _TL_UPDATE}[path]
+    elif path == "SB":
+        # Path A's entry with SimBa backbones: plain layers, no kernel launch.
+        from cusrl_tpu_torch.nn.module.simba import SimbaFactory
+
+        factory = get_experiment("Velocity-Rough", "ppo").make_agent_factory()
+        factory.num_steps_per_update = steps
+        factory._backbone_factory = lambda hidden_dims: SimbaFactory()
+        factory.fuse_actor_critic_evaluation = False  # the joint evaluation takes Mlp backbones only, in JAX too
+        # At the zoo's 1e-3 one update takes SB's fresh policy to KL 0.25 and
+        # ratio 0.72, where the importance-weighted advantage amplifies
+        # rounding: 3.2 % apart between the card (an H100 80GB HBM3 at 700 W)
+        # and the CPU while every gradient leaf agrees to 5.7e-3.  SB updates
+        # at 1e-4, as the transformer paths and PO.
+        factory.lr = 1e-4
+        expected = {}
     else:
         zoo = get_experiment("Velocity-Rough", "ppo").make_agent_factory()
         zoo.num_steps_per_update = steps
@@ -3507,7 +3677,7 @@ def check_update_against_cpu(path: str, expert_path: str | None = None) -> None:
     results, state = {}, None
     fused = path in PATH_ROUTES and PATH_ROUTES[path] is None
     for device, route in (("cpu", "force" if fused else PATH_ROUTES.get(path)), ("cuda", PATH_ROUTES.get(path))):
-        with _fused_route(route), _ppo_mode("mono" if path == "CM" else "split"):
+        with _fused_route(route), _ppo_mode("mono" if path == "CM" else "split"), _pair_concat(path):
             *results[device], initial = _small_update(factory, device, state, obs, terminated, truncated, done, perms)
         state = state or initial
     launched = {k: v for k, v in _launch_counts().items() if v}
@@ -3517,6 +3687,22 @@ def check_update_against_cpu(path: str, expert_path: str | None = None) -> None:
     failed = update_check_failures(*results["cpu"], *results["cuda"], report=True)
     if failed:
         raise AssertionError(f"update check of path {path}: {failed} disagree between the card and the CPU path")
+    if path == "TJC":  # against TJ (two lane calls a pass) on the card, the same weights and batch
+        with _fused_route(None), _pair_concat("TJ"):
+            tj_metrics, tj_grads, _ = _small_update(factory, "cuda", state, obs, terminated, truncated, done, perms)
+        tj_launched = {k: v for k, v in _launch_counts().items() if v}
+        if tj_launched != _TJ_UPDATE or launched["K3f"] - 2 != (tj_launched["K3f"] - 2) // 2:
+            raise AssertionError(f"TJ launched {tj_launched} against TJC's {launched}")
+        metrics, grads = results["cuda"]
+        bitwise = (metrics == tj_metrics and set(grads) == set(tj_grads)
+                   and all(torch.equal(grads[k], tj_grads[k]) for k in grads))
+        failed = update_check_failures(tj_metrics, tj_grads, metrics, grads)
+        print(f"[update-check] TJC against TJ on the card: TJ launches {tj_launched}; the update's K3f "
+              f"{launched['K3f'] - 2} against {tj_launched['K3f'] - 2}, K3b {launched['K3b']} against "
+              f"{tj_launched['K3b']}; metrics and {len(grads)} gradient leaves "
+              f"{'bit for bit equal' if bitwise else 'within the limits' if not failed else 'DISAGREE'}")
+        if failed:
+            raise AssertionError(f"TJC disagrees with TJ on the card: {failed}")
 
 
 UPDATE_RTOL, UPDATE_ATOL = 2e-2, 2e-3  # the update's metrics
@@ -3733,8 +3919,10 @@ def train_zoo(kind: str, path: str):
 
     if path in PATH_ROUTES:
         factory, envs = get_experiment("Velocity-Flat", "transformer_ppo").to_training_factory(), T_ENVS
-        factory.agent.fuse_actor_critic_evaluation = path == "TJ"
+        factory.agent.fuse_actor_critic_evaluation = path in ("TJ", "TJC")
         factory.agent.num_steps_per_update = PATH_STEPS.get(path, STEPS)
+        if path == "TQ":
+            factory.agent = _qk_norm_factory(factory.agent)
     elif path in RECURRENT_PATHS:
         factory, envs = get_experiment("Velocity-Flat", "recurrent_ppo").to_training_factory(), T_ENVS
         factory.agent.fuse_actor_critic_evaluation = path == "RJ"
@@ -3765,8 +3953,38 @@ def train_zoo(kind: str, path: str):
         factory.agent = _with_path(factory.agent, path)
     chunk = factory.iterations_per_dispatch
     factory.num_iterations = 2 * chunk
-    with _fused_route(PATH_ROUTES.get(path)), _ppo_mode("mono" if path == "CM" else "split"):
+    with _fused_route(PATH_ROUTES.get(path)), _ppo_mode("mono" if path == "CM" else "split"), _pair_concat(path):
+        if path in PROFILE_ONLY_PATHS:
+            return _profile_only(path, factory, envs)
         return _train_chunks(kind, path, factory, envs, chunk)
+
+
+def _profile_only(path: str, factory, envs: int):
+    """Two warm-up iterations, then one profiled iteration with the launch
+    counters set to 0 just before and read just after (its launches against
+    ``EXPECTED_ZOO_LAUNCHES``, per iteration).  Returns the launches and
+    None for the rate, which this run does not measure."""
+    import torch
+
+    steps = PATH_STEPS.get(path, STEPS)
+    trainer = factory(verbose=False, seed=SEED)
+    if trainer.environment.num_instances != envs or trainer.agent.device.type != "cuda":
+        raise AssertionError("the zoo entry is not the uncut configuration on the card")
+    start = time.perf_counter()
+    for i in range(2):
+        _, metrics = trainer.driver.collect_and_update(steps)
+        if not all(math.isfinite(float(v)) for v in metrics.values()):
+            raise AssertionError(f"path {path}: non-finite metrics at iteration {i}: {metrics}")
+    torch.cuda.synchronize()
+    print(f"[train-zoo] {path} ({PATH_NAMES[path]}): two warm-up iterations {time.perf_counter() - start:.3f} s; one "
+          f"iteration profiled, no timed chunk")
+    _reset_launch_counts()
+    profile_iteration(trainer.driver, path, steps)
+    launches = _launch_counts()
+    print(f"[train-zoo] {path}: launches in the profiled iteration {launches} (expected {EXPECTED_ZOO_LAUNCHES[path]})")
+    if launches != EXPECTED_ZOO_LAUNCHES[path]:
+        raise AssertionError(f"path {path} did not launch the kernels the expected number of times")
+    return launches, None
 
 
 def _train_chunks(kind: str, path: str, factory, envs: int, chunk: int, distribute: bool = False,
@@ -4833,6 +5051,145 @@ def check_ddp_ranks(kind: str, world: int = DDP_RANKS, spread: bool = False) -> 
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+MODULE_ROWS = 4096  # [modules]: the Cnn's images
+MODULE_RTOL = 2e-2  # max |card - cpu| / max |cpu|: outputs and each gradient leaf (bf16 roundings that fall apart)
+
+
+def _module_case(name: str, cpu_module, inputs: list, device, launches: dict | None = None) -> dict:
+    """Forward and backward of ``cpu_module`` on the CPU and of its copy on
+    the card, the same inputs: the output and every gradient (parameters
+    and the inputs') within ``MODULE_RTOL`` of the CPU's largest element;
+    the card's kernel launches of one call are ``launches`` when given;
+    the device ms of one forward and backward."""
+    import copy
+
+    import torch
+
+    card_module = copy.deepcopy(cpu_module).to(device)
+    target = None
+
+    def run(module, tensors):
+        nonlocal target
+        leaves = [t.clone().requires_grad_() if t.is_floating_point() else t for t in tensors]
+        out = module(*leaves)
+        out = out[0] if isinstance(out, tuple) else out
+        if target is None:
+            target = torch.randn(out.shape, generator=torch.Generator().manual_seed(SEED + 31))
+        (out.float() - target.to(out.device)).square().mean().backward()
+        grads = {f"input {i}": t.grad for i, t in enumerate(leaves) if t.requires_grad}
+        grads.update({n: p.grad for n, p in module.named_parameters()})
+        return out.detach(), grads
+
+    ref, ref_grads = run(cpu_module, inputs)
+    card_inputs = [t.to(device) for t in inputs]
+    _reset_launch_counts()
+    out, grads = run(card_module, card_inputs)
+    launched = {k: v for k, v in _launch_counts().items() if v}
+    worst = {}
+    for key, want, got in (("output", ref, out), *((k, ref_grads[k], grads[k]) for k in ref_grads)):
+        if got is None or not torch.isfinite(got).all():
+            raise AssertionError(f"[modules] {name}: {key} missing or not finite on the card")
+        scale = want.float().abs().max().item()
+        worst[key] = (got.float().cpu() - want.float()).abs().max().item() / max(scale, 1e-30)
+    key = max(worst, key=worst.get)
+    leaves = [t.clone().requires_grad_() if t.is_floating_point() else t for t in card_inputs]
+    params = [p for p in card_module.parameters() if p.requires_grad]
+
+    def step():
+        out = card_module(*leaves)
+        out = out[0] if isinstance(out, tuple) else out
+        torch.autograd.grad(out.float().square().mean(), [*params, *(t for t in leaves if t.requires_grad)])
+
+    ms, by = _device_ms_per_call(step, repeats=5, warmup=2)
+    print(f"[modules] {name}: output {tuple(out.shape)} {str(out.dtype).split('.')[-1]}; {len(worst)} values, worst "
+          f"{key} max|card - cpu| / max|cpu| = {worst[key]:.3e} (limit {MODULE_RTOL:g}); kernel launches {launched}; "
+          f"forward and backward {ms:.4f} device ms a call ({by})")
+    if worst[key] > MODULE_RTOL:
+        raise AssertionError(f"[modules] {name}: the card disagrees with the CPU on {key}")
+    if launches is not None and launched != launches:
+        raise AssertionError(f"[modules] {name}: launched {launched}, expected {launches}")
+    return {"device_ms": ms, "worst": worst[key]}
+
+
+def check_modules(device) -> dict:
+    """The modules without a path of their own, on the card against the CPU
+    at full width: ``Cnn`` at ``CnnFactory()``'s defaults (64x64x3 images ->
+    256) on 4,096 rows, ``SeparableConv2d`` (16 -> 32 channels, 3x3, "SAME")
+    on its first feature map, ``TransformerEncoderLayer`` (128 wide, 4
+    heads, RoPE, gelu FFN 512 with bf16 layers: its FFN takes K1f and K1b)
+    and ``TransformerDecoderLayer`` at that width on 24 x 1,024 tokens (a
+    causal mask; the decoder's memory 24 tokens), and ``GeGlu``/``SwiGlu``
+    on 24,576 rows of 1,024."""
+    import torch
+
+    from cusrl_tpu_torch.nn import GeGlu, SwiGlu, TransformerDecoderLayer, TransformerEncoderLayer
+    from cusrl_tpu_torch.nn.layer.separable_conv import SeparableConv2d
+    from cusrl_tpu_torch.nn.module.cnn import CnnFactory
+
+    gen = torch.Generator().manual_seed(SEED + 30)
+    results = {}
+    cnn = CnnFactory()(64 * 64 * 3, None, generator=gen)
+    images = torch.rand(MODULE_ROWS, 64 * 64 * 3, generator=gen)
+    results["cnn"] = _module_case("Cnn (CnnFactory(): 64x64x3, 16-32-32, 8/4/3, 256)", cnn, [images], device)
+    with torch.no_grad():
+        first = torch.relu(cnn.convs[0](images.reshape(-1, 64, 64, 3))).float()
+    results["separable_conv"] = _module_case(
+        f"SeparableConv2d on the first feature map {tuple(first.shape)}",
+        SeparableConv2d(16, 32, 3, generator=gen), [first], device)
+    tokens = torch.randn(T_ENVS, STEPS, T_EMBED, generator=gen)
+    causal = torch.tril(torch.ones(STEPS, STEPS, dtype=torch.bool))
+    for label, layer, inputs in (
+            ("TransformerEncoderLayer", TransformerEncoderLayer(T_EMBED, T_HEADS, ff_dim=T_FF, rope=True,
+                                                                compute_dtype="bfloat16", generator=gen),
+             [tokens, causal]),
+            ("TransformerDecoderLayer", TransformerDecoderLayer(T_EMBED, T_HEADS, ff_dim=T_FF, rope=True,
+                                                                compute_dtype="bfloat16", generator=gen),
+             [tokens, torch.randn(T_ENVS, STEPS, T_EMBED, generator=gen), causal])):
+        for linear in (layer.feed_forward.up, layer.feed_forward.down):
+            linear.compute_dtype = "bfloat16"  # the FFN on K1f/K1b (JAX builds it fp32 by default)
+        results[label] = _module_case(f"{label} (128 wide, 4 heads, gelu FFN 512) on 24 x 1,024 tokens", layer,
+                                      inputs, device, launches={"K1f": 1, "K1b": 1})
+    rows = torch.randn(STEPS * T_ENVS, 2 * T_FF, generator=gen).to(torch.bfloat16)
+    for glu in (GeGlu(), SwiGlu()):
+        results[type(glu).__name__] = _module_case(f"{type(glu).__name__} on {tuple(rows.shape)} bf16", glu, [rows],
+                                                   device)
+    return results
+
+
+def check_library(kind: str) -> None:
+    """The README's library snippet through the port's top-level names only,
+    on the card, for 2 iterations: every metric finite, the agent on the
+    card, its kernels launched."""
+    import torch
+
+    import cusrl_tpu_torch
+
+    env = cusrl_tpu_torch.environment.VelocityLocomotionEnv(num_instances=NUM_ENVS)
+    factory = cusrl_tpu_torch.PpoAgentFactory(
+        num_steps_per_update=STEPS,
+        actor_hidden_dims=(512, 256, 128),
+        normalize_observation=True,
+        desired_kl_divergence=0.01,
+    )
+    trainer = cusrl_tpu_torch.Trainer(environment=env, agent_factory=factory, num_iterations=2, verbose=False)
+    _reset_launch_counts()
+    start = time.perf_counter()
+    trainer.run_training_loop()
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in _launch_counts().items() if v}
+    metrics = trainer.rollout_and_update()
+    print(f"[library] cusrl_tpu_torch.environment.VelocityLocomotionEnv, cusrl_tpu_torch.PpoAgentFactory, "
+          f"cusrl_tpu_torch.Trainer on {kind}: 2 iterations {time.perf_counter() - start:.3f} s, launches {launched}; "
+          f"a third iteration's metrics: " + " ".join(f"{k}={v:.5g}" for k, v in sorted(metrics.items())))
+    if trainer.agent.device.type != "cuda" or trainer.agent.iteration != 3 or not launched:
+        raise AssertionError("the library snippet did not train on the card through the kernels")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"[library] non-finite metrics: {metrics}")
+
+
+PROFILES: dict = {}  # [profile]'s band attention kernels by path: {key: (device ms, launches)} an iteration
+
+
 def profile_iteration(driver, label: str, steps: int = STEPS, fn=None) -> None:
     """Device time by kernel over one training iteration (torch.profiler:
     ``fn()``, else ``driver.collect_and_update(steps)``), and the device's
@@ -4905,6 +5262,7 @@ def profile_iteration(driver, label: str, steps: int = STEPS, fn=None) -> None:
         found = [r for r in rows if symbol.split("::")[1] in r[2]]
         if found:
             ms = sum(r[0] for r in found)
+            PROFILES.setdefault(label, {})[key] = (ms, sum(r[1] for r in found))
             print(f"[profile] {label}, {key} ({symbol}): {ms:.3f} ms over {sum(r[1] for r in found)} launches per "
                   f"iteration, {ms / busy_ms:.4f} of the device's busy time")
 
@@ -5014,6 +5372,9 @@ def main(argv: list[str]) -> int:
         for key, fields in check_control_kernels(device).items():
             results[key].update(fields)
             results[key]["max_abs_err"] = max(results[key]["max_abs_err"], fields["control_max_abs_err"])
+        for key, fields in check_lane_routes(device).items():
+            results[key].update(fields)
+            results[key]["max_abs_err"] = max(results[key]["max_abs_err"], fields["lane_routes_max_abs_err"])
     with _phase("[wrappers]"):
         for key, err in (*check_wrappers(device).items(), *check_head_wrappers(device).items()):
             results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
@@ -5026,9 +5387,13 @@ def main(argv: list[str]) -> int:
     with _phase("[optimizer]"):
         optimizer_fields = check_optimizer(device)
     with _phase("[update-check]"):
-        for path in ("slice 1", *PATHS, *PATH_ROUTES, *RECURRENT_CHECKS, *AMP_PATHS, *F_PATHS):
+        for path in ("slice 1", *PATHS, *(p_ for p_ in PATH_ROUTES if p_ not in QK_PAIR_PATHS), *RECURRENT_CHECKS,
+                     *AMP_PATHS, *F_PATHS):
             check_update_against_cpu(path)
         check_h_update_against_cpu()
+    with _phase("[update-check] TQ TJC SB"):
+        for path in (*QK_PAIR_PATHS, "SB"):
+            check_update_against_cpu(path)
     with _phase("[update-check] D S SL X"), tempfile.TemporaryDirectory(prefix="cusrl_expert_") as tmp:
         expert_path = _export_expert(_path_a_agent(), tmp)
         for path in AUX_CHECKS:
@@ -5045,6 +5410,14 @@ def main(argv: list[str]) -> int:
     with _phase("[train-zoo] H, [play] H"):
         path_launches["H"], h_rate, h_checkpoint = train_host(kind)
         h_play = play_h(kind, h_checkpoint)
+    tj, tjc = PROFILES.get("TJ", {}), PROFILES.get("TJC", {})
+    print("[profile] TJ against TJC, one iteration each in this run: " + "; ".join(
+        f"{key} {tj.get(key, (None, 0))[1]} against {tjc.get(key, (None, 0))[1]} launches, "
+        f"{_ms(tj.get(key, (None,))[0])} against {_ms(tjc.get(key, (None,))[0])} device ms" for key in ("K3f", "K3b")))
+    with _phase("[modules]"):
+        check_modules(device)
+    with _phase("[library]"):
+        check_library(kind)
     with _phase("[cli]"):
         check_cli()
     with _phase("[ddp] A1"):
@@ -5082,6 +5455,10 @@ def main(argv: list[str]) -> int:
             if path_launches[path][key]:
                 results[key][f"{path.lower()}_launches"] = path_launches[path][key] // 10
     results["K1f"]["h_env_steps_per_s"], results["K1f"]["h_play_env_steps_per_s"] = h_rate, h_play["env_steps_per_s"]
+    # Paths TQ (a 10-iteration chunk) and TJC (one profiled iteration): K3f/K3b launches per iteration.
+    for key in ("K3f", "K3b"):
+        results[key]["tq_launches"] = path_launches["TQ"][key] // 10
+        results[key]["tjc_launches"] = path_launches["TJC"][key]
     # TL's recomputing K7 backward runs once for each K7f launch that takes a
     # gradient: the run's launches per iteration less the value and KL passes'.
     bwd_ms, grad_calls = results["K7f"]["tl_recompute_bwd_device_ms"], path_launches["TL"]["K7f"] / 10 - TL_PRIMAL_K7F
@@ -5104,6 +5481,7 @@ def main(argv: list[str]) -> int:
             **{k: v for k, v in r.items()
                if k.startswith(("gelu", "primal", "offpath", "tl_", "r_head", "rj_pair", "amp_", "f_", "h_", "ddp_",
                                 "d_", "s_pair_", "s_launches", "sl_", "x_", "aux_", "sc_", "po_", "control_",
+                                "tq_", "tjc_", "lane_routes_",
                                 "phase", "bitwise",
                                 "grid", "ring", "smem", "regs", "spills", "device", "pack", "rollout", "queue", "host",
                                 "plan"))},

@@ -35,9 +35,11 @@ package's rule and environment variables: ``CUSRL_TPU_FUSED_TRANSFORMER``
 (``1``, the default: CUDA tensors with at least 256 rows; ``0``: never;
 ``force``: always, the kernels' plain versions on the CPU) and
 ``CUSRL_TPU_FUSED_TRANSFORMER_STEP`` (``1`` adds the single-step route;
-default ``0``).  The env-minor variants (``CUSRL_TPU_SEQCORE_EM``,
-``CUSRL_TPU_LANE_EM``) and the one-lane-call pair (``CUSRL_TPU_PAIR_CONCAT``)
-are not ported.
+default ``0``).  A QK-normed layer keeps the modular route, as in JAX: K3 in
+sequence mode, the ring's SDPA in a step, K6 in the next-token pass.
+``CUSRL_TPU_PAIR_CONCAT=1`` (read per call) makes the pair pass one lane
+call over both networks' environments side by side.  The env-minor variants
+(``CUSRL_TPU_SEQCORE_EM``, ``CUSRL_TPU_LANE_EM``) are not ported.
 """
 
 from __future__ import annotations
@@ -342,18 +344,32 @@ class CausalMultiheadSelfAttention(BackboneContract, nn.Module):
 
 def fused_pair_sequence(layer_a, layer_c, xa, xc, mem_a, mem_c, done):
     """The actor's and the critic's encoder layers as one pair pass: both pre
-    ops in one K5 launch, one lane-attention call per layer
-    (``sequence_core``), both post ops in one K5 launch.  Both memories share
-    the global ring cursor (both backbones advance through the same rollout).
+    ops in one K5 launch, the lane attention (``sequence_core``), both post
+    ops in one K5 launch.  The attention is one call per layer, or with
+    ``CUSRL_TPU_PAIR_CONCAT=1`` one call over both layers' environments
+    concatenated (``2 * batch``; the attention has no weights and both layers
+    share its configuration), split back after.  Both memories share the
+    global ring cursor (both backbones advance through the same rollout).
     Returns ``(latent_a, latent_c, new_mem_a, new_mem_c)``."""
-    if os.environ.get("CUSRL_TPU_PAIR_CONCAT", "0") == "1":
-        raise NotImplementedError("the one-lane-call pair pass (CUSRL_TPU_PAIR_CONCAT) is not ported")
     t_len, batch = xa.shape[:2]
     rows = t_len * batch
     ha, hc, qkva, qkvc = fused_block_pair_pre(xa.reshape(rows, xa.shape[-1]), xc.reshape(rows, xc.shape[-1]),
                                               layer_a._pre_params(), layer_c._pre_params())
-    attna, new_mem_a = layer_a.attention.sequence_core(qkva, mem_a, done, t_len, batch)
-    attnc, new_mem_c = layer_c.attention.sequence_core(qkvc, mem_c, done, t_len, batch)
+    if os.environ.get("CUSRL_TPU_PAIR_CONCAT", "0") == "1":
+        width = qkva.shape[-1]
+        qkv = torch.cat([qkva.reshape(t_len, batch, width), qkvc.reshape(t_len, batch, width)], 1)
+        memory = {key: torch.cat([mem_a[key], mem_c[key]], 0) for key in ("k_cache", "v_cache", "cache_mask")}
+        memory["cursor"] = mem_a["cursor"]
+        attn, new_memory = layer_a.attention.sequence_core(qkv.reshape(2 * rows, width), memory,
+                                                           torch.cat([done, done], 1), t_len, 2 * batch)
+        attn = attn.reshape(t_len, 2 * batch, -1)
+        attna, attnc = attn[:, :batch].reshape(rows, -1), attn[:, batch:].reshape(rows, -1)
+        new_mem_a, new_mem_c = ({key: value if key == "cursor" else value[half]
+                                 for key, value in new_memory.items()}
+                                for half in (slice(0, batch), slice(batch, 2 * batch)))
+    else:
+        attna, new_mem_a = layer_a.attention.sequence_core(qkva, mem_a, done, t_len, batch)
+        attnc, new_mem_c = layer_c.attention.sequence_core(qkvc, mem_c, done, t_len, batch)
     outa, outc = fused_block_pair_post(attna, attnc, ha, hc, layer_a._post_params(), layer_c._post_params(),
                                        layer_a.feed_forward.activation)
     return outa.reshape(t_len, batch, -1), outc.reshape(t_len, batch, -1), new_mem_a, new_mem_c
@@ -410,8 +426,8 @@ class CausalTransformerEncoderLayer(BackboneContract, nn.Module):
 
     def _fused_eligible(self, x, sequential: bool) -> bool:
         """The JAX rule (``causal_attn.py:870-921``), with "backend is TPU" read
-        as "tensor is on CUDA".  The kernels cover the preset configuration;
-        anything else keeps the modular route."""
+        as "tensor is on CUDA".  The kernels cover the preset configuration
+        without QK-norm; anything else keeps the modular route."""
         # Read per call: 1 (default) on CUDA tensors, 0 never, force always
         # (the kernels' plain versions on the CPU).
         mode = os.environ.get("CUSRL_TPU_FUSED_TRANSFORMER", "1").lower()
@@ -423,8 +439,7 @@ class CausalTransformerEncoderLayer(BackboneContract, nn.Module):
             return False
         if not (isinstance(self.gate1, ResidualGate) and isinstance(self.gate2, ResidualGate)):
             return False
-        # No QK-norm: the port's MultiheadAttention has none (not ported).
-        if self.attention.sequence_mode not in ("auto", "lane", "banded"):
+        if self.attention.mha.q_norm is not None or self.attention.sequence_mode not in ("auto", "lane", "banded"):
             return False
         ff = self.feed_forward
         if ff.glu or not supports_fused_block(ff.activation):

@@ -1,4 +1,4 @@
-"""Action distributions (counterpart of ``NormalDist``,
+"""Action distributions (counterpart of ``Distribution``, ``NormalDist``,
 ``AdaptiveNormalDist`` and ``OneHotCategoricalDist`` in
 ``cusrl_tpu/nn/module/distribution.py``).
 
@@ -27,6 +27,7 @@ from cusrl_tpu_torch.nn.layer.linear import Linear
 
 __all__ = [
     "AdaptiveNormalDist",
+    "Distribution",
     "AdaptiveNormalDistFactory",
     "NormalDist",
     "NormalDistFactory",
@@ -42,8 +43,10 @@ def _normal_logp(mean, std, x):
     return torch.sum(-0.5 * z.square() - torch.log(std) - _LOG_SQRT_2PI, dim=-1, keepdim=True)
 
 
-class _Normal(nn.Module):
-    """Diagonal-Gaussian math in fp32, shared by the two Normal heads."""
+class Distribution(nn.Module):
+    """Action distribution head: backbone features -> distribution parameters
+    through ``mean_head``.  Subclasses give ``sample`` and ``compute_logp``;
+    entropy and KL default to single-sample Monte-Carlo estimates."""
 
     @property
     def input_dim(self) -> int:
@@ -52,6 +55,29 @@ class _Normal(nn.Module):
     @property
     def output_dim(self) -> int:
         return self.mean_head.output_dim
+
+    def sample(self, dist_params, generator: torch.Generator | None = None, noise: torch.Tensor | None = None):
+        raise NotImplementedError
+
+    def compute_logp(self, dist_params, sample):
+        raise NotImplementedError
+
+    def compute_entropy(self, dist_params, generator: torch.Generator | None = None):
+        return -self.sample(dist_params, generator)[1]
+
+    def compute_kl_div(self, p, q, generator: torch.Generator | None = None):
+        sample, logp = self.sample(p, generator)
+        return logp - self.compute_logp(q, sample)
+
+    def determine(self, backbone_feat: torch.Tensor) -> torch.Tensor:
+        return self.mean_head(backbone_feat.float())
+
+    def mode(self, dist_params) -> torch.Tensor:
+        return dist_params["mean"]
+
+
+class _Normal(Distribution):
+    """Diagonal-Gaussian math in fp32, shared by the two Normal heads."""
 
     def sample(self, dist_params, generator: torch.Generator | None = None, noise: torch.Tensor | None = None):
         """``(action, logp)``; ``noise`` (standard normal, the mean's shape)
@@ -75,12 +101,6 @@ class _Normal(nn.Module):
         var_ratio = (std1 / std2).square()
         kl = 0.5 * (var_ratio + ((mean2 - mean1) / std2).square() - 1.0) - torch.log(std1 / std2)
         return torch.sum(kl, dim=-1, keepdim=True)
-
-    def determine(self, backbone_feat: torch.Tensor) -> torch.Tensor:
-        return self.mean_head(backbone_feat.float())
-
-    def mode(self, dist_params) -> torch.Tensor:
-        return dist_params["mean"]
 
 
 class NormalDist(_Normal):
@@ -119,7 +139,7 @@ def _one_hot(index: torch.Tensor, num_classes: int) -> torch.Tensor:
     return torch.nn.functional.one_hot(index, num_classes).float()
 
 
-class OneHotCategoricalDist(nn.Module):
+class OneHotCategoricalDist(Distribution):
     """One-hot categorical over the logits of an fp32 head, with
     straight-through samples: the forward value is the drawn one-hot vector,
     the gradient the softmax's."""
@@ -127,14 +147,6 @@ class OneHotCategoricalDist(nn.Module):
     def __init__(self, mean_head: Linear):
         super().__init__()
         self.mean_head = mean_head
-
-    @property
-    def input_dim(self) -> int:
-        return self.mean_head.input_dim
-
-    @property
-    def output_dim(self) -> int:
-        return self.mean_head.output_dim
 
     def forward(self, backbone_feat: torch.Tensor) -> dict[str, torch.Tensor]:
         return {"logits": self.mean_head(backbone_feat.float())}

@@ -6,7 +6,11 @@ checkpoint writer, the checkpoint loader and ``load_jax_state``.
 JAX path, each with a reader (to numpy) and a writer:
 
 * ``actor.*`` and ``critic.*``: the parameters (both packages store
-  ``Linear.weight`` as ``[out, in]``, so weights copy without a transpose);
+  ``Linear.weight`` as ``[out, in]``, so weights copy without a transpose; a
+  module whose layout differs names the permutation that gives the JAX
+  array in ``jax_layouts``, as the convolutions do: PyTorch's
+  ``[out, in, kh, kw]`` against JAX's HWIO ``[kh, kw, in, out]``, the
+  depthwise ``[C * m, 1, kh, kw]`` against ``[kh, kw, 1, C * m]``);
   a hook's networks (``owned_modules()``: trained ones such as AMP's
   discriminator and RND's predictor, frozen ones such as RND's target and
   the distillation expert), the port's ``hooks.<hook_name>.<module>.*``, go
@@ -43,6 +47,9 @@ are neither written nor read.  The writer gives numpy arrays: int64 leaves go
 out as int32 and bf16 ones (a transformer's ring) as fp32, since JAX keeps
 32-bit integers and numpy has no bf16; both load back into either package.
 
+``parameter_entries(module)`` gives those entries for any module, by its
+own paths; ``load_jax_params(module, leaves)`` is their strict loader (the
+JAX module's ``tree_paths`` as numpy, for a module outside an agent).
 ``load_jax_state(agent, agent_state)`` is the strict loader of parameters and
 hook state (a missing or extra path or a shape mismatch raises; the
 configuration, the optimizer state and the iteration are ignored);
@@ -63,7 +70,15 @@ import torch
 
 from cusrl_tpu_torch.utils.nest import flatten_nested, map_nested
 
-__all__ = ["JAX_ONLY_FIELDS", "load_agent_state", "load_jax_state", "state_entries", "to_numpy"]
+__all__ = [
+    "JAX_ONLY_FIELDS",
+    "load_agent_state",
+    "load_jax_params",
+    "load_jax_state",
+    "parameter_entries",
+    "state_entries",
+    "to_numpy",
+]
 
 # Hook class name -> fields of the JAX hook's state that the port does not keep.
 JAX_ONLY_FIELDS: dict[str, tuple[str, ...]] = {"AdversarialMotionPrior": ("rng",)}
@@ -104,6 +119,33 @@ class Entry:
 
 def _tensor_entry(kind: str, tensor: torch.Tensor) -> Entry:
     return Entry(kind, tuple(tensor.shape), lambda: to_numpy(tensor), lambda path, v: _copy(path, tensor, v))
+
+
+def _permuted_entry(tensor: torch.Tensor, perm: tuple[int, ...]) -> Entry:
+    """A parameter stored in another layout than JAX's: the JAX array is
+    ``tensor.permute(perm)``."""
+    inverse = tuple(perm.index(axis) for axis in range(len(perm)))
+    return Entry("parameter", tuple(tensor.shape[axis] for axis in perm),
+                 lambda: to_numpy(tensor.permute(perm)),
+                 lambda path, v: _copy(path, tensor, np.transpose(np.asarray(v), inverse)))
+
+
+def parameter_entries(module: torch.nn.Module) -> dict[str, Entry]:
+    """Every parameter of ``module`` by its path, read and written in JAX's layout."""
+    entries, owners = {}, dict(module.named_modules())
+    for path, p in module.named_parameters():
+        owner, _, name = path.rpartition(".")
+        layouts = getattr(owners[owner], "jax_layouts", {})
+        entries[path] = _permuted_entry(p, layouts[name]) if name in layouts else _tensor_entry("parameter", p)
+    return entries
+
+
+@torch.no_grad()
+def load_jax_params(module: torch.nn.Module, leaves: Mapping[str, np.ndarray]) -> torch.nn.Module:
+    """Copies a JAX module's leaves (``tree_paths``) into ``module``; raises
+    on a missing or extra path or a shape mismatch."""
+    _load_tree("parameter paths", parameter_entries(module), dict(leaves))
+    return module
 
 
 def _config_entry(hook, name: str) -> Entry:
@@ -225,7 +267,7 @@ def state_entries(agent) -> dict[str, Entry]:
     """Every leaf of the agent's state by its JAX path (the module says which)."""
     index_of = {hook.hook_name: index for index, hook in enumerate(agent.hooks)}
     named = dict(agent.model.named_parameters())
-    entries = {_jax_parameter_path(path, index_of): _tensor_entry("parameter", p) for path, p in named.items()}
+    entries = {_jax_parameter_path(path, index_of): e for path, e in parameter_entries(agent.model).items()}
     trainable = {k: v for k, v in named.items() if v.requires_grad}
     for index, hook in enumerate(agent.hooks):
         for name, tensor in hook.state_tensors().items():

@@ -1,4 +1,5 @@
-"""Seeding and module import (counterpart of ``cusrl_tpu/utils/misc.py``).
+"""Seeding, module import, ``MISSING`` and ``to_numpy`` (counterpart of
+``cusrl_tpu/utils/misc.py``).
 
 ``set_global_seed`` seeds Python's ``random``, numpy and torch (the host
 generator and every CUDA device's) with ``seed + rank`` and records the base
@@ -22,7 +23,35 @@ import torch
 
 from cusrl_tpu_torch.utils.config import CONFIG
 
-__all__ = ["import_module", "import_obj", "set_global_seed"]
+__all__ = ["MISSING", "import_module", "import_obj", "set_global_seed", "to_numpy"]
+
+
+class _MissingType:
+    """The sentinel of a value not given (falsy, one instance)."""
+
+    _instance = None
+
+    def __new__(cls):
+        if cls._instance is None:
+            cls._instance = super().__new__(cls)
+        return cls._instance
+
+    def __repr__(self) -> str:
+        return "MISSING"
+
+    def __bool__(self) -> bool:
+        return False
+
+
+MISSING = _MissingType()
+
+
+def to_numpy(value: Any) -> np.ndarray:
+    """A tensor (on any device, bf16 as fp32) or array-like as a numpy array."""
+    if isinstance(value, torch.Tensor):
+        value = value.detach()
+        return (value.float() if value.dtype == torch.bfloat16 else value).cpu().numpy()
+    return np.asarray(value)
 
 
 def set_global_seed(seed: int | None = None) -> int:

@@ -1,7 +1,9 @@
-"""Wall-clock timing (counterpart of ``Timer`` and ``Rate`` in
+"""Wall-clock timing (counterpart of ``Timer``, ``Rate`` and ``sync`` in
 ``cusrl_tpu/utils/timing.py``).
 
-``Timer.record`` is a context manager accumulating named buckets.  With
+``sync(*values)`` waits for the CUDA device's queued work (JAX's waits for
+the arrays given; a tensor's work is the device's).  ``Timer.record`` is a
+context manager accumulating named buckets.  With
 ``synchronize=True`` it waits for the CUDA device (``torch.cuda.synchronize``)
 at entry and exit, so a bucket covers the device work queued inside it; on a
 process that has not touched CUDA it is a plain host clock.  ``Rate`` paces a
@@ -15,12 +17,17 @@ import time
 
 import torch
 
-__all__ = ["Rate", "Timer"]
+__all__ = ["Rate", "Timer", "sync"]
 
 
 def _synchronize() -> None:
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
+
+
+def sync(*values) -> None:
+    """Blocks until the device work queued so far is done."""
+    _synchronize()
 
 
 class Timer:

@@ -450,7 +450,9 @@ def test_layer_fused_step_consistent_with_fused_sequence(monkeypatch):
 
 def test_fused_pair_sequence_matches_two_fused_passes(monkeypatch):
     """The pair pass (K5's plain versions) equals the two layers' own fused
-    passes, outputs and memories."""
+    passes, outputs and memories; with ``CUSRL_TPU_PAIR_CONCAT=1`` too, and
+    then it matches JAX's concatenated branch (its Pallas kernels in
+    interpret mode)."""
     monkeypatch.setenv("CUSRL_TPU_FUSED_TRANSFORMER", "force")
     (ja, ta), (jc, tc) = _layer_pair(seed=6), _layer_pair(seed=7)
     t_len, batch = 8, 5
@@ -468,6 +470,22 @@ def test_fused_pair_sequence_matches_two_fused_passes(monkeypatch):
             _close_memory(got, want, dict(rtol=0, atol=0))
         else:
             torch.testing.assert_close(got, want, rtol=0, atol=0)
+    # The one-lane-call pass (both layers' environments in one attention
+    # call): the same bits as the two calls, and JAX's concatenated branch.
     monkeypatch.setenv("CUSRL_TPU_PAIR_CONCAT", "1")
-    with pytest.raises(NotImplementedError, match="PAIR_CONCAT"):
-        tca.fused_pair_sequence(ta, tc, _t(xa), _t(xc), mem_a, mem_c, done)
+    with torch.no_grad():
+        concat = tca.fused_pair_sequence(ta, tc, _t(xa), _t(xc), mem_a, mem_c, done)
+    for got, want in zip(concat, (la, lc, ma, mc)):
+        if isinstance(got, dict):
+            _close_memory(got, want, dict(rtol=0, atol=0))
+        else:
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+    jmem_a, jmem_c = _memories(ja, batch, 72)[0], _memories(jc, batch, 73)[0]
+    # A fresh function, so no trace made with the variable unset is reused.
+    jouts = jax.jit(lambda *args: jca.fused_pair_sequence(*args))(ja, jc, jnp.asarray(xa), jnp.asarray(xc), jmem_a,
+                                                                  jmem_c, jnp.asarray(done.numpy()))
+    for got, want in zip(concat, jouts):
+        if isinstance(got, dict):
+            _close_memory(got, want, LAYER_OUT)
+        else:
+            _close(got, want, LAYER_OUT)

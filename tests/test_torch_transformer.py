@@ -143,8 +143,16 @@ def test_mha_projections_match_jax(dtype):
         _close(got, want, _tol(dtype))
     heads = rng.standard_normal((3, 2, 6, 8)).astype(np.float32)
     _close(t.merge_output(torch.from_numpy(heads)), j.merge_output(jnp.asarray(heads)), _tol(dtype))
-    with pytest.raises(NotImplementedError, match="QK-norm"):
-        tmha.MultiheadAttention(16, 2, qk_norm=True)
+    # QK-norm: the RMS norm of each head's q and k (non-unit scales), before RoPE on q; k stays un-rotated.
+    jn = jmha.MultiheadAttention.init(jax.random.key(4), 16, 2, qk_norm=True, rope=True, compute_dtype=dtype)
+    jn = jn.replace(q_norm=jn.q_norm.replace(scale=jnp.asarray(rng.random(8) + 0.5, jnp.float32)),
+                    k_norm=jn.k_norm.replace(scale=jnp.asarray(rng.random(8) + 0.5, jnp.float32)))
+    tn = _carry(jn, tmha.MultiheadAttention(16, 2, qk_norm=True, rope=True, compute_dtype=dtype))
+    want = jn.project_qkv_raw(jnp.asarray(x), q_positions=jnp.asarray(positions))
+    got = tn.project_qkv_raw(torch.from_numpy(x), q_positions=torch.from_numpy(positions))
+    for g, w in zip(got, want):
+        assert g.dtype == tq.dtype
+        _close(g, w, _tol(dtype))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
