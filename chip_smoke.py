@@ -249,7 +249,23 @@ without printing a result:
    on half its rows; each path prints each rank's launches, minibatch
    rows, collectives (calls and bytes) and the seconds of both updates; a
    rank that fails or outlives its time fails the run;
-10. each phase's seconds on a line of its own as it ends, and all of them
+10. ``[tp]``: tensor parallelism and the hierarchical mesh (``--tp-rank``
+   processes on this one card, the NCCL probe first: gloo where NCCL refuses
+   two ranks on one device).  Two ranks (1 x 2: ``model=2``) take path A's
+   update (4,096 environments), TF's (at lr 1e-4) and AMP's, then path A
+   through ``Trainer.rollout_and_update`` (a warm-up iteration and a chunk
+   of 3; env-steps/s beside ``[train-zoo] A``'s, no claim); side by side
+   four ranks take path A's update on 2 x 2 (4,096 environments a data
+   rank) and on ``dcn=2 x data=2`` (2,048 a data rank: the same 8,192
+   environments).  Each case against this process's one-process update of
+   its joined rollout at ``[update-check]``'s limits (the shards gathered),
+   every rank's state bit for bit equal, 0 MLP chain kernel launches on the
+   sharded chains and the one-process counts of the kernels with whole
+   weights (TF's fused block and attention kernels), A2's counts on the
+   hierarchical mesh, the tensor-parallel warning once a rank, the
+   collectives' calls and bytes a minibatch by axis; the model peers of the
+   Trainer seeded alike and ending with the same observations and state;
+11. each phase's seconds on a line of its own as it ends, and all of them
    in one ``[seconds]`` line; the total seconds, the ``nvidia-smi`` line,
    the ``kernels`` JSON line
    (each kernel's launches from the path that runs it, ``launches_by_path``
@@ -257,7 +273,9 @@ without printing a result:
    ``{"ok": true, ...}`` line.
 
 ``python3 chip_smoke.py --ddp`` runs only ``[ddp]``; ``--ddp-cards`` runs A2's
-check with one rank on each card of the machine, over NCCL.
+check with one rank on each card of the machine, over NCCL.  ``--tp`` runs
+only ``[tp]``; ``--tp-cards`` its four-rank cases (2 x 2 and ``dcn=2 x
+data=2``) with one NCCL rank on each of four cards.
 ``python3 chip_smoke.py --paths TL C`` runs only the named paths'
 ``[train-zoo]`` chunks and profiles (``SC PO``: the control paths) (``H``: its host-loop iterations and
 profile; ``TJC``: its profiled iteration), with the kernels of the package beside
@@ -3112,6 +3130,7 @@ PO_MB = sum(PO_MINI_BATCHES)  # 16 minibatches an update
 PO_MB_ROWS = NUM_ENVS * STEPS // 2  # 49,152 rows per minibatch in PO's 2-minibatch epochs
 CONTROL_PATHS = ("SC", "PO")  # [update-check], [train-zoo] and [profile]
 TRAINED: dict = {}  # [train-zoo]'s trained agents by path: A's is path D's expert
+ZOO_RATES: dict = {}  # [train-zoo]'s env-steps/s by path
 
 
 def _s_mirrors():
@@ -4864,6 +4883,11 @@ def _run_ranks(args: list[str], world: int, timeout: float, workdir: Path, tag: 
     card 0 or (``spread``) each on its own card; waits for all of them, kills
     every one that is left once one fails or ``timeout`` passes.  Returns
     their exit codes (None: killed) and the end of each one's output."""
+    return _wait_ranks(*_start_ranks(args, world, workdir, tag, spread), timeout)
+
+
+def _start_ranks(args: list[str], world: int, workdir: Path, tag: str, spread: bool = False):
+    """``_run_ranks``'s start: the processes and their logs."""
     port = _free_port()
     logs = [workdir / f"{tag}{rank}.log" for rank in range(world)]
     procs = []
@@ -4872,6 +4896,11 @@ def _run_ranks(args: list[str], world: int, timeout: float, workdir: Path, tag: 
             procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()), *args],
                                           env={**os.environ, **_group_env(rank, world, port, rank * spread)},
                                           stdout=log, stderr=subprocess.STDOUT, cwd=REPO))
+    return procs, logs
+
+
+def _wait_ranks(procs, logs, timeout: float) -> tuple[list, list[str]]:
+    """``_run_ranks``'s wait, from now."""
     deadline = time.perf_counter() + timeout
     try:
         while any(p.poll() is None for p in procs) and time.perf_counter() < deadline:
@@ -5047,6 +5076,307 @@ def check_ddp_ranks(kind: str, world: int = DDP_RANKS, spread: bool = False) -> 
         return {"backend": backend, "rank_launches": {p: ranks[0][p]["launches"] for p in DDP_PATHS},
                 "seconds": elapsed, "rank_seconds": {p: ranks[0][p]["seconds"] for p in DDP_PATHS},
                 "one_process_seconds": oracle_seconds}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+# -- [tp]: tensor parallelism and the hierarchical mesh ----------------------------
+
+# (case, world, model axis, dcn axis, path, environments a data rank).  A at 1 x 2 and 2 x 2 takes 4,096
+# environments a data rank; on dcn=2 x data=2 each of the four data ranks takes 2,048, so 2 x 2 and the
+# hierarchical mesh join the same 8,192 environments.
+TP_CASES = (
+    ("A 1x2", 2, 2, 1, "A", NUM_ENVS),
+    ("TF 1x2", 2, 2, 1, "TF", T_ENVS),
+    ("AMP 1x2", 2, 2, 1, "AMP", T_ENVS),
+    ("A 2x2", 4, 2, 1, "A", NUM_ENVS),
+    ("A dcn2x2", 4, 1, 2, "A", NUM_ENVS // 2),
+)
+TP_TRAINER_ITERATIONS = 3  # [tp] A 1x2 through the Trainer: one warm-up iteration, then a chunk of 3
+TP_RANK_TIMEOUT = 420.0  # seconds a rank process may take, its start and CUDA's included
+MLP_CHAIN_KERNELS = ("K1f", "K1b", "K2f", "K2b", "K8f", "K8b", "K9s", "K9m")
+TP_WARNING = "disables the fused MLP chain kernels"
+
+
+def _tp_inputs(workdir: Path, cases) -> tuple[dict, dict]:
+    """This process's one-process updates of the ``[tp]`` cases' joined
+    rollout (path A at 4,096 and 8,192 environments; TF and AMP from
+    ``_ddp_route_inputs`` at their entries' 1,024), with the inputs the ranks
+    read: ``({case: oracle}, {case: seconds})``."""
+    import torch
+
+    from cusrl_tpu_torch.environment.locomotion import VelocityLocomotionEnv
+    from cusrl_tpu_torch.utils.nest import map_nested
+
+    oracle, seconds, inputs = {}, {}, {}
+    for name, world, model, dcn, path, envs in cases:
+        total = world // model * envs
+        if path != "A":
+            oracle[name], seconds[name] = _ddp_route_inputs(path, world // model, workdir, None)
+            continue
+        if total not in inputs:
+            # Built at the joined environments: a rank takes its rows of each per-environment leaf.
+            agent = _zoo_agent_factory("A")(VelocityLocomotionEnv(num_instances=total).spec, seed=SEED)
+            state = _agent_state(agent)
+            rollout, perms = _ddp_rollout(agent, total, SEED + 13), _ddp_perms(total)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            inputs[total] = {"state": state, "rollout": map_nested(lambda x: x.cpu(), rollout), "perms": perms,
+                             "oracle": _ddp_update(agent, rollout, perms, distributed_update=False)}
+            torch.cuda.synchronize()
+            inputs[total]["seconds"] = time.perf_counter() - start
+        oracle[name], seconds[name] = inputs[total]["oracle"], inputs[total]["seconds"]
+    torch.save({total: {k: v for k, v in case.items() if k not in ("oracle", "seconds")}
+                for total, case in inputs.items()}, workdir / "A.pt")
+    return oracle, seconds
+
+
+def _tp_update(path: str, mesh, envs: int, workdir: Path) -> dict:
+    """One rank's update of a ``[tp]`` case of path ``path`` on ``mesh``: the agent
+    distributed (``tensor_parallel=True``), the state written (each rank its
+    part of a sharded leaf), its data rank's environments' part of the
+    rollout, the plan (and AMP's draws) fed.  Returns the metrics, the first
+    minibatch's gradient (shards gathered), the launches, each minibatch's
+    rows, the collectives by axis and the state (shards gathered)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from cusrl_tpu_torch.environment.locomotion import VelocityLocomotionEnv
+    from cusrl_tpu_torch.parallel import distribute_agent
+    from cusrl_tpu_torch.parallel.tensor import shard_of
+    from cusrl_tpu_torch.utils import distributed
+    from cusrl_tpu_torch.utils.interop import state_entries
+    from cusrl_tpu_torch.utils.nest import map_nested
+
+    model = mesh.shape["model"] if hasattr(mesh, "shape") else 1
+    data_rank = dist.get_rank() // model
+    if path == "A":
+        inputs = torch.load(workdir / "A.pt", weights_only=False)[envs * dist.get_world_size() // model]
+        agent = _zoo_agent_factory("A")(VelocityLocomotionEnv(num_instances=envs).spec, seed=SEED + 100)
+        draws = []
+    else:
+        inputs = torch.load(workdir / f"{path}.pt", weights_only=False)
+        factory, _, _ = _ddp_factory(path)
+        agent = factory.agent(_ddp_environment(factory, envs, SEED + data_rank).spec, seed=SEED + 100)
+        draws = inputs["draws"]
+    distribute_agent(agent, mesh, tensor_parallel=True)
+    rows = np.arange(data_rank * envs, (data_rank + 1) * envs)
+    per_env = []
+    with torch.no_grad():
+        for key, entry in state_entries(agent).items():
+            value = inputs["state"][key]
+            if tuple(value.shape) != tuple(entry.shape):
+                value = np.take(value, rows, axis=[a != b for a, b in zip(value.shape, entry.shape)].index(True))
+                per_env.append(key)
+            entry.write(key, value)
+    if draws:
+        agent.get_hook(AMP_HOOK).queue_draws(subsample=draws)
+    rollout = map_nested(lambda x: x[:, data_rank * envs:(data_rank + 1) * envs].to(agent.device), inputs["rollout"])
+    distributed.reset_collective_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    metrics, grads, launches, batch_rows = _ddp_update(agent, rollout, inputs["perms"], distributed_update=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    collectives = {axis: {k: tuple(v) for k, v in kinds.items()}
+                   for axis, kinds in distributed.COLLECTIVES_BY_AXIS.items()}
+    params = dict(agent.model.named_parameters())
+    sharded = sorted(k for k, p in params.items() if shard_of(p) is not None)
+    for key in sharded:
+        if key in grads:
+            grads[key] = shard_of(params[key]).gather(grads[key].to(agent.device)).cpu()
+    state = {k: v for k, v in _agent_state(agent).items() if k not in per_env}
+    return {"metrics": metrics, "grads": grads, "launches": launches, "rows": batch_rows, "seconds": seconds,
+            "collectives": collectives, "state": state, "sharded": sharded, "per_env": len(per_env)}
+
+
+def _tp_trainer(mesh) -> dict:
+    """``[tp] A 1x2`` through ``Trainer.rollout_and_update``: path A's zoo
+    entry (4,096 environments) built with ``CONFIG.model_parallel_size`` set,
+    so both model peers seed as data rank 0 and step the same environments;
+    one warm-up iteration, then a timed chunk of ``TP_TRAINER_ITERATIONS``
+    with the launch counters set to 0 just before.  Returns the launches,
+    env-steps/s, the last observations and the state (shards gathered)."""
+    import torch
+
+    from cusrl_tpu_torch.parallel import distribute_agent
+    from cusrl_tpu_torch.utils.config import CONFIG
+    from cusrl_tpu_torch.zoo.registry import get_experiment
+
+    CONFIG.model_parallel_size = mesh.shape["model"]
+    try:
+        factory = get_experiment("Velocity-Rough", "ppo").to_training_factory()
+        factory.iterations_per_dispatch = 1
+        trainer = factory(verbose=False)
+        seed = trainer.agent.init_generator.initial_seed()
+        distribute_agent(trainer.agent, mesh, tensor_parallel=True)
+        trainer.rollout_and_update()
+        trainer.iterations_per_dispatch = TP_TRAINER_ITERATIONS
+        torch.cuda.synchronize()
+        _reset_launch_counts()
+        start = time.perf_counter()
+        rows = [trainer.rollout_and_update() for _ in range(TP_TRAINER_ITERATIONS)]
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+        launches = {k: v for k, v in _launch_counts().items() if v}
+        if not all(math.isfinite(v) for row in rows for v in row.values()):
+            raise AssertionError(f"[tp] A 1x2 Trainer: non-finite metrics {rows}")
+        return {"launches": launches, "seed": seed, "host_transfers": trainer.host_transfers,
+                "env_steps_per_s": TP_TRAINER_ITERATIONS * STEPS * trainer.environment.num_instances / elapsed,
+                "observation": trainer.driver._observation.cpu(), "state": _agent_state(trainer.agent)}
+    finally:
+        CONFIG.model_parallel_size = 1
+
+
+def tp_rank(workdir: str, backend: str) -> int:
+    """One rank of ``[tp]``: every case of this world size on its mesh (the
+    groups made once a case, in the same order on every rank), and at world
+    2 the Trainer; the results go to ``tp<W>_rank<r>.pt``."""
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+
+    from cusrl_tpu_torch.parallel import get_mesh
+    from cusrl_tpu_torch.utils.config import configure_distributed
+
+    configure_distributed(backend=backend, timeout_s=DDP_GROUP_TIMEOUT)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    out = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for name, case_world, model, dcn, path, envs in TP_CASES:
+            if case_world == world:
+                out[name] = _tp_update(path, get_mesh(model, dcn_parallel_size=dcn), envs, Path(workdir))
+        if world == 2:
+            out["A 1x2 Trainer"] = _tp_trainer(get_mesh(2))
+    out["warnings"] = [str(w.message) for w in caught if TP_WARNING in str(w.message)]
+    torch.save(out, Path(workdir) / f"tp{world}_rank{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def _probe_backend(label: str, world: int, workdir: Path) -> str:
+    """NCCL if it takes ``world`` ranks on this one card (``--ddp-probe``),
+    else gloo, which moves CUDA tensors through the host."""
+    start = time.perf_counter()
+    codes, logs = _run_ranks(["--ddp-probe"], world, DDP_PROBE_TIMEOUT, workdir, "probe")
+    if codes == [0] * world:
+        print(f"{label}: NCCL accepts {world} ranks on one card ({time.perf_counter() - start:.1f} s): "
+              "the ranks run over NCCL")
+        return "nccl"
+    lines = [line.strip() for log in logs for line in log.splitlines()]
+    reason = next((line for line in lines if "Duplicate GPU" in line or "ncclInvalidUsage" in line),
+                  next((line for line in reversed(lines) if "Error" in line), "no error line"))
+    print(f"{label}: NCCL refuses {world} ranks on one card (exit codes {codes}, "
+          f"{time.perf_counter() - start:.1f} s): {reason[:300]}; the ranks run over gloo")
+    return "gloo"
+
+
+def check_tp(kind: str, spread: bool = False) -> dict:
+    """``[tp]``: tensor parallelism and the hierarchical mesh on rank
+    processes of this one card (``spread``, ``--tp-cards``: the four-rank
+    cases with one NCCL rank a card), every case against this process's
+    one-process update of its joined rollout at ``[update-check]``'s limits
+    (metrics and every leaf of the first minibatch's gradient, the shards
+    gathered), every rank's state (shards gathered) bit for bit equal; 0
+    MLP chain kernel launches on the sharded chains and the one-process
+    counts of the kernels that keep whole weights (TF's fused block and
+    attention kernels); the pure data-parallel hierarchical mesh A2's counts;
+    the warning once a rank; the collectives' calls and bytes a minibatch by
+    axis; path A through the Trainer (env-steps/s beside ``[train-zoo]
+    A``'s, no claim).  A rank that fails or outlives its time fails the
+    run."""
+    import shutil
+
+    import torch
+
+    label = "[tp] cards" if spread else "[tp]"
+    cases = [c for c in TP_CASES if not spread or c[1] == 4]
+    workdir = Path(tempfile.mkdtemp(prefix="tp_"))
+    try:
+        start = time.perf_counter()
+        oracle, oracle_seconds = _tp_inputs(workdir, cases)
+        print(f"{label}: one-process updates of the joined rollouts, {time.perf_counter() - start:.1f} s: " + ", ".join(
+            f"{name} {oracle_seconds[name]:.3f} s, launches {oracle[name][2]}" for name, *_ in cases))
+        worlds = sorted({c[1] for c in cases})
+        backend = "nccl" if spread else _probe_backend(label, 2, workdir)
+        start = time.perf_counter()
+        runs = {world: _start_ranks(["--tp-rank", str(workdir), backend], world, workdir, f"tp{world}_",
+                                    spread=spread) for world in worlds}
+        results = {world: _wait_ranks(*run, TP_RANK_TIMEOUT) for world, run in runs.items()}
+        elapsed = time.perf_counter() - start
+        for world, (codes, logs) in results.items():
+            if codes != [0] * world:
+                raise AssertionError(f"{label}: world {world} rank exit codes {codes} (None: killed at "
+                                     f"{TP_RANK_TIMEOUT:g} s or after another rank failed):\n" + "\n".join(logs))
+        ranks = {world: [torch.load(workdir / f"tp{world}_rank{r}.pt", weights_only=False) for r in range(world)]
+                 for world in worlds}
+        print(f"{label}: {' and '.join(f'{w} ranks' for w in worlds)} over {backend} side by side, {elapsed:.1f} s "
+              "for the processes, start to exit")
+        failures = []
+        for world in worlds:
+            for rank, result in enumerate(ranks[world]):
+                warned = result["warnings"]
+                print(f"{label}: world {world} rank {rank}: the tensor-parallel warning {len(warned)} time(s)"
+                      + (f": {warned[0]}" if warned else ""))
+                if len(warned) != 1:
+                    failures.append(f"world {world} rank {rank}: warned {len(warned)} times")
+        fields = {}
+        for name, world, model, dcn, path, envs in cases:
+            first = ranks[world][0][name]
+            for rank, result in enumerate(ranks[world][1:], 1):
+                r = result[name]
+                differ = [k for k in first["metrics"] if r["metrics"][k] != first["metrics"][k]]
+                differ += _states_differ(r["state"], first["state"])
+                differ += [f"grad {k}" for k in first["grads"] if not torch.equal(r["grads"][k], first["grads"][k])]
+                if differ:
+                    failures.append(f"{name}: rank {rank} differs from rank 0 in {differ[:8]}")
+            want = oracle[name][2]
+            if model > 1:  # every Mlp sharded: no chain kernel; the kernels with whole weights as one process
+                expected = {k: v for k, v in want.items() if k not in MLP_CHAIN_KERNELS}
+            else:  # the hierarchical mesh is data parallelism: A2's counts on a rank's slices
+                expected = _DDP_UPDATE["A"]
+            per_mb = {axis: {kind: (n / len(first["rows"]), b / len(first["rows"])) for kind, (n, b) in kinds.items()}
+                      for axis, kinds in first["collectives"].items()}
+            print(f"{label}: {name} (world {world}: dcn {dcn} x data {world // model // dcn} x model {model}), "
+                  f"{envs} environments a data rank: rank 0 launches {first['launches']} (one process {want}; "
+                  f"expected {expected}), {len(first['sharded'])} sharded leaves, minibatch rows "
+                  f"{sorted(set(first['rows']))} x {len(first['rows'])}, update {first['seconds']:.3f} s (one process "
+                  f"{oracle_seconds[name]:.3f} s); collectives a minibatch (calls, bytes) by axis: " + "; ".join(
+                      f"{axis} " + ", ".join(f"{kind} {n:g}, {b:,.0f}" for kind, (n, b) in kinds.items())
+                      for axis, kinds in sorted(per_mb.items())))
+            for rank, result in enumerate(ranks[world]):
+                if result[name]["launches"] != expected:
+                    failures.append(f"{name}: rank {rank} launched {result[name]['launches']}, expected {expected}")
+            if (model > 1) != bool(first["sharded"]) or (model > 1 and "model" not in first["collectives"]):
+                failures.append(f"{name}: {len(first['sharded'])} sharded leaves, collectives {first['collectives']}")
+            print(f"{label}: {name}, rank 0 against one process of the joined rollout:")
+            failed = update_check_failures(*oracle[name][:2], first["metrics"], first["grads"], report=True)
+            failures += [f"{name}: {key}" for key in failed]
+            fields[name] = {"launches": first["launches"], "seconds": first["seconds"], "collectives": per_mb}
+        if 2 in ranks:
+            first, second = (result["A 1x2 Trainer"] for result in ranks[2])
+            differ = _states_differ(first["state"], second["state"])
+            same_obs = torch.equal(first["observation"], second["observation"])
+            chain = {k: v for k, v in first["launches"].items() if k in MLP_CHAIN_KERNELS}
+            zoo = ZOO_RATES.get("A")
+            print(f"{label}: A 1x2 through the Trainer: {first['env_steps_per_s']:.1f} env-steps/s over a "
+                  f"{TP_TRAINER_ITERATIONS}-iteration chunk after a warm-up iteration (rank 1 "
+                  f"{second['env_steps_per_s']:.1f}; [train-zoo] A "
+                  f"{'not run in this call' if zoo is None else f'{zoo:.1f}'}; the ranks over {backend}, no claim); "
+                  f"launches {first['launches']}; seeds {first['seed']}, {second['seed']}; the model peers' last "
+                  f"observations {'bit for bit equal' if same_obs else 'DIFFER'}; state "
+                  f"{'bit for bit equal' if not differ else 'DIFFERS: ' + ', '.join(differ[:8])}")
+            if differ or not same_obs or chain or first["seed"] != second["seed"]:
+                failures.append("A 1x2 Trainer: the model peers part or a chain kernel ran")
+            fields["A 1x2 Trainer"] = {"env_steps_per_s": first["env_steps_per_s"], "launches": first["launches"]}
+        if failures:
+            raise AssertionError(f"{label} failed: " + "; ".join(failures))
+        print(f"{label}: every case within [update-check]'s limits of its one process (rtol {UPDATE_RTOL:g}, atol "
+              f"{UPDATE_ATOL:g}; gradient leaves {GRAD_RTOL:g}), the ranks bit for bit equal, on {kind}")
+        return {"backend": backend, "cases": fields, "seconds": elapsed}
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -5299,6 +5629,8 @@ def main(argv: list[str]) -> int:
         return ddp_rank(argv[1], argv[2])
     if argv[:1] == ["--ddp-probe"]:  # a rank process of [ddp] A2's NCCL probe
         return ddp_probe()
+    if argv[:1] == ["--tp-rank"]:  # a rank process of [tp]
+        return tp_rank(argv[1], argv[2])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
@@ -5320,6 +5652,17 @@ def main(argv: list[str]) -> int:
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True, timeout=60, check=True).stdout.strip())
         return 0
+    if argv == ["--tp-cards"]:  # [tp]'s four-rank cases with one NCCL rank on each of four cards
+        check_tp(kind, spread=True)
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60, check=True).stdout.strip())
+        return 0
+    if argv == ["--tp"]:  # only the [tp] phase
+        with _phase("[tp]"):
+            check_tp(kind)
+        print(f"[total] {time.perf_counter() - started:.1f} s, the build included")
+        print(smi)
+        return 0
     if argv == ["--ddp"]:  # only the [ddp] phase
         with _phase("[ddp] A1"):
             check_ddp_world1(kind)
@@ -5331,7 +5674,8 @@ def main(argv: list[str]) -> int:
     if argv:  # --paths P ...: only the named paths' [train-zoo] chunks and profiles (comparing two checkouts)
         every = (*PATH_ROUTES, *PATHS, *RECURRENT_PATHS, *AMP_PATHS, *F_PATHS, *H_PATHS, *AUX_PATHS, *CONTROL_PATHS)
         if argv[0] != "--paths" or not set(argv[1:]) <= set(every):
-            print(f"usage: chip_smoke.py [--ddp | --ddp-cards | --paths {' '.join(every)} ...]", file=sys.stderr)
+            print(f"usage: chip_smoke.py [--ddp | --ddp-cards | --tp | --tp-cards | --paths {' '.join(every)} ...]",
+                  file=sys.stderr)
             return 2
         for path in argv[1:]:
             train_zoo(kind, path)
@@ -5406,7 +5750,7 @@ def main(argv: list[str]) -> int:
     path_launches = {}
     for path in (*PATH_ROUTES, *PATHS, *RECURRENT_PATHS, *AMP_PATHS, *F_PATHS, *AUX_PATHS, *CONTROL_PATHS):
         with _phase(f"[train-zoo] {path}"):
-            path_launches[path], _ = train_zoo(kind, path)
+            path_launches[path], ZOO_RATES[path] = train_zoo(kind, path)
     with _phase("[train-zoo] H, [play] H"):
         path_launches["H"], h_rate, h_checkpoint = train_host(kind)
         h_play = play_h(kind, h_checkpoint)
@@ -5424,7 +5768,12 @@ def main(argv: list[str]) -> int:
         ddp_a1 = check_ddp_world1(kind)
     with _phase("[ddp] A2"):
         ddp_a2 = check_ddp_ranks(kind)
+    with _phase("[tp]"):
+        tp = check_tp(kind)
     path_launches["A ddp"] = ddp_a1["launches"]  # A1's distributed Trainer chunk
+    # [tp]: each case's update on rank 0, and A 1x2's Trainer chunk.
+    for name, fields in tp["cases"].items():
+        path_launches[f"{name} tp"] = {**_NONE, **fields["launches"]}
     for key in results:  # each kernel's launches in each path's update on rank 0 of [ddp] A2
         if launched := {p_: n for p_, launches in ddp_a2["rank_launches"].items() if (n := launches.get(key))}:
             results[key]["ddp_rank_launches"] = launched

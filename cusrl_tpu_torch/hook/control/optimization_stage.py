@@ -104,7 +104,7 @@ class OptimizationStage(Hook):
         agent.optimizer.zero_grad()  # the agent's step left its gradients on the parameters
         sum(value.float() for value in objectives.values()).backward()
         if agent.process_group is not None:
-            distributed.reduce_gradients(agent.model.parameters(), agent.row_share, agent.process_group)
+            distributed.reduce_gradients(agent.model.parameters(), agent.row_share, agent.gradient_group)
         for hook in active:
             metrics.update(hook.pre_optim(agent))
         own = [p for module in self.trainable_modules().values() for p in module.parameters()]

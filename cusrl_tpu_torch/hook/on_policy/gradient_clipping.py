@@ -4,13 +4,17 @@
 Each parameter falls into the longest configured path prefix or the default
 group; each group's pre-clip global norm is recorded, and its gradients are
 scaled by ``min(1, limit / max(norm, 1e-12))`` (the JAX formula, not
-``torch.nn.utils.clip_grad_norm_``'s ``limit / (norm + 1e-6)``).
+``torch.nn.utils.clip_grad_norm_``'s ``limit / (norm + 1e-6)``).  The norm is
+over the whole arrays, as JAX's over its logical leaves: on a
+tensor-parallel agent a sharded leaf's squares are summed over the model
+group (one all-reduce a group of leaves), a whole leaf's counted once.
 """
 
 from __future__ import annotations
 
 import torch
 
+from cusrl_tpu_torch.parallel.tensor import reduce_out, shard_of
 from cusrl_tpu_torch.template.hook import Hook
 
 __all__ = ["GradientClipping"]
@@ -42,13 +46,20 @@ class GradientClipping(Hook):
     def pre_optim(self, agent) -> dict:
         limits = dict(self.groups)
         members: dict[str, list[torch.Tensor]] = {}
+        shards: dict[str, list] = {}
         for path, param in agent.model.named_parameters():
             if param.grad is not None:
                 members.setdefault(self._match(path), []).append(param.grad)
+                shards.setdefault(self._match(path), []).append(shard_of(param))
         metrics = {}
         for group in sorted(members):
             grads = members[group]
-            norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+            whole = [g for g, shard in zip(grads, shards[group]) if shard is None]
+            split = [(g, shard) for g, shard in zip(grads, shards[group]) if shard is not None]
+            squares = sum(g.float().square().sum() for g in whole)
+            if split:
+                squares = squares + reduce_out(sum(g.float().square().sum() for g, _ in split), split[0][1].group)
+            norm = torch.sqrt(squares)
             metrics[f"grad_norm/{group or 'default'}"] = norm
             limit = limits.get(group, self.max_grad_norm)
             if limit is not None:

@@ -11,7 +11,10 @@ same launch (``fused_mlp_pair_heads``, K8f/K8b): only ``[rows, A]`` means and
 ``[rows, Dv]`` values leave the kernel.
 Elsewhere the stacked plain branch runs: per layer, the two weight matrices
 are stacked to ``[2, out, in]`` and applied to the stacked ``[2, B, in]``
-activations with the Linear layer's numerics.
+activations with the Linear layer's numerics, through
+``parallel.tensor.parallel_chain``: on a tensor-parallel agent the two
+backbones hold the same shards (one spec, one shape), and each collective
+carries both chains; on whole weights it moves nothing.
 """
 
 from __future__ import annotations
@@ -21,29 +24,37 @@ import torch
 from cusrl_tpu_torch.nn.kernels.fused_mlp import MAX_HEAD_DIM, fused_mlp_pair, fused_mlp_pair_heads
 from cusrl_tpu_torch.nn.module.distribution import NormalDist
 from cusrl_tpu_torch.nn.module.mlp import Mlp
+from cusrl_tpu_torch.parallel.tensor import parallel_chain, shard_of
 from cusrl_tpu_torch.template.hook import Hook
 from cusrl_tpu_torch.utils.nest import get_first
 
 __all__ = ["JointPolicyValueEvaluation"]
 
 
-def _stacked_linear(x, weight, bias, compute_dtype):
-    """x ``[K, ..., in]``, weight ``[K, out, in]``, bias ``[K, out]``; the
-    numerics of ``nn/layer/linear.py``.  The lead dimensions (a temporal
-    batch's, the symmetric augmentation's) flatten into one."""
+def _stacked_product(x, layer_a, layer_c):
+    """x ``[2, ..., in]`` through the two layers' weights stacked to ``[2,
+    out, in]``: the fp32 products without the biases (``Linear.product``'s
+    numerics; a row-parallel pair's partial sums).  The lead dimensions (a
+    temporal batch's, the symmetric augmentation's) flatten into one."""
     lead = x.shape[1:-1]
     x = x.reshape(x.shape[0], -1, x.shape[-1])
-    if compute_dtype is not None:
-        dtype = getattr(torch, compute_dtype)
+    weight = torch.stack([layer_a.weight, layer_c.weight])
+    if layer_a.compute_dtype is not None:
+        dtype = getattr(torch, layer_a.compute_dtype)
         y = torch.bmm(x.to(dtype).float(), weight.to(dtype).float().transpose(1, 2))
-        if bias is not None:
-            y = y + bias[:, None, :]
-        y = y.to(dtype)
     else:
         y = torch.bmm(x.float(), weight.transpose(1, 2))
-        if bias is not None:
-            y = y + bias[:, None, :]
     return y.reshape(y.shape[0], *lead, y.shape[-1])
+
+
+def _stacked_finish(y, layer_a, layer_c, act):
+    """``_stacked_product``'s sums with the biases, in the compute dtype
+    (``Linear.finish``), activated unless ``act`` is None."""
+    if layer_a.bias is not None:
+        y = y + torch.stack([layer_a.bias, layer_c.bias]).reshape(2, *([1] * (y.dim() - 2)), -1)
+    if layer_a.compute_dtype is not None:
+        y = y.to(getattr(torch, layer_a.compute_dtype))
+    return y if act is None else act(y)
 
 
 def _fusable(actor_backbone, critic_backbone) -> str | None:
@@ -140,12 +151,11 @@ class JointPolicyValueEvaluation(Hook):
             x = torch.stack([observation, critic_input])
             act = ab.activation_fn
             num_layers = len(ab.layers)
-            for index, (la, lc) in enumerate(zip(ab.layers, cb.layers)):
-                weight = torch.stack([la.weight, lc.weight])
-                bias = None if la.bias is None else torch.stack([la.bias, lc.bias])
-                x = _stacked_linear(x, weight, bias, la.compute_dtype)
-                if index < num_layers - 1 or ab.ends_with_activation:
-                    x = act(x)
+            x = parallel_chain(x, [shard_of(la.weight) for la in ab.layers],
+                               lambda h, index: _stacked_product(h, ab.layers[index], cb.layers[index]),
+                               lambda y, index: _stacked_finish(y, ab.layers[index], cb.layers[index],
+                                                                act if index < num_layers - 1
+                                                                or ab.ends_with_activation else None))
             actor_latent, critic_latent = x[0], x[1]
         batch["curr_action_dist"] = actor.distribution(actor_latent)
         batch["actor_intermediate"] = {"backbone.output": actor_latent}

@@ -81,11 +81,13 @@ __all__ = [
     "ppo_step_plan",
     "head_bwd_plain",
     "mlp_chain_bwd_plain",
+    "mlp_chain_fwd_parallel",
     "mlp_chain_fwd_plain",
     "pad_input",
     "pair_heads_fwd_plain",
     "reset_launch_counts",
     "supports_fused_mlp",
+    "warn_tensor_parallel",
 ]
 
 _BF16 = torch.bfloat16
@@ -169,6 +171,48 @@ def mlp_chain_fwd_plain(x, weights, biases, activation: str, trailing: bool, sav
         if save_hiddens and layer < num_layers - 1:
             hiddens.append(z if activation in _PREACT_ACTIVATIONS else h)
     return h, hiddens
+
+
+def mlp_chain_fwd_parallel(x, weights, biases, activation: str, trailing: bool):
+    """``mlp_chain_fwd_plain``'s output on a chain whose weights may be
+    tensor-parallel shards (their ``tp_shard``): the same bf16 numerics, with
+    the Megatron operators between the layers (``parallel.tensor``); on
+    whole weights the same bits."""
+    from cusrl_tpu_torch.parallel.tensor import parallel_chain, shard_of
+
+    num_layers = len(weights)
+
+    def product(h, layer):
+        return h.float() @ weights[layer].to(_BF16).float().T
+
+    def finish(y, layer):
+        z = (y + biases[layer].float()).to(_BF16)
+        return _act_plain(activation, z.float()).to(_BF16) if (layer < num_layers - 1 or trailing) else z
+
+    return parallel_chain(x.to(_BF16), [shard_of(w) for w in weights], product, finish)
+
+
+_tp_warned = False
+
+
+def warn_tensor_parallel(mesh_shape) -> None:
+    """The one-time notice (a ``UserWarning``, once a process) that model-axis
+    sharding takes the sharded Mlp modules off the MLP chain kernels, as
+    JAX's ``kernel_mesh_status`` announces its own fallback."""
+    global _tp_warned
+    if _tp_warned:
+        return
+    _tp_warned = True
+    import warnings
+
+    warnings.warn(
+        f"Model-axis sharding on mesh {dict(mesh_shape)} disables the fused MLP chain kernels "
+        "(K1f/K1b, K2f/K2b, K8f/K8b, K9s/K9m) on the sharded Mlp modules: the kernels take whole weights and "
+        "fuse a chain across the row-parallel boundary, so those modules run their layers plain, with the "
+        "collectives between them.  Modules whose weights stay whole (the attention kernels K3f/K3b/K6/K7f, "
+        "the fused block K4/K5, an Mlp left replicated) keep their kernels.",
+        stacklevel=3,
+    )
 
 
 def pair_heads_fwd_plain(x, weights, biases, head_weight, head_bias, activation: str, trailing: bool, save: bool):

@@ -54,6 +54,7 @@ from cusrl_tpu_torch.nn.kernels.fused_mlp import (
     _on_cuda,
     head_bwd_plain,
     mlp_chain_bwd_plain,
+    mlp_chain_fwd_parallel,
     mlp_chain_fwd_plain,
     supports_fused_mlp,
 )
@@ -90,9 +91,12 @@ def ppo_step_reference(xa, xc, weights_a, biases_a, weights_c, biases_c, mean_we
                        value_bias, std, action, old_logp, advantage, old_value, returns, clip_ratio, w_surr, w_value,
                        activation="elu", trailing=True, loss_clip=None):
     """The objective with differentiable tensor ops (gradients by autograd):
-    ``(loss_core, metrics dict)``; numerics of the standard hook trio."""
-    la, _ = mlp_chain_fwd_plain(xa, weights_a, biases_a, activation, trailing, False)
-    lc, _ = mlp_chain_fwd_plain(xc, weights_c, biases_c, activation, trailing, False)
+    ``(loss_core, metrics dict)``; numerics of the standard hook trio.  The
+    chains are ``mlp_chain_fwd_plain``'s, bit for bit, through the Megatron
+    operators where a tensor-parallel agent's weights are shards
+    (``mlp_chain_fwd_parallel``)."""
+    la = mlp_chain_fwd_parallel(xa, weights_a, biases_a, activation, trailing)
+    lc = mlp_chain_fwd_parallel(xc, weights_c, biases_c, activation, trailing)
     return ppo_loss_reference(la, lc, mean_weight, mean_bias, value_weight, value_bias, std, action, old_logp,
                               advantage, old_value, returns, clip_ratio, w_surr, w_value, loss_clip)
 

@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cusrl_tpu_torch.parallel.tensor import logical_shape
+
 __all__ = ["ACTIVATIONS", "Linear", "get_activation"]
 
 
@@ -71,11 +73,11 @@ class Linear(nn.Module):
 
     @property
     def input_dim(self) -> int:
-        return self.weight.shape[1]
+        return logical_shape(self.weight)[1]
 
     @property
     def output_dim(self) -> int:
-        return self.weight.shape[0]
+        return logical_shape(self.weight)[0]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.compute_dtype is not None:
@@ -83,3 +85,17 @@ class Linear(nn.Module):
             y = F.linear(x.to(dtype).float(), self.weight.to(dtype).float(), self.bias)
             return y.to(dtype)
         return F.linear(x.float(), self.weight, self.bias)
+
+    def product(self, x: torch.Tensor) -> torch.Tensor:
+        """The fp32 product without the bias (a row-parallel layer's partial
+        sum, before the reduce)."""
+        if self.compute_dtype is not None:
+            dtype = getattr(torch, self.compute_dtype)
+            return F.linear(x.to(dtype).float(), self.weight.to(dtype).float())
+        return F.linear(x.float(), self.weight)
+
+    def finish(self, y: torch.Tensor) -> torch.Tensor:
+        """``product``'s sum with the bias added, in the compute dtype."""
+        if self.bias is not None:
+            y = y + self.bias
+        return y if self.compute_dtype is None else y.to(getattr(torch, self.compute_dtype))

@@ -12,7 +12,9 @@ and eps 1e-6; QK-norm as an RMS norm over each head's features (fp32, eps
 1e-6, an fp32 scale of the head's width, cast back) on q and k after the
 projection and before RoPE, so a ring cache holds normed keys that are not
 yet rotated.  On CUDA tensors with enough rows the FeedForward runs as one
-fused chain kernel with gelu (``nn/kernels/fused_mlp.py``).
+fused chain kernel with gelu (``nn/kernels/fused_mlp.py``).  These layers
+declare no tensor-parallel specs: under tensor parallelism their weights stay
+whole and their kernels run as in one process.
 """
 
 from __future__ import annotations

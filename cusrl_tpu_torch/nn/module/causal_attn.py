@@ -40,6 +40,13 @@ sequence mode, the ring's SDPA in a step, K6 in the next-token pass.
 ``CUSRL_TPU_PAIR_CONCAT=1`` (read per call) makes the pair pass one lane
 call over both networks' environments side by side.  The env-minor variants
 (``CUSRL_TPU_SEQCORE_EM``, ``CUSRL_TPU_LANE_EM``) are not ported.
+
+Under tensor parallelism (``parallel.distribute_agent(...,
+tensor_parallel=True)``) these modules keep their weights whole (only
+``Mlp`` declares ``tp_specs``), so the attention kernels (K3f/K3b/K6/K7f)
+and the fused block (K4/K5) run as in one process, with the same numerics,
+where the JAX package's rule drops every Pallas kernel under a mesh; a
+sharded Mlp head after them runs its layers plain.
 """
 
 from __future__ import annotations

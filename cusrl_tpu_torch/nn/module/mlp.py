@@ -10,6 +10,20 @@ a network differentiated to second order (AMP's discriminator and its
 gradient penalty) needs it, as the kernels' backward is first-order.
 ``min_fused_rows`` is the JAX rule's floor of 256 rows; an agent in inference
 mode sets it to 1, so a policy step below the floor still takes the kernel.
+
+Tensor parallelism: ``tp_specs`` declares JAX's Megatron partition (even
+layers shard their output dimension, odd layers their input dimension), and
+``parallel.distribute_agent(..., tensor_parallel=True)`` narrows the
+parameters to this rank's parts.  A sharded Mlp (``sharded``) runs its
+layers plain through ``parallel.tensor.parallel_chain``: copy-in before a
+column layer, its bias and activation on the shard; the partial product of a
+row layer reduced before its replicated bias; the output gathered where the
+last sharded layer is a column layer.  The chain kernels fuse across the
+row-parallel boundary and take whole weights, so ``_can_fuse`` is False for
+it, as JAX's model-axis mesh takes every Mlp off its kernels
+(``warn_tensor_parallel`` says so once a process).  An Mlp whose leaves all
+stayed whole keeps its kernel, as do the modules with whole weights (the
+attention and fused-block kernels).
 """
 
 from __future__ import annotations
@@ -23,6 +37,7 @@ from torch import nn
 from cusrl_tpu_torch.nn.base import BackboneContract
 from cusrl_tpu_torch.nn.kernels.fused_mlp import fused_mlp, supports_fused_mlp
 from cusrl_tpu_torch.nn.layer.linear import Linear, get_activation
+from cusrl_tpu_torch.parallel.tensor import parallel_chain, shard_of
 
 __all__ = ["Mlp", "MlpFactory"]
 
@@ -55,14 +70,36 @@ class Mlp(BackboneContract, nn.Module):
     def activation_fn(self) -> Callable:
         return get_activation(self.activation)
 
+    @property
+    def sharded(self) -> bool:
+        """Whether any layer's weight is a tensor-parallel shard."""
+        return any(shard_of(layer.weight) is not None for layer in self.layers)
+
+    def tp_specs(self) -> dict[str, tuple]:
+        """Megatron-style tensor-parallel partition declaration: even layers
+        shard the output (hidden) dimension, odd layers the input dimension.
+        Keys are paths relative to this module; "model" names the mesh's
+        model axis (JAX's ``Mlp.tp_specs``; both store weights ``[out, in]``)."""
+        specs: dict[str, tuple] = {}
+        for i, layer in enumerate(self.layers):
+            if i % 2 == 0:
+                specs[f"layers.{i}.weight"] = ("model", None)
+                if layer.bias is not None:
+                    specs[f"layers.{i}.bias"] = ("model",)
+            else:
+                specs[f"layers.{i}.weight"] = (None, "model")
+        return specs
+
     def _can_fuse(self, x: torch.Tensor) -> bool:
         """The JAX rule (``mlp.py:63-77``) with "backend is TPU" replaced by
-        "tensor is on CUDA" (and its row floor by ``min_fused_rows``)."""
+        "tensor is on CUDA" (and its row floor by ``min_fused_rows``), and
+        its mesh rule by "no layer is sharded"."""
         rows = 1
         for dim in x.shape[:-1]:
             rows *= dim
         return (
             self.fused_kernel
+            and not self.sharded
             and x.dim() >= 2
             and rows >= self.min_fused_rows
             and x.is_cuda
@@ -82,6 +119,15 @@ class Mlp(BackboneContract, nn.Module):
             )
             return out.reshape(*batch_shape, out.shape[-1]), memory, {}
         act = self.activation_fn
+        if self.sharded:
+            count = len(self.layers)
+
+            def finish(y, index):
+                y = self.layers[index].finish(y)
+                return act(y) if index < count - 1 or self.ends_with_activation else y
+
+            shards = [shard_of(layer.weight) for layer in self.layers]
+            return parallel_chain(x, shards, lambda h, index: self.layers[index].product(h), finish), memory, {}
         for index, layer in enumerate(self.layers):
             x = layer(x)
             if index < len(self.layers) - 1 or self.ends_with_activation:

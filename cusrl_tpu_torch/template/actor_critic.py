@@ -61,7 +61,14 @@ needs nothing more; a hook whose loss is another mean (AMP's subsample, a
 masked mean) returns its rank's term of the global mean
 (``utils.distributed.mean_term``).  The objective's metrics are averaged
 with the same weights, one all-reduce an update.  The host loop's
-``update`` runs so on the buffer's rollout.
+``update`` runs so on the buffer's rollout.  On a mesh with a model axis
+``process_group`` is the data group (the batch, ``row_share``, the rollout's
+join, the metrics' means, every hook's statistics); model peers hold the
+same rows, and under tensor parallelism each its part of the sharded Mlp
+parameters, whose forward passes exchange activations over ``model_group``
+(``parallel/tensor.py``).  The gradients are reduced over the data group
+(or a hierarchical mesh's ``ici`` then ``dcn`` groups: ``gradient_group``),
+whole and sharded leaves alike.
 """
 
 from __future__ import annotations
@@ -417,7 +424,7 @@ class ActorCritic(Agent):
             self.optimizer.zero_grad()
             loss.backward()
             if self.process_group is not None:
-                distributed.reduce_gradients(self.model.parameters(), self.row_share, self.process_group)
+                distributed.reduce_gradients(self.model.parameters(), self.row_share, self.gradient_group)
             optim_metrics = self._composite.pre_optim(self)
             self.optimizer.step()
         return step_metrics, optim_metrics, self._composite.post_objective(self, metadata, batch)

@@ -46,12 +46,24 @@ class Agent:
         self.init_generator = torch.Generator().manual_seed(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
         # Data parallelism (parallel.distribute_agent): the process group the
-        # update's collectives run over, and the epoch plan's generator, the
-        # same on every rank (``generator`` stays the rank's own); during an
-        # update, this rank's ``(start, stop, size)`` of the global minibatch.
+        # update's collectives run over (a mesh's data group), and the epoch
+        # plan's generator, the same on every rank (``generator`` stays the
+        # data rank's own); during an update, this rank's ``(start, stop,
+        # size)`` of the global minibatch.  On a mesh with a model axis, the
+        # mesh (``parallel.ProcessMesh``) and its model group.
         self.process_group = None
         self.plan_generator: torch.Generator | None = None
         self.batch_slice: tuple[int, int, int] | None = None
+        self.mesh = None
+        self.model_group = None
+
+    @property
+    def gradient_group(self):
+        """What the gradients' all-reduce runs over: the process group, or a
+        mesh's levels (``utils.distributed.reduce_gradients``).  Model peers
+        need none: they hold the same gradient of every whole leaf by
+        construction, and each its own part of a sharded one."""
+        return self.process_group if self.mesh is None else self.mesh.gradient_levels
 
     def record(self, metrics_dict: dict | None = None, /, **kwargs) -> None:
         self.metrics.record(metrics_dict, **kwargs)

@@ -216,6 +216,17 @@ class PackedAdam(torch.optim.Optimizer):
         for p, mu, nu in zip(self._params, self._mu.split(self._sizes), self._nu.split(self._sizes)):
             self.state[p] = {"step": self._count, "exp_avg": mu.view_as(p), "exp_avg_sq": nu.view_as(p)}
 
+    @torch.no_grad()
+    def repack(self) -> None:
+        """Rebuilds the flat moments from the per-parameter state after the
+        parameters changed shape (tensor parallelism narrows them to this
+        rank's parts, and their state with them)."""
+        self._sizes = [p.numel() for p in self._params]
+        self._mu = torch.cat([self.state[p]["exp_avg"].reshape(-1) for p in self._params])
+        self._nu = torch.cat([self.state[p]["exp_avg_sq"].reshape(-1) for p in self._params])
+        for p, mu, nu in zip(self._params, self._mu.split(self._sizes), self._nu.split(self._sizes)):
+            self.state[p].update(exp_avg=mu.view_as(p), exp_avg_sq=nu.view_as(p))
+
     def _lr_vector(self):
         groups = self.param_groups
         if len(groups) == 1:

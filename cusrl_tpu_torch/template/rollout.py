@@ -16,8 +16,9 @@ transformer entry's shapes) are never stored.  Only a sampler with
 transitions then carry, as the JAX driver keeps them.  The actor's memory
 stays on the agent from rollout to rollout.  Under a data-parallel agent each
 rank's driver steps its own environments (the JAX driver shards them over
-the mesh) and the episode aggregates are averaged across ranks on the
-device: one all-reduce a rollout, no host transfer.
+the mesh; model peers of a tensor-parallel mesh step the same ones) and the
+episode aggregates are averaged across the data ranks on the device: one
+all-reduce a rollout, no host transfer.
 """
 
 from __future__ import annotations

@@ -41,7 +41,9 @@ chunks also clamp to those two iterations, so the trace holds exactly the
 window's device work.
 
 Under several processes (``torchrun``) each rank runs its own Trainer, as in
-the JAX package: env-steps count ``x world_size``, the logged scalars are
+the JAX package: env-steps count ``x`` the data ranks (the world, or a
+distributed agent's data group: model peers step the same environments),
+the logged scalars are
 averaged across ranks (``utils.distributed.average_dict``), and the run
 directory's files, the logger's output and the prints come from rank 0
 only.  Whether the ranks share one policy is the agent's business
@@ -285,12 +287,17 @@ class Trainer:
         self.timer.add("agent", self._chunk_iter_time)
         row = self._pending_rows.pop(0)
         count, return_sum, length_sum = (float(x) for x in row[:3])
-        steps = self.agent.num_steps_per_update * self.environment.num_instances * distributed.world_size()
+        steps = self.agent.num_steps_per_update * self.environment.num_instances * self._data_ranks()
         self.stats.track_aggregates(count, return_sum, length_sum, steps)
         self.agent.record(dict(zip(self._pending_keys.pop(0), row[3:])))
         summary = self.agent.metrics.summary()
         self.agent.metrics.clear()
         return summary
+
+    def _data_ranks(self) -> int:
+        """The processes that step environments of their own."""
+        group = getattr(self.agent, "process_group", None)
+        return distributed.world_size() if group is None else torch.distributed.get_world_size(group)
 
     def _rollout_and_update_host(self) -> dict[str, float]:
         env, agent = self.environment, self.agent
@@ -354,7 +361,7 @@ class Trainer:
         env_time = self.timer.total("environment")
         agent_time = self.timer.total("agent")
         self.timer.clear()
-        steps = self.agent.num_steps_per_update * self.environment.num_instances * distributed.world_size()
+        steps = self.agent.num_steps_per_update * self.environment.num_instances * self._data_ranks()
         info = {f"Train/{k}": v for k, v in metrics.items()}
         info.update(self.stats.summary())
         info.update(

@@ -6,8 +6,14 @@ device and ``configure_distributed``).
 matmuls on bf16 operands with fp32 accumulation; ``None`` keeps everything
 fp32.  Distribution math and value heads are fp32 either way.  ``seed`` is the
 base seed ``utils.misc.set_global_seed`` records; each process draws from
-``process_seed = seed + rank``, and the experiment factories build their agent
-from it when the caller gives no seed.
+``process_seed = seed + rank // model_parallel_size``, and the experiment
+factories build their agent from it when the caller gives no seed.
+``model_parallel_size`` (1 by default, as in the JAX package) is the model
+axis of ``parallel.get_mesh``'s default mesh.  Ranks are laid out with the
+model axis fastest, so ``rank // model_parallel_size`` is the process's data
+coordinate: the model peers of a tensor-parallel run share their seed, and
+with it their environments and their action noise.  Set it before the
+factories run.
 
 The process topology is PyTorch's: one process per device, launched by
 ``torchrun`` (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
@@ -39,6 +45,7 @@ def _initialized() -> bool:
 class RuntimeConfig:
     compute_dtype: str | None = "bfloat16"
     seed: int = 0
+    model_parallel_size: int = 1
 
     @property
     def rank(self) -> int:
@@ -58,7 +65,7 @@ class RuntimeConfig:
 
     @property
     def process_seed(self) -> int:
-        return self.seed + self.rank
+        return self.seed + self.rank // self.model_parallel_size
 
 
 CONFIG = RuntimeConfig()

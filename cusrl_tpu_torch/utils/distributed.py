@@ -19,7 +19,11 @@ minibatch, a masked mean).  Unlike the host helpers they run
 whenever the agent holds a group, a group of one included: there each is the
 identity, bit for bit.  Gloo moves CUDA tensors through the host and gathers
 none, so on gloo a CUDA gather is a sum of zero-padded parts.
-``COLLECTIVES`` counts each collective's calls and bytes.
+``COLLECTIVES`` counts each collective's calls and bytes, and
+``COLLECTIVES_BY_AXIS`` the same by the mesh axis whose group it ran over
+(``data`` by default; ``model`` for the tensor-parallel operators of
+``parallel/tensor.py``; ``ici`` and ``dcn`` for the two levels of a
+hierarchical mesh's gradient reduce).
 """
 
 from __future__ import annotations
@@ -30,10 +34,9 @@ from typing import Any, TypeVar
 import torch
 import torch.distributed as dist
 
-from cusrl_tpu_torch.nn.utils.normalization import merge_mean_var
-
 __all__ = [
     "COLLECTIVES",
+    "COLLECTIVES_BY_AXIS",
     "average_dict",
     "barrier",
     "broadcast_obj",
@@ -131,36 +134,40 @@ def gather_print(*args: Any, **kwargs: Any) -> None:
 # -- device collectives of a data-parallel agent -------------------------------
 
 COLLECTIVES: dict[str, list[int]] = {"all_reduce": [0, 0], "all_gather": [0, 0]}
+COLLECTIVES_BY_AXIS: dict[str, dict[str, list[int]]] = {}
 
 
 def reset_collective_counts() -> None:
     for entry in COLLECTIVES.values():
         entry[0] = entry[1] = 0
+    COLLECTIVES_BY_AXIS.clear()
 
 
-def _count(kind: str, tensor: torch.Tensor, parts: int = 1) -> None:
-    """One collective of ``kind`` moving ``parts`` copies of ``tensor``."""
-    COLLECTIVES[kind][0] += 1
-    COLLECTIVES[kind][1] += parts * tensor.numel() * tensor.element_size()
+def _count(kind: str, tensor: torch.Tensor, parts: int = 1, axis: str = "data") -> None:
+    """One collective of ``kind`` over ``axis`` moving ``parts`` copies of ``tensor``."""
+    size = parts * tensor.numel() * tensor.element_size()
+    for entry in (COLLECTIVES[kind], COLLECTIVES_BY_AXIS.setdefault(axis, {}).setdefault(kind, [0, 0])):
+        entry[0] += 1
+        entry[1] += size
 
 
-def _all_reduce(tensor: torch.Tensor, group) -> torch.Tensor:
-    _count("all_reduce", tensor)
+def _all_reduce(tensor: torch.Tensor, group, axis: str = "data") -> torch.Tensor:
+    _count("all_reduce", tensor, axis=axis)
     dist.all_reduce(tensor, group=group)
     return tensor
 
 
-def gather(tensor: torch.Tensor, group) -> torch.Tensor:
+def gather(tensor: torch.Tensor, group, axis: str = "data") -> torch.Tensor:
     """``[W, *tensor.shape]``: every rank's ``tensor`` in rank order."""
     world = dist.get_world_size(group)
     source = tensor.contiguous()
     if source.dtype == torch.bool:
-        return gather(source.view(torch.uint8), group).view(torch.bool)
+        return gather(source.view(torch.uint8), group, axis).view(torch.bool)
     if source.is_cuda and dist.get_backend(group) == "gloo":
         out = source.new_zeros(world, *source.shape)
         out[dist.get_rank(group)] = source
-        return _all_reduce(out, group)
-    _count("all_gather", source, world)
+        return _all_reduce(out, group, axis)
+    _count("all_gather", source, world, axis)
     if dist.get_backend(group) == "gloo":
         parts = [torch.empty_like(source) for _ in range(world)]
         dist.all_gather(parts, source, group=group)
@@ -187,7 +194,11 @@ def mean_term(local_sum: torch.Tensor, global_count, row_share: float) -> torch.
 @torch.no_grad()
 def reduce_gradients(parameters, weight: float, group) -> None:
     """Replaces every ``.grad`` by ``sum over ranks of weight_r * grad_r``,
-    one all-reduce of one flat buffer per dtype."""
+    one all-reduce of one flat buffer per dtype.  ``group`` is a process
+    group, or a mapping ``{axis: group}`` of levels reduced in turn (a
+    hierarchical mesh's ``ici`` then ``dcn``: every rank ends with the same
+    bits)."""
+    levels = group if isinstance(group, dict) else {"data": group}
     by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
     for p in parameters:
         if p.grad is not None:
@@ -195,7 +206,8 @@ def reduce_gradients(parameters, weight: float, group) -> None:
     for grads in by_dtype.values():
         flat = torch.cat([g.reshape(-1) for g in grads])
         flat.mul_(weight)
-        _all_reduce(flat, group)
+        for axis, level in levels.items():
+            _all_reduce(flat, level, axis)
         parts = flat.split([g.numel() for g in grads])
         torch._foreach_copy_(grads, [part.view_as(g) for part, g in zip(parts, grads)])
 
@@ -205,6 +217,8 @@ def merge_moments(mean: torch.Tensor, var: torch.Tensor, count: torch.Tensor, gr
     """Every rank's per-channel ``(mean [C], var [C], count [])`` merged in rank
     order (Chan's merge, as the running statistics fold a batch): the
     statistics of all ranks' rows together, the same bits on every rank."""
+    from cusrl_tpu_torch.nn.utils.normalization import merge_mean_var
+
     channels = mean.shape[0]
     stacked = gather(torch.cat([mean.float(), var.float(), count.float().reshape(1)]), group)
     mean, var, count = stacked[0, :channels], stacked[0, channels:-1], stacked[0, -1]

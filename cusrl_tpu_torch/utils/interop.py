@@ -58,6 +58,13 @@ a missing path warns and keeps the initial value, a shape mismatch warns and
 skips, unknown paths warn, as the JAX package's ``load_state_dict`` does.
 ``actor_memory`` is the agent's carried actor memory, by the JAX memory's
 paths.
+
+On a tensor-parallel agent a sharded parameter (its ``tp_shard``,
+``parallel/tensor.py``) and its optimizer moments are entries of the full
+shape: reading gathers the parts over the model group (a collective: every
+model peer reads, in the same order), writing takes this rank's part of the
+full array.  A rank-0 checkpoint of a tensor-parallel run therefore has the
+one-process shapes, and loads into a one-process agent.
 """
 
 from __future__ import annotations
@@ -117,8 +124,13 @@ class Entry:
     write: Callable[[str, np.ndarray], None]
 
 
-def _tensor_entry(kind: str, tensor: torch.Tensor) -> Entry:
-    return Entry(kind, tuple(tensor.shape), lambda: to_numpy(tensor), lambda path, v: _copy(path, tensor, v))
+def _tensor_entry(kind: str, tensor: torch.Tensor, shard=None) -> Entry:
+    """A tensor's entry; with ``shard`` (a ``TensorShard``) the tensor is
+    this rank's part, and the entry the full array."""
+    if shard is None:
+        return Entry(kind, tuple(tensor.shape), lambda: to_numpy(tensor), lambda path, v: _copy(path, tensor, v))
+    return Entry(kind, shard.full_shape, lambda: to_numpy(shard.gather(tensor)),
+                 lambda path, v: _copy(path, tensor, shard.take(np.asarray(v))))
 
 
 def _permuted_entry(tensor: torch.Tensor, perm: tuple[int, ...]) -> Entry:
@@ -136,7 +148,8 @@ def parameter_entries(module: torch.nn.Module) -> dict[str, Entry]:
     for path, p in module.named_parameters():
         owner, _, name = path.rpartition(".")
         layouts = getattr(owners[owner], "jax_layouts", {})
-        entries[path] = _permuted_entry(p, layouts[name]) if name in layouts else _tensor_entry("parameter", p)
+        entries[path] = (_permuted_entry(p, layouts[name]) if name in layouts
+                         else _tensor_entry("parameter", p, getattr(p, "tp_shard", None)))
     return entries
 
 
@@ -189,11 +202,19 @@ def _state_of(optimizer: torch.optim.Optimizer, p: torch.Tensor, key: str, group
 
 
 def _moment_entry(optimizer, p: torch.Tensor, key: str, group: dict) -> Entry:
+    shard = getattr(p, "tp_shard", None)
+    shape = tuple(p.shape) if shard is None else shard.full_shape
+
     def read():
         state = optimizer.state[p]
-        return to_numpy(state[key]) if key in state else np.zeros(tuple(p.shape), np.float32)
+        if key not in state:
+            return np.zeros(shape, np.float32)
+        return to_numpy(state[key] if shard is None else shard.gather(state[key]))
 
-    return Entry("optimizer", tuple(p.shape), read, lambda path, v: _copy(path, _state_of(optimizer, p, key, group), v))
+    def write(path, v):
+        _copy(path, _state_of(optimizer, p, key, group), v if shard is None else shard.take(np.asarray(v)))
+
+    return Entry("optimizer", shape, read, write)
 
 
 def _count_entry(optimizer, params: list, group: dict) -> Entry:

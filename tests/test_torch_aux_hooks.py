@@ -442,7 +442,8 @@ def test_new_hooks_raise_under_more_than_one_rank(x_agents):
     """Data parallelism covers every route now (the updates on gloo ranks:
     ``tests/test_torch_distributed_routes.py``): an agent with hook-owned
     networks and every hook once marked single-process pass the route
-    check; only tensor parallelism raises, naming Queue 1 item 2b."""
+    check, tensor parallelism too (on gloo ranks in
+    ``tests/test_torch_tensor_parallel.py``)."""
     from cusrl_tpu_torch.hook import (
         ActionSmoothnessLoss as Smooth, MirrorSymmetryLoss, PolicyDistillationLoss, SymmetricDataAugmentation)
 
@@ -454,5 +455,4 @@ def test_new_hooks_raise_under_more_than_one_rank(x_agents):
                  SymmetricDataAugmentation(), AdvantageReduction()):
         assert not hasattr(hook, "data_parallel")
         multiprocess.check_data_parallel_route(types.SimpleNamespace(hooks=[hook]))
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        multiprocess.check_data_parallel_route(agent, tensor_parallel=True)
+    multiprocess.check_data_parallel_route(agent, tensor_parallel=True)

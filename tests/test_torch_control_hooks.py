@@ -458,8 +458,9 @@ def test_single_process_hooks_raise_under_more_than_one_rank(stage_agents):
     normalization take global gradients and statistics under a process
     group now (held against JAX on gloo ranks in
     ``tests/test_torch_distributed_routes.py``): they pass the route check,
-    as the schedules and the whole-rollout normalization do; only tensor
-    parallelism raises, naming Queue 1 item 2b."""
+    as the schedules and the whole-rollout normalization do, and so does
+    tensor parallelism (on gloo ranks in
+    ``tests/test_torch_tensor_parallel.py``)."""
     _, agent = stage_agents
     for hook in (OptimizationStage(), MiniBatchWiseLRSchedule(), AdvantageNormalization(mini_batch_wise=True),
                  AdvantageNormalization(), HookParameterSchedule(target_hook="x", parameter="y"),
@@ -467,5 +468,4 @@ def test_single_process_hooks_raise_under_more_than_one_rank(stage_agents):
                  ConditionalObjectiveActivation.create(), DeviceMemoryStats()):
         assert not hasattr(hook, "data_parallel")
         multiprocess.check_data_parallel_route(types.SimpleNamespace(hooks=[hook]))
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        multiprocess.check_data_parallel_route(agent, tensor_parallel=True)
+    multiprocess.check_data_parallel_route(agent, tensor_parallel=True)

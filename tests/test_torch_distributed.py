@@ -7,8 +7,9 @@ port, a process-group timeout, a hard ``communicate`` timeout) and check the
 ten host helpers, the device collectives of a data-parallel agent, the
 rank-0-only run directory, the ``seed + rank`` seeding, the CLI's
 independent copies (the JAX CLI never calls ``distribute_agent``), a global
-update on each route that once raised under more than one rank, and the
-tensor parallelism that still raises.  In this process:
+update on each route that once raised under more than one rank, and
+tensor parallelism on the two ranks (only a mesh that does not divide the
+processes raises).  In this process:
 ``configure_distributed`` without the variables, the device it picks, and a
 group of one leaving the update bit for bit.  Last, ``torchrun`` launching
 the CLI on two CPU ranks.
@@ -88,7 +89,7 @@ joined = configure_distributed("cpu", timeout_s=60)
 from cusrl_tpu_torch.__main__ import main
 from cusrl_tpu_torch.logger import Jsonl
 from cusrl_tpu_torch.nn.utils.normalization import mean_var_count
-from cusrl_tpu_torch.parallel import cross_process_update, distribute_agent, replicate, shard_batch
+from cusrl_tpu_torch.parallel import cross_process_update, distribute_agent, get_mesh, replicate, shard_batch
 from cusrl_tpu_torch.sampler import TemporalMiniBatchSampler
 from cusrl_tpu_torch.utils import distributed
 from cusrl_tpu_torch.utils.misc import set_global_seed
@@ -145,10 +146,10 @@ out["cli_group"] = trainer.agent.process_group is None
 out["cli_weight"] = trainer.agent.model["actor"].backbone.layers[0].weight.detach().sum().item()
 
 
-def raises(fn):
+def raises(fn, kind=NotImplementedError):
     try:
         fn()
-    except NotImplementedError as error:
+    except kind as error:
         return str(error)
     return None
 
@@ -159,9 +160,10 @@ def spec_of(name, algorithm, envs=8):
                                                    "device": "cpu"})
 
 
-def drive(agent, env, mode, steps=4):
-    # ``steps`` host-loop steps on rank-own random data, then one global update.
-    rng = np.random.default_rng(10 + rank)
+def drive(agent, env, mode, steps=4, data_rank=None):
+    # ``steps`` host-loop steps on the data rank's own random data (by default
+    # this rank's), then one global update.
+    rng = np.random.default_rng(10 + (rank if data_rank is None else data_rank))
     n = env.spec.num_instances
     for _ in range(steps):
         agent.act(rng.standard_normal((n, env.spec.observation_dim)).astype(np.float32))
@@ -210,7 +212,10 @@ temporal.sampler = TemporalMiniBatchSampler(num_epochs=2, num_mini_batches=2)
 agent = temporal(env.spec, device="cpu", seed=rank)
 distribute_agent(agent)
 routes["temporal_rollout"] = drive(agent, env, "rollout")
-out["tensor_parallel"] = raises(lambda: distribute_agent(temporal(env.spec, device="cpu"), tensor_parallel=True))
+tensor_parallel = temporal(env.spec, device="cpu", seed=rank)
+distribute_agent(tensor_parallel, get_mesh(model_parallel_size=2), tensor_parallel=True)
+out["tensor_parallel"] = {"route": drive(tensor_parallel, env, "rollout", data_rank=0),
+                          "indivisible": raises(lambda: get_mesh(model_parallel_size=3), ValueError)}
 out["routes"] = routes
 open(os.path.join(case_dir, f"rank{rank}.pkl"), "wb").write(pickle.dumps(out))
 torch.distributed.destroy_process_group()
@@ -319,9 +324,22 @@ def test_routes_run_under_two_ranks(two_ranks, route):
 
 
 def test_tensor_parallelism_still_raises(two_ranks):
+    """Tensor parallelism once raised; now the temporal route trains on a
+    1 x 2 mesh (its Mlps sharded over the two ranks: the same metrics, each
+    rank half of every sharded leaf and the same bits of every whole one),
+    and only a mesh that does not divide the processes raises, with JAX's
+    message."""
     _, results = two_ranks
+    first, second = (result["tensor_parallel"]["route"] for result in results)
+    assert first["metrics"] and all(np.isfinite(value) for value in first["metrics"].values())
+    assert first["metrics"] == second["metrics"]
+    differ = [path for path, value in first["params"].items() if not np.array_equal(value, second["params"][path])]
+    assert "actor.backbone.layers.0.weight" in differ and "actor.distribution.mean_head.weight" not in differ
+    for path in differ:
+        assert first["params"][path].shape == second["params"][path].shape
+    assert first["params"]["actor.backbone.layers.0.weight"].shape[0] == 8  # half of the 16 hidden units
     for result in results:
-        assert result["tensor_parallel"] is not None and "Queue 1 item 2b" in result["tensor_parallel"]
+        assert "not divisible by model_parallel_size=3" in result["tensor_parallel"]["indivisible"]
 
 
 def test_configure_distributed_without_the_variables_is_a_no_op(monkeypatch):
