@@ -50,7 +50,12 @@ without printing a result:
    2 x 32,768 and PO's at 2 x 49,152, each backward with
    ``skip_input_grad``; ``check_lane_routes``: K3f and K3b at path TJC's
    N = 512, both networks in one call, and on path TQ's RMS-normed q and k,
-   K3f primal also at 1,024) against its plain PyTorch
+   K3f primal also at 1,024; ``[kernels] IL``: K1f/K1b on the Anymal-C
+   entry's ELU 235-512-256-128 backbones (fp32 observations 235 wide, padded
+   per launch to 240 columns) at the rollout step's 4,096 rows, the value
+   and KL passes' 98,304, the minibatch's 24,576 (saving; the backward with
+   ``skip_input_grad``) and a ragged 1,000, with the pad's device time
+   apart) against its plain PyTorch
    version on the card, and time the kernel, the plain version and a PyTorch
    yardstick the port never calls (bf16 ``F.linear`` chains, fp32 heads
    and, for K9s, the loss, for K9m the forward too; a masked
@@ -135,6 +140,9 @@ without printing a result:
    weights and batch (bit for bit or within the limits, printed), and SB
    (path A's entry with ``SimbaFactory()`` backbones and without the joint
    evaluation, which takes Mlp backbones only: no kernel launch);
+   ``[update-check] IL``: the zoo's ``Isaac-Velocity-Rough-Anymal-C-v0``/
+   ``ppo`` update on the IsaacLab adapter's spec (235-D observations, no
+   state, autoreset with final states missing);
 6. ``[train]``: the slice-1 loop (Velocity-Rough widths without observation
    normalization and the adaptive learning rate) for a few iterations;
 7. ``[train-zoo]``: paths T, TF, TJ and TL (the zoo's uncut Velocity-Flat
@@ -186,7 +194,22 @@ without printing a result:
    metrics'), the Timer's environment and agent seconds and env-steps/s;
    ``[play] H``: the Player on the trained checkpoint, deterministic and
    unpaced, for 500 steps on ``NativeCartPoleEnv(8)``, one K1f launch a
-   step; and a profile of one iteration of each path (device time by kernel
+   step; ``[train-zoo] IL``: the zoo's uncut
+   ``Isaac-Velocity-Rough-Anymal-C-v0``/``ppo`` entry (ELU 512-256-128 on
+   235-D observations, 4,096 environments, no joint evaluation) through
+   ``make_isaaclab_env``, ``IsaacLabEnvLauncher`` and the adapter, with fake
+   IsaacLab and gymnasium modules installed around the phase whose
+   ``gym.make`` gives ``_StandInAnymalEnv``, a stand-in simulator whose
+   tensors live on the card, into the Trainer's host loop on those tensors:
+   a warm-up iteration and 10 through ``run_training_loop`` (67 K1f and 40
+   K1b an iteration; the synchronizing calls by site: the update's metrics
+   transfer, which carries the episode aggregates, and the ``extras["log"]``
+   read, one each an iteration, none in a rollout step; the adapter's
+   metrics logged as ``Environment/<key>``), the stand-in's and the policy
+   step's device ms a step, a profile; ``[play] IL``: the playing factory's
+   ``-Play`` task (50 environments) for 100 deterministic, unpaced steps
+   from the trained checkpoint, one K1f a step; and a profile of one
+   iteration of each path (device time by kernel
    name, phase 2 of the backwards listed whatever its rank, the fused
    block's and the MLP chain's forward kernels and phase-1 backward kernels
    (``fbp::``, ``fbb::``, ``mlpb::``, K9m's ``mlpm::``) by name with their
@@ -278,7 +301,8 @@ only ``[tp]``; ``--tp-cards`` its four-rank cases (2 x 2 and ``dcn=2 x
 data=2``) with one NCCL rank on each of four cards.
 ``python3 chip_smoke.py --paths TL C`` runs only the named paths'
 ``[train-zoo]`` chunks and profiles (``SC PO``: the control paths) (``H``: its host-loop iterations and
-profile; ``TJC``: its profiled iteration), with the kernels of the package beside
+profile; ``IL``: its iterations, profile and ``[play] IL``; ``TJC``: its
+profiled iteration), with the kernels of the package beside
 the script: copied into another checkout, it times that checkout's port the
 same way (two versions compare inside one call, in turns).
 
@@ -290,6 +314,7 @@ fallback: without CUDA the script exits 2.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -3381,7 +3406,9 @@ PATH_NAMES = {"A": "zoo Velocity-Rough ppo", "B": "A + fuse_heads (K8)", "C": "A
               "TQ": "T with qk_norm=True on every encoder layer (the default route, which keeps it modular)",
               "TJC": "TJ with CUSRL_TPU_PAIR_CONCAT=1 (one lane call over both networks' environments)",
               "SB": "A with SimbaFactory() backbones (hidden 256, 2 blocks; plain layers), without the joint "
-                    "evaluation (it takes Mlp backbones only)"}
+                    "evaluation (it takes Mlp backbones only)",
+              "IL": "zoo Isaac-Velocity-Rough-Anymal-C-v0 ppo (ELU 512-256-128 on 235-D observations) through the "
+                    "IsaacLab adapter on a card-resident stand-in simulator, the host loop"}
 # The route each transformer path runs: T the modular one, TF, TJ, TL, TQ and TJC the default.
 PATH_ROUTES = {"T": "0", "TF": None, "TJ": None, "TL": None, "TQ": None, "TJC": None}
 # TJC's [train-zoo] is one profiled iteration after two warm-up ones (its
@@ -3479,6 +3506,11 @@ EXPECTED_ZOO_LAUNCHES = {  # per training iteration
     # last step's; on an overflow the full pass and the last step's: the
     # same count); 16 minibatches of the pair.
     "PO": {**_NONE, "K1f": STEPS + 4, "K2f": PO_MB, "K2b": PO_MB},
+    # Path IL (no joint evaluation): per rollout step the actor on 4,096
+    # rows; the deferred value pass over the observations and the next
+    # observations and the KL pass on 98,304; per minibatch the actor and the
+    # critic forward (saving) and backward (skip_input_grad) on 24,576.
+    "IL": {**_NONE, "K1f": STEPS + 3 + 2 * MB, "K1b": 2 * MB},
 }
 
 
@@ -3662,6 +3694,13 @@ def check_update_against_cpu(path: str, expert_path: str | None = None) -> None:
         modular = {"K1f": 4 + 4 * MB + 2, "K1b": 4 * MB, "K3f": 2 + 2 * MB, "K3b": 2 * MB, "K6": 1}
         expected = {"T": modular, "TQ": modular, "TF": _TF_UPDATE, "TJ": _TJ_UPDATE, "TJC": _TJC_UPDATE,
                     "TL": _TL_UPDATE}[path]
+    elif path == "IL":
+        # The update only: the value passes and the KL pass, per minibatch the
+        # actor and the critic forward (saving) and backward (skip_input_grad)
+        # on the 235-wide observation (no joint evaluation).
+        factory = get_experiment(IL_TASK, "ppo").make_agent_factory()
+        factory.num_steps_per_update = steps
+        expected = {"K1f": 3 + 2 * MB, "K1b": 2 * MB}
     elif path == "SB":
         # Path A's entry with SimBa backbones: plain layers, no kernel launch.
         from cusrl_tpu_torch.nn.module.simba import SimbaFactory
@@ -3682,8 +3721,13 @@ def check_update_against_cpu(path: str, expert_path: str | None = None) -> None:
         zoo.num_steps_per_update = steps
         factory = _with_path(zoo, path)
         expected = {k: (3 if k == "K1f" else v) for k, v in EXPECTED_ZOO_LAUNCHES[path].items() if v}
+    spec = None
+    if path == "IL":  # the adapter's spec: 235-D observations, autoreset, missing final states
+        from cusrl_tpu_torch.environment.isaaclab import IsaacLabEnvAdapter
+
+        spec = IsaacLabEnvAdapter(_StandInAnymalEnv(envs, "cpu")).spec
     gen = torch.Generator().manual_seed(SEED + 1)
-    obs = torch.tanh(torch.randn(steps + 1, envs, WIDTHS[0], generator=gen))
+    obs = torch.tanh(torch.randn(steps + 1, envs, IL_OBS if path == "IL" else WIDTHS[0], generator=gen))
     terminated = torch.rand(steps, envs, 1, generator=gen) < 0.05
     truncated = torch.rand(steps, envs, 1, generator=gen) < 0.05
     done = terminated | truncated
@@ -3697,7 +3741,8 @@ def check_update_against_cpu(path: str, expert_path: str | None = None) -> None:
     fused = path in PATH_ROUTES and PATH_ROUTES[path] is None
     for device, route in (("cpu", "force" if fused else PATH_ROUTES.get(path)), ("cuda", PATH_ROUTES.get(path))):
         with _fused_route(route), _ppo_mode("mono" if path == "CM" else "split"), _pair_concat(path):
-            *results[device], initial = _small_update(factory, device, state, obs, terminated, truncated, done, perms)
+            *results[device], initial = _small_update(factory, device, state, obs, terminated, truncated, done, perms,
+                                                      spec)
         state = state or initial
     launched = {k: v for k, v in _launch_counts().items() if v}
     print(f"[update-check] {path}: cuda launches {launched}")
@@ -3761,11 +3806,12 @@ def update_check_failures(ref_metrics: dict, ref_grads: dict, metrics: dict, gra
     return failed
 
 
-def _small_update(factory, device, state, obs, terminated, truncated, done, perms):
+def _small_update(factory, device, state, obs, terminated, truncated, done, perms, spec=None):
     """One update of ``check_update_against_cpu`` on ``device``, from
-    ``state`` when given: ``(metrics, the first minibatch's gradient by
-    parameter name, the agent's initial weights)``; the launch counters are
-    set to 0 just before the update."""
+    ``state`` when given, for an environment of ``spec`` (Velocity-Rough's by
+    default): ``(metrics, the first minibatch's gradient by parameter name,
+    the agent's initial weights)``; the launch counters are set to 0 just
+    before the update."""
     import torch
     from torch.optim.optimizer import register_optimizer_step_pre_hook
 
@@ -3773,8 +3819,9 @@ def _small_update(factory, device, state, obs, terminated, truncated, done, perm
     from cusrl_tpu_torch.utils.nest import map_nested
 
     steps, envs = done.shape[:2]
-    env = VelocityLocomotionEnv(num_instances=envs, device=device)
-    agent = factory(env.spec, device=device, seed=SEED)
+    if spec is None:
+        spec = VelocityLocomotionEnv(num_instances=envs, device=device).spec
+    agent = factory(spec, device=device, seed=SEED)
     amp = next((hook for hook in agent.hooks if hook.hook_name == AMP_HOOK), None)
     if amp is not None:  # a live logit (see _amp_agent); the card's side loads it below
         with torch.no_grad():
@@ -3952,6 +3999,8 @@ def train_zoo(kind: str, path: str):
         factory, envs = get_experiment("Velocity-Flat", "ppo").to_training_factory(), NUM_ENVS
     elif path in H_PATHS:
         return train_host(kind)[:2]
+    elif path in IL_PATHS:
+        return train_il(kind)[:2]
     elif path in CONTROL_PATHS:
         factory, envs = get_experiment("Velocity-Rough", "ppo").to_training_factory(), NUM_ENVS
         factory.agent = _control_factory(path, factory.agent)
@@ -4291,7 +4340,347 @@ def play_h(kind: str, checkpoint: dict) -> dict:
     if (player.steps_taken != H_PLAY_STEPS or launched != {"K1f": H_PLAY_STEPS}
             or not all(math.isfinite(v) for v in summary.values()) or "episode_reward" not in summary):
         raise AssertionError("[play] H: not one K1f launch a step, or a non-finite or incomplete summary")
-    return {"env_steps_per_s": rate, **summary}
+    return {"env_steps_per_s": rate, "launches_per_step": launched.get("K1f", 0) / player.steps_taken, **summary}
+
+
+# -- Path IL: the IsaacLab adapter over a card-resident stand-in simulator ----
+
+IL_TASK = "Isaac-Velocity-Rough-Anymal-C-v0"
+IL_PLAY_TASK = "Isaac-Velocity-Rough-Anymal-C-Play-v0"
+# LocomotionVelocityRoughEnvCfg (isaaclab_tasks/manager_based/locomotion/velocity/velocity_env_cfg.py) for ANYmal-C:
+# the policy group holds the base's linear and angular velocity, the projected gravity and the velocity command (3
+# each), the joint positions and velocities and the last action (12 each) and the height scan's 187 rays; 12 joint
+# position actions; no critic group; decimation 4 x 0.005 s; 20 s episodes; 4,096 environments, 50 in its Play variant.
+IL_STATE = 4 * 3 + 3 * 12  # the stand-in's state: the policy group less the height scan
+IL_SCAN = 187
+IL_OBS = IL_STATE + IL_SCAN  # 235
+IL_ACT = 12
+IL_WIDTHS = (IL_OBS, 512, 256, 128)
+IL_ENVS, IL_PLAY_ENVS = 4096, 50
+IL_DT = 4 * 0.005
+IL_EPISODE_STEPS = round(20.0 / IL_DT)  # 1,000 steps, then the time-out truncates
+IL_TERMINATION_P = 1 / 250  # the stand-in's chance a step that an episode ends in a base contact
+IL_ITERATIONS = 10  # [train-zoo] IL's timed iterations, after one warm-up iteration
+IL_PLAY_STEPS = 100
+IL_PATHS = ("IL",)
+
+
+class _Box:
+    def __init__(self, shape):
+        self.shape = shape
+
+
+class _Dict:
+    def __init__(self, spaces: dict):
+        self.spaces = spaces
+
+    def __getitem__(self, key):
+        return self.spaces[key]
+
+
+class _StandInAnymalEnv:
+    """What the IsaacLab adapter reads of a ``ManagerBasedRLEnv`` on the
+    Anymal-C rough task: ``num_envs``, ``device``, ``step_dt``, the spaces,
+    ``reset``, ``step`` and ``close``, every tensor on the card.  Cheap
+    dynamics driven by the action (the joints follow half the action as
+    position targets, the base's velocities the first six joints), a fixed
+    height scan per environment, the velocity-tracking and action-rate
+    rewards (times ``step_dt``, as IsaacLab's reward manager weighs them),
+    base contacts drawn from its own CUDA generator, the time-out at 1,000
+    steps (episodes start at random lengths, as RSL-RL's ``init_at_random_ep_len``),
+    autoreset (the observation returned for a finished episode is the next
+    episode's first) and ``extras["log"]`` as the reward and termination
+    managers write it, each a 0-d tensor; no step waits on the host.  As
+    IsaacLab's environment does, it returns the same buffers every step
+    (``obs_buf``, ``reward_buf``, ``reset_terminated``, ``reset_time_outs``),
+    rewritten in place; ``history`` keeps copies of the last ``STEPS``
+    steps' rewards and flags."""
+
+    def __init__(self, num_envs: int, device, seed: int = SEED):
+        import torch
+
+        self.num_envs, self.device, self.step_dt = num_envs, str(device), IL_DT
+        self.observation_space = _Dict({"policy": _Box((num_envs, IL_OBS))})
+        self.action_space = _Box((num_envs, IL_ACT))
+        self.generator = torch.Generator(device=device).manual_seed(seed)
+        self.scan = (0.1 * torch.randn(num_envs, IL_SCAN, generator=self.generator, device=device)).clamp(-1, 1)
+        self.state = self._fresh_state()
+        self.length = torch.randint(0, IL_EPISODE_STEPS, (num_envs,), generator=self.generator, device=device)
+        self.episode_reward = torch.zeros(num_envs, device=device)
+        self.obs_buf = torch.empty(num_envs, IL_OBS, device=device)
+        self.reward_buf = torch.empty(num_envs, device=device)
+        self.reset_terminated = torch.empty(num_envs, dtype=torch.bool, device=device)
+        self.reset_time_outs = torch.empty_like(self.reset_terminated)
+        self.history = collections.deque(maxlen=STEPS)
+        self.closed = False
+
+    @property
+    def unwrapped(self):
+        return self
+
+    def _fresh_state(self):
+        """Zero velocities and joint positions, gravity straight down, a command drawn in [-1, 1]."""
+        import torch
+
+        state = torch.zeros(self.num_envs, IL_STATE, device=self.device)
+        state[:, 8] = -1.0
+        state[:, 9:12] = 2 * torch.rand(self.num_envs, 3, generator=self.generator, device=self.device) - 1
+        return state
+
+    def _observe(self) -> dict:
+        import torch
+
+        return {"policy": torch.cat([self.state, self.scan], dim=1, out=self.obs_buf)}
+
+    def reset(self):
+        return self._observe(), {"log": {}}
+
+    def step(self, action):
+        import torch
+
+        s = self.state
+        joints = s[:, 12:24]
+        velocities = (0.5 * action - joints) * (0.2 / IL_DT)
+        joints = joints + IL_DT * velocities
+        base = 0.9 * s[:, :6] + 0.1 * joints[:, :6]
+        reward = IL_DT * (torch.exp(-(base[:, :2] - s[:, 9:11]).square().sum(1) / 0.25)
+                          + 0.5 * torch.exp(-(base[:, 5] - s[:, 11]).square() / 0.25)
+                          - 0.01 * (action - s[:, 36:48]).square().sum(1))
+        self.state = torch.cat([base, s[:, 6:12], joints, velocities, action], dim=1)
+        self.length += 1
+        self.episode_reward += reward
+        terminated = torch.rand(self.num_envs, generator=self.generator, device=self.device) < IL_TERMINATION_P
+        truncated = self.length >= IL_EPISODE_STEPS
+        done = terminated | truncated
+        finished = done.sum().clamp_min(1)
+        log = {"Episode_Reward/track_lin_vel_xy_exp": torch.where(done, self.episode_reward, 0.0).sum() / finished
+               / (IL_EPISODE_STEPS * IL_DT),
+               "Episode_Termination/time_out": truncated.sum(), "Episode_Termination/base_contact": terminated.sum()}
+        self.state = torch.where(done[:, None], self._fresh_state(), self.state)
+        self.length.masked_fill_(done, 0)
+        self.episode_reward.masked_fill_(done, 0.0)
+        out = (self.reward_buf.copy_(reward), self.reset_terminated.copy_(terminated),
+               self.reset_time_outs.copy_(truncated))
+        self.history.append(tuple(x.clone() for x in out))
+        return self._observe(), *out, {"log": log}
+
+    def close(self):
+        self.closed = True
+
+
+@contextlib.contextmanager
+def _stand_in_isaaclab():
+    """Fake ``isaaclab``, ``isaaclab.app``, ``isaaclab_tasks`` (with its
+    ``utils.parse_cfg``) and ``gymnasium`` modules, taken out again after:
+    ``parse_env_cfg`` gives the Anymal-C task's and its Play variant's
+    environment counts and ``gym.make`` a ``_StandInAnymalEnv`` on the card.
+    Yields the list of the environments made."""
+    import argparse
+    import types
+
+    made = []
+
+    class AppLauncher:
+        @staticmethod
+        def add_app_launcher_args(parser: argparse.ArgumentParser) -> None:
+            parser.add_argument("--headless", action="store_true")
+            parser.add_argument("--device", default="cuda:0")
+
+        def __init__(self, args):
+            self.app = types.SimpleNamespace(close=lambda: None)
+
+    def parse_env_cfg(task, device="cuda:0", num_envs=None):
+        if task not in (IL_TASK, IL_PLAY_TASK):
+            raise ValueError(f"the stand-in has no task {task!r}")
+        default = IL_PLAY_ENVS if task == IL_PLAY_TASK else IL_ENVS
+        return types.SimpleNamespace(device=device, num_envs=num_envs or default, episode_length_s=20.0)
+
+    def make(task, cfg=None):
+        made.append(_StandInAnymalEnv(cfg.num_envs, cfg.device))
+        return made[-1]
+
+    def module(name, **attrs):
+        mod = types.ModuleType(name)
+        mod.__dict__.update(attrs)
+        return mod
+
+    app = module("isaaclab.app", AppLauncher=AppLauncher)
+    parse = module("isaaclab_tasks.utils.parse_cfg", parse_env_cfg=parse_env_cfg)
+    modules = {"isaaclab": module("isaaclab", app=app), "isaaclab.app": app, "isaaclab_tasks": module("isaaclab_tasks"),
+               "isaaclab_tasks.utils": module("isaaclab_tasks.utils", parse_cfg=parse),
+               "isaaclab_tasks.utils.parse_cfg": parse, "gymnasium": module("gymnasium", make=make)}
+    saved = {name: sys.modules.get(name) for name in modules}
+    sys.modules.update(modules)
+    try:
+        yield made
+    finally:
+        for name, old in saved.items():
+            if old is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = old
+
+
+def check_il_kernels(device) -> dict:
+    """K1f and K1b on the Anymal-C entry's ELU backbones (235 -> 512 -> 256
+    -> 128, fp32 observations 235 wide: each launch pads x and W_0 to 240
+    columns, so the first layer's K blocks end in a partial 48-column one) at
+    the sizes path IL gives them: the forward primal at the rollout step's
+    4,096 rows and the value and KL passes' 98,304, saving at the
+    minibatch's 24,576 and a ragged 1,000 (checked, not timed), the backward
+    with ``skip_input_grad``; and the pad's device time at each, apart from
+    the kernels'.  Returns the ``il_`` fields of K1f and K1b."""
+    import torch
+
+    from cusrl_tpu_torch.nn.kernels import fused_mlp as fm
+
+    print("[kernels] IL: K1f/K1b on the Anymal-C entry's ELU backbones 235-512-256-128 (fp32 input padded per launch "
+          "to 240 columns; rollout step, minibatch, value and KL passes)")
+    fields = _check_chain_kernels(device, "IL", "il_", IL_WIDTHS, torch.float32,
+                                  ((NUM_ENVS, False, "step_", True), (MINIBATCH_ROWS, True, "", True),
+                                   (F_PRIMAL_ROWS, False, "primal_", True), (RAGGED_ROWS, True, "ragged_", False)),
+                                  seed=37, skip_input_grad=True)
+    gen = torch.Generator().manual_seed(SEED + 38)
+    ws = [(torch.randn(b, a, generator=gen) / math.sqrt(a)).to(device) for a, b in zip(IL_WIDTHS[:-1], IL_WIDTHS[1:])]
+    pads = {}
+    for rows in (NUM_ENVS, MINIBATCH_ROWS, F_PRIMAL_ROWS):
+        x = torch.randn(rows, IL_OBS, generator=gen).to(device)
+        pads[rows] = _queued_events_ms(lambda: fm.pad_input([x], [ws]))
+        print(f"    the pad of x [{rows}, {IL_OBS}] and W_0 [512, {IL_OBS}] to 240 columns: {pads[rows]:.4f} device ms "
+              f"(CUDA events behind a queued sleep; not in the kernels' device times)")
+    for key in ("K1f", "K1b"):
+        fields[key]["il_pad_device_ms"] = pads
+        fields[key]["il_shape"] = (f"{IL_OBS}-512-256-128 ELU, fp32 input padded to 240 columns per launch: "
+                                   + (f"primal at {NUM_ENVS} (the rollout step) and {F_PRIMAL_ROWS} (the value and KL "
+                                      f"passes), saving at {MINIBATCH_ROWS} (the minibatch)" if key == "K1f" else
+                                      f"{MINIBATCH_ROWS} rows (the minibatch), skip_input_grad")
+                                   + f"; also {RAGGED_ROWS} rows, checked")
+    return fields
+
+
+def train_il(kind: str):
+    """``[train-zoo] IL``, ``[profile] IL`` and ``[play] IL``: the zoo's
+    uncut ``Isaac-Velocity-Rough-Anymal-C-v0``/``ppo`` entry through
+    ``get_experiment(...).to_training_factory()`` with the fake IsaacLab
+    modules installed: ``make_isaaclab_env`` -> ``IsaacLabEnvLauncher`` ->
+    the adapter over ``_StandInAnymalEnv`` (4,096 environments on the card)
+    -> the Trainer's host loop on the card's tensors.  One warm-up
+    iteration, then 10 through ``run_training_loop`` (the adapter's
+    ``get_metrics`` logged as ``Environment/<key>``) with the launch counters
+    set to 0 just before and read just after, PyTorch's sync debug mode on
+    (the synchronizing calls by site: the update's metrics transfer and the
+    environment metrics' read, one each an iteration; none in a rollout
+    step) and every logged value finite; the stand-in's and the policy
+    step's device ms a step; a profile of one iteration; then the playing
+    factory's ``-Play`` task (50 environments) for 100 deterministic,
+    unpaced steps from the trained checkpoint, one K1f a step.  Also checks
+    that the last iteration's rollout holds each step's own rewards and
+    flags, which the stand-in rewrote in place.  Returns the launches,
+    env-steps/s, the Player's env-steps/s and its K1f launches a step."""
+    import warnings
+
+    import torch
+
+    from cusrl_tpu_torch.environment.isaaclab import IsaacLabEnvAdapter
+    from cusrl_tpu_torch.template.trainer import TrainerHook
+    from cusrl_tpu_torch.zoo.registry import get_experiment
+
+    class Logged(TrainerHook):
+        def __init__(self):
+            self.rows = []
+
+        def post_iteration(self, trainer, metrics):
+            self.rows.append(metrics)
+
+    update_site = _source_line("cusrl_tpu_torch/template/actor_critic.py", "values.tolist()")
+    metrics_site = _source_line("cusrl_tpu_torch/environment/isaaclab.py", "means.tolist()")
+    with _stand_in_isaaclab() as made:
+        factory = get_experiment(IL_TASK, "ppo").to_training_factory()
+        logged = Logged()
+        factory.trainer_hooks, factory.num_iterations = (logged,), 1 + IL_ITERATIONS
+        trainer = factory(verbose=False, seed=SEED)  # device defaults to the card
+        env, agent, sim = trainer.environment, trainer.agent, made[0]
+        if (trainer.driver is not None or not isinstance(env, IsaacLabEnvAdapter) or env.num_instances != IL_ENVS
+                or (env.spec.observation_dim, env.spec.action_dim, env.spec.state_dim) != (IL_OBS, IL_ACT, None)
+                or agent.device.type != "cuda" or torch.device(sim.device).type != "cuda"
+                or agent.num_steps_per_update != STEPS or env.spec.timestep != IL_DT
+                or [l.output_dim for l in agent.actor.backbone.layers] != list(IL_WIDTHS[1:])):
+            raise AssertionError("path IL is not the uncut entry on the adapter's host loop on the card")
+        start = time.perf_counter()
+        trainer.rollout_and_update()
+        torch.cuda.synchronize()
+        print(f"[train-zoo] IL ({PATH_NAMES['IL']}): warm-up iteration {time.perf_counter() - start:.3f} s")
+        _reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("warn")
+        start = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            trainer.run_training_loop()
+            torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+        torch.cuda.set_sync_debug_mode("default")
+        launches = _launch_counts()
+        data = agent.buffer.data
+        for i, key in enumerate(("reward", "terminated", "truncated")):
+            want = torch.stack([step[i] for step in sim.history]).reshape(data[key].shape)
+            if len(sim.history) != STEPS or not torch.equal(data[key], want.to(data[key].dtype)):
+                raise AssertionError(f"path IL: the rollout's {key} is not each step's own (the stand-in rewrites "
+                                     "its buffers in place)")
+        print(f"[train-zoo] IL: the last rollout holds each of its {STEPS} steps' own rewards and flags, which the "
+              "stand-in rewrote in place")
+        expected = {k: v * IL_ITERATIONS for k, v in EXPECTED_ZOO_LAUNCHES["IL"].items()}
+        sites = _sync_sites(caught)
+        others = {site: n for site, n in sites.items() if site not in (update_site, metrics_site)}
+        print(f"[train-zoo] IL: launches over {IL_ITERATIONS} iterations {launches} (expected {expected}); "
+              f"synchronizing calls: {sites.get(update_site, 0) / IL_ITERATIONS:g} an iteration at {update_site} (the "
+              f"update's metrics and the episode aggregates), {sites.get(metrics_site, 0) / IL_ITERATIONS:g} at "
+              f"{metrics_site} (extras['log']), others {others or 'none'} (none in a rollout step)")
+        if launches != expected:
+            raise AssertionError("path IL did not launch the kernels the expected number of times")
+        if sites.get(update_site) != IL_ITERATIONS or sites.get(metrics_site) != IL_ITERATIONS or others:
+            raise AssertionError(f"path IL: not one metrics transfer and one extras read an iteration: {sites}")
+        rows = logged.rows
+        logged_keys = {"Environment/Episode_Reward/track_lin_vel_xy_exp", "Environment/episode_reward"}
+        if (len(rows) != IL_ITERATIONS or not all(math.isfinite(v) for row in rows for v in row.values())
+                or not logged_keys <= set(rows[-1])):
+            raise AssertionError(f"path IL: non-finite or missing logged values: {rows[-1]}")
+        print("    last iteration: " + " ".join(f"{k}={v:.5g}" for k, v in sorted(rows[-1].items())))
+        steps_per_s = IL_ITERATIONS * STEPS * IL_ENVS / elapsed
+        a_rate = ZOO_RATES.get("A")
+        print(f"[train-zoo] IL: {steps_per_s:.1f} env-steps/s ({elapsed / IL_ITERATIONS * 1e3:.2f} ms per iteration, "
+              f"logging included) on {kind}; [train-zoo] A: {'not run' if a_rate is None else f'{a_rate:.1f}'}; "
+              f"episodes {trainer.stats.summary()}")
+        observation = sim._observe()["policy"]
+        action = torch.zeros(IL_ENVS, IL_ACT, device=agent.device)
+        sim_ms, how = _device_ms_per_call(lambda: sim.step(action))
+        act_ms, _ = _device_ms_per_call(lambda: agent.act_body(observation))
+        print(f"[train-zoo] IL: the stand-in simulator {sim_ms:.4f} device ms a step, the policy step (act_body) "
+              f"{act_ms:.4f} ({how})")
+        profile_iteration(None, "IL", fn=trainer.rollout_and_update)
+
+        play = get_experiment(IL_TASK, "ppo").to_playing_factory()
+        play.num_steps, play.timestep = IL_PLAY_STEPS, 0.0
+        player = play(trainer.make_checkpoint(), verbose=False, seed=SEED)
+        if player.environment.num_instances != IL_PLAY_ENVS or made[-1].num_envs != IL_PLAY_ENVS:
+            raise AssertionError("[play] IL: the playing factory did not build the Play task")
+        _reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            summary = player.run_playing_loop()
+        torch.cuda.set_sync_debug_mode("default")
+        launched = {k: v for k, v in _launch_counts().items() if v}
+        play_sites = _sync_sites(caught)
+        rate = player.steps_taken * IL_PLAY_ENVS / player.loop_seconds
+        print(f"[play] IL: {player.steps_taken} steps on {IL_PLAY_ENVS} environments ({IL_PLAY_TASK}) in "
+              f"{player.loop_seconds:.3f} s: {rate:.1f} env-steps/s (deterministic, unpaced) on {kind}; launches "
+              f"{launched}; synchronizing calls {play_sites}; summary {summary}")
+        if (player.steps_taken != IL_PLAY_STEPS or launched != {"K1f": IL_PLAY_STEPS}
+                or sum(play_sites.values()) >= IL_PLAY_STEPS
+                or not all(math.isfinite(v) for v in summary.values())
+                or not {"step_reward", "Episode_Reward/track_lin_vel_xy_exp"} <= set(summary)):
+            raise AssertionError("[play] IL: not one K1f launch a step, a step that waits, or a bad summary")
+    return launches, steps_per_s, rate, launched.get("K1f", 0) / player.steps_taken
 
 
 # -- [cli]: the user surface on path F ---------------------------------------
@@ -4517,7 +4906,7 @@ def check_cli() -> dict:
         if found != os.path.join(run, "ckpt", "ckpt_20.npz"):
             raise AssertionError(f"find-trial printed {found}")
         listed = _cli(["list-experiments"], timings, "list-experiments", capture=True).split()
-        if not {"Velocity-Flat_ppo", "CartPole-v1_ppo", "Pendulum-v1_ppo"} <= set(listed):
+        if not {"Velocity-Flat_ppo", "CartPole-v1_ppo", "Pendulum-v1_ppo", f"{IL_TASK}_ppo"} <= set(listed):
             raise AssertionError(f"list-experiments printed {listed}")
         print(f"[cli] find-trial: {found}; list-experiments: {' '.join(listed)}")
         for fmt in ("torch_export", "package"):
@@ -5672,7 +6061,8 @@ def main(argv: list[str]) -> int:
         print(smi)
         return 0
     if argv:  # --paths P ...: only the named paths' [train-zoo] chunks and profiles (comparing two checkouts)
-        every = (*PATH_ROUTES, *PATHS, *RECURRENT_PATHS, *AMP_PATHS, *F_PATHS, *H_PATHS, *AUX_PATHS, *CONTROL_PATHS)
+        every = (*PATH_ROUTES, *PATHS, *RECURRENT_PATHS, *AMP_PATHS, *F_PATHS, *H_PATHS, *AUX_PATHS, *CONTROL_PATHS,
+                 *IL_PATHS)
         if argv[0] != "--paths" or not set(argv[1:]) <= set(every):
             print(f"usage: chip_smoke.py [--ddp | --ddp-cards | --tp | --tp-cards | --paths {' '.join(every)} ...]",
                   file=sys.stderr)
@@ -5719,6 +6109,10 @@ def main(argv: list[str]) -> int:
         for key, fields in check_lane_routes(device).items():
             results[key].update(fields)
             results[key]["max_abs_err"] = max(results[key]["max_abs_err"], fields["lane_routes_max_abs_err"])
+    with _phase("[kernels] IL"):
+        for key, fields in check_il_kernels(device).items():
+            results[key].update(fields)
+            results[key]["max_abs_err"] = max(results[key]["max_abs_err"], fields["il_max_abs_err"])
     with _phase("[wrappers]"):
         for key, err in (*check_wrappers(device).items(), *check_head_wrappers(device).items()):
             results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
@@ -5745,6 +6139,8 @@ def main(argv: list[str]) -> int:
     with _phase("[update-check] SC PO"):
         for path in CONTROL_PATHS:
             check_update_against_cpu(path)
+    with _phase("[update-check] IL"):
+        check_update_against_cpu("IL")
     with _phase("[train]"):
         train(kind)
     path_launches = {}
@@ -5754,6 +6150,8 @@ def main(argv: list[str]) -> int:
     with _phase("[train-zoo] H, [play] H"):
         path_launches["H"], h_rate, h_checkpoint = train_host(kind)
         h_play = play_h(kind, h_checkpoint)
+    with _phase("[train-zoo] IL, [play] IL"):
+        path_launches["IL"], ZOO_RATES["IL"], il_play_rate, il_play_per_step = train_il(kind)
     tj, tjc = PROFILES.get("TJ", {}), PROFILES.get("TJC", {})
     print("[profile] TJ against TJC, one iteration each in this run: " + "; ".join(
         f"{key} {tj.get(key, (None, 0))[1]} against {tjc.get(key, (None, 0))[1]} launches, "
@@ -5797,13 +6195,18 @@ def main(argv: list[str]) -> int:
     # Every K1f and K1b launch of path H is a tanh 4-64-64 backbone's at 256 rows: per iteration.
     for key in ("K1f", "K1b"):
         results[key]["h_launches"] = path_launches["H"][key] // 10
-    results["K1f"]["h_play_launches_per_step"] = 1
+    results["K1f"]["h_play_launches_per_step"] = h_play["launches_per_step"]
     # Paths D, S and X per iteration (D: student and expert; X: A's and RND's).
     for path in (*AUX_PATHS, *CONTROL_PATHS):
         for key in ("K1f", "K1b", "K2f", "K2b"):
             if path_launches[path][key]:
                 results[key][f"{path.lower()}_launches"] = path_launches[path][key] // 10
     results["K1f"]["h_env_steps_per_s"], results["K1f"]["h_play_env_steps_per_s"] = h_rate, h_play["env_steps_per_s"]
+    # Every K1f and K1b launch of path IL is a 235-512-256-128 ELU backbone's: per iteration.
+    for key in ("K1f", "K1b"):
+        results[key]["il_launches"] = path_launches["IL"][key] // IL_ITERATIONS
+    results["K1f"]["il_play_launches_per_step"] = il_play_per_step
+    results["K1f"]["il_env_steps_per_s"], results["K1f"]["il_play_env_steps_per_s"] = ZOO_RATES["IL"], il_play_rate
     # Paths TQ (a 10-iteration chunk) and TJC (one profiled iteration): K3f/K3b launches per iteration.
     for key in ("K3f", "K3b"):
         results[key]["tq_launches"] = path_launches["TQ"][key] // 10
@@ -5830,7 +6233,7 @@ def main(argv: list[str]) -> int:
             **{k: v for k, v in r.items()
                if k.startswith(("gelu", "primal", "offpath", "tl_", "r_head", "rj_pair", "amp_", "f_", "h_", "ddp_",
                                 "d_", "s_pair_", "s_launches", "sl_", "x_", "aux_", "sc_", "po_", "control_",
-                                "tq_", "tjc_", "lane_routes_",
+                                "tq_", "tjc_", "lane_routes_", "il_",
                                 "phase", "bitwise",
                                 "grid", "ring", "smem", "regs", "spills", "device", "pack", "rollout", "queue", "host",
                                 "plan"))},

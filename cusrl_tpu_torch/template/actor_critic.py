@@ -386,12 +386,26 @@ class ActorCritic(Agent):
     def update(self) -> dict[str, float]:
         """One update on the buffer's rollout (global under a process
         group); the metrics come to the host in one transfer."""
+        return self.update_and_read()[0]
+
+    def update_and_read(self, extra: torch.Tensor | None = None) -> tuple[dict[str, float], np.ndarray | None]:
+        """``update``, and the caller's ``extra`` tensor read to the host: in
+        the metrics' transfer (in fp64) where it lies on the agent's device,
+        else on its own (no wait for a CPU tensor)."""
         rollout, buffer_state = self.take_buffered_rollout()
         metrics = self.update_body(rollout, buffer_state=buffer_state)
         keys = sorted(metrics)
         values = torch.stack([torch.as_tensor(metrics[k], device=self.device).float().reshape(()) for k in keys])
         self.apply_schedules(self.iteration)
-        return dict(zip(keys, values.tolist()))
+        read = None
+        if extra is not None and extra.device == values.device:
+            values = torch.cat([values.double(), extra.double().reshape(-1)])
+        elif extra is not None:
+            read = extra.double().cpu().numpy()
+        values = values.tolist()
+        if extra is not None and read is None:
+            read = np.asarray(values[len(keys):]).reshape(extra.shape)
+        return dict(zip(keys, values[:len(keys)])), read
 
     # -- update ----------------------------------------------------------------
 

@@ -10,13 +10,16 @@ finished, ``episode_reward`` and ``episode_length`` (means over the finished
 episodes).  ``PlayerHook``s see every step's ``reward``, ``terminated`` and
 ``truncated`` and every reset.
 
-A host ``Environment`` is driven on numpy arrays, as the JAX Player drives
+A host ``Environment`` on numpy arrays is driven as the JAX Player drives
 it: the episode statistics are kept on the host, and where the environment
-does not autoreset the finished instances are reset by index.
-A ``TensorEnvironment`` is driven step by step through ``_TensorEnvAdapter``
-(the counterpart of ``_JaxEnvAdapter``), on its device: the episode
-statistics accumulate there and come to the host once, at the end; a step
-waits on the device only where ``num_episodes`` or a hook needs the host.
+does not autoreset the finished instances are reset by index.  An
+environment of tensors (the first ``reset`` tells: the IsaacLab and mjlab
+adapters, and a ``TensorEnvironment`` driven step by step through
+``_TensorEnvAdapter``, the counterpart of ``_JaxEnvAdapter``) is driven on
+its device: the episode statistics accumulate there and come to the host
+once, at the end; a step waits on the device only where ``num_episodes``, a
+hook or a reset by index needs the host.  An environment's
+``get_metrics()`` joins the summary at the end, as in the JAX Player.
 ``steps_taken`` and ``loop_seconds`` (the loop's wall time, its final
 transfer included) give the loop's rate.  Under several processes only rank 0
 prints the summary.
@@ -134,11 +137,15 @@ class Player:
 
     def _run(self) -> dict[str, float]:
         start = time.perf_counter()
-        if isinstance(self.environment, _TensorEnvAdapter):
-            self._run_tensor()
+        observation, state, _ = self.environment.reset()
+        if isinstance(observation, torch.Tensor):
+            self._run_tensor(observation, state)
         else:
-            self._run_host()
+            self._run_host(observation, state)
         self.loop_seconds = time.perf_counter() - start
+        get_metrics = getattr(self.environment, "get_metrics", None)
+        if get_metrics is not None:
+            self.metrics.record(get_metrics())
         summary = self.metrics.summary()
         if self.verbose and distributed.is_main_process():
             width = max((len(k) for k in summary), default=10) + 2
@@ -153,10 +160,9 @@ class Player:
             return True
         return self.num_episodes is not None and bool((finished >= self.num_episodes).all())
 
-    def _run_host(self) -> None:
+    def _run_host(self, observation, state) -> None:
         """The host environment's loop (``cusrl_tpu/template/player.py:130-184``)."""
         env = self.environment
-        observation, state, _ = env.reset()
         episode_counts = np.zeros(env.num_instances, dtype=np.int64)
         episode_rewards: list[float] = []
         episode_lengths: list[float] = []
@@ -195,14 +201,14 @@ class Player:
         if episode_rewards:
             self.metrics.record(episode_reward=episode_rewards, episode_length=episode_lengths)
 
-    def _run_tensor(self) -> None:
+    def _run_tensor(self, observation, state) -> None:
         env = self.environment
-        observation, state, _ = env.reset()
-        zeros = torch.zeros(env.num_instances, device=env.device)
+        device = observation.device
+        zeros = torch.zeros(env.num_instances, device=device)
         episode_counts = zeros.long()
         cum_reward, cum_length = zeros.clone(), zeros.clone()
-        finished = torch.zeros(3, device=env.device)  # episodes, their reward sum, their length sum
-        step_reward_sum = torch.zeros((), device=env.device)
+        finished = torch.zeros(3, device=device)  # episodes, their reward sum, their length sum
+        step_reward_sum = torch.zeros((), device=device)
         step = 0
         self.rate.reset()
 
@@ -223,9 +229,14 @@ class Player:
             episode_counts += done
             cum_reward = torch.where(done, 0.0, cum_reward)
             cum_length = torch.where(done, 0.0, cum_length)
-            if self.hooks:
+            if self.hooks or not env.spec.autoreset:
                 indices = done.nonzero().reshape(-1).cpu().numpy()
                 if indices.size:
+                    if not env.spec.autoreset:
+                        new_obs, new_state, _ = env.reset(indices=indices)
+                        observation = torch.where(done[:, None], new_obs, observation)
+                        if state is not None and new_state is not None:
+                            state = torch.where(done[:, None], new_state, state)
                     for hook in self.hooks:
                         hook.reset(self, indices)
 

@@ -2,16 +2,20 @@
 
 Two drivers behind one Trainer, as in the JAX package:
 
-* **Host driver**, for a host ``Environment`` (gym adapters, the native
-  CartPole, ``DummyEnvironment``): a Python loop around the agent's ``act``
-  and ``step`` on numpy arrays until ``step`` says an update is due, then
-  ``update`` (``_rollout_and_update_host``).  Episode sums are kept on the
-  host; the environment's ``info`` arrays go into the transitions; where the
-  environment does not autoreset the finished instances are reset by
-  index.  The Timer splits each iteration into ``environment`` (the loop,
-  the policy's steps included) and ``agent`` (the update), and
-  ``Perf/environment_fps`` reads the first.  ``iterations_per_dispatch`` does
-  not apply: every iteration makes its own transfers.
+* **Host driver**, for an ``Environment`` (gym adapters, the native
+  CartPole, ``DummyEnvironment``, the IsaacLab and mjlab adapters): a Python
+  loop around the agent's ``act`` and ``step`` until ``step`` says an update
+  is due, then ``update`` (``_rollout_and_update_host``).  The environment's
+  ``info`` arrays go into the transitions; where the environment does not
+  autoreset the finished instances are reset by index.  The episode sums
+  stay where the observation lies (a simulator's tensors on its device,
+  numpy arrays on the host), and each step's finished-episode aggregates
+  come to the host with the update's metrics, in its one transfer, so a
+  rollout step waits on nothing.  The
+  Timer splits each iteration into ``environment`` (the loop, the policy's
+  steps included) and ``agent`` (the update), and ``Perf/environment_fps``
+  reads the first.  ``iterations_per_dispatch`` does not apply: every
+  iteration makes its own transfers.
 * **Tensor driver**, for a device-resident ``TensorEnvironment``: the
   ``RolloutDriver`` (the JAX Trainer's scan path, ``_rollout_and_update_scan``
   and its chunked form).
@@ -65,7 +69,6 @@ import torch
 from cusrl_tpu_torch.template.environment import (
     Environment,
     TensorEnvironment,
-    get_done_indices,
     update_observation_and_state,
 )
 from cusrl_tpu_torch.template.logger import LoggerFactory
@@ -300,35 +303,56 @@ class Trainer:
         return distributed.world_size() if group is None else torch.distributed.get_world_size(group)
 
     def _rollout_and_update_host(self) -> dict[str, float]:
+        """The host loop.  The episode sums are tensors on the observation's
+        device (the CPU for numpy arrays, which ``torch.as_tensor`` shares),
+        and each step's ``(finished episodes, their return sum, their length
+        sum)`` comes to the host with the update's metrics, so a rollout step
+        waits on nothing; ``EnvironmentStats`` then takes them step by step."""
         env, agent = self.environment, self.agent
         if self._host_obs is None:
             self._host_obs, self._host_state, _ = env.reset()
-            self._host_cum_reward = np.zeros(env.num_instances)
-            self._host_cum_length = np.zeros(env.num_instances)
+            device = self._host_obs.device if isinstance(self._host_obs, torch.Tensor) else "cpu"
+            self._host_cum_reward = torch.zeros(env.num_instances, dtype=torch.float64, device=device)
+            self._host_cum_length = torch.zeros_like(self._host_cum_reward)
+        cum_reward, cum_length = self._host_cum_reward, self._host_cum_length
+        finished = []
         with self.timer.record("environment"):
             should_update = False
             while not should_update:
                 action = agent.act(self._host_obs, self._host_state)
                 obs, state, reward, terminated, truncated, info = env.step(action)
-                done = np.asarray(terminated).reshape(-1) | np.asarray(truncated).reshape(-1)
-                self._host_cum_reward += np.asarray(reward).sum(-1)
-                self._host_cum_length += 1
-                if done.any():
-                    self.stats.track_aggregates(float(done.sum()), float(self._host_cum_reward[done].sum()),
-                                                float(self._host_cum_length[done].sum()), 0)
-                    self._host_cum_reward[done] = 0
-                    self._host_cum_length[done] = 0
+                done = (torch.as_tensor(terminated) | torch.as_tensor(truncated)).reshape(-1)
+                cum_reward += torch.as_tensor(reward).sum(-1)
+                cum_length += 1
+                finished.append(torch.stack([done.sum(dtype=torch.float64), torch.where(done, cum_reward, 0.0).sum(),
+                                             torch.where(done, cum_length, 0.0).sum()]))
+                cum_reward.masked_fill_(done, 0.0)
+                cum_length.masked_fill_(done, 0.0)
                 self.stats.total_steps += env.num_instances
-                extra = {k: v for k, v in (info or {}).items() if isinstance(v, np.ndarray)}
+                extra = {k: v for k, v in (info or {}).items() if isinstance(v, (np.ndarray, torch.Tensor))}
                 should_update = agent.step(obs, reward, terminated, truncated, next_state=state, **extra)
                 if not env.spec.autoreset:
-                    indices = get_done_indices(terminated, truncated)
-                    if indices.size:
-                        new_obs, new_state, _ = env.reset(indices=indices)
-                        obs, state = update_observation_and_state(obs, state, new_obs, new_state, indices)
+                    obs, state = self._reset_finished(obs, state, done)
                 self._host_obs, self._host_state = obs, state
         with self.timer.record("agent"):
-            return agent.update()
+            metrics, aggregates = agent.update_and_read(torch.stack(finished))
+        for count, return_sum, length_sum in aggregates.tolist():
+            self.stats.track_aggregates(count, return_sum, length_sum, 0)
+        return metrics
+
+    def _reset_finished(self, obs, state, done: torch.Tensor):
+        """Resets by index the instances that finished this step, for an
+        environment that does not autoreset."""
+        indices = done.nonzero().reshape(-1).cpu().numpy()
+        if not indices.size:
+            return obs, state
+        new_obs, new_state, _ = self.environment.reset(indices=indices)
+        if not isinstance(obs, torch.Tensor):
+            return update_observation_and_state(obs, state, new_obs, new_state, indices)
+        obs = torch.where(done[:, None], new_obs, obs)
+        if state is not None and new_state is not None:
+            state = torch.where(done[:, None], new_state, state)
+        return obs, state
 
     def chunk_size(self) -> int:
         """Iterations in the next chunk: clamped to the next checkpoint
@@ -364,6 +388,10 @@ class Trainer:
         steps = self.agent.num_steps_per_update * self.environment.num_instances * self._data_ranks()
         info = {f"Train/{k}": v for k, v in metrics.items()}
         info.update(self.stats.summary())
+        # A simulator's metrics (the IsaacLab and mjlab adapters' extras["log"]).
+        get_metrics = getattr(self.environment, "get_metrics", None)
+        if get_metrics is not None:
+            info.update({f"Environment/{k}": v for k, v in get_metrics().items()})
         info.update(
             {
                 "Perf/environment_time": env_time,

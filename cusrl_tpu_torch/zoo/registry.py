@@ -2,8 +2,9 @@
 
 Global ``registry`` keyed ``"<env>_<algo>"``, with the experiment modules
 loaded at the first lookup; ``add_experiment_modules`` adds modules of the
-caller's (the CLI's ``-m``).  The port registers the gym entries
-(``cusrl_tpu_torch.zoo.gym``) and the locomotion ones.
+caller's (the CLI's ``-m``).  The port registers the JAX package's entries:
+the gym ones, the locomotion ones, and the IsaacLab, mjlab and robot_lab ones
+(which register without their simulators).
 """
 
 from __future__ import annotations
@@ -24,7 +25,13 @@ __all__ = [
 ]
 
 registry: dict[str, ExperimentSpec] = {}
-experiment_modules: list[str] = ["cusrl_tpu_torch.zoo.gym", "cusrl_tpu_torch.zoo.locomotion"]
+experiment_modules: list[str] = [
+    "cusrl_tpu_torch.zoo.gym",
+    "cusrl_tpu_torch.zoo.locomotion",
+    "cusrl_tpu_torch.zoo.isaaclab",
+    "cusrl_tpu_torch.zoo.mjlab",
+    "cusrl_tpu_torch.zoo.robot_lab",
+]
 _loaded = False
 
 

@@ -153,7 +153,10 @@ def test_cli_errors(case, tmp_path, capsys):
 
 def test_list_experiments_prints_the_registry(capsys):
     main(["list-experiments"])
-    assert capsys.readouterr().out.split() == [
-        "Acrobot-v1_ppo", "BipedalWalker-v3_ppo", "CartPole-v1_ppo", "LunarLanderContinuous-v3_ppo",
-        "MountainCar-v0_ppo", "MountainCarContinuous-v0_ppo", "Pendulum-v1_ppo", "Velocity-Flat_amp",
-        "Velocity-Flat_ppo", "Velocity-Flat_recurrent_ppo", "Velocity-Flat_transformer_ppo", "Velocity-Rough_ppo"]
+    listed = capsys.readouterr().out.split()
+    jax_main(["list-experiments"])
+    assert listed == capsys.readouterr().out.split() and len(listed) == 42  # the IsaacLab, mjlab and robot_lab ones too
+    assert {"Acrobot-v1_ppo", "BipedalWalker-v3_ppo", "CartPole-v1_ppo", "LunarLanderContinuous-v3_ppo",
+            "MountainCar-v0_ppo", "MountainCarContinuous-v0_ppo", "Pendulum-v1_ppo", "Velocity-Flat_amp",
+            "Velocity-Flat_ppo", "Velocity-Flat_recurrent_ppo", "Velocity-Flat_transformer_ppo",
+            "Velocity-Rough_ppo", "Isaac-Velocity-Rough-Anymal-C-v0_ppo"} <= set(listed)

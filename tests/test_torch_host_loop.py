@@ -281,7 +281,8 @@ def test_cli_trains_plays_and_benchmarks_the_gym_entry(tmp_path, capsys):
     jax_get_experiment("CartPole-v1", "ppo")  # loads the JAX registry
     jax_gym = {name for name, spec in jax_registry.items()
                if spec.training_env_factory.__module__ == "cusrl_tpu.environment.gym"}
-    assert len(jax_gym) == 7 and {name for name in listed if "-v" in name} == jax_gym
+    assert len(jax_gym) == 7 and {name for name in listed if get_experiment(name).training_env_factory.__module__
+                                  == "cusrl_tpu_torch.environment.gym"} == jax_gym
     for name in jax_gym:  # the entries' kwargs are the JAX entries'
         spec, ref = get_experiment(name), jax_registry[name]
         assert spec.agent_meta_factory_kwargs == ref.agent_meta_factory_kwargs

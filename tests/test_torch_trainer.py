@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from cusrl_tpu.zoo.registry import get_experiment as jax_get_experiment
+from cusrl_tpu.zoo.registry import list_experiments as jax_list_experiments
 from cusrl_tpu_torch.environment.locomotion import VelocityLocomotionEnv
 from cusrl_tpu_torch.template.logger import LoggerFactory
 from cusrl_tpu_torch.template.player import Player
@@ -33,15 +34,38 @@ def test_zoo_ppo_entries_match_jax(environment):
     assert spec.benchmarking_env_factory_kwargs == ref.benchmarking_env_factory_kwargs
     for name in ("num_iterations", "checkpoint_interval", "iterations_per_dispatch", "experiment_name"):
         assert getattr(spec, name) == getattr(ref, name), name
-    assert set(list_experiments()) == {"Velocity-Flat_ppo", "Velocity-Rough_ppo", "Velocity-Flat_transformer_ppo",
-                                       "Velocity-Flat_recurrent_ppo", "Velocity-Flat_amp", "CartPole-v1_ppo",
-                                       "MountainCar-v0_ppo", "MountainCarContinuous-v0_ppo", "Pendulum-v1_ppo",
-                                       "Acrobot-v1_ppo", "BipedalWalker-v3_ppo", "LunarLanderContinuous-v3_ppo"}
+    assert list_experiments() == jax_list_experiments() and len(list_experiments()) == 42
     for lower in ("to_playing_factory", "to_benchmarking_factory"):
         factory, ref_factory = getattr(spec, lower)(), getattr(ref, lower)()
         assert type(factory).__name__ == type(ref_factory).__name__
         for name in ("environment_kwargs", "num_steps", "num_episodes", "deterministic", "timestep"):
             assert getattr(factory, name) == getattr(ref_factory, name), (lower, name)
+
+
+def _simulator_entries() -> list[str]:
+    from cusrl_tpu.zoo.registry import registry as jax_registry
+
+    jax_list_experiments()
+    return sorted(k for k, spec in jax_registry.items() if spec.training_env_factory.__module__.startswith(
+        ("cusrl_tpu.environment.isaaclab", "cusrl_tpu.environment.mjlab")))
+
+
+@pytest.mark.parametrize("key", _simulator_entries())
+def test_zoo_simulator_entries_match_jax(key):
+    """The 30 IsaacLab, mjlab and robot_lab entries: the registered kwargs,
+    factories and player letter for letter; they register without their
+    simulators."""
+    spec, ref = get_experiment(key), jax_get_experiment(key)
+    assert spec.agent_meta_factory_kwargs == ref.agent_meta_factory_kwargs
+    assert spec.agent_meta_factory.__name__ == ref.agent_meta_factory.__name__
+    for name in ("training_env_factory_kwargs", "playing_env_factory_kwargs", "benchmarking_env_factory_kwargs",
+                 "num_iterations", "checkpoint_interval", "iterations_per_dispatch", "experiment_name"):
+        assert getattr(spec, name) == getattr(ref, name), name
+    for name in ("training_env_factory", "playing_env_factory", "player_factory"):
+        got, want = getattr(spec, name), getattr(ref, name)
+        assert got.__name__ == want.__name__, name
+        assert got.__module__ == want.__module__.replace("cusrl_tpu.", "cusrl_tpu_torch.", 1), name
+    assert len(_simulator_entries()) == 30
 
 
 def test_zoo_factory_builds_the_uncut_agent_with_its_hooks():
