@@ -333,6 +333,15 @@ SEED = 0
 WIDTHS = (48, 512, 256, 128)  # Velocity-Rough: 48-D observations, 512-256-128 backbones
 NUM_ENVS, STEPS, EPOCHS, MINIBATCHES = 4096, 24, 5, 4
 MINIBATCH_ROWS = NUM_ENVS * STEPS // MINIBATCHES  # 24,576
+# Iterations of a path's warm-up chunk before its timed chunk of 10, so that
+# the timed chunk runs one configuration: past the first iteration's lazy
+# set-up and the only settings of any path that change with the iteration,
+# SC's schedules (32 steps from iteration 2, the entropy loss off from 3; the
+# entropy weight's ramp to iteration 10 changes a value, not what runs).  The
+# zoo's KL-adaptive learning rates adapt from iteration 0 (no warm-up
+# iterations), and no path logs or writes a checkpoint (every 50 iterations
+# with a logger).
+WARMUP_ITERATIONS = 5
 RAGGED_ROWS = 1000
 TIMED_ITERATIONS = 3
 EXPECTED_LAUNCHES_PER_ITERATION = {"K1f": STEPS + 3, "K1b": 0, "K2f": EPOCHS * MINIBATCHES, "K2b": EPOCHS * MINIBATCHES}
@@ -551,22 +560,72 @@ def _ms(value) -> str:
     return "not measured" if value is None else f"{value:.4f}"
 
 
+# Phase 2's device ms with the design the wgmma one replaced (WMMA tiles in
+# one launch, the splits added in a second), by (kernel, rows per chain,
+# chains, dW shapes): the brackets of PERF.md §6's phase table.
+MLP_SHAPES = ((512, 48), (256, 512), (128, 256))
+PRE_SHAPES = ((128, 48), (128, 128), (128, 128), (128, 128))
+POST_SHAPES = ((128, 128), (512, 128), (128, 512))
+PHASE2_BEFORE = {
+    ("K1b", 6144, 1, ((512, 128), (128, 512))): 0.0311, ("K1b", 24576, 1, MLP_SHAPES): 0.0855,
+    ("K1b", 65536, 1, ((128, 128),)): 0.0320, ("K1b", 6144, 1, ((128, 256),)): 0.0106,
+    ("K1b", 4096, 1, ((512, 48), (256, 512))): 0.0184, ("K2b", 6144, 2, ((128, 256),)): 0.0163,
+    ("K2b", 24576, 2, ((128, 48), (128, 128), (128, 128))): 0.0464, ("K2b", 24576, 2, MLP_SHAPES): 0.1844,
+    ("K8b", 24576, 2, MLP_SHAPES): 0.1866, ("K9s", 24576, 2, MLP_SHAPES): 0.1878, ("K9m", 24576, 2, MLP_SHAPES): 0.1897,
+    ("K4pre_b", 6144, 1, PRE_SHAPES): 0.0156, ("K4pre_b", 65536, 1, PRE_SHAPES): 0.0795,
+    ("K4post_b", 6144, 1, POST_SHAPES): 0.0375, ("K4post_b", 65536, 1, POST_SHAPES): 0.3142,
+    ("K5pre_b", 6144, 2, PRE_SHAPES): 0.0208, ("K5post_b", 6144, 2, POST_SHAPES): 0.0708,
+    ("K1b", 24576, 1, ((512, 235), (256, 512), (128, 256))): 0.1418,
+}
+
+
+def _phase2_plan(fn, chains: int) -> dict:
+    """Phase 2's plan as one call of ``fn`` makes it (``dw_phase2.make_scratch``
+    watched): splits, cluster, clusters a tile, dW tiles, blocks, the column
+    chunk, the ring's stages by tile width and H's type (as the library
+    sizes them: ``dw_phase2_stages``), and the blocks the card holds at once
+    in such clusters (``dw_phase2_max_blocks``: the wave the plan assumes is
+    ``dw_phase2.WAVE``)."""
+    import torch
+
+    from cusrl_tpu_torch.nn.kernels import build, dw_phase2
+
+    seen = []
+    make = dw_phase2.make_scratch
+    dw_phase2.make_scratch = lambda *args, **kwargs: seen.append(make(*args, **kwargs)) or seen[-1]
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        dw_phase2.make_scratch = make
+    s = seen[-1][0]
+    lib = build.load_library("mlp_chain_bwd")
+    stages = {f"{name} {64 * hb}": lib.dw_phase2_stages(s.col_chunk, kind, hb)
+              for name, kind, widths in (("bf16", dw_phase2.H_BF16, (4, 2, 1)), ("fp32", dw_phase2.H_F32, (2, 1)))
+              for hb in widths}
+    return dict(phase2_splits=s.splits, phase2_cluster=s.cluster, phase2_clusters_per_tile=s.splits // s.cluster,
+                phase2_tiles=s.tiles, phase2_blocks=s.splits * s.tiles * chains, phase2_col_chunk=s.col_chunk,
+                phase2_stages=stages, phase2_active_blocks=lib.dw_phase2_max_blocks(s.cluster, s.col_chunk))
+
+
 def _backward_phases(name: str, fn, rows: int, chains: int, dw_shapes, bytes_per_row: int, cols: int,
                      phase1: tuple, plan: dict | None = None, repeats: int = 10, warmup: int = 3) -> dict:
     """Phase 1's and phase 2's device time per call of the backward launch in
     ``fn`` (torch.profiler over ``repeats`` calls, kernels by name: phase 2
-    ``dw::split_kernel`` and ``dw::reduce_kernel``, phase 1 every other
-    kernel of the port's backwards, the pack of the transposed weights
-    included: ``mlpb::``, ``fbb::``, ``fbp::`` and ``mlpm::`` (K9m, whose
-    forward runs in its phase 1)), both phases' bounds, phase 2's row
-    split, and two calls of ``fn`` compared bit for bit (raises if they
-    differ).  Phase 1's work, all chains: ``phase1 = (bytes, FLOP)`` per row
-    (each input read once, each output written once, the data products);
-    phase 2's per chain: ``2 * rows * sum(n_out * n_in)`` FLOP over
-    ``dw_shapes``, its bytes each input read once (``bytes_per_row`` per
-    chain: the bf16 output cotangents and the layer inputs), the per-row-tile
-    column partials (``cols`` floats per tile, all chains) and the outputs
-    once.  ``plan``: phase 1's plan fields, printed beside its time."""
+    ``dw::phase2_kernel``, phase 1 every other kernel of the port's
+    backwards, the pack of the transposed weights included: ``mlpb::``,
+    ``fbb::``, ``fbp::`` and ``mlpm::`` (K9m, whose forward runs in its
+    phase 1)), both phases' bounds, phase 2's plan (``_phase2_plan``), and
+    two calls of ``fn`` compared bit for bit (raises if they differ).  Phase
+    2's time before the redesign (``PHASE2_BEFORE``, a constant from earlier
+    runs) is printed beside this run's and kept out of the fields.  Phase 1's work, all
+    chains: ``phase1 = (bytes, FLOP)`` per row (each input read once, each
+    output written once, the data products); phase 2's per chain: ``2 * rows
+    * sum(n_out * n_in)`` FLOP over ``dw_shapes``, its bytes each input read
+    once (``bytes_per_row`` per chain: the bf16 output cotangents and the
+    layer inputs), the per-row-tile column partials (``cols`` floats per
+    tile, all chains) and the outputs once.  ``plan``: phase 1's plan
+    fields, printed beside its time."""
     import torch
 
     from cusrl_tpu_torch.nn.kernels import dw_phase2
@@ -576,7 +635,7 @@ def _backward_phases(name: str, fn, rows: int, chains: int, dw_shapes, bytes_per
     if len(first) != len(second) or not all(torch.equal(a, b) for a, b in zip(first, second)):
         raise AssertionError(f"{name}: two calls on the same inputs differ")
     # Each call launches phase 1's kernels (the pack, where the images stream,
-    # and the row kernel) and the two phase-2 kernels; a phase's time per call
+    # and the row kernel) and phase 2's one kernel; a phase's time per call
     # is the sum of its kernels' mean times (the profiler can miss a profiled
     # run's first kernel, so counts may fall short of ``repeats``).
     device_events = 0
@@ -586,7 +645,7 @@ def _backward_phases(name: str, fn, rows: int, chains: int, dw_shapes, bytes_per
         kernels = [[k for k in found if not _in_namespaces(k[0], ("dw",))],
                    [k for k in found if _in_namespaces(k[0], ("dw",))]]
         counts = [[count for _, count, _ in phase] for phase in kernels]
-        if (1 <= len(counts[0]) <= 2 and len(counts[1]) == 2
+        if (1 <= len(counts[0]) <= 2 and len(counts[1]) == 1
                 and all(repeats // 2 <= c <= repeats for c in sum(counts, []))):
             p1, p2 = (sum(us / count for _, count, us in phase) / 1e3 for phase in kernels)
             by_kernel = "; ".join(f"{k.split('(')[0]} {us / count / 1e3:.4f} ms" for k, count, us in kernels[0])
@@ -595,8 +654,8 @@ def _backward_phases(name: str, fn, rows: int, chains: int, dw_shapes, bytes_per
     else:
         if device_events:
             raise AssertionError(f"{name}: the profiler saw {kernels} over {repeats} calls in each of "
-                                 f"{PROFILE_ATTEMPTS} sessions; expected phase 1's one or two kernels and two phase-2 "
-                                 f"kernels, each launched once per call")
+                                 f"{PROFILE_ATTEMPTS} sessions; expected phase 1's one or two kernels and phase 2's "
+                                 f"kernel, each launched once per call")
         # The profiler recorded nothing on the card: both phases together by events.
         p1 = p2 = None
         call_ms = _queued_events_ms(fn, repeats, warmup)
@@ -608,15 +667,21 @@ def _backward_phases(name: str, fn, rows: int, chains: int, dw_shapes, bytes_per
             chains * (rows * bytes_per_row + dw_floats * 4) + (row_tiles + 1) * cols * 4)
     bound, by = _bound_ms(*work)
     bound1, by1 = _bound_ms(rows * phase1[1], rows * phase1[0])
-    splits, per = dw_phase2.dw_row_splits(row_tiles, dw_phase2.dw_tile_count(dw_shapes), chains)
+    p2_plan = _phase2_plan(fn, chains)
+    before = PHASE2_BEFORE.get((name.split()[0], rows, chains, tuple(map(tuple, dw_shapes))))
     fields = dict(phase1_ms=p1, phase1_bound_ms=bound1, phase1_bound_by=by1, phase1_kernels=by_kernel,
                   phase2_ms=p2, phase2_bound_ms=bound, phase2_bound_by=by,
-                  phase2_splits=f"{splits} x {per} row tiles", bitwise_repeat=True, **(plan or {}))
+                  bitwise_repeat=True, **p2_plan, **(plan or {}))
     if call_ms is not None:
         fields["phases_events_ms"] = call_ms
+    before = "no earlier run" if before is None else f"{before:.4f} (earlier runs, not measured here)"
     print(f"    {name} rows={rows}: phase1_ms={_ms(p1)} ({by_kernel}) phase1_bound_ms={bound1:.4f} "
-          f"({by1}, {phase1[0]} B and {phase1[1]} FLOP a row) phase2_ms={_ms(p2)} phase2_bound_ms={bound:.4f} ({by}) "
-          f"splits={splits} (x {per} row tiles); two calls: same bits ({len(first)} tensors)")
+          f"({by1}, {phase1[0]} B and {phase1[1]} FLOP a row) phase2_ms={_ms(p2)} (dw::phase2_kernel; before the "
+          f"redesign {before}) phase2_bound_ms={bound:.4f} ({by}) "
+          f"plan: {p2_plan['phase2_splits']} splits in clusters of {p2_plan['phase2_cluster']} "
+          f"({p2_plan['phase2_clusters_per_tile']} a tile), {p2_plan['phase2_tiles']} dW tiles, "
+          f"{p2_plan['phase2_blocks']} blocks ({p2_plan['phase2_active_blocks']} at once), stages "
+          f"{p2_plan['phase2_stages']}; two calls: same bits ({len(first)} tensors)")
     return fields
 
 
@@ -3497,7 +3562,7 @@ EXPECTED_ZOO_LAUNCHES = {  # per training iteration
     # predictor (saving, and its backward) on 24,576.  The return probe is
     # an fp32 Linear.
     "X": {**_NONE, "K1f": STEPS + 3 + 2 + 2 * MB, "K1b": MB, "K2f": MB, "K2b": MB},
-    # Path SC at 32 steps (the timed chunk; the warm-up chunk ran at 24): A's
+    # Path SC at 32 steps (the timed chunk; the warm-up chunk's first two ran at 24): A's
     # launches, plus per minibatch the stage's estimator forward (saving) and
     # backward (skip_input_grad) on 32,768 rows.
     "SC": {**_NONE, "K1f": SC_STEPS + 3 + MB, "K1b": MB, "K2f": MB, "K2b": MB},
@@ -3976,8 +4041,8 @@ def train_zoo(kind: str, path: str):
     (TF), the default route with ``fuse_actor_critic_evaluation=True``
     set on the agent factory (TJ) or with ``num_steps_per_update=256``
     (TL); or path F, ``get_experiment("Velocity-Flat", "ppo")``: 4,096
-    environments, ELU 128-128-128.  One warm-up chunk, then
-    one timed chunk through ``Trainer.rollout_and_update`` with the launch
+    environments, ELU 128-128-128.  One warm-up chunk of
+    ``WARMUP_ITERATIONS``, then one timed chunk through ``Trainer.rollout_and_update`` with the launch
     counters set to 0 just before and read just after, PyTorch's sync debug
     mode on (no synchronizing call but the chunk's one host transfer) and
     every metric finite.  Returns the launches and env-steps/s."""
@@ -4076,10 +4141,12 @@ def _train_chunks(kind: str, path: str, factory, envs: int, chunk: int, distribu
         path = f"{path} distributed"
     torch.cuda.reset_peak_memory_stats()  # DeviceMemoryStats (SC) reads the peak since this path began
     start = time.perf_counter()
-    for _ in range(chunk):
+    trainer.iterations_per_dispatch = WARMUP_ITERATIONS
+    for _ in range(WARMUP_ITERATIONS):
         trainer.rollout_and_update()
+    trainer.iterations_per_dispatch = chunk
     torch.cuda.synchronize()
-    print(f"[train-zoo] {path} ({PATH_NAMES[path.split()[0]]}): warm-up chunk of {chunk} iterations "
+    print(f"[train-zoo] {path} ({PATH_NAMES[path.split()[0]]}): warm-up chunk of {WARMUP_ITERATIONS} iterations "
           f"{time.perf_counter() - start:.3f} s")
 
     _reset_launch_counts()

@@ -77,8 +77,9 @@
 //     across blocks and adds the partials and the per-tile sums in a fixed
 //     order.  It serves _pre_run_bwd, _post_run_bwd and their pair forms.
 //     Bytes bound it (d and the layer input read once: ~218 MB for the post
-//     backward at 65,536 rows, 0.065 ms); the split over about four blocks
-//     per SM, a cp.async ring and 16-byte loads are what it does about it;
+//     backward at 65,536 rows, 0.065 ms); one launch of wgmma blocks fed by
+//     TMA, one wave of them, the splits added through distributed shared
+//     memory in clusters, is what it does about it;
 //   * the post backward's phase 1 (namespace fbb) is the post forward's
 //     design turned around: a pack kernel writes images of W_down^T, W_up^T
 //     and W_o^T (wgmma's K-major B of d_in = d_out W), which stream through
@@ -1221,15 +1222,14 @@ extern "C" int fused_block_pre_bwd(const FbParams* p, int num_chains, const DwSc
   for (int c = 0; c < num_chains; ++c) {
     const FbChain& ch = p->chain[c];
     float* dwp = static_cast<float*>(ch.dw);
-    P.job[c][0] = {ch.sb, ch.x, dwp, E, 0, p->x_is_bf16 ? dw::H_BF16 : dw::H_F32, E, in};  // W_in: bf16(dh)^T x
+    P.job[c][0] = {ch.sb, ch.x, dwp, E, 0, E, in};  // W_in: bf16(dh)^T x
     dwp += size_t(E) * in;
     for (int q = 0; q < 3; ++q) {  // W_q, W_k, W_v: gqkv[:, qE:(q+1)E]^T y
-      P.job[c][1 + q] = {ch.g, ch.sa, dwp, 3 * E, q * E, dw::H_BF16, E, E};
+      P.job[c][1 + q] = {ch.g, ch.sa, dwp, 3 * E, q * E, E, E};
       dwp += size_t(E) * E;
     }
   }
   P.num_jobs = 4;
-  P.activation = 0;
   fb::set_sums(P, p, num_chains, 6 * E);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int err = fbp::launch(p, num_chains, 6 * E, st);
@@ -1243,14 +1243,13 @@ extern "C" int fused_block_post_bwd(const FbParams* p, int num_chains, const DwS
   for (int c = 0; c < num_chains; ++c) {
     const FbChain& ch = p->chain[c];
     float* dwp = static_cast<float*>(ch.dw);
-    P.job[c][0] = {ch.sb, ch.x, dwp, E, 0, dw::H_F32, E, E};  // W_o: bf16(dr1)^T attn
+    P.job[c][0] = {ch.sb, ch.x, dwp, E, 0, E, E};  // W_o: bf16(dr1)^T attn
     dwp += size_t(E) * E;
-    P.job[c][1] = {ch.sc, ch.sa, dwp, F, 0, dw::H_BF16, F, E};  // W_up: bf16(dz1)^T y2
+    P.job[c][1] = {ch.sc, ch.sa, dwp, F, 0, F, E};  // W_up: bf16(dz1)^T y2
     dwp += size_t(F) * E;
-    P.job[c][2] = {ch.g, ch.s, dwp, E, 0, dw::H_SAVED, E, F};  // W_down: g^T hid
+    P.job[c][2] = {ch.g, ch.s, dwp, E, 0, E, F};  // W_down: g^T hid
   }
   P.num_jobs = 3;
-  P.activation = p->activation;
   fb::set_sums(P, p, num_chains, 4 * E + F);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int err = fbb::launch(p, num_chains, 4 * E + F, st);

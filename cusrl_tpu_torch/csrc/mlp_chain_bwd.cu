@@ -63,8 +63,9 @@
 //     fixed order.  It serves all five TPU kernels above (_run_bwd,
 //     _pair_run_bwd, _pair_heads_run_bwd, _run_loss_bwd, _run_ppo_step).
 //     Bytes bound it (D_l and h_l read once, 2 * out_l * in_l FLOP per
-//     row); splitting the rows over about four blocks per SM, a cp.async
-//     ring and 16-byte loads are what the design does about it.
+//     row); one launch of wgmma blocks fed by TMA, one wave of them, the
+//     row splits added through distributed shared memory in clusters, is
+//     what the design does about it.
 // The price is bytes: D_l is written once and read again by phase 2
 // (2 * 2 * sum(out_l) bytes per row, 3,584 B/row/chain at 512-256-128).
 // The heads (K8b, K9s) use the same two phases: each phase-1 block writes its
@@ -760,9 +761,7 @@ int launch_dw(const MlpParams* p, int num_chains, const DwScratch* s, cudaStream
     int n = 0;
     for (int l = 0; l < L; ++l) {
       const int n_out = p->dims[l + 1], n_in = p->dims[l];
-      const int kind = l > 0 ? dw::H_SAVED : (p->x_is_bf16 ? dw::H_BF16 : dw::H_F32);
-      P.job[c][l] = {ch.d[l], l > 0 ? ch.h[l - 1] : ch.x, static_cast<float*>(ch.dw[l]), n_out, 0, kind, n_out,
-                     n_in};
+      P.job[c][l] = {ch.d[l], l > 0 ? ch.h[l - 1] : ch.x, static_cast<float*>(ch.dw[l]), n_out, 0, n_out, n_in};
       P.sum[c][n++] = {static_cast<const float*>(ch.dbp[l]), static_cast<float*>(ch.db[l]), n_out, 0, n_out, 1};
     }
     if (p->head_mode != 0) {
@@ -780,7 +779,6 @@ int launch_dw(const MlpParams* p, int num_chains, const DwScratch* s, cudaStream
   }
   P.num_jobs = L;
   P.num_rows = p->num_rows;
-  P.activation = p->activation;
   return dw::launch(P, num_chains, s, stream);
 }
 
@@ -805,6 +803,16 @@ extern "C" int mlp_ppo_step(const MlpParams* p, const DwScratch* s, void* stream
   const int err = mlpm::launch(p, st);
   if (err != 0) return err;
   return launch_dw(p, 2, s, st);
+}
+
+// Blocks of phase 2 (dw_phase2.cuh) the card holds at once in clusters of
+// `cluster` with `col_chunk` column sums per block (0 where the query fails).
+extern "C" int dw_phase2_max_blocks(int cluster, int col_chunk) { return dw::max_active_blocks(cluster, col_chunk); }
+
+// Stages of phase 2's ring with `col_chunk` column sums per block for a tile
+// whose H is of `kind` (dw::HKind) and takes `hb` 64-column blocks.
+extern "C" int dw_phase2_stages(int col_chunk, int kind, int hb) {
+  return dw::ring_stages(kind, hb, dw::ring_bytes(col_chunk));
 }
 
 // Phase 1's plan of mlp_chain_bwd as the launch takes it: out = {images per

@@ -549,7 +549,8 @@ def _launch_pre_bwd(xs, hs, ghs, gqkvs, pss, skip_input_grad, counter):
                         db_q, db_k, db_v))
     if n:
         shapes = [(embed, in_dim)] + [(embed, embed)] * 3
-        phase2, tensors = dw_phase2.make_scratch(shapes, [6 * embed] * len(xs), n, device)
+        kinds = [dw_phase2.H_BF16 if p.x_is_bf16 else dw_phase2.H_F32] + [dw_phase2.H_BF16] * 3
+        phase2, tensors = dw_phase2.make_scratch(shapes, [6 * embed] * len(xs), n, device, kinds)
         keep += tensors
         _launch("fused_block_pre_bwd", counter, p, len(xs), device, phase2)
     else:
@@ -633,7 +634,9 @@ def _launch_post_bwd(attns, gs, r1s, saveds, wss, activation, counter):
                         dw_down.view(embed, ff), db_down))
     if n:
         shapes = [(embed, embed), (ff, embed), (embed, ff)]
-        phase2, tensors = dw_phase2.make_scratch(shapes, [num_sums] * len(attns), n, device)
+        kinds = [dw_phase2.H_F32, dw_phase2.H_BF16,  # W_o's attn is fp32; W_down's H saved for gelu
+                 dw_phase2.H_SAVED if activation in _PREACT_ACTIVATIONS else dw_phase2.H_BF16]
+        phase2, tensors = dw_phase2.make_scratch(shapes, [num_sums] * len(attns), n, device, kinds)
         keep += tensors
         _launch("fused_block_post_bwd", counter, p, len(attns), device, phase2)
     else:

@@ -631,8 +631,10 @@ def _bwd_params(xs, gs, wss, hss, activation, trailing, skip_input_grad, heads, 
         loss.fill(p.loss, n, heads[1][0].shape[0])
     phase2 = None
     if n > 0:
+        saved = dw_phase2.H_SAVED if activation.lower() in _PREACT_ACTIVATIONS else dw_phase2.H_BF16
+        kinds = [dw_phase2.H_BF16 if p.x_is_bf16 else dw_phase2.H_F32] + [saved] * (num_layers - 1)
         phase2, tensors = dw_phase2.make_scratch([(dims[l + 1], dims[l]) for l in range(num_layers)], col_floats, n,
-                                                 device)
+                                                 device, kinds)
         scratch.append(tensors)
     if width != dims[0]:  # the padding's columns of dW_0 and dX are not given back
         results = [(None if dx is None else dx[:, :width], [dws[0][:, :width], *dws[1:]], dbs, head_grads)

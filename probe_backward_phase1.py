@@ -18,6 +18,9 @@ With ``--variants`` it builds copies of ``csrc/fused_block.cu`` and
 ``cusrl_tpu_torch/_build/probe/``) and prints phase 1's device ms of each on
 the cases of its kernel (a variant's name starts with ``pre``, ``post`` or
 ``chain``).
+With ``--phase2`` it builds copies of both sources with a changed
+``csrc/dw_phase2.cuh`` instead (``PHASE2_VARIANTS``) and prints phase 2's
+device ms of every case for each.
 Nothing is checked here (a variant that takes a part out gives other
 outputs): ``chip_smoke.py`` and ``tests/test_torch_kernels_gpu.py`` hold the
 kernels against their plain versions.
@@ -72,6 +75,24 @@ VARIANTS = {
     "chain: the heads' top act' from device memory": ("mlp_chain_bwd.cu", [(
         "wg::tile_pairs<NA>(lat, c0, cols, f, sv);  // the latent, already in its tile",
         "wg::load_pairs<NA>(static_cast<const bf16*>(c.h[num_layers - 1]), top, c0, cols, row0, n_rows, f, sv);")]),
+}
+
+# Phase 2's variants: substitutions in dw_phase2.cuh, built into both sources that include it.
+PHASE2_VARIANTS = {
+    "phase2: the forward's tanhf gelu": [("return __float2bfloat16(__fdividef(z, 1.f + __expf(-2.f * u)));",
+                                          "return __float2bfloat16(0.5f * z * (1.f + tanhf(u)));")],
+    "phase2: gelu with one MUFU op (a Newton reciprocal)": [(
+        "return __float2bfloat16(__fdividef(z, 1.f + __expf(-2.f * u)));",
+        "const float d = 1.f + __expf(fminf(-2.f * u, 80.f));\n"
+        "  float r = __int_as_float(0x7EF311C3 - __float_as_int(d));\n"
+        "  r = r * (2.f - d * r);\n  r = r * (2.f - d * r);\n  r = r * (2.f - d * r);\n"
+        "  return __float2bfloat16(z * r);")],
+    "phase2: no H conversion": [("const bool convert = T.kind != H_BF16;", "const bool convert = false;")],
+    "phase2: no products": [("    if (active) {\n      wg::wgmma_fence();", "    if (false) {\n      wg::wgmma_fence();")],
+    "phase2: no column sums": [("cols[q] = q0 + q < p.col_floats[chain] ? column_sum(p, chain, q0 + q, r0, r1) : 0.f;",
+                                "cols[q] = 0.f;")],
+    "phase2: no split reduction": [("  cluster_sync();  // every block of the cluster holds its partial", "  return;")],
+    "phase2: a 160 KB ring": [("constexpr int MAX_RING = 224 * 1024; ", "constexpr int MAX_RING = 160 * 1024; ")],
 }
 
 
@@ -172,18 +193,21 @@ def _usage(log: str, symbol: str) -> str:
     return "; ".join(found) + (f"; C7515 x{serial}" if serial else "")
 
 
-def _build(name: str, source: str, subs) -> tuple[subprocess.Popen, Path]:
-    """Starts ``nvcc`` on the variant's copy of the sources."""
+def _build(name: str, source: str, subs, edited: str | None = None) -> tuple[subprocess.Popen, Path]:
+    """Starts ``nvcc`` on the variant's copy of the sources: ``subs`` made
+    in ``edited`` (by default ``source``), the library built from
+    ``source``."""
     from cusrl_tpu_torch.nn.kernels import build
 
-    out = build.BUILD_DIR / "probe" / "".join(ch if ch.isalnum() else "_" for ch in name)
+    edited = edited or source
+    out = build.BUILD_DIR / "probe" / "".join(ch if ch.isalnum() else "_" for ch in name + "_" + source)
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
     files = {f: (build.CSRC_DIR / f).read_text() for f in (*HEADERS, source)}
     for old, new in subs:
-        if old not in files[source]:
-            raise RuntimeError(f"variant {name!r}: {old!r} is not in {source}")
-        files[source] = files[source].replace(old, new)
+        if old not in files[edited]:
+            raise RuntimeError(f"variant {name!r}: {old!r} is not in {edited}")
+        files[edited] = files[edited].replace(old, new)
     for f, text in files.items():
         (out / f).write_text(text)
     cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(out), "-o", str(out / "lib.so"), str(out / source)]
@@ -191,14 +215,14 @@ def _build(name: str, source: str, subs) -> tuple[subprocess.Popen, Path]:
 
 
 @contextlib.contextmanager
-def _variant(stem: str, path: Path):
-    """The wrappers load ``path`` for ``csrc/<stem>.cu`` (and configure it
-    as their own library)."""
+def _variant(stem: str, path: Path, more: dict | None = None):
+    """The wrappers load ``path`` for ``csrc/<stem>.cu`` (and each path of
+    ``more`` for its stem), configured as their own libraries."""
     from cusrl_tpu_torch.nn.kernels import build
 
     load = build.load_library
-    lib = ctypes.CDLL(str(path))
-    build.load_library = lambda s: lib if s == stem else load(s)
+    libs = {s: ctypes.CDLL(str(p)) for s, p in {stem: path, **(more or {})}.items()}
+    build.load_library = lambda s: libs[s] if s in libs else load(s)
     try:
         yield
     finally:
@@ -229,6 +253,8 @@ def main(argv: list[str]) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     start = time.perf_counter()
+    if "--phase2" in argv:
+        return _phase2_variants(chip_smoke, torch, start)
     builds = {name: _build(name, source, subs) for name, (source, subs) in VARIANTS.items()} if argv else {}
     build.build_all()
     usage = {}
@@ -253,6 +279,31 @@ def main(argv: list[str]) -> int:
             times = [f"{case} {_phase_ms(chip_smoke, fn)[0]:.4f}" for case, fn in cases.items()
                      if (f" {kind} b " in case) or (kind == "chain" and " b " not in case)]
         print(f"  {name:36s} phase1_ms: " + " | ".join(times) + f"  [{usage[name]}]")
+    return 0
+
+
+def _phase2_variants(chip_smoke, torch, start: float) -> int:
+    """Phase 2's device ms of every case, as built and with each of
+    ``PHASE2_VARIANTS``."""
+    from cusrl_tpu_torch.nn.kernels import build
+
+    stems = ("fused_block", "mlp_chain_bwd")
+    builds = {(name, stem): _build(name, stem + ".cu", subs, "dw_phase2.cuh")
+              for name, subs in PHASE2_VARIANTS.items() for stem in stems}
+    build.build_all()
+    for key, (proc, _) in builds.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            print(f"variant {key} failed to build:\n{log}", file=sys.stderr)
+            return 1
+    print(f"[build] {time.perf_counter() - start:.1f} s, {len(PHASE2_VARIANTS)} phase-2 variants")
+    cases = _cases(torch, torch.device("cuda", 0))
+    print("  as built: " + " | ".join(f"{case} {_phase_ms(chip_smoke, fn)[1]:.4f}" for case, fn in cases.items()))
+    for name in PHASE2_VARIANTS:
+        paths = {stem: builds[name, stem][1] / "lib.so" for stem in stems}
+        with _variant("fused_block", paths["fused_block"], {"mlp_chain_bwd": paths["mlp_chain_bwd"]}):
+            times = [f"{case} {_phase_ms(chip_smoke, fn)[1]:.4f}" for case, fn in cases.items()]
+        print(f"  {name}: phase2_ms " + " | ".join(times))
     return 0
 
 

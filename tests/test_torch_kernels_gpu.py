@@ -1164,12 +1164,15 @@ def _phase2_cases(name, gen, device):
 @pytest.mark.parametrize("name", ["K1b", "K2b", "K8b", "K9s", "K9m", "K4pre_b", "K4post_b", "K5pre_b", "K5post_b"])
 def test_backward_phase2_split_rows_match_plain_and_repeat_bitwise(cuda, name):
     """Every backward at a row count that phase 2 splits into several row
-    ranges with a short last one (65,537 or 24,577 rows): each gradient and
+    ranges in clusters (65,537 or 24,577 rows; at 65,537 and for K5 several
+    clusters a tile, whose partials meet in the scratch): each gradient and
     sum against the plain version at the usual limits (3e-2 for the PPO
     step's, a row at a clip bound), and a second call gives the same bits."""
     from cusrl_tpu_torch.nn.kernels import dw_phase2
 
-    assert dw_phase2.dw_row_splits(-(-24_577 // 64), 48, 2)[0] > 1
+    mlp_tiles = dw_phase2.dw_tile_count([(512, 48), (256, 512), (128, 256)], [dw_phase2.H_F32])
+    assert dw_phase2.dw_row_splits(-(-24_577 // 64), mlp_tiles, 2) == (6, 2)  # 3 clusters a tile
+    assert dw_phase2.dw_row_splits(-(-65_537 // 64), 1, 1) == (120, 8)  # K1b: 15 clusters
     gen = torch.Generator().manual_seed(len(name) + 6)
     kernel, plain, rel = _phase2_cases(name, gen, cuda)
     first, second, want = kernel(), kernel(), plain()

@@ -112,12 +112,12 @@ def _dropping_split(which: str):
     def faulty(x, g, weights, hs, activation, trailing, skip_input_grad):
         dx, dws, dbs = plain(x, g, weights, hs, activation, trailing, skip_input_grad)
         shapes = [(w.shape[0], w.shape[1]) for w in weights]
-        splits, per = dw_phase2.dw_row_splits(-(-x.shape[0] // dw_phase2.ROW_TILE), dw_phase2.dw_tile_count(shapes), 1)
+        row_tiles = -(-x.shape[0] // dw_phase2.ROW_TILE)
+        splits, _ = dw_phase2.dw_row_splits(row_tiles, dw_phase2.dw_tile_count(shapes), 1)
         seen.append(splits)
         keep = torch.ones(x.shape[0], 1, dtype=g.dtype)
-        dropped = slice((splits - 1) * per * dw_phase2.ROW_TILE, None) if which == "last" else slice(
-            0, per * dw_phase2.ROW_TILE)
-        keep[dropped] = 0
+        rows = dw_phase2.split_range(row_tiles, splits, splits - 1 if which == "last" else 0)
+        keep[rows.start * dw_phase2.ROW_TILE:rows.stop * dw_phase2.ROW_TILE] = 0
         _, dws, dbs = plain(x, g * keep, weights, hs, activation, trailing, skip_input_grad)
         return dx, dws, dbs
 
